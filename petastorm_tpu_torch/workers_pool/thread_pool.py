@@ -1,0 +1,141 @@
+"""Thread-based worker pool (counterpart of
+``petastorm_tpu/workers_pool/thread_pool.py``): pyarrow Parquet decode
+releases the GIL, so threads decode row groups in parallel."""
+
+from __future__ import annotations
+
+import queue
+import sys
+import threading
+import time
+import traceback
+
+from petastorm_tpu_torch.workers_pool import (
+    DEFAULT_TIMEOUT_S,
+    EmptyResultError,
+    TimeoutWaitingForResultError,
+    VentilatedItemProcessedMessage,
+    WorkerException,
+)
+from petastorm_tpu_torch.workers_pool.worker_base import EOFSentinel
+
+#: Worker thread name prefix (the test suite's leak guard watches it).
+WORKER_THREAD_PREFIX = "petastorm-tpu-worker-torch"
+
+
+class ThreadPool:
+    def __init__(self, workers_count):
+        self.workers_count = workers_count
+        # Bounded, so decode stays at most 50 row groups ahead of the consumer.
+        self._results_queue = queue.Queue(maxsize=50)
+        self._ventilator_queue = queue.Queue()
+        self._threads = []
+        self._workers = []
+        self._ventilator = None
+        self._stop_event = threading.Event()
+        self._ventilated_items = 0
+        self._completed_items = 0
+        self._counter_lock = threading.Lock()
+
+    def start(self, worker_class, worker_setup_args=None, ventilator=None):
+        if self._threads:
+            raise RuntimeError("ThreadPool already started")
+        for worker_id in range(self.workers_count):
+            worker = worker_class(worker_id, self._results_queue.put,
+                                  worker_setup_args)
+            self._workers.append(worker)
+            thread = threading.Thread(
+                target=self._worker_loop, args=(worker,), daemon=True,
+                name=f"{WORKER_THREAD_PREFIX}-{worker_id}")
+            self._threads.append(thread)
+            thread.start()
+        if ventilator is not None:
+            self._ventilator = ventilator
+            ventilator.start()
+
+    def _worker_loop(self, worker):
+        while not self._stop_event.is_set():
+            try:
+                item = self._ventilator_queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if isinstance(item, EOFSentinel):
+                break
+            args, kwargs = item
+            try:
+                worker.process(*args, **kwargs)
+            except Exception as exc:  # noqa: BLE001 - forwarded to the consumer
+                tb = "".join(traceback.format_exception(*sys.exc_info()))
+                self._results_queue.put(WorkerException(exc, tb))
+            finally:
+                # Failed items count as processed too, or the ventilator's
+                # in-flight window leaks and the pool deadlocks.
+                self._results_queue.put(VentilatedItemProcessedMessage())
+
+    def ventilate(self, *args, **kwargs):
+        with self._counter_lock:
+            self._ventilated_items += 1
+        self._ventilator_queue.put((args, kwargs))
+
+    def get_results(self, timeout=DEFAULT_TIMEOUT_S):
+        """The next published payload; raises :class:`EmptyResultError` once
+        ventilation is over and everything was consumed, and re-raises
+        worker exceptions."""
+        deadline = time.monotonic() + timeout
+        while True:
+            error = getattr(self._ventilator, "error", None)
+            if error is not None:
+                raise RuntimeError(f"Ventilation failed: {error!r}") from error
+            if self._results_queue.empty() and self._all_done():
+                raise EmptyResultError()
+            try:
+                wait = min(0.5, max(0.001, deadline - time.monotonic()))
+                result = self._results_queue.get(timeout=wait)
+            except queue.Empty:
+                if self._all_done():
+                    raise EmptyResultError() from None
+                if time.monotonic() >= deadline:
+                    raise TimeoutWaitingForResultError(
+                        f"No results for {timeout}s") from None
+                continue
+            if isinstance(result, VentilatedItemProcessedMessage):
+                with self._counter_lock:
+                    self._completed_items += 1
+                if self._ventilator is not None:
+                    self._ventilator.processed_item()
+                continue
+            if isinstance(result, WorkerException):
+                raise result
+            return result
+
+    def _all_done(self):
+        with self._counter_lock:
+            settled = self._ventilated_items == self._completed_items
+        over = self._ventilator is None or self._ventilator.completed()
+        return settled and over and self._ventilator_queue.empty()
+
+    def stop(self):
+        if self._ventilator is not None:
+            self._ventilator.stop()
+        self._stop_event.set()
+        for _ in self._threads:
+            self._ventilator_queue.put(EOFSentinel())
+
+    def join(self):
+        deadline = time.monotonic() + 30
+        while any(t.is_alive() for t in self._threads):
+            # Drain the bounded results queue so a worker blocked in put()
+            # can see the stop event.
+            try:
+                while True:
+                    self._results_queue.get_nowait()
+            except queue.Empty:
+                pass
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        for thread in self._threads:
+            thread.join(timeout=1)
+        for worker in self._workers:
+            worker.shutdown()
+        self._threads = []

@@ -1,0 +1,88 @@
+"""Work ventilation: feeding items to a pool with a bounded in-flight count
+(counterpart of ``petastorm_tpu/workers_pool/ventilator.py``).
+
+The item order per epoch is ``random.Random(random_seed).shuffle`` of the
+item list, exactly as in the JAX package, so one seed gives both packages
+the same row-group order.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+
+
+class ConcurrentVentilator:
+    """Ventilates ``items_to_ventilate`` (kwargs dicts) for ``iterations``
+    epochs (``None`` = forever) on a background thread, with at most
+    ``max_ventilation_queue_size`` items in flight."""
+
+    def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
+                 randomize_item_order=False, random_seed=None,
+                 max_ventilation_queue_size=None):
+        if iterations is not None and iterations <= 0:
+            raise ValueError(f"iterations must be positive or None, got {iterations}")
+        self._ventilate_fn = ventilate_fn
+        self._items_to_ventilate = list(items_to_ventilate)
+        self._iterations = iterations
+        self._randomize_item_order = randomize_item_order
+        self._random = random.Random(random_seed)
+        self._max_in_flight = (max_ventilation_queue_size
+                               or len(self._items_to_ventilate) or 1)
+        self._in_flight = 0
+        self._lock = threading.Lock()
+        self._space_available = threading.Condition(self._lock)
+        self._stop_requested = False
+        self._completed = False
+        self.error = None
+        self._thread = None
+
+    def start(self):
+        if self._thread is not None:
+            raise RuntimeError("Ventilator already started")
+        if not self._items_to_ventilate:
+            self._completed = True
+            return
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="petastorm-torch-ventilator")
+        self._thread.start()
+
+    def _run(self):
+        try:
+            iterations_left = self._iterations
+            while iterations_left is None or iterations_left > 0:
+                items = list(self._items_to_ventilate)
+                if self._randomize_item_order:
+                    self._random.shuffle(items)
+                for item in items:
+                    with self._space_available:
+                        while (self._in_flight >= self._max_in_flight
+                               and not self._stop_requested):
+                            self._space_available.wait(0.01)
+                        if self._stop_requested:
+                            return
+                        self._in_flight += 1
+                    self._ventilate_fn(**item)
+                if iterations_left is not None:
+                    iterations_left -= 1
+        except Exception as exc:  # noqa: BLE001 - surfaced through self.error
+            self.error = exc
+        finally:
+            self._completed = True
+
+    def processed_item(self):
+        with self._space_available:
+            if self._in_flight > 0:
+                self._in_flight -= 1
+            self._space_available.notify()
+
+    def completed(self):
+        return self._completed
+
+    def stop(self):
+        with self._space_available:
+            self._stop_requested = True
+            self._space_available.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
