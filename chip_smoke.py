@@ -10,18 +10,28 @@ non-zero exit code):
 
 1. ``env``: the card's name and power limit, torch / CUDA / nvcc versions,
    whether Triton and CUTLASS headers are present; then the build of the
-   three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``) and its
+   three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``), and of
+   the forward kernel's counting build (``PTT_FWD_COUNT_TILES``), and its
    seconds.
 2. ``kernels``: every kernel against its plain PyTorch version on the card,
    at the attention benchmark's shape (B=2, H=4, D=128, T=4096: causal +
-   segment ids f32, causal bf16, causal GQA with 2 K/V heads, kv_lengths)
-   and at the LM's shape (B=4, T=128, H=4, D=16). Then, on causal +
-   segment ids f32 cases at both shapes, each kernel's device time (CUDA
-   events around calls queued back to back behind a spin kernel, so the card
-   never waits on the host; see ``cuda_ms``) and the host time of its
-   wrapper, its plain version's time, the bound (the larger of bytes over
-   3.35 TB/s and the visible-pair operations over the card's f32 peak) and ``torch.nn.functional.scaled_dot_product_attention`` on the
-   same inputs as a yardstick (the port never calls it).
+   segment ids f32, causal bf16, causal GQA with 2 K/V heads, kv_lengths),
+   at the LM's shape (B=4, T=128, H=4, D=16), on segment ids built to trip
+   a tile-skipping kernel (``segment_layouts``: unsorted, -1 padded tails,
+   single-token segments, one segment over all of T, edges inside tiles) in
+   f32 and bf16, and at head dims 16, 32 and 64. In every case the counting
+   build counts on the card the K tiles the forward's blocks load and the
+   tiles its warps compute, and these must equal ``visited_k_tiles``'s (the
+   plain mirror of the skip rule). Then, on causal + segment ids f32 cases
+   at both shapes, each kernel's device time (CUDA events around calls
+   queued back to back behind a spin kernel, so the card never waits on the
+   host; see ``cuda_ms``) and the host time of its wrapper, its plain
+   version's time, the bound (the larger of bytes over 3.35 TB/s and the
+   visible-pair operations over the card's f32-grade tensor-core rate,
+   ``F32_TC_FLOPS``), the (query, key) pairs the forward kernel computed
+   (counted) beside the visible ones, and
+   ``torch.nn.functional.scaled_dot_product_attention`` on the same inputs
+   as a yardstick (the port never calls it).
 3. ``train``: the packed long-context LM at its full configuration (d_model
    64, 4 heads, 2 layers, vocab 64, slot_len 128, 4 slots, f32) for 12 SGD
    steps from a generated Parquet corpus: every batch arrives on the card,
@@ -56,7 +66,11 @@ F32_FWD_ABS, F32_GRAD_REL, BF16_GRAD_REL = 1e-4, 1e-3, 1e-2
 BF16_STEP, BF16_ABS = 2.0 ** -7, 1e-5
 PARITY_TOL = 2e-4
 HBM_BYTES_PER_S = 3.35e12
-F32_PEAK_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+# f32-grade products on the H100 SXM's tensor cores: 495 TFLOP/s TF32 over
+# the three passes (hi*hi + hi*lo + lo*hi) that keep f32 precision, as the
+# reference's Precision.HIGHEST takes three MXU passes. The same yardstick
+# for all three kernels, whatever each one runs on.
+F32_TC_FLOPS = 495e12 / 3
 TRAIN_STEPS = 12
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
@@ -117,7 +131,10 @@ def cuda_ms(label, fn, calls, batches=3):
     return statistics.median(times), host_s * 1e3 / calls
 
 
-def make_case(B, T, H, D, dtype, Hkv=None, seg=False, lens=False, seed=0):
+def make_case(B, T, H, D, dtype, Hkv=None, seg=None, lens=False, seed=0):
+    """Random ``(q, k, v, do)`` on the card and the kernels' keywords:
+    causal unless ``lens``; ``seg`` True for sorted ids of 8 segments, or a
+    ``segment_ids`` kind."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -126,12 +143,17 @@ def make_case(B, T, H, D, dtype, Hkv=None, seg=False, lens=False, seed=0):
     def rnd(h):
         return torch.randn(B, T, h, D, device="cuda", generator=g).to(dtype)
 
+    from petastorm_tpu_torch.ops.segment_layouts import segment_ids
+
     q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
     kw = dict(causal=True, causal_offset=0, kv_lengths=None, q_seg=None,
               kv_seg=None)
-    if seg:
+    if seg is True:
         ids = torch.randint(0, 8, (B, T), device="cuda", generator=g)
         kw["q_seg"] = kw["kv_seg"] = torch.sort(ids, dim=1).values.int().contiguous()
+    elif seg:
+        kw["q_seg"] = kw["kv_seg"] = torch.tensor(segment_ids(seg, B, T, seed),
+                                                  device="cuda")
     if lens:
         kw["causal"] = False
         kw["kv_lengths"] = torch.randint(T // 4, T + 1, (B,), device="cuda",
@@ -139,18 +161,80 @@ def make_case(B, T, H, D, dtype, Hkv=None, seg=False, lens=False, seed=0):
     return (q, k, v, do), kw
 
 
-def check_case(name, tensors, kw):
-    """Run all three kernels and their plain versions on the same inputs;
-    return the error line and each kernel's max absolute error, and raise on
-    a tolerance miss: the forward absolute in f32 and within one bf16 step
-    elementwise in bf16 (``fwd_steps`` ≤ 1); lse absolute (it is f32 for
-    both dtypes); gradients relative to the largest gradient."""
+def forward_with(fn, q, k, v, kw):
+    """``(o, lse)`` from one launch of ``fn``, the ``ptt_flash_fwd`` of
+    another build of ``flash_fwd.cu``, with the arguments the wrapper passes.
+    The wrapper's launch counts do not move."""
+    import torch
+
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0] * q.shape[2], q.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(kw["q_seg"]),
+             ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ptt_flash_fwd failed with cudaError {err}")
+    return o, lse
+
+
+def count_tiles(name, count_lib, q, k, v, kw, o, lse):
+    """The forward kernel's work on these inputs, counted on the card by one
+    launch of its counting build (``count_lib``: its ``ptt_flash_fwd`` and
+    ``ptt_flash_fwd_tile_counts``): ``(K tiles its blocks load, FWD_WARP_Q x
+    FWD_BLOCK_K tiles its warps compute)`` over all heads. Raises unless the
+    counts equal ``visited_k_tiles``'s and the counting build's ``(o, lse)``
+    equal the kernel's bit for bit."""
+    import ctypes
+
+    import torch
+
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    fwd, read_counts = count_lib
+    counts = (ctypes.c_ulonglong * 2)()
+
+    def read_and_clear():
+        torch.cuda.synchronize()
+        err = read_counts(ctypes.addressof(counts))
+        if err:
+            raise RuntimeError(f"ptt_flash_fwd_tile_counts failed with cudaError {err}")
+        return tuple(counts)
+
+    read_and_clear()
+    o_c, lse_c = forward_with(fwd, q, k, v, kw)
+    got = read_and_clear()
+    B, Tq, H = q.shape[:3]
+    want = tuple(int(fa.visited_k_tiles(
+        B, Tq, k.shape[1], causal=kw["causal"], causal_offset=kw["causal_offset"],
+        kv_lengths=kw["kv_lengths"], q_seg=kw["q_seg"], kv_seg=kw["kv_seg"],
+        block_q=rows).sum()) * H for rows in (fa.FWD_BLOCK_Q, fa.FWD_WARP_Q))
+    if got != want:
+        raise AssertionError(f"{name}: the forward loaded / computed {got} "
+                             f"tiles on the card, visited_k_tiles says {want}")
+    if not (torch.equal(o_c, o) and torch.equal(lse_c, lse)):
+        raise AssertionError(f"{name}: the counting build's output differs from the kernel's")
+    return want
+
+
+def check_case(name, tensors, kw, count_lib):
+    """Run all three kernels and their plain versions on the same inputs,
+    and count the forward's tiles (``count_tiles``); return the error and
+    tile line and each kernel's max absolute error, and raise on a tolerance
+    miss: the forward absolute in f32 and within one bf16 step elementwise in
+    bf16 (``fwd_steps`` ≤ 1); lse absolute (it is f32 for both dtypes);
+    gradients relative to the largest gradient."""
     import torch
 
     from petastorm_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = tensors
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+    loaded, computed = count_tiles(name, count_lib, q, k, v, kw, o, lse)
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
     dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
@@ -182,7 +266,8 @@ def check_case(name, tensors, kw):
         if not err <= limits[key]:
             raise AssertionError(
                 f"{name}: {key} error {err:.3e} above {limits[key]:.0e}")
-    return name + " " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()), max_abs
+    return (name + " " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+            + f" tiles={loaded}/{computed}", max_abs)
 
 
 def visible_pairs(kw, B, T, H):
@@ -205,9 +290,10 @@ def visible_pairs(kw, B, T, H):
     return total * H
 
 
-def measure(shape):
+def measure(shape, count_lib):
     """Times and bounds of the three kernels on a causal + segment-ids f32
-    case of ``shape``."""
+    case of ``shape``, and the forward's K-tile loads and warp tiles counted
+    on the card."""
     import torch
     import torch.nn.functional as F
 
@@ -216,6 +302,7 @@ def measure(shape):
     B, T, H, D = shape["B"], shape["T"], shape["H"], shape["D"]
     (q, k, v, do), kw = make_case(B, T, H, D, torch.float32, seg=True, seed=1)
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+    loaded, warp_tiles = count_tiles(f"timed T={T}", count_lib, q, k, v, kw, o, lse)
     _, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     _, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
@@ -254,6 +341,7 @@ def measure(shape):
                                                       retain_graph=True), calls)
 
     pairs = visible_pairs(kw, B, T, H)
+    computed = warp_tiles * fa.FWD_WARP_Q * fa.FWD_BLOCK_K  # (query, key) pairs
     elt = 4
     act = B * T * H * D * elt      # one [B, T, H, D] f32 tensor
     row = B * H * T * 4            # one f32 per (b, h, row): lse or delta
@@ -267,12 +355,12 @@ def measure(shape):
     for name, ((ms, host_ms), (plain_ms, _)) in times.items():
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_PEAK_FLOPS * 1e3
+        t_ops = flops / F32_TC_FLOPS * 1e3
         out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes > t_ops else "operations",
                      "library_ms": sdpa_fwd if name == "fwd" else None}
-    return out, sdpa_bwd, pairs
+    return out, sdpa_bwd, pairs, computed, loaded
 
 
 def main():
@@ -292,6 +380,7 @@ def main():
     from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
     from petastorm_tpu_torch.ops import _build
     from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.ops.segment_layouts import SEGMENT_KINDS
 
     # -- 1. env ------------------------------------------------------------
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -307,7 +396,19 @@ def main():
         triton_version = None
     cutlass = os.path.isdir("/usr/local/cutlass/include/cutlass")
     t0 = time.perf_counter()
-    _build.build_all()
+    count_dir = tempfile.mkdtemp(prefix="chip_smoke_count_")
+    count_so = os.path.join(count_dir, "libflash_fwd_count.so")
+    proc = _build.compile_source("flash_fwd.cu", count_so,
+                                 defines=("PTT_FWD_COUNT_TILES=1",))
+    try:
+        _build.build_all()
+    finally:
+        out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the counting build of flash_fwd.cu:\n{out.decode()}")
+    count_lib = (_build.load(count_so, "ptt_flash_fwd"),
+                 _build.load(count_so, "ptt_flash_fwd_tile_counts"))
+    shutil.rmtree(count_dir, ignore_errors=True)  # loaded: the mapping stays
     build_s = time.perf_counter() - t0
     print(f"env: gpu={smi!r} torch={torch.__version__} cuda={torch.version.cuda} "
           f"nvcc={nvcc_version!r} triton={triton_version} cutlass_headers={cutlass} "
@@ -320,16 +421,24 @@ def main():
         ("bench causal bf16", make_case(B, T, H, D, torch.bfloat16)),
         ("bench causal gqa(hkv=2) f32", make_case(B, T, H, D, torch.float32, Hkv=2)),
         ("bench kv_lengths f32", make_case(B, T, H, D, torch.float32, lens=True)),
-        ("lm D=16 causal+seg f32", make_case(LM["B"], LM["T"], LM["H"], LM["D"],
-                                             torch.float32, seg=True)),
     ]
-    checked = [check_case(name, tensors, kw) for name, (tensors, kw) in cases]
+    for i, kind in enumerate(SEGMENT_KINDS):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            cases.append((f"T=1024 {kind} {tag}",
+                          make_case(B, 1024, H, D, dtype, seg=kind, seed=i)))
+    for d in (16, 32, 64):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            cases.append((f"D={d} T=512 tail_pad {tag}",
+                          make_case(B, 512, H, d, dtype, seg="tail_pad", seed=d)))
+    cases.append(("lm D=16 causal+seg f32", make_case(LM["B"], LM["T"], LM["H"], LM["D"],
+                                                      torch.float32, seg=True)))
+    checked = [check_case(name, tensors, kw, count_lib) for name, (tensors, kw) in cases]
     errs = [line for line, _ in checked]
     max_err = checked[-1][1]  # the main path's shape: the LM case
     del cases
     timed = {}
     for label, shape in (("lm", LM), ("bench", BENCH)):
-        timing, sdpa_bwd_ms, pairs = measure(shape)
+        timing, sdpa_bwd_ms, pairs, computed, loaded = measure(shape, count_lib)
         timed[label] = timing
         errs.append(
             f"| {label} causal+seg f32 {shape}: "
@@ -338,7 +447,9 @@ def main():
                         f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
                         for n, t in timing.items())
             + f"; sdpa fwd ms={timing['fwd']['library_ms']:.4f} "
-            f"sdpa bwd (dq+dk+dv) ms={sdpa_bwd_ms:.4f}; visible pairs={pairs}")
+            f"sdpa bwd (dq+dk+dv) ms={sdpa_bwd_ms:.4f}; visible pairs={pairs} "
+            f"fwd pairs computed (counted on the card)={computed} "
+            f"fwd K-tile loads (counted on the card)={loaded}")
     errs.append(f"| timing batches still short of spin: {SPIN_SHORT}")
     print("kernels: " + "; ".join(errs), flush=True)
 

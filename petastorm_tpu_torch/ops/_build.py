@@ -51,6 +51,16 @@ def _source_hash():
     return digest.hexdigest()[:16]
 
 
+def compile_source(src, out, defines=(), flags=()):
+    """Start ``nvcc`` on ``csrc/<src>`` into the shared library ``out``, with
+    ``-D`` ``defines`` (a source's build-time switches) and further nvcc
+    ``flags``; return the process, its stdout and stderr piped together."""
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, *(f"-D{d}" for d in defines),
+           "-o", out, os.path.join(CSRC, src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
 def build_all():
     """Compile every missing library (in parallel) and return the build
     directory. Raises with the compiler's output when a source fails."""
@@ -59,13 +69,10 @@ def build_all():
     todo = [src for src in SOURCES
             if not os.path.isfile(os.path.join(out_dir, _lib_name(src)))]
     if todo:
-        nvcc = find_nvcc()
         procs = {}
         for src in todo:
             tmp = os.path.join(out_dir, f".{_lib_name(src)}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-            procs[src] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            procs[src] = (tmp, compile_source(src, tmp))
         failures = []
         for src, (tmp, proc) in procs.items():
             out, _ = proc.communicate()
@@ -94,10 +101,21 @@ _ARGTYPES = {
     "ptt_flash_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _P],
     # q, k, v, dout, lse, delta, dk, dv, qseg, kvseg, kv_lens, ...
     "ptt_flash_bwd_dkv": [_P] * 11 + [_I] * 9 + [_F, _P],
+    # out (host, 2 x uint64); only in flash_fwd.cu built with
+    # PTT_FWD_COUNT_TILES=1
+    "ptt_flash_fwd_tile_counts": [_P],
 }
 _SYMBOL_SOURCE = {"ptt_flash_fwd": "flash_fwd.cu",
                   "ptt_flash_bwd_dq": "flash_bwd_dq.cu",
                   "ptt_flash_bwd_dkv": "flash_bwd_dkv.cu"}
+
+
+def load(lib, symbol):
+    """The ctypes function ``symbol`` of the shared library ``lib``."""
+    fn = getattr(ctypes.CDLL(lib), symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def kernel(symbol):
@@ -106,10 +124,7 @@ def kernel(symbol):
         fn = _LIBS.get(symbol)
         if fn is None:
             out_dir = build_all()
-            lib = ctypes.CDLL(os.path.join(
-                out_dir, _lib_name(_SYMBOL_SOURCE[symbol])))
-            fn = getattr(lib, symbol)
-            fn.argtypes = _ARGTYPES[symbol]
-            fn.restype = ctypes.c_int
+            fn = load(os.path.join(out_dir, _lib_name(_SYMBOL_SOURCE[symbol])),
+                      symbol)
             _LIBS[symbol] = fn
         return fn

@@ -12,7 +12,8 @@ Three kernels (``ops/csrc``, CUDA C++ for ``sm_90a``, built at first use by
 :mod:`._build`) carry it on the card:
 
 - ``flash_fwd.cu``: output and the per-row log-sum-exp residual (``+inf``
-  for rows with no visible key), saved for the backward;
+  for rows with no visible key), saved for the backward; it skips the K
+  tiles :func:`visited_k_tiles` leaves out;
 - ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)``;
 - ``flash_bwd_dkv.cu``: dK/dV accumulated per K/V head inside the block.
 
@@ -39,6 +40,12 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PLAIN_BLOCK_K = 128
+
+#: Query rows per block, query rows per warp and keys per K/V tile of
+#: ``flash_fwd.cu`` (its ``BQ``, ``WQ`` and ``BK``): a block loads the K
+#: tiles :func:`visited_k_tiles` gives for ``block_q=FWD_BLOCK_Q``, and each
+#: warp computes those it gives for ``block_q=FWD_WARP_Q``.
+FWD_BLOCK_Q, FWD_WARP_Q, FWD_BLOCK_K = 64, 16, 32
 
 
 def reset_launch_counts():
@@ -171,6 +178,44 @@ def flash_forward_plain(q, k, v, causal=False, causal_offset=0,
             lse.reshape(b * h, t_q))
 
 
+def visited_k_tiles(b, t_q, t_kv, causal=False, causal_offset=0,
+                    kv_lengths=None, q_seg=None, kv_seg=None,
+                    block_q=FWD_BLOCK_Q, block_k=FWD_BLOCK_K):
+    """The forward kernel's tile-skip rule in PyTorch: a boolean
+    ``[B, ceil(Tq / block_q), ceil(Tkv / block_k)]`` tensor, True where the
+    rows of Q tile i (a block's, or with ``block_q=FWD_WARP_Q`` a warp's)
+    take K tile j.
+
+    A Q tile sees keys below ``k_end``: the kv bound and, if causal, its last
+    row's diagonal. Without segment ids it visits every tile that starts
+    below ``k_end``. With them it visits a tile only if one of those keys has
+    an id in ``[min, max]`` of the ids of the Q tile's rows (ids in any order,
+    -1 padding included): a visible pair's key has its row's id, so no
+    visible pair is ever skipped, and a tile whose id range is disjoint from
+    the Q tile's is always skipped."""
+    device = next((t.device for t in (q_seg, kv_lengths) if t is not None),
+                  torch.device("cpu"))
+    n_q, n_k = -(-t_q // block_q), -(-t_kv // block_k)
+    q0 = torch.arange(n_q, device=device) * block_q
+    k_end = _kv_limits(kv_lengths, b, t_kv, device)[:, None].expand(b, n_q)
+    if causal:
+        k_end = torch.minimum(k_end, q0 + block_q + causal_offset)
+    keys = torch.arange(n_k * block_k, device=device)
+    seen = keys[None, None, :] < k_end[:, :, None]             # [B, n_q, keys]
+    if q_seg is not None:
+        pad = n_q * block_q - t_q
+        ids = q_seg.to(torch.int64)
+        lo = torch.nn.functional.pad(ids, (0, pad), value=2 ** 40)
+        hi = torch.nn.functional.pad(ids, (0, pad), value=-2 ** 40)
+        lo = lo.reshape(b, n_q, block_q).amin(dim=-1)
+        hi = hi.reshape(b, n_q, block_q).amax(dim=-1)
+        kv = torch.nn.functional.pad(kv_seg.to(torch.int64),
+                                     (0, n_k * block_k - t_kv))
+        seen = seen & (kv[:, None, :] >= lo[:, :, None]) & (
+            kv[:, None, :] <= hi[:, :, None])
+    return seen.reshape(b, n_q, n_k, block_k).any(dim=-1)
+
+
 def _bwd_tiles(q, k, v, do, lse, delta, causal, causal_offset, kv_lengths,
                q_seg, kv_seg, block_k):
     """Yield ``(k0, k1, p, ds)`` per K tile, f32 ``[B, H, Tq, bk]``:
@@ -254,10 +299,13 @@ def _ptr(t):
 
 
 def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
-                         q_seg=None, kv_seg=None):
+                         q_seg=None, kv_seg=None, aligned16=False):
     """Raise on what the kernels do not take: the dtype, head dim, device,
     layout and shapes of every tensor argument (``like_q``: tensors shaped
-    like q, such as o and do; ``stats``: f32 ``[B·H, Tq]`` lse / delta)."""
+    like q, such as o and do; ``stats``: f32 ``[B·H, Tq]`` lse / delta) and,
+    with ``aligned16`` (the forward's 16-byte ``cp.async`` copies), a q, k or
+    v whose data does not start on a 16-byte boundary (a view at an odd
+    offset into its storage)."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"flash kernels take float32 or bfloat16, got {q.dtype}")
@@ -285,6 +333,12 @@ def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
                 f"flash kernels take a contiguous {dtype} tensor of shape "
                 f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
+    for name, t in (("q", q), ("k", k), ("v", v)) if aligned16 else ():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"the flash forward kernel takes q, k and v starting on a "
+                f"16-byte boundary; {name} starts {t.data_ptr() % 16} bytes "
+                "past one (a view into its storage): pass a copy")
 
 
 def _dims(q, k, causal, causal_offset):
@@ -307,7 +361,7 @@ def flash_forward_kernel(q, k, v, causal=False, causal_offset=0,
                          kv_lengths=None, q_seg=None, kv_seg=None):
     """Launch ``flash_fwd.cu``: same contract as :func:`flash_forward_plain`."""
     _check_kernel_inputs(q, k, v, kv_lengths=kv_lengths, q_seg=q_seg,
-                         kv_seg=kv_seg)
+                         kv_seg=kv_seg, aligned16=True)
     o = torch.empty_like(q)
     lse = torch.empty((q.shape[0] * q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)

@@ -9,7 +9,9 @@ those are absent (the suite's conftest imports JAX; skip it there):
 
 Tolerances as in ``chip_smoke.py``: f32 forward and lse 1e-4 absolute; bf16
 forward within one bf16 step of the plain output, elementwise; gradients
-relative to the largest gradient, 1e-3 in f32 and 1e-2 in bf16.
+relative to the largest gradient, 1e-3 in f32 and 1e-2 in bf16. Besides
+sorted packed ids, the segment cases take ``ops.segment_layouts``'s
+layouts that would trip a tile-skipping kernel built on sorted ids.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
 from petastorm_tpu_torch.ops import flash_attention as fa
+from petastorm_tpu_torch.ops.segment_layouts import SEGMENT_KINDS, segment_ids
 from petastorm_tpu_torch.reader.reader import make_columnar_reader
 from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
 
@@ -32,6 +35,11 @@ CASES = {
     "gqa_pair_segments_d16": (2, 48, 80, 4, 2, 16, False, "pair", torch.float32),
     "bf16_causal_segments_d64": (2, 130, 130, 4, 1, 64, True, "seg", torch.bfloat16),
 }
+#: aux = a segment_ids kind: every kind in f32 and bf16, GQA, a ragged last
+#: Q tile, and among them every head dim.
+for _kind, _d in zip(SEGMENT_KINDS, (128, 64, 32, 16, 128)):
+    for _dtype, _tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        CASES[f"{_kind}_d{_d}_{_tag}"] = (2, 200, 200, 4, 2, _d, True, _kind, _dtype)
 
 
 @pytest.fixture
@@ -66,6 +74,8 @@ def test_kernels_match_plain_versions(cuda_device, name):
         kw["q_seg"], kw["kv_seg"] = ids(_segments(rng, b, t_q)), ids(_segments(rng, b, t_kv))
     elif aux == "lens":
         kw["kv_lengths"] = ids(np.array([t_kv, t_kv // 3, 0][:b]))
+    elif aux is not None:
+        kw["q_seg"] = kw["kv_seg"] = ids(segment_ids(aux, b, t_q, seed=len(name)))
     before = dict(fa.LAUNCHES)
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
     grads = fa.flash_backward_kernel(q, k, v, o, lse, do, **kw)

@@ -248,3 +248,20 @@ def test_same_value_errors_as_jax(kind):
                            **_torch_kwargs(extra))
     assert str(port_err.value) == str(jax_err.value)
 
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_forward_kernel_rejects_views_off_16_byte_boundaries(name):
+    shape = (1, 8, 2, 16)
+    numel = int(np.prod(shape))
+    args = {n: torch.zeros(shape) for n in ("q", "k", "v")}
+    # Contiguous views one f32 (4 bytes) and four f32 (16 bytes) into their
+    # storage: the forward kernel's 16-byte copies take the second only.
+    storage = torch.zeros(numel + 4)
+    args[name] = storage[4:].view(shape)
+    fa._check_kernel_inputs(*args.values(), aligned16=True)
+    args[name] = storage[1:numel + 1].view(shape)
+    assert args[name].is_contiguous()
+    with pytest.raises(ValueError, match=f"16-byte boundary; {name} starts 4 bytes"):
+        fa.flash_forward_kernel(*args.values())
+    fa._check_kernel_inputs(*args.values())  # the backward kernels take it
