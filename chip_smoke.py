@@ -11,8 +11,8 @@ non-zero exit code):
 1. ``env``: the card's name and power limit, torch / CUDA / nvcc versions,
    whether Triton and CUTLASS headers are present; then the build of the
    three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``), and of
-   the forward kernel's counting build (``PTT_FWD_COUNT_TILES``), and its
-   seconds.
+   the counting builds of the forward (``PTT_FWD_COUNT_TILES``) and dK/dV
+   (``PTT_DKV_COUNT_TILES``) kernels, all in parallel, and its seconds.
 2. ``kernels``: every kernel against its plain PyTorch version on the card,
    at the attention benchmark's shape (B=2, H=4, D=128, T=4096: causal +
    segment ids f32, causal bf16, causal GQA with 2 K/V heads, kv_lengths),
@@ -20,18 +20,22 @@ non-zero exit code):
    a tile-skipping kernel (``segment_layouts``: unsorted, -1 padded tails,
    single-token segments, one segment over all of T, edges inside tiles) in
    f32 and bf16, and at head dims 16, 32 and 64. In every case the counting
-   build counts on the card the K tiles the forward's blocks load and the
-   tiles its warps compute, and these must equal ``visited_k_tiles``'s (the
-   plain mirror of the skip rule). Then, on causal + segment ids f32 cases
-   at both shapes, each kernel's device time (CUDA events around calls
-   queued back to back behind a spin kernel, so the card never waits on the
-   host; see ``cuda_ms``) and the host time of its wrapper, its plain
-   version's time, the bound (the larger of bytes over 3.35 TB/s and the
-   visible-pair operations over the card's f32-grade tensor-core rate,
-   ``F32_TC_FLOPS``), the (query, key) pairs the forward kernel computed
-   (counted) beside the visible ones, and
+   builds count on the card the K tiles the forward's blocks load and the
+   tiles its warps compute, and the Q tiles the dK/dV kernel's blocks load
+   and the tiles its warps compute; these must equal ``visited_k_tiles``'s
+   and ``visited_q_tiles``'s (the plain mirrors of the skip rules), and each
+   counting build's output must equal its kernel's bit for bit. Two launches
+   of the dK/dV kernel must give bit-identical dk/dv. Then, on causal +
+   segment ids f32 cases at both shapes, each kernel's device time (CUDA
+   events around calls queued back to back behind a spin kernel, so the card
+   never waits on the host; see ``cuda_ms``) and the host time of its
+   wrapper, its plain version's time, the bound (the larger of bytes over
+   3.35 TB/s and the visible-pair operations over the card's f32-grade
+   tensor-core rate, ``F32_TC_FLOPS``), the (query, key) pairs the forward
+   and dK/dV kernels computed (counted) beside the visible ones, and
    ``torch.nn.functional.scaled_dot_product_attention`` on the same inputs
-   as a yardstick (the port never calls it).
+   as a yardstick (the port never calls it): its forward beside the
+   forward, its backward beside dQ + dK/dV together.
 3. ``train``: the packed long-context LM at its full configuration (d_model
    64, 4 heads, 2 layers, vocab 64, slot_len 128, 4 slots, f32) for 12 SGD
    steps from a generated Parquet corpus: every batch arrives on the card,
@@ -39,8 +43,9 @@ non-zero exit code):
    path, and flash logits match the dense oracle on the last batch.
 
 The last three lines are the kernels' JSON record (times at the LM's
-shape, the shape the training path launches them at), the ``nvidia-smi`` name
-and power limit, and ``{"ok": true, "device": {...}}``.
+shape, the shape the training path launches them at; ``backward`` is dQ +
+dK/dV together beside SDPA's backward), the ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -182,48 +187,92 @@ def forward_with(fn, q, k, v, kw):
     return o, lse
 
 
-def count_tiles(name, count_lib, q, k, v, kw, o, lse):
-    """The forward kernel's work on these inputs, counted on the card by one
-    launch of its counting build (``count_lib``: its ``ptt_flash_fwd`` and
-    ``ptt_flash_fwd_tile_counts``): ``(K tiles its blocks load, FWD_WARP_Q x
-    FWD_BLOCK_K tiles its warps compute)`` over all heads. Raises unless the
-    counts equal ``visited_k_tiles``'s and the counting build's ``(o, lse)``
-    equal the kernel's bit for bit."""
-    import ctypes
-
+def dkv_with(fn, q, k, v, do, lse, delta, kw):
+    """``(dk, dv)`` from one launch of ``fn``, the ``ptt_flash_bwd_dkv`` of
+    another build of ``flash_bwd_dkv.cu``, with the arguments the wrapper
+    passes. The wrapper's launch counts do not move."""
     import torch
 
     from petastorm_tpu_torch.ops import flash_attention as fa
 
-    fwd, read_counts = count_lib
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
+             ptr(kw["q_seg"]), ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ptt_flash_bwd_dkv failed with cudaError {err}")
+    return dk, dv
+
+
+def counted(read_counts, launch):
+    """``(launch()'s result, the two tile counts it left)``: a counting
+    build's counts are read and cleared (``read_counts``, its
+    ``ptt_*_tile_counts``) before and after the launch."""
+    import ctypes
+
+    import torch
+
     counts = (ctypes.c_ulonglong * 2)()
 
     def read_and_clear():
         torch.cuda.synchronize()
         err = read_counts(ctypes.addressof(counts))
         if err:
-            raise RuntimeError(f"ptt_flash_fwd_tile_counts failed with cudaError {err}")
+            raise RuntimeError(f"reading a kernel's tile counts failed with cudaError {err}")
         return tuple(counts)
 
     read_and_clear()
-    o_c, lse_c = forward_with(fwd, q, k, v, kw)
-    got = read_and_clear()
+    out = launch()
+    return out, read_and_clear()
+
+
+def count_tiles(name, count_libs, tensors, kw, fwd_out, dkv_out):
+    """Both tile-skipping kernels' work on these inputs, counted on the card
+    by one launch of each counting build (``count_libs``: kernel name ->
+    its ``ptt_*`` entry point and ``ptt_*_tile_counts``): ``{"fwd": (K tiles
+    its blocks load, FWD_WARP_Q x FWD_BLOCK_K tiles its warps compute),
+    "dkv": (Q tiles its blocks load, DKV_WARP_K x DKV_BLOCK_Q tiles its warps
+    compute)}`` over all heads. Raises unless the counts equal
+    ``visited_k_tiles``'s and ``visited_q_tiles``'s and each counting build's
+    output equals the kernel's (``fwd_out``: ``(o, lse)``; ``dkv_out``:
+    ``(dk, dv)``) bit for bit."""
+    import torch
+
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = tensors
+    o, lse, delta = fwd_out[0], fwd_out[1], dkv_out[2]
     B, Tq, H = q.shape[:3]
-    want = tuple(int(fa.visited_k_tiles(
-        B, Tq, k.shape[1], causal=kw["causal"], causal_offset=kw["causal_offset"],
-        kv_lengths=kw["kv_lengths"], q_seg=kw["q_seg"], kv_seg=kw["kv_seg"],
-        block_q=rows).sum()) * H for rows in (fa.FWD_BLOCK_Q, fa.FWD_WARP_Q))
-    if got != want:
-        raise AssertionError(f"{name}: the forward loaded / computed {got} "
-                             f"tiles on the card, visited_k_tiles says {want}")
-    if not (torch.equal(o_c, o) and torch.equal(lse_c, lse)):
-        raise AssertionError(f"{name}: the counting build's output differs from the kernel's")
+    masks = dict(causal=kw["causal"], causal_offset=kw["causal_offset"],
+                 kv_lengths=kw["kv_lengths"], q_seg=kw["q_seg"], kv_seg=kw["kv_seg"])
+    launches = {
+        "fwd": lambda fn: forward_with(fn, q, k, v, kw),
+        "dkv": lambda fn: dkv_with(fn, q, k, v, do, lse, delta, kw),
+    }
+    want = {
+        "fwd": tuple(int(fa.visited_k_tiles(B, Tq, k.shape[1], block_q=rows, **masks).sum())
+                     * H for rows in (fa.FWD_BLOCK_Q, fa.FWD_WARP_Q)),
+        "dkv": tuple(int(fa.visited_q_tiles(B, Tq, k.shape[1], block_k=keys, **masks).sum())
+                     * H for keys in (fa.DKV_BLOCK_K, fa.DKV_WARP_K)),
+    }
+    kernel_out = {"fwd": (o, lse), "dkv": dkv_out[:2]}
+    for kernel, (fn, read_counts) in count_libs.items():
+        out, got = counted(read_counts, lambda: launches[kernel](fn))
+        if got != want[kernel]:
+            raise AssertionError(f"{name}: {kernel} loaded / computed {got} tiles on the "
+                                 f"card, its mirror says {want[kernel]}")
+        if not all(torch.equal(a, b) for a, b in zip(out, kernel_out[kernel])):
+            raise AssertionError(f"{name}: {kernel}'s counting build's output differs "
+                                 "from the kernel's")
     return want
 
 
-def check_case(name, tensors, kw, count_lib):
+def check_case(name, tensors, kw, count_libs):
     """Run all three kernels and their plain versions on the same inputs,
-    and count the forward's tiles (``count_tiles``); return the error and
+    launch dK/dV twice (the two results must be bit-identical), and count
+    the tile-skipping kernels' tiles (``count_tiles``); return the error and
     tile line and each kernel's max absolute error, and raise on a tolerance
     miss: the forward absolute in f32 and within one bf16 step elementwise in
     bf16 (``fwd_steps`` ≤ 1); lse absolute (it is f32 for both dtypes);
@@ -234,13 +283,16 @@ def check_case(name, tensors, kw, count_lib):
 
     q, k, v, do = tensors
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
-    loaded, computed = count_tiles(name, count_lib, q, k, v, kw, o, lse)
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
     dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, **kw)
     torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"{name}: two launches of the dK/dV kernel differ")
+    tiles = count_tiles(name, count_libs, tensors, kw, (o, lse), (dk, dv, delta))
     bf16 = q.dtype == torch.bfloat16
     abs_err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
     errs = {"fwd": abs_err(o, o_p)}
@@ -267,7 +319,7 @@ def check_case(name, tensors, kw, count_lib):
             raise AssertionError(
                 f"{name}: {key} error {err:.3e} above {limits[key]:.0e}")
     return (name + " " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-            + f" tiles={loaded}/{computed}", max_abs)
+            + " tiles fwd={}/{} dkv={}/{}".format(*tiles["fwd"], *tiles["dkv"]), max_abs)
 
 
 def visible_pairs(kw, B, T, H):
@@ -290,10 +342,11 @@ def visible_pairs(kw, B, T, H):
     return total * H
 
 
-def measure(shape, count_lib):
-    """Times and bounds of the three kernels on a causal + segment-ids f32
-    case of ``shape``, and the forward's K-tile loads and warp tiles counted
-    on the card."""
+def measure(shape, count_libs):
+    """Times and bounds of the three kernels, and of dQ + dK/dV together, on
+    a causal + segment-ids f32 case of ``shape``; the visible pairs; and the
+    tiles the forward and dK/dV kernels load and compute, counted on the
+    card."""
     import torch
     import torch.nn.functional as F
 
@@ -302,8 +355,10 @@ def measure(shape, count_lib):
     B, T, H, D = shape["B"], shape["T"], shape["H"], shape["D"]
     (q, k, v, do), kw = make_case(B, T, H, D, torch.float32, seg=True, seed=1)
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
-    loaded, warp_tiles = count_tiles(f"timed T={T}", count_lib, q, k, v, kw, o, lse)
     _, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    tiles = count_tiles(f"timed T={T}", count_libs, (q, k, v, do), kw, (o, lse),
+                        (dk, dv, delta))
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     _, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
 
@@ -341,7 +396,12 @@ def measure(shape, count_lib):
                                                       retain_graph=True), calls)
 
     pairs = visible_pairs(kw, B, T, H)
-    computed = warp_tiles * fa.FWD_WARP_Q * fa.FWD_BLOCK_K  # (query, key) pairs
+    counts = {  # (query, key) pairs computed and tiles loaded, counted on the card
+        "fwd pairs computed": tiles["fwd"][1] * fa.FWD_WARP_Q * fa.FWD_BLOCK_K,
+        "fwd K-tile loads": tiles["fwd"][0],
+        "dkv pairs computed": tiles["dkv"][1] * fa.DKV_WARP_K * fa.DKV_BLOCK_Q,
+        "dkv Q-tile loads": tiles["dkv"][0],
+    }
     elt = 4
     act = B * T * H * D * elt      # one [B, T, H, D] f32 tensor
     row = B * H * T * 4            # one f32 per (b, h, row): lse or delta
@@ -350,7 +410,14 @@ def measure(shape, count_lib):
         "fwd": (3 * act + act + row + seg, 4 * D * pairs),
         "dq": (5 * act + row + act + row + seg, 6 * D * pairs),
         "dkv": (4 * act + 2 * row + 2 * act + seg, 8 * D * pairs),
+        # dq, dk, dv from q, k, v, o, do, lse: s and dp once, then three
+        # products (SDPA's backward computes this function).
+        "bwd": (5 * act + row + 3 * act + seg, 10 * D * pairs),
     }
+    (dq_ms, dq_host), (dq_plain, _) = times["dq"]
+    (dkv_ms, dkv_host), (dkv_plain, _) = times["dkv"]
+    times["bwd"] = ((dq_ms + dkv_ms, dq_host + dkv_host), (dq_plain + dkv_plain, None))
+    library = {"fwd": sdpa_fwd, "bwd": sdpa_bwd}
     out = {}
     for name, ((ms, host_ms), (plain_ms, _)) in times.items():
         nbytes, flops = work[name]
@@ -359,8 +426,8 @@ def measure(shape, count_lib):
         out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                     "library_ms": sdpa_fwd if name == "fwd" else None}
-    return out, sdpa_bwd, pairs, computed, loaded
+                     "library_ms": library.get(name)}
+    return out, pairs, counts
 
 
 def main():
@@ -397,18 +464,25 @@ def main():
     cutlass = os.path.isdir("/usr/local/cutlass/include/cutlass")
     t0 = time.perf_counter()
     count_dir = tempfile.mkdtemp(prefix="chip_smoke_count_")
-    count_so = os.path.join(count_dir, "libflash_fwd_count.so")
-    proc = _build.compile_source("flash_fwd.cu", count_so,
-                                 defines=("PTT_FWD_COUNT_TILES=1",))
+    counting = {  # kernel -> (source, switch, entry point)
+        "fwd": ("flash_fwd.cu", "PTT_FWD_COUNT_TILES=1", "ptt_flash_fwd"),
+        "dkv": ("flash_bwd_dkv.cu", "PTT_DKV_COUNT_TILES=1", "ptt_flash_bwd_dkv"),
+    }
+    procs = {}
     try:
+        for kernel, (src, define, _) in counting.items():
+            so = os.path.join(count_dir, f"lib{kernel}_count.so")
+            procs[kernel] = (so, _build.compile_source(src, so, defines=(define,)))
         _build.build_all()
     finally:
-        out, _ = proc.communicate()
-    if proc.returncode != 0:
-        fail(f"nvcc failed for the counting build of flash_fwd.cu:\n{out.decode()}")
-    count_lib = (_build.load(count_so, "ptt_flash_fwd"),
-                 _build.load(count_so, "ptt_flash_fwd_tile_counts"))
-    shutil.rmtree(count_dir, ignore_errors=True)  # loaded: the mapping stays
+        outs = {kernel: proc.communicate()[0] for kernel, (_, proc) in procs.items()}
+    count_libs = {}
+    for kernel, (so, proc) in procs.items():
+        src, _, symbol = counting[kernel]
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the counting build of {src}:\n{outs[kernel].decode()}")
+        count_libs[kernel] = (_build.load(so, symbol), _build.load(so, symbol + "_tile_counts"))
+    shutil.rmtree(count_dir, ignore_errors=True)  # loaded: the mappings stay
     build_s = time.perf_counter() - t0
     print(f"env: gpu={smi!r} torch={torch.__version__} cuda={torch.version.cuda} "
           f"nvcc={nvcc_version!r} triton={triton_version} cutlass_headers={cutlass} "
@@ -432,13 +506,13 @@ def main():
                           make_case(B, 512, H, d, dtype, seg="tail_pad", seed=d)))
     cases.append(("lm D=16 causal+seg f32", make_case(LM["B"], LM["T"], LM["H"], LM["D"],
                                                       torch.float32, seg=True)))
-    checked = [check_case(name, tensors, kw, count_lib) for name, (tensors, kw) in cases]
+    checked = [check_case(name, tensors, kw, count_libs) for name, (tensors, kw) in cases]
     errs = [line for line, _ in checked]
     max_err = checked[-1][1]  # the main path's shape: the LM case
     del cases
     timed = {}
     for label, shape in (("lm", LM), ("bench", BENCH)):
-        timing, sdpa_bwd_ms, pairs, computed, loaded = measure(shape, count_lib)
+        timing, pairs, counts = measure(shape, count_libs)
         timed[label] = timing
         errs.append(
             f"| {label} causal+seg f32 {shape}: "
@@ -447,9 +521,9 @@ def main():
                         f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
                         for n, t in timing.items())
             + f"; sdpa fwd ms={timing['fwd']['library_ms']:.4f} "
-            f"sdpa bwd (dq+dk+dv) ms={sdpa_bwd_ms:.4f}; visible pairs={pairs} "
-            f"fwd pairs computed (counted on the card)={computed} "
-            f"fwd K-tile loads (counted on the card)={loaded}")
+            f"sdpa bwd (dq+dk+dv) ms={timing['bwd']['library_ms']:.4f}; "
+            f"visible pairs={pairs}; counted on the card: "
+            + " ".join(f"{k}={v}" for k, v in counts.items()))
     errs.append(f"| timing batches still short of spin: {SPIN_SHORT}")
     print("kernels: " + "; ".join(errs), flush=True)
 
@@ -492,7 +566,9 @@ def main():
         {"name": f"flash_{name}", "route": "cuda", "source": source + files[name],
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": max_err[name], **timed["lm"][name]}
-        for name in ("fwd", "dq", "dkv")]}
+        for name in ("fwd", "dq", "dkv")],
+        "backward": {"name": "flash_dq+flash_dkv", "launches": launches["dq"] + launches["dkv"],
+                     **timed["lm"]["bwd"]}}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

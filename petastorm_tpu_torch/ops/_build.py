@@ -51,12 +51,13 @@ def _source_hash():
     return digest.hexdigest()[:16]
 
 
-def compile_source(src, out, defines=(), flags=()):
-    """Start ``nvcc`` on ``csrc/<src>`` into the shared library ``out``, with
-    ``-D`` ``defines`` (a source's build-time switches) and further nvcc
-    ``flags``; return the process, its stdout and stderr piped together."""
+def compile_source(src, out, defines=(), flags=(), csrc=CSRC):
+    """Start ``nvcc`` on ``<csrc>/<src>`` (by default this package's
+    ``csrc/``) into the shared library ``out``, with ``-D`` ``defines`` (a
+    source's build-time switches) and further nvcc ``flags``; return the
+    process, its stdout and stderr piped together."""
     cmd = [find_nvcc(), *NVCC_FLAGS, *flags, *(f"-D{d}" for d in defines),
-           "-o", out, os.path.join(CSRC, src)]
+           "-o", out, os.path.join(csrc, src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
 
@@ -102,8 +103,9 @@ _ARGTYPES = {
     # q, k, v, dout, lse, delta, dk, dv, qseg, kvseg, kv_lens, ...
     "ptt_flash_bwd_dkv": [_P] * 11 + [_I] * 9 + [_F, _P],
     # out (host, 2 x uint64); only in flash_fwd.cu built with
-    # PTT_FWD_COUNT_TILES=1
+    # PTT_FWD_COUNT_TILES=1 and flash_bwd_dkv.cu with PTT_DKV_COUNT_TILES=1
     "ptt_flash_fwd_tile_counts": [_P],
+    "ptt_flash_bwd_dkv_tile_counts": [_P],
 }
 _SYMBOL_SOURCE = {"ptt_flash_fwd": "flash_fwd.cu",
                   "ptt_flash_bwd_dq": "flash_bwd_dq.cu",

@@ -7,11 +7,13 @@
 //   qseg / kvseg   : [B, Tq] / [B, Tkv] int32, or null (no segment mask)
 //   kv_lens        : [B] int32, or null (static bound Tkv)
 //
-// Every tile lives in shared memory as f32 rows padded to D+1 floats: loads
-// from device memory run along d (coalesced), and the two read patterns of
-// the products (a warp reading two rows at one d, or sixteen consecutive d
-// of one row) both fall in distinct banks. Arithmetic is plain f32 FFMA: no
-// tensor cores, so f32 inputs keep full f32 precision (no TF32).
+// The dQ kernel keeps every tile in shared memory as f32 rows padded to D+1
+// floats (load_tile): loads from device memory run along d (coalesced), and
+// the two read patterns of its products (a warp reading two rows at one d,
+// or sixteen consecutive d of one row) both fall in distinct banks. Its
+// arithmetic is plain f32 FFMA, off the tensor cores. The forward and dK/dV
+// kernels instead keep tiles in the input dtype and run their products on
+// the tensor cores at f32 grade (flash_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,7 +22,7 @@
 
 namespace ptt {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid: ty = tid / 16, tx = tid % 16
+constexpr int kThreads = 256;  // dQ's 16 x 16 thread grid: ty = tid / 16, tx = tid % 16
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

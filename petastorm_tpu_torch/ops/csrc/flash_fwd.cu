@@ -34,7 +34,7 @@
 //   Rows are padded to D + 16 bytes so fragment reads fall in distinct banks.
 //   32 keys rather than 64: in f32 at D = 128 a block then needs 101 KB of
 //   shared memory, so two blocks share an SM instead of one, and ~170
-//   registers instead of 254; tools/flash_fwd_variants.py times both
+//   registers instead of 254; tools/flash_variants.py times both
 //   (PERF.md).
 // GQA reads K/V head h / (H / Hkv) directly. wgmma, TMA, warp specialisation
 // and a bf16-rate path are later work.
@@ -46,7 +46,7 @@
 // - PTT_FWD_COUNT_TILES: count the K tiles blocks load and the WQ x BK tiles
 //   warps compute; ptt_flash_fwd_tile_counts reads and clears the counts.
 // chip_smoke.py builds the counting library and holds its counts against
-// ops/flash_attention.py::visited_k_tiles; tools/flash_fwd_variants.py times
+// ops/flash_attention.py::visited_k_tiles; tools/flash_variants.py times
 // the others (the middle two compute another function on purpose).
 #ifndef PTT_FWD_BK
 #define PTT_FWD_BK 32
@@ -82,26 +82,11 @@ __device__ unsigned long long g_tile_counts[2];  // K tiles loaded, warp tiles c
 #define PTT_COUNT_TILE(i) ((void)0)
 #endif
 
-// Shared-memory row pitch in elements: 16 bytes past D keeps every row
-// 16-byte aligned for cp.async and puts the 8 rows x 4 columns of a
-// fragment read in 32 distinct banks.
-template <typename T, int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 16 / static_cast<int>(sizeof(T));
-}
-
 // Q tile, two stages of K and V, two stages of key segment ids; the tile mask
 // words follow (their count depends on T_kv).
 template <typename T, int D>
 constexpr int fwd_tile_bytes() {
-  return (BQ + 4 * BK) * pitch<T, D>() * static_cast<int>(sizeof(T)) + 2 * BK * 4;
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  return (BQ + 4 * BK) * ptt::pitch<T, D>() * static_cast<int>(sizeof(T)) + 2 * BK * 4;
 }
 
 template <typename T, int D>
@@ -113,7 +98,7 @@ __global__ void __launch_bounds__(kThreadsFwd)
                      int causal, int causal_offset, float scale) {
   constexpr bool kSplitP = !PTT_FWD_ONE_PASS;                          // P is f32
   constexpr bool kSplit = kSplitP && std::is_same<T, float>::value;  // bf16 is exact in TF32
-  constexpr int LD = pitch<T, D>(), NT = BK / 8, ND = D / 8;
+  constexpr int LD = ptt::pitch<T, D>(), NT = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);                             // [BQ][LD]
   T* k_s = q_s + BQ * LD;                                              // [2][BK][LD]
@@ -169,7 +154,7 @@ __global__ void __launch_bounds__(kThreadsFwd)
     for (int w = threadIdx.x; w < (n_kt + 31) / 32; w += blockDim.x) mask_s[w] = ~0u;
     __syncthreads();
 #else
-    ptt::segment_tile_mask<BK>(mask_s, (n_kt + 31) / 32, kvseg_b, k_end, lo, hi);
+    ptt::segment_tile_mask<BK>(mask_s, (n_kt + 31) / 32, kvseg_b, 0, k_end, lo, hi);
 #endif
   }
   auto next_tile = [&](int t) {
@@ -322,7 +307,7 @@ __global__ void __launch_bounds__(kThreadsFwd)
     T* o_row = o + (((long)b * Tq + row) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      store2(o_row + n * 8, acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+      ptt::store2(o_row + n * 8, acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
     if (t4 == 0)
       lse[(long)bh * Tq + row] = l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-37f)) : INFINITY;
   }

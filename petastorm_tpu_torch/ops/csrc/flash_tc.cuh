@@ -1,6 +1,7 @@
 // Tensor-core and async-copy pieces of the Hopper flash kernels: TF32
 // mma.sync with an f32-grade three-pass split, cp.async tile loads, and the
-// exact segment test that lets a block skip K tiles no query row can see.
+// exact segment test that lets a block skip the tiles of the other operand
+// (K tiles in the forward, Q tiles in dK/dV) that none of its rows can see.
 //
 // Fragment layout of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
 // (PTX ISA), with g = lane / 4 and t = lane % 4:
@@ -69,6 +70,24 @@ __device__ __forceinline__ float smem_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// -- Shared tiles and paired stores ---------------------------------------------
+
+// Shared-memory row pitch in elements: 16 bytes past D keeps every row
+// 16-byte aligned for cp.async and puts the 8 rows x 4 columns of a
+// fragment read in 32 distinct banks.
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// Two adjacent outputs (an accumulator's columns 2t and 2t+1) in one store.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // -- cp.async ------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -114,31 +133,45 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int row0, 
 
 // -- Exact segment skipping ------------------------------------------------------
 
-// Sets bit (t % 32) of mask[t / 32] for every K tile t (of BK keys) that holds
-// a key c < k_end whose segment id lies in [q_lo, q_hi], the id range of the
-// Q tile's valid rows; the other bits stay clear. A visible pair (r, c) has
-// kv_seg[c] == q_seg[r], inside that range, so a clear bit never hides one;
-// a tile whose id range is disjoint from [q_lo, q_hi] has no such key, so its
-// bit is clear. The ids need not be sorted (the packer pads with -1). Each
-// warp tests 32 consecutive keys per step (BK is a multiple of 32, so they
-// fall in one tile). Ends with the block synchronised.
-template <int BK>
+// Sets bit (t % 32) of mask[t / 32] for every tile t (of TILE entries) that
+// holds an entry c in [begin, end) whose segment id seg_b[c] lies in
+// [lo, hi]; the other bits stay clear. The forward passes the id range of a
+// Q tile's valid rows and scans keys; the dK/dV kernel passes the id range of
+// a K tile's valid keys and scans query rows from the causal start on. A
+// visible pair's two ids are equal, so inside the range: a clear bit never
+// hides one, and a tile whose ids all fall outside the range stays clear.
+// The ids need not be sorted (the packer pads with -1). Each warp tests 32
+// consecutive entries per step, from a multiple of 32 and of TILE, so they
+// cover one tile (TILE a multiple of 32) or 32 / TILE whole tiles. Ends with
+// the block synchronised.
+template <int TILE>
 __device__ __forceinline__ void segment_tile_mask(unsigned* mask, int n_words,
-                                                  const int* kvseg_b, int k_end, int q_lo,
-                                                  int q_hi) {
-  static_assert(BK % 32 == 0, "a warp's 32 keys must fall in one tile");
+                                                  const int* seg_b, int begin, int end,
+                                                  int lo, int hi) {
+  static_assert(TILE % 32 == 0 || 32 % TILE == 0, "a warp's 32 entries must cover whole tiles");
+  constexpr int kStep = TILE > 32 ? TILE : 32;
   for (int w = threadIdx.x; w < n_words; w += blockDim.x) mask[w] = 0u;
   __syncthreads();
-  const int lane = threadIdx.x & 31, stride = blockDim.x;
+  const int lane = threadIdx.x & 31;
 #pragma unroll 4
-  for (int c0 = threadIdx.x - lane; c0 < k_end; c0 += stride) {
+  for (int c0 = begin - begin % kStep + (threadIdx.x - lane); c0 < end; c0 += blockDim.x) {
     const int c = c0 + lane;
-    int id = 0;
-    if (c < k_end) id = kvseg_b[c];
-    const bool hit = c < k_end && id >= q_lo && id <= q_hi;
-    if (__any_sync(0xffffffffu, hit) && lane == 0) {
-      const int t = c0 / BK;
-      atomicOr(&mask[t >> 5], 1u << (t & 31));
+    const bool in = c >= begin && c < end;
+    const int id = in ? seg_b[c] : 0;
+    const unsigned hits = __ballot_sync(0xffffffffu, in && id >= lo && id <= hi);
+    if (lane == 0 && hits) {
+      if constexpr (TILE >= 32) {
+        const int t = c0 / TILE;
+        atomicOr(&mask[t >> 5], 1u << (t & 31));
+      } else {
+#pragma unroll
+        for (int s = 0; s < 32 / TILE; ++s) {
+          if ((hits >> (s * TILE)) & ((1u << TILE) - 1u)) {
+            const int t = c0 / TILE + s;
+            atomicOr(&mask[t >> 5], 1u << (t & 31));
+          }
+        }
+      }
     }
   }
   __syncthreads();

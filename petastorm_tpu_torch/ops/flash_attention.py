@@ -15,7 +15,8 @@ Three kernels (``ops/csrc``, CUDA C++ for ``sm_90a``, built at first use by
   for rows with no visible key), saved for the backward; it skips the K
   tiles :func:`visited_k_tiles` leaves out;
 - ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)``;
-- ``flash_bwd_dkv.cu``: dK/dV accumulated per K/V head inside the block.
+- ``flash_bwd_dkv.cu``: dK/dV accumulated per K/V head inside the block; it
+  skips the Q tiles :func:`visited_q_tiles` leaves out.
 
 :class:`FlashAttentionFn` chains them as a ``torch.autograd.Function``. Each
 kernel wrapper adds one to :data:`LAUNCHES` where it launches. The plain
@@ -46,6 +47,12 @@ _PLAIN_BLOCK_K = 128
 #: tiles :func:`visited_k_tiles` gives for ``block_q=FWD_BLOCK_Q``, and each
 #: warp computes those it gives for ``block_q=FWD_WARP_Q``.
 FWD_BLOCK_Q, FWD_WARP_Q, FWD_BLOCK_K = 64, 16, 32
+
+#: Keys per block, keys per warp and query rows per Q tile of
+#: ``flash_bwd_dkv.cu`` (its ``BK``, ``WK`` and ``BQ``): a block loads the Q
+#: tiles :func:`visited_q_tiles` gives for ``block_k=DKV_BLOCK_K``, and each
+#: warp computes those it gives for ``block_k=DKV_WARP_K``.
+DKV_BLOCK_K, DKV_WARP_K, DKV_BLOCK_Q = 64, 16, 16
 
 
 def reset_launch_counts():
@@ -216,6 +223,44 @@ def visited_k_tiles(b, t_q, t_kv, causal=False, causal_offset=0,
     return seen.reshape(b, n_q, n_k, block_k).any(dim=-1)
 
 
+def visited_q_tiles(b, t_q, t_kv, causal=False, causal_offset=0,
+                    kv_lengths=None, q_seg=None, kv_seg=None,
+                    block_k=DKV_BLOCK_K, block_q=DKV_BLOCK_Q):
+    """The dK/dV kernel's tile-skip rule in PyTorch, :func:`visited_k_tiles`
+    with Q and K swapped: a boolean ``[B, ceil(Tkv / block_k), ceil(Tq /
+    block_q)]`` tensor, True where the keys of K tile i (a block's, or with
+    ``block_k=DKV_WARP_K`` a warp's) take Q tile j.
+
+    A K tile's valid keys lie below the kv bound; a tile with none takes no
+    Q tile. Its keys can see rows below ``t_q`` and, if causal, at or after
+    its first key's diagonal row ``k0 - causal_offset``. Without segment ids
+    it visits every Q tile holding such a row. With them it visits a tile
+    only if one of those rows has an id in ``[min, max]`` of the ids of the
+    valid keys: exact for ids in any order, as in :func:`visited_k_tiles`."""
+    device = next((t.device for t in (q_seg, kv_lengths) if t is not None),
+                  torch.device("cpu"))
+    n_k, n_q = -(-t_kv // block_k), -(-t_q // block_q)
+    keys = torch.arange(n_k * block_k, device=device)
+    valid = keys[None] < _kv_limits(kv_lengths, b, t_kv, device)[:, None]
+    rows = torch.arange(n_q * block_q, device=device)
+    seen = (rows < t_q)[None, None, :] & valid.reshape(b, n_k, block_k).any(
+        dim=-1)[:, :, None]                                    # [B, n_k, rows]
+    if causal:
+        k0 = torch.arange(n_k, device=device) * block_k
+        seen = seen & (rows[None, :] >= (k0 - causal_offset)[:, None])[None]
+    if q_seg is not None:
+        ids = torch.nn.functional.pad(kv_seg.to(torch.int64),
+                                      (0, n_k * block_k - t_kv))
+        lo = torch.where(valid, ids, 2 ** 40).reshape(b, n_k, block_k)
+        hi = torch.where(valid, ids, -2 ** 40).reshape(b, n_k, block_k)
+        lo, hi = lo.amin(dim=-1), hi.amax(dim=-1)
+        qi = torch.nn.functional.pad(q_seg.to(torch.int64),
+                                     (0, n_q * block_q - t_q))
+        seen = seen & (qi[:, None, :] >= lo[:, :, None]) & (
+            qi[:, None, :] <= hi[:, :, None])
+    return seen.reshape(b, n_k, n_q, block_q).any(dim=-1)
+
+
 def _bwd_tiles(q, k, v, do, lse, delta, causal, causal_offset, kv_lengths,
                q_seg, kv_seg, block_k):
     """Yield ``(k0, k1, p, ds)`` per K tile, f32 ``[B, H, Tq, bk]``:
@@ -303,9 +348,10 @@ def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
     """Raise on what the kernels do not take: the dtype, head dim, device,
     layout and shapes of every tensor argument (``like_q``: tensors shaped
     like q, such as o and do; ``stats``: f32 ``[B·H, Tq]`` lse / delta) and,
-    with ``aligned16`` (the forward's 16-byte ``cp.async`` copies), a q, k or
-    v whose data does not start on a 16-byte boundary (a view at an odd
-    offset into its storage)."""
+    with ``aligned16`` (the 16-byte ``cp.async`` copies of the forward and
+    dK/dV kernels), a q, k, v or do (the dK/dV kernel's one ``like_q``
+    tensor) whose data does not start on a 16-byte boundary (a view at an
+    odd offset into its storage)."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"flash kernels take float32 or bfloat16, got {q.dtype}")
@@ -333,10 +379,11 @@ def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
                 f"flash kernels take a contiguous {dtype} tensor of shape "
                 f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
-    for name, t in (("q", q), ("k", k), ("v", v)) if aligned16 else ():
+    named = [("q", q), ("k", k), ("v", v)] + [("do", t) for t in like_q]
+    for name, t in named if aligned16 else ():
         if t.data_ptr() % 16:
             raise ValueError(
-                f"the flash forward kernel takes q, k and v starting on a "
+                f"this flash kernel takes its inputs starting on a "
                 f"16-byte boundary; {name} starts {t.data_ptr() % 16} bytes "
                 "past one (a view into its storage): pass a copy")
 
@@ -399,7 +446,8 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=False,
     """Launch ``flash_bwd_dkv.cu``: same contract as
     :func:`flash_bwd_dkv_plain`."""
     _check_kernel_inputs(q, k, v, like_q=(do,), stats=(lse, delta),
-                         kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg)
+                         kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg,
+                         aligned16=True)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -434,6 +482,14 @@ def flash_backward(q, *args, **kwargs):
     return flash_backward_plain(q, *args, **kwargs)
 
 
+def _aligned16(t):
+    """``t`` contiguous and starting on a 16-byte boundary: itself when it
+    already is, else a copy (a layout step for the kernels' 16-byte copies,
+    not a fallback)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``o = attention(q, k, v)`` with the flash kernels in both directions:
     forward saves ``(q, k, v, o, lse)``; backward runs dQ then dK/dV."""
@@ -453,7 +509,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, kv_lengths, q_seg, kv_seg = ctx.saved_tensors
         dq, dk, dv = flash_backward(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            q, k, v, o, lse, _aligned16(do), causal=ctx.causal,
             causal_offset=ctx.causal_offset, kv_lengths=kv_lengths,
             q_seg=q_seg, kv_seg=kv_seg)
         return dq, dk, dv, None, None, None, None, None

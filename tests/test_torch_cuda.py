@@ -1,6 +1,7 @@
 """Tests of petastorm_tpu_torch that need a CUDA card: the three flash
-kernels against their plain PyTorch versions, pinned H2D staging, and the LM
-trainer on the card. They skip without a card.
+kernels against their plain PyTorch versions (also through autograd with a
+do off a 16-byte boundary), pinned H2D staging, and the LM trainer on the
+card. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent (the suite's conftest imports JAX; skip it there):
@@ -97,6 +98,33 @@ def test_kernels_match_plain_versions(cuda_device, name):
         scale = max(want.float().abs().max().item(), 1e-6)
         err = (got.float() - want.float()).abs().max().item() / scale
         assert err <= (1e-2 if bf16 else 1e-3)
+
+
+def test_backward_takes_do_off_a_16_byte_boundary(cuda_device):
+    """A do that is a view off a 16-byte boundary (the dK/dV kernel's
+    cp.async copies need one) is copied to an aligned buffer by the
+    backward: the kernel still runs and matches its plain version."""
+    rng = np.random.RandomState(3)
+    b, t, h, d = 2, 96, 2, 32
+    q, k, v = (torch.tensor(rng.randn(b, t, h, d), dtype=torch.float32, device=cuda_device,
+                            requires_grad=True) for _ in range(3))
+    ids = torch.tensor(np.sort(rng.randint(0, 3, (b, t)), axis=1), dtype=torch.int32,
+                       device=cuda_device)
+    storage = torch.tensor(rng.randn(b * t * h * d + 1), dtype=torch.float32,
+                           device=cuda_device)
+    do = storage[1:].view(b, t, h, d)
+    assert do.is_contiguous() and do.data_ptr() % 16 == 4
+    before = fa.LAUNCHES["dkv"]
+    fa.flash_attention(q, k, v, causal=True, segment_ids=ids).backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["dkv"] - before == 1
+    kw = dict(causal=True, causal_offset=0, q_seg=ids, kv_seg=ids)
+    x = [t.detach() for t in (q, k, v)]
+    o_p, lse_p = fa.flash_forward_plain(*x, **kw)
+    grads_p = fa.flash_backward_plain(*x, o_p, lse_p, do.clone(), **kw)
+    for got, want in zip((q.grad, k.grad, v.grad), grads_p):
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        assert err <= 1e-3
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):

@@ -265,3 +265,28 @@ def test_forward_kernel_rejects_views_off_16_byte_boundaries(name):
     with pytest.raises(ValueError, match=f"16-byte boundary; {name} starts 4 bytes"):
         fa.flash_forward_kernel(*args.values())
     fa._check_kernel_inputs(*args.values())  # the backward kernels take it
+
+
+def test_dkv_kernel_rejects_do_off_16_byte_boundaries():
+    b, t, h, d = 1, 8, 2, 16
+    q, k, v = (torch.zeros(b, t, h, d) for _ in range(3))
+    stats = torch.zeros(b * h, t)
+    storage = torch.zeros(b * t * h * d + 4)
+    fa._check_kernel_inputs(q, k, v, like_q=(storage[4:].view(q.shape),),
+                            stats=(stats, stats), aligned16=True)
+    do = storage[1:b * t * h * d + 1].view(q.shape)
+    assert do.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte boundary; do starts 4 bytes"):
+        fa.flash_bwd_dkv_kernel(q, k, v, do, stats, stats)
+
+
+def test_aligned16_copies_only_views_off_a_boundary():
+    storage = torch.arange(37, dtype=torch.float32)
+    aligned = storage[4:36].view(2, 16)
+    assert fa._aligned16(aligned) is aligned
+    off = storage[1:33].view(2, 16)
+    got = fa._aligned16(off)
+    assert got.data_ptr() % 16 == 0 and got.data_ptr() != off.data_ptr()
+    assert torch.equal(got, off)
+    strided = storage[:32].view(16, 2).t()
+    assert fa._aligned16(strided).is_contiguous()

@@ -5,7 +5,7 @@
 // throughput the tensor cores give mma.sync (wgmma, which Hopper's 495
 // TFLOP/s TF32 peak assumes, is not measured here).
 //
-// Build and run on the card (tools/flash_fwd_variants.py does both):
+// Build and run on the card (tools/flash_variants.py does both):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o mma_sync_rate tools/mma_sync_rate.cu
 //   ./mma_sync_rate
 // Prints one JSON object per configuration.
