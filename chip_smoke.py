@@ -11,8 +11,9 @@ non-zero exit code):
 1. ``env``: the card's name and power limit, torch / CUDA / nvcc versions,
    whether Triton and CUTLASS headers are present; then the build of the
    three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``), and of
-   the counting builds of the forward (``PTT_FWD_COUNT_TILES``) and dK/dV
-   (``PTT_DKV_COUNT_TILES``) kernels, all in parallel, and its seconds.
+   the counting builds of the forward (``PTT_FWD_COUNT_TILES``), dQ
+   (``PTT_DQ_COUNT_TILES``) and dK/dV (``PTT_DKV_COUNT_TILES``) kernels, all
+   in parallel, and its seconds.
 2. ``kernels``: every kernel against its plain PyTorch version on the card,
    at the attention benchmark's shape (B=2, H=4, D=128, T=4096: causal +
    segment ids f32, causal bf16, causal GQA with 2 K/V heads, kv_lengths),
@@ -20,19 +21,21 @@ non-zero exit code):
    a tile-skipping kernel (``segment_layouts``: unsorted, -1 padded tails,
    single-token segments, one segment over all of T, edges inside tiles) in
    f32 and bf16, and at head dims 16, 32 and 64. In every case the counting
-   builds count on the card the K tiles the forward's blocks load and the
-   tiles its warps compute, and the Q tiles the dK/dV kernel's blocks load
-   and the tiles its warps compute; these must equal ``visited_k_tiles``'s
-   and ``visited_q_tiles``'s (the plain mirrors of the skip rules), and each
-   counting build's output must equal its kernel's bit for bit. Two launches
-   of the dK/dV kernel must give bit-identical dk/dv. Then, on causal +
+   builds count on the card the K tiles the forward's and the dQ kernel's
+   blocks load and the tiles their warps compute, and the Q tiles the dK/dV
+   kernel's blocks load and the tiles its warps compute; these must equal
+   ``visited_k_tiles``'s (with each kernel's tiles) and ``visited_q_tiles``'s
+   (the plain mirrors of the skip rules), and each counting build's output
+   must equal its kernel's bit for bit. Two launches of the dQ kernel must
+   give bit-identical dq/delta, and two of the dK/dV kernel bit-identical
+   dk/dv. Then, on causal +
    segment ids f32 cases at both shapes, each kernel's device time (CUDA
    events around calls queued back to back behind a spin kernel, so the card
    never waits on the host; see ``cuda_ms``) and the host time of its
    wrapper, its plain version's time, the bound (the larger of bytes over
    3.35 TB/s and the visible-pair operations over the card's f32-grade
-   tensor-core rate, ``F32_TC_FLOPS``), the (query, key) pairs the forward
-   and dK/dV kernels computed (counted) beside the visible ones, and
+   tensor-core rate, ``F32_TC_FLOPS``), the (query, key) pairs each kernel
+   computed and the tiles it loaded (counted) beside the visible pairs, and
    ``torch.nn.functional.scaled_dot_product_attention`` on the same inputs
    as a yardstick (the port never calls it): its forward beside the
    forward, its backward beside dQ + dK/dV together.
@@ -187,6 +190,27 @@ def forward_with(fn, q, k, v, kw):
     return o, lse
 
 
+def dq_with(fn, q, k, v, o, lse, do, kw):
+    """``(dq, delta)`` from one launch of ``fn``, the ``ptt_flash_bwd_dq`` of
+    another build of ``flash_bwd_dq.cu``, with the arguments the wrapper
+    passes. The wrapper's launch counts do not move."""
+    import torch
+
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    dq = torch.empty_like(q)
+    delta = torch.empty((q.shape[0] * q.shape[2], q.shape[1]), dtype=torch.float32,
+                        device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+             ptr(kw["q_seg"]), ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ptt_flash_bwd_dq failed with cudaError {err}")
+    return dq, delta
+
+
 def dkv_with(fn, q, k, v, do, lse, delta, kw):
     """``(dk, dv)`` from one launch of ``fn``, the ``ptt_flash_bwd_dkv`` of
     another build of ``flash_bwd_dkv.cu``, with the arguments the wrapper
@@ -228,36 +252,40 @@ def counted(read_counts, launch):
     return out, read_and_clear()
 
 
-def count_tiles(name, count_libs, tensors, kw, fwd_out, dkv_out):
-    """Both tile-skipping kernels' work on these inputs, counted on the card
-    by one launch of each counting build (``count_libs``: kernel name ->
-    its ``ptt_*`` entry point and ``ptt_*_tile_counts``): ``{"fwd": (K tiles
-    its blocks load, FWD_WARP_Q x FWD_BLOCK_K tiles its warps compute),
-    "dkv": (Q tiles its blocks load, DKV_WARP_K x DKV_BLOCK_Q tiles its warps
-    compute)}`` over all heads. Raises unless the counts equal
-    ``visited_k_tiles``'s and ``visited_q_tiles``'s and each counting build's
-    output equals the kernel's (``fwd_out``: ``(o, lse)``; ``dkv_out``:
-    ``(dk, dv)``) bit for bit."""
+def count_tiles(name, count_libs, tensors, kw, kernel_out):
+    """The three tile-skipping kernels' work on these inputs, counted on the
+    card by one launch of each counting build (``count_libs``: kernel name
+    -> its ``ptt_*`` entry point and ``ptt_*_tile_counts``): ``{"fwd": (K
+    tiles its blocks load, FWD_WARP_Q x FWD_BLOCK_K tiles its warps
+    compute), "dq": (K tiles its blocks load, DQ_WARP_Q x DQ_BLOCK_K tiles
+    its warps compute), "dkv": (Q tiles its blocks load, DKV_WARP_K x
+    DKV_BLOCK_Q tiles its warps compute)}`` over all heads. Raises unless the
+    counts equal ``visited_k_tiles``'s and ``visited_q_tiles``'s and each
+    counting build's output equals the kernel's (``kernel_out``: ``{"fwd":
+    (o, lse), "dq": (dq, delta), "dkv": (dk, dv)}``) bit for bit."""
     import torch
 
     from petastorm_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = tensors
-    o, lse, delta = fwd_out[0], fwd_out[1], dkv_out[2]
+    (o, lse), delta = kernel_out["fwd"], kernel_out["dq"][1]
     B, Tq, H = q.shape[:3]
     masks = dict(causal=kw["causal"], causal_offset=kw["causal_offset"],
                  kv_lengths=kw["kv_lengths"], q_seg=kw["q_seg"], kv_seg=kw["kv_seg"])
     launches = {
         "fwd": lambda fn: forward_with(fn, q, k, v, kw),
+        "dq": lambda fn: dq_with(fn, q, k, v, o, lse, do, kw),
         "dkv": lambda fn: dkv_with(fn, q, k, v, do, lse, delta, kw),
     }
     want = {
         "fwd": tuple(int(fa.visited_k_tiles(B, Tq, k.shape[1], block_q=rows, **masks).sum())
                      * H for rows in (fa.FWD_BLOCK_Q, fa.FWD_WARP_Q)),
+        "dq": tuple(int(fa.visited_k_tiles(B, Tq, k.shape[1], block_q=rows,
+                                           block_k=fa.DQ_BLOCK_K, **masks).sum())
+                    * H for rows in (fa.DQ_BLOCK_Q, fa.DQ_WARP_Q)),
         "dkv": tuple(int(fa.visited_q_tiles(B, Tq, k.shape[1], block_k=keys, **masks).sum())
                      * H for keys in (fa.DKV_BLOCK_K, fa.DKV_WARP_K)),
     }
-    kernel_out = {"fwd": (o, lse), "dkv": dkv_out[:2]}
     for kernel, (fn, read_counts) in count_libs.items():
         out, got = counted(read_counts, lambda: launches[kernel](fn))
         if got != want[kernel]:
@@ -271,8 +299,8 @@ def count_tiles(name, count_libs, tensors, kw, fwd_out, dkv_out):
 
 def check_case(name, tensors, kw, count_libs):
     """Run all three kernels and their plain versions on the same inputs,
-    launch dK/dV twice (the two results must be bit-identical), and count
-    the tile-skipping kernels' tiles (``count_tiles``); return the error and
+    launch dQ and dK/dV twice each (the two results must be bit-identical),
+    and count the kernels' tiles (``count_tiles``); return the error and
     tile line and each kernel's max absolute error, and raise on a tolerance
     miss: the forward absolute in f32 and within one bf16 step elementwise in
     bf16 (``fwd_steps`` ≤ 1); lse absolute (it is f32 for both dtypes);
@@ -285,14 +313,18 @@ def check_case(name, tensors, kw, count_libs):
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
+    dq2, delta2 = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
     dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, **kw)
     torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(delta, delta2)):
+        raise AssertionError(f"{name}: two launches of the dQ kernel differ")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"{name}: two launches of the dK/dV kernel differ")
-    tiles = count_tiles(name, count_libs, tensors, kw, (o, lse), (dk, dv, delta))
+    tiles = count_tiles(name, count_libs, tensors, kw,
+                        {"fwd": (o, lse), "dq": (dq, delta), "dkv": (dk, dv)})
     bf16 = q.dtype == torch.bfloat16
     abs_err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
     errs = {"fwd": abs_err(o, o_p)}
@@ -319,7 +351,8 @@ def check_case(name, tensors, kw, count_libs):
             raise AssertionError(
                 f"{name}: {key} error {err:.3e} above {limits[key]:.0e}")
     return (name + " " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-            + " tiles fwd={}/{} dkv={}/{}".format(*tiles["fwd"], *tiles["dkv"]), max_abs)
+            + " tiles fwd={}/{} dq={}/{} dkv={}/{}".format(*tiles["fwd"], *tiles["dq"],
+                                                          *tiles["dkv"]), max_abs)
 
 
 def visible_pairs(kw, B, T, H):
@@ -345,8 +378,7 @@ def visible_pairs(kw, B, T, H):
 def measure(shape, count_libs):
     """Times and bounds of the three kernels, and of dQ + dK/dV together, on
     a causal + segment-ids f32 case of ``shape``; the visible pairs; and the
-    tiles the forward and dK/dV kernels load and compute, counted on the
-    card."""
+    tiles each kernel loads and computes, counted on the card."""
     import torch
     import torch.nn.functional as F
 
@@ -355,10 +387,10 @@ def measure(shape, count_libs):
     B, T, H, D = shape["B"], shape["T"], shape["H"], shape["D"]
     (q, k, v, do), kw = make_case(B, T, H, D, torch.float32, seg=True, seed=1)
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
-    _, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
+    dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
-    tiles = count_tiles(f"timed T={T}", count_libs, (q, k, v, do), kw, (o, lse),
-                        (dk, dv, delta))
+    tiles = count_tiles(f"timed T={T}", count_libs, (q, k, v, do), kw,
+                        {"fwd": (o, lse), "dq": (dq, delta), "dkv": (dk, dv)})
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
     _, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
 
@@ -399,6 +431,8 @@ def measure(shape, count_libs):
     counts = {  # (query, key) pairs computed and tiles loaded, counted on the card
         "fwd pairs computed": tiles["fwd"][1] * fa.FWD_WARP_Q * fa.FWD_BLOCK_K,
         "fwd K-tile loads": tiles["fwd"][0],
+        "dq pairs computed": tiles["dq"][1] * fa.DQ_WARP_Q * fa.DQ_BLOCK_K,
+        "dq K-tile loads": tiles["dq"][0],
         "dkv pairs computed": tiles["dkv"][1] * fa.DKV_WARP_K * fa.DKV_BLOCK_Q,
         "dkv Q-tile loads": tiles["dkv"][0],
     }
@@ -466,6 +500,7 @@ def main():
     count_dir = tempfile.mkdtemp(prefix="chip_smoke_count_")
     counting = {  # kernel -> (source, switch, entry point)
         "fwd": ("flash_fwd.cu", "PTT_FWD_COUNT_TILES=1", "ptt_flash_fwd"),
+        "dq": ("flash_bwd_dq.cu", "PTT_DQ_COUNT_TILES=1", "ptt_flash_bwd_dq"),
         "dkv": ("flash_bwd_dkv.cu", "PTT_DKV_COUNT_TILES=1", "ptt_flash_bwd_dkv"),
     }
     procs = {}

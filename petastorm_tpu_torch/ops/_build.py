@@ -103,8 +103,10 @@ _ARGTYPES = {
     # q, k, v, dout, lse, delta, dk, dv, qseg, kvseg, kv_lens, ...
     "ptt_flash_bwd_dkv": [_P] * 11 + [_I] * 9 + [_F, _P],
     # out (host, 2 x uint64); only in flash_fwd.cu built with
-    # PTT_FWD_COUNT_TILES=1 and flash_bwd_dkv.cu with PTT_DKV_COUNT_TILES=1
+    # PTT_FWD_COUNT_TILES=1, flash_bwd_dq.cu with PTT_DQ_COUNT_TILES=1 and
+    # flash_bwd_dkv.cu with PTT_DKV_COUNT_TILES=1
     "ptt_flash_fwd_tile_counts": [_P],
+    "ptt_flash_bwd_dq_tile_counts": [_P],
     "ptt_flash_bwd_dkv_tile_counts": [_P],
 }
 _SYMBOL_SOURCE = {"ptt_flash_fwd": "flash_fwd.cu",

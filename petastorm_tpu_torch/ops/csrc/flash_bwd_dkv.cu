@@ -41,9 +41,10 @@
 //   over all Q tiles and all query heads of the group, and are written once:
 //   no per-query-head partials, no wrapper group-sum, no atomics, so two
 //   launches give bit-identical results. Each Q tile's products are summed
-//   in fresh registers and added to them in f32 (add_tile_product): the
-//   tensor cores' own accumulation truncates. 255 registers at f32 D = 128,
-//   no spills (tools/flash_variants.py prints ptxas's counts).
+//   in fresh registers and added to them in f32
+//   (flash_tc.cuh::add_tile_product): the tensor cores' own accumulation
+//   truncates. 255 registers at f32 D = 128, no spills
+//   (tools/flash_variants.py prints ptxas's counts).
 // - Loads: K and V stay resident in shared memory for the whole sweep. Q and
 //   dO tiles of BQ rows are double-buffered in the input dtype with 16-byte
 //   cp.async copies, lse, delta and the rows' segment ids beside them; the
@@ -108,46 +109,6 @@ __device__ unsigned long long g_tile_counts[2];  // Q tiles loaded, warp tiles c
 template <typename T, int D>
 constexpr int dkv_tile_bytes() {
   return (2 * BK + 4 * BQ) * ptt::pitch<T, D>() * static_cast<int>(sizeof(T)) + 2 * 3 * BQ * 4;
-}
-
-// acc += X^T R for one Q tile: X^T (16 keys x BQ queries, P^T or dS^T) is
-// the warp's S^T-layout accumulator x, fed straight from registers as the A
-// operand (fragment j's queries 8j + 2 t4 and 8j + 2 t4 + 1 are logical
-// columns t4 and t4 + 4, so R's rows are read in that order); R is the Q
-// tile's dO or Q in shared memory (rows LD elements apart). Each 16 x 8
-// block of the tile's product is summed in a fresh quad and then added to
-// acc in f32: the tensor cores truncate when they accumulate, so adding
-// hundreds of Q tiles straight into acc (PTT_DKV_ACC_IN_MMA) grows a bias
-// with the number of tiles: 5.0e-5 of the largest gradient where keys see up
-// to 4,096 rows, against 4.7e-6 added this way (PERF.md).
-template <bool kSplitX, bool kSplitR, int LD, int NQ, int ND, typename T>
-__device__ __forceinline__ void add_tile_product(float (&acc)[ND][4], float (&x)[NQ][4],
-                                                 const T* rows, int g, int t4) {
-  ptt::Tf32<kSplitX> a[NQ][4];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    a[j][0].set(x[j][0]);
-    a[j][1].set(x[j][2]);
-    a[j][2].set(x[j][1]);
-    a[j][3].set(x[j][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    float* sum = PTT_DKV_ACC_IN_MMA ? acc[n] : t;
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      const T* r = rows + (j * 8 + 2 * t4) * LD + n * 8 + g;
-      ptt::Tf32<kSplitR> b[2];
-      b[0].set(ptt::smem_f32(r));
-      b[1].set(ptt::smem_f32(r + LD));
-      ptt::mma_3xtf32<kSplitX, kSplitR>(sum, a[j], b);
-    }
-    if (!PTT_DKV_ACC_IN_MMA) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
-    }
-  }
 }
 
 template <typename T, int D>
@@ -344,8 +305,9 @@ __global__ void __launch_bounds__(kThreadsDkv)
         dp[j][e] = p * (dp[j][e] - deltas[col]) * scale;
       }
 
-    add_tile_product<kSplitP, kSplit, LD>(dv_acc, s, dos, g, t4);  // dV += P^T dO
-    add_tile_product<kSplitP, kSplit, LD>(dk_acc, dp, qs, g, t4);  // dK += dS^T Q
+    constexpr bool kAccInMma = PTT_DKV_ACC_IN_MMA;
+    ptt::add_tile_product<kAccInMma, kSplitP, kSplit, LD>(dv_acc, s, dos, g, t4);  // dV += P^T dO
+    ptt::add_tile_product<kAccInMma, kSplitP, kSplit, LD>(dk_acc, dp, qs, g, t4);  // dK += dS^T Q
     it = nxt;
   }
   ptt::cp_async_wait<0>();  // no copy may outlive the block

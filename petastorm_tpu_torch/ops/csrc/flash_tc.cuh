@@ -1,7 +1,8 @@
 // Tensor-core and async-copy pieces of the Hopper flash kernels: TF32
-// mma.sync with an f32-grade three-pass split, cp.async tile loads, and the
-// exact segment test that lets a block skip the tiles of the other operand
-// (K tiles in the forward, Q tiles in dK/dV) that none of its rows can see.
+// mma.sync with an f32-grade three-pass split, the register-fed tile product
+// of the backward kernels, cp.async tile loads, and the exact segment test
+// that lets a block skip the tiles of the other operand (K tiles in the
+// forward and dQ, Q tiles in dK/dV) that none of its rows can see.
 //
 // Fragment layout of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
 // (PTX ISA), with g = lane / 4 and t = lane % 4:
@@ -70,6 +71,47 @@ __device__ __forceinline__ float smem_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// acc += X R for one tile, to f32 grade. X (16 rows x 8 NX columns) is a
+// warp's accumulator-layout tile (P^T or dS^T in dK/dV, dS in dQ), fed
+// straight from registers as the A operand: fragment j's columns 8j + 2t and
+// 8j + 2t + 1 are logical columns t and t + 4, so R's rows are read in that
+// order. R (8 NX rows x 8 ND columns: dO or Q in dK/dV, K in dQ) lies in
+// shared memory, rows LD elements apart. Unless kAccInMma, each 16 x 8 block
+// of the tile's product is summed in a fresh quad and then added to acc in
+// f32: the tensor cores truncate when they accumulate, so adding hundreds of
+// tiles straight into acc grows a bias with the number of tiles: 5.0e-5 of
+// the largest gradient where dK/dV's keys see up to 4,096 rows, against
+// 4.7e-6 added this way (PERF.md).
+template <bool kAccInMma, bool kSplitX, bool kSplitR, int LD, int NX, int ND, typename T>
+__device__ __forceinline__ void add_tile_product(float (&acc)[ND][4], float (&x)[NX][4],
+                                                 const T* rows, int g, int t4) {
+  Tf32<kSplitX> a[NX][4];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    a[j][0].set(x[j][0]);
+    a[j][1].set(x[j][2]);
+    a[j][2].set(x[j][1]);
+    a[j][3].set(x[j][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    float* sum = kAccInMma ? acc[n] : t;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      const T* r = rows + (j * 8 + 2 * t4) * LD + n * 8 + g;
+      Tf32<kSplitR> b[2];
+      b[0].set(smem_f32(r));
+      b[1].set(smem_f32(r + LD));
+      mma_3xtf32<kSplitX, kSplitR>(sum, a[j], b);
+    }
+    if (!kAccInMma) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
+    }
+  }
+}
+
 // -- Shared tiles and paired stores ---------------------------------------------
 
 // Shared-memory row pitch in elements: 16 bytes past D keeps every row
@@ -135,8 +177,8 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int row0, 
 
 // Sets bit (t % 32) of mask[t / 32] for every tile t (of TILE entries) that
 // holds an entry c in [begin, end) whose segment id seg_b[c] lies in
-// [lo, hi]; the other bits stay clear. The forward passes the id range of a
-// Q tile's valid rows and scans keys; the dK/dV kernel passes the id range of
+// [lo, hi]; the other bits stay clear. The forward and dQ kernels pass the id
+// range of a Q tile's valid rows and scan keys; the dK/dV kernel passes the id range of
 // a K tile's valid keys and scans query rows from the causal start on. A
 // visible pair's two ids are equal, so inside the range: a clear bit never
 // hides one, and a tile whose ids all fall outside the range stays clear.

@@ -14,7 +14,8 @@ Three kernels (``ops/csrc``, CUDA C++ for ``sm_90a``, built at first use by
 - ``flash_fwd.cu``: output and the per-row log-sum-exp residual (``+inf``
   for rows with no visible key), saved for the backward; it skips the K
   tiles :func:`visited_k_tiles` leaves out;
-- ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)``;
+- ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)``; it skips the
+  K tiles :func:`visited_k_tiles` leaves out for its tiles (``DQ_*``);
 - ``flash_bwd_dkv.cu``: dK/dV accumulated per K/V head inside the block; it
   skips the Q tiles :func:`visited_q_tiles` leaves out.
 
@@ -53,6 +54,16 @@ FWD_BLOCK_Q, FWD_WARP_Q, FWD_BLOCK_K = 64, 16, 32
 #: tiles :func:`visited_q_tiles` gives for ``block_k=DKV_BLOCK_K``, and each
 #: warp computes those it gives for ``block_k=DKV_WARP_K``.
 DKV_BLOCK_K, DKV_WARP_K, DKV_BLOCK_Q = 64, 16, 16
+
+#: Query rows per block, query rows per warp and keys per K/V tile of
+#: ``flash_bwd_dq.cu`` (its ``BQ``, ``WQ`` and ``BK``): the forward's rule,
+#: :func:`visited_k_tiles` with ``block_q=DQ_BLOCK_Q`` for its blocks and
+#: ``block_q=DQ_WARP_Q`` for its warps, and ``block_k=DQ_BLOCK_K``.
+DQ_BLOCK_Q, DQ_WARP_Q, DQ_BLOCK_K = 64, 16, 16
+
+#: The tensors the kernels copy with 16-byte ``cp.async``: each must start on
+#: a 16-byte boundary (o is read directly).
+_CP_ASYNC_INPUTS = ("q", "k", "v", "do")
 
 
 def reset_launch_counts():
@@ -188,10 +199,10 @@ def flash_forward_plain(q, k, v, causal=False, causal_offset=0,
 def visited_k_tiles(b, t_q, t_kv, causal=False, causal_offset=0,
                     kv_lengths=None, q_seg=None, kv_seg=None,
                     block_q=FWD_BLOCK_Q, block_k=FWD_BLOCK_K):
-    """The forward kernel's tile-skip rule in PyTorch: a boolean
-    ``[B, ceil(Tq / block_q), ceil(Tkv / block_k)]`` tensor, True where the
-    rows of Q tile i (a block's, or with ``block_q=FWD_WARP_Q`` a warp's)
-    take K tile j.
+    """The forward kernel's tile-skip rule in PyTorch, which the dQ kernel
+    shares (with its ``DQ_*`` tiles): a boolean ``[B, ceil(Tq / block_q),
+    ceil(Tkv / block_k)]`` tensor, True where the rows of Q tile i (a
+    block's, or with ``block_q=FWD_WARP_Q`` a warp's) take K tile j.
 
     A Q tile sees keys below ``k_end``: the kv bound and, if causal, its last
     row's diagonal. Without segment ids it visits every tile that starts
@@ -343,15 +354,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
+def _check_kernel_inputs(q, k, v, like_q=None, stats=(), kv_lengths=None,
                          q_seg=None, kv_seg=None, aligned16=False):
     """Raise on what the kernels do not take: the dtype, head dim, device,
     layout and shapes of every tensor argument (``like_q``: tensors shaped
-    like q, such as o and do; ``stats``: f32 ``[B·H, Tq]`` lse / delta) and,
-    with ``aligned16`` (the 16-byte ``cp.async`` copies of the forward and
-    dK/dV kernels), a q, k, v or do (the dK/dV kernel's one ``like_q``
-    tensor) whose data does not start on a 16-byte boundary (a view at an
-    odd offset into its storage)."""
+    like q by name, such as ``{"o": o, "do": do}``; ``stats``: f32
+    ``[B·H, Tq]`` lse / delta) and, with ``aligned16`` (the kernels' 16-byte
+    ``cp.async`` copies), any of q, k, v and do whose data does not start on
+    a 16-byte boundary (a view at an odd offset into its storage), by name."""
+    like_q = like_q or {}
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"flash kernels take float32 or bfloat16, got {q.dtype}")
@@ -365,7 +376,7 @@ def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
         raise ValueError(
             f"k / v of shapes {tuple(k.shape)} / {tuple(v.shape)} do not "
             f"match q {tuple(q.shape)} (same B and D, h % h_kv == 0)")
-    expected = [(t, q.dtype, tuple(q.shape)) for t in like_q]
+    expected = [(t, q.dtype, tuple(q.shape)) for t in like_q.values()]
     expected += [(t, torch.float32, (b * h, t_q)) for t in stats]
     expected += [(k, q.dtype, tuple(k.shape)), (v, q.dtype, tuple(k.shape))]
     for t, shape in ((kv_lengths, (b,)), (q_seg, (b, t_q)),
@@ -379,9 +390,10 @@ def _check_kernel_inputs(q, k, v, like_q=(), stats=(), kv_lengths=None,
                 f"flash kernels take a contiguous {dtype} tensor of shape "
                 f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
-    named = [("q", q), ("k", k), ("v", v)] + [("do", t) for t in like_q]
-    for name, t in named if aligned16 else ():
-        if t.data_ptr() % 16:
+    named = {"q": q, "k": k, "v": v, **like_q}
+    for name in _CP_ASYNC_INPUTS if aligned16 else ():
+        t = named.get(name)
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(
                 f"this flash kernel takes its inputs starting on a "
                 f"16-byte boundary; {name} starts {t.data_ptr() % 16} bytes "
@@ -425,8 +437,9 @@ def flash_bwd_dq_kernel(q, k, v, o, lse, do, causal=False, causal_offset=0,
                         kv_lengths=None, q_seg=None, kv_seg=None):
     """Launch ``flash_bwd_dq.cu``: same contract as
     :func:`flash_bwd_dq_plain`."""
-    _check_kernel_inputs(q, k, v, like_q=(o, do), stats=(lse,),
-                         kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg)
+    _check_kernel_inputs(q, k, v, like_q={"o": o, "do": do}, stats=(lse,),
+                         kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg,
+                         aligned16=True)
     b, t_q, h, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
@@ -445,7 +458,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=False,
                          kv_seg=None):
     """Launch ``flash_bwd_dkv.cu``: same contract as
     :func:`flash_bwd_dkv_plain`."""
-    _check_kernel_inputs(q, k, v, like_q=(do,), stats=(lse, delta),
+    _check_kernel_inputs(q, k, v, like_q={"do": do}, stats=(lse, delta),
                          kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg,
                          aligned16=True)
     dk = torch.empty_like(k)

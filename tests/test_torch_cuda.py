@@ -101,9 +101,9 @@ def test_kernels_match_plain_versions(cuda_device, name):
 
 
 def test_backward_takes_do_off_a_16_byte_boundary(cuda_device):
-    """A do that is a view off a 16-byte boundary (the dK/dV kernel's
+    """A do that is a view off a 16-byte boundary (the backward kernels'
     cp.async copies need one) is copied to an aligned buffer by the
-    backward: the kernel still runs and matches its plain version."""
+    backward: both kernels still run and match their plain version."""
     rng = np.random.RandomState(3)
     b, t, h, d = 2, 96, 2, 32
     q, k, v = (torch.tensor(rng.randn(b, t, h, d), dtype=torch.float32, device=cuda_device,
@@ -114,10 +114,10 @@ def test_backward_takes_do_off_a_16_byte_boundary(cuda_device):
                            device=cuda_device)
     do = storage[1:].view(b, t, h, d)
     assert do.is_contiguous() and do.data_ptr() % 16 == 4
-    before = fa.LAUNCHES["dkv"]
+    before = dict(fa.LAUNCHES)
     fa.flash_attention(q, k, v, causal=True, segment_ids=ids).backward(do)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["dkv"] - before == 1
+    assert {n: fa.LAUNCHES[n] - before[n] for n in ("dq", "dkv")} == {"dq": 1, "dkv": 1}
     kw = dict(causal=True, causal_offset=0, q_seg=ids, kv_seg=ids)
     x = [t.detach() for t in (q, k, v)]
     o_p, lse_p = fa.flash_forward_plain(*x, **kw)

@@ -264,7 +264,7 @@ def test_forward_kernel_rejects_views_off_16_byte_boundaries(name):
     assert args[name].is_contiguous()
     with pytest.raises(ValueError, match=f"16-byte boundary; {name} starts 4 bytes"):
         fa.flash_forward_kernel(*args.values())
-    fa._check_kernel_inputs(*args.values())  # the backward kernels take it
+    fa._check_kernel_inputs(*args.values())  # checked only where a kernel asks
 
 
 def test_dkv_kernel_rejects_do_off_16_byte_boundaries():
@@ -272,12 +272,31 @@ def test_dkv_kernel_rejects_do_off_16_byte_boundaries():
     q, k, v = (torch.zeros(b, t, h, d) for _ in range(3))
     stats = torch.zeros(b * h, t)
     storage = torch.zeros(b * t * h * d + 4)
-    fa._check_kernel_inputs(q, k, v, like_q=(storage[4:].view(q.shape),),
+    fa._check_kernel_inputs(q, k, v, like_q={"do": storage[4:].view(q.shape)},
                             stats=(stats, stats), aligned16=True)
     do = storage[1:b * t * h * d + 1].view(q.shape)
     assert do.is_contiguous()
     with pytest.raises(ValueError, match="16-byte boundary; do starts 4 bytes"):
         fa.flash_bwd_dkv_kernel(q, k, v, do, stats, stats)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+def test_dq_kernel_rejects_inputs_off_16_byte_boundaries(name):
+    """The dQ kernel copies q, k, v and do with 16-byte ``cp.async``: its
+    wrapper names the one off a boundary. o, read directly, may lie off one."""
+    b, t, h, d = 1, 8, 2, 16
+    args = {n: torch.zeros(b, t, h, d) for n in ("q", "k", "v", "o")}
+    lse = torch.zeros(b * h, t)
+    storage = torch.zeros(b * t * h * d + 4)
+    off = storage[1:b * t * h * d + 1].view(b, t, h, d)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    fa._check_kernel_inputs(args["q"], args["k"], args["v"],
+                            like_q={"o": off, "do": storage[4:].view(off.shape)},
+                            stats=(lse,), aligned16=True)
+    args["do"] = torch.zeros(b, t, h, d)
+    args[name] = off
+    with pytest.raises(ValueError, match=f"16-byte boundary; {name} starts 4 bytes"):
+        fa.flash_bwd_dq_kernel(args["q"], args["k"], args["v"], args["o"], lse, args["do"])
 
 
 def test_aligned16_copies_only_views_off_a_boundary():

@@ -1,14 +1,15 @@
-"""The tile-skip rules of the two tile-skipping kernels against the dense
-mask: the forward's (``flash_attention.visited_k_tiles``, the plain mirror of
-``flash_fwd.cu``'s loop: K tiles per Q tile) and the dK/dV kernel's
+"""The tile-skip rules of the three tile-skipping kernels against the dense
+mask: the forward's and the dQ kernel's (``flash_attention.visited_k_tiles``,
+the plain mirror of ``flash_fwd.cu``'s and ``flash_bwd_dq.cu``'s loops: K
+tiles per Q tile, with each kernel's tiles) and the dK/dV kernel's
 (``visited_q_tiles``, of ``flash_bwd_dkv.cu``: Q tiles per K tile, the same
-test with Q and K swapped). Each property runs over both mirrors: a mirror
-never skips a tile that holds a visible (query, key) pair, it skips every
-tile whose segment-id range is disjoint from the other tile's, and without
-segment ids it visits exactly the tiles its loop bounds give. Each kernel's
-blocks load the tiles of their block and each warp computes those of its 16
-rows (forward) or 16 keys (dK/dV), which nest inside them. Ids are drawn in
-any order, with the packer's -1 padding.
+test with Q and K swapped). Each property runs over every kernel's mirror: a
+mirror never skips a tile that holds a visible (query, key) pair, it skips
+every tile whose segment-id range is disjoint from the other tile's, and
+without segment ids it visits exactly the tiles its loop bounds give. Each
+kernel's blocks load the tiles of their block and each warp computes those
+of its 16 rows (forward, dQ) or 16 keys (dK/dV), which nest inside them. Ids
+are drawn in any order, with the packer's -1 padding.
 """
 
 import os
@@ -72,10 +73,11 @@ def _layouts(draw):
                 block_k=draw(st.sampled_from([1, 4, 8, 32])))
 
 
-#: mirror -> (its kernel's block tile, warp tile), as (block_q, block_k)
-#: pairs: the forward's warps split its Q tile, dK/dV's warps its K tile.
+#: kernel -> (its block tile, warp tile), as (block_q, block_k) pairs: the
+#: forward's and dQ's warps split their Q tile, dK/dV's warps its K tile.
 KERNEL_TILES = {
     "fwd": ((fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K), (fa.FWD_WARP_Q, fa.FWD_BLOCK_K)),
+    "dq": ((fa.DQ_BLOCK_Q, fa.DQ_BLOCK_K), (fa.DQ_WARP_Q, fa.DQ_BLOCK_K)),
     "dkv": ((fa.DKV_BLOCK_Q, fa.DKV_BLOCK_K), (fa.DKV_BLOCK_Q, fa.DKV_WARP_K)),
 }
 MIRRORS = sorted(KERNEL_TILES)
@@ -88,15 +90,24 @@ def _visited(lay, mirror):
     kw = dict(causal=lay["causal"], causal_offset=lay["t_kv"] - lay["t_q"],
               kv_lengths=torch.tensor(lay["kv_len"]), q_seg=ids(lay["q_ids"]),
               kv_seg=ids(lay["kv_ids"]), block_q=lay["block_q"], block_k=lay["block_k"])
-    if mirror == "fwd":
+    if mirror != "dkv":
         return fa.visited_k_tiles(lay["b"], lay["t_q"], lay["t_kv"], **kw).numpy()
     return fa.visited_q_tiles(lay["b"], lay["t_q"], lay["t_kv"], **kw).transpose(1, 2).numpy()
 
 
+def _kernel_tile(lay, mirror, tile):
+    """``lay`` with the kernel's block (0) or warp (1) tile, or as drawn."""
+    if tile is None:
+        return lay
+    block_q, block_k = KERNEL_TILES[mirror][tile]
+    return dict(lay, block_q=block_q, block_k=block_k)
+
+
 @pytest.mark.parametrize("mirror", MIRRORS)
 @SETTINGS
-@given(lay=_layouts())
-def test_never_skips_a_tile_with_a_visible_pair(mirror, lay):
+@given(lay=_layouts(), tile=st.sampled_from([None, 0, 1]))
+def test_never_skips_a_tile_with_a_visible_pair(mirror, lay, tile):
+    lay = _kernel_tile(lay, mirror, tile)
     vis = _dense_visible(lay["b"], lay["t_q"], lay["t_kv"], lay["causal"], lay["kv_len"],
                          lay["q_ids"], lay["kv_ids"])
     needed = _tiles(vis, lay["block_q"], lay["block_k"])
@@ -107,8 +118,10 @@ def test_never_skips_a_tile_with_a_visible_pair(mirror, lay):
 
 @pytest.mark.parametrize("mirror", MIRRORS)
 @SETTINGS
-@given(lay=_layouts().filter(lambda lay: lay["q_ids"] is not None))
-def test_skips_every_tile_with_disjoint_id_ranges(mirror, lay):
+@given(lay=_layouts().filter(lambda lay: lay["q_ids"] is not None),
+       tile=st.sampled_from([None, 0, 1]))
+def test_skips_every_tile_with_disjoint_id_ranges(mirror, lay, tile):
+    lay = _kernel_tile(lay, mirror, tile)
     bq, bk = lay["block_q"], lay["block_k"]
     visited = _visited(lay, mirror)
     for b in range(lay["b"]):
@@ -144,10 +157,10 @@ def test_warp_tiles_nest_in_block_tiles(mirror, lay):
     (False, 64, 64, [0, 64]),
 ])
 def test_without_segments_visits_the_loop_bound(mirror, causal, t_q, t_kv, kv_len):
-    """The forward: a Q tile takes every K tile that starts below its keys'
-    end (kv bound, last row's diagonal). dK/dV: a K tile holding a key below
-    the kv bound takes every Q tile that holds a row below T_q at or after
-    its first key's diagonal row."""
+    """The forward and dQ: a Q tile takes every K tile that starts below its
+    keys' end (kv bound, last row's diagonal). dK/dV: a K tile holding a key
+    below the kv bound takes every Q tile that holds a row below T_q at or
+    after its first key's diagonal row."""
     (bq, bk), _ = KERNEL_TILES[mirror]
     lay = dict(b=2, t_q=t_q, t_kv=t_kv, causal=causal, kv_len=np.array(kv_len), q_ids=None,
                kv_ids=None, block_q=bq, block_k=bk)
@@ -155,7 +168,7 @@ def test_without_segments_visits_the_loop_bound(mirror, causal, t_q, t_kv, kv_le
     for b in range(2):
         for i in range(visited.shape[1]):
             for j in range(visited.shape[2]):
-                if mirror == "fwd":
+                if mirror != "dkv":
                     k_end = kv_len[b]
                     if causal:
                         k_end = min(k_end, i * bq + bq + t_kv - t_q)
@@ -207,6 +220,17 @@ def test_mirror_blocks_match_the_kernel_source():
     assert "constexpr int BK = PTT_FWD_BK;" in text
     assert found == {"BQ": str(fa.FWD_BLOCK_Q), "WQ": str(fa.FWD_WARP_Q),
                      "BK": str(fa.FWD_BLOCK_K)}
+
+
+def test_dq_mirror_blocks_match_the_kernel_source():
+    src = os.path.join(os.path.dirname(fa.__file__), "csrc", "flash_bwd_dq.cu")
+    with open(src) as f:
+        text = f.read()
+    found = dict(re.findall(r"constexpr int (BQ|WQ) = (\d+);", text))
+    found.update(re.findall(r"#define PTT_DQ_(BK) (\d+)\n", text))  # BK's default
+    assert "constexpr int BK = PTT_DQ_BK;" in text
+    assert found == {"BQ": str(fa.DQ_BLOCK_Q), "WQ": str(fa.DQ_WARP_Q),
+                     "BK": str(fa.DQ_BLOCK_K)}
 
 
 def test_dkv_mirror_blocks_match_the_kernel_source():

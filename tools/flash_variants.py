@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Time the flash kernels against builds of their own sources with their
 build-time switches set, on one CUDA card: the forward (``flash_fwd.cu``'s
-``PTT_FWD_*``: K/V tiles of 64 keys, two ablations) and the dK/dV kernel
-(``flash_bwd_dkv.cu``'s ``PTT_DKV_*``: Q tiles of 32 rows, three ablations).
+``PTT_FWD_*``: K/V tiles of 64 keys, two ablations), the dQ kernel
+(``flash_bwd_dq.cu``'s ``PTT_DQ_*``: K/V tiles of 32 keys, three ablations)
+and the dK/dV kernel (``flash_bwd_dkv.cu``'s ``PTT_DKV_*``: Q tiles of 32
+rows, three ablations).
 
 Run from the root of a checkout: ``python3 tools/flash_variants.py [--parent
 DIR] [NAME ...]`` (default: every variant in ``VARIANTS``). ``--parent DIR``
-adds ``dkv_parent``: ``flash_bwd_dkv.cu`` of the checkout at ``DIR`` (the
-same C interface), timed in turns with the rest. Each variant is compiled
-with ``nvcc`` (its ``ptxas`` registers and spills are printed), run at
-``chip_smoke.py``'s timed case (causal + sorted segment ids) at the LM and
-bench shapes in f32 and at the bench shape in bf16, and causal without
-segment ids at the bench shape in f32 (every key then sums over up to 4,096
-rows, which shows how errors grow with the rows a key sees), compared with the plain
-version (the largest absolute error; for dK/dV relative to the largest
-gradient, as ``chip_smoke.py`` checks it), and timed with
-``chip_smoke.cuda_ms``. All variants are timed in turns (a, b, ..., b, a).
+adds ``dq_parent`` and ``dkv_parent``: ``flash_bwd_dq.cu`` and
+``flash_bwd_dkv.cu`` of the checkout at ``DIR`` (the same C interfaces),
+timed in turns with the rest. Each variant is compiled with ``nvcc`` (its
+``ptxas`` registers and spills are printed), run at ``chip_smoke.py``'s timed
+case (causal + sorted segment ids) at the LM and bench shapes in f32 and at
+the bench shape in bf16, and causal without segment ids at the bench shape
+in f32 (every row or key then sums over up to 4,096 others, which shows how
+errors grow with them), compared with the plain version (the largest
+absolute error; for dQ and dK/dV relative to the largest gradient, as
+``chip_smoke.py`` checks it, and for dQ also delta's absolute error), and
+timed with ``chip_smoke.cuda_ms``. The backward variants take the forward
+kernel's o and lse, and dK/dV the dQ kernel's delta, as the backward does.
+All variants are timed in turns (a, b, ..., b, a).
 The card's name and power limit come first, then the lines of
 ``tools/mma_sync_rate.cu`` (the card's mma.sync rates), then one JSON line
 per variant. The ablations compute something else on purpose: their errors
@@ -46,6 +51,12 @@ VARIANTS = {
     "fwd_bk64": ("flash_fwd.cu", ("PTT_FWD_BK=64",)),
     "fwd_one_pass": ("flash_fwd.cu", ("PTT_FWD_ONE_PASS=1",)),  # plain TF32
     "fwd_no_segment_skip": ("flash_fwd.cu", ("PTT_FWD_NO_SEGMENT_SKIP=1",)),
+    "dq": ("flash_bwd_dq.cu", ()),
+    "dq_bk32": ("flash_bwd_dq.cu", ("PTT_DQ_BK=32",)),
+    "dq_one_pass": ("flash_bwd_dq.cu", ("PTT_DQ_ONE_PASS=1",)),  # plain TF32
+    "dq_no_segment_skip": ("flash_bwd_dq.cu", ("PTT_DQ_NO_SEGMENT_SKIP=1",)),
+    # dQ products added into the truncating mma accumulators
+    "dq_acc_in_mma": ("flash_bwd_dq.cu", ("PTT_DQ_ACC_IN_MMA=1",)),
     "dkv": ("flash_bwd_dkv.cu", ()),
     "dkv_bq32": ("flash_bwd_dkv.cu", ("PTT_DKV_BQ=32",)),
     "dkv_one_pass": ("flash_bwd_dkv.cu", ("PTT_DKV_ONE_PASS=1",)),  # plain TF32
@@ -53,7 +64,8 @@ VARIANTS = {
     # dK/dV products added into the truncating mma accumulators
     "dkv_acc_in_mma": ("flash_bwd_dkv.cu", ("PTT_DKV_ACC_IN_MMA=1",)),
 }
-SYMBOLS = {"flash_fwd.cu": "ptt_flash_fwd", "flash_bwd_dkv.cu": "ptt_flash_bwd_dkv"}
+SYMBOLS = {"flash_fwd.cu": "ptt_flash_fwd", "flash_bwd_dq.cu": "ptt_flash_bwd_dq",
+           "flash_bwd_dkv.cu": "ptt_flash_bwd_dkv"}
 
 
 def start_build(name, out_dir, variants):
@@ -91,8 +103,8 @@ def mma_sync_rate(out_dir):
 
 
 def make_cases():
-    """label -> (inputs, kw, plain forward (o, lse), the kernels' lse and
-    delta, plain (dk, dv) from them)."""
+    """label -> (inputs, kw, plain forward (o, lse), the kernels' o, lse and
+    delta, plain (dq, delta) and (dk, dv) from them)."""
     import torch
 
     cases = {}
@@ -105,37 +117,50 @@ def make_cases():
         o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
         o, lse = fa.flash_forward_kernel(q, k, v, **kw)
         _, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, **kw)
         dkv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
-        cases[label] = ((q, k, v, do), kw, (o_p.float(), lse_p), (lse, delta), dkv_p)
+        cases[label] = ((q, k, v, do), kw, (o_p.float(), lse_p), (o, lse, delta), dq_p, dkv_p)
     return cases
+
+
+def rel_err(pairs):
+    """The largest absolute error over ``(got, want)`` pairs, each relative
+    to the largest magnitude of its ``want``."""
+    return max((got.float() - want.float()).abs().max().item()
+               / (want.float().abs().max().item() or 1.0) for got, want in pairs)
 
 
 def run(src, fn, case):
     """One launch of ``fn`` (a build of ``src``) on ``case``; return
-    ``(its error against the plain version, a callable that launches it)``."""
+    ``(its errors against the plain version, a callable that launches it)``."""
     import torch
 
-    (q, k, v, do), kw, (o_p, lse_p), (lse, delta), (dk_p, dv_p) = case
+    (q, k, v, do), kw, (o_p, lse_p), (o, lse, delta), (dq_p, delta_p), (dk_p, dv_p) = case
     if src == "flash_fwd.cu":
         call = lambda: chip_smoke.forward_with(fn, q, k, v, kw)  # noqa: E731
-        o, lse_k = call()
+        o_k, lse_k = call()
         torch.cuda.synchronize()
         fin = torch.isfinite(lse_p)
-        return max((o.float() - o_p).abs().max().item(),
-                   (lse_k[fin] - lse_p[fin]).abs().max().item()), call
+        return {"max_err": max((o_k.float() - o_p).abs().max().item(),
+                               (lse_k[fin] - lse_p[fin]).abs().max().item())}, call
+    if src == "flash_bwd_dq.cu":
+        call = lambda: chip_smoke.dq_with(fn, q, k, v, o, lse, do, kw)  # noqa: E731
+        dq, delta_k = call()
+        torch.cuda.synchronize()
+        return {"max_err": rel_err([(dq, dq_p)]),
+                "delta_err": (delta_k - delta_p).abs().max().item()}, call
     call = lambda: chip_smoke.dkv_with(fn, q, k, v, do, lse, delta, kw)  # noqa: E731
     dk, dv = call()
     torch.cuda.synchronize()
-    return max((got.float() - want.float()).abs().max().item()
-               / (want.float().abs().max().item() or 1.0)
-               for got, want in ((dk, dk_p), (dv, dv_p))), call
+    return {"max_err": rel_err([(dk, dk_p), (dv, dv_p)])}, call
 
 
 def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", help="root of another checkout: adds dkv_parent")
+    parser.add_argument("--parent",
+                        help="root of another checkout: adds dq_parent and dkv_parent")
     parser.add_argument("names", nargs="*", help="variants to build and time")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -143,8 +168,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     variants = {name: (src, defines, _build.CSRC) for name, (src, defines) in VARIANTS.items()}
     if args.parent:
-        variants["dkv_parent"] = ("flash_bwd_dkv.cu", (), os.path.join(
-            os.path.abspath(args.parent), "petastorm_tpu_torch", "ops", "csrc"))
+        parent_csrc = os.path.join(os.path.abspath(args.parent), "petastorm_tpu_torch", "ops",
+                                   "csrc")
+        variants["dq_parent"] = ("flash_bwd_dq.cu", (), parent_csrc)
+        variants["dkv_parent"] = ("flash_bwd_dkv.cu", (), parent_csrc)
     names = args.names or list(variants)
     print(chip_smoke.sh(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"]), flush=True)
@@ -160,14 +187,22 @@ def main():
         for name in names + names[::-1]:
             src, fn = variants[name][0], built[name][0]
             for label, case in cases.items():
-                err, call = run(src, fn, case)
+                errs, call = run(src, fn, case)
                 ms, _ = chip_smoke.cuda_ms(f"{name} {label}", call, 50 if label == "lm" else 10)
-                entry = results[name].setdefault(label, {"max_err": err, "ms": []})
+                entry = results[name].setdefault(label, {**errs, "ms": []})
                 entry["ms"].append(ms)
         for name in names:
             print(json.dumps({"variant": name, "source": variants[name][0],
                               "defines": variants[name][1], "ptxas": built[name][1],
                               **results[name]}), flush=True)
+        for name in names:  # a build against the same source of the --parent checkout
+            parent = name + "_parent"
+            if parent in built:
+                src = variants[name][0]
+                same = {label: all(torch.equal(a, b) for a, b in zip(
+                    run(src, built[name][0], case)[1](), run(src, built[parent][0], case)[1]()))
+                    for label, case in cases.items()}
+                print(json.dumps({"bit_identical": f"{name} vs {parent}", **same}), flush=True)
         print(json.dumps({"timing batches still short of spin": chip_smoke.SPIN_SHORT}))
     finally:
         for _, proc in procs.values():
