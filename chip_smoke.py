@@ -44,6 +44,33 @@ non-zero exit code):
    steps from a generated Parquet corpus: every batch arrives on the card,
    the loss is finite and falls, all three kernels were launched on this
    path, and flash logits match the dense oracle on the last batch.
+4. ``image``: the row/image path at ``bench.py``'s image configuration
+   (``IMAGE``: 1,536 rows of 64x64x3 uint8 png images with the benchmark's
+   schema, row groups of 128, batch 128, 10 classes, conv 64, hidden 2048,
+   SGD at lr 0.01, bf16 compute), labels made learnable (pixel mean set by
+   the label plus seeded noise): ``make_reader`` (thread pool) →
+   ``make_torch_dataloader(last_batch="pad", device_stage=DeviceStage(
+   normalize=(127.5, 127.5), crop=(56, 56), flip=True))`` →
+   ``train_image_classifier`` for 6 epochs, the first a warm-up (the
+   reader may decode up to one epoch ahead of the loader, so the timed
+   window is long enough to hold the decode rate, not that buffer). The crop
+   makes the model's input 56x56, so dense1 takes 28*28*64 = 50,176
+   features. Checked: the stage's card output for a fixed raw batch and
+   step equals its CPU output bit for bit (f32 and bf16) and the numpy
+   selection of its recorded draws; f32 logits on the card match the CPU
+   module with the same weights within ``LOGIT_REL`` of the largest logit
+   (TF32 off); every batch lands on ``cuda:0``; the loss is finite and its
+   last epoch's mean is below its first's; the H2D bytes per row are the
+   raw image's 12,288 plus the label's 4. Reported on the ``image:`` line:
+   steady-state images/s and step ms (after the warm-up epoch), the model
+   step alone on a resident batch (device ms and host ms per step, by
+   ``cuda_ms``), the host's decode ceiling (the same reader and collation
+   with no device, timed the same way), the stage's device ms per batch,
+   the training loop's ms per step between batches (``consumer_s``), the
+   card's busy share in the timed window of a second, identical run traced
+   by ``torch.profiler`` (``device_busy_pct``) and that run's images/s,
+   input stall, dispatch overlap, H2D bytes per image, peak memory and the
+   codec.
 
 The last three lines are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -80,6 +107,14 @@ HBM_BYTES_PER_S = 3.35e12
 # for all three kernels, whatever each one runs on.
 F32_TC_FLOPS = 495e12 / 3
 TRAIN_STEPS = 12
+# bench.py's image workload (bench.py:77-123): schema, rows, row groups,
+# batch, classes and model width; the crop is the device stage's.
+IMAGE = dict(rows=1536, rows_per_row_group=128, image_shape=(64, 64, 3), batch=128,
+             classes=10, conv_features=64, hidden=2048, lr=0.01, crop=(56, 56), epochs=6)
+# Phase 4 writes png, as bench.py does (the codec needs cv2 or Pillow).
+IMAGE_CODEC = "png"
+# f32 logits, card vs CPU: 50,176-term sums in another order (TF32 off).
+LOGIT_REL = 1e-4
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -464,6 +499,174 @@ def measure(shape, count_libs):
     return out, pairs, counts
 
 
+def device_busy_pct(trace_path, raw_batch_bytes, first_timed_batch):
+    """The share (%) of a window of a ``torch.profiler`` Chrome trace during
+    which the card ran a kernel, a copy or a memset (their union). The window
+    opens at the start of the ``first_timed_batch``-th host-to-device copy of
+    ``raw_batch_bytes`` (a batch's raw images) and closes at the end of the
+    last device event. "not measured" when the trace holds no such copy."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    raw_copies = sorted(e["ts"] for e in events if e.get("cat") == "gpu_memcpy"
+                        and e.get("args", {}).get("bytes") == raw_batch_bytes)
+    if len(raw_copies) <= first_timed_batch:
+        return "not measured"
+    start, end = raw_copies[first_timed_batch], max(e for _, e in device)
+    busy, reach = 0.0, start
+    for s, e in device:
+        s, e = max(s, reach), min(e, end)
+        if e > s:
+            busy += e - s
+            reach = e
+    return f"{100.0 * busy / (end - start):.2f}"
+
+
+def image_phase(smi):
+    """Phase 4 (see the module docstring); fails the run on any check."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+
+    cfg = IMAGE
+    stage_kw = dict(normalize=(127.5, 127.5), crop=cfg["crop"], flip=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_img_")
+    try:
+        url = f"file://{tmp}/images"
+        t0 = time.perf_counter()
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=cfg["rows"],
+                                  image_shape=cfg["image_shape"], num_classes=cfg["classes"],
+                                  rows_per_row_group=cfg["rows_per_row_group"])
+        write_s = time.perf_counter() - t0
+
+        # The host's ceiling: the training run's reader and collation with
+        # no device, timed as the training run is (after the first epoch).
+        warm = -(-cfg["rows"] // cfg["batch"])
+        with make_reader(url, schema_fields=["image", "label"], num_epochs=cfg["epochs"],
+                         shuffle_row_groups=True, shard_seed=0) as reader:
+            raw, n, t0 = None, 0, None
+            for i, batch in enumerate(batch_iterator(reader, cfg["batch"])):
+                raw = batch["image"] if raw is None else raw
+                if i == warm:
+                    t0 = time.perf_counter()
+                if t0 is not None:
+                    n += len(batch["image"])
+            ceiling = n / (time.perf_counter() - t0)
+
+        # The stage: card against CPU, and against the selection of its draws.
+        raw_cpu = torch.from_numpy(raw)
+        raw_dev = raw_cpu.cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            stage = DeviceStage(output_dtype=dtype, **stage_kw)
+            got = stage.apply({"image": raw_dev}, 5)["image"]
+            if not torch.equal(got.cpu(), stage.apply({"image": raw_cpu}, 5)["image"]):
+                fail(f"the device stage's card output ({dtype}) differs from its CPU output")
+        draws = stage.draws(5, 0, raw.shape)
+        (ch, cw), sel = cfg["crop"], []
+        for img, (r, c), flip in zip(raw, draws["offsets"], draws["flips"]):
+            img = img[r:r + ch, c:c + cw]
+            sel.append(img[:, ::-1] if flip else img)
+        want = (np.stack(sel).astype(np.float32) - np.float32(127.5)) * (
+            np.float32(1.0) / np.float32(127.5))
+        got = DeviceStage(**stage_kw).apply({"image": raw_dev}, 5)["image"].cpu().numpy()
+        if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            fail("the device stage's crop / flip is not the selection its draws name")
+        stage = DeviceStage(**stage_kw)
+        stage_ms, _ = cuda_ms("device stage", lambda: stage.apply({"image": raw_dev}, 0), 20)
+
+        # f32 logits, card against CPU, same weights (TF32 is off).
+        in_shape = cfg["crop"] + (cfg["image_shape"][2],)
+        cpu_model = ic.init_image_classifier(in_shape, cfg["classes"], hidden=cfg["hidden"],
+                                             conv_features=cfg["conv_features"],
+                                             compute_dtype=torch.float32, device="cpu")
+        card_model = copy.deepcopy(cpu_model).cuda()
+        x = stage.apply({"image": raw_cpu[:8]}, 0)["image"]
+        with torch.no_grad():
+            want = cpu_model(x)
+            got = card_model(x.cuda()).cpu()
+        logit_err = float((got - want).abs().max() / want.abs().max())
+        if not logit_err <= LOGIT_REL:
+            fail(f"f32 logits on the card differ from the CPU module's by {logit_err:.2e} "
+                 f"of the largest, above {LOGIT_REL:.0e}")
+        del cpu_model, card_model
+
+        # The model step alone, on a resident batch (bf16 compute).
+        model = ic.init_image_classifier(in_shape, cfg["classes"], hidden=cfg["hidden"],
+                                         conv_features=cfg["conv_features"], device="cuda")
+        step = ic.make_image_train_step(model, cfg["lr"])
+        images = stage.apply({"image": raw_dev}, 0)["image"]
+        labels = torch.zeros(cfg["batch"], dtype=torch.int32, device="cuda")
+        mask = torch.ones(cfg["batch"], dtype=torch.bool, device="cuda")
+        for _ in range(3):
+            step(images, labels, mask)
+        step_device_ms, step_host_ms = cuda_ms("image model step",
+                                               lambda: step(images, labels, mask), 20)
+        del model, step, images
+
+        fa.reset_launch_counts()
+        result = ic.train_image_classifier(
+            url, batch_size=cfg["batch"], epochs=cfg["epochs"], num_classes=cfg["classes"],
+            conv_features=cfg["conv_features"], hidden=cfg["hidden"],
+            learning_rate=cfg["lr"], device_stage=DeviceStage(**stage_kw), device="cuda")
+        launches = dict(fa.LAUNCHES)
+
+        # The card's busy share in the timed window, from a trace of a second,
+        # identical run (CUDA activity only): the union of its kernels,
+        # copies and memsets from the H2D copy of the first timed batch's raw
+        # images to the last device event.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = ic.train_image_classifier(
+                url, batch_size=cfg["batch"], epochs=cfg["epochs"],
+                num_classes=cfg["classes"], conv_features=cfg["conv_features"],
+                hidden=cfg["hidden"], learning_rate=cfg["lr"],
+                device_stage=DeviceStage(**stage_kw), device="cuda")
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy_pct = device_busy_pct(trace, cfg["batch"] * int(np.prod(cfg["image_shape"])),
+                                   traced["warmup_steps"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses, warm = result["losses"], result["warmup_steps"]
+    diag = result["diagnostics"]
+    if result["batch_devices"] != ["cuda:0"]:
+        fail(f"image batches arrived on {result['batch_devices']}, not cuda:0")
+    if not all(math.isfinite(x) for x in losses) or not (
+            np.mean(losses[-warm:]) < np.mean(losses[:warm])):
+        fail(f"image loss not finite and falling: {losses}")
+    per_row = diag["h2d_bytes"] / diag["rows"]
+    if per_row != int(np.prod(cfg["image_shape"])) + 4:
+        fail(f"{per_row} H2D bytes per row, expected 12,288 (raw image) + 4 (label)")
+    print(f"image: gpu={smi!r} codec={IMAGE_CODEC} rows={cfg['rows']} batch={cfg['batch']} "
+          f"crop={cfg['crop']} conv={cfg['conv_features']} hidden={cfg['hidden']} "
+          f"steps={len(losses)} warmup_steps={warm} "
+          f"images_per_s={result['images_per_s']:.1f} step_ms={result['step_ms']:.3f} "
+          f"model_step_device_ms={step_device_ms:.3f} model_step_host_ms={step_host_ms:.3f} "
+          f"host_decode_ceiling_images_per_s={ceiling:.1f} "
+          f"stage_device_ms_per_batch={stage_ms:.4f} "
+          f"consumer_ms_per_step={1e3 * diag['consumer_s'] / diag['batches']:.3f} "
+          f"traced_images_per_s={traced['images_per_s']:.1f} "
+          f"device_busy_pct_traced={busy_pct} "
+          f"input_stall_pct={diag['input_stall_pct']} "
+          f"dispatch_overlap_pct={diag['dispatch_overlap_pct']} "
+          f"h2d_bytes_per_image={per_row:.1f} "
+          f"raw_stage_s={diag['raw_stage_s']:.4f} device_decode_s={diag['device_decode_s']:.4f} "
+          f"peak_mem_mib={result['peak_memory_bytes'] / 2**20:.1f} "
+          f"logit_rel_err_f32={logit_err:.2e} dataset_write_s={write_s:.2f} "
+          f"loss_first_epoch={np.mean(losses[:warm]):.4f} "
+          f"loss_last_epoch={np.mean(losses[-warm:]):.4f} flash_launches={launches}",
+          flush=True)
+
+
 def main():
     try:
         import torch
@@ -591,6 +794,9 @@ def main():
           f"peak_mem_mb={result['peak_memory_bytes'] / 2**20:.1f} "
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
+
+    # -- 4. image ------------------------------------------------------------
+    image_phase(smi)
 
     source = "petastorm_tpu_torch/ops/csrc/"
     replaces = {"fwd": "petastorm_tpu/ops/flash_attention.py:96",

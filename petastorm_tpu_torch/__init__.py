@@ -1,10 +1,12 @@
 """petastorm_tpu_torch — the PyTorch / CUDA counterpart of petastorm_tpu.
 
-The same Parquet input path (Unischema + codecs, metadata, a columnar
-reader over worker pools, sequence packing) delivering batches to PyTorch
-on an NVIDIA GPU, and the long-context decoder LM that consumes them, whose
-attention runs on hand-written CUDA flash-attention kernels (forward, dQ,
-dK/dV) for Hopper. The package imports nothing of ``petastorm_tpu`` and no
+The same Parquet input path (Unischema + codecs, metadata, row and
+columnar readers over worker pools, row batching, sequence packing)
+delivering batches to PyTorch on an NVIDIA GPU, with the on-card image stage
+(crop / flip / cast / normalize of staged uint8 bytes), and two consumers:
+a CNN image classifier, and the long-context decoder LM whose attention
+runs on hand-written CUDA flash-attention kernels (forward, dQ, dK/dV) for
+Hopper. The package imports nothing of ``petastorm_tpu`` and no
 JAX: it keeps its own copies of what it needs.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
@@ -15,6 +17,7 @@ without a card a CUDA request raises. Exports are lazy.
 __version__ = "0.1.0"
 
 _LAZY_EXPORTS = {
+    "make_reader": ("petastorm_tpu_torch.reader.reader", "make_reader"),
     "make_columnar_reader": ("petastorm_tpu_torch.reader.reader",
                              "make_columnar_reader"),
     "Reader": ("petastorm_tpu_torch.reader.reader", "Reader"),
@@ -23,15 +26,25 @@ _LAZY_EXPORTS = {
     "Unischema": ("petastorm_tpu_torch.schema.unischema", "Unischema"),
     "UnischemaField": ("petastorm_tpu_torch.schema.unischema",
                        "UnischemaField"),
+    "TransformSpec": ("petastorm_tpu_torch.schema.transform", "TransformSpec"),
+    "CompressedImageCodec": ("petastorm_tpu_torch.schema.codecs",
+                             "CompressedImageCodec"),
+    "CompressedNdarrayCodec": ("petastorm_tpu_torch.schema.codecs",
+                               "CompressedNdarrayCodec"),
     "materialize_rows": ("petastorm_tpu_torch.etl.metadata",
                          "materialize_rows"),
     "TorchDataLoader": ("petastorm_tpu_torch.torch_utils.loader",
                         "TorchDataLoader"),
+    "make_torch_dataloader": ("petastorm_tpu_torch.torch_utils.loader",
+                              "make_torch_dataloader"),
+    "DeviceStage": ("petastorm_tpu_torch.torch_utils.device_stage", "DeviceStage"),
     "make_packed_torch_dataloader": ("petastorm_tpu_torch.torch_utils.packing",
                                      "make_packed_torch_dataloader"),
     "flash_attention": ("petastorm_tpu_torch.ops.flash_attention",
                         "flash_attention"),
     "train_lm": ("petastorm_tpu_torch.models.long_context_lm", "train_lm"),
+    "train_image_classifier": ("petastorm_tpu_torch.models.image_classifier",
+                               "train_image_classifier"),
 }
 
 __all__ = list(_LAZY_EXPORTS) + ["__version__"]

@@ -65,8 +65,11 @@ def _codec_to_json(codec):
         arrow_type = codec.arrow_dtype()
         return {"codec": "ScalarCodec",
                 "arrow_type": None if arrow_type is None else str(arrow_type)}
-    if isinstance(codec, codecs_mod.NdarrayCodec):
-        return {"codec": "NdarrayCodec"}
+    if isinstance(codec, codecs_mod.CompressedImageCodec):
+        return {"codec": "CompressedImageCodec", "image_codec": codec.image_codec,
+                "quality": codec._quality}
+    if isinstance(codec, (codecs_mod.NdarrayCodec, codecs_mod.CompressedNdarrayCodec)):
+        return {"codec": type(codec).__name__}
     raise PetastormMetadataError(
         f"codec {type(codec).__name__} is not supported by this package yet")
 
@@ -85,6 +88,11 @@ def _codec_from_json(spec):
         return codecs_mod.ScalarCodec(_ARROW_SIMPLE[arrow_type])
     if name == "NdarrayCodec":
         return codecs_mod.NdarrayCodec()
+    if name == "CompressedNdarrayCodec":
+        return codecs_mod.CompressedNdarrayCodec()
+    if name == "CompressedImageCodec":
+        return codecs_mod.CompressedImageCodec(spec.get("image_codec", "png"),
+                                               spec.get("quality", 80))
     raise PetastormMetadataError(
         f"codec {name!r} in the serialized schema is not supported by this "
         "package yet")

@@ -505,11 +505,15 @@ def _aligned16(t):
 
 class FlashAttentionFn(torch.autograd.Function):
     """``o = attention(q, k, v)`` with the flash kernels in both directions:
-    forward saves ``(q, k, v, o, lse)``; backward runs dQ then dK/dV."""
+    forward lays q, k, v out contiguous on 16-byte boundaries and saves
+    them with ``(o, lse)``; backward runs dQ then dK/dV."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, causal_offset, kv_lengths, q_seg,
                 kv_seg):
+        # Views (``qkv.unbind(2)``, odd offsets) are laid out for the
+        # kernels here; the backward reuses these copies.
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
         o, lse = flash_forward(q, k, v, causal=causal,
                                causal_offset=causal_offset,
                                kv_lengths=kv_lengths, q_seg=q_seg,

@@ -1,3 +1,7 @@
-"""The columnar reader (``make_columnar_reader``)."""
+"""The row and columnar readers (``make_reader``, ``make_columnar_reader``)."""
 
-from petastorm_tpu_torch.reader.reader import Reader, make_columnar_reader  # noqa: F401
+from petastorm_tpu_torch.reader.reader import (  # noqa: F401
+    Reader,
+    make_columnar_reader,
+    make_reader,
+)

@@ -1,14 +1,16 @@
-"""``make_columnar_reader`` and ``Reader``.
+"""``make_reader``, ``make_columnar_reader`` and ``Reader``.
 
 The port's own copy of the parts of ``petastorm_tpu/reader/reader.py`` the
-main path uses: a columnar reader over a petastorm-format dataset with
-``num_epochs``, seeded ``shuffle_row_groups``, ``cur_shard``/
-``shard_count`` row-group sharding and thread or dummy decode pools. The
-planning arithmetic is the JAX package's — canonical row-group order, the
-optional ``shard_seed`` pre-shuffle, round-robin ``pieces[s::count]`` — so
-the same arguments give both packages the same row groups in the same
-order. (Field selection, predicates, filters, caches, NGram windows,
-transforms, the row and plain-Parquet readers, resume and the process pool
+port uses, over a petastorm-format dataset: the row reader (decoded
+namedtuple rows, with ``schema_fields`` and a ``TransformSpec``) and the
+columnar reader (one namedtuple of ``[N, ...]`` column arrays per row
+group), both with ``num_epochs``, seeded ``shuffle_row_groups``,
+``cur_shard``/``shard_count`` row-group sharding and thread or dummy
+decode pools. The planning arithmetic is the JAX package's — canonical
+row-group order, the optional ``shard_seed`` pre-shuffle, round-robin
+``pieces[s::count]`` — so the same arguments give both packages the same
+row groups in the same order. (Predicates, filters, caches, NGram windows,
+row-drop partitions, the plain-Parquet reader, resume and the process pool
 are not ported yet.)
 """
 
@@ -24,10 +26,37 @@ from petastorm_tpu_torch.reader.columnar_worker import (
     ColumnarDecodeWorker,
     ColumnarResultsQueueReader,
 )
+from petastorm_tpu_torch.reader.py_dict_worker import (
+    PyDictReaderWorker,
+    PyDictResultsQueueReader,
+)
+from petastorm_tpu_torch.schema.transform import transform_schema
 from petastorm_tpu_torch.workers_pool import EmptyResultError
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
+
+
+def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
+                workers_count=10, shuffle_row_groups=True, num_epochs=1,
+                cur_shard=None, shard_count=None, shard_seed=None,
+                transform_spec=None):
+    """Row reader for petastorm-format datasets: yields one namedtuple of
+    decoded fields per row (``batched_output=False``).
+
+    ``schema_fields``: ``None`` (every field) or a list of field names,
+    full-match name regexes or :class:`UnischemaField` s. ``transform_spec``
+    runs on each decoded row dict in the workers; ``reader.schema`` is the
+    post-transform schema. ``shard_seed`` seeds both the shard pre-shuffle
+    and the per-epoch row-group shuffle; ``None`` shuffles unseeded.
+    """
+    fs, path, stored_schema = _open_dataset(dataset_url)
+    return Reader(fs, path, schema=stored_schema, reader_pool=_make_pool(reader_pool_type, workers_count),
+                  worker_class=PyDictReaderWorker,
+                  results_queue_reader=PyDictResultsQueueReader(),
+                  schema_fields=schema_fields, transform_spec=transform_spec,
+                  shuffle_row_groups=shuffle_row_groups, num_epochs=num_epochs,
+                  cur_shard=cur_shard, shard_count=shard_count, shard_seed=shard_seed)
 
 
 def make_columnar_reader(dataset_url, reader_pool_type="thread",
@@ -41,24 +70,34 @@ def make_columnar_reader(dataset_url, reader_pool_type="thread",
     ``shard_seed`` seeds both the shard pre-shuffle and the per-epoch
     row-group shuffle (as in the JAX package); ``None`` shuffles unseeded.
     """
+    fs, path, stored_schema = _open_dataset(dataset_url)
+    return Reader(fs, path, schema=stored_schema, reader_pool=_make_pool(reader_pool_type, workers_count),
+                  worker_class=ColumnarDecodeWorker,
+                  results_queue_reader=ColumnarResultsQueueReader(),
+                  shuffle_row_groups=shuffle_row_groups,
+                  num_epochs=num_epochs, cur_shard=cur_shard,
+                  shard_count=shard_count, shard_seed=shard_seed)
+
+
+def _open_dataset(dataset_url):
+    """``(filesystem, path, stored Unischema)`` of a petastorm dataset."""
     resolver = FilesystemResolver(dataset_url)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     try:
-        stored_schema = get_schema(fs, path)
+        return fs, path, get_schema(fs, path)
     except PetastormMetadataError as exc:
         raise RuntimeError(
             f"Dataset at {dataset_url!r} is not a petastorm dataset this "
             f"package can read: {exc}") from exc
+
+
+def _make_pool(reader_pool_type, workers_count):
     if reader_pool_type == "thread":
-        pool = ThreadPool(workers_count)
-    elif reader_pool_type == "dummy":
-        pool = DummyPool()
-    else:
-        raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
-                         "(this package has 'thread' and 'dummy')")
-    return Reader(fs, path, schema=stored_schema, reader_pool=pool, shuffle_row_groups=shuffle_row_groups,
-                  num_epochs=num_epochs, cur_shard=cur_shard,
-                  shard_count=shard_count, shard_seed=shard_seed)
+        return ThreadPool(workers_count)
+    if reader_pool_type == "dummy":
+        return DummyPool()
+    raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
+                     "(this package has 'thread' and 'dummy')")
 
 
 def split_pieces_for_shards(pieces, shard_count, shard_seed=None):
@@ -73,10 +112,13 @@ def split_pieces_for_shards(pieces, shard_count, shard_seed=None):
 
 
 class Reader:
-    """Iterator/context manager over column batches of a dataset."""
+    """Iterator/context manager over the rows or column batches of a
+    dataset, decoded by ``worker_class`` in ``reader_pool``."""
 
-    def __init__(self, filesystem, dataset_path, schema, reader_pool, shuffle_row_groups=True, num_epochs=1,
-                 cur_shard=None, shard_count=None, shard_seed=None):
+    def __init__(self, filesystem, dataset_path, schema, reader_pool, worker_class,
+                 results_queue_reader, schema_fields=None, transform_spec=None,
+                 shuffle_row_groups=True, num_epochs=1, cur_shard=None,
+                 shard_count=None, shard_seed=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -87,8 +129,10 @@ class Reader:
         self.num_epochs = num_epochs
         self.last_row_consumed = False
         self.stopped = False
-        self.schema = schema
-        self._results_queue_reader = ColumnarResultsQueueReader()
+        read_schema = schema.resolve_schema_view(schema_fields)
+        self.schema = (transform_schema(read_schema, transform_spec)
+                       if transform_spec else read_schema)
+        self._results_queue_reader = results_queue_reader
         self._workers_pool = reader_pool
 
         pieces = load_row_groups(filesystem, dataset_path)
@@ -110,9 +154,16 @@ class Reader:
             randomize_item_order=shuffle_row_groups,
             random_seed=shard_seed,
             max_ventilation_queue_size=min(len(items), 1000) or 1)
-        reader_pool.start(ColumnarDecodeWorker,
-                          (filesystem, pieces, schema),
+        reader_pool.start(worker_class, (filesystem, pieces, read_schema, transform_spec),
                           ventilator=self._ventilator)
+
+    @property
+    def rows_per_epoch(self):
+        """Rows this reader yields per epoch (its shard's row groups), from
+        the row counts both packages' writers store in the footer."""
+        if any(p.num_rows is None for p in self._pieces):
+            raise ValueError("the dataset's footer stores no row-group row counts")
+        return sum(p.num_rows for p in self._pieces)
 
     @property
     def batched_output(self):

@@ -1,11 +1,12 @@
 """Column codecs: tensor <-> Parquet-cell encodings.
 
-The port's own copy of the parts of ``petastorm_tpu/schema/codecs.py`` the
-main path uses: ``ScalarCodec`` (native Parquet scalars) and
-``NdarrayCodec`` (``np.save`` bytes, with the cached-header vectorized
-decode). The byte format is identical, so a dataset written by either
-package reads in the other. (The compressed ndarray and image codecs are
-not ported yet.)
+The port's own copy of ``petastorm_tpu/schema/codecs.py``: ``ScalarCodec``
+(native Parquet scalars), ``NdarrayCodec`` (``np.save`` bytes, with the
+cached-header vectorized decode), ``CompressedNdarrayCodec``
+(``np.savez_compressed`` bytes) and ``CompressedImageCodec`` (png / jpeg
+through cv2, or Pillow where cv2 is absent, with the vectorized
+``[N, H, W, C]`` column decode). The byte format is identical, so a dataset
+written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -211,6 +212,137 @@ def _fast_npy_load(value):
     data = np.frombuffer(value, dtype=dtype, offset=offset,
                          count=int(np.prod(shape)) if shape else 1)
     return data.reshape(shape, order="F" if fortran else "C").copy()
+
+
+class CompressedNdarrayCodec(DataframeColumnCodec):
+    """Stores an ndarray as ``np.savez_compressed`` bytes (zlib), under the
+    archive key ``arr``."""
+
+    def arrow_dtype(self):
+        return pa.binary()
+
+    def encode(self, unischema_field, value):
+        expected = np.dtype(unischema_field.numpy_dtype)
+        if value.dtype != expected:
+            raise ValueError(
+                f"Field {unischema_field.name!r}: expected dtype {expected}, got {value.dtype}")
+        _check_shape_compatible(unischema_field, value)
+        memfile = io.BytesIO()
+        np.savez_compressed(memfile, arr=value)
+        return memfile.getvalue()
+
+    def decode(self, unischema_field, value):
+        if value is None:
+            return None
+        with np.load(io.BytesIO(value), allow_pickle=False) as archive:
+            keys = archive.files
+            return archive["arr" if "arr" in keys else keys[0]]
+
+
+class CompressedImageCodec(DataframeColumnCodec):
+    """Stores an image ndarray as png or jpeg bytes, through cv2 or, where
+    cv2 is absent, Pillow. Channel order is whatever the user stored (cv2's
+    convention is BGR; the Pillow route swaps to and from RGB so both store
+    the same bytes); decode keeps the stored depth and alpha
+    (``IMREAD_UNCHANGED``)."""
+
+    def __init__(self, image_codec="png", quality=80):
+        if image_codec not in ("png", "jpeg", "jpg"):
+            raise ValueError(f"Unsupported image codec: {image_codec!r}")
+        self._image_codec = "jpeg" if image_codec == "jpg" else image_codec
+        self._quality = quality
+
+    @property
+    def image_codec(self):
+        return self._image_codec
+
+    def arrow_dtype(self):
+        return pa.binary()
+
+    def encode(self, unischema_field, value):
+        if not isinstance(value, np.ndarray):
+            raise ValueError(
+                f"Field {unischema_field.name!r}: CompressedImageCodec expects ndarray")
+        if value.dtype != np.dtype(unischema_field.numpy_dtype):
+            raise ValueError(
+                f"Field {unischema_field.name!r}: expected dtype "
+                f"{np.dtype(unischema_field.numpy_dtype)}, got {value.dtype}")
+        _check_shape_compatible(unischema_field, value)
+        cv2 = _cv2()
+        if cv2 is None:
+            return self._pil_encode(value)
+        if self._image_codec == "png":
+            ok, contents = cv2.imencode(".png", value)
+        else:
+            ok, contents = cv2.imencode(
+                ".jpeg", value, [int(cv2.IMWRITE_JPEG_QUALITY), self._quality])
+        if not ok:
+            raise ValueError(f"cv2.imencode failed for field {unischema_field.name!r}")
+        return contents.tobytes()
+
+    def decode(self, unischema_field, value):
+        if value is None:
+            return None
+        cv2 = _cv2()
+        if cv2 is None:
+            return self._pil_decode(value)
+        return cv2.imdecode(np.frombuffer(value, dtype=np.uint8), cv2.IMREAD_UNCHANGED)
+
+    def decode_column(self, unischema_field, cells):
+        """imdecode each cell straight into a preallocated ``[N, H, W, C]``
+        array; the generic loop handles nulls, undecodable bytes and ragged
+        image shapes (and the Pillow route)."""
+        cv2 = _cv2()
+        if cv2 is None:
+            return super().decode_column(unischema_field, cells)
+        out = None
+        for i, cell in enumerate(cells):
+            if cell is None:
+                return super().decode_column(unischema_field, cells)
+            img = cv2.imdecode(np.frombuffer(cell, dtype=np.uint8), cv2.IMREAD_UNCHANGED)
+            if img is None:
+                return super().decode_column(unischema_field, cells)
+            if out is None:
+                out = np.empty((len(cells),) + img.shape, dtype=img.dtype)
+            elif img.shape != out.shape[1:] or img.dtype != out.dtype:
+                return super().decode_column(unischema_field, cells)
+            out[i] = img
+        return out if out is not None else np.empty((0,), dtype=object)
+
+    def _pil_encode(self, value):
+        from PIL import Image
+
+        memfile = io.BytesIO()
+        img = value
+        if img.ndim == 3 and img.shape[2] == 3:
+            img = img[:, :, ::-1]
+        Image.fromarray(img).save(
+            memfile, format="PNG" if self._image_codec == "png" else "JPEG",
+            quality=self._quality)
+        return memfile.getvalue()
+
+    def _pil_decode(self, value):
+        from PIL import Image
+
+        arr = np.asarray(Image.open(io.BytesIO(value)))
+        if arr.ndim == 3 and arr.shape[2] == 3:
+            arr = arr[:, :, ::-1]
+        return arr
+
+
+_CV2 = []
+
+
+def _cv2():
+    """The ``cv2`` module, or None where it is not installed (imported once,
+    at first use)."""
+    if not _CV2:
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        _CV2.append(cv2)
+    return _CV2[0]
 
 
 def _stack_decoded(decoded):

@@ -1,14 +1,16 @@
 """Unischema: a tensor-aware schema over Parquet columns.
 
 The port's own copy of ``petastorm_tpu/schema/unischema.py``, cut to what the
-main path uses: fields, the namedtuple row type the reader yields, the
-storage arrow schema, and row encoding for the ETL writer. (Schema views,
-arrow-schema inference and the Spark shims are not ported yet.)
+port uses: fields, the namedtuple row type the readers yield, schema views
+(``schema_fields`` of the readers: fields and full-match name regexes), the
+storage arrow schema, and row encoding for the ETL writer. (Arrow-schema
+inference and the Spark shims are not ported yet.)
 """
 
 from __future__ import annotations
 
 import re
+import warnings
 from collections import OrderedDict, namedtuple
 
 import numpy as np
@@ -56,11 +58,59 @@ class Unischema:
                                           list(self._fields))
         return self._namedtuple(*map(kwargs.get, self._fields))
 
+    def make_namedtuples(self, row_dicts):
+        """:meth:`make_namedtuple` over a list of row dicts."""
+        self.make_namedtuple()
+        return [self._namedtuple(*map(row.get, self._fields)) for row in row_dicts]
+
+    def create_schema_view(self, fields):
+        """A sub-schema in this schema's field order. ``fields`` holds
+        :class:`UnischemaField` s of this schema and/or field-name regexes
+        (full match)."""
+        if not isinstance(fields, (list, tuple)):
+            raise ValueError("fields must be a list of UnischemaField or regex strings")
+        seen = set()
+        for item in fields:
+            if isinstance(item, UnischemaField):
+                if item.name not in self._fields:
+                    raise ValueError(
+                        f"Field {item.name!r} does not belong to schema {self._name!r}")
+                if item != self._fields[item.name]:
+                    warnings.warn(
+                        f"Field {item.name!r} differs from the schema's definition "
+                        "(dtype/shape/codec/nullable mismatch); using the schema's field",
+                        UserWarning, stacklevel=2)
+                seen.add(item.name)
+            elif isinstance(item, str):
+                matches = match_unischema_fields(self, [item])
+                if not matches:
+                    raise ValueError(
+                        f"Field regex {item!r} matched no fields of schema {self._name!r}")
+                seen.update(f.name for f in matches)
+            else:
+                raise ValueError(f"Invalid field spec: {item!r}")
+        return Unischema(f"{self._name}_view",
+                         [f for f in self._fields.values() if f.name in seen])
+
+    def resolve_schema_view(self, schema_fields):
+        """``schema_fields=None`` -> this schema; else a view of it."""
+        if schema_fields is None:
+            return self
+        return self.create_schema_view(list(schema_fields))
+
     def as_arrow_schema(self):
         """The storage arrow schema (codec-encoded columns are binary)."""
         return pa.schema([
             pa.field(f.name, _storage_arrow_type(f), nullable=f.nullable)
             for f in self._fields.values()])
+
+
+def match_unischema_fields(schema, field_regexes):
+    """The fields of ``schema`` whose names fully match any of
+    ``field_regexes`` (anchored, not prefix matches)."""
+    compiled = [re.compile(pattern) for pattern in field_regexes or ()]
+    return [f for f in schema.fields.values()
+            if any(c.fullmatch(f.name) for c in compiled)]
 
 
 def _sanitize_identifier(name):

@@ -79,13 +79,14 @@ def no_cuda():
 
 
 def _entry_points(tmp_path):
+    from petastorm_tpu_torch.models import image_classifier
     from petastorm_tpu_torch.models.long_context_lm import (
         init_lm_params,
         params_from_jax,
         train_lm,
     )
     from petastorm_tpu_torch.ops.flash_attention import flash_attention
-    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
     from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
 
     q = torch.zeros(1, 8, 2, 16)
@@ -99,12 +100,19 @@ def _entry_points(tmp_path):
         "train_lm": lambda: train_lm(f"file://{tmp_path}/missing"),
         "init_lm_params": lambda: init_lm_params(),
         "params_from_jax": lambda: params_from_jax(params, num_heads=2),
+        "make_torch_dataloader": lambda: make_torch_dataloader(None, 8),
+        "train_image_classifier": lambda: image_classifier.train_image_classifier(
+            f"file://{tmp_path}/missing"),
+        "init_image_classifier": lambda: image_classifier.init_image_classifier((8, 8, 3), 10),
+        "image_params_from_jax": lambda: image_classifier.params_from_jax({}, (8, 8, 3)),
     }
 
 
 @pytest.mark.parametrize("entry", ["flash_attention", "make_packed_torch_dataloader",
                                    "TorchDataLoader", "train_lm", "init_lm_params",
-                                   "params_from_jax"])
+                                   "params_from_jax", "make_torch_dataloader",
+                                   "train_image_classifier", "init_image_classifier",
+                                   "image_params_from_jax"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()

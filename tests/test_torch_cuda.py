@@ -1,7 +1,9 @@
 """Tests of petastorm_tpu_torch that need a CUDA card: the three flash
 kernels against their plain PyTorch versions (also through autograd with a
-do off a 16-byte boundary), pinned H2D staging, and the LM trainer on the
-card. They skip without a card.
+do off a 16-byte boundary, and with q/k/v views), pinned H2D staging, the
+LM trainer on the card, and the image path: the device stage and the
+classifier on the card against the CPU, the row loader's staged bytes, and
+the image trainer. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent (the suite's conftest imports JAX; skip it there):
@@ -19,10 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from petastorm_tpu_torch.models import image_classifier as ic
 from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
 from petastorm_tpu_torch.ops import flash_attention as fa
 from petastorm_tpu_torch.ops.segment_layouts import SEGMENT_KINDS, segment_ids
-from petastorm_tpu_torch.reader.reader import make_columnar_reader
+from petastorm_tpu_torch.reader.reader import make_columnar_reader, make_reader
+from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
 from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
 
 pytestmark = pytest.mark.cuda
@@ -178,3 +184,102 @@ def test_train_lm_on_the_card(cuda_device, tmp_path):
     assert result["batch_devices"] == ["cuda:0"]
     assert result["losses"][-1] < result["losses"][0]
     assert result["logit_parity"] <= 2e-4
+
+
+def test_flash_attention_takes_views_and_equals_the_contiguous_call(cuda_device):
+    """q/k/v as ``qkv.unbind(2)`` views of a fused projection, and a view
+    off a 16-byte boundary: the autograd function lays them out for the
+    kernels, so output and gradients equal the contiguous call bit for bit."""
+    rng = np.random.RandomState(5)
+    b, t, h, d = 2, 96, 2, 32
+    ids = torch.tensor(np.sort(rng.randint(0, 3, (b, t)), axis=1), dtype=torch.int32,
+                       device=cuda_device)
+    do = torch.tensor(rng.randn(b, t, h, d), dtype=torch.float32, device=cuda_device)
+    qkv = torch.tensor(rng.randn(b, t, 3, h, d), dtype=torch.float32, device=cuda_device,
+                       requires_grad=True)
+    storage = torch.tensor(rng.randn(3, b * t * h * d + 1), dtype=torch.float32,
+                           device=cuda_device, requires_grad=True)
+    odd = [row[1:].view(b, t, h, d) for row in storage.unbind(0)]
+    assert odd[0].data_ptr() % 16 == 4 and not qkv.unbind(2)[0].is_contiguous()
+    for q, k, v in (qkv.unbind(2), odd):
+        o = fa.flash_attention(q, k, v, causal=True, segment_ids=ids)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in x)
+        want = fa.flash_attention(*x, causal=True, segment_ids=ids)
+        want_grads = torch.autograd.grad(want, x, do)
+        assert torch.equal(o, want)
+        for got, ref in zip(grads, want_grads):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_stage_on_the_card_equals_the_cpu(cuda_device, dtype):
+    rng = np.random.RandomState(6)
+    raw = torch.tensor(rng.randint(0, 256, (16, 64, 64, 3)), dtype=torch.uint8)
+    stage = DeviceStage(output_dtype=dtype, normalize=((120.0, 128.0, 100.0), (60.0, 64.0, 50.0)),
+                        crop=(56, 56), flip=True, seed=3)
+    for step in (0, 7):
+        got = stage.apply({"image": raw.to(cuda_device)}, step)["image"]
+        want = stage.apply({"image": raw}, step)["image"]
+        assert got.is_cuda and got.dtype == want.dtype == dtype
+        assert torch.equal(got.cpu(), want)  # bit for bit: a gather and two IEEE ops
+
+
+def test_classifier_f32_logits_on_the_card_match_the_cpu(cuda_device):
+    """f32 compute with TF32 off: the card's conv / matmul sums in another
+    order, so 1e-5 relative to the largest logit."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = ic.init_image_classifier((32, 32, 3), 10, hidden=256, conv_features=32,
+                                       compute_dtype=torch.float32, seed=2, device="cpu")
+        card = ic.init_image_classifier((32, 32, 3), 10, hidden=256, conv_features=32,
+                                        compute_dtype=torch.float32, seed=2,
+                                        device=cuda_device)
+        x = torch.tensor(np.random.RandomState(7).rand(8, 32, 32, 3) * 2 - 1,
+                         dtype=torch.float32)
+        with torch.no_grad():
+            want = cpu(x)
+            got = card(x.to(cuda_device)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_image_loader_stages_bytes_and_decodes_on_the_card(cuda_device, tmp_path):
+    url = f"file://{tmp_path}/images"
+    ic.generate_image_dataset(url, CompressedImageCodec("png"), rows=80,
+                              image_shape=(16, 16, 3), rows_per_row_group=16)
+
+    def batches(device):
+        reader = make_reader(url, reader_pool_type="dummy", shuffle_row_groups=False)
+        stage = DeviceStage(normalize=(127.5, 127.5), crop=(12, 12), flip=True, seed=1)
+        with make_torch_dataloader(reader, 32, last_batch="pad", device=device,
+                                   device_stage=stage) as loader:
+            return list(loader), loader.diagnostics, stage
+
+    want, _, _ = batches("cpu")
+    got, diag, stage = batches(cuda_device)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in w:
+            assert g[key].is_cuda and torch.equal(g[key].cpu(), w[key])
+    # Per row: the raw 16x16x3 image, id (8), features (64), label (4); and
+    # the pad mask (1 byte a row) of the one padded batch.
+    assert diag["h2d_bytes"] == diag["rows"] * (16 * 16 * 3 + 8 + 64 + 4) + 32
+    assert stage.h2d_bytes == diag["rows"] * 16 * 16 * 3
+    assert diag["raw_stage_s"] > 0 and diag["device_decode_s"] > 0
+
+
+def test_train_image_classifier_on_the_card(cuda_device, tmp_path):
+    url = f"file://{tmp_path}/images"
+    ic.generate_image_dataset(url, CompressedImageCodec("png"), rows=256,
+                              image_shape=(32, 32, 3), rows_per_row_group=32)
+    result = ic.train_image_classifier(url, batch_size=32, epochs=3, conv_features=16,
+                                       hidden=128, learning_rate=0.05, device=cuda_device)
+    losses = result["losses"]
+    assert result["batch_devices"] == ["cuda:0"] and len(losses) == 24
+    assert np.isfinite(losses).all() and np.mean(losses[-8:]) < np.mean(losses[:8])
+    assert result["peak_memory_bytes"] > 0 and result["images_per_s"] > 0
