@@ -20,7 +20,16 @@ non-zero exit code):
    at the LM's shape (B=4, T=128, H=4, D=16), on segment ids built to trip
    a tile-skipping kernel (``segment_layouts``: unsorted, -1 padded tails,
    single-token segments, one segment over all of T, edges inside tiles) in
-   f32 and bf16, and at head dims 16, 32 and 64. In every case the counting
+   f32 and bf16, at head dims 16, 32 and 64, at head dim 8 (run as 16,
+   zero-padded), under strict causal (``causal_offset`` -1, the striped
+   ring's blocks) and with an lse cotangent through the dQ kernel (at the
+   ring's block shapes, D=16 and D=8, f32 and bf16; delta must equal
+   ``rowsum(dout * o) - dlse`` on the kernel's own o), and at the shapes
+   and dtypes the sequence trainers of phases 5 and 6 give the kernels
+   (``trainer_cases``: 5-frame windows, ragged ``kv_lengths``, packed
+   segment ids, and the sp = 2 ring's blocks of the last two). Head dims
+   the kernels are not instantiated for are laid out as the autograd
+   functions lay them out (``kernel_layout``). In every case the counting
    builds count on the card the K tiles the forward's and the dQ kernel's
    blocks load and the tiles their warps compute, and the Q tiles the dK/dV
    kernel's blocks load and the tiles its warps compute; these must equal
@@ -72,6 +81,28 @@ non-zero exit code):
    input stall, dispatch overlap, H2D bytes per image, peak memory and the
    codec.
 
+5. ``seq``: the sequence-model family's three trainers
+   (``models/sequence_training.py``: NGram windows of 5 frames, ragged
+   causal with ``lengths``, packed causal with ``segment_ids``; d_model 32,
+   4 heads, so head dim 8) for ``SEQ_STEPS`` steps each through the
+   kernels: losses finite, the ragged and packed losses' last-quarter mean
+   below their first-quarter mean, every kernel launched.
+6. ``sp``: ``SP`` = 2 spawned ranks on the one card, in a gloo group over a
+   ``FileStore``; the collectives stage CUDA tensors through pinned host
+   memory (gloo takes host tensors only, and NCCL refuses two ranks on one
+   device); the kernels run on the card in both ranks, built by the parent
+   beforehand. Each rank checks, and fails the run on a miss: ring
+   (striped and contiguous) and Ulysses attention with flash local blocks
+   and segment ids against the dense oracle (outputs and q/k/v
+   gradients, D=16 and D=8); the LM at its full configuration for 12
+   steps at sp = 2 (loss falls, ring-vs-dense logit parity within
+   ``PARITY_TOL``, parameter gradients equal to one process's); the
+   sequence encoder at sp = 2, ring and Ulysses (gradients equal to one
+   process's, then ragged training), and the packed trainer over the ring,
+   the trainers with their default local attention (``"auto"``: the kernels
+   for CUDA tensors), each run launching every kernel. The second line
+   reports step times of this transport, not claims.
+
 The last three lines are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
 dK/dV together beside SDPA's backward), the ``nvidia-smi`` name and power
@@ -107,6 +138,9 @@ HBM_BYTES_PER_S = 3.35e12
 # for all three kernels, whatever each one runs on.
 F32_TC_FLOPS = 495e12 / 3
 TRAIN_STEPS = 12
+SEQ_STEPS = 48  # steps of each sequence trainer: losses fall over quarters of the run
+SP = 2  # sequence-parallel ranks of phase 6, all on card 0
+SP_TIMEOUT_S = 600
 # bench.py's image workload (bench.py:77-123): schema, rows, row groups,
 # batch, classes and model width; the crop is the device stage's.
 IMAGE = dict(rows=1536, rows_per_row_group=128, image_shape=(64, 64, 3), batch=128,
@@ -204,6 +238,18 @@ def make_case(B, T, H, D, dtype, Hkv=None, seg=None, lens=False, seed=0):
     return (q, k, v, do), kw
 
 
+def kernel_layout(case):
+    """``case`` (``make_case``'s) laid out as the autograd functions give
+    the kernels their inputs: zero-padded to an instantiated head dim
+    (``pad_head_dim``; ``D=8`` runs as ``D=16``, instantiated head dims stay
+    as they are) with the true head dim's scale among the keywords."""
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    tensors, kw = case
+    tensors, kw["scale"] = fa.pad_head_dim(*tensors)
+    return tuple(tensors), kw
+
+
 def forward_with(fn, q, k, v, kw):
     """``(o, lse)`` from one launch of ``fn``, the ``ptt_flash_fwd`` of
     another build of ``flash_fwd.cu``, with the arguments the wrapper passes.
@@ -218,17 +264,18 @@ def forward_with(fn, q, k, v, kw):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(kw["q_seg"]),
              ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
-             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"], kw.get("scale")),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ptt_flash_fwd failed with cudaError {err}")
     return o, lse
 
 
-def dq_with(fn, q, k, v, o, lse, do, kw):
+def dq_with(fn, q, k, v, o, lse, do, kw, dlse=None):
     """``(dq, delta)`` from one launch of ``fn``, the ``ptt_flash_bwd_dq`` of
     another build of ``flash_bwd_dq.cu``, with the arguments the wrapper
-    passes. The wrapper's launch counts do not move."""
+    passes (``dlse``, the lse cotangent, or null). The wrapper's launch
+    counts do not move."""
     import torch
 
     from petastorm_tpu_torch.ops import flash_attention as fa
@@ -237,9 +284,9 @@ def dq_with(fn, q, k, v, o, lse, do, kw):
     delta = torch.empty((q.shape[0] * q.shape[2], q.shape[1]), dtype=torch.float32,
                         device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(delta), ptr(dq),
-             ptr(kw["q_seg"]), ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
-             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dlse), ptr(delta),
+             ptr(dq), ptr(kw["q_seg"]), ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"], kw.get("scale")),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ptt_flash_bwd_dq failed with cudaError {err}")
@@ -258,7 +305,7 @@ def dkv_with(fn, q, k, v, do, lse, delta, kw):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
              ptr(kw["q_seg"]), ptr(kw["kv_seg"]), ptr(kw["kv_lengths"]),
-             *fa._dims(q, k, kw["causal"], kw["causal_offset"]),
+             *fa._dims(q, k, kw["causal"], kw["causal_offset"], kw.get("scale")),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ptt_flash_bwd_dkv failed with cudaError {err}")
@@ -287,7 +334,7 @@ def counted(read_counts, launch):
     return out, read_and_clear()
 
 
-def count_tiles(name, count_libs, tensors, kw, kernel_out):
+def count_tiles(name, count_libs, tensors, kw, kernel_out, dlse=None):
     """The three tile-skipping kernels' work on these inputs, counted on the
     card by one launch of each counting build (``count_libs``: kernel name
     -> its ``ptt_*`` entry point and ``ptt_*_tile_counts``): ``{"fwd": (K
@@ -303,13 +350,13 @@ def count_tiles(name, count_libs, tensors, kw, kernel_out):
     from petastorm_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = tensors
-    (o, lse), delta = kernel_out["fwd"], kernel_out["dq"][1]
+    (o, lse), delta = kernel_out["fwd"], kernel_out["dq"][1]  # delta less any dlse
     B, Tq, H = q.shape[:3]
     masks = dict(causal=kw["causal"], causal_offset=kw["causal_offset"],
                  kv_lengths=kw["kv_lengths"], q_seg=kw["q_seg"], kv_seg=kw["kv_seg"])
     launches = {
         "fwd": lambda fn: forward_with(fn, q, k, v, kw),
-        "dq": lambda fn: dq_with(fn, q, k, v, o, lse, do, kw),
+        "dq": lambda fn: dq_with(fn, q, k, v, o, lse, do, kw, dlse),
         "dkv": lambda fn: dkv_with(fn, q, k, v, do, lse, delta, kw),
     }
     want = {
@@ -332,13 +379,14 @@ def count_tiles(name, count_libs, tensors, kw, kernel_out):
     return want
 
 
-def check_case(name, tensors, kw, count_libs):
-    """Run all three kernels and their plain versions on the same inputs,
-    launch dQ and dK/dV twice each (the two results must be bit-identical),
-    and count the kernels' tiles (``count_tiles``); return the error and
-    tile line and each kernel's max absolute error, and raise on a tolerance
-    miss: the forward absolute in f32 and within one bf16 step elementwise in
-    bf16 (``fwd_steps`` ≤ 1); lse absolute (it is f32 for both dtypes);
+def check_case(name, tensors, kw, count_libs, dlse=None):
+    """Run all three kernels and their plain versions on the same inputs
+    (``dlse``: an lse cotangent for the dQ kernel, or None), launch dQ and
+    dK/dV twice each (the two results must be bit-identical), and count the
+    kernels' tiles (``count_tiles``); return the error and tile line and
+    each kernel's max absolute error, and raise on a tolerance miss: the
+    forward absolute in f32 and within one bf16 step elementwise in bf16
+    (``fwd_steps`` ≤ 1); lse and delta absolute (f32 for both dtypes);
     gradients relative to the largest gradient."""
     import torch
 
@@ -347,9 +395,9 @@ def check_case(name, tensors, kw, count_libs):
     q, k, v, do = tensors
     o, lse = fa.flash_forward_kernel(q, k, v, **kw)
     o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
-    dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
-    dq2, delta2 = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
-    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, **kw)
+    dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, dlse=dlse, **kw)
+    dq2, delta2 = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, dlse=dlse, **kw)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, dlse=dlse, **kw)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, **kw)
@@ -359,7 +407,7 @@ def check_case(name, tensors, kw, count_libs):
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"{name}: two launches of the dK/dV kernel differ")
     tiles = count_tiles(name, count_libs, tensors, kw,
-                        {"fwd": (o, lse), "dq": (dq, delta), "dkv": (dk, dv)})
+                        {"fwd": (o, lse), "dq": (dq, delta), "dkv": (dk, dv)}, dlse)
     bf16 = q.dtype == torch.bfloat16
     abs_err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
     errs = {"fwd": abs_err(o, o_p)}
@@ -369,10 +417,16 @@ def check_case(name, tensors, kw, count_libs):
     if not torch.equal(finite, torch.isfinite(lse)):
         raise AssertionError(f"{name}: lse empty-row pattern differs")
     errs["lse"] = (lse[finite] - lse_p[finite]).abs().max().item()
+    if dlse is not None:  # delta carries the lse cotangent into both backward kernels
+        B, T, H = q.shape[:3]
+        want = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * H, T) - dlse
+        errs["delta"] = (delta - want).abs().max().item()
     for key, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
         scale = want.float().abs().max().item() or 1.0
         errs[key] = abs_err(got, want) / scale
-    limits = {"fwd": F32_FWD_ABS, "lse": F32_FWD_ABS}
+    # delta against rowsum(dout * o) - dlse on the kernel's own o: f32 sums
+    # of exact products (bf16 products are exact in f32) in another order.
+    limits = {"fwd": F32_FWD_ABS, "lse": F32_FWD_ABS, "delta": F32_FWD_ABS}
     if bf16:
         del errs["fwd"]
         g, w = o.float(), o_p.float()
@@ -667,6 +721,324 @@ def image_phase(smi):
           flush=True)
 
 
+
+def quarter_means(losses):
+    """Mean loss over the first and the last quarter of a run."""
+    n = max(1, len(losses) // 4)
+    return sum(losses[:n]) / n, sum(losses[-n:]) / n
+
+
+def seq_phase():
+    """Phase 5 (see the module docstring); fails the run on any check."""
+    from petastorm_tpu_torch.models import sequence_training as st
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    try:
+        frames_url, ragged_url = f"file://{tmp}/frames", f"file://{tmp}/ragged"
+        st.generate_frames_dataset(frames_url)
+        st.generate_ragged_dataset(ragged_url)
+        runs = {
+            "sequence": lambda: st.train_sequence(frames_url, steps=SEQ_STEPS,
+                                                  attn_impl="flash", device="cuda"),
+            "ragged": lambda: st.train_ragged_causal(ragged_url, steps=SEQ_STEPS,
+                                                     device="cuda"),
+            "packed": lambda: st.train_packed_causal(ragged_url, steps=SEQ_STEPS,
+                                                     device="cuda"),
+        }
+        out = {}
+        for name, run in runs.items():
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run()
+            seconds = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)
+            losses = result["losses"]
+            if len(losses) != SEQ_STEPS or not all(math.isfinite(x) for x in losses):
+                fail(f"seq {name}: {len(losses)} losses, finite: {losses}")
+            first, last = quarter_means(losses)
+            if name != "sequence" and not last < first:
+                fail(f"seq {name}: loss did not fall (first quarter {first:.4f}, "
+                     f"last {last:.4f}): {losses}")
+            if min(launches.values()) < 1:
+                fail(f"seq {name}: a kernel was not launched: {launches}")
+            out[name] = (first, last, seconds, launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("seq: head_dim=8 (run as 16, zero-padded) steps=" + str(SEQ_STEPS) + " "
+          + " ".join(f"{n}: loss_first_quarter={f:.4f} loss_last_quarter={la:.4f} "
+                     f"seconds={sec:.2f} launches={lc}"
+                     for n, (f, la, sec, lc) in out.items()), flush=True)
+
+
+def _rel(got, want):
+    return (got.float() - want.float()).abs().max().item() / (
+        want.float().abs().max().item() or 1.0)
+
+
+def _grads(loss_fn, model):
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def sp_rank(rank, store, out_dir, corpus_url, ragged_url):
+    """One rank of phase 6: joins a gloo group of ``SP`` ranks on card 0,
+    runs every check (raising on a miss) and writes its numbers to
+    ``<out_dir>/rank<rank>.json``, or its traceback to ``rank<rank>.err``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=SP)
+        group = dist.group.WORLD
+        out = sp_checks(group, corpus_url, ragged_url)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sp_checks(group, corpus_url, ragged_url):
+    """The checks of one rank of phase 6; returns its numbers."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.models import long_context_lm as lm
+    from petastorm_tpu_torch.models import sequence_model as sm
+    from petastorm_tpu_torch.models import sequence_training as st
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.torch_utils.packing import (
+        PACK_POSITION_KEY,
+        PACK_SEGMENT_KEY,
+        pack_ragged,
+    )
+
+    out = {}
+    # Ring (both placements) and Ulysses, flash local, against the dense
+    # oracle on the card: outputs and q/k/v gradients.
+    B, T, H = LM["B"], LM["T"], LM["H"]
+    for d in (LM["D"], 8):
+        g = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, w = (torch.randn(B, T, H, d, device="cuda", generator=g) for _ in range(4))
+        seg = torch.sort(torch.randint(0, 6, (B, T), device="cuda", generator=g),
+                         dim=1).values.int()
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = sm.attention_reference(*ref_in, causal=True, segment_ids=seg)
+        (ref * w).sum().backward()
+        for name, attn in (
+                ("ring_striped", lambda a, b, c: sm.ring_attention(
+                    a, b, c, group, causal=True, placement="striped", segment_ids=seg,
+                    local_attn="flash")),
+                ("ring_contiguous", lambda a, b, c: sm.ring_attention(
+                    a, b, c, group, causal=True, placement="contiguous", segment_ids=seg,
+                    local_attn="flash")),
+                ("ulysses", lambda a, b, c: sm.ulysses_attention(
+                    a, b, c, group, causal=True, segment_ids=seg, local_attn="flash"))):
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            fa.reset_launch_counts()
+            got = attn(*x)
+            (got * w).sum().backward()
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            err = (got - ref).abs().max().item()
+            grad_err = max(_rel(a.grad, b.grad) for a, b in zip(x, ref_in))
+            if not (err <= F32_FWD_ABS and grad_err <= F32_GRAD_REL):
+                raise AssertionError(f"{name} D={d}: output error {err:.3e} (limit "
+                                     f"{F32_FWD_ABS:.0e}), gradient error {grad_err:.3e} "
+                                     f"(limit {F32_GRAD_REL:.0e}) against the dense oracle")
+            if min(launches.values()) < 1:
+                raise AssertionError(f"{name} D={d}: a kernel was not launched: {launches}")
+            out[f"{name}_d{d}"] = {"out_err": err, "grad_rel_err": grad_err,
+                                   "launches": launches}
+
+    # The LM capstone at its full configuration over the group.
+    fa.reset_launch_counts()
+    result = lm.train_lm(corpus_url, slot_len=LM["T"], slots=LM["B"], steps=TRAIN_STEPS,
+                         num_heads=4, d_model=64, epochs=8, device="cuda", group=group)
+    launches = dict(fa.LAUNCHES)
+    losses = result["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"sp LM: loss not finite and falling over {TRAIN_STEPS} "
+                             f"steps: {losses}")
+    if not result["logit_parity"] <= PARITY_TOL:
+        raise AssertionError(f"sp LM: ring vs dense logits differ by "
+                             f"{result['logit_parity']:.3e}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"sp LM: a kernel was not launched: {launches}")
+    # Its parameter gradients on one packed batch, against one process's.
+    rng = np.random.RandomState(9)
+    rows = [{"tokens": rng.randint(0, 64, int(rng.randint(8, 49))).astype(np.int32)}
+            for _ in range(40)]
+    packed = next(pack_ragged(iter(rows), slot_len=LM["T"], slots=LM["B"]))
+    batch = [torch.from_numpy(packed[key]).cuda()
+             for key in ("tokens", PACK_POSITION_KEY, PACK_SEGMENT_KEY)]
+    model = lm.init_lm_params(0, d_model=64, num_heads=4, slot_len=LM["T"], device="cuda")
+    loss_sp, grads_sp = _grads(lambda: lm.lm_loss(model, *batch, group=group), model)
+    loss_one, grads_one = _grads(lambda: lm.lm_loss(model, *batch), model)
+    lm_grad_err = max(_rel(grads_sp[n], grads_one[n]) for n in grads_one)
+    if not (lm_grad_err <= F32_GRAD_REL and abs(loss_sp - loss_one) <= 1e-5 * abs(loss_one)):
+        raise AssertionError(f"sp LM: gradients differ from one process's by "
+                             f"{lm_grad_err:.3e} of the largest (loss {loss_sp} vs "
+                             f"{loss_one})")
+    out["lm"] = {"losses": losses, "steps_per_s": result["steps_per_s"],
+                 "logit_parity": result["logit_parity"], "launches": launches,
+                 "grad_rel_err": lm_grad_err,
+                 "peak_mem_mib": result["peak_memory_bytes"] / 2 ** 20}
+
+    # The sequence encoder over the group, ring and Ulysses, with their
+    # default local attention (the kernels, for CUDA tensors): one step's
+    # gradients against one process's, then training runs.
+    gen = np.random.RandomState(10)
+    windows = torch.tensor(gen.randn(16, 24, 6), dtype=torch.float32, device="cuda")
+    labels = torch.tensor(gen.randint(0, 3, 16), device="cuda")
+    mask = torch.ones(16, dtype=torch.bool, device="cuda")
+    lengths = torch.tensor(gen.randint(4, 25, 16), dtype=torch.int32, device="cuda")
+    model = sm.init_seq_params(1, feature_dim=6, d_model=32, num_heads=4, num_classes=3,
+                               device="cuda")
+    kw = dict(causal=True, compute_dtype=torch.float32)
+    _, grads_one = _grads(lambda: sm.seq_loss(model, windows, labels, mask, lengths,
+                                              attn_impl="flash", **kw), model)
+    for impl in ("ring", "ulysses"):
+        fa.reset_launch_counts()
+        _, grads_sp = _grads(lambda: sm.seq_loss(model, windows, labels, mask, lengths,
+                                                 group=group, attn_impl=impl, **kw), model)
+        seq_launches = dict(fa.LAUNCHES)
+        err = max(_rel(grads_sp[n], grads_one[n]) for n in grads_one)
+        if not err <= F32_GRAD_REL or min(seq_launches.values()) < 1:
+            raise AssertionError(f"sp seq {impl}: gradients differ from one process's by "
+                                 f"{err:.3e}, launches {seq_launches}")
+        t0 = time.perf_counter()
+        trained = st.train_ragged_causal(ragged_url, steps=SEQ_STEPS, group=group,
+                                         attn_impl=impl, device="cuda")
+        seconds = time.perf_counter() - t0
+        if not all(math.isfinite(x) for x in trained["losses"]):
+            raise AssertionError(f"sp seq {impl}: losses not finite: {trained['losses']}")
+        out[f"seq_{impl}"] = {"grad_rel_err": err, "launches": seq_launches,
+                              "loss_quarters": quarter_means(trained["losses"]),
+                              "train_s": seconds}
+    fa.reset_launch_counts()
+    packed_run = st.train_packed_causal(ragged_url, steps=SEQ_STEPS, group=group,
+                                        device="cuda")
+    if not all(math.isfinite(x) for x in packed_run["losses"]) \
+            or min(fa.LAUNCHES.values()) < 1:
+        raise AssertionError(f"sp packed: losses {packed_run['losses']}, "
+                             f"launches {fa.LAUNCHES}")
+    out["packed_ring"] = {"loss_quarters": quarter_means(packed_run["losses"]),
+                          "launches": dict(fa.LAUNCHES)}
+    return out
+
+
+def sp_phase(one_process_steps_per_s):
+    """Phase 6 (see the module docstring): ``SP`` spawned ranks on card 0;
+    fails the run if a rank fails or does not finish."""
+    import multiprocessing
+
+    from petastorm_tpu_torch.models.long_context_lm import generate_corpus
+    from petastorm_tpu_torch.models.sequence_training import generate_ragged_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        corpus_url, ragged_url = f"file://{tmp}/corpus", f"file://{tmp}/ragged"
+        generate_corpus(corpus_url)
+        generate_ragged_dataset(ragged_url)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=sp_rank, args=(r, os.path.join(tmp, "store"), tmp,
+                                                   corpus_url, ragged_url))
+                 for r in range(SP)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        seconds = time.perf_counter() - t0
+        failed = []
+        for r, p in enumerate(procs):
+            err = os.path.join(tmp, f"rank{r}.err")
+            if p.exitcode != 0:
+                failed.append(f"rank {r} exit {p.exitcode}: "
+                              + (open(err).read() if os.path.exists(err) else "no traceback"))
+        if failed:
+            fail("sp: " + "\n".join(failed))
+        ranks = []
+        for r in range(SP):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if ranks[0]["lm"]["losses"] != ranks[1]["lm"]["losses"]:
+        fail(f"sp: the ranks' LM losses differ: {[r['lm']['losses'] for r in ranks]}")
+    r0 = ranks[0]
+    attn = " ".join(f"{n}: out_err={v['out_err']:.2e} grad_rel_err={v['grad_rel_err']:.2e}"
+                    for n, v in r0.items() if "out_err" in v)
+    lm_r = r0["lm"]
+    print(f"sp: ranks={SP} on cuda:0, transport=gloo with pinned-host staging "
+          f"(NCCL refuses two ranks on one card) | {attn} | lm d_model=64 heads=4 D=16 "
+          f"layers=2 slot_len={LM['T']} slots={LM['B']} steps={len(lm_r['losses'])} "
+          f"losses={[round(x, 4) for x in lm_r['losses']]} "
+          f"logit_parity={lm_r['logit_parity']:.2e} grad_rel_err={lm_r['grad_rel_err']:.2e} "
+          f"launches={lm_r['launches']} peak_mem_mib={lm_r['peak_mem_mib']:.1f} | "
+          + " ".join(f"{n}: grad_rel_err={r0[n]['grad_rel_err']:.2e} "
+                     f"loss_quarters={[round(x, 4) for x in r0[n]['loss_quarters']]} "
+                     f"launches={r0[n]['launches']}" for n in ("seq_ring", "seq_ulysses"))
+          + f" packed_ring: loss_quarters="
+          f"{[round(x, 4) for x in r0['packed_ring']['loss_quarters']]} "
+          f"| seconds={seconds:.1f}", flush=True)
+    print(f"sp step times (this transport, not a claim): lm sp=2 "
+          f"steps_per_s={lm_r['steps_per_s']:.2f} "
+          f"(ranks: {[round(r['lm']['steps_per_s'], 2) for r in ranks]}) vs one process "
+          f"{one_process_steps_per_s:.2f}; seq ragged {SEQ_STEPS} steps: ring "
+          f"{r0['seq_ring']['train_s']:.2f} s, ulysses {r0['seq_ulysses']['train_s']:.2f} s",
+          flush=True)
+
+
+def trainer_cases():
+    """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
+    and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
+    of 5 frames, unmasked, bf16; ragged B=16 T=24 causal with
+    ``kv_lengths``, bf16; packed B=4 T=48 causal with segment ids (-1
+    padded tails), f32; and the sp = 2 ring's blocks of the last two (T=12
+    and T=24, strict causal, per-block ``kv_lengths`` or a ``(q_ids,
+    kv_ids)`` pair, with an lse cotangent)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(50)
+    out = []
+    frames = make_case(16, 5, 4, 8, torch.bfloat16, seed=51)
+    frames[1]["causal"] = False
+    out.append(("seq frames B=16 T=5 D=8 bf16", frames, None))
+    for t, offset, tag in ((24, 0, "ragged B=16 T=24"), (12, -1, "ragged ring block B=16 T=12")):
+        tensors, kw = make_case(16, t, 4, 8, torch.bfloat16, seed=52 + t)
+        kw["causal_offset"] = offset
+        kw["kv_lengths"] = torch.randint(0, t + 1, (16,), device="cuda", generator=g).int()
+        dlse = torch.randn(16 * 4, t, device="cuda", generator=g) if offset else None
+        out.append((f"seq {tag} causal+kv_lengths D=8 bf16", (tensors, kw), dlse))
+    out.append(("seq packed B=4 T=48 causal+seg D=8 f32",
+                make_case(4, 48, 4, 8, torch.float32, seg="tail_pad", seed=54), None))
+    tensors, kw = make_case(4, 24, 4, 8, torch.float32, seg="tail_pad", seed=55)
+    kw["causal_offset"] = -1
+    kw["kv_seg"] = kw["q_seg"].flip(0).contiguous()  # another row's ids: a pair
+    out.append(("seq packed ring block B=4 T=24 strict causal+seg pair D=8 f32", (tensors, kw),
+                torch.randn(4 * 4, 24, device="cuda", generator=g)))
+    return out
+
+
 def main():
     try:
         import torch
@@ -742,9 +1114,32 @@ def main():
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             cases.append((f"D={d} T=512 tail_pad {tag}",
                           make_case(B, 512, H, d, dtype, seg="tail_pad", seed=d)))
+    # Strict causal (causal_offset -1: the striped ring's blocks whose key
+    # shard sits after the query shard) and the lse cotangent through the dQ
+    # kernel (every ring backward carries one), at the ring's block shapes:
+    # the LM's at sp = 2 (T=64, D=16) and the sequence family's (D=8, which
+    # the kernels take zero-padded to 16, see ``kernel_layout``); and D=8 on
+    # the tile-tripping ids.
+    cases = [(name, case, None) for name, case in cases]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cases.append((f"D=8 T=512 tail_pad {tag}",
+                      make_case(B, 512, H, 8, dtype, seg="tail_pad", seed=8), None))
+        for d in (16, 8):
+            (tensors, kw) = make_case(LM["B"], LM["T"] // 2, LM["H"], d, dtype, seg=True,
+                                      seed=30 + d)
+            kw["causal_offset"] = -1
+            g = torch.Generator(device="cuda").manual_seed(d)
+            dlse = torch.randn(LM["B"] * LM["H"], LM["T"] // 2, device="cuda", generator=g)
+            cases.append((f"D={d} T={LM['T'] // 2} strict causal+seg dlse {tag}",
+                          (tensors, kw), dlse))
+    (tensors, kw) = make_case(B, 1024, H, D, torch.float32, seg=True, seed=21)
+    kw["causal_offset"] = -1
+    cases.append(("T=1024 strict causal+seg f32", (tensors, kw), None))
+    cases += trainer_cases()
     cases.append(("lm D=16 causal+seg f32", make_case(LM["B"], LM["T"], LM["H"], LM["D"],
-                                                      torch.float32, seg=True)))
-    checked = [check_case(name, tensors, kw, count_libs) for name, (tensors, kw) in cases]
+                                                      torch.float32, seg=True), None))
+    checked = [check_case(name, *kernel_layout(case), count_libs, dlse)
+               for name, case, dlse in cases]
     errs = [line for line, _ in checked]
     max_err = checked[-1][1]  # the main path's shape: the LM case
     del cases
@@ -797,6 +1192,12 @@ def main():
 
     # -- 4. image ------------------------------------------------------------
     image_phase(smi)
+
+    # -- 5. seq --------------------------------------------------------------
+    seq_phase()
+
+    # -- 6. sp ---------------------------------------------------------------
+    sp_phase(result["steps_per_s"])
 
     source = "petastorm_tpu_torch/ops/csrc/"
     replaces = {"fwd": "petastorm_tpu/ops/flash_attention.py:96",

@@ -3,11 +3,13 @@
 The same Parquet input path (Unischema + codecs, metadata, row and
 columnar readers over worker pools, row batching, sequence packing)
 delivering batches to PyTorch on an NVIDIA GPU, with the on-card image stage
-(crop / flip / cast / normalize of staged uint8 bytes), and two consumers:
-a CNN image classifier, and the long-context decoder LM whose attention
-runs on hand-written CUDA flash-attention kernels (forward, dQ, dK/dV) for
-Hopper. The package imports nothing of ``petastorm_tpu`` and no
-JAX: it keeps its own copies of what it needs.
+(crop / flip / cast / normalize of staged uint8 bytes), NGram windows, and
+three consumers: a CNN image classifier, the sequence encoder family, and
+the long-context decoder LM, whose attention runs on hand-written CUDA
+flash-attention kernels (forward, dQ, dK/dV) for Hopper, on one process or
+sequence-parallel (ring or Ulysses attention over ``torch.distributed``).
+The package imports nothing of ``petastorm_tpu`` and no JAX: it keeps its
+own copies of what it needs.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU (``device="cpu"``, where the kernels' plain PyTorch versions run);
@@ -42,9 +44,18 @@ _LAZY_EXPORTS = {
                                      "make_packed_torch_dataloader"),
     "flash_attention": ("petastorm_tpu_torch.ops.flash_attention",
                         "flash_attention"),
+    "flash_attention_with_lse": ("petastorm_tpu_torch.ops.flash_attention",
+                                 "flash_attention_with_lse"),
+    "NGram": ("petastorm_tpu_torch.ngram", "NGram"),
+    "ring_attention": ("petastorm_tpu_torch.models.sequence_model",
+                       "ring_attention"),
+    "ulysses_attention": ("petastorm_tpu_torch.models.sequence_model",
+                          "ulysses_attention"),
     "train_lm": ("petastorm_tpu_torch.models.long_context_lm", "train_lm"),
     "train_image_classifier": ("petastorm_tpu_torch.models.image_classifier",
                                "train_image_classifier"),
+    "train_sequence": ("petastorm_tpu_torch.models.sequence_training",
+                       "train_sequence"),
 }
 
 __all__ = list(_LAZY_EXPORTS) + ["__version__"]

@@ -6,8 +6,14 @@ capstone): ragged token documents in Parquet → :func:`make_columnar_reader`
 is the flash kernels over packed ``segment_ids`` → next-token loss that
 stops at document boundaries → plain SGD.
 
-On one card the attention calls the flash kernels directly (forward, dQ,
-dK/dV); ``attn_impl="dense"`` runs the dense oracle instead, for parity.
+On one process the attention calls the flash kernels directly (forward,
+dQ, dK/dV); ``attn_impl="dense"`` runs the dense oracle instead, for parity.
+With a ``torch.distributed`` process group (``group=``) the attention is
+the JAX capstone's sequence-parallel path: ring attention over the group's
+ranks, causal, striped, the packed ``segment_ids`` riding the K/V ring, its
+local attention the flash kernels (``attn_impl="flash"``) or dense blocks
+(``"dense"``). Every rank holds the whole batch and the same weights, and
+only attention is split over T, so every rank takes the same step.
 Weights keep the JAX layout: ``h @ w`` with ``w`` of shape ``[d_in, d_out]``,
 and the output head is tied to ``embed`` (``h @ embed.T``), so
 :func:`params_from_jax` copies arrays without transposing.
@@ -23,7 +29,8 @@ import torch
 from torch import nn
 
 from petastorm_tpu_torch.ops.flash_attention import flash_attention, resolve_device
-from petastorm_tpu_torch.models.sequence_model import attention_reference
+from petastorm_tpu_torch.torch_utils.sharding import reader_options
+from petastorm_tpu_torch.models.sequence_model import attention_reference, ring_attention
 
 VOCAB = 64
 _BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "ffn")
@@ -62,7 +69,7 @@ class DecoderBlock(nn.Module):
         for name in _BLOCK_WEIGHTS:
             setattr(self, name, nn.Parameter(torch.empty(d_model, d_model)))
 
-    def forward(self, h, segment_ids, num_heads, attn_impl):
+    def forward(self, h, segment_ids, num_heads, attn_impl, group=None):
         b, t, d_model = h.shape
         dh = d_model // num_heads
 
@@ -70,7 +77,10 @@ class DecoderBlock(nn.Module):
             return (h @ w).reshape(b, t, num_heads, dh)
 
         q, k, v = split(self.wq), split(self.wk), split(self.wv)
-        if attn_impl == "flash":
+        if group is not None:
+            attn = ring_attention(q, k, v, group, causal=True,
+                                  segment_ids=segment_ids, local_attn=attn_impl)
+        elif attn_impl == "flash":
             attn = flash_attention(q, k, v, causal=True,
                                    segment_ids=segment_ids, device=h.device)
         elif attn_impl == "dense":
@@ -99,12 +109,14 @@ class LongContextLM(nn.Module):
         self.blocks = nn.ModuleList(DecoderBlock(d_model)
                                     for _ in range(num_layers))
 
-    def forward(self, tokens, positions, segment_ids, attn_impl="flash"):
+    def forward(self, tokens, positions, segment_ids, attn_impl="flash",
+                group=None):
         """``tokens``/``positions``/``segment_ids`` ``[B, T]`` int →
-        logits ``[B, T, vocab]`` f32."""
+        logits ``[B, T, vocab]`` f32; with ``group``, ring attention over
+        its ranks (T must split over them)."""
         h = self.embed[tokens.long()] + self.pos[positions.long()]
         for blk in self.blocks:
-            h = blk(h, segment_ids, self.num_heads, attn_impl)
+            h = blk(h, segment_ids, self.num_heads, attn_impl, group)
         return (h @ self.embed.T).float()
 
 
@@ -146,10 +158,12 @@ def params_from_jax(numpy_params, num_heads, device="cuda"):
     return model.to(device)
 
 
-def lm_loss(model, tokens, positions, segment_ids, attn_impl="flash"):
+def lm_loss(model, tokens, positions, segment_ids, attn_impl="flash",
+            group=None):
     """Mean next-token cross-entropy over positions whose next token
     continues the same document."""
-    logits = model(tokens, positions, segment_ids, attn_impl=attn_impl)
+    logits = model(tokens, positions, segment_ids, attn_impl=attn_impl,
+                   group=group)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logp, 2, tokens[:, 1:, None].long())[..., 0]
     cont = ((segment_ids[:, 1:] == segment_ids[:, :-1])
@@ -157,13 +171,15 @@ def lm_loss(model, tokens, positions, segment_ids, attn_impl="flash"):
     return (nll * cont).sum() / torch.clamp(cont.sum(), min=1.0)
 
 
-def make_lm_train_step(model, learning_rate=1.0, attn_impl="flash"):
+def make_lm_train_step(model, learning_rate=1.0, attn_impl="flash",
+                       group=None):
     """``step(tokens, positions, segment_ids) -> loss``: one SGD step on
-    ``model``'s parameters, updated in place."""
+    ``model``'s parameters, updated in place (sequence-parallel attention
+    over ``group`` when one is given)."""
 
     def step(tokens, positions, segment_ids):
         model.zero_grad(set_to_none=True)
-        loss = lm_loss(model, tokens, positions, segment_ids, attn_impl)
+        loss = lm_loss(model, tokens, positions, segment_ids, attn_impl, group)
         loss.backward()
         with torch.no_grad():
             for p in model.parameters():
@@ -174,13 +190,17 @@ def make_lm_train_step(model, learning_rate=1.0, attn_impl="flash"):
 
 
 def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
-             epochs=8, d_model=64, device="cuda"):
+             epochs=8, d_model=64, device="cuda", group=None):
     """The whole loop on ``device`` (``"cuda"`` unless the caller asks for
     ``"cpu"``); the row-group shuffle is seeded, so a run is repeatable.
-    Returns a dict: ``losses``, ``steps_per_s``, the loader's
-    ``diagnostics``, ``batch_devices`` (where every batch arrived),
-    ``logit_parity`` (max |flash − dense| logits on the last batch with the
-    final weights), ``peak_memory_bytes`` (CUDA only) and the ``model``."""
+    With ``group`` the attention is the flash-local ring over its ranks:
+    every rank runs this loop on the same batches (its reader takes
+    ``sharding.reader_options(group)``). Returns a dict:
+    ``losses``, ``steps_per_s``, the loader's ``diagnostics``,
+    ``batch_devices`` (where every batch arrived), ``logit_parity`` (max
+    |flash − dense| logits on the last batch with the final weights: the
+    ring's against the one-process dense oracle's with ``group``),
+    ``peak_memory_bytes`` (CUDA only) and the ``model``."""
     from petastorm_tpu_torch.reader.reader import make_columnar_reader
     from petastorm_tpu_torch.torch_utils.packing import (
         PACK_POSITION_KEY,
@@ -191,11 +211,12 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     device = resolve_device(device)
     model = init_lm_params(0, d_model=d_model, num_heads=num_heads,
                            slot_len=slot_len, device=device)
-    step = make_lm_train_step(model)
+    step = make_lm_train_step(model, group=group)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reader = make_columnar_reader(dataset_url, num_epochs=epochs,
-                                  shuffle_row_groups=True, shard_seed=0)
+                                  shuffle_row_groups=True, shard_seed=0,
+                                  **reader_options(group))
     loader = make_packed_torch_dataloader(
         reader, slot_len=slot_len, slots=slots, sequence_fields=["tokens"],
         length_field="length", max_batches=steps, device=device)
@@ -203,9 +224,8 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     with loader:
         t0 = time.perf_counter()
         for packed in loader:
-            tokens = packed["tokens"]
-            pos = packed[PACK_POSITION_KEY]
-            seg = packed[PACK_SEGMENT_KEY]
+            tokens, pos, seg = (packed["tokens"], packed[PACK_POSITION_KEY],
+                                packed[PACK_SEGMENT_KEY])
             batch_devices.update(str(t.device) for t in packed.values())
             losses.append(step(tokens, pos, seg))
             last = (tokens, pos, seg)
@@ -215,7 +235,7 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     if last is None:
         raise RuntimeError("the loader yielded no batches")
     with torch.no_grad():
-        flash = model(*last, attn_impl="flash")
+        flash = model(*last, attn_impl="flash", group=group)
         dense = model(*last, attn_impl="dense")
         parity = float((flash - dense).abs().max())
     return {

@@ -98,8 +98,8 @@ _ARGTYPES = {
     # q, k, v, o, lse, qseg, kvseg, kv_lens, B, H, Hkv, Tq, Tkv, D, dtype,
     # causal, causal_offset, scale, stream
     "ptt_flash_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
-    # q, k, v, o, dout, lse, delta, dq, qseg, kvseg, kv_lens, ...
-    "ptt_flash_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _P],
+    # q, k, v, o, dout, lse, dlse (or null), delta, dq, qseg, kvseg, kv_lens, ...
+    "ptt_flash_bwd_dq": [_P] * 12 + [_I] * 9 + [_F, _P],
     # q, k, v, dout, lse, delta, dk, dv, qseg, kvseg, kv_lens, ...
     "ptt_flash_bwd_dkv": [_P] * 11 + [_I] * 9 + [_F, _P],
     # out (host, 2 x uint64); only in flash_fwd.cu built with

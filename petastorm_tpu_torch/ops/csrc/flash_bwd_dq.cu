@@ -6,7 +6,10 @@
 // p = exp(s - lse) and ds = p * (dout v^T - delta) * scale, and accumulates
 // dq += ds k in f32. It also writes delta to a [B*H, Tq] f32 buffer, which
 // the dK/dV kernel (launched after it on the same stream) reads instead of
-// re-reading o.
+// re-reading o. With an lse cotangent dlse ([B*H, Tq] f32, or null), ds is
+// p * (dout v^T - delta + dlse) * scale (the reference's dlse term, in both
+// sweeps): the kernel keeps and writes delta - dlse in place of delta, so
+// the one edit carries dlse into both kernels.
 //
 // What bounds it on this card: operations. Three T x T x D products per head
 // (s, dout v^T, ds k) against one read of q, k, v, o, dout and one write of
@@ -114,7 +117,8 @@ __global__ void __launch_bounds__(kThreadsDq)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ dlse, float* __restrict__ delta,
+                        T* __restrict__ dq,
                         const int* __restrict__ qseg, const int* __restrict__ kvseg,
                         const int* __restrict__ kv_lens, int H, int Hkv, int Tq, int Tkv,
                         int causal, int causal_offset, float scale) {
@@ -201,8 +205,8 @@ __global__ void __launch_bounds__(kThreadsDq)
   if (kt < n_kt) load_kv(kt, 0);
   ptt::cp_async_commit();
 
-  // delta = rowsum(dout * o) and lse for this lane's two rows: each of the 4
-  // lanes of a row sums every 4th column, then they combine.
+  // delta = rowsum(dout * o) (minus dlse) and lse for this lane's two rows:
+  // each of the 4 lanes of a row sums every 4th column, then they combine.
   ptt::cp_async_wait<1>();
   __syncthreads();  // Q and dO have landed for all (the first K/V tile may not have)
   float lse_r[2], delta_r[2];
@@ -220,6 +224,7 @@ __global__ void __launch_bounds__(kThreadsDq)
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (dlse != nullptr && row < Tq) part -= dlse[(long)bh * Tq + row];
     delta_r[i] = part;
     lse_r[i] = row < Tq ? lse[(long)bh * Tq + row] : INFINITY;
     if (row < Tq && t4 == 0) delta[(long)bh * Tq + row] = part;
@@ -319,7 +324,8 @@ __global__ void __launch_bounds__(kThreadsDq)
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, float* delta, void* dq,
+                      const void* dout, const float* lse, const float* dlse, float* delta,
+                      void* dq,
                       const int* qseg, const int* kvseg, const int* kv_lens, int B, int H,
                       int Hkv, int Tq, int Tkv, int causal, int causal_offset, float scale,
                       cudaStream_t stream) {
@@ -335,21 +341,26 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_bwd_dq_kernel<T, D><<<grid, kThreadsDq, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, dlse, delta,
+      static_cast<T*>(dq),
       qseg, kvseg, kv_lens, H, Hkv, Tq, Tkv, causal, causal_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// dlse may be null (no lse cotangent): the output is then the function
+// without the dlse term, computed as before it had one.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                const void* dout, const void* lse, void* delta, void* dq,
+                                const void* dout, const void* lse, const void* dlse,
+                                void* delta, void* dq,
                                 const void* qseg, const void* kvseg, const void* kv_lens,
                                 int B, int H, int Hkv, int Tq, int Tkv, int D, int dtype,
                                 int causal, int causal_offset, float scale, void* stream) {
 #define LAUNCH_DQ(T, DD)                                                                     \
   launch_dq<T, DD>(q, k, v, o, dout, static_cast<const float*>(lse),                         \
-                   static_cast<float*>(delta), dq, static_cast<const int*>(qseg),            \
+                   static_cast<const float*>(dlse), static_cast<float*>(delta), dq,          \
+                   static_cast<const int*>(qseg),                                            \
                    static_cast<const int*>(kvseg), static_cast<const int*>(kv_lens), B, H,   \
                    Hkv, Tq, Tkv, causal, causal_offset, scale,                               \
                    static_cast<cudaStream_t>(stream))

@@ -14,13 +14,23 @@ Three kernels (``ops/csrc``, CUDA C++ for ``sm_90a``, built at first use by
 - ``flash_fwd.cu``: output and the per-row log-sum-exp residual (``+inf``
   for rows with no visible key), saved for the backward; it skips the K
   tiles :func:`visited_k_tiles` leaves out;
-- ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)``; it skips the
-  K tiles :func:`visited_k_tiles` leaves out for its tiles (``DQ_*``);
+- ``flash_bwd_dq.cu``: dQ, plus ``delta = rowsum(dout * o)`` (less the lse
+  cotangent ``dlse`` where one is given); it skips the K tiles
+  :func:`visited_k_tiles` leaves out for its tiles (``DQ_*``);
 - ``flash_bwd_dkv.cu``: dK/dV accumulated per K/V head inside the block; it
   skips the Q tiles :func:`visited_q_tiles` leaves out.
 
-:class:`FlashAttentionFn` chains them as a ``torch.autograd.Function``. Each
-kernel wrapper adds one to :data:`LAUNCHES` where it launches. The plain
+:class:`FlashAttentionFn` chains them as a ``torch.autograd.Function``, and
+:class:`FlashAttentionWithLseFn` does for :func:`flash_attention_with_lse`,
+whose lse output is differentiable too (the ring attention's merge
+statistic). The kernels are instantiated for head dims
+:data:`KERNEL_HEAD_DIMS` and take the softmax scale as an argument; the
+autograd functions take any ``D <= 128``: their forward zero-pads q, k, v
+once to the next instantiated head dim (:func:`pad_head_dim`; zero columns
+add exact zeros to every product) with the true ``1 / sqrt(D)`` as the
+scale and saves the padded tensors, their backward pads dout once, and both
+slice their outputs back. Each kernel wrapper adds one to
+:data:`LAUNCHES` where it launches. The plain
 versions (:func:`flash_forward_plain`, :func:`flash_backward_plain`) compute
 the same functions blockwise with PyTorch ops and no autograd; a wrapper
 takes them only for tensors that lie on the CPU. For CUDA tensors it launches
@@ -37,7 +47,9 @@ import torch
 #: launch (never by the plain versions).
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 
-#: Head dims the CUDA kernels are instantiated for.
+#: Head dims the CUDA kernels are instantiated for; the autograd functions
+#: zero-pad any other head dim up to ``max(KERNEL_HEAD_DIMS)`` to the next of
+#: them (:func:`pad_head_dim`).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -161,14 +173,15 @@ def _heads_first(x, group=1):
 
 
 def flash_forward_plain(q, k, v, causal=False, causal_offset=0,
-                        kv_lengths=None, q_seg=None, kv_seg=None,
+                        kv_lengths=None, q_seg=None, kv_seg=None, scale=None,
                         block_k=_PLAIN_BLOCK_K):
     """The forward kernel's function in PyTorch: a blockwise online softmax
-    over K tiles. Returns ``(o [B, Tq, H, D] in q's dtype, lse [B·H, Tq]
-    f32)`` with lse ``+inf`` for rows with no visible key."""
+    over K tiles, scores scaled by ``scale`` (``1 / sqrt(D)`` by default).
+    Returns ``(o [B, Tq, H, D] in q's dtype, lse [B·H, Tq] f32)`` with lse
+    ``+inf`` for rows with no visible key."""
     b, t_q, h, d = q.shape
     t_kv, h_kv = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = _heads_first(q)
     kf, vf = _heads_first(k, h // h_kv), _heads_first(v, h // h_kv)
     kv_limit = _kv_limits(kv_lengths, b, t_kv, q.device)
@@ -273,13 +286,14 @@ def visited_q_tiles(b, t_q, t_kv, causal=False, causal_offset=0,
 
 
 def _bwd_tiles(q, k, v, do, lse, delta, causal, causal_offset, kv_lengths,
-               q_seg, kv_seg, block_k):
+               q_seg, kv_seg, scale, block_k):
     """Yield ``(k0, k1, p, ds)`` per K tile, f32 ``[B, H, Tq, bk]``:
     ``p = exp(s - lse)`` and ``ds = p * (do v^T - delta) * scale`` — the
-    recomputation both backward kernels share."""
+    recomputation both backward kernels share (``delta`` already less any
+    lse cotangent; ``scale`` ``1 / sqrt(D)`` by default)."""
     b, t_q, h, d = q.shape
     t_kv, h_kv = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf, dof = _heads_first(q), _heads_first(do)
     kf, vf = _heads_first(k, h // h_kv), _heads_first(v, h // h_kv)
     lse = lse.reshape(b, h, t_q, 1)
@@ -302,25 +316,28 @@ def _heads_last(x, like):
 
 
 def flash_bwd_dq_plain(q, k, v, o, lse, do, causal=False, causal_offset=0,
-                       kv_lengths=None, q_seg=None, kv_seg=None,
-                       block_k=_PLAIN_BLOCK_K):
-    """The dQ kernel's function in PyTorch: ``delta = rowsum(do * o)`` and
+                       kv_lengths=None, q_seg=None, kv_seg=None, dlse=None,
+                       scale=None, block_k=_PLAIN_BLOCK_K):
+    """The dQ kernel's function in PyTorch: ``delta = rowsum(do * o)``, less
+    the lse cotangent ``dlse`` (``[B·H, Tq]`` f32) when one is given, and
     ``dq = sum over K tiles of ds k``. Returns ``(dq, delta [B·H, Tq] f32)``;
     delta feeds :func:`flash_bwd_dkv_plain` as it feeds the dK/dV kernel."""
     b, t_q, h, _ = q.shape
     delta = (_heads_first(do) * _heads_first(o)).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.reshape(b, h, t_q)
     kf = _heads_first(k, h // k.shape[2])
     dq = torch.zeros((b, h, t_q, q.shape[-1]), device=q.device)
     for k0, k1, _, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
                                     causal_offset, kv_lengths, q_seg, kv_seg,
-                                    block_k):
+                                    scale, block_k):
         dq += torch.matmul(ds, kf[:, :, k0:k1])
     return _heads_last(dq, q), delta.reshape(b * h, t_q)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
                         causal_offset=0, kv_lengths=None, q_seg=None,
-                        kv_seg=None, block_k=_PLAIN_BLOCK_K):
+                        kv_seg=None, scale=None, block_k=_PLAIN_BLOCK_K):
     """The dK/dV kernel's function in PyTorch: ``dv = p^T do`` and
     ``dk = ds^T q`` per query head, summed over each K/V head's query-head
     group in f32. Returns ``(dk, dv)``."""
@@ -331,7 +348,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
     dv = torch.zeros((b, h, t_kv, d), device=q.device)
     for k0, k1, p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
                                     causal_offset, kv_lengths, q_seg, kv_seg,
-                                    block_k):
+                                    scale, block_k):
         dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), dof)
         dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qf)
     dk = dk.reshape(b, h_kv, h // h_kv, t_kv, d).sum(dim=2)
@@ -339,9 +356,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
     return _heads_last(dk, k), _heads_last(dv, v)
 
 
-def flash_backward_plain(q, k, v, o, lse, do, **kwargs):
+def flash_backward_plain(q, k, v, o, lse, do, dlse=None, **kwargs):
     """Both backward kernels' functions in PyTorch: ``(dq, dk, dv)``."""
-    dq, delta = flash_bwd_dq_plain(q, k, v, o, lse, do, **kwargs)
+    dq, delta = flash_bwd_dq_plain(q, k, v, o, lse, do, dlse=dlse, **kwargs)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kwargs)
     return dq, dk, dv
 
@@ -368,8 +385,9 @@ def _check_kernel_inputs(q, k, v, like_q=None, stats=(), kv_lengths=None,
             f"flash kernels take float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash kernels take [B, T, H, D] with D in {KERNEL_HEAD_DIMS}, "
-            f"got q of shape {tuple(q.shape)}")
+            f"flash kernels take [B, T, H, D] with D in {KERNEL_HEAD_DIMS} "
+            f"(pad_head_dim pads other head dims up to "
+            f"{KERNEL_HEAD_DIMS[-1]}), got q of shape {tuple(q.shape)}")
     b, t_q, h, d = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
             or k.shape[3] != d or h % k.shape[2]):
@@ -400,12 +418,41 @@ def _check_kernel_inputs(q, k, v, like_q=None, stats=(), kv_lengths=None,
                 "past one (a view into its storage): pass a copy")
 
 
-def _dims(q, k, causal, causal_offset):
+def _dims(q, k, causal, causal_offset, scale=None):
     """The kernels' shared scalar arguments: B, H, Hkv, Tq, Tkv, D, dtype
-    code, causal, causal_offset, scale."""
+    code, causal, causal_offset, scale (``1 / sqrt(D)`` by default)."""
     b, t_q, h, d = q.shape
     return (b, h, k.shape[2], t_q, k.shape[1], d, _DTYPE_CODES[q.dtype],
-            int(causal), int(causal_offset), 1.0 / math.sqrt(d))
+            int(causal), int(causal_offset),
+            1.0 / math.sqrt(d) if scale is None else scale)
+
+
+def _kernel_head_dim(d):
+    """The instantiated head dim a head dim ``d`` is padded to (``d`` itself
+    past the largest, which the input checks refuse)."""
+    return next((dk for dk in KERNEL_HEAD_DIMS if d <= dk), d)
+
+
+def _pad_head_dim(t, dk):
+    """``t`` zero-padded on its last axis to ``dk`` columns (a fresh,
+    contiguous buffer), or ``t`` itself when it has ``dk`` already."""
+    return t if t.shape[-1] == dk else torch.nn.functional.pad(t, (0, dk - t.shape[-1]))
+
+
+def _unpad_head_dim(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
+def pad_head_dim(*tensors):
+    """``(tensors, scale)``: ``[..., D]`` tensors zero-padded on their last
+    axis to the kernels' head dim for D (themselves when D is instantiated),
+    and the true ``1 / sqrt(D)``. This is how the kernels take a head dim
+    they are not instantiated for: zero columns add exact zeros to every
+    product (0 splits into hi = lo = 0 in the 3xTF32 passes), so the padded
+    call's outputs, sliced back, are the true head dim's."""
+    d = tensors[0].shape[-1]
+    dk = _kernel_head_dim(d)
+    return [_pad_head_dim(t, dk) for t in tensors], 1.0 / math.sqrt(d)
 
 
 def _launch(symbol, *args):
@@ -417,7 +464,7 @@ def _launch(symbol, *args):
 
 
 def flash_forward_kernel(q, k, v, causal=False, causal_offset=0,
-                         kv_lengths=None, q_seg=None, kv_seg=None):
+                         kv_lengths=None, q_seg=None, kv_seg=None, scale=None):
     """Launch ``flash_fwd.cu``: same contract as :func:`flash_forward_plain`."""
     _check_kernel_inputs(q, k, v, kv_lengths=kv_lengths, q_seg=q_seg,
                          kv_seg=kv_seg, aligned16=True)
@@ -427,27 +474,29 @@ def flash_forward_kernel(q, k, v, causal=False, causal_offset=0,
     with torch.cuda.device(q.device):
         _launch("ptt_flash_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
                 _ptr(lse), _ptr(q_seg), _ptr(kv_seg), _ptr(kv_lengths),
-                *_dims(q, k, causal, causal_offset),
+                *_dims(q, k, causal, causal_offset, scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["fwd"] += 1
     return o, lse
 
 
 def flash_bwd_dq_kernel(q, k, v, o, lse, do, causal=False, causal_offset=0,
-                        kv_lengths=None, q_seg=None, kv_seg=None):
+                        kv_lengths=None, q_seg=None, kv_seg=None, dlse=None,
+                        scale=None):
     """Launch ``flash_bwd_dq.cu``: same contract as
     :func:`flash_bwd_dq_plain`."""
-    _check_kernel_inputs(q, k, v, like_q={"o": o, "do": do}, stats=(lse,),
+    b, t_q, h, _ = q.shape
+    stats = (lse,) if dlse is None else (lse, dlse)
+    _check_kernel_inputs(q, k, v, like_q={"o": o, "do": do}, stats=stats,
                          kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg,
                          aligned16=True)
-    b, t_q, h, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch("ptt_flash_bwd_dq", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
-                _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(q_seg),
-                _ptr(kv_seg), _ptr(kv_lengths),
-                *_dims(q, k, causal, causal_offset),
+                _ptr(do), _ptr(lse), _ptr(dlse), _ptr(delta), _ptr(dq),
+                _ptr(q_seg), _ptr(kv_seg), _ptr(kv_lengths),
+                *_dims(q, k, causal, causal_offset, scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["dq"] += 1
     return dq, delta
@@ -455,7 +504,7 @@ def flash_bwd_dq_kernel(q, k, v, o, lse, do, causal=False, causal_offset=0,
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=False,
                          causal_offset=0, kv_lengths=None, q_seg=None,
-                         kv_seg=None):
+                         kv_seg=None, scale=None):
     """Launch ``flash_bwd_dkv.cu``: same contract as
     :func:`flash_bwd_dkv_plain`."""
     _check_kernel_inputs(q, k, v, like_q={"do": do}, stats=(lse, delta),
@@ -467,16 +516,16 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=False,
         _launch("ptt_flash_bwd_dkv", _ptr(q), _ptr(k), _ptr(v), _ptr(do),
                 _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(q_seg),
                 _ptr(kv_seg), _ptr(kv_lengths),
-                *_dims(q, k, causal, causal_offset),
+                *_dims(q, k, causal, causal_offset, scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["dkv"] += 1
     return dk, dv
 
 
-def flash_backward_kernel(q, k, v, o, lse, do, **kwargs):
+def flash_backward_kernel(q, k, v, o, lse, do, dlse=None, **kwargs):
     """dQ then dK/dV on the current stream (the second reads the delta the
-    first wrote): ``(dq, dk, dv)``."""
-    dq, delta = flash_bwd_dq_kernel(q, k, v, o, lse, do, **kwargs)
+    first wrote, less any ``dlse``): ``(dq, dk, dv)``."""
+    dq, delta = flash_bwd_dq_kernel(q, k, v, o, lse, do, dlse=dlse, **kwargs)
     dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kwargs)
     return dq, dk, dv
 
@@ -503,55 +552,58 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _forward_saved(ctx, q, k, v, causal, causal_offset, kv_lengths, q_seg,
+                   kv_seg):
+    """The autograd functions' forward: ``(o, lse)``. q, k, v are laid out
+    once for the kernels — zero-padded to an instantiated head dim
+    (:func:`pad_head_dim`), contiguous on 16-byte boundaries (views such as
+    ``qkv.unbind(2)`` or odd offsets are copied here) — and saved so, with
+    the padded o, for the backward; o comes back at the true head dim."""
+    d = q.shape[-1]
+    (q, k, v), ctx.scale = pad_head_dim(q, k, v)
+    q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
+    o, lse = flash_forward(q, k, v, causal=causal, causal_offset=causal_offset,
+                           kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg,
+                           scale=ctx.scale)
+    ctx.save_for_backward(q, k, v, o, lse, kv_lengths, q_seg, kv_seg)
+    ctx.causal, ctx.causal_offset, ctx.head_dim = causal, causal_offset, d
+    return _unpad_head_dim(o, d), lse
+
+
+def _backward_saved(ctx, do, dlse=None):
+    """The autograd functions' backward: dQ then dK/dV on the saved (padded)
+    inputs, with dout padded once to their head dim and the lse cotangent
+    (``[B·H, Tq]``) where there is one; the gradients sliced back to the
+    true head dim, and ``None`` for the non-tensor arguments."""
+    q, k, v, o, lse, kv_lengths, q_seg, kv_seg = ctx.saved_tensors
+    d = ctx.head_dim
+    dq, dk, dv = flash_backward(
+        q, k, v, o, lse, _aligned16(_pad_head_dim(do, q.shape[-1])), dlse=dlse,
+        causal=ctx.causal, causal_offset=ctx.causal_offset,
+        kv_lengths=kv_lengths, q_seg=q_seg, kv_seg=kv_seg, scale=ctx.scale)
+    return (_unpad_head_dim(dq, d), _unpad_head_dim(dk, d),
+            _unpad_head_dim(dv, d), None, None, None, None, None)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``o = attention(q, k, v)`` with the flash kernels in both directions:
-    forward lays q, k, v out contiguous on 16-byte boundaries and saves
-    them with ``(o, lse)``; backward runs dQ then dK/dV."""
+    the forward saves q, k, v with ``(o, lse)``; the backward runs dQ then
+    dK/dV."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, causal_offset, kv_lengths, q_seg,
                 kv_seg):
-        # Views (``qkv.unbind(2)``, odd offsets) are laid out for the
-        # kernels here; the backward reuses these copies.
-        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
-        o, lse = flash_forward(q, k, v, causal=causal,
-                               causal_offset=causal_offset,
-                               kv_lengths=kv_lengths, q_seg=q_seg,
-                               kv_seg=kv_seg)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lengths, q_seg, kv_seg)
-        ctx.causal, ctx.causal_offset = causal, causal_offset
-        return o
+        return _forward_saved(ctx, q, k, v, causal, causal_offset, kv_lengths,
+                              q_seg, kv_seg)[0]
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kv_lengths, q_seg, kv_seg = ctx.saved_tensors
-        dq, dk, dv = flash_backward(
-            q, k, v, o, lse, _aligned16(do), causal=ctx.causal,
-            causal_offset=ctx.causal_offset, kv_lengths=kv_lengths,
-            q_seg=q_seg, kv_seg=kv_seg)
-        return dq, dk, dv, None, None, None, None, None
+        return _backward_saved(ctx, do)
 
 
-def flash_attention(q, k, v, causal=False, kv_lengths=None, segment_ids=None,
-                    device="cuda"):
-    """Tiled attention over ``[B, T, H, D]`` tensors without a ``[T, T]``
-    score matrix in either direction (counterpart of the JAX package's
-    ``flash_attention``).
-
-    :param causal: mask keys after each query's last-aligned position.
-    :param kv_lengths: optional ``[B]`` valid key counts; with ``causal`` the
-        alignment still uses the static ``T_q``/``T_kv``.
-    :param segment_ids: optional packed-batch ids: one ``[B, T]`` tensor
-        (requires ``T_q == T_kv``) or a ``(q_ids, kv_ids)`` pair. Mutually
-        exclusive with ``kv_lengths``.
-    :param device: where the inputs must lie — ``"cuda"`` (the default, the
-        hand-written kernels) or ``"cpu"`` (the plain PyTorch versions, for
-        tests). A mismatch raises; nothing falls back.
-
-    K/V may carry fewer heads than Q (``h % h_kv == 0``): each group of
-    ``h // h_kv`` query heads reads one K/V head, and dK/dV come back summed
-    over the group in f32.
-    """
+def _prepare(q, k, v, kv_lengths, segment_ids, device):
+    """The public functions' shared checks and layout: ``(q_seg, kv_seg,
+    kv_lengths)`` as contiguous int32 on q's device (or None)."""
     device = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != device.type:
@@ -575,6 +627,79 @@ def flash_attention(q, k, v, causal=False, kv_lengths=None, segment_ids=None,
     if kv_lengths is not None:
         kv_lengths = kv_lengths.to(device=q.device,
                                    dtype=torch.int32).contiguous()
+    return q_seg, kv_seg, kv_lengths
+
+
+def flash_attention(q, k, v, causal=False, kv_lengths=None, segment_ids=None,
+                    device="cuda"):
+    """Tiled attention over ``[B, T, H, D]`` tensors without a ``[T, T]``
+    score matrix in either direction (counterpart of the JAX package's
+    ``flash_attention``).
+
+    :param causal: mask keys after each query's last-aligned position.
+    :param kv_lengths: optional ``[B]`` valid key counts; with ``causal`` the
+        alignment still uses the static ``T_q``/``T_kv``.
+    :param segment_ids: optional packed-batch ids: one ``[B, T]`` tensor
+        (requires ``T_q == T_kv``) or a ``(q_ids, kv_ids)`` pair. Mutually
+        exclusive with ``kv_lengths``.
+    :param device: where the inputs must lie — ``"cuda"`` (the default, the
+        hand-written kernels) or ``"cpu"`` (the plain PyTorch versions, for
+        tests). A mismatch raises; nothing falls back.
+
+    K/V may carry fewer heads than Q (``h % h_kv == 0``): each group of
+    ``h // h_kv`` query heads reads one K/V head, and dK/dV come back summed
+    over the group in f32.
+    """
+    q_seg, kv_seg, kv_lengths = _prepare(q, k, v, kv_lengths, segment_ids,
+                                         device)
     causal_offset = k.shape[1] - q.shape[1]
     return FlashAttentionFn.apply(q, k, v, bool(causal), causal_offset,
                                   kv_lengths, q_seg, kv_seg)
+
+
+class FlashAttentionWithLseFn(torch.autograd.Function):
+    """``(o, lse) = attention(q, k, v)`` with the flash kernels in both
+    directions, differentiable in both outputs. lse comes out ``[B, Tq, H]``
+    with ``-inf`` on rows that see no key (the log-sum-exp of an empty set);
+    the kernels' residual stays ``[B·H, Tq]`` with ``+inf`` there. The
+    backward maps the lse cotangent to ``[B·H, Tq]`` and hands it to the dQ
+    kernel, which folds it into delta for both backward kernels
+    (``dlse = p`` summed into ds: ``ds = p (dp - delta + dlse) scale``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, causal_offset, kv_lengths, q_seg,
+                kv_seg):
+        o, lse = _forward_saved(ctx, q, k, v, causal, causal_offset,
+                                kv_lengths, q_seg, kv_seg)
+        b, t_q, h, _ = q.shape
+        lse_pub = torch.where(torch.isposinf(lse), -math.inf, lse)
+        return o, lse_pub.reshape(b, h, t_q).transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        b, t_q, h = dlse.shape
+        return _backward_saved(ctx, do, dlse.to(torch.float32).transpose(1, 2)
+                               .reshape(b * h, t_q).contiguous())
+
+
+def flash_attention_with_lse(q, k, v, causal=False, causal_shift=0,
+                             kv_lengths=None, segment_ids=None,
+                             device="cuda"):
+    """Flash attention that also returns the per-row log-sum-exp, the
+    statistic that merges partial attention over K/V shards exactly (the
+    ring attention's blocks). Counterpart of the JAX package's
+    ``flash_attention_with_lse``.
+
+    Returns ``(out [B, Tq, H, D], lse [B, Tq, H] f32)`` with ``lse = -inf``
+    on rows with no visible key; both are differentiable. ``causal_shift``
+    slides the causal diagonal: keys up to ``T_kv - T_q + causal_shift``
+    past each row are visible, so ``-1`` is strict causal (the striped
+    ring's blocks whose key shard sits after the query shard). The other
+    arguments are :func:`flash_attention`'s.
+    """
+    q_seg, kv_seg, kv_lengths = _prepare(q, k, v, kv_lengths, segment_ids,
+                                         device)
+    causal_offset = k.shape[1] - q.shape[1] + (causal_shift if causal else 0)
+    return FlashAttentionWithLseFn.apply(q, k, v, bool(causal),
+                                         causal_offset, kv_lengths, q_seg,
+                                         kv_seg)

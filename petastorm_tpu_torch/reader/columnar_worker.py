@@ -40,5 +40,5 @@ class ColumnarResultsQueueReader:
 
     batched_output = True
 
-    def read_next(self, pool, schema):
+    def read_next(self, pool, schema, ngram=None):
         return schema.make_namedtuple(**pool.get_results())

@@ -9,9 +9,11 @@ group), both with ``num_epochs``, seeded ``shuffle_row_groups``,
 decode pools. The planning arithmetic is the JAX package's — canonical
 row-group order, the optional ``shard_seed`` pre-shuffle, round-robin
 ``pieces[s::count]`` — so the same arguments give both packages the same
-row groups in the same order. (Predicates, filters, caches, NGram windows,
-row-drop partitions, the plain-Parquet reader, resume and the process pool
-are not ported yet.)
+row groups in the same order. The row reader also takes an
+:class:`~petastorm_tpu_torch.ngram.NGram` as ``schema_fields`` and then
+yields ``{offset: namedtuple}`` windows; the columnar reader refuses one.
+(Predicates, filters, caches, row-drop partitions, the plain-Parquet
+reader, resume and the process pool are not ported yet.)
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import warnings
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.metadata import get_schema, load_row_groups
 from petastorm_tpu_torch.fs_utils import FilesystemResolver
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.reader.columnar_worker import (
     ColumnarDecodeWorker,
     ColumnarResultsQueueReader,
@@ -44,10 +47,13 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
-    ``schema_fields``: ``None`` (every field) or a list of field names,
-    full-match name regexes or :class:`UnischemaField` s. ``transform_spec``
-    runs on each decoded row dict in the workers; ``reader.schema`` is the
-    post-transform schema. ``shard_seed`` seeds both the shard pre-shuffle
+    ``schema_fields``: ``None`` (every field), a list of field names,
+    full-match name regexes or :class:`UnischemaField` s, or an
+    :class:`~petastorm_tpu_torch.ngram.NGram`: the reader then yields one
+    ``{offset: namedtuple}`` window per item (``reader.ngram``).
+    ``transform_spec`` runs on each decoded row dict (each timestep's, for
+    windows) in the workers; ``reader.schema`` is the post-transform
+    schema. ``shard_seed`` seeds both the shard pre-shuffle
     and the per-epoch row-group shuffle; ``None`` shuffles unseeded.
     """
     fs, path, stored_schema = _open_dataset(dataset_url)
@@ -62,18 +68,24 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
 def make_columnar_reader(dataset_url, reader_pool_type="thread",
                          workers_count=10, shuffle_row_groups=True,
                          num_epochs=1, cur_shard=None, shard_count=None,
-                         shard_seed=None):
+                         shard_seed=None, schema_fields=None):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
     decoded ``[N, ...]`` column arrays, one per row group
     (``batched_output=True``).
 
     ``shard_seed`` seeds both the shard pre-shuffle and the per-epoch
     row-group shuffle (as in the JAX package); ``None`` shuffles unseeded.
+    ``schema_fields`` as in :func:`make_reader`, but NGram windows are
+    row-wise and not supported here.
     """
+    if isinstance(schema_fields, NGram):
+        raise ValueError("NGram is not supported by make_columnar_reader; "
+                         "use make_reader")
     fs, path, stored_schema = _open_dataset(dataset_url)
     return Reader(fs, path, schema=stored_schema, reader_pool=_make_pool(reader_pool_type, workers_count),
                   worker_class=ColumnarDecodeWorker,
                   results_queue_reader=ColumnarResultsQueueReader(),
+                  schema_fields=schema_fields,
                   shuffle_row_groups=shuffle_row_groups,
                   num_epochs=num_epochs, cur_shard=cur_shard,
                   shard_count=shard_count, shard_seed=shard_seed)
@@ -129,7 +141,12 @@ class Reader:
         self.num_epochs = num_epochs
         self.last_row_consumed = False
         self.stopped = False
-        read_schema = schema.resolve_schema_view(schema_fields)
+        self.ngram = schema_fields if isinstance(schema_fields, NGram) else None
+        if self.ngram is not None:
+            self.ngram.resolve_regex_field_names(schema)
+            read_schema = self.ngram.get_schema_view(schema)
+        else:
+            read_schema = schema.resolve_schema_view(schema_fields)
         self.schema = (transform_schema(read_schema, transform_spec)
                        if transform_spec else read_schema)
         self._results_queue_reader = results_queue_reader
@@ -154,7 +171,8 @@ class Reader:
             randomize_item_order=shuffle_row_groups,
             random_seed=shard_seed,
             max_ventilation_queue_size=min(len(items), 1000) or 1)
-        reader_pool.start(worker_class, (filesystem, pieces, read_schema, transform_spec),
+        reader_pool.start(worker_class, (filesystem, pieces, read_schema, transform_spec,
+                                         self.ngram),
                           ventilator=self._ventilator)
 
     @property
@@ -177,7 +195,7 @@ class Reader:
             raise StopIteration
         try:
             return self._results_queue_reader.read_next(self._workers_pool,
-                                                        self.schema)
+                                                        self.schema, self.ngram)
         except EmptyResultError:
             self.last_row_consumed = True
             raise StopIteration from None

@@ -1,6 +1,10 @@
 """Delivery to PyTorch on the card (counterpart of ``petastorm_tpu/jax_utils``)."""
 
-from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY, batch_iterator  # noqa: F401
+from petastorm_tpu_torch.torch_utils.batcher import (  # noqa: F401
+    PAD_MASK_KEY,
+    batch_iterator,
+    collate_ngram_rows,
+)
 from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage  # noqa: F401
 from petastorm_tpu_torch.torch_utils.loader import (  # noqa: F401
     TorchDataLoader,

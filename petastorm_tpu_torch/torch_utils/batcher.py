@@ -1,7 +1,7 @@
 """Collation: reader output → fixed-size numpy batches.
 
-The port's own copy of ``petastorm_tpu/jax_utils/batcher.py`` without the
-NGram collation. The last-batch policy is explicit:
+The port's own copy of ``petastorm_tpu/jax_utils/batcher.py``. The
+last-batch policy is explicit:
 
 - ``last_batch="drop"`` — drop the final partial batch (default);
 - ``last_batch="pad"`` — wrap-pad the final partial batch to full size and
@@ -9,9 +9,10 @@ NGram collation. The last-batch policy is explicit:
   be masked;
 - ``last_batch="keep"`` — yield the ragged final batch.
 
-Rows arrive as schema namedtuples (``make_reader``) or as column-batch
-namedtuples of row-group length (``make_columnar_reader``, re-sliced to the
-batch size).
+Rows arrive as schema namedtuples (``make_reader``), as NGram windows
+(``make_reader(schema_fields=NGram(...))``, collated to ``[B, T, ...]`` by
+:func:`collate_ngram_rows`) or as column-batch namedtuples of row-group
+length (``make_columnar_reader``, re-sliced to the batch size).
 """
 
 from __future__ import annotations
@@ -56,6 +57,28 @@ def collate_rows(rows, fields=None):
         names = fields or list(first._fields)
         get = getattr
     return {name: _stack_column([get(row, name) for row in rows]) for name in names}
+
+
+def collate_ngram_rows(rows):
+    """Collate NGram windows ``{offset: namedtuple}`` into ``[B, T, ...]``
+    arrays, the sorted offsets forming the time axis. A field present at
+    every timestep becomes ``{name: [B, T, ...]}``; one present at only some
+    keeps its per-step identity as ``{f"{name}@{offset}": [B, ...]}``."""
+    if not rows:
+        return {}
+    offsets = sorted(rows[0])
+    fields_at = {off: set(rows[0][off]._fields) for off in offsets}
+    common = set.intersection(*fields_at.values()) if offsets else set()
+    out = {}
+    for name in sorted(common):
+        out[name] = _stack_column([
+            np.stack([np.asarray(getattr(row[off], name)) for off in offsets])
+            for row in rows])
+    for off in offsets:
+        for name in sorted(fields_at[off] - common):
+            out[f"{name}@{off}"] = _stack_column(
+                [np.asarray(getattr(row[off], name)) for row in rows])
+    return out
 
 
 def _pad_batch(batch, batch_size):
@@ -111,6 +134,7 @@ def batch_iterator(reader, batch_size, last_batch="drop", max_batches=None,
 
 def _batch_rows(reader, batch_size, shuffle_buffer_size=0, shuffle_seed=None):
     """Row reader → (collated batch dict, is_full) pairs."""
+    collate = collate_ngram_rows if getattr(reader, "ngram", None) is not None else collate_rows
     if shuffle_buffer_size:
         sbuf = RandomShufflingBuffer(
             shuffle_buffer_size, min_after_retrieve=shuffle_buffer_size // 2,
@@ -132,10 +156,10 @@ def _batch_rows(reader, batch_size, shuffle_buffer_size=0, shuffle_seed=None):
     for row in source:
         buf.append(row)
         if len(buf) == batch_size:
-            yield collate_rows(buf), True
+            yield collate(buf), True
             buf = []
     if buf:
-        yield collate_rows(buf), False
+        yield collate(buf), False
 
 
 def _rebatch_column_batches(reader, batch_size):

@@ -85,7 +85,8 @@ def _entry_points(tmp_path):
         params_from_jax,
         train_lm,
     )
-    from petastorm_tpu_torch.ops.flash_attention import flash_attention
+    from petastorm_tpu_torch.models import sequence_model, sequence_training
+    from petastorm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_with_lse
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
     from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
 
@@ -105,6 +106,17 @@ def _entry_points(tmp_path):
             f"file://{tmp_path}/missing"),
         "init_image_classifier": lambda: image_classifier.init_image_classifier((8, 8, 3), 10),
         "image_params_from_jax": lambda: image_classifier.params_from_jax({}, (8, 8, 3)),
+        "flash_attention_with_lse": lambda: flash_attention_with_lse(q, q, q),
+        "init_seq_params": lambda: sequence_model.init_seq_params(0, feature_dim=4),
+        "seq_params_from_jax": lambda: sequence_model.params_from_jax(
+            {name: torch.zeros(4, 4).numpy() for name in sequence_model._SEQ_WEIGHTS},
+            num_heads=2),
+        "train_sequence": lambda: sequence_training.train_sequence(f"file://{tmp_path}/missing"),
+        "train_ragged_causal": lambda: sequence_training.train_ragged_causal(
+            f"file://{tmp_path}/missing"),
+        "train_packed_causal": lambda: sequence_training.train_packed_causal(
+            f"file://{tmp_path}/missing"),
+        "init_packed_next_step": lambda: sequence_training.init_packed_next_step(),
     }
 
 
@@ -112,7 +124,10 @@ def _entry_points(tmp_path):
                                    "TorchDataLoader", "train_lm", "init_lm_params",
                                    "params_from_jax", "make_torch_dataloader",
                                    "train_image_classifier", "init_image_classifier",
-                                   "image_params_from_jax"])
+                                   "image_params_from_jax", "flash_attention_with_lse",
+                                   "init_seq_params", "seq_params_from_jax", "train_sequence",
+                                   "train_ragged_causal", "train_packed_causal",
+                                   "init_packed_next_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()

@@ -1,9 +1,12 @@
 """Tests of petastorm_tpu_torch that need a CUDA card: the three flash
 kernels against their plain PyTorch versions (also through autograd with a
-do off a 16-byte boundary, and with q/k/v views), pinned H2D staging, the
-LM trainer on the card, and the image path: the device stage and the
-classifier on the card against the CPU, the row loader's staged bytes, and
-the image trainer. They skip without a card.
+do off a 16-byte boundary, and with q/k/v views), head dims the kernels are
+not instantiated for (zero-padded, bit for bit the padded call), the lse
+cotangent through the dQ kernel, strict causal and
+``flash_attention_with_lse``'s gradients, a two-process ring on the card,
+pinned H2D staging, the LM trainer on the card, and the image path: the
+device stage and the classifier on the card against the CPU, the row
+loader's staged bytes, and the image trainer. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent (the suite's conftest imports JAX; skip it there):
@@ -17,12 +20,17 @@ sorted packed ids, the segment cases take ``ops.segment_layouts``'s
 layouts that would trip a tile-skipping kernel built on sorted ids.
 """
 
+import multiprocessing
+import traceback
+
 import numpy as np
 import pytest
 import torch
 
 from petastorm_tpu_torch.models import image_classifier as ic
+from petastorm_tpu_torch.models import sequence_model as sm
 from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
+from petastorm_tpu_torch.ops import _build
 from petastorm_tpu_torch.ops import flash_attention as fa
 from petastorm_tpu_torch.ops.segment_layouts import SEGMENT_KINDS, segment_ids
 from petastorm_tpu_torch.reader.reader import make_columnar_reader, make_reader
@@ -283,3 +291,197 @@ def test_train_image_classifier_on_the_card(cuda_device, tmp_path):
     assert result["batch_devices"] == ["cuda:0"] and len(losses) == 24
     assert np.isfinite(losses).all() and np.mean(losses[-8:]) < np.mean(losses[:8])
     assert result["peak_memory_bytes"] > 0 and result["images_per_s"] > 0
+
+
+def _strict_causal_case(rng, device, b, t, h, h_kv, d, dtype=torch.float32):
+    def rnd(heads):
+        return torch.tensor(rng.randn(b, t, heads, d), dtype=dtype, device=device)
+
+    ids = torch.tensor(_segments(rng, b, t), device=device)
+    kw = dict(causal=True, causal_offset=-1, kv_lengths=None, q_seg=ids, kv_seg=ids)
+    return (rnd(h), rnd(h_kv), rnd(h_kv), rnd(h)), kw
+
+
+def _zero_pad(t, dim):
+    return torch.cat([t, t.new_zeros(*t.shape[:-1], dim - t.shape[-1])], dim=-1)
+
+
+@pytest.mark.parametrize("d,kernel_dim", [(8, 16), (24, 32)])
+def test_head_dims_are_zero_padded_bit_for_bit(cuda_device, d, kernel_dim):
+    """A head dim the kernels are not instantiated for runs as the next one:
+    ``flash_attention``'s output and gradients, and
+    ``flash_attention_with_lse``'s lse, equal bit for bit the kernels' own
+    entry points called on inputs zero-padded by hand with ``1 / sqrt(d)``
+    as the scale, sliced back."""
+    rng = np.random.RandomState(d)
+    (q, k, v, do), kw = _strict_causal_case(rng, cuda_device, 2, 100, 4, 2, d)
+    ids = kw["q_seg"]
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    o = fa.flash_attention(*x, causal=True, segment_ids=ids)
+    o.backward(do)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    dq, dk, dv = (t.grad for t in x)
+    _, lse = fa.flash_attention_with_lse(q, k, v, causal=True, segment_ids=ids)
+    assert o.shape == q.shape and dq.shape == q.shape and dk.shape == k.shape
+
+    qp, kp, vp, dop = (_zero_pad(t, kernel_dim) for t in (q, k, v, do))
+    stream = torch.cuda.current_stream().cuda_stream
+    dims = fa._dims(qp, kp, True, 0, 1 / np.sqrt(d))
+    assert dims[5] == kernel_dim and dims[-1] == 1 / np.sqrt(d)
+    o_p = torch.empty_like(qp)
+    lse_p = torch.empty(2 * 4, 100, dtype=torch.float32, device=cuda_device)
+    assert _build.kernel("ptt_flash_fwd")(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                          o_p.data_ptr(), lse_p.data_ptr(), ids.data_ptr(),
+                                          ids.data_ptr(), None, *dims, stream) == 0
+    dq_p, delta_p = torch.empty_like(qp), torch.empty_like(lse_p)
+    assert _build.kernel("ptt_flash_bwd_dq")(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                             o_p.data_ptr(), dop.data_ptr(), lse_p.data_ptr(),
+                                             None, delta_p.data_ptr(), dq_p.data_ptr(),
+                                             ids.data_ptr(), ids.data_ptr(), None, *dims,
+                                             stream) == 0
+    dk_p, dv_p = torch.empty_like(kp), torch.empty_like(vp)
+    assert _build.kernel("ptt_flash_bwd_dkv")(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                              dop.data_ptr(), lse_p.data_ptr(),
+                                              delta_p.data_ptr(), dk_p.data_ptr(),
+                                              dv_p.data_ptr(), ids.data_ptr(), ids.data_ptr(),
+                                              None, *dims, stream) == 0
+    torch.cuda.synchronize()
+    lse_pub = torch.where(torch.isposinf(lse_p), -np.inf, lse_p).reshape(2, 4, 100)
+    assert torch.equal(o, o_p[..., :d]) and torch.equal(lse, lse_pub.transpose(1, 2))
+    assert (o_p[..., d:] == 0).all() and (dq_p[..., d:] == 0).all()
+    assert torch.equal(dq, dq_p[..., :d])
+    assert torch.equal(dk, dk_p[..., :d]) and torch.equal(dv, dv_p[..., :d])
+    # and against the plain versions at the true head dim
+    kw["causal_offset"] = 0
+    o_ref, lse_ref = fa.flash_forward_plain(q, k, v, **kw)
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    for got, want in zip((dq, dk, dv), fa.flash_backward_plain(q, k, v, o_ref, lse_ref, do,
+                                                               **kw)):
+        assert (got - want).abs().max().item() / want.abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_dlse_and_strict_causal_match_the_plain_versions(cuda_device, dtype, d):
+    """The dQ kernel with an lse cotangent, under strict causal
+    (``causal_offset`` -1): dq and delta (less dlse) against the plain
+    version, and dK/dV reading that delta. With ``dlse=None`` the kernel's
+    output equals the zero-cotangent call bit for bit. D=8 runs as the
+    autograd functions run it: zero-padded to 16, with ``1 / sqrt(8)``."""
+    rng = np.random.RandomState(d)
+    (q, k, v, do), kw = _strict_causal_case(rng, cuda_device, 2, 130, 4, 2, d, dtype)
+    (q, k, v, do), kw["scale"] = fa.pad_head_dim(q, k, v, do)
+    dlse = torch.tensor(rng.randn(2 * 4, 130), dtype=torch.float32, device=cuda_device)
+    o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p)) and torch.isinf(lse[:, 0]).all()
+    dq, delta = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, dlse=dlse, **kw)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, dlse=dlse, **kw)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, **kw)
+    dq0, delta0 = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, **kw)
+    dqz, deltaz = fa.flash_bwd_dq_kernel(q, k, v, o, lse, do, dlse=torch.zeros_like(dlse), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq0, dqz) and torch.equal(delta0, deltaz)
+    want = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(8, 130) - dlse
+    assert (delta - want).abs().max().item() <= 1e-4
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-3
+    for got, ref in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item() \
+            <= tol
+
+
+@pytest.mark.parametrize("d,shift", [(8, -1), (16, -1), (16, 0)])
+def test_flash_attention_with_lse_on_the_card_matches_the_cpu(cuda_device, d, shift):
+    """Output, lse (``-inf`` in the same places) and the gradients of a loss
+    that reads both, on the card against the plain versions on the CPU, for
+    a causal ``(q_ids, kv_ids)`` pair as the ring runs it."""
+    rng = np.random.RandomState(d - shift)
+    b, t, h, h_kv = 2, 72, 4, 2
+    arrays = [rng.randn(b, t, n, d).astype(np.float32) for n in (h, h_kv, h_kv, h)]
+    w = torch.tensor(rng.randn(b, t, h), dtype=torch.float32)
+    ids = (torch.tensor(_segments(rng, b, t)), torch.tensor(_segments(rng, b, t)))
+    results = {}
+    for device in ("cpu", cuda_device):
+        q, k, v = (torch.tensor(a, device=device, requires_grad=True) for a in arrays[:3])
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True, causal_shift=shift,
+                                               segment_ids=tuple(i.to(device) for i in ids),
+                                               device=device)
+        loss = (out * torch.tensor(arrays[3], device=device)).sum() + torch.where(
+            torch.isfinite(lse), lse * w.to(device), 0.0).sum()
+        loss.backward()
+        results[str(device)] = [x.detach().cpu() for x in (out, lse, q.grad, k.grad, v.grad)]
+    (o_c, lse_c, *g_c), (o_g, lse_g, *g_g) = results.values()
+    assert (o_g - o_c).abs().max().item() <= 1e-4
+    assert torch.equal(torch.isneginf(lse_g), torch.isneginf(lse_c))
+    fin = torch.isfinite(lse_c)
+    assert (lse_g[fin] - lse_c[fin]).abs().max().item() <= 1e-4
+    for got, want in zip(g_g, g_c):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() / want.abs().max().item() <= 1e-3
+
+
+def _ring_rank(rank, store, out_dir):
+    """One rank of the two-process ring (striped and contiguous) and
+    Ulysses on the card: gloo over pinned host memory, the flash kernels on
+    cuda:0."""
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, w = (torch.randn(2, 96, 4, 8, device="cuda", generator=g) for _ in range(4))
+        seg = torch.sort(torch.randint(0, 4, (2, 96), device="cuda", generator=g),
+                         dim=1).values.int()
+        group, errs = dist.group.WORLD, []
+        runs = [  # the last with the default local attention: the kernels on the card
+            lambda *x: sm.ring_attention(*x, group, causal=True, placement="striped",
+                                         segment_ids=seg, local_attn="flash"),
+            lambda *x: sm.ring_attention(*x, group, causal=True, placement="contiguous",
+                                         segment_ids=seg, local_attn="flash"),
+            lambda *x: sm.ulysses_attention(*x, group, causal=True, segment_ids=seg)]
+        for attention in runs:
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+            fa.reset_launch_counts()
+            out = attention(*x)
+            (out * w).sum().backward()
+            launches = dict(fa.LAUNCHES)
+            ref = sm.attention_reference(*ref_in, causal=True, segment_ids=seg)
+            (ref * w).sum().backward()
+            errs.append(((out - ref).abs().max().item(),
+                         max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item()
+                             for a, b in zip(x, ref_in)),
+                         min(launches.values())))
+        torch.save(errs, f"{out_dir}/rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def test_two_process_ring_on_the_card(cuda_device, tmp_path):
+    fa.flash_forward_kernel(*(torch.zeros(1, 8, 1, 16, device=cuda_device),) * 3)  # build first
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ring_rank, args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for r, p in enumerate(procs):
+        err = tmp_path / f"rank{r}.err"
+        assert p.exitcode == 0, err.read_text() if err.exists() else f"rank {r} hung"
+        errs = torch.load(tmp_path / f"rank{r}.pt")
+        assert len(errs) == 3
+        for out_err, grad_err, min_launches in errs:
+            assert out_err <= 1e-4 and grad_err <= 1e-3 and min_launches >= 1

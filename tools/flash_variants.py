@@ -9,7 +9,8 @@ rows, three ablations).
 Run from the root of a checkout: ``python3 tools/flash_variants.py [--parent
 DIR] [NAME ...]`` (default: every variant in ``VARIANTS``). ``--parent DIR``
 adds ``dq_parent`` and ``dkv_parent``: ``flash_bwd_dq.cu`` and
-``flash_bwd_dkv.cu`` of the checkout at ``DIR`` (the same C interfaces),
+``flash_bwd_dkv.cu`` of the checkout at ``DIR`` (the same C interfaces, or
+for dQ the one from before its ``dlse`` pointer, called with a null one),
 timed in turns with the rest. Each variant is compiled with ``nvcc`` (its
 ``ptxas`` registers and spills are printed), run at ``chip_smoke.py``'s timed
 case (causal + sorted segment ids) at the LM and bench shapes in f32 and at
@@ -76,6 +77,20 @@ def start_build(name, out_dir, variants):
                                       csrc=csrc)
 
 
+def _without_dlse(fn):
+    """A ``ptt_flash_bwd_dq`` of a checkout from before the ``dlse`` pointer
+    (its interface has no 7th pointer), called with this checkout's
+    arguments: the dlse pointer, which must be null, is dropped. Only a
+    ``--parent`` older than that pointer needs this."""
+    fn.argtypes = fn.argtypes[:6] + fn.argtypes[7:]
+
+    def call(*args):
+        if args[6] is not None:
+            raise ValueError("this build of flash_bwd_dq.cu takes no dlse")
+        return fn(*args[:6], *args[7:])
+    return call
+
+
 def finish_build(name, lib, proc, variants):
     """Wait for a variant's build; return its ctypes entry point and ptxas's
     registers and spills for each instantiation of the kernel."""
@@ -89,7 +104,17 @@ def finish_build(name, lib, proc, variants):
             label = f"{'f32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)}"
         elif label and ("spill" in line or "Used" in line):
             ptxas[label] = (ptxas.get(label, "") + " | " + line.split(":")[-1].strip()).strip(" |")
-    return _build.load(lib, SYMBOLS[variants[name][0]]), ptxas
+    symbol = SYMBOLS[variants[name][0]]
+    fn = _build.load(lib, symbol)
+    if symbol == "ptt_flash_bwd_dq" and not _takes_dlse(variants[name][2]):
+        return _without_dlse(fn), ptxas
+    return fn, ptxas
+
+
+def _takes_dlse(csrc):
+    """Whether the ``flash_bwd_dq.cu`` under ``csrc`` has the dlse pointer."""
+    with open(os.path.join(csrc, "flash_bwd_dq.cu")) as f:
+        return "const void* dlse" in f.read()
 
 
 def mma_sync_rate(out_dir):
