@@ -49,10 +49,14 @@ non-zero exit code):
    as a yardstick (the port never calls it): its forward beside the
    forward, its backward beside dQ + dK/dV together.
 3. ``train``: the packed long-context LM at its full configuration (d_model
-   64, 4 heads, 2 layers, vocab 64, slot_len 128, 4 slots, f32) for 12 SGD
-   steps from a generated Parquet corpus: every batch arrives on the card,
-   the loss is finite and falls, all three kernels were launched on this
-   path, and flash logits match the dense oracle on the last batch.
+   64, 4 heads, 2 layers, vocab 64, slot_len 128, 4 slots, f32) for
+   ``TRAIN_STEPS`` SGD steps from a generated Parquet corpus: every batch
+   arrives on the card, the loss is finite and falls, all three kernels
+   were launched on this path, and flash logits match the dense oracle on
+   the last batch. Reported: steps/s over every step, warm steps/s (from a
+   sync at step 3 to a sync at the end) and the median host interval
+   between warm steps, and the card's busy share in the warm window of a
+   second, identical run traced by ``torch.profiler``.
 4. ``image``: the row/image path at ``bench.py``'s image configuration
    (``IMAGE``: 1,536 rows of 64x64x3 uint8 png images with the benchmark's
    schema, row groups of 128, batch 128, 10 classes, conv 64, hidden 2048,
@@ -103,7 +107,33 @@ non-zero exit code):
    for CUDA tensors), each run launching every kernel. The second line
    reports step times of this transport, not claims.
 
-The last three lines are the kernels' JSON record (times at the LM's
+7. ``tabular``: the DLRM tabular path (``models/tabular_dlrm.py``) at the
+   repo's own widths: the JAX tabular scenario's Criteo-shaped store
+   (``TABULAR``: 40,000 rows, 8 day row groups of 5,000, 41 columns) →
+   ``make_batch_reader`` → ``make_torch_dataloader`` → the DLRM at
+   ``init_dlrm_params``' defaults (13 dense, 26 tables of 1024 x 16, hidden
+   64, bf16 compute), batch 256, ``last_batch="drop"``, 2 epochs (312
+   steps), SGD at lr 0.05. (a) A full scan and a ``filters=[("day", "=",
+   3)]`` scan plan 8 and 1 row groups and read 40,000 and 5,000 rows. (b)
+   The uninterrupted run: losses finite, the last quarter's mean below the
+   first's, every batch on ``cuda:0``, every row trained twice bar the 128
+   the final partial batch drops; warm steps/s and rows/s (steps 10 to the
+   end), stall, peak memory, and the busy share of a traced second run.
+   (c) Preempted at step 100 and checkpointed (``save_training_state``);
+   every object dropped; ``restore_training_state`` gives the parameters
+   bit for bit, and a fresh reader with ``resume_state`` finishes the run:
+   every row trained at least twice over the two runs bar under 256 rows;
+   re-read rows and the save and restore ms. (d) ``DP`` = 2 ranks on card 0
+   (gloo, as phase 6), each reading its shard: the loader's derived
+   ``max_batches`` equals ``global_step_count``, both ranks take exactly
+   that many steps and end with bit-equal parameters; at f32 compute the
+   first step's all-reduced gradients equal the mean of the two batches'
+   one-process gradients within ``DP_GRAD_REL``; ``agree_max_batches``
+   gives the minimum of two unequal counts; each rank's steps/s (transport
+   on one card, not a claim). No flash kernel runs on this path (counted).
+
+Each phase's wall seconds are on the ``phases:`` line. The last three lines
+are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
 dK/dV together beside SDPA's backward), the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -137,7 +167,8 @@ HBM_BYTES_PER_S = 3.35e12
 # reference's Precision.HIGHEST takes three MXU passes. The same yardstick
 # for all three kernels, whatever each one runs on.
 F32_TC_FLOPS = 495e12 / 3
-TRAIN_STEPS = 12
+TRAIN_STEPS = 40  # phase 3: enough warm steps for a median step time
+SP_TRAIN_STEPS = 12  # the LM at sp = 2 in phase 6
 SEQ_STEPS = 48  # steps of each sequence trainer: losses fall over quarters of the run
 SP = 2  # sequence-parallel ranks of phase 6, all on card 0
 SP_TIMEOUT_S = 600
@@ -149,6 +180,11 @@ IMAGE = dict(rows=1536, rows_per_row_group=128, image_shape=(64, 64, 3), batch=1
 IMAGE_CODEC = "png"
 # f32 logits, card vs CPU: 50,176-term sums in another order (TF32 off).
 LOGIT_REL = 1e-4
+# The JAX tabular scenario's store (benchmark/scenarios.py:37-38) and the
+# Criteo example's trainer (examples/criteo_dlrm/train_dlrm.py:40-78).
+TABULAR = dict(rows=40_000, days=8, batch=256, epochs=2, interrupt_after=100)
+DP = 2  # data-parallel ranks of phase 7, on card 0
+DP_GRAD_REL = 1e-6
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -553,21 +589,25 @@ def measure(shape, count_libs):
     return out, pairs, counts
 
 
-def device_busy_pct(trace_path, raw_batch_bytes, first_timed_batch):
+def device_busy_pct(trace_path, batch_bytes, first_timed_batch, copies_per_batch=1):
     """The share (%) of a window of a ``torch.profiler`` Chrome trace during
-    which the card ran a kernel, a copy or a memset (their union). The window
-    opens at the start of the ``first_timed_batch``-th host-to-device copy of
-    ``raw_batch_bytes`` (a batch's raw images) and closes at the end of the
-    last device event. "not measured" when the trace holds no such copy."""
+    which the card ran a kernel, a copy or a memset (their union). The
+    window opens at the start of the first copy of the ``first_timed_batch``-th
+    batch: the copies of ``batch_bytes`` bytes (a batch's raw images, or one
+    of its columns) come ``copies_per_batch`` to a batch, in batch order,
+    and the window opens at copy ``first_timed_batch * copies_per_batch``.
+    It closes at the end of the last device event. "not measured" when the
+    trace holds no such copy."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    raw_copies = sorted(e["ts"] for e in events if e.get("cat") == "gpu_memcpy"
-                        and e.get("args", {}).get("bytes") == raw_batch_bytes)
-    if len(raw_copies) <= first_timed_batch:
+    copies = sorted(e["ts"] for e in events if e.get("cat") == "gpu_memcpy"
+                    and e.get("args", {}).get("bytes") == batch_bytes)
+    first = first_timed_batch * copies_per_batch
+    if len(copies) <= first:
         return "not measured"
-    start, end = raw_copies[first_timed_batch], max(e for _, e in device)
+    start, end = copies[first], max(e for _, e in device)
     busy, reach = 0.0, start
     for s, e in device:
         s, e = max(s, reach), min(e, end)
@@ -864,13 +904,13 @@ def sp_checks(group, corpus_url, ragged_url):
 
     # The LM capstone at its full configuration over the group.
     fa.reset_launch_counts()
-    result = lm.train_lm(corpus_url, slot_len=LM["T"], slots=LM["B"], steps=TRAIN_STEPS,
+    result = lm.train_lm(corpus_url, slot_len=LM["T"], slots=LM["B"], steps=SP_TRAIN_STEPS,
                          num_heads=4, d_model=64, epochs=8, device="cuda", group=group)
     launches = dict(fa.LAUNCHES)
     losses = result["losses"]
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+    if len(losses) != SP_TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
             or not losses[-1] < losses[0]:
-        raise AssertionError(f"sp LM: loss not finite and falling over {TRAIN_STEPS} "
+        raise AssertionError(f"sp LM: loss not finite and falling over {SP_TRAIN_STEPS} "
                              f"steps: {losses}")
     if not result["logit_parity"] <= PARITY_TOL:
         raise AssertionError(f"sp LM: ring vs dense logits differ by "
@@ -1008,6 +1048,256 @@ def sp_phase(one_process_steps_per_s):
           flush=True)
 
 
+def tabular_dp_rank(rank, store, out_dir, url):
+    """One rank of phase 7 (d): joins a gloo group of ``DP`` ranks on card
+    0, runs its checks (raising on a miss), trains on its shard and writes
+    its numbers to ``<out_dir>/rank<rank>.json`` and its final parameters
+    to ``params<rank>.pt``, or its traceback to ``rank<rank>.err``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=DP)
+        group = dist.group.WORLD
+        out, params = tabular_dp_checks(rank, group, url)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.save({k: v.cpu() for k, v in params.items()},
+                   os.path.join(out_dir, f"params{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tabular_dp_checks(rank, group, url):
+    """The checks of one rank of phase 7 (d); returns its numbers and its
+    final parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+    from petastorm_tpu_torch.torch_utils.sharding import agree_max_batches, global_step_count
+
+    cfg = TABULAR
+    # f32 compute: the first step's all-reduced gradients against the mean
+    # of both batches' one-process gradients (the batches are all-gathered).
+    model = td.init_dlrm(compute_dtype=torch.float32, device="cuda")
+    reader = make_batch_reader(url, num_epochs=cfg["epochs"], shuffle_row_groups=True,
+                               shard_seed=7, cur_shard=rank, shard_count=DP)
+    with make_torch_dataloader(reader, cfg["batch"], device="cuda", group=group) as loader:
+        batch = next(iter(loader))
+    dense, sparse, labels = td.collate_dlrm(batch)
+    mask = torch.ones(labels.shape[0], dtype=torch.bool, device="cuda")
+    _, grads = td.dlrm_gradients(model, dense, sparse, labels, mask, group)
+    grads = {k: v.clone() for k, v in grads.items()}
+    gathered = []
+    for t in (dense, sparse, labels):
+        parts = [torch.empty_like(t.cpu()) for _ in range(DP)]
+        dist.all_gather(parts, t.cpu(), group=group)
+        gathered.append(parts)
+    mean = None
+    for parts in zip(*gathered):
+        _, g = td.dlrm_gradients(model, *(p.cuda() for p in parts), mask)
+        g = {k: v.clone() for k, v in g.items()}
+        mean = g if mean is None else {k: mean[k] + g[k] for k in g}
+    grad_err = max((grads[k] - mean[k] / DP).abs().max().item()
+                   / max((mean[k] / DP).abs().max().item(), 1e-30) for k in grads)
+    if not grad_err <= DP_GRAD_REL:
+        raise AssertionError(f"dp: all-reduced gradients differ from the one-process mean by "
+                             f"{grad_err:.3e} of the largest (limit {DP_GRAD_REL:.0e})")
+    agreed = agree_max_batches(100 + rank, group=group)
+    if agreed != 100:
+        raise AssertionError(f"dp: agree_max_batches gave {agreed}, expected min(100, 101)")
+    want = global_step_count(url, cfg["batch"], DP, num_epochs=cfg["epochs"], shard_seed=7)
+    t0 = time.perf_counter()
+    result = td.train_dlrm(url, batch_size=cfg["batch"], epochs=cfg["epochs"], device="cuda",
+                           group=group)
+    seconds = time.perf_counter() - t0
+    derived = result["diagnostics"]["max_batches"]
+    if not (derived == want == result["steps"] > 0):
+        raise AssertionError(f"dp rank {rank}: derived max_batches {derived}, "
+                             f"global_step_count {want}, steps {result['steps']}")
+    if not all(math.isfinite(x) for x in result["losses"]):
+        raise AssertionError(f"dp rank {rank}: losses not finite: {result['losses']}")
+    return {"grad_rel_err": grad_err, "agreed": agreed, "steps": result["steps"],
+            "max_batches": derived, "global_step_count": want,
+            "steps_per_s_warm": result["steps_per_s_warm"],
+            "train_s": seconds}, result["model"].state_dict()
+
+
+def tabular_phase(smi):
+    """Phase 7 (see the module docstring); fails the run on any check."""
+    import gc
+    import multiprocessing
+
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+    from petastorm_tpu_torch.torch_utils.checkpoint import restore_training_state
+
+    cfg = TABULAR
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tab_")
+    try:
+        url = f"file://{tmp}/criteo"
+        t0 = time.perf_counter()
+        rows = td.make_tabular_dataset(url, rows=cfg["rows"], days=cfg["days"])
+        write_s = time.perf_counter() - t0
+        arrow_schema = pq.read_schema(os.path.join(tmp, "criteo", "part-00000.parquet"))
+        wide = sum(1 for f in arrow_schema if f.type.bit_width == 64)  # int64 columns
+        per_group = rows // cfg["days"]
+
+        # (a) Filters: a full scan and a one-day scan.
+        scans = {}
+        for name, filters in (("full", None), ("day3", [("day", "=", 3)])):
+            t0 = time.perf_counter()
+            with make_batch_reader(url, num_epochs=1, filters=filters) as reader:
+                n = sum(len(b.sample_index) for b in reader)
+                groups = reader.diagnostics["rowgroups_total"]
+            scans[name] = (groups, n, n / (time.perf_counter() - t0))
+        if scans["full"][:2] != (cfg["days"], rows) or scans["day3"][:2] != (1, per_group):
+            fail(f"tabular (a): scans planned / read {scans}, expected "
+                 f"({cfg['days']}, {rows}) and (1, {per_group})")
+
+        # (b) The uninterrupted run, then an identical traced one.
+        train = dict(batch_size=cfg["batch"], epochs=cfg["epochs"], device="cuda")
+        fa.reset_launch_counts()
+        base = td.train_dlrm(url, collect_field="sample_index", **train)
+        launches = dict(fa.LAUNCHES)
+        steps = cfg["epochs"] * rows // cfg["batch"]
+        losses = base["losses"]
+        first_q, last_q = quarter_means(losses)
+        if base["steps"] != steps or not all(math.isfinite(x) for x in losses) \
+                or not last_q < first_q:
+            fail(f"tabular (b): {base['steps']} steps (expected {steps}), losses finite and "
+                 f"falling: quarter means {first_q:.7f} -> {last_q:.7f}")
+        if base["batch_devices"] != ["cuda:0"]:
+            fail(f"tabular (b): batches arrived on {base['batch_devices']}, not cuda:0")
+        counts = np.bincount(base["collected"], minlength=rows)
+        dropped = cfg["epochs"] * rows - steps * cfg["batch"]
+        if counts.max() > cfg["epochs"] or int((cfg["epochs"] - counts).sum()) != dropped:
+            fail(f"tabular (b): rows trained {counts.min()}-{counts.max()} times, "
+                 f"{int((cfg['epochs'] - counts).sum())} short (expected {dropped})")
+        if any(launches.values()):
+            fail(f"tabular (b): the path launched flash kernels: {launches}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = td.train_dlrm(url, **train)
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy = device_busy_pct(trace, cfg["batch"] * 8, td.WARM_FROM_STEP,
+                               copies_per_batch=wide)
+        diag = base["diagnostics"]
+
+        # (c) Preempted at step 100, checkpointed, every object dropped,
+        # restored, and finished by a fresh reader with resume_state.
+        ckpt = os.path.join(tmp, "ckpt")
+        first = td.train_dlrm(url, interrupt_after=cfg["interrupt_after"], checkpoint_dir=ckpt,
+                              collect_field="sample_index", **train)
+        saved = {k: v.detach().cpu().clone() for k, v in first["model"].state_dict().items()}
+        first_rows, save_ms = first["collected"], first["checkpoint_save_ms"]
+        first_steps = first["steps"]
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        arrays, state = restore_training_state(ckpt, map_location="cuda")
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        model = td.init_dlrm(seed=1, device="cuda")
+        model.load_state_dict(arrays["model"])
+        restored = model.state_dict()
+        if sorted(restored) != sorted(saved) or not all(
+                torch.equal(restored[k].cpu(), saved[k]) for k in saved):
+            fail("tabular (c): restored parameters differ from the saved ones")
+        second = td.train_dlrm(url, resume_state=state, model=model,
+                               collect_field="sample_index", **train)
+        if not all(math.isfinite(x) for x in second["losses"]):
+            fail(f"tabular (c): resumed losses not finite: {second['losses']}")
+        counts = np.bincount(np.concatenate([first_rows, second["collected"]]),
+                             minlength=rows)
+        deficit = int(np.maximum(cfg["epochs"] - counts, 0).sum())
+        reread = int(np.maximum(counts - cfg["epochs"], 0).sum())
+        if deficit >= cfg["batch"]:
+            fail(f"tabular (c): {deficit} row-trainings short of {cfg['epochs']} per row "
+                 f"over both runs (limit: under {cfg['batch']}, the dropped final batch)")
+
+        # (d) Data parallel: DP spawned ranks on card 0.
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tabular_dp_rank,
+                             args=(r, os.path.join(tmp, "store"), tmp, url))
+                 for r in range(DP)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        dp_s = time.perf_counter() - t0
+        failed = [f"rank {r} exit {p.exitcode}: "
+                  + (open(os.path.join(tmp, f"rank{r}.err")).read()
+                     if os.path.exists(os.path.join(tmp, f"rank{r}.err")) else "no traceback")
+                  for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            fail("tabular (d): " + "\n".join(failed))
+        ranks = []
+        for r in range(DP):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        params = [torch.load(os.path.join(tmp, f"params{r}.pt")) for r in range(DP)]
+        if not all(torch.equal(params[0][k], params[1][k]) for k in params[0]):
+            fail("tabular (d): the ranks' final parameters differ")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    full, day = scans["full"], scans["day3"]
+    print(f"tabular (a): gpu={smi!r} rows={rows} row_groups={cfg['days']} "
+          f"columns={len(arrow_schema)} write_s={write_s:.2f} | full scan: "
+          f"rowgroups_total={full[0]} rows={full[1]} rows_per_s={full[2]:.1f} | "
+          f"filters=[('day', '=', 3)]: rowgroups_total={day[0]} rows={day[1]} "
+          f"rows_per_s={day[2]:.1f}", flush=True)
+    print(f"tabular (b): dlrm 13 dense, 26 tables x 1024 x 16, hidden 64, bf16, "
+          f"batch={cfg['batch']} epochs={cfg['epochs']} steps={base['steps']} "
+          f"loss_first_quarter={first_q:.7f} loss_last_quarter={last_q:.7f} "
+          f"steps_per_s_warm={base['steps_per_s_warm']:.2f} "
+          f"rows_per_s_warm={base['rows_per_s_warm']:.1f} (steps {td.WARM_FROM_STEP}-end) "
+          f"input_stall_pct={diag['input_stall_pct']} "
+          f"h2d_bytes_per_row={diag['h2d_bytes'] / diag['rows']:.1f} "
+          f"peak_mem_mib={base['peak_memory_bytes'] / 2**20:.1f} "
+          f"traced_steps_per_s_warm={traced['steps_per_s_warm']:.2f} "
+          f"device_busy_pct_traced={busy} dropped_rows={dropped} "
+          f"flash_launches={launches}", flush=True)
+    print(f"tabular (c): interrupted after {first_steps} steps, resumed for "
+          f"{second['steps']} steps; restored parameters bit for bit; "
+          f"reread_rows={reread} deficit_rows={deficit} "
+          f"checkpoint_save_ms={save_ms:.2f} checkpoint_restore_ms={restore_ms:.2f}",
+          flush=True)
+    grad_errs = [f"{r['grad_rel_err']:.2e}" for r in ranks]
+    print(f"tabular (d): ranks={DP} on cuda:0 (gloo, pinned-host staging; transport on one "
+          f"card, not a claim): global_step_count={ranks[0]['global_step_count']} "
+          f"steps={[r['steps'] for r in ranks]} "
+          f"max_batches={[r['max_batches'] for r in ranks]} final parameters bit-equal; "
+          f"f32 grad_rel_err={grad_errs} "
+          f"agree_max_batches(100, 101)={ranks[0]['agreed']} "
+          f"steps_per_s_warm={[round(r['steps_per_s_warm'], 2) for r in ranks]} "
+          f"seconds={dp_s:.1f}", flush=True)
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -1053,12 +1343,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
+    from petastorm_tpu_torch.models.long_context_lm import (
+        WARM_FROM_STEP,
+        generate_corpus,
+        train_lm,
+    )
     from petastorm_tpu_torch.ops import _build
     from petastorm_tpu_torch.ops import flash_attention as fa
     from petastorm_tpu_torch.ops.segment_layouts import SEGMENT_KINDS
 
     # -- 1. env ------------------------------------------------------------
+    t_start = t_phase = time.perf_counter()
+    phase_s = {}
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     try:
         nvcc = _build.find_nvcc()
@@ -1099,6 +1395,8 @@ def main():
           f"kernels_built_in_s={build_s:.2f}", flush=True)
 
     # -- 2. kernels ----------------------------------------------------------
+    phase_s["env"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     B, T, H, D = BENCH["B"], BENCH["T"], BENCH["H"], BENCH["D"]
     cases = [
         ("bench causal+seg f32", make_case(B, T, H, D, torch.float32, seg=True)),
@@ -1161,6 +1459,8 @@ def main():
     print("kernels: " + "; ".join(errs), flush=True)
 
     # -- 3. train ------------------------------------------------------------
+    phase_s["kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         url = f"file://{tmp}/corpus"
@@ -1169,6 +1469,16 @@ def main():
         result = train_lm(url, slot_len=128, slots=4, steps=TRAIN_STEPS,
                           num_heads=4, d_model=64, epochs=8, device="cuda")
         launches = dict(fa.LAUNCHES)
+        # The card's busy share in the warm window, from a trace of a second,
+        # identical run: a packed batch is three int32 [4, 128] copies
+        # (tokens, positions, segment ids) of 2,048 bytes each.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = train_lm(url, slot_len=128, slots=4, steps=TRAIN_STEPS,
+                              num_heads=4, d_model=64, epochs=8, device="cuda")
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        lm_busy = device_busy_pct(trace, 4 * 128 * 4, WARM_FROM_STEP, copies_per_batch=3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     losses = result["losses"]
@@ -1185,19 +1495,25 @@ def main():
     diag = result["diagnostics"]
     print(f"train: steps={len(losses)} losses={[round(x, 4) for x in losses]} "
           f"steps_per_s={result['steps_per_s']:.2f} "
+          f"steps_per_s_warm={result['steps_per_s_warm']:.2f} (from step {WARM_FROM_STEP}) "
+          f"step_ms_median_warm={result['step_ms_median_warm']:.3f} "
+          f"traced_steps_per_s_warm={traced['steps_per_s_warm']:.2f} "
+          f"device_busy_pct_traced={lm_busy} "
           f"input_stall_pct={diag['input_stall_pct']} h2d_bytes={diag['h2d_bytes']} "
           f"peak_mem_mb={result['peak_memory_bytes'] / 2**20:.1f} "
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ------------------------------------------------------------
-    image_phase(smi)
-
-    # -- 5. seq --------------------------------------------------------------
-    seq_phase()
-
-    # -- 6. sp ---------------------------------------------------------------
-    sp_phase(result["steps_per_s"])
+    # -- 4. image ... 7. tabular -------------------------------------------
+    phase_s["train"] = time.perf_counter() - t_phase
+    for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
+                      ("sp", lambda: sp_phase(result["steps_per_s"])),
+                      ("tabular", lambda: tabular_phase(smi))):
+        t_phase = time.perf_counter()
+        run()
+        phase_s[name] = time.perf_counter() - t_phase
+    print("phases: " + " ".join(f"{name}_s={sec:.1f}" for name, sec in phase_s.items())
+          + f" total_s={time.perf_counter() - t_start:.1f}", flush=True)
 
     source = "petastorm_tpu_torch/ops/csrc/"
     replaces = {"fwd": "petastorm_tpu/ops/flash_attention.py:96",

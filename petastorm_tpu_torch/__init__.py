@@ -1,11 +1,15 @@
 """petastorm_tpu_torch — the PyTorch / CUDA counterpart of petastorm_tpu.
 
 The same Parquet input path (Unischema + codecs, metadata, row and
-columnar readers over worker pools, row batching, sequence packing)
-delivering batches to PyTorch on an NVIDIA GPU, with the on-card image stage
-(crop / flip / cast / normalize of staged uint8 bytes), NGram windows, and
-three consumers: a CNN image classifier, the sequence encoder family, and
-the long-context decoder LM, whose attention runs on hand-written CUDA
+columnar readers and the plain-Parquet batch reader with Parquet-stats
+``filters``, over worker pools; row batching, sequence packing) delivering
+batches to PyTorch on an NVIDIA GPU, with resumable input (reader and
+loader ``state_dict()`` / ``resume_state=``), joint model + input
+checkpoints, equal-step sharded delivery over ``torch.distributed``, the
+on-card image stage (crop / flip / cast / normalize of staged uint8 bytes),
+NGram windows, and four consumers: a CNN image classifier, a DLRM tabular
+recommender (data parallel), the sequence encoder family, and the
+long-context decoder LM, whose attention runs on hand-written CUDA
 flash-attention kernels (forward, dQ, dK/dV) for Hopper, on one process or
 sequence-parallel (ring or Ulysses attention over ``torch.distributed``).
 The package imports nothing of ``petastorm_tpu`` and no JAX: it keeps its
@@ -22,6 +26,7 @@ _LAZY_EXPORTS = {
     "make_reader": ("petastorm_tpu_torch.reader.reader", "make_reader"),
     "make_columnar_reader": ("petastorm_tpu_torch.reader.reader",
                              "make_columnar_reader"),
+    "make_batch_reader": ("petastorm_tpu_torch.reader.reader", "make_batch_reader"),
     "Reader": ("petastorm_tpu_torch.reader.reader", "Reader"),
     "NoDataAvailableError": ("petastorm_tpu_torch.errors",
                              "NoDataAvailableError"),
@@ -56,6 +61,11 @@ _LAZY_EXPORTS = {
                                "train_image_classifier"),
     "train_sequence": ("petastorm_tpu_torch.models.sequence_training",
                        "train_sequence"),
+    "train_dlrm": ("petastorm_tpu_torch.models.tabular_dlrm", "train_dlrm"),
+    "save_training_state": ("petastorm_tpu_torch.torch_utils.checkpoint",
+                            "save_training_state"),
+    "restore_training_state": ("petastorm_tpu_torch.torch_utils.checkpoint",
+                               "restore_training_state"),
 }
 
 __all__ = list(_LAZY_EXPORTS) + ["__version__"]

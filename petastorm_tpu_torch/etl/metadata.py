@@ -259,6 +259,24 @@ class RowGroupPiece:
             return pq.ParquetFile(f).read_row_group(self.row_group, columns=columns)
 
 
+def piece_row_counts(filesystem, pieces):
+    """``{(path, row_group): num_rows}`` for every piece: pieces that carry
+    their count cost nothing, the others are read from their file's
+    footer, opened once per file."""
+    counts, unresolved = {}, {}
+    for piece in pieces:
+        if piece.num_rows is not None:
+            counts[(piece.path, piece.row_group)] = piece.num_rows
+        else:
+            unresolved.setdefault(piece.path, []).append(piece.row_group)
+    for path, row_groups in unresolved.items():
+        with filesystem.open_input_file(path) as f:
+            file_metadata = pq.ParquetFile(f).metadata
+        for rg in row_groups:
+            counts[(path, rg)] = file_metadata.row_group(rg).num_rows
+    return counts
+
+
 def load_row_groups(filesystem, dataset_path):
     """The dataset's row groups in canonical order (sorted file path, then
     row-group index), from the footer's bookkeeping when present, else from

@@ -22,6 +22,7 @@ and the output head is tied to ``embed`` (``h @ embed.T``), so
 from __future__ import annotations
 
 import math
+import statistics
 import time
 
 import numpy as np
@@ -33,6 +34,9 @@ from petastorm_tpu_torch.torch_utils.sharding import reader_options
 from petastorm_tpu_torch.models.sequence_model import attention_reference, ring_attention
 
 VOCAB = 64
+#: Steps left out of ``train_lm``'s warm clock (the reader's start, the
+#: first pinned batch and the first steps' allocations).
+WARM_FROM_STEP = 3
 _BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "ffn")
 
 
@@ -196,7 +200,12 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     With ``group`` the attention is the flash-local ring over its ranks:
     every rank runs this loop on the same batches (its reader takes
     ``sharding.reader_options(group)``). Returns a dict:
-    ``losses``, ``steps_per_s``, the loader's ``diagnostics``,
+    ``losses``, ``steps_per_s`` (every step, the clock started before the
+    first batch), ``steps_per_s_warm`` (the steps after the first
+    ``WARM_FROM_STEP``: the clock starts after a sync there and stops after
+    one at the end; None for shorter runs), ``step_ms_median_warm`` (the
+    median host interval between those steps' starts), the loader's
+    ``diagnostics``,
     ``batch_devices`` (where every batch arrived), ``logit_parity`` (max
     |flash − dense| logits on the last batch with the final weights: the
     ring's against the one-process dense oracle's with ``group``),
@@ -220,17 +229,22 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     loader = make_packed_torch_dataloader(
         reader, slot_len=slot_len, slots=slots, sequence_fields=["tokens"],
         length_field="length", max_batches=steps, device=device)
-    losses, batch_devices, last = [], set(), None
+    losses, batch_devices, last, starts = [], set(), None, []
     with loader:
         t0 = time.perf_counter()
         for packed in loader:
+            if len(losses) >= WARM_FROM_STEP:
+                if len(losses) == WARM_FROM_STEP and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                starts.append(time.perf_counter())
             tokens, pos, seg = (packed["tokens"], packed[PACK_POSITION_KEY],
                                 packed[PACK_SEGMENT_KEY])
             batch_devices.update(str(t.device) for t in packed.values())
             losses.append(step(tokens, pos, seg))
             last = (tokens, pos, seg)
         losses = [float(x) for x in losses]  # one sync, after the loop
-        elapsed = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        elapsed = t_end - t0
         diagnostics = loader.diagnostics
     if last is None:
         raise RuntimeError("the loader yielded no batches")
@@ -241,6 +255,9 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     return {
         "losses": losses,
         "steps_per_s": len(losses) / elapsed,
+        "steps_per_s_warm": len(starts) / (t_end - starts[0]) if starts else None,
+        "step_ms_median_warm": (1e3 * statistics.median(np.diff(starts))
+                                if len(starts) > 1 else None),
         "diagnostics": diagnostics,
         "batch_devices": sorted(batch_devices),
         "logit_parity": parity,

@@ -1,0 +1,309 @@
+"""DLRM-style tabular recommender trained from a plain-Parquet store, on the
+card.
+
+Counterpart of ``petastorm_tpu/models/tabular_dlrm.py`` (``init_dlrm_params``,
+``apply_dlrm``, ``make_dlrm_train_step``), of the Criteo-shaped store of
+``petastorm_tpu/benchmark/scenarios.py::make_tabular_dataset``, and of the
+trainer ``examples/criteo_dlrm/train_dlrm.py``: ``make_batch_reader`` (seeded
+row-group shuffle, optional ``filters``) → ``make_torch_dataloader`` (column
+batches re-sliced to the batch size, pinned H2D on the copy stream) →
+bottom MLP → hashed embedding lookups → pairwise dot-product interaction →
+top MLP → masked BCE-with-logits → plain SGD; the input pipeline
+checkpoints with the loader's ``state_dict()`` and resumes with
+``resume_state=``, and under a ``torch.distributed`` group each rank reads
+its row-group shard, the ranks take the same number of steps, and the
+gradients are averaged over the group (data parallel).
+
+Parameters are float32 and cast to ``compute_dtype`` (bfloat16 by default)
+inside the forward, as the reference does; the logits are float32. Dense
+kernels keep the JAX layout ``[d_in, d_out]`` (``x @ w``). The
+model-parallel table split of the JAX package (``dlrm_partition_specs``) is
+not ported yet: every rank holds every table.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from petastorm_tpu_torch.ops.flash_attention import resolve_device
+
+NUM_DENSE, NUM_SPARSE = 13, 26
+#: The Criteo example's SGD learning rate (examples/criteo_dlrm/train_dlrm.py:56).
+LEARNING_RATE = 0.05
+DEFAULT_TABULAR_ROWS = 40_000
+DEFAULT_TABULAR_DAYS = 8
+_MLP = ("bottom1", "bottom2", "top1", "top2")
+
+
+def make_tabular_dataset(dataset_url, rows=DEFAULT_TABULAR_ROWS, dense_cols=NUM_DENSE,
+                         sparse_cols=NUM_SPARSE, days=DEFAULT_TABULAR_DAYS):
+    """Write the Criteo-shaped plain-Parquet store of the JAX package's
+    tabular scenario, byte for byte: ``day`` (int32), ``sample_index``
+    (int64, unique per row), ``label`` (int32), ``dense_<i>`` (float32) and
+    ``cat_<i>`` (int64 ids below 10,000) from ``RandomState(7)``, clustered
+    by day with one row group per day in ``part-00000.parquet``, so a
+    ``filters=[("day", "=", k)]`` scan prunes all other row groups by their
+    statistics. Returns the rows written (``rows`` cut to a multiple of
+    ``days``)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.fs_utils import FilesystemResolver
+
+    resolver = FilesystemResolver(dataset_url)
+    fs, path = resolver.filesystem(), resolver.get_dataset_path()
+    fs.create_dir(path, recursive=True)
+    rng = np.random.RandomState(7)
+    day = np.repeat(np.arange(days, dtype=np.int32), rows // days)
+    rows = len(day)
+    columns = {"day": day,
+               "sample_index": np.arange(rows, dtype=np.int64),
+               "label": rng.randint(0, 2, rows).astype(np.int32)}
+    for i in range(dense_cols):
+        columns[f"dense_{i}"] = rng.rand(rows).astype(np.float32)
+    for i in range(sparse_cols):
+        columns[f"cat_{i}"] = rng.randint(0, 10_000, rows).astype(np.int64)
+    with fs.open_output_stream(path.rstrip("/") + "/part-00000.parquet") as f:
+        pq.write_table(pa.table(columns), f, row_group_size=rows // days)
+    return rows
+
+
+class DLRM(nn.Module):
+    """Bottom MLP over the dense features (→ one pseudo-embedding), one
+    hashed lookup per table, the upper triangle of the pairwise dot
+    products of the ``num_sparse + 1`` feature vectors, top MLP → f32
+    logits ``[B]``."""
+
+    def __init__(self, num_dense=NUM_DENSE, num_sparse=NUM_SPARSE, vocab_size=1024,
+                 embed_dim=16, bottom_hidden=64, top_hidden=64,
+                 compute_dtype=torch.bfloat16):
+        super().__init__()
+        features = num_sparse + 1
+        interact = features * (features - 1) // 2 + embed_dim
+        self.compute_dtype = compute_dtype
+        self.embeddings = nn.Parameter(torch.zeros(num_sparse, vocab_size, embed_dim))
+        shapes = {"bottom1": (num_dense, bottom_hidden), "bottom2": (bottom_hidden, embed_dim),
+                  "top1": (interact, top_hidden), "top2": (top_hidden, 1)}
+        for name, (d_in, d_out) in shapes.items():
+            setattr(self, f"{name}_kernel", nn.Parameter(torch.zeros(d_in, d_out)))
+            setattr(self, f"{name}_bias", nn.Parameter(torch.zeros(d_out)))
+        self.register_buffer("_triu", torch.triu_indices(features, features, 1),
+                             persistent=False)
+
+    def _dense(self, name, x):
+        cd = self.compute_dtype
+        return x @ getattr(self, f"{name}_kernel").to(cd) + getattr(self, f"{name}_bias").to(cd)
+
+    def forward(self, dense, sparse_ids):
+        """``dense`` float ``[B, num_dense]``, ``sparse_ids`` int
+        ``[B, num_sparse]`` raw ids (hashed ``% vocab_size`` here)."""
+        emb = self.embeddings.to(self.compute_dtype)
+        num_sparse, vocab, _ = emb.shape
+        x = torch.relu(self._dense("bottom1", dense.to(self.compute_dtype)))
+        dense_vec = torch.relu(self._dense("bottom2", x))                  # [B, D]
+        ids = torch.remainder(sparse_ids, vocab).long()                    # [B, S]
+        tables = torch.arange(num_sparse, device=ids.device)
+        looked_up = emb[tables, ids]                                        # [B, S, D]
+        feats = torch.cat([dense_vec[:, None], looked_up], dim=1)           # [B, F, D]
+        inter = torch.bmm(feats, feats.transpose(1, 2))                     # [B, F, F]
+        pairwise = inter[:, self._triu[0], self._triu[1]]
+        x = torch.relu(self._dense("top1", torch.cat([dense_vec, pairwise], dim=1)))
+        return self._dense("top2", x)[:, 0].float()
+
+
+def init_dlrm(num_dense=NUM_DENSE, num_sparse=NUM_SPARSE, vocab_size=1024, embed_dim=16,
+              bottom_hidden=64, top_hidden=64, compute_dtype=torch.bfloat16, seed=0,
+              device="cuda"):
+    """A :class:`DLRM` at ``init_dlrm_params``' defaults (13 dense, 26
+    tables of 1024 x 16, bottom and top hidden 64) with its initial
+    distributions (embeddings N(0, 0.05²), kernels N(0, 1/fan_in), zero
+    biases), drawn on the CPU from ``torch.Generator().manual_seed(seed)``."""
+    device = resolve_device(device)
+    model = DLRM(num_dense, num_sparse, vocab_size, embed_dim, bottom_hidden, top_hidden,
+                 compute_dtype)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.embeddings.copy_(torch.randn(model.embeddings.shape, generator=gen) * 0.05)
+        for name in _MLP:
+            kernel = getattr(model, f"{name}_kernel")
+            kernel.copy_(torch.randn(kernel.shape, generator=gen) / math.sqrt(kernel.shape[0]))
+    return model.to(device)
+
+
+def params_from_jax(numpy_params, compute_dtype=torch.bfloat16, device="cuda"):
+    """The JAX DLRM's parameter pytree (numpy arrays: ``embeddings``
+    ``[S, vocab, D]`` and ``bottom1``/``bottom2``/``top1``/``top2``, each
+    ``{kernel, bias}``) as a :class:`DLRM` on ``device``, every array copied
+    as it is."""
+    device = resolve_device(device)
+    emb = np.asarray(numpy_params["embeddings"], np.float32)
+    num_sparse, vocab, embed_dim = emb.shape
+    model = DLRM(np.shape(numpy_params["bottom1"]["kernel"])[0], num_sparse, vocab, embed_dim,
+                 np.shape(numpy_params["bottom1"]["kernel"])[1],
+                 np.shape(numpy_params["top1"]["kernel"])[1], compute_dtype)
+    tensors = {"embeddings": emb}
+    for name in _MLP:
+        tensors[f"{name}_kernel"] = numpy_params[name]["kernel"]
+        tensors[f"{name}_bias"] = numpy_params[name]["bias"]
+    model.load_state_dict({k: torch.tensor(np.ascontiguousarray(v, np.float32))
+                           for k, v in tensors.items()})
+    return model.to(device)
+
+
+def masked_bce_with_logits(logits, labels, mask):
+    """Mean stable BCE-with-logits over the rows where ``mask`` is True."""
+    labels = labels.float()
+    losses = torch.clamp(logits, min=0) - logits * labels + torch.log1p(
+        torch.exp(-logits.abs()))
+    mask = mask.float()
+    return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def dlrm_gradients(model, dense, sparse_ids, labels, mask, group=None):
+    """``(loss, {name: gradient})`` of one batch; under ``group`` each
+    gradient is summed over the ranks (one all-reduce of them all,
+    flattened) and divided by their number, the data-parallel mean."""
+    model.zero_grad(set_to_none=True)
+    loss = masked_bce_with_logits(model(dense, sparse_ids), labels, mask)
+    loss.backward()
+    params = list(model.named_parameters())
+    if group is not None and dist.get_world_size(group) > 1:
+        from petastorm_tpu_torch.torch_utils.sharding import _to_wire
+
+        flat = torch.cat([p.grad.reshape(-1) for _, p in params])
+        wire = _to_wire(group, flat)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+        flat = wire.to(flat.device) / dist.get_world_size(group)
+        for (_, p), g in zip(params, flat.split([p.numel() for _, p in params])):
+            p.grad.copy_(g.view_as(p))
+    return loss.detach(), {name: p.grad for name, p in params}
+
+
+def make_dlrm_train_step(model, learning_rate=0.01, group=None):
+    """``step(dense, sparse_ids, labels, mask) -> loss``: one SGD step on
+    ``model``'s parameters, in place; ``mask`` is the loader's
+    ``__pad_mask__`` (all True when unpadded), so padded rows add nothing.
+    Under ``group`` the gradients are the ranks' mean."""
+
+    def step(dense, sparse_ids, labels, mask):
+        loss, grads = dlrm_gradients(model, dense, sparse_ids, labels, mask, group)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p -= learning_rate * grads[name]
+        return loss
+
+    return step
+
+
+def collate_dlrm(batch):
+    """A loader batch of the tabular store → ``(dense [B, 13], sparse_ids
+    [B, 26], labels [B])`` on the batch's device."""
+    dense = torch.stack([batch[f"dense_{i}"] for i in range(NUM_DENSE)], dim=1)
+    sparse = torch.stack([batch[f"cat_{i}"] for i in range(NUM_SPARSE)], dim=1)
+    return dense, sparse, batch["label"]
+
+
+#: Steps left out of the warm clock (the reader's start, the first pinned
+#: batches and the first steps' allocations).
+WARM_FROM_STEP = 10
+
+
+def train_dlrm(dataset_url, batch_size=256, epochs=2, interrupt_after=None,
+               resume_state=None, model=None, device="cuda", filters=None, group=None,
+               checkpoint_dir=None, collect_field=None):
+    """The tabular path end to end on ``device`` (``"cuda"`` unless the
+    caller asks for ``"cpu"``), as ``examples/criteo_dlrm/train_dlrm.py``:
+    ``make_batch_reader(num_epochs=epochs, shuffle_row_groups=True,
+    shard_seed=7, filters=..., resume_state=..., workers_count=1)`` →
+    ``make_torch_dataloader(batch_size, last_batch="drop")`` → DLRM SGD steps
+    (``init_dlrm`` from seed 0 unless ``model`` is given; SGD at
+    ``LEARNING_RATE``).
+
+    ``interrupt_after``: stop after that many steps and take the loader's
+    ``state_dict()`` (the preemption point); with ``checkpoint_dir`` the
+    model's ``state_dict`` and that input state are saved there
+    (``save_training_state``). ``group``: each rank reads shard ``rank`` of
+    ``world``, the loader derives the equal step count, and the gradients
+    are averaged over the group. ``collect_field``: a column whose values
+    of every trained batch are returned (e.g. ``"sample_index"``).
+
+    Returns a dict: ``losses``, ``steps``, ``input_state`` (None unless
+    interrupted), ``steps_per_s_warm`` and ``rows_per_s_warm`` (from a sync
+    at step ``WARM_FROM_STEP`` to a sync at the end; None for shorter
+    runs), the loader's ``diagnostics`` (``max_batches`` included), the
+    reader's (``reader_diagnostics``), ``batch_devices``,
+    ``peak_memory_bytes`` (CUDA only), ``checkpoint_save_ms``,
+    ``collected`` and the ``model``."""
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+    from petastorm_tpu_torch.torch_utils.sharding import group_rank_size
+
+    device = resolve_device(device)
+    if model is None:
+        model = init_dlrm(device=device)
+    step = make_dlrm_train_step(model, LEARNING_RATE, group)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    rank, world = group_rank_size(group)
+    shard = dict(cur_shard=rank, shard_count=world) if group is not None else {}
+    # One decode worker delivers the row groups in the seeded shuffle's
+    # order, so a run is repeatable; several publish them as they finish,
+    # and the loss curve then differs from run to run.
+    reader = make_batch_reader(dataset_url, num_epochs=epochs, shuffle_row_groups=True,
+                               shard_seed=7, filters=filters, resume_state=resume_state,
+                               workers_count=1, **shard)
+    loader = make_torch_dataloader(reader, batch_size, last_batch="drop", device=device,
+                                   group=group)
+    losses, batch_devices, collected = [], set(), []
+    state, save_ms, t0, warm_rows = None, None, None, 0
+    with loader:
+        for batch in loader:
+            if len(losses) == WARM_FROM_STEP:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+            batch_devices.update(str(t.device) for t in batch.values())
+            dense, sparse, labels = collate_dlrm(batch)
+            mask = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
+            losses.append(step(dense, sparse, labels, mask))
+            if collect_field is not None:
+                collected.append(batch[collect_field])
+            if t0 is not None:
+                warm_rows += labels.shape[0]
+            if interrupt_after and len(losses) >= interrupt_after:
+                state = loader.state_dict()
+                break
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - t0 if t0 is not None else None
+        diagnostics = loader.diagnostics
+        reader_diagnostics = reader.diagnostics
+    if state is not None and checkpoint_dir is not None:
+        from petastorm_tpu_torch.torch_utils.checkpoint import save_training_state
+
+        t_save = time.perf_counter()
+        save_training_state(checkpoint_dir, {"model": model.state_dict()},
+                            input_state=state, group=group)
+        save_ms = 1e3 * (time.perf_counter() - t_save)
+    warm_steps = len(losses) - WARM_FROM_STEP
+    return {
+        "losses": [float(x) for x in losses],
+        "steps": len(losses),
+        "input_state": state,
+        "steps_per_s_warm": warm_steps / elapsed if elapsed else None,
+        "rows_per_s_warm": warm_rows / elapsed if elapsed else None,
+        "diagnostics": diagnostics,
+        "reader_diagnostics": reader_diagnostics,
+        "batch_devices": sorted(batch_devices),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        "checkpoint_save_ms": save_ms,
+        "collected": (torch.cat(collected).cpu().numpy() if collected else None),
+        "model": model,
+    }

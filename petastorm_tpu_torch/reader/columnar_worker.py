@@ -3,13 +3,16 @@ arrays (the port's own copy of ``petastorm_tpu/reader/columnar_worker.py``,
 without predicates, caches and transforms).
 
 Codec columns decode vectorized (``codec.decode_column``) into dense column
-arrays, so a row group becomes one dict with no per-row Python objects.
+arrays, so a row group becomes one dict with no per-row Python objects,
+published as an ``(item_key, columns)`` pair; the consumer side records the
+delivery, in rows, in the reader's tracker as it hands the batch out.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 
+from petastorm_tpu_torch.reader_impl.delivery_tracker import item_key
 from petastorm_tpu_torch.utils import column_cells
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
@@ -32,7 +35,7 @@ class ColumnarDecodeWorker(WorkerBase):
             cells = column_cells(table.column(name))
             batch[name] = (field.codec.decode_column(field, cells)
                            if field.codec is not None else cells)
-        self.publish_func(batch)
+        self.publish_func((item_key(piece_index, 0), batch))
 
 
 class ColumnarResultsQueueReader:
@@ -40,5 +43,11 @@ class ColumnarResultsQueueReader:
 
     batched_output = True
 
+    def __init__(self):
+        self.delivery_tracker = None
+
     def read_next(self, pool, schema, ngram=None):
-        return schema.make_namedtuple(**pool.get_results())
+        key, batch = pool.get_results()
+        if self.delivery_tracker is not None:
+            self.delivery_tracker.record(key, len(next(iter(batch.values()), ())))
+        return schema.make_namedtuple(**batch)

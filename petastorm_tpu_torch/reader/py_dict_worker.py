@@ -1,13 +1,15 @@
 """Row decode worker: one row group → a list of decoded row dicts, or of
 NGram windows (the port's own copy of
-``petastorm_tpu/reader/py_dict_worker.py``, without predicates, caches,
-delivery tracking and row-drop partitions).
+``petastorm_tpu/reader/py_dict_worker.py``, without predicates, caches and
+row-drop partitions).
 
 Per ventilated row group the worker reads the columns of the read schema,
 decodes them a column at a time (``decode_table``: the codecs'
 ``decode_column``, one imdecode / np.load pass per column, as the columnar
 worker does), splits the columns into row dicts, applies the TransformSpec,
-and publishes the rows; the consumer side turns them into namedtuples. With
+and publishes the rows as an ``(item_key, rows)`` pair; the consumer side
+turns them into namedtuples and records the delivery in the reader's tracker
+when the last of them is handed out. With
 an NGram the rows become ``{offset: row dict}`` windows first
 (``NGram.form_ngram``) and the TransformSpec runs on each timestep's row.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from collections import deque
 
+from petastorm_tpu_torch.reader_impl.delivery_tracker import item_key
 from petastorm_tpu_torch.schema.transform import transform_schema
 from petastorm_tpu_torch.utils import decode_table
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
@@ -43,7 +46,7 @@ class PyDictReaderWorker(WorkerBase):
         elif self._transform_spec:
             rows = [self._apply_transform(row) for row in rows]
         if rows:
-            self.publish_func(rows)
+            self.publish_func((item_key(piece_index, 0), rows))
 
     def _apply_transform(self, row):
         if self._transform_spec.func:
@@ -53,16 +56,27 @@ class PyDictReaderWorker(WorkerBase):
 
 class PyDictResultsQueueReader:
     """Consumer side: published row lists → one namedtuple row at a time
-    (or one ``{offset: namedtuple}`` window, with an NGram)."""
+    (or one ``{offset: namedtuple}`` window, with an NGram). A payload's
+    delivery is recorded in ``delivery_tracker`` (set by the reader), in
+    rows (windows, with an NGram), when its last row is handed out: rows
+    still buffered at checkpoint time are re-read on resume."""
 
     batched_output = False
 
     def __init__(self):
         self._buffer = deque()
+        self._pending_item = None  # (item_key, num_rows) awaiting its last row
+        self.delivery_tracker = None
 
     def read_next(self, pool, schema, ngram=None):
         while not self._buffer:
-            rows = pool.get_results()
+            key, rows = pool.get_results()
+            self._pending_item = (key, len(rows))
             self._buffer.extend(schema.make_namedtuples(rows) if ngram is None else
                                 (ngram.make_namedtuple(schema, row) for row in rows))
-        return self._buffer.popleft()
+        row = self._buffer.popleft()
+        if not self._buffer and self._pending_item is not None:
+            if self.delivery_tracker is not None:
+                self.delivery_tracker.record(*self._pending_item)
+            self._pending_item = None
+        return row

@@ -3,8 +3,9 @@
 The port's own copy of ``petastorm_tpu/schema/unischema.py``, cut to what the
 port uses: fields, the namedtuple row type the readers yield, schema views
 (``schema_fields`` of the readers: fields and full-match name regexes), the
-storage arrow schema, and row encoding for the ETL writer. (Arrow-schema
-inference and the Spark shims are not ported yet.)
+storage arrow schema, row encoding for the ETL writer, and inference of a
+codec-less schema from an Arrow schema (``make_batch_reader``'s plain
+Parquet stores). (The Spark shims are not ported yet.)
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import re
 import warnings
 from collections import OrderedDict, namedtuple
+from decimal import Decimal
 
 import numpy as np
 import pyarrow as pa
@@ -104,6 +106,28 @@ class Unischema:
             pa.field(f.name, _storage_arrow_type(f), nullable=f.nullable)
             for f in self._fields.values()])
 
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema_or_dataset, omit_unsupported_fields=False):
+        """A codec-less Unischema inferred from an arrow schema (or a
+        ``pyarrow.dataset.Dataset``): list columns become ``(None, ...)``
+        shapes, strings ``str``, binaries ``bytes``, decimals ``Decimal``.
+        A type with no numpy counterpart raises, or is left out with
+        ``omit_unsupported_fields``."""
+        arrow_schema = arrow_schema_or_dataset
+        if not isinstance(arrow_schema, pa.Schema):
+            arrow_schema = arrow_schema_or_dataset.schema
+        fields = []
+        for arrow_field in arrow_schema:
+            try:
+                numpy_dtype, shape = _arrow_to_numpy_dtype(arrow_field.type)
+            except ValueError:
+                if omit_unsupported_fields:
+                    continue
+                raise
+            fields.append(UnischemaField(arrow_field.name, numpy_dtype, shape, None,
+                                         arrow_field.nullable))
+        return cls("inferred_schema", fields)
+
 
 def match_unischema_fields(schema, field_regexes):
     """The fields of ``schema`` whose names fully match any of
@@ -130,6 +154,29 @@ def _storage_arrow_type(field):
     if isinstance(codec, ScalarCodec):
         return codec.arrow_dtype_for_field(field)
     return codec.arrow_dtype()
+
+
+def _arrow_to_numpy_dtype(arrow_type):
+    """arrow type -> (numpy dtype or str / bytes / Decimal, shape tuple)."""
+    if pa.types.is_list(arrow_type) or pa.types.is_large_list(arrow_type):
+        inner_dtype, inner_shape = _arrow_to_numpy_dtype(arrow_type.value_type)
+        return inner_dtype, (None,) + inner_shape
+    if pa.types.is_decimal(arrow_type):
+        return Decimal, ()
+    if pa.types.is_string(arrow_type) or pa.types.is_large_string(arrow_type):
+        return str, ()
+    if pa.types.is_binary(arrow_type) or pa.types.is_large_binary(arrow_type):
+        return bytes, ()
+    if pa.types.is_timestamp(arrow_type):
+        return np.dtype(f"datetime64[{arrow_type.unit}]"), ()
+    if pa.types.is_date32(arrow_type):
+        return np.dtype("datetime64[D]"), ()
+    if pa.types.is_date64(arrow_type):
+        return np.dtype("datetime64[ms]"), ()
+    try:
+        return np.dtype(arrow_type.to_pandas_dtype()), ()
+    except (NotImplementedError, TypeError) as exc:
+        raise ValueError(f"Unsupported arrow type: {arrow_type}") from exc
 
 
 def encode_row(unischema, row_dict):

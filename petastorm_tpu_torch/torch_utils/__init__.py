@@ -5,6 +5,10 @@ from petastorm_tpu_torch.torch_utils.batcher import (  # noqa: F401
     batch_iterator,
     collate_ngram_rows,
 )
+from petastorm_tpu_torch.torch_utils.checkpoint import (  # noqa: F401
+    restore_training_state,
+    save_training_state,
+)
 from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage  # noqa: F401
 from petastorm_tpu_torch.torch_utils.loader import (  # noqa: F401
     TorchDataLoader,

@@ -24,9 +24,16 @@ Staging (the counterpart of ``jax.device_put``) for a CUDA device:
   buffer while the copy or the step still reads it.
 
 ``diagnostics`` reports the keys of the JAX loader's unsharded path. Threads
-are joined by :meth:`stop` and on ``__exit__``. (``state_dict``, the
-decoded-batch cache, global sharding, autotuning and telemetry are not
-ported yet.)
+are joined by :meth:`stop` and on ``__exit__``.
+
+:meth:`TorchDataLoader.state_dict` checkpoints the input at what the loader
+has *yielded*: the reader's state rolled back past the rows still buffered
+in the batcher, the host queue and the device prefetch, so they are re-read
+on resume. Under a ``torch.distributed`` group, :func:`make_torch_dataloader`
+derives the equal-step ``max_batches`` from the reader's shard metadata, as
+the JAX loader does under a sharding. (The decoded-batch cache, global
+arrays, autotuning and telemetry are not ported yet; in the data-parallel
+layout each rank keeps its own local batch on its own card.)
 """
 
 from __future__ import annotations
@@ -49,9 +56,9 @@ _SENTINEL = object()
 def make_torch_dataloader(reader, batch_size, last_batch="drop", max_batches=None,
                           device="cuda", host_prefetch=4, device_prefetch=2,
                           non_tensor_policy="host", shuffle_buffer_size=0,
-                          shuffle_seed=None, device_stage=None):
+                          shuffle_seed=None, device_stage=None, group=None):
     """A :class:`TorchDataLoader` over ``reader``'s rows (``make_reader``)
-    or column batches (``make_columnar_reader``).
+    or column batches (``make_columnar_reader``, ``make_batch_reader``).
 
     :param batch_size: rows per batch.
     :param last_batch: ``"drop"`` | ``"pad"`` | ``"keep"``; ``"pad"`` adds a
@@ -65,15 +72,38 @@ def make_torch_dataloader(reader, batch_size, last_batch="drop", max_batches=Non
     :param shuffle_buffer_size: > 0 shuffles rows through a
         ``RandomShufflingBuffer`` seeded by ``shuffle_seed`` (row readers).
     :param device_stage: a :class:`~.device_stage.DeviceStage` or None.
+    :param group: a ``torch.distributed`` group whose ranks train in
+        lockstep on their shards; with ``max_batches=None`` every rank stops
+        after the smallest shard's batch count
+        (:func:`~.sharding.derive_equal_step_max_batches`, no collective).
     """
+    if group is not None and max_batches is None:
+        from petastorm_tpu_torch.torch_utils.sharding import derive_equal_step_max_batches
+
+        max_batches = derive_equal_step_max_batches(reader, batch_size, last_batch)
     return TorchDataLoader(
-        reader,
-        lambda: batch_iterator(reader, batch_size, last_batch=last_batch,
-                               shuffle_buffer_size=shuffle_buffer_size,
-                               shuffle_seed=shuffle_seed),
+        reader, ReaderBatchSource(reader, batch_size, last_batch, shuffle_buffer_size,
+                                  shuffle_seed),
         max_batches=max_batches, device=device, host_prefetch=host_prefetch,
         device_prefetch=device_prefetch, non_tensor_policy=non_tensor_policy,
         device_stage=device_stage)
+
+
+class ReaderBatchSource:
+    """A reader's rows as fixed-size batches (:func:`batch_iterator`), the
+    ``batch_source`` of :func:`make_torch_dataloader`. The rows it batches
+    are those the reader delivered, in order, so the loader can checkpoint
+    by rolling the reader's state back to the rows it yielded."""
+
+    def __init__(self, reader, batch_size, last_batch, shuffle_buffer_size, shuffle_seed):
+        self.reader = reader
+        self.shuffle_buffer_size = shuffle_buffer_size
+        self._kwargs = dict(batch_size=batch_size, last_batch=last_batch,
+                            shuffle_buffer_size=shuffle_buffer_size,
+                            shuffle_seed=shuffle_seed)
+
+    def __call__(self):
+        return batch_iterator(self.reader, **self._kwargs)
 
 
 class TorchDataLoader:
@@ -108,6 +138,7 @@ class TorchDataLoader:
         self._producer = None
         self._producer_error = None
         self._stop = threading.Event()
+        self._rows_yielded = 0  # real rows handed out, over all iterations
         self._reset_diagnostics()
 
     # -- diagnostics -------------------------------------------------------
@@ -162,12 +193,16 @@ class TorchDataLoader:
     # -- producer ----------------------------------------------------------
 
     def _host_tensor(self, arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        """A host column as a tensor: copied into pinned memory for a CUDA
+        device; for the CPU, shared, or copied when it is read-only (Arrow
+        buffers of the batch reader), which torch cannot share."""
+        arr = np.ascontiguousarray(arr)
         if self._device.type == "cuda":
-            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            pinned.copy_(t)
-            t = pinned
-        return t
+            dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+            pinned.numpy()[...] = arr
+            return pinned
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
     def _to_host(self, batch):
         """A collated batch → ``(columns, raw image fields)``: numeric
@@ -313,8 +348,13 @@ class TorchDataLoader:
                 if not inflight:
                     return
                 batch = self._hand_over(*inflight.pop(0))
+                rows = self._batch_rows(batch)
                 self._stats["batches"] += 1
-                self._stats["rows"] += self._batch_rows(batch)
+                self._stats["rows"] += rows
+                mask = batch.get(PAD_MASK_KEY)
+                # Resume accounting counts real rows only (a padded final
+                # batch's mask is read once, at the end of a stream).
+                self._rows_yielded += rows if mask is None else int(mask.sum())
                 t0 = time.perf_counter()
                 yield batch
                 batch = None
@@ -322,6 +362,40 @@ class TorchDataLoader:
         finally:
             self._iter_end = time.perf_counter()
             self.stop()
+
+    # -- checkpoint ----------------------------------------------------------
+
+    def state_dict(self):
+        """The input pipeline's checkpoint at what this loader has yielded:
+        the reader's ``state_dict(yielded_rows=...)``, so rows pulled into
+        the batcher, the host queue or the device prefetch but not yet
+        yielded are re-read on resume (at-least-once). Call it between
+        steps from the training thread; pass the result as
+        ``resume_state=`` to the reader factory feeding a fresh loader.
+
+        Refused with a custom ``batch_source`` (the packed loader: repacked
+        batches cannot be attributed to deliveries) and with a shuffle
+        buffer (it reorders rows, so buffered rows are not the newest
+        deliveries).
+        """
+        source = self._batch_source
+        if not isinstance(source, ReaderBatchSource):
+            raise ValueError(
+                "state_dict is not supported with a custom batch_source "
+                "(e.g. the packed loader): yielded-row accounting cannot "
+                "attribute repacked batches to reader deliveries. Checkpoint "
+                "at an epoch boundary with the reader's state_dict()")
+        if source.shuffle_buffer_size:
+            raise ValueError(
+                "state_dict is not supported with shuffle_buffer_size > 0: "
+                "the shuffle buffer reorders rows, so buffered rows cannot "
+                "be attributed to recent deliveries. Shuffle with "
+                "shuffle_row_groups/shard_seed instead, or checkpoint at "
+                "an epoch boundary with the reader's state_dict()")
+        if not hasattr(self.reader, "state_dict"):
+            raise TypeError("state_dict requires a petastorm_tpu_torch Reader "
+                            f"(got {type(self.reader).__name__})")
+        return self.reader.state_dict(yielded_rows=self._rows_yielded)
 
     # -- lifecycle ---------------------------------------------------------
 

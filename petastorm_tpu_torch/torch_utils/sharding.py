@@ -1,7 +1,19 @@
-"""Rank defaults and the collectives of sequence-parallel attention, over
-``torch.distributed`` (counterpart by name of
-``petastorm_tpu/jax_utils/sharding.py``; the collectives are those the JAX
-package's ``shard_map`` bodies call: ``lax.ppermute`` and ``lax.all_to_all``).
+"""Rank defaults, equal-step coordination of data-parallel ranks, and the
+collectives of sequence-parallel attention, over ``torch.distributed``
+(counterpart by name of ``petastorm_tpu/jax_utils/sharding.py``; the
+collectives are those the JAX package's ``shard_map`` bodies call:
+``lax.ppermute`` and ``lax.all_to_all``).
+
+Equal steps: ranks that read disjoint row-group shards must take the same
+number of steps, or a gradient all-reduce waits forever for a rank that ran
+out of data. Round-robin shards hold unequal row counts, so the safe count
+is the smallest shard's batch count, which every rank computes from Parquet
+metadata alone (:func:`global_step_count`,
+:func:`derive_equal_step_max_batches`); where the count depends on the data,
+ranks observe theirs (:func:`count_deliverable_batches`) and agree on the
+minimum with one collective (:func:`agree_max_batches`). The JAX package's
+``local_data_to_global_array`` has no counterpart: in the data-parallel
+layout each rank keeps its local batch on its own card.
 
 The sequence-parallel attentions (``models/sequence_model.py``) keep the JAX
 package's global view: every rank of a group holds the whole ``[B, T, ...]``
@@ -30,6 +42,8 @@ forward's data dependencies fix (see :func:`ring_permute`).
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.distributed as dist
 
@@ -48,6 +62,116 @@ def default_shard_options(cur_shard=None, shard_count=None):
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         return dist.get_rank(), dist.get_world_size()
     return None, None
+
+
+def _batches_for_rows(rows, batch_size, last_batch):
+    """Batches ``batch_iterator`` emits for a ``rows``-row stream."""
+    if rows <= 0:
+        return 0
+    if last_batch == "drop":
+        return rows // batch_size
+    return -(-rows // batch_size)  # "pad" and "keep" emit the partial batch
+
+
+def global_step_count(dataset_url, batch_size, shard_count, last_batch="drop",
+                      num_epochs=1, shard_seed=None, filters=None):
+    """The smallest shard's batch count over ``num_epochs`` epochs, from
+    Parquet metadata alone: the same enumeration (``filters`` included) and
+    shard arithmetic the reader plans with, then the batcher's
+    ``last_batch`` policy. 0 when a shard is empty."""
+    if num_epochs is None:
+        raise ValueError(
+            "global_step_count requires a finite num_epochs (an infinite "
+            "stream has no step count)")
+    if shard_count is None or shard_count < 1:
+        raise ValueError("shard_count must be a positive integer")
+    from petastorm_tpu_torch.etl.metadata import piece_row_counts
+    from petastorm_tpu_torch.fs_utils import FilesystemResolver
+    from petastorm_tpu_torch.reader.reader import (
+        enumerate_row_group_pieces,
+        split_pieces_for_shards,
+    )
+
+    resolver = FilesystemResolver(dataset_url)
+    fs = resolver.filesystem()
+    pieces = enumerate_row_group_pieces(fs, resolver.get_dataset_path(), filters)
+    counts = piece_row_counts(fs, pieces)
+    return min(
+        _batches_for_rows(sum(counts[(p.path, p.row_group)] for p in shard) * num_epochs,
+                          batch_size, last_batch)
+        for shard in split_pieces_for_shards(pieces, shard_count, shard_seed))
+
+
+def _decline(reason):
+    """Warn that no equal step count can be derived; returns None."""
+    warnings.warn(f"Cannot derive an equal step count for {reason}. Pass "
+                  "max_batches explicitly (observe it with "
+                  "count_deliverable_batches, agree it with agree_max_batches) "
+                  "or the ranks' steps may deadlock", UserWarning, stacklevel=3)
+    return None
+
+
+def derive_equal_step_max_batches(reader, batch_size, last_batch="drop"):
+    """The smallest shard's batch count for ``reader``'s plan, computed on
+    each rank with no collective (every rank enumerates the same store with
+    the same ``shard_seed``), or None with a warning where metadata cannot
+    know it: an infinite stream, NGram windows, a resumed reader, a
+    row-level predicate or a ``TransformSpec`` function."""
+    # The cheap refusals come first: shard_row_counts may read footers.
+    num_epochs = getattr(reader, "num_epochs", 1)
+    if num_epochs is None:
+        return _decline("an infinite stream (num_epochs=None)")
+    if getattr(reader, "ngram", None) is not None:
+        return _decline("an NGram reader: windows per row group depend on the data")
+    if getattr(reader, "_resume_state", None) is not None:
+        return _decline("a resumed reader: the remaining rows depend on the checkpoint")
+    if getattr(reader, "_predicate", None) is not None:
+        return _decline("a row-level predicate: shard row counts depend on the data")
+    if getattr(getattr(reader, "_transform_spec", None), "func", None) is not None:
+        return _decline("a TransformSpec function: it can change shard row counts")
+    counts = getattr(reader, "shard_row_counts", None)
+    if counts is None:
+        return None
+    return min(_batches_for_rows(c * num_epochs, batch_size, last_batch) for c in counts)
+
+
+def agree_max_batches(local_count, reduce="min", group=None):
+    """One count for every rank of ``group`` (the default group when None)
+    from each rank's observed ``local_count``: the minimum
+    (``all_reduce(MIN)``, the only count every rank can deliver) or, with
+    ``reduce="host0"``, the group's first rank's (a broadcast). With no
+    group and no initialized default group, ``local_count``."""
+    if reduce not in ("min", "host0"):
+        raise ValueError(f"reduce {reduce!r} is not 'min' or 'host0'")
+    local_count = int(local_count)
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return local_count
+        group = dist.group.WORLD
+    if dist.get_world_size(group) == 1:
+        return local_count
+    device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    count = torch.tensor([local_count], dtype=torch.int64, device=device)
+    if reduce == "min":
+        dist.all_reduce(count, op=dist.ReduceOp.MIN, group=group)
+    else:
+        dist.broadcast(count, src=dist.get_global_rank(group, 0), group=group)
+    return int(count.item())
+
+
+def count_deliverable_batches(reader, batch_size, last_batch="drop"):
+    """The batches ``reader`` delivers, counted by draining it once (then
+    stopped): the observation half of :func:`agree_max_batches`, on a
+    reader built apart from the training one with the same arguments."""
+    from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+
+    if getattr(reader, "num_epochs", 1) is None:
+        raise ValueError(
+            "count_deliverable_batches would never terminate on an infinite "
+            "reader (num_epochs=None): construct the counting reader with "
+            "num_epochs=1 and scale the agreed count by your epoch budget")
+    with reader:
+        return sum(1 for _ in batch_iterator(reader, batch_size, last_batch=last_batch))
 
 
 def reader_options(group=None):

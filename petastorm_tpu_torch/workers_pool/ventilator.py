@@ -2,8 +2,9 @@
 (counterpart of ``petastorm_tpu/workers_pool/ventilator.py``).
 
 The item order per epoch is ``random.Random(random_seed).shuffle`` of the
-item list, exactly as in the JAX package, so one seed gives both packages
-the same row-group order.
+epoch's item list, exactly as in the JAX package, so one seed gives both
+packages the same row-group order, resumed readers (``per_item_iterations``)
+included.
 """
 
 from __future__ import annotations
@@ -15,15 +16,29 @@ import threading
 class ConcurrentVentilator:
     """Ventilates ``items_to_ventilate`` (kwargs dicts) for ``iterations``
     epochs (``None`` = forever) on a background thread, with at most
-    ``max_ventilation_queue_size`` items in flight."""
+    ``max_ventilation_queue_size`` items in flight.
+
+    ``per_item_iterations`` (resume): a list parallel to
+    ``items_to_ventilate`` of how many more epochs each item is ventilated
+    for; epoch ``e`` (0-based) ventilates the items with
+    ``per_item_iterations[i] > e``. Requires finite ``iterations`` equal to
+    ``max(per_item_iterations)``."""
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  randomize_item_order=False, random_seed=None,
-                 max_ventilation_queue_size=None):
+                 max_ventilation_queue_size=None, per_item_iterations=None):
         if iterations is not None and iterations <= 0:
             raise ValueError(f"iterations must be positive or None, got {iterations}")
         self._ventilate_fn = ventilate_fn
         self._items_to_ventilate = list(items_to_ventilate)
+        if per_item_iterations is not None:
+            if iterations is None:
+                raise ValueError("per_item_iterations requires finite iterations")
+            if len(per_item_iterations) != len(self._items_to_ventilate):
+                raise ValueError("per_item_iterations must parallel items_to_ventilate")
+            if max(per_item_iterations, default=0) != iterations:
+                raise ValueError("iterations must equal max(per_item_iterations)")
+        self._per_item_iterations = per_item_iterations
         self._iterations = iterations
         self._randomize_item_order = randomize_item_order
         self._random = random.Random(random_seed)
@@ -50,8 +65,14 @@ class ConcurrentVentilator:
     def _run(self):
         try:
             iterations_left = self._iterations
+            epoch = 0
             while iterations_left is None or iterations_left > 0:
-                items = list(self._items_to_ventilate)
+                if self._per_item_iterations is None:
+                    items = list(self._items_to_ventilate)
+                else:
+                    items = [item for item, n in zip(self._items_to_ventilate,
+                                                     self._per_item_iterations)
+                             if n > epoch]
                 if self._randomize_item_order:
                     self._random.shuffle(items)
                 for item in items:
@@ -63,6 +84,7 @@ class ConcurrentVentilator:
                             return
                         self._in_flight += 1
                     self._ventilate_fn(**item)
+                epoch += 1
                 if iterations_left is not None:
                     iterations_left -= 1
         except Exception as exc:  # noqa: BLE001 - surfaced through self.error

@@ -1,0 +1,226 @@
+"""The port's plain-Parquet batch reader against the JAX package's, on the
+same stores: the Criteo-shaped store both packages write
+(``make_tabular_dataset``, which must be byte-equal), read through
+``make_batch_reader`` in both.
+
+- dummy pool, seeded shuffle, with and without ``shard_count`` /
+  ``shard_seed``: the same column batches in the same order, bit for bit
+  (values and dtypes);
+- thread pool: the same multiset of ``sample_index``;
+- ``filters`` (DNF lists and ``pyarrow.dataset`` expressions) plan the same
+  pieces in both packages, and DNF and expression forms agree;
+- ``Unischema.from_arrow_schema`` infers the same fields;
+- arguments the port does not take raise NotImplementedError by name.
+
+Tolerance: none; everything here is compared exactly.
+"""
+
+import decimal
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.parquet as pq
+import pytest
+
+ROWS, DAYS = 480, 8  # 8 row groups of 60 rows
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    """The tabular store, written by the port; its URL."""
+    from petastorm_tpu_torch.models.tabular_dlrm import make_tabular_dataset
+
+    url = f"file://{tmp_path_factory.mktemp('tabular')}/criteo"
+    assert make_tabular_dataset(url, rows=ROWS, days=DAYS) == ROWS
+    return url
+
+
+def _batches(reader):
+    with reader:
+        return [b._asdict() for b in reader]
+
+
+def _readers(url, **kwargs):
+    from petastorm_tpu import make_batch_reader as jax_make_batch_reader
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+
+    return (_batches(make_batch_reader(url, **kwargs)),
+            _batches(jax_make_batch_reader(url, **kwargs)))
+
+
+def test_make_tabular_dataset_is_byte_equal_to_jax(tmp_path):
+    from petastorm_tpu.benchmark.scenarios import make_tabular_dataset as jax_make
+    from petastorm_tpu_torch.models.tabular_dlrm import make_tabular_dataset
+
+    args = dict(rows=1000, dense_cols=3, sparse_cols=4, days=3)
+    assert make_tabular_dataset(f"file://{tmp_path}/port", **args) == \
+        jax_make(f"file://{tmp_path}/jax", **args) == 999
+    port = (tmp_path / "port" / "part-00000.parquet").read_bytes()
+    assert port == (tmp_path / "jax" / "part-00000.parquet").read_bytes()
+    meta = pq.ParquetFile(tmp_path / "port" / "part-00000.parquet").metadata
+    assert meta.num_row_groups == 3 and meta.num_columns == 3 + 3 + 4
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(shuffle_row_groups=False),
+    dict(shuffle_row_groups=True, shard_seed=3),
+    dict(shuffle_row_groups=True, shard_seed=5, cur_shard=1, shard_count=3),
+    dict(shuffle_row_groups=False, cur_shard=0, shard_count=2),
+    dict(shuffle_row_groups=True, shard_seed=9, schema_fields=["dense_.*", "label"]),
+], ids=["canonical", "shuffled", "sharded_seeded", "sharded", "schema_fields"])
+def test_same_batches_in_the_same_order_as_jax(store, kwargs):
+    port, jax = _readers(store, reader_pool_type="dummy", num_epochs=2, **kwargs)
+    assert len(port) == len(jax) > 0
+    for got, want in zip(port, jax):
+        assert list(got) == list(want)
+        for name in want:
+            assert got[name].dtype == want[name].dtype, name
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_thread_pool_gives_the_same_rows_as_jax(store):
+    port, jax = _readers(store, reader_pool_type="thread", workers_count=3, num_epochs=2,
+                         shuffle_row_groups=True, shard_seed=1)
+    rows = [np.sort(np.concatenate([b["sample_index"] for b in batches]))
+            for batches in (port, jax)]
+    np.testing.assert_array_equal(rows[0], rows[1])
+    np.testing.assert_array_equal(rows[0], np.repeat(np.arange(ROWS), 2))
+
+
+FILTERS = {
+    "eq": [("day", "=", 3)],
+    "in": [("day", "in", [1, 5])],
+    "range": [("day", ">", 2), ("day", "<=", 4)],
+    "or": [[("day", "<", 2)], [("day", ">=", 6)]],
+    "expression": pc.field("day") == 3,
+}
+
+
+@pytest.mark.parametrize("name", sorted(FILTERS))
+def test_filters_plan_the_same_pieces_as_jax(store, name):
+    import pyarrow.fs as pafs
+
+    from petastorm_tpu.reader.reader import enumerate_row_group_pieces as jax_enumerate
+    from petastorm_tpu_torch.reader.reader import enumerate_row_group_pieces
+
+    fs, path = pafs.LocalFileSystem(), store[len("file://"):]
+    got = enumerate_row_group_pieces(fs, path, FILTERS[name])
+    want = jax_enumerate(fs, path, FILTERS[name])
+    assert [(p.path, p.row_group, p.num_rows) for p in got] == \
+        [(p.path, p.row_group, p.num_rows) for p in want]
+    assert 0 < len(got) < DAYS
+
+
+def test_dnf_and_expression_filters_agree(store):
+    import pyarrow.fs as pafs
+
+    from petastorm_tpu_torch.reader.reader import enumerate_row_group_pieces
+
+    fs, path = pafs.LocalFileSystem(), store[len("file://"):]
+    pairs = [([("day", "=", 3)], pc.field("day") == 3),
+             ([[("day", "<", 2)], [("day", ">=", 6)]],
+              (pc.field("day") < 2) | (pc.field("day") >= 6))]
+    for dnf, expression in pairs:
+        assert enumerate_row_group_pieces(fs, path, dnf) == \
+            enumerate_row_group_pieces(fs, path, expression)
+
+
+def test_filtered_scan_reads_one_row_group(store):
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+
+    port, jax = _readers(store, reader_pool_type="dummy", filters=[("day", "=", 3)])
+    assert len(port) == len(jax) == 1
+    np.testing.assert_array_equal(port[0]["sample_index"], jax[0]["sample_index"])
+    assert set(port[0]["day"].tolist()) == {3}
+    with make_batch_reader(store, reader_pool_type="dummy", filters=[("day", "=", 3)]) as r:
+        assert r.diagnostics == {"rowgroups_total": 1, "items_per_epoch": 1,
+                                 "workers_count": 1}
+
+
+def test_list_columns_stack_like_jax(tmp_path):
+    """Codec-less list columns: fixed-length rows stack into [N, k]."""
+    path = tmp_path / "lists"
+    path.mkdir()
+    rng = np.random.RandomState(2)
+    table = pa.table({"id": np.arange(20, dtype=np.int64),
+                      "vec": pa.array([rng.rand(3).astype(np.float32).tolist()
+                                       for _ in range(20)], pa.list_(pa.float32()))})
+    pq.write_table(table, path / "part-0.parquet", row_group_size=10)
+    port, jax = _readers(f"file://{path}", reader_pool_type="dummy", shuffle_row_groups=False)
+    assert len(port) == len(jax) == 2
+    for got, want in zip(port, jax):
+        assert got["vec"].shape == want["vec"].shape == (10, 3)
+        np.testing.assert_array_equal(got["vec"], want["vec"])
+
+
+ARROW_FIELDS = [
+    pa.field("i8", pa.int8()), pa.field("u32", pa.uint32(), nullable=False),
+    pa.field("f16", pa.float16()), pa.field("f64", pa.float64()),
+    pa.field("flag", pa.bool_()), pa.field("s", pa.string()),
+    pa.field("ls", pa.large_string()), pa.field("b", pa.binary()),
+    pa.field("dec", pa.decimal128(10, 2)), pa.field("ts", pa.timestamp("us")),
+    pa.field("d32", pa.date32()), pa.field("d64", pa.date64()),
+    pa.field("vec", pa.list_(pa.float32())),
+    pa.field("mat", pa.list_(pa.list_(pa.int32()))),
+    pa.field("nested", pa.struct([("a", pa.int32())])),
+]
+
+
+def _field_tuples(schema):
+    return [(f.name, f.numpy_dtype, f.shape, f.codec, f.nullable)
+            for f in schema.fields.values()]
+
+
+def test_from_arrow_schema_gives_the_same_fields_as_jax():
+    from petastorm_tpu.schema.unischema import Unischema as JaxUnischema
+    from petastorm_tpu_torch.schema.unischema import Unischema
+
+    schema = pa.schema(ARROW_FIELDS)
+    got = Unischema.from_arrow_schema(schema, omit_unsupported_fields=True)
+    want = JaxUnischema.from_arrow_schema(schema, omit_unsupported_fields=True)
+    assert _field_tuples(got) == _field_tuples(want)
+    assert "nested" not in got.fields and len(got.fields) == len(ARROW_FIELDS) - 1
+    assert got.fields["dec"].numpy_dtype is decimal.Decimal
+    assert got.fields["mat"].shape == (None, None)
+    with pytest.raises(ValueError, match="Unsupported arrow type"):
+        Unischema.from_arrow_schema(schema)
+    with pytest.raises(ValueError, match="Unsupported arrow type"):
+        JaxUnischema.from_arrow_schema(schema)
+    assert got.fields["ts"].numpy_dtype == np.dtype("datetime64[us]")
+
+
+def test_from_arrow_schema_of_the_store_matches_jax(store):
+    import pyarrow.dataset as pads
+
+    from petastorm_tpu.schema.unischema import Unischema as JaxUnischema
+    from petastorm_tpu_torch.schema.unischema import Unischema
+
+    dataset = pads.dataset(store[len("file://"):], format="parquet")
+    got = Unischema.from_arrow_schema(dataset)
+    assert _field_tuples(got) == _field_tuples(JaxUnischema.from_arrow_schema(dataset))
+    assert len(got.fields) == 3 + 13 + 26
+
+
+@pytest.mark.parametrize("name,value", [
+    ("predicate", object()), ("shuffle_row_drop_partitions", 2),
+    ("transform_spec", object()), ("cache_type", "local-disk"),
+    ("filesystem", object()), ("piece_indices", [0]), ("dynamic_ventilation", True),
+])
+def test_unported_arguments_raise_by_name(store, name, value):
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+
+    with pytest.raises(NotImplementedError, match=name):
+        make_batch_reader(store, **{name: value})
+
+
+def test_unported_arguments_at_their_default_are_accepted(store):
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+
+    with make_batch_reader(store, reader_pool_type="dummy", predicate=None,
+                           shuffle_row_drop_partitions=1, results_queue_size=50) as r:
+        assert sum(len(b.sample_index) for b in r) == ROWS
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        make_batch_reader(store, no_such_argument=1)
+    with pytest.raises(NotImplementedError, match="several dataset URLs"):
+        make_batch_reader([store, store])

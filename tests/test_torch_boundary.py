@@ -85,7 +85,7 @@ def _entry_points(tmp_path):
         params_from_jax,
         train_lm,
     )
-    from petastorm_tpu_torch.models import sequence_model, sequence_training
+    from petastorm_tpu_torch.models import sequence_model, sequence_training, tabular_dlrm
     from petastorm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_with_lse
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
     from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
@@ -117,6 +117,9 @@ def _entry_points(tmp_path):
         "train_packed_causal": lambda: sequence_training.train_packed_causal(
             f"file://{tmp_path}/missing"),
         "init_packed_next_step": lambda: sequence_training.init_packed_next_step(),
+        "train_dlrm": lambda: tabular_dlrm.train_dlrm(f"file://{tmp_path}/missing"),
+        "init_dlrm": lambda: tabular_dlrm.init_dlrm(),
+        "dlrm_params_from_jax": lambda: tabular_dlrm.params_from_jax({}),
     }
 
 
@@ -127,7 +130,8 @@ def _entry_points(tmp_path):
                                    "image_params_from_jax", "flash_attention_with_lse",
                                    "init_seq_params", "seq_params_from_jax", "train_sequence",
                                    "train_ragged_causal", "train_packed_causal",
-                                   "init_packed_next_step"])
+                                   "init_packed_next_step", "train_dlrm", "init_dlrm",
+                                   "dlrm_params_from_jax"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()
