@@ -184,6 +184,13 @@ LOGIT_REL = 1e-4
 # Criteo example's trainer (examples/criteo_dlrm/train_dlrm.py:40-78).
 TABULAR = dict(rows=40_000, days=8, batch=256, epochs=2, interrupt_after=100)
 DP = 2  # data-parallel ranks of phase 7, on card 0
+# Phase 8: the MNIST example's path (examples/mnist/generate_petastorm_mnist.py,
+# pytorch_example.py) at the size of MNIST's training split, and the batch
+# loaders on phase 7's store.
+READER = dict(rows=60_000, rows_per_row_group=200, seed=0, batch=64, shuffle=512, lr=0.01,
+              epochs=2, split=[0.8, 0.2], drop_partitions=2, cache_bytes=512 * 2**20,
+              selected_groups=10, tab_days=(2, 5), tab_batch=256, tab_shuffle=4096,
+              inmem_epochs=3, dlrm_steps=20, mix=[0.75, 0.25], mix_draws=3000, warm_batches=10)
 DP_GRAD_REL = 1e-6
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
@@ -1048,6 +1055,274 @@ def sp_phase(one_process_steps_per_s):
           flush=True)
 
 
+def reader_phase(smi, cfg=READER, device="cuda"):
+    """Phase 8 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run on
+    the card uses the defaults."""
+    import random
+    import threading
+
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import local_disk_cache
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    from petastorm_tpu_torch.models import mnist
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader, DataLoader, InMemBatchedDataLoader
+    from petastorm_tpu_torch.reader.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+    from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def traced(run, trace_path, batch_bytes):
+        """``run()``'s result and the card's busy share over its batches
+        from ``cfg["warm_batches"]`` on (``device_busy_pct``)."""
+        if not on_card:
+            return run(), "not measured"
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run()
+        prof.export_chrome_trace(trace_path)
+        return out, device_busy_pct(trace_path, batch_bytes, cfg["warm_batches"])
+
+    # The cache's hits, counted here: every get, and every fill it calls.
+    counts, lock = {"get": 0, "fill": 0}, threading.Lock()
+    real_get = local_disk_cache.LocalDiskCache.get
+
+    def counting_get(self, key, fill_cache_func):
+        def fill():
+            with lock:
+                counts["fill"] += 1
+            return fill_cache_func()
+        with lock:
+            counts["get"] += 1
+        return real_get(self, key, fill)
+
+    fa.reset_launch_counts()
+    rows, group = cfg["rows"], cfg["rows_per_row_group"]
+    groups = rows // group
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reader_")
+    try:
+        # (a) The MNIST-shaped store, its idx index, a selector over it.
+        url = f"file://{tmp}/mnist"
+        t0 = time.perf_counter()
+        mnist.generate_mnist_dataset(url, rows, seed=cfg["seed"], rows_per_row_group=group)
+        write_s = time.perf_counter() - t0
+        store_mb = sum(os.path.getsize(os.path.join(tmp, "mnist", f))
+                       for f in os.listdir(os.path.join(tmp, "mnist"))) / 1e6
+        t0 = time.perf_counter()
+        build_rowgroup_index(url, [SingleFieldIndexer("idx_index", "idx")])
+        index_s = time.perf_counter() - t0
+        step = groups // cfg["selected_groups"]
+        picked = [g * step for g in range(cfg["selected_groups"])]
+        values = [g * group + 17 for g in picked]
+        with make_reader(url, schema_fields=["idx"],
+                         rowgroup_selector=SingleIndexSelector("idx_index", values)) as reader:
+            selected = sorted(int(r.idx) for r in reader)
+        want = sorted(i for g in picked for i in range(g * group, (g + 1) * group))
+        if selected != want:
+            fail(f"reader (a): the selector delivered {len(selected)} rows, expected the "
+                 f"{len(want)} rows of row groups {picked}")
+
+        # (b) The MNIST example's path on the card, two epochs on one cache.
+        split = in_pseudorandom_split(cfg["split"], 0, "idx")
+        kept = sorted(i for i in range(rows) if split.do_include({"idx": i}))
+        model = mnist.init_mnist_mlp(seed=cfg["seed"], device=device)
+        before = [p.detach().clone() for p in model.parameters()]
+        opt = torch.optim.SGD(model.parameters(), lr=cfg["lr"])
+        cache_dir = os.path.join(tmp, "cache")
+        epochs = []
+
+        def mnist_epoch(epoch):
+            reader = make_reader(
+                url, schema_fields=["idx", "image", "digit"], transform_spec=mnist.MNIST_TRANSFORM,
+                predicate=split, shuffle_row_drop_partitions=cfg["drop_partitions"],
+                cache_type="local-disk", cache_location=cache_dir,
+                cache_size_limit=cfg["cache_bytes"], num_epochs=1, shard_seed=epoch)
+            idx, images, losses = [], [], []
+            t0 = time.perf_counter()
+            with DataLoader(reader, batch_size=cfg["batch"],
+                            shuffling_queue_capacity=cfg["shuffle"],
+                            shuffling_queue_seed=epoch, device=device) as loader:
+                for batch in loader:
+                    opt.zero_grad()
+                    loss = torch.nn.functional.cross_entropy(model(batch["image"]),
+                                                             batch["digit"])
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.item())
+                    idx.append(batch["idx"])
+                    images.append(batch["image"])
+            sync()
+            seconds = time.perf_counter() - t0
+            return dict(idx=torch.cat(idx), images=torch.cat(images), losses=losses,
+                        seconds=seconds, size=reader.cache.size_on_disk(),
+                        devices={str(t.device) for t in images})
+
+        local_disk_cache.LocalDiskCache.get = counting_get
+        try:
+            for epoch in range(cfg["epochs"]):
+                counts.update(get=0, fill=0)
+                out, busy = traced(lambda: mnist_epoch(epoch),
+                                   os.path.join(tmp, f"mnist{epoch}.json"),
+                                   cfg["batch"] * 28 * 28 * 4)
+                out.update(busy=busy, gets=counts["get"], fills=counts["fill"])
+                epochs.append(out)
+        finally:
+            local_disk_cache.LocalDiskCache.get = real_get
+        items = groups * cfg["drop_partitions"]
+        for epoch, out in enumerate(epochs):
+            got = sorted(out["idx"].cpu().tolist())
+            if got != kept:
+                fail(f"reader (b): epoch {epoch} delivered {len(got)} rows, not each of the "
+                     f"{len(kept)} rows the predicate keeps once")
+            if out["gets"] != items:
+                fail(f"reader (b): epoch {epoch} asked the cache for {out['gets']} work items, "
+                     f"expected {items}")
+            if not all(math.isfinite(x) for x in out["losses"]):
+                fail(f"reader (b): losses not finite in epoch {epoch}")
+            if out["devices"] != {str(torch.device(device, 0) if on_card else device)}:
+                fail(f"reader (b): batches arrived on {out['devices']}")
+        if epochs[0]["fills"] != items or epochs[1]["fills"] != 0:
+            fail(f"reader (b): cache fills {epochs[0]['fills']} / {epochs[1]['fills']}, "
+                 f"expected {items} / 0 (every second-epoch item a hit)")
+        order = [torch.argsort(out["idx"]) for out in epochs]
+        if not torch.equal(epochs[0]["images"][order[0]], epochs[1]["images"][order[1]]):
+            fail("reader (b): the cached epoch's images differ from the first epoch's")
+        if all(torch.equal(a, b.detach()) for a, b in zip(before, model.parameters())):
+            fail("reader (b): the parameters did not move")
+        epoch_lines = [
+            f"epoch {e}: rows={len(out['idx'])} rows_per_s_traced={len(out['idx']) / out['seconds']:.1f} "
+            f"cache_gets={out['gets']} cache_fills={out['fills']} "
+            f"cache_size_on_disk={out['size']} device_busy_pct_traced={out['busy']} "
+            f"loss_mean={np.mean(out['losses']):.4f}"
+            for e, out in enumerate(epochs)]
+        del epochs, model, opt
+
+        # (c) The batch loaders on phase 7's Criteo-shaped store.
+        tab_url = f"file://{tmp}/criteo"
+        tab_rows = td.make_tabular_dataset(tab_url, rows=TABULAR["rows"], days=TABULAR["days"])
+        per_day = tab_rows // TABULAR["days"]
+        days = set(cfg["tab_days"])
+
+        def batched_run(limit=None, on_batch=None):
+            reader = make_batch_reader(
+                tab_url, predicate=in_set(days, "day"),
+                shuffle_row_drop_partitions=cfg["drop_partitions"], cache_type="local-disk",
+                cache_location=os.path.join(tmp, "tab_cache"), cache_size_limit=cfg["cache_bytes"],
+                num_epochs=1, shard_seed=cfg["seed"])
+            seen, where, n = [], set(), 0
+            t0 = time.perf_counter()
+            with BatchedDataLoader(reader, batch_size=cfg["tab_batch"],
+                                   shuffling_queue_capacity=cfg["tab_shuffle"],
+                                   shuffling_queue_seed=cfg["seed"], device=device) as loader:
+                for batch in loader:
+                    seen.append(batch["sample_index"])
+                    where.update(str(t.device) for t in batch.values())
+                    if on_batch is not None:
+                        on_batch(batch)
+                    n += 1
+                    if limit is not None and n == limit:
+                        break
+            sync()
+            return torch.cat(seen).cpu(), where, n / (time.perf_counter() - t0), n
+
+        sample, where, batched_per_s, batched_n = batched_run()
+        want = sorted(i for d in sorted(days) for i in range(d * per_day, (d + 1) * per_day))
+        if sorted(sample.tolist()) != want:
+            fail(f"reader (c): the batch loader delivered {len(sample)} rows, not each row of "
+                 f"days {sorted(days)} once")
+        dev = str(torch.device(device, 0)) if on_card else device
+        if where != {dev}:
+            fail(f"reader (c): the shuffle buffer's batches lay on {where}, not {dev}")
+        model = td.init_dlrm(seed=1, device=device)
+        dlrm_step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+        dlrm_losses = []
+
+        def train(batch):
+            dense, sparse, labels = td.collate_dlrm(batch)
+            mask = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
+            dlrm_losses.append(float(dlrm_step(dense, sparse, labels, mask)))
+
+        _, _, dlrm_batches_per_s, _ = batched_run(cfg["dlrm_steps"], train)
+        if len(dlrm_losses) != cfg["dlrm_steps"] or not all(map(math.isfinite, dlrm_losses)):
+            fail(f"reader (c): DLRM steps off the batch loader: losses {dlrm_losses}")
+
+        fields = ["sample_index", "label"] + [f"dense_{i}" for i in range(td.NUM_DENSE)]
+        t0 = time.perf_counter()
+        inmem = InMemBatchedDataLoader(make_batch_reader(tab_url, schema_fields=fields),
+                                       batch_size=cfg["tab_batch"],
+                                       num_epochs=cfg["inmem_epochs"], device=device,
+                                       random_seed=cfg["seed"])
+        with inmem:
+            batches = list(inmem)
+        sync()
+        inmem_s = time.perf_counter() - t0
+        if sorted(inmem._cache) != sorted(fields) or not all(
+                t.device.type == torch.device(device).type for t in inmem._cache.values()):
+            fail("reader (c): the in-memory loader's cache is not on the device")
+        per_epoch = -(-tab_rows // cfg["tab_batch"])
+        for e in range(cfg["inmem_epochs"]):
+            got = torch.cat([b["sample_index"] for b in batches[e * per_epoch:
+                                                                (e + 1) * per_epoch]])
+            if sorted(got.cpu().tolist()) != list(range(tab_rows)):
+                fail(f"reader (c): in-memory epoch {e} is not a permutation of the "
+                     f"{tab_rows} rows")
+        inmem_per_s = len(batches) / inmem_s
+
+        # (d) WeightedSamplingReader over the two splits, against a host replay.
+        readers = [make_reader(url, schema_fields=["idx"], num_epochs=1, predicate=(
+            in_pseudorandom_split(cfg["split"], s, "idx"))) for s in range(2)]
+        with WeightedSamplingReader(readers, cfg["mix"], random_seed=cfg["seed"]) as mix:
+            sources = [0 if split.do_include({"idx": int(next(mix).idx)}) else 1
+                       for _ in range(cfg["mix_draws"])]
+        rnd, cum = random.Random(cfg["seed"]), np.cumsum(cfg["mix"]) / sum(cfg["mix"])
+        replay = [next(i for i, c in enumerate(cum) if d < c) if d < cum[-1] else len(cum) - 1
+                  for d in (rnd.random() for _ in range(cfg["mix_draws"]))]
+        if sources != replay:
+            first = next(i for i, (a, b) in enumerate(zip(sources, replay)) if a != b)
+            fail(f"reader (d): draw {first} came from source {sources[first]}, the replay of "
+                 f"random.Random({cfg['seed']}) says {replay[first]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"reader: the path launched flash kernels: {launches}")
+    print(f"reader (a): gpu={smi!r} mnist rows={rows} row_groups={groups} "
+          f"store_mb={store_mb:.1f} write_s={write_s:.2f} index_build_s={index_s:.2f} | "
+          f"SingleIndexSelector over {len(values)} idx values in row groups {picked}: "
+          f"rows={len(selected)} (each of those row groups' rows once)", flush=True)
+    print(f"reader (b): make_reader(predicate=in_pseudorandom_split({cfg['split']}, 0, 'idx'), "
+          f"shuffle_row_drop_partitions={cfg['drop_partitions']}, local-disk cache "
+          f"limit={cfg['cache_bytes']}) -> DataLoader(batch={cfg['batch']}, "
+          f"shuffling_queue_capacity={cfg['shuffle']}) -> MLP 784-128-10 SGD lr={cfg['lr']}; "
+          f"kept_rows={len(kept)} work_items={items} | " + " | ".join(epoch_lines)
+          + "; second epoch: every item a cache hit, images bit-equal", flush=True)
+    print(f"reader (c): criteo rows={tab_rows} | make_batch_reader(predicate=in_set("
+          f"{sorted(days)}, 'day'), drop_partitions={cfg['drop_partitions']}, local-disk "
+          f"cache) -> BatchedDataLoader(batch={cfg['tab_batch']}, "
+          f"shuffling_queue_capacity={cfg['tab_shuffle']}): rows={len(sample)} "
+          f"batches={batched_n} batches_per_s={batched_per_s:.1f} on {sorted(where)} | "
+          f"dlrm steps={len(dlrm_losses)} batches_per_s={dlrm_batches_per_s:.1f} "
+          f"loss_first={dlrm_losses[0]:.5f} loss_last={dlrm_losses[-1]:.5f} | "
+          f"InMemBatchedDataLoader({len(fields)} columns, epochs={cfg['inmem_epochs']}): "
+          f"batches={len(batches)} batches_per_s={inmem_per_s:.1f} (fill included) "
+          f"seconds={inmem_s:.2f}", flush=True)
+    print(f"reader (d): WeightedSamplingReader({cfg['mix']}, random_seed={cfg['seed']}) over "
+          f"the two splits: {cfg['mix_draws']} draws, source 0 share="
+          f"{sources.count(0) / len(sources):.4f}, equal to the host replay; "
+          f"flash_launches={launches}", flush=True)
+
+
 def tabular_dp_rank(rank, store, out_dir, url):
     """One rank of phase 7 (d): joins a gloo group of ``DP`` ranks on card
     0, runs its checks (raising on a miss), trains on its shard and writes
@@ -1504,11 +1779,12 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 7. tabular -------------------------------------------
+    # -- 4. image ... 8. reader --------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
                       ("sp", lambda: sp_phase(result["steps_per_s"])),
-                      ("tabular", lambda: tabular_phase(smi))):
+                      ("tabular", lambda: tabular_phase(smi)),
+                      ("reader", lambda: reader_phase(smi))):
         t_phase = time.perf_counter()
         run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -1,9 +1,12 @@
 """petastorm_tpu_torch — the PyTorch / CUDA counterpart of petastorm_tpu.
 
 The same Parquet input path (Unischema + codecs, metadata, row and
-columnar readers and the plain-Parquet batch reader with Parquet-stats
-``filters``, over worker pools; row batching, sequence packing) delivering
-batches to PyTorch on an NVIDIA GPU, with resumable input (reader and
+columnar readers and the plain-Parquet batch reader, with Parquet-stats
+``filters``, row predicates, row-group indexes and selectors, row-drop
+partitions and the local-disk cache, over worker pools; row batching,
+sequence packing) delivering batches to PyTorch on an NVIDIA GPU, through
+the classic petastorm loaders (``petastorm_tpu_torch.pytorch``) or the
+port's own, with resumable input (reader and
 loader ``state_dict()`` / ``resume_state=``), joint model + input
 checkpoints, equal-step sharded delivery over ``torch.distributed``, the
 on-card image stage (crop / flip / cast / normalize of staged uint8 bytes),
@@ -17,7 +20,8 @@ own copies of what it needs.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU (``device="cpu"``, where the kernels' plain PyTorch versions run);
-without a card a CUDA request raises. Exports are lazy.
+without a card a CUDA request raises. Exports are lazy; the modules
+``pytorch``, ``predicates`` and ``selectors`` are exported as modules.
 """
 
 __version__ = "0.1.0"
@@ -62,6 +66,13 @@ _LAZY_EXPORTS = {
     "train_sequence": ("petastorm_tpu_torch.models.sequence_training",
                        "train_sequence"),
     "train_dlrm": ("petastorm_tpu_torch.models.tabular_dlrm", "train_dlrm"),
+    "WeightedSamplingReader": ("petastorm_tpu_torch.weighted_sampling_reader",
+                               "WeightedSamplingReader"),
+    "build_rowgroup_index": ("petastorm_tpu_torch.etl.rowgroup_indexing",
+                             "build_rowgroup_index"),
+    "pytorch": ("petastorm_tpu_torch.pytorch", None),
+    "predicates": ("petastorm_tpu_torch.predicates", None),
+    "selectors": ("petastorm_tpu_torch.selectors", None),
     "save_training_state": ("petastorm_tpu_torch.torch_utils.checkpoint",
                             "save_training_state"),
     "restore_training_state": ("petastorm_tpu_torch.torch_utils.checkpoint",
@@ -79,7 +90,8 @@ def __getattr__(name):
             f"module {__name__!r} has no attribute {name!r}") from None
     import importlib
 
-    value = getattr(importlib.import_module(module_name), attr)
+    module = importlib.import_module(module_name)
+    value = module if attr is None else getattr(module, attr)
     globals()[name] = value
     return value
 

@@ -4,13 +4,20 @@ The port's own copy of the parts of ``petastorm_tpu/etl/metadata.py`` the
 main path uses. The on-disk format is the same — Parquet files plus a
 ``_common_metadata`` footer carrying the JSON-serialized Unischema, the
 row groups per file and their row counts under the same keys — so datasets
-written by either package read in the other. (The restricted unpickler for
-reference-pickled schemas and the Spark write path are not ported yet.)
+written by either package read in the other. Datasets whose footer carries
+only a schema pickled by the reference petastorm read through a restricted
+unpickler (:func:`unischema_from_reference_pickle`), which rebuilds the
+schema from an allowlist and imports no module the pickle names. (The
+Spark write path is not ported yet.)
 """
 
 from __future__ import annotations
 
+import importlib
+import io
 import json
+import pickle
+from collections import OrderedDict
 from contextlib import contextmanager
 from dataclasses import dataclass
 from decimal import Decimal
@@ -28,6 +35,9 @@ from petastorm_tpu_torch.schema.unischema import Unischema, UnischemaField, enco
 ROW_GROUPS_PER_FILE_KEY = b"dataset-toolkit.num_row_groups_per_file.v1"
 ROW_GROUP_ROW_COUNTS_KEY = b"petastorm-tpu.row_group_row_counts.v1"
 UNISCHEMA_JSON_KEY = b"petastorm_tpu.unischema.json.v1"
+#: The keys under which the reference petastorm pickles its Unischema.
+UNISCHEMA_KEY = b"dataset-toolkit.unischema.v1"
+UNISCHEMA_KEY_V2 = b"petastorm.unischema.v1"
 
 _COMMON_METADATA = "_common_metadata"
 _DEFAULT_ROWS_PER_ROW_GROUP = 4096
@@ -121,6 +131,155 @@ def unischema_from_json(payload):
 
 
 # ---------------------------------------------------------------------------
+# Reference-pickled schemas (restricted unpickler)
+# ---------------------------------------------------------------------------
+
+class _RefState:
+    """Absorbs the state of a pickled reference object (a Unischema, a
+    codec, a pyspark type) without running any of its class's code."""
+
+    target = None
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+
+def _standin(name, target=None):
+    return type(name, (_RefState,), {"target": target})
+
+
+_SPARK_NAME_TO_ARROW = {
+    "BooleanType": pa.bool_(), "ByteType": pa.int8(), "ShortType": pa.int16(),
+    "IntegerType": pa.int32(), "LongType": pa.int64(), "FloatType": pa.float32(),
+    "DoubleType": pa.float64(), "StringType": pa.string(),
+    "BinaryType": pa.binary(), "DecimalType": pa.string(),
+    "DateType": pa.date32(), "TimestampType": pa.timestamp("us"),
+}
+_SPARK_STANDINS = {name: _standin(name, name) for name in _SPARK_NAME_TO_ARROW}
+
+
+class _RefFieldStandin:
+    """The reference's ``UnischemaField`` namedtuple pickles as
+    ``cls.__new__(cls, *values)``: this returns the values as a marked dict
+    that :func:`_convert_ref_field` turns into a field of this package."""
+
+    def __new__(cls, *args, **kwargs):
+        values = dict(zip(["name", "numpy_dtype", "shape", "codec", "nullable"], args))
+        values.update(kwargs)
+        return {"__ref_field__": True, **values}
+
+
+_REF_UNISCHEMA = _standin("_RefUnischema")
+_REF_CLASSES = {
+    ("petastorm.unischema", "Unischema"): _REF_UNISCHEMA,
+    ("petastorm.unischema", "UnischemaField"): _RefFieldStandin,
+    ("petastorm.codecs", "ScalarCodec"): _standin("_RefScalarCodec", "ScalarCodec"),
+    ("petastorm.codecs", "NdarrayCodec"): _standin("_RefNdarray", "NdarrayCodec"),
+    ("petastorm.codecs", "CompressedNdarrayCodec"): _standin(
+        "_RefCompressedNdarray", "CompressedNdarrayCodec"),
+    ("petastorm.codecs", "CompressedImageCodec"): _standin(
+        "_RefCompressedImage", "CompressedImageCodec"),
+}
+
+_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numerictypes", "numpy._core.numerictypes")
+#: Only numpy's dtype and scalar reconstruction: np.save, np.load and the
+#: like would be file-write and code-execution gadgets.
+_NUMPY_ALLOWED_NAMES = frozenset({
+    "dtype", "scalar", "_reconstruct", "ndarray", "_frombuffer",
+    "bool_", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+    "uint64", "float16", "float32", "float64", "longdouble", "complex64",
+    "complex128", "str_", "bytes_", "void", "datetime64", "timedelta64",
+    "generic", "number", "integer", "signedinteger", "unsignedinteger",
+    "inexact", "floating", "complexfloating", "flexible", "character",
+    "intp", "uintp", "intc", "uintc", "byte", "ubyte", "short", "ushort",
+    "longlong", "ulonglong", "half", "single", "double",
+})
+_SAFE_BUILTINS = {t.__name__: t for t in (dict, list, tuple, set, frozenset, str, bytes,
+                                          int, float, bool, complex, object)}
+
+
+def allowlisted_class(module, name):
+    """The class a restricted unpickler may build for ``module.name``: numpy's
+    dtype and scalar machinery, plain builtins, ``OrderedDict`` and
+    ``Decimal``; anything else raises ``pickle.UnpicklingError`` without
+    importing ``module``."""
+    if module in _NUMPY_MODULES and name in _NUMPY_ALLOWED_NAMES:
+        if hasattr(np, name):
+            return getattr(np, name)
+        try:
+            return getattr(importlib.import_module(module), name)
+        except (ImportError, AttributeError) as exc:
+            raise pickle.UnpicklingError(
+                f"Restricted unpickler: cannot resolve {module}.{name}") from exc
+    if module == "builtins" and name in _SAFE_BUILTINS:
+        return _SAFE_BUILTINS[name]
+    if module == "collections" and name == "OrderedDict":
+        return OrderedDict
+    if module == "decimal" and name == "Decimal":
+        return Decimal
+    raise pickle.UnpicklingError(f"Restricted unpickler: refusing {module}.{name}")
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Unpickles reference schemas and refuses everything not allowlisted."""
+
+    def find_class(self, module, name):
+        if (module, name) in _REF_CLASSES:
+            return _REF_CLASSES[(module, name)]
+        if module.startswith("pyspark.sql.types") and name in _SPARK_STANDINS:
+            return _SPARK_STANDINS[name]
+        return allowlisted_class(module, name)
+
+
+def _convert_ref_codec(codec):
+    if codec is None:
+        return None
+    target = getattr(codec, "target", None)
+    state = getattr(codec, "__dict__", {})
+    if target == "ScalarCodec":
+        spark_type = state.get("_spark_type") or state.get("spark_type")
+        if isinstance(spark_type, _RefState) and spark_type.target in _SPARK_NAME_TO_ARROW:
+            return codecs_mod.ScalarCodec(_SPARK_NAME_TO_ARROW[spark_type.target])
+        return codecs_mod.ScalarCodec()
+    if target == "NdarrayCodec":
+        return codecs_mod.NdarrayCodec()
+    if target == "CompressedNdarrayCodec":
+        return codecs_mod.CompressedNdarrayCodec()
+    if target == "CompressedImageCodec":
+        image_codec = state.get("_image_codec", "png")
+        if not isinstance(image_codec, str):  # the reference sometimes stores a cv2 token
+            image_codec = "png"
+        return codecs_mod.CompressedImageCodec(image_codec, state.get("_quality", 80))
+    raise PetastormMetadataError(f"Cannot convert reference codec {codec!r}")
+
+
+def _convert_ref_field(field):
+    if not (isinstance(field, dict) and field.get("__ref_field__")):
+        raise PetastormMetadataError(f"Unexpected reference field payload: {field!r}")
+    dtype = field["numpy_dtype"]
+    if isinstance(dtype, type) and issubclass(dtype, np.generic):
+        dtype = np.dtype(dtype)
+    return UnischemaField(field["name"], dtype, tuple(field.get("shape") or ()),
+                          _convert_ref_codec(field.get("codec")),
+                          bool(field.get("nullable", False)))
+
+
+def unischema_from_reference_pickle(payload):
+    """A Unischema of this package from the reference's pickled schema
+    (``dataset-toolkit.unischema.v1`` / ``petastorm.unischema.v1``), through
+    the restricted unpickler."""
+    ref = _RestrictedUnpickler(io.BytesIO(payload)).load()
+    if not isinstance(ref, _REF_UNISCHEMA):
+        raise PetastormMetadataError(
+            f"Reference pickle did not contain a Unischema (got {type(ref)})")
+    raw_fields = ref.__dict__.get("_fields", {})
+    fields = raw_fields.values() if isinstance(raw_fields, dict) else raw_fields
+    return Unischema(ref.__dict__.get("_name", "reference_schema"),
+                     [_convert_ref_field(f) for f in fields])
+
+
+# ---------------------------------------------------------------------------
 # _common_metadata
 # ---------------------------------------------------------------------------
 
@@ -153,6 +312,11 @@ def add_many_to_dataset_metadata(filesystem, dataset_path, entries):
     merged.update(entries)
     with filesystem.open_output_stream(common_path) as out:
         pq.write_metadata(arrow_schema.with_metadata(merged), out)
+
+
+def add_to_dataset_metadata(filesystem, dataset_path, key, value):
+    """Merge one key/value into ``_common_metadata``."""
+    add_many_to_dataset_metadata(filesystem, dataset_path, {key: value})
 
 
 def read_dataset_metadata(filesystem, dataset_path):
@@ -227,14 +391,16 @@ def materialize_rows(dataset_url, schema, rows, rows_per_row_group=None):
 
 
 def get_schema(filesystem, dataset_path):
-    """The Unischema stored in the dataset's footer."""
+    """The Unischema stored in the dataset's footer: the JSON one, else one
+    the reference pickled (read by the restricted unpickler)."""
     metadata = read_dataset_metadata(filesystem, dataset_path)
-    if UNISCHEMA_JSON_KEY not in metadata:
-        raise PetastormMetadataError(
-            "Dataset carries no JSON Unischema metadata (not a petastorm "
-            "dataset, or one with a reference-pickled schema, which this "
-            "package does not read yet)")
-    return unischema_from_json(metadata[UNISCHEMA_JSON_KEY])
+    if UNISCHEMA_JSON_KEY in metadata:
+        return unischema_from_json(metadata[UNISCHEMA_JSON_KEY])
+    for key in (UNISCHEMA_KEY_V2, UNISCHEMA_KEY):
+        if key in metadata:
+            return unischema_from_reference_pickle(metadata[key])
+    raise PetastormMetadataError(
+        "Dataset carries no Unischema metadata (not a petastorm dataset?)")
 
 
 def get_schema_from_dataset_url(dataset_url):

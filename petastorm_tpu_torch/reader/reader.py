@@ -1,31 +1,36 @@
 """``make_reader``, ``make_columnar_reader``, ``make_batch_reader`` and
 ``Reader``.
 
-The port's own copy of the parts of ``petastorm_tpu/reader/reader.py`` the
-port uses:
+The port's own copy of ``petastorm_tpu/reader/reader.py``:
 
 - the row reader (decoded namedtuple rows, with ``schema_fields`` and a
   ``TransformSpec``; an :class:`~petastorm_tpu_torch.ngram.NGram` as
   ``schema_fields`` yields ``{offset: namedtuple}`` windows) and the
-  columnar reader (one namedtuple of ``[N, ...]`` column arrays per row
-  group) over a petastorm-format dataset;
-- the batch reader over a plain Parquet store (one namedtuple of numpy
-  column batches per row group, the schema inferred from Arrow), with
-  ``filters`` that prune row groups by their Parquet statistics before
-  anything is read;
-- for all three: ``num_epochs``, seeded ``shuffle_row_groups``,
-  ``cur_shard``/``shard_count`` row-group sharding, thread or dummy decode
-  pools, and resumable iteration (``Reader.state_dict()`` /
-  ``resume_state=``).
+  columnar reader (one namedtuple of ``[N, ...]`` column arrays per work
+  item) over a petastorm-format dataset;
+- the batch reader over plain Parquet (one namedtuple of numpy column
+  batches per work item, the schema inferred from Arrow), over one store
+  or several Parquet file URLs, with a pandas ``TransformSpec``;
+- for all three: ``filters`` that prune row groups by their Parquet
+  statistics before anything is read; a ``rowgroup_selector`` over the
+  store's row-group indexes, matched to the filtered pieces by (file, row
+  group); a row ``predicate`` the workers evaluate before decoding the
+  other columns; ``shuffle_row_drop_partitions``, which splits each row
+  group into that many work items; the local-disk cache; ``num_epochs``,
+  seeded ``shuffle_row_groups``, ``cur_shard``/``shard_count`` row-group
+  sharding, thread or dummy decode pools, and resumable iteration
+  (``Reader.state_dict()`` / ``resume_state=``).
 
 The planning arithmetic is the JAX package's — canonical row-group order
-(or the ``filters``' fragment scan), the optional ``shard_seed``
-pre-shuffle, round-robin ``pieces[s::count]``, the ventilator's seeded
-per-epoch shuffle — so the same arguments give both packages the same row
-groups in the same order, and a state written by either resumes the other.
-(Row-level predicates, ``rowgroup_selector``, caches, row-drop partitions,
-the batch reader's pandas ``TransformSpec``, several dataset URLs and the
-process pool are not ported yet.)
+(or the ``filters``' fragment scan), the selector, the optional
+``shard_seed`` pre-shuffle, round-robin ``pieces[s::count]``, one work item
+per (piece, drop partition), the ventilator's seeded per-epoch shuffle —
+and so are the planning fingerprint ``repr((filters, rowgroup_selector))``
+and the item keys ``item_key(piece_index, drop_partition)``, so the same
+arguments give both packages the same work items in the same order, and a
+state written by either resumes the other. What is not ported raises
+NotImplementedError naming the argument (:data:`UNPORTED_READER_ARGS`,
+``reader_pool_type="process"``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import random
 import warnings
 
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormMetadataError
 from petastorm_tpu_torch.etl.metadata import (
     RowGroupPiece,
@@ -41,7 +47,10 @@ from petastorm_tpu_torch.etl.metadata import (
     piece_row_counts,
 )
 from petastorm_tpu_torch.fs_utils import FilesystemResolver
+from petastorm_tpu_torch.local_disk_arrow_table_cache import LocalDiskArrowTableCache
+from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.ngram import NGram
+from petastorm_tpu_torch.predicates import PredicateBase
 from petastorm_tpu_torch.reader.arrow_worker import ArrowReaderWorker, ArrowResultsQueueReader
 from petastorm_tpu_torch.reader.columnar_worker import (
     ColumnarDecodeWorker,
@@ -59,23 +68,25 @@ from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
-#: ``make_batch_reader`` arguments of the JAX package that the port does not
+#: Arguments of the JAX package's three factories that the port does not
 #: take, with their JAX defaults: the default is accepted (it asks for
 #: nothing), anything else raises NotImplementedError naming the argument.
-UNPORTED_BATCH_READER_ARGS = {
-    "results_queue_size": 50, "shuffle_row_drop_partitions": 1, "predicate": None,
-    "rowgroup_selector": None, "cache_type": "null", "cache_location": None,
-    "cache_size_limit": None, "cache_row_size_estimate": None,
-    "cache_extra_settings": None, "hdfs_driver": "libhdfs", "transform_spec": None,
-    "storage_options": None, "zmq_copy_buffers": True, "filesystem": None,
-    "fast_gcs_listing": True, "piece_indices": None, "dynamic_ventilation": False,
+#: (``reader_pool_type="process"`` raises the same way.)
+UNPORTED_READER_ARGS = {
+    "hdfs_driver": "libhdfs", "storage_options": None, "zmq_copy_buffers": True,
+    "filesystem": None, "fast_gcs_listing": True, "piece_indices": None,
+    "dynamic_ventilation": False,
 }
 
 
 def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
-                workers_count=10, shuffle_row_groups=True, num_epochs=1,
-                cur_shard=None, shard_count=None, shard_seed=None,
-                transform_spec=None, resume_state=None):
+                workers_count=10, results_queue_size=50, shuffle_row_groups=True,
+                shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
+                num_epochs=1, cur_shard=None, shard_count=None, shard_seed=None,
+                cache_type="null", cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None, cache_extra_settings=None,
+                transform_spec=None, filters=None, reader_engine=None,
+                resume_state=None, **unported):
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
@@ -85,86 +96,137 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     ``{offset: namedtuple}`` window per item (``reader.ngram``).
     ``transform_spec`` runs on each decoded row dict (each timestep's, for
     windows) in the workers; ``reader.schema`` is the post-transform
-    schema. ``shard_seed`` seeds both the shard pre-shuffle
-    and the per-epoch row-group shuffle; ``None`` shuffles unseeded.
-    ``resume_state``: a :meth:`Reader.state_dict` of a reader built with
-    the same arguments, whose remaining row groups this one delivers.
+    schema. ``predicate``: a :class:`~petastorm_tpu_torch.predicates.
+    PredicateBase`; its fields are read and tested first, the rest only for
+    the rows it keeps. ``rowgroup_selector``: a selector of
+    :mod:`petastorm_tpu_torch.selectors` over the store's row-group
+    indexes. ``shuffle_row_drop_partitions``: each row group becomes that
+    many work items, partition ``i`` holding rows ``i::n``.
+    ``cache_type="local-disk"`` (with ``cache_location`` and
+    ``cache_size_limit`` in bytes) caches each work item's decoded rows.
+    ``shard_seed`` seeds both the shard pre-shuffle and the per-epoch
+    row-group shuffle; ``None`` shuffles unseeded. ``resume_state``: a
+    :meth:`Reader.state_dict` of a reader built with the same arguments,
+    whose remaining work items this one delivers. ``reader_engine``: only
+    the deprecated ``"reader_v1"``, which changes nothing.
     """
+    _check_unported("make_reader", unported)
+    if reader_engine is not None:
+        if reader_engine != "reader_v1":
+            raise ValueError(f"reader_engine {reader_engine!r} is not supported; the only "
+                             "legacy value is 'reader_v1' (deprecated, no effect)")
+        warnings.warn("reader_engine is deprecated and has no effect; for a faster "
+                      "columnar path use make_columnar_reader", DeprecationWarning,
+                      stacklevel=2)
     fs, path, stored_schema = _open_dataset(dataset_url)
-    return Reader(fs, path, schema=stored_schema, reader_pool=_make_pool(reader_pool_type, workers_count),
+    return Reader(fs, path, schema=stored_schema,
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
                   worker_class=PyDictReaderWorker,
                   results_queue_reader=PyDictResultsQueueReader(),
                   schema_fields=schema_fields, transform_spec=transform_spec,
-                  shuffle_row_groups=shuffle_row_groups, num_epochs=num_epochs,
-                  cur_shard=cur_shard, shard_count=shard_count, shard_seed=shard_seed,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                  shard_seed=shard_seed, filters=filters,
+                  cache=_make_cache(cache_type, cache_location, cache_size_limit,
+                                    cache_row_size_estimate, cache_extra_settings),
                   resume_state=resume_state)
 
 
-def make_columnar_reader(dataset_url, reader_pool_type="thread",
-                         workers_count=10, shuffle_row_groups=True,
-                         num_epochs=1, cur_shard=None, shard_count=None,
-                         shard_seed=None, schema_fields=None, resume_state=None):
+def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
+                         workers_count=10, results_queue_size=50, shuffle_row_groups=True,
+                         shuffle_row_drop_partitions=1, predicate=None,
+                         rowgroup_selector=None, num_epochs=1, cur_shard=None,
+                         shard_count=None, shard_seed=None, cache_type="null",
+                         cache_location=None, cache_size_limit=None,
+                         cache_row_size_estimate=None, cache_extra_settings=None,
+                         transform_spec=None, filters=None, resume_state=None, **unported):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
-    decoded ``[N, ...]`` column arrays, one per row group
+    decoded ``[N, ...]`` column arrays, one per work item
     (``batched_output=True``).
 
-    ``shard_seed`` seeds both the shard pre-shuffle and the per-epoch
-    row-group shuffle (as in the JAX package); ``None`` shuffles unseeded.
-    ``schema_fields`` and ``resume_state`` as in :func:`make_reader`, but
-    NGram windows are row-wise and not supported here.
+    The arguments are :func:`make_reader`'s, but NGram windows are
+    row-wise and not supported here, and ``transform_spec.func`` takes and
+    returns the decoded ``{field: [N, ...]}`` dict.
     """
+    _check_unported("make_columnar_reader", unported)
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_columnar_reader; "
                          "use make_reader")
     fs, path, stored_schema = _open_dataset(dataset_url)
-    return Reader(fs, path, schema=stored_schema, reader_pool=_make_pool(reader_pool_type, workers_count),
+    return Reader(fs, path, schema=stored_schema,
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
                   worker_class=ColumnarDecodeWorker,
                   results_queue_reader=ColumnarResultsQueueReader(),
-                  schema_fields=schema_fields,
+                  schema_fields=schema_fields, transform_spec=transform_spec,
                   shuffle_row_groups=shuffle_row_groups,
-                  num_epochs=num_epochs, cur_shard=cur_shard,
-                  shard_count=shard_count, shard_seed=shard_seed,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
+                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                  shard_seed=shard_seed, filters=filters,
+                  cache=_make_cache(cache_type, cache_location, cache_size_limit,
+                                    cache_row_size_estimate, cache_extra_settings),
                   resume_state=resume_state)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type="thread",
-                      workers_count=10, shuffle_row_groups=True, num_epochs=1,
-                      cur_shard=None, shard_count=None, shard_seed=None, filters=None,
-                      resume_state=None, **unported):
+                      workers_count=10, results_queue_size=50, shuffle_row_groups=True,
+                      shuffle_row_drop_partitions=1, predicate=None, rowgroup_selector=None,
+                      num_epochs=1, cur_shard=None, shard_count=None, shard_seed=None,
+                      cache_type="null", cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None, cache_extra_settings=None,
+                      transform_spec=None, filters=None, resume_state=None, **unported):
     """Batch reader for **plain Parquet** stores (no petastorm metadata
-    needed): yields namedtuples of numpy column batches, one per row group
+    needed): yields namedtuples of numpy column batches, one per work item
     (``batched_output=True``), under a codec-less schema inferred from the
     store's Arrow schema (columns of unsupported types left out).
 
-    ``schema_fields``: column names or full-match regexes. ``filters``:
-    DNF triples ``[(column, op, value), ...]`` (ANDed), a list of such lists
-    (ORed), or a ``pyarrow.dataset.Expression``; row groups whose Parquet
-    statistics rule the filter out are never read. ``resume_state`` as in
-    :func:`make_reader` (the filters are part of its fingerprint). Other
-    arguments of the JAX package's ``make_batch_reader`` raise
-    NotImplementedError unless given at their default.
+    ``dataset_url_or_urls``: one store's URL, or a list of Parquet file
+    URLs read as one dataset. ``schema_fields``: column names or full-match
+    regexes. ``filters``: DNF triples ``[(column, op, value), ...]``
+    (ANDed), a list of such lists (ORed), or a ``pyarrow.dataset.
+    Expression``; row groups whose Parquet statistics rule the filter out
+    are never read. ``transform_spec.func`` takes and returns a pandas
+    DataFrame (only this path needs pandas). The local-disk cache stores
+    Arrow IPC. The other arguments are :func:`make_reader`'s.
     """
-    for name, value in unported.items():
-        if name not in UNPORTED_BATCH_READER_ARGS:
-            raise TypeError(f"make_batch_reader() got an unexpected keyword argument {name!r}")
-        if value != UNPORTED_BATCH_READER_ARGS[name]:
-            raise NotImplementedError(f"make_batch_reader({name}=...) is not ported yet")
-    if isinstance(dataset_url_or_urls, (list, tuple)):
-        raise NotImplementedError("make_batch_reader over several dataset URLs is not ported yet")
+    _check_unported("make_batch_reader", unported)
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_batch_reader")
     import pyarrow.dataset as pads
 
-    resolver = FilesystemResolver(dataset_url_or_urls)
-    fs, path = resolver.filesystem(), resolver.get_dataset_path()
+    urls = dataset_url_or_urls if isinstance(dataset_url_or_urls, list) else [dataset_url_or_urls]
+    if not urls:
+        raise ValueError("Empty dataset URL list")
+    resolvers = [FilesystemResolver(url) for url in urls]
+    fs = resolvers[0].filesystem()
+    paths = [r.get_dataset_path() for r in resolvers]
+    path = paths if len(paths) > 1 else paths[0]
     inferred = Unischema.from_arrow_schema(
         pads.dataset(path, filesystem=fs, format="parquet"), omit_unsupported_fields=True)
-    return Reader(fs, path, schema=inferred, reader_pool=_make_pool(reader_pool_type, workers_count),
+    return Reader(fs, path, schema=inferred,
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
                   worker_class=ArrowReaderWorker,
                   results_queue_reader=ArrowResultsQueueReader(),
-                  schema_fields=schema_fields, shuffle_row_groups=shuffle_row_groups,
+                  schema_fields=schema_fields, transform_spec=transform_spec,
+                  shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  predicate=predicate, rowgroup_selector=rowgroup_selector,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
-                  shard_seed=shard_seed, filters=filters, resume_state=resume_state)
+                  shard_seed=shard_seed, filters=filters,
+                  cache=_make_cache(cache_type, cache_location, cache_size_limit,
+                                    cache_row_size_estimate, cache_extra_settings,
+                                    arrow_cache=True),
+                  resume_state=resume_state)
+
+
+def _check_unported(factory, unported):
+    for name, value in unported.items():
+        if name not in UNPORTED_READER_ARGS:
+            raise TypeError(f"{factory}() got an unexpected keyword argument {name!r}")
+        if value != UNPORTED_READER_ARGS[name]:
+            raise NotImplementedError(f"{factory}({name}=...) is not ported yet")
 
 
 def _open_dataset(dataset_url):
@@ -180,11 +242,34 @@ def _open_dataset(dataset_url):
             "Parquet stores") from exc
 
 
-def _make_pool(reader_pool_type, workers_count):
+def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                cache_extra_settings, arrow_cache=False):
+    if cache_type in (None, "null", "none"):
+        return NullCache()
+    if cache_type == "local-disk":
+        if not cache_location or not cache_size_limit:
+            raise ValueError("cache_type='local-disk' requires cache_location and "
+                             "cache_size_limit")
+        cls = LocalDiskArrowTableCache if arrow_cache else LocalDiskCache
+        return cls(cache_location, cache_size_limit, cache_row_size_estimate,
+                   **(cache_extra_settings or {}))
+    raise ValueError(f"Unknown cache_type {cache_type!r}")
+
+
+class UnportedPoolError(NotImplementedError, ValueError):
+    """A pool type of the JAX package that the port does not have: not
+    implemented here, and an invalid ``reader_pool_type`` for this package
+    (a ValueError, as an unknown pool type is)."""
+
+
+def _make_pool(reader_pool_type, workers_count, results_queue_size=50):
     if reader_pool_type == "thread":
-        return ThreadPool(workers_count)
+        return ThreadPool(workers_count, results_queue_size=results_queue_size)
     if reader_pool_type == "dummy":
         return DummyPool()
+    if reader_pool_type == "process":
+        raise UnportedPoolError("reader_pool_type='process' is not ported yet "
+                                "(use 'thread' or 'dummy')")
     raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
                      "(this package has 'thread' and 'dummy')")
 
@@ -201,20 +286,22 @@ def split_pieces_for_shards(pieces, shard_count, shard_seed=None):
 
 
 def enumerate_row_group_pieces(filesystem, dataset_path, filters=None):
-    """The row-group pieces a reader plans with: the canonical order
-    (:func:`load_row_groups`) without ``filters``; with them, the fragment
-    scan's (files by path, then row-group index) of the row groups whose
-    Parquet statistics may satisfy the filter."""
-    if filters is None:
+    """The row-group pieces a reader plans with: for one store without
+    ``filters``, the canonical order (:func:`load_row_groups`); otherwise
+    the fragment scan's (files by path, then row-group index), with
+    ``filters``, of the row groups whose Parquet statistics may satisfy
+    them. ``dataset_path`` may be a list of Parquet file paths."""
+    if filters is None and not isinstance(dataset_path, list):
         return load_row_groups(filesystem, dataset_path)
     import pyarrow.dataset as pads
 
-    expression = _filters_to_expression(filters)
+    expression = _filters_to_expression(filters) if filters is not None else None
     dataset = pads.dataset(dataset_path, filesystem=filesystem, format="parquet")
     return [RowGroupPiece(fragment.path, rg.row_groups[0].id, rg.row_groups[0].num_rows)
             for fragment in sorted(dataset.get_fragments(filter=expression),
                                    key=lambda f: f.path)
-            for rg in fragment.split_by_row_group(expression)]
+            for rg in (fragment.split_by_row_group(expression) if expression is not None
+                       else fragment.split_by_row_group())]
 
 
 _FILTER_OPS = {
@@ -264,8 +351,11 @@ class Reader:
 
     def __init__(self, filesystem, dataset_path, schema, reader_pool, worker_class,
                  results_queue_reader, schema_fields=None, transform_spec=None,
-                 shuffle_row_groups=True, num_epochs=1, cur_shard=None,
-                 shard_count=None, shard_seed=None, filters=None, resume_state=None):
+                 shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
+                 rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
+                 shard_seed=None, filters=None, cache=None, resume_state=None):
+        if predicate is not None and not isinstance(predicate, PredicateBase):
+            raise ValueError("predicate must be an instance of PredicateBase")
         if (cur_shard is None) != (shard_count is None):
             raise ValueError("cur_shard and shard_count must be used together")
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -275,6 +365,7 @@ class Reader:
             raise ValueError("num_epochs must be a positive integer or None")
         self._filesystem = filesystem
         self._dataset_path = dataset_path
+        self._predicate = predicate
         self.num_epochs = num_epochs
         self.last_row_consumed = False
         self.stopped = False
@@ -282,6 +373,10 @@ class Reader:
         if self.ngram is not None:
             self.ngram.resolve_regex_field_names(schema)
             read_schema = self.ngram.get_schema_view(schema)
+            if not self.ngram.timestamp_overlap and shuffle_row_drop_partitions > 1:
+                raise NotImplementedError(
+                    "shuffle_row_drop_partitions with non-overlapping NGram windows "
+                    "is not supported")
         else:
             read_schema = schema.resolve_schema_view(schema_fields)
         self._transform_spec = transform_spec
@@ -291,8 +386,13 @@ class Reader:
         self._workers_pool = reader_pool
 
         pieces = enumerate_row_group_pieces(filesystem, dataset_path, filters)
+        if rowgroup_selector is not None:
+            # Without filters, one store's pieces are the canonical list.
+            pieces = self._apply_selector(pieces, rowgroup_selector,
+                                          pieces if filters is None else None)
         if not pieces:
-            raise NoDataAvailableError("No row groups left after filters — nothing to read")
+            raise NoDataAvailableError(
+                "No row groups left after filters/selector — nothing to read")
         # Every shard's pieces are kept, so equal-step coordination
         # (torch_utils.sharding.derive_equal_step_max_batches) computes the
         # smallest shard's batch count locally on each rank.
@@ -307,22 +407,28 @@ class Reader:
                 "this reader yields nothing", UserWarning, stacklevel=3)
         self._pieces = pieces
 
-        # Resumable iteration: payloads arrive tagged with their item key,
-        # the tracker counts deliveries as they are consumed, and a resumed
-        # reader ventilates each item only for its remaining epochs.
-        items = [{"piece_index": i} for i in range(len(pieces))]
+        # One work item per (piece, drop partition), in the JAX package's
+        # order. Payloads arrive tagged with their item key, the tracker
+        # counts deliveries as they are consumed, and a resumed reader
+        # ventilates each item only for its remaining epochs.
+        items = [{"piece_index": piece_index, "worker_predicate": predicate,
+                  "shuffle_row_drop_partition": (drop_partition, shuffle_row_drop_partitions)}
+                 for piece_index in range(len(pieces))
+                 for drop_partition in range(shuffle_row_drop_partitions)]
         self._num_items = len(items)
-        # Filters change which pieces the positional item keys denote, so
-        # they are part of the resume fingerprint (with the JAX package's
-        # rowgroup_selector slot, None here).
-        self._planning_repr = repr((filters, None))
+        self._shuffle_row_drop_partitions = shuffle_row_drop_partitions
+        # Filters and the selector change which pieces the positional item
+        # keys denote, so they are part of the resume fingerprint.
+        self._planning_repr = repr((filters, rowgroup_selector))
         self._resume_state = resume_state
         iterations, per_item_iterations, prior_counts = num_epochs, None, None
         if resume_state is not None:
             self._validate_resume_state(resume_state)
             delivered = resume_state["delivered"]
-            per_item_iterations = [max(0, num_epochs - delivered.get(item_key(i, 0), 0))
-                                   for i in range(len(items))]
+            per_item_iterations = [
+                max(0, num_epochs - delivered.get(
+                    item_key(it["piece_index"], it["shuffle_row_drop_partition"][0]), 0))
+                for it in items]
             prior_counts = dict(delivered)
             iterations = max(per_item_iterations, default=0)
             if iterations == 0:
@@ -343,9 +449,28 @@ class Reader:
             "items_per_epoch": len(items),
             "workers_count": getattr(reader_pool, "workers_count", 1),
         }
-        reader_pool.start(worker_class, (filesystem, pieces, read_schema, transform_spec,
-                                         self.ngram),
+        #: The reader's cache; :meth:`stop` calls its ``cleanup()``.
+        self.cache = cache or NullCache()
+        reader_pool.start(worker_class, (filesystem, pieces, schema, read_schema,
+                                         self.ngram, self.cache, transform_spec),
                           ventilator=self._ventilator)
+
+    def _apply_selector(self, pieces, rowgroup_selector, canonical=None):
+        """The pieces among ``pieces`` whose canonical ordinals the selector
+        keeps, matched by (file, row group): ``pieces`` may already be
+        pruned by ``filters``. ``canonical``: the canonical piece list, when
+        the caller has it."""
+        from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+
+        if isinstance(self._dataset_path, list):
+            raise ValueError("rowgroup_selector is not supported with multiple dataset URLs")
+        selected = rowgroup_selector.select_row_groups(
+            get_row_group_indexes(self._filesystem, self._dataset_path))
+        if canonical is None:
+            canonical = load_row_groups(self._filesystem, self._dataset_path)
+        selected_ids = {(p.path, p.row_group) for index, p in enumerate(canonical)
+                        if index in selected}
+        return [p for p in pieces if (p.path, p.row_group) in selected_ids]
 
     @property
     def rows_per_epoch(self):
@@ -386,14 +511,18 @@ class Reader:
                      else self._delivery_tracker.counts_rolled_back_to(yielded_rows))
         return {
             "version": 1,
-            "dataset_path": str(self._dataset_path),
+            "dataset_path": self._dataset_path_signature(),
             "num_items": self._num_items,
             "num_epochs": self.num_epochs,
             "shard": [self.cur_shard, self.shard_count, self._shard_seed],
-            "drop_partitions": 1,
+            "drop_partitions": self._shuffle_row_drop_partitions,
             "planning": self._planning_repr,
             "delivered": delivered,
         }
+
+    def _dataset_path_signature(self):
+        path = self._dataset_path
+        return sorted(str(p) for p in path) if isinstance(path, list) else str(path)
 
     def _validate_resume_state(self, state):
         if state.get("version") != 1:
@@ -403,11 +532,11 @@ class Reader:
                 "resume_state requires finite num_epochs (an infinite stream "
                 "has no resumable endpoint — just restart it)")
         expected = {
-            "dataset_path": str(self._dataset_path),
+            "dataset_path": self._dataset_path_signature(),
             "num_items": self._num_items,
             "num_epochs": self.num_epochs,
             "shard": [self.cur_shard, self.shard_count, self._shard_seed],
-            "drop_partitions": 1,
+            "drop_partitions": self._shuffle_row_drop_partitions,
             "planning": self._planning_repr,
         }
         for key, want in expected.items():
@@ -446,6 +575,7 @@ class Reader:
     def stop(self):
         self._workers_pool.stop()
         self.stopped = True
+        self.cache.cleanup()
 
     def join(self):
         self._workers_pool.join()

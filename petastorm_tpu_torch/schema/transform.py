@@ -2,7 +2,9 @@
 workers, and the schema delta it makes.
 
 The port's own copy of ``petastorm_tpu/schema/transform.py``. ``func``
-takes a decoded row dict (``make_reader``) and returns a row dict;
+takes a decoded row dict (``make_reader``), a dict of decoded column
+arrays (``make_columnar_reader``) or a pandas DataFrame
+(``make_batch_reader``) and returns the same kind;
 ``edit_fields`` / ``removed_fields`` / ``selected_fields`` describe the
 resulting schema, so the loader sees post-transform dtypes and shapes.
 """
@@ -22,6 +24,19 @@ class TransformSpec:
                                 if selected_fields is not None else None)
         if self.selected_fields is not None and self.removed_fields:
             raise ValueError("Specify only one of selected_fields and removed_fields")
+
+    def __eq__(self, other):
+        return isinstance(other, TransformSpec) and self.__dict__ == other.__dict__
+
+    def __repr__(self):
+        # Address-free, and the JAX package's string: part of the local-disk
+        # cache key, whose cached rows are post-transform.
+        from petastorm_tpu_torch.predicates import _func_fingerprint
+
+        func = _func_fingerprint(self.func) if self.func is not None else None
+        return (f"TransformSpec({func}, edit={self.edit_fields!r}, "
+                f"removed={self.removed_fields!r}, "
+                f"selected={self.selected_fields!r})")
 
 
 def _as_unischema_field(field_spec):

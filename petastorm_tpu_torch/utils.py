@@ -1,10 +1,11 @@
 """Column-wise decode of a row group (the port's own copy of
-``petastorm_tpu/utils.py::decode_table``), shared by the row and columnar
-workers."""
+``petastorm_tpu/utils.py::decode_table``) and the row-drop partition of a
+table, shared by the reader's workers."""
 
 from __future__ import annotations
 
 import numpy as np
+import pyarrow as pa
 
 from petastorm_tpu_torch.schema.codecs import ScalarCodec
 
@@ -51,3 +52,12 @@ def _decode_column(cells, field):
         return ScalarCodec().decode_column(field, cells)
     except Exception as exc:
         raise DecodeFieldError(f"Decoding field {field.name!r} failed: {exc}") from exc
+
+
+def drop_partition(table, shuffle_row_drop_partition):
+    """Rows ``this::num_partitions`` of ``table`` for
+    ``shuffle_row_drop_partition = (this, num_partitions)``."""
+    this_partition, num_partitions = shuffle_row_drop_partition
+    if num_partitions <= 1:
+        return table
+    return table.take(pa.array(np.arange(this_partition, table.num_rows, num_partitions)))

@@ -24,10 +24,11 @@ WORKER_THREAD_PREFIX = "petastorm-tpu-worker-torch"
 
 
 class ThreadPool:
-    def __init__(self, workers_count):
+    def __init__(self, workers_count, results_queue_size=50):
         self.workers_count = workers_count
-        # Bounded, so decode stays at most 50 row groups ahead of the consumer.
-        self._results_queue = queue.Queue(maxsize=50)
+        # Bounded, so decode stays at most ``results_queue_size`` work items
+        # ahead of the consumer.
+        self._results_queue = queue.Queue(maxsize=results_queue_size)
         self._ventilator_queue = queue.Queue()
         self._threads = []
         self._workers = []

@@ -10,7 +10,9 @@ same stores: the Criteo-shaped store both packages write
 - ``filters`` (DNF lists and ``pyarrow.dataset`` expressions) plan the same
   pieces in both packages, and DNF and expression forms agree;
 - ``Unischema.from_arrow_schema`` infers the same fields;
-- arguments the port does not take raise NotImplementedError by name.
+- arguments the port does not take raise NotImplementedError by name (the
+  ported ones are held against the JAX reader in
+  ``test_torch_reader_features.py``).
 
 Tolerance: none; everything here is compared exactly.
 """
@@ -203,8 +205,8 @@ def test_from_arrow_schema_of_the_store_matches_jax(store):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("predicate", object()), ("shuffle_row_drop_partitions", 2),
-    ("transform_spec", object()), ("cache_type", "local-disk"),
+    ("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
+    ("fast_gcs_listing", False), ("zmq_copy_buffers", False),
     ("filesystem", object()), ("piece_indices", [0]), ("dynamic_ventilation", True),
 ])
 def test_unported_arguments_raise_by_name(store, name, value):
@@ -222,5 +224,6 @@ def test_unported_arguments_at_their_default_are_accepted(store):
         assert sum(len(b.sample_index) for b in r) == ROWS
     with pytest.raises(TypeError, match="unexpected keyword"):
         make_batch_reader(store, no_such_argument=1)
-    with pytest.raises(NotImplementedError, match="several dataset URLs"):
-        make_batch_reader([store, store])
+    part = f"{store}/part-00000.parquet"
+    with make_batch_reader([part, part], reader_pool_type="dummy") as r:
+        assert sum(len(b.sample_index) for b in r) == 2 * ROWS

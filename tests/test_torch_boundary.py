@@ -89,6 +89,9 @@ def _entry_points(tmp_path):
     from petastorm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_with_lse
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
     from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
+    from petastorm_tpu_torch import pytorch
+    from petastorm_tpu_torch.models import mnist
+    from petastorm_tpu_torch.reader_impl import pytorch_shuffling_buffer as buffers
 
     q = torch.zeros(1, 8, 2, 16)
     params = {"embed": torch.zeros(64, 16).numpy(), "pos": torch.zeros(8, 16).numpy(),
@@ -120,6 +123,12 @@ def _entry_points(tmp_path):
         "train_dlrm": lambda: tabular_dlrm.train_dlrm(f"file://{tmp_path}/missing"),
         "init_dlrm": lambda: tabular_dlrm.init_dlrm(),
         "dlrm_params_from_jax": lambda: tabular_dlrm.params_from_jax({}),
+        "init_mnist_mlp": lambda: mnist.init_mnist_mlp(),
+        "DataLoader": lambda: pytorch.DataLoader(None),
+        "BatchedDataLoader": lambda: pytorch.BatchedDataLoader(None),
+        "InMemBatchedDataLoader": lambda: pytorch.InMemBatchedDataLoader(None),
+        "BatchedNoopShufflingBuffer": lambda: buffers.BatchedNoopShufflingBuffer(),
+        "BatchedRandomShufflingBuffer": lambda: buffers.BatchedRandomShufflingBuffer(8),
     }
 
 
@@ -131,7 +140,9 @@ def _entry_points(tmp_path):
                                    "init_seq_params", "seq_params_from_jax", "train_sequence",
                                    "train_ragged_causal", "train_packed_causal",
                                    "init_packed_next_step", "train_dlrm", "init_dlrm",
-                                   "dlrm_params_from_jax"])
+                                   "dlrm_params_from_jax", "init_mnist_mlp", "DataLoader", "BatchedDataLoader",
+                                   "InMemBatchedDataLoader", "BatchedNoopShufflingBuffer",
+                                   "BatchedRandomShufflingBuffer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()
