@@ -131,6 +131,42 @@ non-zero exit code):
    one-process gradients within ``DP_GRAD_REL``; ``agree_max_batches``
    gives the minimum of two unequal counts; each rank's steps/s (transport
    on one card, not a claim). No flash kernel runs on this path (counted).
+8. ``reader``: the petastorm reader API at the MNIST example's size
+   (``READER``; see ``reader_phase``): a row-group index and a selector,
+   the example's predicate / drop-partition / local-disk-cache path into
+   its ``DataLoader`` and MLP for two epochs (the second all cache hits),
+   the batch loaders on phase 7's store, and a seeded
+   ``WeightedSamplingReader`` against its host replay.
+9. ``loader``: the loader's own features on phase 4's store (``IMAGE``),
+   after phase 8 in the same process. (a) ``bench.py``'s
+   ``leg_cached_epochs`` on the card: ``make_columnar_reader`` (one
+   worker) → ``make_torch_dataloader(batch_cache=BatchCache(1 GiB))``,
+   two passes, unseeded and at ``shuffle_seed`` 7: the same rows both
+   passes, every warm lookup a hit, the unseeded replay bit-equal in order,
+   each seeded pass the canonical batches in the order
+   ``permutation(fold_in(7, ("cache-epoch", k)), 12)`` by per-batch image
+   digests; cold and warm images/s, the warm hit rate, the cache's bytes.
+   (b) Phase 4's image path on a cached, producer-staged loader
+   (``make_reader`` → ``make_torch_dataloader(last_batch="pad",
+   device_stage, batch_cache=CacheConfig("mem+disk", 256 MiB, a directory),
+   shuffle_seed=7, stage_in_producer=True, trace_path)``) training the
+   full-width CNN for 6 passes, the first filling the cache: every batch
+   on ``cuda:0``, losses finite and falling, 1 fill then 5 hits, the same
+   labels every pass, a ``loader.device_put`` and a ``loader.wait`` span
+   per batch of the last pass in the trace file; pass 1 and warm images/s,
+   stall, dispatch overlap, consumer ms per step, the cache's ``stats()``,
+   and the card's busy share in the warm passes of a second, identical run
+   under ``torch.profiler``, beside phase 4's images/s from this call. (c)
+   The first 12 batches with and without ``stage_in_producer``, at
+   ``device_prefetch`` 1 and 4: bit-equal card tensors. (d) The seeded
+   loader of (b) without the model, with one decode worker (so an
+   uninterrupted run fills the same canonical order), and with a stage that draws nothing
+   (normalize only: a resumed loader restarts the production ordinal the
+   crop and flip draws follow), stopped after 5 batches of pass 3: a
+   ``cache_replay`` state at cache epoch 2; a fresh cache on the same
+   directory and a fresh reader with ``cache_resume`` serve the rest of
+   pass 3 bit-equal to an uninterrupted run, from the disk tier, with no
+   fill. No flash kernel runs on this path (counted).
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -192,6 +228,11 @@ READER = dict(rows=60_000, rows_per_row_group=200, seed=0, batch=64, shuffle=512
               selected_groups=10, tab_days=(2, 5), tab_batch=256, tab_shuffle=4096,
               inmem_epochs=3, dlrm_steps=20, mix=[0.75, 0.25], mix_draws=3000, warm_batches=10)
 DP_GRAD_REL = 1e-6
+# Phase 9: bench.py's leg_cached_epochs (bench.py:355-431: a 1 GiB memory
+# cache, shuffle seed 7) and the image path through the cached,
+# producer-staged loader (a 256 MiB memory tier over a disk tier).
+LOADER = dict(leg_cache_bytes=1 << 30, seed=7, passes=6, mem_mb=256, stage_batches=12,
+              stage_prefetch=(1, 4), resume_passes=2, resume_after=5)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -766,6 +807,7 @@ def image_phase(smi):
           f"loss_first_epoch={np.mean(losses[:warm]):.4f} "
           f"loss_last_epoch={np.mean(losses[-warm:]):.4f} flash_launches={launches}",
           flush=True)
+    return result["images_per_s"]
 
 
 
@@ -1573,6 +1615,313 @@ def tabular_phase(smi):
           f"seconds={dp_s:.1f}", flush=True)
 
 
+def loader_phase(smi, image_images_per_s, cfg=IMAGE, device="cuda"):
+    """Phase 9 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run on
+    the card uses the defaults. ``image_images_per_s``: phase 4's, from this
+    call, printed beside (b)'s."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.cache_impl import BatchCache, CacheConfig
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_columnar_reader, make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.service.seedtree import fold_in, permutation
+    from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+
+    lc, batch = LOADER, cfg["batch"]
+    on_card = torch.device(device).type == "cuda"
+    dev = str(torch.device(device, 0)) if on_card else device
+    per_pass = -(-cfg["rows"] // batch)
+    raw_bytes = batch * int(np.prod(cfg["image_shape"]))
+    stage_kw = dict(normalize=(127.5, 127.5), crop=cfg["crop"], flip=True)
+    fields = ["image", "label"]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def digests(batches):
+        return [hashlib.blake2b(t.cpu().numpy().tobytes(), digest_size=16).hexdigest()
+                for t in batches]
+
+    def equal(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=cfg["rows"],
+                                  image_shape=cfg["image_shape"], num_classes=cfg["classes"],
+                                  rows_per_row_group=cfg["rows_per_row_group"])
+
+        # (a) bench.py's leg_cached_epochs on the card.
+        def cached_epochs(seed):
+            cache = BatchCache(mem_budget_bytes=lc["leg_cache_bytes"])
+            reader = make_columnar_reader(url, reader_pool_type="thread", workers_count=1,
+                                          num_epochs=1, shuffle_row_groups=False,
+                                          schema_fields=fields)
+            # Each pass's images are kept for the checks in a buffer made
+            # beforehand: allocating on the card inside the timed pass
+            # would time the allocator.
+            passes = [torch.empty((per_pass, batch) + tuple(cfg["image_shape"]),
+                                  dtype=torch.uint8, device=device) for _ in range(2)]
+            counts, walls, marks, where = [], [], [], set()
+            try:
+                with make_torch_dataloader(reader, batch, batch_cache=cache, shuffle_seed=seed,
+                                           device=device) as loader:
+                    for images in passes:
+                        n = 0
+                        sync()
+                        t0 = time.perf_counter()
+                        for i, b in enumerate(loader):
+                            if i == per_pass:
+                                fail(f"loader (a) seed={seed}: more than {per_pass} batches "
+                                     "in a pass")
+                            images[i].copy_(b["image"])
+                            where.add(str(b["image"].device))
+                            n += len(b["image"])
+                        sync()
+                        walls.append(time.perf_counter() - t0)
+                        counts.append(n)
+                        stats = cache.stats()
+                        marks.append((stats["hits"], stats["misses"]))
+            finally:
+                cache.cleanup()
+            warm_hits = marks[1][0] - marks[0][0]
+            warm_lookups = warm_hits + marks[1][1] - marks[0][1]
+            return dict(passes=passes, counts=counts, where=where, stats=stats,
+                        cold=counts[0] / walls[0], warm=counts[1] / walls[1],
+                        hit_rate=warm_hits / warm_lookups if warm_lookups else None)
+
+        leg = {seed: cached_epochs(seed) for seed in (None, lc["seed"])}
+        canonical = digests(leg[None]["passes"][0])
+        for seed, run in leg.items():
+            if run["counts"] != [per_pass * batch] * 2 or run["where"] != {dev}:
+                fail(f"loader (a) seed={seed}: passes delivered {run['counts']} rows on "
+                     f"{run['where']}, expected {per_pass * batch} per pass on {dev}")
+            if run["hit_rate"] != 1.0:
+                fail(f"loader (a) seed={seed}: warm hit rate {run['hit_rate']}, expected 1.0")
+        if not equal(leg[None]["passes"][1], leg[None]["passes"][0]):
+            fail("loader (a): the unseeded warm pass is not the cold pass bit for bit")
+        seeded = [digests(images) for images in leg[lc["seed"]]["passes"]]
+        for k, got in enumerate(seeded):
+            order = permutation(fold_in(lc["seed"], ("cache-epoch", k)), per_pass)
+            if got != [canonical[i] for i in order]:
+                fail(f"loader (a): seeded pass {k} is not the canonical batches in the order "
+                     f"permutation(fold_in({lc['seed']}, ('cache-epoch', {k})), {per_pass})")
+        if seeded[0] == seeded[1] or leg[lc["seed"]]["stats"]["permuted_serves"] != 2:
+            fail(f"loader (a): the seeded passes' orders are equal or not counted as permuted "
+                 f"({leg[lc['seed']]['stats']['permuted_serves']} permuted serves)")
+        leg_lines = [
+            f"seed={seed}: cold_images_per_sec={run['cold']:.1f} "
+            f"warm_images_per_sec={run['warm']:.1f} warm_vs_cold={run['warm'] / run['cold']:.3f} "
+            f"cache_hit_rate={run['hit_rate']} bytes_mem={run['stats']['bytes_mem']} "
+            f"permuted_serves={run['stats']['permuted_serves']}"
+            for seed, run in leg.items()]
+        del leg, seeded
+
+        # (b) The image path on a cached, producer-staged loader.
+        in_shape = cfg["crop"] + (cfg["image_shape"][2],)
+
+        def image_run(name):
+            cache = CacheConfig("mem+disk", mem_mb=lc["mem_mb"],
+                                cache_dir=os.path.join(tmp, f"{name}_cache")).build()
+            reader = make_reader(url, schema_fields=fields, num_epochs=1,
+                                 shuffle_row_groups=False)
+            trace_path = os.path.join(tmp, f"{name}_loader_trace.json")
+            model = ic.init_image_classifier(in_shape, cfg["classes"], hidden=cfg["hidden"],
+                                             conv_features=cfg["conv_features"], device=device)
+            step = ic.make_image_train_step(model, cfg["lr"])
+            out = dict(losses=[], walls=[], diags=[], labels=[], where=set())
+            try:
+                with make_torch_dataloader(
+                        reader, batch, last_batch="pad", device_stage=DeviceStage(**stage_kw),
+                        batch_cache=cache, shuffle_seed=lc["seed"], stage_in_producer=True,
+                        trace_path=trace_path, device=device) as loader:
+                    for _ in range(lc["passes"]):
+                        losses = []
+                        labels = torch.zeros(cfg["classes"], dtype=torch.int64, device=device)
+                        sync()
+                        t0 = time.perf_counter()
+                        for b in loader:
+                            out["where"].update(str(t.device) for t in b.values())
+                            images = b["image"]
+                            mask = b.get(PAD_MASK_KEY)
+                            if mask is None:
+                                mask = torch.ones(images.shape[0], dtype=torch.bool,
+                                                  device=images.device)
+                            losses.append(step(images, b["label"], mask))
+                            labels.index_add_(0, b["label"].long(), mask.long())
+                        sync()
+                        out["walls"].append(time.perf_counter() - t0)
+                        out["losses"].append([float(x) for x in losses])
+                        out["labels"].append(labels.cpu().tolist())
+                        out["diags"].append(loader.diagnostics)
+                out["stats"] = cache.stats()
+            finally:
+                cache.cleanup()
+            with open(trace_path) as f:
+                events = json.load(f)["traceEvents"]
+            out["spans"] = {name: sum(1 for e in events if e["ph"] == "B" and e["name"] == name)
+                            for name in ("loader.decode", "loader.wait", "loader.device_put",
+                                         "loader.consumer")}
+            return out
+
+        fa.reset_launch_counts()
+        run = image_run("b")
+        launches = dict(fa.LAUNCHES)
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced = image_run("b_traced")
+            trace = os.path.join(tmp, "b_profile.json")
+            prof.export_chrome_trace(trace)
+            busy = device_busy_pct(trace, raw_bytes, per_pass)
+        else:
+            traced, busy = run, "not measured"
+        if any(launches.values()):
+            fail(f"loader (b): the path launched flash kernels: {launches}")
+        if run["where"] != {dev}:
+            fail(f"loader (b): batches arrived on {run['where']}, not {dev}")
+        first, last = np.mean(run["losses"][0]), np.mean(run["losses"][-1])
+        if not all(math.isfinite(x) for p in run["losses"] for x in p) or not last < first:
+            fail(f"loader (b): loss not finite and falling: pass means "
+                 f"{[round(float(np.mean(p)), 4) for p in run['losses']]}")
+        stats = run["stats"]
+        if (stats["misses"], stats["hits"], stats["permuted_serves"]) != (
+                1, lc["passes"] - 1, lc["passes"]):
+            fail(f"loader (b): cache misses / hits / permuted serves {stats['misses']} / "
+                 f"{stats['hits']} / {stats['permuted_serves']}, expected 1 / "
+                 f"{lc['passes'] - 1} / {lc['passes']}")
+        if any(labels != run["labels"][0] for labels in run["labels"]) or \
+                sum(run["labels"][0]) != cfg["rows"]:
+            fail(f"loader (b): the passes trained on different labels: {run['labels']}")
+        if run["spans"]["loader.device_put"] != per_pass or \
+                run["spans"]["loader.wait"] != per_pass:
+            fail(f"loader (b): the trace of the last pass holds {run['spans']}, expected "
+                 f"{per_pass} loader.device_put and loader.wait spans")
+        warm = run["diags"][1:]
+        walls = run["walls"]
+        stall_pct = 100.0 * sum(d["stall_s"] for d in warm) / sum(d["wall_s"] for d in warm)
+        consumer_ms = 1e3 * sum(d["consumer_s"] for d in warm) / sum(d["batches"] for d in warm)
+        cold_ips = cfg["rows"] / walls[0]
+        warm_ips = (lc["passes"] - 1) * cfg["rows"] / sum(walls[1:])
+        traced_warm_ips = (lc["passes"] - 1) * cfg["rows"] / sum(traced["walls"][1:])
+        decode_ms = [1e3 * sum(d["producer_decode_s"] for d in diags)
+                     / sum(d["batches"] for d in diags) for diags in (run["diags"][:1], warm)]
+        del traced
+
+        # (c) Producer-side staging is invisible in the data.
+        def staged(stage_in_producer, prefetch):
+            reader = make_reader(url, schema_fields=fields, num_epochs=1, workers_count=1,
+                                 shuffle_row_groups=False)
+            with make_torch_dataloader(
+                    reader, batch, last_batch="pad", device_stage=DeviceStage(**stage_kw),
+                    max_batches=lc["stage_batches"], stage_in_producer=stage_in_producer,
+                    device_prefetch=prefetch, device=device) as loader:
+                return [(b["image"], b["label"]) for b in loader]
+
+        runs = {(sip, p): staged(sip, p) for sip in (False, True) for p in lc["stage_prefetch"]}
+        ref = runs[(False, lc["stage_prefetch"][0])]
+        if len(ref) != lc["stage_batches"]:
+            fail(f"loader (c): {len(ref)} batches, expected {lc['stage_batches']}")
+        for key, got in runs.items():
+            if not all(equal(g, w) for g, w in zip(got, ref)) or len(got) != len(ref):
+                fail(f"loader (c): stage_in_producer={key[0]} device_prefetch={key[1]} gave "
+                     "other card tensors than consumer-side staging at device_prefetch 1")
+        del runs, ref
+
+        # (d) Resume a permuted pass from the disk tier.
+        def resume_loader(cache, cache_resume=None):
+            # One decode worker: the uninterrupted run fills its own entry,
+            # which must hold the canonical order the interrupted run's does.
+            reader = make_reader(url, schema_fields=fields, num_epochs=1, workers_count=1,
+                                 shuffle_row_groups=False)
+            return make_torch_dataloader(
+                reader, batch, last_batch="pad",
+                device_stage=DeviceStage(normalize=stage_kw["normalize"]), batch_cache=cache,
+                shuffle_seed=lc["seed"], stage_in_producer=True, cache_resume=cache_resume,
+                device=device)
+
+        def take(batches):
+            return [(b["image"], b["label"]) for b in batches]
+
+        full_cache = BatchCache(mem_budget_bytes=lc["mem_mb"] << 20)
+        with resume_loader(full_cache) as loader:
+            for _ in range(lc["resume_passes"]):
+                for _ in loader:
+                    pass
+            want = take(loader)
+        full_cache.cleanup()
+        cache_dir = os.path.join(tmp, "d_cache")
+        cache = CacheConfig("mem+disk", mem_mb=lc["mem_mb"], cache_dir=cache_dir).build()
+        with resume_loader(cache) as loader:
+            for _ in range(lc["resume_passes"]):
+                for _ in loader:
+                    pass
+            iterator = iter(loader)
+            head = take(next(iterator) for _ in range(lc["resume_after"]))
+            state = loader.state_dict()
+            iterator.close()
+        cache.cleanup()
+        del loader, cache
+        want_state = {"version": 1, "kind": "cache_replay", "cache_epoch": lc["resume_passes"],
+                      "batches_yielded": lc["resume_after"], "shuffle_seed": lc["seed"]}
+        if state != want_state:
+            fail(f"loader (d): state_dict() {state}, expected {want_state}")
+        cache = CacheConfig("mem+disk", mem_mb=lc["mem_mb"], cache_dir=cache_dir).build()
+        t0 = time.perf_counter()
+        with resume_loader(cache, state) as loader:
+            rest = take(loader)
+        sync()
+        resume_s = time.perf_counter() - t0
+        resumed = cache.stats()
+        cache.cleanup()
+        if not all(equal(g, w) for g, w in zip(head + rest, want)) or \
+                len(head) + len(rest) != len(want):
+            fail(f"loader (d): the interrupted + resumed pass 3 ({len(head)} + {len(rest)} "
+                 f"batches) is not the uninterrupted pass's {len(want)} bit for bit")
+        if resumed["hits_disk"] < 1 or resumed["misses"] != 0:
+            fail(f"loader (d): the resumed cache counted {resumed['hits_disk']} disk hits and "
+                 f"{resumed['misses']} misses, expected >= 1 and 0 (no fill)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"loader (a): gpu={smi!r} bench.py leg_cached_epochs: make_columnar_reader(workers=1) "
+          f"-> make_torch_dataloader({batch}, batch_cache=BatchCache(1 GiB)), 2 passes of "
+          f"{per_pass} batches | " + " | ".join(leg_lines)
+          + "; unseeded replay bit-equal, seeded passes in the seed-tree order", flush=True)
+    print(f"loader (b): gpu={smi!r} make_reader -> make_torch_dataloader(pad, DeviceStage("
+          f"crop={cfg['crop']}, flip), CacheConfig('mem+disk', {lc['mem_mb']} MiB), "
+          f"shuffle_seed={lc['seed']}, stage_in_producer, trace_path) -> CNN conv="
+          f"{cfg['conv_features']} hidden={cfg['hidden']}, {lc['passes']} passes: "
+          f"pass1_images_per_s={cold_ips:.1f} warm_images_per_s={warm_ips:.1f} "
+          f"(passes 2-{lc['passes']}) phase4_images_per_s={image_images_per_s:.1f} "
+          f"input_stall_pct_warm={stall_pct:.2f} "
+          f"dispatch_overlap_pct_last={warm[-1]['dispatch_overlap_pct']} "
+          f"consumer_ms_per_step_warm={consumer_ms:.3f} "
+          f"producer_decode_ms_per_batch_pass1={decode_ms[0]:.3f} "
+          f"producer_decode_ms_per_batch_warm={decode_ms[1]:.3f} "
+          f"traced_warm_images_per_s={traced_warm_ips:.1f} device_busy_pct_traced_warm={busy} "
+          f"loss_pass1={first:.4f} loss_pass{lc['passes']}={last:.4f} "
+          f"last_pass_spans={run['spans']} cache_stats={json.dumps(stats)} "
+          f"flash_launches={launches}", flush=True)
+    print(f"loader (c): the first {lc['stage_batches']} batches at stage_in_producer "
+          f"False/True x device_prefetch {list(lc['stage_prefetch'])}: bit-equal card "
+          "tensors (the stage's draws follow the production ordinal)", flush=True)
+    print(f"loader (d): stopped after {lc['resume_after']} batches of pass "
+          f"{lc['resume_passes'] + 1}: {json.dumps(state)}; a fresh BatchCache on the same "
+          f"directory and a fresh reader resumed the pass in {resume_s:.2f} s: "
+          f"{len(rest)} batches bit-equal to the uninterrupted run's; hits_disk="
+          f"{resumed['hits_disk']} misses={resumed['misses']}", flush=True)
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -1779,14 +2128,16 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 8. reader --------------------------------------------
+    # -- 4. image ... 9. loader --------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
+    out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
                       ("sp", lambda: sp_phase(result["steps_per_s"])),
                       ("tabular", lambda: tabular_phase(smi)),
-                      ("reader", lambda: reader_phase(smi))):
+                      ("reader", lambda: reader_phase(smi)),
+                      ("loader", lambda: loader_phase(smi, out["image"]))):
         t_phase = time.perf_counter()
-        run()
+        out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase
     print("phases: " + " ".join(f"{name}_s={sec:.1f}" for name, sec in phase_s.items())
           + f" total_s={time.perf_counter() - t_start:.1f}", flush=True)

@@ -6,7 +6,9 @@ columnar readers and the plain-Parquet batch reader, with Parquet-stats
 partitions and the local-disk cache, over worker pools; row batching,
 sequence packing) delivering batches to PyTorch on an NVIDIA GPU, through
 the classic petastorm loaders (``petastorm_tpu_torch.pytorch``) or the
-port's own, with resumable input (reader and
+port's own (with the decoded-batch cache in front of the reader, its
+memory and disk tiers replaying each later epoch in a seeded order;
+producer-side staging; a per-batch Chrome trace), with resumable input (reader and
 loader ``state_dict()`` / ``resume_state=``), joint model + input
 checkpoints, equal-step sharded delivery over ``torch.distributed``, the
 on-card image stage (crop / flip / cast / normalize of staged uint8 bytes),
@@ -77,6 +79,8 @@ _LAZY_EXPORTS = {
                             "save_training_state"),
     "restore_training_state": ("petastorm_tpu_torch.torch_utils.checkpoint",
                                "restore_training_state"),
+    "BatchCache": ("petastorm_tpu_torch.cache_impl.batch_cache", "BatchCache"),
+    "CacheConfig": ("petastorm_tpu_torch.cache_impl.batch_cache", "CacheConfig"),
 }
 
 __all__ = list(_LAZY_EXPORTS) + ["__version__"]

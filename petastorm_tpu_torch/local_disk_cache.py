@@ -6,7 +6,8 @@ One file per key, named by the sha256 of ``repr(key)``; a value is written
 to a temporary file and renamed into place, so readers on one host may
 share a directory. After each store the least recently used entries (by
 access or modification time; a hit touches its entry) are deleted until
-the directory's entries fit ``size_limit`` bytes.
+the directory's entries fit ``size_limit`` bytes
+(:mod:`petastorm_tpu_torch.cache_impl.eviction`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import shutil
 import tempfile
 
 from petastorm_tpu_torch.cache import CacheBase
+from petastorm_tpu_torch.cache_impl.eviction import dir_size, evict_dir_to_limit
 
 
 class LocalDiskCache(CacheBase):
@@ -77,43 +79,11 @@ class LocalDiskCache(CacheBase):
                 except OSError:
                     pass
             return
-        self._evict_to_limit()
-
-    def _entries(self):
-        """``(recency, size, path)`` of every entry."""
-        try:
-            names = os.listdir(self._path)
-        except OSError:
-            return []
-        out = []
-        for name in names:
-            if not name.endswith(self._SUFFIX):
-                continue
-            full = os.path.join(self._path, name)
-            try:
-                st = os.stat(full)
-            except OSError:  # deleted by another reader meanwhile
-                continue
-            out.append((max(st.st_atime, st.st_mtime), st.st_size, full))
-        return out
-
-    def _evict_to_limit(self):
-        if self._size_limit is None:
-            return
-        entries = sorted(self._entries())  # least recently used first
-        total = sum(size for _, size, _ in entries)
-        for _, size, full in entries:
-            if total <= self._size_limit:
-                break
-            try:
-                os.unlink(full)
-            except OSError:
-                continue
-            total -= size
+        evict_dir_to_limit(self._path, self._size_limit, self._SUFFIX)
 
     def size_on_disk(self):
         """Bytes of the entries in the directory."""
-        return sum(size for _, size, _ in self._entries())
+        return dir_size(self._path, self._SUFFIX)
 
     def cleanup(self):
         if self._cleanup_on_exit:

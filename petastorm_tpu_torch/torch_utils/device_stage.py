@@ -14,7 +14,7 @@ normalize on the card, as plain tensor ops on the loader's copy stream:
 Randomness is a pure function of (seed, step ordinal, field ordinal): the
 draws are made on the host by numpy's counter-based Philox generator keyed
 by a blake2b fold of those three (the seed-tree ``fold_in`` of
-``petastorm_tpu/service/seedtree.py``), as small offset and flip arrays.
+:mod:`petastorm_tpu_torch.service.seedtree`), as small offset and flip arrays.
 So the card and the CPU draw the same whatever the prefetch depth, and
 :meth:`DeviceStage.draws` shows them to tests. (The bitstream differs from
 the JAX package's threefry draws; the determinism contract is the same.)
@@ -22,23 +22,12 @@ the JAX package's threefry draws; the determinism contract is the same.)
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
+from petastorm_tpu_torch.service.seedtree import fold_in
+
 __all__ = ["DeviceStage"]
-
-_KEY_MASK = (1 << 64) - 1
-
-
-def _fold_in(key, data):
-    """A child key of ``key`` and ``data``: the first 8 bytes of
-    ``blake2b(key || repr(data))`` (deterministic across processes)."""
-    h = hashlib.blake2b(digest_size=8)
-    h.update((int(key) & _KEY_MASK).to_bytes(8, "big"))
-    h.update(repr(data).encode("utf-8"))
-    return int.from_bytes(h.digest(), "big")
 
 
 def _channel_tensor(value, dtype):
@@ -130,7 +119,7 @@ class DeviceStage:
         a batch of ``shape`` (``[B, H, W, ...]``): ``{"offsets": [B, 2]
         int64 (row, column) crop offsets or None, "flips": [B] bool or
         None}``."""
-        key = _fold_in(_fold_in(self._seed, ("step", int(step))), ("field", int(index)))
+        key = fold_in(fold_in(self._seed, ("step", int(step))), ("field", int(index)))
         rng = np.random.Generator(np.random.Philox(key=key))
         b, h, w = shape[0], shape[1], shape[2]
         offsets = flips = None

@@ -1,6 +1,7 @@
 """Column-wise decode of a row group (the port's own copy of
 ``petastorm_tpu/utils.py::decode_table``) and the row-drop partition of a
-table, shared by the reader's workers."""
+table, shared by the reader's workers; the live resize of a bounded queue
+(``resize_bounded_queue``), which the loader's prefetch depths use."""
 
 from __future__ import annotations
 
@@ -61,3 +62,14 @@ def drop_partition(table, shuffle_row_drop_partition):
     if num_partitions <= 1:
         return table
     return table.take(pa.array(np.arange(this_partition, table.num_rows, num_partitions)))
+
+
+def resize_bounded_queue(q, maxsize):
+    """Set a ``queue.Queue``'s bound while it is in use: waiters blocked on
+    the old bound are woken, so a raise takes effect at once, and a shrink
+    lets the queue drain down to the new bound (``put`` re-checks
+    ``maxsize`` under the mutex, so nothing is dropped). ``mutex`` and
+    ``not_full`` share one lock in ``queue.Queue``."""
+    with q.mutex:
+        q.maxsize = int(maxsize)
+        q.not_full.notify_all()

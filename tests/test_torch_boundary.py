@@ -92,6 +92,7 @@ def _entry_points(tmp_path):
     from petastorm_tpu_torch import pytorch
     from petastorm_tpu_torch.models import mnist
     from petastorm_tpu_torch.reader_impl import pytorch_shuffling_buffer as buffers
+    from petastorm_tpu_torch.cache_impl import BatchCache
 
     q = torch.zeros(1, 8, 2, 16)
     params = {"embed": torch.zeros(64, 16).numpy(), "pos": torch.zeros(8, 16).numpy(),
@@ -105,6 +106,10 @@ def _entry_points(tmp_path):
         "init_lm_params": lambda: init_lm_params(),
         "params_from_jax": lambda: params_from_jax(params, num_heads=2),
         "make_torch_dataloader": lambda: make_torch_dataloader(None, 8),
+        "make_torch_dataloader_stage_in_producer": lambda: make_torch_dataloader(
+            None, 8, stage_in_producer=True),
+        "make_torch_dataloader_batch_cache": lambda: make_torch_dataloader(
+            None, 8, batch_cache=BatchCache(mem_budget_bytes=1 << 20)),
         "train_image_classifier": lambda: image_classifier.train_image_classifier(
             f"file://{tmp_path}/missing"),
         "init_image_classifier": lambda: image_classifier.init_image_classifier((8, 8, 3), 10),
@@ -142,7 +147,9 @@ def _entry_points(tmp_path):
                                    "init_packed_next_step", "train_dlrm", "init_dlrm",
                                    "dlrm_params_from_jax", "init_mnist_mlp", "DataLoader", "BatchedDataLoader",
                                    "InMemBatchedDataLoader", "BatchedNoopShufflingBuffer",
-                                   "BatchedRandomShufflingBuffer"])
+                                   "BatchedRandomShufflingBuffer",
+                                   "make_torch_dataloader_stage_in_producer",
+                                   "make_torch_dataloader_batch_cache"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()
