@@ -167,6 +167,37 @@ non-zero exit code):
    directory and a fresh reader with ``cache_resume`` serve the rest of
    pass 3 bit-equal to an uninterrupted run, from the disk tier, with no
    fill. No flash kernel runs on this path (counted).
+10. ``etl``: the dataset writer, its CLIs and ``Reader.reset()``, after
+   phase 9 in the same process (``ETL``; see ``etl_phase``). (a) The
+   ImageNet example's store (``models/imagenet.py``: 512 synthetic rows of
+   375x500x3 png from one ``RandomState(0)`` stream) written through
+   ``materialize_dataset(None, url, schema, row_group_size_mb=64)`` and
+   ``write_rows(..., row_group_size_mb=64)`` at 1 and 8 encode workers: the
+   two stores byte-equal, the row groups those the probe rule gives
+   (computed here from the first 64 encoded rows), ``python -m
+   petastorm_tpu_torch.etl.metadata_util --schema`` listing the three
+   fields; read back through ``make_reader`` (thread pool) and
+   ``make_torch_dataloader(32)`` onto ``cuda:0``: every image bit-equal to
+   the row written (per-row digests taken at generation), 562,500 H2D bytes
+   a row (the string labels stay on the host), nonzero ``items_ventilated``
+   and ``items_processed`` in ``Reader.diagnostics`` mid-pass, then
+   ``reader.reset()`` and a second pass with the same ids and images.
+   Printed: write rows/s and MB/s at each worker count, rows per group,
+   read-back rows/s. (b) ``generate_corpus``'s 512 documents (as plain
+   int32 columns, which a schema inferred from the files decodes) through
+   ``write_rows(compression="zstd", rows_per_file=128, encode_workers=4,
+   basename_template="lm-{:03d}.parquet")``; ``_common_metadata`` deleted and
+   regenerated by ``python -m
+   petastorm_tpu_torch.etl.petastorm_generate_metadata`` (inference);
+   ``count_packed_batches`` on a one-epoch counting reader equal to the
+   batches ``make_packed_torch_dataloader`` delivers to the card from the
+   same reader arguments, ``unpack`` of them (on the host) the written
+   documents as a multiset, and ``train_lm`` 12 steps on the store: losses
+   finite and falling, all three kernels launched (counted). (c) ``python
+   -m petastorm_tpu_torch.tools.copy_dataset`` of (a)'s store with
+   ``--field-regex noun_id image --partitions-count 2``: two files, read
+   back on the card with the same digests. No flash kernel runs in (a) or
+   (c) (counted).
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -233,6 +264,12 @@ DP_GRAD_REL = 1e-6
 # producer-staged loader (a 256 MiB memory tier over a disk tier).
 LOADER = dict(leg_cache_bytes=1 << 30, seed=7, passes=6, mem_mb=256, stage_batches=12,
               stage_prefetch=(1, 4), resume_passes=2, resume_after=5)
+# Phase 10: the ImageNet example's store (examples/imagenet: 512 synthetic rows of
+# 375x500x3 png, row_group_size_mb=64) written at 1 encode worker and at 8 (one per
+# core of an 8-core host) and read back in batches of 32; the LM corpus through the
+# reference write forms; copy_dataset of the ImageNet store into 2 files.
+ETL = dict(rows=512, row_group_mb=64, workers=(1, 8), batch=32, lm_docs=512,
+           lm_rows_per_file=128, lm_encode_workers=4, lm_steps=12, copy_files=2)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -1922,6 +1959,255 @@ def loader_phase(smi, image_images_per_s, cfg=IMAGE, device="cuda"):
           f"{resumed['hits_disk']} misses={resumed['misses']}", flush=True)
 
 
+def etl_phase(smi, cfg=ETL, device="cuda"):
+    """Phase 10 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run on
+    the card uses the defaults."""
+    import hashlib
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from petastorm_tpu_torch.etl.metadata import (
+        get_schema_from_dataset_url,
+        load_row_groups,
+        materialize_dataset,
+        write_rows,
+    )
+    from petastorm_tpu_torch.fs_utils import FilesystemResolver
+    from petastorm_tpu_torch.models import imagenet
+    from petastorm_tpu_torch.models.long_context_lm import corpus_rows, corpus_schema, train_lm
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_columnar_reader, make_reader
+    from petastorm_tpu_torch.schema.unischema import encode_row
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+    from petastorm_tpu_torch.torch_utils.packing import (
+        PACK_SEGMENT_KEY,
+        count_packed_batches,
+        make_packed_torch_dataloader,
+        unpack,
+    )
+
+    on_card = torch.device(device).type == "cuda"
+    dev = str(torch.device(device, 0)) if on_card else device
+    rows_n, batch, schema = cfg["rows"], cfg["batch"], imagenet.ImagenetSchema
+    image_bytes = int(np.prod(imagenet.IMAGE_SHAPE))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def digest(array):
+        return hashlib.blake2b(np.ascontiguousarray(array).tobytes(), digest_size=16).hexdigest()
+
+    def files(directory):
+        return {name: digest(np.fromfile(os.path.join(directory, name), np.uint8))
+                for name in sorted(os.listdir(directory))}
+
+    def store_bytes(directory):
+        return sum(os.path.getsize(os.path.join(directory, name))
+                   for name in os.listdir(directory) if not name.startswith("_"))
+
+    def cli(module, *args):
+        out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                             text=True, timeout=300, cwd=REPO,
+                             env=dict(os.environ, PYTHONPATH=REPO))
+        if out.returncode != 0:
+            fail(f"etl: python -m {module} exited {out.returncode}:\n{out.stderr}")
+        return out.stdout.splitlines()
+
+    def read_images(reader, passes):
+        """Each pass through ``make_torch_dataloader`` (re-iterated after
+        ``reader.reset()``): its noun ids, card images, wall s, the reader's
+        diagnostics halfway, and the loader's H2D bytes."""
+        out = []
+        with make_torch_dataloader(reader, batch, last_batch="keep", device=device) as loader:
+            for p in range(passes):
+                if p:
+                    reader.reset()
+                ids, images, mid = [], [], None
+                sync()
+                t0 = time.perf_counter()
+                for b in loader:
+                    ids.extend(str(n) for n in b["noun_id"])
+                    images.append(b["image"])
+                    if len(images) == max(2, -(-rows_n // batch) // 2):
+                        mid = reader.diagnostics
+                sync()
+                out.append(dict(ids=ids, images=images, seconds=time.perf_counter() - t0,
+                                mid=mid, h2d=loader.diagnostics["h2d_bytes"],
+                                where={str(t.device) for t in images}))
+        return out
+
+    def check_images(label, run, want_ids):
+        if run["where"] != {dev}:
+            fail(f"etl {label}: batches arrived on {run['where']}, not {dev}")
+        if sorted(run["ids"]) != sorted(want_ids):
+            fail(f"etl {label}: read {len(run['ids'])} rows, not the {len(want_ids)} written")
+        got = [digest(row) for t in run["images"] for row in t.cpu().numpy()]
+        bad = [n for n, d in zip(run["ids"], got) if d != digests[n]]
+        if bad:
+            fail(f"etl {label}: {len(bad)} images differ from the rows written, e.g. {bad[:3]}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_etl_")
+    try:
+        # (a) The ImageNet example's store, written twice by the port.
+        rows = list(imagenet.synthetic_rows(rows_n))
+        digests = {r["noun_id"]: digest(r["image"]) for r in rows}
+        fa.reset_launch_counts()
+        writes = {}
+        for workers in cfg["workers"]:
+            url = f"file://{tmp}/imagenet_w{workers}"
+            t0 = time.perf_counter()
+            with materialize_dataset(None, url, schema, row_group_size_mb=cfg["row_group_mb"]):
+                written = write_rows(url, schema, rows, row_group_size_mb=cfg["row_group_mb"],
+                                     encode_workers=workers)
+            seconds = time.perf_counter() - t0
+            path = os.path.join(tmp, f"imagenet_w{workers}")
+            writes[workers] = dict(url=url, path=path, seconds=seconds, files=files(path),
+                                   written=len(written), mb=store_bytes(path) / 1e6)
+        serial, parallel = (writes[w] for w in cfg["workers"])
+        if serial["files"] != parallel["files"]:
+            fail(f"etl (a): the stores written at {cfg['workers']} encode workers differ: "
+                 f"{serial['files']} vs {parallel['files']}")
+        # The probe rule, computed here: the bytes per row of the first 64
+        # encoded rows, in a table of the storage schema.
+        probe = [encode_row(schema, r) for r in rows[:64]]
+        bytes_per_row = max(1, pa.Table.from_pylist(probe, schema=schema.as_arrow_schema())
+                            .nbytes // len(probe))
+        group_rows = max(1, (cfg["row_group_mb"] << 20) // bytes_per_row)
+        fs = FilesystemResolver(parallel["url"]).filesystem()
+        groups = [p.num_rows for p in load_row_groups(fs, parallel["path"])]
+        want_groups = [min(group_rows, rows_n - i) for i in range(0, rows_n, group_rows)]
+        if groups != want_groups:
+            fail(f"etl (a): row groups of {groups} rows, the probe rule gives {want_groups}")
+        listing = cli("petastorm_tpu_torch.etl.metadata_util", parallel["url"], "--schema")
+        listed = [line.split(":")[0].strip() for line in listing if "dtype=" in line]
+        if listed != ["noun_id", "text", "image"]:
+            fail(f"etl (a): metadata_util --schema listed {listed}:\n" + "\n".join(listing))
+        reader = make_reader(parallel["url"], reader_pool_type="thread")
+        read = read_images(reader, passes=2)
+        for p, run in enumerate(read):
+            check_images(f"(a) pass {p + 1}", run, list(digests))
+        first = read[0]
+        if first["h2d"] != (rows_n * image_bytes if on_card else 0):
+            fail(f"etl (a): {first['h2d']} H2D bytes for {rows_n} rows, expected "
+                 f"{image_bytes} a row (the string labels stay on the host)")
+        mid = first["mid"]
+        if not (mid and mid["items_ventilated"] > 0 and mid["items_processed"] > 0):
+            fail(f"etl (a): mid-pass reader diagnostics {mid}: the live counters did not move")
+        end = reader.diagnostics
+        if end["epochs_completed"] != 2 or end["items_processed"] != 2 * len(groups):
+            fail(f"etl (a): diagnostics after two passes {end}")
+        for run in read:
+            del run["images"]
+        launches_a = dict(fa.LAUNCHES)
+        write_lines = [f"encode_workers={w}: {rows_n / writes[w]['seconds']:.1f} rows/s "
+                       f"{writes[w]['mb'] / writes[w]['seconds']:.1f} MB/s (store "
+                       f"{writes[w]['mb']:.1f} MB, {writes[w]['seconds']:.3f} s)"
+                       for w in cfg["workers"]]
+
+        # (b) The LM corpus through the reference write forms, its metadata
+        # regenerated by inference, then packed and trained on the card.
+        lm_url, lm_path = f"file://{tmp}/corpus", os.path.join(tmp, "corpus")
+        docs = list(corpus_rows(cfg["lm_docs"]))
+        lm_schema = corpus_schema(encoded=False)
+        t0 = time.perf_counter()
+        with materialize_dataset(None, lm_url, lm_schema):
+            lm_files = write_rows(lm_url, lm_schema, docs, compression="zstd",
+                                  rows_per_file=cfg["lm_rows_per_file"],
+                                  encode_workers=cfg["lm_encode_workers"],
+                                  basename_template="lm-{:03d}.parquet")
+        lm_write_s = time.perf_counter() - t0
+        want_files = [os.path.join(lm_path, f"lm-{i:03d}.parquet")
+                      for i in range(-(-cfg["lm_docs"] // cfg["lm_rows_per_file"]))]
+        if lm_files != want_files:
+            fail(f"etl (b): wrote {lm_files}, expected {want_files}")
+        os.remove(os.path.join(lm_path, "_common_metadata"))
+        regen = cli("petastorm_tpu_torch.etl.petastorm_generate_metadata", lm_url)
+        inferred = get_schema_from_dataset_url(lm_url)
+        shapes = {n: (np.dtype(f.numpy_dtype).name, f.shape, f.codec)
+                  for n, f in inferred.fields.items()}
+        if inferred._name != "inferred_schema" or shapes != {
+                "tokens": ("int32", (None,), None), "length": ("int32", (), None)}:
+            fail(f"etl (b): regenerated schema {inferred!r}")
+        lm_groups = [p.num_rows for p in load_row_groups(fs, lm_path)]
+        if lm_groups != [cfg["lm_rows_per_file"]] * len(want_files):
+            fail(f"etl (b): regenerated row groups {lm_groups}")
+        reader_kw = dict(num_epochs=1, shuffle_row_groups=True, shard_seed=0, workers_count=1)
+        pack_kw = dict(slot_len=128, slots=4, sequence_fields=["tokens"], length_field="length")
+        counted = count_packed_batches(make_columnar_reader(lm_url, **reader_kw), **pack_kw)
+        reader = make_columnar_reader(lm_url, **reader_kw)
+        packed = []
+        with make_packed_torch_dataloader(reader, device=device, **pack_kw) as loader:
+            for b in loader:
+                if b[PACK_SEGMENT_KEY].device != torch.device(dev):
+                    fail(f"etl (b): a packed batch arrived on {b[PACK_SEGMENT_KEY].device}")
+                packed.append({k: t.cpu() for k, t in b.items()})
+        if len(packed) != counted:
+            fail(f"etl (b): count_packed_batches gave {counted}, the loader delivered "
+                 f"{len(packed)} batches")
+        got_docs = sorted(tuple(d.tolist()) for b in packed for d in unpack(b, "tokens"))
+        want_docs = sorted(tuple(d["tokens"][:d["length"]].tolist()) for d in docs)
+        if got_docs != want_docs:
+            fail(f"etl (b): unpack gave {len(got_docs)} documents, not the "
+                 f"{len(want_docs)} written")
+        fa.reset_launch_counts()
+        trained = train_lm(lm_url, steps=cfg["lm_steps"], device=device)
+        launches_b = dict(fa.LAUNCHES)
+        losses = trained["losses"]
+        if len(losses) != cfg["lm_steps"] or not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"etl (b): losses not {cfg['lm_steps']} finite and falling: {losses}")
+        if on_card and min(launches_b.values()) < 1:
+            fail(f"etl (b): a kernel was not launched by train_lm: {launches_b}")
+
+        # (c) copy_dataset of (a)'s store: two fields, two files.
+        copy_url, copy_path = f"file://{tmp}/copy", os.path.join(tmp, "copy")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli("petastorm_tpu_torch.tools.copy_dataset", parallel["url"], copy_url,
+            "--field-regex", "noun_id", "image", "--partitions-count", str(cfg["copy_files"]))
+        copy_s = time.perf_counter() - t0
+        copied = sorted(n for n in os.listdir(copy_path) if not n.startswith("_"))
+        if len(copied) != cfg["copy_files"]:
+            fail(f"etl (c): copy_dataset wrote {copied}, expected {cfg['copy_files']} files")
+        if list(get_schema_from_dataset_url(copy_url).fields) != ["noun_id", "image"]:
+            fail("etl (c): the copy's schema is not (noun_id, image)")
+        (copy_read,) = read_images(make_reader(copy_url, reader_pool_type="thread"), passes=1)
+        check_images("(c)", copy_read, list(digests))
+        launches_c = dict(fa.LAUNCHES)
+        if any(launches_a.values()) or any(launches_c.values()):
+            fail(f"etl: a flash kernel ran outside the LM: (a) {launches_a} (c) {launches_c}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"etl (a): gpu={smi!r} the ImageNet example's store, {rows_n} rows of "
+          f"{imagenet.IMAGE_SHAPE} png, materialize_dataset(None, ..., row_group_size_mb="
+          f"{cfg['row_group_mb']}) + write_rows(row_group_size_mb={cfg['row_group_mb']}): "
+          + "; ".join(write_lines)
+          + f"; stores byte-equal ({len(parallel['files'])} files); probe {bytes_per_row} "
+          f"bytes/row -> {group_rows} rows/group, row groups {groups}; metadata_util --schema "
+          f"lists {listed}; make_reader(thread) -> make_torch_dataloader({batch}) on {dev}: "
+          f"read_rows_per_s={rows_n / first['seconds']:.1f} (pass 1), images bit-equal, "
+          f"h2d_bytes_per_row={first['h2d'] // rows_n}; reset() -> pass 2: the same "
+          f"{rows_n} noun ids, images bit-equal; mid-pass diagnostics {json.dumps(mid)}; "
+          f"flash_launches={launches_a}", flush=True)
+    print(f"etl (b): generate_corpus's {cfg['lm_docs']} documents (plain int32 columns) "
+          f"through write_rows(compression='zstd', rows_per_file={cfg['lm_rows_per_file']}, "
+          f"encode_workers={cfg['lm_encode_workers']}, basename_template='lm-{{:03d}}.parquet') "
+          f"in {lm_write_s:.3f} s -> {len(lm_files)} files; _common_metadata deleted and "
+          f"regenerated by inference ({regen[-1]!r}); count_packed_batches={counted} = "
+          f"batches delivered to {dev}; unpack gave the {len(want_docs)} documents; "
+          f"train_lm {len(losses)} steps losses={[round(x, 4) for x in losses]} "
+          f"steps_per_s_warm={trained['steps_per_s_warm']:.2f} flash_launches={launches_b}",
+          flush=True)
+    print(f"etl (c): copy_dataset --field-regex noun_id image --partitions-count "
+          f"{cfg['copy_files']} in {copy_s:.2f} s -> {copied}; read back on {dev}: "
+          f"{len(copy_read['ids'])} rows, images bit-equal, read_rows_per_s="
+          f"{rows_n / copy_read['seconds']:.1f}; flash_launches={launches_c}", flush=True)
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -2128,14 +2414,15 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 9. loader --------------------------------------------
+    # -- 4. image ... 10. etl ---------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
                       ("sp", lambda: sp_phase(result["steps_per_s"])),
                       ("tabular", lambda: tabular_phase(smi)),
                       ("reader", lambda: reader_phase(smi)),
-                      ("loader", lambda: loader_phase(smi, out["image"]))):
+                      ("loader", lambda: loader_phase(smi, out["image"])),
+                      ("etl", lambda: etl_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -1,6 +1,7 @@
 """petastorm_tpu_torch — the PyTorch / CUDA counterpart of petastorm_tpu.
 
-The same Parquet input path (Unischema + codecs, metadata, row and
+The same Parquet input path (Unischema + codecs, the dataset writer and
+its metadata CLIs, row and
 columnar readers and the plain-Parquet batch reader, with Parquet-stats
 ``filters``, row predicates, row-group indexes and selectors, row-drop
 partitions and the local-disk cache, over worker pools; row batching,
@@ -46,6 +47,10 @@ _LAZY_EXPORTS = {
                                "CompressedNdarrayCodec"),
     "materialize_rows": ("petastorm_tpu_torch.etl.metadata",
                          "materialize_rows"),
+    "materialize_dataset": ("petastorm_tpu_torch.etl.metadata",
+                            "materialize_dataset"),
+    "write_rows": ("petastorm_tpu_torch.etl.metadata", "write_rows"),
+    "get_schema": ("petastorm_tpu_torch.etl.metadata", "get_schema"),
     "TorchDataLoader": ("petastorm_tpu_torch.torch_utils.loader",
                         "TorchDataLoader"),
     "make_torch_dataloader": ("petastorm_tpu_torch.torch_utils.loader",

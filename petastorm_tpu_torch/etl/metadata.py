@@ -1,14 +1,20 @@
 """Dataset metadata: materialization and schema persistence.
 
-The port's own copy of the parts of ``petastorm_tpu/etl/metadata.py`` the
-main path uses. The on-disk format is the same — Parquet files plus a
-``_common_metadata`` footer carrying the JSON-serialized Unischema, the
-row groups per file and their row counts under the same keys — so datasets
-written by either package read in the other. Datasets whose footer carries
-only a schema pickled by the reference petastorm read through a restricted
+The port's own copy of ``petastorm_tpu/etl/metadata.py``: the pyarrow
+writer (:func:`materialize_dataset` with the JAX signature, :func:`write_rows`
+in every write form: rows or megabytes per group, files capped in rows,
+compression, file names, parallel encoding), schema loading
+(:func:`get_schema` from a metadata dict or a filesystem and path) and
+inference (:func:`infer_or_load_unischema`), and row-group enumeration. The
+on-disk format is the same — Parquet files plus a ``_common_metadata``
+footer carrying the JSON-serialized Unischema, the row groups per file and
+their row counts under the same keys — and the same rows and arguments
+give byte-equal files in both packages. Datasets whose footer carries only
+a schema pickled by the reference petastorm read through a restricted
 unpickler (:func:`unischema_from_reference_pickle`), which rebuilds the
-schema from an allowlist and imports no module the pickle names. (The
-Spark write path is not ported yet.)
+schema from an allowlist and imports no module the pickle names. A Spark
+session, ``storage_options``, ``filesystem`` and ``filesystem_factory``
+raise NotImplementedError naming the argument.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import importlib
 import io
 import json
 import pickle
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
 from decimal import Decimal
@@ -41,6 +48,8 @@ UNISCHEMA_KEY_V2 = b"petastorm.unischema.v1"
 
 _COMMON_METADATA = "_common_metadata"
 _DEFAULT_ROWS_PER_ROW_GROUP = 4096
+#: Rows encoded to convert ``row_group_size_mb`` into rows per group.
+_DEFAULT_ROW_GROUP_PROBE = 64
 
 
 # ---------------------------------------------------------------------------
@@ -53,9 +62,26 @@ _ARROW_SIMPLE = {
     "int32": pa.int32(), "int64": pa.int64(), "uint8": pa.uint8(),
     "uint16": pa.uint16(), "uint32": pa.uint32(), "uint64": pa.uint64(),
     "halffloat": pa.float16(), "float": pa.float32(), "double": pa.float64(),
-    "string": pa.string(), "binary": pa.binary(),
+    "string": pa.string(), "large_string": pa.large_string(),
+    "binary": pa.binary(), "large_binary": pa.large_binary(),
     "date32[day]": pa.date32(), "date64[ms]": pa.date64(),
 }
+
+
+def _arrow_type_from_string(type_str):
+    """The arrow type ``str(type)`` printed: the simple types, timestamps
+    with unit and zone, and decimals."""
+    if type_str in _ARROW_SIMPLE:
+        return _ARROW_SIMPLE[type_str]
+    if type_str.startswith("timestamp["):
+        unit, *rest = [part.strip() for part in type_str[len("timestamp["):-1].split(",")]
+        zones = [part[len("tz="):] for part in rest if part.startswith("tz=")]
+        return pa.timestamp(unit, tz=zones[-1] if zones else None)
+    for prefix, ctor in (("decimal128(", pa.decimal128), ("decimal256(", pa.decimal256)):
+        if type_str.startswith(prefix):
+            precision, scale = type_str[len(prefix):-1].split(",")
+            return ctor(int(precision), int(scale))
+    raise PetastormMetadataError(f"Cannot parse arrow type string {type_str!r}")
 
 
 def _dtype_to_json(numpy_dtype):
@@ -92,10 +118,7 @@ def _codec_from_json(spec):
         arrow_type = spec.get("arrow_type")
         if arrow_type is None:
             return codecs_mod.ScalarCodec()
-        if arrow_type not in _ARROW_SIMPLE:
-            raise PetastormMetadataError(
-                f"Cannot parse arrow type string {arrow_type!r}")
-        return codecs_mod.ScalarCodec(_ARROW_SIMPLE[arrow_type])
+        return codecs_mod.ScalarCodec(_arrow_type_from_string(arrow_type))
     if name == "NdarrayCodec":
         return codecs_mod.NdarrayCodec()
     if name == "CompressedNdarrayCodec":
@@ -328,10 +351,39 @@ def read_dataset_metadata(filesystem, dataset_path):
         return dict(pq.read_metadata(f).schema.to_arrow_schema().metadata or {})
 
 
+#: The value of each argument the port does not take yet that asks for
+#: nothing (None for the rest): any other raises in :func:`refuse_unported`.
+_UNPORTED_DEFAULTS = {"hdfs_driver": "libhdfs"}
+
+
+def refuse_unported(func, **arguments):
+    """NotImplementedError naming the first argument given a value the port
+    does not take yet (Spark, remote and caller-supplied filesystems)."""
+    for name, value in arguments.items():
+        if value != _UNPORTED_DEFAULTS.get(name):
+            raise NotImplementedError(f"{func}({name}=...) is not ported yet")
+
+
+def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=None,
+                        use_summary_metadata=False, filesystem_factory=None,
+                        storage_options=None, filesystem=None):
+    """Context manager bracketing a dataset write (the JAX package's
+    signature); on a clean exit it attaches the schema and the row-group
+    bookkeeping to ``_common_metadata``, after a failed write nothing.
+
+    ``spark=None`` is the pyarrow path: write inside the block with
+    :func:`write_rows`. ``row_group_size_mb`` and ``use_summary_metadata``
+    only configure a Spark writer, so here they change nothing (as in the
+    JAX package without Spark). A Spark session, ``filesystem_factory``,
+    ``storage_options`` and ``filesystem`` raise NotImplementedError
+    naming the argument."""
+    refuse_unported("materialize_dataset", spark=spark, filesystem_factory=filesystem_factory,
+                    storage_options=storage_options, filesystem=filesystem)
+    return _materialize(dataset_url, schema)
+
+
 @contextmanager
-def materialize_dataset(dataset_url, schema):
-    """Bracket a dataset write; on exit attach the schema and the row-group
-    bookkeeping to the footer."""
+def _materialize(dataset_url, schema):
     yield
     resolver = FilesystemResolver(dataset_url)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
@@ -351,61 +403,147 @@ def materialize_dataset(dataset_url, schema):
     })
 
 
-def write_rows(dataset_url, schema, rows, rows_per_row_group=None):
-    """Encode and write an iterable of row dicts as one snappy Parquet
-    file, one row group per ``rows_per_row_group`` rows (default 4096),
-    memory O(row group)."""
+def write_rows(dataset_url, schema, rows, row_group_size_mb=None,
+               rows_per_file=None, rows_per_row_group=None, compression="snappy",
+               storage_options=None, filesystem=None, basename_template=None,
+               encode_workers=1):
+    """Encode and write an iterable of row dicts (a generator too) as
+    Parquet files, memory O(row group); the files are byte-equal to the JAX
+    package's for the same arguments. Returns the written files' paths.
+
+    Rows per group: ``rows_per_row_group``; else ``row_group_size_mb``
+    converted to rows by the bytes per row of the first 64 encoded rows;
+    else 4096. ``rows_per_file`` caps a group at that many rows and starts
+    a new file at the first group boundary at or past it, so groups never
+    span files. Files are named ``basename_template.format(i)`` (default
+    ``part-{:05d}.parquet``). ``encode_workers > 1`` encodes groups on that
+    many threads (the codecs release the GIL), submitted and written in
+    order with at most ``2 × encode_workers`` groups in flight, so the
+    output is byte-equal to ``encode_workers=1``. ``storage_options`` and
+    ``filesystem`` raise NotImplementedError naming the argument."""
+    refuse_unported("write_rows", storage_options=storage_options, filesystem=filesystem)
     resolver = FilesystemResolver(dataset_url)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     fs.create_dir(path, recursive=True)
     arrow_schema = schema.as_arrow_schema()
-    group_rows = rows_per_row_group or _DEFAULT_ROWS_PER_ROW_GROUP
+    template = basename_template or "part-{:05d}.parquet"
     rows_iter = iter(rows)
-    file_path = _join(path, "part-00000.parquet")
-    writer = None
-    try:
+
+    pending = []
+    if rows_per_row_group:
+        group_rows = rows_per_row_group
+    elif row_group_size_mb:
+        pending = list(islice(rows_iter, _DEFAULT_ROW_GROUP_PROBE))
+        if not pending:
+            raise ValueError("write_rows requires at least one row")
+        probe = _rows_to_table([encode_row(schema, r) for r in pending], arrow_schema)
+        bytes_per_row = max(1, probe.nbytes // len(pending))
+        group_rows = max(1, (row_group_size_mb * 1024 * 1024) // bytes_per_row)
+    else:
+        group_rows = _DEFAULT_ROWS_PER_ROW_GROUP
+    if rows_per_file:
+        group_rows = min(group_rows, rows_per_file)
+
+    def batches():
+        buffer = pending
         while True:
-            batch = list(islice(rows_iter, group_rows))
-            if not batch:
-                break
-            encoded = [encode_row(schema, row) for row in batch]
-            table = pa.Table.from_arrays(
-                [pa.array([r[f.name] for r in encoded], type=f.type)
-                 for f in arrow_schema], schema=arrow_schema)
+            # The probe may hold more rows than a group (max(0, ...): the
+            # JAX writer's islice raises there).
+            buffer.extend(islice(rows_iter, max(0, group_rows - len(buffer))))
+            if not buffer:
+                return
+            yield buffer[:group_rows]
+            buffer = buffer[group_rows:]
+
+    def encode_batch(batch):
+        return _rows_to_table([encode_row(schema, row) for row in batch], arrow_schema)
+
+    def encoded_tables():
+        if encode_workers <= 1:
+            yield from map(encode_batch, batches())
+            return
+        with ThreadPoolExecutor(encode_workers) as executor:
+            in_flight = deque()
+            for batch in batches():
+                in_flight.append(executor.submit(encode_batch, batch))
+                if len(in_flight) >= 2 * encode_workers:
+                    yield in_flight.popleft().result()
+            while in_flight:
+                yield in_flight.popleft().result()
+
+    written, writer, rows_in_file = [], None, 0
+    try:
+        for table in encoded_tables():
             if writer is None:
-                writer = pq.ParquetWriter(fs.open_output_stream(file_path),
-                                          arrow_schema, compression="snappy")
-            writer.write_table(table, row_group_size=len(batch))
+                written.append(_join(path, template.format(len(written))))
+                writer = pq.ParquetWriter(fs.open_output_stream(written[-1]),
+                                          arrow_schema, compression=compression)
+            writer.write_table(table, row_group_size=table.num_rows)
+            rows_in_file += table.num_rows
+            if rows_per_file and rows_in_file >= rows_per_file:
+                writer.close()
+                writer, rows_in_file = None, 0
     finally:
         if writer is not None:
             writer.close()
-    if writer is None:
+    if not written:
         raise ValueError("write_rows requires at least one row")
-    return file_path
+    return written
 
 
-def materialize_rows(dataset_url, schema, rows, rows_per_row_group=None):
-    """One call: write rows and attach the metadata."""
-    with materialize_dataset(dataset_url, schema):
-        write_rows(dataset_url, schema, rows, rows_per_row_group)
+def _rows_to_table(encoded_rows, arrow_schema):
+    return pa.Table.from_arrays(
+        [pa.array([row[f.name] for row in encoded_rows], type=f.type) for f in arrow_schema],
+        schema=arrow_schema)
 
 
-def get_schema(filesystem, dataset_path):
-    """The Unischema stored in the dataset's footer: the JSON one, else one
-    the reference pickled (read by the restricted unpickler)."""
-    metadata = read_dataset_metadata(filesystem, dataset_path)
+def materialize_rows(dataset_url, schema, rows, **write_kwargs):
+    """One call: :func:`write_rows` (its keyword arguments) inside
+    :func:`materialize_dataset`."""
+    with materialize_dataset(None, dataset_url, schema):
+        write_rows(dataset_url, schema, rows, **write_kwargs)
+
+
+def get_schema(dataset_or_metadata, dataset_path=None, filesystem=None):
+    """The Unischema stored in a dataset's ``_common_metadata``: the JSON
+    one, else one the reference pickled (through the restricted
+    unpickler). Takes a metadata dict (:func:`read_dataset_metadata`) or a
+    ``(filesystem, dataset_path)`` pair; ``filesystem=`` is unused, as in
+    the JAX package."""
+    if isinstance(dataset_or_metadata, dict):
+        metadata = dataset_or_metadata
+    else:
+        metadata = read_dataset_metadata(dataset_or_metadata, dataset_path)
     if UNISCHEMA_JSON_KEY in metadata:
         return unischema_from_json(metadata[UNISCHEMA_JSON_KEY])
     for key in (UNISCHEMA_KEY_V2, UNISCHEMA_KEY):
         if key in metadata:
             return unischema_from_reference_pickle(metadata[key])
     raise PetastormMetadataError(
-        "Dataset carries no Unischema metadata (not a petastorm dataset?)")
+        "Dataset carries no Unischema metadata (not a petastorm dataset?). "
+        "Use make_batch_reader for plain Parquet stores, or regenerate the "
+        "metadata with python -m petastorm_tpu_torch.etl.petastorm_generate_metadata.")
 
 
-def get_schema_from_dataset_url(dataset_url):
+def get_schema_from_dataset_url(dataset_url, hdfs_driver="libhdfs",
+                                storage_options=None, filesystem=None):
+    """:func:`get_schema` of the dataset at ``dataset_url``."""
+    refuse_unported("get_schema_from_dataset_url", hdfs_driver=hdfs_driver,
+                    storage_options=storage_options, filesystem=filesystem)
     resolver = FilesystemResolver(dataset_url)
     return get_schema(resolver.filesystem(), resolver.get_dataset_path())
+
+
+def infer_or_load_unischema(filesystem, dataset_path):
+    """``(schema, was_stored)``: the stored Unischema, else one inferred
+    from the Parquet files' Arrow schema (codec-less fields)."""
+    try:
+        return get_schema(filesystem, dataset_path), True
+    except PetastormMetadataError:
+        import pyarrow.dataset as pads
+
+        dataset = pads.dataset(dataset_path, filesystem=filesystem, format="parquet")
+        return Unischema.from_arrow_schema(dataset.schema), False
 
 
 # ---------------------------------------------------------------------------

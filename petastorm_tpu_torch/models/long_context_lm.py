@@ -40,28 +40,41 @@ WARM_FROM_STEP = 3
 _BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "ffn")
 
 
-def generate_corpus(dataset_url, docs=512, max_len=48, seed=17):
-    """Ragged integer-token documents (padded on disk + a length column):
-    random walks over the vocabulary, so the next token is learnable. With
-    the default seed the rows equal the JAX capstone's corpus."""
-    from petastorm_tpu_torch.etl.metadata import materialize_rows
+def corpus_schema(max_len=48, encoded=True):
+    """The corpus schema: ``tokens`` padded to ``max_len`` and ``length``.
+    ``encoded=False`` stores ``tokens`` as a plain int32 list column and
+    ``length`` as a plain int32 column, which a schema inferred from the
+    Parquet files (metadata regenerated without the stored schema) still
+    decodes to the same arrays."""
     from petastorm_tpu_torch.schema.codecs import NdarrayCodec, ScalarCodec
     from petastorm_tpu_torch.schema.unischema import Unischema, UnischemaField
 
-    schema = Unischema("LmCorpus", [
-        UnischemaField("tokens", np.int32, (max_len,), NdarrayCodec(), False),
-        UnischemaField("length", np.int32, (), ScalarCodec(), False),
+    return Unischema("LmCorpus", [
+        UnischemaField("tokens", np.int32, (max_len,), NdarrayCodec() if encoded else None,
+                       False),
+        UnischemaField("length", np.int32, (), ScalarCodec() if encoded else None, False),
     ])
+
+
+def corpus_rows(docs=512, max_len=48, seed=17):
+    """Ragged integer-token documents, padded to ``max_len`` with their
+    length: random walks over the vocabulary, so the next token is
+    learnable. With the default seed the rows equal the JAX capstone's
+    corpus."""
     rng = np.random.RandomState(seed)
+    for _ in range(docs):
+        n = int(rng.randint(8, max_len + 1))
+        toks = np.zeros((max_len,), np.int32)
+        toks[:n] = (np.cumsum(rng.randint(0, 3, n)) + rng.randint(VOCAB)) % VOCAB
+        yield {"tokens": toks, "length": np.int32(n)}
 
-    def rows():
-        for _ in range(docs):
-            n = int(rng.randint(8, max_len + 1))
-            toks = np.zeros((max_len,), np.int32)
-            toks[:n] = (np.cumsum(rng.randint(0, 3, n)) + rng.randint(VOCAB)) % VOCAB
-            yield {"tokens": toks, "length": np.int32(n)}
 
-    materialize_rows(dataset_url, schema, rows(), rows_per_row_group=128)
+def generate_corpus(dataset_url, docs=512, max_len=48, seed=17):
+    """Write :func:`corpus_rows` in row groups of 128 rows."""
+    from petastorm_tpu_torch.etl.metadata import materialize_rows
+
+    materialize_rows(dataset_url, corpus_schema(max_len), corpus_rows(docs, max_len, seed),
+                     rows_per_row_group=128)
     return dataset_url
 
 

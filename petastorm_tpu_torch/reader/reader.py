@@ -18,8 +18,9 @@ The port's own copy of ``petastorm_tpu/reader/reader.py``:
   other columns; ``shuffle_row_drop_partitions``, which splits each row
   group into that many work items; the local-disk cache; ``num_epochs``,
   seeded ``shuffle_row_groups``, ``cur_shard``/``shard_count`` row-group
-  sharding, thread or dummy decode pools, and resumable iteration
-  (``Reader.state_dict()`` / ``resume_state=``).
+  sharding, thread or dummy decode pools, resumable iteration
+  (``Reader.state_dict()`` / ``resume_state=``), ``Reader.reset()`` and the
+  live ``Reader.diagnostics``.
 
 The planning arithmetic is the JAX package's — canonical row-group order
 (or the ``filters``' fragment scan), the selector, the optional
@@ -490,11 +491,18 @@ class Reader:
 
     @property
     def diagnostics(self):
-        """Planning facts under the JAX reader's key names:
-        ``rowgroups_total`` (this shard's row groups), ``items_per_epoch``
-        (work items ventilated per epoch; 0 for a resumed reader with
-        nothing left) and ``workers_count``."""
-        return dict(self._diagnostics)
+        """The JAX reader's snapshot, merged in its order: the planning
+        facts (``rowgroups_total``: this shard's row groups;
+        ``items_per_epoch``: work items per epoch, 0 for a resumed reader
+        with nothing left; ``workers_count``), then the pool's live
+        counters (``items_processed``, ``results_queue_size``, ...), then
+        the ventilator's (``items_ventilated``, ``items_in_flight``,
+        ``epochs_completed``, ``ventilation_completed``), which win on a
+        shared key. Safe to read mid-iteration."""
+        snapshot = dict(self._diagnostics)
+        snapshot.update(self._workers_pool.diagnostics)
+        snapshot.update(self._ventilator.diagnostics)
+        return snapshot
 
     def state_dict(self, yielded_rows=None):
         """Snapshot of iteration progress, the JAX package's dict key for
@@ -579,3 +587,21 @@ class Reader:
 
     def join(self):
         self._workers_pool.join()
+
+    def reset(self):
+        """Start the same epochs again, once every row of the previous run
+        was consumed (NotImplementedError mid-epoch, as in the JAX reader,
+        and on a resumed reader, whose plan holds only the checkpoint's
+        remaining work). The delivery accounting restarts with it: a
+        ``state_dict()`` taken after ``reset()`` describes the new pass."""
+        if not self.last_row_consumed:
+            raise NotImplementedError(
+                "Currently, reset() can only be called after all rows were consumed")
+        if self._resume_state is not None:
+            raise NotImplementedError(
+                "reset() is not supported on a resumed reader — construct a fresh "
+                "reader (without resume_state) for a new full pass")
+        self.last_row_consumed = False
+        self._delivery_tracker = DeliveryTracker()
+        self._results_queue_reader.delivery_tracker = self._delivery_tracker
+        self._ventilator.reset()

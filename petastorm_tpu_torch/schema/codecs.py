@@ -56,6 +56,15 @@ class DataframeColumnCodec(ABC):
     def arrow_dtype(self):
         """The ``pyarrow.DataType`` of the stored column."""
 
+    def __eq__(self, other):
+        return isinstance(other, self.__class__) and self.__dict__ == other.__dict__
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash((self.__class__.__name__, tuple(sorted(self.__dict__.items(), key=str))))
+
 
 class ScalarCodec(DataframeColumnCodec):
     """Stores a scalar natively in its Parquet column; the constructor takes

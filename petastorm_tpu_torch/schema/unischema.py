@@ -3,9 +3,11 @@
 The port's own copy of ``petastorm_tpu/schema/unischema.py``, cut to what the
 port uses: fields, the namedtuple row type the readers yield, schema views
 (``schema_fields`` of the readers: fields and full-match name regexes), the
-storage arrow schema, row encoding for the ETL writer, and inference of a
-codec-less schema from an Arrow schema (``make_batch_reader``'s plain
-Parquet stores). (The Spark shims are not ported yet.)
+storage arrow schema, row encoding for the ETL writer (through
+``insert_explicit_nulls``), inference of a codec-less schema from an Arrow
+schema (``make_batch_reader``'s plain Parquet stores), and the JAX
+package's value equality of fields, codecs and schemas. (The Spark shims
+are not ported yet.)
 """
 
 from __future__ import annotations
@@ -34,6 +36,32 @@ class UnischemaField(
         return super().__new__(cls, name, numpy_dtype, tuple(shape or ()), codec,
                                nullable)
 
+    def __hash__(self):
+        return hash((self.name, _dtype_token(self.numpy_dtype), self.shape, self.nullable))
+
+    def __eq__(self, other):
+        if not isinstance(other, UnischemaField):
+            return NotImplemented
+        return (self.name == other.name
+                and _dtype_token(self.numpy_dtype) == _dtype_token(other.numpy_dtype)
+                and self.shape == other.shape and self.codec == other.codec
+                and self.nullable == other.nullable)
+
+    def __ne__(self, other):
+        result = self.__eq__(other)
+        return result if result is NotImplemented else not result
+
+
+def _dtype_token(numpy_dtype):
+    """A comparable token for a field dtype (numpy dtype, Decimal, str, bytes)."""
+    if numpy_dtype is Decimal:
+        return "decimal"
+    if numpy_dtype in (str, np.str_):
+        return "str"
+    if numpy_dtype in (bytes, np.bytes_):
+        return "bytes"
+    return np.dtype(numpy_dtype).str
+
 
 class Unischema:
     """An ordered collection of :class:`UnischemaField`; each field is also
@@ -52,6 +80,31 @@ class Unischema:
     @property
     def fields(self):
         return self._fields
+
+    @property
+    def field_names(self):
+        """Field names in schema order."""
+        return tuple(self._fields)
+
+    def __eq__(self, other):
+        if not isinstance(other, Unischema):
+            return NotImplemented
+        return list(self._fields.values()) == list(other._fields.values())
+
+    def __ne__(self, other):
+        result = self.__eq__(other)
+        return result if result is NotImplemented else not result
+
+    def __hash__(self):
+        return hash(tuple(self._fields.values()))
+
+    def __repr__(self):
+        lines = [f"{self._name}:"]
+        for field in self._fields.values():
+            codec = type(field.codec).__name__ if field.codec else None
+            lines.append(f"  {field.name}: {_dtype_token(field.numpy_dtype)} {field.shape} "
+                         f"codec={codec} nullable={field.nullable}")
+        return "\n".join(lines)
 
     def make_namedtuple(self, **kwargs):
         """Row namedtuple from per-field kwargs (missing fields → None)."""
@@ -179,20 +232,31 @@ def _arrow_to_numpy_dtype(arrow_type):
         raise ValueError(f"Unsupported arrow type: {arrow_type}") from exc
 
 
+def insert_explicit_nulls(unischema, row_dict):
+    """Set ``None`` in ``row_dict`` for each missing nullable field; raise
+    for a missing non-nullable one."""
+    for field_name, field in unischema.fields.items():
+        if field_name not in row_dict:
+            if not field.nullable:
+                raise ValueError(
+                    f"Field {field_name!r} is not nullable but is missing from the row")
+            row_dict[field_name] = None
+    return row_dict
+
+
 def encode_row(unischema, row_dict):
-    """Encode one row dict into storage cells: validates field names, applies
-    codecs, inserts explicit nulls for missing nullable fields."""
+    """Encode one row dict into storage cells: validates field names, fills
+    missing nullable fields with explicit nulls (on a copy: the caller's
+    dict is never changed), applies codecs."""
     if not isinstance(row_dict, dict):
         raise TypeError(f"row must be a dict, got {type(row_dict)}")
     unknown = set(row_dict) - set(unischema.fields)
     if unknown:
         raise ValueError(f"Unknown fields in row: {sorted(unknown)}")
+    row_dict = insert_explicit_nulls(unischema, dict(row_dict))
     encoded = {}
     for name, field in unischema.fields.items():
-        if name not in row_dict and not field.nullable:
-            raise ValueError(
-                f"Field {name!r} is not nullable but is missing from the row")
-        value = row_dict.get(name)
+        value = row_dict[name]
         if value is None:
             if not field.nullable:
                 raise ValueError(f"Field {name!r} is not nullable but got None")

@@ -227,7 +227,8 @@ class TorchDataLoader:
         self._stager = None
         self._producer_error = None
         self._stop = threading.Event()
-        self._rows_yielded = 0  # real rows handed out, over all iterations
+        self._rows_yielded = 0  # real rows handed out since the reader's tracker began
+        self._yield_count_tracker = getattr(reader, "_delivery_tracker", None)
         self._batch_cache = batch_cache
         # A fill is valid only from the reader's start: the first pass this
         # loader pulls. Any later miss finds the reader mid-stream or
@@ -677,6 +678,12 @@ class TorchDataLoader:
             self._host_queue = None
         self._stop.clear()
         self._producer_error = None
+        # reader.reset() installs a fresh delivery tracker whose counts start
+        # at zero, so the yielded-row count restarts with it.
+        tracker = getattr(self.reader, "_delivery_tracker", None)
+        if tracker is not self._yield_count_tracker:
+            self._yield_count_tracker = tracker
+            self._rows_yielded = 0
         self._reset_diagnostics()
         self._iter_start = time.perf_counter()
         if self._trace_path is not None:

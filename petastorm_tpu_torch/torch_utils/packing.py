@@ -1,7 +1,8 @@
 """Sequence packing: ragged rows → dense ``[B, T]`` batches + segment ids.
 
 The port's own copy of ``petastorm_tpu/jax_utils/packing.py`` (first-fit
-packing bit-identical to the JAX package's) and its packed delivery path,
+packing bit-identical to the JAX package's, :func:`count_packed_batches`
+and :func:`unpack`) and its packed delivery path,
 :func:`make_packed_torch_dataloader`.
 
 Conventions of the packed layout:
@@ -125,6 +126,41 @@ def iter_ragged_rows(reader, sequence_fields, length_field=None):
         else:
             cut = int(getattr(item, length_field)) if length_field else None
             yield {f: cols[f][:cut] for f in sequence_fields}
+
+
+def count_packed_batches(reader, slot_len, slots, sequence_fields, length_field=None):
+    """The number of batches :func:`pack_ragged` emits for ``reader``,
+    counted by draining (and closing) it: packed counts depend on the
+    length distribution, so count on a separate reader built with the
+    delivering reader's arguments, and agree the minimum across ranks
+    before passing it as ``max_batches``. Raises ValueError for a reader
+    with ``num_epochs=None``, which would never end."""
+    if getattr(reader, "num_epochs", 1) is None:
+        raise ValueError(
+            "count_packed_batches would never terminate on an infinite "
+            "reader (num_epochs=None): construct the counting reader with "
+            "num_epochs=1 and scale the agreed count by your epoch budget")
+    n = 0
+    with reader:
+        for _ in pack_ragged(iter_ragged_rows(reader, sequence_fields, length_field),
+                             slot_len=slot_len, slots=slots):
+            n += 1
+    return n
+
+
+def unpack(packed, key):
+    """The sequences of ``packed[key]`` in packing order (batch row 0's
+    segments first): the inverse of :func:`pack_ragged`. Takes numpy
+    arrays or CPU tensors."""
+    seg = np.asarray(packed[PACK_SEGMENT_KEY])
+    values = np.asarray(packed[key])
+    out = []
+    for b in range(seg.shape[0]):
+        for s in range(seg[b].max() + 1):
+            mask = seg[b] == s
+            if mask.any():
+                out.append(values[b, mask])
+    return out
 
 
 def make_packed_torch_dataloader(reader, slot_len, slots, sequence_fields,

@@ -1,6 +1,7 @@
 """Thread-based worker pool (counterpart of
 ``petastorm_tpu/workers_pool/thread_pool.py``): pyarrow Parquet decode
-releases the GIL, so threads decode row groups in parallel."""
+releases the GIL, so threads decode row groups in parallel. Its
+``diagnostics`` are the JAX pool's live counters, under the same names."""
 
 from __future__ import annotations
 
@@ -36,14 +37,34 @@ class ThreadPool:
         self._stop_event = threading.Event()
         self._ventilated_items = 0
         self._completed_items = 0
+        self._results_pending = 0  # payloads in the results queue
         self._counter_lock = threading.Lock()
+
+    @property
+    def diagnostics(self):
+        """Items ventilated, processed and in flight, the payloads waiting in
+        the results queue, and the worker count (the JAX pool's keys)."""
+        with self._counter_lock:
+            ventilated, completed = self._ventilated_items, self._completed_items
+            pending = self._results_pending
+        return {
+            "items_ventilated": ventilated,
+            "items_processed": completed,
+            "items_in_flight": ventilated - completed,
+            "results_queue_size": pending,
+            "workers_count": self.workers_count,
+        }
+
+    def _publish_result(self, item):
+        with self._counter_lock:
+            self._results_pending += 1
+        self._results_queue.put(item)
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._threads:
             raise RuntimeError("ThreadPool already started")
         for worker_id in range(self.workers_count):
-            worker = worker_class(worker_id, self._results_queue.put,
-                                  worker_setup_args)
+            worker = worker_class(worker_id, self._publish_result, worker_setup_args)
             self._workers.append(worker)
             thread = threading.Thread(
                 target=self._worker_loop, args=(worker,), daemon=True,
@@ -107,6 +128,8 @@ class ThreadPool:
                 continue
             if isinstance(result, WorkerException):
                 raise result
+            with self._counter_lock:
+                self._results_pending -= 1
             return result
 
     def _all_done(self):
@@ -131,7 +154,8 @@ class ThreadPool:
                 while True:
                     self._results_queue.get_nowait()
             except queue.Empty:
-                pass
+                with self._counter_lock:
+                    self._results_pending = 0
             if time.monotonic() > deadline:
                 break
             time.sleep(0.01)

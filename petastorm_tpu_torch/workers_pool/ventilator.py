@@ -4,7 +4,8 @@
 The item order per epoch is ``random.Random(random_seed).shuffle`` of the
 epoch's item list, exactly as in the JAX package, so one seed gives both
 packages the same row-group order, resumed readers (``per_item_iterations``)
-included.
+included. ``diagnostics`` and ``reset`` keep the JAX ventilator's key names
+and meaning (``Reader.diagnostics`` / ``Reader.reset``).
 """
 
 from __future__ import annotations
@@ -45,12 +46,26 @@ class ConcurrentVentilator:
         self._max_in_flight = (max_ventilation_queue_size
                                or len(self._items_to_ventilate) or 1)
         self._in_flight = 0
+        self._items_ventilated = 0
+        self._epochs_completed = 0
         self._lock = threading.Lock()
         self._space_available = threading.Condition(self._lock)
         self._stop_requested = False
         self._completed = False
         self.error = None
         self._thread = None
+
+    @property
+    def diagnostics(self):
+        """Live counters under the JAX ventilator's names: items ventilated
+        and in flight, epochs completed, and whether ventilation is over."""
+        with self._lock:
+            return {
+                "items_ventilated": self._items_ventilated,
+                "items_in_flight": self._in_flight,
+                "epochs_completed": self._epochs_completed,
+                "ventilation_completed": self._completed,
+            }
 
     def start(self):
         if self._thread is not None:
@@ -83,7 +98,10 @@ class ConcurrentVentilator:
                         if self._stop_requested:
                             return
                         self._in_flight += 1
+                        self._items_ventilated += 1
                     self._ventilate_fn(**item)
+                with self._lock:
+                    self._epochs_completed += 1
                 epoch += 1
                 if iterations_left is not None:
                     iterations_left -= 1
@@ -108,3 +126,17 @@ class ConcurrentVentilator:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+
+    def reset(self):
+        """Ventilate the same items again for the original number of
+        iterations, the shuffle continuing its seeded stream; only once the
+        previous run has finished."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("Cannot reset a ventilator that is still running")
+        self._thread = None
+        self._stop_requested = False
+        self._completed = False
+        self.error = None
+        with self._lock:
+            self._in_flight = 0
+        self.start()

@@ -135,9 +135,16 @@ def test_filtered_scan_reads_one_row_group(store):
     assert len(port) == len(jax) == 1
     np.testing.assert_array_equal(port[0]["sample_index"], jax[0]["sample_index"])
     assert set(port[0]["day"].tolist()) == {3}
-    with make_batch_reader(store, reader_pool_type="dummy", filters=[("day", "=", 3)]) as r:
-        assert r.diagnostics == {"rowgroups_total": 1, "items_per_epoch": 1,
-                                 "workers_count": 1}
+    from petastorm_tpu import make_batch_reader as jax_make_batch_reader
+
+    kwargs = dict(reader_pool_type="dummy", filters=[("day", "=", 3)])
+    with make_batch_reader(store, **kwargs) as r, jax_make_batch_reader(store, **kwargs) as j:
+        list(r), list(j)
+        assert set(r.diagnostics) == set(j.diagnostics)
+        assert r.diagnostics == j.diagnostics
+        assert {k: r.diagnostics[k] for k in ("rowgroups_total", "items_per_epoch",
+                                              "workers_count")} == \
+            {"rowgroups_total": 1, "items_per_epoch": 1, "workers_count": 1}
 
 
 def test_list_columns_stack_like_jax(tmp_path):
