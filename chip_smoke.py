@@ -9,7 +9,8 @@ Phases, one line of output each (a phase that fails stops the run with a
 non-zero exit code):
 
 1. ``env``: the card's name and power limit, torch / CUDA / nvcc versions,
-   whether Triton and CUTLASS headers are present; then the build of the
+   whether Triton and CUTLASS headers are present, the pyzmq and
+   cloudpickle versions (the process pool's transport); then the build of the
    three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``), and of
    the counting builds of the forward (``PTT_FWD_COUNT_TILES``), dQ
    (``PTT_DQ_COUNT_TILES``) and dK/dV (``PTT_DKV_COUNT_TILES``) kernels, all
@@ -199,6 +200,38 @@ non-zero exit code):
    back on the card with the same digests. No flash kernel runs in (a) or
    (c) (counted).
 
+11. ``pool``: the process pool and the telemetry it feeds, after phase 10
+   in the same process (``POOL``; see ``pool_phase``). (a) The host's
+   ceiling on phase 4's store: ``make_reader`` + ``batch_iterator(128)``
+   with no device, 6 epochs timed after the first, the thread and the
+   process pool at 1, 4 and 8 workers: every run's multiset of (label,
+   image digest) equals the written rows' (``image_rows``) six times, and
+   the one-worker orders are equal; rows/s each. (b) Phase 4's training run
+   with ``reader_pool_type="process"`` (10 workers) and the same stage and
+   CNN: loss finite and falling, images/s, ``consumer_s``, input stall and
+   the busy share of a second, traced run, beside phase 4's thread-pool
+   figures from this call; while the workers run, ``nvidia-smi
+   --query-compute-apps=pid`` lists no worker's pid (the sandbox lists one
+   entry, pid 1, however many processes hold a context, so ``/proc`` is
+   read too: the training process holds ``/dev/nvidia*`` files and maps
+   ``libcuda``, no worker does, in any sample); after ``join()`` no
+   ``python ... exec_in_new_process`` child is left (checked after every
+   leg). (c) The LM's 12 steps (phase 3's corpus and width) on
+   ``make_columnar_reader(reader_pool_type="process", workers_count=1)``:
+   its packed batches bit-equal to the thread pool's at one worker, the
+   losses equal to the thread-pool run's, flash launches 26 / 24 / 24. (d)
+   Phase 7's Criteo-shaped store through ``make_batch_reader`` on the
+   process pool (one worker) with ``zmq_copy_buffers`` True and False: the
+   tables equal the thread pool's; rows/s each; a resume from a
+   ``state_dict()`` after 3 tables gives the thread pool's state and
+   re-reads its rows. (e) During (b), ``start_metrics_server`` on
+   127.0.0.1 at an ephemeral port, scraped over HTTP: the pool's items
+   processed equal the reader's ``diagnostics``, the loader's batches and
+   rows those yielded; ``stage_quantiles()`` printed; a worker fault
+   injected through a predicate reaches the consumer as a
+   ``WorkerException`` with its traceback and leaves a flight-recorder
+   event. No flash kernel runs outside (c)'s LM.
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -270,6 +303,12 @@ LOADER = dict(leg_cache_bytes=1 << 30, seed=7, passes=6, mem_mb=256, stage_batch
 # reference write forms; copy_dataset of the ImageNet store into 2 files.
 ETL = dict(rows=512, row_group_mb=64, workers=(1, 8), batch=32, lm_docs=512,
            lm_rows_per_file=128, lm_encode_workers=4, lm_steps=12, copy_files=2)
+# Phase 11: the process pool at phase 4's image store and width (1, 4 and 8
+# workers: the chip host has 8 cores), the LM's 12 steps as phase 10 (b), and
+# phase 7's Criteo-shaped store through the Arrow serializer.
+POOL = dict(image=IMAGE, workers=(1, 4, 8), lm_steps=12,
+            lm_launches={"fwd": 26, "dq": 24, "dkv": 24},
+            tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_resume_after=3)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -844,7 +883,9 @@ def image_phase(smi):
           f"loss_first_epoch={np.mean(losses[:warm]):.4f} "
           f"loss_last_epoch={np.mean(losses[-warm:]):.4f} flash_launches={launches}",
           flush=True)
-    return result["images_per_s"]
+    return {"images_per_s": result["images_per_s"],
+            "consumer_ms_per_step": 1e3 * diag["consumer_s"] / diag["batches"],
+            "input_stall_pct": diag["input_stall_pct"], "device_busy_pct_traced": busy_pct}
 
 
 
@@ -2208,6 +2249,421 @@ def etl_phase(smi, cfg=ETL, device="cuda"):
           f"{rows_n / copy_read['seconds']:.1f}; flash_launches={launches_c}", flush=True)
 
 
+def pool_children():
+    """pids of live ``python ... -m petastorm_tpu_torch.workers_pool.
+    exec_in_new_process`` processes: the process pool's workers."""
+    from petastorm_tpu_torch.workers_pool.exec_in_new_process import CHILD_MODULE
+
+    pids = set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if len(argv) > 2 and b"python" in argv[0] and argv[2] == CHILD_MODULE.encode():
+            pids.add(int(entry))
+    return pids
+
+
+def compute_apps():
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists. (The chip
+    host's sandbox lists one entry, pid 1, however many processes hold a
+    context: printed, not relied on.)"""
+    out = sh(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"])
+    return [int(line) for line in out.split() if line.strip().isdigit()]
+
+
+def card_handles(pid):
+    """What of the card process ``pid`` holds: its open ``/dev/nvidia*``
+    files and whether it maps ``libcuda``. A process with a CUDA context
+    has both; None when the process is gone."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+        with open(f"/proc/{pid}/maps") as f:
+            libcuda = "libcuda" in f.read()
+    except OSError:
+        return None
+    devices = set()
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            devices.add(target)
+    return sorted(devices), libcuda
+
+
+def _injected_fault(values):
+    raise ValueError("injected decode fault")
+
+
+def pool_phase(smi, image, cfg=POOL, device="cuda"):
+    """Phase 11 (see the module docstring); fails the run on any check.
+    ``image``: phase 4's figures from this call. ``cfg`` and ``device``
+    exist for a small dry run on the host; the run on the card uses the
+    defaults."""
+    import collections
+    import hashlib
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.models.long_context_lm import generate_corpus, train_lm
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.predicates import in_lambda
+    from petastorm_tpu_torch.reader.reader import (
+        make_batch_reader,
+        make_columnar_reader,
+        make_reader,
+    )
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.telemetry import start_metrics_server
+    from petastorm_tpu_torch.telemetry.flight import RECORDER
+    from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.packing import (
+        PACK_SEGMENT_KEY,
+        make_packed_torch_dataloader,
+    )
+    from petastorm_tpu_torch.workers_pool import WorkerException
+
+    on_card = torch.device(device).type == "cuda"
+    img = cfg["image"]
+    stage_kw = dict(normalize=(127.5, 127.5), crop=img["crop"], flip=True)
+    fa.reset_launch_counts()
+    leftover = pool_children()
+    if leftover:
+        fail(f"pool: pool workers alive before the phase: {sorted(leftover)}")
+
+    def no_orphans(where):
+        left = pool_children()
+        if left:
+            fail(f"pool {where}: exec_in_new_process children left after join(): "
+                 f"{sorted(left)}")
+
+    def digest(image_bytes):
+        return hashlib.blake2b(image_bytes, digest_size=16).hexdigest()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    try:
+        # (a) The host's ceiling: make_reader + batch_iterator, no device.
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        written = collections.Counter(
+            (int(r["label"]), digest(r["image"].tobytes()))
+            for r in ic.image_rows(img["rows"], img["image_shape"], img["classes"]))
+        want = collections.Counter({k: n * img["epochs"] for k, n in written.items()})
+        warm = -(-img["rows"] // img["batch"])
+        ceiling, sequences = {}, {}
+        for pool in ("thread", "process"):
+            for workers in cfg["workers"]:
+                seen, order, n, hash_s, t0 = collections.Counter(), [], 0, 0.0, None
+                with make_reader(url, schema_fields=["image", "label"],
+                                 num_epochs=img["epochs"], shuffle_row_groups=True,
+                                 shard_seed=0, reader_pool_type=pool,
+                                 workers_count=workers) as reader:
+                    for i, batch in enumerate(batch_iterator(reader, img["batch"])):
+                        if i == warm:
+                            t0 = time.perf_counter()
+                        if t0 is not None:
+                            n += len(batch["image"])
+                        h0 = time.perf_counter()
+                        keys = [(int(label), digest(im.tobytes()))
+                                for label, im in zip(batch["label"], batch["image"])]
+                        hash_s += time.perf_counter() - h0 if t0 is not None else 0.0
+                        seen.update(keys)
+                        order.extend(keys)
+                    elapsed = time.perf_counter() - t0 - hash_s
+                no_orphans(f"(a) {pool} x{workers}")
+                if seen != want:
+                    fail(f"pool (a): {pool} pool at {workers} workers delivered another "
+                         f"multiset of (label, image digest) than the {img['rows']} rows "
+                         f"written, {img['epochs']} times")
+                ceiling[(pool, workers)] = n / elapsed
+                sequences[(pool, workers)] = order
+        if sequences[("process", 1)] != sequences[("thread", 1)]:
+            fail("pool (a): at one worker the process pool's row order is not the thread "
+                 "pool's")
+        del sequences
+
+        # (b) + (e): phase 4's training run on a process pool, scraped over HTTP.
+        server = start_metrics_server(0, snapshot_interval_s=0.5)
+        host, port = server.address
+
+        def scrape(path):
+            with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=10) as resp:
+                return resp.read().decode()
+
+        def family(snapshot, name):
+            return snapshot[name]["series"]
+
+        try:
+            before = _json.loads(scrape("/metrics.json"))
+            parent = os.getpid()
+            apps, workers_seen, stop = [], set(), threading.Event()
+            handles = {"parent": [], "workers": {}}
+
+            def watch():
+                while not stop.wait(0.25):
+                    kids = pool_children()
+                    workers_seen.update(kids)
+                    if on_card and kids:
+                        apps.append(compute_apps())
+                        handles["parent"].append(card_handles(parent))
+                        for kid in kids:
+                            held = card_handles(kid)
+                            if held is not None:
+                                handles["workers"].setdefault(kid, []).append(held)
+
+            watcher = threading.Thread(target=watch, daemon=True, name="pool-phase-watch")
+            watcher.start()
+            train = dict(batch_size=img["batch"], epochs=img["epochs"],
+                         num_classes=img["classes"], conv_features=img["conv_features"],
+                         hidden=img["hidden"], learning_rate=img["lr"],
+                         reader_pool_type="process", device=device)
+            try:
+                result = ic.train_image_classifier(url, device_stage=DeviceStage(**stage_kw),
+                                                   **train)
+            finally:
+                stop.set()
+                watcher.join()
+            no_orphans("(b)")
+            after = _json.loads(scrape("/metrics.json"))
+            text = scrape("/metrics")
+            health = scrape("/healthz")
+            loader = result["loader"]
+            diag, reader_diag = result["diagnostics"], loader.reader.diagnostics
+            quantiles = loader.stage_quantiles()
+        finally:
+            server.stop()
+        if not workers_seen:
+            fail("pool (b): no pool worker process was seen during the run")
+        listed = sorted({tuple(sample) for sample in apps})
+        worker_samples = sum(len(v) for v in handles["workers"].values())
+        if on_card:
+            # The parent's handles show the probe sees a context; the
+            # workers' must show none, in every sample.
+            if not handles["parent"] or not all(
+                    h is not None and h[0] and h[1] for h in handles["parent"]):
+                fail(f"pool (b): the training process shows no card handle in /proc: "
+                     f"{handles['parent'][:3]}")
+            held = {pid: samples for pid, samples in handles["workers"].items()
+                    if any(devices or libcuda for devices, libcuda in samples)}
+            if not worker_samples or held:
+                fail(f"pool (b): pool workers hold the card: {held} ({worker_samples} samples)")
+            if any(pid in workers_seen for sample in apps for pid in sample):
+                fail(f"pool (b): nvidia-smi lists a pool worker: {listed}")
+        losses, warm_steps = result["losses"], result["warmup_steps"]
+        if result["batch_devices"] != [str(torch.device(device, 0)) if on_card else device]:
+            fail(f"pool (b): batches arrived on {result['batch_devices']}")
+        if not all(math.isfinite(x) for x in losses) or not (
+                np.mean(losses[-warm_steps:]) < np.mean(losses[:warm_steps])):
+            fail(f"pool (b): image loss not finite and falling: {losses}")
+
+        # (e) The scrape against the reader's and the loader's own counts.
+        def total(snapshot, name, **labels):
+            return sum(s.get("value", 0.0) for s in family(snapshot, name)
+                       if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+        processed = (total(after, "petastorm_pool_items_processed_total")
+                     - total(before, "petastorm_pool_items_processed_total"))
+        lid = loader.loader_id
+        batches = total(after, "petastorm_loader_batches_total", loader=lid)
+        rows = total(after, "petastorm_loader_rows_total", loader=lid)
+        groups = -(-img["rows"] // img["rows_per_row_group"])
+        if processed != reader_diag["items_processed"] or processed != groups * img["epochs"]:
+            fail(f"pool (e): the scrape's items processed {processed} disagree with the "
+                 f"reader's {reader_diag['items_processed']} ({groups * img['epochs']} items)")
+        if (batches, rows) != (len(losses), diag["rows"]) or diag["batches"] != len(losses) \
+                or rows != img["rows"] * img["epochs"]:
+            fail(f"pool (e): the scrape's loader batches / rows {batches} / {rows} disagree "
+                 f"with the {len(losses)} steps and {diag['rows']} rows yielded")
+        if "# TYPE petastorm_pool_items_processed_total counter" not in text \
+                or health != "ok\n":
+            fail("pool (e): /metrics or /healthz did not answer as expected")
+        noted = len(RECORDER.snapshot())
+        faulty = make_reader(url, schema_fields=["image", "label"], reader_pool_type="process",
+                             workers_count=2, predicate=in_lambda(["label"], _injected_fault))
+        try:
+            with faulty:
+                for _ in faulty:
+                    pass
+            fail("pool (e): the injected worker fault did not reach the consumer")
+        except WorkerException as exc:
+            caught = exc
+        no_orphans("(e)")
+        if "injected decode fault" not in caught.formatted_traceback \
+                or "Traceback" not in caught.formatted_traceback:
+            fail(f"pool (e): the worker exception lost its traceback: {caught!r}")
+        events = [e for e in RECORDER.snapshot()[noted:]
+                  if e["event"] == "pool.worker_exception" and e["pool"] == "process"]
+        if not events or "injected" not in events[-1]["error"]:
+            fail("pool (e): the worker exception left no flight-recorder event")
+        del faulty, caught
+
+        # (b) The traced busy share of a second, identical run.
+        from torch.profiler import ProfilerActivity, profile
+        busy = "not measured"
+        if on_card:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced = ic.train_image_classifier(
+                    url, device_stage=DeviceStage(**stage_kw), **train)
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            busy = device_busy_pct(trace, img["batch"] * int(np.prod(img["image_shape"])),
+                                   traced["warmup_steps"])
+            del traced
+            no_orphans("(b) traced")
+
+        # (c) The LM fed by a one-worker process pool against the thread pool's.
+        outside = dict(fa.LAUNCHES)
+        lm_url = f"file://{tmp}/corpus"
+        generate_corpus(lm_url)
+        pack_kw = dict(slot_len=128, slots=4, sequence_fields=["tokens"], length_field="length",
+                       max_batches=cfg["lm_steps"], device=device)
+        packed = {}
+        for pool in ("thread", "process"):
+            reader = make_columnar_reader(lm_url, num_epochs=8, shuffle_row_groups=True,
+                                          shard_seed=0, reader_pool_type=pool, workers_count=1)
+            with make_packed_torch_dataloader(reader, **pack_kw) as loader_:
+                packed[pool] = [{k: t.clone() for k, t in b.items()} for b in loader_]
+        no_orphans("(c) batches")
+        if len(packed["process"]) != cfg["lm_steps"] or any(
+                b1.keys() != b2.keys() or not all(torch.equal(b1[k], b2[k]) for k in b1)
+                for b1, b2 in zip(packed["process"], packed["thread"])):
+            fail("pool (c): the process pool's packed batches are not the thread pool's bit "
+                 "for bit")
+        if on_card and packed["process"][0][PACK_SEGMENT_KEY].device.type != "cuda":
+            fail("pool (c): packed batches did not arrive on the card")
+        del packed
+        lm = {}
+        for pool in ("thread", "process"):
+            fa.reset_launch_counts()
+            lm[pool] = train_lm(lm_url, steps=cfg["lm_steps"], device=device,
+                                reader_pool_type=pool, workers_count=1)
+            lm[pool]["launches"] = dict(fa.LAUNCHES)
+        no_orphans("(c) train")
+        lm_losses = lm["process"]["losses"]
+        if lm_losses != lm["thread"]["losses"]:
+            fail(f"pool (c): losses on the process pool {lm_losses} differ from the thread "
+                 f"pool's {lm['thread']['losses']}")
+        if not all(math.isfinite(x) for x in lm_losses) or not lm_losses[-1] < lm_losses[0]:
+            fail(f"pool (c): losses not finite and falling: {lm_losses}")
+        launches = lm["process"]["launches"]
+        if on_card and launches != cfg["lm_launches"]:
+            fail(f"pool (c): flash launches {launches}, expected {cfg['lm_launches']}")
+
+        # (d) The batch reader over the Arrow serializer, phase 7's store.
+        fa.reset_launch_counts()
+        tab_url = f"file://{tmp}/criteo"
+        tab_rows = td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        tab_kw = dict(num_epochs=1, shuffle_row_groups=True, shard_seed=0, workers_count=1)
+
+        def read_tables(pool, zmq_copy_buffers=True, limit=None, resume_state=None):
+            """``(tables, state, (start_s, rows/s after the first table))``."""
+            out, state = [], None
+            t0 = time.perf_counter()
+            with make_batch_reader(tab_url, reader_pool_type=pool, resume_state=resume_state,
+                                   zmq_copy_buffers=zmq_copy_buffers, **tab_kw) as reader:
+                for b in reader:
+                    out.append(b._asdict())
+                    if len(out) == 1:
+                        t1 = time.perf_counter()
+                    if limit is not None and len(out) == limit:
+                        state = reader.state_dict()
+                        break
+                t2 = time.perf_counter()
+            rest = sum(len(b["sample_index"]) for b in out[1:])
+            return out, state, (t1 - t0, rest / (t2 - t1))
+
+        def same_tables(a, b):
+            return len(a) == len(b) and all(
+                x.keys() == y.keys() and all(x[k].dtype == y[k].dtype
+                                             and np.array_equal(x[k], y[k]) for k in x)
+                for x, y in zip(a, b))
+
+        reference, _, thread_rate = read_tables("thread")
+        tab_rates = {"thread": thread_rate}
+        for zc in (True, False):
+            tables, _, tab_rates[f"process zmq_copy_buffers={zc}"] = read_tables("process", zc)
+            if not same_tables(tables, reference):
+                fail(f"pool (d): the process pool's tables (zmq_copy_buffers={zc}) are not "
+                     "the thread pool's")
+        if sum(len(b["sample_index"]) for b in reference) != tab_rows:
+            fail(f"pool (d): one pass read {sum(len(b['sample_index']) for b in reference)} "
+                 f"rows of {tab_rows}")
+        resumed = {}
+        for pool in ("thread", "process"):
+            first, state, _ = read_tables(pool, limit=cfg["tab_resume_after"])
+            rest, _, _ = read_tables(pool, resume_state=state)
+            resumed[pool] = (state, sorted(int(i) for b in rest for i in b["sample_index"]),
+                             sorted(int(i) for b in first for i in b["sample_index"]))
+        no_orphans("(d)")
+        if resumed["process"] != resumed["thread"]:
+            fail("pool (d): the process pool's resume state or re-read rows differ from the "
+                 "thread pool's")
+        state, rest_ids, first_ids = resumed["process"]
+        if sorted(rest_ids + first_ids) != list(range(tab_rows)):
+            fail("pool (d): the resumed pass and the first together are not the epoch's rows")
+        if any(outside.values()) or any(fa.LAUNCHES.values()):
+            fail(f"pool: a flash kernel ran outside (c): before it {outside}, after it "
+                 f"{dict(fa.LAUNCHES)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cores = os.cpu_count()
+    print(f"pool (a): gpu={smi!r} host cores={cores}; make_reader(image, label) + "
+          f"batch_iterator({img['batch']}) on phase 4's store ({img['rows']} png rows "
+          f"{img['image_shape']}, groups of {img['rows_per_row_group']}, {img['epochs']} "
+          f"epochs, timed after the first), no device, rows/s: "
+          + "; ".join(f"{pool} x{w}={ceiling[(pool, w)]:.1f}"
+                      for pool in ("thread", "process") for w in cfg["workers"])
+          + "; every run the written rows' (label, image digest) multiset, the one-worker "
+          "orders equal", flush=True)
+    print(f"pool (b): train_image_classifier(reader_pool_type='process', 10 workers) at "
+          f"phase 4's width on {device}: images_per_s={result['images_per_s']:.1f} "
+          f"consumer_ms_per_step={1e3 * diag['consumer_s'] / diag['batches']:.3f} "
+          f"input_stall_pct={diag['input_stall_pct']} device_busy_pct_traced={busy}; "
+          f"phase 4 (thread pool, this call): images_per_s={image['images_per_s']:.1f} "
+          f"consumer_ms_per_step={image['consumer_ms_per_step']:.3f} "
+          f"input_stall_pct={image['input_stall_pct']} "
+          f"device_busy_pct_traced={image['device_busy_pct_traced']}; "
+          f"loss {np.mean(losses[:warm_steps]):.4f} -> {np.mean(losses[-warm_steps:]):.4f}; "
+          f"{len(workers_seen)} workers seen; while they ran ({len(apps)} samples) nvidia-smi "
+          f"listed compute apps {listed} (the sandbox's pid for the training process "
+          f"{parent}), no worker pid; /proc: the training process held "
+          f"{handles['parent'][-1][0] if handles['parent'] else None} and libcuda, the "
+          f"workers no /dev/nvidia* file and no libcuda in {worker_samples} samples; none "
+          "left after join()", flush=True)
+    print(f"pool (c): train_lm {cfg['lm_steps']} steps on make_columnar_reader(process, 1 "
+          f"worker): packed batches bit-equal to the thread pool's, losses equal "
+          f"{[round(x, 4) for x in lm_losses]}, flash_launches={launches}, "
+          f"steps_per_s_warm process={lm['process']['steps_per_s_warm']} "
+          f"thread={lm['thread']['steps_per_s_warm']}", flush=True)
+    print(f"pool (d): make_batch_reader on phase 7's store ({tab_rows} rows, "
+          f"{cfg['tab_days']} row groups, 1 worker), rows/s after the first table: "
+          + "; ".join(f"{k}={rate:.1f} (first table after {start:.3f} s)"
+                      for k, (start, rate) in tab_rates.items())
+          + f"; tables equal to the thread pool's; resume after {cfg['tab_resume_after']} "
+          f"tables re-reads {len(rest_ids)} rows, as the thread pool's", flush=True)
+    print(f"pool (e): metrics server {host}:{port}: items_processed "
+          f"{int(processed)} = reader's, loader batches / rows {int(batches)} / {int(rows)} = "
+          f"yielded; stage_quantiles={_json.dumps(quantiles)}; injected worker fault -> "
+          f"WorkerException with its traceback, flight event {events[-1]['event']!r}",
+          flush=True)
+    return ceiling
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -2277,6 +2733,16 @@ def main():
     except ImportError:
         triton_version = None
     cutlass = os.path.isdir("/usr/local/cutlass/include/cutlass")
+    try:
+        import zmq
+        pyzmq_version = f"{zmq.__version__} (libzmq {zmq.zmq_version()})"
+    except ImportError:
+        pyzmq_version = None
+    try:
+        import cloudpickle
+        cloudpickle_version = cloudpickle.__version__
+    except ImportError:
+        cloudpickle_version = None
     t0 = time.perf_counter()
     count_dir = tempfile.mkdtemp(prefix="chip_smoke_count_")
     counting = {  # kernel -> (source, switch, entry point)
@@ -2302,6 +2768,7 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"env: gpu={smi!r} torch={torch.__version__} cuda={torch.version.cuda} "
           f"nvcc={nvcc_version!r} triton={triton_version} cutlass_headers={cutlass} "
+          f"pyzmq={pyzmq_version} cloudpickle={cloudpickle_version} "
           f"kernels_built_in_s={build_s:.2f}", flush=True)
 
     # -- 2. kernels ----------------------------------------------------------
@@ -2421,8 +2888,9 @@ def main():
                       ("sp", lambda: sp_phase(result["steps_per_s"])),
                       ("tabular", lambda: tabular_phase(smi)),
                       ("reader", lambda: reader_phase(smi)),
-                      ("loader", lambda: loader_phase(smi, out["image"])),
-                      ("etl", lambda: etl_phase(smi))):
+                      ("loader", lambda: loader_phase(smi, out["image"]["images_per_s"])),
+                      ("etl", lambda: etl_phase(smi)),
+                      ("pool", lambda: pool_phase(smi, out["image"]))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -22,9 +22,10 @@ format's magic is counted and deleted as a version mismatch.
 
 Thread-safe: lookups, fills and evictions share one lock, file I/O runs
 outside it. Entry files are temp-written and renamed, so processes may
-share a directory. (The JAX cache's failpoints, registry metrics and shm
-frame allocator are not ported; :meth:`BatchCache.stats` keeps the
-counts.)
+share a directory. Every cache feeds the registry's eleven ``CACHE_*``
+families as the JAX cache does (summed over the caches of the process),
+and :meth:`BatchCache.stats` keeps its own counts. (The JAX cache's
+failpoints and shm frame allocator are not ported.)
 """
 
 from __future__ import annotations
@@ -36,8 +37,23 @@ import os
 import struct
 import tempfile
 import threading
+import time
 import zlib
 from collections import OrderedDict
+
+from petastorm_tpu_torch.telemetry.metrics import (
+    CACHE_BYTES,
+    CACHE_CORRUPT,
+    CACHE_DISK_WRITE_ERRORS,
+    CACHE_ENTRIES,
+    CACHE_EVICTIONS,
+    CACHE_FILL_SECONDS,
+    CACHE_HITS,
+    CACHE_MISSES,
+    CACHE_PERMUTED_SERVES,
+    CACHE_SERVE_SECONDS,
+    CACHE_VERSION_EVICTED,
+)
 
 #: On-disk entry format version, in the magic line and the meta header.
 ENTRY_FORMAT_VERSION = 3
@@ -171,27 +187,32 @@ class EntryBuilder:
         self._meta = []
         self._chunks = []
         self._committed = False
+        self._spent_s = 0.0  # encode + copy time, the fill histogram's share
 
     def add_batch(self, batch):
         """Encode ``batch`` and append its frames."""
         from petastorm_tpu_torch.reader_impl.framed_socket import encode_payload
 
+        t0 = time.perf_counter()
         fmt, frames = encode_payload(batch)
         views = [memoryview(f) for f in frames]
         self._meta.append((batch_rows(batch), int(fmt), [v.nbytes for v in views]))
         # Copied now: out-of-band frames alias the batch's arrays, which the
         # producer hands on and the consumer may overwrite.
         self._chunks.extend(bytes(v) for v in views)
+        self._spent_s += time.perf_counter() - t0
 
     def commit(self):
         """Freeze into a :class:`CachedEntry`, publish it to the tiers and
-        return it."""
+        return it (one ``CACHE_FILL_SECONDS`` observation per entry)."""
         if self._committed:
             raise RuntimeError("EntryBuilder.commit() called twice")
         self._committed = True
+        t0 = time.perf_counter()
         entry = CachedEntry(self._meta, b"".join(self._chunks))
         self._chunks = None
         self._cache._publish(self._key, entry)
+        CACHE_FILL_SECONDS.observe(self._spent_s + (time.perf_counter() - t0))
         return entry
 
 
@@ -241,8 +262,17 @@ class BatchCache:
         self.version_evicted = 0
         self.permuted_serves = 0
         self.disk_write_errors = 0
+        self._m_hits_mem = CACHE_HITS.labels("mem")
+        self._m_hits_disk = CACHE_HITS.labels("disk")
+        self._m_bytes_mem = CACHE_BYTES.labels("mem")
+        self._m_entries_mem = CACHE_ENTRIES.labels("mem")
+        self._m_bytes_disk = CACHE_BYTES.labels("disk")
+        self._m_entries_disk = CACHE_ENTRIES.labels("disk")
+        self._m_evict_mem = CACHE_EVICTIONS.labels("mem")
+        self._m_evict_disk = CACHE_EVICTIONS.labels("disk")
         # This instance's share of the disk tier: the bytes and entries it
-        # wrote, less what its evictions freed (clamped at zero).
+        # wrote, less what its evictions freed (clamped at zero); the
+        # gauges carry it and cleanup() retracts it.
         self._disk_bytes_acct = 0
         self._disk_entries_acct = 0
 
@@ -260,29 +290,37 @@ class BatchCache:
     def get_tiered(self, key):
         """``(entry, tier)`` with ``tier`` ``"mem"`` or ``"disk"``, or
         ``(None, None)`` on a miss (counted)."""
+        t0 = time.perf_counter()
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
                 self._entries.move_to_end(key)
                 self.hits_mem += 1
-                return entry, "mem"
+        if entry is not None:
+            self._m_hits_mem.inc()
+            CACHE_SERVE_SECONDS.observe(time.perf_counter() - t0)
+            return entry, "mem"
         if self._disk:
             entry = self._load_disk(key)
             if entry is not None:
                 with self._lock:
                     self.hits_disk += 1
                     self._insert_locked(key, entry)
+                self._m_hits_disk.inc()
+                CACHE_SERVE_SECONDS.observe(time.perf_counter() - t0)
                 return entry, "disk"
         with self._lock:
             self.misses += 1
+        CACHE_MISSES.inc()
         return None, None
 
     def note_permuted_serve(self, tier):
         """Count one entry served through a serve-time permutation (called
         by the loader, which alone knows the order; ``tier`` is where the
-        entry was found, kept for the JAX signature)."""
+        entry was found, the registry series' label)."""
         with self._lock:
             self.permuted_serves += 1
+        CACHE_PERMUTED_SERVES.labels(tier or "mem").inc()
 
     def get_batches(self, key):
         """The decoded ``[{field: ndarray}, ...]`` sequence, or ``None``."""
@@ -320,16 +358,22 @@ class BatchCache:
     def _insert_locked(self, key, entry):
         old = self._entries.pop(key, None)
         if old is not None:
-            self._mem_bytes -= old.nbytes
+            self._account_mem_locked(-old.nbytes, -1)
         if entry.nbytes <= self._mem_budget:
             self._entries[key] = entry
-            self._mem_bytes += entry.nbytes
+            self._account_mem_locked(entry.nbytes, 1)
         # else: an entry larger than the whole budget lives on disk only
         # (memory-only: it is not retained).
         while self._mem_bytes > self._mem_budget and self._entries:
             _, evicted = self._entries.popitem(last=False)
-            self._mem_bytes -= evicted.nbytes
+            self._account_mem_locked(-evicted.nbytes, -1)
             self.evictions_mem += 1
+            self._m_evict_mem.inc()
+
+    def _account_mem_locked(self, bytes_delta, entries_delta):
+        self._mem_bytes += bytes_delta
+        self._m_bytes_mem.inc(bytes_delta)
+        self._m_entries_mem.inc(entries_delta)
 
     # -- disk tier ---------------------------------------------------------
 
@@ -365,6 +409,7 @@ class BatchCache:
         except OSError:  # disk full, directory removed, fd exhaustion
             with self._lock:
                 self.disk_write_errors += 1
+            CACHE_DISK_WRITE_ERRORS.inc()
             logger.warning("disk-tier cache entry write failed; skipping the entry",
                            exc_info=True)
             if tmp_path is not None:
@@ -382,12 +427,17 @@ class BatchCache:
             if deleted:
                 with self._lock:
                     self.evictions_disk += deleted
+                self._m_evict_disk.inc(deleted)
                 self._account_disk(-freed, -deleted)
 
     def _account_disk(self, bytes_delta, entries_delta):
         with self._lock:
-            self._disk_bytes_acct += max(bytes_delta, -self._disk_bytes_acct)
-            self._disk_entries_acct += max(entries_delta, -self._disk_entries_acct)
+            bytes_delta = max(bytes_delta, -self._disk_bytes_acct)
+            entries_delta = max(entries_delta, -self._disk_entries_acct)
+            self._disk_bytes_acct += bytes_delta
+            self._disk_entries_acct += entries_delta
+        self._m_bytes_disk.inc(bytes_delta)
+        self._m_entries_disk.inc(entries_delta)
 
     def _drop_bad_entry(self, path):
         try:
@@ -405,6 +455,7 @@ class BatchCache:
         if any(blob.startswith(magic) for magic in _OLD_MAGICS):
             with self._lock:
                 self.version_evicted += 1
+            CACHE_VERSION_EVICTED.inc()
             logger.warning("disk-tier cache entry %s has an older format; deleting it", path)
             self._drop_bad_entry(path)
             return None
@@ -431,6 +482,7 @@ class BatchCache:
             # epoch, and a miss, so the caller decodes afresh.
             with self._lock:
                 self.corrupt_entries += 1
+            CACHE_CORRUPT.inc()
             logger.warning("disk-tier cache entry %s failed validation; deleting it", path)
             self._drop_bad_entry(path)
             return None
@@ -471,8 +523,9 @@ class BatchCache:
         """Drop the memory tier; remove the disk directory only when this
         cache made it; always stop tracking the directory."""
         with self._lock:
-            self._entries.clear()
-            self._mem_bytes = 0
+            while self._entries:
+                _, entry = self._entries.popitem(last=False)
+                self._account_mem_locked(-entry.nbytes, -1)
         self._account_disk(-self._disk_bytes_acct, -self._disk_entries_acct)
         if self._dir is not None:
             from petastorm_tpu_torch import cache_impl as tracking

@@ -44,19 +44,22 @@ def generate_image_dataset(dataset_url, image_codec, rows=1536, image_shape=(64,
         UnischemaField("features", np.float32, (16,), NdarrayCodec(), False),
         UnischemaField("label", np.int32, (), ScalarCodec(), False),
     ])
-    rng = np.random.RandomState(seed)
-
-    def make_rows():
-        for i in range(rows):
-            label = i % num_classes
-            pixels = 24 + 20 * label + 24 * rng.randn(*image_shape)
-            yield {"id": np.int64(i),
-                   "image": np.clip(np.rint(pixels), 0, 255).astype(np.uint8),
-                   "features": rng.rand(16).astype(np.float32),
-                   "label": np.int32(label)}
-
-    materialize_rows(dataset_url, schema, make_rows(), rows_per_row_group=rows_per_row_group)
+    materialize_rows(dataset_url, schema, image_rows(rows, image_shape, num_classes, seed),
+                     rows_per_row_group=rows_per_row_group)
     return dataset_url
+
+
+def image_rows(rows=1536, image_shape=(64, 64, 3), num_classes=10, seed=0):
+    """The rows :func:`generate_image_dataset` writes, as dicts, in order
+    (so a reader's output can be held against what was written)."""
+    rng = np.random.RandomState(seed)
+    for i in range(rows):
+        label = i % num_classes
+        pixels = 24 + 20 * label + 24 * rng.randn(*image_shape)
+        yield {"id": np.int64(i),
+               "image": np.clip(np.rint(pixels), 0, 255).astype(np.uint8),
+               "features": rng.rand(16).astype(np.float32),
+               "label": np.int32(label)}
 
 
 class ImageClassifier(nn.Module):
@@ -171,7 +174,9 @@ def train_image_classifier(dataset_url, batch_size=128, epochs=3, num_classes=10
     ``step_ms`` over the steps after the first epoch's (the warm-up; the
     clock starts after a sync), ``warmup_steps``, the loader's
     ``diagnostics``, ``batch_devices`` (where every batch arrived),
-    ``peak_memory_bytes`` (CUDA only) and the ``model``."""
+    ``peak_memory_bytes`` (CUDA only), the ``model`` and the stopped
+    ``loader`` (its reader's ``diagnostics``, its registry series and
+    ``stage_quantiles()`` stay readable while it is referenced)."""
     from petastorm_tpu_torch.etl.metadata import get_schema_from_dataset_url
     from petastorm_tpu_torch.reader.reader import make_reader
     from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY
@@ -226,4 +231,5 @@ def train_image_classifier(dataset_url, batch_size=128, epochs=3, num_classes=10
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
         "model": model,
+        "loader": loader,
     }

@@ -207,12 +207,15 @@ def make_lm_train_step(model, learning_rate=1.0, attn_impl="flash",
 
 
 def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
-             epochs=8, d_model=64, device="cuda", group=None):
+             epochs=8, d_model=64, device="cuda", group=None, reader_pool_type="thread",
+             workers_count=10):
     """The whole loop on ``device`` (``"cuda"`` unless the caller asks for
     ``"cpu"``); the row-group shuffle is seeded, so a run is repeatable.
     With ``group`` the attention is the flash-local ring over its ranks:
     every rank runs this loop on the same batches (its reader takes
-    ``sharding.reader_options(group)``). Returns a dict:
+    ``sharding.reader_options(group)``, which overrides ``workers_count``).
+    ``reader_pool_type`` and ``workers_count`` are the columnar reader's.
+    Returns a dict:
     ``losses``, ``steps_per_s`` (every step, the clock started before the
     first batch), ``steps_per_s_warm`` (the steps after the first
     ``WARM_FROM_STEP``: the clock starts after a sync there and stops after
@@ -236,9 +239,10 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     step = make_lm_train_step(model, group=group)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    reader_kwargs = dict(reader_pool_type=reader_pool_type, workers_count=workers_count)
+    reader_kwargs.update(reader_options(group))
     reader = make_columnar_reader(dataset_url, num_epochs=epochs,
-                                  shuffle_row_groups=True, shard_seed=0,
-                                  **reader_options(group))
+                                  shuffle_row_groups=True, shard_seed=0, **reader_kwargs)
     loader = make_packed_torch_dataloader(
         reader, slot_len=slot_len, slots=slots, sequence_fields=["tokens"],
         length_field="length", max_batches=steps, device=device)

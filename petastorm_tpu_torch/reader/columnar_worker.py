@@ -8,7 +8,9 @@ decode first (vectorized, ``codec.decode_column``), give the keep-mask
 (``evaluate_predicate_mask``), and the table is filtered and thinned. Then
 every column decodes vectorized into a dense array, so a row group becomes
 one dict with no per-row Python objects. ``TransformSpec.func`` takes and
-returns that ``{field: [N, ...]}`` dict. The batch goes through the cache
+returns that ``{field: [N, ...]}`` dict. Each codec column's decode of the
+batch is one ``COLUMNAR_KERNEL_SECONDS`` observation, as in the JAX
+worker (predicate fields are not). The batch goes through the cache
 under the JAX package's key and is published as an ``(item_key, columns)``
 pair; the consumer side records the delivery, in rows, in the reader's
 tracker as it hands the batch out.
@@ -16,6 +18,7 @@ tracker as it hands the batch out.
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 
 import pyarrow as pa
@@ -23,6 +26,7 @@ import pyarrow as pa
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.reader_impl.delivery_tracker import item_key
 from petastorm_tpu_torch.schema.transform import transform_schema
+from petastorm_tpu_torch.telemetry.metrics import COLUMNAR_KERNEL_SECONDS
 from petastorm_tpu_torch.utils import column_cells, drop_partition
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
 
@@ -62,7 +66,7 @@ class ColumnarDecodeWorker(WorkerBase):
         else:
             table = piece.read(self._filesystem, columns=columns)
         table = drop_partition(table, shuffle_row_drop_partition)
-        batch = OrderedDict((name, self._decode(name, table, self._read_schema))
+        batch = OrderedDict((name, self._decode(name, table, self._read_schema, timed=True))
                             for name in columns)
         if self._transform_spec is None:
             return batch
@@ -74,11 +78,17 @@ class ColumnarDecodeWorker(WorkerBase):
             raise ValueError(f"TransformSpec output is missing declared fields: {missing}")
         return OrderedDict((c, batch[c]) for c in result_schema.fields)
 
-    def _decode(self, name, table, schema):
+    def _decode(self, name, table, schema, timed=False):
         # Predicate fields may lie outside the requested schema view.
         field = self._read_schema.fields.get(name) or schema.fields.get(name)
         cells = column_cells(table.column(name))
-        return field.codec.decode_column(field, cells) if field.codec is not None else cells
+        if field.codec is None:
+            return cells
+        t0 = time.perf_counter()
+        column = field.codec.decode_column(field, cells)
+        if timed:
+            COLUMNAR_KERNEL_SECONDS.observe(time.perf_counter() - t0)
+        return column
 
 
 class ColumnarResultsQueueReader:

@@ -18,9 +18,12 @@ The port's own copy of ``petastorm_tpu/reader/reader.py``:
   other columns; ``shuffle_row_drop_partitions``, which splits each row
   group into that many work items; the local-disk cache; ``num_epochs``,
   seeded ``shuffle_row_groups``, ``cur_shard``/``shard_count`` row-group
-  sharding, thread or dummy decode pools, resumable iteration
+  sharding, thread, process or dummy decode pools (the process pool ships
+  the row and columnar readers' payloads with pickle and the batch
+  reader's with Arrow IPC, as the JAX package does), resumable iteration
   (``Reader.state_dict()`` / ``resume_state=``), ``Reader.reset()`` and the
-  live ``Reader.diagnostics``.
+  live ``Reader.diagnostics``, mirrored in the registry's ``READER_*``
+  families.
 
 The planning arithmetic is the JAX package's — canonical row-group order
 (or the ``filters``' fragment scan), the selector, the optional
@@ -31,7 +34,7 @@ and the item keys ``item_key(piece_index, drop_partition)``, so the same
 arguments give both packages the same work items in the same order, and a
 state written by either resumes the other. What is not ported raises
 NotImplementedError naming the argument (:data:`UNPORTED_READER_ARGS`,
-``reader_pool_type="process"``).
+:meth:`Reader.resize_workers`).
 """
 
 from __future__ import annotations
@@ -61,22 +64,24 @@ from petastorm_tpu_torch.reader.py_dict_worker import (
     PyDictReaderWorker,
     PyDictResultsQueueReader,
 )
+from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.delivery_tracker import DeliveryTracker, item_key
+from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.schema.transform import transform_schema
 from petastorm_tpu_torch.schema.unischema import Unischema
+from petastorm_tpu_torch.telemetry.metrics import READER_READERS, READER_ROWGROUPS_PLANNED
 from petastorm_tpu_torch.workers_pool import EmptyResultError
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
+from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
 #: Arguments of the JAX package's three factories that the port does not
 #: take, with their JAX defaults: the default is accepted (it asks for
 #: nothing), anything else raises NotImplementedError naming the argument.
-#: (``reader_pool_type="process"`` raises the same way.)
 UNPORTED_READER_ARGS = {
-    "hdfs_driver": "libhdfs", "storage_options": None, "zmq_copy_buffers": True,
-    "filesystem": None, "fast_gcs_listing": True, "piece_indices": None,
-    "dynamic_ventilation": False,
+    "hdfs_driver": "libhdfs", "storage_options": None, "filesystem": None,
+    "fast_gcs_listing": True, "piece_indices": None, "dynamic_ventilation": False,
 }
 
 
@@ -87,7 +92,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                 cache_type="null", cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
                 transform_spec=None, filters=None, reader_engine=None,
-                resume_state=None, **unported):
+                resume_state=None, zmq_copy_buffers=True, **unported):
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
@@ -106,7 +111,10 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     ``cache_type="local-disk"`` (with ``cache_location`` and
     ``cache_size_limit`` in bytes) caches each work item's decoded rows.
     ``shard_seed`` seeds both the shard pre-shuffle and the per-epoch
-    row-group shuffle; ``None`` shuffles unseeded. ``resume_state``: a
+    row-group shuffle; ``None`` shuffles unseeded. ``reader_pool_type``:
+    ``"thread"``, ``"process"`` (decode in fresh interpreters that see no
+    card; ``zmq_copy_buffers`` sends the arrays' memory as frames of their
+    own instead of one pickle) or ``"dummy"``. ``resume_state``: a
     :meth:`Reader.state_dict` of a reader built with the same arguments,
     whose remaining work items this one delivers. ``reader_engine``: only
     the deprecated ``"reader_v1"``, which changes nothing.
@@ -121,7 +129,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                       stacklevel=2)
     fs, path, stored_schema = _open_dataset(dataset_url)
     return Reader(fs, path, schema=stored_schema,
-                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
+                                         PickleSerializer(), zmq_copy_buffers),
                   worker_class=PyDictReaderWorker,
                   results_queue_reader=PyDictResultsQueueReader(),
                   schema_fields=schema_fields, transform_spec=transform_spec,
@@ -142,7 +151,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                          shard_count=None, shard_seed=None, cache_type="null",
                          cache_location=None, cache_size_limit=None,
                          cache_row_size_estimate=None, cache_extra_settings=None,
-                         transform_spec=None, filters=None, resume_state=None, **unported):
+                         transform_spec=None, filters=None, resume_state=None,
+                         zmq_copy_buffers=True, **unported):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
     decoded ``[N, ...]`` column arrays, one per work item
     (``batched_output=True``).
@@ -157,7 +167,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                          "use make_reader")
     fs, path, stored_schema = _open_dataset(dataset_url)
     return Reader(fs, path, schema=stored_schema,
-                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
+                                         PickleSerializer(), zmq_copy_buffers),
                   worker_class=ColumnarDecodeWorker,
                   results_queue_reader=ColumnarResultsQueueReader(),
                   schema_fields=schema_fields, transform_spec=transform_spec,
@@ -177,7 +188,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       num_epochs=1, cur_shard=None, shard_count=None, shard_seed=None,
                       cache_type="null", cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
-                      transform_spec=None, filters=None, resume_state=None, **unported):
+                      transform_spec=None, filters=None, resume_state=None,
+                      zmq_copy_buffers=True, **unported):
     """Batch reader for **plain Parquet** stores (no petastorm metadata
     needed): yields namedtuples of numpy column batches, one per work item
     (``batched_output=True``), under a codec-less schema inferred from the
@@ -190,7 +202,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     Expression``; row groups whose Parquet statistics rule the filter out
     are never read. ``transform_spec.func`` takes and returns a pandas
     DataFrame (only this path needs pandas). The local-disk cache stores
-    Arrow IPC. The other arguments are :func:`make_reader`'s.
+    Arrow IPC, and a process pool ships the tables as Arrow IPC. The other
+    arguments are :func:`make_reader`'s.
     """
     _check_unported("make_batch_reader", unported)
     if isinstance(schema_fields, NGram):
@@ -207,7 +220,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     inferred = Unischema.from_arrow_schema(
         pads.dataset(path, filesystem=fs, format="parquet"), omit_unsupported_fields=True)
     return Reader(fs, path, schema=inferred,
-                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size),
+                  reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
+                                         ArrowTableSerializer(), zmq_copy_buffers),
                   worker_class=ArrowReaderWorker,
                   results_queue_reader=ArrowResultsQueueReader(),
                   schema_fields=schema_fields, transform_spec=transform_spec,
@@ -257,22 +271,18 @@ def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_est
     raise ValueError(f"Unknown cache_type {cache_type!r}")
 
 
-class UnportedPoolError(NotImplementedError, ValueError):
-    """A pool type of the JAX package that the port does not have: not
-    implemented here, and an invalid ``reader_pool_type`` for this package
-    (a ValueError, as an unknown pool type is)."""
-
-
-def _make_pool(reader_pool_type, workers_count, results_queue_size=50):
+def _make_pool(reader_pool_type, workers_count, results_queue_size, serializer,
+               zmq_copy_buffers):
     if reader_pool_type == "thread":
         return ThreadPool(workers_count, results_queue_size=results_queue_size)
+    if reader_pool_type == "process":
+        return ProcessPool(workers_count, serializer=serializer,
+                           zmq_copy_buffers=zmq_copy_buffers,
+                           results_queue_size=results_queue_size)
     if reader_pool_type == "dummy":
         return DummyPool()
-    if reader_pool_type == "process":
-        raise UnportedPoolError("reader_pool_type='process' is not ported yet "
-                                "(use 'thread' or 'dummy')")
     raise ValueError(f"Unknown reader_pool_type {reader_pool_type!r} "
-                     "(this package has 'thread' and 'dummy')")
+                     "(one of 'thread', 'process', 'dummy')")
 
 
 def split_pieces_for_shards(pieces, shard_count, shard_seed=None):
@@ -455,6 +465,8 @@ class Reader:
         reader_pool.start(worker_class, (filesystem, pieces, schema, read_schema,
                                          self.ngram, self.cache, transform_spec),
                           ventilator=self._ventilator)
+        READER_READERS.inc()
+        READER_ROWGROUPS_PLANNED.set(len(pieces))
 
     def _apply_selector(self, pieces, rowgroup_selector, canonical=None):
         """The pieces among ``pieces`` whose canonical ordinals the selector
@@ -587,6 +599,16 @@ class Reader:
 
     def join(self):
         self._workers_pool.join()
+
+    def resize_workers(self, workers_count):
+        """Not ported: the JAX reader resizes a thread pool live (its
+        autotuner's knob); a process pool cannot resize in either package,
+        its workers being processes started with it."""
+        if isinstance(self._workers_pool, ProcessPool):
+            raise NotImplementedError(
+                "ProcessPool cannot resize at runtime: its workers are processes "
+                "started with the pool")
+        raise NotImplementedError("Reader.resize_workers is not ported yet")
 
     def reset(self):
         """Start the same epochs again, once every row of the previous run

@@ -1,0 +1,158 @@
+"""The metric families the port's modules feed, declared in one place (the
+port's own copy of the matching part of ``petastorm_tpu/telemetry/
+metrics.py``).
+
+Each family keeps the JAX package's name, help text, labels and buckets,
+so a scrape of either package reads the same vocabulary. The families of
+modules not ported yet (the data service, the fleet, the autotuner, the
+framed-socket transport, the packing stage, resilience) come with those
+modules. Naming follows Prometheus: ``petastorm_<layer>_...``, base units,
+``_total`` on counters; label values are bounded (stage names, tiers, a
+recycled per-loader id), never row- or batch-scoped.
+"""
+
+from __future__ import annotations
+
+from petastorm_tpu_torch.telemetry.registry import REGISTRY
+
+
+# -- reader / worker pools / ventilator (reader/reader.py, workers_pool/) ------
+
+READER_READERS = REGISTRY.counter(
+    "petastorm_reader_readers_total",
+    "Reader instances constructed in this process")
+READER_ROWGROUPS_PLANNED = REGISTRY.gauge(
+    "petastorm_reader_rowgroups_planned",
+    "Row-group pieces in the most recently constructed reader's plan "
+    "(after filters/selector/shard)")
+POOL_ITEMS_VENTILATED = REGISTRY.counter(
+    "petastorm_pool_items_ventilated_total",
+    "Work items handed to reader worker pools (all pools in-process)")
+POOL_ITEMS_PROCESSED = REGISTRY.counter(
+    "petastorm_pool_items_processed_total",
+    "Work items fully processed by reader worker pools")
+POOL_RESULTS_QUEUE_DEPTH = REGISTRY.gauge(
+    "petastorm_pool_results_queue_depth",
+    "Decoded payloads sitting in thread-pool results queues right now, "
+    "summed over live pools (pinned at its cap = the consumer can't keep "
+    "up; process pools report depth via reader diagnostics only)")
+VENTILATOR_ITEMS = REGISTRY.counter(
+    "petastorm_ventilator_items_ventilated_total",
+    "Items ventilated into pools across all ventilators in-process")
+VENTILATOR_EPOCHS = REGISTRY.counter(
+    "petastorm_ventilator_epochs_completed_total",
+    "Full ventilation epochs completed across all ventilators in-process")
+
+# -- columnar decode (reader/columnar_worker.py) -------------------------------
+
+COLUMNAR_KERNEL_SECONDS = REGISTRY.histogram(
+    "petastorm_columnar_kernel_seconds",
+    "Per-column vectorized codec decode time inside the columnar reader "
+    "worker (one observation per codec column per row-group batch — the "
+    "decode_column kernels the row_vs_columnar rewrite bets on)")
+
+# -- loader (torch_utils/loader.py) --------------------------------------------
+
+LOADER_BATCHES = REGISTRY.counter(
+    "petastorm_loader_batches_total",
+    "Batches yielded to the training loop, per loader instance",
+    labels=("loader",))
+LOADER_ROWS = REGISTRY.counter(
+    "petastorm_loader_rows_total",
+    "Rows yielded to the training loop, per loader instance",
+    labels=("loader",))
+LOADER_STAGE_SECONDS = REGISTRY.histogram(
+    "petastorm_loader_stage_seconds",
+    "Per-batch time in each loader pipeline stage (decode, queue_wait, "
+    "wait, raw_stage, device_decode, shard_put, device_put, consumer) — "
+    "the legacy diagnostics stage sums are derived from these series. "
+    "raw_stage = staging the raw uint8 bytes batch onto the device(s), "
+    "device_decode = the fused on-device decode/augment kernel dispatch, "
+    "shard_put = each per-shard device_put inside a sharded delivery "
+    "(observed once per target device per batch)",
+    labels=("loader", "stage"))
+LOADER_DISPATCH_OVERLAP = REGISTRY.gauge(
+    "petastorm_loader_dispatch_overlap_pct",
+    "Share of the loader's device-dispatch time that rode inside the "
+    "producer's decode windows or the consumer's step window instead of "
+    "extending the wall ((decode + consumer + dispatch - wall) / "
+    "dispatch, clipped to [0, 100]; refreshed on every diagnostics read "
+    "and at iteration end) — 100 means H2D staging and on-device decode "
+    "are fully hidden behind decode/compute",
+    labels=("loader",))
+
+# -- decoded-batch cache (cache_impl/batch_cache.py) ---------------------------
+
+CACHE_HITS = REGISTRY.counter(
+    "petastorm_cache_hits_total",
+    "Decoded-batch cache lookups served without re-decoding, by tier "
+    "(mem = LRU memory tier, disk = spill tier; a disk hit is promoted "
+    "into memory)",
+    labels=("tier",))
+CACHE_MISSES = REGISTRY.counter(
+    "petastorm_cache_misses_total",
+    "Decoded-batch cache lookups absent from every tier (the key's pieces "
+    "were decoded and the entry filled)")
+CACHE_BYTES = REGISTRY.gauge(
+    "petastorm_cache_bytes",
+    "Bytes resident in the decoded-batch cache right now, by tier "
+    "(summed over every cache instance in the process)",
+    labels=("tier",))
+CACHE_ENTRIES = REGISTRY.gauge(
+    "petastorm_cache_entries",
+    "Entries resident in the decoded-batch cache right now, by tier",
+    labels=("tier",))
+CACHE_EVICTIONS = REGISTRY.counter(
+    "petastorm_cache_evictions_total",
+    "Entries evicted from a decoded-batch cache tier to honor its size "
+    "budget (mem evictions are harmless when the disk tier holds the "
+    "entry — fills write through)",
+    labels=("tier",))
+CACHE_FILL_SECONDS = REGISTRY.histogram(
+    "petastorm_cache_fill_seconds",
+    "Per-entry time to serialize, pack, and store a decoded-batch cache "
+    "entry (decode time excluded — that is the cost caching removes)")
+CACHE_SERVE_SECONDS = REGISTRY.histogram(
+    "petastorm_cache_serve_seconds",
+    "Per-hit time to fetch a decoded-batch cache entry (memory hits are "
+    "~free; disk hits pay one contiguous file read)")
+CACHE_CORRUPT = REGISTRY.counter(
+    "petastorm_cache_corrupt_entries_total",
+    "Disk-tier entry files that failed validation on load (bad magic, "
+    "torn length, or checksum mismatch from a truncated/bit-flipped "
+    "file). Each one is deleted and treated as a miss — the worker "
+    "degrades to a fresh decode, never serves corrupt bytes, never "
+    "errors the stream")
+CACHE_PERMUTED_SERVES = REGISTRY.counter(
+    "petastorm_cache_permuted_serves_total",
+    "Cache entries served through a seed-tree serve-time permutation "
+    "(shuffle-compatible serving: canonical cached bytes, per-epoch "
+    "order), by the tier the entry was fetched from (mem/disk)",
+    labels=("tier",))
+CACHE_VERSION_EVICTED = REGISTRY.counter(
+    "petastorm_cache_version_evicted_total",
+    "Disk-tier entry files written by an older cache format version, "
+    "detected on load, deleted, and treated as a miss (fresh decode "
+    "refills them in the current format — a format bump never errors a "
+    "stream)")
+CACHE_DISK_WRITE_ERRORS = REGISTRY.counter(
+    "petastorm_cache_disk_write_errors_total",
+    "Disk-tier entry writes that failed with an OSError (ENOSPC, vanished "
+    "directory, fd exhaustion) and were skipped: the cache degrades to "
+    "pass-through for that entry — the batch still streams, it just is "
+    "not persisted (docs/guides/service.md#failure-model-and-recovery)")
+
+# -- flight recorder (telemetry/flight.py) -------------------------------------
+
+FLIGHT_EVENTS = REGISTRY.counter(
+    "petastorm_flight_events_total",
+    "Structured events noted into this process's flight-recorder ring "
+    "(always on, bounded; the ring holds only the most recent ones — "
+    "this counter is the lifetime total)")
+FLIGHT_DUMPS = REGISTRY.counter(
+    "petastorm_flight_dumps_total",
+    "Flight-recorder rings dumped to disk, by reason (invariant "
+    "violation, thread-crash, sigusr2, fuzz failure attachment; "
+    "write_failed counts dumps that could not be persisted). Nonzero "
+    "outside a chaos run means a real incident left a postmortem file",
+    labels=("reason",))

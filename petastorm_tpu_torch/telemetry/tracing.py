@@ -7,7 +7,9 @@ process-wide :data:`COLLECTOR`; :meth:`TraceCollector.export` writes them
 as JSON that Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``
 loads. Collection is off by default and costs one attribute read per call
 site when off. ``make_torch_dataloader(trace_path=...)`` arms it for each
-iteration and writes the file at its end.
+iteration and writes the file at its end; the module functions
+(:func:`enable`, :func:`disable`, :func:`record_span`, :func:`export`,
+:func:`wall_us`) act on :data:`COLLECTOR` directly.
 """
 
 from __future__ import annotations
@@ -37,6 +39,21 @@ class TraceCollector:
         # wall clock so traces of several processes share an axis.
         self._epoch = time.time() - time.perf_counter()
 
+    def enable(self):
+        self.enabled = True
+        return self
+
+    def disable(self):
+        """Off, whoever armed it (the armers' count restarts at zero)."""
+        self.enabled = False
+        with self._lock:
+            self._armers = 0
+
+    def clear(self):
+        with self._lock:
+            self._events = []
+            self._dropped = 0
+
     def acquire(self):
         """Scoped arming: the first armer clears the buffer, later armers
         (a second trace-armed loader) join the running trace, and
@@ -57,6 +74,15 @@ class TraceCollector:
 
     def _ts_us(self, t):
         return (self._epoch + t) * 1e6
+
+    def ts_us(self, t):
+        """A ``time.perf_counter()`` reading in the trace timebase
+        (wall-anchored microseconds), the unit of every event's ``ts``."""
+        return self._ts_us(t)
+
+    def now_us(self):
+        """The current instant in the trace timebase."""
+        return self._ts_us(time.perf_counter())
 
     def record_span(self, name, t_start, t_end, bid=None, args=None, tid=None):
         """One completed span as a B/E event pair; ``t_start``/``t_end``
@@ -122,3 +148,26 @@ class TraceCollector:
 
 #: The process-default collector every loader records into.
 COLLECTOR = TraceCollector()
+
+
+def enable():
+    return COLLECTOR.enable()
+
+
+def disable():
+    COLLECTOR.disable()
+
+
+def record_span(name, t_start, t_end, bid=None, args=None):
+    COLLECTOR.record_span(name, t_start, t_end, bid=bid, args=args)
+
+
+def export(path):
+    return COLLECTOR.export(path)
+
+
+def wall_us():
+    """The process's current wall-anchored trace timestamp (µs): what the
+    flight recorder stamps its events with, so the rings of several
+    processes share the traces' axis."""
+    return COLLECTOR.now_us()

@@ -37,8 +37,12 @@ the fill's order or, when shuffling is asked for, through a fresh seed-tree
 permutation of its batches per pass (``cache_resume`` re-enters such a pass
 at a batch position).
 
-``diagnostics`` reports the keys of the JAX loader's unsharded path;
-``trace_path`` writes each iteration's per-batch spans as Chrome trace JSON
+``diagnostics`` reports the keys of the JAX loader's unsharded path,
+derived from this loader's children of the registry's ``LOADER_*``
+families (labelled by a process-unique loader id, recycled when the loader
+is collected), and :meth:`TorchDataLoader.stage_quantiles` estimates each
+stage's per-batch latency quantiles from them; ``trace_path`` writes each
+iteration's per-batch spans as Chrome trace JSON
 (:mod:`petastorm_tpu_torch.telemetry.tracing`, the JAX span names), and
 every stage runs under ``torch.profiler.record_function(
 "petastorm_tpu_torch.loader.<stage>")``. Threads are joined by :meth:`stop`
@@ -50,10 +54,9 @@ in the batcher, the host queue and the device prefetch, so they are re-read
 on resume; in a permuted cache pass, the pass and its yielded batches.
 Under a ``torch.distributed`` group, :func:`make_torch_dataloader` derives
 the equal-step ``max_batches`` from the reader's shard metadata, as the JAX
-loader does under a sharding. (Global arrays, the autotuner, the metrics
-registry and its ``stage_quantiles``, and the data service's batch sources
-are not ported; in the data-parallel layout each rank keeps its own local
-batch on its own card.)
+loader does under a sharding. (Global arrays, the autotuner and the data
+service's batch sources are not ported; in the data-parallel layout each
+rank keeps its own local batch on its own card.)
 """
 
 from __future__ import annotations
@@ -64,16 +67,58 @@ import queue
 import threading
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
 
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
 from petastorm_tpu_torch.telemetry import tracing
+from petastorm_tpu_torch.telemetry.metrics import (
+    LOADER_BATCHES,
+    LOADER_DISPATCH_OVERLAP,
+    LOADER_ROWS,
+    LOADER_STAGE_SECONDS,
+)
 from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY, batch_iterator
 from petastorm_tpu_torch.utils import resize_bounded_queue
 
 _SENTINEL = object()
+
+#: The pipeline stages the ``loader_stage_seconds`` histogram is labelled
+#: by, the JAX loader's: ``decode`` (reader pull or cache serve, collation,
+#: pinning), ``queue_wait`` (the producer blocked on a full queue), ``wait``
+#: (the consumer blocked on input: the stall), ``raw_stage`` (the raw image
+#: bytes' copy), ``device_decode`` (the device stage's ops), ``shard_put``
+#: (never observed here: no sharded delivery), ``device_put`` (the plain
+#: tensors' copies), ``consumer`` (the training step between yields).
+_STAGES = ("decode", "queue_wait", "wait", "raw_stage", "device_decode",
+           "shard_put", "device_put", "consumer")
+
+#: The device-dispatch stages (``device_dispatch_s``, the overlap gauge).
+_DISPATCH_STAGES = ("raw_stage", "device_decode", "device_put")
+
+#: Loader ids, the ``loader`` label: recycled when a loader is collected
+#: (``weakref.finalize``), so live series track live loaders.
+_LOADER_IDS = itertools.count()
+_LOADER_ID_POOL = []
+
+
+def _acquire_loader_id():
+    try:
+        return _LOADER_ID_POOL.pop()
+    except IndexError:
+        return str(next(_LOADER_IDS))
+
+
+def _release_loader_metrics(loader_id):
+    """weakref.finalize callback: retire a collected loader's series."""
+    LOADER_BATCHES.remove(loader_id)
+    LOADER_ROWS.remove(loader_id)
+    LOADER_DISPATCH_OVERLAP.remove(loader_id)
+    for stage in _STAGES:
+        LOADER_STAGE_SECONDS.remove(loader_id, stage)
+    _LOADER_ID_POOL.append(loader_id)
 
 
 def _profiled(stage):
@@ -249,14 +294,34 @@ class TorchDataLoader:
             # seed's permutation would re-serve some batches and skip others.
             self._cache_resume_seed = cache_resume.get("shuffle_seed")
             self._cache_resume_has_seed = "shuffle_seed" in cache_resume
+        self._loader_id = _acquire_loader_id()
+        self._m_batches = LOADER_BATCHES.labels(self._loader_id)
+        self._m_rows = LOADER_ROWS.labels(self._loader_id)
+        self._m_stage = {stage: LOADER_STAGE_SECONDS.labels(self._loader_id, stage)
+                         for stage in _STAGES}
+        self._m_overlap = LOADER_DISPATCH_OVERLAP.labels(self._loader_id)
+        self._metrics_finalizer = weakref.finalize(self, _release_loader_metrics,
+                                                   self._loader_id)
+        # Module globals may be gone at interpreter exit; only long-lived
+        # processes need the series retired.
+        self._metrics_finalizer.atexit = False
+        self._h2d_bytes = 0
         self._reset_diagnostics()
 
     # -- diagnostics -------------------------------------------------------
 
+    @property
+    def loader_id(self):
+        """This loader's ``loader`` label value in the registry."""
+        return self._loader_id
+
     def _reset_diagnostics(self):
-        self._stats = {"batches": 0, "rows": 0, "decode_s": 0.0, "queue_wait_s": 0.0,
-                       "stall_s": 0.0, "device_put_s": 0.0, "raw_stage_s": 0.0,
-                       "device_decode_s": 0.0, "consumer_s": 0.0, "h2d_bytes": 0}
+        """Start the per-iteration view: the registry's current values
+        become the baseline ``diagnostics`` subtracts (the series stay
+        monotonic for scrapers)."""
+        self._base = {"batches": self._m_batches.value, "rows": self._m_rows.value,
+                      "h2d_bytes": self._h2d_bytes,
+                      "stage": {stage: child.sum for stage, child in self._m_stage.items()}}
         self._iter_start = None
         self._iter_end = None
 
@@ -273,38 +338,52 @@ class TorchDataLoader:
         here), ``dispatch_overlap_pct`` (the share of dispatch hidden inside
         decode or the consumer's step rather than extending the wall),
         ``consumer_s`` (time the caller held each batch) and ``h2d_bytes``
-        (bytes copied to a CUDA device)."""
+        (bytes copied to a CUDA device). Each is this loader's registry
+        series less its value when the iteration began; reading refreshes
+        the ``loader_dispatch_overlap_pct`` gauge."""
         start, end = self._iter_start, self._iter_end
         wall = 0.0 if start is None else max(
             0.0, (time.perf_counter() if end is None else end) - start)
-        s = self._stats
-        dispatch = s["device_put_s"] + s["raw_stage_s"] + s["device_decode_s"]
+        base = self._base
+        stage = {name: max(0.0, child.sum - base["stage"][name])
+                 for name, child in self._m_stage.items()}
+        dispatch = sum(stage[name] for name in _DISPATCH_STAGES)
         overlap_pct = (round(100.0 * max(0.0, min(1.0, (
-            s["decode_s"] + s["consumer_s"] + dispatch - wall) / dispatch)), 2)
+            stage["decode"] + stage["consumer"] + dispatch - wall) / dispatch)), 2)
             if dispatch > 0 else 100.0)
+        self._m_overlap.set(overlap_pct)
         return {
-            "batches": s["batches"],
-            "rows": s["rows"],
-            "stall_s": s["stall_s"],
+            "batches": int(self._m_batches.value - base["batches"]),
+            "rows": int(self._m_rows.value - base["rows"]),
+            "stall_s": stage["wait"],
             "wall_s": wall,
-            "input_stall_pct": (round(100.0 * s["stall_s"] / wall, 2)
+            "input_stall_pct": (round(100.0 * stage["wait"] / wall, 2)
                                 if wall > 0 else 0.0),
             "max_batches": self._max_batches,
-            "producer_decode_s": s["decode_s"],
-            "producer_queue_wait_s": s["queue_wait_s"],
+            "producer_decode_s": stage["decode"],
+            "producer_queue_wait_s": stage["queue_wait"],
             "device_dispatch_s": dispatch,
-            "raw_stage_s": s["raw_stage_s"],
-            "device_decode_s": s["device_decode_s"],
-            "shard_put_s": 0.0,
+            "raw_stage_s": stage["raw_stage"],
+            "device_decode_s": stage["device_decode"],
+            "shard_put_s": stage["shard_put"],
             "dispatch_overlap_pct": overlap_pct,
-            "h2d_bytes": s["h2d_bytes"],
-            "consumer_s": s["consumer_s"],
+            "h2d_bytes": int(self._h2d_bytes - base["h2d_bytes"]),
+            "consumer_s": stage["consumer"],
         }
 
     def exclude_stall_so_far(self):
         """Zero this iteration's stall up to now, e.g. the pipeline-fill
-        wait for the first batch, which every run pays once."""
-        self._stats["stall_s"] = 0.0
+        wait for the first batch, which every run pays once (the registry
+        histogram keeps the whole history)."""
+        self._base["stage"]["wait"] = self._m_stage["wait"].sum
+
+    def stage_quantiles(self, quantiles=(0.5, 0.99)):
+        """Approximate per-batch latency quantiles of each pipeline stage,
+        ``{stage: {"p50": s, "p99": s}}``, estimated from this loader's
+        registry histograms over its lifetime (None for a stage never
+        observed)."""
+        return {stage: {f"p{int(q * 100)}": child.quantile(q) for q in quantiles}
+                for stage, child in self._m_stage.items()}
 
     # -- runtime knobs -------------------------------------------------------
 
@@ -413,7 +492,7 @@ class TorchDataLoader:
                     if batch is not _SENTINEL:
                         batch = self._to_host(batch)
                 t1 = time.perf_counter()
-                self._stats["decode_s"] += t1 - t0
+                self._m_stage["decode"].observe(t1 - t0)
                 if batch is _SENTINEL:
                     break
                 if collector.enabled:
@@ -421,7 +500,7 @@ class TorchDataLoader:
                 t0 = time.perf_counter()
                 self._put(target, batch)
                 batch = None
-                self._stats["queue_wait_s"] += time.perf_counter() - t0
+                self._m_stage["queue_wait"].observe(time.perf_counter() - t0)
         except Exception as exc:  # noqa: BLE001 - re-raised on the consumer side
             self._producer_error = exc
         finally:
@@ -583,30 +662,30 @@ class TorchDataLoader:
         cuda = self._device.type == "cuda"
         if cuda and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(device=self._device)
-        s = self._stats
         with torch.cuda.stream(self._copy_stream) if cuda else contextlib.nullcontext():
             t0 = time.perf_counter()
             out = {name: t.to(self._device, non_blocking=True) if torch.is_tensor(t) else t
                    for name, t in columns.items()}
-            s["device_put_s"] += time.perf_counter() - t0
+            self._m_stage["device_put"].observe(time.perf_counter() - t0)
             if cuda:
-                s["h2d_bytes"] += sum(t.nbytes for t in columns.values() if torch.is_tensor(t))
+                self._h2d_bytes += sum(t.nbytes for t in columns.values()
+                                       if torch.is_tensor(t))
             if raw:
                 step, self._stage_step = self._stage_step, self._stage_step + 1
                 t0 = time.perf_counter()
                 with _profiled("raw_stage"):
                     raw_dev = {name: t.to(self._device, non_blocking=True)
                                for name, t in raw.items()}
-                s["raw_stage_s"] += time.perf_counter() - t0
+                self._m_stage["raw_stage"].observe(time.perf_counter() - t0)
                 if cuda:
                     raw_bytes = sum(t.nbytes for t in raw.values())
-                    s["h2d_bytes"] += raw_bytes
+                    self._h2d_bytes += raw_bytes
                     self._device_stage.h2d_bytes += raw_bytes
                 t0 = time.perf_counter()
                 with _profiled("device_decode"):
                     out.update(self._device_stage.apply(raw_dev, step))
                 raw_dev = None  # the outputs exist: drop the raw bytes now
-                s["device_decode_s"] += time.perf_counter() - t0
+                self._m_stage["device_decode"].observe(time.perf_counter() - t0)
             ready = None
             if cuda:
                 ready = torch.cuda.Event()
@@ -710,7 +789,7 @@ class TorchDataLoader:
                     with _profiled("wait"):
                         item = self._queue.get()
                     t1 = time.perf_counter()
-                    self._stats["stall_s"] += t1 - t0
+                    self._m_stage["wait"].observe(t1 - t0)
                     if item is _SENTINEL:
                         done = True
                         if self._producer_error is not None:
@@ -725,8 +804,8 @@ class TorchDataLoader:
                     return
                 batch = self._hand_over(*inflight.pop(0))
                 rows = self._batch_rows(batch)
-                self._stats["batches"] += 1
-                self._stats["rows"] += rows
+                self._m_batches.inc()
+                self._m_rows.inc(rows)
                 mask = batch.get(PAD_MASK_KEY)
                 # Resume accounting counts real rows only (a padded final
                 # batch's mask is read once, at the end of a stream).
@@ -735,7 +814,7 @@ class TorchDataLoader:
                 yield batch
                 t_back = time.perf_counter()
                 batch = None
-                self._stats["consumer_s"] += t_back - t_yield
+                self._m_stage["consumer"].observe(t_back - t_yield)
                 if collector.enabled:
                     collector.record_span("loader.consumer", t_yield, t_back)
         finally:
@@ -776,7 +855,7 @@ class TorchDataLoader:
                 "at an epoch boundary with the reader's state_dict()")
         if self._batch_cache is not None and self._cache_pass is not None:
             pass_info = self._cache_pass
-            yielded = pass_info["base"] + self._stats["batches"]
+            yielded = pass_info["base"] + int(self._m_batches.value - self._base["batches"])
             cache_epoch = pass_info["cache_epoch"]
             n = pass_info["n"]
             if n is not None and yielded >= n:

@@ -1,9 +1,11 @@
 """Worker pools and ventilation (the port's own copy of
-``petastorm_tpu/workers_pool``, cut to the thread and dummy pools).
+``petastorm_tpu/workers_pool``).
 
-Both pools share one contract: ``start``/``ventilate``/``get_results``/
-``stop``/``join``. The thread pool runs N decode threads (pyarrow releases
-the GIL); the dummy pool decodes synchronously, for deterministic tests.
+The three pools share one contract: ``start``/``ventilate``/
+``get_results``/``stop``/``join``. The thread pool runs N decode threads
+(pyarrow releases the GIL); the process pool runs N fresh interpreters
+over zmq (:mod:`.process_pool`), for decode that holds the interpreter;
+the dummy pool decodes synchronously, for deterministic tests.
 """
 
 DEFAULT_TIMEOUT_S = 60

@@ -10,6 +10,7 @@ import time
 import traceback
 from collections import deque
 
+from petastorm_tpu_torch.telemetry.flight import RECORDER
 from petastorm_tpu_torch.workers_pool import EmptyResultError, WorkerException
 
 
@@ -65,6 +66,8 @@ class DummyPool:
             if self._results:
                 result = self._results.popleft()
                 if isinstance(result, WorkerException):
+                    RECORDER.note("pool.worker_exception", pool="dummy",
+                                  error=repr(result.exc)[:200])
                     raise result
                 return result
             error = getattr(self._ventilator, "error", None)

@@ -1,7 +1,8 @@
 """Thread-based worker pool (counterpart of
 ``petastorm_tpu/workers_pool/thread_pool.py``): pyarrow Parquet decode
 releases the GIL, so threads decode row groups in parallel. Its
-``diagnostics`` are the JAX pool's live counters, under the same names."""
+``diagnostics`` are the JAX pool's live counters, under the same names, and
+it feeds the registry's ``POOL_*`` families as the JAX pool does."""
 
 from __future__ import annotations
 
@@ -11,6 +12,12 @@ import threading
 import time
 import traceback
 
+from petastorm_tpu_torch.telemetry.flight import RECORDER
+from petastorm_tpu_torch.telemetry.metrics import (
+    POOL_ITEMS_PROCESSED,
+    POOL_ITEMS_VENTILATED,
+    POOL_RESULTS_QUEUE_DEPTH,
+)
 from petastorm_tpu_torch.workers_pool import (
     DEFAULT_TIMEOUT_S,
     EmptyResultError,
@@ -58,6 +65,7 @@ class ThreadPool:
     def _publish_result(self, item):
         with self._counter_lock:
             self._results_pending += 1
+        POOL_RESULTS_QUEUE_DEPTH.inc()
         self._results_queue.put(item)
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
@@ -97,6 +105,7 @@ class ThreadPool:
     def ventilate(self, *args, **kwargs):
         with self._counter_lock:
             self._ventilated_items += 1
+        POOL_ITEMS_VENTILATED.inc()
         self._ventilator_queue.put((args, kwargs))
 
     def get_results(self, timeout=DEFAULT_TIMEOUT_S):
@@ -123,13 +132,17 @@ class ThreadPool:
             if isinstance(result, VentilatedItemProcessedMessage):
                 with self._counter_lock:
                     self._completed_items += 1
+                POOL_ITEMS_PROCESSED.inc()
                 if self._ventilator is not None:
                     self._ventilator.processed_item()
                 continue
             if isinstance(result, WorkerException):
+                RECORDER.note("pool.worker_exception", pool="thread",
+                              error=repr(result.exc)[:200])
                 raise result
             with self._counter_lock:
                 self._results_pending -= 1
+            POOL_RESULTS_QUEUE_DEPTH.dec()
             return result
 
     def _all_done(self):
@@ -155,6 +168,7 @@ class ThreadPool:
                     self._results_queue.get_nowait()
             except queue.Empty:
                 with self._counter_lock:
+                    POOL_RESULTS_QUEUE_DEPTH.dec(self._results_pending)
                     self._results_pending = 0
             if time.monotonic() > deadline:
                 break

@@ -5,13 +5,16 @@ The item order per epoch is ``random.Random(random_seed).shuffle`` of the
 epoch's item list, exactly as in the JAX package, so one seed gives both
 packages the same row-group order, resumed readers (``per_item_iterations``)
 included. ``diagnostics`` and ``reset`` keep the JAX ventilator's key names
-and meaning (``Reader.diagnostics`` / ``Reader.reset``).
+and meaning (``Reader.diagnostics`` / ``Reader.reset``), and the
+``VENTILATOR_*`` registry families count as the JAX ventilator's do.
 """
 
 from __future__ import annotations
 
 import random
 import threading
+
+from petastorm_tpu_torch.telemetry.metrics import VENTILATOR_EPOCHS, VENTILATOR_ITEMS
 
 
 class ConcurrentVentilator:
@@ -99,9 +102,11 @@ class ConcurrentVentilator:
                             return
                         self._in_flight += 1
                         self._items_ventilated += 1
+                    VENTILATOR_ITEMS.inc()
                     self._ventilate_fn(**item)
                 with self._lock:
                     self._epochs_completed += 1
+                VENTILATOR_EPOCHS.inc()
                 epoch += 1
                 if iterations_left is not None:
                     iterations_left -= 1

@@ -12,7 +12,8 @@ same stores: the Criteo-shaped store both packages write
 - ``Unischema.from_arrow_schema`` infers the same fields;
 - arguments the port does not take raise NotImplementedError by name (the
   ported ones are held against the JAX reader in
-  ``test_torch_reader_features.py``).
+  ``test_torch_reader_features.py``); ``zmq_copy_buffers=False`` through
+  both packages' process pools gives the same batches.
 
 Tolerance: none; everything here is compared exactly.
 """
@@ -213,7 +214,7 @@ def test_from_arrow_schema_of_the_store_matches_jax(store):
 
 @pytest.mark.parametrize("name,value", [
     ("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
-    ("fast_gcs_listing", False), ("zmq_copy_buffers", False),
+    ("fast_gcs_listing", False),
     ("filesystem", object()), ("piece_indices", [0]), ("dynamic_ventilation", True),
 ])
 def test_unported_arguments_raise_by_name(store, name, value):
@@ -221,6 +222,19 @@ def test_unported_arguments_raise_by_name(store, name, value):
 
     with pytest.raises(NotImplementedError, match=name):
         make_batch_reader(store, **{name: value})
+
+
+def test_zmq_copy_buffers_false_delivers_the_jax_batches(store):
+    """``zmq_copy_buffers=False`` (one IPC buffer a table instead of its
+    frames) through the process pool, at one worker: the JAX process
+    pool's batches in the same order, bit for bit."""
+    port, jax = _readers(store, reader_pool_type="process", workers_count=1,
+                         zmq_copy_buffers=False, shuffle_row_groups=True, shard_seed=3)
+    assert len(port) == len(jax) == DAYS
+    for p, j in zip(port, jax):
+        assert p.keys() == j.keys()
+        for name in p:
+            assert p[name].dtype == j[name].dtype and np.array_equal(p[name], j[name])
 
 
 def test_unported_arguments_at_their_default_are_accepted(store):

@@ -72,6 +72,31 @@ def test_import_and_cpu_forward_leave_jax_unloaded():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_pool_serializer_and_telemetry_modules_load_neither_jax_nor_torch():
+    """What a process-pool worker imports (the pool, its serializers, the
+    reader stack and the telemetry it feeds) loads no JAX, nothing of
+    ``petastorm_tpu`` and no torch: a decode worker stays light and cannot
+    touch the card."""
+    code = textwrap.dedent("""
+        import sys
+        import petastorm_tpu_torch.workers_pool.process_pool
+        import petastorm_tpu_torch.workers_pool.exec_in_new_process
+        import petastorm_tpu_torch.reader_impl.pickle_serializer
+        import petastorm_tpu_torch.reader_impl.arrow_table_serializer
+        import petastorm_tpu_torch.reader.reader
+        import petastorm_tpu_torch.telemetry
+        import petastorm_tpu_torch.telemetry.flight
+        import petastorm_tpu_torch.telemetry.metrics
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu", "torch"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

@@ -117,8 +117,13 @@ def test_thread_pool_delivers_every_row_group(corpora):
 
 
 def test_unsupported_pool_type_raises(corpora):
+    """An unknown pool name raises; the process pool delivers every row
+    group, as the thread pool does."""
     with pytest.raises(ValueError, match="reader_pool_type"):
-        make_columnar_reader(corpora["port"], reader_pool_type="process")
+        make_columnar_reader(corpora["port"], reader_pool_type="processes")
+    batches = _read(make_columnar_reader, corpora["port"],
+                    reader_pool_type="process", workers_count=2, num_epochs=2)
+    assert sorted(len(lengths) for _, lengths in batches) == [44, 44, 128, 128, 128, 128]
 
 
 @pytest.mark.parametrize("value", [

@@ -409,9 +409,8 @@ def test_reader_engine_and_results_queue_size(store):
 
 
 UNPORTED = [("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
-            ("fast_gcs_listing", False), ("zmq_copy_buffers", False), ("filesystem", object()),
-            ("piece_indices", [0]), ("dynamic_ventilation", True),
-            ("reader_pool_type", "process")]
+            ("fast_gcs_listing", False), ("filesystem", object()),
+            ("piece_indices", [0]), ("dynamic_ventilation", True)]
 
 
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
@@ -421,3 +420,26 @@ def test_unported_arguments_raise_by_name(store, factory, name, value):
         getattr(port_reader_mod, factory)(store, **{name: value})
     with pytest.raises(TypeError, match="unexpected keyword"):
         getattr(port_reader_mod, factory)(store, no_such_argument=1)
+
+
+#: The process pool and its copy mode, once unported: each delivers every
+#: row of one epoch, the rows the dummy pool delivers.
+PROCESS_POOL_ARGS = [("zmq_copy_buffers", False), ("reader_pool_type", "process")]
+
+
+@pytest.mark.parametrize("name,value", PROCESS_POOL_ARGS, ids=[n for n, _ in PROCESS_POOL_ARGS])
+@pytest.mark.parametrize("factory", FACTORIES)
+def test_process_pool_arguments_deliver_every_row(store, factory, name, value):
+    kwargs = dict(dict(reader_pool_type="process", workers_count=2, shuffle_row_groups=False),
+                  **{name: value})
+    got = _rows(getattr(port_reader_mod, factory)(store, **kwargs))
+    want = _rows(getattr(port_reader_mod, factory)(store, reader_pool_type="dummy",
+                                                   shuffle_row_groups=False))
+    assert sorted(int(r["idx"]) for r in got) == list(range(ROWS))
+    key = lambda r: int(r["idx"])  # noqa: E731
+    for g, w in zip(sorted(got, key=key), sorted(want, key=key)):
+        assert g.keys() == w.keys()
+        for k in g:  # NaN (a null float) equals NaN here
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
+    with pytest.raises(ValueError, match="reader_pool_type"):
+        getattr(port_reader_mod, factory)(store, reader_pool_type="processes")

@@ -141,8 +141,13 @@ def test_schema_views_and_transform_schema():
 
 
 def test_reader_rejects_unknown_pool(datasets):
+    """An unknown pool name raises; the process pool delivers every row."""
     with pytest.raises(ValueError, match="reader_pool_type"):
-        make_reader(datasets["port"], reader_pool_type="process")
+        make_reader(datasets["port"], reader_pool_type="processes")
+    with make_reader(datasets["port"], reader_pool_type="dummy") as reader:
+        want = sorted(int(row.id) for row in reader)
+    with make_reader(datasets["port"], reader_pool_type="process", workers_count=2) as reader:
+        assert sorted(int(row.id) for row in reader) == want
 
 
 def _decode_table_case(kind):
