@@ -231,6 +231,39 @@ non-zero exit code):
    injected through a predicate reaches the consumer as a
    ``WorkerException`` with its traceback and leaves a flight-recorder
    event. No flash kernel runs outside (c)'s LM.
+12. ``parallel``: the model-parallel families over ``torch.distributed``,
+   after phase 11 in the same process (``PARALLEL``; see
+   ``parallel_phase``): 4 spawned ranks on card 0 (gloo, pinned-host
+   staging, as phases 6 and 7 (d)), each family sharded by its partition
+   specs (``torch_utils/mesh.py``). (a) The expert-parallel MoE at
+   ``init_moe_params``' defaults (d_model 32, d_hidden 64, 8 experts) on
+   phase 7's Criteo-shaped store (``make_batch_reader`` →
+   ``make_torch_dataloader``, the 13 dense columns as features and
+   ``label`` as the class, batch 256): 12 SGD steps at top-1 and at top-2,
+   at ep = 4 and at (data 2, ep 2). (b) The pipeline at
+   ``init_pipeline_params``' defaults (d_model 64, d_hidden 128; 4 stages at
+   pp = 4, 2 at (data 2, pp 2)) on the same batches, 8 microbatches, 12
+   steps under GPipe and under 1F1B. (c) The image classifier at phase 4's
+   width (conv 64, hidden 2048, 56x56 crops) at (data 2, model 2) on phase
+   4's store, each data rank reading its shard (both model ranks of a data
+   group the same batches), 4 steps. (d) The DLRM at the Criteo trainer's
+   widths (26 tables of 1024 x 16) at (data 2, model 2) on phase 7's
+   store, read as phase 7 (d) reads it, 12 steps. The parent reads the same
+   batches first and trains the same family in one process on the card
+   (the MoE's ``reference_forward`` with 4 token shards, the pipeline's
+   sequential stack, the unsharded classifier and DLRM on each step's two
+   data shards together). Checked, on every rank: its batches on the card
+   and bit-equal to the parent's; its split tensors ``1/n`` of the whole
+   (bytes printed); losses finite and equal to the one-process run's, and
+   its final parameters equal to its block of the one-process run's, each
+   block's distance to it also bounded against how far that block moved
+   in training (``PARALLEL_TOL``: f32 losses 1e-5, parameters rtol 1e-4 /
+   atol 1e-5, top-2 2e-4 / 2e-5, update 1e-3; bf16 image and DLRM: losses
+   5e-4, parameters 1e-4 / 1e-4, update 1e-1); GPipe's and 1F1B's losses
+   within 1e-5 relative; flash launches 0 / 0 / 0 (counted, in the ranks and in the
+   one-process runs); no rank left after the phase. Each case's steps/s a
+   rank (after its first step) is gloo transport on one card, not a
+   scaling claim.
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -309,6 +342,26 @@ ETL = dict(rows=512, row_group_mb=64, workers=(1, 8), batch=32, lm_docs=512,
 POOL = dict(image=IMAGE, workers=(1, 4, 8), lm_steps=12,
             lm_launches={"fwd": 26, "dq": 24, "dkv": 24},
             tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_resume_after=3)
+# Phase 12: the model-parallel families on 4 gloo ranks of card 0 (see
+# parallel_phase): their JAX init defaults, phase 7's store and batch for the
+# MoE, the pipeline and the DLRM (12 steps), phase 4's store and width for the
+# image classifier (4 steps).
+PARALLEL = dict(world=4, steps=12, batch=TABULAR["batch"], microbatches=8, lr=0.05,
+                aux_weight=0.01, tab_rows=TABULAR["rows"], tab_days=TABULAR["days"],
+                image=IMAGE, image_steps=4, moe=dict(d_model=32, d_hidden=64, num_experts=8),
+                pipeline=dict(d_model=64, d_hidden=128), dlrm=dict(vocab_size=1024, embed_dim=16))
+#: Phase 12's limits against the one-process run: losses (relative) and
+#: parameters (rtol, atol, update), where "update" bounds a block's
+#: distance to the one-process block over the distance that block moved in
+#: training, |got - want| / |want - start| (2-norms): a parameter left
+#: frozen, or a gradient summed over too few or too many ranks, gives 0.3
+#: or more however little the parameter moves, where bf16 rounding alone
+#: gives up to a few hundredths after a few small steps. The same code runs on
+#: both sides, so the bf16 limits sit near the errors measured there (the
+#: image classifier's losses differ by 1.2e-4 on an H100: its GEMMs and
+#: convolutions round bf16 differently at half the batch and width).
+PARALLEL_TOL = dict(loss=1e-5, params=(1e-4, 1e-5, 1e-3), top2=(2e-4, 2e-5, 1e-3),
+                    bf16_loss=5e-4, bf16=(1e-4, 1e-4, 1e-1))
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -950,30 +1003,18 @@ def _grads(loss_fn, model):
     return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
 
-def sp_rank(rank, store, out_dir, corpus_url, ragged_url):
-    """One rank of phase 6: joins a gloo group of ``SP`` ranks on card 0,
-    runs every check (raising on a miss) and writes its numbers to
-    ``<out_dir>/rank<rank>.json``, or its traceback to ``rank<rank>.err``."""
-    import traceback
-
+def sp_rank(rank, out_dir, corpus_url, ragged_url):
+    """One rank of phase 6 (a gloo group of ``SP`` ranks on card 0): runs
+    every check (raising on a miss) and writes its numbers to
+    ``<out_dir>/rank<rank>.json``."""
     import torch
     import torch.distributed as dist
 
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=SP)
-        group = dist.group.WORLD
-        out = sp_checks(group, corpus_url, ragged_url)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-        dist.destroy_process_group()
-    except BaseException:
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = sp_checks(dist.group.WORLD, corpus_url, ragged_url)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 def sp_checks(group, corpus_url, ragged_url):
@@ -1110,39 +1151,22 @@ def sp_checks(group, corpus_url, ragged_url):
 def sp_phase(one_process_steps_per_s):
     """Phase 6 (see the module docstring): ``SP`` spawned ranks on card 0;
     fails the run if a rank fails or does not finish."""
-    import multiprocessing
-
     from petastorm_tpu_torch.models.long_context_lm import generate_corpus
     from petastorm_tpu_torch.models.sequence_training import generate_ragged_dataset
+    from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
     try:
         corpus_url, ragged_url = f"file://{tmp}/corpus", f"file://{tmp}/ragged"
         generate_corpus(corpus_url)
         generate_ragged_dataset(ragged_url)
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=sp_rank, args=(r, os.path.join(tmp, "store"), tmp,
-                                                   corpus_url, ragged_url))
-                 for r in range(SP)]
         t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SP_TIMEOUT_S
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        try:
+            run_ranks(sp_rank, SP, tmp, args=(tmp, corpus_url, ragged_url),
+                      timeout_s=SP_TIMEOUT_S, cuda_device=0)
+        except RuntimeError as exc:
+            fail(f"sp: {exc}")
         seconds = time.perf_counter() - t0
-        failed = []
-        for r, p in enumerate(procs):
-            err = os.path.join(tmp, f"rank{r}.err")
-            if p.exitcode != 0:
-                failed.append(f"rank {r} exit {p.exitcode}: "
-                              + (open(err).read() if os.path.exists(err) else "no traceback"))
-        if failed:
-            fail("sp: " + "\n".join(failed))
         ranks = []
         for r in range(SP):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -1443,33 +1467,21 @@ def reader_phase(smi, cfg=READER, device="cuda"):
           f"flash_launches={launches}", flush=True)
 
 
-def tabular_dp_rank(rank, store, out_dir, url):
-    """One rank of phase 7 (d): joins a gloo group of ``DP`` ranks on card
-    0, runs its checks (raising on a miss), trains on its shard and writes
+def tabular_dp_rank(rank, out_dir, url):
+    """One rank of phase 7 (d) (a gloo group of ``DP`` ranks on card 0):
+    runs its checks (raising on a miss), trains on its shard and writes
     its numbers to ``<out_dir>/rank<rank>.json`` and its final parameters
-    to ``params<rank>.pt``, or its traceback to ``rank<rank>.err``."""
-    import traceback
-
+    to ``params<rank>.pt``."""
     import torch
     import torch.distributed as dist
 
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=DP)
-        group = dist.group.WORLD
-        out, params = tabular_dp_checks(rank, group, url)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-        torch.save({k: v.cpu() for k, v in params.items()},
-                   os.path.join(out_dir, f"params{rank}.pt"))
-        dist.destroy_process_group()
-    except BaseException:
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, params = tabular_dp_checks(rank, dist.group.WORLD, url)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.save({k: v.cpu() for k, v in params.items()},
+               os.path.join(out_dir, f"params{rank}.pt"))
 
 
 def tabular_dp_checks(rank, group, url):
@@ -1533,7 +1545,6 @@ def tabular_dp_checks(rank, group, url):
 def tabular_phase(smi):
     """Phase 7 (see the module docstring); fails the run on any check."""
     import gc
-    import multiprocessing
 
     import numpy as np
     import pyarrow.parquet as pq
@@ -1543,6 +1554,7 @@ def tabular_phase(smi):
     from petastorm_tpu_torch.ops import flash_attention as fa
     from petastorm_tpu_torch.reader.reader import make_batch_reader
     from petastorm_tpu_torch.torch_utils.checkpoint import restore_training_state
+    from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
     cfg = TABULAR
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tab_")
@@ -1630,27 +1642,13 @@ def tabular_phase(smi):
                  f"over both runs (limit: under {cfg['batch']}, the dropped final batch)")
 
         # (d) Data parallel: DP spawned ranks on card 0.
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=tabular_dp_rank,
-                             args=(r, os.path.join(tmp, "store"), tmp, url))
-                 for r in range(DP)]
         t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SP_TIMEOUT_S
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        try:
+            run_ranks(tabular_dp_rank, DP, tmp, args=(tmp, url), timeout_s=SP_TIMEOUT_S,
+                      cuda_device=0)
+        except RuntimeError as exc:
+            fail(f"tabular (d): {exc}")
         dp_s = time.perf_counter() - t0
-        failed = [f"rank {r} exit {p.exitcode}: "
-                  + (open(os.path.join(tmp, f"rank{r}.err")).read()
-                     if os.path.exists(os.path.join(tmp, f"rank{r}.err")) else "no traceback")
-                  for r, p in enumerate(procs) if p.exitcode != 0]
-        if failed:
-            fail("tabular (d): " + "\n".join(failed))
         ranks = []
         for r in range(DP):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -2664,6 +2662,435 @@ def pool_phase(smi, image, cfg=POOL, device="cuda"):
     return ceiling
 
 
+def _parallel_layouts(family):
+    """``(name, axis sizes, axis names, batch_axis)`` of a family's two
+    layouts on 4 ranks."""
+    axis = {"moe": "ep", "pipeline": "pp"}[family]
+    return [(f"{axis}4", (4,), (axis,), None),
+            (f"dp2_{axis}2", (2, 2), ("data", axis), "data")]
+
+
+def _tab_batches(url, cfg, device, shard=None):
+    """The first ``cfg["steps"]`` batches of phase 7's store as the
+    trainers read it (one worker, the seeded row-group order): the MoE and
+    pipeline features (the 13 dense columns), labels, and the DLRM's
+    columns, on ``device``."""
+    import torch
+
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.reader.reader import make_batch_reader
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+
+    kw = dict(cur_shard=shard, shard_count=2) if shard is not None else {}
+    reader = make_batch_reader(url, num_epochs=2, shuffle_row_groups=True, shard_seed=7,
+                               workers_count=1, **kw)
+    out = []
+    with make_torch_dataloader(reader, cfg["batch"], max_batches=cfg["steps"],
+                               device=device) as loader:
+        for batch in loader:
+            dense, sparse, labels = td.collate_dlrm(batch)
+            out.append((dense, sparse, labels.long()))
+    if len(out) != cfg["steps"]:
+        raise AssertionError(f"read {len(out)} batches, expected {cfg['steps']}")
+    return out
+
+
+def _image_batches(url, cfg, device, shard):
+    """The first ``cfg["image_steps"]`` batches of data shard ``shard`` of
+    phase 4's store through phase 4's stage (one worker: the seeded order)."""
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+
+    image = cfg["image"]
+    stage = DeviceStage(normalize=(127.5, 127.5), crop=image["crop"], flip=True)
+    reader = make_reader(url, schema_fields=["image", "label"], num_epochs=1, workers_count=1,
+                         shuffle_row_groups=True, shard_seed=0, cur_shard=shard, shard_count=2)
+    with make_torch_dataloader(reader, image["batch"], max_batches=cfg["image_steps"],
+                               device=device, device_stage=stage) as loader:
+        out = [(b["image"], b["label"].long()) for b in loader]
+    if len(out) != cfg["image_steps"]:
+        raise AssertionError(f"read {len(out)} image batches, expected {cfg['image_steps']}")
+    return out
+
+
+def _moe_loss(top_k, shards, aux_weight):
+    from petastorm_tpu_torch.models import moe
+    from petastorm_tpu_torch.models.image_classifier import masked_cross_entropy
+
+    def loss(params, x, labels, mask):
+        logits, aux = moe.reference_forward(params, x, num_shards=shards, top_k=top_k)
+        return masked_cross_entropy(logits, labels, mask) + aux_weight * aux
+
+    return loss
+
+
+def _pipeline_loss(params, x, labels, mask):
+    from petastorm_tpu_torch.models import pipeline as pl
+    from petastorm_tpu_torch.models.image_classifier import masked_cross_entropy
+
+    return masked_cross_entropy(pl.reference_forward(params, x), labels, mask)
+
+
+def parallel_reference(tmp, tab_url, img_url, cfg, device):
+    """The parent's half of phase 12: the batches every rank must see, and
+    each family trained in one process on ``device`` on them; saved to
+    ``<tmp>/reference.pt`` (on the host) for the ranks to hold themselves
+    against. Returns the flash launches it counted."""
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import moe
+    from petastorm_tpu_torch.models import pipeline as pl
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    tab = _tab_batches(tab_url, cfg, device)
+    ref = {"tab": [tuple(t.cpu() for t in b) for b in tab]}
+    mask = torch.ones(cfg["batch"], dtype=torch.bool, device=device)
+    for name, _, _, _ in _parallel_layouts("moe"):
+        full = moe.init_moe_params(0, 13, device=device, **cfg["moe"])
+        for top_k in (1, 2):
+            params, losses = full, []
+            for dense, _, labels in tab:
+                params, loss = ic.sgd_step(_moe_loss(top_k, cfg["world"], cfg["aux_weight"]),
+                                            params, cfg["lr"], dense, labels, mask)
+                losses.append(float(loss))
+            ref[("moe", name, top_k)] = (losses, {k: v.cpu() for k, v in params.items()})
+    for name, sizes, names, _ in _parallel_layouts("pipeline"):
+        params = pl.init_pipeline_params(0, 13, num_stages=sizes[names.index("pp")],
+                                         device=device, **cfg["pipeline"])
+        losses = []
+        for dense, _, labels in tab:
+            params, loss = ic.sgd_step(_pipeline_loss, params, cfg["lr"], dense, labels, mask)
+            losses.append(float(loss))
+        ref[("pipeline", name)] = (losses, {k: v.cpu() for k, v in params.items()})
+    del tab
+    # (c), (d): each step's two data shards together, through the unsharded model.
+    image = cfg["image"]
+    shards = [_image_batches(img_url, cfg, device, d) for d in range(2)]
+    ref["image"] = [[tuple(t.cpu() for t in b) for b in s] for s in shards]
+    model = ic.init_image_classifier(image["crop"] + (3,), image["classes"],
+                                     hidden=image["hidden"],
+                                     conv_features=image["conv_features"], device=device)
+    step = ic.make_image_train_step(model, image["lr"])
+    losses = []
+    for (x0, y0), (x1, y1) in zip(*shards):
+        x, y = torch.cat([x0, x1]), torch.cat([y0, y1])
+        losses.append(float(step(x, y, torch.ones(len(y), dtype=torch.bool, device=device))))
+    ref["image_run"] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    del model, shards
+    shards = [_tab_batches(tab_url, cfg, device, d) for d in range(2)]
+    ref["dlrm"] = [[tuple(t.cpu() for t in b) for b in s] for s in shards]
+    model = td.init_dlrm(device=device, **cfg["dlrm"])
+    step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+    losses = []
+    for a, b in zip(*shards):
+        dense, sparse, labels = (torch.cat([u, v]) for u, v in zip(a, b))
+        losses.append(float(step(dense, sparse, labels, torch.ones_like(labels, dtype=torch.bool))))
+    ref["dlrm_run"] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    del model, shards
+    torch.save(ref, os.path.join(tmp, "reference.pt"))
+    return dict(fa.LAUNCHES)
+
+
+def _parallel_close(got, want, start, tol, what, misses):
+    """The largest abs error and update error of ``got`` (a rank's blocks
+    after training) against ``want`` (the one-process run's blocks),
+    ``start`` holding the blocks before training; each tensor outside
+    ``tol`` (rtol, atol, update; see ``PARALLEL_TOL``) adds a line to
+    ``misses``."""
+    import torch
+
+    err = update = 0.0
+    for key, value in got.items():
+        w, s = want[key].to(value.device), start[key].to(value.device)
+        diff = (value - w).double().norm().item()
+        moved = (w - s).double().norm().item()
+        rel = diff / moved if moved else (0.0 if diff == 0 else math.inf)
+        abs_err = (value - w).abs().max().item()
+        if not torch.allclose(value, w, rtol=tol[0], atol=tol[1]) or rel > tol[2]:
+            misses.append(f"{what}: {key} differs from the one-process run's block by "
+                          f"{abs_err:.3e}, {rel:.3e} of its update (rtol {tol[0]}, atol "
+                          f"{tol[1]}, update {tol[2]})")
+        err, update = max(err, abs_err), max(update, rel)
+    return err, update
+
+
+def _parallel_losses(got, want, rtol, what, misses):
+    """The largest relative error of the losses ``got`` against ``want``;
+    a loss not finite or outside ``rtol`` adds a line to ``misses``."""
+    if not all(math.isfinite(x) for x in got):
+        misses.append(f"{what}: losses not finite: {got}")
+        return math.inf
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if max(errs) > rtol:
+        step = errs.index(max(errs))
+        misses.append(f"{what}: step {step}'s loss {got[step]} differs from the one-process "
+                      f"run's {want[step]} by {max(errs):.3e} relative (rtol {rtol})")
+    return max(errs)
+
+
+def _train(device, step, batches):
+    """The losses of ``step(batch)`` over ``batches`` and the steps/s after
+    the first step (its first-use set-up and gloo connections left out)."""
+    import torch
+
+    losses = [float(step(batches[0]))]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    losses += [float(step(batch)) for batch in batches[1:]]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return losses, (len(batches) - 1) / (time.perf_counter() - t0)
+
+
+def _case_record(losses, loss_err, rate, errs, params, full, split):
+    """A phase 12 case's numbers on one rank: ``params`` its block, ``full``
+    the whole, ``split`` the names of the tensors the layout splits."""
+    from petastorm_tpu_torch.torch_utils.mesh import shard_bytes
+
+    return dict(steps_per_s=rate, loss_first=losses[0], loss_last=losses[-1], loss_err=loss_err,
+                param_err=errs[0], update_err=errs[1],
+                bytes=shard_bytes(params), full_bytes=shard_bytes(full),
+                split=shard_bytes({k: params[k] for k in split}),
+                split_full=shard_bytes({k: full[k] for k in split}))
+
+
+def _functional(step, params, mask):
+    """``(one step on a (features, ids, labels) batch, the params dict it
+    updates)`` for a functional ``step(params, x, labels, mask)``."""
+    state = dict(params)
+
+    def one(batch):
+        new, loss = step(state, batch[0], batch[2], mask)
+        state.update(new)
+        return loss
+
+    return one, state
+
+
+def parallel_rank(rank, tmp, tab_url, img_url, cfg, device):
+    """One rank of phase 12: every case on its real path (its own readers
+    and loaders, its block of each family), each held against the parent's
+    one-process run; its numbers to ``<tmp>/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import moe
+    from petastorm_tpu_torch.models import pipeline as pl
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.torch_utils.mesh import Mesh, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    ref = torch.load(os.path.join(tmp, "reference.pt"), weights_only=False)
+    fa.reset_launch_counts()
+    out, devices, misses = {}, set(), []
+
+    def same_batches(got, want, what):
+        for g, w in zip(got, want):
+            devices.update(str(t.device) for t in g)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(g, w)):
+                raise AssertionError(f"{what}: rank {rank}'s batches differ from the parent's")
+
+    tab = _tab_batches(tab_url, cfg, device)
+    same_batches(tab, ref["tab"], "(a)/(b)")
+    mask = torch.ones(cfg["batch"], dtype=torch.bool, device=device)
+    tol = PARALLEL_TOL
+    for name, sizes, names, batch_axis in _parallel_layouts("moe"):
+        mesh = Mesh(sizes, names)
+        specs = moe.moe_param_partition_specs()
+        full = moe.init_moe_params(0, 13, device="cpu", **cfg["moe"])
+        for top_k in (1, 2):
+            start = shard_params(full, specs, mesh)
+            one, params = _functional(
+                moe.make_moe_train_step(cfg["lr"], cfg["aux_weight"], mesh=mesh,
+                                        batch_axis=batch_axis, top_k=top_k),
+                {k: v.to(device) for k, v in start.items()}, mask)
+            losses, rate = _train(device, one, tab)
+            want_losses, want = ref[("moe", name, top_k)]
+            what = f"(a) moe {name} top-{top_k} rank {rank}"
+            loss_err = _parallel_losses(losses, want_losses, tol["loss"], what, misses)
+            errs = _parallel_close(params, shard_params(want, specs, mesh), start,
+                                   tol["top2" if top_k == 2 else "params"], what, misses)
+            out[f"moe {name} top{top_k}"] = _case_record(losses, loss_err, rate, errs, params,
+                                                          full, ("w1", "w2"))
+    for name, sizes, names, batch_axis in _parallel_layouts("pipeline"):
+        mesh = Mesh(sizes, names)
+        specs = pl.pipeline_param_partition_specs()
+        full = pl.init_pipeline_params(0, 13, num_stages=mesh.shape["pp"], device="cpu",
+                                       **cfg["pipeline"])
+        schedule_losses = {}
+        for schedule in ("gpipe", "1f1b"):
+            start = shard_params(full, specs, mesh)
+            one, params = _functional(
+                pl.make_pipeline_train_step(cfg["lr"], mesh=mesh,
+                                            num_microbatches=cfg["microbatches"],
+                                            batch_axis=batch_axis, schedule=schedule),
+                {k: v.to(device) for k, v in start.items()}, mask)
+            losses, rate = _train(device, one, tab)
+            want_losses, want = ref[("pipeline", name)]
+            what = f"(b) pipeline {name} {schedule} rank {rank}"
+            loss_err = _parallel_losses(losses, want_losses, tol["loss"], what, misses)
+            errs = _parallel_close(params, shard_params(want, specs, mesh), start, tol["params"],
+                                   what, misses)
+            schedule_losses[schedule] = losses
+            out[f"pipeline {name} {schedule}"] = _case_record(losses, loss_err, rate, errs,
+                                                               params, full, ("w1", "w2"))
+        _parallel_losses(schedule_losses["1f1b"], schedule_losses["gpipe"], 1e-5,
+                         f"(b) pipeline {name} 1f1b against gpipe rank {rank}", misses)
+    del tab
+
+    mesh = Mesh((2, 2), ("data", "model"))
+    d, data = mesh.axis_index("data"), mesh.group("data")
+    image = cfg["image"]
+    batches = _image_batches(img_url, cfg, device, d)
+    same_batches(batches, ref["image"][d], "(c)")
+    full = ic.init_image_classifier(image["crop"] + (3,), image["classes"],
+                                    hidden=image["hidden"],
+                                    conv_features=image["conv_features"], device="cpu")
+    model = ic.shard_image_classifier(full, mesh).to(device)
+    step = ic.make_image_train_step(model, image["lr"], group=data)
+    ones = torch.ones(image["batch"], dtype=torch.bool, device=device)
+    losses, rate = _train(device, lambda b: step(b[0], b[1], ones), batches)
+    want_losses, want = ref["image_run"]
+    what = f"(c) image rank {rank}"
+    loss_err = _parallel_losses(losses, want_losses, tol["bf16_loss"], what, misses)
+    state, specs = model.state_dict(), ic.param_partition_specs()
+    errs = _parallel_close(state, shard_params(want, specs, mesh),
+                           shard_params(full.state_dict(), specs, mesh), tol["bf16"], what,
+                           misses)
+    out["image"] = _case_record(losses, loss_err, rate, errs, state, full.state_dict(),
+                                ("dense1_kernel", "dense1_bias", "dense2_kernel"))
+    del model, full, state, batches
+
+    batches = _tab_batches(tab_url, cfg, device, d)
+    same_batches(batches, ref["dlrm"][d], "(d)")
+    full = td.init_dlrm(device="cpu", **cfg["dlrm"])
+    model = td.shard_dlrm(full, mesh).to(device)
+    step = td.make_dlrm_train_step(model, td.LEARNING_RATE, group=data)
+    ones = torch.ones(cfg["batch"], dtype=torch.bool, device=device)
+    losses, rate = _train(device, lambda b: step(*b, ones), batches)
+    # Each data rank's loss is its rows' mean: the batch's is their mean.
+    pair = torch.tensor(losses, dtype=torch.float64)
+    dist.all_reduce(pair, group=data)
+    want_losses, want = ref["dlrm_run"]
+    what = f"(d) dlrm rank {rank}"
+    loss_err = _parallel_losses((pair / 2).tolist(), want_losses, tol["bf16_loss"], what,
+                                misses)
+    state, specs = model.state_dict(), td.dlrm_partition_specs()
+    errs = _parallel_close(state, shard_params(want, specs, mesh),
+                           shard_params(full.state_dict(), specs, mesh), tol["bf16"], what,
+                           misses)
+    out["dlrm"] = _case_record(losses, loss_err, rate, errs, state, full.state_dict(),
+                               ("embeddings",))
+    if devices != {str(device) if device.type == "cpu" else f"cuda:{device.index or 0}"}:
+        raise AssertionError(f"rank {rank}: batches arrived on {sorted(devices)}")
+    out["launches"] = dict(fa.LAUNCHES)
+    if any(out["launches"].values()):
+        raise AssertionError(f"rank {rank}: flash kernels launched: {out['launches']}")
+    if misses:  # every parity miss of every case, after all of them ran
+        raise AssertionError("\n".join(misses))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def parallel_phase(smi, cfg=PARALLEL, device="cuda"):
+    """Phase 12 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run
+    on the card uses the defaults."""
+    import multiprocessing
+
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.torch_utils.mesh import run_ranks
+
+    device = torch.device(device)
+    image = cfg["image"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        tab_url, img_url = f"file://{tmp}/criteo", f"file://{tmp}/images"
+        td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        ic.generate_image_dataset(img_url, CompressedImageCodec(IMAGE_CODEC), rows=image["rows"],
+                                  image_shape=image["image_shape"],
+                                  num_classes=image["classes"],
+                                  rows_per_row_group=image["rows_per_row_group"])
+        t0 = time.perf_counter()
+        parent_launches = parallel_reference(tmp, tab_url, img_url, cfg, device)
+        reference_s = time.perf_counter() - t0
+        if any(parent_launches.values()):
+            fail(f"parallel: the one-process runs launched flash kernels: {parent_launches}")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            run_ranks(parallel_rank, cfg["world"], tmp,
+                      args=(tmp, tab_url, img_url, cfg, str(device)), timeout_s=SP_TIMEOUT_S,
+                      cuda_device=0 if device.type == "cuda" else None)
+        except RuntimeError as exc:
+            fail(f"parallel: {exc}")
+        ranks_s = time.perf_counter() - t0
+        left = multiprocessing.active_children()
+        if left:
+            fail(f"parallel: processes left after the ranks joined: {left}")
+        ranks = []
+        for r in range(cfg["world"]):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def case(key):
+        rows = [r[key] for r in ranks]
+        for r, row in enumerate(rows):
+            n = round(row["split_full"] / row["split"])
+            if row["split"] * n != row["split_full"] or \
+                    row["bytes"] != row["full_bytes"] - row["split_full"] + row["split"]:
+                fail(f"parallel: rank {r} of {key} holds {row['bytes']} bytes, not its 1/n "
+                     f"of the split tensors: {row}")
+        first = rows[0]
+        return (f"steps_per_s_rank={[round(r['steps_per_s'], 2) for r in rows]} "
+                f"loss={first['loss_first']:.5f}->{first['loss_last']:.5f} "
+                f"max_loss_rel_err={max(r['loss_err'] for r in rows):.2e} "
+                f"max_param_err={max(r['param_err'] for r in rows):.2e} "
+                f"max_update_rel_err={max(r['update_err'] for r in rows):.2e} "
+                f"split_bytes_rank={first['split']} of {first['split_full']} "
+                f"(1/{round(first['split_full'] / first['split'])}) "
+                f"bytes_rank={first['bytes']} of {first['full_bytes']}")
+
+    launches = [r["launches"] for r in ranks]
+    common = (f"ranks={cfg['world']} on {device} (gloo, pinned-host staging; transport on one "
+              f"card, not a claim)")
+    print(f"parallel (a): moe d_model {cfg['moe']['d_model']} d_hidden "
+          f"{cfg['moe']['d_hidden']} {cfg['moe']['num_experts']} experts, batch {cfg['batch']}, "
+          f"{cfg['steps']} steps, {common}; "
+          + "; ".join(f"{name} top-{k}: {case(f'moe {name} top{k}')}"
+                      for name, _, _, _ in _parallel_layouts("moe") for k in (1, 2)), flush=True)
+    print(f"parallel (b): pipeline d_model {cfg['pipeline']['d_model']} d_hidden "
+          f"{cfg['pipeline']['d_hidden']}, {cfg['microbatches']} microbatches, "
+          f"{cfg['steps']} steps; gpipe and 1f1b losses within 1e-5; "
+          + "; ".join(f"{name} {s}: {case(f'pipeline {name} {s}')}"
+                      for name, _, _, _ in _parallel_layouts("pipeline")
+                      for s in ("gpipe", "1f1b")), flush=True)
+    print(f"parallel (c): image conv {image['conv_features']} hidden {image['hidden']} crop "
+          f"{image['crop']} bf16, (data 2, model 2), batch {image['batch']} a data rank, "
+          f"{cfg['image_steps']} steps: {case('image')}", flush=True)
+    print(f"parallel (d): dlrm 26 tables x {cfg['dlrm']['vocab_size']} x "
+          f"{cfg['dlrm']['embed_dim']} bf16, (data 2, model 2), batch {cfg['batch']} a data "
+          f"rank, {cfg['steps']} steps: {case('dlrm')}; flash launches ranks={launches} "
+          f"one-process={parent_launches}; reference_s={reference_s:.1f} "
+          f"ranks_s={ranks_s:.1f}; no rank left", flush=True)
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -2881,7 +3308,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 10. etl ---------------------------------------------
+    # -- 4. image ... 12. parallel ------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -2890,7 +3317,8 @@ def main():
                       ("reader", lambda: reader_phase(smi)),
                       ("loader", lambda: loader_phase(smi, out["image"]["images_per_s"])),
                       ("etl", lambda: etl_phase(smi)),
-                      ("pool", lambda: pool_phase(smi, out["image"]))):
+                      ("pool", lambda: pool_phase(smi, out["image"])),
+                      ("parallel", lambda: parallel_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

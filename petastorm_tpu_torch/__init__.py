@@ -13,8 +13,11 @@ producer-side staging; a per-batch Chrome trace), with resumable input (reader a
 loader ``state_dict()`` / ``resume_state=``), joint model + input
 checkpoints, equal-step sharded delivery over ``torch.distributed``, the
 on-card image stage (crop / flip / cast / normalize of staged uint8 bytes),
-NGram windows, and four consumers: a CNN image classifier, a DLRM tabular
-recommender (data parallel), the sequence encoder family, and the
+NGram windows, and its consumers: a CNN image classifier (data and tensor
+parallel), a DLRM tabular recommender (data and table parallel), an
+expert-parallel mixture of experts, a pipeline-parallel stack (GPipe and
+1F1B) over a named grid of ``torch.distributed`` ranks
+(``torch_utils/mesh.py``), the sequence encoder family, and the
 long-context decoder LM, whose attention runs on hand-written CUDA
 flash-attention kernels (forward, dQ, dK/dV) for Hopper, on one process or
 sequence-parallel (ring or Ulysses attention over ``torch.distributed``).

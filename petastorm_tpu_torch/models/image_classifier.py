@@ -1,8 +1,8 @@
 """Small CNN image classifier trained from a petastorm image dataset, on the card.
 
 Counterpart of ``petastorm_tpu/models/image_classifier.py`` (``init_params``,
-``apply_model``, ``make_train_step``; its sharding specs are not ported) and
-of the image path that feeds it: ``make_reader`` over an image dataset →
+``apply_model``, ``make_train_step``, ``param_partition_specs``) and of the
+image path that feeds it: ``make_reader`` over an image dataset →
 :func:`make_torch_dataloader` with a :class:`DeviceStage` (uint8 bytes
 staged, crop / flip / cast / normalize on the card) → conv3x3 → relu → 2x2
 mean-pool → dense → relu → dense → masked mean cross-entropy → plain SGD.
@@ -13,6 +13,19 @@ the JAX layouts where the math allows: dense kernels ``[d_in, d_out]``
 (``x @ w``), and the flatten before ``dense1`` runs over NHWC, so
 ``dense1``'s rows are in (h, w, feature) order as JAX's are. The conv
 kernel is OIHW (JAX's is HWIO); "SAME" 3x3 at stride 1 is padding 1.
+
+Tensor parallel over a mesh's ``"model"`` axis (:func:`shard_image_classifier`,
+the JAX ``param_partition_specs``): ``dense1`` is column-parallel (each rank
+holds ``hidden / model`` of its columns and bias), ``dense2`` row-parallel
+(the matching rows), and one all-reduce of the partial logits gives the
+logits, ``dense2``'s bias added once after it. XLA derives both collectives
+from the annotations; here they are written out as Megatron's f and g:
+``copy_to_group`` before ``dense1`` (identity forward, the replicated
+conv's input gradient summed over the group) and ``psum`` after ``dense2``
+(all-reduce forward, identity backward). Data parallel over ``"data"``
+(``make_image_train_step(group=...)``): each rank's loss is its rows'
+share of the whole batch's masked mean and the gradients are summed over
+the group.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
+from petastorm_tpu_torch.torch_utils.sharding import all_reduce_grads, copy_to_group, psum
 
 
 def generate_image_dataset(dataset_url, image_codec, rows=1536, image_shape=(64, 64, 3),
@@ -64,19 +78,27 @@ def image_rows(rows=1536, image_shape=(64, 64, 3), num_classes=10, seed=0):
 
 class ImageClassifier(nn.Module):
     """conv3x3 → relu → 2x2 mean-pool → dense → relu → dense over
-    ``[B, H, W, C]`` images; f32 logits ``[B, num_classes]``."""
+    ``[B, H, W, C]`` images; f32 logits ``[B, num_classes]``. With a
+    ``mesh``, the rank's tensor-parallel block: ``hidden / model`` of the
+    hidden units (see the module docstring)."""
 
     def __init__(self, image_shape, num_classes, hidden=256, conv_features=32,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, mesh=None):
         super().__init__()
         h, w, c = image_shape
         flat = (h // 2) * (w // 2) * conv_features
+        model = mesh.size("model") if mesh is not None else 1
+        if hidden % model:
+            raise ValueError(f"hidden {hidden} does not split over the mesh's 'model' axis "
+                             f"of {model} ranks")
+        self.image_shape = tuple(image_shape)
         self.compute_dtype = compute_dtype
+        self._group = mesh.group("model") if mesh is not None else None
         self.conv_weight = nn.Parameter(torch.zeros(conv_features, c, 3, 3))
         self.conv_bias = nn.Parameter(torch.zeros(conv_features))
-        self.dense1_kernel = nn.Parameter(torch.zeros(flat, hidden))
-        self.dense1_bias = nn.Parameter(torch.zeros(hidden))
-        self.dense2_kernel = nn.Parameter(torch.zeros(hidden, num_classes))
+        self.dense1_kernel = nn.Parameter(torch.zeros(flat, hidden // model))
+        self.dense1_bias = nn.Parameter(torch.zeros(hidden // model))
+        self.dense2_kernel = nn.Parameter(torch.zeros(hidden // model, num_classes))
         self.dense2_bias = nn.Parameter(torch.zeros(num_classes))
 
     def forward(self, images):
@@ -88,9 +110,33 @@ class ImageClassifier(nn.Module):
         x = torch.relu(x + self.conv_bias.to(cd)[:, None, None])
         x = F.avg_pool2d(x, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        x = copy_to_group(x, self._group)
         x = torch.relu(x @ self.dense1_kernel.to(cd) + self.dense1_bias.to(cd))
-        logits = x @ self.dense2_kernel.to(cd) + self.dense2_bias.to(cd)
+        logits = psum(x @ self.dense2_kernel.to(cd), self._group) + self.dense2_bias.to(cd)
         return logits.float()
+
+
+def param_partition_specs():
+    """Partition specs (``torch_utils/mesh.py``) of an
+    :class:`ImageClassifier`'s parameters over a mesh with a ``"model"``
+    axis: conv replicated, ``dense1`` column-parallel, ``dense2``
+    row-parallel with its bias replicated."""
+    return {"conv_weight": (), "conv_bias": (), "dense1_kernel": (None, "model"),
+            "dense1_bias": ("model",), "dense2_kernel": ("model", None), "dense2_bias": ()}
+
+
+def shard_image_classifier(model, mesh):
+    """The rank's tensor-parallel block of the whole ``model`` over
+    ``mesh``'s ``"model"`` axis, as a new :class:`ImageClassifier` on the
+    model's device (shard a model on the CPU to keep the whole off the
+    card)."""
+    from petastorm_tpu_torch.torch_utils.mesh import shard_params
+
+    num_classes, hidden = model.dense2_kernel.shape[1], model.dense2_kernel.shape[0]
+    sharded = ImageClassifier(model.image_shape, num_classes, hidden,
+                              model.conv_weight.shape[0], model.compute_dtype, mesh=mesh)
+    sharded.load_state_dict(shard_params(model.state_dict(), param_partition_specs(), mesh))
+    return sharded.to(model.conv_weight.device)
 
 
 def init_image_classifier(image_shape, num_classes, hidden=256, conv_features=32,
@@ -133,27 +179,48 @@ def params_from_jax(numpy_params, image_shape, compute_dtype=torch.bfloat16,
     return model.to(device)
 
 
-def masked_cross_entropy(logits, labels, mask):
-    """Mean cross-entropy over the rows where ``mask`` is True (the loader's
-    ``__pad_mask__``: padded rows add nothing)."""
+def masked_cross_entropy(logits, labels, mask, count=None):
+    """Cross-entropy summed over the rows where ``mask`` is True (the
+    loader's ``__pad_mask__``: padded rows add nothing) over ``count``
+    (default: those rows'; a data-parallel rank passes the whole batch's,
+    so the ranks' losses sum to its mean)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
     nll = torch.where(mask, nll, torch.zeros_like(nll))
-    return nll.sum() / torch.clamp(mask.sum(), min=1).float()
+    count = mask.sum() if count is None else count
+    return nll.sum() / torch.clamp(count, min=1).float()
 
 
-def make_image_train_step(model, learning_rate=0.01):
+def sgd_step(loss_fn, params, learning_rate, *args):
+    """``(new params, loss)``: one SGD step on the dict ``params`` through
+    ``loss_fn(params, *args)`` and ``loss.backward()``; the input dict is
+    untouched. (Not ``torch.autograd.grad``: it runs only the nodes on a
+    path to the tensors it is asked for, and a pipeline's bubble ticks lead
+    to none, so one rank would skip a permute its peer runs.)"""
+    params = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = loss_fn(params, *args)
+    loss.backward()
+    with torch.no_grad():
+        new = {k: (p - learning_rate * p.grad).to(p.dtype) for k, p in params.items()}
+    return new, loss.detach()
+
+
+def make_image_train_step(model, learning_rate=0.01, group=None):
     """``step(images, labels, mask) -> loss``: one SGD step on ``model``'s
-    parameters, updated in place."""
+    parameters, updated in place. Under ``group`` (data parallel: each rank
+    passes its rows) the loss is the whole batch's masked mean and the
+    gradients its gradients, the same on every rank."""
 
     def step(images, labels, mask):
         model.zero_grad(set_to_none=True)
-        loss = masked_cross_entropy(model(images), labels, mask)
+        count = psum(mask.sum(), group)
+        loss = masked_cross_entropy(model(images), labels, mask, count)
         loss.backward()
+        all_reduce_grads(model.parameters(), group, mean=False)
         with torch.no_grad():
             for p in model.parameters():
                 p -= learning_rate * p.grad
-        return loss.detach()
+        return psum(loss.detach(), group)
 
     return step
 

@@ -16,9 +16,21 @@ gradients are averaged over the group (data parallel).
 
 Parameters are float32 and cast to ``compute_dtype`` (bfloat16 by default)
 inside the forward, as the reference does; the logits are float32. Dense
-kernels keep the JAX layout ``[d_in, d_out]`` (``x @ w``). The
-model-parallel table split of the JAX package (``dlrm_partition_specs``) is
-not ported yet: every rank holds every table.
+kernels keep the JAX layout ``[d_in, d_out]`` (``x @ w``).
+
+Table parallel over a mesh's ``"model"`` axis (:func:`shard_dlrm`, the JAX
+``dlrm_partition_specs``): each rank holds ``num_sparse / model`` whole
+tables and looks up, for every row of its data-parallel batch, only its
+own. An all-to-all over ``"model"`` (``sharding.all_to_all``, its backward
+the reverse exchange) turns the ``[B, S/model, D]`` lookups into
+``[B/model, S, D]``: each rank then runs the MLPs and the interaction on
+its ``B / model`` rows, with every table, and the logits are all-gathered
+back to ``[B]`` (backward: the rank's rows). The replicated MLP weights
+enter through ``copy_to_group``, so their gradients are summed over the
+ranks' rows. No rank holds the whole ``[S, vocab, D]`` stack, and the MLPs
+run once per row, not once per rank. So the batch must divide by the
+``"model"`` axis, where the JAX specs' replicated batch takes any size. The data-parallel mean over
+``"data"`` is ``dlrm_gradients(group=...)``'s, as without the split.
 """
 
 from __future__ import annotations
@@ -28,10 +40,16 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
+from petastorm_tpu_torch.torch_utils.sharding import (
+    all_reduce_grads,
+    all_to_all,
+    copy_to_group,
+    leave_sequence_parallel,
+    rank_slice,
+)
 
 NUM_DENSE, NUM_SPARSE = 13, 26
 #: The Criteo example's SGD learning rate (examples/criteo_dlrm/train_dlrm.py:56).
@@ -78,16 +96,25 @@ class DLRM(nn.Module):
     """Bottom MLP over the dense features (→ one pseudo-embedding), one
     hashed lookup per table, the upper triangle of the pairwise dot
     products of the ``num_sparse + 1`` feature vectors, top MLP → f32
-    logits ``[B]``."""
+    logits ``[B]``. With a ``mesh``, the rank's table-parallel block:
+    ``num_sparse / model`` tables (see the module docstring)."""
 
     def __init__(self, num_dense=NUM_DENSE, num_sparse=NUM_SPARSE, vocab_size=1024,
                  embed_dim=16, bottom_hidden=64, top_hidden=64,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, mesh=None):
         super().__init__()
         features = num_sparse + 1
         interact = features * (features - 1) // 2 + embed_dim
+        model = mesh.size("model") if mesh is not None else 1
+        if num_sparse % model:
+            raise ValueError(f"{num_sparse} tables do not split over the mesh's 'model' axis "
+                             f"of {model} ranks")
         self.compute_dtype = compute_dtype
-        self.embeddings = nn.Parameter(torch.zeros(num_sparse, vocab_size, embed_dim))
+        self._model = model
+        self._group = mesh.group("model") if mesh is not None else None
+        local = num_sparse // model
+        self._first_table = (mesh.axis_index("model") if mesh is not None else 0) * local
+        self.embeddings = nn.Parameter(torch.zeros(local, vocab_size, embed_dim))
         shapes = {"bottom1": (num_dense, bottom_hidden), "bottom2": (bottom_hidden, embed_dim),
                   "top1": (interact, top_hidden), "top2": (top_hidden, 1)}
         for name, (d_in, d_out) in shapes.items():
@@ -98,23 +125,37 @@ class DLRM(nn.Module):
 
     def _dense(self, name, x):
         cd = self.compute_dtype
-        return x @ getattr(self, f"{name}_kernel").to(cd) + getattr(self, f"{name}_bias").to(cd)
+        kernel, bias = (copy_to_group(getattr(self, f"{name}_{part}"), self._group).to(cd)
+                        for part in ("kernel", "bias"))
+        return x @ kernel + bias
 
     def forward(self, dense, sparse_ids):
         """``dense`` float ``[B, num_dense]``, ``sparse_ids`` int
-        ``[B, num_sparse]`` raw ids (hashed ``% vocab_size`` here)."""
+        ``[B, num_sparse]`` raw ids (hashed ``% vocab_size`` here). With a
+        mesh, ``B`` must divide by the ``"model"`` axis (the exchange splits
+        the batch over it); else ValueError."""
+        if self._group is not None and dense.shape[0] % self._model:
+            raise ValueError(f"a batch of {dense.shape[0]} rows does not split over the "
+                             f"mesh's 'model' axis of {self._model} ranks")
         emb = self.embeddings.to(self.compute_dtype)
-        num_sparse, vocab, _ = emb.shape
+        local, vocab, _ = emb.shape
+        ids = torch.remainder(sparse_ids[:, self._first_table:self._first_table + local],
+                              vocab).long()                                 # [B, S_local]
+        tables = torch.arange(local, device=ids.device)
+        looked_up = emb[tables, ids]                                        # [B, S_local, D]
+        if self._group is not None:
+            # [B, S/model, D] -> [B/model, S, D], float32 on the wire (bf16
+            # values move exactly) since gloo's all-to-all takes no bf16.
+            (looked_up,) = all_to_all([looked_up.float()], 0, 1, self._group)
+            looked_up = looked_up.to(self.compute_dtype)
+            dense = rank_slice(dense, self._group, dim=0)
         x = torch.relu(self._dense("bottom1", dense.to(self.compute_dtype)))
         dense_vec = torch.relu(self._dense("bottom2", x))                  # [B, D]
-        ids = torch.remainder(sparse_ids, vocab).long()                    # [B, S]
-        tables = torch.arange(num_sparse, device=ids.device)
-        looked_up = emb[tables, ids]                                        # [B, S, D]
         feats = torch.cat([dense_vec[:, None], looked_up], dim=1)           # [B, F, D]
         inter = torch.bmm(feats, feats.transpose(1, 2))                     # [B, F, F]
         pairwise = inter[:, self._triu[0], self._triu[1]]
         x = torch.relu(self._dense("top1", torch.cat([dense_vec, pairwise], dim=1)))
-        return self._dense("top2", x)[:, 0].float()
+        return leave_sequence_parallel(self._dense("top2", x)[:, 0].float(), self._group, dim=0)
 
 
 def init_dlrm(num_dense=NUM_DENSE, num_sparse=NUM_SPARSE, vocab_size=1024, embed_dim=16,
@@ -156,6 +197,29 @@ def params_from_jax(numpy_params, compute_dtype=torch.bfloat16, device="cuda"):
     return model.to(device)
 
 
+def dlrm_partition_specs():
+    """Partition specs (``torch_utils/mesh.py``) of a :class:`DLRM`'s
+    parameters over a mesh with a ``"model"`` axis: the embedding stack
+    split table-wise on its leading axis, the MLPs replicated."""
+    return {name: ("model", None, None) if name == "embeddings" else ()
+            for name in ["embeddings"] + [f"{m}_{p}" for m in _MLP for p in ("kernel", "bias")]}
+
+
+def shard_dlrm(model, mesh):
+    """The rank's table-parallel block of the whole ``model`` over
+    ``mesh``'s ``"model"`` axis, as a new :class:`DLRM` on the model's
+    device (shard a model on the CPU to keep the whole stack off the
+    card)."""
+    from petastorm_tpu_torch.torch_utils.mesh import shard_params
+
+    num_sparse, vocab, embed_dim = model.embeddings.shape
+    sharded = DLRM(model.bottom1_kernel.shape[0], num_sparse, vocab, embed_dim,
+                   model.bottom1_kernel.shape[1], model.top1_kernel.shape[1],
+                   model.compute_dtype, mesh=mesh)
+    sharded.load_state_dict(shard_params(model.state_dict(), dlrm_partition_specs(), mesh))
+    return sharded.to(model.embeddings.device)
+
+
 def masked_bce_with_logits(logits, labels, mask):
     """Mean stable BCE-with-logits over the rows where ``mask`` is True."""
     labels = labels.float()
@@ -172,17 +236,8 @@ def dlrm_gradients(model, dense, sparse_ids, labels, mask, group=None):
     model.zero_grad(set_to_none=True)
     loss = masked_bce_with_logits(model(dense, sparse_ids), labels, mask)
     loss.backward()
-    params = list(model.named_parameters())
-    if group is not None and dist.get_world_size(group) > 1:
-        from petastorm_tpu_torch.torch_utils.sharding import _to_wire
-
-        flat = torch.cat([p.grad.reshape(-1) for _, p in params])
-        wire = _to_wire(group, flat)
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
-        flat = wire.to(flat.device) / dist.get_world_size(group)
-        for (_, p), g in zip(params, flat.split([p.numel() for _, p in params])):
-            p.grad.copy_(g.view_as(p))
-    return loss.detach(), {name: p.grad for name, p in params}
+    all_reduce_grads(model.parameters(), group)
+    return loss.detach(), {name: p.grad for name, p in model.named_parameters()}
 
 
 def make_dlrm_train_step(model, learning_rate=0.01, group=None):

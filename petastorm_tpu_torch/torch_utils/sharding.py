@@ -1,8 +1,10 @@
 """Rank defaults, equal-step coordination of data-parallel ranks, and the
-collectives of sequence-parallel attention, over ``torch.distributed``
-(counterpart by name of ``petastorm_tpu/jax_utils/sharding.py``; the
-collectives are those the JAX package's ``shard_map`` bodies call:
-``lax.ppermute`` and ``lax.all_to_all``).
+collectives of the sequence- and model-parallel families, over
+``torch.distributed`` (counterpart by name of
+``petastorm_tpu/jax_utils/sharding.py``; the collectives are those the JAX
+package's ``shard_map`` bodies call: ``lax.ppermute``, ``lax.all_to_all``,
+``lax.psum`` / ``pmean``, and the transpose ``shard_map`` gives an input it
+does not split, :func:`copy_to_group`).
 
 Equal steps: ranks that read disjoint row-group shards must take the same
 number of steps, or a gradient all-reduce waits forever for a rank that ran
@@ -26,8 +28,18 @@ the gradient and sums nothing: every rank already holds the whole of it).
 ``torch.distributed.nn``'s ``all_gather`` reduce-scatters in its backward
 and would make each gradient ``sp`` times too large here.
 
-A process group stands where the JAX code has a mesh axis; ``group=None``
+A process group stands where the JAX code has a mesh axis
+(``torch_utils/mesh.py`` builds them for a grid of axes); ``group=None``
 means one process (``sp = 1``, every collective an identity).
+
+The model-parallel families take the same global view of their inputs and
+outputs, and write out what ``shard_map`` derives for the backward:
+:func:`psum` / :func:`pmean` (all-reduce forward, identity backward: what
+follows is replicated) and :func:`copy_to_group` (identity forward,
+all-reduce backward: what follows is each rank's own part), Megatron's g
+and f. :func:`ring_exchange` posts both directions of a ring in one batch
+for the hand-scheduled 1F1B pipeline, and :func:`all_reduce_grads` is the
+data-parallel reduction of a module's gradients.
 
 Transport, chosen by the group's backend and nothing else: NCCL moves CUDA
 tensors directly; gloo takes host tensors only, so a CUDA tensor sent
@@ -221,20 +233,41 @@ def _exchange(group, tensors, to_offset):
     """Send each of ``tensors`` to rank ``r + to_offset`` and receive its
     counterpart from rank ``r - to_offset`` (mod the group size); return
     the received tensors on their senders' devices."""
-    if not tensors:
+    return _exchange_many(group, [(t, to_offset) for t in tensors])
+
+
+def _exchange_many(group, sends):
+    """``sends``: ``(tensor, to_offset)`` pairs. Each tensor goes to rank
+    ``r + to_offset`` and its counterpart arrives from ``r - to_offset``
+    (mod the group size), all posted in one ``batch_isend_irecv``; the i-th
+    pair is tagged i, so two messages between one pair of ranks (a ring of
+    two, where ``r + 1`` and ``r - 1`` are one rank) cannot cross. Returns
+    the received tensors on their senders' devices."""
+    if not sends:
         return []
     r, sp = group_rank_size(group)
-    dst = dist.get_global_rank(group, (r + to_offset) % sp)
-    src = dist.get_global_rank(group, (r - to_offset) % sp)
     ops, bufs = [], []
-    for t in tensors:
+    for tag, (t, to_offset) in enumerate(sends):
+        dst = dist.get_global_rank(group, (r + to_offset) % sp)
+        src = dist.get_global_rank(group, (r - to_offset) % sp)
         buf = _wire_buffer(group, t)
-        ops.append(dist.P2POp(dist.isend, _to_wire(group, t), peer=dst, group=group))
-        ops.append(dist.P2POp(dist.irecv, buf, peer=src, group=group))
+        ops.append(dist.P2POp(dist.isend, _to_wire(group, t), peer=dst, group=group, tag=tag))
+        ops.append(dist.P2POp(dist.irecv, buf, peer=src, group=group, tag=tag))
         bufs.append(buf)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return [buf.to(t.device) for buf, t in zip(bufs, tensors)]
+    return [buf.to(t.device) for buf, (t, _) in zip(bufs, sends)]
+
+
+def ring_exchange(forward, backward, group=None):
+    """One tick of a two-way ring, without autograd: ``forward`` goes to
+    rank ``r + 1`` and ``backward`` to rank ``r - 1`` (the reverse ring,
+    on which a pipeline sends its cotangents), posted together so neither
+    direction waits on the other. Returns ``(from r - 1, from r + 1)``;
+    for one process, ``(forward, backward)``."""
+    if group_rank_size(group)[1] == 1:
+        return forward, backward
+    return tuple(_exchange_many(group, [(forward, 1), (backward, -1)]))
 
 
 class RingPermuteFn(torch.autograd.Function):
@@ -273,6 +306,99 @@ def ring_permute(send, carry=(), group=None):
     if group_rank_size(group)[1] == 1:
         return send + carry
     return RingPermuteFn.apply(group, len(send), *send, *carry)
+
+
+def _all_reduce(group, x):
+    """The sum of ``x`` over ``group``, in a new tensor on ``x``'s device;
+    half-precision tensors are summed in float32 (gloo's reductions do not
+    take every half type) and rounded once."""
+    wire_dtype = torch.float32 if x.dtype in (torch.float16, torch.bfloat16) else x.dtype
+    buf = _wire_buffer(group, x.to(wire_dtype))
+    buf.copy_(x)
+    dist.all_reduce(buf, group=group)
+    return buf.to(device=x.device, dtype=x.dtype)
+
+
+class PsumFn(torch.autograd.Function):
+    """All-reduce forward; identity backward (see :func:`psum`)."""
+
+    @staticmethod
+    def forward(ctx, group, scale, x):
+        ctx.scale = scale
+        return _all_reduce(group, x) * scale
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, grad * ctx.scale
+
+
+class CopyToGroupFn(torch.autograd.Function):
+    """Identity forward; all-reduce backward (see :func:`copy_to_group`)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _all_reduce(ctx.group, grad)
+
+
+def psum(x, group=None):
+    """``lax.psum(x, axis)``: the sum of ``x`` over ``group``, the same on
+    every rank, as one autograd node whose backward is the IDENTITY.
+
+    The convention (Megatron's "g", an all-reduce leaving a model-parallel
+    region): what follows the sum is replicated over the group, every rank
+    computing the same thing from it, so every rank already holds the whole
+    cotangent of the sum, which is each addend's cotangent. Where ranks
+    instead use one value differently and their cotangents are partial,
+    the sum belongs in the backward: :func:`copy_to_group`. The identity
+    for one process."""
+    if group_rank_size(group)[1] == 1:
+        return x
+    return PsumFn.apply(group, 1, x)
+
+
+def pmean(x, group=None):
+    """``lax.pmean(x, axis)``: :func:`psum` divided by the group's size,
+    with the same convention (identity backward, scaled: each addend's
+    cotangent is the replicated cotangent over the size)."""
+    _, n = group_rank_size(group)
+    if n == 1:
+        return x
+    return PsumFn.apply(group, 1.0 / n, x)
+
+
+def copy_to_group(x, group=None):
+    """``x`` unchanged, as one autograd node whose backward SUMS the
+    cotangent over ``group``.
+
+    The convention (Megatron's "f", entering a model-parallel region; the
+    transpose ``shard_map`` gives an input it does not split, ``P()``):
+    every rank holds the same ``x`` and uses it on its own part of the
+    work (its column block, its token shard, its pipeline stage), so each
+    rank's cotangent is partial and ``x``'s is their sum, the same on every
+    rank. The identity for one process."""
+    if group_rank_size(group)[1] == 1:
+        return x
+    return CopyToGroupFn.apply(group, x)
+
+
+def all_reduce_grads(params, group=None, mean=True):
+    """Each ``p.grad`` of ``params`` summed over ``group`` in place (one
+    all-reduce of them all, flattened) and, with ``mean``, divided by the
+    group's size: the data-parallel reduction. A no-op for one process."""
+    params = [p for p in params if p.grad is not None]
+    _, n = group_rank_size(group)
+    if n == 1 or not params:
+        return
+    flat = _all_reduce(group, torch.cat([p.grad.reshape(-1) for p in params]))
+    if mean:
+        flat = flat / n
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
 
 
 def _all_to_all_one(group, x, split_axis, concat_axis):

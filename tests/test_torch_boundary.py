@@ -62,6 +62,9 @@ def test_import_and_cpu_forward_leave_jax_unloaded():
         assert torch.isfinite(out).all() and logits.shape == (1, 12, 64)
         for name in petastorm_tpu_torch.__all__:
             getattr(petastorm_tpu_torch, name)
+        import petastorm_tpu_torch.models as models
+        for name in models.__all__:
+            getattr(models, name)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu"))
         print("LOADED", loaded)
@@ -115,7 +118,7 @@ def _entry_points(tmp_path):
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
     from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
     from petastorm_tpu_torch import pytorch
-    from petastorm_tpu_torch.models import mnist
+    from petastorm_tpu_torch.models import mnist, moe, pipeline
     from petastorm_tpu_torch.reader_impl import pytorch_shuffling_buffer as buffers
     from petastorm_tpu_torch.cache_impl import BatchCache
 
@@ -154,6 +157,10 @@ def _entry_points(tmp_path):
         "init_dlrm": lambda: tabular_dlrm.init_dlrm(),
         "dlrm_params_from_jax": lambda: tabular_dlrm.params_from_jax({}),
         "init_mnist_mlp": lambda: mnist.init_mnist_mlp(),
+        "init_moe_params": lambda: moe.init_moe_params(0, 4),
+        "moe_params_from_jax": lambda: moe.params_from_jax({}),
+        "init_pipeline_params": lambda: pipeline.init_pipeline_params(0, 4),
+        "pipeline_params_from_jax": lambda: pipeline.params_from_jax({}),
         "DataLoader": lambda: pytorch.DataLoader(None),
         "BatchedDataLoader": lambda: pytorch.BatchedDataLoader(None),
         "InMemBatchedDataLoader": lambda: pytorch.InMemBatchedDataLoader(None),
@@ -174,7 +181,9 @@ def _entry_points(tmp_path):
                                    "InMemBatchedDataLoader", "BatchedNoopShufflingBuffer",
                                    "BatchedRandomShufflingBuffer",
                                    "make_torch_dataloader_stage_in_producer",
-                                   "make_torch_dataloader_batch_cache"])
+                                   "make_torch_dataloader_batch_cache", "init_moe_params",
+                                   "moe_params_from_jax", "init_pipeline_params",
+                                   "pipeline_params_from_jax"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[entry]()

@@ -11,9 +11,7 @@ Arrays are compared exactly.
 """
 
 import json
-import multiprocessing
 import os
-import traceback
 
 import numpy as np
 import pytest
@@ -25,6 +23,7 @@ from petastorm_tpu_torch.torch_utils.checkpoint import (
     restore_training_state,
     save_training_state,
 )
+from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
 
 def _current_version_dir(ckpt):
@@ -169,48 +168,40 @@ def test_jax_saved_directory_gives_the_same_input_state(tmp_path):
 WORLD = 2
 
 
-def _rank_main(rank, store, out_dir, stale_dir):
+def _rank_main(rank, out_dir, stale_dir):
     import torch.distributed as dist
 
+    group = dist.group.WORLD
+    results = {}
+    # A save and restore over the group, twice (v1, then v2).
+    shared = os.path.join(out_dir, "shared")
+    for step in (1, 2):
+        save_training_state(shared, {"w": torch.arange(4.0) * step},
+                            input_state={"rank": rank, "step": step}, group=group)
+    arrays, state = restore_training_state(shared, group=group)
+    results["shared"] = {"w": arrays["w"].tolist(), "state": state,
+                         "current": os.path.basename(_current_version_dir(shared))}
+    # The first rank reads a stale CURRENT (v1 where v2 is published),
+    # and the save crashes after the clean step on every rank.
+    real_read, real_agree = cp._read_current, cp._agree_version
+    if rank == 0:
+        cp._read_current = lambda directory: "v1"
+    agreed = []
+    cp._agree_version = lambda n, g: agreed.append(real_agree(n, g)) or agreed[-1]
+
+    def crash(vdir, arrays, input_state, group):
+        raise RuntimeError("preempted")
+
+    cp._write_checkpoint = crash
     try:
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=WORLD)
-        group = dist.group.WORLD
-        results = {}
-        # A save and restore over the group, twice (v1, then v2).
-        shared = os.path.join(out_dir, "shared")
-        for step in (1, 2):
-            save_training_state(shared, {"w": torch.arange(4.0) * step},
-                                input_state={"rank": rank, "step": step}, group=group)
-        arrays, state = restore_training_state(shared, group=group)
-        results["shared"] = {"w": arrays["w"].tolist(), "state": state,
-                             "current": os.path.basename(_current_version_dir(shared))}
-        # The first rank reads a stale CURRENT (v1 where v2 is published),
-        # and the save crashes after the clean step on every rank.
-        real_read, real_agree = cp._read_current, cp._agree_version
-        if rank == 0:
-            cp._read_current = lambda directory: "v1"
-        agreed = []
-        cp._agree_version = lambda n, g: agreed.append(real_agree(n, g)) or agreed[-1]
-
-        def crash(vdir, arrays, input_state, group):
-            raise RuntimeError("preempted")
-
-        cp._write_checkpoint = crash
-        try:
-            save_training_state(stale_dir, {"w": torch.zeros(4)}, input_state={"step": 9},
-                                group=group)
-        except RuntimeError as exc:
-            results["crash"] = str(exc)
-        cp._read_current, cp._agree_version = real_read, real_agree
-        results["agreed"] = agreed
-        with open(f"{out_dir}/rank{rank}.json", "w") as f:
-            json.dump(results, f)
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{out_dir}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+        save_training_state(stale_dir, {"w": torch.zeros(4)}, input_state={"step": 9},
+                            group=group)
+    except RuntimeError as exc:
+        results["crash"] = str(exc)
+    cp._read_current, cp._agree_version = real_read, real_agree
+    results["agreed"] = agreed
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(results, f)
 
 
 @pytest.fixture(scope="module")
@@ -222,23 +213,10 @@ def two_ranks(tmp_path_factory):
     for step in (1, 2):
         save_training_state(stale_dir, {"w": torch.arange(4.0) * step},
                             input_state={"step": step})
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, str(tmp / "store"), str(tmp), stale_dir))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    failed = [f"rank {r} (exit {p.exitcode}):\n"
-              + ((tmp / f"rank{r}.err").read_text() if (tmp / f"rank{r}.err").exists()
-                 else "no traceback")
-              for r, p in enumerate(procs) if p.exitcode != 0]
-    if failed:
-        pytest.fail("\n".join(failed))
+    try:
+        run_ranks(_rank_main, WORLD, str(tmp), args=(str(tmp), stale_dir), timeout_s=120)
+    except RuntimeError as exc:
+        pytest.fail(str(exc))
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(WORLD)]
     return ranks, str(tmp / "shared"), stale_dir
 

@@ -20,8 +20,6 @@ sorted packed ids, the segment cases take ``ops.segment_layouts``'s
 layouts that would trip a tile-skipping kernel built on sorted ids.
 """
 
-import multiprocessing
-import traceback
 
 import numpy as np
 import pytest
@@ -37,6 +35,7 @@ from petastorm_tpu_torch.reader.reader import make_columnar_reader, make_reader
 from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
 from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
 from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
 
 pytestmark = pytest.mark.cuda
@@ -423,64 +422,45 @@ def test_flash_attention_with_lse_on_the_card_matches_the_cpu(cuda_device, d, sh
         assert (got - want).abs().max().item() / want.abs().max().item() <= 1e-3
 
 
-def _ring_rank(rank, store, out_dir):
+def _ring_rank(rank, out_dir):
     """One rank of the two-process ring (striped and contiguous) and
     Ulysses on the card: gloo over pinned host memory, the flash kernels on
     cuda:0."""
     import torch.distributed as dist
 
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=2)
-        g = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, w = (torch.randn(2, 96, 4, 8, device="cuda", generator=g) for _ in range(4))
-        seg = torch.sort(torch.randint(0, 4, (2, 96), device="cuda", generator=g),
-                         dim=1).values.int()
-        group, errs = dist.group.WORLD, []
-        runs = [  # the last with the default local attention: the kernels on the card
-            lambda *x: sm.ring_attention(*x, group, causal=True, placement="striped",
-                                         segment_ids=seg, local_attn="flash"),
-            lambda *x: sm.ring_attention(*x, group, causal=True, placement="contiguous",
-                                         segment_ids=seg, local_attn="flash"),
-            lambda *x: sm.ulysses_attention(*x, group, causal=True, segment_ids=seg)]
-        for attention in runs:
-            x = [t.clone().requires_grad_() for t in (q, k, v)]
-            ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
-            fa.reset_launch_counts()
-            out = attention(*x)
-            (out * w).sum().backward()
-            launches = dict(fa.LAUNCHES)
-            ref = sm.attention_reference(*ref_in, causal=True, segment_ids=seg)
-            (ref * w).sum().backward()
-            errs.append(((out - ref).abs().max().item(),
-                         max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item()
-                             for a, b in zip(x, ref_in)),
-                         min(launches.values())))
-        torch.save(errs, f"{out_dir}/rank{rank}.pt")
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{out_dir}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, w = (torch.randn(2, 96, 4, 8, device="cuda", generator=g) for _ in range(4))
+    seg = torch.sort(torch.randint(0, 4, (2, 96), device="cuda", generator=g),
+                     dim=1).values.int()
+    group, errs = dist.group.WORLD, []
+    runs = [  # the last with the default local attention: the kernels on the card
+        lambda *x: sm.ring_attention(*x, group, causal=True, placement="striped",
+                                     segment_ids=seg, local_attn="flash"),
+        lambda *x: sm.ring_attention(*x, group, causal=True, placement="contiguous",
+                                     segment_ids=seg, local_attn="flash"),
+        lambda *x: sm.ulysses_attention(*x, group, causal=True, segment_ids=seg)]
+    for attention in runs:
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        out = attention(*x)
+        (out * w).sum().backward()
+        launches = dict(fa.LAUNCHES)
+        ref = sm.attention_reference(*ref_in, causal=True, segment_ids=seg)
+        (ref * w).sum().backward()
+        errs.append(((out - ref).abs().max().item(),
+                     max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item()
+                         for a, b in zip(x, ref_in)),
+                     min(launches.values())))
+    torch.save(errs, f"{out_dir}/rank{rank}.pt")
 
 
 def test_two_process_ring_on_the_card(cuda_device, tmp_path):
     fa.flash_forward_kernel(*(torch.zeros(1, 8, 1, 16, device=cuda_device),) * 3)  # build first
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_ring_rank, args=(r, str(tmp_path / "store"), str(tmp_path)))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=300)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    for r, p in enumerate(procs):
-        err = tmp_path / f"rank{r}.err"
-        assert p.exitcode == 0, err.read_text() if err.exists() else f"rank {r} hung"
+    run_ranks(_ring_rank, 2, str(tmp_path), args=(str(tmp_path),), timeout_s=300,
+              cuda_device=0)
+    for r in range(2):
         errs = torch.load(tmp_path / f"rank{r}.pt")
         assert len(errs) == 3
         for out_err, grad_err, min_launches in errs:

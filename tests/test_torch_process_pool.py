@@ -204,7 +204,9 @@ def test_worker_exception_does_not_stall_ventilation_window(pool_kind):
 
 
 def _pool_children():
-    """pids of live ``python ... exec_in_new_process`` processes."""
+    """pids of live ``python ... exec_in_new_process`` children of this
+    process: a pool that another test process (an xdist worker) runs at the
+    same time is not this test's to count."""
     pids = set()
     for entry in os.listdir("/proc"):
         if not entry.isdigit():
@@ -212,9 +214,12 @@ def _pool_children():
         try:
             with open(f"/proc/{entry}/cmdline", "rb") as f:
                 argv = f.read().split(b"\0")
-        except OSError:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
             continue
-        if len(argv) > 2 and b"python" in argv[0] and argv[2] == CHILD_MODULE.encode():
+        if ppid == os.getpid() and len(argv) > 2 and b"python" in argv[0] \
+                and argv[2] == CHILD_MODULE.encode():
             pids.add(int(entry))
     return pids
 

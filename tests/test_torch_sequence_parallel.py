@@ -25,8 +25,6 @@ Tolerances: outputs 1e-5 absolute, gradients 1e-4 relative to the largest
 """
 
 import functools
-import multiprocessing
-import traceback
 
 import numpy as np
 import pytest
@@ -124,8 +122,8 @@ def _step_grads(name, group):
             **{n: p.grad.clone() for n, p in model.named_parameters()}}
 
 
-def _rank_main(rank, store, out_dir, corpus_url, ragged_url):
-    """One rank: join the group, run every case, save the results."""
+def _rank_main(rank, out_dir, corpus_url, ragged_url):
+    """One rank: run every case, save the results."""
     import torch.distributed as dist
 
     from petastorm_tpu_torch.models import sequence_model as sm
@@ -137,43 +135,35 @@ def _rank_main(rank, store, out_dir, corpus_url, ragged_url):
         reader_options,
     )
 
-    try:
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=SP)
-        group = dist.group.WORLD
-        results = {}
-        for name, (fn, local, causal, placement, _, _) in ATTN_CASES.items():
-            arrays = _attn_inputs(name)
-            q, k, v = (torch.tensor(arrays[x], requires_grad=True) for x in "qkv")
-            kw = dict(causal=causal, local_attn=local)
-            if "segment_ids" in arrays:
-                kw["segment_ids"] = torch.from_numpy(arrays["segment_ids"])
-            if "lengths" in arrays:
-                kw["lengths"] = torch.from_numpy(arrays["lengths"])
-            if fn == "ring":
-                out = sm.ring_attention(q, k, v, group, placement=placement, **kw)
-            else:
-                out = sm.ulysses_attention(q, k, v, group, **kw)
-            (out * torch.from_numpy(arrays["w"])).sum().backward()
-            results[name] = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
-        for name in STEP_CASES:
-            results[name] = _step_grads(name, group)
-        results["shard_options"] = default_shard_options()
-        with make_columnar_reader(ragged_url, num_epochs=2, shuffle_row_groups=True,
-                                  shard_seed=0, schema_fields=["id"],
-                                  **reader_options(group)) as reader:
-            results["reader_ids"] = torch.from_numpy(np.concatenate(
-                [batch["id"] for batch in batch_iterator(reader, 16)]))
-        trained = train_lm(corpus_url, slot_len=32, slots=4, steps=3, num_heads=4,
-                           d_model=32, epochs=1, device="cpu", group=group)
-        results["train_lm"] = {"losses": trained["losses"],
-                               "logit_parity": trained["logit_parity"]}
-        torch.save(results, f"{out_dir}/rank{rank}.pt")
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{out_dir}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    group = dist.group.WORLD
+    results = {}
+    for name, (fn, local, causal, placement, _, _) in ATTN_CASES.items():
+        arrays = _attn_inputs(name)
+        q, k, v = (torch.tensor(arrays[x], requires_grad=True) for x in "qkv")
+        kw = dict(causal=causal, local_attn=local)
+        if "segment_ids" in arrays:
+            kw["segment_ids"] = torch.from_numpy(arrays["segment_ids"])
+        if "lengths" in arrays:
+            kw["lengths"] = torch.from_numpy(arrays["lengths"])
+        if fn == "ring":
+            out = sm.ring_attention(q, k, v, group, placement=placement, **kw)
+        else:
+            out = sm.ulysses_attention(q, k, v, group, **kw)
+        (out * torch.from_numpy(arrays["w"])).sum().backward()
+        results[name] = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    for name in STEP_CASES:
+        results[name] = _step_grads(name, group)
+    results["shard_options"] = default_shard_options()
+    with make_columnar_reader(ragged_url, num_epochs=2, shuffle_row_groups=True,
+                              shard_seed=0, schema_fields=["id"],
+                              **reader_options(group)) as reader:
+        results["reader_ids"] = torch.from_numpy(np.concatenate(
+            [batch["id"] for batch in batch_iterator(reader, 16)]))
+    trained = train_lm(corpus_url, slot_len=32, slots=4, steps=3, num_heads=4,
+                       d_model=32, epochs=1, device="cpu", group=group)
+    results["train_lm"] = {"losses": trained["losses"],
+                           "logit_parity": trained["logit_parity"]}
+    torch.save(results, f"{out_dir}/rank{rank}.pt")
 
 
 @pytest.fixture(scope="module")
@@ -183,29 +173,17 @@ def rank_results(tmp_path_factory):
     every test with its traceback."""
     from petastorm_tpu_torch.models.long_context_lm import generate_corpus
     from petastorm_tpu_torch.models.sequence_training import generate_ragged_dataset
+    from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
     tmp = tmp_path_factory.mktemp("sp")
     corpus_url, ragged_url = f"file://{tmp}/corpus", f"file://{tmp}/ragged"
     generate_corpus(corpus_url, docs=64, max_len=24)
     generate_ragged_dataset(ragged_url)  # 4 row groups of 64 rows
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, str(tmp / "store"), str(tmp), corpus_url, ragged_url))
-             for r in range(SP)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=300)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errors = [(tmp / f"rank{r}.err") for r in range(SP)]
-    failed = [f"rank {r} (exit {p.exitcode}):\n"
-              + (errors[r].read_text() if errors[r].exists() else "no traceback")
-              for r, p in enumerate(procs) if p.exitcode != 0]
-    if failed:
-        pytest.fail("\n".join(failed))
+    try:
+        run_ranks(_rank_main, SP, str(tmp), args=(str(tmp), corpus_url, ragged_url),
+                  timeout_s=300)
+    except RuntimeError as exc:
+        pytest.fail(str(exc))
     return [torch.load(tmp / f"rank{r}.pt") for r in range(SP)]
 
 

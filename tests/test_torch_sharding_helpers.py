@@ -8,13 +8,12 @@ first rank's count. Counts are integers: compared exactly.
 """
 
 import json
-import multiprocessing
-import traceback
 from types import SimpleNamespace
 
 import pytest
 
 from petastorm_tpu_torch.torch_utils import sharding
+from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
 ROWS = 230  # 8 row groups of 28 rows (rows cut to a multiple of the days)
 
@@ -165,48 +164,27 @@ def test_agree_max_batches_without_a_group_is_the_local_count():
 LOCAL_COUNTS = [7, 3]
 
 
-def _rank_main(rank, store, out_dir):
+def _rank_main(rank, out_dir):
     import torch.distributed as dist
 
-    try:
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=len(LOCAL_COUNTS))
-        local = LOCAL_COUNTS[rank]
-        results = {
-            "min_group": sharding.agree_max_batches(local, group=dist.group.WORLD),
-            "min_default": sharding.agree_max_batches(local),
-            "host0": sharding.agree_max_batches(local, reduce="host0", group=dist.group.WORLD),
-        }
-        with open(f"{out_dir}/rank{rank}.json", "w") as f:
-            json.dump(results, f)
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{out_dir}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    local = LOCAL_COUNTS[rank]
+    results = {
+        "min_group": sharding.agree_max_batches(local, group=dist.group.WORLD),
+        "min_default": sharding.agree_max_batches(local),
+        "host0": sharding.agree_max_batches(local, reduce="host0", group=dist.group.WORLD),
+    }
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(results, f)
 
 
 @pytest.fixture(scope="module")
 def agreed(tmp_path_factory):
     """Both ranks' agreed counts from one spawned gloo run."""
     tmp = tmp_path_factory.mktemp("agree")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, str(tmp / "store"), str(tmp)))
-             for r in range(len(LOCAL_COUNTS))]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    failed = [f"rank {r} (exit {p.exitcode}):\n"
-              + ((tmp / f"rank{r}.err").read_text() if (tmp / f"rank{r}.err").exists()
-                 else "no traceback")
-              for r, p in enumerate(procs) if p.exitcode != 0]
-    if failed:
-        pytest.fail("\n".join(failed))
+    try:
+        run_ranks(_rank_main, len(LOCAL_COUNTS), str(tmp), args=(str(tmp),), timeout_s=120)
+    except RuntimeError as exc:
+        pytest.fail(str(exc))
     return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(len(LOCAL_COUNTS))]
 
 

@@ -17,14 +17,13 @@ Tolerances:
 import collections
 import functools
 import json
-import multiprocessing
-import traceback
 
 import numpy as np
 import pytest
 import torch
 
 from petastorm_tpu_torch.models import tabular_dlrm as td
+from petastorm_tpu_torch.torch_utils.mesh import run_ranks
 
 SMALL = dict(num_dense=5, num_sparse=4, vocab_size=32, embed_dim=8, bottom_hidden=16,
              top_hidden=16)
@@ -196,54 +195,33 @@ def test_train_dlrm_with_filters_reads_one_day(store_512):
 WORLD = 2
 
 
-def _rank_main(rank, store, out_dir, url, params):
+def _rank_main(rank, out_dir, url, params):
     import torch.distributed as dist
 
-    try:
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=WORLD)
-        group = dist.group.WORLD
-        x = _inputs(SMALL, batch=16, seed=10 + rank)
-        model = _port_model(params)
-        _, grads = td.dlrm_gradients(model, *(torch.from_numpy(x[k]) for k in
-                                              ("dense", "ids", "labels", "mask")), group=group)
-        torch.save({k: v.clone() for k, v in grads.items()}, f"{out_dir}/grads{rank}.pt")
-        trained = td.train_dlrm(url, batch_size=32, epochs=1, device="cpu", group=group,
-                                collect_field="sample_index")
-        torch.save(trained["model"].state_dict(), f"{out_dir}/params{rank}.pt")
-        with open(f"{out_dir}/rank{rank}.json", "w") as f:
-            json.dump({"steps": trained["steps"],
-                       "max_batches": trained["diagnostics"]["max_batches"],
-                       "rows": sorted(trained["collected"].tolist())}, f)
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{out_dir}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+    group = dist.group.WORLD
+    x = _inputs(SMALL, batch=16, seed=10 + rank)
+    model = _port_model(params)
+    _, grads = td.dlrm_gradients(model, *(torch.from_numpy(x[k]) for k in
+                                          ("dense", "ids", "labels", "mask")), group=group)
+    torch.save({k: v.clone() for k, v in grads.items()}, f"{out_dir}/grads{rank}.pt")
+    trained = td.train_dlrm(url, batch_size=32, epochs=1, device="cpu", group=group,
+                            collect_field="sample_index")
+    torch.save(trained["model"].state_dict(), f"{out_dir}/params{rank}.pt")
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump({"steps": trained["steps"],
+                   "max_batches": trained["diagnostics"]["max_batches"],
+                   "rows": sorted(trained["collected"].tolist())}, f)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, store_512):
     tmp = tmp_path_factory.mktemp("dp")
-    ctx = multiprocessing.get_context("spawn")
     params = _jax_params(SMALL)  # here: the ranks import no JAX
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, str(tmp / "store"), str(tmp), store_512, params))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=180)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    failed = [f"rank {r} (exit {p.exitcode}):\n"
-              + ((tmp / f"rank{r}.err").read_text() if (tmp / f"rank{r}.err").exists()
-                 else "no traceback")
-              for r, p in enumerate(procs) if p.exitcode != 0]
-    if failed:
-        pytest.fail("\n".join(failed))
+    try:
+        run_ranks(_rank_main, WORLD, str(tmp), args=(str(tmp), store_512, params),
+                  timeout_s=180)
+    except RuntimeError as exc:
+        pytest.fail(str(exc))
     return tmp
 
 
