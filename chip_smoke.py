@@ -265,6 +265,41 @@ non-zero exit code):
    rank (after its first step) is gloo transport on one card, not a
    scaling claim.
 
+13. ``autotune``: the online autotuner and the dataset converter, after
+   phase 12 in the same process (``AUTOTUNE``; see ``autotune_phase``). (a)
+   ``bench.py``'s autotune leg on phase 4's store and CNN (uint8 64x64x3
+   batches of 128 into the bf16 model, which casts them): a thread-pool
+   ``make_columnar_reader(shuffle_row_groups=True, schema_fields=["image",
+   "label"])`` for 12 epochs → ``make_torch_dataloader(last_batch="drop")``
+   under three variants, a warm-up round and one measured round:
+   ``autotuned_defaults`` (10 workers, host_prefetch 4, device_prefetch 2,
+   ``autotune={"interval_s": 0.1, "hysteresis": 1, "tolerance": 0.08}``),
+   ``static_defaults`` (the same knobs, no autotuner) and ``hand_tuned`` (1
+   worker, host_prefetch 6, the TPU host's best, not re-tuned here); the
+   decode ceiling (the one-worker reader and collation, no device). Checked
+   on every autotuned pass, with its reader still running: each decision
+   within its knob's bounds, the knobs in force the last decision of each,
+   the pool's live worker threads its ``workers_count`` once the trail is
+   quiet, the registry's ``AUTOTUNE_DECISIONS`` and ``AUTOTUNE_ROUNDS``
+   deltas the trail's counts, no "autotune round failed" record; every
+   variant's multiset of rows (an exact int64 digest of each image on the
+   card, and its label) the static pass's; no controller or worker thread
+   alive after a loader closes. Printed: each variant's images/s and stall,
+   the ceiling, the ratios against ``hand_tuned``, every round's
+   bottleneck class in the measured pass (run-length encoded) and its trail
+   (each entry's round, outcome, bottleneck class and decisions). (b)
+   Phase 7's Criteo-shaped table read back as a ``pa.Table`` (no pandas)
+   through ``make_spark_converter(dtype="float32")``: a second converter of
+   the same table reuses the directory with no write, ``delete()`` honours
+   the ref-count; one epoch of ``make_torch_device_dataloader`` equal batch
+   for batch to ``make_batch_reader`` → ``make_torch_dataloader`` with the
+   same reader arguments (one worker, shard_seed 7); the Criteo example's
+   DLRM for 2 epochs through ``make_torch_device_dataloader(loader_kwargs=
+   {"autotune": True})`` (the autotuned pass's checks again, losses finite,
+   every row trained twice bar the final partial batch's); one epoch of the
+   reference ``make_torch_dataloader`` (``BatchedDataLoader``) on the card.
+   (c) No flash kernel runs on this path (counted).
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -274,7 +309,10 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import logging
 import math
 import os
 import shutil
@@ -282,6 +320,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -362,6 +401,21 @@ PARALLEL = dict(world=4, steps=12, batch=TABULAR["batch"], microbatches=8, lr=0.
 #: convolutions round bf16 differently at half the batch and width).
 PARALLEL_TOL = dict(loss=1e-5, params=(1e-4, 1e-5, 1e-3), top2=(2e-4, 2e-5, 1e-3),
                     bf16_loss=5e-4, bf16=(1e-4, 1e-4, 1e-1))
+# Phase 13: bench.py's autotune leg (bench.py:1497-1595) on phase 4's store and
+# CNN: three variants (reader workers, host_prefetch, device_prefetch, autotune),
+# AUTOTUNE_EPOCHS 12 a pass, the leg's REPEATS cut from 2 to 1 (a warm-up round
+# and one measured round, to keep the phase near a minute); then phase 7's
+# Criteo-shaped table through the dataset converter into the autotuned device
+# loader and the Criteo example's DLRM (examples/criteo_dlrm/train_dlrm.py:40-78:
+# batch 256, 2 epochs, shard_seed 7, SGD at 0.05).
+AUTOTUNE = dict(image=IMAGE, epochs=12, repeats=1,
+                variants={"autotuned_defaults": (None, 4, 2, {"interval_s": 0.1,
+                                                              "hysteresis": 1,
+                                                              "tolerance": 0.08}),
+                          "static_defaults": (None, 4, 2, None),
+                          "hand_tuned": (1, 6, 2, None)},
+                tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=TABULAR["batch"],
+                tab_epochs=TABULAR["epochs"], tab_lr=0.05, quiet_s=10.0)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -3091,6 +3145,369 @@ def parallel_phase(smi, cfg=PARALLEL, device="cuda"):
           f"ranks_s={ranks_s:.1f}; no rank left", flush=True)
 
 
+class _LogRecords(logging.Handler):
+    """Keeps every record it is handed (phase 13: the autotuner's failed
+    rounds)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _autotune_checks(loader, before, name, failed):
+    """Phase 13's checks on one autotuned pass, while its reader still
+    runs: every decision within its knob's bounds, the knobs in force the
+    last decision of each, the pool's live threads its ``workers_count``
+    once the trail is quiet, the registry's decision and round deltas the
+    controller's counts, no failed round."""
+    from petastorm_tpu_torch.telemetry.metrics import AUTOTUNE_DECISIONS, AUTOTUNE_ROUNDS
+
+    controller = loader.autotune
+    if controller is None or controller.running:
+        fail(f"autotune: the controller of the {name} pass was not built or still runs")
+    report = controller.report()
+    if len(report["trail"]) >= controller._max_trail:
+        fail("autotune: the trail reached its bound, so its counts are not the whole pass")
+    last, counted = {}, collections.Counter()
+    for entry in report["trail"]:
+        for d in entry["decisions"]:
+            desc = controller.graph.knobs[d["knob"]].descriptor()
+            if not desc["lo"] <= d["to"] <= desc["hi"]:
+                fail(f"autotune: decision {d} leaves its bounds {desc}")
+            last[d["knob"]] = d["to"]
+            counted[(d["knob"], d["direction"])] += 1
+    for knob, value in last.items():
+        if report["knobs"][knob] != value:
+            fail(f"autotune: {knob} is {report['knobs'][knob]} in force, but its last "
+                 f"decision set {value}")
+    pool = loader.reader._workers_pool
+    deadline = time.monotonic() + AUTOTUNE["quiet_s"]
+    while pool.live_workers != pool.workers_count and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if pool.live_workers != pool.workers_count or pool.workers_count != \
+            report["knobs"]["workers_count"]:
+        fail(f"autotune: {pool.live_workers} live worker threads, workers_count "
+             f"{pool.workers_count}, knob {report['knobs']['workers_count']}")
+    decisions = {key: child.value - before[0].get(key, 0.0)
+                 for key, child in AUTOTUNE_DECISIONS.children().items()}
+    rounds = sum(child.value for child in AUTOTUNE_ROUNDS.children().values()) - before[1]
+    if {k: v for k, v in decisions.items() if v} != {k: float(v) for k, v in counted.items()} \
+            or rounds != report["rounds"]:
+        fail(f"autotune: registry deltas {decisions} / {rounds} rounds differ from the "
+             f"trail's {dict(counted)} / {report['rounds']}")
+    if failed:
+        fail(f"autotune: {len(failed)} rounds failed: {failed[0].getMessage()}")
+    return report
+
+
+def _registry_before():
+    from petastorm_tpu_torch.telemetry.metrics import AUTOTUNE_DECISIONS, AUTOTUNE_ROUNDS
+
+    return ({key: child.value for key, child in AUTOTUNE_DECISIONS.children().items()},
+            sum(child.value for child in AUTOTUNE_ROUNDS.children().values()))
+
+
+@contextlib.contextmanager
+def _window_classes():
+    """Every planning round's bottleneck class, in order, while the block
+    runs (the controller's trail keeps only the rounds that changed
+    something)."""
+    from petastorm_tpu_torch.pipeline import autotune as at
+
+    classes, plan = [], at.Planner.plan
+
+    def recording(self, profile):
+        decisions = plan(self, profile)
+        classes.append(self.last_class)
+        return decisions
+
+    at.Planner.plan = recording
+    try:
+        yield classes
+    finally:
+        at.Planner.plan = plan
+
+
+def _classes_text(classes):
+    """Round classes run-length encoded: ``idle, decode-bound, consumer-bound x21``."""
+    runs = []
+    for cls in classes:
+        if runs and runs[-1][0] == cls:
+            runs[-1][1] += 1
+        else:
+            runs.append([cls, 1])
+    return ", ".join(cls if n == 1 else f"{cls} x{n}" for cls, n in runs) or "none"
+
+
+def _trail_text(report):
+    """The trail as one line: each entry's round, outcome and bottleneck
+    class, with its decisions."""
+    return "; ".join(
+        f"r{e['round']} {e['outcome']} {e['bottleneck']}"
+        + "".join(f" {d['knob']} {d['direction']} {d['from']}->{d['to']}"
+                  for d in e["decisions"])
+        for e in report["trail"])
+
+
+def autotune_phase(smi, cfg=AUTOTUNE, device="cuda"):
+    """Phase 13 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run
+    on the card uses the defaults."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_batch_reader, make_columnar_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.spark import make_spark_converter
+    from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+    from petastorm_tpu_torch.workers_pool.thread_pool import WORKER_THREAD_PREFIX
+
+    device = torch.device(device)
+    image = cfg["image"]
+    batch = image["batch"]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    handler = _LogRecords()
+    log = logging.getLogger("petastorm_tpu_torch.service.autotune")
+    log.addHandler(handler)
+    fa.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        # -- (a) bench.py's autotune leg ----------------------------------
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=image["rows"],
+                                  image_shape=image["image_shape"],
+                                  num_classes=image["classes"],
+                                  rows_per_row_group=image["rows_per_row_group"])
+        model = ic.init_image_classifier(image["image_shape"], image["classes"],
+                                         hidden=image["hidden"],
+                                         conv_features=image["conv_features"], device=device)
+        step = ic.make_image_train_step(model, image["lr"])
+        mask = torch.ones(batch, dtype=torch.bool, device=device)
+        # A row's identity on the card: an exact int64 weighted sum of its
+        # pixels (below 2^43), beside its label.
+        weights = torch.randint(0, 1 << 20, (int(np.prod(image["image_shape"])),),
+                                generator=torch.Generator().manual_seed(13)).to(device)
+        for _ in range(2):  # the first steps' allocations, off every timed pass
+            step(torch.zeros((batch,) + tuple(image["image_shape"]), dtype=torch.uint8,
+                             device=device), torch.zeros(batch, dtype=torch.int32,
+                                                         device=device), mask)
+        sync()
+
+        def make_reader_with(workers):
+            kwargs = {} if workers is None else {"workers_count": workers}
+            return make_columnar_reader(url, reader_pool_type="thread",
+                                        num_epochs=cfg["epochs"], shuffle_row_groups=True,
+                                        schema_fields=["image", "label"], **kwargs)
+
+        def run_pass(name, workers, host_prefetch, device_prefetch, autotune):
+            before = _registry_before()
+            handler.records.clear()
+            loader = make_torch_dataloader(
+                make_reader_with(workers), batch, last_batch="drop", non_tensor_policy="drop",
+                host_prefetch=host_prefetch, device_prefetch=device_prefetch,
+                autotune=autotune, device=device)
+            n, prints, devices = 0, [], set()
+            t0 = time.perf_counter()
+            with _window_classes() as classes, loader:
+                for b in loader:
+                    images = b["image"]
+                    step(images, b["label"], mask)
+                    prints.append(torch.stack(
+                        [(images.reshape(batch, -1).long() * weights).sum(1),
+                         b["label"].long()], 1))
+                    devices.add(str(images.device))
+                    n += batch
+                sync()
+                wall = time.perf_counter() - t0
+                out = {"images_per_s": n / wall,
+                       "input_stall_pct": loader.diagnostics["input_stall_pct"],
+                       "rows": collections.Counter(map(tuple, torch.cat(prints).tolist())),
+                       "devices": sorted(devices)}
+                if autotune is not None:
+                    out["autotune"] = _autotune_checks(loader, before, name, handler.records)
+                    out["classes"] = classes
+            left = [t.name for t in threading.enumerate()
+                    if t.name.startswith(("pipeline-autotune", WORKER_THREAD_PREFIX))]
+            if left:
+                fail(f"autotune: threads alive after the {name} loader closed: {left}")
+            return out
+
+        def ceiling_pass():
+            reader = make_reader_with(1)
+            n, t0 = 0, time.perf_counter()
+            with reader:
+                for _ in batch_iterator(reader, batch, last_batch="drop"):
+                    n += batch
+            return n / (time.perf_counter() - t0)
+
+        t_leg = time.perf_counter()
+        ceiling_pass()  # the page cache and the interpreter, warm
+        ceiling = ceiling_pass()
+        best, trails = {}, []
+        for round_index in range(cfg["repeats"] + 1):
+            results = {name: run_pass(name, *variant)
+                       for name, variant in cfg["variants"].items()}
+            want = results["static_defaults"]["rows"]
+            for name, result in results.items():
+                if result["devices"] != ["cuda:0" if device.type == "cuda" else "cpu"]:
+                    fail(f"autotune: {name} batches arrived on {result['devices']}")
+                if result["rows"] != want:
+                    fail(f"autotune: the {name} pass delivered another multiset of rows than "
+                         f"the static pass ({sum(result['rows'].values())} rows against "
+                         f"{sum(want.values())})")
+            trails.append(results["autotuned_defaults"]["autotune"])
+            if round_index == 0:
+                continue  # the warm-up round: every variant pays it once
+            for name, result in results.items():
+                if name not in best or result["images_per_s"] > best[name]["images_per_s"]:
+                    best[name] = result
+        leg_s = time.perf_counter() - t_leg
+        del model, step
+        tuned, static, hand = (best[k] for k in ("autotuned_defaults", "static_defaults",
+                                                 "hand_tuned"))
+        report = tuned["autotune"]
+        print(f"autotune (a): gpu={smi!r} bench.py leg_autotune on phase 4's store "
+              f"({image['rows']} png {image['image_shape']}, row groups of "
+              f"{image['rows_per_row_group']}) and CNN (conv {image['conv_features']}, hidden "
+              f"{image['hidden']}, bf16), batch {batch}, {cfg['epochs']} epochs a pass, "
+              f"{cfg['repeats']} measured round after a warm-up: "
+              + " ".join(f"{name}_images_per_s={best[name]['images_per_s']:.1f} "
+                         f"{name}_input_stall_pct={best[name]['input_stall_pct']}"
+                         for name in cfg["variants"])
+              + f" decode_ceiling_images_per_s={ceiling:.1f} "
+              f"autotuned_vs_hand_tuned={tuned['images_per_s'] / hand['images_per_s']:.3f} "
+              f"static_default_vs_hand_tuned={static['images_per_s'] / hand['images_per_s']:.3f} "
+              f"pipeline_vs_decode_ceiling="
+              + "/".join(f"{best[name]['images_per_s'] / ceiling:.2f}" for name in cfg["variants"])
+              + f" rows_per_pass={sum(tuned['rows'].values())} (every variant = static multiset, "
+              f"every round); knobs_in_force={report['knobs']} rounds={report['rounds']} "
+              f"noop_streak={report['noop_streak']} rounds_per_pass="
+              f"{[t['rounds'] for t in trails]} round_classes: {_classes_text(tuned['classes'])}; "
+              f"trail: {_trail_text(report)}; leg_s={leg_s:.1f}",
+              flush=True)
+
+        # -- (b) the converter on the tabular store ---------------------------
+        tab_url = f"file://{tmp}/criteo"
+        td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        table = pq.read_table(os.path.join(tmp, "criteo", "part-00000.parquet"))
+        parent = f"file://{tmp}/converter"
+        t0 = time.perf_counter()
+        conv = make_spark_converter(table, dtype="float32", parent_cache_dir_url=parent)
+        materialize_s = time.perf_counter() - t0
+        part = os.path.join(conv.cache_dir_url[len("file://"):], "part-00000.parquet")
+        stamp = (os.stat(part).st_mtime_ns, sorted(os.listdir(os.path.join(tmp, "converter"))))
+        t0 = time.perf_counter()
+        again = make_spark_converter(table, dtype="float32", parent_cache_dir_url=parent)
+        reuse_s = time.perf_counter() - t0
+        if again.cache_dir_url != conv.cache_dir_url or \
+                (os.stat(part).st_mtime_ns,
+                 sorted(os.listdir(os.path.join(tmp, "converter")))) != stamp:
+            fail("autotune: a second converter of the same table wrote again")
+        if len(conv) != cfg["tab_rows"]:
+            fail(f"autotune: the converter holds {len(conv)} rows, not {cfg['tab_rows']}")
+        again.delete()
+        if not os.path.exists(part):
+            fail("autotune: delete() of one of two references removed the directory")
+
+        reader_kw = dict(shuffle_row_groups=True, shard_seed=7, workers_count=1, num_epochs=1)
+        with conv.make_torch_device_dataloader(
+                batch_size=cfg["tab_batch"],
+                loader_kwargs=dict(last_batch="drop", device=device), **reader_kw) as loader:
+            via_converter = list(loader)
+        with make_torch_dataloader(make_batch_reader(conv.cache_dir_url, **reader_kw),
+                                   cfg["tab_batch"], last_batch="drop", device=device) as loader:
+            direct = list(loader)
+        if len(via_converter) != len(direct) or not all(
+                sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+                for a, b in zip(via_converter, direct)):
+            fail("autotune: the converter's device loader and make_batch_reader → "
+                 "make_torch_dataloader gave other batches")
+        parity_batches = len(direct)
+        del via_converter, direct
+
+        dlrm = td.init_dlrm(device=device)
+        dlrm_step = td.make_dlrm_train_step(dlrm, cfg["tab_lr"])
+        before = _registry_before()
+        handler.records.clear()
+        losses, seen = [], collections.Counter()
+        with _window_classes() as tab_classes, conv.make_torch_device_dataloader(
+                batch_size=cfg["tab_batch"], num_epochs=cfg["tab_epochs"],
+                shuffle_row_groups=True, shard_seed=7,
+                loader_kwargs=dict(last_batch="drop", device=device,
+                                   autotune=True)) as loader:
+            t0 = None
+            for b in loader:
+                if len(losses) == td.WARM_FROM_STEP:
+                    sync()
+                    t0 = time.perf_counter()
+                dense, sparse, labels = td.collate_dlrm(b)
+                losses.append(dlrm_step(dense, sparse, labels,
+                                        torch.ones(labels.shape[0], dtype=torch.bool,
+                                                   device=labels.device)))
+                seen.update(b["sample_index"].tolist())
+            sync()
+            warm_s = time.perf_counter() - t0
+            diag = loader.diagnostics
+            tab_report = _autotune_checks(loader, before, "dlrm", handler.records)
+        losses = [float(x) for x in losses]
+        steps = len(losses)
+        expected = cfg["tab_epochs"] * cfg["tab_rows"] // cfg["tab_batch"]
+        if steps != expected or not all(math.isfinite(x) for x in losses):
+            fail(f"autotune: the DLRM took {steps} steps (expected {expected}), losses "
+                 f"{losses[:3]}...{losses[-3:]}")
+        lost = cfg["tab_epochs"] * cfg["tab_rows"] - sum(seen.values())
+        if max(seen.values()) > cfg["tab_epochs"] or not 0 <= lost < cfg["tab_batch"]:
+            fail(f"autotune: rows trained more than {cfg['tab_epochs']} times or "
+                 f"{lost} rows lost")
+
+        with conv.make_torch_dataloader(batch_size=cfg["tab_batch"], num_epochs=1,
+                                        device=device) as loader:
+            t0 = time.perf_counter()
+            ref_rows, ref_devices = 0, set()
+            for b in loader:
+                ref_rows += int(b["label"].shape[0])
+                ref_devices.update(str(t.device) for t in b.values())
+            sync()
+            ref_s = time.perf_counter() - t0
+        if ref_rows != cfg["tab_rows"] or len(ref_devices) != 1:
+            fail(f"autotune: the BatchedDataLoader gave {ref_rows} rows on {ref_devices}")
+        conv.delete()
+        if os.path.exists(part):
+            fail("autotune: delete() of the last reference left the directory")
+        warm_steps = steps - td.WARM_FROM_STEP
+        print(f"autotune (b): gpu={smi!r} make_spark_converter(pa.Table of "
+              f"{cfg['tab_rows']} rows x {table.num_columns} columns, float32) "
+              f"materialize_s={materialize_s:.3f} reuse_s={reuse_s:.3f} (same directory, "
+              f"no write; delete() kept it for the other reference); "
+              f"make_torch_device_dataloader = make_batch_reader → make_torch_dataloader, "
+              f"{parity_batches} batches equal; the DLRM at the Criteo example's defaults "
+              f"(batch {cfg['tab_batch']}, {cfg['tab_epochs']} epochs, autotune=True): "
+              f"steps={steps} loss={losses[0]:.4f}->{losses[-1]:.4f} "
+              f"steps_per_s_warm={warm_steps / warm_s:.1f} "
+              f"rows_per_s_warm={warm_steps * cfg['tab_batch'] / warm_s:.1f} "
+              f"input_stall_pct={diag['input_stall_pct']} knobs_in_force={tab_report['knobs']} "
+              f"rounds={tab_report['rounds']} round_classes: {_classes_text(tab_classes)}; "
+              f"trail: {_trail_text(tab_report) or 'empty'}; "
+              f"BatchedDataLoader one epoch rows_per_s={ref_rows / ref_s:.1f} on "
+              f"{sorted(ref_devices)}", flush=True)
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"autotune: flash kernels launched on this path: {launches}")
+    print(f"autotune (c): flash launches {launches}", flush=True)
+    return {"autotuned_images_per_s": tuned["images_per_s"]}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -3308,7 +3725,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 12. parallel ------------------------------------------
+    # -- 4. image ... 13. autotune ------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -3318,7 +3735,8 @@ def main():
                       ("loader", lambda: loader_phase(smi, out["image"]["images_per_s"])),
                       ("etl", lambda: etl_phase(smi)),
                       ("pool", lambda: pool_phase(smi, out["image"])),
-                      ("parallel", lambda: parallel_phase(smi))):
+                      ("parallel", lambda: parallel_phase(smi)),
+                      ("autotune", lambda: autotune_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

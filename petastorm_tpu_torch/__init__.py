@@ -9,7 +9,11 @@ sequence packing) delivering batches to PyTorch on an NVIDIA GPU, through
 the classic petastorm loaders (``petastorm_tpu_torch.pytorch``) or the
 port's own (with the decoded-batch cache in front of the reader, its
 memory and disk tiers replaying each later epoch in a seeded order;
-producer-side staging; a per-batch Chrome trace), with resumable input (reader and
+producer-side staging; a per-batch Chrome trace; the online autotuner of
+``pipeline``, which re-plans the decode workers and prefetch depths from
+measured stage profiles), the dataset converter of ``spark`` (an Arrow table
+or DataFrame materialized once into a cached store and read back through
+either loader), with resumable input (reader and
 loader ``state_dict()`` / ``resume_state=``), joint model + input
 checkpoints, equal-step sharded delivery over ``torch.distributed``, the
 on-card image stage (crop / flip / cast / normalize of staged uint8 bytes),

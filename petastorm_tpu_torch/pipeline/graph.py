@@ -1,0 +1,379 @@
+"""The pipeline as an explicit stage graph (the port's own copy of
+``petastorm_tpu/pipeline/graph.py``, its local half).
+
+The reader / loader stack is described as a chain of :class:`StageNode` s —
+worker side ``read → decode → transform → collate → serialize → send``,
+loader side ``recv → queue → raw_stage / device_decode → device_put →
+consume``. Each node carries:
+
+- its **measured cost**: a callable returning the cumulative ``(count,
+  seconds)`` of the stage, fed from the loader's ``loader_stage_seconds``
+  histograms (``telemetry/metrics.py``); a node with no series of its own
+  carries ``None``;
+- a **placement**: ``trainer`` (runs on the training host), ``worker`` (a
+  data-service worker) or ``device`` (runs on the card).
+
+On top of the nodes the graph binds :class:`Knob` s, the runtime handles
+the autotuner (``pipeline/autotune.py``) moves within declared bounds: the
+reader pool's ``workers_count`` (:meth:`ThreadPool.resize`) and the
+loader's ``host_prefetch`` / ``device_prefetch`` (live queue resizes).
+
+:func:`build_loader_graph` inspects a
+:class:`~petastorm_tpu_torch.torch_utils.loader.TorchDataLoader` and wires
+nodes, signals and knobs to the live objects.
+:meth:`PipelineGraph.snapshot` reads everything once (cumulative,
+monotonic); the controller windows consecutive snapshots into the
+profiles the planner reads.
+
+On a CUDA device every stage timer is a host clock: ``device_put``,
+``raw_stage`` and ``device_decode`` time the enqueue of ``non_blocking``
+copies and of the device stage's ops on the copy stream, and the
+consumer's wait for them is a device-side ``wait_event``. So the
+``dispatch_s`` signal reads host-side staging cost, and a training step
+whose host does not synchronise shows up in ``consumer_s`` or in the next
+blocking call, not in ``dispatch_s``.
+
+The data service's half of the JAX graph (its credits, ready-queue depth,
+placement and rewrite knobs and the signals read from service telemetry)
+waits for the data service's port: :func:`build_loader_graph` raises
+NotImplementedError naming it when it is given a service batch source.
+"""
+
+from __future__ import annotations
+
+import os
+
+#: Placement vocabulary: where a stage's work executes.
+PLACEMENTS = ("trainer", "worker", "device")
+
+#: Setters only a data-service batch source has: a source with any of them
+#: is remote, and its half of the graph is not ported.
+_SERVICE_SETTERS = ("set_credits", "set_ready_queue_depth", "set_transform_placement",
+                    "set_packing_placement", "set_stage_fusion", "set_filter_placement",
+                    "set_cache_placement", "set_reader_family")
+
+
+class StageNode:
+    """One pipeline stage: a name, where it runs, and how it is measured.
+
+    :param name: stage name (unique within a graph side).
+    :param side: ``"worker"`` (produces batches) or ``"client"`` (consumes
+        them): the two chains of the stage graph.
+    :param placement: one of :data:`PLACEMENTS`.
+    :param metric: zero-argument callable returning cumulative ``(count,
+        seconds)`` for the stage, or ``None`` when the stage has no series
+        of its own.
+    :param flippable: True for a stage whose placement the autotuner may
+        move.
+    :param description: one line for rendering.
+    :param placement_fn: a flippable stage's live placement reader.
+    :param fuse_group: the stage names this node runs fused with.
+    """
+
+    def __init__(self, name, side, placement, metric=None, flippable=False,
+                 description="", placement_fn=None, fuse_group=None):
+        if side not in ("worker", "client"):
+            raise ValueError(f"side must be worker|client, got {side!r}")
+        if placement not in PLACEMENTS:
+            raise ValueError(
+                f"placement must be one of {PLACEMENTS}, got {placement!r}")
+        self.name = name
+        self.side = side
+        self._placement = placement
+        self.metric = metric
+        self.flippable = flippable
+        self.description = description
+        self.fuse_group = tuple(fuse_group) if fuse_group else None
+        self._placement_fn = placement_fn
+
+    @property
+    def placement(self):
+        if self._placement_fn is not None:
+            value = self._placement_fn()
+            if value in PLACEMENTS:
+                return value
+        return self._placement
+
+    def measure(self):
+        """Cumulative ``(count, seconds)``: ``(0, 0.0)`` when unmeasured."""
+        if self.metric is None:
+            return (0, 0.0)
+        return self.metric()
+
+    def __repr__(self):
+        return (f"StageNode({self.name!r}, side={self.side!r}, "
+                f"placement={self.placement!r})")
+
+
+class Knob:
+    """A runtime-adjustable pipeline parameter with declared bounds.
+
+    :param name: knob name (the telemetry label value).
+    :param get/set: live accessors against the owning object; ``set``
+        receives an already-clamped value.
+    :param lo/hi: inclusive bounds: the autotuner never sets a value
+        outside them (clamped at apply time as well as plan time).
+    :param kind: ``"int"`` (geometric hill-climb steps) or ``"choice"``
+        (a discrete flip between ``choices``).
+    :param choices: for ``kind="choice"``: the allowed values.
+    :param applies: ``"live"`` (takes effect at once), ``"next-stream"`` or
+        ``"next-iteration"``, carried into the decision trail.
+    :param rewrite: the rewrite kind (``pipeline/rewrites.py``) this knob
+        applies, or None.
+    """
+
+    def __init__(self, name, get, set, lo=None, hi=None, kind="int",
+                 choices=None, applies="live", rewrite=None):
+        if kind not in ("int", "choice"):
+            raise ValueError(f"kind must be int|choice, got {kind!r}")
+        if kind == "choice" and not choices:
+            raise ValueError("choice knobs need choices")
+        if kind == "int" and (lo is None or hi is None or lo > hi):
+            raise ValueError(f"int knob {name!r} needs lo <= hi bounds")
+        self.name = name
+        self.get = get
+        self.set = set
+        self.lo = lo
+        self.hi = hi
+        self.kind = kind
+        self.choices = tuple(choices) if choices else None
+        self.applies = applies
+        self.rewrite = rewrite
+
+    def clamp(self, value):
+        if self.kind == "choice":
+            return value if value in self.choices else self.get()
+        return max(self.lo, min(self.hi, int(value)))
+
+    def descriptor(self):
+        """The planner-facing bounds and kind (plain data)."""
+        out = {"kind": self.kind, "applies": self.applies}
+        if self.kind == "choice":
+            out["choices"] = list(self.choices)
+        else:
+            out["lo"] = self.lo
+            out["hi"] = self.hi
+        if self.rewrite:
+            out["rewrite"] = self.rewrite
+        return out
+
+
+class PipelineGraph:
+    """A pipeline described as stage nodes, edges, knobs and signals.
+
+    ``signals`` are graph-level cumulative measurements that are not one
+    stage's histogram, the quantities the planner classifies bottlenecks
+    from: ``rows`` delivered, ``stall_s`` (the consumer blocked on input),
+    ``queue_wait_s`` (the producer blocked on a full queue), ``decode_s``,
+    ``dispatch_s`` and ``consumer_s``. A signal that raises reads as None.
+    """
+
+    def __init__(self, nodes, edges, knobs=(), signals=None):
+        self.nodes = {}
+        for node in nodes:
+            key = (node.side, node.name)
+            if key in self.nodes:
+                raise ValueError(f"duplicate stage {key}")
+            self.nodes[key] = node
+        names = {key[1] for key in self.nodes}
+        for src, dst in edges:
+            if src not in names or dst not in names:
+                raise ValueError(f"edge ({src!r}, {dst!r}) names an "
+                                 f"unknown stage")
+        self.edges = list(edges)
+        self.knobs = {}
+        for knob in knobs:
+            if knob.name in self.knobs:
+                raise ValueError(f"duplicate knob {knob.name!r}")
+            self.knobs[knob.name] = knob
+        self._signals = dict(signals or {})
+
+    def node(self, name, side=None):
+        for (node_side, node_name), node in self.nodes.items():
+            if node_name == name and (side is None or node_side == side):
+                return node
+        raise KeyError(name)
+
+    def snapshot(self):
+        """One cumulative reading of every stage, signal and knob (plain
+        data); the controller subtracts consecutive snapshots to window a
+        profile."""
+        stages = {}
+        for (side, name), node in self.nodes.items():
+            count, seconds = node.measure()
+            stages[name] = {"side": side, "placement": node.placement,
+                            "count": int(count),
+                            "seconds": float(seconds)}
+            if node.fuse_group:
+                stages[name]["fuse_group"] = list(node.fuse_group)
+        signals = {}
+        for name, fn in self._signals.items():
+            try:
+                signals[name] = fn()
+            except Exception:  # noqa: BLE001 - an unreadable signal reads as None
+                signals[name] = None
+        return {
+            "stages": stages,
+            "signals": signals,
+            "knobs": {name: knob.get() for name, knob in self.knobs.items()},
+        }
+
+    def describe(self):
+        """The static structure, without measurements."""
+        return {
+            "stages": [{"name": node.name, "side": node.side,
+                        "placement": node.placement,
+                        "flippable": node.flippable,
+                        "fuse_group": (list(node.fuse_group)
+                                       if node.fuse_group else None),
+                        "description": node.description}
+                       for node in self.nodes.values()],
+            "edges": list(self.edges),
+            "knobs": {name: knob.descriptor()
+                      for name, knob in self.knobs.items()},
+        }
+
+
+def _histogram_metric(child):
+    """Adapt a registry histogram child to the node metric contract."""
+    return lambda: (child.count, child.sum)
+
+
+def _default_workers_hi():
+    return max(4, 2 * (os.cpu_count() or 1))
+
+
+def _is_service_source(source):
+    """True for a data-service batch source (it has the service's setters);
+    a :class:`ReaderBatchSource`, a packer or any other local callable is
+    not one."""
+    from petastorm_tpu_torch.torch_utils.loader import ReaderBatchSource
+
+    if source is None or isinstance(source, ReaderBatchSource):
+        return False
+    return any(hasattr(source, name) for name in _SERVICE_SETTERS)
+
+
+def build_loader_graph(loader, bounds=None):
+    """Describe a live :class:`TorchDataLoader`'s pipeline as a graph.
+
+    Wires the loader-side chain to the loader's own stage histograms, adds
+    the worker-side chain (the reader's pull is the one measured stage,
+    ``decode``) and binds the knobs the attached objects support:
+
+    - ``workers_count``: when ``loader.reader`` has a resizable pool (a
+      thread pool; a process pool or the dummy pool cannot resize);
+    - ``host_prefetch`` / ``device_prefetch``: always.
+
+    ``bounds`` overrides per-knob ``(lo, hi)`` tuples. A loader whose
+    ``batch_source`` is a data-service source raises NotImplementedError:
+    the service half of the graph is not ported.
+
+    A ``TorchDataLoader`` always has a batch source (``make_torch_dataloader``
+    wraps the reader in a :class:`ReaderBatchSource`), so remote-ness is
+    decided by what the source is, not by whether there is one.
+    """
+    bounds = dict(bounds or {})
+    source = loader._batch_source
+    if _is_service_source(source):
+        raise NotImplementedError(
+            "build_loader_graph over a data-service batch source is not ported to "
+            "petastorm_tpu_torch: the data service (its credits, ready-queue, "
+            "placement and rewrite knobs and signals) comes with the service's port")
+
+    def bound(name, lo, hi):
+        return bounds.get(name, (lo, hi))
+
+    stage = loader._m_stage
+    reader = loader.reader
+    nodes = []
+    edges = []
+
+    # -- worker side: read → decode → transform → collate → serialize → send.
+    # On the local path read, decode, transform and collate all run inside
+    # the producer's reader pull: one measured stage ("decode"), attached to
+    # the node that times the whole pull.
+    nodes.append(StageNode("read", "worker", "trainer",
+                           description="Parquet row-group read"))
+    nodes.append(StageNode(
+        "decode", "worker", "trainer",
+        metric=_histogram_metric(stage["decode"]),
+        description=("reader pull: codec decode (+read/transform/collate "
+                     "on the local path — one measured stage)")))
+    nodes.append(StageNode("transform", "worker", "trainer",
+                           description="the reader's transform (inside the pull)"))
+    nodes.append(StageNode("collate", "worker", "trainer",
+                           description="rows → fixed-size numpy batch"))
+    nodes.append(StageNode("serialize", "worker", "trainer",
+                           description="batch → wire frames (service path only)"))
+    nodes.append(StageNode("send", "worker", "trainer",
+                           description="framed socket send (service path only)"))
+    edges += [("read", "decode"), ("decode", "transform"),
+              ("transform", "collate"), ("collate", "serialize"),
+              ("serialize", "send")]
+
+    # -- loader side: recv → queue → raw_stage/device_decode → device_put →
+    #    consume
+    nodes.append(StageNode(
+        "recv", "client", "trainer",
+        metric=_histogram_metric(stage["wait"]),
+        description="consumer blocked on the next host batch (the stall)"))
+    nodes.append(StageNode(
+        "queue", "client", "trainer",
+        metric=_histogram_metric(stage["queue_wait"]),
+        description="producer blocked on a full host queue"))
+    nodes.append(StageNode(
+        "raw_stage", "client", "trainer",
+        metric=_histogram_metric(stage["raw_stage"]),
+        description="raw uint8 bytes batch staged to the device (copy enqueued)"))
+    device_stage = getattr(loader, "_device_stage", None)
+    nodes.append(StageNode(
+        "device_decode", "client", "device",
+        metric=_histogram_metric(stage["device_decode"]),
+        description=("the device stage's crop/flip/cast/normalize on the copy stream"
+                     + (f" {device_stage.describe()}"
+                        if device_stage is not None else ""))))
+    nodes.append(StageNode(
+        "device_put", "client", "trainer",
+        metric=_histogram_metric(stage["device_put"]),
+        description="H2D copies of ordinary tensors (enqueued)"))
+    nodes.append(StageNode(
+        "consume", "client", "device",
+        metric=_histogram_metric(stage["consumer"]),
+        description="training step between yields"))
+    edges += [("send", "recv"), ("recv", "queue"), ("queue", "raw_stage"),
+              ("queue", "device_put"), ("raw_stage", "device_decode"),
+              ("device_decode", "consume"), ("device_put", "consume")]
+
+    knobs = []
+    pool = getattr(reader, "_workers_pool", None) if reader is not None else None
+    if pool is not None and hasattr(pool, "resize") \
+            and hasattr(reader, "resize_workers"):
+        lo, hi = bound("workers_count", 1, _default_workers_hi())
+        knobs.append(Knob(
+            "workers_count",
+            get=lambda: pool.workers_count,
+            set=reader.resize_workers, lo=lo, hi=hi))
+    lo, hi = bound("host_prefetch", 1, 64)
+    knobs.append(Knob(
+        "host_prefetch",
+        get=lambda: loader.host_prefetch,
+        set=lambda v: setattr(loader, "host_prefetch", v),
+        lo=lo, hi=hi))
+    lo, hi = bound("device_prefetch", 1, 16)
+    knobs.append(Knob(
+        "device_prefetch",
+        get=lambda: loader.device_prefetch,
+        set=lambda v: setattr(loader, "device_prefetch", v), lo=lo, hi=hi))
+
+    signals = {
+        "rows": lambda: loader._m_rows.value,
+        "stall_s": lambda: stage["wait"].sum,
+        "queue_wait_s": lambda: stage["queue_wait"].sum,
+        "decode_s": lambda: stage["decode"].sum,
+        "dispatch_s": lambda: (stage["raw_stage"].sum
+                               + stage["device_decode"].sum
+                               + stage["device_put"].sum),
+        "consumer_s": lambda: stage["consumer"].sum,
+    }
+    return PipelineGraph(nodes, edges, knobs=knobs, signals=signals)

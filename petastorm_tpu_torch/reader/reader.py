@@ -33,8 +33,8 @@ and so are the planning fingerprint ``repr((filters, rowgroup_selector))``
 and the item keys ``item_key(piece_index, drop_partition)``, so the same
 arguments give both packages the same work items in the same order, and a
 state written by either resumes the other. What is not ported raises
-NotImplementedError naming the argument (:data:`UNPORTED_READER_ARGS`,
-:meth:`Reader.resize_workers`).
+NotImplementedError naming the argument (:data:`UNPORTED_READER_ARGS`).
+:meth:`Reader.resize_workers` resizes a thread pool while it runs.
 """
 
 from __future__ import annotations
@@ -601,14 +601,21 @@ class Reader:
         self._workers_pool.join()
 
     def resize_workers(self, workers_count):
-        """Not ported: the JAX reader resizes a thread pool live (its
-        autotuner's knob); a process pool cannot resize in either package,
-        its workers being processes started with it."""
-        if isinstance(self._workers_pool, ProcessPool):
+        """Change the decode pool's parallelism while the reader runs (the
+        autotuner's ``workers_count`` knob): thread pools only. A process
+        pool cannot resize in either package, its workers being processes
+        started with it; the dummy pool has no workers to resize."""
+        pool = self._workers_pool
+        if isinstance(pool, ProcessPool):
             raise NotImplementedError(
                 "ProcessPool cannot resize at runtime: its workers are processes "
                 "started with the pool")
-        raise NotImplementedError("Reader.resize_workers is not ported yet")
+        resize = getattr(pool, "resize", None)
+        if resize is None:
+            raise NotImplementedError(
+                f"{type(pool).__name__} cannot resize at runtime — use "
+                f"reader_pool_type='thread'")
+        resize(workers_count)
 
     def reset(self):
         """Start the same epochs again, once every row of the previous run

@@ -4,11 +4,11 @@ metrics.py``).
 
 Each family keeps the JAX package's name, help text, labels and buckets,
 so a scrape of either package reads the same vocabulary. The families of
-modules not ported yet (the data service, the fleet, the autotuner, the
-framed-socket transport, the packing stage, resilience) come with those
-modules. Naming follows Prometheus: ``petastorm_<layer>_...``, base units,
-``_total`` on counters; label values are bounded (stage names, tiers, a
-recycled per-loader id), never row- or batch-scoped.
+modules not ported yet (the data service, the fleet, the framed-socket
+transport, the packing stage, resilience) come with those modules. Naming
+follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
+counters; label values are bounded (stage names, tiers, a recycled
+per-loader id, a per-controller id), never row- or batch-scoped.
 """
 
 from __future__ import annotations
@@ -141,6 +141,58 @@ CACHE_DISK_WRITE_ERRORS = REGISTRY.counter(
     "directory, fd exhaustion) and were skipped: the cache degrades to "
     "pass-through for that entry — the batch still streams, it just is "
     "not persisted (docs/guides/service.md#failure-model-and-recovery)")
+
+# -- pipeline autotuner (pipeline/autotune.py) -------------------------------
+
+AUTOTUNE_DECISIONS = REGISTRY.counter(
+    "petastorm_autotune_decisions_total",
+    "Knob changes the online autotuner applied, by knob and direction "
+    "(up/down = a capacity knob raised/lowered one hill-climb step, flip = "
+    "a placement knob moved, revert = a probe that regressed throughput "
+    "was rolled back). The decision journal: every entry here also lands "
+    "in the controller's in-memory trail with before/after values",
+    labels=("knob", "direction"))
+AUTOTUNE_KNOB_VALUE = REGISTRY.gauge(
+    "petastorm_autotune_knob_value",
+    "Current value of each autotuned pipeline knob (workers_count, "
+    "host_prefetch, device_prefetch, credits, ready_queue_depth; "
+    "transform_placement renders 0 = remote, 1 = local) — set when the "
+    "controller binds the knob and on every applied decision, so a scrape "
+    "shows the configuration actually in force, not the constructed one. "
+    "Labeled per controller instance (two concurrently autotuned loaders "
+    "must not clobber each other's gauges); a garbage-collected "
+    "controller's series are removed",
+    labels=("controller", "knob"))
+AUTOTUNE_ROUNDS = REGISTRY.counter(
+    "petastorm_autotune_rounds_total",
+    "Autotuner planning rounds by outcome: applied (a knob changed), "
+    "reverted (a regressing probe rolled back), noop (balanced, "
+    "hysteresis-held, or all candidate knobs settled), idle (window too "
+    "short or no rows moved). A converged pipeline shows only noop/idle "
+    "growth",
+    labels=("outcome",))
+
+# -- graph rewrites (pipeline/rewrites.py) -----------------------------------
+
+REWRITE_DECISIONS = REGISTRY.counter(
+    "petastorm_rewrite_decisions_total",
+    "Graph rewrites the autotuner applied or reverted, by rewrite kind "
+    "(fuse_worker_stages / hoist_filter / cache_placement — the catalog in "
+    "docs/guides/pipeline.md#graph-rewrites) and direction (flip = applied "
+    "or moved, revert = a probe that regressed throughput rolled the "
+    "topology back). A subset of petastorm_autotune_decisions_total: every "
+    "rewrite decision counts in both",
+    labels=("rewrite", "direction"))
+REWRITE_ACTIVE = REGISTRY.gauge(
+    "petastorm_rewrite_active",
+    "Whether each graph rewrite is currently in force (1) or at its "
+    "baseline topology (0): stage fusion fused, the row filter hoisted "
+    "worker-side, the cache insertion point moved post-decode. Set by the "
+    "autotune controller on every applied/reverted rewrite decision; "
+    "labeled per controller instance like the knob-value gauge (two "
+    "autotuned loaders must not clobber each other's topology reading — "
+    "a collected controller's series are removed)",
+    labels=("controller", "rewrite"))
 
 # -- flight recorder (telemetry/flight.py) -------------------------------------
 

@@ -54,9 +54,17 @@ in the batcher, the host queue and the device prefetch, so they are re-read
 on resume; in a permuted cache pass, the pass and its yielded batches.
 Under a ``torch.distributed`` group, :func:`make_torch_dataloader` derives
 the equal-step ``max_batches`` from the reader's shard metadata, as the JAX
-loader does under a sharding. (Global arrays, the autotuner and the data
-service's batch sources are not ported; in the data-parallel layout each
-rank keeps its own local batch on its own card.)
+loader does under a sharding. (Global arrays and the data service's batch
+sources are not ported; in the data-parallel layout each rank keeps its own
+local batch on its own card.)
+
+``autotune=`` arms the online autotuner (:mod:`petastorm_tpu_torch.
+pipeline`): at the first iteration the loader is described as a stage graph
+and a controller thread re-plans ``workers_count`` (a thread-pool reader),
+``host_prefetch`` and ``device_prefetch`` from windowed stage profiles. The
+stage timers are host clocks: on a CUDA device the dispatch stages time the
+enqueue of the copies, so a dispatch-bound class means host-side staging
+cost, and a step that does not synchronise shows in ``consumer_s``.
 """
 
 from __future__ import annotations
@@ -171,14 +179,16 @@ def make_torch_dataloader(reader, batch_size, last_batch="drop", max_batches=Non
         (from either package's loader): resume that permuted pass at its
         batch position. Needs ``batch_cache`` and the same reader
         construction.
-    :param autotune: not ported; anything but None raises
-        NotImplementedError.
+    :param autotune: arm the online autotuner (:mod:`petastorm_tpu_torch.
+        pipeline`): a controller thread re-plans ``workers_count`` (thread
+        pool readers), ``host_prefetch`` and ``device_prefetch`` within
+        declared bounds from measured stage profiles. ``True`` uses the
+        defaults; a dict may set ``interval_s``, ``bounds`` (``{knob: (lo,
+        hi)}``), ``hysteresis``, ``placement_hysteresis``, ``tolerance``,
+        ``probe_defer``, ``classify_kwargs``, ``rewrite_hysteresis``,
+        ``rewrites`` and ``rewrite_thresholds``, the JAX loader's keys.
+        ``None`` or ``False`` builds no graph and starts no thread.
     """
-    if autotune is not None:
-        raise NotImplementedError(
-            "autotune (the online pipeline autotuner of petastorm_tpu.pipeline) is not "
-            "ported to petastorm_tpu_torch: set host_prefetch/device_prefetch yourself "
-            "(both can be resized while the loader runs)")
     if group is not None and max_batches is None:
         from petastorm_tpu_torch.torch_utils.sharding import derive_equal_step_max_batches
 
@@ -189,7 +199,37 @@ def make_torch_dataloader(reader, batch_size, last_batch="drop", max_batches=Non
         max_batches=max_batches, device=device, host_prefetch=host_prefetch,
         device_prefetch=device_prefetch, non_tensor_policy=non_tensor_policy,
         device_stage=device_stage, stage_in_producer=stage_in_producer,
-        trace_path=trace_path, batch_cache=batch_cache, cache_resume=cache_resume)
+        trace_path=trace_path, batch_cache=batch_cache, cache_resume=cache_resume,
+        autotune=autotune)
+
+
+#: The keys an ``autotune=`` dict may hold (the JAX loader's).
+_AUTOTUNE_KEYS = frozenset({"interval_s", "bounds", "hysteresis", "placement_hysteresis",
+                            "tolerance", "probe_defer", "classify_kwargs",
+                            "rewrite_hysteresis", "rewrites", "rewrite_thresholds"})
+
+
+def _parse_autotune(autotune):
+    """``autotune=`` → the controller's config dict, or None when disabled;
+    the JAX loader's ValueErrors for anything else."""
+    if autotune is None or autotune is False:
+        return None
+    if autotune is True:
+        return {}
+    if isinstance(autotune, dict):
+        unknown = set(autotune) - _AUTOTUNE_KEYS
+        if unknown:
+            # A misspelled key would otherwise fall back to the default
+            # unnoticed: the user believes they tuned something.
+            raise ValueError(
+                f"unknown autotune config key(s) {sorted(unknown)}; "
+                f"allowed: {sorted(_AUTOTUNE_KEYS)}")
+        return dict(autotune)
+    raise ValueError(
+        "autotune must be None, True, or a config dict "
+        "(interval_s/bounds/hysteresis/placement_hysteresis/"
+        "tolerance/probe_defer/classify_kwargs/"
+        "rewrite_hysteresis/rewrites/rewrite_thresholds)")
 
 
 class ReaderBatchSource:
@@ -219,12 +259,17 @@ class TorchDataLoader:
     :func:`make_torch_dataloader`, packed batches for the packing loader);
     ``reader`` is stopped and joined on ``__exit__``. ``batch_cache`` and
     ``cache_resume`` need a :class:`ReaderBatchSource`; see
-    :func:`make_torch_dataloader` for them and the other arguments."""
+    :func:`make_torch_dataloader` for them and the other arguments.
+    ``autotune`` holds the :class:`~petastorm_tpu_torch.pipeline.
+    AutotuneController` once an armed loader was first iterated (None
+    otherwise); it runs while an iteration does."""
 
     def __init__(self, reader, batch_source, max_batches=None, device="cuda",
                  host_prefetch=4, device_prefetch=2, non_tensor_policy="host",
                  device_stage=None, stage_in_producer=False, trace_path=None,
-                 batch_cache=None, cache_resume=None):
+                 batch_cache=None, cache_resume=None, autotune=None):
+        self._autotune_config = _parse_autotune(autotune)
+        self.autotune = None  # the AutotuneController once armed
         self._device = resolve_device(device)
         if non_tensor_policy not in ("host", "drop", "error"):
             raise ValueError("non_tensor_policy must be host|drop|error")
@@ -419,6 +464,34 @@ class TorchDataLoader:
         self._device_prefetch = value
         if self._stage_in_producer and self._queue is not None:
             resize_bounded_queue(self._queue, value)
+
+    def _ensure_autotune(self):
+        """Build (once) and start the autotune controller when armed: the
+        graph binds the reader and this loader as they are iterated."""
+        if self._autotune_config is None:
+            return
+        if self.autotune is None:
+            from petastorm_tpu_torch.pipeline import (
+                AutotuneController,
+                Planner,
+                build_loader_graph,
+            )
+
+            cfg = self._autotune_config
+            graph = build_loader_graph(self, bounds=cfg.get("bounds"))
+            planner = Planner(
+                {name: knob.descriptor() for name, knob in graph.knobs.items()},
+                hysteresis=cfg.get("hysteresis", 2),
+                placement_hysteresis=cfg.get("placement_hysteresis", 4),
+                tolerance=cfg.get("tolerance", 0.05),
+                probe_defer=cfg.get("probe_defer", 3),
+                classify_kwargs=cfg.get("classify_kwargs"),
+                rewrite_hysteresis=cfg.get("rewrite_hysteresis", 6),
+                rewrites=cfg.get("rewrites", True),
+                rewrite_thresholds=cfg.get("rewrite_thresholds"))
+            self.autotune = AutotuneController(
+                graph, interval_s=cfg.get("interval_s", 0.5), planner=planner)
+        self.autotune.start()
 
     # -- producer ----------------------------------------------------------
 
@@ -776,6 +849,7 @@ class TorchDataLoader:
             self._stager = threading.Thread(target=self._stage_loop, daemon=True,
                                             name="torch-loader-stager")
             self._stager.start()
+        self._ensure_autotune()
         return self._iterate()
 
     def _iterate(self):
@@ -878,9 +952,13 @@ class TorchDataLoader:
     # -- lifecycle ---------------------------------------------------------
 
     def stop(self):
-        """Stop the producer and the stager and join them (a stopped loader
-        can be iterated again; batches still queued are discarded)."""
+        """Stop the autotune controller, the producer and the stager and
+        join them (a stopped loader can be iterated again; batches still
+        queued are discarded)."""
         self._stop.set()
+        if self.autotune is not None:
+            self.autotune.stop()
+            self.autotune.join()
         for thread in (self._producer, self._stager):
             while thread is not None and thread.is_alive():
                 for q in (self._queue, self._host_queue):

@@ -2,7 +2,9 @@
 ``petastorm_tpu/workers_pool/thread_pool.py``): pyarrow Parquet decode
 releases the GIL, so threads decode row groups in parallel. Its
 ``diagnostics`` are the JAX pool's live counters, under the same names, and
-it feeds the registry's ``POOL_*`` families as the JAX pool does."""
+it feeds the registry's ``POOL_*`` families as the JAX pool does.
+:meth:`ThreadPool.resize` changes the number of decode threads while the
+pool runs (the autotuner's ``workers_count`` knob)."""
 
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from petastorm_tpu_torch.workers_pool.worker_base import EOFSentinel
 WORKER_THREAD_PREFIX = "petastorm-tpu-worker-torch"
 
 
+class _RetireSentinel:
+    """``resize()`` shrink marker: exactly one worker thread exits on it
+    (unlike ``EOFSentinel`` it is made per retirement, never broadcast)."""
+
+
 class ThreadPool:
     def __init__(self, workers_count, results_queue_size=50):
         self.workers_count = workers_count
@@ -42,6 +49,13 @@ class ThreadPool:
         self._workers = []
         self._ventilator = None
         self._stop_event = threading.Event()
+        # resize(): start() records how workers are built so a grow spawns
+        # identical ones, and a monotonic id keeps thread names unique
+        # across grow / shrink cycles.
+        self._worker_class = None
+        self._worker_setup_args = None
+        self._next_worker_id = workers_count
+        self._resize_lock = threading.Lock()
         self._ventilated_items = 0
         self._completed_items = 0
         self._results_pending = 0  # payloads in the results queue
@@ -71,17 +85,56 @@ class ThreadPool:
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._threads:
             raise RuntimeError("ThreadPool already started")
-        for worker_id in range(self.workers_count):
-            worker = worker_class(worker_id, self._publish_result, worker_setup_args)
-            self._workers.append(worker)
-            thread = threading.Thread(
-                target=self._worker_loop, args=(worker,), daemon=True,
-                name=f"{WORKER_THREAD_PREFIX}-{worker_id}")
-            self._threads.append(thread)
-            thread.start()
+        with self._resize_lock:
+            self._worker_class = worker_class
+            self._worker_setup_args = worker_setup_args
+            self._next_worker_id = self.workers_count
+            for worker_id in range(self.workers_count):
+                self._spawn_worker(worker_id)
         if ventilator is not None:
             self._ventilator = ventilator
             ventilator.start()
+
+    def _spawn_worker(self, worker_id):
+        worker = self._worker_class(worker_id, self._publish_result, self._worker_setup_args)
+        self._workers.append(worker)
+        thread = threading.Thread(
+            target=self._worker_loop, args=(worker,), daemon=True,
+            name=f"{WORKER_THREAD_PREFIX}-{worker_id}")
+        self._threads.append(thread)
+        thread.start()
+
+    def resize(self, workers_count):
+        """Change the number of decode threads while the pool runs.
+
+        A grow spawns worker threads identical to those ``start()`` built; a
+        shrink enqueues one retire sentinel per surplus worker, each taken
+        by exactly one worker after the items already queued ahead of it
+        (FIFO), so no ventilated item is dropped and the in-flight counts
+        stay exact. Before ``start()`` it only sets the count; after
+        ``stop()`` it does nothing."""
+        workers_count = int(workers_count)
+        if workers_count < 1:
+            raise ValueError("workers_count must be >= 1")
+        with self._resize_lock:
+            if self._stop_event.is_set():
+                return
+            if not self._threads:
+                self.workers_count = workers_count  # pre-start resize
+                return
+            delta = workers_count - self.workers_count
+            for _ in range(delta):
+                self._spawn_worker(self._next_worker_id)
+                self._next_worker_id += 1
+            for _ in range(-delta):
+                self._ventilator_queue.put(_RetireSentinel())
+            self.workers_count = workers_count
+
+    @property
+    def live_workers(self):
+        """Worker threads alive right now: ``workers_count`` once every
+        retire sentinel of a shrink has been taken."""
+        return sum(thread.is_alive() for thread in self._threads)
 
     def _worker_loop(self, worker):
         while not self._stop_event.is_set():
@@ -89,7 +142,7 @@ class ThreadPool:
                 item = self._ventilator_queue.get(timeout=0.05)
             except queue.Empty:
                 continue
-            if isinstance(item, EOFSentinel):
+            if isinstance(item, (EOFSentinel, _RetireSentinel)):
                 break
             args, kwargs = item
             try:

@@ -11,7 +11,8 @@ from seeded numpy data (each test writes its own):
 - ``trace_path`` writes Chrome trace JSON with the JAX loader's span
   names, one wait and one device_put span per batch;
 - ``exclude_stall_so_far`` re-bases ``stall_s``; ``diagnostics`` keeps the
-  JAX key set; ``autotune`` raises NotImplementedError naming it.
+  JAX key set; ``autotune`` arms a controller at the first iteration (and
+  ``False`` none), stopped with the iteration.
 
 Tolerance: none; everything is compared exactly.
 """
@@ -225,7 +226,22 @@ def test_diagnostics_keep_the_jax_key_set(tmp_path, stage_in_producer, cached):
 
 @pytest.mark.parametrize("autotune", [True, {"interval_s": 1.0}, False])
 def test_autotune_is_not_ported(tmp_path, autotune):
+    """The name is from before the autotuner was ported: ``autotune`` now
+    arms the controller (True or a dict) or builds nothing (False), and
+    the batches are the static loader's."""
     url = write_store(tmp_path)
     with _reader(url) as reader:
-        with pytest.raises(NotImplementedError, match="autotune"):
-            make_torch_dataloader(reader, BATCH, device="cpu", autotune=autotune)
+        static = [b["id"].tolist() for b in make_torch_dataloader(reader, BATCH, device="cpu",
+                                                                  non_tensor_policy="drop")]
+    with _reader(url) as reader:
+        loader = make_torch_dataloader(reader, BATCH, device="cpu", non_tensor_policy="drop",
+                                       autotune=autotune)
+        assert loader.autotune is None
+        got = [b["id"].tolist() for b in loader]
+    assert got == static
+    if autotune is False:
+        assert loader.autotune is None
+    else:
+        assert loader.autotune is not None and not loader.autotune.running
+        assert set(loader.autotune.knob_values()) == {"host_prefetch", "device_prefetch"}
+    assert not [t for t in threading.enumerate() if t.name.startswith("pipeline-autotune")]
