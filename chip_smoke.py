@@ -299,6 +299,35 @@ non-zero exit code):
    every row trained twice bar the final partial batch's); one epoch of the
    reference ``make_torch_dataloader`` (``BatchedDataLoader``) on the card.
    (c) No flash kernel runs on this path (counted).
+14. ``service``: remote filesystems and the data service's first tier
+   (``SERVICE``; see ``service_phase``), after phase 13 in the same
+   process; dispatchers and workers on 127.0.0.1, the trainer on the card.
+   (a) Phase 4's store and CNN through a static ``Dispatcher(num_epochs=6)``,
+   2 ``BatchWorker(reader_factory="row", workers_count=4)``,
+   ``ServiceBatchSource(credits=8)`` → ``TorchDataLoader(None, device_stage=
+   ...)`` (the source pulled directly, without a producer thread) → the
+   CNN, twice (the second under ``torch.profiler`` for the busy share):
+   every batch on ``cuda:0``, each epoch's multiset of per-image digests
+   (crc32 and adler32 of the image bytes, and the label, taken on the
+   consuming thread inside the timed loop) the local reader's, losses
+   finite; images/s after the warm-up epoch beside phase 4's from this
+   call, stall, busy share, the client's ``recv_stall_s`` and the workers'
+   ``credit_wait_s``. (b) Phase 7's store (the JAX
+   ``service_loopback_scenario``'s shape: 2 workers of 2 reader threads,
+   batch 512, credits 8) into the DLRM for one epoch: a local
+   ``make_batch_reader`` (2 threads), then the service static with
+   ``ordered=True``, then fcfs: every row exactly once each time; the
+   three rows/s. (c) One of two workers ``kill()``-ed after 20 batches:
+   no row lost, duplicates and takeovers reported; a
+   ``TorchDataLoader.state_dict()`` after 25 batches resumed by a fresh
+   fleet with ``resume_state=``: every row read, re-read rows reported.
+   (d) A worker started as ``python -m petastorm_tpu_torch.service worker``
+   under ``CUDA_VISIBLE_DEVICES=""``: its batches reach the card, and its
+   ``/proc`` shows no ``/dev/nvidia*`` file and no ``libcuda`` mapping.
+   (e) Phase 4's store copied into fsspec's ``memory://`` and read by
+   ``make_reader(storage_options=...)`` and ``make_reader(filesystem=...)``
+   to the card: images and labels bit for bit the local reader's. No flash
+   kernel runs on this phase (counted).
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -322,6 +351,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -416,6 +446,13 @@ AUTOTUNE = dict(image=IMAGE, epochs=12, repeats=1,
                           "hand_tuned": (1, 6, 2, None)},
                 tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=TABULAR["batch"],
                 tab_epochs=TABULAR["epochs"], tab_lr=0.05, quiet_s=10.0)
+# Phase 14, the data service: phase 4's image path through 2 workers (4 reader
+# threads each, credits 8) and the JAX service_loopback_scenario's tabular
+# shape (benchmark/scenarios.py:630: 2 workers of 2 reader threads, batch 512,
+# credits 8) on phase 7's store.
+SERVICE = dict(image=IMAGE, workers=2, workers_count=4, credits=8,
+               tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=512,
+               tab_workers_count=2, kill_at=20, resume_at=25)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -3508,6 +3545,422 @@ def autotune_phase(smi, cfg=AUTOTUNE, device="cuda"):
     return {"autotuned_images_per_s": tuned["images_per_s"]}
 
 
+def _image_digest(image, label):
+    """An exact per-row digest of one image and its label: crc32 and
+    adler32 of the image's bytes, and the label."""
+    raw = image.tobytes()
+    return (zlib.crc32(raw), zlib.adler32(raw), int(label))
+
+
+class _DigestingSource:
+    """A batch source that records each batch's per-image digests on the
+    consuming thread and passes the batch on; its iterator keeps the inner
+    one's ``prefetched`` and ``close``, so the loader pulls it as it would
+    the source itself."""
+
+    def __init__(self, source, sink):
+        self._source, self._sink = source, sink
+
+    def __call__(self):
+        return _DigestingIterator(self._source(), self._sink)
+
+
+class _DigestingIterator:
+    def __init__(self, inner, sink):
+        self._inner, self._sink = inner, sink
+        self.prefetched = getattr(inner, "prefetched", False)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._inner)
+        self._sink.extend(_image_digest(i, lab) for i, lab in zip(batch["image"], batch["label"]))
+        return batch
+
+    def close(self):
+        self._inner.close()
+
+
+def _service_fleet(service, url, cfg, factory, batch, workers_count, mode="static",
+                   num_epochs=1, workers=None, dispatcher=None):
+    """``(dispatcher, [workers])`` on 127.0.0.1, started."""
+    dispatcher = dispatcher or service.Dispatcher(mode=mode, num_epochs=num_epochs).start()
+    fleet = []
+    try:
+        for i in range(cfg["workers"] if workers is None else workers):
+            fleet.append(service.BatchWorker(
+                url, dispatcher_address=dispatcher.address, batch_size=batch,
+                reader_factory=factory, worker_id=f"svc-{factory}-{mode}-{i}",
+                reader_kwargs={"workers_count": workers_count}).start())
+    except BaseException:
+        _stop_fleet(dispatcher, fleet)
+        raise
+    return dispatcher, fleet
+
+
+def _stop_fleet(dispatcher, workers):
+    for worker in workers:
+        worker.stop()
+    dispatcher.stop()
+
+
+def _dlrm_epoch(loader, device, step, collect=True):
+    """One pass of ``loader`` into the DLRM step: ``(rows/s from the second
+    batch on, the sample_index values, losses, the batches' devices)``."""
+    import torch
+
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+
+    losses, collected, devices, rows, t0 = [], [], set(), 0, None
+    for batch in loader:
+        if t0 is None and losses:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+        devices.update(str(t.device) for t in batch.values() if torch.is_tensor(t))
+        dense, sparse, labels = td.collate_dlrm(batch)
+        mask = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
+        losses.append(step(dense, sparse, labels, mask))
+        if collect:
+            collected.append(batch["sample_index"])
+        if t0 is not None:
+            rows += labels.shape[0]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rate = rows / (time.perf_counter() - t0) if t0 is not None else 0.0
+    ids = torch.cat(collected).cpu().numpy() if collected else None
+    return rate, ids, [float(x) for x in losses], sorted(devices)
+
+
+def service_phase(smi, image, cfg=SERVICE, device="cuda"):
+    """Phase 14 (see the module docstring); fails the run on any check.
+    ``image`` is phase 4's result (its images/s is reported beside this
+    path's). ``cfg`` and ``device`` exist for a small dry run on the host;
+    the run on the card uses the defaults."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import service
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
+
+    device = torch.device(device)
+    img = cfg["image"]
+    per_epoch = img["rows"]
+    lines, t_parts = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_svc_")
+    fa.reset_launch_counts()
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        # One decode worker: row groups in their order, for the bit-for-bit
+        # comparison of (e).
+        with make_reader(url, schema_fields=["image", "label"], num_epochs=1,
+                         shuffle_row_groups=False, workers_count=1) as reader:
+            local_rows = [(r.image, r.label) for r in reader]
+        local_digests = collections.Counter(_image_digest(i, lab) for i, lab in local_rows)
+
+        # (a) The image path through the service, twice (the second traced).
+        t0 = time.perf_counter()
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], num_epochs=img["epochs"])
+        runs = []
+        try:
+            for traced in (False, True):
+                in_shape = img["crop"] + (img["image_shape"][2],)
+                torch.manual_seed(0)
+                model = ic.init_image_classifier(in_shape, img["classes"], hidden=img["hidden"],
+                                                 conv_features=img["conv_features"],
+                                                 device=device)
+                step = ic.make_image_train_step(model, img["lr"])
+                wait_before = sum(w.diagnostics_snapshot()["metrics"]
+                                  ["credit_wait_seconds_total"] for w in workers)
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"])
+                digests = []
+                loader = TorchDataLoader(
+                    None, _DigestingSource(source, digests), device=device,
+                    device_stage=DeviceStage(normalize=(127.5, 127.5), crop=img["crop"],
+                                             flip=True))
+                warm = -(-per_epoch // img["batch"])
+                losses, devices, timed_rows, t_start = [], set(), 0, None
+                prof = None
+                if traced and device.type == "cuda":
+                    from torch.profiler import ProfilerActivity, profile
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                try:
+                    with loader:
+                        for i, batch in enumerate(loader):
+                            if i == warm:
+                                if device.type == "cuda":
+                                    torch.cuda.synchronize(device)
+                                t_start = time.perf_counter()
+                            devices.update(str(t.device) for t in batch.values()
+                                           if torch.is_tensor(t))
+                            images = batch["image"]
+                            mask = batch.get(PAD_MASK_KEY)
+                            if mask is None:
+                                mask = torch.ones(images.shape[0], dtype=torch.bool,
+                                                  device=images.device)
+                            losses.append(step(images, batch["label"], mask))
+                            if t_start is not None:
+                                timed_rows += images.shape[0]
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        elapsed = time.perf_counter() - t_start
+                        diag = loader.diagnostics
+                finally:
+                    if prof is not None:
+                        prof.__exit__(None, None, None)
+                busy = "not measured"
+                if prof is not None and device.type == "cuda":
+                    trace = os.path.join(tmp, "service_trace.json")
+                    prof.export_chrome_trace(trace)
+                    busy = device_busy_pct(trace, img["batch"] * int(np.prod(img["image_shape"])),
+                                           warm)
+                losses = [float(x) for x in losses]
+                epochs = [collections.Counter(digests[e * per_epoch:(e + 1) * per_epoch])
+                          for e in range(img["epochs"])]
+                if len(digests) != img["epochs"] * per_epoch or any(
+                        counts != local_digests for counts in epochs):
+                    bad = [e for e, counts in enumerate(epochs) if counts != local_digests]
+                    fail(f"service (a): {len(digests)} images over {img['epochs']} epochs; "
+                         f"epochs {bad} differ from the local reader's digest multiset")
+                if devices != {"cuda:0" if device.type == "cuda" else "cpu"}:
+                    fail(f"service (a): batches arrived on {sorted(devices)}")
+                if not all(math.isfinite(x) for x in losses):
+                    fail(f"service (a): loss not finite: {losses}")
+                runs.append({
+                    "images_per_s": timed_rows / elapsed, "busy": busy, "diag": diag,
+                    "recv_stall_s": sum(w["stall_s"] for w in
+                                        source.diagnostics["per_worker"].values()),
+                    "credit_wait_s": sum(w.diagnostics_snapshot()["metrics"]
+                                         ["credit_wait_seconds_total"]
+                                         for w in workers) - wait_before,
+                    "losses": losses, "steps": len(losses)})
+                del model, step, loader
+        finally:
+            _stop_fleet(disp, workers)
+        plain, traced_run = runs
+        t_parts["a"] = time.perf_counter() - t0
+        lines.append(
+            f"service (a): image path through {cfg['workers']} workers (row reader, "
+            f"{cfg['workers_count']} threads each, batch {img['batch']}, credits "
+            f"{cfg['credits']}) -> TorchDataLoader(device_stage) -> CNN conv "
+            f"{img['conv_features']} hidden {img['hidden']} bf16, {img['epochs']} epochs "
+            f"(first a warm-up): images_per_s={plain['images_per_s']:.1f} "
+            f"local_phase4_images_per_s={image['images_per_s']:.1f} "
+            f"ratio={plain['images_per_s'] / image['images_per_s']:.3f} "
+            f"input_stall_pct={plain['diag']['input_stall_pct']} "
+            f"recv_stall_s={plain['recv_stall_s']:.4f} "
+            f"credit_wait_s={plain['credit_wait_s']:.4f} "
+            f"traced_images_per_s={traced_run['images_per_s']:.1f} "
+            f"device_busy_pct_traced={traced_run['busy']} "
+            f"local_phase4_busy_pct={image['device_busy_pct_traced']} steps={plain['steps']} "
+            f"loss_first={plain['losses'][0]:.4f} loss_last={plain['losses'][-1]:.4f} "
+            f"epoch_digests=local x{img['epochs']}")
+
+        # (b) The tabular path: local make_batch_reader against the service,
+        # static (ordered) and fcfs, one DLRM epoch each.
+        t0 = time.perf_counter()
+        tab_url = f"file://{tmp}/criteo"
+        rows = td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        rates = {}
+        for kind in ("local", "static", "fcfs"):
+            torch.manual_seed(0)
+            model = td.init_dlrm(device=device)
+            step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+            if kind == "local":
+                reader = make_batch_reader(tab_url, num_epochs=1, shuffle_row_groups=False,
+                                           workers_count=cfg["tab_workers_count"])
+                loader = make_torch_dataloader(reader, cfg["tab_batch"], last_batch="keep",
+                                               device=device)
+                with loader:
+                    rate, ids, losses, devices = _dlrm_epoch(loader, device, step)
+            else:
+                disp, workers = _service_fleet(service, tab_url, cfg, "batch",
+                                               cfg["tab_batch"], cfg["tab_workers_count"],
+                                               mode=kind)
+                try:
+                    source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                        ordered=kind == "static")
+                    with TorchDataLoader(None, source, device=device) as loader:
+                        rate, ids, losses, devices = _dlrm_epoch(loader, device, step)
+                finally:
+                    _stop_fleet(disp, workers)
+            counts = np.bincount(ids, minlength=rows)
+            if len(ids) != rows or counts.max() != 1:
+                fail(f"service (b) {kind}: {len(ids)} rows delivered for {rows}, "
+                     f"{int((counts > 1).sum())} more than once, "
+                     f"{int((counts == 0).sum())} never")
+            if not all(math.isfinite(x) for x in losses) or devices != [
+                    "cuda:0" if device.type == "cuda" else "cpu"]:
+                fail(f"service (b) {kind}: losses {losses[:4]}..., devices {devices}")
+            rates[kind] = rate
+            del model, step
+        t_parts["b"] = time.perf_counter() - t0
+        lines.append(
+            f"service (b): Criteo-shaped store ({rows} rows, {cfg['tab_days']} row groups) "
+            f"-> DLRM one epoch, batch {cfg['tab_batch']}, {cfg['workers']} workers x "
+            f"{cfg['tab_workers_count']} threads, credits {cfg['credits']}: "
+            f"local_rows_per_s={rates['local']:.1f} "
+            f"static_ordered_rows_per_s={rates['static']:.1f} "
+            f"fcfs_rows_per_s={rates['fcfs']:.1f} "
+            f"static_over_local={rates['static'] / rates['local']:.3f} "
+            f"fcfs_over_local={rates['fcfs'] / rates['local']:.3f} every row exactly once")
+
+        # (c) A worker killed mid-epoch; a checkpoint resumed by a fresh fleet.
+        t0 = time.perf_counter()
+        disp, workers = _service_fleet(service, tab_url, cfg, "batch", cfg["tab_batch"],
+                                       cfg["tab_workers_count"])
+        try:
+            source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                max_retries=1, backoff_base=0.02,
+                                                backoff_max=0.1)
+            got, killed = [], False
+            with TorchDataLoader(None, source, device=device) as loader:
+                for batch in loader:
+                    got.append(batch["sample_index"])
+                    if not killed and len(got) == cfg["kill_at"]:
+                        workers[1].kill()
+                        killed = True
+            kill_ids = torch.cat(got).cpu().numpy()
+            recovery = source.diagnostics["recovery"]
+        finally:
+            _stop_fleet(disp, workers)
+        counts = np.bincount(kill_ids, minlength=rows)
+        if not killed or counts.min() < 1:
+            fail(f"service (c): kill at batch {cfg['kill_at']} (killed={killed}) lost "
+                 f"{int((counts == 0).sum())} rows")
+        kill_dupes = int(counts.sum() - rows)
+        parts = []
+        state = None
+        for attempt in ("first", "resumed"):
+            disp, workers = _service_fleet(service, tab_url, cfg, "batch", cfg["tab_batch"],
+                                           cfg["tab_workers_count"])
+            try:
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    resume_state=state)
+                got = []
+                with TorchDataLoader(None, source, device=device) as loader:
+                    for batch in loader:
+                        got.append(batch["sample_index"])
+                        if attempt == "first" and len(got) == cfg["resume_at"]:
+                            state = loader.state_dict()
+                            break
+                parts.append(torch.cat(got).cpu().numpy())
+            finally:
+                _stop_fleet(disp, workers)
+        counts = np.bincount(np.concatenate(parts), minlength=rows)
+        if counts.min() < 1:
+            fail(f"service (c): the checkpoint at batch {cfg['resume_at']} and its resume "
+                 f"left {int((counts == 0).sum())} rows unread")
+        t_parts["c"] = time.perf_counter() - t0
+        lines.append(
+            f"service (c): worker killed after {cfg['kill_at']} batches: no row lost, "
+            f"duplicates={kill_dupes} takeovers={recovery['takeovers']} "
+            f"duplicates_dropped={recovery['duplicates_dropped']}; checkpoint after "
+            f"{cfg['resume_at']} batches (epoch {state['epoch']}, "
+            f"{len(state['completed_pieces'])} pieces done, watermarks "
+            f"{state['watermarks']}) resumed by a fresh fleet: every row read, "
+            f"re_read_rows={int(counts.sum() - rows)}")
+
+        # (d) A worker in its own process that sees no card.
+        t0 = time.perf_counter()
+        disp = service.Dispatcher().start()
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        child = subprocess.Popen(
+            [sys.executable, "-m", "petastorm_tpu_torch.service", "worker", "--dispatcher",
+             f"127.0.0.1:{disp.address[1]}", "--dataset-url", tab_url, "--reader", "batch",
+             "--batch-size", str(cfg["tab_batch"]), "--workers-count",
+             str(cfg["tab_workers_count"]), "--worker-id", "subprocess"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
+        try:
+            hello = json.loads(child.stdout.readline() or "{}")
+            if hello.get("worker_id") != "subprocess":
+                fail(f"service (d): the worker process did not start: {hello} "
+                     f"{child.stderr.read()[-2000:]}")
+            source = service.ServiceBatchSource(disp.address, credits=cfg["credits"])
+            got, handles = [], None
+            with TorchDataLoader(None, source, device=device) as loader:
+                for batch in loader:
+                    got.append(batch["sample_index"])
+                    if handles is None:
+                        handles = card_handles(child.pid)  # mid-stream
+            sub_ids = torch.cat(got).cpu().numpy()
+            sub_devices = sorted({str(t.device) for t in got})
+        finally:
+            child.terminate()
+            try:
+                child.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait(timeout=10)
+            child.stdout.close()
+            child.stderr.close()
+            disp.stop()
+        if sorted(sub_ids.tolist()) != list(range(rows)):
+            fail(f"service (d): the subprocess worker served {len(sub_ids)} rows, not "
+                 f"each of {rows} once")
+        if handles is None or handles[0] or handles[1]:
+            fail(f"service (d): the worker process holds card handles {handles}")
+        t_parts["d"] = time.perf_counter() - t0
+        lines.append(
+            f"service (d): worker process (CUDA_VISIBLE_DEVICES='', python -m "
+            f"petastorm_tpu_torch.service worker) served {len(sub_ids)} rows to "
+            f"{sub_devices}; its /proc: /dev/nvidia* files {handles[0]}, libcuda mapped "
+            f"{handles[1]}")
+
+        # (e) The image store through fsspec's memory:// to the card.
+        t0 = time.perf_counter()
+        import fsspec
+
+        memory = fsspec.filesystem("memory")
+        mem_path = f"/chip-smoke-{os.getpid()}/images"
+        memory.put(os.path.join(tmp, "images"), mem_path, recursive=True)
+        try:
+            for how, kwargs in (("storage_options", {"storage_options": {
+                    "skip_instance_cache": False}}), ("filesystem", {"filesystem": memory})):
+                with make_reader(f"memory://{mem_path}", schema_fields=["image", "label"],
+                                 num_epochs=1, shuffle_row_groups=False, workers_count=1,
+                                 **kwargs) as reader:
+                    loader = make_torch_dataloader(reader, img["batch"], last_batch="keep",
+                                                   device=device)
+                    got = [(b["image"].cpu().numpy(), b["label"].cpu().numpy())
+                           for b in loader]
+                mem_images = np.concatenate([g[0] for g in got])
+                mem_labels = np.concatenate([g[1] for g in got])
+                if not (np.array_equal(mem_images, np.stack([i for i, _ in local_rows]))
+                        and np.array_equal(mem_labels, np.array([lab for _, lab in local_rows]))):
+                    fail(f"service (e): memory:// through {how} differs from the local reader")
+        finally:
+            memory.rm(f"/chip-smoke-{os.getpid()}", recursive=True)
+        t_parts["e"] = time.perf_counter() - t0
+        lines.append(
+            f"service (e): phase 4's store copied to memory://{mem_path} and read with "
+            f"make_reader(storage_options=...) and make_reader(filesystem=...) to the card: "
+            f"{len(local_rows)} images and labels bit for bit the local reader's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"service: a flash kernel ran on the data-service path: {launches}")
+    print("\n".join(lines), flush=True)
+    print(f"service: gpu={smi!r} parts_s=" + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items())
+          + f" flash_launches={launches}", flush=True)
+    return {"images_per_s": runs[0]["images_per_s"]}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -3725,7 +4178,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 13. autotune ------------------------------------------
+    # -- 4. image ... 14. service -------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -3736,7 +4189,8 @@ def main():
                       ("etl", lambda: etl_phase(smi)),
                       ("pool", lambda: pool_phase(smi, out["image"])),
                       ("parallel", lambda: parallel_phase(smi)),
-                      ("autotune", lambda: autotune_phase(smi))):
+                      ("autotune", lambda: autotune_phase(smi)),
+                      ("service", lambda: service_phase(smi, out["image"]))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -12,9 +12,9 @@ their row counts under the same keys — and the same rows and arguments
 give byte-equal files in both packages. Datasets whose footer carries only
 a schema pickled by the reference petastorm read through a restricted
 unpickler (:func:`unischema_from_reference_pickle`), which rebuilds the
-schema from an allowlist and imports no module the pickle names. A Spark
-session, ``storage_options``, ``filesystem`` and ``filesystem_factory``
-raise NotImplementedError naming the argument.
+schema from an allowlist and imports no module the pickle names. The
+writer takes ``storage_options``, ``filesystem`` and ``filesystem_factory``
+as the JAX package does; a Spark session raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -356,12 +356,20 @@ def read_dataset_metadata(filesystem, dataset_path):
 _UNPORTED_DEFAULTS = {"hdfs_driver": "libhdfs"}
 
 
+#: Why each refused argument is refused.
+_UNPORTED_REASONS = {
+    "hdfs_driver": "hdfs:// needs libhdfs, which this package does not use",
+    "spark": "this package writes with pyarrow; Spark is not a dependency",
+}
+
+
 def refuse_unported(func, **arguments):
     """NotImplementedError naming the first argument given a value the port
-    does not take yet (Spark, remote and caller-supplied filesystems)."""
+    does not take (a Spark session, an ``hdfs_driver``)."""
     for name, value in arguments.items():
         if value != _UNPORTED_DEFAULTS.get(name):
-            raise NotImplementedError(f"{func}({name}=...) is not ported yet")
+            raise NotImplementedError(
+                f"{func}({name}=...) is not ported: {_UNPORTED_REASONS[name]}")
 
 
 def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=None,
@@ -374,19 +382,24 @@ def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=None,
     ``spark=None`` is the pyarrow path: write inside the block with
     :func:`write_rows`. ``row_group_size_mb`` and ``use_summary_metadata``
     only configure a Spark writer, so here they change nothing (as in the
-    JAX package without Spark). A Spark session, ``filesystem_factory``,
-    ``storage_options`` and ``filesystem`` raise NotImplementedError
-    naming the argument."""
-    refuse_unported("materialize_dataset", spark=spark, filesystem_factory=filesystem_factory,
-                    storage_options=storage_options, filesystem=filesystem)
-    return _materialize(dataset_url, schema)
+    JAX package without Spark). The store's filesystem is
+    ``filesystem_factory()`` when given, else the one ``storage_options`` or
+    ``filesystem`` resolve (:class:`~petastorm_tpu_torch.fs_utils.
+    FilesystemResolver`). A Spark session raises NotImplementedError."""
+    refuse_unported("materialize_dataset", spark=spark)
+    return _materialize(dataset_url, schema, filesystem_factory, storage_options, filesystem)
 
 
 @contextmanager
-def _materialize(dataset_url, schema):
+def _materialize(dataset_url, schema, filesystem_factory, storage_options, filesystem):
     yield
-    resolver = FilesystemResolver(dataset_url)
-    fs, path = resolver.filesystem(), resolver.get_dataset_path()
+    if filesystem_factory is not None:
+        fs = filesystem_factory()
+        path = FilesystemResolver(dataset_url, filesystem=fs).get_dataset_path()
+    else:
+        resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
+                                      filesystem=filesystem)
+        fs, path = resolver.filesystem(), resolver.get_dataset_path()
     import pyarrow.dataset as pads
 
     counts, row_counts = {}, {}
@@ -420,9 +433,9 @@ def write_rows(dataset_url, schema, rows, row_group_size_mb=None,
     many threads (the codecs release the GIL), submitted and written in
     order with at most ``2 × encode_workers`` groups in flight, so the
     output is byte-equal to ``encode_workers=1``. ``storage_options`` and
-    ``filesystem`` raise NotImplementedError naming the argument."""
-    refuse_unported("write_rows", storage_options=storage_options, filesystem=filesystem)
-    resolver = FilesystemResolver(dataset_url)
+    ``filesystem`` select the filesystem, as for the readers."""
+    resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
+                                  filesystem=filesystem)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     fs.create_dir(path, recursive=True)
     arrow_schema = schema.as_arrow_schema()
@@ -499,9 +512,14 @@ def _rows_to_table(encoded_rows, arrow_schema):
 
 def materialize_rows(dataset_url, schema, rows, **write_kwargs):
     """One call: :func:`write_rows` (its keyword arguments) inside
-    :func:`materialize_dataset`."""
-    with materialize_dataset(None, dataset_url, schema):
-        write_rows(dataset_url, schema, rows, **write_kwargs)
+    :func:`materialize_dataset`, both on the filesystem ``storage_options``
+    or ``filesystem`` select."""
+    storage_options = write_kwargs.pop("storage_options", None)
+    filesystem = write_kwargs.pop("filesystem", None)
+    with materialize_dataset(None, dataset_url, schema, storage_options=storage_options,
+                             filesystem=filesystem):
+        write_rows(dataset_url, schema, rows, storage_options=storage_options,
+                   filesystem=filesystem, **write_kwargs)
 
 
 def get_schema(dataset_or_metadata, dataset_path=None, filesystem=None):
@@ -527,10 +545,11 @@ def get_schema(dataset_or_metadata, dataset_path=None, filesystem=None):
 
 def get_schema_from_dataset_url(dataset_url, hdfs_driver="libhdfs",
                                 storage_options=None, filesystem=None):
-    """:func:`get_schema` of the dataset at ``dataset_url``."""
-    refuse_unported("get_schema_from_dataset_url", hdfs_driver=hdfs_driver,
-                    storage_options=storage_options, filesystem=filesystem)
-    resolver = FilesystemResolver(dataset_url)
+    """:func:`get_schema` of the dataset at ``dataset_url`` (on the
+    filesystem ``storage_options`` or ``filesystem`` select)."""
+    refuse_unported("get_schema_from_dataset_url", hdfs_driver=hdfs_driver)
+    resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
+                                  filesystem=filesystem)
     return get_schema(resolver.filesystem(), resolver.get_dataset_path())
 
 

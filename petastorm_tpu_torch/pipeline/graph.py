@@ -33,10 +33,12 @@ consumer's wait for them is a device-side ``wait_event``. So the
 whose host does not synchronise shows up in ``consumer_s`` or in the next
 blocking call, not in ``dispatch_s``.
 
-The data service's half of the JAX graph (its credits, ready-queue depth,
-placement and rewrite knobs and the signals read from service telemetry)
-waits for the data service's port: :func:`build_loader_graph` raises
-NotImplementedError naming it when it is given a service batch source.
+Over the data service's batch source the worker-side stages run on the
+remote workers, and the graph binds the source's ``credits``,
+``ready_queue_depth`` and ``transform_placement`` knobs and reads the
+``recv_stall_s`` and ``credit_wait_s`` signals. The packing placement, the
+four rewrite knobs and their trigger signals come with the service slices
+that port them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import os
 PLACEMENTS = ("trainer", "worker", "device")
 
 #: Setters only a data-service batch source has: a source with any of them
-#: is remote, and its half of the graph is not ported.
+#: is remote.
 _SERVICE_SETTERS = ("set_credits", "set_ready_queue_depth", "set_transform_placement",
                     "set_packing_placement", "set_stage_fusion", "set_filter_placement",
                     "set_cache_placement", "set_reader_family")
@@ -258,28 +260,31 @@ def build_loader_graph(loader, bounds=None):
     """Describe a live :class:`TorchDataLoader`'s pipeline as a graph.
 
     Wires the loader-side chain to the loader's own stage histograms, adds
-    the worker-side chain (the reader's pull is the one measured stage,
-    ``decode``) and binds the knobs the attached objects support:
+    the worker-side chain (measured when a local reader runs in-process:
+    the reader's pull is the one measured stage, ``decode``; declared but
+    unmeasured for the data service's remote workers, whose cost the
+    planner reads through the ``recv_stall_s`` / ``credit_wait_s``
+    signals) and binds the knobs the attached objects support:
 
     - ``workers_count``: when ``loader.reader`` has a resizable pool (a
       thread pool; a process pool or the dummy pool cannot resize);
-    - ``host_prefetch`` / ``device_prefetch``: always.
+    - ``host_prefetch``: on the local path (and with ``stage_in_producer``);
+      a service source's iterator is pulled by the consumer, so its
+      buffering is the source's ready-queue and credits;
+    - ``device_prefetch``: always;
+    - ``credits``, ``ready_queue_depth`` (only when pinned: a derived depth
+      follows ``credits``) and ``transform_placement`` (when a transform
+      is armed): when the batch source is a
+      :class:`~petastorm_tpu_torch.service.ServiceBatchSource`.
 
-    ``bounds`` overrides per-knob ``(lo, hi)`` tuples. A loader whose
-    ``batch_source`` is a data-service source raises NotImplementedError:
-    the service half of the graph is not ported.
-
-    A ``TorchDataLoader`` always has a batch source (``make_torch_dataloader``
-    wraps the reader in a :class:`ReaderBatchSource`), so remote-ness is
-    decided by what the source is, not by whether there is one.
+    ``bounds`` overrides per-knob ``(lo, hi)`` tuples. A ``TorchDataLoader``
+    always has a batch source (``make_torch_dataloader`` wraps the reader
+    in a :class:`ReaderBatchSource`), so remote-ness is decided by what the
+    source is, not by whether there is one.
     """
     bounds = dict(bounds or {})
     source = loader._batch_source
-    if _is_service_source(source):
-        raise NotImplementedError(
-            "build_loader_graph over a data-service batch source is not ported to "
-            "petastorm_tpu_torch: the data service (its credits, ready-queue, "
-            "placement and rewrite knobs and signals) comes with the service's port")
+    remote = _is_service_source(source)
 
     def bound(name, lo, hi):
         return bounds.get(name, (lo, hi))
@@ -292,25 +297,42 @@ def build_loader_graph(loader, bounds=None):
     # -- worker side: read → decode → transform → collate → serialize → send.
     # On the local path read, decode, transform and collate all run inside
     # the producer's reader pull: one measured stage ("decode"), attached to
-    # the node that times the whole pull.
-    nodes.append(StageNode("read", "worker", "trainer",
+    # the node that times the whole pull. A service worker's series are
+    # per-worker and remote: unmeasured here.
+    worker_placement = "worker" if remote else "trainer"
+    nodes.append(StageNode("read", "worker", worker_placement,
                            description="Parquet row-group read"))
     nodes.append(StageNode(
-        "decode", "worker", "trainer",
-        metric=_histogram_metric(stage["decode"]),
+        "decode", "worker", worker_placement,
+        metric=None if remote else _histogram_metric(stage["decode"]),
         description=("reader pull: codec decode (+read/transform/collate "
                      "on the local path — one measured stage)")))
-    nodes.append(StageNode("transform", "worker", "trainer",
-                           description="the reader's transform (inside the pull)"))
-    nodes.append(StageNode("collate", "worker", "trainer",
+    if _has_transform(source):
+        nodes.append(StageNode(
+            "transform", "worker", worker_placement if _transform_remote(source) else "trainer",
+            flippable=True, metric=_transform_metric,
+            placement_fn=lambda: worker_placement if _transform_remote(source) else "trainer",
+            description="placement-flippable collated-batch transform"))
+    else:
+        nodes.append(StageNode("transform", "worker", worker_placement,
+                               description="the reader's transform (inside the pull)"))
+    nodes.append(StageNode("collate", "worker", worker_placement,
                            description="rows → fixed-size numpy batch"))
-    nodes.append(StageNode("serialize", "worker", "trainer",
+    # The serialize node's fused-stage series and the packing stage wait
+    # for the streaming engine (service slice (c)) and the LLM stages (f).
+    nodes.append(StageNode("serialize", "worker", worker_placement,
                            description="batch → wire frames (service path only)"))
-    nodes.append(StageNode("send", "worker", "trainer",
+    nodes.append(StageNode("send", "worker", worker_placement,
                            description="framed socket send (service path only)"))
     edges += [("read", "decode"), ("decode", "transform"),
               ("transform", "collate"), ("collate", "serialize"),
               ("serialize", "send")]
+    if remote:
+        # The group these stages would run as under stage fusion.
+        group = ("decode", "transform", "collate", "serialize")
+        for node in nodes:
+            if node.name in group:
+                node.fuse_group = group
 
     # -- loader side: recv → queue → raw_stage/device_decode → device_put →
     #    consume
@@ -354,17 +376,36 @@ def build_loader_graph(loader, bounds=None):
             "workers_count",
             get=lambda: pool.workers_count,
             set=reader.resize_workers, lo=lo, hi=hi))
-    lo, hi = bound("host_prefetch", 1, 64)
-    knobs.append(Knob(
-        "host_prefetch",
-        get=lambda: loader.host_prefetch,
-        set=lambda v: setattr(loader, "host_prefetch", v),
-        lo=lo, hi=hi))
+    if not remote or loader._stage_in_producer:
+        lo, hi = bound("host_prefetch", 1, 64)
+        knobs.append(Knob(
+            "host_prefetch",
+            get=lambda: loader.host_prefetch,
+            set=lambda v: setattr(loader, "host_prefetch", v),
+            lo=lo, hi=hi))
     lo, hi = bound("device_prefetch", 1, 16)
     knobs.append(Knob(
         "device_prefetch",
         get=lambda: loader.device_prefetch,
         set=lambda v: setattr(loader, "device_prefetch", v), lo=lo, hi=hi))
+    if remote and hasattr(source, "set_credits") and getattr(source, "credits", None) is not None:
+        lo, hi = bound("credits", 1, 64)
+        knobs.append(Knob("credits", get=lambda: source.credits, set=source.set_credits,
+                          lo=lo, hi=hi, applies="next-stream"))
+    if remote and hasattr(source, "set_ready_queue_depth") \
+            and source._ready_queue_depth is not None:
+        # Only a pinned depth: a derived one follows the credits knob, and a
+        # probe here would pin it for good.
+        lo, hi = bound("ready_queue_depth", 2, 256)
+        knobs.append(Knob("ready_queue_depth", get=lambda: source.ready_queue_depth,
+                          set=source.set_ready_queue_depth, lo=lo, hi=hi))
+    if _has_transform(source):
+        knobs.append(Knob("transform_placement", get=lambda: source.transform_placement,
+                          set=source.set_transform_placement, kind="choice",
+                          choices=("remote", "local"), applies="next-iteration"))
+    # Not bound yet: packing_placement (service slice (f)) and the four
+    # rewrite knobs, stage_fusion / filter_placement / cache_placement /
+    # reader_family, which run inside the streaming engine (slice (c)).
 
     signals = {
         "rows": lambda: loader._m_rows.value,
@@ -376,4 +417,51 @@ def build_loader_graph(loader, bounds=None):
                                + stage["device_put"].sum),
         "consumer_s": lambda: stage["consumer"].sum,
     }
+    if remote:
+        signals["recv_stall_s"] = lambda: _source_recv_stall(source)
+        signals["credit_wait_s"] = _process_credit_wait
+        # The rewrite-trigger signals (worker decode, hand-off, transform,
+        # cache and filter counters) come with the rewrites they trigger,
+        # service slice (c).
     return PipelineGraph(nodes, edges, knobs=knobs, signals=signals)
+
+
+def _has_transform(source):
+    return source is not None and getattr(source, "transform", None) is not None
+
+
+def _transform_remote(source):
+    return getattr(source, "transform_placement", "remote") == "remote"
+
+
+def _transform_metric():
+    """Cumulative ``(count, seconds)`` of the batch transform in both
+    placements: the client's histogram, and the worker series of workers
+    running in this process."""
+    from petastorm_tpu_torch.telemetry.metrics import (
+        CLIENT_TRANSFORM_SECONDS,
+        WORKER_TRANSFORM_SECONDS,
+    )
+
+    client = CLIENT_TRANSFORM_SECONDS.labels()
+    count, total = client.count, client.sum
+    for child in WORKER_TRANSFORM_SECONDS.children().values():
+        count += child.count
+        total += child.sum
+    return count, total
+
+
+def _source_recv_stall(source):
+    """Seconds the client's stream readers spent waiting on their workers."""
+    diag = getattr(source, "diagnostics", None)
+    if not isinstance(diag, dict):
+        return 0.0
+    return float(sum(w.get("stall_s", 0.0) for w in diag.get("per_worker", {}).values()))
+
+
+def _process_credit_wait():
+    """Worker credit-wait seconds visible in this process's registry (workers
+    running in-process; a remote fleet's are not visible here)."""
+    from petastorm_tpu_torch.telemetry.metrics import WORKER_CREDIT_WAIT
+
+    return float(sum(child.value for child in WORKER_CREDIT_WAIT.children().values()))

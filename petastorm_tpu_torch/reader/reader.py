@@ -50,7 +50,10 @@ from petastorm_tpu_torch.etl.metadata import (
     load_row_groups,
     piece_row_counts,
 )
-from petastorm_tpu_torch.fs_utils import FilesystemResolver
+from petastorm_tpu_torch.fs_utils import (
+    FilesystemResolver,
+    get_filesystem_and_path_or_paths,
+)
 from petastorm_tpu_torch.local_disk_arrow_table_cache import LocalDiskArrowTableCache
 from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.ngram import NGram
@@ -79,9 +82,13 @@ from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 #: Arguments of the JAX package's three factories that the port does not
 #: take, with their JAX defaults: the default is accepted (it asks for
 #: nothing), anything else raises NotImplementedError naming the argument.
-UNPORTED_READER_ARGS = {
-    "hdfs_driver": "libhdfs", "storage_options": None, "filesystem": None,
-    "fast_gcs_listing": True, "piece_indices": None, "dynamic_ventilation": False,
+UNPORTED_READER_ARGS = {"hdfs_driver": "libhdfs", "dynamic_ventilation": False}
+
+#: Where each argument of :data:`UNPORTED_READER_ARGS` would come from.
+_UNPORTED_REASONS = {
+    "hdfs_driver": "hdfs:// needs libhdfs, which this package does not use",
+    "dynamic_ventilation": "it comes with the data service's dynamic sharding "
+                           "(slice (c), with the streaming piece engine)",
 }
 
 
@@ -92,7 +99,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                 cache_type="null", cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
                 transform_spec=None, filters=None, reader_engine=None,
-                resume_state=None, zmq_copy_buffers=True, **unported):
+                resume_state=None, zmq_copy_buffers=True, storage_options=None,
+                filesystem=None, fast_gcs_listing=True, piece_indices=None, **unported):
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
@@ -118,6 +126,13 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     :meth:`Reader.state_dict` of a reader built with the same arguments,
     whose remaining work items this one delivers. ``reader_engine``: only
     the deprecated ``"reader_v1"``, which changes nothing.
+    ``storage_options`` (fsspec keyword arguments), ``filesystem`` (a
+    pyarrow or fsspec filesystem) and ``fast_gcs_listing`` select the
+    filesystem (:class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`).
+    ``piece_indices``: an explicit plan, indices into the row-group pieces
+    left after ``filters`` and the selector (sorted, deduplicated and
+    range-checked, applied before sharding); the data service's workers
+    read their assigned pieces through it.
     """
     _check_unported("make_reader", unported)
     if reader_engine is not None:
@@ -127,7 +142,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
         warnings.warn("reader_engine is deprecated and has no effect; for a faster "
                       "columnar path use make_columnar_reader", DeprecationWarning,
                       stacklevel=2)
-    fs, path, stored_schema = _open_dataset(dataset_url)
+    fs, path, stored_schema = _open_dataset(dataset_url, storage_options, filesystem,
+                                            fast_gcs_listing)
     return Reader(fs, path, schema=stored_schema,
                   reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
                                          PickleSerializer(), zmq_copy_buffers),
@@ -141,7 +157,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                   shard_seed=shard_seed, filters=filters,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings),
-                  resume_state=resume_state)
+                  resume_state=resume_state, piece_indices=piece_indices)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
@@ -152,7 +168,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                          cache_location=None, cache_size_limit=None,
                          cache_row_size_estimate=None, cache_extra_settings=None,
                          transform_spec=None, filters=None, resume_state=None,
-                         zmq_copy_buffers=True, **unported):
+                         zmq_copy_buffers=True, storage_options=None, filesystem=None,
+                         fast_gcs_listing=True, piece_indices=None, **unported):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
     decoded ``[N, ...]`` column arrays, one per work item
     (``batched_output=True``).
@@ -165,7 +182,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_columnar_reader; "
                          "use make_reader")
-    fs, path, stored_schema = _open_dataset(dataset_url)
+    fs, path, stored_schema = _open_dataset(dataset_url, storage_options, filesystem,
+                                            fast_gcs_listing)
     return Reader(fs, path, schema=stored_schema,
                   reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
                                          PickleSerializer(), zmq_copy_buffers),
@@ -179,7 +197,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                   shard_seed=shard_seed, filters=filters,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings),
-                  resume_state=resume_state)
+                  resume_state=resume_state, piece_indices=piece_indices)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type="thread",
@@ -189,7 +207,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       cache_type="null", cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
                       transform_spec=None, filters=None, resume_state=None,
-                      zmq_copy_buffers=True, **unported):
+                      zmq_copy_buffers=True, storage_options=None, filesystem=None,
+                      fast_gcs_listing=True, piece_indices=None, **unported):
     """Batch reader for **plain Parquet** stores (no petastorm metadata
     needed): yields namedtuples of numpy column batches, one per work item
     (``batched_output=True``), under a codec-less schema inferred from the
@@ -210,13 +229,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
         raise ValueError("NGram is not supported by make_batch_reader")
     import pyarrow.dataset as pads
 
-    urls = dataset_url_or_urls if isinstance(dataset_url_or_urls, list) else [dataset_url_or_urls]
-    if not urls:
-        raise ValueError("Empty dataset URL list")
-    resolvers = [FilesystemResolver(url) for url in urls]
-    fs = resolvers[0].filesystem()
-    paths = [r.get_dataset_path() for r in resolvers]
-    path = paths if len(paths) > 1 else paths[0]
+    fs, path = get_filesystem_and_path_or_paths(
+        dataset_url_or_urls, storage_options=storage_options, filesystem=filesystem,
+        fast_gcs_listing=fast_gcs_listing)
+    if isinstance(path, list) and len(path) == 1:
+        path = path[0]
     inferred = Unischema.from_arrow_schema(
         pads.dataset(path, filesystem=fs, format="parquet"), omit_unsupported_fields=True)
     return Reader(fs, path, schema=inferred,
@@ -233,7 +250,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings,
                                     arrow_cache=True),
-                  resume_state=resume_state)
+                  resume_state=resume_state, piece_indices=piece_indices)
 
 
 def _check_unported(factory, unported):
@@ -241,12 +258,14 @@ def _check_unported(factory, unported):
         if name not in UNPORTED_READER_ARGS:
             raise TypeError(f"{factory}() got an unexpected keyword argument {name!r}")
         if value != UNPORTED_READER_ARGS[name]:
-            raise NotImplementedError(f"{factory}({name}=...) is not ported yet")
+            raise NotImplementedError(
+                f"{factory}({name}=...) is not ported yet: {_UNPORTED_REASONS[name]}")
 
 
-def _open_dataset(dataset_url):
+def _open_dataset(dataset_url, storage_options=None, filesystem=None, fast_gcs_listing=False):
     """``(filesystem, path, stored Unischema)`` of a petastorm dataset."""
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
+                                  filesystem=filesystem, fast_gcs_listing=fast_gcs_listing)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     try:
         return fs, path, get_schema(fs, path)
@@ -364,7 +383,8 @@ class Reader:
                  results_queue_reader, schema_fields=None, transform_spec=None,
                  shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
                  rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
-                 shard_seed=None, filters=None, cache=None, resume_state=None):
+                 shard_seed=None, filters=None, cache=None, resume_state=None,
+                 piece_indices=None):
         if predicate is not None and not isinstance(predicate, PredicateBase):
             raise ValueError("predicate must be an instance of PredicateBase")
         if (cur_shard is None) != (shard_count is None):
@@ -401,6 +421,17 @@ class Reader:
             # Without filters, one store's pieces are the canonical list.
             pieces = self._apply_selector(pieces, rowgroup_selector,
                                           pieces if filters is None else None)
+        if piece_indices is not None:
+            # An explicit split plan (the data service's dispatcher hands
+            # these out): indices into the enumeration after filters and
+            # the selector, applied before sharding.
+            piece_indices = sorted(set(int(i) for i in piece_indices))
+            out_of_range = [i for i in piece_indices if not 0 <= i < len(pieces)]
+            if out_of_range:
+                raise ValueError(
+                    f"piece_indices {out_of_range} out of range for the {len(pieces)} "
+                    "row-group pieces this planning config enumerates")
+            pieces = [pieces[i] for i in piece_indices]
         if not pieces:
             raise NoDataAvailableError(
                 "No row groups left after filters/selector — nothing to read")
@@ -428,9 +459,13 @@ class Reader:
                  for drop_partition in range(shuffle_row_drop_partitions)]
         self._num_items = len(items)
         self._shuffle_row_drop_partitions = shuffle_row_drop_partitions
-        # Filters and the selector change which pieces the positional item
-        # keys denote, so they are part of the resume fingerprint.
-        self._planning_repr = repr((filters, rowgroup_selector))
+        # Filters, the selector and an explicit plan change which pieces the
+        # positional item keys denote, so they are part of the resume
+        # fingerprint (the two-element form without a plan, as in the JAX
+        # package, so either package's states resume the other's).
+        self._planning_repr = repr(
+            (filters, rowgroup_selector) if piece_indices is None
+            else (filters, rowgroup_selector, tuple(piece_indices)))
         self._resume_state = resume_state
         iterations, per_item_iterations, prior_counts = num_epochs, None, None
         if resume_state is not None:

@@ -70,6 +70,10 @@ class DeliveryTracker:
 
     def __init__(self, preload=None):
         self._lock = threading.Lock()
+        #: Optional ``fn(key, num_rows)`` called after each delivery is
+        #: recorded, on the thread that consumed it (the service worker
+        #: attributes a stream reader's outputs to their pieces with it).
+        self.on_record = None
         self._counts = dict(preload or {})
         self._log = []  # ordered (key, num_rows) of this run's deliveries
         self._total_rows = 0
@@ -81,6 +85,9 @@ class DeliveryTracker:
             if len(self._log) > self.MAX_LOG_ENTRIES:
                 del self._log[:len(self._log) // 2]
             self._total_rows += num_rows
+        hook = self.on_record
+        if hook is not None:
+            hook(key, num_rows)
 
     def counts(self):
         with self._lock:

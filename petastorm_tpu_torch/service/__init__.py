@@ -1,2 +1,13 @@
-"""Deterministic order for the port's serving paths (the seed tree); the
-data service itself is not ported."""
+"""The data service, its static / fcfs tier (the port's own copy of the
+matching part of ``petastorm_tpu/service/``): a :class:`Dispatcher` owns
+the split plan, :class:`BatchWorker` s serve collated numpy batches over
+framed TCP, and a :class:`ServiceBatchSource` feeds them to a trainer's
+``TorchDataLoader``; the seed tree (:mod:`~petastorm_tpu_torch.service.
+seedtree`) orders pieces deterministically. Run a node with ``python -m
+petastorm_tpu_torch.service dispatcher|worker``."""
+
+from petastorm_tpu_torch.service.client import ServiceBatchSource, ServiceError
+from petastorm_tpu_torch.service.dispatcher import Dispatcher
+from petastorm_tpu_torch.service.worker import BatchWorker
+
+__all__ = ["BatchWorker", "Dispatcher", "ServiceBatchSource", "ServiceError"]

@@ -1,0 +1,1210 @@
+"""Trainer-side client of the data service (the port's own copy of
+``petastorm_tpu/service/client.py``, its static / fcfs tier).
+
+:class:`ServiceBatchSource` is a zero-argument callable returning an
+iterator of ``{field: ndarray}`` batches: the ``batch_source=`` of
+:class:`~petastorm_tpu_torch.torch_utils.loader.TorchDataLoader`, so a
+trainer swaps its local reader for remote workers by changing one argument
+and keeps the loader's staging, prefetch and stall accounting.
+
+Static mode is a multiplexed drain: one reader thread per worker stream
+feeds one bounded ready-queue, and whichever worker is ready is consumed,
+so a slow worker does not hold up batches its peers already sent. Credits
+(``credits=``) bound each worker's unacknowledged batches; the client acks
+one per consumed batch. Streams are tagged (batches carry ``(piece,
+ordinal)``, each piece ends with ``piece_done``): the client keeps a
+per-piece watermark, every re-serve starts each piece at it and a
+sub-watermark arrival is dropped, so delivery is exactly once.
+``ordered=True`` re-sequences delivery into the canonical order (pieces in
+the seed-tree order of the dispatcher's ``shuffle_seed``, batches by
+ordinal), so two runs yield the same batches in the same order.
+
+A broken stream is retried against the same worker with backoff
+(:func:`petastorm_tpu_torch.utils.retry_with_backoff`); a worker that stays
+down is reported to the dispatcher, which re-partitions its pieces across
+the survivors (at-least-once on an untagged stream). fcfs mode pulls one
+split at a time from the dispatcher's shared queue.
+
+:meth:`ServiceBatchSource.state_dict` snapshots the epoch, the completed
+pieces and the watermarks (static mode); ``TorchDataLoader.state_dict()``
+delegates here with the batches it has yielded. What this slice does not
+port raises NotImplementedError naming the argument and the service slice
+that brings it (:data:`UNPORTED_SOURCE_ARGS`).
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import os
+import queue
+import threading
+import time
+import uuid
+
+from petastorm_tpu_torch.reader_impl.framed_socket import (
+    ConnectionClosedError,
+    FramedConnection,
+    ProtocolError,
+)
+from petastorm_tpu_torch.service.seedtree import piece_order
+from petastorm_tpu_torch.telemetry.metrics import (
+    CLIENT_BATCHES,
+    CLIENT_DEDUP_DROPPED,
+    CLIENT_READY_QUEUE_DEPTH,
+    CLIENT_RECOVERY_EVENTS,
+    CLIENT_RECV_STALL,
+    CLIENT_TRANSFORM_SECONDS,
+    CLIENT_WATERMARK_LAG,
+)
+from petastorm_tpu_torch.utils import resize_bounded_queue, retry_with_backoff
+
+logger = logging.getLogger(__name__)
+
+#: ``ServiceBatchSource`` arguments this slice does not take: the value
+#: that asks for nothing, and the slice that ports the feature.
+UNPORTED_SOURCE_ARGS = {
+    "hedging": (False, "hedged re-serves come with the control plane's resilience "
+                       "layer, slice (b)"),
+    "retry_budget": (10.0, "retry budgets come with the control plane's resilience "
+                           "layer, slice (b)"),
+    "breaker_threshold": (5, "circuit breakers come with the control plane's "
+                             "resilience layer, slice (b)"),
+    "breaker_cooldown_s": (5.0, "circuit breakers come with the control plane's "
+                                "resilience layer, slice (b)"),
+    "on_piece_error": ("fail", "poison-piece quarantine comes with the control plane, "
+                               "slice (b)"),
+    "predicate": (None, "the row filter runs inside the streaming engine, slice (c)"),
+    "projection": (None, "column pruning runs inside the streaming engine, slice (c)"),
+    "filter_placement": ("client", "the filter-hoisting rewrite runs inside the "
+                                   "streaming engine, slice (c)"),
+    "stage_fusion": ("off", "stage fusion runs inside the streaming engine, slice (c)"),
+    "cache_placement": ("post-transform", "the cache-placement rewrite runs inside the "
+                                          "streaming engine, slice (c)"),
+    "reader_family": (None, "the row/columnar rewrite runs inside the streaming engine, "
+                            "slice (c)"),
+    "packing": (None, "worker-side sequence packing comes with the LLM stages, "
+                      "slice (f)"),
+    "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
+    "job_id": (None, "jobs and their fair shares come with the fleet, slice (d)"),
+}
+
+
+class ServiceError(RuntimeError):
+    """A non-transient service failure: a dispatcher or worker replied
+    ``error``, or the service cannot make progress."""
+
+
+class _WorkerStream:
+    """One ``stream`` request against one worker. It connects lazily, so
+    every connection failure surfaces from :meth:`next_event`.
+
+    ``credits`` arms flow control; :meth:`add_credit` replenishes.
+    ``auto_replenish=True`` acks each batch on receipt (sequential
+    consumers: fcfs splits, reconnect probes); the multiplexed drain acks
+    from the consumer side. ``tagged=True`` asks for the exactly-once
+    protocol, with ``starts`` as the per-piece watermarks to resume at."""
+
+    def __init__(self, worker_id, address, pieces, epoch, connect_timeout, credits=None,
+                 auto_replenish=False, tagged=False, starts=None, shuffle_seed=None,
+                 transform_placement=None, recv_timeout=None, max_frame_bytes=None):
+        self.worker_id = worker_id
+        self.address = tuple(address)
+        self.pieces = list(pieces)
+        self.epoch = epoch
+        self.credits = credits
+        self.tagged = tagged
+        self.starts = dict(starts or {})
+        self.transform_placement = transform_placement
+        self.shuffle_seed = shuffle_seed
+        #: Tags of the last batch ``next_event`` returned (None untagged).
+        self.last_bid = None
+        self.last_piece = None
+        self.last_ordinal = None
+        self._auto_replenish = auto_replenish
+        self._connect_timeout = connect_timeout
+        self._recv_timeout = recv_timeout
+        self._max_frame_bytes = max_frame_bytes
+        self._conn = None
+        self._closed = False
+
+    def next_event(self):
+        """``("batch", payload)``, ``("piece_done", piece)`` or ``("end",
+        None)``; an ``error`` reply raises :class:`ServiceError` (a
+        retryable one :class:`ConnectionClosedError`)."""
+        if self._closed:
+            # A teardown close is terminal: reconnecting would send the
+            # worker a stream request nobody consumes.
+            raise ConnectionClosedError("stream closed")
+        if self._conn is None:
+            # The dial timeout bounds the dial only: gaps between batches
+            # have no bound (reader construction, cold reads); keepalive
+            # catches a host that died without FIN/RST.
+            self._conn = FramedConnection.connect(
+                self.address, timeout=self._connect_timeout,
+                stream_timeout=self._recv_timeout, keepalive=True,
+                max_frame_bytes=self._max_frame_bytes)
+            if self._closed:
+                self._conn.close()
+                self._conn = None
+                raise ConnectionClosedError("stream closed")
+            request = {"type": "stream", "pieces": self.pieces, "epoch": self.epoch}
+            if self.shuffle_seed is not None:
+                request["shuffle_seed"] = int(self.shuffle_seed)
+            if self.transform_placement is not None:
+                request["transform_placement"] = self.transform_placement
+            if self.tagged:
+                request["tagged"] = True
+                if self.starts:
+                    request["starts"] = {str(p): int(s) for p, s in self.starts.items() if s}
+            if self.credits is not None:
+                request["credits"] = self.credits
+            self._conn.send(request)
+        header, payload = self._conn.recv()
+        kind = header.get("type")
+        if kind == "batch":
+            self.last_bid = header.get("bid")
+            piece, ordinal = header.get("piece"), header.get("ordinal")
+            self.last_piece = int(piece) if piece is not None else None
+            self.last_ordinal = int(ordinal) if ordinal is not None else None
+            if self._auto_replenish:
+                self.add_credit(1)
+            return ("batch", payload)
+        if kind == "piece_done":
+            return ("piece_done", int(header["piece"]))
+        if kind == "end":
+            self.close()
+            return ("end", None)
+        if kind == "error":
+            if header.get("retryable"):
+                raise ConnectionClosedError(
+                    f"worker {self.worker_id} refused stream (retryable): "
+                    f"{header.get('error')}")
+            raise ServiceError(f"worker {self.worker_id} failed streaming pieces "
+                               f"{self.pieces}: {header.get('error')}")
+        raise ServiceError(f"unexpected stream message {kind!r}")
+
+    def next_batch(self):
+        """The next batch, or None at the stream's end (markers skipped)."""
+        while True:
+            kind, payload = self.next_event()
+            if kind == "batch":
+                return payload
+            if kind == "end":
+                return None
+
+    def add_credit(self, n=1):
+        """Replenish ``n`` credits (send only, safe beside the reader
+        thread's ``recv``); a broken socket is left to the receive path."""
+        conn = self._conn
+        if conn is None or self.credits is None:
+            return
+        try:
+            conn.send({"type": "credit", "n": n})
+        except OSError:
+            pass
+
+    def close(self):
+        self._closed = True
+        if self._conn is not None:
+            self._conn.close()
+            self._conn = None
+
+
+class _SourceIterator:
+    """The source's iterator. ``prefetched=True`` says the iteration runs
+    its own producer threads and bounded buffering (the multiplexed
+    drain), so the loader consumes it directly."""
+
+    def __init__(self, gen, prefetched):
+        self._gen = gen
+        self.prefetched = prefetched
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    def close(self):
+        self._gen.close()
+
+
+class _OrderedSequencer:
+    """Reorder buffer of ordered delivery: received batches (and
+    ``piece_done`` markers) go in, and only what is next in the canonical
+    order comes out: the current piece's batches at once, later pieces'
+    buffered until their turn. ``lag`` (the ``client_watermark_lag``
+    gauge) is the buffered batch count; a head-of-line stall can grow it
+    toward the rest of the epoch."""
+
+    def __init__(self, order):
+        self._order = [int(p) for p in order]
+        self._pos = 0
+        self._buffered = {}  # piece -> [items]
+        self._done = {}      # piece -> worker_id
+        self.lag = 0
+
+    def push(self, piece, item):
+        self._buffered.setdefault(piece, []).append(item)
+        self.lag += 1
+        return self._release()
+
+    def finish_piece(self, piece, worker_id):
+        self._done[piece] = worker_id
+        return self._release()
+
+    def _release(self):
+        out = []
+        while self._pos < len(self._order):
+            piece = self._order[self._pos]
+            buffered = self._buffered.get(piece)
+            if buffered:
+                out.extend(("batch", piece, item) for item in buffered)
+                self.lag -= len(buffered)
+                buffered.clear()
+            if piece in self._done:
+                self._buffered.pop(piece, None)
+                out.append(("piece_done", piece, self._done.pop(piece)))
+                self._pos += 1
+                continue
+            break
+        return out
+
+    def drain(self):
+        """Everything still buffered, in order (empty when every piece
+        announced ``piece_done``)."""
+        out = []
+        for piece in self._order[self._pos:] + sorted(
+                set(self._buffered) - set(self._order[self._pos:])):
+            for item in self._buffered.pop(piece, []):
+                out.append(("batch", piece, item))
+                self.lag -= 1
+            if piece in self._done:
+                out.append(("piece_done", piece, self._done.pop(piece)))
+        self._pos = len(self._order)
+        return out
+
+
+class _DeliveryBook:
+    """Consumer-side delivery bookkeeping: production counts, per-worker
+    attribution, tagged batch events (what ``state_dict`` computes
+    watermarks from) and piece completion."""
+
+    def __init__(self, source, epoch):
+        self._source = source
+        self._epoch = epoch
+
+    def account_yielded(self, piece, ordinal, wid, bid):
+        source = self._source
+        with source._lock:
+            source._production_count += 1
+            source._note_consumed_locked(wid)
+            if piece is not None and ordinal is not None:
+                source._batch_events.append(
+                    (source._production_count, self._epoch, piece, ordinal))
+        source.last_bid = bid
+
+    def complete_piece(self, piece, wid):
+        source = self._source
+        with source._lock:
+            if piece in source._completed:
+                return
+            source._completed.add(piece)
+            source._events.append((source._production_count, self._epoch, [piece]))
+            source._note_pieces_locked(wid, 1)
+
+    def emit(self, released):
+        """Yield a sequencer's released batches, completing pieces as
+        their markers come out."""
+        for ev in released:
+            if ev[0] == "batch":
+                _, piece, (ordinal, payload, stream, bid) = ev
+                self.account_yielded(piece, ordinal, stream.worker_id, bid)
+                yield payload
+            else:
+                self.complete_piece(ev[1], ev[2])
+
+
+class _StreamReader(threading.Thread):
+    """One worker stream's receive loop: events go to the shared ready
+    queue as ``(kind, sid, item)``: ``batch`` per payload (with its tags),
+    ``piece_done`` per finished piece, then one terminal ``end``,
+    ``broken`` (a connection failure: retry or takeover) or ``error``
+    (re-raised by the consumer)."""
+
+    def __init__(self, sid, stream, ready, stop, note_recv):
+        super().__init__(daemon=True, name=f"service-stream-{stream.worker_id}")
+        self._sid = sid
+        self._stream = stream
+        self._ready = ready
+        self._stopped = stop  # Thread has a private _stop method
+        self._note_recv = note_recv
+
+    def run(self):
+        try:
+            while not self._stopped.is_set():
+                t0 = time.perf_counter()
+                try:
+                    kind, payload = self._stream.next_event()
+                except (ConnectionError, OSError, ProtocolError) as exc:
+                    # The consumer's teardown close lands here too: the stop
+                    # flag tells it from a real failure.
+                    if not self._stopped.is_set():
+                        self._put(("broken", self._sid, exc))
+                    return
+                self._note_recv(self._stream.worker_id, time.perf_counter() - t0,
+                                kind == "batch")
+                if kind == "end":
+                    self._put(("end", self._sid, None))
+                    return
+                if kind == "piece_done":
+                    self._put((kind, self._sid, payload))
+                    continue
+                self._put(("batch", self._sid,
+                           (payload, self._stream.last_piece, self._stream.last_ordinal,
+                            self._stream.last_bid)))
+        except BaseException as exc:
+            # A reader dying silently would hang the consumer's get().
+            self._put(("error", self._sid, exc))
+
+    def _put(self, event):
+        while not self._stopped.is_set():
+            try:
+                self._ready.put(event, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+
+class ServiceBatchSource:
+    """Stream remote batches from a dispatcher's worker fleet.
+
+    :param dispatcher_address: ``(host, port)`` of the dispatcher.
+    :param client_index, num_clients: this trainer's static shard.
+    :param max_retries, backoff_base, backoff_max: reconnects per failed
+        worker (and dispatcher request retries) before giving up, and the
+        backoff bounds in seconds.
+    :param resume_state: a :meth:`state_dict` of an earlier run (static
+        mode): completed pieces are skipped, and pieces mid-delivery resume
+        at their watermarks.
+    :param credits: per-worker flow-control window (``None``: unbounded).
+    :param ready_queue_depth: bound of the shared ready-queue; ``None``
+        derives ``max(4, min(streams × credits, 256))`` (``max(4, 2 ×
+        streams)`` without credits). Settable while a drain runs.
+    :param heartbeat_interval_s: accepted for the JAX signature; the client
+        heartbeat (fencing resyncs, trace arming) comes with slice (b), so
+        this client sees fencing changes through ``stale_fencing`` replies.
+    :param rpc_deadline_s: time budget per dispatcher request.
+    :param max_frame_bytes: receive frame cap of this client's connections.
+    :param ordered: deterministic delivery order (static mode).
+    :param transform: the batch transform, the same callable the workers
+        were given (``BatchWorker(batch_transform=...)``);
+        ``transform_placement`` says where it runs: ``"remote"`` (the
+        workers) or ``"local"`` (here, timed into
+        ``petastorm_service_client_transform_seconds``). Frozen per
+        iteration.
+    :param stream_recv_timeout_s: a hard deadline on each stream ``recv``
+        (``None``: none; keepalive bounds a silent host).
+    :param transport: ``"auto"``, ``"tcp"`` or ``None``
+        (``$PETASTORM_TRANSPORT``); both are TCP (``"shm"`` raises).
+
+    The arguments of :data:`UNPORTED_SOURCE_ARGS` given anything but their
+    default raise NotImplementedError naming the argument and its slice.
+    """
+
+    def __init__(self, dispatcher_address, client_index=0, num_clients=1, client_id=None,
+                 connect_timeout=10.0, max_retries=3, backoff_base=0.05, backoff_max=2.0,
+                 resume_state=None, credits=8, ready_queue_depth=None,
+                 heartbeat_interval_s=2.0, rpc_deadline_s=30.0, max_frame_bytes=None,
+                 dynamic_sync_interval_s=0.25, ordered=False, transform=None,
+                 transform_placement="remote", job_id=None, on_piece_error="fail",
+                 stream_recv_timeout_s=None, packing=None, corpus="", predicate=None,
+                 projection=None, filter_placement="client", stage_fusion="off",
+                 cache_placement="post-transform", reader_family=None, transport=None,
+                 hedging=False, hedge_quantile=0.99, hedge_multiplier=4.0,
+                 hedge_min_samples=16, hedge_floor_s=0.25, breaker_threshold=5,
+                 breaker_cooldown_s=5.0, retry_budget=10.0):
+        from petastorm_tpu_torch.service.transport import resolve_mode
+
+        given = {"hedging": bool(hedging), "retry_budget": float(retry_budget),
+                 "breaker_threshold": int(breaker_threshold),
+                 "breaker_cooldown_s": float(breaker_cooldown_s),
+                 "on_piece_error": on_piece_error, "predicate": predicate,
+                 "projection": projection or None, "filter_placement": filter_placement,
+                 "stage_fusion": stage_fusion, "cache_placement": cache_placement,
+                 "reader_family": reader_family, "packing": packing,
+                 "corpus": corpus or "", "job_id": job_id}
+        for name, value in given.items():
+            default, reason = UNPORTED_SOURCE_ARGS[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"ServiceBatchSource({name}=...) is not ported yet: {reason}")
+        resolve_mode(transport)  # "auto" and "tcp" are TCP; "shm" raises
+        if credits is not None and credits < 1:
+            raise ValueError("credits must be a positive integer or None")
+        if ready_queue_depth is not None and ready_queue_depth < 1:
+            raise ValueError("ready_queue_depth must be a positive integer or None")
+        if transform_placement not in ("remote", "local"):
+            raise ValueError("transform_placement must be 'remote' or 'local'")
+        if transform is None and transform_placement == "local":
+            raise ValueError(
+                "transform_placement='local' needs the transform callable: workers are "
+                "told to skip their batch_transform, so without one here the stage would "
+                "silently not run at all")
+        self._dispatcher_address = tuple(dispatcher_address)
+        self.client_index = client_index
+        self.num_clients = num_clients
+        self.client_id = client_id or (
+            f"client-{client_index}-{os.getpid()}-{uuid.uuid4().hex[:6]}")
+        self._connect_timeout = connect_timeout
+        self._max_retries = max_retries
+        self._backoff_base = backoff_base
+        self._backoff_max = backoff_max
+        self._credits = credits
+        self._ready_queue_depth = ready_queue_depth
+        self.transform = transform
+        self._transform_placement = transform_placement
+        self._iter_transform_placement = transform_placement if transform is not None else None
+        self._rpc_deadline_s = rpc_deadline_s
+        self._max_frame_bytes = max_frame_bytes
+        self._stream_recv_timeout_s = stream_recv_timeout_s
+        self._ordered = bool(ordered)
+        self._shuffle_seed = None     # the dispatcher's, read at __call__
+        self._ready_queue = None      # the live queue while a drain runs
+        self._live_stream_count = 1
+        self._per_worker = {}         # worker_id -> delivery counters
+        self._lock = threading.Lock()
+        #: Batch id of the most recently yielded batch.
+        self.last_bid = None
+        self._mode = None
+        self._epoch = 0
+        self._completed = set()
+        self._synced_fencing_epoch = 0
+        self._recovery = {
+            "streams_retired": 0, "takeovers": 0, "stale_fencing_retries": 0,
+            "duplicates_dropped": 0,  # sub-watermark batches a re-serve repeated
+            "fencing_epoch": 0,       # the last fencing epoch a reply carried
+        }
+        #: Per-piece delivery watermarks of the epoch in flight: the next
+        #: ordinal expected from the network; every re-serve starts there.
+        self._recv_watermarks = {}
+        self._resume_watermarks = {}
+        self._retry_sleep = time.sleep
+        if resume_state is not None:
+            self._validate_resume_state(resume_state)
+            self._epoch = int(resume_state["epoch"])
+            self._completed = set(int(p) for p in resume_state["completed_pieces"])
+            self._resume_watermarks = {
+                int(p): int(n) for p, n in (resume_state.get("watermarks") or {}).items()}
+            self._resume_seed = resume_state.get("shuffle_seed")
+            self._resume_has_seed = "shuffle_seed" in resume_state
+        self._resumed = resume_state is not None
+        # Production-order bookkeeping: the n-th produced batch is the n-th
+        # the consumer yields, so events stamped with production counts let
+        # a snapshot describe what the trainer has seen.
+        self._production_count = 0
+        self._events = []        # (production_count, epoch, [pieces])
+        self._batch_events = []  # (production_count, epoch, piece, ordinal)
+        self._epoch_starts = [(0, self._epoch, set(self._completed),
+                               dict(self._resume_watermarks))]
+
+    def _recovery_inc(self, event, n=1):
+        """Bump a recovery counter in ``diagnostics`` and the registry.
+        Callers hold ``_lock``."""
+        self._recovery[event] += n
+        CLIENT_RECOVERY_EVENTS.labels(event).inc(n)
+
+    def _dispatcher_request(self, header, retries=None):
+        """One request / reply with the dispatcher under the retry policy:
+        connection failures retry, an ``error`` reply raises
+        :class:`ServiceError` at once."""
+        if "trace" not in header:
+            header = dict(header, trace={"peer": self.client_id})
+
+        def once():
+            with FramedConnection.connect(self._dispatcher_address,
+                                          timeout=self._connect_timeout,
+                                          max_frame_bytes=self._max_frame_bytes) as conn:
+                reply, _ = conn.request(header)
+            if reply.get("type") == "error":
+                if reply.get("retryable"):
+                    raise OSError(reply.get("error", "dispatcher degraded"))
+                raise ServiceError(reply.get("error", "dispatcher error"))
+            return reply
+
+        reply = retry_with_backoff(
+            once, retries=self._max_retries if retries is None else retries,
+            base_delay=self._backoff_base, max_delay=self._backoff_max,
+            retry_on=(OSError, ProtocolError), no_retry_on=(ServiceError,),
+            deadline_s=self._rpc_deadline_s,
+            description=f"dispatcher request {header.get('type')!r}")
+        if "fencing_epoch" in reply:
+            with self._lock:
+                self._recovery["fencing_epoch"] = max(self._recovery["fencing_epoch"],
+                                                      int(reply["fencing_epoch"]))
+        return reply
+
+    # -- runtime knobs (the autotuner's bindings) ----------------------------
+
+    @property
+    def credits(self):
+        """The per-worker flow-control window in force."""
+        return self._credits
+
+    def set_credits(self, credits):
+        """Set the credit window for streams opened after the call (a live
+        stream keeps the window of its request); a derived ready-queue
+        bound follows it at once."""
+        if credits is not None and credits < 1:
+            raise ValueError("credits must be a positive integer or None")
+        with self._lock:
+            self._credits = credits
+            ready, streams = self._ready_queue, self._live_stream_count
+        if self._ready_queue_depth is None and ready is not None:
+            resize_bounded_queue(ready, self._derived_ready_depth(streams))
+
+    @property
+    def ready_queue_depth(self):
+        """The ready-queue bound (pinned, or derived from the streams)."""
+        if self._ready_queue_depth is not None:
+            return self._ready_queue_depth
+        with self._lock:
+            ready = self._ready_queue
+        return ready.maxsize if ready is not None else self._derived_ready_depth(1)
+
+    def set_ready_queue_depth(self, depth):
+        """Pin (and resize while it runs) the ready-queue bound."""
+        if depth is not None and depth < 1:
+            raise ValueError("ready_queue_depth must be a positive integer or None")
+        with self._lock:
+            self._ready_queue_depth = depth
+            ready, streams = self._ready_queue, self._live_stream_count
+        if ready is not None:
+            resize_bounded_queue(ready, depth if depth is not None
+                                 else self._derived_ready_depth(streams))
+
+    @property
+    def transform_placement(self):
+        """Where the batch transform runs from the next iteration on."""
+        return self._transform_placement
+
+    def set_transform_placement(self, placement):
+        """Move the batch transform between the workers (``"remote"``) and
+        this host (``"local"``), from the next iteration on."""
+        if placement not in ("remote", "local"):
+            raise ValueError("transform_placement must be 'remote' or 'local'")
+        if placement == "local" and self.transform is None:
+            raise ValueError("transform_placement='local' needs the transform callable")
+        self._transform_placement = placement
+
+    def _derived_ready_depth(self, streams):
+        streams = max(1, int(streams))
+        if self._credits is not None:
+            return max(4, min(streams * self._credits, 256))
+        return max(4, 2 * streams)
+
+    def _apply_transform_local(self, inner):
+        transform = self.transform
+        try:
+            for batch in inner:
+                t0 = time.perf_counter()
+                batch = transform(batch)
+                CLIENT_TRANSFORM_SECONDS.observe(time.perf_counter() - t0)
+                yield batch
+        finally:
+            close = getattr(inner, "close", None)
+            if callable(close):
+                close()
+
+    def _stream(self, wid, address, pieces, epoch, starts, tagged=True,
+                auto_replenish=False):
+        return _WorkerStream(wid, address, pieces, epoch, self._connect_timeout,
+                             credits=self._credits, auto_replenish=auto_replenish,
+                             tagged=tagged, starts=starts, shuffle_seed=self._shuffle_seed,
+                             transform_placement=self._iter_transform_placement,
+                             recv_timeout=self._stream_recv_timeout_s,
+                             max_frame_bytes=self._max_frame_bytes)
+
+    # -- the batch_source contract ----------------------------------------
+
+    def __call__(self):
+        info = self._dispatcher_request({"type": "list_workers"})
+        with self._lock:
+            self._mode = info["mode"]
+            self._shuffle_seed = info.get("shuffle_seed")
+            # A fresh iteration: the consumer's batch count restarts.
+            self._production_count = 0
+            self._events = []
+            self._batch_events = []
+            self._epoch_starts = [(0, self._epoch, set(self._completed),
+                                   dict(self._resume_watermarks))]
+            self._per_worker = {}
+        if self._resumed and getattr(self, "_resume_has_seed", False) \
+                and self._resume_seed != self._shuffle_seed:
+            logger.warning("resume_state was saved under shuffle_seed=%r but the dispatcher "
+                           "runs %r — delivery stays exactly-once, but the resumed order "
+                           "will not equal the original run's", self._resume_seed,
+                           self._shuffle_seed)
+        if info["mode"] not in ("static", "fcfs"):
+            raise NotImplementedError(
+                f"the dispatcher runs mode {info['mode']!r}: dynamic sharding comes with "
+                "the data service's slice (c)")
+        if self._ordered and info["mode"] == "fcfs":
+            raise ValueError(
+                "ordered delivery requires static or dynamic sharding: fcfs hands splits "
+                "out first-come-first-served, so no canonical piece order exists to "
+                "sequence against")
+        self._iter_transform_placement = (self._transform_placement
+                                          if self.transform is not None else None)
+        local = self._iter_transform_placement == "local"
+
+        def wrap(it):
+            return self._apply_transform_local(it) if local else it
+
+        if info["mode"] == "static":
+            return _SourceIterator(wrap(self._iter_static(info)), prefetched=True)
+        if self._resumed:
+            raise ValueError(
+                "resume_state was supplied but the dispatcher is in fcfs mode: fcfs has no "
+                "per-client resumable position, so the snapshot's completed pieces cannot "
+                "be skipped — silently re-streaming everything would duplicate trained "
+                "data. Run the dispatcher in static mode to resume")
+        return _SourceIterator(wrap(self._iter_fcfs(info)), prefetched=False)
+
+    # -- static mode -------------------------------------------------------
+
+    def _iter_static(self, info):
+        num_epochs, epoch, first = info["num_epochs"], self._epoch, True
+        while num_epochs is None or epoch < num_epochs:
+            reply = self._fetch_assignment(epoch)
+            if not reply["assignments"] and num_epochs is None:
+                logger.warning("empty static shard and num_epochs is None — ending the "
+                               "stream (prefer num_clients <= row-group count)")
+                return
+            with self._lock:
+                skip = set(self._completed)
+                # A resumed first epoch starts mid-piece at the snapshot's
+                # watermarks; later epochs start clean.
+                self._recv_watermarks = dict(self._resume_watermarks) if first else {}
+                starts = dict(self._recv_watermarks)
+            first = False
+            streams, pending_all = {}, []
+            for wid, pieces in reply["assignments"].items():
+                pending = [p for p in pieces if p not in skip]
+                if pending:
+                    pending_all.extend(pending)
+                    streams[len(streams)] = self._stream(
+                        wid, reply["workers"][wid], pending, epoch,
+                        {p: starts.get(p, 0) for p in pending})
+            sequencer = (_OrderedSequencer(piece_order(self._shuffle_seed, epoch, pending_all))
+                         if self._ordered else None)
+            yield from self._drain_streams(streams, epoch, sequencer)
+            epoch += 1
+            with self._lock:
+                self._roll_epoch_locked(epoch)
+
+    def _request_assignment(self, epoch):
+        return self._dispatcher_request({
+            "type": "get_assignment", "client_id": self.client_id,
+            "client_index": self.client_index, "num_clients": self.num_clients,
+            "epoch": epoch})
+
+    def _fetch_assignment(self, epoch):
+        """The assignment for ``epoch``, with the fencing epoch it was
+        computed at as the one this client acts under."""
+        reply = self._request_assignment(epoch)
+        with self._lock:
+            self._synced_fencing_epoch = int(reply.get("fencing_epoch", 0))
+        return reply
+
+    def _drain_streams(self, streams, epoch, sequencer=None):
+        """The multiplexed drain (see the module docstring). Accounting
+        happens on the consumer side of the queue, where events of one
+        stream arrive in order; credits are acked on dequeue, also in
+        ordered mode, where the batch may only be buffered; a broken
+        stream recovers on a helper thread (retry, then takeover), so the
+        consumer keeps yielding the survivors' batches meanwhile."""
+        if not streams:
+            return
+        depth = (self._ready_queue_depth if self._ready_queue_depth is not None
+                 else self._derived_ready_depth(len(streams)))
+        ready = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        readers = []
+        sid_counter = itertools.count(max(streams) + 1)
+        with self._lock:
+            self._ready_queue = ready
+            self._live_stream_count = len(streams)
+
+        def launch(sid, stream):
+            streams[sid] = stream
+            with self._lock:
+                self._live_stream_count = len(streams)
+            reader = _StreamReader(sid, stream, ready, stop, self._note_stream_recv)
+            readers.append(reader)
+            reader.start()
+
+        def post(event):
+            while not stop.is_set():
+                try:
+                    ready.put(event, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def recover(broken):
+            try:
+                replacement = self._retry_stream(broken)
+                fresh = [replacement] if replacement is not None else self._reassign(broken)
+            except BaseException as exc:
+                post(("error", None, exc))
+                return
+            if not post(("recovered", None, fresh)):
+                for stream in fresh:  # the drain was torn down meanwhile
+                    stream.close()
+
+        book = _DeliveryBook(self, epoch)
+        try:
+            for sid, stream in list(streams.items()):
+                launch(sid, stream)
+            active, recovering = set(streams), 0
+            while active or recovering:
+                kind, sid, item = ready.get()
+                if kind == "batch":
+                    batch, piece, ordinal, bid = item
+                    stream = streams[sid]
+                    # Ack before yielding: the worker refills its window while
+                    # the trainer computes on this batch.
+                    stream.add_credit(1)
+                    if piece is not None and ordinal is not None:
+                        with self._lock:
+                            duplicate = ordinal < self._recv_watermarks.get(piece, 0)
+                            if duplicate:
+                                self._recovery_inc("duplicates_dropped")
+                            else:
+                                self._recv_watermarks[piece] = ordinal + 1
+                        if duplicate:
+                            CLIENT_DEDUP_DROPPED.labels("takeover").inc()
+                            continue
+                    elif sequencer is not None:
+                        raise ServiceError(
+                            "ordered delivery needs the tagged stream protocol, but worker "
+                            f"{stream.worker_id} sent an untagged batch")
+                    CLIENT_READY_QUEUE_DEPTH.set(ready.qsize())
+                    if sequencer is not None:
+                        released = sequencer.push(piece, (ordinal, batch, stream, bid))
+                        CLIENT_WATERMARK_LAG.set(sequencer.lag)
+                        yield from book.emit(released)
+                    else:
+                        book.account_yielded(piece, ordinal, stream.worker_id, bid)
+                        yield batch
+                elif kind == "piece_done":
+                    stream = streams.get(sid)
+                    if stream is None:
+                        continue
+                    if sequencer is not None:
+                        released = sequencer.finish_piece(int(item), stream.worker_id)
+                        CLIENT_WATERMARK_LAG.set(sequencer.lag)
+                        yield from book.emit(released)
+                    else:
+                        book.complete_piece(int(item), stream.worker_id)
+                elif kind == "end":
+                    stream = streams.pop(sid)
+                    with self._lock:
+                        # An untagged stream completes its pieces here, at
+                        # stream granularity. Not in ordered mode: its
+                        # markers complete when the sequencer releases them.
+                        pending = ([] if sequencer is not None
+                                   else [p for p in stream.pieces if p not in self._completed])
+                        if pending:
+                            self._completed.update(pending)
+                            self._events.append((self._production_count, epoch,
+                                                 sorted(pending)))
+                            self._note_pieces_locked(stream.worker_id, len(pending))
+                    active.discard(sid)
+                elif kind == "error":
+                    raise item
+                elif kind == "recovered":
+                    recovering -= 1
+                    for new_stream in item:
+                        new_sid = next(sid_counter)
+                        active.add(new_sid)
+                        launch(new_sid, new_stream)
+                else:  # "broken": recover on a helper thread, keep draining
+                    stream = streams.pop(sid)
+                    active.discard(sid)
+                    recovering += 1
+                    threading.Thread(target=recover, args=(stream,), daemon=True,
+                                     name=f"service-recover-{stream.worker_id}").start()
+            if sequencer is not None:
+                # Every piece_done should have cleared the sequencer; flush
+                # what a lost marker stranded.
+                yield from book.emit(sequencer.drain())
+        finally:
+            stop.set()
+            CLIENT_WATERMARK_LAG.set(0)
+            # Closing the sockets unblocks readers parked in recv; the stop
+            # flag, those parked on a full queue.
+            for stream in streams.values():
+                stream.close()
+            with self._lock:
+                self._ready_queue = None
+            for reader in readers:
+                reader.join(timeout=5)
+
+    def _note_stream_recv(self, worker_id, stall_s, got_batch):
+        """Reader-thread callback: seconds blocked waiting on the worker,
+        and one more batch held here."""
+        CLIENT_RECV_STALL.labels(worker_id).inc(stall_s)
+        with self._lock:
+            counters = self._per_worker.setdefault(
+                worker_id, {"batches": 0, "stall_s": 0.0, "inflight": 0})
+            counters["stall_s"] += stall_s
+            if got_batch:
+                counters["inflight"] += 1
+
+    def _roll_epoch_locked(self, epoch):
+        """Start the next epoch's delivery state; per-batch snapshot events
+        older than the epoch just finished are pruned."""
+        self._completed = set()
+        self._recv_watermarks = {}
+        self._resume_watermarks = {}
+        self._epoch = epoch
+        self._epoch_starts.append((self._production_count, epoch, set(), {}))
+        self._batch_events = [e for e in self._batch_events if e[1] >= epoch - 1]
+
+    def _note_consumed_locked(self, worker_id):
+        CLIENT_BATCHES.labels(worker_id).inc()
+        counters = self._per_worker.setdefault(
+            worker_id, {"batches": 0, "stall_s": 0.0, "inflight": 0})
+        counters["batches"] += 1
+        counters["inflight"] = max(0, counters["inflight"] - 1)
+
+    def _note_pieces_locked(self, worker_id, n):
+        counters = self._per_worker.setdefault(
+            worker_id, {"batches": 0, "stall_s": 0.0, "inflight": 0})
+        counters["pieces"] = counters.get("pieces", 0) + n
+
+    def _pending_and_starts(self, pieces):
+        """The not yet completed subset of ``pieces`` and their watermarks:
+        what every re-serve re-grants."""
+        with self._lock:
+            pending = [p for p in pieces if p not in self._completed]
+            starts = {p: self._recv_watermarks.get(p, 0) for p in pending}
+        return pending, starts
+
+    def _retry_stream(self, stream):
+        """Reconnect to the same worker and resume its pending pieces at
+        their watermarks; None when it stays unreachable."""
+        stream.close()
+        pending, starts = self._pending_and_starts(stream.pieces)
+        if not pending:
+            return _EndedStream(stream)
+
+        def attempt():
+            fresh = self._stream(stream.worker_id, stream.address, pending, stream.epoch,
+                                 starts)
+            try:
+                event = fresh.next_event()  # forces the connect and a first reply
+            except BaseException:
+                fresh.close()
+                raise
+            return fresh, event
+
+        try:
+            fresh, event = retry_with_backoff(
+                attempt, retries=self._max_retries, base_delay=self._backoff_base,
+                max_delay=self._backoff_max, retry_on=(OSError, ProtocolError),
+                no_retry_on=(ServiceError,),
+                description=f"reconnect to worker {stream.worker_id}")
+        except (OSError, ProtocolError):
+            return None
+        if event[0] == "end":
+            return _EndedStream(fresh)
+        return _BufferedStream(fresh, event)
+
+    def _reassign(self, stream):
+        """Report ``stream``'s worker dead and return streams for its
+        pending pieces on the survivors the dispatcher names, each piece at
+        its watermark. A ``stale_fencing`` reply (the plan moved since this
+        client fetched it) re-fetches the assignment and routes the broken
+        pieces by it."""
+        pending, starts = self._pending_and_starts(stream.pieces)
+        logger.warning("worker %s unreachable after %d attempts; requesting re-assignment "
+                       "of %d pieces", stream.worker_id, self._max_retries + 1, len(pending))
+        with self._lock:
+            token = self._synced_fencing_epoch
+        reply = self._dispatcher_request({
+            "type": "report_failure", "client_id": self.client_id,
+            "worker_id": stream.worker_id, "pieces": pending, "fencing_epoch": token})
+        if reply.get("type") == "stale_fencing":
+            with self._lock:
+                self._recovery_inc("stale_fencing_retries")
+            fresh = self._request_assignment(stream.epoch)
+            broken = set(pending)
+            assignments = {wid: [p for p in pieces if p in broken]
+                           for wid, pieces in fresh["assignments"].items()}
+            reply = {"assignments": {wid: ps for wid, ps in assignments.items() if ps},
+                     "workers": fresh["workers"]}
+        with self._lock:
+            self._recovery_inc("takeovers")
+        return [self._stream(wid, reply["workers"][wid],
+                             piece_order(self._shuffle_seed, stream.epoch, pieces),
+                             stream.epoch, {p: starts.get(p, 0) for p in pieces})
+                for wid, pieces in reply["assignments"].items()]
+
+    # -- fcfs mode ---------------------------------------------------------
+
+    def _list_workers(self):
+        reply = self._dispatcher_request({"type": "list_workers"})
+        return {wid: tuple(addr) for wid, addr in reply["workers"].items()}
+
+    def _iter_fcfs(self, info):
+        workers = {wid: tuple(addr) for wid, addr in info["workers"].items()}
+        rr_counter = 0
+        while True:
+            reply = self._dispatcher_request({"type": "next_split",
+                                              "client_id": self.client_id})
+            if reply["type"] == "end_of_stream":
+                return
+            piece, epoch = reply["piece"], reply["epoch"]
+            refreshed = False
+            while True:
+                if not workers:
+                    # The local fleet view drained: replacements may have
+                    # registered since.
+                    workers = self._list_workers()
+                    refreshed = True
+                    if not workers:
+                        raise ServiceError(f"no worker could serve split {piece} — no "
+                                           "live workers registered")
+                candidates = sorted(workers)
+                start = rr_counter % len(candidates)
+                rr_counter += 1
+                served = False
+                for wid in candidates[start:] + candidates[:start]:
+                    served = yield from self._serve_split_with_retries(
+                        wid, workers[wid], piece, epoch)
+                    if served:
+                        break
+                    # Unreachable through the retries: report it and serve
+                    # the piece elsewhere, from its start (at-least-once).
+                    workers.pop(wid, None)
+                    try:
+                        self._dispatcher_request({"type": "report_failure",
+                                                  "client_id": self.client_id,
+                                                  "worker_id": wid, "pieces": []})
+                    except ServiceError:
+                        pass
+                if served:
+                    break
+                if refreshed and not workers:
+                    raise ServiceError(f"no worker could serve split {piece} — all "
+                                       "workers unreachable")
+
+    def _serve_split_with_retries(self, wid, address, piece, epoch):
+        """Yield one split's batches from one worker, retrying connection
+        failures on :func:`~petastorm_tpu_torch.utils.backoff_delays` (a
+        retry restarts the piece). True when the split was served, False
+        when the worker stayed unreachable."""
+        from petastorm_tpu_torch.utils import backoff_delays
+
+        delays = backoff_delays(self._max_retries, self._backoff_base, self._backoff_max)
+        for attempt in range(self._max_retries + 1):
+            # Sequential consumption: receive is consume, so each batch is
+            # acked on arrival.
+            stream = self._stream(wid, address, [piece], epoch, None, tagged=False,
+                                  auto_replenish=True)
+            try:
+                yield from self._drain_one(stream)
+                return True
+            except (ConnectionError, OSError, ProtocolError) as exc:
+                if attempt == self._max_retries:
+                    return False
+                sleep_s = next(delays)
+                logger.warning("split %s failed on worker %s (%s); retry %d/%d in %.2fs",
+                               piece, wid, exc, attempt + 1, self._max_retries, sleep_s)
+                self._retry_sleep(sleep_s)
+        return False
+
+    def _drain_one(self, stream):
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = stream.next_batch()
+                self._note_stream_recv(stream.worker_id, time.perf_counter() - t0,
+                                       batch is not None)
+                if batch is None:
+                    return
+                with self._lock:
+                    self._note_consumed_locked(stream.worker_id)
+                self.last_bid = stream.last_bid
+                yield batch
+        finally:
+            stream.close()
+
+    # -- checkpoint / diagnostics -----------------------------------------
+
+    def state_dict(self, yielded_batches=None):
+        """The resumable position (static mode): the epoch in progress, the
+        pieces fully yielded and the watermarks of pieces mid-delivery, as
+        of the ``yielded_batches``-th batch (default: every batch produced),
+        so batches a consumer holds in its prefetch queues are re-served on
+        resume and none twice. With ``ordered=True`` and the same
+        dispatcher seed the resumed stream continues the original's order.
+        fcfs mode has no resumable position and raises ValueError."""
+        with self._lock:
+            if self._mode == "fcfs":
+                raise ValueError(
+                    "state_dict is not supported in fcfs mode: splits are handed out "
+                    "first-come-first-served, so a client has no deterministic resumable "
+                    "position — use static sharding for resumable training")
+            count = (self._production_count if yielded_batches is None
+                     else min(int(yielded_batches), self._production_count))
+            epoch, base, base_marks = self._epoch_starts[0][1:]
+            for start_count, start_epoch, start_base, start_marks in self._epoch_starts:
+                if start_count <= count:
+                    epoch, base, base_marks = start_epoch, start_base, start_marks
+            completed = set(base)
+            completed.update(piece for event_count, event_epoch, pieces in self._events
+                             if event_epoch == epoch and event_count <= count
+                             for piece in pieces)
+            watermarks = dict(base_marks)
+            for event_count, event_epoch, piece, ordinal in self._batch_events:
+                if event_epoch == epoch and event_count <= count \
+                        and ordinal + 1 > watermarks.get(piece, 0):
+                    watermarks[piece] = ordinal + 1
+            return {
+                "version": 2,
+                "mode": "static",
+                "client_index": self.client_index,
+                "num_clients": self.num_clients,
+                "epoch": epoch,
+                "completed_pieces": sorted(completed),
+                "watermarks": {str(p): n for p, n in sorted(watermarks.items())
+                               if n and p not in completed},
+                "shuffle_seed": self._shuffle_seed,
+                "ordered": self._ordered,
+                # The JAX package's keys for worker-side packing and a
+                # hoisted filter, neither of which this slice runs.
+                "packing": None,
+                "filter": None,
+            }
+
+    def _validate_resume_state(self, state):
+        if state.get("version") not in (1, 2):
+            raise ValueError(f"Unsupported resume_state version {state.get('version')!r}")
+        if state.get("mode") not in ("static", "dynamic"):
+            raise ValueError("resume_state requires static or dynamic sharding mode")
+        for key in ("client_index", "num_clients"):
+            if state.get(key) != getattr(self, key):
+                raise ValueError(f"resume_state mismatch on {key!r}: checkpoint has "
+                                 f"{state.get(key)!r}, this client has "
+                                 f"{getattr(self, key)!r}")
+        for key in ("packing", "filter"):
+            if state.get(key) is not None:
+                raise ValueError(
+                    f"resume_state was taken under {key}={state.get(key)!r}: its "
+                    "watermarks number batches this source does not produce (worker-side "
+                    "packing and the hoisted filter come with later service slices)")
+
+    @property
+    def diagnostics(self):
+        """Client-side delivery counters: ``ready_queue_depth`` /
+        ``ready_queue_capacity`` (0 / 0 outside a drain),
+        ``credits_window``, ``transform_placement``, ``epoch_starts``
+        (``[produced batch count, epoch]``), ``per_worker`` (``batches``
+        consumed, ``stall_s`` blocked waiting on the worker,
+        ``credits_outstanding``, ``pieces``) and ``recovery`` (takeovers,
+        stale-fencing retries, duplicates dropped, the last fencing epoch
+        seen)."""
+        with self._lock:
+            ready = self._ready_queue
+            return {
+                "ready_queue_depth": ready.qsize() if ready is not None else 0,
+                "ready_queue_capacity": ready.maxsize if ready is not None else 0,
+                "credits_window": self._credits,
+                "transform_placement": self._iter_transform_placement,
+                "epoch_starts": [[count, epoch] for count, epoch, *_ in self._epoch_starts],
+                "per_worker": {
+                    wid: {"batches": c["batches"], "stall_s": round(c["stall_s"], 3),
+                          "credits_outstanding": c["inflight"], "pieces": c.get("pieces", 0)}
+                    for wid, c in self._per_worker.items()},
+                "recovery": dict(self._recovery),
+            }
+
+    def remote_diagnostics(self):
+        """Each live worker's ``diagnostics`` (its streams' reader
+        diagnostics and flow state)."""
+        info = self._dispatcher_request({"type": "list_workers"})
+        out = {}
+        for wid, addr in info["workers"].items():
+            try:
+                with FramedConnection.connect(tuple(addr),
+                                              timeout=self._connect_timeout) as conn:
+                    _, payload = conn.request({"type": "diagnostics"})
+                out[wid] = payload
+            except OSError as exc:
+                out[wid] = {"error": f"unreachable: {exc}"}
+        return out
+
+    def dispatcher_status(self):
+        """The dispatcher's control-plane snapshot."""
+        return self._dispatcher_request({"type": "status"})
+
+
+class _BufferedStream:
+    """A stream whose first event the reconnect probe already pulled: it
+    hands that event back first, then proxies."""
+
+    def __init__(self, stream, first_event):
+        self._stream = stream
+        self._first = first_event
+        self.worker_id = stream.worker_id
+        self.address = stream.address
+        self.pieces = stream.pieces
+        self.epoch = stream.epoch
+        self.credits = stream.credits
+        self.last_bid = stream.last_bid
+        self.last_piece = stream.last_piece
+        self.last_ordinal = stream.last_ordinal
+
+    def next_event(self):
+        if self._first is not None:
+            event, self._first = self._first, None
+            return event
+        event = self._stream.next_event()
+        self.last_bid = self._stream.last_bid
+        self.last_piece = self._stream.last_piece
+        self.last_ordinal = self._stream.last_ordinal
+        return event
+
+    def add_credit(self, n=1):
+        self._stream.add_credit(n)
+
+    def close(self):
+        self._stream.close()
+
+
+class _EndedStream:
+    """A stream that ended during the reconnect probe, or had nothing left
+    to re-serve."""
+
+    def __init__(self, stream):
+        self.worker_id = stream.worker_id
+        self.address = stream.address
+        self.pieces = stream.pieces
+        self.epoch = stream.epoch
+        self.credits = stream.credits
+        self.last_bid = self.last_piece = self.last_ordinal = None
+
+    def next_event(self):
+        return ("end", None)
+
+    def add_credit(self, n=1):
+        pass
+
+    def close(self):
+        pass

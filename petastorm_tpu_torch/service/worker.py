@@ -1,0 +1,650 @@
+"""Batch workers: the data plane of the data service (the port's own copy
+of ``petastorm_tpu/service/worker.py``, its static / fcfs tier).
+
+A worker wraps the local input pipeline, a ``make_reader``-family reader
+plus collation (:mod:`petastorm_tpu_torch.torch_utils.batcher`), and serves
+numpy batch dicts over framed TCP (:mod:`petastorm_tpu_torch.reader_impl.
+framed_socket`). It never touches a CUDA device. Each ``stream`` request
+names row-group piece indices (the dispatcher's plan); the worker reads
+them through one reader built with ``piece_indices=`` and sends one
+``batch`` message per collated batch, then ``end`` with the row total.
+
+Two serving forms, as in the JAX package:
+
+- **tagged** (the static client's exactly-once protocol): batches are
+  piece-aligned (a ragged tail per piece), each carries its ``piece`` and
+  absolute ``ordinal``, and each finished piece is announced with a
+  ``piece_done`` frame. ``starts`` (piece → first ordinal to send, the
+  client's delivery watermark) makes a re-serve skip what was delivered,
+  and the dispatcher's ``shuffle_seed`` permutes each piece's batches by
+  ``seedtree.batch_permutation``. The JAX package serves this through its
+  streaming piece engine; here one reader serves the stream's pieces, and
+  its outputs are attributed to pieces through the reader's delivery
+  tracker (each work item is one piece and is published whole).
+- **untagged** (fcfs splits, legacy clients): one reader over the piece
+  set, batches collated across piece boundaries.
+
+Flow control: a ``credits`` field bounds the batches in flight; the client
+replenishes with ``credit`` messages as it consumes, and a worker out of
+credits waits for them (``credit_wait_s``). A ``diagnostics`` request
+returns every active stream's reader diagnostics and flow state and the
+final snapshots of recently finished streams. What this slice does not
+port raises NotImplementedError naming the argument and the service slice
+that brings it (:data:`UNPORTED_WORKER_ARGS`).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import uuid
+
+from petastorm_tpu_torch.reader_impl.framed_socket import (
+    ConnectionClosedError,
+    FramedReader,
+    FramedServer,
+    ProtocolError,
+    encode_payload,
+    send_framed,
+    send_framed_frames,
+)
+from petastorm_tpu_torch.telemetry.metrics import (
+    WORKER_ACTIVE_STREAMS,
+    WORKER_BATCHES_SENT,
+    WORKER_CREDIT_WAIT,
+    WORKER_DECODE_SECONDS,
+    WORKER_READERS_CONSTRUCTED,
+    WORKER_ROWS_SENT,
+    WORKER_STREAMS,
+    WORKER_TRANSFORM_SECONDS,
+)
+
+logger = logging.getLogger(__name__)
+
+_FACTORIES = ("row", "batch", "columnar")
+
+#: Final diagnostics snapshots kept for the ``diagnostics`` request.
+_COMPLETED_SNAPSHOTS_KEPT = 16
+
+#: ``BatchWorker`` arguments this slice does not take: the value that asks
+#: for nothing, and the service slice that ports the feature.
+UNPORTED_WORKER_ARGS = {
+    "batch_cache": (None, "the decoded-batch cache on workers comes with the fleet, "
+                          "slice (d)"),
+    "fleet_cache": (False, "the fleet cache tier comes with slice (d)"),
+    "standby": (False, "standby capacity and the autoscaler come with slice (d)"),
+    "on_piece_error": ("fail", "poison-piece quarantine comes with the control plane, "
+                               "slice (b)"),
+    "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
+}
+
+#: Stream-request attributes of later slices: a stream naming one is
+#: refused with the slice that serves it.
+_UNPORTED_STREAM_ATTRS = {
+    "dynamic": "dynamic sharding comes with slice (c)",
+    "packing": "worker-side packing comes with slice (f)",
+    "predicate": "the hoisted row filter (a graph rewrite) comes with slice (c)",
+    "projection": "hoisted column pruning (a graph rewrite) comes with slice (c)",
+    "fused": "stage fusion (a graph rewrite) comes with slice (c)",
+    "reader_family": "the row/columnar family rewrite comes with slice (c)",
+}
+
+
+def _resolve_factory(reader_factory):
+    if callable(reader_factory):
+        return reader_factory
+    from petastorm_tpu_torch.reader.reader import (
+        make_batch_reader,
+        make_columnar_reader,
+        make_reader,
+    )
+
+    factories = {"row": make_reader, "batch": make_batch_reader,
+                 "columnar": make_columnar_reader}
+    if reader_factory not in factories:
+        raise ValueError(f"reader_factory must be a callable or one of {_FACTORIES}, "
+                         f"got {reader_factory!r}")
+    return factories[reader_factory]
+
+
+class _PieceOutputs:
+    """One piece's reader outputs, iterable like the reader that produced
+    them, so :func:`batch_iterator` collates the piece on its own."""
+
+    def __init__(self, outputs, batched_output, ngram):
+        self._outputs = outputs
+        self.batched_output = batched_output
+        self.ngram = ngram
+
+    def __iter__(self):
+        return iter(self._outputs)
+
+
+class BatchWorker:
+    """Serve collated batches of ``dataset_url`` over TCP.
+
+    :param dataset_url: the dataset every stream reads (all workers of a
+        service read the same dataset with the same planning arguments).
+    :param dispatcher_address: ``(host, port)`` to register with; ``None``
+        for a worker addressed directly.
+    :param batch_size: rows per batch; a stream's last batch (a piece's,
+        tagged) is ragged: the service drops no rows.
+    :param reader_factory: ``"row"`` (``make_reader``), ``"batch"``
+        (``make_batch_reader``), ``"columnar"`` (``make_columnar_reader``)
+        or a callable with their signature.
+    :param reader_kwargs: more factory arguments (``workers_count``,
+        ``reader_pool_type``, ``filters``, ``storage_options``, ...);
+        ``piece_indices``, ``num_epochs``, ``shuffle_row_groups``, the
+        selector and the sharding arguments belong to the service's plan.
+    :param batch_delay_s: sleep before each batch send (a slow worker, for
+        tests and benchmarks).
+    :param heartbeat_interval_s: renew the dispatcher lease this often; an
+        ``unknown_worker`` reply re-registers under the same id. ``None``
+        disables the loop.
+    :param rpc_deadline_s: time budget of each control RPC across retries.
+    :param max_frame_bytes: receive frame cap per connection.
+    :param batch_transform: ``{field: ndarray} -> {field: ndarray}`` applied
+        to each batch before it is serialized, unless the stream asks for
+        ``transform_placement="local"`` (the client then runs the same
+        callable); timed into ``petastorm_service_worker_transform_seconds``.
+    :param transport: ``"auto"``, ``"tcp"`` or ``None``
+        (``$PETASTORM_TRANSPORT``); both serve TCP (``"shm"`` raises).
+    :param metrics_port: the port of this process's metrics endpoint,
+        advertised at registration (the CLI serves it).
+
+    ``batch_cache``, ``fleet_cache``, ``standby``,
+    ``on_piece_error="quarantine"`` and a ``corpus`` raise
+    NotImplementedError naming the argument and its slice.
+    """
+
+    #: Seconds between stop-flag checks while a stream waits for credits.
+    CREDIT_POLL_S = 1.0
+
+    def __init__(self, dataset_url, dispatcher_address=None, host="127.0.0.1", port=0,
+                 batch_size=64, reader_factory="row", reader_kwargs=None, worker_id=None,
+                 register_retries=5, register_backoff=0.2, batch_delay_s=0.0,
+                 heartbeat_interval_s=5.0, rpc_deadline_s=30.0, max_frame_bytes=None,
+                 batch_cache=None, batch_transform=None, standby=False,
+                 on_piece_error="fail", corpus="", transport=None, metrics_port=None,
+                 fleet_cache=False):
+        from petastorm_tpu_torch.service.transport import resolve_mode
+
+        given = {"batch_cache": batch_cache, "fleet_cache": fleet_cache, "standby": standby,
+                 "on_piece_error": on_piece_error, "corpus": corpus or ""}
+        if on_piece_error not in ("fail", "quarantine"):
+            raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
+                             f"{on_piece_error!r}")
+        for name, value in given.items():
+            default, reason = UNPORTED_WORKER_ARGS[name]
+            if value != default:
+                raise NotImplementedError(f"BatchWorker({name}=...) is not ported yet: "
+                                          f"{reason}")
+        resolve_mode(transport)  # "auto" and "tcp" are TCP; "shm" raises
+        self.dataset_url = dataset_url
+        self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
+        self._dispatcher_address = tuple(dispatcher_address) if dispatcher_address else None
+        self._batch_size = batch_size
+        self._batch_transform = batch_transform
+        self._factory = _resolve_factory(reader_factory)
+        self._reader_kwargs = dict(reader_kwargs or {})
+        for owned in ("piece_indices", "num_epochs", "shuffle_row_groups",
+                      "rowgroup_selector", "cur_shard", "shard_count", "shard_seed"):
+            if owned in self._reader_kwargs:
+                raise ValueError(
+                    f"reader_kwargs[{owned!r}] is owned by the service's split protocol "
+                    "(the dispatcher plans row-group assignment), not worker construction")
+        self._register_retries = register_retries
+        self._register_backoff = register_backoff
+        self._batch_delay_s = float(batch_delay_s)
+        self._heartbeat_interval_s = heartbeat_interval_s
+        self._rpc_deadline_s = rpc_deadline_s
+        self._max_frame_bytes = max_frame_bytes
+        self.num_pieces = None
+        self._lock = threading.Lock()
+        self._active = {}     # stream key -> {"reader", "flow"}
+        self._completed = {}  # stream key -> final diagnostics
+        self._streams_served = 0
+        self._m_batches = WORKER_BATCHES_SENT.labels(self.worker_id)
+        self._m_rows = WORKER_ROWS_SENT.labels(self.worker_id)
+        self._m_credit_wait = WORKER_CREDIT_WAIT.labels(self.worker_id)
+        self._m_active = WORKER_ACTIVE_STREAMS.labels(self.worker_id)
+        self._m_decode = WORKER_DECODE_SECONDS.labels(self.worker_id)
+        self._m_readers = WORKER_READERS_CONSTRUCTED.labels(self.worker_id)
+        self._m_transform = WORKER_TRANSFORM_SECONDS.labels(self.worker_id)
+        self.metrics_port = int(metrics_port) if metrics_port is not None else None
+        self._heartbeat_thread = None
+        self._heartbeat_stop = threading.Event()
+        self._heartbeat_paused = threading.Event()
+        self._server = FramedServer(self._serve_connection, host=host, port=port,
+                                    name=f"service-worker-{self.worker_id}")
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self):
+        self.num_pieces = self._count_pieces()
+        self._server.start()
+        if self._dispatcher_address is not None:
+            try:
+                self._register()
+            except BaseException:
+                self._server.stop()
+                raise
+            if self._heartbeat_interval_s is not None:
+                self._heartbeat_thread = threading.Thread(
+                    target=self._heartbeat_loop, daemon=True,
+                    name=f"service-worker-{self.worker_id}-heartbeat")
+                self._heartbeat_thread.start()
+        return self
+
+    @property
+    def address(self):
+        return self._server.address
+
+    def stop(self, drain_timeout_s=5.0):
+        """Close the listener and the connections first (stream threads
+        blocked in ``recv`` / ``send`` exit on the closed sockets), wait up
+        to ``drain_timeout_s`` for the stream threads, then stop any reader
+        a straggler left behind."""
+        self._server.stopped.set()
+        self._heartbeat_stop.set()
+        self._server.stop()
+        stragglers = self._server.join(timeout=drain_timeout_s)
+        if stragglers:
+            logger.warning("%d stream thread(s) still alive after the %.1fs stop drain — "
+                           "stopping their readers under them", len(stragglers),
+                           drain_timeout_s)
+        with self._lock:
+            readers = [entry["reader"] for entry in self._active.values()
+                       if entry["reader"] is not None]
+        for reader in readers:
+            try:
+                reader.stop()
+            except Exception:
+                logger.warning("straggler stream reader stop failed", exc_info=True)
+        if self._heartbeat_thread is not None:
+            self._heartbeat_thread.join(timeout=drain_timeout_s)
+
+    def kill(self):
+        """Abrupt failure (tests): drop every connection without an ``end``
+        and tear down, as a worker host dying looks to its clients."""
+        self._server.stopped.set()
+        self._heartbeat_stop.set()
+        self._server.close_connections()
+        self.stop()
+
+    def drop_connections(self):
+        """Drop every open connection and keep serving (a network blip:
+        clients reconnect and re-stream)."""
+        self._server.close_connections()
+
+    def pause_heartbeats(self):
+        """Stop renewing the lease while serving (a hung worker, for tests:
+        lease expiry, not a broken connection, evicts it)."""
+        self._heartbeat_paused.set()
+
+    def resume_heartbeats(self):
+        self._heartbeat_paused.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.stop()
+
+    # -- registration ------------------------------------------------------
+
+    def _count_pieces(self):
+        """The dataset's row-group pieces under the planning arguments every
+        stream reader uses: the count the dispatcher's plan is in."""
+        from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths
+        from petastorm_tpu_torch.reader.reader import enumerate_row_group_pieces
+
+        fs, path = get_filesystem_and_path_or_paths(
+            self.dataset_url, storage_options=self._reader_kwargs.get("storage_options"),
+            filesystem=self._reader_kwargs.get("filesystem"))
+        return len(enumerate_row_group_pieces(fs, path, self._reader_kwargs.get("filters")))
+
+    def _register(self, re_register=False, retries=None):
+        host, port = self.address
+        payload = {"type": "register_worker", "worker_id": self.worker_id, "host": host,
+                   "port": port, "num_pieces": self.num_pieces, "re_register": re_register,
+                   "standby": False, "corpus": "", "cache_fleet": False}
+        if self.metrics_port is not None:
+            payload["metrics_port"] = self.metrics_port
+        reply = self._control_rpc(payload, f"worker {self.worker_id} registration",
+                                  retries=retries)
+        if reply.get("type") != "ok":
+            raise RuntimeError(f"dispatcher rejected registration: "
+                               f"{reply.get('error', reply)}")
+        return reply
+
+    def _control_rpc(self, header, description, retries=None):
+        """One control request / reply under the retry policy (bounded
+        attempts, backoff with jitter, ``rpc_deadline_s`` in all)."""
+        from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+        from petastorm_tpu_torch.utils import retry_with_backoff
+
+        header.setdefault("trace", {"peer": self.worker_id})
+
+        def attempt():
+            with FramedConnection.connect(self._dispatcher_address, timeout=10.0) as conn:
+                reply, _ = conn.request(header)
+            if reply.get("type") == "error" and reply.get("retryable"):
+                raise OSError(reply.get("error", "dispatcher degraded"))
+            return reply
+
+        return retry_with_backoff(
+            attempt, retries=self._register_retries if retries is None else retries,
+            base_delay=self._register_backoff, retry_on=(OSError, ProtocolError),
+            deadline_s=self._rpc_deadline_s, description=description)
+
+    def _heartbeat_loop(self):
+        """Renew the lease every ``heartbeat_interval_s``; an
+        ``unknown_worker`` reply (the dispatcher restarted without this
+        worker, or evicted it) re-registers under the same id. A missed
+        tick is retried at the next one."""
+        while not self._heartbeat_stop.wait(self._heartbeat_interval_s):
+            if self._heartbeat_paused.is_set():
+                continue
+            try:
+                reply = self._control_rpc(
+                    {"type": "worker_heartbeat", "worker_id": self.worker_id,
+                     "credit_wait_s": round(self._m_credit_wait.value, 4)},
+                    f"worker {self.worker_id} heartbeat", retries=0)
+            except (OSError, ProtocolError):
+                continue
+            if reply.get("type") == "unknown_worker" and not self._heartbeat_stop.is_set():
+                logger.warning("dispatcher no longer knows worker %s — re-registering",
+                               self.worker_id)
+                try:
+                    self._register(re_register=True, retries=0)
+                except (OSError, RuntimeError, ProtocolError):
+                    continue
+
+    # -- serving -----------------------------------------------------------
+
+    def _serve_connection(self, sock):
+        reader = FramedReader(sock, max_frame_bytes=self._max_frame_bytes)
+        while not self._server.stopped.is_set():
+            header, _ = reader.recv()
+            kind = header.get("type")
+            if kind == "stream":
+                self._stream(sock, header, reader)
+            elif kind == "credit":
+                pass  # a replenishment that raced the stream's end
+            elif kind == "diagnostics":
+                send_framed(sock, {"type": "diagnostics", "worker_id": self.worker_id},
+                            self.diagnostics_snapshot())
+            elif kind == "ping":
+                send_framed(sock, {"type": "pong", "worker_id": self.worker_id})
+            else:
+                send_framed(sock, {"type": "error", "error": f"unknown request {kind!r}"})
+
+    def _refusal(self, header):
+        """The error text for a stream this worker cannot serve, or None."""
+        for attr, reason in _UNPORTED_STREAM_ATTRS.items():
+            if header.get(attr):
+                return f"stream attribute {attr!r} is not ported yet: {reason}"
+        if (header.get("cache_stage") or "post-transform") != "post-transform":
+            return ("stream attribute 'cache_stage' is not ported yet: the cache "
+                    "placement rewrite comes with slice (c)")
+        if header.get("transform_placement") == "remote" and self._batch_transform is None:
+            return ("stream requested transform_placement='remote' but this worker has no "
+                    "batch_transform armed — start it with --batch-transform module:attr "
+                    "(the same callable the client's transform= uses), or run the client "
+                    "with transform_placement='local'")
+        return None
+
+    def _stream(self, sock, header, conn_reader):
+        """Serve one ``stream`` request: batches of the named pieces, then
+        ``end``. A reader or collation error becomes an ``error`` message
+        (the client raises it); a client hang-up ends the stream."""
+        refusal = self._refusal(header)
+        if refusal is not None:
+            send_framed(sock, {"type": "error", "error": refusal})
+            return
+        tagged = bool(header.get("tagged"))
+        transform_fn = None
+        if self._batch_transform is not None \
+                and header.get("transform_placement") != "local":
+            batch_transform, observe = self._batch_transform, self._m_transform.observe
+
+            def transform_fn(batch):
+                t0 = time.perf_counter()
+                out = batch_transform(batch)
+                observe(time.perf_counter() - t0)
+                return out
+        shuffle_seed = header.get("shuffle_seed")
+        shuffle_seed = int(shuffle_seed) if shuffle_seed is not None else None
+        starts = {int(p): int(s) for p, s in (header.get("starts") or {}).items()}
+        pieces = [int(p) for p in header["pieces"]]
+        credits = header.get("credits")
+        credits = int(credits) if credits is not None else None
+        flow = {"credits_window": credits, "credits_left": credits, "batches_sent": 0,
+                "credit_wait_s": 0.0}
+        stream_key = uuid.uuid4().hex[:8]
+        state = {"reader": None, "flow": flow}
+        outcome = "aborted"  # until the `end` frame is sent
+        with self._lock:
+            self._active[stream_key] = state
+            self._streams_served += 1
+        self._m_active.inc()
+        try:
+            if tagged:
+                rows_sent = self._stream_pieces_tagged(
+                    sock, conn_reader, state, pieces, flow, credits, stream_key, starts,
+                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
+                    transform_fn=transform_fn)
+            else:
+                if shuffle_seed is not None:
+                    logger.warning(
+                        "stream requested shuffle_seed=%s but intra-piece batches will "
+                        "serve in canonical order: the stream is untagged, so it serves "
+                        "through the plain whole-set reader", shuffle_seed)
+                rows_sent = self._stream_pieces_direct(
+                    sock, conn_reader, state, pieces, flow, credits, stream_key,
+                    transform_fn=transform_fn)
+            if rows_sent is None:
+                return  # the worker stopped mid-stream
+            send_framed(sock, {"type": "end", "rows": rows_sent, "pieces": pieces})
+            outcome = "completed"
+        except (ConnectionClosedError, OSError, ProtocolError):
+            outcome = "disconnected"
+            raise  # the client hung up (or desynced): nothing to tell it
+        except Exception as exc:
+            outcome = "error"
+            logger.exception("stream %s failed (pieces %s)", stream_key, pieces)
+            send_framed(sock, {"type": "error", "error": str(exc)})
+        finally:
+            with self._lock:
+                self._active.pop(stream_key, None)
+                reader = state["reader"]
+                snapshot = dict(reader.diagnostics) if reader is not None else {}
+                self._completed[stream_key] = dict(snapshot, **flow)
+                while len(self._completed) > _COMPLETED_SNAPSHOTS_KEPT:
+                    self._completed.pop(next(iter(self._completed)))
+            self._m_active.dec()
+            WORKER_STREAMS.labels(self.worker_id, outcome).inc()
+            if reader is not None:
+                reader.stop()
+                reader.join()
+
+    def _make_stream_reader(self, pieces):
+        """One reader over ``pieces`` in ascending order; sharding pinned
+        off (the dispatcher's plan is the only sharding a worker applies)."""
+        self._m_readers.inc()
+        return self._factory(self.dataset_url, piece_indices=pieces, num_epochs=1,
+                             shuffle_row_groups=False, cur_shard=0, shard_count=1,
+                             **self._reader_kwargs)
+
+    def _stream_pieces_direct(self, sock, conn_reader, state, pieces, flow, credits,
+                              stream_key, transform_fn=None):
+        """Untagged serving: one reader over the piece set, batches
+        collated across piece boundaries. Rows sent, or None when the
+        worker stopped mid-stream."""
+        from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+
+        reader = self._make_stream_reader(pieces)
+        with self._lock:
+            state["reader"] = reader
+        rows_sent = 0
+        batches = iter(batch_iterator(reader, self._batch_size, last_batch="keep"))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return rows_sent
+            self._m_decode.observe(time.perf_counter() - t0)
+            if transform_fn is not None:
+                batch = transform_fn(batch)
+            rows = _batch_rows(batch)
+            fmt, frames = encode_payload(batch)
+            bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+            if not self._send_stream_batch(sock, conn_reader, flow, credits, bid, rows,
+                                           fmt, frames):
+                return None
+            rows_sent += rows
+
+    def _stream_pieces_tagged(self, sock, conn_reader, state, pieces, flow, credits,
+                              stream_key, starts, epoch=None, shuffle_seed=None,
+                              transform_fn=None):
+        """Exactly-once static serving: piece-aligned batches tagged with
+        their piece and ordinal, a ``piece_done`` frame after each piece.
+        One reader serves the stream; each of its work items is one piece,
+        published whole, so the outputs consumed since the last recorded
+        delivery are that delivery's piece. Batches below the piece's
+        ``starts`` watermark (in the permuted order, with a
+        ``shuffle_seed``) are skipped."""
+        from petastorm_tpu_torch.service.seedtree import batch_permutation
+        from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+
+        if self._reader_kwargs.get("shuffle_row_drop_partitions", 1) != 1:
+            raise ValueError("tagged streams serve whole pieces: shuffle_row_drop_partitions "
+                             "must be 1")
+        reader = self._make_stream_reader(pieces)
+        with self._lock:
+            state["reader"] = reader
+        # Item keys index the reader's own (sorted) piece list.
+        by_position = sorted(set(pieces))
+        done = []
+        reader._results_queue_reader.delivery_tracker.on_record = \
+            lambda key, _rows: done.append(by_position[int(key.split(":")[0])])
+        batched, ngram = reader.batched_output, getattr(reader, "ngram", None)
+        rows_sent, pending, served, decode_s = 0, [], set(), 0.0
+        outputs = iter(reader)
+        while True:
+            t0 = time.perf_counter()
+            output = next(outputs, None)
+            decode_s += time.perf_counter() - t0
+            if output is not None:
+                pending.append(output)
+            if not done and output is not None:
+                continue
+            # A piece's outputs are complete (or the reader is: pieces whose
+            # rows were all filtered out are done with none).
+            finished = done[:] if done else sorted(set(pieces) - served)
+            del done[:]
+            for piece in finished:
+                served.add(piece)
+                batches = list(batch_iterator(_PieceOutputs(pending, batched, ngram),
+                                              self._batch_size, last_batch="keep"))
+                pending = []
+                self._m_decode.observe(decode_s)  # the piece's reads and collation
+                decode_s = 0.0
+                order = (batch_permutation(shuffle_seed, int(epoch or 0), piece, len(batches))
+                         if shuffle_seed is not None else range(len(batches)))
+                piece_rows = 0
+                for ordinal, source in enumerate(order):
+                    if ordinal < starts.get(piece, 0):
+                        continue
+                    batch = batches[source]
+                    if transform_fn is not None:
+                        batch = transform_fn(batch)
+                    rows = _batch_rows(batch)
+                    fmt, frames = encode_payload(batch)
+                    bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+                    if not self._send_stream_batch(
+                            sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+                            extra_header={"piece": piece, "ordinal": ordinal}):
+                        return None
+                    rows_sent += rows
+                    piece_rows += rows
+                send_framed(sock, {"type": "piece_done", "piece": piece, "rows": piece_rows})
+            if output is None:
+                return rows_sent
+
+    def _send_stream_batch(self, sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+                           extra_header=None):
+        """Honor stop, drain and wait for credits, pace, send, account.
+        False when the worker stopped (the stream ends without ``end``)."""
+        if self._server.stopped.is_set():
+            return False
+        if credits is not None:
+            # Drain replenishments every batch, not only when starved:
+            # unread credit messages would fill the socket buffers until
+            # the client's ack send blocks against this batch send.
+            while conn_reader.data_pending():
+                reply, _ = conn_reader.recv()
+                if reply.get("type") == "credit":
+                    flow["credits_left"] += int(reply.get("n", 1))
+            if flow["credits_left"] <= 0:
+                t0 = time.perf_counter()
+                while flow["credits_left"] <= 0:
+                    if self._server.stopped.is_set():
+                        return False
+                    # A bounded wait, so a client host that vanished
+                    # without FIN/RST cannot pin this thread.
+                    if not conn_reader.wait_data(self.CREDIT_POLL_S):
+                        continue
+                    reply, _ = conn_reader.recv()
+                    if reply.get("type") == "credit":
+                        flow["credits_left"] += int(reply.get("n", 1))
+                waited = time.perf_counter() - t0
+                flow["credit_wait_s"] += waited
+                self._m_credit_wait.inc(waited)
+        if self._batch_delay_s:
+            time.sleep(self._batch_delay_s)
+        header = {"type": "batch", "rows": rows, "bid": bid}
+        if extra_header:
+            header.update(extra_header)
+        send_framed_frames(sock, header, fmt, frames)
+        flow["batches_sent"] += 1
+        self._m_batches.inc()
+        self._m_rows.inc(rows)
+        if credits is not None:
+            flow["credits_left"] -= 1
+        return True
+
+    def diagnostics_snapshot(self):
+        """Each active stream's reader diagnostics merged with its flow
+        state (credits window / left, batches sent, seconds waiting for
+        credits), the final snapshots of recently finished streams, and the
+        worker's lifetime counters under ``metrics``."""
+        with self._lock:
+            active = {key: dict((entry["reader"].diagnostics
+                                 if entry["reader"] is not None else {}), **entry["flow"])
+                      for key, entry in self._active.items()}
+            completed = {key: dict(diag) for key, diag in self._completed.items()}
+            streams_served = self._streams_served
+        return {
+            "worker_id": self.worker_id,
+            "num_pieces": self.num_pieces,
+            "active_streams": active,
+            "completed_streams": completed,
+            "metrics": {
+                "batches_sent_total": self._m_batches.value,
+                "rows_sent_total": self._m_rows.value,
+                "credit_wait_seconds_total": self._m_credit_wait.value,
+                "active_streams": self._m_active.value,
+                "readers_constructed_total": self._m_readers.value,
+                "transport_streams_tcp_total": streams_served,
+                "transport_streams_shm_total": 0,
+            },
+        }
+
+
+def _batch_rows(batch):
+    from petastorm_tpu_torch.cache_impl.batch_cache import batch_rows
+
+    return batch_rows(batch)

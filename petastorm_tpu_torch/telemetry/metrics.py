@@ -3,9 +3,11 @@ port's own copy of the matching part of ``petastorm_tpu/telemetry/
 metrics.py``).
 
 Each family keeps the JAX package's name, help text, labels and buckets,
-so a scrape of either package reads the same vocabulary. The families of
-modules not ported yet (the data service, the fleet, the framed-socket
-transport, the packing stage, resilience) come with those modules. Naming
+so a scrape of either package reads the same vocabulary. The framed
+transport's, the batch worker's, the dispatcher's and the service
+client's families came with the data service's first slice; those of
+modules not ported yet (shm transport downgrades, the fleet, the packing
+stage, resilience) come with those modules. Naming
 follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
 counters; label values are bounded (stage names, tiers, a recycled
 per-loader id, a per-controller id), never row- or batch-scoped.
@@ -208,3 +210,137 @@ FLIGHT_DUMPS = REGISTRY.counter(
     "write_failed counts dumps that could not be persisted). Nonzero "
     "outside a chaos run means a real incident left a postmortem file",
     labels=("reason",))
+
+# -- transport (reader_impl/framed_socket.py) ------------------------------
+
+TRANSPORT_MESSAGES = REGISTRY.counter(
+    "petastorm_transport_messages_total",
+    "Framed messages moved by the data-plane transports, by direction "
+    "(sent/recv) and transport tier (tcp = stream sockets, shm = the "
+    "shared-memory ring for colocated peers)",
+    labels=("direction", "transport"))
+TRANSPORT_FRAMES = REGISTRY.counter(
+    "petastorm_transport_frames_total",
+    "Payload frames inside framed messages, by direction and transport "
+    "tier (a wide numpy batch is dozens of frames per message)",
+    labels=("direction", "transport"))
+TRANSPORT_BYTES = REGISTRY.counter(
+    "petastorm_transport_bytes_total",
+    "Bytes moved by the framed transports, by direction and transport "
+    "tier (header + framing prefixes + payload frames; shm counts bytes "
+    "made visible through the ring, including pool-mapped frame bytes "
+    "that were never copied)",
+    labels=("direction", "transport"))
+TRANSPORT_SYSCALLS = REGISTRY.counter(
+    "petastorm_transport_syscalls_total",
+    "Send-path kernel crossings per transport tier (tcp = sendmsg calls "
+    "incl. short-write resumes; shm = eventfd doorbell writes + bounded "
+    "waits on the ring). Divide a delta by the matching sent-messages "
+    "delta for syscalls-per-message — the number the shm tier drives "
+    "toward zero (bench.py shm_transport leg)",
+    labels=("transport",))
+
+# -- service: batch worker (service/worker.py) -----------------------------
+
+WORKER_BATCHES_SENT = REGISTRY.counter(
+    "petastorm_service_worker_batches_sent_total",
+    "Collated batches streamed to clients, per worker",
+    labels=("worker",))
+WORKER_ROWS_SENT = REGISTRY.counter(
+    "petastorm_service_worker_rows_sent_total",
+    "Rows streamed to clients, per worker",
+    labels=("worker",))
+WORKER_CREDIT_WAIT = REGISTRY.counter(
+    "petastorm_service_worker_credit_wait_seconds_total",
+    "Seconds a worker's stream loop spent blocked waiting for credit "
+    "replenishment (high = the trainer is the bottleneck, flow control is "
+    "holding workers back as designed)",
+    labels=("worker",))
+WORKER_STREAMS = REGISTRY.counter(
+    "petastorm_service_worker_streams_total",
+    "Stream requests finished, per worker and outcome "
+    "(completed/error/disconnected/aborted — aborted = the worker "
+    "stopped mid-stream without sending `end`)",
+    labels=("worker", "outcome"))
+WORKER_ACTIVE_STREAMS = REGISTRY.gauge(
+    "petastorm_service_worker_active_streams",
+    "Streams a worker is serving right now",
+    labels=("worker",))
+WORKER_DECODE_SECONDS = REGISTRY.histogram(
+    "petastorm_service_worker_decode_seconds",
+    "Per-batch read+collate time inside a worker's stream loop (the time "
+    "to pull the next batch from its reader pipeline)",
+    labels=("worker",))
+WORKER_READERS_CONSTRUCTED = REGISTRY.counter(
+    "petastorm_service_worker_readers_constructed_total",
+    "Reader pipelines this worker built (dataset enumeration + decode-pool "
+    "spinup each). Streams served through the streaming piece engine cost "
+    "ONE construction per stream regardless of piece count; the per-piece "
+    "fallback (process pools) pays one per missed piece",
+    labels=("worker",))
+WORKER_TRANSFORM_SECONDS = REGISTRY.histogram(
+    "petastorm_service_worker_transform_seconds",
+    "Per-batch time in the worker-side batch transform stage (the "
+    "placement-flippable collated-batch transform, applied when the "
+    "stream's transform_placement is remote — docs/guides/pipeline.md)",
+    labels=("worker",))
+
+# -- service: dispatcher (service/dispatcher.py) ---------------------------
+
+DISPATCHER_REQUESTS = REGISTRY.counter(
+    "petastorm_service_dispatcher_requests_total",
+    "Control-plane requests handled, by request type",
+    labels=("type",))
+DISPATCHER_FENCING_EPOCH = REGISTRY.gauge(
+    "petastorm_service_dispatcher_fencing_epoch",
+    "Current fencing epoch (bumps invalidate outstanding assignments)")
+DISPATCHER_WORKERS = REGISTRY.gauge(
+    "petastorm_service_dispatcher_workers",
+    "Registered workers by liveness state (alive/dead)",
+    labels=("state",))
+
+# -- service: trainer client (service/client.py) ---------------------------
+
+CLIENT_BATCHES = REGISTRY.counter(
+    "petastorm_service_client_batches_total",
+    "Remote batches consumed by this trainer, per source worker",
+    labels=("worker",))
+CLIENT_RECV_STALL = REGISTRY.counter(
+    "petastorm_service_client_recv_stall_seconds_total",
+    "Seconds a client stream-reader thread spent blocked waiting on its "
+    "worker (a skewed worker shows up here, not in delivery latency)",
+    labels=("worker",))
+CLIENT_READY_QUEUE_DEPTH = REGISTRY.gauge(
+    "petastorm_service_client_ready_queue_depth",
+    "Batches waiting in the multiplexed drain's shared ready-queue "
+    "(sampled as the consumer dequeues)")
+CLIENT_RECOVERY_EVENTS = REGISTRY.counter(
+    "petastorm_service_client_recovery_events_total",
+    "Client-observed recovery events (resyncs, resync_failures, "
+    "streams_retired, takeovers, stale_fencing_retries, "
+    "heartbeat_failures)",
+    labels=("event",))
+CLIENT_DEDUP_DROPPED = REGISTRY.counter(
+    "petastorm_service_client_dedup_dropped_total",
+    "Batches the client received but refused to yield because delivery "
+    "bookkeeping proved them duplicates, by path: steal = a stale "
+    "ownership generation (a superseded dynamic-mode grant), takeover = a "
+    "sub-watermark ordinal (a re-served piece repeating batches already "
+    "handed to the consumer). Zero on healthy exactly-once paths — the "
+    "worker-side watermark skip means re-serves start past what was "
+    "delivered; a nonzero takeover count is the safety net firing",
+    labels=("path",))
+CLIENT_WATERMARK_LAG = REGISTRY.gauge(
+    "petastorm_service_client_watermark_lag",
+    "Batches received from workers but not yet yielded past the "
+    "deterministic delivery cursor (the ordered-mode reorder buffer depth; "
+    "0 when ordered delivery is off). Persistent growth = the next piece "
+    "in the seed-tree order is stuck behind a slow or recovering worker "
+    "while its peers run ahead")
+CLIENT_TRANSFORM_SECONDS = REGISTRY.histogram(
+    "petastorm_service_client_transform_seconds",
+    "Per-batch time in the trainer-local batch transform stage (the same "
+    "placement-flippable transform executed client-side when "
+    "transform_placement is local — high values here with low consumer "
+    "stall say the trainer host can afford the stage; the autotuner flips "
+    "placement back when it cannot)")

@@ -29,14 +29,13 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
     holding a null in one of ``not_null_fields``, into
     ``partitions_count`` files (rows split evenly) of row groups sized by
     ``row_group_size_mb`` or ``rows_per_row_group``. A non-empty target
-    raises ValueError unless ``overwrite_output``. A Spark session,
-    ``hdfs_driver`` and ``storage_options`` raise NotImplementedError
-    naming the argument."""
+    raises ValueError unless ``overwrite_output``. ``storage_options``
+    apply to both stores. A Spark session and ``hdfs_driver`` raise
+    NotImplementedError naming the argument."""
     from petastorm_tpu_torch.reader.reader import make_reader
 
-    etl_metadata.refuse_unported("copy_dataset", spark=spark, hdfs_driver=hdfs_driver,
-                                 storage_options=storage_options)
-    target = FilesystemResolver(target_url)
+    etl_metadata.refuse_unported("copy_dataset", spark=spark, hdfs_driver=hdfs_driver)
+    target = FilesystemResolver(target_url, storage_options=storage_options)
     if not overwrite_output:
         try:
             if target.filesystem().get_file_info(pafs.FileSelector(target.get_dataset_path())):
@@ -45,7 +44,7 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
         except FileNotFoundError:
             pass
 
-    source = FilesystemResolver(source_url)
+    source = FilesystemResolver(source_url, storage_options=storage_options)
     source_fs, source_path = source.filesystem(), source.get_dataset_path()
     schema = etl_metadata.get_schema(source_fs, source_path)
     if field_regex:
@@ -60,7 +59,8 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
         raise ValueError(f"not_null_fields not in copied schema: {unknown}")
 
     reader = make_reader(source_url, schema_fields=list(schema.fields),
-                         reader_pool_type="dummy", num_epochs=1, shuffle_row_groups=False)
+                         reader_pool_type="dummy", num_epochs=1, shuffle_row_groups=False,
+                         storage_options=storage_options)
 
     def rows():
         with reader:
@@ -69,7 +69,7 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
                 if not any(row_dict[f] is None for f in not_null):
                     yield row_dict
 
-    write_kwargs = {}
+    write_kwargs = {"storage_options": storage_options}
     if row_group_size_mb is not None:
         write_kwargs["row_group_size_mb"] = row_group_size_mb
     if rows_per_row_group is not None:

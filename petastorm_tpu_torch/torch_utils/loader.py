@@ -5,9 +5,14 @@ Counterpart of ``petastorm_tpu/jax_utils/loader.py`` (``make_jax_dataloader``
 and ``JaxDataLoader``) on one device: a producer thread pulls host batches
 from a ``batch_source`` — a reader's fixed-size row batches
 (:func:`make_torch_dataloader` over :mod:`.batcher`: last-batch policy, a
-seeded shuffle buffer) or the packer of :mod:`.packing` — into a bounded
+seeded shuffle buffer), the packer of :mod:`.packing` or the data service's
+:class:`~petastorm_tpu_torch.service.ServiceBatchSource` — into a bounded
 queue, and the consuming thread keeps ``device_prefetch`` batches in flight
-on the card.
+on the card. A source whose iterator says it is ``prefetched`` (the
+service's multiplexed drain: its own reader threads feeding a bounded
+ready-queue) is pulled directly by the consuming thread, as the JAX loader
+does: a producer thread would only move batches between two bounded
+queues.
 
 Staging (the counterpart of ``jax.device_put``) for a CUDA device:
 
@@ -51,12 +56,13 @@ and on ``__exit__``.
 :meth:`TorchDataLoader.state_dict` checkpoints the input at what the loader
 has *yielded*: the reader's state rolled back past the rows still buffered
 in the batcher, the host queue and the device prefetch, so they are re-read
-on resume; in a permuted cache pass, the pass and its yielded batches.
-Under a ``torch.distributed`` group, :func:`make_torch_dataloader` derives
-the equal-step ``max_batches`` from the reader's shard metadata, as the JAX
-loader does under a sharding. (Global arrays and the data service's batch
-sources are not ported; in the data-parallel layout each rank keeps its own
-local batch on its own card.)
+on resume; in a permuted cache pass, the pass and its yielded batches; with
+a batch source that checkpoints itself (the data service's), that source's
+``state_dict(yielded_batches=...)``. Under a ``torch.distributed`` group,
+:func:`make_torch_dataloader` derives the equal-step ``max_batches`` from
+the reader's shard metadata, as the JAX loader does under a sharding.
+(Global arrays are not ported; in the data-parallel layout each rank keeps
+its own local batch on its own card.)
 
 ``autotune=`` arms the online autotuner (:mod:`petastorm_tpu_torch.
 pipeline`): at the first iteration the loader is described as a stage graph
@@ -256,8 +262,10 @@ class TorchDataLoader:
     ``device`` (host-side columns stay numpy arrays). Batches come from
     ``batch_source``, a zero-argument callable returning an iterator of
     ``{field: ndarray}`` batches (row batches of ``reader`` for
-    :func:`make_torch_dataloader`, packed batches for the packing loader);
-    ``reader`` is stopped and joined on ``__exit__``. ``batch_cache`` and
+    :func:`make_torch_dataloader`, packed batches for the packing loader,
+    remote batches for a :class:`~petastorm_tpu_torch.service.
+    ServiceBatchSource`, with ``reader=None``); ``reader`` is stopped and
+    joined on ``__exit__``. ``batch_cache`` and
     ``cache_resume`` need a :class:`ReaderBatchSource`; see
     :func:`make_torch_dataloader` for them and the other arguments.
     ``autotune`` holds the :class:`~petastorm_tpu_torch.pipeline.
@@ -315,6 +323,8 @@ class TorchDataLoader:
         self._host_queue = None  # producer -> stager, with stage_in_producer
         self._producer = None
         self._stager = None
+        self._source_iter = None  # this iteration's batch_source() iterator
+        self._direct_iter = None  # ... when the consumer pulls it (prefetched)
         self._producer_error = None
         self._stop = threading.Event()
         self._rows_yielded = 0  # real rows handed out since the reader's tracker began
@@ -554,8 +564,9 @@ class TorchDataLoader:
         target = self._host_queue if self._stage_in_producer else self._queue
         collector = tracing.COLLECTOR
         try:
-            batches = iter(self._reader_batches() if self._batch_cache is not None
-                           else self._batch_source())
+            source_iter = (self._reader_batches() if self._source_iter is None
+                           else self._source_iter)
+            batches = iter(source_iter)
             if self._max_batches is not None:
                 batches = itertools.islice(batches, self._max_batches)
             while not self._stop.is_set():
@@ -577,6 +588,9 @@ class TorchDataLoader:
         except Exception as exc:  # noqa: BLE001 - re-raised on the consumer side
             self._producer_error = exc
         finally:
+            close = getattr(locals().get("source_iter"), "close", None)
+            if callable(close):
+                close()  # a service source's streams and reader threads
             self._put_sentinel(target)
 
     # -- the decoded-batch cache -------------------------------------------
@@ -822,7 +836,14 @@ class TorchDataLoader:
         # the queues are replaced: a survivor would put stale batches and a
         # premature sentinel into the new ones.
         self.stop()
-        if self._stage_in_producer:
+        self._direct_iter = self._source_iter = None
+        if self._batch_cache is None:
+            self._source_iter = self._batch_source()
+            if not self._stage_in_producer and getattr(self._source_iter, "prefetched", False):
+                self._direct_iter = self._source_iter
+        if self._direct_iter is not None:
+            self._queue = self._host_queue = None
+        elif self._stage_in_producer:
             self._queue = queue.Queue(maxsize=self._device_prefetch)
             self._host_queue = queue.Queue(maxsize=self._host_prefetch)
         else:
@@ -842,6 +863,9 @@ class TorchDataLoader:
             # Scoped arming: the first armer clears the buffer, so each
             # iteration's file holds that iteration's spans.
             tracing.COLLECTOR.acquire()
+        if self._direct_iter is not None:
+            self._ensure_autotune()
+            return self._iterate()
         self._producer = threading.Thread(target=self._produce, daemon=True,
                                           name="torch-loader-producer")
         self._producer.start()
@@ -856,14 +880,23 @@ class TorchDataLoader:
         inflight = []
         done = False
         collector = tracing.COLLECTOR
+        direct = self._direct_iter
+        if direct is not None and self._max_batches is not None:
+            direct = itertools.islice(direct, self._max_batches)
         try:
             while True:
                 while not done and len(inflight) < self._device_prefetch:
                     t0 = time.perf_counter()
                     with _profiled("wait"):
-                        item = self._queue.get()
+                        item = (next(direct, _SENTINEL) if direct is not None
+                                else self._queue.get())
                     t1 = time.perf_counter()
                     self._m_stage["wait"].observe(t1 - t0)
+                    if direct is not None and item is not _SENTINEL:
+                        # The host copies a producer would have made.
+                        with _profiled("decode"):
+                            item = self._to_host(item)
+                        self._m_stage["decode"].observe(time.perf_counter() - t1)
                     if item is _SENTINEL:
                         done = True
                         if self._producer_error is not None:
@@ -896,6 +929,8 @@ class TorchDataLoader:
             if self._trace_path is not None:
                 collector.export(self._trace_path)
                 collector.release()
+            if self._direct_iter is not None:
+                self._direct_iter.close()  # the source's streams and threads
             self.stop()
 
     # -- checkpoint ----------------------------------------------------------
@@ -915,13 +950,32 @@ class TorchDataLoader:
         to the reader factory feeding a fresh loader. Call it between steps
         from the training thread.
 
-        Refused with a custom ``batch_source`` (the packed loader: repacked
-        batches cannot be attributed to deliveries) and, outside a cache
-        pass, with a shuffle buffer (it reorders rows, so buffered rows are
-        not the newest deliveries).
+        A custom ``batch_source`` with a ``state_dict`` of its own (the
+        data service's :class:`~petastorm_tpu_torch.service.
+        ServiceBatchSource`) owns the snapshot: it is given
+        ``yielded_batches``, the batches this loader has yielded, when it
+        takes that argument, so batches still in the prefetch queues are
+        re-delivered on resume. Refused with a custom ``batch_source``
+        without one (the packed loader: repacked batches cannot be
+        attributed to deliveries) and, outside a cache pass, with a shuffle
+        buffer (it reorders rows, so buffered rows are not the newest
+        deliveries).
         """
         source = self._batch_source
         if not isinstance(source, ReaderBatchSource):
+            source_state = getattr(source, "state_dict", None)
+            if callable(source_state):
+                import inspect
+
+                try:
+                    params = inspect.signature(source_state).parameters
+                except (TypeError, ValueError):
+                    params = {}
+                if "yielded_batches" in params or any(
+                        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+                    return source_state(yielded_batches=int(
+                        self._m_batches.value - self._base["batches"]))
+                return source_state()
             raise ValueError(
                 "state_dict is not supported with a custom batch_source "
                 "(e.g. the packed loader): yielded-row accounting cannot "
@@ -959,6 +1013,11 @@ class TorchDataLoader:
         if self.autotune is not None:
             self.autotune.stop()
             self.autotune.join()
+        if self._direct_iter is not None:
+            try:
+                self._direct_iter.close()
+            except ValueError:
+                pass  # being pulled on another thread: its own finally closes it
         for thread in (self._producer, self._stager):
             while thread is not None and thread.is_alive():
                 for q in (self._queue, self._host_queue):
@@ -975,5 +1034,6 @@ class TorchDataLoader:
 
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.stop()
-        self.reader.stop()
-        self.reader.join()
+        if self.reader is not None:
+            self.reader.stop()
+            self.reader.join()

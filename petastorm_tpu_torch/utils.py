@@ -1,7 +1,9 @@
 """Column-wise decode of a row group (the port's own copy of
 ``petastorm_tpu/utils.py::decode_table``) and the row-drop partition of a
 table, shared by the reader's workers; the live resize of a bounded queue
-(``resize_bounded_queue``), which the loader's prefetch depths use."""
+(``resize_bounded_queue``), which the loader's prefetch depths use; and the
+retry policy (``retry_with_backoff``, ``backoff_delays``) of the GCS listing
+sweep and the data service's control RPCs."""
 
 from __future__ import annotations
 
@@ -73,3 +75,67 @@ def resize_bounded_queue(q, maxsize):
     with q.mutex:
         q.maxsize = int(maxsize)
         q.not_full.notify_all()
+
+
+def retry_with_backoff(fn, retries=3, base_delay=0.1, max_delay=5.0, jitter=0.5,
+                       retry_on=(Exception,), no_retry_on=(), description=None,
+                       sleep=None, rng=None, deadline_s=None, clock=None, budget=None):
+    """Call ``fn()`` with bounded retries, exponential backoff and jitter:
+    the transient-failure policy of the GCS listing sweep and of every
+    control RPC of the data service (the port's own copy of
+    ``petastorm_tpu/utils.py::retry_with_backoff``; the same ``sleep`` /
+    ``rng`` / ``clock`` injections give the same delays).
+
+    ``retries`` attempts follow the first; the last failure re-raises.
+    Delays are :func:`backoff_delays`. ``no_retry_on`` types fail at once
+    even when they match ``retry_on``. ``deadline_s`` bounds attempts and
+    sleeps together, measured from the first call: a sleep that would cross
+    it re-raises instead. ``budget``: an object with ``try_spend()`` (each
+    retry spends a token; an empty bucket stops retrying) and
+    ``record_success()`` (called on success)."""
+    import logging
+    import time
+
+    sleep = sleep if sleep is not None else time.sleep
+    clock = clock if clock is not None else time.monotonic
+    start = clock()
+    delays = backoff_delays(retries, base_delay, max_delay, jitter=jitter, rng=rng)
+    label = description or getattr(fn, "__name__", "call")
+    for attempt in range(retries + 1):
+        try:
+            result = fn()
+            if budget is not None:
+                budget.record_success()
+            return result
+        except no_retry_on:
+            raise
+        except retry_on as exc:
+            if attempt == retries:
+                raise
+            delay = next(delays)
+            log = logging.getLogger(__name__)
+            if deadline_s is not None and clock() - start + delay >= deadline_s:
+                log.warning("%s failed (attempt %d/%d): %s — deadline budget %.2fs "
+                            "exhausted, not retrying", label, attempt + 1, retries + 1,
+                            exc, deadline_s)
+                raise
+            if budget is not None and not budget.try_spend():
+                log.warning("%s failed (attempt %d/%d): %s — retry budget exhausted, "
+                            "not retrying", label, attempt + 1, retries + 1, exc)
+                raise
+            log.warning("%s failed (attempt %d/%d): %s — retrying in %.2fs",
+                        label, attempt + 1, retries + 1, exc, delay)
+            sleep(delay)
+
+
+def backoff_delays(retries, base_delay, max_delay, jitter=0.5, rng=None):
+    """The delays :func:`retry_with_backoff` sleeps, as a generator (for a
+    caller that must keep yielding between attempts, such as the service
+    client's fcfs split loop): ``min(max_delay, base_delay * 2**attempt)``
+    scaled by ``1 + jitter * rng.random()``."""
+    import random
+
+    rng = rng if rng is not None else random
+    for attempt in range(retries):
+        delay = min(max_delay, base_delay * (2 ** attempt))
+        yield delay * (1.0 + jitter * rng.random())

@@ -611,18 +611,24 @@ def test_graph_validation_and_the_service_refusal():
             graph_mod.Knob("k", get=lambda: 1, set=lambda v: None, lo=4, hi=1)
         assert knob.clamp(9) == 4 and knob.clamp(-3) == 1
 
-    class ServiceLike:
-        def __call__(self):
-            return iter(())
-
-        def set_credits(self, n):
-            pass
-
+    # A data-service source (constructing it dials nothing) gets the
+    # service half of the graph: its knobs, the remote worker stages and
+    # the two service signals.
+    from petastorm_tpu_torch.service import ServiceBatchSource
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
 
-    loader = TorchDataLoader(None, ServiceLike(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data-service"):
-        port_graph.build_loader_graph(loader)
+    source = ServiceBatchSource(("127.0.0.1", 1), credits=4, ready_queue_depth=8,
+                                transform=lambda batch: batch)
+    graph = port_graph.build_loader_graph(TorchDataLoader(None, source, device="cpu"))
+    snapshot = graph.snapshot()
+    assert snapshot["knobs"] == {"device_prefetch": 2, "credits": 4, "ready_queue_depth": 8,
+                                 "transform_placement": "remote"}
+    assert {"recv_stall_s", "credit_wait_s"} <= set(snapshot["signals"])
+    assert {node.name: node.placement for node in graph.nodes.values()
+            if node.side == "worker"} == dict.fromkeys(
+        ("read", "decode", "transform", "collate", "serialize", "send"), "worker")
+    source.set_transform_placement("local")
+    assert graph.nodes[("worker", "transform")].placement == "trainer"
 
 
 # ---------------------------------------------------------------------------

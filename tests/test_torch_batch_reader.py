@@ -10,10 +10,11 @@ same stores: the Criteo-shaped store both packages write
 - ``filters`` (DNF lists and ``pyarrow.dataset`` expressions) plan the same
   pieces in both packages, and DNF and expression forms agree;
 - ``Unischema.from_arrow_schema`` infers the same fields;
-- arguments the port does not take raise NotImplementedError by name (the
-  ported ones are held against the JAX reader in
-  ``test_torch_reader_features.py``); ``zmq_copy_buffers=False`` through
-  both packages' process pools gives the same batches.
+- ``storage_options``, ``filesystem``, ``fast_gcs_listing`` and
+  ``piece_indices`` give the JAX reader's batches, and the two arguments
+  the port does not take raise NotImplementedError by name;
+  ``zmq_copy_buffers=False`` through both packages' process pools gives
+  the same batches.
 
 Tolerance: none; everything here is compared exactly.
 """
@@ -215,13 +216,29 @@ def test_from_arrow_schema_of_the_store_matches_jax(store):
 @pytest.mark.parametrize("name,value", [
     ("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
     ("fast_gcs_listing", False),
-    ("filesystem", object()), ("piece_indices", [0]), ("dynamic_ventilation", True),
+    ("filesystem", "local"), ("piece_indices", [5, 0, 2]), ("dynamic_ventilation", True),
 ])
 def test_unported_arguments_raise_by_name(store, name, value):
+    """``hdfs_driver`` and ``dynamic_ventilation`` are refused by name; the
+    other four give the JAX reader's batches, bit for bit."""
+    import pyarrow.fs as pafs
+
     from petastorm_tpu_torch.reader.reader import make_batch_reader
 
-    with pytest.raises(NotImplementedError, match=name):
-        make_batch_reader(store, **{name: value})
+    if name in ("hdfs_driver", "dynamic_ventilation"):
+        with pytest.raises(NotImplementedError, match=name):
+            make_batch_reader(store, **{name: value})
+        return
+    if name == "filesystem":
+        value = pafs.LocalFileSystem()
+    port, jax = _readers(store, reader_pool_type="dummy", shuffle_row_groups=True,
+                         shard_seed=3, **{name: value})
+    assert len(port) == (3 if name == "piece_indices" else DAYS) == len(jax)
+    for got, want in zip(port, jax):
+        assert list(got) == list(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_array_equal(got[key], want[key])
 
 
 def test_zmq_copy_buffers_false_delivers_the_jax_batches(store):

@@ -8,8 +8,10 @@
   byte-identical; each package then reads the other's store row for row.
 - ``encode_workers > 1`` is byte-equal to ``encode_workers=1``.
 - The reference call forms run (no TypeError), a positional 4th argument
-  of ``write_rows`` means megabytes in both, and what the port does not
-  take yet raises NotImplementedError naming the argument.
+  of ``write_rows`` means megabytes in both; ``storage_options``,
+  ``filesystem`` and ``filesystem_factory`` write the JAX writer's files,
+  and a Spark session and ``hdfs_driver`` raise NotImplementedError naming
+  the argument.
 - ``get_schema`` in both call forms and ``infer_or_load_unischema``
   (stored and inferred) equal the JAX results field by field; the
   Unischema's equality, hash, repr and ``insert_explicit_nulls`` match.
@@ -250,36 +252,52 @@ def test_write_rows_without_rows_raises_like_jax(tmp_path):
                 module.write_rows(f"file://{tmp_path}/empty", schema, iter(()), **kwargs)
 
 
-def _refusals(url, schema):
+def _refusals(module, url, schema):
+    """The writer's filesystem arguments, each written through ``module``
+    (a package's ``etl.metadata``): ten rows in groups of five, or the
+    schema read back. ``spark`` and ``hdfs_driver`` stay refused."""
     fs = pafs.LocalFileSystem()
+    rows = list(_rows(10))
 
-    def enter(**kwargs):
-        with metadata.materialize_dataset(kwargs.pop("spark", None), url, schema, **kwargs):
-            pass
+    def enter(write_kwargs=None, **kwargs):
+        with module.materialize_dataset(kwargs.pop("spark", None), url, schema, **kwargs):
+            module.write_rows(url, schema, rows, rows_per_row_group=5, **(write_kwargs or {}))
 
     return {
         "spark": lambda: enter(spark=object()),
         "filesystem_factory": lambda: enter(filesystem_factory=pafs.LocalFileSystem),
         "storage_options": lambda: enter(storage_options={"anon": True}),
         "filesystem": lambda: enter(filesystem=fs),
-        "write_rows storage_options": lambda: metadata.write_rows(
-            url, schema, [], storage_options={"anon": True}),
-        "write_rows filesystem": lambda: metadata.write_rows(url, schema, [], filesystem=fs),
-        "materialize_rows filesystem": lambda: metadata.materialize_rows(
-            url, schema, [], filesystem=fs),
-        "get_schema_from_dataset_url hdfs_driver": lambda: metadata.get_schema_from_dataset_url(
+        "write_rows storage_options": lambda: enter({"storage_options": {"anon": True}}),
+        "write_rows filesystem": lambda: enter({"filesystem": fs}),
+        "materialize_rows filesystem": lambda: module.materialize_rows(
+            url, schema, rows, rows_per_row_group=5, filesystem=fs),
+        "get_schema_from_dataset_url hdfs_driver": lambda: module.get_schema_from_dataset_url(
             url, hdfs_driver="libhdfs3"),
         "get_schema_from_dataset_url storage_options": lambda: (
-            metadata.get_schema_from_dataset_url(url, storage_options={"anon": True})),
+            enter(), module.get_schema_from_dataset_url(url, storage_options={"anon": True}))[1],
     }
 
 
-@pytest.mark.parametrize("case", list(_refusals("", None)))
+@pytest.mark.parametrize("case", list(_refusals(metadata, "", None)))
 def test_unported_arguments_raise_not_implemented_by_name(tmp_path, case):
-    url = f"file://{tmp_path}/refused"
-    with pytest.raises(NotImplementedError, match=rf"\({case.split()[-1]}="):
-        _refusals(url, _schemas()[0])[case]()
-    assert not os.path.exists(tmp_path / "refused" / "_common_metadata")
+    """``spark`` and ``hdfs_driver`` raise NotImplementedError naming them
+    and attach nothing; every other filesystem argument writes the JAX
+    writer's files byte for byte (or reads the same schema back)."""
+    if case in ("spark", "get_schema_from_dataset_url hdfs_driver"):
+        url = f"file://{tmp_path}/refused"
+        with pytest.raises(NotImplementedError, match=rf"\({case.split()[-1]}="):
+            _refusals(metadata, url, _schemas()[0])[case]()
+        assert not os.path.exists(tmp_path / "refused" / "_common_metadata")
+        return
+    results = {}
+    for package, module, schema in (("port", metadata, _schemas()[0]),
+                                    ("jax", jax_metadata, _schemas()[1])):
+        results[package] = _refusals(module, f"file://{tmp_path}/{package}", schema)[case]()
+    assert _digests(tmp_path / "port") == _digests(tmp_path / "jax")
+    assert len(_digests(tmp_path / "port")) == 2  # one data file and _common_metadata
+    if case.startswith("get_schema"):
+        assert _field_keys(results["port"]) == _field_keys(results["jax"])
 
 
 def _field_keys(schema):

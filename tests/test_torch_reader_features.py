@@ -16,7 +16,9 @@ batch reader, on all three factories:
   limit and LRU eviction hold, ``cleanup`` removes the directory;
 - a ``resume_state`` crosses the packages both ways with a predicate, a
   selector and drop partitions, and the planning fingerprints are equal;
-- what is not ported raises NotImplementedError naming the argument.
+- ``storage_options``, ``filesystem``, ``fast_gcs_listing`` and
+  ``piece_indices`` give the JAX reader's rows; ``hdfs_driver`` and
+  ``dynamic_ventilation`` raise NotImplementedError naming the argument.
 
 Tolerance: none; everything is compared exactly.
 """
@@ -408,16 +410,29 @@ def test_reader_engine_and_results_queue_size(store):
         port_reader_mod.make_reader(store, reader_engine="reader_v2")
 
 
+#: The factories' filesystem and planning arguments: the two still refused
+#: (with the reason named), the four others held against the JAX reader.
 UNPORTED = [("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
-            ("fast_gcs_listing", False), ("filesystem", object()),
-            ("piece_indices", [0]), ("dynamic_ventilation", True)]
+            ("fast_gcs_listing", False), ("filesystem", "local"),
+            ("piece_indices", [6, 1, 3, 1]), ("dynamic_ventilation", True)]
+REFUSED = {"hdfs_driver": "libhdfs", "dynamic_ventilation": r"slice \(c\)"}
 
 
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 @pytest.mark.parametrize("factory", FACTORIES)
 def test_unported_arguments_raise_by_name(store, factory, name, value):
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(port_reader_mod, factory)(store, **{name: value})
+    if name in REFUSED:
+        with pytest.raises(NotImplementedError, match=rf"{name}=.*{REFUSED[name]}"):
+            getattr(port_reader_mod, factory)(store, **{name: value})
+        return
+    import pyarrow.fs as pafs
+
+    if name == "filesystem":
+        value = pafs.LocalFileSystem()
+    port, jax = _read_both(factory, store, port_kwargs={name: value}, jax_kwargs={name: value},
+                           reader_pool_type="dummy", shuffle_row_groups=True, shard_seed=5)
+    assert len(port) == (3 * GROUP if name == "piece_indices" else ROWS)
+    _assert_rows_equal(port, jax)
     with pytest.raises(TypeError, match="unexpected keyword"):
         getattr(port_reader_mod, factory)(store, no_such_argument=1)
 

@@ -1,0 +1,568 @@
+"""Failure, resume, the CLI and the service's wiring into the loader, the
+graph and the registry, against the JAX package where it has a twin.
+
+- An in-process worker kill mid-epoch loses no row under static sharding
+  (batch and row factories); with ``ordered=True`` the killed run yields
+  exactly the uninterrupted run's batches (exactly once, at the
+  watermarks); an fcfs kill loses no row.
+- ``TorchDataLoader.state_dict()`` delegates to the source with the
+  batches it has yielded; the state equals the JAX loader's at the same
+  position, and resuming either package's state re-reads what the JAX
+  resume re-reads; fcfs refuses ``state_dict`` and ``resume_state``.
+- A worker that stops its heartbeats loses its lease and re-registers
+  when they resume.
+- The CLI starts a dispatcher and a worker; the ``status`` command.
+- The refusals of arguments this slice does not port name their slice.
+- ``build_loader_graph`` over a service source gives the JAX graph's
+  stages, knobs and signals (less those of later slices).
+- The service's metric families equal the JAX families of the same names,
+  and a loopback run moves them as the JAX fleet's run does.
+
+A real-subprocess SIGKILL of a worker is marked ``slow`` (it starts a
+fresh interpreter and waits out reconnect backoff). Each test stops every
+node it starts and bounds its own waits. Everything is compared exactly.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from petastorm_tpu import service as jax_service
+from petastorm_tpu_torch import service as port_service
+from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+from petastorm_tpu_torch.service import BatchWorker, Dispatcher, ServiceBatchSource
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def scalar_store(tmp_path_factory):
+    """Plain Parquet: 120 rows in 24 row groups of 5."""
+    from petastorm_tpu_torch.test_util.dataset_factory import create_test_scalar_dataset
+
+    url = f"file://{tmp_path_factory.mktemp('rec')}/scalar"
+    create_test_scalar_dataset(url, rows_count=120, rows_per_row_group=5)
+    return url
+
+
+@pytest.fixture(scope="module")
+def row_store(tmp_path_factory):
+    """The factories' TestSchema store: 60 rows in 6 row groups of 10."""
+    from petastorm_tpu_torch.test_util.dataset_factory import create_test_dataset
+
+    url = f"file://{tmp_path_factory.mktemp('rec')}/rows"
+    create_test_dataset(url, rows_count=60, rows_per_row_group=10)
+    return url
+
+
+class Fleet:
+    """A dispatcher and workers of one package, stopped by :meth:`stop`."""
+
+    def __init__(self, url, package=port_service, mode="static", workers=2, batch_size=4,
+                 factory="batch", shuffle_seed=None, num_epochs=1, prefix="w",
+                 **dispatcher_kwargs):
+        self.dispatcher = package.Dispatcher(mode=mode, num_epochs=num_epochs,
+                                             shuffle_seed=shuffle_seed,
+                                             **dispatcher_kwargs).start()
+        self.workers = []
+        try:
+            for i in range(workers):
+                self.workers.append(package.BatchWorker(
+                    url, dispatcher_address=self.dispatcher.address, batch_size=batch_size,
+                    reader_factory=factory, worker_id=f"{prefix}{i}",
+                    reader_kwargs={"workers_count": 2}).start())
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self):
+        for worker in self.workers:
+            worker.stop()
+        self.dispatcher.stop()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def _ids(batch):
+    return [int(i) for i in np.asarray(batch["id"])]
+
+
+def _fast_source(fleet, **kwargs):
+    return ServiceBatchSource(fleet.dispatcher.address, max_retries=1, backoff_base=0.02,
+                              backoff_max=0.05, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# worker failure
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("factory", ["batch", "row"])
+def test_worker_kill_mid_epoch_loses_no_rows(scalar_store, row_store, factory):
+    url, rows = (scalar_store, 120) if factory == "batch" else (row_store, 60)
+    with Fleet(url, factory=factory) as fleet:
+        source = _fast_source(fleet, credits=2)
+        got, killed = [], False
+        for batch in source():
+            got.extend(_ids(batch))
+            if not killed and len(got) >= 12:
+                fleet.workers[1].kill()
+                killed = True
+        assert killed
+        recovery = source.diagnostics["recovery"]
+    assert sorted(set(got)) == list(range(rows))  # no row lost
+    assert recovery["takeovers"] == 1
+    assert len(got) == rows  # exactly once: the survivors start at the watermarks
+
+
+def test_ordered_kill_yields_the_uninterrupted_batches(scalar_store):
+    runs = []
+    for kill in (False, True):
+        with Fleet(scalar_store, shuffle_seed=4, workers=3) as fleet:
+            source = _fast_source(fleet, credits=2, ordered=True)
+            out = []
+            for batch in source():
+                out.append(_ids(batch))
+                if kill and len(out) == 7:
+                    fleet.workers[0].kill()
+            runs.append(out)
+    assert runs[0] == runs[1]
+    assert sorted(sum(runs[1], [])) == list(range(120))
+
+
+def test_fcfs_worker_kill_loses_no_rows(scalar_store):
+    with Fleet(scalar_store, mode="fcfs") as fleet:
+        got, killed = [], False
+        for batch in _fast_source(fleet)():
+            got.extend(_ids(batch))
+            if not killed and len(got) >= 8:
+                fleet.workers[0].kill()
+                killed = True
+    assert killed and sorted(set(got)) == list(range(120))
+
+
+# ---------------------------------------------------------------------------
+# checkpoint and resume through the loaders
+# ---------------------------------------------------------------------------
+
+def _loader(package, source):
+    if package is port_service:
+        from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+        return TorchDataLoader(None, source, device="cpu")
+    from petastorm_tpu.jax_utils.loader import JaxDataLoader
+
+    return JaxDataLoader(None, 4, batch_source=source, stage_to_device=False)
+
+
+def _consume(loader, stop_after=None):
+    """Batches' ids until ``stop_after`` batches; the state at that point."""
+    ids, state = [], None
+    it = iter(loader)
+    try:
+        for i, batch in enumerate(it):
+            ids.append(_ids(batch))
+            if stop_after is not None and i + 1 == stop_after:
+                state = loader.state_dict()
+                break
+    finally:
+        it.close()
+    return ids, state
+
+
+@pytest.mark.parametrize("stop_after", [1, 9, 29])
+def test_loader_state_dict_delegates_and_resumes_like_jax(scalar_store, stop_after):
+    results = {}
+    for name, package in (("port", port_service), ("jax", jax_service)):
+        with Fleet(scalar_store, package=package, shuffle_seed=2, workers=3) as fleet:
+            source = package.ServiceBatchSource(fleet.dispatcher.address, credits=2,
+                                                ordered=True)
+            first, state = _consume(_loader(package, source), stop_after)
+            resumed = package.ServiceBatchSource(fleet.dispatcher.address, credits=2,
+                                                 ordered=True, resume_state=state)
+            results[name] = {"first": first, "state": state,
+                             "rest": _consume(_loader(package, resumed))[0]}
+    assert results["port"]["state"] == results["jax"]["state"]
+    assert results["port"]["first"] == results["jax"]["first"]
+    assert results["port"]["rest"] == results["jax"]["rest"]
+    delivered = sum(results["port"]["first"] + results["port"]["rest"], [])
+    assert sorted(delivered) == list(range(120))  # the two runs cover every row once
+    assert results["port"]["state"]["epoch"] == 0
+    # A JAX-written state resumes the port's fleet to the same rows.
+    with Fleet(scalar_store, shuffle_seed=2, workers=3) as fleet:
+        resumed = ServiceBatchSource(fleet.dispatcher.address, credits=2, ordered=True,
+                                     resume_state=results["jax"]["state"])
+        assert _consume(_loader(port_service, resumed))[0] == results["jax"]["rest"]
+
+
+def test_state_dict_follows_the_consumer_position(scalar_store):
+    with Fleet(scalar_store) as fleet:
+        source = ServiceBatchSource(fleet.dispatcher.address)
+        total = sum(1 for _ in source())
+        assert total == 24 * 2  # 5-row pieces in batches of 4: 4 + 1 each
+        assert (source.state_dict(yielded_batches=0)["epoch"],
+                source.state_dict(yielded_batches=0)["completed_pieces"]) == (0, [])
+        mid = source.state_dict(yielded_batches=total - 1)
+        # A piece completes at its marker, which may trail its last batch:
+        # completed pieces plus watermarks leave exactly one batch to serve.
+        assert mid["epoch"] == 0 and len(mid["completed_pieces"]) < 24
+        assert 2 * (24 - len(mid["completed_pieces"])) - sum(mid["watermarks"].values()) == 1
+        end = source.state_dict(yielded_batches=total)
+        assert (end["epoch"], end["completed_pieces"]) == (1, []) and source.state_dict() == end
+
+
+def test_fcfs_refuses_state_dict_and_resume_state(scalar_store):
+    with Fleet(scalar_store, mode="fcfs", workers=1) as fleet:
+        source = ServiceBatchSource(fleet.dispatcher.address)
+        assert len(sum((_ids(b) for b in source()), [])) == 120
+        with pytest.raises(ValueError, match="fcfs"):
+            source.state_dict()
+        state = {"version": 2, "mode": "static", "client_index": 0, "num_clients": 1,
+                 "epoch": 0, "completed_pieces": [0]}
+        with pytest.raises(ValueError, match="resume_state was supplied"):
+            ServiceBatchSource(fleet.dispatcher.address, resume_state=state)()
+    with Fleet(scalar_store, mode="fcfs", workers=1) as fleet:  # a fresh queue
+        from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+        loader = TorchDataLoader(None, ServiceBatchSource(fleet.dispatcher.address),
+                                 device="cpu")
+        with pytest.raises(ValueError, match="fcfs"):
+            _consume(loader, stop_after=2)
+    for bad, match in ((dict(state, version=9), "version"), (dict(state, mode="fcfs"), "mode"),
+                       (dict(state, num_clients=2), "num_clients"),
+                       (dict(state, packing={"slots": 2}), "packing")):
+        with pytest.raises(ValueError, match=match):
+            ServiceBatchSource(("127.0.0.1", 1), resume_state=bad)
+
+
+def test_loader_refuses_state_dict_for_a_source_without_one():
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+    loader = TorchDataLoader(None, lambda: iter(()), device="cpu")
+    with pytest.raises(ValueError, match="no state_dict|custom batch_source"):
+        loader.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# leases
+# ---------------------------------------------------------------------------
+
+def _status(dispatcher):
+    with FramedConnection.connect(dispatcher.address, timeout=5) as conn:
+        return conn.request({"type": "status"})[0]
+
+
+def _wait(predicate, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def test_lease_expiry_evicts_a_silent_worker_and_heartbeats_readmit_it(scalar_store):
+    dispatcher = Dispatcher(lease_timeout_s=0.4).start()
+    worker = BatchWorker(scalar_store, dispatcher_address=dispatcher.address, worker_id="hb",
+                         heartbeat_interval_s=0.05)
+    try:
+        worker.start()
+        assert _wait(lambda: _status(dispatcher)["workers"]["hb"]["alive"])
+        worker.pause_heartbeats()
+        assert _wait(lambda: not _status(dispatcher)["workers"]["hb"]["alive"])
+        status = _status(dispatcher)
+        assert status["fencing_epoch"] == 1 and status["recovery"]["evictions"] == 1
+        worker.resume_heartbeats()  # unknown_worker → re-registration
+        assert _wait(lambda: _status(dispatcher)["workers"]["hb"]["alive"])
+        assert _status(dispatcher)["recovery"]["re_registrations"] >= 1
+    finally:
+        worker.stop()
+        dispatcher.stop()
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
+    from petastorm_tpu_torch.service.cli import main, parse_address
+
+    assert parse_address("10.0.0.1:7077") == ("10.0.0.1", 7077)
+    assert parse_address("7077") == ("127.0.0.1", 7077)
+    stop = threading.Event()
+    threads, ready = [], {}
+
+    def run(argv):
+        thread = threading.Thread(target=main, args=(argv,),
+                                  kwargs={"run_seconds": 30, "stop_event": stop}, daemon=True)
+        thread.start()
+        threads.append(thread)
+
+    def wait_for(role):
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and role not in ready:
+            for line in capsys.readouterr().out.splitlines():
+                if line.startswith("{"):
+                    record = json.loads(line)
+                    ready[record.get("role", "status")] = record
+            time.sleep(0.05)
+        return ready[role]
+
+    try:
+        run(["dispatcher", "--port", "0", "--mode", "static", "--metrics-port", "0"])
+        port = wait_for("dispatcher")["port"]
+        run(["worker", "--dispatcher", f"127.0.0.1:{port}", "--dataset-url", scalar_store,
+             "--reader", "batch", "--batch-size", "6", "--workers-count", "2",
+             "--worker-id", "cli-w", "--metrics-port", "0"])
+        worker = wait_for("worker")
+        assert worker["worker_id"] == "cli-w" and worker["metrics_port"] > 0
+        source = ServiceBatchSource(("127.0.0.1", port))
+        got = sorted(sum((_ids(b) for b in source()), []))
+        assert got == list(range(120))
+        assert main(["status", "--dispatcher", f"127.0.0.1:{port}"]) == 0
+        status = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert status["workers"]["cli-w"]["metrics_port"] == worker["metrics_port"]
+        assert status["metrics_address"][1] == ready["dispatcher"]["metrics_port"]
+    finally:
+        stop.set()
+        for thread in threads:
+            thread.join(timeout=15)
+    assert not any(thread.is_alive() for thread in threads)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["dispatcher", "--port", "0", "--mode", "dynamic"], r"slice \(c\)"),
+    (["dispatcher", "--port", "0", "--journal-dir", "/tmp/j"], r"slice \(b\)"),
+    (["dispatcher", "--port", "0", "--autoscale"], r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--cache", "mem"], r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--standby"], r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"],
+     r"slice \(b\)"),
+    (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
+    (["worker", "--dataset-url", "file:///x", "--transport", "shm"], r"slice \(e\)"),
+], ids=["dynamic", "journal", "autoscale", "cache", "standby", "quarantine", "corpus", "shm"])
+def test_cli_refusals_name_their_slice(argv, match):
+    from petastorm_tpu_torch.service.cli import main
+
+    with pytest.raises(NotImplementedError, match=match):
+        main(argv, run_seconds=0)
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+REFUSALS = [
+    ("Dispatcher", {"mode": "dynamic"}, "(c)"),
+    ("Dispatcher", {"journal_dir": "/tmp/journal"}, "(b)"),
+    ("Dispatcher", {"brownout": True}, "(b)"),
+    ("Dispatcher", {"breaker_cooldown_s": 3.0}, "(b)"),
+    ("Dispatcher", {"autoscale": True}, "(d)"),
+    ("BatchWorker", {"batch_cache": object()}, "(d)"),
+    ("BatchWorker", {"fleet_cache": True}, "(d)"),
+    ("BatchWorker", {"standby": True}, "(d)"),
+    ("BatchWorker", {"on_piece_error": "quarantine"}, "(b)"),
+    ("BatchWorker", {"corpus": "web"}, "(f)"),
+    ("BatchWorker", {"transport": "shm"}, "(e)"),
+    ("ServiceBatchSource", {"hedging": True}, "(b)"),
+    ("ServiceBatchSource", {"retry_budget": 3.0}, "(b)"),
+    ("ServiceBatchSource", {"breaker_threshold": 2}, "(b)"),
+    ("ServiceBatchSource", {"breaker_cooldown_s": 1.0}, "(b)"),
+    ("ServiceBatchSource", {"on_piece_error": "quarantine"}, "(b)"),
+    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, "(c)"),
+    ("ServiceBatchSource", {"projection": ["id"]}, "(c)"),
+    ("ServiceBatchSource", {"filter_placement": "worker"}, "(c)"),
+    ("ServiceBatchSource", {"stage_fusion": "fused"}, "(c)"),
+    ("ServiceBatchSource", {"cache_placement": "post-decode"}, "(c)"),
+    ("ServiceBatchSource", {"reader_family": "columnar"}, "(c)"),
+    ("ServiceBatchSource", {"packing": {"slots": 2}}, "(f)"),
+    ("ServiceBatchSource", {"corpus": "web"}, "(f)"),
+    ("ServiceBatchSource", {"job_id": "train-a"}, "(d)"),
+    ("ServiceBatchSource", {"transport": "shm"}, "(e)"),
+]
+
+
+@pytest.mark.parametrize("cls,kwargs,slice_name", REFUSALS,
+                         ids=[f"{c}-{next(iter(k))}" for c, k, _ in REFUSALS])
+def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
+    name = next(iter(kwargs))
+    make = {"Dispatcher": lambda: Dispatcher(**kwargs),
+            "BatchWorker": lambda: BatchWorker("file:///nowhere", **kwargs),
+            "ServiceBatchSource": lambda: ServiceBatchSource(("127.0.0.1", 1), **kwargs)}[cls]
+    with pytest.raises(NotImplementedError, match=rf"{name}.*slice \({slice_name[1]}\)"):
+        make()
+
+
+def test_later_slice_requests_are_refused_by_name(scalar_store):
+    with Fleet(scalar_store, workers=1) as fleet:
+        replies = {}
+        for kind in ("dynamic_plan", "register_job", "set_mixture_weights",
+                     "client_heartbeat", "report_poison_piece"):
+            with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
+                replies[kind] = conn.request({"type": kind})[0]
+        with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
+            scoped = conn.request({"type": "list_workers", "job_id": "tenant"})[0]
+        with FramedConnection.connect(fleet.workers[0].address, timeout=5) as conn:
+            stream = conn.request({"type": "stream", "pieces": [0], "epoch": 0,
+                                   "dynamic": True})[0]
+    assert all(r["type"] == "error" and "not ported yet" in r["error"]
+               for r in replies.values())
+    assert "slice (c)" in replies["dynamic_plan"]["error"]
+    assert "slice (d)" in scoped["error"]
+    assert stream["type"] == "error" and "slice (c)" in stream["error"]
+
+
+# ---------------------------------------------------------------------------
+# the graph and the registry
+# ---------------------------------------------------------------------------
+
+def test_build_loader_graph_on_a_service_source_equals_jax():
+    from petastorm_tpu.jax_utils.loader import JaxDataLoader
+    from petastorm_tpu.pipeline import graph as jax_graph
+    from petastorm_tpu_torch.pipeline import graph as port_graph
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+    graphs = {}
+    for pinned in (None, 16):
+        kwargs = dict(credits=6, ready_queue_depth=pinned, transform=lambda b: b)
+        port = port_graph.build_loader_graph(TorchDataLoader(
+            None, ServiceBatchSource(("127.0.0.1", 1), **kwargs), device="cpu"))
+        jax = jax_graph.build_loader_graph(JaxDataLoader(
+            None, 4, batch_source=jax_service.ServiceBatchSource(("127.0.0.1", 1), **kwargs),
+            stage_to_device=False))
+        graphs[pinned] = (port, jax)
+        port_snap, jax_snap = port.snapshot(), jax.snapshot()
+        # The rewrite knobs and their trigger signals come with slice (c).
+        later = {"stage_fusion", "reader_family", "filter_placement", "cache_placement"}
+        assert port_snap["knobs"] == {k: v for k, v in jax_snap["knobs"].items()
+                                      if k not in later}
+        assert {"recv_stall_s", "credit_wait_s"} <= set(port_snap["signals"]) \
+            <= set(jax_snap["signals"])
+        assert set(jax_snap["signals"]) - set(port_snap["signals"]) == {
+            "worker_decode_s", "handoff_s", "transform_s", "cache_hits", "cache_misses",
+            "cache_evictions", "filter_rows_in", "filter_rows_kept"}
+        assert {n: (s["side"], s["placement"], s.get("fuse_group"))
+                for n, s in port_snap["stages"].items()} == \
+            {n: (s["side"], s["placement"], s.get("fuse_group"))
+             for n, s in jax_snap["stages"].items()}
+        assert port.describe()["edges"] == jax.describe()["edges"]
+    assert "ready_queue_depth" not in graphs[None][0].knobs
+    assert graphs[16][0].knobs["ready_queue_depth"].get() == 16
+
+
+SERVICE_FAMILIES = [
+    "TRANSPORT_MESSAGES", "TRANSPORT_FRAMES", "TRANSPORT_BYTES", "TRANSPORT_SYSCALLS",
+    "WORKER_BATCHES_SENT", "WORKER_ROWS_SENT", "WORKER_CREDIT_WAIT", "WORKER_STREAMS",
+    "WORKER_ACTIVE_STREAMS", "WORKER_DECODE_SECONDS", "WORKER_READERS_CONSTRUCTED",
+    "WORKER_TRANSFORM_SECONDS", "DISPATCHER_REQUESTS", "DISPATCHER_FENCING_EPOCH",
+    "DISPATCHER_WORKERS", "CLIENT_BATCHES", "CLIENT_RECV_STALL", "CLIENT_READY_QUEUE_DEPTH",
+    "CLIENT_RECOVERY_EVENTS", "CLIENT_DEDUP_DROPPED", "CLIENT_WATERMARK_LAG",
+    "CLIENT_TRANSFORM_SECONDS"]
+
+
+@pytest.mark.parametrize("name", SERVICE_FAMILIES)
+def test_service_families_equal_the_jax_families(name):
+    from petastorm_tpu.telemetry import metrics as jax_metrics
+    from petastorm_tpu_torch.telemetry import metrics as port_metrics
+
+    port, jax = getattr(port_metrics, name), getattr(jax_metrics, name)
+    assert (port.name, port.help, port.kind, port.label_names, port.buckets) == \
+        (jax.name, jax.help, jax.kind, jax.label_names, jax.buckets)
+
+
+def test_a_loopback_run_moves_the_families_as_jax(scalar_store):
+    from petastorm_tpu.telemetry import metrics as jax_metrics
+    from petastorm_tpu_torch.telemetry import metrics as port_metrics
+
+    moved = {}
+    for name, package, metrics in (("port", port_service, port_metrics),
+                                   ("jax", jax_service, jax_metrics)):
+        # Worker ids of their own: the registry's series are per worker id.
+        with Fleet(scalar_store, package=package, workers=1,
+                   prefix=f"families-{name}-{time.monotonic_ns()}-") as fleet:
+            wid = fleet.workers[0].worker_id
+            before = (metrics.WORKER_ROWS_SENT.labels(wid).value,
+                      metrics.WORKER_BATCHES_SENT.labels(wid).value,
+                      metrics.CLIENT_BATCHES.labels(wid).value,
+                      metrics.WORKER_READERS_CONSTRUCTED.labels(wid).value,
+                      metrics.WORKER_STREAMS.labels(wid, "completed").value)
+            source = package.ServiceBatchSource(fleet.dispatcher.address, ordered=True)
+            rows = sum(len(_ids(b)) for b in source())
+            after = (metrics.WORKER_ROWS_SENT.labels(wid).value,
+                     metrics.WORKER_BATCHES_SENT.labels(wid).value,
+                     metrics.CLIENT_BATCHES.labels(wid).value,
+                     metrics.WORKER_READERS_CONSTRUCTED.labels(wid).value,
+                     metrics.WORKER_STREAMS.labels(wid, "completed").value)
+        moved[name] = (rows, [a - b for a, b in zip(after, before)])
+    assert moved["port"] == moved["jax"] == (120, [120, 48, 48, 1, 1])
+
+
+# ---------------------------------------------------------------------------
+# a worker in another process
+# ---------------------------------------------------------------------------
+
+def test_a_worker_process_serves_without_importing_torch(scalar_store):
+    """A worker never touches the card: serving a tagged stream in a fresh
+    interpreter imports no torch (so no CUDA library is loaded)."""
+    code = f"""
+import sys
+from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+from petastorm_tpu_torch.service import BatchWorker
+worker = BatchWorker({scalar_store!r}, batch_size=8, reader_factory="batch").start()
+with FramedConnection.connect(worker.address, timeout=10) as conn:
+    conn.send({{"type": "stream", "pieces": [0, 5], "epoch": 0, "tagged": True}})
+    kinds = []
+    while not kinds or kinds[-1] != "end":
+        kinds.append(conn.recv()[0]["type"])
+worker.stop()
+print(kinds.count("batch"), "torch" in sys.modules)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["2", "False"]
+
+
+@pytest.mark.slow
+def test_subprocess_worker_sigkill_mid_epoch_loses_no_rows(scalar_store):
+    """A worker started as ``python -m petastorm_tpu_torch.service worker``
+    and killed with SIGKILL mid-epoch: the epoch completes with no row
+    lost."""
+    dispatcher = Dispatcher().start()
+    local = BatchWorker(scalar_store, dispatcher_address=dispatcher.address, batch_size=4,
+                        reader_factory="batch", worker_id="local",
+                        reader_kwargs={"workers_count": 2}).start()
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "petastorm_tpu_torch.service", "worker", "--dispatcher",
+         f"127.0.0.1:{dispatcher.address[1]}", "--dataset-url", scalar_store, "--reader",
+         "batch", "--batch-size", "4", "--workers-count", "2", "--worker-id", "child"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env, text=True)
+    try:
+        line = child.stdout.readline()
+        assert json.loads(line)["worker_id"] == "child"
+        assert _wait(lambda: sorted(_status(dispatcher)["workers"]) == ["child", "local"])
+        source = ServiceBatchSource(dispatcher.address, max_retries=2, backoff_base=0.02,
+                                    backoff_max=0.2)
+        got, killed = [], False
+        for batch in source():
+            got.extend(_ids(batch))
+            if not killed and len(got) >= 12:
+                child.kill()
+                killed = True
+        assert killed and sorted(set(got)) == list(range(120))
+    finally:
+        child.kill()
+        child.wait(timeout=10)
+        child.stdout.close()
+        local.stop()
+        dispatcher.stop()
