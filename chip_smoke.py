@@ -329,6 +329,36 @@ non-zero exit code):
    to the card: images and labels bit for bit the local reader's. No flash
    kernel runs on this phase (counted).
 
+15. ``control``: the data service's control plane (``CONTROL``; see
+   ``control_phase``), after phase 14 in the same process. (a) Phase 4's
+   store and CNN through ``Dispatcher(journal_dir=..., num_epochs=2)``, 2
+   ``BatchWorker(reader_factory="row", workers_count=4)`` and
+   ``ServiceBatchSource(credits=8, heartbeat_interval_s=0.25)``: after 6 of
+   the first epoch's 12 batches the dispatcher is stopped, its connections
+   dropped, and a new one started on the same port from the same journal
+   (every send slowed 0.25 s by the ``slow-peer`` failpoint from the first
+   batch until the client's resync, so the workers cannot run ahead and
+   the epoch's streams outlive a heartbeat after the restart): each
+   epoch's multiset of image digests the local reader's, batches on
+   ``cuda:0``, losses finite, the new dispatcher's ``journal_replays`` 1
+   and its fencing epoch above the old one, the client's ``resyncs`` at
+   least 1; the seconds from the restart to the next batch and images/s
+   over the run. (b) Phase 7's store at phase 14 (b)'s shape (2 workers of
+   2 reader threads, batch 512, credits 8, ``ordered=True``), one DLRM
+   epoch each: one worker's sends stalled 1.5 s three times (``slow-peer``,
+   keyed to it) with ``hedging=True`` and ``hedge_quantile=0.9`` (hedges
+   launched, a won race's late primary batches dropped, every row exactly
+   once), then one worker's connections dropped with its reconnects reset
+   (``breaker-trip``) under ``breaker_threshold=2`` (the client's breaker
+   open, the dispatcher's ``breaker_open`` lists the worker, a new grant
+   leaves it out, every row exactly once). (c) One epoch of (a)'s path with
+   fleet tracing armed, the dispatcher and the 2 workers started as ``python
+   -m petastorm_tpu_torch.service`` processes: the merged trace holds the
+   dispatcher and the three peers with finite clock offsets, and
+   ``critical_path.diagnose`` with the loader's measured stall prints its
+   bottlenecks and stage profile. No flash kernel runs on this phase
+   (counted).
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -453,6 +483,16 @@ AUTOTUNE = dict(image=IMAGE, epochs=12, repeats=1,
 SERVICE = dict(image=IMAGE, workers=2, workers_count=4, credits=8,
                tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=512,
                tab_workers_count=2, kill_at=20, resume_at=25)
+# Phase 15, the control plane: (a) phase 14 (a)'s image path for 2 epochs
+# with client and worker heartbeats every 0.25 s and the dispatcher restarted
+# from its journal after 6 of an epoch's 12 batches; (b) phase 14 (b)'s
+# tabular shape under a slow peer with hedging, then under a tripped breaker;
+# (c) one traced epoch of (a)'s path with the dispatcher and the workers in
+# processes of their own.
+CONTROL = dict(image=IMAGE, epochs=2, workers=2, workers_count=4, credits=8, heartbeat_s=0.25,
+               restart_after=6, restart_slow_s=0.25, seed=15, tab_rows=TABULAR["rows"],
+               tab_days=TABULAR["days"], tab_batch=512, tab_workers_count=2,
+               hedge_delay_s=1.5, hedge_at=(12, 24, 36), hedge_quantile=0.9, drop_after=2)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -3961,6 +4001,403 @@ def service_phase(smi, image, cfg=SERVICE, device="cuda"):
     return {"images_per_s": runs[0]["images_per_s"]}
 
 
+def _image_trainer(img, device):
+    """Phase 4's CNN at ``img``'s widths and its train step, seeded."""
+    import torch
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+
+    torch.manual_seed(0)
+    model = ic.init_image_classifier(img["crop"] + (img["image_shape"][2],), img["classes"],
+                                     hidden=img["hidden"], conv_features=img["conv_features"],
+                                     device=device)
+    return model, ic.make_image_train_step(model, img["lr"])
+
+
+def _image_service_loader(service_source, img, device, sink):
+    """``source`` → the digest tap → ``TorchDataLoader(device_stage=...)``."""
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+    return TorchDataLoader(None, _DigestingSource(service_source, sink), device=device,
+                           device_stage=DeviceStage(normalize=(127.5, 127.5), crop=img["crop"],
+                                                    flip=True))
+
+
+def _image_step(step, batch, device):
+    import torch
+
+    from petastorm_tpu_torch.torch_utils.batcher import PAD_MASK_KEY
+
+    images = batch["image"]
+    mask = batch.get(PAD_MASK_KEY)
+    if mask is None:
+        mask = torch.ones(images.shape[0], dtype=torch.bool, device=images.device)
+    return step(images, batch["label"], mask), images.shape[0]
+
+
+def _epoch_digests_ok(digests, local_digests, per_epoch, epochs):
+    """The epochs whose digest multiset is not the local reader's."""
+    if len(digests) != epochs * per_epoch:
+        return list(range(epochs))
+    return [e for e in range(epochs)
+            if collections.Counter(digests[e * per_epoch:(e + 1) * per_epoch])
+            != local_digests]
+
+
+def _cli_node(args, cuda_visible=""):
+    """``python -m petastorm_tpu_torch.service ...`` started without the card;
+    its first stdout line is the bound address."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cuda_visible,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen([sys.executable, "-m", "petastorm_tpu_torch.service"] + args,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
+    return child
+
+
+def _stop_children(children):
+    for child in children:
+        child.terminate()
+    for child in children:
+        try:
+            child.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=10)
+        child.stdout.close()
+        child.stderr.close()
+
+
+def control_phase(smi, cfg=CONTROL, device="cuda"):
+    """Phase 15 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a small dry run on the host; the run on
+    the card uses the defaults."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import failpoints, service
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.service.cli import collect_fleet_trace
+    from petastorm_tpu_torch.telemetry import critical_path, tracing
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+    device = torch.device(device)
+    img = cfg["image"]
+    per_epoch = img["rows"]
+    batches_per_epoch = -(-per_epoch // img["batch"])
+    on_card = "cuda:0" if device.type == "cuda" else "cpu"
+    lines, t_parts = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    fa.reset_launch_counts()
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        with make_reader(url, schema_fields=["image", "label"], num_epochs=1,
+                         shuffle_row_groups=False, workers_count=1) as reader:
+            local_digests = collections.Counter(_image_digest(r.image, r.label)
+                                                for r in reader)
+
+        # (a) The dispatcher killed mid-epoch and restarted from its journal.
+        t0 = time.perf_counter()
+        journal_dir = os.path.join(tmp, "journal")
+        epochs = cfg["epochs"]
+        disp = service.Dispatcher(journal_dir=journal_dir, num_epochs=epochs).start()
+        port = disp.address[1]
+        state = {"disp": disp}
+        workers = []
+        # Every send is slowed (the slow-peer failpoint, no key) from the
+        # first batch until the client's resync: the workers cannot run
+        # ahead of the restart, so the first epoch's streams outlive one
+        # client heartbeat after it and the fence reaches a live drain.
+        slow = failpoints.FaultSchedule(
+            cfg["seed"], points=["slow-peer"], delay_s=cfg["restart_slow_s"],
+            fires={"slow-peer": {i: "delay" for i in range(4 * batches_per_epoch)}})
+        try:
+            for i in range(cfg["workers"]):
+                workers.append(service.BatchWorker(
+                    url, dispatcher_address=disp.address, batch_size=img["batch"],
+                    reader_factory="row", worker_id=f"ctl-{i}",
+                    heartbeat_interval_s=cfg["heartbeat_s"],
+                    reader_kwargs={"workers_count": cfg["workers_count"]}).start())
+            model, step = _image_trainer(img, device)
+            source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                heartbeat_interval_s=cfg["heartbeat_s"],
+                                                max_retries=6, backoff_base=0.05,
+                                                backoff_max=0.5)
+            digests, losses, devices = [], [], set()
+            loader = _image_service_loader(source, img, device, digests)
+            restart = {}
+            failpoints.arm(slow)
+            t_run = time.perf_counter()
+            with loader:
+                for i, batch in enumerate(loader):
+                    if "at" in restart and "next_batch_s" not in restart:
+                        restart["next_batch_s"] = time.perf_counter() - restart["at"]
+                    devices.update(str(t.device) for t in batch.values()
+                                   if torch.is_tensor(t))
+                    loss, _ = _image_step(step, batch, device)
+                    losses.append(loss)
+                    if failpoints.ACTIVE is slow \
+                            and source.diagnostics["recovery"]["resyncs"] >= 1:
+                        failpoints.disarm()
+                    if i + 1 == cfg["restart_after"]:
+                        restart["fencing_before"] = disp.state_snapshot()["fencing_epoch"]
+                        disp.stop()
+                        disp.drop_connections()
+                        restart["at"] = time.perf_counter()
+                        state["disp"] = service.Dispatcher(
+                            port=port, journal_dir=journal_dir, num_epochs=epochs).start()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            run_s = time.perf_counter() - t_run
+            if failpoints.ACTIVE is slow:
+                failpoints.disarm()
+            status = source.dispatcher_status()
+            recovery = source.diagnostics["recovery"]
+            diag = loader.diagnostics
+        finally:
+            if failpoints.ACTIVE is slow:
+                failpoints.disarm()
+            _stop_fleet(state["disp"], workers)
+            disp.stop()
+        losses = [float(x) for x in losses]
+        bad = _epoch_digests_ok(digests, local_digests, per_epoch, epochs)
+        if bad:
+            fail(f"control (a): {len(digests)} images over {epochs} epochs across the "
+                 f"dispatcher restart; epochs {bad} differ from the local reader's multiset")
+        if devices != {on_card} or not all(math.isfinite(x) for x in losses):
+            fail(f"control (a): batches on {sorted(devices)}, losses {losses[:4]}...")
+        if status["recovery"]["journal_replays"] != 1 \
+                or not status["fencing_epoch"] > restart["fencing_before"]:
+            fail(f"control (a): the restarted dispatcher shows journal_replays "
+                 f"{status['recovery']['journal_replays']}, fencing epoch "
+                 f"{status['fencing_epoch']} (was {restart['fencing_before']})")
+        if recovery["resyncs"] < 1:
+            fail(f"control (a): the client never resynced: {recovery}")
+        t_parts["a"] = time.perf_counter() - t0
+        lines.append(
+            f"control (a): image path ({cfg['workers']} row workers x "
+            f"{cfg['workers_count']} threads, batch {img['batch']}, credits {cfg['credits']}, "
+            f"heartbeats {cfg['heartbeat_s']} s) -> CNN, {epochs} epochs; the dispatcher "
+            f"(journal_dir) stopped after {cfg['restart_after']} of {batches_per_epoch} "
+            f"batches and restarted on its port from the journal, sends slowed "
+            f"{cfg['restart_slow_s']} s from the start until the resync: "
+            f"restart_to_next_batch_s="
+            f"{restart['next_batch_s']:.4f} images_per_s_over_run="
+            f"{len(digests) / run_s:.1f} run_s={run_s:.2f} journal_replays="
+            f"{status['recovery']['journal_replays']} fencing {restart['fencing_before']}"
+            f"->{status['fencing_epoch']} resyncs={recovery['resyncs']} streams_retired="
+            f"{recovery['streams_retired']} heartbeat_failures="
+            f"{recovery['heartbeat_failures']} duplicates_dropped="
+            f"{recovery['duplicates_dropped']} input_stall_pct={diag['input_stall_pct']} "
+            f"loss_first={losses[0]:.4f} loss_last={losses[-1]:.4f} epoch_digests=local "
+            f"x{epochs}")
+        del model, step, loader
+
+        # (b) Hedging a slow peer; a breaker tripped on one worker.
+        t0 = time.perf_counter()
+        tab_url = f"file://{tmp}/criteo"
+        rows = td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        outcomes = {}
+        for case in ("hedge", "breaker"):
+            torch.manual_seed(0)
+            model = td.init_dlrm(device=device)
+            step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+            disp, workers = _service_fleet(service, tab_url, dict(cfg, workers=2), "batch",
+                                           cfg["tab_batch"], cfg["tab_workers_count"],
+                                           mode="static")
+            slow_wid = workers[1].worker_id
+            if case == "hedge":
+                schedule = failpoints.FaultSchedule(
+                    cfg["seed"], points=["slow-peer", "hedge-race"],
+                    delay_s=cfg["hedge_delay_s"], targets={"slow-peer": slow_wid},
+                    fires={"slow-peer": {i: "delay" for i in cfg["hedge_at"]}})
+                # The 0.9 quantile: with tens of gaps a 0.99 fit is the
+                # largest one, a stream's first (its reader's start-up).
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    ordered=True, hedging=True,
+                                                    hedge_quantile=cfg["hedge_quantile"])
+            else:
+                schedule = failpoints.FaultSchedule(
+                    cfg["seed"], points=["breaker-trip"],
+                    fires={"breaker-trip": {i: "reset" for i in range(8)}})
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    ordered=True, breaker_threshold=2,
+                                                    max_retries=1, backoff_base=0.02,
+                                                    backoff_max=0.1)
+            try:
+                with failpoints.armed(schedule), \
+                        TorchDataLoader(None, source, device=device) as loader:
+                    if case == "breaker":
+                        loader = _DroppingLoader(loader, workers[1], cfg["drop_after"])
+                    rate, ids, losses, devices = _dlrm_epoch(loader, device, step)
+                if case == "breaker":
+                    deadline = time.monotonic() + 5
+                    while time.monotonic() < deadline:
+                        status = source.dispatcher_status()
+                        if slow_wid in status["fleet"]["breaker_open"]:
+                            break
+                        time.sleep(0.05)
+                    with FramedConnection.connect(disp.address, timeout=10.0) as conn:
+                        routed = conn.request({"type": "get_assignment",
+                                               "client_id": "ctl-late", "client_index": 0,
+                                               "num_clients": 1, "epoch": 1})[0]
+                    outcomes[case] = {"status": status, "routed": routed}
+                diag = source.diagnostics
+            finally:
+                _stop_fleet(disp, workers)
+            counts = np.bincount(ids, minlength=rows)
+            if len(ids) != rows or counts.max() != 1:
+                fail(f"control (b) {case}: {len(ids)} rows delivered for {rows}, "
+                     f"{int((counts > 1).sum())} more than once, "
+                     f"{int((counts == 0).sum())} never")
+            if not all(math.isfinite(x) for x in losses) or devices != [on_card]:
+                fail(f"control (b) {case}: losses {losses[:4]}..., devices {devices}")
+            outcomes.setdefault(case, {}).update(rate=rate, diag=diag, wid=slow_wid,
+                                                 log=schedule.log_snapshot())
+            del model, step
+        hedge = outcomes["hedge"]["diag"]["resilience"]["hedge_counts"]
+        if hedge["launched"] < 1:
+            fail(f"control (b) hedge: no hedge launched against the slow peer: {hedge}")
+        dedup = outcomes["hedge"]["diag"]["recovery"]["duplicates_dropped"]
+        if hedge["won"] and not dedup:
+            # A won race leaves the slow primary's late batches of the piece
+            # to the watermark dedup.
+            fail(f"control (b) hedge: {hedge['won']} hedges won but no loser's batch was "
+                 "dropped")
+        breaker = outcomes["breaker"]
+        b_state = breaker["diag"]["resilience"]["breakers"].get(breaker["wid"], {})
+        if b_state.get("state") != "open" \
+                or breaker["wid"] not in breaker["status"]["fleet"]["breaker_open"]:
+            fail(f"control (b) breaker: the client's breaker {b_state}, the dispatcher's "
+                 f"breaker_open {sorted(breaker['status']['fleet']['breaker_open'])}")
+        if breaker["wid"] in breaker["routed"]["workers"]:
+            fail(f"control (b) breaker: a new grant went to the breaker-open worker: "
+                 f"{breaker['routed']['workers']}")
+        t_parts["b"] = time.perf_counter() - t0
+        lines.append(
+            f"control (b): Criteo-shaped store ({rows} rows) -> DLRM one epoch each, "
+            f"batch {cfg['tab_batch']}, 2 workers x {cfg['tab_workers_count']} threads, "
+            f"credits {cfg['credits']}, ordered: slow peer (slow-peer "
+            f"{cfg['hedge_delay_s']} s at its sends {list(cfg['hedge_at'])}, hedging at "
+            f"quantile {cfg['hedge_quantile']}) "
+            f"rows_per_s={outcomes['hedge']['rate']:.1f} hedges launched={hedge['launched']} "
+            f"won={hedge['won']} lost={hedge['lost']} threshold_s="
+            f"{outcomes['hedge']['diag']['resilience']['hedge_threshold_s']} "
+            f"duplicates_dropped={dedup}; breaker (one worker's connections dropped after "
+            f"{cfg['drop_after']} batches, its reconnects reset, threshold 2) rows_per_s="
+            f"{breaker['rate']:.1f} breaker={b_state.get('state')} dispatcher_breaker_open="
+            f"{sorted(breaker['status']['fleet']['breaker_open'])} takeovers="
+            f"{breaker['diag']['recovery']['takeovers']} new_grant_workers="
+            f"{sorted(breaker['routed']['workers'])}; every row exactly once in both")
+
+        # (c) A fleet trace of the image path: a dispatcher and two workers in
+        # processes of their own, the trainer here.
+        t0 = time.perf_counter()
+        children = []
+        try:
+            disp_proc = _cli_node(["dispatcher", "--port", "0", "--num-epochs", "1"])
+            children.append(disp_proc)
+            hello = json.loads(disp_proc.stdout.readline() or "{}")
+            if "port" not in hello:
+                fail(f"control (c): the dispatcher process did not start: "
+                     f"{disp_proc.stderr.read()[-2000:]}")
+            address = ("127.0.0.1", hello["port"])
+            for i in range(cfg["workers"]):
+                children.append(_cli_node(
+                    ["worker", "--dispatcher", f"127.0.0.1:{hello['port']}", "--dataset-url",
+                     url, "--reader", "row", "--batch-size", str(img["batch"]),
+                     "--workers-count", str(cfg["workers_count"]), "--worker-id",
+                     f"trace-{i}", "--heartbeat-interval", str(cfg["heartbeat_s"])]))
+            for child in children[1:]:
+                if not json.loads(child.stdout.readline() or "{}").get("worker_id"):
+                    fail(f"control (c): a worker process did not start: "
+                         f"{child.stderr.read()[-2000:]}")
+            with FramedConnection.connect(address, timeout=10.0) as conn:
+                conn.request({"type": "trace", "action": "arm"})
+            time.sleep(3 * cfg["heartbeat_s"])  # the workers arm on a heartbeat
+            model, step = _image_trainer(img, device)
+            source = service.ServiceBatchSource(address, credits=cfg["credits"],
+                                                heartbeat_interval_s=cfg["heartbeat_s"])
+            digests = []
+            loader = _image_service_loader(source, img, device, digests)
+            tracing.COLLECTOR.acquire()  # from the first batch on
+            try:
+                with loader:
+                    for batch in loader:
+                        _image_step(step, batch, device)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    stall = loader.diagnostics["input_stall_pct"]
+            finally:
+                tracing.COLLECTOR.release()
+            doc = collect_fleet_trace(address)
+            with FramedConnection.connect(address, timeout=10.0) as conn:
+                conn.request({"type": "trace", "action": "disarm"})
+        finally:
+            _stop_children(children)
+        if _epoch_digests_ok(digests, local_digests, per_epoch, 1):
+            fail(f"control (c): the traced epoch's {len(digests)} images differ from the "
+                 "local reader's")
+        alignment = doc["otherData"]["clock_alignment"]
+        peers = {source.client_id, "trace-0", "trace-1"}
+        names = set(critical_path.process_names(doc["traceEvents"]).values())
+        offsets = {p: (alignment.get(p) or {}).get("offset_us") for p in peers}
+        if not peers <= set(alignment) or "dispatcher" not in names or not all(
+                o is not None and math.isfinite(o) for o in offsets.values()):
+            fail(f"control (c): the fleet trace holds {sorted(names)}, alignment "
+                 f"{alignment}")
+        report = critical_path.diagnose(doc["traceEvents"], measured_stall_pct=stall)
+        profile = " ".join(f"{name}:{p['count']}x{p['mean_us'] / 1000:.3f}ms"
+                           for name, p in sorted(report["stage_profile"].items()))
+        ranked = " ".join(f"{r['stage']}@{r['peer']}:{r['share_pct']:.1f}%"
+                          for r in report["bottlenecks"][:5])
+        t_parts["c"] = time.perf_counter() - t0
+        lines.append(
+            f"control (c): one traced epoch of (a)'s image path, dispatcher and 2 workers "
+            f"in processes of their own: events={len(doc['traceEvents'])} dropped="
+            f"{doc['otherData']['dropped_events']} offsets_us="
+            + ",".join(f"{p}:{offsets[p]:.1f}" for p in sorted(peers))
+            + f" min_rtt_us=" + ",".join(
+                f"{p}:{(alignment[p].get('min_rtt_us') or 0.0):.1f}" for p in sorted(peers))
+            + f" measured_input_stall_pct={stall} wait_ms={report['wait_total_us'] / 1000:.1f}"
+            f" coverage_pct={report['coverage_pct']} bottlenecks: {ranked}; "
+            f"stage_profile: {profile}")
+        del model, step, loader
+    finally:
+        if failpoints.ACTIVE is not None:
+            failpoints.disarm()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"control: a flash kernel ran on the control-plane path: {launches}")
+    print("\n".join(lines), flush=True)
+    print(f"control: gpu={smi!r} parts_s=" + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items())
+          + f" flash_launches={launches}", flush=True)
+    return {"restart_to_next_batch_s": restart["next_batch_s"]}
+
+
+class _DroppingLoader:
+    """Iterates ``loader`` and drops ``worker``'s connections after
+    ``after`` batches (the stream break the breaker case starts from)."""
+
+    def __init__(self, loader, worker, after):
+        self._loader, self._worker, self._after = loader, worker, after
+
+    def __iter__(self):
+        for i, batch in enumerate(self._loader):
+            if i == self._after:
+                self._worker.drop_connections()
+            yield batch
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -4178,7 +4615,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 14. service -------------------------------------------
+    # -- 4. image ... 15. control -------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -4190,7 +4627,8 @@ def main():
                       ("pool", lambda: pool_phase(smi, out["image"])),
                       ("parallel", lambda: parallel_phase(smi)),
                       ("autotune", lambda: autotune_phase(smi)),
-                      ("service", lambda: service_phase(smi, out["image"]))):
+                      ("service", lambda: service_phase(smi, out["image"])),
+                      ("control", lambda: control_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

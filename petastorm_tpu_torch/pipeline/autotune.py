@@ -23,10 +23,11 @@ Two layers, split so the decision logic is a pure function of its inputs:
   values as ``petastorm_autotune_knob_value`` gauges) and an in-memory
   ``trail``.
 
-Both decide as the JAX package's do on the same profiles. One input is
-not ported: the JAX planner skips a probe while the data service's
-level-2 brownout is in force; the port has no data service, so no
-brownout, and the planner never skips for it.
+Both decide as the JAX package's do on the same profiles. The planner
+skips a probe while the data service's level-2 brownout is in force
+(:func:`petastorm_tpu_torch.service.resilience.optional_stages_shed`): a
+probe perturbs a knob to measure, and measurement is optional work a
+drowning fleet sheds.
 
 Disabled is the default everywhere: a loader without ``autotune=`` builds
 no graph and starts no thread.
@@ -306,7 +307,13 @@ class Planner:
             self.last_outcome = "noop"
             return decisions
 
-        # 3. Probe the first un-settled candidate knob for this class.
+        # 3. Probe the first un-settled candidate knob for this class, unless
+        # a level-2 brownout is in force (an outstanding probe's evaluation
+        # above still completes).
+        from petastorm_tpu_torch.service.resilience import optional_stages_shed
+        if optional_stages_shed():
+            self.last_outcome = "noop"
+            return decisions
         for entry in _CLASS_KNOBS.get(cls, ()):
             name, _, want = entry.partition(":")
             desc = self.knobs.get(name)

@@ -3,8 +3,12 @@ matching part of ``petastorm_tpu/service/``): a :class:`Dispatcher` owns
 the split plan, :class:`BatchWorker` s serve collated numpy batches over
 framed TCP, and a :class:`ServiceBatchSource` feeds them to a trainer's
 ``TorchDataLoader``; the seed tree (:mod:`~petastorm_tpu_torch.service.
-seedtree`) orders pieces deterministically. Run a node with ``python -m
-petastorm_tpu_torch.service dispatcher|worker``."""
+seedtree`) orders pieces deterministically. The control plane: the
+dispatcher's journal (:mod:`~petastorm_tpu_torch.service.journal`),
+fencing resyncs, and the resilience layer's breakers, retry budgets,
+hedging and brownout (:mod:`~petastorm_tpu_torch.service.resilience`).
+Run a node with ``python -m petastorm_tpu_torch.service
+dispatcher|worker``."""
 
 from petastorm_tpu_torch.service.client import ServiceBatchSource, ServiceError
 from petastorm_tpu_torch.service.dispatcher import Dispatcher

@@ -1,6 +1,7 @@
 """``python -m petastorm_tpu_torch.service``: run a dispatcher or a batch
 worker (the port's own copy of ``petastorm_tpu/service/cli.py``, its
-``dispatcher``, ``worker`` and ``status`` commands).
+``dispatcher``, ``worker``, ``status``, ``trace`` and ``diagnose``
+commands).
 
 A two-worker service on one machine::
 
@@ -19,8 +20,17 @@ Each process prints one JSON line with its bound address (port 0 picks a
 free port) and serves until SIGINT or SIGTERM. ``--metrics-port`` serves
 the process's metrics registry (:mod:`petastorm_tpu_torch.telemetry.http`).
 ``status --dispatcher host:port`` prints the dispatcher's control-plane
-state as one JSON line. Workers never touch a CUDA device; run them with
-``CUDA_VISIBLE_DEVICES=""`` beside a trainer.
+state as one JSON line (``--table``: one row per worker with its breaker
+state, and the brownout, quarantine and journal lines). ``--journal-dir``
+makes the dispatcher durable: a restart on the same directory replays it.
+
+Fleet tracing: ``trace arm --dispatcher host:port`` arms every process's
+span collector through the heartbeats, ``trace collect --out f.json``
+writes the clock-aligned merged trace (Perfetto loads it), ``trace
+disarm`` stops; ``diagnose --dispatcher host:port [--stall-pct x]`` (or
+``--trace f.json``) prints the critical-path stall attribution and
+journals its stage profile to the dispatcher. Workers never touch a CUDA
+device; run them with ``CUDA_VISIBLE_DEVICES=""`` beside a trainer.
 """
 
 from __future__ import annotations
@@ -55,7 +65,11 @@ def _build_parser():
     disp.add_argument("--num-epochs", type=int, default=1,
                       help="epochs to serve; 0 means serve forever")
     disp.add_argument("--journal-dir", default=None,
-                      help="crash-recovery journal (comes with a later slice)")
+                      help="crash-recovery journal directory (JSONL WAL and compacted "
+                           "snapshots); a restarted dispatcher replays it. Omit for "
+                           "in-memory state")
+    disp.add_argument("--journal-compact-every", type=int, default=256,
+                      help="WAL records between snapshot compactions")
     disp.add_argument("--lease-timeout", type=float, default=30.0,
                       help="seconds without a heartbeat before a worker is evicted; 0 "
                            "disables lease expiry")
@@ -91,7 +105,8 @@ def _build_parser():
                       help="pooled standby capacity (comes with a later slice)")
     work.add_argument("--on-piece-error", default="fail", choices=["fail", "quarantine"],
                       dest="on_piece_error",
-                      help="poison-piece policy ('quarantine' comes with a later slice)")
+                      help="poison-piece policy ('quarantine' comes with the streaming "
+                           "piece engine, a later slice)")
     work.add_argument("--corpus", default="",
                       help="corpus of a multi-corpus fleet (comes with a later slice)")
     work.add_argument("--transport", default=None, choices=["auto", "tcp", "shm"],
@@ -108,6 +123,31 @@ def _build_parser():
 
     stat = sub.add_parser("status", help="print the dispatcher's control-plane state")
     stat.add_argument("--dispatcher", required=True, help="dispatcher address host:port")
+    stat.add_argument("--table", action="store_true",
+                      help="a table of the workers (breaker state) and the brownout, "
+                           "quarantine and journal lines instead of JSON")
+
+    trace = sub.add_parser("trace", help="fleet tracing: arm every process's span "
+                                         "collector, collect the merged trace, or disarm")
+    trace.add_argument("action", nargs="?", default="collect",
+                       choices=["arm", "collect", "disarm"])
+    trace.add_argument("--dispatcher", required=True, help="dispatcher address host:port")
+    trace.add_argument("--out", default="fleet-trace.json",
+                       help="collect: where the merged trace JSON lands")
+
+    diag = sub.add_parser("diagnose", help="critical-path stall attribution over a fleet "
+                                           "trace")
+    diag.add_argument("--dispatcher", default=None,
+                      help="collect the trace live from this (armed) dispatcher and "
+                           "journal the stage profile back to it")
+    diag.add_argument("--trace", default=None, help="a collected trace JSON file instead")
+    diag.add_argument("--stall-pct", type=float, default=None,
+                      help="the measured input_stall_pct: each bottleneck row then shows "
+                           "its share of it")
+    diag.add_argument("--json", action="store_true", dest="as_json",
+                      help="the full report as JSON instead of the ranked table")
+    diag.add_argument("--no-post", action="store_true",
+                      help="do not journal the stage profile to the dispatcher")
     return parser
 
 
@@ -119,6 +159,7 @@ def build_service_node(args):
         return Dispatcher(host=args.host, port=args.port, mode=args.mode,
                           num_epochs=args.num_epochs or None, journal_dir=args.journal_dir,
                           lease_timeout_s=args.lease_timeout or None,
+                          journal_compact_every=args.journal_compact_every,
                           journal_fsync=args.journal_fsync, shuffle_seed=args.shuffle_seed,
                           autoscale=True if args.autoscale else None)
     from petastorm_tpu_torch.service.worker import BatchWorker
@@ -157,18 +198,139 @@ def resolve_batch_transform(spec):
     return target
 
 
+def _request(address, header, timeout=10.0):
+    from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+
+    with FramedConnection.connect(address, timeout=timeout) as conn:
+        return conn.request(header)
+
+
+def render_status(status):
+    """A ``status`` reply → the ``status --table`` view: one row per worker
+    (alive, lifecycle state, lease, breaker) and the brownout, breaker,
+    quarantine, degraded and journal lines."""
+    fleet = status.get("fleet") or {}
+    breaker_open = fleet.get("breaker_open") or {}
+    workers = status.get("workers") or {}
+    alive = sum(1 for w in workers.values() if w.get("alive"))
+    lines = [f"mode={status.get('mode')} fencing_epoch={status.get('fencing_epoch')} "
+             f"workers={alive} alive/{len(workers) - alive} dead "
+             f"clients={len(status.get('clients') or {})}",
+             f"{'WORKER':<20} {'ALIVE':>6} {'STATE':>9} {'LEASE_S':>8} {'BREAKER':>8}"]
+    for wid, w in sorted(workers.items()):
+        lease = w.get("lease_expires_in_s")
+        lines.append(f"{wid:<20} {'yes' if w.get('alive') else 'no':>6} "
+                     f"{w.get('state', 'serving'):>9} "
+                     f"{'--' if lease is None else f'{lease:.1f}':>8} "
+                     f"{'open' if wid in breaker_open else 'ok':>8}")
+    brownout = fleet.get("brownout") or {}
+    counts = brownout.get("counts") or {}
+    line = (f"brownout: level={brownout.get('level', 0)} shed={counts.get('shed', 0)} "
+            f"recover={counts.get('recover', 0)}")
+    if brownout.get("reason"):
+        line += f" reason={brownout['reason']}"
+    if brownout.get("armed"):
+        line += " [armed]"
+    lines.append(line)
+    if breaker_open:
+        lines.append("breaker-open: " + " ".join(sorted(breaker_open)))
+    if status.get("quarantined"):
+        lines.append("quarantined: " + " ".join(sorted(status["quarantined"], key=int)))
+    if status.get("degraded"):
+        lines.append(f"DEGRADED (read-only): {status['degraded']}")
+    journal = status.get("journal")
+    if journal:
+        lines.append(f"journal: {journal['path']} appended={journal['records_appended']} "
+                     f"compactions={journal['compactions']} "
+                     f"replays={(status.get('recovery') or {}).get('journal_replays', 0)}")
+    return "\n".join(lines)
+
+
+def collect_fleet_trace(address, timeout=15.0):
+    """One ``trace collect`` request → the clock-aligned merged trace
+    document (:func:`~petastorm_tpu_torch.telemetry.clockalign.
+    assemble_fleet_trace`). Raises RuntimeError on an error reply."""
+    from petastorm_tpu_torch.telemetry.clockalign import assemble_fleet_trace
+
+    reply, payload = _request(address, {"type": "trace", "action": "collect"},
+                              timeout=timeout)
+    if reply.get("type") == "error":
+        raise RuntimeError(reply.get("error", "trace collect failed"))
+    payload = payload or {}
+    local = payload.get("local") or {}
+    peers = {str(name): {"events": buf.get("events") or [],
+                         "offset_us": buf.get("offset_us"),
+                         "dropped": int(buf.get("dropped") or 0),
+                         "min_rtt_us": buf.get("min_rtt_us")}
+             for name, buf in (payload.get("peers") or {}).items()}
+    return assemble_fleet_trace(local.get("events") or [], peers,
+                                local_dropped=int(local.get("dropped") or 0))
+
+
+def run_trace(address, action, out=None):
+    """``trace``: arm / disarm print the dispatcher's reply; collect writes
+    the merged trace and prints its path, event count and alignment."""
+    if action != "collect":
+        reply, _ = _request(address, {"type": "trace", "action": action})
+        print(json.dumps(reply), flush=True)
+        return 0 if reply.get("type") != "error" else 1
+    doc = collect_fleet_trace(address)
+    path = out or "fleet-trace.json"
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    print(json.dumps({"trace": path, "events": len(doc["traceEvents"]),
+                      "clock_alignment": doc["otherData"].get("clock_alignment")}),
+          flush=True)
+    return 0
+
+
+def run_diagnose(address=None, trace_path=None, as_json=False, stall_pct=None, post=True,
+                 out=None):
+    """``diagnose``: critical-path stall attribution over a fleet trace,
+    collected live from an armed dispatcher or read from ``trace_path``;
+    with ``post`` the stage profile is journaled back to the dispatcher."""
+    from petastorm_tpu_torch.telemetry import critical_path
+
+    out = out if out is not None else sys.stdout
+    if trace_path is not None:
+        with open(trace_path, encoding="utf-8") as f:
+            events = (json.load(f) or {}).get("traceEvents") or []
+    elif address is not None:
+        events = collect_fleet_trace(address).get("traceEvents") or []
+    else:
+        print("diagnose needs --dispatcher (live collect) or --trace (a collected trace "
+              "file)", file=sys.stderr, flush=True)
+        return 2
+    report = critical_path.diagnose(events, measured_stall_pct=stall_pct)
+    if post and address is not None:
+        try:
+            _request(address, {"type": "stage_profile", "profile": report["stage_profile"],
+                               "coverage_pct": report["coverage_pct"],
+                               "source": "diagnose"})
+        except (ConnectionError, OSError) as exc:
+            print(f"stage profile not journaled: {exc}", file=sys.stderr, flush=True)
+    print(json.dumps(report) if as_json else critical_path.render(report), file=out,
+          flush=True)
+    return 0
+
+
 def main(argv=None, run_seconds=None, stop_event=None):
     """Entry point. ``run_seconds`` bounds the serve loop and ``stop_event``
     ends it early (an embedding test tears the node down with it); by
     default a node serves until SIGINT or SIGTERM."""
     args = _build_parser().parse_args(argv)
     if args.role == "status":
-        from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
-
-        with FramedConnection.connect(parse_address(args.dispatcher), timeout=10.0) as conn:
-            reply, _ = conn.request({"type": "status"})
-        print(json.dumps(reply), flush=True)
+        reply, _ = _request(parse_address(args.dispatcher), {"type": "status"})
+        print(render_status(reply) if args.table and reply.get("type") == "status"
+              else json.dumps(reply), flush=True)
         return 0 if reply.get("type") == "status" else 1
+    if args.role == "trace":
+        return run_trace(parse_address(args.dispatcher), args.action, out=args.out)
+    if args.role == "diagnose":
+        return run_diagnose(
+            address=parse_address(args.dispatcher) if args.dispatcher else None,
+            trace_path=args.trace, as_json=args.as_json, stall_pct=args.stall_pct,
+            post=not args.no_post)
     node = build_service_node(args)
     metrics_server = None
     if args.metrics_port is not None:

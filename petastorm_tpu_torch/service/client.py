@@ -20,10 +20,29 @@ the seed-tree order of the dispatcher's ``shuffle_seed``, batches by
 ordinal), so two runs yield the same batches in the same order.
 
 A broken stream is retried against the same worker with backoff
-(:func:`petastorm_tpu_torch.utils.retry_with_backoff`); a worker that stays
-down is reported to the dispatcher, which re-partitions its pieces across
-the survivors (at-least-once on an untagged stream). fcfs mode pulls one
-split at a time from the dispatcher's shared queue.
+(:func:`petastorm_tpu_torch.utils.retry_with_backoff`), each retry spending
+the peer's retry budget; a worker that stays down, or whose circuit breaker
+tripped (``breaker_threshold`` consecutive failures, reported to the
+dispatcher, which routes new grants around it), is reported dead, and the
+dispatcher re-partitions its pieces across the survivors (at-least-once on
+an untagged stream). fcfs mode pulls one split at a time from the
+dispatcher's shared queue.
+
+While a static drain runs, a heartbeat thread (``heartbeat_interval_s``)
+ships the delivery watermarks and the ready-queue fullness to the
+dispatcher and reads its fencing epoch: an epoch past the one the
+assignment was fetched at (a dispatcher restart, an eviction) posts a
+``fence`` into the drain, which re-fetches the assignment and keeps every
+stream whose pieces still map to its worker, retiring and relaunching only
+the moved ones at their watermarks. The heartbeat also samples the clock
+offset against the dispatcher and follows its fleet-tracing flag, pushing
+this process's span ring while it is armed. ``hedging=True`` re-grants a
+stream's in-flight piece at its watermark on a peer when the stream stays
+silent past a threshold fit from the run's own inter-batch gaps
+(:class:`~petastorm_tpu_torch.service.resilience.GapTracker`); the first
+``piece_done`` wins and the loser is cancelled. With
+``on_piece_error="quarantine"`` a ``piece_failed`` frame completes the
+piece empty and reports it to the dispatcher, which journals it.
 
 :meth:`ServiceBatchSource.state_dict` snapshots the epoch, the completed
 pieces and the watermarks (static mode); ``TorchDataLoader.state_dict()``
@@ -42,12 +61,22 @@ import threading
 import time
 import uuid
 
+from petastorm_tpu_torch import failpoints
 from petastorm_tpu_torch.reader_impl.framed_socket import (
     ConnectionClosedError,
     FramedConnection,
     ProtocolError,
 )
+from petastorm_tpu_torch.service.resilience import (
+    CircuitBreaker,
+    GapTracker,
+    RetryBudget,
+    attach_deadline,
+    note_brownout_level,
+)
 from petastorm_tpu_torch.service.seedtree import piece_order
+from petastorm_tpu_torch.telemetry import tracing
+from petastorm_tpu_torch.telemetry.clockalign import OffsetEstimator
 from petastorm_tpu_torch.telemetry.metrics import (
     CLIENT_BATCHES,
     CLIENT_DEDUP_DROPPED,
@@ -56,6 +85,10 @@ from petastorm_tpu_torch.telemetry.metrics import (
     CLIENT_RECV_STALL,
     CLIENT_TRANSFORM_SECONDS,
     CLIENT_WATERMARK_LAG,
+    QUARANTINE_REPORTS,
+    RESILIENCE_BREAKER_STATE,
+    RESILIENCE_HEDGES,
+    RESILIENCE_RETRY_BUDGET,
 )
 from petastorm_tpu_torch.utils import resize_bounded_queue, retry_with_backoff
 
@@ -64,16 +97,6 @@ logger = logging.getLogger(__name__)
 #: ``ServiceBatchSource`` arguments this slice does not take: the value
 #: that asks for nothing, and the slice that ports the feature.
 UNPORTED_SOURCE_ARGS = {
-    "hedging": (False, "hedged re-serves come with the control plane's resilience "
-                       "layer, slice (b)"),
-    "retry_budget": (10.0, "retry budgets come with the control plane's resilience "
-                           "layer, slice (b)"),
-    "breaker_threshold": (5, "circuit breakers come with the control plane's "
-                             "resilience layer, slice (b)"),
-    "breaker_cooldown_s": (5.0, "circuit breakers come with the control plane's "
-                                "resilience layer, slice (b)"),
-    "on_piece_error": ("fail", "poison-piece quarantine comes with the control plane, "
-                               "slice (b)"),
     "predicate": (None, "the row filter runs inside the streaming engine, slice (c)"),
     "projection": (None, "column pruning runs inside the streaming engine, slice (c)"),
     "filter_placement": ("client", "the filter-hoisting rewrite runs inside the "
@@ -129,9 +152,11 @@ class _WorkerStream:
         self._closed = False
 
     def next_event(self):
-        """``("batch", payload)``, ``("piece_done", piece)`` or ``("end",
-        None)``; an ``error`` reply raises :class:`ServiceError` (a
-        retryable one :class:`ConnectionClosedError`)."""
+        """``("batch", payload)``, ``("piece_done", piece)``,
+        ``("piece_failed", (piece, error))`` (the worker quarantined an
+        undecodable piece) or ``("end", None)``; an ``error`` reply raises
+        :class:`ServiceError` (a retryable one
+        :class:`ConnectionClosedError`)."""
         if self._closed:
             # A teardown close is terminal: reconnecting would send the
             # worker a stream request nobody consumes.
@@ -149,6 +174,10 @@ class _WorkerStream:
                 self._conn = None
                 raise ConnectionClosedError("stream closed")
             request = {"type": "stream", "pieces": self.pieces, "epoch": self.epoch}
+            # The stream-open budget is the dial timeout: a request still
+            # unstarted in the worker's backlog past it is refused there.
+            if self._connect_timeout is not None:
+                attach_deadline(request, time.monotonic() + self._connect_timeout)
             if self.shuffle_seed is not None:
                 request["shuffle_seed"] = int(self.shuffle_seed)
             if self.transform_placement is not None:
@@ -172,6 +201,8 @@ class _WorkerStream:
             return ("batch", payload)
         if kind == "piece_done":
             return ("piece_done", int(header["piece"]))
+        if kind == "piece_failed":
+            return ("piece_failed", (int(header["piece"]), str(header.get("error", ""))))
         if kind == "end":
             self.close()
             return ("end", None)
@@ -317,10 +348,14 @@ class _DeliveryBook:
     def emit(self, released):
         """Yield a sequencer's released batches, completing pieces as
         their markers come out."""
+        collector = tracing.COLLECTOR
         for ev in released:
             if ev[0] == "batch":
-                _, piece, (ordinal, payload, stream, bid) = ev
+                _, piece, (ordinal, payload, stream, bid, t_enqueued) = ev
                 self.account_yielded(piece, ordinal, stream.worker_id, bid)
+                if collector.enabled:
+                    collector.record_span("client.queue", t_enqueued, time.perf_counter(),
+                                          bid=bid)
                 yield payload
             else:
                 self.complete_piece(ev[1], ev[2])
@@ -328,10 +363,11 @@ class _DeliveryBook:
 
 class _StreamReader(threading.Thread):
     """One worker stream's receive loop: events go to the shared ready
-    queue as ``(kind, sid, item)``: ``batch`` per payload (with its tags),
-    ``piece_done`` per finished piece, then one terminal ``end``,
-    ``broken`` (a connection failure: retry or takeover) or ``error``
-    (re-raised by the consumer)."""
+    queue as ``(kind, sid, item)``: ``batch`` per payload (with its tags
+    and the time it was queued), ``piece_done`` / ``piece_failed`` per
+    finished or quarantined piece, then one terminal ``end``, ``broken``
+    (a connection failure: retry or takeover) or ``error`` (re-raised by
+    the consumer)."""
 
     def __init__(self, sid, stream, ready, stop, note_recv):
         super().__init__(daemon=True, name=f"service-stream-{stream.worker_id}")
@@ -353,17 +389,20 @@ class _StreamReader(threading.Thread):
                     if not self._stopped.is_set():
                         self._put(("broken", self._sid, exc))
                     return
-                self._note_recv(self._stream.worker_id, time.perf_counter() - t0,
-                                kind == "batch")
+                t1 = time.perf_counter()
+                self._note_recv(self._stream.worker_id, t1 - t0, kind == "batch")
                 if kind == "end":
                     self._put(("end", self._sid, None))
                     return
-                if kind == "piece_done":
+                if kind in ("piece_done", "piece_failed"):
                     self._put((kind, self._sid, payload))
                     continue
+                bid = self._stream.last_bid
+                if tracing.COLLECTOR.enabled:
+                    tracing.COLLECTOR.record_span("client.recv", t0, t1, bid=bid)
                 self._put(("batch", self._sid,
                            (payload, self._stream.last_piece, self._stream.last_ordinal,
-                            self._stream.last_bid)))
+                            bid, time.perf_counter())))
         except BaseException as exc:
             # A reader dying silently would hang the consumer's get().
             self._put(("error", self._sid, exc))
@@ -392,10 +431,11 @@ class ServiceBatchSource:
     :param ready_queue_depth: bound of the shared ready-queue; ``None``
         derives ``max(4, min(streams × credits, 256))`` (``max(4, 2 ×
         streams)`` without credits). Settable while a drain runs.
-    :param heartbeat_interval_s: accepted for the JAX signature; the client
-        heartbeat (fencing resyncs, trace arming) comes with slice (b), so
-        this client sees fencing changes through ``stale_fencing`` replies.
-    :param rpc_deadline_s: time budget per dispatcher request.
+    :param heartbeat_interval_s: poll ``client_heartbeat`` this often while
+        a static drain runs (fencing resyncs, watermarks, clock samples,
+        trace arming); ``None`` disables it.
+    :param rpc_deadline_s: time budget per dispatcher request, shipped
+        with each attempt as the remaining ``deadline_left_s``.
     :param max_frame_bytes: receive frame cap of this client's connections.
     :param ordered: deterministic delivery order (static mode).
     :param transform: the batch transform, the same callable the workers
@@ -408,6 +448,16 @@ class ServiceBatchSource:
         (``None``: none; keepalive bounds a silent host).
     :param transport: ``"auto"``, ``"tcp"`` or ``None``
         (``$PETASTORM_TRANSPORT``); both are TCP (``"shm"`` raises).
+    :param on_piece_error: ``"fail"`` (a ``piece_failed`` frame raises
+        :class:`ServiceError`) or ``"quarantine"`` (the piece completes
+        empty and is reported to the dispatcher).
+    :param hedging: hedged watermark re-serves of silent streams; the
+        ``hedge_*`` arguments shape the :class:`GapTracker` threshold.
+    :param breaker_threshold, breaker_cooldown_s: the per-peer circuit
+        breaker: consecutive stream failures that trip it, seconds before
+        its half-open probe.
+    :param retry_budget: tokens of each peer's (and the dispatcher's)
+        retry budget; successes refill half a token.
 
     The arguments of :data:`UNPORTED_SOURCE_ARGS` given anything but their
     default raise NotImplementedError naming the argument and its slice.
@@ -427,10 +477,7 @@ class ServiceBatchSource:
                  breaker_cooldown_s=5.0, retry_budget=10.0):
         from petastorm_tpu_torch.service.transport import resolve_mode
 
-        given = {"hedging": bool(hedging), "retry_budget": float(retry_budget),
-                 "breaker_threshold": int(breaker_threshold),
-                 "breaker_cooldown_s": float(breaker_cooldown_s),
-                 "on_piece_error": on_piece_error, "predicate": predicate,
+        given = {"predicate": predicate,
                  "projection": projection or None, "filter_placement": filter_placement,
                  "stage_fusion": stage_fusion, "cache_placement": cache_placement,
                  "reader_family": reader_family, "packing": packing,
@@ -441,6 +488,9 @@ class ServiceBatchSource:
                 raise NotImplementedError(
                     f"ServiceBatchSource({name}=...) is not ported yet: {reason}")
         resolve_mode(transport)  # "auto" and "tcp" are TCP; "shm" raises
+        if on_piece_error not in ("fail", "quarantine"):
+            raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
+                             f"{on_piece_error!r}")
         if credits is not None and credits < 1:
             raise ValueError("credits must be a positive integer or None")
         if ready_queue_depth is not None and ready_queue_depth < 1:
@@ -466,9 +516,12 @@ class ServiceBatchSource:
         self.transform = transform
         self._transform_placement = transform_placement
         self._iter_transform_placement = transform_placement if transform is not None else None
+        self._heartbeat_interval_s = heartbeat_interval_s
         self._rpc_deadline_s = rpc_deadline_s
         self._max_frame_bytes = max_frame_bytes
         self._stream_recv_timeout_s = stream_recv_timeout_s
+        self._on_piece_error = on_piece_error
+        self._quarantined = []  # [{"piece", "worker_id", "error", "epoch"}]
         self._ordered = bool(ordered)
         self._shuffle_seed = None     # the dispatcher's, read at __call__
         self._ready_queue = None      # the live queue while a drain runs
@@ -480,16 +533,44 @@ class ServiceBatchSource:
         self._mode = None
         self._epoch = 0
         self._completed = set()
+        # The fencing epoch the live assignment was fetched (or resynced)
+        # at; the heartbeat compares the dispatcher's against it, and
+        # _fence_pending keeps one fence event in the drain at a time.
         self._synced_fencing_epoch = 0
+        self._fence_pending = False
         self._recovery = {
-            "streams_retired": 0, "takeovers": 0, "stale_fencing_retries": 0,
+            "resyncs": 0,             # fence-triggered assignment refreshes
+            "resync_failures": 0,     # resyncs deferred to the next heartbeat
+            "streams_retired": 0,     # live streams a resync moved
+            "takeovers": 0, "stale_fencing_retries": 0,
+            "heartbeat_failures": 0,  # ticks the dispatcher did not answer
             "duplicates_dropped": 0,  # sub-watermark batches a re-serve repeated
+            "pieces_quarantined": 0,  # piece_failed frames under "quarantine"
             "fencing_epoch": 0,       # the last fencing epoch a reply carried
+            "dispatcher": {},         # its recovery counters, last heartbeat
         }
         #: Per-piece delivery watermarks of the epoch in flight: the next
         #: ordinal expected from the network; every re-serve starts there.
         self._recv_watermarks = {}
         self._resume_watermarks = {}
+        # Per-peer circuit breakers and retry budgets (guarded by _lock),
+        # and the dispatcher's own budget.
+        self._breaker_threshold = int(breaker_threshold)
+        self._breaker_cooldown_s = float(breaker_cooldown_s)
+        self._retry_budget_capacity = float(retry_budget)
+        self._breakers = {}
+        self._budgets = {}
+        self._breakers_reported = set()
+        self._dispatcher_budget = RetryBudget(capacity=self._retry_budget_capacity)
+        self._hedging = bool(hedging)
+        self._gap_tracker = GapTracker(quantile=hedge_quantile, multiplier=hedge_multiplier,
+                                       min_samples=hedge_min_samples, floor_s=hedge_floor_s)
+        self._hedge_counts = {"launched": 0, "won": 0, "lost": 0}
+        # Clock samples around heartbeats, and whether the dispatcher's
+        # heartbeat replies arm fleet tracing.
+        self._clock = OffsetEstimator()
+        self._trace_armed_remote = False
+        self._reporters = []  # quarantine and breaker report threads
         self._retry_sleep = time.sleep
         if resume_state is not None:
             self._validate_resume_state(resume_state)
@@ -515,14 +596,125 @@ class ServiceBatchSource:
         self._recovery[event] += n
         CLIENT_RECOVERY_EVENTS.labels(event).inc(n)
 
+    # -- poison-piece quarantine ---------------------------------------------
+
+    def _report(self, name, request, on_failure=None):
+        """Send ``request`` to the dispatcher on a helper thread (joined at
+        the end of the drain), best-effort with one retry."""
+        def report():
+            try:
+                self._dispatcher_request(request, retries=1)
+            except (ServiceError, OSError):
+                if on_failure is not None:
+                    on_failure()
+
+        thread = threading.Thread(target=report, daemon=True,
+                                  name=f"service-{name}-{self.client_id}")
+        with self._lock:
+            self._reporters = [t for t in self._reporters if t.is_alive()] + [thread]
+        thread.start()
+
+    def _join_reporters(self, timeout=5.0):
+        with self._lock:
+            reporters, self._reporters = self._reporters, []
+        for thread in reporters:
+            thread.join(timeout=timeout)
+
+    def _note_quarantined(self, piece, worker_id, error, epoch):
+        """Record one quarantined piece and report it to the dispatcher,
+        which journals it and excludes it from every later grant. An
+        unreported piece is re-granted, and re-quarantined, next epoch."""
+        piece = int(piece)
+        with self._lock:
+            if any(e["piece"] == piece and e["epoch"] == epoch for e in self._quarantined):
+                return  # a re-serve raced the quarantine
+            self._quarantined.append({"piece": piece, "worker_id": worker_id,
+                                      "error": str(error), "epoch": int(epoch)})
+            self._recovery_inc("pieces_quarantined")
+        QUARANTINE_REPORTS.labels("client").inc()
+        logger.warning("piece %d quarantined by worker %s (%s) — continuing without it",
+                       piece, worker_id, error)
+        self._report("quarantine", {"type": "report_poison_piece",
+                                    "client_id": self.client_id, "piece": piece,
+                                    "worker_id": worker_id, "error": str(error),
+                                    "epoch": int(epoch)})
+
+    # -- circuit breakers and retry budgets ------------------------------------
+
+    def _breaker(self, worker_id):
+        with self._lock:
+            breaker = self._breakers.get(worker_id)
+            if breaker is None:
+                breaker = self._breakers[worker_id] = CircuitBreaker(
+                    threshold=self._breaker_threshold, cooldown_s=self._breaker_cooldown_s)
+            return breaker
+
+    def _budget(self, worker_id):
+        with self._lock:
+            budget = self._budgets.get(worker_id)
+            if budget is None:
+                budget = self._budgets[worker_id] = RetryBudget(
+                    capacity=self._retry_budget_capacity)
+            return budget
+
+    def _note_stream_success(self, worker_id):
+        """A stream delivered: close the peer's breaker, refill its budget."""
+        breaker = self._breaker(worker_id)
+        breaker.record_success()
+        budget = self._budget(worker_id)
+        budget.record_success()
+        with self._lock:
+            self._breakers_reported.discard(worker_id)
+        RESILIENCE_BREAKER_STATE.labels(worker_id).set(breaker.state_code)
+        RESILIENCE_RETRY_BUDGET.labels(worker_id).set(budget.balance)
+
+    def _note_stream_failure(self, worker_id):
+        """One stream failure against a peer; on the trip edge the worker is
+        reported to the dispatcher for routing exclusion. Returns the
+        breaker."""
+        breaker = self._breaker(worker_id)
+        tripped = breaker.record_failure(time.monotonic())
+        RESILIENCE_BREAKER_STATE.labels(worker_id).set(breaker.state_code)
+        if tripped:
+            with self._lock:
+                fresh = worker_id not in self._breakers_reported
+                self._breakers_reported.add(worker_id)
+            if fresh:
+                logger.warning("circuit breaker tripped OPEN for worker %s (%d consecutive "
+                               "stream failures) — failing fast and reporting it",
+                               worker_id, self._breaker_threshold)
+
+                def unreported():
+                    with self._lock:
+                        self._breakers_reported.discard(worker_id)
+
+                self._report("breaker", {
+                    "type": "report_breaker", "client_id": self.client_id,
+                    "worker_id": worker_id,
+                    "error": f"{self._breaker_threshold} consecutive stream failures",
+                    "epoch": int(self._epoch)}, on_failure=unreported)
+        return breaker
+
+    def _note_hedge(self, outcome):
+        RESILIENCE_HEDGES.labels(outcome).inc()
+        if tracing.COLLECTOR.enabled:
+            tracing.COLLECTOR.instant(f"client.hedge_{outcome}", time.perf_counter(),
+                                      args={"client_id": self.client_id})
+        with self._lock:
+            self._hedge_counts[outcome] += 1
+
     def _dispatcher_request(self, header, retries=None):
         """One request / reply with the dispatcher under the retry policy:
-        connection failures retry, an ``error`` reply raises
-        :class:`ServiceError` at once."""
+        connection failures retry (spending the dispatcher's retry budget),
+        an ``error`` reply raises :class:`ServiceError` at once. Each
+        attempt ships the remaining ``rpc_deadline_s``."""
         if "trace" not in header:
             header = dict(header, trace={"peer": self.client_id})
+        deadline = (time.monotonic() + self._rpc_deadline_s
+                    if self._rpc_deadline_s is not None else None)
 
         def once():
+            attach_deadline(header, deadline)
             with FramedConnection.connect(self._dispatcher_address,
                                           timeout=self._connect_timeout,
                                           max_frame_bytes=self._max_frame_bytes) as conn:
@@ -537,7 +729,7 @@ class ServiceBatchSource:
             once, retries=self._max_retries if retries is None else retries,
             base_delay=self._backoff_base, max_delay=self._backoff_max,
             retry_on=(OSError, ProtocolError), no_retry_on=(ServiceError,),
-            deadline_s=self._rpc_deadline_s,
+            deadline_s=self._rpc_deadline_s, budget=self._dispatcher_budget,
             description=f"dispatcher request {header.get('type')!r}")
         if "fencing_epoch" in reply:
             with self._lock:
@@ -675,6 +867,21 @@ class ServiceBatchSource:
     # -- static mode -------------------------------------------------------
 
     def _iter_static(self, info):
+        heartbeat_stop = threading.Event()
+        heartbeat = None
+        if self._heartbeat_interval_s is not None:
+            heartbeat = threading.Thread(target=self._heartbeat_loop, args=(heartbeat_stop,),
+                                         daemon=True,
+                                         name=f"service-heartbeat-{self.client_id}")
+            heartbeat.start()
+        try:
+            yield from self._iter_static_epochs(info)
+        finally:
+            heartbeat_stop.set()
+            if heartbeat is not None:
+                heartbeat.join(timeout=5)
+
+    def _iter_static_epochs(self, info):
         num_epochs, epoch, first = info["num_epochs"], self._epoch, True
         while num_epochs is None or epoch < num_epochs:
             reply = self._fetch_assignment(epoch)
@@ -699,7 +906,7 @@ class ServiceBatchSource:
                         {p: starts.get(p, 0) for p in pending})
             sequencer = (_OrderedSequencer(piece_order(self._shuffle_seed, epoch, pending_all))
                          if self._ordered else None)
-            yield from self._drain_streams(streams, epoch, sequencer)
+            yield from self._drain_streams(streams, epoch, sequencer, reply["workers"])
             epoch += 1
             with self._lock:
                 self._roll_epoch_locked(epoch)
@@ -712,19 +919,25 @@ class ServiceBatchSource:
 
     def _fetch_assignment(self, epoch):
         """The assignment for ``epoch``, with the fencing epoch it was
-        computed at as the one this client acts under."""
+        computed at as the one this client acts under (a pending fence is
+        satisfied). Only for callers that apply the whole assignment."""
         reply = self._request_assignment(epoch)
         with self._lock:
             self._synced_fencing_epoch = int(reply.get("fencing_epoch", 0))
+            self._fence_pending = False
         return reply
 
-    def _drain_streams(self, streams, epoch, sequencer=None):
+    def _drain_streams(self, streams, epoch, sequencer=None, workers=None):
         """The multiplexed drain (see the module docstring). Accounting
         happens on the consumer side of the queue, where events of one
         stream arrive in order; credits are acked on dequeue, also in
         ordered mode, where the batch may only be buffered; a broken
         stream recovers on a helper thread (retry, then takeover), so the
-        consumer keeps yielding the survivors' batches meanwhile."""
+        consumer keeps yielding the survivors' batches meanwhile. A
+        ``fence`` event resyncs the assignment (deferred while a takeover
+        is in flight); with hedging, a silent stream's piece is raced on a
+        peer. ``workers`` is the assignment's worker map, the hedge's
+        fallback peers."""
         if not streams:
             return
         depth = (self._ready_queue_depth if self._ready_queue_depth is not None
@@ -732,13 +945,22 @@ class ServiceBatchSource:
         ready = queue.Queue(maxsize=depth)
         stop = threading.Event()
         readers = []
+        retired = set()  # sids a resync or a hedge settlement closed
         sid_counter = itertools.count(max(streams) + 1)
+        hedge_armed = self._hedging
+        hedge_sids = set()  # sids that are hedge streams
+        hedges = {}         # hedged piece -> {"primary": sid, "hedge": sid}
+        hedge_won = set()   # pieces a hedge completed: the primary's marker dedups
+        last_seen = {}      # sid -> monotonic time of its last batch
+        untagged_sids = set()
+        hedge_tick = 0.05
         with self._lock:
             self._ready_queue = ready
             self._live_stream_count = len(streams)
 
         def launch(sid, stream):
             streams[sid] = stream
+            last_seen[sid] = time.monotonic()
             with self._lock:
                 self._live_stream_count = len(streams)
             reader = _StreamReader(sid, stream, ready, stop, self._note_stream_recv)
@@ -765,16 +987,187 @@ class ServiceBatchSource:
                 for stream in fresh:  # the drain was torn down meanwhile
                     stream.close()
 
+        def retire(sid):
+            stream = streams.pop(sid, None)
+            active.discard(sid)
+            retired.add(sid)
+            if stream is not None:
+                stream.close()
+
+        def resync():
+            """Re-fetch the assignment under the current fencing epoch and
+            keep every stream whose pending pieces still map to its worker;
+            the others retire and their pieces relaunch at their watermarks.
+            A failed fetch keeps the streams and waits for the next fence."""
+            try:
+                reply = self._fetch_assignment(epoch)
+            except (ServiceError, OSError) as exc:
+                logger.warning("resync under a fencing change failed (%s) — keeping the "
+                               "current streams; the next heartbeat retries", exc)
+                with self._lock:
+                    self._recovery_inc("resync_failures")
+                    self._fence_pending = False
+                return
+            with self._lock:
+                completed = set(self._completed)
+                self._recovery_inc("resyncs")
+            desired = {piece: (wid, tuple(reply["workers"][wid]))
+                       for wid, pieces in reply["assignments"].items()
+                       for piece in pieces if piece not in completed}
+            for sid in list(active):
+                stream = streams[sid]
+                pending = [p for p in stream.pieces if p not in completed]
+                if all(desired.get(p, (None,))[0] == stream.worker_id for p in pending):
+                    for piece in pending:
+                        desired.pop(piece, None)
+                    continue
+                retire(sid)
+                if sid in hedge_sids:
+                    drop_hedge(sid, "lost", closed=True)
+                else:
+                    for piece, pair in list(hedges.items()):
+                        if pair["primary"] == sid:
+                            hedges.pop(piece)
+                with self._lock:
+                    self._recovery_inc("streams_retired")
+                logger.warning("resync: retiring the stream of worker %s (pieces %s moved)",
+                               stream.worker_id, pending)
+            regroup = {}
+            for piece, target in sorted(desired.items()):
+                regroup.setdefault(target, []).append(piece)
+            with self._lock:
+                marks = dict(self._recv_watermarks)
+            for (wid, address), pieces in regroup.items():
+                new_sid = next(sid_counter)
+                active.add(new_sid)
+                launch(new_sid, self._stream(wid, address,
+                                             piece_order(self._shuffle_seed, epoch, pieces),
+                                             epoch, {p: marks.get(p, 0) for p in pieces}))
+
+        def drop_hedge(hsid, outcome, closed=False):
+            """Cancel a hedge stream and clear its pair, so the piece may
+            hedge again; ``closed``: its reader already ended."""
+            hedge_sids.discard(hsid)
+            if closed:
+                streams.pop(hsid, None)
+                active.discard(hsid)
+            else:
+                retire(hsid)
+            for piece, pair in list(hedges.items()):
+                if pair["hedge"] == hsid:
+                    hedges.pop(piece)
+            self._note_hedge(outcome)
+
+        def settle_hedge(piece, pair, winner_sid):
+            """The first ``piece_done`` decides the race: a winning hedge
+            flows on (the slow primary's late batches dedup away), a losing
+            one is cancelled."""
+            hedges.pop(piece, None)
+            if winner_sid == pair["hedge"]:
+                self._note_hedge("won")
+                hedge_won.add(piece)
+                stream = streams.get(winner_sid)
+                if stream is not None:
+                    self._note_stream_success(stream.worker_id)
+            else:
+                drop_hedge(pair["hedge"], "lost")
+
+        def pick_peer(primary_wid):
+            """Another worker whose breaker admits traffic: the one with the
+            most recently active stream, else the assignment's next."""
+            best, best_seen = None, -1.0
+            now = time.monotonic()
+            for osid in active:
+                other = streams.get(osid)
+                if osid in hedge_sids or other is None or other.worker_id == primary_wid:
+                    continue
+                if self._breaker(other.worker_id).allow(now) \
+                        and last_seen.get(osid, 0.0) > best_seen:
+                    best, best_seen = (other.worker_id, other.address), last_seen[osid]
+            if best is not None:
+                return best
+            for wid, address in sorted((workers or {}).items()):
+                if wid != primary_wid and self._breaker(wid).allow(now):
+                    return wid, tuple(address)
+            return None
+
+        def maybe_hedge():
+            """Hedge the first pending piece of each primary silent past the
+            fitted gap threshold (one live hedge per piece)."""
+            threshold = self._gap_tracker.threshold_s()
+            if threshold is None:
+                return
+            now = time.monotonic()
+            with self._lock:
+                completed = set(self._completed)
+                marks = dict(self._recv_watermarks)
+            for sid in list(active):
+                stream = streams.get(sid)
+                if stream is None or sid in hedge_sids or sid in untagged_sids:
+                    continue
+                silent_s = now - last_seen.get(sid, now)
+                if silent_s <= threshold:
+                    continue
+                pending = [p for p in stream.pieces if p not in completed]
+                if not pending or pending[0] in hedges:
+                    continue
+                peer = pick_peer(stream.worker_id)
+                if peer is None:
+                    continue
+                piece = pending[0]
+                fp = failpoints.ACTIVE
+                if fp is not None:
+                    fp.fire("hedge-race")
+                hsid = next(sid_counter)
+                hedge_sids.add(hsid)
+                hedges[piece] = {"primary": sid, "hedge": hsid}
+                active.add(hsid)
+                self._note_hedge("launched")
+                logger.warning("stream of worker %s silent %.2fs (threshold %.2fs) — hedging "
+                               "piece %d at watermark %d on %s", stream.worker_id, silent_s,
+                               threshold, piece, marks.get(piece, 0), peer[0])
+                launch(hsid, self._stream(peer[0], peer[1], [piece], epoch,
+                                          {piece: marks.get(piece, 0)}))
+                last_seen[sid] = now  # a full window before hedging its next piece
+
         book = _DeliveryBook(self, epoch)
+        active = set()
         try:
             for sid, stream in list(streams.items()):
                 launch(sid, stream)
-            active, recovering = set(streams), 0
+            active.update(streams)
+            recovering, fence_deferred = 0, False
+            last_hedge_check = time.monotonic()
             while active or recovering:
-                kind, sid, item = ready.get()
+                if hedge_armed:
+                    # A timed get: silence must surface even while the queue
+                    # is empty because everything stalled.
+                    try:
+                        kind, sid, item = ready.get(timeout=hedge_tick)
+                    except queue.Empty:
+                        maybe_hedge()
+                        last_hedge_check = time.monotonic()
+                        continue
+                    if time.monotonic() - last_hedge_check >= hedge_tick:
+                        last_hedge_check = time.monotonic()
+                        maybe_hedge()
+                else:
+                    kind, sid, item = ready.get()
+                if sid is not None and sid in retired:
+                    # A retired stream's events are stale: its pieces were
+                    # relaunched (or its hedge race settled).
+                    if kind in ("end", "broken", "error"):
+                        retired.discard(sid)
+                    continue
                 if kind == "batch":
-                    batch, piece, ordinal, bid = item
+                    batch, piece, ordinal, bid, t_enqueued = item
                     stream = streams[sid]
+                    if hedge_armed:
+                        now = time.monotonic()
+                        self._gap_tracker.observe(now - last_seen.get(sid, now))
+                        last_seen[sid] = now
+                        if piece is None:
+                            untagged_sids.add(sid)
                     # Ack before yielding: the worker refills its window while
                     # the trainer computes on this batch.
                     stream.add_credit(1)
@@ -786,7 +1179,9 @@ class ServiceBatchSource:
                             else:
                                 self._recv_watermarks[piece] = ordinal + 1
                         if duplicate:
-                            CLIENT_DEDUP_DROPPED.labels("takeover").inc()
+                            CLIENT_DEDUP_DROPPED.labels(
+                                "hedge" if piece in hedges or piece in hedge_won
+                                else "takeover").inc()
                             continue
                     elif sequencer is not None:
                         raise ServiceError(
@@ -794,29 +1189,56 @@ class ServiceBatchSource:
                             f"{stream.worker_id} sent an untagged batch")
                     CLIENT_READY_QUEUE_DEPTH.set(ready.qsize())
                     if sequencer is not None:
-                        released = sequencer.push(piece, (ordinal, batch, stream, bid))
+                        released = sequencer.push(piece, (ordinal, batch, stream, bid,
+                                                          t_enqueued))
                         CLIENT_WATERMARK_LAG.set(sequencer.lag)
                         yield from book.emit(released)
                     else:
                         book.account_yielded(piece, ordinal, stream.worker_id, bid)
+                        if tracing.COLLECTOR.enabled:
+                            tracing.COLLECTOR.record_span("client.queue", t_enqueued,
+                                                          time.perf_counter(), bid=bid)
                         yield batch
-                elif kind == "piece_done":
+                elif kind in ("piece_done", "piece_failed"):
                     stream = streams.get(sid)
                     if stream is None:
                         continue
+                    if kind == "piece_done":
+                        piece = int(item)
+                        if piece in hedge_won:
+                            hedge_won.discard(piece)  # the slow primary's late marker
+                            continue
+                        pair = hedges.get(piece)
+                        if pair is not None:
+                            settle_hedge(piece, pair, sid)
+                    else:
+                        piece, failure = item
+                        if sid in hedge_sids:
+                            # A hedge is advisory: the primary still owns it.
+                            drop_hedge(sid, "lost")
+                            continue
+                        if self._on_piece_error != "quarantine":
+                            raise ServiceError(
+                                f"worker {stream.worker_id} failed piece {piece}: {failure} "
+                                "(on_piece_error='fail' — run with 'quarantine' to skip "
+                                "poison pieces instead)")
+                        # Complete the piece empty, so the epoch (and the
+                        # sequencer) drains past it.
+                        self._note_quarantined(piece, stream.worker_id, failure, epoch)
                     if sequencer is not None:
-                        released = sequencer.finish_piece(int(item), stream.worker_id)
+                        released = sequencer.finish_piece(piece, stream.worker_id)
                         CLIENT_WATERMARK_LAG.set(sequencer.lag)
                         yield from book.emit(released)
                     else:
-                        book.complete_piece(int(item), stream.worker_id)
+                        book.complete_piece(piece, stream.worker_id)
                 elif kind == "end":
                     stream = streams.pop(sid)
+                    self._note_stream_success(stream.worker_id)
                     with self._lock:
                         # An untagged stream completes its pieces here, at
                         # stream granularity. Not in ordered mode: its
                         # markers complete when the sequencer releases them.
-                        pending = ([] if sequencer is not None
+                        pending = ([] if sequencer is not None or sid in hedge_sids
                                    else [p for p in stream.pieces if p not in self._completed])
                         if pending:
                             self._completed.update(pending)
@@ -824,7 +1246,11 @@ class ServiceBatchSource:
                                                  sorted(pending)))
                             self._note_pieces_locked(stream.worker_id, len(pending))
                     active.discard(sid)
+                    hedge_sids.discard(sid)
                 elif kind == "error":
+                    if sid is not None and sid in hedge_sids:
+                        drop_hedge(sid, "lost", closed=True)
+                        continue
                     raise item
                 elif kind == "recovered":
                     recovering -= 1
@@ -832,7 +1258,22 @@ class ServiceBatchSource:
                         new_sid = next(sid_counter)
                         active.add(new_sid)
                         launch(new_sid, new_stream)
+                    if recovering == 0 and fence_deferred:
+                        fence_deferred = False
+                        resync()
+                elif kind == "fence":
+                    # Deferred while a takeover is in flight: its streams were
+                    # planned under the epoch this resync supersedes.
+                    if recovering:
+                        fence_deferred = True
+                    else:
+                        resync()
                 else:  # "broken": recover on a helper thread, keep draining
+                    if sid in hedge_sids:
+                        # A broken hedge never enters recovery.
+                        self._note_stream_failure(streams[sid].worker_id)
+                        drop_hedge(sid, "lost", closed=True)
+                        continue
                     stream = streams.pop(sid)
                     active.discard(sid)
                     recovering += 1
@@ -851,8 +1292,10 @@ class ServiceBatchSource:
                 stream.close()
             with self._lock:
                 self._ready_queue = None
+                self._fence_pending = False
             for reader in readers:
                 reader.join(timeout=5)
+            self._join_reporters()
 
     def _note_stream_recv(self, worker_id, stall_s, got_batch):
         """Reader-thread callback: seconds blocked waiting on the worker,
@@ -897,13 +1340,23 @@ class ServiceBatchSource:
 
     def _retry_stream(self, stream):
         """Reconnect to the same worker and resume its pending pieces at
-        their watermarks; None when it stays unreachable."""
+        their watermarks; None when it stays unreachable, its retry budget
+        is spent, or its circuit breaker is open (fail fast into the
+        takeover)."""
         stream.close()
         pending, starts = self._pending_and_starts(stream.pieces)
         if not pending:
             return _EndedStream(stream)
+        breaker = self._note_stream_failure(stream.worker_id)
+        if not breaker.allow(time.monotonic()):
+            logger.warning("circuit breaker %s for worker %s — skipping the reconnect, "
+                           "taking the takeover path", breaker.state, stream.worker_id)
+            return None
 
         def attempt():
+            fp = failpoints.ACTIVE
+            if fp is not None:
+                fp.fire("breaker-trip")  # a reconnect reset, fed to the breaker
             fresh = self._stream(stream.worker_id, stream.address, pending, stream.epoch,
                                  starts)
             try:
@@ -917,13 +1370,110 @@ class ServiceBatchSource:
             fresh, event = retry_with_backoff(
                 attempt, retries=self._max_retries, base_delay=self._backoff_base,
                 max_delay=self._backoff_max, retry_on=(OSError, ProtocolError),
-                no_retry_on=(ServiceError,),
+                no_retry_on=(ServiceError,), budget=self._budget(stream.worker_id),
                 description=f"reconnect to worker {stream.worker_id}")
         except (OSError, ProtocolError):
+            self._note_stream_failure(stream.worker_id)
             return None
+        self._note_stream_success(stream.worker_id)
         if event[0] == "end":
             return _EndedStream(fresh)
         return _BufferedStream(fresh, event)
+
+    # -- liveness and fencing ------------------------------------------------
+
+    def _heartbeat_loop(self, stop_event):
+        """Poll ``client_heartbeat`` while a static drain runs: ship the
+        mid-flight watermarks and the ready-queue fullness, sample the
+        clock, follow the tracing flag and the brownout level, and post a
+        ``fence`` into the drain when the dispatcher's epoch moved past the
+        synced one (or it no longer knows this client). An unanswered tick
+        is counted, never an error."""
+        while not stop_event.wait(self._heartbeat_interval_s):
+            with self._lock:
+                marks = {str(p): n for p, n in self._recv_watermarks.items()
+                         if n and p not in self._completed}
+                epoch_now = self._epoch
+                ready = self._ready_queue
+                saturation = (round(ready.qsize() / ready.maxsize, 4)
+                              if ready is not None and ready.maxsize > 0 else 0.0)
+            try:
+                # One dial (retries=0), so [t0, t1] brackets one round trip.
+                t0 = time.perf_counter()
+                reply = self._dispatcher_request(
+                    {"type": "client_heartbeat", "client_id": self.client_id,
+                     "epoch": epoch_now, "watermarks": marks,
+                     "ready_saturation": saturation}, retries=0)
+                t1 = time.perf_counter()
+            except (ServiceError, OSError, ProtocolError):
+                with self._lock:
+                    self._recovery_inc("heartbeat_failures")
+                continue
+            remote_us = reply.get("dispatcher_time_us")
+            if remote_us is not None:
+                self._clock.add(tracing.COLLECTOR.ts_us((t0 + t1) / 2.0), float(remote_us),
+                                (t1 - t0) * 1e6)
+            self._sync_trace_arming(bool(reply.get("trace")))
+            if "brownout_level" in reply:
+                note_brownout_level(reply["brownout_level"])
+            fencing = int(reply.get("fencing_epoch", 0))
+            with self._lock:
+                self._recovery["dispatcher"] = dict(reply.get("recovery") or {})
+                stale = fencing > self._synced_fencing_epoch or not reply.get("known", True)
+            if stale:
+                self._post_fence(fencing)
+        if self._trace_armed_remote:
+            # Ship what was recorded since the last tick, then release.
+            self._trace_armed_remote = False
+            self._push_trace_ring()
+            tracing.COLLECTOR.release()
+
+    def _sync_trace_arming(self, armed):
+        """Arm the collector when the fleet arms, push the ring each armed
+        tick, release on disarm."""
+        if armed and not self._trace_armed_remote:
+            self._trace_armed_remote = True
+            tracing.COLLECTOR.acquire()
+            logger.info("client %s: fleet tracing armed by the dispatcher", self.client_id)
+        elif not armed and self._trace_armed_remote:
+            self._trace_armed_remote = False
+            tracing.COLLECTOR.release()
+            return
+        if self._trace_armed_remote:
+            self._push_trace_ring()
+
+    def _push_trace_ring(self):
+        """Ship-and-clear the span ring to the dispatcher with the clock
+        offset; a failed push loses that tick's spans."""
+        events, dropped = tracing.COLLECTOR.ship()
+        if not events and not dropped:
+            return
+        try:
+            self._dispatcher_request(
+                {"type": "trace_push", "peer": self.client_id, "events": events,
+                 "dropped": dropped, "offset_us": self._clock.offset_us(),
+                 "min_rtt_us": self._clock.min_rtt_us()}, retries=0)
+        except (ServiceError, OSError, ProtocolError):
+            pass
+
+    def _post_fence(self, fencing_epoch):
+        """Hand the drain one ``fence`` event (dropped when no drain runs:
+        the next assignment fetch syncs anyway)."""
+        with self._lock:
+            ready = self._ready_queue
+            if ready is None or self._fence_pending:
+                return
+            self._fence_pending = True
+        for _ in range(20):  # bounded: never wedge the heartbeat thread
+            try:
+                ready.put(("fence", None, fencing_epoch), timeout=0.1)
+                return
+            except queue.Full:
+                with self._lock:
+                    if self._ready_queue is not ready:
+                        break
+        with self._lock:
+            self._fence_pending = False  # the next heartbeat re-detects
 
     def _reassign(self, stream):
         """Report ``stream``'s worker dead and return streams for its
@@ -1117,9 +1667,13 @@ class ServiceBatchSource:
         ``credits_window``, ``transform_placement``, ``epoch_starts``
         (``[produced batch count, epoch]``), ``per_worker`` (``batches``
         consumed, ``stall_s`` blocked waiting on the worker,
-        ``credits_outstanding``, ``pieces``) and ``recovery`` (takeovers,
-        stale-fencing retries, duplicates dropped, the last fencing epoch
-        seen)."""
+        ``credits_outstanding``, ``pieces``), ``quarantined_pieces``,
+        ``resilience`` (hedging, the hedge counts and fitted threshold, the
+        per-peer breaker and retry-budget snapshots) and ``recovery``
+        (resyncs, resync failures, streams retired, takeovers, stale-fencing
+        retries, heartbeat failures, duplicates dropped, pieces quarantined,
+        the last fencing epoch seen, and the dispatcher's counters from the
+        last heartbeat)."""
         with self._lock:
             ready = self._ready_queue
             return {
@@ -1132,7 +1686,16 @@ class ServiceBatchSource:
                     wid: {"batches": c["batches"], "stall_s": round(c["stall_s"], 3),
                           "credits_outstanding": c["inflight"], "pieces": c.get("pieces", 0)}
                     for wid, c in self._per_worker.items()},
-                "recovery": dict(self._recovery),
+                "quarantined_pieces": [dict(entry) for entry in self._quarantined],
+                "resilience": {
+                    "hedging": self._hedging,
+                    "hedge_counts": dict(self._hedge_counts),
+                    "hedge_threshold_s": self._gap_tracker.threshold_s(),
+                    "breakers": {wid: b.snapshot() for wid, b in self._breakers.items()},
+                    "retry_budgets": {wid: b.snapshot() for wid, b in self._budgets.items()},
+                },
+                "recovery": {key: dict(value) if isinstance(value, dict) else value
+                             for key, value in self._recovery.items()},
             }
 
     def remote_diagnostics(self):

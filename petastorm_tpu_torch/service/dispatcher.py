@@ -1,5 +1,6 @@
 """The dispatcher: the data service's control plane (the port's own copy of
-``petastorm_tpu/service/dispatcher.py``, its static / fcfs tier).
+``petastorm_tpu/service/dispatcher.py``, its static / fcfs tier with the
+journal, breakers, brownout, quarantine and fleet tracing).
 
 It owns the split plan and nothing else: no sample bytes flow through it.
 Workers register their address and the dataset's row-group count; clients
@@ -8,28 +9,51 @@ message with one framed reply (``type`` names the request):
 
 - ``register_worker`` ``{worker_id, host, port, num_pieces[, re_register]}``
   → ``ok`` (a piece count other than the registered workers' is refused);
-- ``worker_heartbeat`` ``{worker_id}`` → ``ok`` (lease renewed) or
+- ``worker_heartbeat`` ``{worker_id[, credit_wait_s]}`` → ``ok`` (lease
+  renewed; the reply carries the brownout level, the clock-alignment
+  beacon ``dispatcher_time_us`` and whether fleet tracing is armed) or
   ``unknown_worker`` (re-register);
+- ``client_heartbeat`` ``{client_id[, epoch, watermarks,
+  ready_saturation]}`` → ``ok`` with the fencing epoch and the recovery
+  counters (a client resyncs when the epoch moved past its own);
 - ``list_workers`` → ``workers`` (serving workers and the service config);
 - ``get_assignment`` ``{client_id, client_index, num_clients, epoch}``
   (static) → ``assignment``: the client's shard (``pieces[index::n]``)
-  round-robined across the live workers, each share in the epoch's
+  round-robined across the serving workers, each share in the epoch's
   seed-tree order of ``shuffle_seed``;
 - ``report_failure`` ``{client_id, worker_id, pieces[, fencing_epoch]}`` →
   ``assignment``: the dead worker's pieces re-partitioned across the
   survivors (``stale_fencing`` for a token older than the fencing epoch);
 - ``next_split`` ``{client_id}`` (fcfs) → ``split`` or ``end_of_stream``
   (the shared queue refills until ``num_epochs`` are served);
+- ``report_poison_piece`` ``{client_id, piece, worker_id, error, epoch}``
+  → ``ok``: the piece is journaled into the quarantine set and excluded
+  from every later grant;
+- ``report_breaker`` ``{client_id, worker_id, error, epoch}`` → ``ok``: a
+  client's circuit breaker tripped on the worker; it is journaled and left
+  out of new grants until its own heartbeat, after ``breaker_cooldown_s``,
+  closes the breaker;
+- ``trace`` ``{action: arm|collect|disarm}``, ``trace_push`` (a peer's
+  span ring) and ``stage_profile`` (a diagnosed per-stage profile,
+  journaled): fleet tracing;
 - ``worker_diagnostics`` → every live worker's ``diagnostics``, fetched
   concurrently; ``status`` → the control-plane state; ``ping`` → ``pong``.
 
-A worker whose lease (``lease_timeout_s``) expires is marked dead, and a
-client's ``report_failure`` does the same; either bumps the fencing epoch.
-The epoch starts at 0: the port's dispatcher keeps its state in memory and
-never recovers from a journal. Dynamic mode, the journal, brownout and
-breakers, autoscaling, jobs, corpora and mixtures raise
-NotImplementedError (or an ``error`` reply) naming the service slice that
-brings them.
+With ``journal_dir`` every mutation is appended to a write-ahead log
+(:mod:`petastorm_tpu_torch.service.journal`) after it applied, with
+periodic compacted snapshots. A restarted dispatcher replays it, then bumps
+the fencing epoch, so every client resyncs; the files are the JAX
+dispatcher's, so either package recovers the other's journal. A failed
+journal write flips the dispatcher read-only: mutating requests are refused
+(retryable) until a full snapshot succeeds. A worker whose lease
+(``lease_timeout_s``) expires is marked dead, and a client's
+``report_failure`` does the same; either bumps the fencing epoch.
+
+Dynamic mode, autoscaling, jobs, corpora, mixtures and the fleet cache
+raise NotImplementedError (or an ``error`` reply) naming the service slice
+that brings them; their keys stand in the state at their empty values, so
+a snapshot equals the JAX dispatcher's, and a journal record of theirs is
+refused by name on replay.
 """
 
 from __future__ import annotations
@@ -39,12 +63,33 @@ import threading
 import time
 from collections import deque
 
-from petastorm_tpu_torch.reader_impl.framed_socket import FramedReader, FramedServer, send_framed
+from petastorm_tpu_torch import failpoints
+from petastorm_tpu_torch.reader_impl.framed_socket import (
+    ConnectionClosedError,
+    FramedReader,
+    FramedServer,
+    send_framed,
+)
+from petastorm_tpu_torch.service.resilience import (
+    BrownoutConfig,
+    BrownoutPlanner,
+    arrival_deadline,
+    deadline_exceeded_reply,
+    deadline_expired,
+)
 from petastorm_tpu_torch.service.seedtree import piece_order
+from petastorm_tpu_torch.telemetry import tracing
+from petastorm_tpu_torch.telemetry.flight import RECORDER as FLIGHT
 from petastorm_tpu_torch.telemetry.metrics import (
+    CLOCK_OFFSET_US,
     DISPATCHER_FENCING_EPOCH,
+    DISPATCHER_RECOVERY_EVENTS,
     DISPATCHER_REQUESTS,
     DISPATCHER_WORKERS,
+    FLEET_BROWNOUT_LEVEL,
+    QUARANTINE_PIECES,
+    QUARANTINE_REPORTS,
+    TRACE_SHIP_EVENTS,
 )
 
 logger = logging.getLogger(__name__)
@@ -57,18 +102,15 @@ DEFAULT_JOB = "default"
 #: A worker missing heartbeats this long is evicted.
 DEFAULT_LEASE_TIMEOUT_S = 30.0
 
-#: Cap on the per-probe ``timeout`` of ``worker_diagnostics``.
+#: Cap on the per-probe ``timeout`` of ``worker_diagnostics`` and ``trace``.
 PROBE_TIMEOUT_CAP_S = 30.0
+
+#: Journaled ``stage_profile`` records ``status`` keeps in memory.
+STAGE_PROFILES_KEPT = 8
 
 #: ``Dispatcher`` arguments this slice does not take: the value that asks
 #: for nothing, and the slice that ports the feature.
 UNPORTED_DISPATCHER_ARGS = {
-    "journal_dir": (None, "the crash-recovery journal comes with the control plane, "
-                          "slice (b)"),
-    "brownout": (None, "brownout comes with the control plane's resilience layer, "
-                       "slice (b)"),
-    "breaker_cooldown_s": (10.0, "circuit breakers come with the control plane's "
-                                 "resilience layer, slice (b)"),
     "autoscale": (None, "the fleet autoscaler comes with slice (d)"),
 }
 
@@ -80,15 +122,22 @@ _UNPORTED_REQUESTS = {
     "end_job": "jobs come with the fleet, slice (d)",
     "set_mixture_weights": "mixtures come with the LLM stages, slice (f)",
     "get_mixture": "mixtures come with the LLM stages, slice (f)",
-    "client_heartbeat": "client heartbeats and fencing resyncs come with the control "
-                        "plane, slice (b)",
-    "report_poison_piece": "poison-piece quarantine comes with the control plane, "
-                           "slice (b)",
-    "report_breaker": "circuit breakers come with the control plane, slice (b)",
-    "trace": "fleet tracing comes with the control plane, slice (b)",
-    "trace_push": "fleet tracing comes with the control plane, slice (b)",
-    "stage_profile": "fleet tracing comes with the control plane, slice (b)",
     "cache_handoff": "the fleet cache tier comes with slice (d)",
+}
+
+#: Journal record ops of later slices: a replay that meets one is refused
+#: with the slice that writes it.
+_UNPORTED_RECORD_OPS = {
+    "dynamic_plan": "dynamic sharding comes with slice (c)",
+    "steal": "dynamic sharding comes with slice (c)",
+    "steal_failed": "dynamic sharding comes with slice (c)",
+    "dynamic_done": "dynamic sharding comes with slice (c)",
+    "job_register": "jobs come with the fleet, slice (d)",
+    "job_end": "jobs come with the fleet, slice (d)",
+    "autoscale": "the fleet autoscaler comes with slice (d)",
+    "mixture_weights": "mixtures come with the LLM stages, slice (f)",
+    "cache_handoff": "the fleet cache tier comes with slice (d)",
+    "fleet_plan": "the fleet's model planner comes with slice (d)",
 }
 
 
@@ -99,17 +148,24 @@ class Dispatcher:
     :param mode: ``"static"`` (per-client shards) or ``"fcfs"`` (one shared
         queue of splits); ``"dynamic"`` raises NotImplementedError.
     :param num_epochs: epochs the service serves (``None``: forever).
+    :param journal_dir: directory of the crash-recovery journal (WAL and
+        snapshots); ``None`` keeps the state in memory only.
     :param lease_timeout_s: evict a worker whose last heartbeat (or
         registration) is older; ``None`` or 0 disables expiry.
+    :param journal_compact_every: WAL records between compactions.
+    :param journal_fsync: fsync the WAL per append and the snapshot before
+        its rename.
     :param max_frame_bytes: receive frame cap per connection.
     :param shuffle_seed: seed-tree order: each client epoch's piece order
         is a pure function of the seed, the epoch and the piece; ``None``
         orders pieces ascending. fcfs ignores it.
+    :param brownout: arm the brownout state machine: ``True``, a dict of
+        :class:`~petastorm_tpu_torch.service.resilience.BrownoutConfig`
+        arguments or a config. It is evaluated on client heartbeats.
+    :param breaker_cooldown_s: seconds a breaker-open worker stays out of
+        new grants before its heartbeat may close the breaker.
 
-    ``journal_dir``, ``brownout``, a non-default ``breaker_cooldown_s`` and
-    ``autoscale`` raise NotImplementedError naming their slice;
-    ``journal_compact_every`` and ``journal_fsync`` only configure a
-    journal and change nothing here.
+    ``autoscale`` raises NotImplementedError naming its slice.
     """
 
     def __init__(self, host="127.0.0.1", port=0, mode="static", num_epochs=1,
@@ -122,10 +178,7 @@ class Dispatcher:
             raise NotImplementedError(
                 "Dispatcher(mode='dynamic') is not ported yet: dynamic sharding comes "
                 "with the data service's slice (c)")
-        given = {"journal_dir": journal_dir, "brownout": brownout or None,
-                 "breaker_cooldown_s": float(breaker_cooldown_s),
-                 "autoscale": autoscale or None}
-        for name, value in given.items():
+        for name, value in {"autoscale": autoscale or None}.items():
             default, reason = UNPORTED_DISPATCHER_ARGS[name]
             if value != default:
                 raise NotImplementedError(f"Dispatcher({name}=...) is not ported yet: "
@@ -135,20 +188,60 @@ class Dispatcher:
         self.mode = mode
         self.num_epochs = num_epochs
         self.shuffle_seed = int(shuffle_seed) if shuffle_seed is not None else None
+        self.journal_dir = journal_dir
         self.lease_timeout_s = lease_timeout_s or None
         self._max_frame_bytes = max_frame_bytes
         self._lock = threading.Lock()
         self._workers = {}  # worker_id -> {address, num_pieces, alive, state}
         self._clients = {}  # client_id -> {epoch, client_index, num_clients}
+        # The default job materializes on a client's first touch, as in the
+        # JAX dispatcher, so the snapshots agree; other jobs are refused.
+        self._jobs = {}
+        self._job_recovery = {}
+        # client_id -> {"epoch", "watermarks": {piece: next ordinal}}, from
+        # client heartbeats, journaled at piece granularity.
+        self._client_watermarks = {}
         self._num_pieces = None
         self._fcfs_queue = None
         self._fcfs_epoch = 0
+        # Runtime only: leases and heartbeats restart from "now" on recovery.
         self._worker_leases = {}  # worker_id -> monotonic expiry
         self._client_heartbeats = {}
-        self._worker_credit_wait = {}
         self._fencing_epoch = 0
-        self._recovery = {"evictions": 0, "failures_reported": 0, "re_registrations": 0,
-                          "fencing_bumps": 0, "stale_fencing_rejections": 0}
+        self._recovery = {
+            "journal_replays": 0, "fencing_bumps": 0, "evictions": 0,
+            "failures_reported": 0, "re_registrations": 0, "stale_fencing_rejections": 0,
+            "journal_write_failures": 0, "pieces_quarantined": 0}
+        # Breaker-open workers (journaled) and their runtime trip clocks.
+        self._breaker_open = {}
+        self._breaker_opened_at = {}
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        # Brownout: the level and counts are journaled; the planner's streaks
+        # and the windowed signals are runtime only.
+        self._brownout_level = 0
+        self._brownout_counts = {"shed": 0, "recover": 0}
+        self._brownout_reason = None
+        self._brownout = BrownoutConfig.coerce(brownout) if brownout else None
+        self._brownout_planner = BrownoutPlanner(self._brownout) if self._brownout else None
+        self._brownout_last_eval = None
+        self._worker_credit_wait = {}  # wid -> last cumulative credit-wait seconds
+        self._credit_wait_window = {}  # wid -> its value at the last evaluation
+        self._client_ready_saturation = {}  # cid -> last ready-queue fullness
+        # Quarantined pieces: piece -> report info, journaled.
+        self._quarantined = {}
+        # None, or why a failed journal write made this dispatcher read-only.
+        self._degraded = None
+        self._journal = None
+        if journal_dir is not None:
+            from petastorm_tpu_torch.service.journal import Journal
+
+            self._journal = Journal(journal_dir, compact_every=journal_compact_every,
+                                    fsync=journal_fsync)
+        # Fleet tracing (runtime only): armed by the `trace` request; peers
+        # learn it from heartbeat replies and push their rings here.
+        self._trace_armed = False
+        self._trace_buffers = {}  # peer -> {events, dropped, offset_us, min_rtt_us}
+        self._stage_profiles = []
         #: The dispatcher's metrics endpoint, when the CLI serves one.
         self.metrics_address = None
         self._lease_thread = None
@@ -158,6 +251,8 @@ class Dispatcher:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self):
+        if self._journal is not None:
+            self._recover()
         self._server.start()
         if self.lease_timeout_s is not None:
             self._lease_thread = threading.Thread(target=self._lease_loop, daemon=True,
@@ -172,9 +267,12 @@ class Dispatcher:
 
     def stop(self):
         self._server.stop()
+        # In-flight handlers finish (and journal) before the journal closes.
         self._server.join(timeout=5)
         if self._lease_thread is not None:
             self._lease_thread.join(timeout=5)
+        if self._journal is not None:
+            self._journal.close()
 
     def drop_connections(self):
         """Drop every open connection and keep serving (a network blip)."""
@@ -185,6 +283,451 @@ class Dispatcher:
 
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.stop()
+
+    # -- durability --------------------------------------------------------
+
+    def state_snapshot(self):
+        """The full persistable state (what a compacted snapshot holds),
+        JSON-round-trippable and equal to the JAX dispatcher's for the same
+        requests."""
+        with self._lock:
+            return self._state_dict_locked()
+
+    def _state_dict_locked(self):
+        return {
+            "mode": self.mode,
+            "num_epochs": self.num_epochs,
+            "shuffle_seed": self.shuffle_seed,
+            "num_pieces": self._num_pieces,
+            "corpus_pieces": ({"": self._num_pieces} if self._num_pieces is not None
+                              else {}),
+            "mixtures": {},
+            "workers": {wid: dict(w) for wid, w in self._workers.items()},
+            "clients": {cid: dict(c) for cid, c in self._clients.items()},
+            "jobs": {jid: dict(j) for jid, j in self._jobs.items()},
+            "job_recovery": {jid: dict(r) for jid, r in self._job_recovery.items()},
+            "job_fence_floor": 0,
+            "autoscale": {"admit": 0, "drain": 0, "retire": 0},
+            "cache_handoffs": [],
+            "fleet_plans": [],
+            "client_watermarks": {
+                cid: {"epoch": entry["epoch"],
+                      "watermarks": {str(p): n for p, n in entry["watermarks"].items()}}
+                for cid, entry in self._client_watermarks.items()},
+            "fcfs_epoch": self._fcfs_epoch,
+            "fcfs_queue": list(self._fcfs_queue) if self._fcfs_queue is not None else None,
+            "fencing_epoch": self._fencing_epoch,
+            "recovery": dict(self._recovery),
+            "quarantined": {str(p): dict(info) for p, info in self._quarantined.items()},
+            "breaker_open": {wid: dict(info) for wid, info in self._breaker_open.items()},
+            "brownout": {"level": self._brownout_level,
+                         "counts": dict(self._brownout_counts),
+                         "reason": self._brownout_reason},
+            "generation": 0,
+            "dyn": {},
+        }
+
+    def _recover(self):
+        """Rebuild the state from the journal (snapshot, then WAL replay) and
+        record the recovery: the fencing epoch bumps, so every pre-crash
+        assignment must resync, and the replay is journaled."""
+        state, records = self._journal.load()
+        if state is None and not records:
+            # A fresh journal: anchor it with the initial state.
+            with self._lock:
+                self._journal.snapshot(self._state_dict_locked())
+            return
+        with self._lock:
+            if state is not None:
+                self._install_state_locked(state)
+            for record in records:
+                self._apply_record_locked(record)
+            now = time.monotonic()
+            for wid, worker in self._workers.items():
+                if worker["alive"]:
+                    self._worker_leases[wid] = now + (self.lease_timeout_s or 0.0)
+            self._recovery["journal_replays"] += 1
+            self._journal.append({"op": "replayed"})
+            self._bump_fencing_locked("journal_replay")
+            self._sync_telemetry_locked()
+        logger.warning("dispatcher recovered from journal %s: %d workers, %d clients, %d WAL "
+                       "records replayed (fencing epoch %d)", self.journal_dir,
+                       len(self._workers), len(self._clients), len(records),
+                       self._fencing_epoch)
+
+    def _refuse_later_slice(self, what, reason):
+        raise NotImplementedError(f"journal at {self.journal_dir!r} holds {what}, which is "
+                                  f"not ported yet: {reason}")
+
+    def _install_state_locked(self, state):
+        if state.get("mode") != self.mode:
+            raise ValueError(
+                f"journal at {self.journal_dir!r} was written by a {state.get('mode')!r}-"
+                f"mode dispatcher; this one runs {self.mode!r} — refusing to mix split-plan "
+                "semantics")
+        if state.get("shuffle_seed") != self.shuffle_seed:
+            raise ValueError(
+                f"journal at {self.journal_dir!r} was written under shuffle_seed="
+                f"{state.get('shuffle_seed')!r}; this dispatcher runs {self.shuffle_seed!r} — "
+                "restarting with a different seed would silently change the piece order "
+                "mid-run and break the determinism contract")
+        later = {"dyn": "dynamic sharding comes with slice (c)",
+                 "mixtures": "mixtures come with the LLM stages, slice (f)",
+                 "cache_handoffs": "the fleet cache tier comes with slice (d)",
+                 "fleet_plans": "the fleet's model planner comes with slice (d)"}
+        for key, reason in later.items():
+            if state.get(key):
+                self._refuse_later_slice(f"{key!r} state", reason)
+        if any(jid != DEFAULT_JOB for jid in state.get("jobs") or {}):
+            self._refuse_later_slice("jobs other than the default one",
+                                     "jobs come with the fleet, slice (d)")
+        if any(c for c in state.get("corpus_pieces") or {}):
+            self._refuse_later_slice("corpora", "multi-corpus fleets come with the LLM "
+                                                "stages, slice (f)")
+        if any((state.get("autoscale") or {}).values()):
+            self._refuse_later_slice("autoscale decisions",
+                                     "the fleet autoscaler comes with slice (d)")
+        self._num_pieces = state.get("num_pieces")
+        self._client_watermarks = {
+            cid: {"epoch": int(entry.get("epoch", 0)),
+                  "watermarks": {int(p): int(n)
+                                 for p, n in (entry.get("watermarks") or {}).items()}}
+            for cid, entry in (state.get("client_watermarks") or {}).items()}
+        self._workers = {wid: dict(w) for wid, w in state.get("workers", {}).items()}
+        for wid, worker in self._workers.items():
+            worker.setdefault("state", "serving")
+            self._check_worker_record(wid, worker.get("state") == "standby",
+                                      worker.get("corpus"), worker.get("cache_fleet"))
+        self._clients = {cid: dict(c) for cid, c in state.get("clients", {}).items()}
+        self._jobs = {jid: dict(j) for jid, j in (state.get("jobs") or {}).items()}
+        self._job_recovery = {jid: dict(r)
+                              for jid, r in (state.get("job_recovery") or {}).items()}
+        self._fcfs_epoch = int(state.get("fcfs_epoch", 0))
+        queue = state.get("fcfs_queue")
+        self._fcfs_queue = deque(queue) if queue is not None else None
+        self._fencing_epoch = int(state.get("fencing_epoch", 0))
+        recovered = state.get("recovery", {})
+        for key in self._recovery:
+            self._recovery[key] = int(recovered.get(key, 0))
+        self._quarantined = {}
+        for key, info in (state.get("quarantined") or {}).items():
+            if info.get("corpus"):
+                self._refuse_later_slice("a quarantined piece of a corpus", "multi-corpus "
+                                         "fleets come with the LLM stages, slice (f)")
+            self._quarantined[int(key)] = dict(info)
+        now = time.monotonic()
+        self._breaker_open = {str(wid): dict(info)
+                              for wid, info in (state.get("breaker_open") or {}).items()}
+        # Like leases, a restored breaker starts a fresh cooldown.
+        self._breaker_opened_at = {wid: now for wid in self._breaker_open}
+        brownout = state.get("brownout") or {}
+        self._brownout_level = int(brownout.get("level", 0))
+        counts = brownout.get("counts") or {}
+        for key in self._brownout_counts:
+            self._brownout_counts[key] = int(counts.get(key, 0))
+        self._brownout_reason = brownout.get("reason")
+
+    def _check_worker_record(self, worker_id, standby, corpus, cache_fleet):
+        if standby:
+            self._refuse_later_slice(f"standby worker {worker_id!r}",
+                                     "standby capacity comes with slice (d)")
+        if corpus:
+            self._refuse_later_slice(f"worker {worker_id!r} of corpus {corpus!r}",
+                                     "multi-corpus fleets come with the LLM stages, "
+                                     "slice (f)")
+        if cache_fleet:
+            self._refuse_later_slice(f"fleet-cache worker {worker_id!r}",
+                                     "the fleet cache tier comes with slice (d)")
+
+    def _apply_record_locked(self, record):
+        """Replay one WAL record through the mutations the live handlers
+        perform (without journaling: the record is the journal)."""
+        op = record.get("op")
+        if op in _UNPORTED_RECORD_OPS:
+            self._refuse_later_slice(f"a {op!r} record", _UNPORTED_RECORD_OPS[op])
+        if op == "register_worker":
+            self._check_worker_record(record["worker_id"], record.get("standby"),
+                                      record.get("corpus"), record.get("cache_fleet"))
+            self._install_worker_locked(record["worker_id"],
+                                        [record["host"], int(record["port"])],
+                                        int(record["num_pieces"]),
+                                        re_register=bool(record.get("re_register")),
+                                        metrics_port=record.get("metrics_port"))
+        elif op == "worker_dead":
+            self._mark_worker_dead_locked(record["worker_id"],
+                                          record.get("reason", "reported"),
+                                          job_id=record.get("job_id"))
+        elif op == "client":
+            if record.get("job_id") or record.get("corpus"):
+                self._refuse_later_slice("a client of a job or a corpus",
+                                         "jobs come with the fleet, slice (d), corpora "
+                                         "with the LLM stages, slice (f)")
+            self._install_client_locked(record["client_id"], int(record["epoch"]),
+                                        int(record["client_index"]),
+                                        int(record["num_clients"]))
+        elif op == "next_split":
+            self._replay_next_split_locked(int(record["piece"]), int(record["epoch"]))
+        elif op == "watermarks":
+            self._client_watermarks[record["client_id"]] = {
+                "epoch": int(record.get("epoch", 0)),
+                "watermarks": {int(p): int(n)
+                               for p, n in (record.get("watermarks") or {}).items()}}
+        elif op == "quarantine":
+            if record.get("corpus"):
+                self._refuse_later_slice("a quarantined piece of a corpus", "multi-corpus "
+                                         "fleets come with the LLM stages, slice (f)")
+            self._quarantine_piece_locked(int(record["piece"]), {
+                "worker_id": record.get("worker_id"), "client_id": record.get("client_id"),
+                "error": record.get("error"), "epoch": int(record.get("epoch", 0))})
+        elif op == "breaker":
+            if record.get("state") == "open":
+                self._breaker_open_locked(record["worker_id"], {
+                    "client_id": record.get("client_id"), "error": record.get("error"),
+                    "epoch": int(record.get("epoch", 0))})
+            else:
+                self._breaker_close_locked(record["worker_id"])
+        elif op == "brownout":
+            self._apply_brownout_locked(record["action"], int(record["level"]),
+                                        record.get("reason"))
+        elif op == "fencing":
+            self._fencing_epoch = int(record["fencing_epoch"])
+            self._recovery["fencing_bumps"] += 1
+        elif op == "stage_profile":
+            self._stage_profiles.append({"profile": record.get("profile") or {},
+                                         "coverage_pct": record.get("coverage_pct"),
+                                         "source": record.get("source", "diagnose")})
+            del self._stage_profiles[:-STAGE_PROFILES_KEPT]
+        elif op == "replayed":
+            self._recovery["journal_replays"] += 1
+        else:
+            logger.warning("journal: skipping unknown record op %r", op)
+
+    def _replay_next_split_locked(self, piece, epoch):
+        if self._fcfs_queue is None:
+            self._fcfs_queue = deque(range(self._num_pieces or 0))
+        if epoch > self._fcfs_epoch:
+            self._fcfs_epoch = epoch
+            self._fcfs_queue = deque(range(self._num_pieces or 0))
+        if self._fcfs_queue and self._fcfs_queue[0] == piece:
+            self._fcfs_queue.popleft()
+        else:  # a hand-edited journal must not corrupt the queue
+            try:
+                self._fcfs_queue.remove(piece)
+            except ValueError:
+                pass
+
+    def _journal_locked(self, record):
+        if self._journal is None or self._degraded is not None:
+            # A WAL that lost a record takes no further appends: only a full
+            # snapshot (_check_writable_locked) resumes journaling.
+            return
+        try:
+            self._journal.append(record)
+            self._journal.maybe_compact(self._state_dict_locked)
+        except OSError as exc:
+            # The mutation applied in memory, but durability is gone: go
+            # read-only until a full snapshot supersedes the lost record.
+            self._degraded = f"journal write failed: {exc}"
+            self._recovery["journal_write_failures"] += 1
+            logger.error("journal write failed (%s) — dispatcher is now READ-ONLY: "
+                         "state-mutating requests will be refused until a recovery snapshot "
+                         "succeeds", exc)
+
+    def _check_writable_locked(self):
+        """The read-only gate of mutating handlers: ``None`` when the journal
+        is healthy or a recovery snapshot just succeeded, else the
+        (retryable) error reply."""
+        if self._degraded is None:
+            return None
+        try:
+            self._journal.snapshot(self._state_dict_locked())
+        except OSError as exc:
+            self._recovery["journal_write_failures"] += 1
+            return {"type": "error", "retryable": True, "error": (
+                f"dispatcher is read-only (degraded: {self._degraded}; recovery snapshot "
+                f"failed: {exc}) — state-mutating requests are refused so the control "
+                "plane cannot diverge from its journal")}
+        logger.warning("journal recovered via full snapshot — leaving degraded read-only "
+                       "mode (was: %s)", self._degraded)
+        self._degraded = None
+        return None
+
+    def _bump_fencing_locked(self, reason):
+        self._fencing_epoch += 1
+        self._recovery["fencing_bumps"] += 1
+        self._journal_locked({"op": "fencing", "fencing_epoch": self._fencing_epoch,
+                              "reason": reason})
+        self._trace_instant("dispatcher.fencing_bump", fencing_epoch=self._fencing_epoch,
+                            reason=reason)
+        FLIGHT.set_context(fencing_epoch=self._fencing_epoch)
+        logger.info("fencing epoch bumped to %d (%s)", self._fencing_epoch, reason)
+
+    # -- poison-piece quarantine -------------------------------------------
+
+    def _quarantine_piece_locked(self, piece, info):
+        """One mutation site (live and replay); a duplicate report is a
+        no-op."""
+        if piece in self._quarantined:
+            return False
+        self._quarantined[piece] = dict(info)
+        self._recovery["pieces_quarantined"] += 1
+        return True
+
+    def _grantable_pieces_locked(self, pieces):
+        """``pieces`` less the quarantined ones: the one exclusion rule of
+        every grant (assignment, takeover re-partition, fcfs split)."""
+        if not self._quarantined:
+            return list(pieces)
+        return [p for p in pieces if p not in self._quarantined]
+
+    def _handle_report_poison_piece(self, header):
+        piece = int(header["piece"])
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            info = {"worker_id": header.get("worker_id"),
+                    "client_id": header.get("client_id"),
+                    "error": str(header.get("error", ""))[:512],
+                    "epoch": int(header.get("epoch", 0))}
+            fresh = self._quarantine_piece_locked(piece, info)
+            if fresh:
+                self._journal_locked(dict(info, op="quarantine", piece=piece))
+            quarantined = sorted(self._quarantined)
+        if fresh:
+            QUARANTINE_REPORTS.labels("dispatcher").inc()
+            logger.warning("piece %d quarantined (worker %s: %s) — excluded from all "
+                           "future grants", piece, info["worker_id"], info["error"])
+        return {"type": "ok", "piece": piece, "fresh": fresh, "quarantined": quarantined}
+
+    # -- circuit breakers ----------------------------------------------------
+
+    def _breaker_open_locked(self, worker_id, info):
+        if worker_id in self._breaker_open:
+            return False
+        self._breaker_open[worker_id] = dict(info)
+        self._breaker_opened_at[worker_id] = time.monotonic()
+        self._trace_instant("dispatcher.breaker_open", worker=worker_id,
+                            error=info.get("error"))
+        return True
+
+    def _breaker_close_locked(self, worker_id):
+        self._breaker_opened_at.pop(worker_id, None)
+        closed = self._breaker_open.pop(worker_id, None) is not None
+        if closed:
+            self._trace_instant("dispatcher.breaker_close", worker=worker_id)
+        return closed
+
+    def _handle_report_breaker(self, header):
+        """A client's breaker tripped on a worker: journal the exclusion and
+        route new grants around it until its heartbeat, after the cooldown,
+        closes the breaker."""
+        worker_id = str(header["worker_id"])
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            if worker_id not in self._workers:
+                return {"type": "error", "error": f"unknown worker {worker_id!r}"}
+            info = {"client_id": header.get("client_id"),
+                    "error": str(header.get("error", ""))[:512],
+                    "epoch": int(header.get("epoch", 0))}
+            fresh = self._breaker_open_locked(worker_id, info)
+            if fresh:
+                self._journal_locked(dict(info, op="breaker", worker_id=worker_id,
+                                          state="open"))
+            open_now = sorted(self._breaker_open)
+        if fresh:
+            logger.warning("circuit breaker OPEN for worker %s (%s) — excluded from new "
+                           "grants until its heartbeat probe closes it", worker_id,
+                           info["error"])
+        return {"type": "ok", "worker_id": worker_id, "fresh": fresh,
+                "breaker_open": open_now}
+
+    def _maybe_close_breaker_locked(self, worker_id):
+        """The half-open probe, on the worker's own heartbeat: past the
+        cooldown a still-heartbeating worker rejoins (journaled)."""
+        if worker_id not in self._breaker_open:
+            return
+        opened = self._breaker_opened_at.get(worker_id)
+        if opened is not None and time.monotonic() - opened < self.breaker_cooldown_s:
+            return
+        if self._check_writable_locked() is not None:
+            return  # retried on a later heartbeat
+        if self._breaker_close_locked(worker_id):
+            self._journal_locked({"op": "breaker", "worker_id": worker_id,
+                                  "state": "closed"})
+            logger.warning("circuit breaker CLOSED for worker %s — heartbeat probe after "
+                           "%.1fs cooldown; rejoining the serving set", worker_id,
+                           self.breaker_cooldown_s)
+
+    # -- brownout ------------------------------------------------------------
+
+    def _apply_brownout_locked(self, action, level, reason=None):
+        """One level at a time (live and replay); a stale transition is a
+        no-op, so replays converge."""
+        if action == "shed" and level == self._brownout_level + 1:
+            self._brownout_level = level
+        elif action == "recover" and level == self._brownout_level - 1:
+            self._brownout_level = level
+        else:
+            return False
+        self._brownout_counts[action] += 1
+        self._brownout_reason = reason
+        self._trace_instant("dispatcher.brownout", action=action, level=level, reason=reason)
+        return True
+
+    def apply_brownout(self, action, level, reason=None):
+        """Apply one brownout transition, journaled; the level rides every
+        heartbeat reply, and level 2 sheds optional stages peer-side."""
+        with self._lock:
+            if self._check_writable_locked() is not None:
+                return False
+            applied = self._apply_brownout_locked(action, level, reason)
+            if applied:
+                self._journal_locked({"op": "brownout", "action": action, "level": level,
+                                      "reason": reason})
+                self._sync_telemetry_locked()
+        if applied:
+            logger.warning("brownout: %s to level %d (%s)", action, level,
+                           reason or "operator")
+        return applied
+
+    def _overload_signals_locked(self, now):
+        """The fleet's credit-wait accumulation rate over the window (from
+        worker heartbeats) and the fullest client ready-queue."""
+        elapsed = (now - self._brownout_last_eval
+                   if self._brownout_last_eval is not None else None)
+        wait_delta = 0.0
+        for wid, total in self._worker_credit_wait.items():
+            wait_delta += max(0.0, total - self._credit_wait_window.get(wid, total))
+        self._credit_wait_window = dict(self._worker_credit_wait)
+        rate = wait_delta / elapsed if elapsed and elapsed > 0 else 0.0
+        saturation = max(self._client_ready_saturation.values(), default=0.0)
+        return {"level": self._brownout_level, "credit_wait_rate": rate,
+                "ready_saturation": saturation}
+
+    def _maybe_evaluate_brownout_locked(self):
+        """Brownout evaluation, on client-heartbeat arrivals, at most once
+        per ``interval_s``; decisions are journaled."""
+        if self._brownout_planner is None:
+            return
+        now = time.monotonic()
+        if self._brownout_last_eval is not None \
+                and now - self._brownout_last_eval < self._brownout.interval_s:
+            return
+        signals = self._overload_signals_locked(now)
+        self._brownout_last_eval = now
+        for decision in self._brownout_planner.plan(signals):
+            if self._check_writable_locked() is not None:
+                return
+            if self._apply_brownout_locked(decision["action"], decision["level"],
+                                           decision.get("reason")):
+                self._journal_locked({"op": "brownout", "action": decision["action"],
+                                      "level": decision["level"],
+                                      "reason": decision.get("reason")})
+                logger.warning("brownout: %s to level %d (%s)", decision["action"],
+                               decision["level"], decision.get("reason"))
 
     # -- liveness ----------------------------------------------------------
 
@@ -200,25 +743,54 @@ class Dispatcher:
                                    "splits re-assign via the takeover path)", wid,
                                    self.lease_timeout_s)
                     self._mark_worker_dead_locked(wid, "lease_expired")
+                    self._journal_locked({"op": "worker_dead", "worker_id": wid,
+                                          "reason": "lease_expired"})
                 if expired:
                     self._bump_fencing_locked("lease_expiry")
                     self._sync_telemetry_locked()
 
-    def _mark_worker_dead_locked(self, worker_id, reason):
+    def _mark_worker_dead_locked(self, worker_id, reason, job_id=None):
         worker = self._workers.get(worker_id)
         if worker is None or not worker["alive"]:
             return False
         worker["alive"] = False
         self._worker_leases.pop(worker_id, None)
         self._worker_credit_wait.pop(worker_id, None)
-        self._recovery["evictions" if reason == "lease_expired"
-                       else "failures_reported"] += 1
+        self._credit_wait_window.pop(worker_id, None)
+        self._trace_instant("dispatcher.worker_dead", worker=worker_id, reason=reason)
+        if reason == "lease_expired":
+            self._recovery["evictions"] += 1
+        else:
+            self._recovery["failures_reported"] += 1
+            if job_id is not None:
+                self._job_recovery_locked(job_id)["failures_reported"] += 1
         return True
 
-    def _bump_fencing_locked(self, reason):
-        self._fencing_epoch += 1
-        self._recovery["fencing_bumps"] += 1
-        logger.info("fencing epoch bumped to %d (%s)", self._fencing_epoch, reason)
+    def _install_worker_locked(self, worker_id, address, num_pieces, re_register=False,
+                               metrics_port=None):
+        known = worker_id in self._workers
+        prev_state = self._workers[worker_id].get("state") if known else None
+        self._num_pieces = num_pieces
+        self._workers[worker_id] = {"address": list(address), "num_pieces": num_pieces,
+                                    "alive": True, "state": prev_state or "serving"}
+        if metrics_port is not None:
+            self._workers[worker_id]["metrics_port"] = int(metrics_port)
+        if known or re_register:
+            self._recovery["re_registrations"] += 1
+        self._worker_leases[worker_id] = time.monotonic() + (self.lease_timeout_s or 0.0)
+        return known
+
+    def _job_recovery_locked(self, job_id):
+        return self._job_recovery.setdefault(
+            job_id, {"failures_reported": 0, "stale_fencing_rejections": 0,
+                     "fencing_bumps": 0})
+
+    def _install_client_locked(self, client_id, epoch, client_index, num_clients):
+        self._clients[client_id] = {"epoch": int(epoch), "client_index": int(client_index),
+                                    "num_clients": int(num_clients)}
+        job = self._jobs.setdefault(DEFAULT_JOB, {"weight": 1.0, "quota": None,
+                                                  "fencing_offset": 0, "epoch": 0})
+        job["epoch"] = max(job["epoch"], int(epoch))
 
     # -- request handling --------------------------------------------------
 
@@ -231,8 +803,14 @@ class Dispatcher:
             except Exception as exc:  # reply instead of killing the connection
                 logger.exception("dispatcher request %r failed", header)
                 reply = {"type": "error", "error": str(exc)}
-            # A handler may return (header, payload): worker_diagnostics
-            # carries arbitrary reader diagnostics as its payload.
+            fp = failpoints.ACTIVE
+            if fp is not None and fp.fire("dispatcher.reply") == "drop":
+                # The handler ran (state mutated, journal appended) and only
+                # the reply vanishes: the client's retry repeats the request.
+                raise ConnectionClosedError("failpoint dispatcher.reply: reply dropped after "
+                                            "the state mutation applied")
+            # A handler may return (header, payload): worker_diagnostics and
+            # trace carry arbitrary data as their payload.
             if isinstance(reply, tuple):
                 send_framed(sock, reply[0], reply[1])
             else:
@@ -252,9 +830,15 @@ class Dispatcher:
         refusal = self._scope_refusal(header)
         if refusal is not None:
             return refusal
+        t_rpc = time.perf_counter()
         try:
+            # A request whose propagated budget already expired is refused
+            # (retryable) before the handler runs.
+            if deadline_expired(arrival_deadline(header)):
+                return deadline_exceeded_reply(f"dispatcher.{kind}")
             return handler(header)
         finally:
+            self._record_rpc_span(kind, header, t_rpc)
             with self._lock:
                 self._sync_telemetry_locked()
 
@@ -270,11 +854,38 @@ class Dispatcher:
                                               "fleets come with the LLM stages, slice (f)"}
         return None
 
+    @staticmethod
+    def _record_rpc_span(kind, header, t_start):
+        """One ``dispatcher.<kind>`` span per request, with the caller's
+        propagated trace context as its args."""
+        collector = tracing.COLLECTOR
+        if not collector.enabled:
+            return
+        ctx = header.get("trace")
+        args = {k: v for k, v in ctx.items() if k in ("peer", "job_id")} \
+            if isinstance(ctx, dict) else {}
+        bid = ctx.get("bid") if isinstance(ctx, dict) else None
+        collector.record_span(f"dispatcher.{kind}", t_start, time.perf_counter(), bid=bid,
+                              args=args or None)
+
+    @staticmethod
+    def _trace_instant(name, **args):
+        """A control-plane decision as a zero-duration trace marker and a
+        flight-recorder note."""
+        collector = tracing.COLLECTOR
+        if collector.enabled:
+            collector.instant(name, time.perf_counter(), args=args)
+        FLIGHT.note(name, **args)
+
     def _sync_telemetry_locked(self):
         DISPATCHER_FENCING_EPOCH.set(self._fencing_epoch)
         alive = sum(1 for w in self._workers.values() if w["alive"])
         DISPATCHER_WORKERS.labels("alive").set(alive)
         DISPATCHER_WORKERS.labels("dead").set(len(self._workers) - alive)
+        for event, count in self._recovery.items():
+            DISPATCHER_RECOVERY_EVENTS.labels(event).set(count)
+        QUARANTINE_PIECES.set(len(self._quarantined))
+        FLEET_BROWNOUT_LEVEL.set(self._brownout_level)
 
     def _handle_ping(self, header):
         return {"type": "pong"}
@@ -286,28 +897,36 @@ class Dispatcher:
         if header.get("standby"):
             return {"type": "error", "error": "standby workers are not ported yet: "
                                               "standby capacity comes with slice (d)"}
+        if header.get("cache_fleet"):
+            return {"type": "error", "error": "fleet-cache workers are not ported yet: the "
+                                              "fleet cache tier comes with slice (d)"}
         with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
             if self._num_pieces is not None and self._num_pieces != num_pieces:
                 return {"type": "error", "error": (
                     f"worker {worker_id!r} enumerated {num_pieces} row-group pieces but "
                     f"corpus 'default''s service plan has {self._num_pieces} — all of a "
                     "corpus's workers must read the same dataset with the same planning "
                     "config")}
-            known = worker_id in self._workers
-            self._num_pieces = num_pieces
-            self._workers[worker_id] = {"address": [header["host"], int(header["port"])],
-                                        "num_pieces": num_pieces, "alive": True,
-                                        "state": "serving"}
-            if header.get("metrics_port") is not None:
-                self._workers[worker_id]["metrics_port"] = int(header["metrics_port"])
-            if known or re_register:
-                self._recovery["re_registrations"] += 1
-            self._worker_leases[worker_id] = time.monotonic() + (self.lease_timeout_s or 0.0)
+            metrics_port = header.get("metrics_port")
+            self._install_worker_locked(worker_id, [header["host"], int(header["port"])],
+                                        num_pieces, re_register=re_register,
+                                        metrics_port=metrics_port)
+            record = {"op": "register_worker", "worker_id": worker_id,
+                      "host": header["host"], "port": int(header["port"]),
+                      "num_pieces": num_pieces, "re_register": re_register,
+                      "standby": False}
+            if metrics_port is not None:
+                record["metrics_port"] = int(metrics_port)
+            self._journal_locked(record)
             fencing = self._fencing_epoch
+            state = self._workers[worker_id]["state"]
         logger.info("worker %s %sregistered at %s:%s (%d pieces)", worker_id,
                     "re-" if re_register else "", header["host"], header["port"],
                     num_pieces)
-        return {"type": "ok", "fencing_epoch": fencing, "state": "serving"}
+        return {"type": "ok", "fencing_epoch": fencing, "state": state}
 
     def _handle_worker_heartbeat(self, header):
         worker_id = header["worker_id"]
@@ -321,16 +940,68 @@ class Dispatcher:
                     self._worker_credit_wait[worker_id] = float(header["credit_wait_s"])
                 except (TypeError, ValueError):
                     pass
+            self._maybe_close_breaker_locked(worker_id)
             return {"type": "ok", "fencing_epoch": self._fencing_epoch,
-                    "worker_state": worker.get("state", "serving")}
+                    "brownout_level": self._brownout_level,
+                    "worker_state": worker.get("state", "serving"),
+                    "cache_peers": [],
+                    # The clock-alignment beacon: this dispatcher's trace
+                    # timebase "now", and whether fleet tracing is armed.
+                    "dispatcher_time_us": tracing.COLLECTOR.now_us(),
+                    "trace": self._trace_armed}
+
+    def _handle_client_heartbeat(self, header):
+        client_id = header.get("client_id")
+        with self._lock:
+            known = client_id in self._clients
+            self._client_heartbeats[client_id] = time.monotonic()
+            if "ready_saturation" in header:
+                try:
+                    self._client_ready_saturation[client_id] = min(
+                        1.0, max(0.0, float(header["ready_saturation"])))
+                except (TypeError, ValueError):
+                    pass
+            self._maybe_evaluate_brownout_locked()
+            if "watermarks" in header:
+                # Journaled at piece granularity only (the epoch or the set
+                # of pieces mid-flight moved): ordinals tick per batch.
+                entry = {"epoch": int(header.get("epoch", 0)),
+                         "watermarks": {int(p): int(n)
+                                        for p, n in (header.get("watermarks") or {}).items()}}
+                prev = self._client_watermarks.get(client_id)
+                if prev != entry:
+                    self._client_watermarks[client_id] = entry
+                    if prev is None or prev["epoch"] != entry["epoch"] \
+                            or set(prev["watermarks"]) != set(entry["watermarks"]):
+                        self._journal_locked({
+                            "op": "watermarks", "client_id": client_id,
+                            "epoch": entry["epoch"],
+                            "watermarks": {str(p): n
+                                           for p, n in entry["watermarks"].items()}})
+            return {"type": "ok", "known": known, "fencing_epoch": self._fencing_epoch,
+                    "recovery": dict(self._recovery),
+                    "brownout_level": self._brownout_level, "credit_scale": 1.0,
+                    "dispatcher_time_us": tracing.COLLECTOR.now_us(),
+                    "trace": self._trace_armed}
 
     def _alive_workers(self):
         return {wid: w for wid, w in self._workers.items() if w["alive"]}
 
+    def _serving_workers(self):
+        """Workers eligible for new grants: alive and not breaker-open;
+        when every one is breaker-open the exclusion yields."""
+        workers = self._alive_workers()
+        if self._breaker_open:
+            healthy = {wid: w for wid, w in workers.items() if wid not in self._breaker_open}
+            if healthy:
+                return healthy
+        return workers
+
     def _handle_list_workers(self, header):
         with self._lock:
             return {"type": "workers",
-                    "workers": {wid: w["address"] for wid, w in self._alive_workers().items()},
+                    "workers": {wid: w["address"]
+                                for wid, w in self._serving_workers().items()},
                     "mode": self.mode, "num_epochs": self.num_epochs,
                     "num_pieces": self._num_pieces, "shuffle_seed": self.shuffle_seed,
                     "fencing_epoch": self._fencing_epoch}
@@ -353,23 +1024,29 @@ class Dispatcher:
             return {"type": "error", "error": f"client_index {client_index} out of range "
                                               f"[0, {num_clients})"}
         with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
             if self._num_pieces is None:
                 return {"type": "error", "error": "no workers have registered yet"}
-            alive = self._alive_workers()
+            alive = self._serving_workers()
             if not alive:
                 return {"type": "error", "error": "no live workers"}
             # Partition the ascending piece list (the same workers serve the
             # same pieces every epoch), then order each share by the epoch's
             # seed-tree keys.
             epoch = int(header.get("epoch", 0))
-            client_pieces = list(range(self._num_pieces))[client_index::num_clients]
+            client_pieces = self._grantable_pieces_locked(
+                list(range(self._num_pieces))[client_index::num_clients])
             assignments = {wid: piece_order(self.shuffle_seed, epoch, pieces)
                            for wid, pieces in self._partition(client_pieces,
                                                               sorted(alive)).items()}
-            self._clients[header["client_id"]] = {"epoch": epoch,
-                                                  "client_index": client_index,
-                                                  "num_clients": num_clients}
+            self._install_client_locked(header["client_id"], epoch, client_index,
+                                        num_clients)
             self._client_heartbeats[header["client_id"]] = time.monotonic()
+            self._journal_locked({"op": "client", "client_id": header["client_id"],
+                                  "epoch": epoch, "client_index": client_index,
+                                  "num_clients": num_clients})
             return {"type": "assignment", "epoch": epoch,
                     "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
                     "assignments": assignments,
@@ -377,19 +1054,26 @@ class Dispatcher:
 
     def _handle_report_failure(self, header):
         worker_id = header["worker_id"]
-        pieces = [int(p) for p in header.get("pieces", [])]
         token = header.get("fencing_epoch")
         with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            # A quarantined piece must not ride a takeover back into a plan.
+            pieces = self._grantable_pieces_locked(int(p) for p in header.get("pieces", []))
             if token is not None and int(token) < self._fencing_epoch:
                 # The client acts on a plan a later event invalidated: it
                 # must re-fetch its assignment instead of taking over.
                 self._recovery["stale_fencing_rejections"] += 1
+                self._job_recovery_locked(DEFAULT_JOB)["stale_fencing_rejections"] += 1
                 logger.warning("rejecting stale report_failure (token %s) from %s", token,
                                header.get("client_id"))
                 return {"type": "stale_fencing", "fencing_epoch": self._fencing_epoch}
-            if self._mark_worker_dead_locked(worker_id, "reported"):
+            if self._mark_worker_dead_locked(worker_id, "reported", job_id=DEFAULT_JOB):
+                self._journal_locked({"op": "worker_dead", "worker_id": worker_id,
+                                      "reason": "reported", "job_id": DEFAULT_JOB})
                 self._bump_fencing_locked("report_failure")
-            alive = self._alive_workers()
+            alive = self._serving_workers()
             if not alive:
                 return {"type": "error", "error": (
                     f"worker {worker_id!r} reported dead and no live workers remain — the "
@@ -407,18 +1091,32 @@ class Dispatcher:
             return {"type": "error", "error":
                     "next_split is an fcfs-mode request; static clients use get_assignment"}
         with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
             if self._num_pieces is None:
                 return {"type": "error", "error": "no workers have registered yet"}
             if self._fcfs_queue is None:
                 self._fcfs_queue = deque(range(self._num_pieces))
-            if not self._fcfs_queue:
-                # Epoch boundary: refill while epochs remain (None: forever).
-                if self.num_epochs is not None and self._fcfs_epoch + 1 >= self.num_epochs:
-                    return {"type": "end_of_stream",
-                            "epochs_completed": self._fcfs_epoch + 1}
-                self._fcfs_epoch += 1
-                self._fcfs_queue.extend(range(self._num_pieces))
-            piece = self._fcfs_queue.popleft()
+            if self._quarantined and len(self._quarantined) >= self._num_pieces:
+                # Nothing will ever be grantable again: end the stream
+                # instead of spinning the refill-and-skip loop.
+                return {"type": "end_of_stream", "epochs_completed": self._fcfs_epoch,
+                        "reason": "all pieces quarantined"}
+            while True:
+                if not self._fcfs_queue:
+                    # Epoch boundary: refill while epochs remain (None: forever).
+                    if self.num_epochs is not None \
+                            and self._fcfs_epoch + 1 >= self.num_epochs:
+                        return {"type": "end_of_stream",
+                                "epochs_completed": self._fcfs_epoch + 1}
+                    self._fcfs_epoch += 1
+                    self._fcfs_queue.extend(range(self._num_pieces))
+                piece = self._fcfs_queue.popleft()
+                if piece not in self._quarantined:
+                    break  # quarantined splits are skipped
+            self._journal_locked({"op": "next_split", "piece": piece,
+                                  "epoch": self._fcfs_epoch})
             return {"type": "split", "piece": piece, "epoch": self._fcfs_epoch}
 
     @staticmethod
@@ -429,35 +1127,134 @@ class Dispatcher:
             return 5.0
         return min(max(timeout, 0.1), PROBE_TIMEOUT_CAP_S)
 
-    def _handle_worker_diagnostics(self, header):
-        """Every live worker's ``diagnostics``, fetched concurrently (one
-        round trip of latency); an unreachable worker is reported in place."""
+    def _fan_out(self, request, timeout):
+        """``request`` to every live worker concurrently: ``{worker_id:
+        (reply, payload)}``, an unreachable worker as ``({"error": ...},
+        None)``."""
         from concurrent.futures import ThreadPoolExecutor
 
         from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
 
-        timeout = self._probe_timeout(header)
         with self._lock:
             workers = {wid: tuple(w["address"]) for wid, w in self._alive_workers().items()}
 
         def probe(address):
             try:
                 with FramedConnection.connect(address, timeout=timeout) as conn:
-                    _, payload = conn.request({"type": "diagnostics"})
-                return payload
+                    return conn.request(dict(request))
             except (ConnectionError, OSError) as exc:
-                return {"error": f"unreachable: {exc}"}
+                return {"error": f"unreachable: {exc}"}, None
 
-        out = {}
-        if workers:
-            with ThreadPoolExecutor(max_workers=min(16, len(workers))) as pool:
-                for wid, payload in zip(workers, pool.map(probe, workers.values())):
-                    out[wid] = payload
-        return {"type": "diagnostics", "workers": sorted(workers)}, out
+        if not workers:
+            return {}
+        with ThreadPoolExecutor(max_workers=min(16, len(workers))) as pool:
+            return dict(zip(workers, pool.map(probe, workers.values())))
+
+    def _handle_worker_diagnostics(self, header):
+        """Every live worker's ``diagnostics``, fetched concurrently (one
+        round trip of latency); an unreachable worker is reported in place."""
+        replies = self._fan_out({"type": "diagnostics"}, self._probe_timeout(header))
+        out = {wid: (payload if "error" not in reply else reply)
+               for wid, (reply, payload) in replies.items()}
+        return {"type": "diagnostics", "workers": sorted(replies)}, out
+
+    # -- fleet tracing ---------------------------------------------------------
+
+    def _handle_trace(self, header):
+        """``arm`` (this collector, and peers through heartbeat replies),
+        ``collect`` (the dispatcher's ring and every peer buffer, topped up
+        by one live pull from each worker) or ``disarm``. Runtime only: a
+        restarted dispatcher comes back disarmed."""
+        action = str(header.get("action", "collect"))
+        if action == "arm":
+            with self._lock:
+                fresh = not self._trace_armed
+                if fresh:
+                    self._trace_armed = True
+                    self._trace_buffers = {}
+            if fresh:
+                tracing.COLLECTOR.acquire()
+                logger.info("fleet tracing ARMED — peers arm on their next heartbeat")
+            return {"type": "ok", "armed": True, "fresh": fresh}
+        if action == "disarm":
+            with self._lock:
+                was, self._trace_armed = self._trace_armed, False
+            if was:
+                tracing.COLLECTOR.release()
+                logger.info("fleet tracing disarmed")
+            return {"type": "ok", "armed": False}
+        if action != "collect":
+            return {"type": "error", "error": f"unknown trace action {action!r}"}
+        with self._lock:
+            buffers = {peer: {"events": list(buf["events"]), "dropped": buf["dropped"],
+                              "offset_us": buf.get("offset_us"),
+                              "min_rtt_us": buf.get("min_rtt_us")}
+                       for peer, buf in self._trace_buffers.items()}
+            armed = self._trace_armed
+        # A worker ships and clears on a pull, so pushes and pulls never
+        # hand the same event over twice.
+        for wid, (reply, _) in self._fan_out({"type": "trace"},
+                                             self._probe_timeout(header)).items():
+            if not isinstance(reply, dict) or "error" in reply:
+                continue
+            buf = buffers.setdefault(wid, {"events": [], "dropped": 0, "offset_us": None,
+                                           "min_rtt_us": None})
+            buf["events"].extend(reply.get("events") or [])
+            buf["dropped"] += int(reply.get("dropped") or 0)
+            for key in ("offset_us", "min_rtt_us"):
+                if reply.get(key) is not None:
+                    buf[key] = reply[key]
+        local = tracing.COLLECTOR.events()
+        TRACE_SHIP_EVENTS.labels("collect").inc(
+            len(local) + sum(len(b["events"]) for b in buffers.values()))
+        return ({"type": "trace", "armed": armed},
+                {"local": {"events": local, "dropped": tracing.COLLECTOR.dropped},
+                 "peers": buffers})
+
+    def _handle_trace_push(self, header):
+        """An armed peer shipping its span ring; bounded per peer by the
+        collector's ring budget, the overflow counted as ``dropped``."""
+        peer = str(header.get("peer") or "?")
+        events = header.get("events") or []
+        offset_us = header.get("offset_us")
+        with self._lock:
+            if not self._trace_armed:
+                return {"type": "ok", "trace": False, "accepted": 0}
+            buf = self._trace_buffers.setdefault(
+                peer, {"events": [], "dropped": 0, "offset_us": None, "min_rtt_us": None})
+            accepted = events[:max(0, tracing.DEFAULT_MAX_EVENTS - len(buf["events"]))]
+            buf["events"].extend(accepted)
+            buf["dropped"] += int(header.get("dropped") or 0) + len(events) - len(accepted)
+            if offset_us is not None:
+                buf["offset_us"] = float(offset_us)
+                CLOCK_OFFSET_US.labels(peer).set(float(offset_us))
+            if header.get("min_rtt_us") is not None:
+                buf["min_rtt_us"] = float(header["min_rtt_us"])
+        TRACE_SHIP_EVENTS.labels("push").inc(len(accepted))
+        return {"type": "ok", "trace": True, "accepted": len(accepted)}
+
+    def _handle_stage_profile(self, header):
+        """A diagnosed per-stage profile: journaled, and the last few kept
+        for ``status``."""
+        profile = header.get("profile")
+        if not isinstance(profile, dict):
+            return {"type": "error", "error": "stage_profile requires a profile dict"}
+        entry = {"profile": profile, "coverage_pct": header.get("coverage_pct"),
+                 "source": str(header.get("source", "diagnose"))}
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            self._stage_profiles.append(entry)
+            del self._stage_profiles[:-STAGE_PROFILES_KEPT]
+            self._journal_locked(dict(entry, op="stage_profile"))
+            kept = len(self._stage_profiles)
+        return {"type": "ok", "kept": kept}
 
     def _handle_status(self, header):
         now = time.monotonic()
         with self._lock:
+            alive = sorted(wid for wid, w in self._workers.items() if w["alive"])
             return {
                 "type": "status",
                 "mode": self.mode,
@@ -465,17 +1262,54 @@ class Dispatcher:
                 "num_pieces": self._num_pieces,
                 "shuffle_seed": self.shuffle_seed,
                 "fencing_epoch": self._fencing_epoch,
+                "degraded": self._degraded,
+                "quarantined": {str(p): dict(info)
+                                for p, info in sorted(self._quarantined.items())},
+                "client_watermarks": {
+                    cid: {"epoch": entry["epoch"],
+                          "watermarks": {str(p): n for p, n in entry["watermarks"].items()}}
+                    for cid, entry in self._client_watermarks.items()},
                 "recovery": dict(self._recovery),
+                "journal": self._journal.stats if self._journal is not None else None,
                 "workers": {
                     wid: {"address": w["address"], "alive": w["alive"],
                           "state": w.get("state", "serving"),
-                          "metrics_port": w.get("metrics_port"),
+                          "metrics_port": w.get("metrics_port"), "cache_fleet": False,
                           "lease_expires_in_s": (round(self._worker_leases[wid] - now, 3)
                                                  if wid in self._worker_leases else None)}
                     for wid, w in self._workers.items()},
-                "clients": {cid: dict(c) for cid, c in self._clients.items()},
+                "observability": {"trace_armed": self._trace_armed,
+                                  "trace_peers": sorted(self._trace_buffers),
+                                  "metrics_address": self.metrics_address,
+                                  "stage_profiles": list(self._stage_profiles)},
                 "metrics_address": self.metrics_address,
+                "clients": {cid: dict(c) for cid, c in self._clients.items()},
+                "fleet": {
+                    "workers_by_state": {"serving": alive, "standby": [], "draining": []},
+                    "autoscale": {"admit": 0, "drain": 0, "retire": 0},
+                    "autoscaler_armed": False,
+                    "breaker_open": {wid: dict(info)
+                                     for wid, info in sorted(self._breaker_open.items())},
+                    "brownout": {"level": self._brownout_level,
+                                 "counts": dict(self._brownout_counts),
+                                 "reason": self._brownout_reason,
+                                 "armed": self._brownout is not None},
+                    "cache_peers": [], "cache_handoffs": [], "fleet_plans": []},
+                "jobs": {
+                    jid: {"weight": job["weight"], "quota": job["quota"],
+                          "epoch": job["epoch"],
+                          "fencing_epoch": self._fencing_epoch + job["fencing_offset"],
+                          # One job: its max-min fair share is its demand, the
+                          # serving capacity while it has clients.
+                          "fair_share": (float(max(1, len(self._serving_workers())))
+                                         if self._clients else 0.0),
+                          "clients": sorted(self._clients),
+                          "recovery": dict(self._job_recovery.get(jid, {}))}
+                    for jid, job in self._jobs.items()},
                 "fcfs_epoch": self._fcfs_epoch,
                 "fcfs_remaining": (len(self._fcfs_queue)
                                    if self._fcfs_queue is not None else None),
+                "dynamic": None,
+                "corpora": {"": self._num_pieces} if self._num_pieces is not None else {},
+                "mixtures": {},
             }

@@ -28,9 +28,18 @@ Flow control: a ``credits`` field bounds the batches in flight; the client
 replenishes with ``credit`` messages as it consumes, and a worker out of
 credits waits for them (``credit_wait_s``). A ``diagnostics`` request
 returns every active stream's reader diagnostics and flow state and the
-final snapshots of recently finished streams. What this slice does not
-port raises NotImplementedError naming the argument and the service slice
-that brings it (:data:`UNPORTED_WORKER_ARGS`).
+final snapshots of recently finished streams.
+
+Control plane: the heartbeat renews the dispatcher lease, carries the
+worker's cumulative credit wait (a brownout signal) and takes an NTP-style
+clock sample against the dispatcher's trace timebase; its reply's
+brownout level sheds optional stages at level 2, and its ``trace`` flag
+arms this process's span collector, whose ring each armed tick pushes to
+the dispatcher (a ``trace`` request pulls it). A stream request whose
+propagated deadline already expired is refused (retryable). The
+``worker.heartbeat`` and ``slow-peer`` failpoints live here. What this
+slice does not port raises NotImplementedError naming the argument and the
+service slice that brings it (:data:`UNPORTED_WORKER_ARGS`).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import threading
 import time
 import uuid
 
+from petastorm_tpu_torch import failpoints
 from petastorm_tpu_torch.reader_impl.framed_socket import (
     ConnectionClosedError,
     FramedReader,
@@ -49,6 +59,14 @@ from petastorm_tpu_torch.reader_impl.framed_socket import (
     send_framed,
     send_framed_frames,
 )
+from petastorm_tpu_torch.service.resilience import (
+    arrival_deadline,
+    deadline_exceeded_reply,
+    deadline_expired,
+    note_brownout_level,
+)
+from petastorm_tpu_torch.telemetry import tracing
+from petastorm_tpu_torch.telemetry.clockalign import OffsetEstimator
 from petastorm_tpu_torch.telemetry.metrics import (
     WORKER_ACTIVE_STREAMS,
     WORKER_BATCHES_SENT,
@@ -74,8 +92,8 @@ UNPORTED_WORKER_ARGS = {
                           "slice (d)"),
     "fleet_cache": (False, "the fleet cache tier comes with slice (d)"),
     "standby": (False, "standby capacity and the autoscaler come with slice (d)"),
-    "on_piece_error": ("fail", "poison-piece quarantine comes with the control plane, "
-                               "slice (b)"),
+    "on_piece_error": ("fail", "the worker's poison-piece site lives in the streaming "
+                               "piece engine, slice (c)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
 }
 
@@ -154,8 +172,9 @@ class BatchWorker:
         advertised at registration (the CLI serves it).
 
     ``batch_cache``, ``fleet_cache``, ``standby``,
-    ``on_piece_error="quarantine"`` and a ``corpus`` raise
-    NotImplementedError naming the argument and its slice.
+    ``on_piece_error="quarantine"`` (the worker's poison-piece site is the
+    streaming piece engine's) and a ``corpus`` raise NotImplementedError
+    naming the argument and its slice.
     """
 
     #: Seconds between stop-flag checks while a stream waits for credits.
@@ -213,6 +232,10 @@ class BatchWorker:
         self._m_readers = WORKER_READERS_CONSTRUCTED.labels(self.worker_id)
         self._m_transform = WORKER_TRANSFORM_SECONDS.labels(self.worker_id)
         self.metrics_port = int(metrics_port) if metrics_port is not None else None
+        # NTP-style offset samples around each heartbeat, shipped with the
+        # pushed trace rings; True while heartbeat replies arm fleet tracing.
+        self._clock = OffsetEstimator()
+        self._trace_armed_remote = False
         self._heartbeat_thread = None
         self._heartbeat_stop = threading.Event()
         self._heartbeat_paused = threading.Event()
@@ -264,6 +287,9 @@ class BatchWorker:
                 logger.warning("straggler stream reader stop failed", exc_info=True)
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=drain_timeout_s)
+        if self._trace_armed_remote:
+            self._trace_armed_remote = False
+            tracing.COLLECTOR.release()
 
     def kill(self):
         """Abrupt failure (tests): drop every connection without an ``end``
@@ -347,13 +373,27 @@ class BatchWorker:
         while not self._heartbeat_stop.wait(self._heartbeat_interval_s):
             if self._heartbeat_paused.is_set():
                 continue
+            fp = failpoints.ACTIVE
+            if fp is not None and fp.check("worker.heartbeat") == "drop":
+                continue  # a lost tick: the lease absorbs it
             try:
+                # One dial (retries=0), so [t0, t1] brackets one round trip:
+                # the clock sample that aligns this worker's spans.
+                t0 = time.perf_counter()
                 reply = self._control_rpc(
                     {"type": "worker_heartbeat", "worker_id": self.worker_id,
                      "credit_wait_s": round(self._m_credit_wait.value, 4)},
                     f"worker {self.worker_id} heartbeat", retries=0)
+                t1 = time.perf_counter()
             except (OSError, ProtocolError):
                 continue
+            remote_us = reply.get("dispatcher_time_us")
+            if remote_us is not None:
+                self._clock.add(tracing.COLLECTOR.ts_us((t0 + t1) / 2.0), float(remote_us),
+                                (t1 - t0) * 1e6)
+            self._sync_trace_arming(bool(reply.get("trace")))
+            if "brownout_level" in reply:
+                note_brownout_level(reply["brownout_level"])
             if reply.get("type") == "unknown_worker" and not self._heartbeat_stop.is_set():
                 logger.warning("dispatcher no longer knows worker %s — re-registering",
                                self.worker_id)
@@ -361,6 +401,47 @@ class BatchWorker:
                     self._register(re_register=True, retries=0)
                 except (OSError, RuntimeError, ProtocolError):
                     continue
+
+    # -- fleet tracing -----------------------------------------------------
+
+    def _sync_trace_arming(self, armed):
+        """Follow the dispatcher's heartbeat-borne tracing flag: arm the
+        collector when the fleet arms, push the ring (ship-and-clear) with
+        the clock offset each armed tick, release on disarm. A failed push
+        loses that tick's spans."""
+        if armed and not self._trace_armed_remote:
+            self._trace_armed_remote = True
+            tracing.COLLECTOR.acquire()
+            logger.info("worker %s: fleet tracing armed by the dispatcher", self.worker_id)
+        elif not armed and self._trace_armed_remote:
+            self._trace_armed_remote = False
+            tracing.COLLECTOR.release()
+            return
+        if not self._trace_armed_remote:
+            return
+        events, dropped = tracing.COLLECTOR.ship()
+        if not events and not dropped:
+            return
+        try:
+            self._control_rpc({"type": "trace_push", "peer": self.worker_id,
+                               "events": events, "dropped": dropped,
+                               "offset_us": self._clock.offset_us(),
+                               "min_rtt_us": self._clock.min_rtt_us()},
+                              f"worker {self.worker_id} trace push", retries=0)
+        except (OSError, ProtocolError):
+            pass  # the next tick ships the new ring
+
+    def _trace_snapshot(self):
+        """One pull of the span ring for the dispatcher's ``trace collect``:
+        ship-and-clear while the fleet armed it, else read without
+        clearing (a local exporter keeps its ring)."""
+        if self._trace_armed_remote:
+            events, dropped = tracing.COLLECTOR.ship()
+        else:
+            events, dropped = tracing.COLLECTOR.events(), tracing.COLLECTOR.dropped
+        return {"type": "trace", "worker_id": self.worker_id, "events": events,
+                "dropped": dropped, "offset_us": self._clock.offset_us(),
+                "min_rtt_us": self._clock.min_rtt_us()}
 
     # -- serving -----------------------------------------------------------
 
@@ -376,6 +457,8 @@ class BatchWorker:
             elif kind == "diagnostics":
                 send_framed(sock, {"type": "diagnostics", "worker_id": self.worker_id},
                             self.diagnostics_snapshot())
+            elif kind == "trace":
+                send_framed(sock, self._trace_snapshot())
             elif kind == "ping":
                 send_framed(sock, {"type": "pong", "worker_id": self.worker_id})
             else:
@@ -399,7 +482,12 @@ class BatchWorker:
     def _stream(self, sock, header, conn_reader):
         """Serve one ``stream`` request: batches of the named pieces, then
         ``end``. A reader or collation error becomes an ``error`` message
-        (the client raises it); a client hang-up ends the stream."""
+        (the client raises it); a client hang-up ends the stream. A
+        request whose propagated deadline expired before it was read is
+        refused (retryable) before a reader is built."""
+        if deadline_expired(arrival_deadline(header)):
+            send_framed(sock, deadline_exceeded_reply("worker.stream"))
+            return
         refusal = self._refusal(header)
         if refusal is not None:
             send_framed(sock, {"type": "error", "error": refusal})
@@ -490,17 +578,21 @@ class BatchWorker:
             state["reader"] = reader
         rows_sent = 0
         batches = iter(batch_iterator(reader, self._batch_size, last_batch="keep"))
+        collector = tracing.COLLECTOR
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
+            t1 = time.perf_counter()
             if batch is None:
                 return rows_sent
-            self._m_decode.observe(time.perf_counter() - t0)
+            self._m_decode.observe(t1 - t0)
+            bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+            if collector.enabled:
+                collector.record_span("worker.decode", t0, t1, bid=bid)
             if transform_fn is not None:
                 batch = transform_fn(batch)
             rows = _batch_rows(batch)
             fmt, frames = encode_payload(batch)
-            bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
             if not self._send_stream_batch(sock, conn_reader, flow, credits, bid, rows,
                                            fmt, frames):
                 return None
@@ -551,6 +643,11 @@ class BatchWorker:
                                               self._batch_size, last_batch="keep"))
                 pending = []
                 self._m_decode.observe(decode_s)  # the piece's reads and collation
+                if tracing.COLLECTOR.enabled:
+                    t_now = time.perf_counter()
+                    tracing.COLLECTOR.record_span(
+                        "worker.decode", t_now - decode_s, t_now,
+                        bid=f"{self.worker_id}:{stream_key}:{flow['batches_sent']}")
                 decode_s = 0.0
                 order = (batch_permutation(shuffle_seed, int(epoch or 0), piece, len(batches))
                          if shuffle_seed is not None else range(len(batches)))
@@ -605,10 +702,18 @@ class BatchWorker:
                 self._m_credit_wait.inc(waited)
         if self._batch_delay_s:
             time.sleep(self._batch_delay_s)
+        fp = failpoints.ACTIVE
+        if fp is not None:
+            # A straggler: "delay" stalls this worker's send, keyed by its id
+            # so a targeted schedule slows one worker only.
+            fp.fire("slow-peer", key=self.worker_id)
+        t_send = time.perf_counter()
         header = {"type": "batch", "rows": rows, "bid": bid}
         if extra_header:
             header.update(extra_header)
         send_framed_frames(sock, header, fmt, frames)
+        if tracing.COLLECTOR.enabled:
+            tracing.COLLECTOR.record_span("worker.send", t_send, time.perf_counter(), bid=bid)
         flow["batches_sent"] += 1
         self._m_batches.inc()
         self._m_rows.inc(rows)

@@ -11,10 +11,10 @@ flight recorder (the port's own copy of ``petastorm_tpu/telemetry``).
   (:mod:`.http`), and a :class:`~.registry.SnapshotRing` for in-process
   ``rate()``;
 - the flight recorder (:mod:`.flight`) and the structured logger
-  (:mod:`.log`).
-
-The clock alignment and critical-path analysis of the JAX package serve its
-data service and are not ported.
+  (:mod:`.log`);
+- fleet tracing of the data service: NTP-style clock alignment and the
+  merged trace (:mod:`.clockalign`), and critical-path stall attribution
+  over it (:mod:`.critical_path`).
 """
 
 from petastorm_tpu_torch.telemetry import tracing

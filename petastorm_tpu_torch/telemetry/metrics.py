@@ -5,9 +5,10 @@ metrics.py``).
 Each family keeps the JAX package's name, help text, labels and buckets,
 so a scrape of either package reads the same vocabulary. The framed
 transport's, the batch worker's, the dispatcher's and the service
-client's families came with the data service's first slice; those of
-modules not ported yet (shm transport downgrades, the fleet, the packing
-stage, resilience) come with those modules. Naming
+client's families came with the data service's first slice; the
+failpoints', quarantine's, the resilience layer's and fleet tracing's with
+its control plane; those of modules not ported yet (shm transport
+downgrades, the fleet, the packing stage) come with those modules. Naming
 follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
 counters; label values are bounded (stage names, tiers, a recycled
 per-loader id, a per-controller id), never row- or batch-scoped.
@@ -298,6 +299,13 @@ DISPATCHER_WORKERS = REGISTRY.gauge(
     "petastorm_service_dispatcher_workers",
     "Registered workers by liveness state (alive/dead)",
     labels=("state",))
+DISPATCHER_RECOVERY_EVENTS = REGISTRY.gauge(
+    "petastorm_service_dispatcher_recovery_events",
+    "Dispatcher recovery counters (journal_replays, evictions, "
+    "failures_reported, re_registrations, fencing_bumps, "
+    "stale_fencing_rejections). A gauge, not a counter: the values are "
+    "journaled and restored across restarts, so they can jump on replay",
+    labels=("event",))
 
 # -- service: trainer client (service/client.py) ---------------------------
 
@@ -344,3 +352,95 @@ CLIENT_TRANSFORM_SECONDS = REGISTRY.histogram(
     "transform_placement is local — high values here with low consumer "
     "stall say the trainer host can afford the stage; the autotuner flips "
     "placement back when it cannot)")
+
+# -- failpoints and quarantine (failpoints.py, service/*) --------------------
+
+FAILPOINT_FIRES = REGISTRY.counter(
+    "petastorm_failpoint_fires_total",
+    "Deterministic fault injections fired by the armed FaultSchedule, by "
+    "failpoint name and action (reset/torn/delay/enospc/oserror/partial/"
+    "drop/torn_rename/poison/detach/stale). Zero — and zero overhead "
+    "beyond one branch-on-None per site — when no schedule is armed",
+    labels=("point", "action"))
+FAILPOINT_ARMED = REGISTRY.gauge(
+    "petastorm_failpoint_armed",
+    "1 while a FaultSchedule is armed process-wide (failpoints compiled "
+    "into the hot-path I/O boundaries are live), else 0. A nonzero value "
+    "outside a chaos/fuzz run means a schedule leaked past its context")
+QUARANTINE_REPORTS = REGISTRY.counter(
+    "petastorm_quarantine_reports_total",
+    "Poison-piece quarantine events, by the site that observed them "
+    "(worker = engine detected an undecodable/poisoned piece and sent "
+    "piece_failed; client = the drain recorded it and kept streaming; "
+    "dispatcher = the report was journaled and the piece excluded from "
+    "re-grant)",
+    labels=("site",))
+QUARANTINE_PIECES = REGISTRY.gauge(
+    "petastorm_quarantine_pieces",
+    "Pieces currently quarantined in the dispatcher's (journaled) "
+    "quarantine set — excluded from every future assignment, plan, "
+    "takeover re-partition, and fcfs split until the journal is reset")
+
+# -- the resilience layer: deadlines, retry budgets, breakers, hedging and
+#    brownout (service/resilience.py and its dispatcher / worker / client wiring)
+
+RESILIENCE_DEADLINE_EXCEEDED = REGISTRY.counter(
+    "petastorm_resilience_deadline_exceeded_total",
+    "Requests a handler refused (retryable DEADLINE_EXCEEDED) because the "
+    "caller's propagated budget (the deadline_left_s header field, stamped "
+    "from retry_with_backoff's remaining deadline) had already expired — "
+    "work nobody would wait for, shed before it started. By handler site "
+    "(dispatcher.<request type> or worker.<request kind>)",
+    labels=("site",))
+RESILIENCE_RETRY_BUDGET = REGISTRY.gauge(
+    "petastorm_resilience_retry_budget",
+    "Remaining tokens in the client's per-peer retry budget (token bucket: "
+    "each retry spends one, each success refills a fraction). Zero means "
+    "retries against that peer are exhausted and failures route straight "
+    "to takeover instead of feeding a retry storm",
+    labels=("peer",))
+RESILIENCE_BREAKER_STATE = REGISTRY.gauge(
+    "petastorm_resilience_breaker_state",
+    "Client-side circuit breaker state per peer worker: 0 closed (healthy), "
+    "1 open (failing fast — consecutive-failure threshold tripped, peer "
+    "routed around and reported to the dispatcher), 2 half-open (one probe "
+    "in flight after the cooldown)",
+    labels=("peer",))
+RESILIENCE_HEDGES = REGISTRY.counter(
+    "petastorm_resilience_hedges_total",
+    "Hedged watermark re-serves, by outcome: launched (a stream's "
+    "inter-batch gap crossed the histogram-fit threshold and a re-grant of "
+    "the in-flight piece was opened at its watermark on a peer), won (the "
+    "hedge finished the piece first; the slow original was cancelled), "
+    "lost (the original finished first; the hedge was cancelled). "
+    "Duplicates from the losing side are dropped by the ordinary "
+    "(piece, generation) + watermark dedup, so every outcome is "
+    "digest-invariant",
+    labels=("outcome",))
+FLEET_BROWNOUT_LEVEL = REGISTRY.gauge(
+    "petastorm_fleet_brownout_level",
+    "The dispatcher's journaled brownout level: 0 normal, 1 shedding "
+    "low-weight/sideband jobs' credit windows (fleet.credit_scales with "
+    "the brownout factor applied), 2 also shedding optional stages "
+    "(tracing spans, autotune probes). Entered under sustained overload "
+    "(credit-wait + ready-queue-saturation streaks), recovered "
+    "symmetrically — every transition is a WAL op")
+
+# -- fleet tracing: trace shipping and clock alignment (telemetry/tracing.py,
+#    telemetry/clockalign.py) -------------------------------------------------
+
+TRACE_SHIP_EVENTS = REGISTRY.counter(
+    "petastorm_trace_ship_events_total",
+    "Trace events moved by the fleet trace-assembly protocol, by "
+    "direction (push = a peer shipped its span ring to the dispatcher "
+    "on a heartbeat tick; collect = events handed to a `trace collect` "
+    "caller, the dispatcher's own ring included)",
+    labels=("direction",))
+CLOCK_OFFSET_US = REGISTRY.gauge(
+    "petastorm_clock_offset_us",
+    "Each peer's estimated clock offset against the dispatcher's trace "
+    "timebase (NTP-style midpoint over heartbeat RTTs, median of the "
+    "lowest-RTT samples; microseconds, applied to the peer's events at "
+    "fleet-trace merge). Error bound is ±min-RTT/2 — see "
+    "docs/guides/diagnostics.md#clock-alignment",
+    labels=("peer",))

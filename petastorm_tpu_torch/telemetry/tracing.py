@@ -1,6 +1,5 @@
 """Per-batch pipeline spans as Chrome ``trace_event`` JSON (the port's own
-copy of ``petastorm_tpu/telemetry/tracing.py``, without the service's
-shipping and clock alignment).
+copy of ``petastorm_tpu/telemetry/tracing.py``).
 
 Each stage of the loader records a span (a begin/end event pair) into the
 process-wide :data:`COLLECTOR`; :meth:`TraceCollector.export` writes them
@@ -126,6 +125,15 @@ class TraceCollector:
     def events(self):
         with self._lock:
             return list(self._events)
+
+    def ship(self):
+        """Take and clear the buffered events with their drop count: an
+        armed peer pushes its ring to the dispatcher on each heartbeat tick
+        and records on into an empty buffer, so no event ships twice."""
+        with self._lock:
+            events, self._events = self._events, []
+            dropped, self._dropped = self._dropped, 0
+        return events, dropped
 
     @property
     def dropped(self):

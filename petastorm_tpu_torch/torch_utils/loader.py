@@ -324,6 +324,7 @@ class TorchDataLoader:
         self._producer = None
         self._stager = None
         self._source_iter = None  # this iteration's batch_source() iterator
+        self._source_diag = None  # the batch source's diagnostics, snapshotted
         self._direct_iter = None  # ... when the consumer pulls it (prefetched)
         self._producer_error = None
         self._stop = threading.Event()
@@ -395,7 +396,9 @@ class TorchDataLoader:
         ``consumer_s`` (time the caller held each batch) and ``h2d_bytes``
         (bytes copied to a CUDA device). Each is this loader's registry
         series less its value when the iteration began; reading refreshes
-        the ``loader_dispatch_overlap_pct`` gauge."""
+        the ``loader_dispatch_overlap_pct`` gauge. A batch source with a
+        ``diagnostics`` dict of its own (the data service's) adds it under
+        ``source``, as of the iteration's start or end."""
         start, end = self._iter_start, self._iter_end
         wall = 0.0 if start is None else max(
             0.0, (time.perf_counter() if end is None else end) - start)
@@ -424,7 +427,17 @@ class TorchDataLoader:
             "dispatch_overlap_pct": overlap_pct,
             "h2d_bytes": int(self._h2d_bytes - base["h2d_bytes"]),
             "consumer_s": stage["consumer"],
+            **({"source": dict(self._source_diag)} if self._source_diag is not None
+               else {}),
         }
+
+    def _snapshot_source_diagnostics(self):
+        """Copy a batch source's ``diagnostics`` dict (the data service's
+        per-worker, ready-queue and recovery counters) into
+        ``diagnostics["source"]``: at an iteration's start and end."""
+        source_diag = getattr(self._batch_source, "diagnostics", None)
+        if isinstance(source_diag, dict):
+            self._source_diag = dict(source_diag)
 
     def exclude_stall_so_far(self):
         """Zero this iteration's stall up to now, e.g. the pipeline-fill
@@ -883,6 +896,7 @@ class TorchDataLoader:
         direct = self._direct_iter
         if direct is not None and self._max_batches is not None:
             direct = itertools.islice(direct, self._max_batches)
+        self._snapshot_source_diagnostics()
         try:
             while True:
                 while not done and len(inflight) < self._device_prefetch:
@@ -926,6 +940,7 @@ class TorchDataLoader:
                     collector.record_span("loader.consumer", t_yield, t_back)
         finally:
             self._iter_end = time.perf_counter()
+            self._snapshot_source_diagnostics()
             if self._trace_path is not None:
                 collector.export(self._trace_path)
                 collector.release()

@@ -12,7 +12,9 @@ graph and the registry, against the JAX package where it has a twin.
 - A worker that stops its heartbeats loses its lease and re-registers
   when they resume.
 - The CLI starts a dispatcher and a worker; the ``status`` command.
-- The refusals of arguments this slice does not port name their slice.
+- The refusals of arguments the port does not take yet name their slice;
+  the control plane's arguments (the journal, brownout, breakers, retry
+  budgets, hedging, quarantine) are taken.
 - ``build_loader_graph`` over a service source gives the JAX graph's
   stages, knobs and signals (less those of later slices).
 - The service's metric families equal the JAX families of the same names,
@@ -341,15 +343,14 @@ def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["dispatcher", "--port", "0", "--mode", "dynamic"], r"slice \(c\)"),
-    (["dispatcher", "--port", "0", "--journal-dir", "/tmp/j"], r"slice \(b\)"),
     (["dispatcher", "--port", "0", "--autoscale"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--cache", "mem"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--standby"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"],
-     r"slice \(b\)"),
+     r"slice \(c\)"),
     (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
     (["worker", "--dataset-url", "file:///x", "--transport", "shm"], r"slice \(e\)"),
-], ids=["dynamic", "journal", "autoscale", "cache", "standby", "quarantine", "corpus", "shm"])
+], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "shm"])
 def test_cli_refusals_name_their_slice(argv, match):
     from petastorm_tpu_torch.service.cli import main
 
@@ -363,21 +364,13 @@ def test_cli_refusals_name_their_slice(argv, match):
 
 REFUSALS = [
     ("Dispatcher", {"mode": "dynamic"}, "(c)"),
-    ("Dispatcher", {"journal_dir": "/tmp/journal"}, "(b)"),
-    ("Dispatcher", {"brownout": True}, "(b)"),
-    ("Dispatcher", {"breaker_cooldown_s": 3.0}, "(b)"),
     ("Dispatcher", {"autoscale": True}, "(d)"),
     ("BatchWorker", {"batch_cache": object()}, "(d)"),
     ("BatchWorker", {"fleet_cache": True}, "(d)"),
     ("BatchWorker", {"standby": True}, "(d)"),
-    ("BatchWorker", {"on_piece_error": "quarantine"}, "(b)"),
+    ("BatchWorker", {"on_piece_error": "quarantine"}, "(c)"),
     ("BatchWorker", {"corpus": "web"}, "(f)"),
     ("BatchWorker", {"transport": "shm"}, "(e)"),
-    ("ServiceBatchSource", {"hedging": True}, "(b)"),
-    ("ServiceBatchSource", {"retry_budget": 3.0}, "(b)"),
-    ("ServiceBatchSource", {"breaker_threshold": 2}, "(b)"),
-    ("ServiceBatchSource", {"breaker_cooldown_s": 1.0}, "(b)"),
-    ("ServiceBatchSource", {"on_piece_error": "quarantine"}, "(b)"),
     ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, "(c)"),
     ("ServiceBatchSource", {"projection": ["id"]}, "(c)"),
     ("ServiceBatchSource", {"filter_placement": "worker"}, "(c)"),
@@ -402,11 +395,53 @@ def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
         make()
 
 
+#: The control plane's arguments, refused before it was ported: each is taken.
+PORTED = [
+    ("Dispatcher", {"journal_dir": "journal"}),
+    ("Dispatcher", {"brownout": True}),
+    ("Dispatcher", {"breaker_cooldown_s": 3.0}),
+    ("ServiceBatchSource", {"hedging": True}),
+    ("ServiceBatchSource", {"retry_budget": 3.0}),
+    ("ServiceBatchSource", {"breaker_threshold": 2}),
+    ("ServiceBatchSource", {"breaker_cooldown_s": 1.0}),
+    ("ServiceBatchSource", {"on_piece_error": "quarantine"}),
+]
+
+
+@pytest.mark.parametrize("cls,kwargs", PORTED,
+                         ids=[f"{c}-{next(iter(k))}" for c, k in PORTED])
+def test_control_plane_arguments_are_taken(cls, kwargs, tmp_path):
+    name, value = next(iter(kwargs.items()))
+    if cls == "Dispatcher":
+        if name == "journal_dir":
+            value = str(tmp_path / value)
+        with Dispatcher(**{name: value}).start() as dispatcher:
+            status = _status(dispatcher)
+        if name == "journal_dir":
+            assert status["journal"]["path"] == value
+        if name == "brownout":
+            assert status["fleet"]["brownout"]["armed"] is True
+        if name == "breaker_cooldown_s":
+            assert dispatcher.breaker_cooldown_s == value
+        return
+    source = ServiceBatchSource(("127.0.0.1", 1), **{name: value})
+    resilience = source.diagnostics["resilience"]
+    if name == "hedging":
+        assert resilience["hedging"] is True
+    elif name == "on_piece_error":
+        assert source._on_piece_error == value
+    else:
+        attr = {"retry_budget": "_retry_budget_capacity",
+                "breaker_threshold": "_breaker_threshold",
+                "breaker_cooldown_s": "_breaker_cooldown_s"}[name]
+        assert getattr(source, attr) == value
+
+
 def test_later_slice_requests_are_refused_by_name(scalar_store):
     with Fleet(scalar_store, workers=1) as fleet:
         replies = {}
         for kind in ("dynamic_plan", "register_job", "set_mixture_weights",
-                     "client_heartbeat", "report_poison_piece"):
+                     "end_job", "cache_handoff"):
             with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
                 replies[kind] = conn.request({"type": kind})[0]
         with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
@@ -497,6 +532,10 @@ def test_a_loopback_run_moves_the_families_as_jax(scalar_store):
                       metrics.WORKER_STREAMS.labels(wid, "completed").value)
             source = package.ServiceBatchSource(fleet.dispatcher.address, ordered=True)
             rows = sum(len(_ids(b)) for b in source())
+            # The worker counts its stream (by outcome) after sending `end`.
+            assert _wait(lambda: sum(metrics.WORKER_STREAMS.labels(wid, outcome).value
+                                     for outcome in ("completed", "disconnected", "error",
+                                                     "aborted")) >= 1)
             after = (metrics.WORKER_ROWS_SENT.labels(wid).value,
                      metrics.WORKER_BATCHES_SENT.labels(wid).value,
                      metrics.CLIENT_BATCHES.labels(wid).value,

@@ -165,7 +165,8 @@ def test_port_families_equal_the_jax_families_of_the_same_names():
 
     port = {name: value for name, value in vars(port_metrics).items()
             if isinstance(value, port_registry.MetricFamily)}
-    assert len(port) == 52  # 25, the autotuner's five and the data service's 22
+    # 25, the autotuner's five, the data service's 22 and its control plane's 12.
+    assert len(port) == 64
     for name, family in port.items():
         twin = getattr(jax_metrics, name)
         assert (family.name, family.help, family.kind, family.label_names, family.buckets) \
