@@ -359,6 +359,30 @@ non-zero exit code):
    bottlenecks and stage profile. No flash kernel runs on this phase
    (counted).
 
+16. ``dynamic``: the data service's dynamic sharding (``DYNAMIC``; see
+   ``dynamic_phase``), after phase 15 in the same process. (a) Phase 4's
+   store and CNN for 2 epochs through 2 ``BatchWorker(reader_factory="row")``
+   with 1 and 4 decode threads (credits 8), first on a static dispatcher,
+   then on ``Dispatcher(mode="dynamic")`` with
+   ``ServiceBatchSource(dynamic_sync_interval_s=0.1)``: each epoch's image
+   digests the local reader's, batches on ``cuda:0``, losses finite;
+   images/s of both, the dynamic run's steals in / out per worker and
+   ``steals_applied`` / ``steals_failed`` / ``dedup_dropped`` (0). (b)
+   Phase 7's store at phase 14 (b)'s shape, ``ordered=True``, one DLRM epoch
+   on a journaled dynamic dispatcher, each send slowed 0.05 s: a third
+   worker registers after 4 batches; the first sync reply granting it
+   steals is lost after they were journaled, and the dispatcher restarts
+   from its journal on the same port: every row exactly once,
+   ``journal_replays`` 1, the restarted dispatcher's corrective deltas
+   applied (the final owners are theirs) and the joined worker serving
+   pieces. (c) A static tagged image stream, 2 workers and the client with
+   ``on_piece_error="quarantine"`` under ``FaultSchedule(poison_pieces={5})``:
+   piece 5 reported once and quarantined by the dispatcher, every other
+   image delivered once. (d) Phase 14 (a)'s image path (6 epochs), served
+   by the workers' streaming piece engines (their finished streams' served
+   pieces counted): images/s beside phase 4's and phase 14's. No flash
+   kernel runs on this phase (counted).
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -493,6 +517,16 @@ CONTROL = dict(image=IMAGE, epochs=2, workers=2, workers_count=4, credits=8, hea
                restart_after=6, restart_slow_s=0.25, seed=15, tab_rows=TABULAR["rows"],
                tab_days=TABULAR["days"], tab_batch=512, tab_workers_count=2,
                hedge_delay_s=1.5, hedge_at=(12, 24, 36), hedge_quantile=0.9, drop_after=2)
+# Phase 16, dynamic sharding: (a) phase 4's store through 2 workers of 1 and 4
+# decode threads (credits 8, 2 epochs), static then dynamic (syncs every
+# 0.1 s); (b) phase 14 (b)'s tabular shape (batch 512, 2 reader threads a
+# worker, credits 8), ordered, one epoch on a journaled dynamic dispatcher,
+# every send slowed 0.05 s so the epoch outlives a join after 4 batches and
+# a restart; (c) a static tagged image stream with piece 5 poisoned; (d)
+# phase 14's image path re-measured.
+DYNAMIC = dict(image=IMAGE, epochs=2, threads=(1, 4), credits=8, sync_s=0.1,
+               tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=512,
+               tab_workers_count=2, tab_delay_s=0.05, join_after=4, poison=5)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -4398,6 +4432,334 @@ class _DroppingLoader:
             yield batch
 
 
+def _image_run(source, img, device, epochs, local_digests, part):
+    """Phase 4's CNN fed by ``source`` through the device stage for
+    ``epochs`` epochs: images/s after the first epoch, the loader's
+    diagnostics, losses; fails unless each epoch's digests are the local
+    reader's, every batch is on the card and every loss finite."""
+    import torch
+
+    per_epoch = img["rows"]
+    model, step = _image_trainer(img, device)
+    digests, losses, devices, timed, t_start = [], [], set(), 0, None
+    warm = -(-per_epoch // img["batch"])
+    with _image_service_loader(source, img, device, digests) as loader:
+        for i, batch in enumerate(loader):
+            if i == warm:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_start = time.perf_counter()
+            devices.update(str(t.device) for t in batch.values() if torch.is_tensor(t))
+            loss, n = _image_step(step, batch, device)
+            losses.append(loss)
+            if t_start is not None:
+                timed += n
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - t_start if t_start is not None else float("nan")
+        diag = loader.diagnostics
+    bad = _epoch_digests_ok(digests, local_digests, per_epoch, epochs)
+    if bad:
+        fail(f"dynamic ({part}): {len(digests)} images over {epochs} epochs; epochs {bad} "
+             "differ from the local reader's digest multiset")
+    on_card = "cuda:0" if device.type == "cuda" else "cpu"
+    losses = [float(x) for x in losses]
+    if devices != {on_card} or not all(math.isfinite(x) for x in losses):
+        fail(f"dynamic ({part}): batches on {sorted(devices)}, losses {losses[:4]}...")
+    return {"images_per_s": timed / elapsed, "diag": diag, "losses": losses}
+
+
+def _engine_served(workers):
+    """Pieces the workers' streaming engines served, over their finished
+    streams' final diagnostics."""
+    return sum(int(stream.get("engine_pieces_served", 0))
+               for worker in workers
+               for stream in worker.diagnostics_snapshot()["completed_streams"].values())
+
+
+def dynamic_phase(smi, image, service_result, cfg=DYNAMIC, device="cuda"):
+    """Phase 16 (see the module docstring); fails the run on any check.
+    ``image`` is phase 4's result and ``service_result`` phase 14's (their
+    images/s are reported beside this phase's). ``cfg`` and ``device`` exist
+    for a small dry run on the host; the run on the card uses the
+    defaults."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch import failpoints, service
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+
+    device = torch.device(device)
+    img = cfg["image"]
+    per_epoch = img["rows"]
+    pieces = -(-per_epoch // img["rows_per_row_group"])
+    on_card = "cuda:0" if device.type == "cuda" else "cpu"
+    lines, t_parts = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dynamic_")
+    fa.reset_launch_counts()
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        with make_reader(url, schema_fields=["image", "label"], num_epochs=1,
+                         shuffle_row_groups=False, workers_count=1) as reader:
+            local_rows = [(r.image, r.label) for r in reader]
+        local_digests = collections.Counter(_image_digest(i, lab) for i, lab in local_rows)
+
+        # (a) One skewed fleet, static then dynamic.
+        t0 = time.perf_counter()
+        skew = {}
+        for mode in ("static", "dynamic"):
+            disp = service.Dispatcher(mode=mode, num_epochs=cfg["epochs"]).start()
+            workers = []
+            try:
+                for i, threads in enumerate(cfg["threads"]):
+                    workers.append(service.BatchWorker(
+                        url, dispatcher_address=disp.address, batch_size=img["batch"],
+                        reader_factory="row", worker_id=f"skew-{mode}-{i}",
+                        reader_kwargs={"workers_count": threads}).start())
+                source = service.ServiceBatchSource(
+                    disp.address, credits=cfg["credits"],
+                    dynamic_sync_interval_s=cfg["sync_s"])
+                run = _image_run(source, img, device, cfg["epochs"], local_digests,
+                                 f"a {mode}")
+                status = source.dispatcher_status()
+            finally:
+                _stop_fleet(disp, workers)
+            recovery = source.diagnostics["recovery"]
+            per_worker = (status["dynamic"] or {}).get("per_worker", {})
+            run.update(
+                steals={wid: f"{e['steals_in']}/{e['steals_out']}"
+                        for wid, e in sorted(per_worker.items())},
+                pieces={wid: c.get("pieces", 0)
+                        for wid, c in sorted(source.diagnostics["per_worker"].items())},
+                counters={k: recovery[k] for k in ("steals_applied", "steals_failed",
+                                                   "dedup_dropped")})
+            skew[mode] = run
+        if skew["dynamic"]["counters"]["dedup_dropped"] or \
+                skew["static"]["counters"]["steals_applied"]:
+            fail(f"dynamic (a): counters {skew['dynamic']['counters']} "
+                 f"static {skew['static']['counters']}")
+        t_parts["a"] = time.perf_counter() - t0
+        lines.append(
+            f"dynamic (a): phase 4's store, {cfg['epochs']} epochs, 2 row workers with "
+            f"{cfg['threads'][0]} and {cfg['threads'][1]} decode threads, credits "
+            f"{cfg['credits']}: static_images_per_s={skew['static']['images_per_s']:.1f} "
+            f"dynamic_images_per_s={skew['dynamic']['images_per_s']:.1f} "
+            f"dynamic_over_static="
+            f"{skew['dynamic']['images_per_s'] / skew['static']['images_per_s']:.3f} "
+            f"static_stall_pct={skew['static']['diag']['input_stall_pct']} "
+            f"dynamic_stall_pct={skew['dynamic']['diag']['input_stall_pct']} "
+            f"steals_in/out={skew['dynamic']['steals']} "
+            f"pieces static={skew['static']['pieces']} dynamic={skew['dynamic']['pieces']} "
+            f"{' '.join(f'{k}={v}' for k, v in skew['dynamic']['counters'].items())} "
+            f"epoch_digests=local x{cfg['epochs']} both")
+
+        # (b) The tabular shape, ordered, on a journaled dynamic dispatcher:
+        # a worker joins mid-epoch; the first sync reply granting it steals
+        # is lost after they were journaled, and the dispatcher restarts
+        # from its journal on the same port.
+        t0 = time.perf_counter()
+        tab_url = f"file://{tmp}/criteo"
+        rows = td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        journal = os.path.join(tmp, "journal")
+        disp = service.Dispatcher(mode="dynamic", num_epochs=1, journal_dir=journal,
+                                  lease_timeout_s=None).start()
+        port = disp.address[1]
+        workers, restarted, corrective = [], None, []
+        lost = threading.Event()
+        joined = "tab-join"
+
+        def losing(handler):
+            def handle(header):
+                if lost.is_set():
+                    raise ConnectionError("the dispatcher is going down")
+                reply = handler(header)
+                if any(d["to"] == joined for d in reply.get("steals", ())):
+                    lost.set()  # journaled, never answered
+                    raise ConnectionError("the reply is lost with the dispatcher")
+                return reply
+            return handle
+
+        disp._handle_dynamic_sync = losing(disp._handle_dynamic_sync)
+        try:
+            for i in range(2):
+                workers.append(service.BatchWorker(
+                    tab_url, dispatcher_address=disp.address, batch_size=cfg["tab_batch"],
+                    reader_factory="batch", worker_id=f"tab-{i}",
+                    batch_delay_s=cfg["tab_delay_s"],
+                    reader_kwargs={"workers_count": cfg["tab_workers_count"]}).start())
+            torch.manual_seed(0)
+            model = td.init_dlrm(device=device)
+            step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+            source = service.ServiceBatchSource(
+                ("127.0.0.1", port), credits=cfg["credits"], ordered=True,
+                dynamic_sync_interval_s=cfg["sync_s"], heartbeat_interval_s=cfg["sync_s"])
+            ids, losses, devices, t_restart = [], [], set(), None
+            t_run = time.perf_counter()
+            with TorchDataLoader(None, source, device=device) as loader:
+                for i, batch in enumerate(loader):
+                    devices.update(str(t.device) for t in batch.values()
+                                   if torch.is_tensor(t))
+                    dense, sparse, labels = td.collate_dlrm(batch)
+                    mask = torch.ones(labels.shape[0], dtype=torch.bool, device=labels.device)
+                    losses.append(step(dense, sparse, labels, mask))
+                    ids.append(batch["sample_index"])
+                    if i == cfg["join_after"]:
+                        workers.append(service.BatchWorker(
+                            tab_url, dispatcher_address=disp.address,
+                            batch_size=cfg["tab_batch"], reader_factory="batch",
+                            worker_id=joined,
+                            reader_kwargs={"workers_count": cfg["tab_workers_count"]}).start())
+                    if lost.is_set() and restarted is None:
+                        t_restart = time.perf_counter()
+                        disp.stop()
+                        restarted = service.Dispatcher(port=port, mode="dynamic",
+                                                       num_epochs=1, journal_dir=journal,
+                                                       lease_timeout_s=None)
+                        handler = restarted._handle_dynamic_sync
+
+                        def watch(header, handler=handler, server=restarted):
+                            generation = server._generation
+                            reply = handler(header)
+                            corrective.extend(d for d in reply.get("steals", ())
+                                              if d["generation"] <= generation)
+                            return reply
+                        restarted._handle_dynamic_sync = watch
+                        restarted.start()
+                        t_restart = time.perf_counter() - t_restart
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            tab_rate = rows / (time.perf_counter() - t_run)
+            status = (restarted or disp)._handle({"type": "status"})
+            final = (restarted or disp).state_snapshot()
+        finally:
+            for worker in workers:
+                worker.stop()
+            (restarted or disp).stop()
+        ids = torch.cat(ids).cpu().numpy()
+        counts = np.bincount(ids, minlength=rows)
+        owner = {p: (w, g) for dyn in final["dyn"].values() for p, w, g in dyn["owner"]}
+        applied = [d for d in corrective if owner.get(d["piece"]) == (d["to"], d["generation"])]
+        recovery = source.diagnostics["recovery"]
+        pieces_by = {wid: c.get("pieces", 0)
+                     for wid, c in sorted(source.diagnostics["per_worker"].items())}
+        if len(ids) != rows or counts.max() != 1:
+            fail(f"dynamic (b): {len(ids)} rows delivered for {rows}, "
+                 f"{int((counts > 1).sum())} more than once, {int((counts == 0).sum())} never")
+        if restarted is None or status["recovery"]["journal_replays"] != 1:
+            fail(f"dynamic (b): the dispatcher was not restarted from its journal once "
+                 f"(lost={lost.is_set()}, replays "
+                 f"{status['recovery']['journal_replays'] if restarted else None})")
+        if not applied or pieces_by.get(joined, 0) < 1:
+            fail(f"dynamic (b): corrective deltas {corrective}, applied {applied}, pieces "
+                 f"by worker {pieces_by}")
+        if not all(math.isfinite(float(x)) for x in losses) or devices != {on_card}:
+            fail(f"dynamic (b): losses {losses[:4]}..., devices {sorted(devices)}")
+        t_parts["b"] = time.perf_counter() - t0
+        steals = status["dynamic"]["per_worker"]
+        lines.append(
+            f"dynamic (b): Criteo-shaped store ({rows} rows, {cfg['tab_days']} row groups) -> "
+            f"DLRM one epoch, ordered, batch {cfg['tab_batch']}, 2 workers x "
+            f"{cfg['tab_workers_count']} threads (sends slowed {cfg['tab_delay_s']} s), "
+            f"journaled dynamic dispatcher: {joined} joined after batch {cfg['join_after']}; "
+            f"the sync reply granting it steals lost after journaling, the dispatcher "
+            f"restarted from its journal on the same port in {t_restart:.3f} s: "
+            f"journal_replays={status['recovery']['journal_replays']} "
+            f"corrective_deltas={len(corrective)} applied={len(applied)} "
+            f"steals_in/out={ {w: (e['steals_in'], e['steals_out']) for w, e in steals.items()} } "
+            f"pieces={pieces_by} steals_applied={recovery['steals_applied']} "
+            f"steals_failed={recovery['steals_failed']} "
+            f"dedup_dropped={recovery['dedup_dropped']} "
+            f"heartbeat_failures={recovery['heartbeat_failures']} "
+            f"rows_per_s={tab_rate:.1f} every row exactly once")
+
+        # (c) A tagged static image stream with a poison piece, quarantined.
+        t0 = time.perf_counter()
+        poison = cfg["poison"]
+        with failpoints.armed(failpoints.FaultSchedule(0, poison_pieces={poison})):
+            disp = service.Dispatcher(mode="static", num_epochs=1).start()
+            workers = []
+            try:
+                for i in range(2):
+                    workers.append(service.BatchWorker(
+                        url, dispatcher_address=disp.address, batch_size=img["batch"],
+                        reader_factory="row", worker_id=f"poison-{i}",
+                        on_piece_error="quarantine",
+                        reader_kwargs={"workers_count": cfg["threads"][1]}).start())
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    on_piece_error="quarantine")
+                model, step = _image_trainer(img, device)
+                digests, losses, devices = [], [], set()
+                with _image_service_loader(source, img, device, digests) as loader:
+                    for batch in loader:
+                        devices.update(str(t.device) for t in batch.values()
+                                       if torch.is_tensor(t))
+                        losses.append(float(_image_step(step, batch, device)[0]))
+                status = disp._handle({"type": "status"})
+            finally:
+                _stop_fleet(disp, workers)
+        poisoned = collections.Counter(_image_digest(i, lab) for i, lab in
+                                       local_rows[poison * img["rows_per_row_group"]:
+                                                  (poison + 1) * img["rows_per_row_group"]])
+        want = local_digests - poisoned
+        quarantined = source.diagnostics["quarantined_pieces"]
+        if collections.Counter(digests) != want or len(digests) != sum(want.values()):
+            fail(f"dynamic (c): {len(digests)} images, want {sum(want.values())} once each")
+        if [q["piece"] for q in quarantined] != [poison] \
+                or sorted(status["quarantined"]) != [str(poison)]:
+            fail(f"dynamic (c): quarantined {quarantined}, dispatcher "
+                 f"{sorted(status['quarantined'])}")
+        if devices != {on_card} or not all(math.isfinite(x) for x in losses):
+            fail(f"dynamic (c): batches on {sorted(devices)}, losses {losses[:4]}...")
+        t_parts["c"] = time.perf_counter() - t0
+        lines.append(
+            f"dynamic (c): static tagged image stream, 2 workers on_piece_error='quarantine', "
+            f"FaultSchedule(poison_pieces={{{poison}}}): piece {poison} reported once by "
+            f"{quarantined[0]['worker_id']} and journaled, {len(digests)} images "
+            f"({pieces - 1} pieces) each delivered once to {on_card}, {len(losses)} steps")
+
+        # (d) Phase 14's image path on the streaming engine.
+        t0 = time.perf_counter()
+        disp, workers = _service_fleet(service, url, SERVICE, "row", img["batch"],
+                                       SERVICE["workers_count"], num_epochs=img["epochs"])
+        try:
+            source = service.ServiceBatchSource(disp.address, credits=SERVICE["credits"])
+            engine = _image_run(source, img, device, img["epochs"], local_digests, "d")
+            served = _engine_served(workers)
+        finally:
+            _stop_fleet(disp, workers)
+        if served != pieces * img["epochs"]:
+            fail(f"dynamic (d): the engines served {served} pieces, want "
+                 f"{pieces * img['epochs']}")
+        t_parts["d"] = time.perf_counter() - t0
+        lines.append(
+            f"dynamic (d): phase 14's image path ({SERVICE['workers']} workers x "
+            f"{SERVICE['workers_count']} threads, credits {SERVICE['credits']}, "
+            f"{img['epochs']} epochs) on the streaming piece engine ({served} pieces served by "
+            f"it): images_per_s={engine['images_per_s']:.1f} "
+            f"local_phase4_images_per_s={image['images_per_s']:.1f} "
+            f"ratio={engine['images_per_s'] / image['images_per_s']:.3f} "
+            f"phase14_images_per_s={service_result['images_per_s']:.1f} "
+            f"input_stall_pct={engine['diag']['input_stall_pct']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"dynamic: a flash kernel ran on the dynamic-sharding path: {launches}")
+    print("\n".join(lines), flush=True)
+    print(f"dynamic: gpu={smi!r} parts_s=" + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items())
+          + f" flash_launches={launches}", flush=True)
+    return {"static_images_per_s": skew["static"]["images_per_s"],
+            "dynamic_images_per_s": skew["dynamic"]["images_per_s"]}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -4615,7 +4977,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 15. control -------------------------------------------
+    # -- 4. image ... 16. dynamic -------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -4628,7 +4990,8 @@ def main():
                       ("parallel", lambda: parallel_phase(smi)),
                       ("autotune", lambda: autotune_phase(smi)),
                       ("service", lambda: service_phase(smi, out["image"])),
-                      ("control", lambda: control_phase(smi))):
+                      ("control", lambda: control_phase(smi)),
+                      ("dynamic", lambda: dynamic_phase(smi, out["image"], out["service"]))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -195,12 +195,22 @@ class EntryBuilder:
 
         t0 = time.perf_counter()
         fmt, frames = encode_payload(batch)
+        self._append(batch_rows(batch), fmt, frames)
+        self._spent_s += time.perf_counter() - t0
+
+    def add_frames(self, rows, fmt, frames):
+        """Append a batch the caller already encoded (the streaming piece
+        engine sends the same frames)."""
+        t0 = time.perf_counter()
+        self._append(rows, fmt, frames)
+        self._spent_s += time.perf_counter() - t0
+
+    def _append(self, rows, fmt, frames):
         views = [memoryview(f) for f in frames]
-        self._meta.append((batch_rows(batch), int(fmt), [v.nbytes for v in views]))
+        self._meta.append((int(rows), int(fmt), [v.nbytes for v in views]))
         # Copied now: out-of-band frames alias the batch's arrays, which the
         # producer hands on and the consumer may overwrite.
         self._chunks.extend(bytes(v) for v in views)
-        self._spent_s += time.perf_counter() - t0
 
     def commit(self):
         """Freeze into a :class:`CachedEntry`, publish it to the tiers and

@@ -319,7 +319,8 @@ def build_loader_graph(loader, bounds=None):
     nodes.append(StageNode("collate", "worker", worker_placement,
                            description="rows → fixed-size numpy batch"))
     # The serialize node's fused-stage series and the packing stage wait
-    # for the streaming engine (service slice (c)) and the LLM stages (f).
+    # for stage fusion (the graph rewrites, service slice (c2)) and the LLM
+    # stages (f).
     nodes.append(StageNode("serialize", "worker", worker_placement,
                            description="batch → wire frames (service path only)"))
     nodes.append(StageNode("send", "worker", worker_placement,
@@ -405,7 +406,7 @@ def build_loader_graph(loader, bounds=None):
                           choices=("remote", "local"), applies="next-iteration"))
     # Not bound yet: packing_placement (service slice (f)) and the four
     # rewrite knobs, stage_fusion / filter_placement / cache_placement /
-    # reader_family, which run inside the streaming engine (slice (c)).
+    # reader_family, the graph rewrites of service slice (c2).
 
     signals = {
         "rows": lambda: loader._m_rows.value,
@@ -422,7 +423,7 @@ def build_loader_graph(loader, bounds=None):
         signals["credit_wait_s"] = _process_credit_wait
         # The rewrite-trigger signals (worker decode, hand-off, transform,
         # cache and filter counters) come with the rewrites they trigger,
-        # service slice (c).
+        # service slice (c2).
     return PipelineGraph(nodes, edges, knobs=knobs, signals=signals)
 
 

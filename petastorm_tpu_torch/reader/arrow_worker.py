@@ -111,10 +111,15 @@ class ArrowResultsQueueReader:
 
     def __init__(self):
         self.delivery_tracker = None
+        #: Work-item tag (``"piece:drop_partition"``) of the last output:
+        #: the streaming piece engine attributes outputs to pieces by it.
+        self.last_item_key = None
 
-    def read_next(self, pool, schema, ngram=None):
-        table = pool.get_results()  # raises EmptyResultError at the end
+    def read_next(self, pool, schema, ngram=None, timeout=None):
+        kwargs = {} if timeout is None else {"timeout": timeout}
+        table = pool.get_results(**kwargs)  # raises EmptyResultError at the end
         key = read_table_tag(table)
+        self.last_item_key = key
         if self.delivery_tracker is not None and key is not None:
             self.delivery_tracker.record(key, table.num_rows)
         return table_to_batch(table, schema)

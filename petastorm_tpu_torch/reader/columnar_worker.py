@@ -98,9 +98,13 @@ class ColumnarResultsQueueReader:
 
     def __init__(self):
         self.delivery_tracker = None
+        #: Work-item tag of the last column batch (see the row reader's).
+        self.last_item_key = None
 
-    def read_next(self, pool, schema, ngram=None):
-        key, batch = pool.get_results()
+    def read_next(self, pool, schema, ngram=None, timeout=None):
+        kwargs = {} if timeout is None else {"timeout": timeout}
+        key, batch = pool.get_results(**kwargs)
+        self.last_item_key = key
         if self.delivery_tracker is not None:
             self.delivery_tracker.record(key, len(next(iter(batch.values()), ())))
         return schema.make_namedtuple(**batch)

@@ -154,11 +154,17 @@ class PyDictResultsQueueReader:
         self._buffer = deque()
         self._pending_item = None  # (item_key, num_rows) awaiting its last row
         self.delivery_tracker = None
+        #: Work-item tag of the payload the last row came from: one
+        #: payload's rows drain before the buffer refills, so the tag holds
+        #: for each of them (the streaming piece engine reads it).
+        self.last_item_key = None
 
-    def read_next(self, pool, schema, ngram=None):
+    def read_next(self, pool, schema, ngram=None, timeout=None):
+        kwargs = {} if timeout is None else {"timeout": timeout}
         while not self._buffer:
-            key, rows = pool.get_results()
+            key, rows = pool.get_results(**kwargs)
             self._pending_item = (key, len(rows))
+            self.last_item_key = key
             self._buffer.extend(schema.make_namedtuples(rows) if ngram is None else
                                 (ngram.make_namedtuple(schema, row) for row in rows))
         row = self._buffer.popleft()

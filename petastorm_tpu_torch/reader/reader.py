@@ -77,18 +77,16 @@ from petastorm_tpu_torch.workers_pool import EmptyResultError
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
-from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
+from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator, DynamicVentilator
 
 #: Arguments of the JAX package's three factories that the port does not
 #: take, with their JAX defaults: the default is accepted (it asks for
 #: nothing), anything else raises NotImplementedError naming the argument.
-UNPORTED_READER_ARGS = {"hdfs_driver": "libhdfs", "dynamic_ventilation": False}
+UNPORTED_READER_ARGS = {"hdfs_driver": "libhdfs"}
 
 #: Where each argument of :data:`UNPORTED_READER_ARGS` would come from.
 _UNPORTED_REASONS = {
     "hdfs_driver": "hdfs:// needs libhdfs, which this package does not use",
-    "dynamic_ventilation": "it comes with the data service's dynamic sharding "
-                           "(slice (c), with the streaming piece engine)",
 }
 
 
@@ -100,7 +98,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                 cache_row_size_estimate=None, cache_extra_settings=None,
                 transform_spec=None, filters=None, reader_engine=None,
                 resume_state=None, zmq_copy_buffers=True, storage_options=None,
-                filesystem=None, fast_gcs_listing=True, piece_indices=None, **unported):
+                filesystem=None, fast_gcs_listing=True, piece_indices=None,
+                dynamic_ventilation=False, **unported):
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
@@ -132,7 +131,11 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     ``piece_indices``: an explicit plan, indices into the row-group pieces
     left after ``filters`` and the selector (sorted, deduplicated and
     range-checked, applied before sharding); the data service's workers
-    read their assigned pieces through it.
+    read their assigned pieces through it. ``dynamic_ventilation=True``: no
+    planned epochs; pieces are fed one at a time with
+    :meth:`Reader.submit_piece` (the service's streaming piece engine),
+    which needs ``shuffle_row_groups=False``, one drop partition and no
+    ``resume_state``.
     """
     _check_unported("make_reader", unported)
     if reader_engine is not None:
@@ -157,7 +160,8 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                   shard_seed=shard_seed, filters=filters,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings),
-                  resume_state=resume_state, piece_indices=piece_indices)
+                  resume_state=resume_state, piece_indices=piece_indices,
+                  dynamic_ventilation=dynamic_ventilation)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
@@ -169,7 +173,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                          cache_row_size_estimate=None, cache_extra_settings=None,
                          transform_spec=None, filters=None, resume_state=None,
                          zmq_copy_buffers=True, storage_options=None, filesystem=None,
-                         fast_gcs_listing=True, piece_indices=None, **unported):
+                         fast_gcs_listing=True, piece_indices=None,
+                         dynamic_ventilation=False, **unported):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
     decoded ``[N, ...]`` column arrays, one per work item
     (``batched_output=True``).
@@ -197,7 +202,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                   shard_seed=shard_seed, filters=filters,
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings),
-                  resume_state=resume_state, piece_indices=piece_indices)
+                  resume_state=resume_state, piece_indices=piece_indices,
+                  dynamic_ventilation=dynamic_ventilation)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type="thread",
@@ -208,7 +214,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       cache_row_size_estimate=None, cache_extra_settings=None,
                       transform_spec=None, filters=None, resume_state=None,
                       zmq_copy_buffers=True, storage_options=None, filesystem=None,
-                      fast_gcs_listing=True, piece_indices=None, **unported):
+                      fast_gcs_listing=True, piece_indices=None,
+                      dynamic_ventilation=False, **unported):
     """Batch reader for **plain Parquet** stores (no petastorm metadata
     needed): yields namedtuples of numpy column batches, one per work item
     (``batched_output=True``), under a codec-less schema inferred from the
@@ -250,7 +257,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   cache=_make_cache(cache_type, cache_location, cache_size_limit,
                                     cache_row_size_estimate, cache_extra_settings,
                                     arrow_cache=True),
-                  resume_state=resume_state, piece_indices=piece_indices)
+                  resume_state=resume_state, piece_indices=piece_indices,
+                  dynamic_ventilation=dynamic_ventilation)
 
 
 def _check_unported(factory, unported):
@@ -384,7 +392,7 @@ class Reader:
                  shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
                  rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
                  shard_seed=None, filters=None, cache=None, resume_state=None,
-                 piece_indices=None):
+                 piece_indices=None, dynamic_ventilation=False):
         if predicate is not None and not isinstance(predicate, PredicateBase):
             raise ValueError("predicate must be an instance of PredicateBase")
         if (cur_shard is None) != (shard_count is None):
@@ -459,6 +467,19 @@ class Reader:
                  for drop_partition in range(shuffle_row_drop_partitions)]
         self._num_items = len(items)
         self._shuffle_row_drop_partitions = shuffle_row_drop_partitions
+        self._dynamic = bool(dynamic_ventilation)
+        if self._dynamic:
+            # The caller owns the (mutable) piece queue: planned epochs,
+            # shuffling and resume trimming mean nothing here.
+            if resume_state is not None:
+                raise ValueError("dynamic_ventilation readers have no pre-planned "
+                                 "ventilation to trim — resume_state is not supported")
+            if shuffle_row_groups:
+                raise ValueError("dynamic_ventilation serves an externally-ordered piece "
+                                 "queue; shuffle_row_groups must be False")
+            if shuffle_row_drop_partitions != 1:
+                raise ValueError("dynamic_ventilation does not support "
+                                 "shuffle_row_drop_partitions")
         # Filters, the selector and an explicit plan change which pieces the
         # positional item keys denote, so they are part of the resume
         # fingerprint (the two-element form without a plan, as in the JAX
@@ -483,13 +504,16 @@ class Reader:
         self._delivery_tracker = DeliveryTracker(preload=prior_counts)
         results_queue_reader.delivery_tracker = self._delivery_tracker
 
-        self._ventilator = ConcurrentVentilator(
-            reader_pool.ventilate, items,
-            iterations=iterations if items else 1,
-            randomize_item_order=shuffle_row_groups,
-            random_seed=shard_seed,
-            max_ventilation_queue_size=min(len(items), 1000) or 1,
-            per_item_iterations=per_item_iterations)
+        if self._dynamic:
+            self._ventilator = DynamicVentilator(reader_pool.ventilate)
+        else:
+            self._ventilator = ConcurrentVentilator(
+                reader_pool.ventilate, items,
+                iterations=iterations if items else 1,
+                randomize_item_order=shuffle_row_groups,
+                random_seed=shard_seed,
+                max_ventilation_queue_size=min(len(items), 1000) or 1,
+                per_item_iterations=per_item_iterations)
         self._diagnostics = {
             "rowgroups_total": len(pieces),
             "items_per_epoch": len(items),
@@ -669,3 +693,59 @@ class Reader:
         self._delivery_tracker = DeliveryTracker()
         self._results_queue_reader.delivery_tracker = self._delivery_tracker
         self._ventilator.reset()
+
+    # -- the dynamic piece feed (dynamic_ventilation=True readers) -----------
+
+    @property
+    def dynamic(self):
+        """True for a reader fed through :meth:`submit_piece`."""
+        return self._dynamic
+
+    def _require_dynamic(self):
+        if not self._dynamic:
+            raise RuntimeError("this Reader was not constructed with dynamic_ventilation=True")
+
+    def submit_piece(self, piece_index):
+        """Feed one piece (its index in the reader's enumeration) to the
+        pool; the caller owns admission control."""
+        self._require_dynamic()
+        piece_index = int(piece_index)
+        if not 0 <= piece_index < len(self._pieces):
+            raise ValueError(f"piece_index {piece_index} out of range for the "
+                             f"{len(self._pieces)} row-group pieces planned")
+        self._ventilator.submit({"piece_index": piece_index,
+                                 "worker_predicate": self._predicate,
+                                 "shuffle_row_drop_partition": (0, 1)})
+
+    def finish_pieces(self):
+        """Close the piece feed: once the pieces in flight drain, the
+        consumer sees end-of-data instead of blocking."""
+        self._require_dynamic()
+        self._ventilator.finish()
+
+    def set_publish_transform(self, fn):
+        """Stage fusion's pool hook: not ported yet."""
+        raise NotImplementedError(
+            "Reader.set_publish_transform is not ported yet: stage fusion comes with the "
+            "data service's graph rewrites, slice (c2)")
+
+    def set_item_done_hook(self, hook):
+        """Install ``hook(item_kwargs)``, called on the consuming thread as
+        it drains a work item's completion marker, after every output of
+        that item was returned (thread and dummy pools)."""
+        self._require_dynamic()
+        if not getattr(self._workers_pool, "supports_item_done_hook", False):
+            raise ValueError(
+                "the streaming piece feed needs per-item completion attribution, which "
+                "only thread and dummy reader pools provide — use reader_pool_type="
+                "'thread' (or 'dummy')")
+        self._workers_pool.item_done_hook = hook
+
+    def read_next_tagged(self, timeout=None):
+        """``(next output, piece_index)``: one output and the index of the
+        piece it came from (``None`` if untagged). The pool's timeout and
+        end-of-data exceptions pass through."""
+        out = self._results_queue_reader.read_next(self._workers_pool, self.schema,
+                                                   self.ngram, timeout=timeout)
+        key = self._results_queue_reader.last_item_key
+        return out, (int(key.split(":", 1)[0]) if key else None)

@@ -16,12 +16,19 @@ then, trainer-side::
     source = ServiceBatchSource(("127.0.0.1", 7077))
     loader = TorchDataLoader(None, batch_source=source, device="cuda")
 
+``--mode dynamic`` rebalances each client's shard across the workers by
+work stealing (a slow worker's unstarted pieces move to a faster or newly
+joined one); workers started with ``--on-piece-error quarantine`` report an
+undecodable piece and serve on.
+
 Each process prints one JSON line with its bound address (port 0 picks a
 free port) and serves until SIGINT or SIGTERM. ``--metrics-port`` serves
 the process's metrics registry (:mod:`petastorm_tpu_torch.telemetry.http`).
 ``status --dispatcher host:port`` prints the dispatcher's control-plane
 state as one JSON line (``--table``: one row per worker with its breaker
-state, and the brownout, quarantine and journal lines). ``--journal-dir``
+state and, under dynamic sharding, its steals in / out and backlog; the
+ownership generation in the header; the brownout, quarantine and journal
+lines). ``--journal-dir``
 makes the dispatcher durable: a restart on the same directory replays it.
 
 Fleet tracing: ``trace arm --dispatcher host:port`` arms every process's
@@ -60,8 +67,9 @@ def _build_parser():
     disp.add_argument("--port", type=int, default=7077,
                       help="0 picks a free port (printed on stdout)")
     disp.add_argument("--mode", choices=["static", "fcfs", "dynamic"], default="static",
-                      help="split assignment: static per-client shards or the fcfs shared "
-                           "queue (dynamic comes with a later slice)")
+                      help="split assignment: static per-client shards, the fcfs shared "
+                           "queue, or dynamic (per-client shards rebalanced by work "
+                           "stealing)")
     disp.add_argument("--num-epochs", type=int, default=1,
                       help="epochs to serve; 0 means serve forever")
     disp.add_argument("--journal-dir", default=None,
@@ -105,8 +113,8 @@ def _build_parser():
                       help="pooled standby capacity (comes with a later slice)")
     work.add_argument("--on-piece-error", default="fail", choices=["fail", "quarantine"],
                       dest="on_piece_error",
-                      help="poison-piece policy ('quarantine' comes with the streaming "
-                           "piece engine, a later slice)")
+                      help="poison-piece policy: 'quarantine' reports an undecodable "
+                           "piece (piece_failed) and serves on; 'fail' errors the stream")
     work.add_argument("--corpus", default="",
                       help="corpus of a multi-corpus fleet (comes with a later slice)")
     work.add_argument("--transport", default=None, choices=["auto", "tcp", "shm"],
@@ -124,8 +132,9 @@ def _build_parser():
     stat = sub.add_parser("status", help="print the dispatcher's control-plane state")
     stat.add_argument("--dispatcher", required=True, help="dispatcher address host:port")
     stat.add_argument("--table", action="store_true",
-                      help="a table of the workers (breaker state) and the brownout, "
-                           "quarantine and journal lines instead of JSON")
+                      help="a table of the workers (breaker state; steals and backlog "
+                           "under dynamic sharding) and the brownout, quarantine and "
+                           "journal lines instead of JSON")
 
     trace = sub.add_parser("trace", help="fleet tracing: arm every process's span "
                                          "collector, collect the merged trace, or disarm")
@@ -207,21 +216,39 @@ def _request(address, header, timeout=10.0):
 
 def render_status(status):
     """A ``status`` reply → the ``status --table`` view: one row per worker
-    (alive, lifecycle state, lease, breaker) and the brownout, breaker,
-    quarantine, degraded and journal lines."""
+    (alive, lifecycle state, lease, the dynamic mode's steals in/out and
+    backlog, breaker), the ownership generation in the header under dynamic
+    sharding, and the brownout, breaker, quarantine, degraded and journal
+    lines."""
     fleet = status.get("fleet") or {}
     breaker_open = fleet.get("breaker_open") or {}
     workers = status.get("workers") or {}
+    dynamic = status.get("dynamic") or {}
+    dyn_workers = dynamic.get("per_worker") or {}
     alive = sum(1 for w in workers.values() if w.get("alive"))
-    lines = [f"mode={status.get('mode')} fencing_epoch={status.get('fencing_epoch')} "
-             f"workers={alive} alive/{len(workers) - alive} dead "
-             f"clients={len(status.get('clients') or {})}",
-             f"{'WORKER':<20} {'ALIVE':>6} {'STATE':>9} {'LEASE_S':>8} {'BREAKER':>8}"]
+    header = (f"mode={status.get('mode')} fencing_epoch={status.get('fencing_epoch')} "
+              f"workers={alive} alive/{len(workers) - alive} dead "
+              f"clients={len(status.get('clients') or {})}")
+    if dynamic:
+        header += f" generation={dynamic.get('generation')}"
+    lines = [header,
+             f"{'WORKER':<20} {'ALIVE':>6} {'STATE':>9} {'LEASE_S':>8} {'STEALS':>9} "
+             f"{'BACKLOG':>8} {'BREAKER':>8}"]
+
+    def steal_cols(wid):
+        """``in/out`` piece moves and the pieces booked to the worker;
+        ``--`` outside dynamic mode."""
+        entry = dyn_workers.get(wid)
+        if entry is None:
+            return f"{'--':>9} {'--':>8}"
+        steals = f"{entry['steals_in']}/{entry['steals_out']}"
+        return f"{steals:>9} {entry['backlog']:>8}"
+
     for wid, w in sorted(workers.items()):
         lease = w.get("lease_expires_in_s")
         lines.append(f"{wid:<20} {'yes' if w.get('alive') else 'no':>6} "
                      f"{w.get('state', 'serving'):>9} "
-                     f"{'--' if lease is None else f'{lease:.1f}':>8} "
+                     f"{'--' if lease is None else f'{lease:.1f}':>8} {steal_cols(wid)} "
                      f"{'open' if wid in breaker_open else 'ok':>8}")
     brownout = fleet.get("brownout") or {}
     counts = brownout.get("counts") or {}

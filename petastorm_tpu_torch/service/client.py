@@ -1,5 +1,5 @@
 """Trainer-side client of the data service (the port's own copy of
-``petastorm_tpu/service/client.py``, its static / fcfs tier).
+``petastorm_tpu/service/client.py``: static, fcfs and dynamic sharding).
 
 :class:`ServiceBatchSource` is a zero-argument callable returning an
 iterator of ``{field: ndarray}`` batches: the ``batch_source=`` of
@@ -27,6 +27,20 @@ dispatcher, which routes new grants around it), is reported dead, and the
 dispatcher re-partitions its pieces across the survivors (at-least-once on
 an untagged stream). fcfs mode pulls one split at a time from the
 dispatcher's shared queue.
+
+Dynamic mode keeps one persistent stream per worker, fed from
+dispatcher-owned deques and rebalanced mid-epoch by work stealing: every
+``dynamic_sync_interval_s`` (and at once when a worker's deque drains while
+a peer is backlogged) the client reports the pieces done, each worker's
+owned and unstarted pieces and its delivery rate, and applies the steals
+the dispatcher answers with through a revoke-then-extend handshake: the
+donor's engine revokes the piece first, and only a piece it acks as revoked
+(no batch of it sent or to be sent) is granted to the receiver, at the
+piece's watermark. A steal the donor beat is reported back as failed.
+Batches carry ``(piece, generation)``, and one of a superseded grant is
+dropped (``dedup_dropped``). A worker that joined mid-epoch gets a stream
+when a steal names it; a dispatcher that restarted without the plan
+answers ``unknown_plan`` and the client re-plans while its streams flow.
 
 While a static drain runs, a heartbeat thread (``heartbeat_interval_s``)
 ships the delivery watermarks and the ready-queue fullness to the
@@ -97,15 +111,14 @@ logger = logging.getLogger(__name__)
 #: ``ServiceBatchSource`` arguments this slice does not take: the value
 #: that asks for nothing, and the slice that ports the feature.
 UNPORTED_SOURCE_ARGS = {
-    "predicate": (None, "the row filter runs inside the streaming engine, slice (c)"),
-    "projection": (None, "column pruning runs inside the streaming engine, slice (c)"),
-    "filter_placement": ("client", "the filter-hoisting rewrite runs inside the "
-                                   "streaming engine, slice (c)"),
-    "stage_fusion": ("off", "stage fusion runs inside the streaming engine, slice (c)"),
-    "cache_placement": ("post-transform", "the cache-placement rewrite runs inside the "
-                                          "streaming engine, slice (c)"),
-    "reader_family": (None, "the row/columnar rewrite runs inside the streaming engine, "
-                            "slice (c)"),
+    "predicate": (None, "the hoisted row filter is a graph rewrite, slice (c2)"),
+    "projection": (None, "hoisted column pruning is a graph rewrite, slice (c2)"),
+    "filter_placement": ("client", "the filter-hoisting rewrite is a graph rewrite, "
+                                   "slice (c2)"),
+    "stage_fusion": ("off", "stage fusion is a graph rewrite, slice (c2)"),
+    "cache_placement": ("post-transform", "the cache-placement rewrite is a graph "
+                                          "rewrite, slice (c2)"),
+    "reader_family": (None, "the row/columnar rewrite is a graph rewrite, slice (c2)"),
     "packing": (None, "worker-side sequence packing comes with the LLM stages, "
                       "slice (f)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
@@ -416,6 +429,187 @@ class _StreamReader(threading.Thread):
                 continue
 
 
+class _DynamicStream:
+    """One persistent dynamic-mode stream against one worker, whose piece
+    set changes mid-stream: :meth:`extend` appends steal grants,
+    :meth:`revoke` asks the worker's engine to drop unsent pieces (acked
+    with a ``revoked`` frame naming those removed), :meth:`finish` closes
+    the queue so the worker drains and sends ``end``. The senders are
+    send-only, safe beside the reader thread's ``recv``; a broken socket is
+    left to the receive path, whose takeover re-grants every piece still
+    outstanding on the worker."""
+
+    def __init__(self, worker_id, address, pairs, epoch, connect_timeout, credits=None,
+                 shuffle_seed=None, transform_placement=None, recv_timeout=None,
+                 max_frame_bytes=None):
+        self.worker_id = worker_id
+        self.address = tuple(address)
+        # [(piece, generation, start)]: start is the client's watermark, so
+        # a (re)opened stream repeats no batch.
+        self.pairs = [self._triple(t) for t in pairs]
+        self.epoch = epoch
+        self.credits = credits
+        self.shuffle_seed = shuffle_seed
+        self.transform_placement = transform_placement
+        self._connect_timeout = connect_timeout
+        self._recv_timeout = recv_timeout
+        self._max_frame_bytes = max_frame_bytes
+        self._conn = None
+        self._closed = False
+        self._send_lock = threading.Lock()
+        self._pre_conn = []  # queue edits sent before the connection is up
+
+    def _ensure_conn(self):
+        if self._closed:
+            raise ConnectionClosedError("stream closed")
+        with self._send_lock:
+            if self._conn is not None:
+                return self._conn
+            conn = FramedConnection.connect(
+                self.address, timeout=self._connect_timeout, stream_timeout=self._recv_timeout,
+                keepalive=True, max_frame_bytes=self._max_frame_bytes)
+            if self._closed:
+                conn.close()
+                raise ConnectionClosedError("stream closed")
+            request = {"type": "stream", "dynamic": True,
+                       "pieces": [list(t) for t in self.pairs], "epoch": self.epoch}
+            if self._connect_timeout is not None:
+                attach_deadline(request, time.monotonic() + self._connect_timeout)
+            if self.shuffle_seed is not None:
+                request["shuffle_seed"] = int(self.shuffle_seed)
+            if self.transform_placement is not None:
+                request["transform_placement"] = self.transform_placement
+            if self.credits is not None:
+                request["credits"] = self.credits
+            try:
+                conn.send(request)
+                # Edits that raced the dial follow the request, in order.
+                for message in self._pre_conn:
+                    conn.send(message)
+            except BaseException:
+                conn.close()
+                raise
+            del self._pre_conn[:]
+            self._conn = conn
+            return conn
+
+    @staticmethod
+    def _triple(t):
+        t = list(t)
+        return (int(t[0]), int(t[1]), int(t[2]) if len(t) > 2 else 0)
+
+    def next_event(self):
+        """``("batch", (piece, gen, ordinal, payload, bid))``,
+        ``("piece_done", (piece, gen, rows))``, ``("piece_failed", (piece,
+        gen, error))``, ``("revoked", (req, pieces))`` or ``("end", None)``;
+        an ``error`` reply raises :class:`ServiceError`."""
+        conn = self._ensure_conn()
+        header, payload = conn.recv()
+        kind = header.get("type")
+        if kind == "batch":
+            ordinal = header.get("ordinal")
+            return ("batch", (int(header.get("piece", -1)), int(header.get("generation", 0)),
+                              int(ordinal) if ordinal is not None else None, payload,
+                              header.get("bid")))
+        if kind == "piece_done":
+            return ("piece_done", (int(header["piece"]), int(header.get("generation", 0)),
+                                   int(header.get("rows", 0))))
+        if kind == "piece_failed":
+            return ("piece_failed", (int(header["piece"]), int(header.get("generation", 0)),
+                                     str(header.get("error", ""))))
+        if kind == "revoked":
+            return ("revoked", (header.get("req"), [int(p) for p in header.get("pieces", [])]))
+        if kind == "end":
+            self.close()
+            return ("end", None)
+        if kind == "error":
+            raise ServiceError(f"worker {self.worker_id} failed its dynamic stream: "
+                               f"{header.get('error')}")
+        raise ServiceError(f"unexpected dynamic stream message {kind!r}")
+
+    def _send(self, message):
+        with self._send_lock:
+            if self._closed:
+                return
+            if self._conn is None:
+                # Not dialed yet: queue the edit (dropping a steal grant
+                # would orphan the piece and hang the epoch).
+                self._pre_conn.append(message)
+                return
+            try:
+                self._conn.send(message)
+            except OSError:
+                pass  # the receive path detects and recovers the stream
+
+    def extend(self, pairs):
+        self._send({"type": "extend", "pieces": [list(self._triple(t)) for t in pairs]})
+
+    def revoke(self, pieces, req):
+        self._send({"type": "revoke", "pieces": [int(p) for p in pieces], "req": req})
+
+    def finish(self):
+        self._send({"type": "finish_pieces"})
+
+    def add_credit(self, n=1):
+        if self.credits is not None:
+            self._send({"type": "credit", "n": n})
+
+    def close(self):
+        self._closed = True
+        if self._conn is not None:
+            self._conn.close()
+            self._conn = None
+
+
+class _DynamicStreamReader(threading.Thread):
+    """Receive loop of one dynamic stream: events go to the shared ready
+    queue as ``(kind, sid, item)``: ``dbatch``, ``piece_done``,
+    ``piece_failed``, ``revoked``, then a terminal ``end``, ``broken`` or
+    ``error``."""
+
+    def __init__(self, sid, stream, ready, stop, note_recv):
+        super().__init__(daemon=True, name=f"service-dynstream-{stream.worker_id}")
+        self._sid = sid
+        self._stream = stream
+        self._ready = ready
+        self._stopped = stop
+        self._note_recv = note_recv
+
+    def run(self):
+        collector = tracing.COLLECTOR
+        try:
+            while not self._stopped.is_set():
+                t0 = time.perf_counter()
+                try:
+                    kind, item = self._stream.next_event()
+                except (ConnectionError, OSError, ProtocolError) as exc:
+                    if not self._stopped.is_set():
+                        self._put(("broken", self._sid, exc))
+                    return
+                t1 = time.perf_counter()
+                self._note_recv(self._stream.worker_id, t1 - t0, kind == "batch")
+                if kind == "end":
+                    self._put(("end", self._sid, None))
+                    return
+                if kind == "batch":
+                    piece, gen, ordinal, payload, bid = item
+                    if collector.enabled:
+                        collector.record_span("client.recv", t0, t1, bid=bid)
+                    self._put(("dbatch", self._sid, (piece, gen, ordinal, payload, bid, t1)))
+                else:
+                    self._put((kind, self._sid, item))
+        except BaseException as exc:
+            self._put(("error", self._sid, exc))
+
+    def _put(self, event):
+        while not self._stopped.is_set():
+            try:
+                self._ready.put(event, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+
 class ServiceBatchSource:
     """Stream remote batches from a dispatcher's worker fleet.
 
@@ -437,7 +631,10 @@ class ServiceBatchSource:
     :param rpc_deadline_s: time budget per dispatcher request, shipped
         with each attempt as the remaining ``deadline_left_s``.
     :param max_frame_bytes: receive frame cap of this client's connections.
-    :param ordered: deterministic delivery order (static mode).
+    :param dynamic_sync_interval_s: dynamic mode: how often the rebalance
+        loop reports progress and backlog and applies the steals it gets
+        back (a worker whose deque drains pokes it at once).
+    :param ordered: deterministic delivery order (static and dynamic modes).
     :param transform: the batch transform, the same callable the workers
         were given (``BatchWorker(batch_transform=...)``);
         ``transform_placement`` says where it runs: ``"remote"`` (the
@@ -517,6 +714,7 @@ class ServiceBatchSource:
         self._transform_placement = transform_placement
         self._iter_transform_placement = transform_placement if transform is not None else None
         self._heartbeat_interval_s = heartbeat_interval_s
+        self._dynamic_sync_interval_s = dynamic_sync_interval_s
         self._rpc_deadline_s = rpc_deadline_s
         self._max_frame_bytes = max_frame_bytes
         self._stream_recv_timeout_s = stream_recv_timeout_s
@@ -545,6 +743,9 @@ class ServiceBatchSource:
             "takeovers": 0, "stale_fencing_retries": 0,
             "heartbeat_failures": 0,  # ticks the dispatcher did not answer
             "duplicates_dropped": 0,  # sub-watermark batches a re-serve repeated
+            "steals_applied": 0,      # dynamic: revoke-acked piece moves
+            "steals_failed": 0,       # dynamic: steals the donor beat
+            "dedup_dropped": 0,       # dynamic: batches of a superseded generation
             "pieces_quarantined": 0,  # piece_failed frames under "quarantine"
             "fencing_epoch": 0,       # the last fencing epoch a reply carried
             "dispatcher": {},         # its recovery counters, last heartbeat
@@ -838,10 +1039,6 @@ class ServiceBatchSource:
                            "runs %r — delivery stays exactly-once, but the resumed order "
                            "will not equal the original run's", self._resume_seed,
                            self._shuffle_seed)
-        if info["mode"] not in ("static", "fcfs"):
-            raise NotImplementedError(
-                f"the dispatcher runs mode {info['mode']!r}: dynamic sharding comes with "
-                "the data service's slice (c)")
         if self._ordered and info["mode"] == "fcfs":
             raise ValueError(
                 "ordered delivery requires static or dynamic sharding: fcfs hands splits "
@@ -856,12 +1053,14 @@ class ServiceBatchSource:
 
         if info["mode"] == "static":
             return _SourceIterator(wrap(self._iter_static(info)), prefetched=True)
+        if info["mode"] == "dynamic":
+            return _SourceIterator(wrap(self._iter_dynamic(info)), prefetched=True)
         if self._resumed:
             raise ValueError(
                 "resume_state was supplied but the dispatcher is in fcfs mode: fcfs has no "
                 "per-client resumable position, so the snapshot's completed pieces cannot "
                 "be skipped — silently re-streaming everything would duplicate trained "
-                "data. Run the dispatcher in static mode to resume")
+                "data. Run the dispatcher in static or dynamic mode to resume")
         return _SourceIterator(wrap(self._iter_fcfs(info)), prefetched=False)
 
     # -- static mode -------------------------------------------------------
@@ -1380,10 +1579,546 @@ class ServiceBatchSource:
             return _EndedStream(fresh)
         return _BufferedStream(fresh, event)
 
+    # -- dynamic mode ------------------------------------------------------
+
+    def _dynamic_stream(self, wid, address, pairs, epoch):
+        return _DynamicStream(wid, address, pairs, epoch, self._connect_timeout,
+                              credits=self._credits, shuffle_seed=self._shuffle_seed,
+                              transform_placement=self._iter_transform_placement,
+                              recv_timeout=self._stream_recv_timeout_s,
+                              max_frame_bytes=self._max_frame_bytes)
+
+    def _fetch_dynamic_plan(self, epoch):
+        """The epoch's initial per-worker deques (pieces stamped with their
+        generation); the plan is the freshest state, so the fencing epoch
+        it carries is the one this client acts under."""
+        reply = self._dispatcher_request({
+            "type": "dynamic_plan", "client_id": self.client_id,
+            "client_index": self.client_index, "num_clients": self.num_clients,
+            "epoch": epoch})
+        with self._lock:
+            self._synced_fencing_epoch = int(reply.get("fencing_epoch", 0))
+            self._fence_pending = False
+        return reply
+
+    def _iter_dynamic(self, info):
+        num_epochs, epoch, first = info["num_epochs"], self._epoch, True
+        heartbeat_stop = threading.Event()
+        heartbeat = None
+        if self._heartbeat_interval_s is not None:
+            heartbeat = threading.Thread(target=self._heartbeat_loop, args=(heartbeat_stop,),
+                                         daemon=True,
+                                         name=f"service-heartbeat-{self.client_id}")
+            heartbeat.start()
+        try:
+            while num_epochs is None or epoch < num_epochs:
+                plan = self._fetch_dynamic_plan(epoch)
+                if not plan["assignments"] and num_epochs is None:
+                    logger.warning("empty dynamic shard and num_epochs is None — ending the "
+                                   "stream")
+                    return
+                with self._lock:
+                    self._recv_watermarks = dict(self._resume_watermarks) if first else {}
+                first = False
+                yield from self._drain_dynamic(plan, epoch)
+                epoch += 1
+                with self._lock:
+                    self._roll_epoch_locked(epoch)
+        finally:
+            heartbeat_stop.set()
+            if heartbeat is not None:
+                heartbeat.join(timeout=5)
+
+    def _drain_dynamic(self, plan, epoch):
+        """The dynamic drain (see the module docstring): persistent
+        per-worker streams fed from the dispatcher's deques, rebalanced by
+        a sync thread. Exactly once across a steal comes from the
+        revoke-then-extend handshake, with the ``(piece, generation)`` tag
+        of every batch as the net under it; across a takeover from the
+        watermark every grant carries as its ``start``. Delivery books are
+        static mode's, so ``state_dict`` works per piece."""
+        with self._lock:
+            skip = set(self._completed)
+            marks = dict(self._recv_watermarks)
+        piece_state = {}   # piece -> {"wid", "gen", "done", "received"}
+        outstanding = {}   # wid -> not-done pieces granted to it
+        addresses = {wid: tuple(addr) for wid, addr in plan["workers"].items()}
+        initial_grants = {}
+        for wid, pairs in plan["assignments"].items():
+            outstanding.setdefault(wid, set())
+            for entry in pairs:
+                piece, gen = int(entry[0]), int(entry[1])
+                done = piece in skip
+                piece_state[piece] = {"wid": wid, "gen": gen, "done": done, "received": False}
+                if not done:
+                    outstanding[wid].add(piece)
+                    initial_grants.setdefault(wid, []).append((piece, gen, marks.get(piece, 0)))
+        remaining = sum(len(ps) for ps in outstanding.values())
+        if remaining == 0:
+            return
+        sequencer = (_OrderedSequencer(piece_order(
+            self._shuffle_seed, epoch, [p for p, st in piece_state.items() if not st["done"]]))
+            if self._ordered else None)
+        depth = (self._ready_queue_depth if self._ready_queue_depth is not None
+                 else self._derived_ready_depth(len(initial_grants)))
+        ready = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        sync_stop = threading.Event()
+        sync_poke = threading.Event()
+        readers = []
+        streams = {}          # sid -> _DynamicStream
+        sid_by_wid = {}       # wid -> its live sid
+        recovering = set()    # wids mid-takeover (their grants deferred)
+        deferred_grants = {}  # wid -> [(piece, gen, start)] awaiting recovery
+        pending_steals = {}   # req -> {"wid": donor, "moves": [(piece, to, gen)]}
+        failed_steals = []    # [[piece, kept_wid, kept_gen, failed_gen]] for the next sync
+        rows_by_wid = {}      # rows received per worker (the sync's rates)
+        sid_counter = itertools.count()
+        req_counter = itertools.count()
+        with self._lock:
+            self._ready_queue = ready
+            self._live_stream_count = max(1, len(initial_grants))
+
+        def start_reader(sid, wid, stream):
+            streams[sid] = stream
+            sid_by_wid[wid] = sid
+            with self._lock:
+                self._live_stream_count = max(1, len(streams))
+            reader = _DynamicStreamReader(sid, stream, ready, stop, self._note_stream_recv)
+            readers.append(reader)
+            reader.start()
+
+        def launch(wid, pairs):
+            start_reader(next(sid_counter), wid,
+                         self._dynamic_stream(wid, addresses[wid], pairs, epoch))
+
+        def post(event):
+            while not stop.is_set():
+                try:
+                    ready.put(event, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def note_failed_steal(piece, failed_gen):
+            """Report a steal that could not apply; the dispatcher reverts
+            it only against the generation it names (the report may arrive
+            after a newer grant moved the piece)."""
+            st = piece_state[piece]
+            with self._lock:
+                failed_steals.append([piece, st["wid"], st["gen"], failed_gen])
+                self._recovery_inc("steals_failed")
+
+        def grant(wid, pairs):
+            """``(piece, gen, start)`` grants to a worker's live stream, or a
+            new one; deferred while the worker is mid-takeover."""
+            if wid in recovering:
+                deferred_grants.setdefault(wid, []).extend(pairs)
+                return
+            sid = sid_by_wid.get(wid)
+            if sid is not None and sid in streams:
+                streams[sid].extend(pairs)
+            elif wid in addresses:
+                launch(wid, pairs)
+            else:  # no address for this worker: give the pieces back
+                for piece, gen, _start in pairs:
+                    note_failed_steal(piece, gen)
+
+        def apply_deltas(reply):
+            with self._lock:
+                self._synced_fencing_epoch = max(self._synced_fencing_epoch,
+                                                 int(reply.get("fencing_epoch", 0)))
+                self._fence_pending = False
+            for wid, addr in (reply.get("workers") or {}).items():
+                addresses[wid] = tuple(addr)
+            by_donor = {}
+            for steal in reply.get("steals", []):
+                piece, gen = int(steal["piece"]), int(steal["generation"])
+                from_wid, to_wid = steal["from"], steal["to"]
+                st = piece_state.get(piece)
+                if st is None or st["done"]:
+                    continue  # reported done at the next sync anyway
+                if st["wid"] == to_wid and st["gen"] == gen:
+                    continue  # applied already
+                if st["wid"] != from_wid or from_wid in recovering \
+                        or sid_by_wid.get(from_wid) not in streams:
+                    # The donor moved or broke since the plan: report where
+                    # the piece is.
+                    note_failed_steal(piece, gen)
+                    continue
+                by_donor.setdefault(from_wid, []).append((piece, to_wid, gen))
+            for donor, moves in by_donor.items():
+                req = next(req_counter)
+                pending_steals[req] = {"wid": donor, "moves": moves}
+                streams[sid_by_wid[donor]].revoke([piece for piece, _, _ in moves], req)
+
+        def on_revoked(item):
+            req, revoked_pieces = item
+            entry = pending_steals.pop(req, None)
+            if entry is None:
+                return
+            revoked_pieces = set(int(p) for p in revoked_pieces)
+            regroup = {}
+            for piece, to_wid, gen in entry["moves"]:
+                st = piece_state.get(piece)
+                if st is None or st["done"]:
+                    continue
+                if piece in revoked_pieces:
+                    with self._lock:
+                        outstanding.get(st["wid"], set()).discard(piece)
+                        st["wid"], st["gen"] = to_wid, gen
+                        outstanding.setdefault(to_wid, set()).add(piece)
+                        self._recovery_inc("steals_applied")
+                        start = self._recv_watermarks.get(piece, 0)
+                    regroup.setdefault(to_wid, []).append((piece, gen, start))
+                else:
+                    # The donor had sent (or is sending) it: the steal loses.
+                    note_failed_steal(piece, gen)
+            for to_wid, pairs in regroup.items():
+                grant(to_wid, pairs)
+
+        def fail_pending_steals_via(wid):
+            """A donor broke mid-handshake: its unacked steals fail (the
+            pieces ride the takeover with the rest)."""
+            for req in [r for r, e in pending_steals.items() if e["wid"] == wid]:
+                for piece, _to, gen in pending_steals.pop(req)["moves"]:
+                    st = piece_state.get(piece)
+                    if st is not None and not st["done"]:
+                        note_failed_steal(piece, gen)
+
+        def recover(wid, sid):
+            """Reconnect, else take over, off the consumer thread; pieces
+            resume at their watermarks either way."""
+            with self._lock:
+                pairs = sorted((piece, piece_state[piece]["gen"],
+                                self._recv_watermarks.get(piece, 0))
+                               for piece in outstanding.get(wid, set()))
+            if not pairs:
+                post(("dgone", sid, wid))
+                return
+            try:
+                def attempt():
+                    fresh = self._dynamic_stream(wid, addresses[wid], pairs, epoch)
+                    try:
+                        fresh._ensure_conn()  # the dial and the stream request
+                    except BaseException:
+                        fresh.close()
+                        raise
+                    return fresh
+
+                try:
+                    fresh = retry_with_backoff(
+                        attempt, retries=self._max_retries, base_delay=self._backoff_base,
+                        max_delay=self._backoff_max, retry_on=(OSError, ProtocolError),
+                        no_retry_on=(ServiceError,), description=f"reconnect to worker {wid}")
+                except (OSError, ProtocolError):
+                    fresh = None
+                if fresh is not None:
+                    if not post(("drecovered", sid, (wid, fresh))):
+                        fresh.close()
+                    return
+                with self._lock:
+                    token = self._synced_fencing_epoch
+                request = {"type": "report_failure", "client_id": self.client_id,
+                           "worker_id": wid, "pieces": [t[0] for t in pairs],
+                           "fencing_epoch": token}
+                reply = self._dispatcher_request(request)
+                if reply.get("type") == "stale_fencing":
+                    with self._lock:
+                        self._recovery_inc("stale_fencing_retries")
+                    reply = self._dispatcher_request(
+                        dict(request, fencing_epoch=int(reply["fencing_epoch"])))
+                post(("dtakeover", sid, (wid, reply)))
+            except BaseException as exc:
+                post(("error", None, exc))
+
+        def sync_loop():
+            last_t, last_rows, rate_ema = time.monotonic(), {}, {}
+            while not sync_stop.is_set():
+                sync_poke.wait(self._dynamic_sync_interval_s)
+                sync_poke.clear()
+                if sync_stop.is_set():
+                    return
+                now = time.monotonic()
+                dt = max(1e-6, now - last_t)
+                with self._lock:
+                    done = sorted(p for p, st in piece_state.items() if st["done"])
+                    owned = {wid: sorted(ps) for wid, ps in outstanding.items()}
+                    stealable = {wid: [p for p in ps if not piece_state[p]["received"]]
+                                 for wid, ps in outstanding.items()}
+                    rows_now = dict(rows_by_wid)
+                    failed = list(failed_steals)
+                    del failed_steals[:]
+                # EMA rates: one sync window is shorter than a skewed
+                # worker's batch period, so raw deltas flap between 0 and
+                # bursts. A worker that never delivered stays at 0 ("no
+                # rate yet" to the planner).
+                for wid in owned:
+                    inst = (rows_now.get(wid, 0) - last_rows.get(wid, 0)) / dt
+                    prev = rate_ema.get(wid)
+                    rate_ema[wid] = inst if prev is None else 0.5 * prev + 0.5 * inst
+                rates = {wid: rate_ema.get(wid, 0.0) for wid in owned}
+                last_t, last_rows = now, rows_now
+                try:
+                    reply = self._dispatcher_request({
+                        "type": "dynamic_sync", "client_id": self.client_id, "epoch": epoch,
+                        "done": done, "owned": owned, "stealable": stealable, "rates": rates,
+                        "failed_steals": failed}, retries=0)
+                except (ServiceError, OSError, ProtocolError):
+                    with self._lock:
+                        failed_steals.extend(failed)  # re-reported next tick
+                        self._recovery_inc("heartbeat_failures")
+                    continue
+                if reply.get("type") == "unknown_plan":
+                    post(("dreplan", None, None))
+                elif reply.get("type") == "deltas":
+                    post(("deltas", None, reply))
+
+        def complete(piece, st, wid):
+            """Mark a piece done (delivered or quarantined)."""
+            with self._lock:
+                st["done"] = True
+                outstanding.get(st["wid"], set()).discard(piece)
+            if sequencer is not None:
+                released = sequencer.finish_piece(piece, wid)
+                CLIENT_WATERMARK_LAG.set(sequencer.lag)
+                return released
+            book.complete_piece(piece, wid)
+            return []
+
+        def start_recovery(sid, stream):
+            wid = stream.worker_id
+            if sid_by_wid.get(wid) == sid:
+                sid_by_wid.pop(wid, None)
+            fail_pending_steals_via(wid)
+            recovering.add(wid)
+            threading.Thread(target=recover, args=(wid, sid), daemon=True,
+                             name=f"service-dynrecover-{wid}").start()
+
+        book = _DeliveryBook(self, epoch)
+        sync_thread = threading.Thread(target=sync_loop, daemon=True,
+                                       name=f"service-dynsync-{self.client_id}")
+        try:
+            for wid, pairs in initial_grants.items():
+                launch(wid, pairs)
+            sync_thread.start()
+            while remaining > 0:
+                kind, sid, item = ready.get()
+                if kind == "dbatch":
+                    piece, gen, ordinal, payload, bid, t_enqueued = item
+                    stream = streams.get(sid)
+                    if stream is None:
+                        continue  # a torn-down stream's stale event
+                    # Ack before yielding, like static.
+                    stream.add_credit(1)
+                    st = piece_state.get(piece)
+                    if st is None or st["done"] or st["gen"] != gen:
+                        # A superseded grant's batch: the dedup that makes a
+                        # stolen piece count once. The watermark stays: the
+                        # current owner serves this ordinal.
+                        with self._lock:
+                            self._recovery_inc("dedup_dropped")
+                        CLIENT_DEDUP_DROPPED.labels("steal").inc()
+                        continue
+                    if ordinal is not None:
+                        with self._lock:
+                            duplicate = ordinal < self._recv_watermarks.get(piece, 0)
+                            if duplicate:
+                                self._recovery_inc("duplicates_dropped")
+                            else:
+                                self._recv_watermarks[piece] = ordinal + 1
+                        if duplicate:
+                            CLIENT_DEDUP_DROPPED.labels("takeover").inc()
+                            continue
+                    elif sequencer is not None:
+                        raise ServiceError(
+                            "ordered delivery needs ordinal-tagged batches, but worker "
+                            f"{stream.worker_id} sent one untagged")
+                    st["received"] = True
+                    with self._lock:
+                        # Rates credit the delivering worker at receipt.
+                        rows_by_wid[stream.worker_id] = (
+                            rows_by_wid.get(stream.worker_id, 0)
+                            + (len(next(iter(payload.values()))) if payload else 0))
+                    CLIENT_READY_QUEUE_DEPTH.set(ready.qsize())
+                    if sequencer is not None:
+                        released = sequencer.push(piece, (ordinal, payload, stream, bid,
+                                                          t_enqueued))
+                        CLIENT_WATERMARK_LAG.set(sequencer.lag)
+                        yield from book.emit(released)
+                    else:
+                        book.account_yielded(piece, ordinal, stream.worker_id, bid)
+                        if tracing.COLLECTOR.enabled:
+                            tracing.COLLECTOR.record_span("client.queue", t_enqueued,
+                                                          time.perf_counter(), bid=bid)
+                        yield payload
+                elif kind == "piece_done":
+                    piece, gen, _rows = item
+                    st = piece_state.get(piece)
+                    if st is None or st["done"] or st["gen"] != gen:
+                        continue
+                    wid = st["wid"]
+                    yield from book.emit(complete(piece, st, wid))
+                    remaining -= 1
+                    with self._lock:
+                        drained = not outstanding.get(wid)
+                        others_backlogged = any(len(ps) > 1 for w, ps in outstanding.items()
+                                                if w != wid)
+                    if remaining and drained and others_backlogged:
+                        # This deque ran dry while a peer holds backlog:
+                        # rebalance now, not at the next tick.
+                        sync_poke.set()
+                elif kind == "piece_failed":
+                    piece, gen, failure = item
+                    st = piece_state.get(piece)
+                    if st is None or st["done"] or st["gen"] != gen:
+                        continue  # a superseded grant's quarantine
+                    stream = streams.get(sid)
+                    wid = stream.worker_id if stream is not None else None
+                    if self._on_piece_error != "quarantine":
+                        raise ServiceError(
+                            f"worker {wid} failed piece {piece}: {failure} (on_piece_error="
+                            "'fail' — run with 'quarantine' to skip poison pieces instead)")
+                    self._note_quarantined(piece, wid, failure, epoch)
+                    yield from book.emit(complete(piece, st, wid))
+                    remaining -= 1
+                elif kind == "revoked":
+                    on_revoked(item)
+                elif kind == "deltas":
+                    apply_deltas(item)
+                elif kind == "fence":
+                    # The dispatcher's state moved: the sync's absolute
+                    # report is the reconciliation.
+                    sync_poke.set()
+                elif kind == "dreplan":
+                    # The dispatcher lost the plan: re-seed it; the streams
+                    # flow on and later syncs reconcile by corrective steals.
+                    try:
+                        self._fetch_dynamic_plan(epoch)
+                        with self._lock:
+                            self._recovery_inc("resyncs")
+                    except (ServiceError, OSError):
+                        with self._lock:
+                            self._recovery_inc("resync_failures")
+                elif kind == "error":
+                    raise item
+                elif kind == "drecovered":
+                    wid, fresh = item
+                    recovering.discard(wid)
+                    old_sid = sid_by_wid.get(wid)
+                    if old_sid is not None:
+                        streams.pop(old_sid, None)
+                    start_reader(next(sid_counter), wid, fresh)
+                    pairs = deferred_grants.pop(wid, None)
+                    if pairs:
+                        fresh.extend(pairs)
+                elif kind == "dtakeover":
+                    wid, reply = item
+                    recovering.discard(wid)
+                    if sid_by_wid.get(wid) == sid:
+                        sid_by_wid.pop(wid, None)
+                    streams.pop(sid, None)
+                    with self._lock:
+                        self._recovery_inc("takeovers")
+                        self._synced_fencing_epoch = max(self._synced_fencing_epoch,
+                                                         int(reply.get("fencing_epoch", 0)))
+                    for wid2, addr in (reply.get("workers") or {}).items():
+                        addresses[wid2] = tuple(addr)
+                    for piece, gen, _start in deferred_grants.pop(wid, []):
+                        note_failed_steal(piece, gen)
+                    for wid2, pairs in (reply.get("assignments") or {}).items():
+                        fresh_pairs = []
+                        with self._lock:
+                            for piece, gen in ((int(t[0]), int(t[1])) for t in pairs):
+                                st = piece_state.get(piece)
+                                if st is None or st["done"]:
+                                    continue
+                                outstanding.get(st["wid"], set()).discard(piece)
+                                st["wid"], st["gen"] = wid2, gen
+                                outstanding.setdefault(wid2, set()).add(piece)
+                                fresh_pairs.append(
+                                    (piece, gen, self._recv_watermarks.get(piece, 0)))
+                        if fresh_pairs:
+                            grant(wid2, fresh_pairs)
+                elif kind == "dgone":
+                    wid = item
+                    recovering.discard(wid)
+                    if sid_by_wid.get(wid) == sid:
+                        sid_by_wid.pop(wid, None)
+                    streams.pop(sid, None)
+                    # Steals granted during the recovery: the ownership maps
+                    # already name this worker, so re-grant them (a fresh
+                    # stream) rather than orphan them.
+                    deferred = deferred_grants.pop(wid, [])
+                    if deferred:
+                        with self._lock:
+                            live = [(piece, gen, self._recv_watermarks.get(piece, 0))
+                                    for piece, gen, _start in deferred
+                                    if (st := piece_state.get(piece)) is not None
+                                    and not st["done"] and st["wid"] == wid]
+                        if live:
+                            grant(wid, live)
+                elif kind in ("end", "broken"):
+                    # An end before finish_pieces is a failure while the
+                    # worker still owes pieces.
+                    stream = streams.pop(sid, None)
+                    if stream is None:
+                        continue
+                    if kind == "broken":
+                        stream.close()
+                        start_recovery(sid, stream)
+                    elif outstanding.get(stream.worker_id):
+                        start_recovery(sid, stream)
+                    elif sid_by_wid.get(stream.worker_id) == sid:
+                        sid_by_wid.pop(stream.worker_id, None)
+            if sequencer is not None:
+                # Every piece_done cleared the sequencer; flush what a lost
+                # marker stranded.
+                yield from book.emit(sequencer.drain())
+            # The epoch is complete: close the queues so the streams end,
+            # then report the final state once (best effort).
+            sync_stop.set()
+            sync_poke.set()
+            for stream in streams.values():
+                stream.finish()
+            deadline = time.monotonic() + 5.0
+            waiting = set(streams)
+            while waiting and time.monotonic() < deadline:
+                try:
+                    kind, sid, item = ready.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                if kind in ("end", "broken") and sid in waiting:
+                    waiting.discard(sid)
+            try:
+                self._dispatcher_request({
+                    "type": "dynamic_sync", "client_id": self.client_id, "epoch": epoch,
+                    "done": sorted(p for p, st in piece_state.items() if st["done"]),
+                    "owned": {}, "stealable": {}, "rates": {}, "failed_steals": []},
+                    retries=0)
+            except (ServiceError, OSError, ProtocolError):
+                pass  # the next epoch's plan supersedes it
+        finally:
+            stop.set()
+            sync_stop.set()
+            sync_poke.set()
+            CLIENT_WATERMARK_LAG.set(0)
+            for stream in streams.values():
+                stream.close()
+            with self._lock:
+                self._ready_queue = None
+                self._fence_pending = False
+            if sync_thread.is_alive():
+                sync_thread.join(timeout=5)
+            for reader in readers:
+                reader.join(timeout=5)
+            self._join_reporters()
+
     # -- liveness and fencing ------------------------------------------------
 
     def _heartbeat_loop(self, stop_event):
-        """Poll ``client_heartbeat`` while a static drain runs: ship the
+        """Poll ``client_heartbeat`` while a static or dynamic drain runs: ship the
         mid-flight watermarks and the ready-queue fullness, sample the
         clock, follow the tracing flag and the brownout level, and post a
         ``fence`` into the drain when the dispatcher's epoch moved past the
@@ -1598,10 +2333,12 @@ class ServiceBatchSource:
     # -- checkpoint / diagnostics -----------------------------------------
 
     def state_dict(self, yielded_batches=None):
-        """The resumable position (static mode): the epoch in progress, the
-        pieces fully yielded and the watermarks of pieces mid-delivery, as
-        of the ``yielded_batches``-th batch (default: every batch produced),
-        so batches a consumer holds in its prefetch queues are re-served on
+        """The resumable position (static and dynamic modes, whose
+        snapshots are interchangeable: a steal changes who served a piece,
+        never whether it completed): the epoch in progress, the pieces fully
+        yielded and the watermarks of pieces mid-delivery, as of the
+        ``yielded_batches``-th batch (default: every batch produced), so
+        batches a consumer holds in its prefetch queues are re-served on
         resume and none twice. With ``ordered=True`` and the same
         dispatcher seed the resumed stream continues the original's order.
         fcfs mode has no resumable position and raises ValueError."""
@@ -1628,7 +2365,7 @@ class ServiceBatchSource:
                     watermarks[piece] = ordinal + 1
             return {
                 "version": 2,
-                "mode": "static",
+                "mode": "dynamic" if self._mode == "dynamic" else "static",
                 "client_index": self.client_index,
                 "num_clients": self.num_clients,
                 "epoch": epoch,
@@ -1671,9 +2408,10 @@ class ServiceBatchSource:
         ``resilience`` (hedging, the hedge counts and fitted threshold, the
         per-peer breaker and retry-budget snapshots) and ``recovery``
         (resyncs, resync failures, streams retired, takeovers, stale-fencing
-        retries, heartbeat failures, duplicates dropped, pieces quarantined,
-        the last fencing epoch seen, and the dispatcher's counters from the
-        last heartbeat)."""
+        retries, heartbeat failures, duplicates dropped, the dynamic mode's
+        steals applied and failed and stale-generation batches dropped,
+        pieces quarantined, the last fencing epoch seen, and the
+        dispatcher's counters from the last heartbeat)."""
         with self._lock:
             ready = self._ready_queue
             return {

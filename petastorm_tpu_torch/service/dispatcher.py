@@ -1,6 +1,6 @@
 """The dispatcher: the data service's control plane (the port's own copy of
-``petastorm_tpu/service/dispatcher.py``, its static / fcfs tier with the
-journal, breakers, brownout, quarantine and fleet tracing).
+``petastorm_tpu/service/dispatcher.py``: static, fcfs and dynamic sharding
+with the journal, breakers, brownout, quarantine and fleet tracing).
 
 It owns the split plan and nothing else: no sample bytes flow through it.
 Workers register their address and the dataset's row-group count; clients
@@ -26,6 +26,16 @@ message with one framed reply (``type`` names the request):
   survivors (``stale_fencing`` for a token older than the fencing epoch);
 - ``next_split`` ``{client_id}`` (fcfs) → ``split`` or ``end_of_stream``
   (the shared queue refills until ``num_epochs`` are served);
+- ``dynamic_plan`` ``{client_id, client_index, num_clients, epoch}``
+  (dynamic) → ``plan``: the client's shard round-robined across the serving
+  workers, every piece stamped with an ownership ``generation``;
+- ``dynamic_sync`` ``{client_id, epoch, done, owned, stealable, rates,
+  failed_steals}`` (dynamic) → ``deltas``: the work-stealing loop. The
+  client reports its progress and each worker's backlog; the dispatcher
+  reconciles its (journaled) ownership with the client's view as
+  corrective steals, plans fresh steals (:func:`plan_steals`) away from
+  drained or straggling workers, journals them and replies with the moves
+  (``unknown_plan`` when it has no plan for that epoch);
 - ``report_poison_piece`` ``{client_id, piece, worker_id, error, epoch}``
   → ``ok``: the piece is journaled into the quarantine set and excluded
   from every later grant;
@@ -49,10 +59,10 @@ journal write flips the dispatcher read-only: mutating requests are refused
 (``lease_timeout_s``) expires is marked dead, and a client's
 ``report_failure`` does the same; either bumps the fencing epoch.
 
-Dynamic mode, autoscaling, jobs, corpora, mixtures and the fleet cache
-raise NotImplementedError (or an ``error`` reply) naming the service slice
-that brings them; their keys stand in the state at their empty values, so
-a snapshot equals the JAX dispatcher's, and a journal record of theirs is
+Autoscaling, jobs, corpora, mixtures and the fleet cache raise
+NotImplementedError (or an ``error`` reply) naming the service slice that
+brings them; their keys stand in the state at their empty values, so a
+snapshot equals the JAX dispatcher's, and a journal record of theirs is
 refused by name on replay.
 """
 
@@ -82,9 +92,12 @@ from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.flight import RECORDER as FLIGHT
 from petastorm_tpu_torch.telemetry.metrics import (
     CLOCK_OFFSET_US,
+    DISPATCHER_BACKLOG_PIECES,
     DISPATCHER_FENCING_EPOCH,
+    DISPATCHER_GENERATION,
     DISPATCHER_RECOVERY_EVENTS,
     DISPATCHER_REQUESTS,
+    DISPATCHER_STEALS,
     DISPATCHER_WORKERS,
     FLEET_BROWNOUT_LEVEL,
     QUARANTINE_PIECES,
@@ -116,8 +129,6 @@ UNPORTED_DISPATCHER_ARGS = {
 
 #: Requests of later slices, answered with an error naming the slice.
 _UNPORTED_REQUESTS = {
-    "dynamic_plan": "dynamic sharding comes with slice (c)",
-    "dynamic_sync": "dynamic sharding comes with slice (c)",
     "register_job": "jobs come with the fleet, slice (d)",
     "end_job": "jobs come with the fleet, slice (d)",
     "set_mixture_weights": "mixtures come with the LLM stages, slice (f)",
@@ -128,10 +139,6 @@ _UNPORTED_REQUESTS = {
 #: Journal record ops of later slices: a replay that meets one is refused
 #: with the slice that writes it.
 _UNPORTED_RECORD_OPS = {
-    "dynamic_plan": "dynamic sharding comes with slice (c)",
-    "steal": "dynamic sharding comes with slice (c)",
-    "steal_failed": "dynamic sharding comes with slice (c)",
-    "dynamic_done": "dynamic sharding comes with slice (c)",
     "job_register": "jobs come with the fleet, slice (d)",
     "job_end": "jobs come with the fleet, slice (d)",
     "autoscale": "the fleet autoscaler comes with slice (d)",
@@ -140,13 +147,101 @@ _UNPORTED_RECORD_OPS = {
     "fleet_plan": "the fleet's model planner comes with slice (d)",
 }
 
+#: Dynamic mode: a worker delivering below this fraction of the fleet
+#: median (while it still holds stealable backlog) is a straggler even
+#: before any peer's deque drains.
+STRAGGLER_RATE_FACTOR = 0.5
+
+
+def plan_steals(pending, stealable, rates, straggler_factor=STRAGGLER_RATE_FACTOR,
+                receivers=None):
+    """The work-stealing planner (pure).
+
+    :param pending: ``{worker_id: not-done piece count}`` over live workers.
+    :param stealable: ``{worker_id: [pieces]}`` the client reports as not
+        started: the only pieces a steal may touch (the revoke handshake
+        guards a piece that starts between report and revoke).
+    :param rates: ``{worker_id: rows_per_s}``, the client's delivery rates
+        (maybe empty early in an epoch).
+    :param receivers: the workers that may receive (``None``: every worker
+        in ``pending``).
+    :returns: ``[(piece, from_worker, to_worker), ...]``, taken from the
+        donor's tail.
+
+    Two triggers: a worker with no pending pieces receives from the most
+    backlogged donor (**drain**); otherwise a donor below
+    ``straggler_factor`` × the median rate sheds to a median-or-faster
+    worker with materially less backlog (**straggler**). With both rates
+    known the joint backlog splits in proportion to rate in one sync; a
+    receiver that is itself a straggler takes at most a 2-piece probe (none
+    for a share of 2 or less); a donor that delivered nothing against a
+    moving receiver sheds down to one piece; without rates the midpoint.
+    Every move is bounded by what is stealable, and the donor keeps at
+    least one piece."""
+    pending = dict(pending)
+    stealable = {wid: list(ps) for wid, ps in stealable.items()}
+    eligible = set(pending) if receivers is None else set(receivers)
+    moves = []
+    while True:
+        donors = [wid for wid, ps in stealable.items() if ps and pending.get(wid, 0) > 1]
+        if not donors:
+            return moves
+        donor = max(donors, key=lambda w: (pending[w], w))
+        receivers_now = [wid for wid in pending
+                         if wid != donor and wid in eligible and pending[wid] == 0]
+        if not receivers_now:
+            working = sorted(r for wid, r in rates.items() if pending.get(wid, 0) > 0)
+            median = working[len(working) // 2] if working else None
+            donor_rate = rates.get(donor)
+            if median and donor_rate is not None and donor_rate < straggler_factor * median:
+                receivers_now = [
+                    wid for wid in pending
+                    if wid != donor and wid in eligible and rates.get(wid, 0.0) >= median
+                    # "Materially less backlog", waived while the donor has
+                    # delivered nothing (equal backlogs say nothing then).
+                    and (pending[wid] < pending[donor] - 1 or not donor_rate)]
+        if not receivers_now:
+            return moves
+        recv = min(receivers_now, key=lambda w: (pending[w], -rates.get(w, 0.0), w))
+        donor_rate, recv_rate = rates.get(donor), rates.get(recv)
+        if donor_rate and recv_rate:
+            joint = pending[donor] + pending[recv]
+            keep = max(1, round(joint * donor_rate / (donor_rate + recv_rate)))
+            count = pending[donor] - keep
+            if count < 1:
+                # The proportional share leaves the receiver idle: a drained
+                # straggler near the epoch's tail.
+                return moves
+            working = sorted(r for wid, r in rates.items() if pending.get(wid, 0) > 0)
+            tail_median = working[len(working) // 2] if working else None
+            if tail_median and recv_rate < straggler_factor * tail_median:
+                # The receiver is itself a straggler (it drained because it
+                # was shed): a small share stays put, a large one moves as a
+                # 2-piece probe until its rate matures.
+                if count <= 2:
+                    return moves
+                count = 2
+        elif not donor_rate and recv_rate and pending[donor] >= 4:
+            # A donor that delivered nothing against a moving receiver:
+            # shed to a one-piece floor in one sync.
+            count = pending[donor] - 1
+        else:
+            count = max(1, (pending[donor] - pending[recv]) // 2)
+        count = min(count, len(stealable[donor]))
+        for _ in range(count):
+            piece = stealable[donor].pop()
+            moves.append((piece, donor, recv))
+            pending[donor] -= 1
+            pending[recv] += 1
+
 
 class Dispatcher:
     """Split-assignment server; :meth:`start`, :meth:`stop` (a context
     manager too).
 
-    :param mode: ``"static"`` (per-client shards) or ``"fcfs"`` (one shared
-        queue of splits); ``"dynamic"`` raises NotImplementedError.
+    :param mode: ``"static"`` (per-client shards), ``"fcfs"`` (one shared
+        queue of splits) or ``"dynamic"`` (per-client shards rebalanced by
+        work stealing).
     :param num_epochs: epochs the service serves (``None``: forever).
     :param journal_dir: directory of the crash-recovery journal (WAL and
         snapshots); ``None`` keeps the state in memory only.
@@ -174,10 +269,6 @@ class Dispatcher:
                  shuffle_seed=None, autoscale=None, brownout=None, breaker_cooldown_s=10.0):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if mode == "dynamic":
-            raise NotImplementedError(
-                "Dispatcher(mode='dynamic') is not ported yet: dynamic sharding comes "
-                "with the data service's slice (c)")
         for name, value in {"autoscale": autoscale or None}.items():
             default, reason = UNPORTED_DISPATCHER_ARGS[name]
             if value != default:
@@ -204,6 +295,18 @@ class Dispatcher:
         self._num_pieces = None
         self._fcfs_queue = None
         self._fcfs_epoch = 0
+        # Dynamic mode: per-client ownership of the epoch in flight
+        # (client_id -> {"epoch", "owner": {piece: [wid, gen]}, "done",
+        # "steals": {wid: {"in", "out"}}}) and the ownership generation
+        # every grant and steal bumps: the token clients dedup batches by.
+        self._dyn = {}
+        self._generation = 0
+        # The per-worker gauges and the per-job books walk every owner map:
+        # recomputed only after a request that changed dynamic state.
+        self._dyn_dirty = True
+        self._per_job_memo = None
+        # Runtime only: the last delivery rates dynamic_sync reported.
+        self._last_rates = {}
         # Runtime only: leases and heartbeats restart from "now" on recovery.
         self._worker_leases = {}  # worker_id -> monotonic expiry
         self._client_heartbeats = {}
@@ -323,8 +426,15 @@ class Dispatcher:
             "brownout": {"level": self._brownout_level,
                          "counts": dict(self._brownout_counts),
                          "reason": self._brownout_reason},
-            "generation": 0,
-            "dyn": {},
+            "generation": self._generation,
+            # Owner maps as [piece, wid, gen] triplets (JSON keys are strings).
+            "dyn": {
+                cid: {"epoch": state["epoch"],
+                      "owner": [[piece, wid, gen]
+                                for piece, (wid, gen) in sorted(state["owner"].items())],
+                      "done": sorted(state["done"]),
+                      "steals": {wid: dict(counts) for wid, counts in state["steals"].items()}}
+                for cid, state in self._dyn.items()},
         }
 
     def _recover(self):
@@ -371,8 +481,7 @@ class Dispatcher:
                 f"{state.get('shuffle_seed')!r}; this dispatcher runs {self.shuffle_seed!r} — "
                 "restarting with a different seed would silently change the piece order "
                 "mid-run and break the determinism contract")
-        later = {"dyn": "dynamic sharding comes with slice (c)",
-                 "mixtures": "mixtures come with the LLM stages, slice (f)",
+        later = {"mixtures": "mixtures come with the LLM stages, slice (f)",
                  "cache_handoffs": "the fleet cache tier comes with slice (d)",
                  "fleet_plans": "the fleet's model planner comes with slice (d)"}
         for key, reason in later.items():
@@ -426,6 +535,16 @@ class Dispatcher:
         for key in self._brownout_counts:
             self._brownout_counts[key] = int(counts.get(key, 0))
         self._brownout_reason = brownout.get("reason")
+        self._generation = int(state.get("generation", 0))
+        self._dyn = {}
+        self._mark_dyn_dirty_locked()
+        for cid, dyn in (state.get("dyn") or {}).items():
+            self._dyn[cid] = {
+                "epoch": int(dyn["epoch"]),
+                "owner": {int(piece): [wid, int(gen)] for piece, wid, gen in dyn.get("owner", [])},
+                "done": set(int(p) for p in dyn.get("done", [])),
+                "steals": {wid: {"in": int(counts.get("in", 0)), "out": int(counts.get("out", 0))}
+                           for wid, counts in dyn.get("steals", {}).items()}}
 
     def _check_worker_record(self, worker_id, standby, corpus, cache_fleet):
         if standby:
@@ -467,6 +586,21 @@ class Dispatcher:
                                         int(record["num_clients"]))
         elif op == "next_split":
             self._replay_next_split_locked(int(record["piece"]), int(record["epoch"]))
+        elif op == "dynamic_plan":
+            self._install_dynamic_plan_locked(
+                record["client_id"], int(record["epoch"]),
+                {int(p): [wid, int(gen)] for p, wid, gen in record["owner"]},
+                int(record["generation"]))
+        elif op == "steal":
+            self._apply_steal_locked(record["client_id"], int(record["piece"]), record["from"],
+                                     record["to"], int(record["generation"]))
+        elif op == "steal_failed":
+            self._apply_steal_failed_locked(record["client_id"], int(record["piece"]),
+                                            record["worker_id"], int(record["generation"]))
+        elif op == "dynamic_done":
+            state = self._dyn.get(record["client_id"])
+            if state is not None:
+                state["done"].update(int(p) for p in record["pieces"])
         elif op == "watermarks":
             self._client_watermarks[record["client_id"]] = {
                 "epoch": int(record.get("epoch", 0)),
@@ -565,12 +699,17 @@ class Dispatcher:
     # -- poison-piece quarantine -------------------------------------------
 
     def _quarantine_piece_locked(self, piece, info):
-        """One mutation site (live and replay); a duplicate report is a
-        no-op."""
+        """One mutation site (live and replay): record the piece and mark it
+        done in every client's dynamic books, so neither the steal planner
+        nor reconciliation grants it again. A duplicate report is a no-op."""
         if piece in self._quarantined:
             return False
         self._quarantined[piece] = dict(info)
         self._recovery["pieces_quarantined"] += 1
+        for state in self._dyn.values():
+            if piece in state["owner"] and piece not in state["done"]:
+                state["done"].add(piece)
+                self._mark_dyn_dirty_locked()
         return True
 
     def _grantable_pieces_locked(self, pieces):
@@ -755,6 +894,7 @@ class Dispatcher:
             return False
         worker["alive"] = False
         self._worker_leases.pop(worker_id, None)
+        self._last_rates.pop(worker_id, None)
         self._worker_credit_wait.pop(worker_id, None)
         self._credit_wait_window.pop(worker_id, None)
         self._trace_instant("dispatcher.worker_dead", worker=worker_id, reason=reason)
@@ -786,11 +926,134 @@ class Dispatcher:
                      "fencing_bumps": 0})
 
     def _install_client_locked(self, client_id, epoch, client_index, num_clients):
-        self._clients[client_id] = {"epoch": int(epoch), "client_index": int(client_index),
-                                    "num_clients": int(num_clients)}
+        entry = {"epoch": int(epoch), "client_index": int(client_index),
+                 "num_clients": int(num_clients)}
+        if self._clients.get(client_id) != entry:
+            self._per_job_memo = None
+        self._clients[client_id] = entry
         job = self._jobs.setdefault(DEFAULT_JOB, {"weight": 1.0, "quota": None,
                                                   "fencing_offset": 0, "epoch": 0})
         job["epoch"] = max(job["epoch"], int(epoch))
+
+    def _default_job_share_locked(self):
+        """The default job's max-min fair share of the serving capacity:
+        its demand (the dynamic backlog, else the whole capacity while it
+        has clients) capped at the capacity."""
+        capacity = float(max(1, len(self._serving_workers())))
+        backlog = (self._dynamic_per_job_locked().get(DEFAULT_JOB, {}).get("backlog", 0)
+                   if self.mode == "dynamic" else 0)
+        demand = float(backlog) if backlog else (capacity if self._clients else 0.0)
+        return round(min(demand, capacity), 4)
+
+    # -- dynamic-mode mutations (live handlers and WAL replay) ---------------
+
+    def _install_dynamic_plan_locked(self, client_id, epoch, owner, generation):
+        self._mark_dyn_dirty_locked()
+        self._dyn[client_id] = {"epoch": epoch, "owner": dict(owner), "done": set(),
+                                "steals": {}}
+        self._generation = max(self._generation, generation)
+
+    def _steal_counts_locked(self, state, worker_id):
+        return state["steals"].setdefault(worker_id, {"in": 0, "out": 0})
+
+    def _apply_steal_locked(self, client_id, piece, from_wid, to_wid, generation):
+        state = self._dyn.get(client_id)
+        if state is None:
+            return
+        self._mark_dyn_dirty_locked()
+        state["owner"][piece] = [to_wid, generation]
+        self._generation = max(self._generation, generation)
+        self._steal_counts_locked(state, from_wid)["out"] += 1
+        self._steal_counts_locked(state, to_wid)["in"] += 1
+        self._trace_instant("dispatcher.steal", piece=piece, src=from_wid, dst=to_wid,
+                            generation=generation)
+
+    def _apply_steal_failed_locked(self, client_id, piece, kept_wid, generation):
+        """A steal the client could not apply (the donor had already sent a
+        batch of the piece, or its stream was mid-takeover): ownership goes
+        back to where the piece stayed."""
+        state = self._dyn.get(client_id)
+        if state is None:
+            return
+        self._mark_dyn_dirty_locked()
+        state["owner"][piece] = [kept_wid, generation]
+        self._generation = max(self._generation, generation)
+
+    def _mark_dyn_dirty_locked(self):
+        """Dynamic state changed: re-arm the gauge aggregation and drop the
+        per-job memo (both derive from the owner maps)."""
+        self._dyn_dirty = True
+        self._per_job_memo = None
+
+    def _dynamic_per_worker_locked(self):
+        """Per-worker backlog and steals over every client's plan: the one
+        definition ``status`` and the gauges share."""
+        per_worker = {}
+
+        def entry(wid):
+            return per_worker.setdefault(wid, {"backlog": 0, "steals_in": 0, "steals_out": 0})
+
+        for state in self._dyn.values():
+            for piece, (wid, _gen) in state["owner"].items():
+                e = entry(wid)
+                if piece not in state["done"]:
+                    e["backlog"] += 1
+            for wid, counts in state["steals"].items():
+                e = entry(wid)
+                e["steals_in"] += counts["in"]
+                e["steals_out"] += counts["out"]
+        return per_worker
+
+    def _dynamic_per_job_locked(self):
+        """The same books keyed by each client's job (every client is the
+        default job's until slice (d)), memoized until the next dynamic
+        mutation. Read-only for callers."""
+        if self._per_job_memo is not None:
+            return self._per_job_memo
+        per_job = {}
+        for state in self._dyn.values():
+            entry = per_job.setdefault(DEFAULT_JOB, {
+                "backlog": 0, "steals_in": 0, "steals_out": 0, "pieces_done": 0,
+                "pieces_total": 0, "active_clients": 0})
+            entry["active_clients"] += 1
+            entry["pieces_done"] += len(state["done"])
+            entry["pieces_total"] += len(state["owner"])
+            entry["backlog"] += sum(1 for piece in state["owner"] if piece not in state["done"])
+            for counts in state["steals"].values():
+                entry["steals_in"] += counts["in"]
+                entry["steals_out"] += counts["out"]
+        self._per_job_memo = per_job
+        return per_job
+
+    def _dynamic_status_locked(self):
+        return {
+            "generation": self._generation,
+            "per_worker": self._dynamic_per_worker_locked(),
+            "per_job": self._dynamic_per_job_locked(),
+            "clients": {cid: {"epoch": state["epoch"], "job_id": DEFAULT_JOB,
+                              "pieces_done": len(state["done"]),
+                              "pieces_total": len(state["owner"])}
+                        for cid, state in self._dyn.items()},
+        }
+
+    def fleet_signals(self):
+        """The autoscaler's input (the autoscaler comes with slice (d)):
+        worker lifecycle states, the live backlog and the last delivery
+        rates. ``backlog_known`` is False outside dynamic mode, which tracks
+        no per-worker progress: zero backlog there is not an idle fleet."""
+        with self._lock:
+            by_state = {"serving": [], "standby": [], "draining": []}
+            for wid, worker in sorted(self._workers.items()):
+                if worker["alive"]:
+                    by_state.setdefault(worker.get("state", "serving"), []).append(wid)
+            backlog = ({wid: entry["backlog"]
+                        for wid, entry in self._dynamic_per_worker_locked().items()}
+                       if self.mode == "dynamic" else {})
+            return {"serving": by_state["serving"], "standby": by_state["standby"],
+                    "draining": by_state["draining"], "backlog": backlog,
+                    "backlog_known": self.mode == "dynamic",
+                    "rates": dict(self._last_rates),
+                    "stage_profiles": [dict(p) for p in self._stage_profiles]}
 
     # -- request handling --------------------------------------------------
 
@@ -886,6 +1149,19 @@ class Dispatcher:
             DISPATCHER_RECOVERY_EVENTS.labels(event).set(count)
         QUARANTINE_PIECES.set(len(self._quarantined))
         FLEET_BROWNOUT_LEVEL.set(self._brownout_level)
+        if self.mode != "dynamic":
+            return
+        DISPATCHER_GENERATION.set(self._generation)
+        if not self._dyn_dirty:
+            return  # the gauges below are still exact
+        self._dyn_dirty = False
+        per_worker = self._dynamic_per_worker_locked()
+        for wid in set(self._workers) | set(per_worker):
+            entry = per_worker.get(wid)
+            DISPATCHER_BACKLOG_PIECES.labels(wid).set(entry["backlog"] if entry else 0)
+        for wid, entry in per_worker.items():
+            DISPATCHER_STEALS.labels(wid, "in").set(entry["steals_in"])
+            DISPATCHER_STEALS.labels(wid, "out").set(entry["steals_out"])
 
     def _handle_ping(self, header):
         return {"type": "pong"}
@@ -1082,6 +1358,25 @@ class Dispatcher:
             assignments = self._partition(pieces, worker_ids)
             logger.warning("worker %s reported failed; reassigning %d pieces across %d "
                            "survivors", worker_id, len(pieces), len(worker_ids))
+            if self.mode == "dynamic":
+                # Takeovers are steals from the dead worker: journaled and
+                # generation-stamped, so a replay and the client's dedup
+                # agree on who serves what.
+                client_id = header.get("client_id")
+                pairs = {}
+                for wid, ws_pieces in assignments.items():
+                    pairs[wid] = []
+                    for piece in ws_pieces:
+                        self._generation += 1
+                        self._apply_steal_locked(client_id, piece, worker_id, wid,
+                                                 self._generation)
+                        self._journal_locked({"op": "steal", "client_id": client_id,
+                                              "piece": piece, "from": worker_id, "to": wid,
+                                              "generation": self._generation})
+                        pairs[wid].append([piece, self._generation])
+                return {"type": "assignment", "fencing_epoch": self._fencing_epoch,
+                        "generation": self._generation, "assignments": pairs,
+                        "workers": {wid: alive[wid]["address"] for wid in pairs}}
             return {"type": "assignment", "fencing_epoch": self._fencing_epoch,
                     "assignments": assignments,
                     "workers": {wid: alive[wid]["address"] for wid in assignments}}
@@ -1118,6 +1413,159 @@ class Dispatcher:
             self._journal_locked({"op": "next_split", "piece": piece,
                                   "epoch": self._fcfs_epoch})
             return {"type": "split", "piece": piece, "epoch": self._fcfs_epoch}
+
+    # -- dynamic mode ------------------------------------------------------
+
+    def _handle_dynamic_plan(self, header):
+        """A client epoch's initial per-worker deques: its static shard
+        round-robined across the serving workers, each share in the seed-tree
+        order, every piece stamped with one fresh generation. A plan for a
+        new epoch replaces the client's previous epoch state."""
+        if self.mode != "dynamic":
+            return {"type": "error", "error": "dynamic_plan is a dynamic-mode request"}
+        client_index = int(header["client_index"])
+        num_clients = int(header["num_clients"])
+        epoch = int(header.get("epoch", 0))
+        if not 0 <= client_index < num_clients:
+            return {"type": "error", "error": f"client_index {client_index} out of range "
+                                              f"[0, {num_clients})"}
+        client_id = header["client_id"]
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            if self._num_pieces is None:
+                return {"type": "error", "error": "no workers have registered yet"}
+            alive = self._serving_workers()
+            if not alive:
+                return {"type": "error", "error": "no live workers"}
+            # Sticky deques in canonical per-deque order, like static: cache
+            # warmth survives shuffled epochs.
+            client_pieces = self._grantable_pieces_locked(
+                list(range(self._num_pieces))[client_index::num_clients])
+            assignments = {wid: piece_order(self.shuffle_seed, epoch, pieces)
+                           for wid, pieces in self._partition(client_pieces,
+                                                              sorted(alive)).items()}
+            self._generation += 1
+            generation = self._generation
+            owner = {piece: [wid, generation]
+                     for wid, pieces in assignments.items() for piece in pieces}
+            self._install_dynamic_plan_locked(client_id, epoch, owner, generation)
+            self._install_client_locked(client_id, epoch, client_index, num_clients)
+            self._client_heartbeats[client_id] = time.monotonic()
+            self._journal_locked({"op": "client", "client_id": client_id, "epoch": epoch,
+                                  "client_index": client_index, "num_clients": num_clients})
+            self._journal_locked({"op": "dynamic_plan", "client_id": client_id,
+                                  "epoch": epoch,
+                                  "owner": [[piece, wid, gen]
+                                            for piece, (wid, gen) in sorted(owner.items())],
+                                  "generation": generation})
+            return {"type": "plan", "epoch": epoch, "generation": generation,
+                    "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
+                    "assignments": {wid: [[piece, generation] for piece in pieces]
+                                    for wid, pieces in assignments.items()},
+                    "workers": {wid: alive[wid]["address"] for wid in assignments}}
+
+    def _handle_dynamic_sync(self, header):
+        """The rebalance loop's tick: fold the client's progress into the
+        ownership state, turn divergences into corrective deltas (a steal
+        journaled before a restart that the client never saw), and plan
+        fresh steals. The client reports absolute state (the whole done
+        set, its whole ownership view), so a lost reply or a repeated
+        request converges."""
+        if self.mode != "dynamic":
+            return {"type": "error", "error": "dynamic_sync is a dynamic-mode request"}
+        client_id = header["client_id"]
+        epoch = int(header.get("epoch", 0))
+        done = set(int(p) for p in header.get("done", []))
+        owned = {wid: set(int(p) for p in pieces)
+                 for wid, pieces in (header.get("owned") or {}).items()}
+        stealable = {wid: [int(p) for p in pieces]
+                     for wid, pieces in (header.get("stealable") or {}).items()}
+        rates = {wid: float(r) for wid, r in (header.get("rates") or {}).items()}
+        failed = [(int(p), wid, int(gen), int(failed_gen))
+                  for p, wid, gen, failed_gen in header.get("failed_steals", [])]
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            self._last_rates.update(rates)
+            state = self._dyn.get(client_id)
+            if state is None or state["epoch"] != epoch:
+                # No plan for this epoch (restarted without a journal): the
+                # client re-plans while its streams keep flowing.
+                return {"type": "unknown_plan", "fencing_epoch": self._fencing_epoch}
+            for piece, kept_wid, kept_gen, failed_gen in failed:
+                # A revert holds only against the assignment the failed steal
+                # made: a report retried past a newer grant is stale.
+                cur = state["owner"].get(piece)
+                if cur is None or int(cur[1]) != failed_gen:
+                    continue
+                self._apply_steal_failed_locked(client_id, piece, kept_wid, kept_gen)
+                self._journal_locked({"op": "steal_failed", "client_id": client_id,
+                                      "piece": piece, "worker_id": kept_wid,
+                                      "generation": kept_gen})
+            fresh_done = done - state["done"]
+            if fresh_done:
+                self._mark_dyn_dirty_locked()
+                state["done"].update(fresh_done)
+                self._journal_locked({"op": "dynamic_done", "client_id": client_id,
+                                      "pieces": sorted(fresh_done)})
+            alive = self._alive_workers()
+            # Reconcile: a piece the dispatcher places on another worker than
+            # the client's view is re-issued as a corrective steal, applied
+            # through the same revoke-then-extend handshake.
+            client_owner = {piece: wid for wid, pieces in owned.items() for piece in pieces}
+            deltas = []
+            for piece, (wid, gen) in sorted(state["owner"].items()):
+                if piece in state["done"] or wid not in alive:
+                    continue
+                seen = client_owner.get(piece)
+                if seen is not None and seen != wid:
+                    deltas.append({"piece": piece, "from": seen, "to": wid, "generation": gen})
+            # Plan over every live worker, not only those the client holds
+            # streams to: a worker that joined mid-epoch is the drained
+            # receiver stealing exists for (its address rides the reply).
+            pending = {wid: 0 for wid in alive}
+            for piece, (wid, gen) in state["owner"].items():
+                if piece not in state["done"] and wid in pending:
+                    pending[wid] += 1
+            live_stealable = {
+                wid: [p for p in pieces
+                      if p not in state["done"] and state["owner"].get(p, (None,))[0] == wid]
+                for wid, pieces in stealable.items() if wid in pending}
+            serving_ids = set(self._serving_workers())
+            moves = []
+            draining_ids = sorted(wid for wid in alive if wid not in serving_ids)
+            if draining_ids and serving_ids:
+                # A worker out of the serving set (breaker-open) sheds its
+                # whole unstarted backlog to the least-loaded serving peers.
+                for dwid in draining_ids:
+                    for piece in sorted(live_stealable.get(dwid, [])):
+                        recv = min(serving_ids, key=lambda w: (pending[w], w))
+                        moves.append((piece, dwid, recv))
+                        pending[dwid] -= 1
+                        pending[recv] += 1
+                    live_stealable[dwid] = []
+            moves.extend(plan_steals(pending, live_stealable, rates, receivers=serving_ids))
+            for piece, from_wid, to_wid in moves:
+                self._generation += 1
+                self._apply_steal_locked(client_id, piece, from_wid, to_wid, self._generation)
+                self._journal_locked({"op": "steal", "client_id": client_id, "piece": piece,
+                                      "from": from_wid, "to": to_wid,
+                                      "generation": self._generation})
+                deltas.append({"piece": piece, "from": from_wid, "to": to_wid,
+                               "generation": self._generation})
+            if moves:
+                logger.info("work stealing for %s: moved %d piece(s) (%s)", client_id,
+                            len(moves), "; ".join(f"{p}:{f}->{t}" for p, f, t in moves[:8]))
+            referenced = {d["to"] for d in deltas} | {d["from"] for d in deltas}
+            return {"type": "deltas", "steals": deltas, "generation": self._generation,
+                    "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
+                    # A steal target may be a worker the client has no
+                    # stream to yet: its address lets the grant open one.
+                    "workers": {wid: alive[wid]["address"] for wid in referenced
+                                if wid in alive}}
 
     @staticmethod
     def _probe_timeout(header):
@@ -1299,17 +1747,17 @@ class Dispatcher:
                     jid: {"weight": job["weight"], "quota": job["quota"],
                           "epoch": job["epoch"],
                           "fencing_epoch": self._fencing_epoch + job["fencing_offset"],
-                          # One job: its max-min fair share is its demand, the
-                          # serving capacity while it has clients.
-                          "fair_share": (float(max(1, len(self._serving_workers())))
-                                         if self._clients else 0.0),
+                          "fair_share": self._default_job_share_locked(),
                           "clients": sorted(self._clients),
-                          "recovery": dict(self._job_recovery.get(jid, {}))}
+                          "recovery": dict(self._job_recovery.get(jid, {})),
+                          **(self._dynamic_per_job_locked().get(jid, {})
+                             if self.mode == "dynamic" else {})}
                     for jid, job in self._jobs.items()},
                 "fcfs_epoch": self._fcfs_epoch,
                 "fcfs_remaining": (len(self._fcfs_queue)
                                    if self._fcfs_queue is not None else None),
-                "dynamic": None,
+                "dynamic": (self._dynamic_status_locked() if self.mode == "dynamic"
+                            else None),
                 "corpora": {"": self._num_pieces} if self._num_pieces is not None else {},
                 "mixtures": {},
             }

@@ -1,5 +1,5 @@
 """Batch workers: the data plane of the data service (the port's own copy
-of ``petastorm_tpu/service/worker.py``, its static / fcfs tier).
+of ``petastorm_tpu/service/worker.py``: static, fcfs and dynamic streams).
 
 A worker wraps the local input pipeline, a ``make_reader``-family reader
 plus collation (:mod:`petastorm_tpu_torch.torch_utils.batcher`), and serves
@@ -9,7 +9,7 @@ names row-group piece indices (the dispatcher's plan); the worker reads
 them through one reader built with ``piece_indices=`` and sends one
 ``batch`` message per collated batch, then ``end`` with the row total.
 
-Two serving forms, as in the JAX package:
+Three serving forms, as in the JAX package:
 
 - **tagged** (the static client's exactly-once protocol): batches are
   piece-aligned (a ragged tail per piece), each carries its ``piece`` and
@@ -17,12 +17,23 @@ Two serving forms, as in the JAX package:
   ``piece_done`` frame. ``starts`` (piece → first ordinal to send, the
   client's delivery watermark) makes a re-serve skip what was delivered,
   and the dispatcher's ``shuffle_seed`` permutes each piece's batches by
-  ``seedtree.batch_permutation``. The JAX package serves this through its
-  streaming piece engine; here one reader serves the stream's pieces, and
-  its outputs are attributed to pieces through the reader's delivery
-  tracker (each work item is one piece and is published whole).
+  ``seedtree.batch_permutation``. It is served through the streaming piece
+  engine (:mod:`petastorm_tpu_torch.service.piece_engine`: one reader a
+  stream, fed piece by piece, decoding ``lookahead`` pieces ahead); a
+  process pool, which cannot attribute completions to its items, serves it
+  through one reader whose outputs are attributed to pieces by its delivery
+  tracker.
+- **dynamic** (``dynamic: true``, dynamic sharding): pieces arrive as
+  ``[piece, generation, start]`` and the engine serves them from a queue
+  the client edits mid-stream with ``extend``, ``revoke`` (acked with a
+  ``revoked`` frame naming the pieces actually removed: none of their
+  batches was or will be sent) and ``finish_pieces`` frames. Every batch
+  carries its piece, generation and ordinal.
 - **untagged** (fcfs splits, legacy clients): one reader over the piece
   set, batches collated across piece boundaries.
+
+With ``on_piece_error="quarantine"`` a tagged or dynamic stream reports an
+undecodable piece with a ``piece_failed`` frame and serves on.
 
 Flow control: a ``credits`` field bounds the batches in flight; the client
 replenishes with ``credit`` messages as it consumes, and a worker out of
@@ -92,20 +103,17 @@ UNPORTED_WORKER_ARGS = {
                           "slice (d)"),
     "fleet_cache": (False, "the fleet cache tier comes with slice (d)"),
     "standby": (False, "standby capacity and the autoscaler come with slice (d)"),
-    "on_piece_error": ("fail", "the worker's poison-piece site lives in the streaming "
-                               "piece engine, slice (c)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
 }
 
 #: Stream-request attributes of later slices: a stream naming one is
 #: refused with the slice that serves it.
 _UNPORTED_STREAM_ATTRS = {
-    "dynamic": "dynamic sharding comes with slice (c)",
     "packing": "worker-side packing comes with slice (f)",
-    "predicate": "the hoisted row filter (a graph rewrite) comes with slice (c)",
-    "projection": "hoisted column pruning (a graph rewrite) comes with slice (c)",
-    "fused": "stage fusion (a graph rewrite) comes with slice (c)",
-    "reader_family": "the row/columnar family rewrite comes with slice (c)",
+    "predicate": "the hoisted row filter (a graph rewrite) comes with slice (c2)",
+    "projection": "hoisted column pruning (a graph rewrite) comes with slice (c2)",
+    "fused": "stage fusion (a graph rewrite) comes with slice (c2)",
+    "reader_family": "the row/columnar family rewrite comes with slice (c2)",
 }
 
 
@@ -170,11 +178,13 @@ class BatchWorker:
         (``$PETASTORM_TRANSPORT``); both serve TCP (``"shm"`` raises).
     :param metrics_port: the port of this process's metrics endpoint,
         advertised at registration (the CLI serves it).
+    :param on_piece_error: ``"fail"`` (a piece whose decode fails errors the
+        stream) or ``"quarantine"`` (a tagged or dynamic stream reports it
+        with a ``piece_failed`` frame and serves on; the engine rebuilds its
+        reader).
 
-    ``batch_cache``, ``fleet_cache``, ``standby``,
-    ``on_piece_error="quarantine"`` (the worker's poison-piece site is the
-    streaming piece engine's) and a ``corpus`` raise NotImplementedError
-    naming the argument and its slice.
+    ``batch_cache``, ``fleet_cache``, ``standby`` and a ``corpus`` raise
+    NotImplementedError naming the argument and its slice.
     """
 
     #: Seconds between stop-flag checks while a stream waits for credits.
@@ -190,7 +200,7 @@ class BatchWorker:
         from petastorm_tpu_torch.service.transport import resolve_mode
 
         given = {"batch_cache": batch_cache, "fleet_cache": fleet_cache, "standby": standby,
-                 "on_piece_error": on_piece_error, "corpus": corpus or ""}
+                 "corpus": corpus or ""}
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
                              f"{on_piece_error!r}")
@@ -205,7 +215,9 @@ class BatchWorker:
         self._dispatcher_address = tuple(dispatcher_address) if dispatcher_address else None
         self._batch_size = batch_size
         self._batch_transform = batch_transform
+        self._on_piece_error = on_piece_error
         self._factory = _resolve_factory(reader_factory)
+        self._factory_name = reader_factory if isinstance(reader_factory, str) else None
         self._reader_kwargs = dict(reader_kwargs or {})
         for owned in ("piece_indices", "num_epochs", "shuffle_row_groups",
                       "rowgroup_selector", "cur_shard", "shard_count", "shard_seed"):
@@ -471,7 +483,7 @@ class BatchWorker:
                 return f"stream attribute {attr!r} is not ported yet: {reason}"
         if (header.get("cache_stage") or "post-transform") != "post-transform":
             return ("stream attribute 'cache_stage' is not ported yet: the cache "
-                    "placement rewrite comes with slice (c)")
+                    "placement rewrite comes with slice (c2)")
         if header.get("transform_placement") == "remote" and self._batch_transform is None:
             return ("stream requested transform_placement='remote' but this worker has no "
                     "batch_transform armed — start it with --batch-transform module:attr "
@@ -492,6 +504,7 @@ class BatchWorker:
         if refusal is not None:
             send_framed(sock, {"type": "error", "error": refusal})
             return
+        dynamic = bool(header.get("dynamic"))
         tagged = bool(header.get("tagged"))
         transform_fn = None
         if self._batch_transform is not None \
@@ -506,7 +519,11 @@ class BatchWorker:
         shuffle_seed = header.get("shuffle_seed")
         shuffle_seed = int(shuffle_seed) if shuffle_seed is not None else None
         starts = {int(p): int(s) for p, s in (header.get("starts") or {}).items()}
-        pieces = [int(p) for p in header["pieces"]]
+        if dynamic:
+            pieces = [(int(t[0]), int(t[1]), int(t[2]) if len(t) > 2 else 0)
+                      for t in header["pieces"]]
+        else:
+            pieces = [int(p) for p in header["pieces"]]
         credits = header.get("credits")
         credits = int(credits) if credits is not None else None
         flow = {"credits_window": credits, "credits_left": credits, "batches_sent": 0,
@@ -519,8 +536,18 @@ class BatchWorker:
             self._streams_served += 1
         self._m_active.inc()
         try:
-            if tagged:
+            if dynamic:
+                rows_sent = self._stream_dynamic(
+                    sock, conn_reader, state, pieces, flow, credits, stream_key,
+                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
+                    transform_fn=transform_fn)
+            elif tagged and self._engine_supported():
                 rows_sent = self._stream_pieces_tagged(
+                    sock, conn_reader, state, pieces, flow, credits, stream_key, starts,
+                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
+                    transform_fn=transform_fn)
+            elif tagged:
+                rows_sent = self._stream_pieces_tagged_reader(
                     sock, conn_reader, state, pieces, flow, credits, stream_key, starts,
                     epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
                     transform_fn=transform_fn)
@@ -598,15 +625,170 @@ class BatchWorker:
                 return None
             rows_sent += rows
 
+    # -- the streaming piece engine's paths --------------------------------
+
+    def _engine_supported(self):
+        """The engine needs per-item completion attribution, which only the
+        thread and dummy reader pools have."""
+        return self._reader_kwargs.get("reader_pool_type", "thread") in ("thread", "dummy")
+
+    def _make_engine(self, epoch, shuffle_seed=None, transform_fn=None,
+                     allow_quarantine=False):
+        """One engine for a whole stream over one lazily built
+        ``dynamic_ventilation=True`` reader. ``shuffle_seed`` arms the
+        serve-time batch permutation ``seedtree.batch_permutation(seed,
+        epoch, piece, n)``: pure, so every re-serve replays the same order
+        against the same watermarks."""
+        from petastorm_tpu_torch.service.piece_engine import StreamingPieceEngine
+        from petastorm_tpu_torch.service.seedtree import batch_permutation
+
+        factory, reader_kwargs = self._factory, dict(self._reader_kwargs)
+
+        def build_reader():
+            self._m_readers.inc()
+            return factory(self.dataset_url, dynamic_ventilation=True, num_epochs=1,
+                           shuffle_row_groups=False, cur_shard=0, shard_count=1,
+                           **reader_kwargs)
+
+        permute_fn = None
+        if shuffle_seed is not None:
+            seed, epoch_number = int(shuffle_seed), int(epoch or 0)
+
+            def permute_fn(piece, n):
+                return batch_permutation(seed, epoch_number, piece, n)
+
+        # Quarantine needs a frame that can say "piece_failed": only the
+        # tagged and dynamic protocols have one.
+        return StreamingPieceEngine(
+            build_reader, self._batch_size, permute_fn=permute_fn, transform_fn=transform_fn,
+            columnar_collate=self._factory_name == "columnar",
+            on_piece_error=self._on_piece_error if allow_quarantine else "fail")
+
+    def _note_engine_decode(self, collector, decode_s, bid):
+        """An engine event carries its decode duration: anchor the span to
+        end at the dequeue, before this batch's send."""
+        if not decode_s:
+            return
+        self._m_decode.observe(decode_s)
+        if collector.enabled:
+            t_now = time.perf_counter()
+            collector.record_span("worker.decode", t_now - decode_s, t_now, bid=bid)
+
     def _stream_pieces_tagged(self, sock, conn_reader, state, pieces, flow, credits,
                               stream_key, starts, epoch=None, shuffle_seed=None,
                               transform_fn=None):
-        """Exactly-once static serving: piece-aligned batches tagged with
-        their piece and ordinal, a ``piece_done`` frame after each piece.
-        One reader serves the stream; each of its work items is one piece,
-        published whole, so the outputs consumed since the last recorded
-        delivery are that delivery's piece. Batches below the piece's
-        ``starts`` watermark (in the permuted order, with a
+        """Exactly-once static serving through the engine: piece-aligned
+        batches tagged with their piece and ordinal, a ``piece_done`` frame
+        after each piece (``piece_failed`` in its place under quarantine).
+        The engine skip-scans past each piece's ``starts`` watermark."""
+        collector = tracing.COLLECTOR
+        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True)
+        with self._lock:
+            # Reader-shaped for diagnostics and teardown (stop / join).
+            state["reader"] = engine
+        for piece in pieces:
+            engine.enqueue(piece, 0, start=starts.get(int(piece), 0))
+        engine.finish()
+        rows_sent = 0
+        while True:
+            if self._server.stopped.is_set():
+                return None
+            event = engine.next_event(timeout=0.1)
+            if event is None:
+                if engine.finished:
+                    return rows_sent
+                continue
+            if event[0] == "batch":
+                _, piece, _gen, ordinal, rows, fmt, frames, decode_s = event
+                bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+                self._note_engine_decode(collector, decode_s, bid)
+                if not self._send_stream_batch(sock, conn_reader, flow, credits, bid, rows,
+                                               fmt, frames,
+                                               extra_header={"piece": piece,
+                                                             "ordinal": ordinal}):
+                    return None
+                rows_sent += rows
+            elif event[0] == "piece_failed":
+                _, piece, _gen, error = event
+                send_framed(sock, {"type": "piece_failed", "piece": piece, "error": error})
+            else:
+                _, piece, _gen, rows = event
+                send_framed(sock, {"type": "piece_done", "piece": piece, "rows": rows})
+
+    def _stream_dynamic(self, sock, conn_reader, state, pieces, flow, credits, stream_key,
+                        epoch=None, shuffle_seed=None, transform_fn=None):
+        """Dynamic serving: the engine's queue is the worker's deque, edited
+        in-band: ``extend`` appends steal grants, ``revoke`` removes unsent
+        pieces (acked with the ones removed, which makes the client's
+        revoke-then-extend handshake exactly once), ``finish_pieces`` closes
+        the queue. Batches carry their piece, generation and ordinal; each
+        finished piece is announced with ``piece_done``."""
+        if not self._engine_supported():
+            raise ValueError(
+                "dynamic streams need the streaming piece engine, which requires "
+                "reader_pool_type='thread' (or 'dummy') — this worker runs "
+                f"{self._reader_kwargs.get('reader_pool_type')!r}")
+        collector = tracing.COLLECTOR
+        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True)
+        with self._lock:
+            state["reader"] = engine
+        for piece, gen, start in pieces:
+            engine.enqueue(piece, gen, start=start)
+
+        def on_frame(msg):
+            kind = msg.get("type")
+            if kind == "extend":
+                for entry in msg.get("pieces", []):
+                    engine.enqueue(int(entry[0]), int(entry[1]),
+                                   start=int(entry[2]) if len(entry) > 2 else 0)
+            elif kind == "revoke":
+                removed = engine.revoke(int(p) for p in msg.get("pieces", []))
+                send_framed(sock, {"type": "revoked", "pieces": removed, "req": msg.get("req")})
+            elif kind == "finish_pieces":
+                engine.finish()
+
+        rows_sent = 0
+        while True:
+            if self._server.stopped.is_set():
+                return None
+            while conn_reader.data_pending():
+                msg, _ = conn_reader.recv()
+                if msg.get("type") == "credit":
+                    flow["credits_left"] += int(msg.get("n", 1))
+                else:
+                    on_frame(msg)
+            event = engine.next_event(timeout=0.02)
+            if event is None:
+                if engine.finished:
+                    return rows_sent
+                continue
+            if event[0] == "batch":
+                _, piece, gen, ordinal, rows, fmt, frames, decode_s = event
+                bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+                self._note_engine_decode(collector, decode_s, bid)
+                if not self._send_stream_batch(
+                        sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+                        extra_header={"piece": piece, "generation": gen, "ordinal": ordinal},
+                        on_frame=on_frame):
+                    return None
+                rows_sent += rows
+            elif event[0] == "piece_failed":
+                _, piece, gen, error = event
+                send_framed(sock, {"type": "piece_failed", "piece": piece, "generation": gen,
+                                   "error": error})
+            else:
+                _, piece, gen, rows = event
+                send_framed(sock, {"type": "piece_done", "piece": piece, "generation": gen,
+                                   "rows": rows})
+
+    def _stream_pieces_tagged_reader(self, sock, conn_reader, state, pieces, flow, credits,
+                                     stream_key, starts, epoch=None, shuffle_seed=None,
+                                     transform_fn=None):
+        """Tagged serving for a process pool (no per-item completion marks,
+        so no engine): one reader serves the stream; each of its work items
+        is one piece, published whole, so the outputs consumed since the
+        last recorded delivery are that delivery's piece. Batches below the
+        piece's ``starts`` watermark (in the permuted order, with a
         ``shuffle_seed``) are skipped."""
         from petastorm_tpu_torch.service.seedtree import batch_permutation
         from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
@@ -672,9 +854,11 @@ class BatchWorker:
                 return rows_sent
 
     def _send_stream_batch(self, sock, conn_reader, flow, credits, bid, rows, fmt, frames,
-                           extra_header=None):
+                           extra_header=None, on_frame=None):
         """Honor stop, drain and wait for credits, pace, send, account.
-        False when the worker stopped (the stream ends without ``end``)."""
+        False when the worker stopped (the stream ends without ``end``).
+        ``on_frame`` takes the other control frames met while draining (a
+        dynamic stream's queue edits must not be lost to a credit wait)."""
         if self._server.stopped.is_set():
             return False
         if credits is not None:
@@ -685,6 +869,8 @@ class BatchWorker:
                 reply, _ = conn_reader.recv()
                 if reply.get("type") == "credit":
                     flow["credits_left"] += int(reply.get("n", 1))
+                elif on_frame is not None:
+                    on_frame(reply)
             if flow["credits_left"] <= 0:
                 t0 = time.perf_counter()
                 while flow["credits_left"] <= 0:
@@ -697,6 +883,8 @@ class BatchWorker:
                     reply, _ = conn_reader.recv()
                     if reply.get("type") == "credit":
                         flow["credits_left"] += int(reply.get("n", 1))
+                    elif on_frame is not None:
+                        on_frame(reply)
                 waited = time.perf_counter() - t0
                 flow["credit_wait_s"] += waited
                 self._m_credit_wait.inc(waited)

@@ -306,6 +306,25 @@ DISPATCHER_RECOVERY_EVENTS = REGISTRY.gauge(
     "stale_fencing_rejections). A gauge, not a counter: the values are "
     "journaled and restored across restarts, so they can jump on replay",
     labels=("event",))
+DISPATCHER_STEALS = REGISTRY.gauge(
+    "petastorm_service_dispatcher_steals",
+    "Dynamic-mode piece moves per worker and direction (out = pieces "
+    "stolen away from this worker's deque, in = pieces granted to it); "
+    "dead-worker takeover reassignments count too. A gauge like the "
+    "recovery events: journaled, so it can jump on replay",
+    labels=("worker", "direction"))
+DISPATCHER_BACKLOG_PIECES = REGISTRY.gauge(
+    "petastorm_service_dispatcher_backlog_pieces",
+    "Dynamic-mode pieces currently booked to each worker and not yet "
+    "reported done (summed over clients) — the backlog the work-stealing "
+    "planner balances",
+    labels=("worker",))
+DISPATCHER_GENERATION = REGISTRY.gauge(
+    "petastorm_service_dispatcher_generation",
+    "Dynamic-mode ownership-generation high-water mark: every assignment, "
+    "steal, and takeover stamps moved pieces with a fresh generation, and "
+    "clients drop batches tagged with a superseded (piece, generation) — "
+    "the fencing that makes a stolen piece count exactly once")
 
 # -- service: trainer client (service/client.py) ---------------------------
 

@@ -20,7 +20,13 @@ class TimeoutWaitingForResultError(Exception):
 
 
 class VentilatedItemProcessedMessage:
-    """Control marker a worker emits after finishing one ventilated item."""
+    """Control marker a worker emits after finishing one ventilated item.
+    ``item`` carries the item's kwargs in the thread and dummy pools (the
+    streaming piece engine attributes a piece's completion through it);
+    ``None`` where the pool cannot say."""
+
+    def __init__(self, item=None):
+        self.item = item
 
 
 class WorkerException(Exception):

@@ -11,13 +11,21 @@ import traceback
 from collections import deque
 
 from petastorm_tpu_torch.telemetry.flight import RECORDER
-from petastorm_tpu_torch.workers_pool import EmptyResultError, WorkerException
+from petastorm_tpu_torch.workers_pool import (
+    EmptyResultError,
+    TimeoutWaitingForResultError,
+    VentilatedItemProcessedMessage,
+    WorkerException,
+)
 
 
 class DummyPool:
     """Processes each ventilated item inside :meth:`ventilate`."""
 
     workers_count = 1
+    #: Completion markers carry their item's kwargs (the streaming piece
+    #: engine needs the attribution).
+    supports_item_done_hook = True
 
     def __init__(self):
         self._results = deque()
@@ -27,6 +35,10 @@ class DummyPool:
         self._ventilated_items = 0
         self._completed_items = 0
         self._counter_lock = threading.Lock()
+        #: ``hook(item_kwargs)``, called as :meth:`get_results` drains an
+        #: item's completion marker, which follows the item's payloads in
+        #: the results deque: after every one of them was returned.
+        self.item_done_hook = None
 
     @property
     def diagnostics(self):
@@ -37,7 +49,10 @@ class DummyPool:
             "items_ventilated": ventilated,
             "items_processed": completed,
             "items_in_flight": ventilated - completed,
-            "results_queue_size": len(self._results),
+            # Payloads only: completion markers are control flow.
+            "results_queue_size": sum(
+                1 for r in list(self._results)
+                if not isinstance(r, VentilatedItemProcessedMessage)),
             "workers_count": self.workers_count,
         }
 
@@ -60,11 +75,23 @@ class DummyPool:
                 self._completed_items += 1
             if self._ventilator is not None:
                 self._ventilator.processed_item()
+            # Queued behind the item's payloads, so the hook fires only
+            # after every one of them was returned.
+            self._results.append(VentilatedItemProcessedMessage(kwargs or None))
 
     def get_results(self, timeout=None):
+        """The next payload; EmptyResultError once ventilation is over and
+        everything was returned. ``timeout`` (default: none, a slow row
+        group is not a failure) bounds a wait on a concurrent ventilator."""
+        deadline = time.monotonic() + timeout if timeout else None
         while True:
             if self._results:
                 result = self._results.popleft()
+                if isinstance(result, VentilatedItemProcessedMessage):
+                    hook = self.item_done_hook
+                    if hook is not None and result.item is not None:
+                        hook(result.item)
+                    continue
                 if isinstance(result, WorkerException):
                     RECORDER.note("pool.worker_exception", pool="dummy",
                                   error=repr(result.exc)[:200])
@@ -79,6 +106,8 @@ class DummyPool:
                 if self._results:
                     continue
                 raise EmptyResultError()
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutWaitingForResultError(f"No results for {timeout}s")
             time.sleep(0.001)
 
     def stop(self):

@@ -39,6 +39,10 @@ class _RetireSentinel:
 
 
 class ThreadPool:
+    #: Completion markers carry their item's kwargs: the pool can attribute
+    #: them (the streaming piece engine needs it).
+    supports_item_done_hook = True
+
     def __init__(self, workers_count, results_queue_size=50):
         self.workers_count = workers_count
         # Bounded, so decode stays at most ``results_queue_size`` work items
@@ -59,6 +63,10 @@ class ThreadPool:
         self._ventilated_items = 0
         self._completed_items = 0
         self._results_pending = 0  # payloads in the results queue
+        #: ``hook(item_kwargs)``, called on the consuming thread as
+        #: :meth:`get_results` drains an item's completion marker: after
+        #: every payload of the item (marker and payloads share one FIFO).
+        self.item_done_hook = None
         self._counter_lock = threading.Lock()
 
     @property
@@ -153,7 +161,7 @@ class ThreadPool:
             finally:
                 # Failed items count as processed too, or the ventilator's
                 # in-flight window leaks and the pool deadlocks.
-                self._results_queue.put(VentilatedItemProcessedMessage())
+                self._results_queue.put(VentilatedItemProcessedMessage(kwargs or None))
 
     def ventilate(self, *args, **kwargs):
         with self._counter_lock:
@@ -188,6 +196,9 @@ class ThreadPool:
                 POOL_ITEMS_PROCESSED.inc()
                 if self._ventilator is not None:
                     self._ventilator.processed_item()
+                hook = self.item_done_hook
+                if hook is not None and result.item is not None:
+                    hook(result.item)
                 continue
             if isinstance(result, WorkerException):
                 RECORDER.note("pool.worker_exception", pool="thread",

@@ -145,3 +145,62 @@ class ConcurrentVentilator:
         with self._lock:
             self._in_flight = 0
         self.start()
+
+
+class DynamicVentilator:
+    """A ventilator fed one item at a time through :meth:`submit` instead
+    of from a planned list: the seam behind ``dynamic_ventilation=True``
+    readers, through which the service's streaming piece engine feeds pieces
+    into one long-lived pool as its mutable piece queue is consumed. The
+    caller owns admission (how many pieces it keeps in flight); this class
+    keeps the counts and the finished flag. It has no thread: :meth:`submit`
+    calls ``ventilate_fn`` inline (a thread pool enqueues and returns, a
+    dummy pool decodes inside the call)."""
+
+    def __init__(self, ventilate_fn):
+        self._ventilate_fn = ventilate_fn
+        self._lock = threading.Lock()
+        self._in_flight = 0
+        self._items_ventilated = 0
+        self._finished = False
+        #: Pools read ``ventilator.error``; a thread-less ventilator has none.
+        self.error = None
+
+    @property
+    def diagnostics(self):
+        with self._lock:
+            return {"items_ventilated": self._items_ventilated,
+                    "items_in_flight": self._in_flight,
+                    "ventilation_completed": self._finished}
+
+    def start(self):
+        """Nothing to start: submissions drive everything."""
+
+    def submit(self, item):
+        """Feed one work item (a kwargs dict) to the pool."""
+        with self._lock:
+            if self._finished:
+                raise RuntimeError(
+                    "DynamicVentilator.submit after finish(): the stream already "
+                    "declared its piece queue closed")
+            self._in_flight += 1
+            self._items_ventilated += 1
+        VENTILATOR_ITEMS.inc()
+        self._ventilate_fn(**item)
+
+    def processed_item(self):
+        with self._lock:
+            if self._in_flight > 0:
+                self._in_flight -= 1
+
+    def finish(self):
+        """No more submissions: once the items in flight drain, consumers
+        see end-of-data (``EmptyResultError``) instead of blocking."""
+        with self._lock:
+            self._finished = True
+
+    def completed(self):
+        return self._finished
+
+    def stop(self):
+        self.finish()

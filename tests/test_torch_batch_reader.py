@@ -219,15 +219,33 @@ def test_from_arrow_schema_of_the_store_matches_jax(store):
     ("filesystem", "local"), ("piece_indices", [5, 0, 2]), ("dynamic_ventilation", True),
 ])
 def test_unported_arguments_raise_by_name(store, name, value):
-    """``hdfs_driver`` and ``dynamic_ventilation`` are refused by name; the
-    other four give the JAX reader's batches, bit for bit."""
+    """``hdfs_driver`` is refused by name; the four others give the JAX
+    reader's batches, bit for bit, and ``dynamic_ventilation`` the JAX
+    reader's ``(batch, piece)`` pairs for the same submitted pieces."""
     import pyarrow.fs as pafs
 
+    from petastorm_tpu import make_batch_reader as jax_make_batch_reader
     from petastorm_tpu_torch.reader.reader import make_batch_reader
 
-    if name in ("hdfs_driver", "dynamic_ventilation"):
+    if name == "hdfs_driver":
         with pytest.raises(NotImplementedError, match=name):
             make_batch_reader(store, **{name: value})
+        return
+    if name == "dynamic_ventilation":
+        pairs = {}
+        for package, make in (("port", make_batch_reader), ("jax", jax_make_batch_reader)):
+            reader = make(store, dynamic_ventilation=value, shuffle_row_groups=False,
+                          reader_pool_type="dummy")
+            for piece in (5, 0, 2):
+                reader.submit_piece(piece)
+            reader.finish_pieces()
+            with reader:
+                pairs[package] = [reader.read_next_tagged(timeout=30) for _ in range(3)]
+        assert [p for _, p in pairs["port"]] == [p for _, p in pairs["jax"]] == [5, 0, 2]
+        for (got, _), (want, _) in zip(pairs["port"], pairs["jax"]):
+            for key in want._fields:
+                assert getattr(got, key).dtype == getattr(want, key).dtype
+                np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
         return
     if name == "filesystem":
         value = pafs.LocalFileSystem()

@@ -269,15 +269,29 @@ def test_each_package_recovers_the_others_journal(writer, tmp_path):
 
 
 def test_later_slice_journal_records_are_refused_by_name(tmp_path):
+    """Later slices' WAL records are refused by slice on replay; a
+    ``dynamic_plan`` record (ported now) replays into the plan."""
     from petastorm_tpu_torch.service.journal import Journal
 
-    for op, slice_name in (("dynamic_plan", "(c)"), ("job_register", "(d)"),
+    for op, slice_name in (("dynamic_plan", None), ("job_register", "(d)"),
                            ("mixture_weights", "(f)"), ("autoscale", "(d)")):
         path = tmp_path / op
+        mode = "dynamic" if slice_name is None else "static"
         journal = Journal(path)
-        journal.snapshot(Dispatcher().state_snapshot())
-        journal.append({"op": op, "job_id": "x", "client_id": "c"})
+        journal.snapshot(Dispatcher(mode=mode).state_snapshot())
+        journal.append({"op": op, "job_id": "x", "client_id": "c", "epoch": 0,
+                        "owner": [[0, "w0", 4], [1, "w1", 4]], "generation": 4})
         journal.close()
+        if slice_name is None:
+            dispatcher = Dispatcher(mode=mode, journal_dir=str(path)).start()
+            try:
+                state = dispatcher.state_snapshot()
+            finally:
+                dispatcher.stop()
+            assert state["generation"] == 4
+            assert state["dyn"] == {"c": {"epoch": 0, "owner": [[0, "w0", 4], [1, "w1", 4]],
+                                          "done": [], "steals": {}}}
+            continue
         with pytest.raises(NotImplementedError, match=rf"{op}.*slice \{slice_name[0]}"
                                                       rf"{slice_name[1]}\)"):
             Dispatcher(journal_dir=str(path)).start()

@@ -410,12 +410,32 @@ def test_reader_engine_and_results_queue_size(store):
         port_reader_mod.make_reader(store, reader_engine="reader_v2")
 
 
-#: The factories' filesystem and planning arguments: the two still refused
-#: (with the reason named), the four others held against the JAX reader.
+#: The factories' filesystem and planning arguments: the one still refused
+#: (with the reason named), the five others held against the JAX reader.
 UNPORTED = [("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
             ("fast_gcs_listing", False), ("filesystem", "local"),
             ("piece_indices", [6, 1, 3, 1]), ("dynamic_ventilation", True)]
-REFUSED = {"hdfs_driver": "libhdfs", "dynamic_ventilation": r"slice \(c\)"}
+REFUSED = {"hdfs_driver": "libhdfs"}
+
+
+def _tagged_outputs(reader, pieces):
+    """A dynamic reader's ``(output as a dict, piece)`` pairs for the
+    pieces submitted in this order."""
+    from petastorm_tpu_torch.workers_pool import EmptyResultError as PortEmpty
+    from petastorm_tpu.workers_pool import EmptyResultError as JaxEmpty
+
+    assert reader.dynamic
+    for piece in pieces:
+        reader.submit_piece(piece)
+    reader.finish_pieces()
+    out = []
+    with reader:
+        while True:
+            try:
+                output, piece = reader.read_next_tagged(timeout=30)
+            except (PortEmpty, JaxEmpty):
+                return out
+            out.append((output._asdict(), piece))
 
 
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
@@ -424,6 +444,19 @@ def test_unported_arguments_raise_by_name(store, factory, name, value):
     if name in REFUSED:
         with pytest.raises(NotImplementedError, match=rf"{name}=.*{REFUSED[name]}"):
             getattr(port_reader_mod, factory)(store, **{name: value})
+        return
+    if name == "dynamic_ventilation":
+        # The dynamic piece feed: the same (output, piece) pairs as the JAX
+        # reader's for the same submissions.
+        kwargs = dict(dynamic_ventilation=value, shuffle_row_groups=False,
+                      reader_pool_type="dummy")
+        port = _tagged_outputs(getattr(port_reader_mod, factory)(store, **kwargs), [6, 1, 3])
+        jax = _tagged_outputs(getattr(jax_reader_mod, factory)(store, **kwargs), [6, 1, 3])
+        assert [p for _, p in port] == [p for _, p in jax]
+        assert {p for _, p in port} == {6, 1, 3}
+        _assert_rows_equal([o for o, _ in port], [o for o, _ in jax])
+        with pytest.raises(ValueError, match="shuffle_row_groups"):
+            getattr(port_reader_mod, factory)(store, dynamic_ventilation=True)
         return
     import pyarrow.fs as pafs
 

@@ -27,6 +27,7 @@ node it starts and bounds its own waits. Everything is compared exactly.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -342,18 +343,26 @@ def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["dispatcher", "--port", "0", "--mode", "dynamic"], r"slice \(c\)"),
+    (["dispatcher", "--port", "0", "--mode", "dynamic"], None),
     (["dispatcher", "--port", "0", "--autoscale"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--cache", "mem"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--standby"], r"slice \(d\)"),
-    (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"],
-     r"slice \(c\)"),
+    (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"], None),
     (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
     (["worker", "--dataset-url", "file:///x", "--transport", "shm"], r"slice \(e\)"),
 ], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "shm"])
 def test_cli_refusals_name_their_slice(argv, match):
-    from petastorm_tpu_torch.service.cli import main
+    """The flags of later slices are refused by slice; ``--mode dynamic``
+    and ``--on-piece-error quarantine`` (``match`` None) build their node."""
+    from petastorm_tpu_torch.service.cli import _build_parser, build_service_node, main
 
+    if match is None:
+        node = build_service_node(_build_parser().parse_args(argv))
+        if argv[0] == "dispatcher":
+            assert isinstance(node, Dispatcher) and node.mode == "dynamic"
+        else:
+            assert isinstance(node, BatchWorker) and node._on_piece_error == "quarantine"
+        return
     with pytest.raises(NotImplementedError, match=match):
         main(argv, run_seconds=0)
 
@@ -362,21 +371,22 @@ def test_cli_refusals_name_their_slice(argv, match):
 # refusals
 # ---------------------------------------------------------------------------
 
+#: ``None``: an argument this slice ported, which is taken.
 REFUSALS = [
-    ("Dispatcher", {"mode": "dynamic"}, "(c)"),
+    ("Dispatcher", {"mode": "dynamic"}, None),
     ("Dispatcher", {"autoscale": True}, "(d)"),
     ("BatchWorker", {"batch_cache": object()}, "(d)"),
     ("BatchWorker", {"fleet_cache": True}, "(d)"),
     ("BatchWorker", {"standby": True}, "(d)"),
-    ("BatchWorker", {"on_piece_error": "quarantine"}, "(c)"),
+    ("BatchWorker", {"on_piece_error": "quarantine"}, None),
     ("BatchWorker", {"corpus": "web"}, "(f)"),
     ("BatchWorker", {"transport": "shm"}, "(e)"),
-    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, "(c)"),
-    ("ServiceBatchSource", {"projection": ["id"]}, "(c)"),
-    ("ServiceBatchSource", {"filter_placement": "worker"}, "(c)"),
-    ("ServiceBatchSource", {"stage_fusion": "fused"}, "(c)"),
-    ("ServiceBatchSource", {"cache_placement": "post-decode"}, "(c)"),
-    ("ServiceBatchSource", {"reader_family": "columnar"}, "(c)"),
+    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, "(c2)"),
+    ("ServiceBatchSource", {"projection": ["id"]}, "(c2)"),
+    ("ServiceBatchSource", {"filter_placement": "worker"}, "(c2)"),
+    ("ServiceBatchSource", {"stage_fusion": "fused"}, "(c2)"),
+    ("ServiceBatchSource", {"cache_placement": "post-decode"}, "(c2)"),
+    ("ServiceBatchSource", {"reader_family": "columnar"}, "(c2)"),
     ("ServiceBatchSource", {"packing": {"slots": 2}}, "(f)"),
     ("ServiceBatchSource", {"corpus": "web"}, "(f)"),
     ("ServiceBatchSource", {"job_id": "train-a"}, "(d)"),
@@ -387,11 +397,16 @@ REFUSALS = [
 @pytest.mark.parametrize("cls,kwargs,slice_name", REFUSALS,
                          ids=[f"{c}-{next(iter(k))}" for c, k, _ in REFUSALS])
 def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
-    name = next(iter(kwargs))
+    name, value = next(iter(kwargs.items()))
     make = {"Dispatcher": lambda: Dispatcher(**kwargs),
             "BatchWorker": lambda: BatchWorker("file:///nowhere", **kwargs),
             "ServiceBatchSource": lambda: ServiceBatchSource(("127.0.0.1", 1), **kwargs)}[cls]
-    with pytest.raises(NotImplementedError, match=rf"{name}.*slice \({slice_name[1]}\)"):
+    if slice_name is None:
+        node = make()
+        assert getattr(node, "mode" if name == "mode" else f"_{name}") == value
+        return
+    with pytest.raises(NotImplementedError,
+                       match=rf"{name}.*slice \({re.escape(slice_name[1:-1])}\)"):
         make()
 
 
@@ -438,22 +453,28 @@ def test_control_plane_arguments_are_taken(cls, kwargs, tmp_path):
 
 
 def test_later_slice_requests_are_refused_by_name(scalar_store):
+    """Later slices' requests are refused by slice; ``dynamic_plan``, ported
+    now, is refused by a static dispatcher as a dynamic-mode request, and a
+    ``dynamic`` stream is served (piece, generation and ordinal tagged)."""
     with Fleet(scalar_store, workers=1) as fleet:
         replies = {}
         for kind in ("dynamic_plan", "register_job", "set_mixture_weights",
                      "end_job", "cache_handoff"):
             with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
-                replies[kind] = conn.request({"type": kind})[0]
+                replies[kind] = conn.request({"type": kind, "client_id": "c",
+                                              "client_index": 0, "num_clients": 1})[0]
         with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
             scoped = conn.request({"type": "list_workers", "job_id": "tenant"})[0]
         with FramedConnection.connect(fleet.workers[0].address, timeout=5) as conn:
-            stream = conn.request({"type": "stream", "pieces": [0], "epoch": 0,
+            stream = conn.request({"type": "stream", "pieces": [[0, 3]], "epoch": 0,
                                    "dynamic": True})[0]
+    dynamic_plan = replies.pop("dynamic_plan")
     assert all(r["type"] == "error" and "not ported yet" in r["error"]
                for r in replies.values())
-    assert "slice (c)" in replies["dynamic_plan"]["error"]
+    assert dynamic_plan == {"type": "error", "error": "dynamic_plan is a dynamic-mode request"}
     assert "slice (d)" in scoped["error"]
-    assert stream["type"] == "error" and "slice (c)" in stream["error"]
+    assert (stream["type"], stream["piece"], stream["generation"], stream["ordinal"]) == \
+        ("batch", 0, 3, 0)
 
 
 # ---------------------------------------------------------------------------
