@@ -383,6 +383,39 @@ non-zero exit code):
    pieces counted): images/s beside phase 4's and phase 14's. No flash
    kernel runs on this phase (counted).
 
+17. ``dataplane``: the data plane of one host (``DATAPLANE``; see
+   ``dataplane_phase``), after phase 16 in the same process. (a) Phase 14
+   (a)'s image path (2 workers of 4 png threads, credits 8, 16 epochs),
+   each worker with ``BatchCache(mem 256 MiB)``, with
+   ``transport="tcp"`` on both sides and with ``"auto"`` in turns (tcp,
+   shm, shm, tcp), first with the workers in this process, then in
+   processes of their own (``python -m petastorm_tpu_torch.service worker
+   --cache mem``): each epoch's digests the local reader's, every stream
+   negotiated on the expected tier (``transport_streams_shm_total`` all of
+   them over shm, 0 over TCP), every warm piece a cache hit, the shm runs'
+   warm frames mapped from the workers' frame pools; images/s, stall and
+   the mean gap between batches across and within an epoch of each run, and
+   shm over TCP for each pair. Then, on each transport with
+   the workers in this process, one cold epoch and three traced warm ones
+   with a thread that sleeps 1 ms at a time beside them (how late it wakes is
+   the wait for the GIL): the trace's stage profile (``client.recv``,
+   ``shm.park``, ``worker.send``, ...), its wait attribution and the
+   probe's lateness. (b) Phase 7's
+   store at phase 14 (b)'s shape (2 workers of 2 reader threads, batch 512,
+   credits 8), ``ColumnPredicate("cat_0", "mod-eq", 0, modulus=4)`` and
+   the DLRM's 41-column projection, one DLRM epoch each with the filter on
+   the workers, on the client, and in a local ``make_batch_reader``: every
+   arm the same rows, column for column, the hoisted workers sending only
+   the survivors; rows/s of each. (c) The image path with a worker-side
+   transform (each image mirrored), ordered, one epoch a pass: stage
+   fusion off and on give the same digests in order, with hand-off seconds
+   0 when fused; a cached fleet's ``cache_placement`` flipped from
+   ``post-transform`` to ``post-decode`` refills (misses 12 → 24) and gives
+   the same digests. (d) The image path under ``autotune=`` with the
+   rewrite knobs bound: the rounds' classes and every rewrite the planner
+   probed, applied or reverted, with its reason. No flash kernel runs on
+   this phase (counted) and no shared memory stays mapped.
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -527,6 +560,22 @@ CONTROL = dict(image=IMAGE, epochs=2, workers=2, workers_count=4, credits=8, hea
 DYNAMIC = dict(image=IMAGE, epochs=2, threads=(1, 4), credits=8, sync_s=0.1,
                tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=512,
                tab_workers_count=2, tab_delay_s=0.05, join_after=4, poison=5)
+# Phase 17, the data plane of one host: (a) phase 14 (a)'s image path over
+# TCP and over shm in turns (16 epochs: the warm ones are short), each worker
+# with a memory batch cache, in this process and in processes of their own,
+# then three traced warm epochs on each; (b) phase 14
+# (b)'s tabular shape (2 workers of 2 reader threads, batch 512, credits 8)
+# with a ColumnPredicate keeping a quarter of the rows and the DLRM's
+# projection, filtered on the workers, on the client and by the local
+# reader; (c) stage fusion and the cache placement on the image path with a
+# worker-side transform; (d) an autotuned image run with the rewrites armed.
+DATAPLANE = dict(image=IMAGE, workers=2, workers_count=4, credits=8, cache_mb=256,
+                 a_epochs=16, a_order=("tcp", "shm", "shm", "tcp"), a_traced_epochs=4,
+                 probe_tick_s=0.001,
+                 tab_rows=TABULAR["rows"], tab_days=TABULAR["days"], tab_batch=512,
+                 tab_workers_count=2, tab_keep_mod=4, tune_epochs=8,
+                 tune={"interval_s": 0.25, "hysteresis": 1, "placement_hysteresis": 1,
+                       "rewrite_hysteresis": 2, "probe_defer": 0})
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -3657,16 +3706,21 @@ class _DigestingIterator:
 
 
 def _service_fleet(service, url, cfg, factory, batch, workers_count, mode="static",
-                   num_epochs=1, workers=None, dispatcher=None):
-    """``(dispatcher, [workers])`` on 127.0.0.1, started."""
+                   num_epochs=1, workers=None, dispatcher=None, tag=None, **worker_kwargs):
+    """``(dispatcher, [workers])`` on 127.0.0.1, started. ``tag`` names the
+    workers (the registry's series are per worker id); ``worker_kwargs``
+    go to each worker, a ``batch_cache`` given as a zero-argument callable
+    built once a worker."""
     dispatcher = dispatcher or service.Dispatcher(mode=mode, num_epochs=num_epochs).start()
     fleet = []
     try:
         for i in range(cfg["workers"] if workers is None else workers):
+            kwargs = {k: (v() if k == "batch_cache" and callable(v) else v)
+                      for k, v in worker_kwargs.items()}
             fleet.append(service.BatchWorker(
                 url, dispatcher_address=dispatcher.address, batch_size=batch,
-                reader_factory=factory, worker_id=f"svc-{factory}-{mode}-{i}",
-                reader_kwargs={"workers_count": workers_count}).start())
+                reader_factory=factory, worker_id=f"svc-{tag or f'{factory}-{mode}'}-{i}",
+                reader_kwargs={"workers_count": workers_count}, **kwargs).start())
     except BaseException:
         _stop_fleet(dispatcher, fleet)
         raise
@@ -4432,11 +4486,13 @@ class _DroppingLoader:
             yield batch
 
 
-def _image_run(source, img, device, epochs, local_digests, part):
+def _image_run(source, img, device, epochs, local_digests, part, phase="dynamic", stamps=None):
     """Phase 4's CNN fed by ``source`` through the device stage for
     ``epochs`` epochs: images/s after the first epoch, the loader's
     diagnostics, losses; fails unless each epoch's digests are the local
-    reader's, every batch is on the card and every loss finite."""
+    reader's, every batch is on the card and every loss finite (the
+    failure names ``phase`` and ``part``). A list given as ``stamps`` gets
+    the ``perf_counter`` at which each batch arrived."""
     import torch
 
     per_epoch = img["rows"]
@@ -4449,6 +4505,8 @@ def _image_run(source, img, device, epochs, local_digests, part):
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t_start = time.perf_counter()
+            if stamps is not None:
+                stamps.append(time.perf_counter())
             devices.update(str(t.device) for t in batch.values() if torch.is_tensor(t))
             loss, n = _image_step(step, batch, device)
             losses.append(loss)
@@ -4460,12 +4518,12 @@ def _image_run(source, img, device, epochs, local_digests, part):
         diag = loader.diagnostics
     bad = _epoch_digests_ok(digests, local_digests, per_epoch, epochs)
     if bad:
-        fail(f"dynamic ({part}): {len(digests)} images over {epochs} epochs; epochs {bad} "
+        fail(f"{phase} ({part}): {len(digests)} images over {epochs} epochs; epochs {bad} "
              "differ from the local reader's digest multiset")
     on_card = "cuda:0" if device.type == "cuda" else "cpu"
     losses = [float(x) for x in losses]
     if devices != {on_card} or not all(math.isfinite(x) for x in losses):
-        fail(f"dynamic ({part}): batches on {sorted(devices)}, losses {losses[:4]}...")
+        fail(f"{phase} ({part}): batches on {sorted(devices)}, losses {losses[:4]}...")
     return {"images_per_s": timed / elapsed, "diag": diag, "losses": losses}
 
 
@@ -4760,6 +4818,560 @@ def dynamic_phase(smi, image, service_result, cfg=DYNAMIC, device="cuda"):
             "dynamic_images_per_s": skew["dynamic"]["images_per_s"]}
 
 
+def _mirror_images(batch):
+    """Phase 17's worker-side batch transform: each image mirrored left to
+    right (a copy, so a cached or aliased batch is never changed)."""
+    import numpy as np
+
+    out = dict(batch)
+    out["image"] = np.ascontiguousarray(np.asarray(batch["image"])[:, :, ::-1])
+    return out
+
+
+class _TunedDigestingSource(_DigestingSource):
+    """The digest tap, passing every other attribute to the service source,
+    so the autotuner's graph binds the source's knobs through it."""
+
+    def __getattr__(self, name):
+        return getattr(self._source, name)
+
+
+def _handoff_seconds():
+    from petastorm_tpu_torch.telemetry.metrics import WORKER_HANDOFF_SECONDS
+
+    return sum(child.value for child in WORKER_HANDOFF_SECONDS.children().values())
+
+
+def _shm_frames():
+    from petastorm_tpu_torch.telemetry.metrics import SHM_FRAMES
+
+    return {path: SHM_FRAMES.labels(path).value for path in ("mapped", "copied", "spilled")}
+
+
+def _plane_image_pass(source, img, device):
+    """One pass of ``source`` into phase 4's CNN: the images' digests in
+    delivery order, the losses and the batches' devices."""
+    import torch
+
+    model, step = _image_trainer(img, device)
+    digests, losses, devices = [], [], set()
+    with _image_service_loader(source, img, device, digests) as loader:
+        for batch in loader:
+            devices.update(str(t.device) for t in batch.values() if torch.is_tensor(t))
+            losses.append(float(_image_step(step, batch, device)[0]))
+    return digests, losses, devices
+
+
+class _LateWakeups(threading.Thread):
+    """Sleeps ``tick_s`` at a time until :meth:`halt` and records how late
+    each wake-up resumed: past the kernel's timer slack, the lateness is
+    the time this thread waited for the GIL behind the process's others."""
+
+    def __init__(self, tick_s):
+        super().__init__(daemon=True, name="gil-probe")
+        self.tick_s, self.late, self._halt = tick_s, [], threading.Event()
+
+    def run(self):
+        while not self._halt.is_set():
+            t0 = time.perf_counter()
+            time.sleep(self.tick_s)
+            self.late.append(time.perf_counter() - t0 - self.tick_s)
+
+    def halt(self):
+        """Stops the thread: ``{"ticks", "mean_ms", "p99_ms", "max_ms"}``."""
+        self._halt.set()
+        self.join()
+        late = sorted(self.late) or [float("nan")]
+        return {"ticks": len(self.late), "mean_ms": 1e3 * statistics.fmean(late),
+                "p99_ms": 1e3 * late[min(len(late) - 1, int(0.99 * len(late)))],
+                "max_ms": 1e3 * late[-1]}
+
+
+def _epoch_gaps(stamps, per_epoch):
+    """Mean ms between batches across an epoch boundary (the old streams'
+    end, the new streams' set-up, their first batch; from the second warm
+    epoch on) and within an epoch, over the arrival times ``stamps``."""
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    cross = [g for j, g in enumerate(gaps) if (j + 1) % per_epoch == 0 and j + 1 >= 2 * per_epoch]
+    within = [g for j, g in enumerate(gaps) if (j + 1) % per_epoch and j >= per_epoch]
+    return statistics.fmean(cross or [float("nan")]), statistics.fmean(within or [float("nan")])
+
+
+def _shm_recv_messages():
+    from petastorm_tpu_torch.telemetry.metrics import TRANSPORT_MESSAGES
+
+    return TRANSPORT_MESSAGES.labels("recv", "shm").value
+
+
+def _plane_fleet_counts(metrics, by_epoch):
+    """``(shm streams, tcp streams, hits, misses, epoch-0 misses)`` over the
+    workers' metrics snapshots and per-epoch cache stats."""
+    return (sum(int(m["transport_streams_shm_total"]) for m in metrics),
+            sum(int(m["transport_streams_tcp_total"]) for m in metrics),
+            sum(int(m["cache_hits_total"]) for m in metrics),
+            sum(int(m["cache_misses_total"]) for m in metrics),
+            sum(e.get(0, {}).get("misses", 0) for e in by_epoch))
+
+
+def _plane_check(part, transport, counts, frames, recv_shm, cfg, epochs, pieces):
+    """Fails unless every stream took ``transport``'s tier, every warm piece
+    was a cache hit and the frames went the way of the tier (``frames``
+    and ``recv_shm`` are None for workers in their own processes, whose
+    frame counters live there)."""
+    shm, tcp, hits, misses, cold = counts
+    if (shm, tcp) != ((shm + tcp, 0) if transport == "shm" else (0, shm + tcp)) \
+            or shm + tcp < cfg["workers"] * epochs:
+        fail(f"dataplane ({part}) {transport}: streams shm={shm} tcp={tcp}")
+    if (hits, misses) != (pieces * (epochs - 1), pieces) or cold not in (None, pieces):
+        fail(f"dataplane ({part}) {transport}: cache hits {hits} misses {misses} (epoch 0 "
+             f"misses {cold}), want {pieces * (epochs - 1)} / {pieces}")
+    if (recv_shm > 0) != (transport == "shm"):
+        fail(f"dataplane ({part}) {transport}: {recv_shm} messages received over shm")
+    if frames is not None and transport == "shm" and not frames["mapped"]:
+        fail(f"dataplane ({part}) shm: no frame served mapped from the pool: {frames}")
+    if frames is not None and transport == "tcp" and any(frames.values()):
+        fail(f"dataplane ({part}) tcp: frames went through a ring: {frames}")
+
+
+def _plane_process_run(service, url, cfg, img, device, transport, tag, local_digests,
+                       pieces):
+    """(a)'s image path with the two cached workers in processes of their
+    own (``--cache mem``, no card), the dispatcher and the trainer here."""
+    from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+
+    mode = "tcp" if transport == "tcp" else "auto"
+    epochs = cfg["a_epochs"]
+    disp = service.Dispatcher(num_epochs=epochs).start()
+    children = []
+    try:
+        for i in range(cfg["workers"]):
+            children.append(_cli_node(
+                ["worker", "--dispatcher", f"127.0.0.1:{disp.address[1]}", "--dataset-url",
+                 url, "--reader", "row", "--batch-size", str(img["batch"]), "--workers-count",
+                 str(cfg["workers_count"]), "--worker-id", f"{tag}-{i}", "--cache", "mem",
+                 "--cache-mem-mb", str(cfg["cache_mb"]), "--transport", mode]))
+        for child in children:
+            if not json.loads(child.stdout.readline() or "{}").get("worker_id"):
+                fail(f"dataplane (a) {tag}: a worker process did not start: "
+                     f"{child.stderr.read()[-2000:]}")
+        recv0 = _shm_recv_messages()
+        source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                            transport=mode)
+        stamps = []
+        run = _image_run(source, img, device, epochs, local_digests, f"a {tag}",
+                         phase="dataplane", stamps=stamps)
+        recv_shm = _shm_recv_messages() - recv0
+        with FramedConnection.connect(disp.address, timeout=10.0) as conn:
+            _, diagnostics = conn.request({"type": "worker_diagnostics"})
+    finally:
+        _stop_children(children)
+        disp.stop()
+    metrics = [(diagnostics.get(f"{tag}-{i}") or {}).get("metrics") or {}
+               for i in range(cfg["workers"])]
+    if not all(metrics):
+        fail(f"dataplane (a) {tag}: no diagnostics from every worker: {sorted(diagnostics)}")
+    counts = _plane_fleet_counts(metrics, ())[:4] + (None,)
+    _plane_check("a", transport, counts, None, recv_shm, cfg, epochs, pieces)
+    run.update(streams=counts[0] + counts[1], hits=counts[2],
+               gaps=_epoch_gaps(stamps, -(-img["rows"] // img["batch"])))
+    return run
+
+
+def _plane_traced_epochs(source, img, device, local_digests, epochs, tick_s):
+    """One cold epoch of ``source`` into phase 4's CNN, then ``epochs`` - 1
+    warm ones with the trace armed and a :class:`_LateWakeups` probe
+    running: ``(trace report, the warm epochs' wall s, the probe's
+    lateness)``."""
+    import torch
+
+    from petastorm_tpu_torch.telemetry import critical_path, tracing
+
+    model, step = _image_trainer(img, device)
+    warm = -(-img["rows"] // img["batch"])
+    digests, probe, t0 = [], _LateWakeups(tick_s), None
+    try:
+        with _image_service_loader(source, img, device, digests) as loader:
+            for i, batch in enumerate(loader):
+                if i == warm:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    tracing.COLLECTOR.acquire()
+                    probe.start()
+                    t0 = time.perf_counter()
+                _image_step(step, batch, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+    finally:
+        if t0 is not None:
+            tracing.COLLECTOR.release()
+            late = probe.halt()
+    if t0 is None or _epoch_digests_ok(digests, local_digests, img["rows"], epochs):
+        fail(f"dataplane (a): the traced run's {len(digests)} images differ from the local "
+             "reader's")
+    return critical_path.diagnose(tracing.COLLECTOR.events()), t1 - t0, late
+
+
+def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
+    """Phase 17 (see the module docstring); fails the run on any check.
+    ``image`` is phase 4's result and ``service_result`` phase 14's (their
+    images/s are reported beside this phase's). ``cfg`` and ``device`` exist
+    for a small dry run on the host; the run on the card uses the
+    defaults."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    from petastorm_tpu_torch import service
+    from petastorm_tpu_torch.cache_impl import BatchCache
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.predicates import ColumnPredicate
+    from petastorm_tpu_torch.reader.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.service.shm_ring import live_shm_counts
+    from petastorm_tpu_torch.torch_utils.device_stage import DeviceStage
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader, make_torch_dataloader
+
+    device = torch.device(device)
+    img = cfg["image"]
+    per_epoch = img["rows"]
+    pieces = -(-per_epoch // img["rows_per_row_group"])
+    on_card = "cuda:0" if device.type == "cuda" else "cpu"
+    lines, t_parts = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataplane_")
+    shm_before = live_shm_counts()
+    fa.reset_launch_counts()
+
+    def cache():
+        return BatchCache(mem_budget_bytes=cfg["cache_mb"] << 20)
+
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        with make_reader(url, schema_fields=["image", "label"], num_epochs=1,
+                         shuffle_row_groups=False, workers_count=1) as reader:
+            local_rows = [(r.image, r.label) for r in reader]
+        local_digests = collections.Counter(_image_digest(i, lab) for i, lab in local_rows)
+
+        # (a) Phase 14 (a)'s image path, each worker with a memory batch cache
+        # (warm epochs from the frame pool on shm): TCP and shm in turns, with
+        # the workers here and then in processes of their own; then traced
+        # warm epochs on each transport.
+        t0 = time.perf_counter()
+        epochs = cfg["a_epochs"]
+        plane = {"here": {}, "procs": {}}
+        for k, transport in enumerate(cfg["a_order"]):
+            mode = "tcp" if transport == "tcp" else "auto"
+            frames0, recv0 = _shm_frames(), _shm_recv_messages()
+            disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                           cfg["workers_count"], num_epochs=epochs,
+                                           tag=f"a-{transport}-{k}", transport=mode,
+                                           batch_cache=cache)
+            try:
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    transport=mode)
+                stamps = []
+                run = _image_run(source, img, device, epochs, local_digests,
+                                 f"a {transport}", phase="dataplane", stamps=stamps)
+                metrics = [w.diagnostics_snapshot()["metrics"] for w in workers]
+                by_epoch = [w.cache_stats_by_epoch() for w in workers]
+            finally:
+                _stop_fleet(disp, workers)
+            frames = {k: v - frames0[k] for k, v in _shm_frames().items()}
+            counts = _plane_fleet_counts(metrics, by_epoch)
+            _plane_check("a", transport, counts, frames, _shm_recv_messages() - recv0, cfg,
+                         epochs, pieces)
+            run.update(streams=counts[0] + counts[1], frames=frames, hits=counts[2],
+                       gaps=_epoch_gaps(stamps, -(-per_epoch // img["batch"])))
+            plane["here"].setdefault(transport, []).append(run)
+        for k, transport in enumerate(cfg["a_order"]):
+            plane["procs"].setdefault(transport, []).append(_plane_process_run(
+                service, url, cfg, img, device, transport, f"a-proc-{transport}-{k}",
+                local_digests, pieces))
+        traced = {}
+        for transport in ("tcp", "shm"):
+            mode = "tcp" if transport == "tcp" else "auto"
+            disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                           cfg["workers_count"],
+                                           num_epochs=cfg["a_traced_epochs"],
+                                           tag=f"a-traced-{transport}", transport=mode,
+                                           batch_cache=cache)
+            try:
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    transport=mode)
+                traced[transport] = _plane_traced_epochs(
+                    source, img, device, local_digests, cfg["a_traced_epochs"],
+                    cfg["probe_tick_s"])
+            finally:
+                _stop_fleet(disp, workers)
+        t_parts["a"] = time.perf_counter() - t0
+        # Pair k is the k-th tcp run with the k-th shm run: (tcp, shm) first,
+        # then (shm, tcp), so an effect of order shows as their difference.
+        pairs = {where: [s["images_per_s"] / t["images_per_s"]
+                         for t, s in zip(runs["tcp"], runs["shm"])]
+                 for where, runs in plane.items()}
+
+        def rates(runs):
+            return ",".join(f"{r['images_per_s']:.1f}" for r in runs)
+
+        def stalls(runs):
+            return ",".join(f"{r['diag']['input_stall_pct']}" for r in runs)
+
+        def gaps(runs):
+            return ",".join(f"{r['gaps'][0]:.2f}/{r['gaps'][1]:.2f}" for r in runs)
+
+        shm_run = plane["here"]["shm"][0]
+        lines.append(
+            f"dataplane (a): phase 14 (a)'s image path ({cfg['workers']} workers x "
+            f"{cfg['workers_count']} threads, credits {cfg['credits']}, {epochs} "
+            f"epochs), each worker with BatchCache(mem {cfg['cache_mb']} MiB), runs in the "
+            f"order {'/'.join(cfg['a_order'])}: workers_here tcp_images_per_s="
+            f"{rates(plane['here']['tcp'])} shm_images_per_s={rates(plane['here']['shm'])} "
+            f"shm_over_tcp_pairs=" + ",".join(f"{x:.3f}" for x in pairs["here"])
+            + f" tcp_stall_pct={stalls(plane['here']['tcp'])} "
+            f"shm_stall_pct={stalls(plane['here']['shm'])} gap_ms_across/within_epoch "
+            f"tcp={gaps(plane['here']['tcp'])} shm={gaps(plane['here']['shm'])}; "
+            f"workers_in_processes "
+            f"tcp_images_per_s={rates(plane['procs']['tcp'])} "
+            f"shm_images_per_s={rates(plane['procs']['shm'])} shm_over_tcp_pairs="
+            + ",".join(f"{x:.3f}" for x in pairs["procs"])
+            + f" tcp_stall_pct={stalls(plane['procs']['tcp'])} "
+            f"shm_stall_pct={stalls(plane['procs']['shm'])} gap_ms_across/within_epoch "
+            f"tcp={gaps(plane['procs']['tcp'])} shm={gaps(plane['procs']['shm'])}; "
+            f"each shm run: "
+            f"transport_streams_shm_total={shm_run['streams']} (all streams) "
+            f"cache_hits={shm_run['hits']} (every warm piece) "
+            f"shm_frames mapped/copied/spilled={shm_run['frames']['mapped']:.0f}/"
+            f"{shm_run['frames']['copied']:.0f}/{shm_run['frames']['spilled']:.0f} "
+            f"phase4_images_per_s={image['images_per_s']:.1f} "
+            f"phase14_images_per_s={service_result['images_per_s']:.1f} "
+            f"epoch_digests=local x{epochs} every run")
+        for transport, (report, wall, late) in traced.items():
+            profile = " ".join(f"{name}:{p['count']}x{p['mean_us'] / 1000:.3f}ms"
+                               for name, p in sorted(report["stage_profile"].items()))
+            ranked = " ".join(f"{r['stage']}:{r['share_pct']:.1f}%"
+                              for r in report["bottlenecks"][:4])
+            lines.append(
+                f"dataplane (a) traced warm epochs {transport} (workers here, "
+                f"{cfg['a_traced_epochs'] - 1} after a cold one): wall_s={wall:.4f} "
+                f"images_per_s={per_epoch * (cfg['a_traced_epochs'] - 1) / wall:.1f} "
+                f"wait_ms={report['wait_total_us'] / 1000:.1f} coverage_pct="
+                f"{report['coverage_pct']} wait_on: {ranked or 'none'}; stage_profile: "
+                f"{profile}; gil_probe ticks={late['ticks']} late_mean_ms="
+                f"{late['mean_ms']:.3f} late_p99_ms={late['p99_ms']:.3f} "
+                f"late_max_ms={late['max_ms']:.3f}")
+
+        # (b) The Criteo-shaped store with a ColumnPredicate and the DLRM's
+        # projection: hoisted to the workers, then on the client, then the
+        # local reader with the same predicate.
+        t0 = time.perf_counter()
+        tab_url = f"file://{tmp}/criteo"
+        rows = td.make_tabular_dataset(tab_url, rows=cfg["tab_rows"], days=cfg["tab_days"])
+        predicate = ColumnPredicate("cat_0", "mod-eq", 0, modulus=cfg["tab_keep_mod"])
+        projection = (["label", "sample_index"] + [f"dense_{i}" for i in range(td.NUM_DENSE)]
+                      + [f"cat_{i}" for i in range(td.NUM_SPARSE)])
+        table = pq.read_table(os.path.join(tmp, "criteo", "part-00000.parquet"),
+                              columns=projection)
+        keep = table.column("cat_0").to_numpy() % cfg["tab_keep_mod"] == 0
+        want = {name: table.column(name).to_numpy()[keep] for name in projection}
+        order = np.argsort(want["sample_index"])
+        want = {name: column[order] for name, column in want.items()}
+        arms = {}
+        for arm in ("worker", "client", "local"):
+            torch.manual_seed(0)
+            model = td.init_dlrm(device=device)
+            step = td.make_dlrm_train_step(model, td.LEARNING_RATE)
+            workers, sent = [], None
+            if arm == "local":
+                reader = make_batch_reader(tab_url, num_epochs=1, shuffle_row_groups=False,
+                                           workers_count=cfg["tab_workers_count"],
+                                           predicate=predicate, schema_fields=projection)
+                loader = make_torch_dataloader(reader, cfg["tab_batch"], last_batch="keep",
+                                               device=device)
+            else:
+                disp, workers = _service_fleet(service, tab_url, cfg, "batch",
+                                               cfg["tab_batch"], cfg["tab_workers_count"],
+                                               tag=f"b-{arm}")
+                source = service.ServiceBatchSource(
+                    disp.address, credits=cfg["credits"], predicate=predicate,
+                    projection=projection, filter_placement=arm)
+                loader = TorchDataLoader(None, source, device=device)
+            got, losses, devices, n, t_first = {k: [] for k in projection}, [], set(), 0, None
+            try:
+                with loader:
+                    for batch in loader:
+                        if t_first is None and losses:
+                            if device.type == "cuda":
+                                torch.cuda.synchronize(device)
+                            t_first = time.perf_counter()
+                        devices.update(str(t.device) for t in batch.values()
+                                       if torch.is_tensor(t))
+                        dense, sparse, labels = td.collate_dlrm(batch)
+                        mask = torch.ones(labels.shape[0], dtype=torch.bool,
+                                          device=labels.device)
+                        losses.append(float(step(dense, sparse, labels, mask)))
+                        for name in projection:
+                            got[name].append(batch[name].cpu().numpy())
+                        if t_first is not None:
+                            n += labels.shape[0]
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                rate = n / (time.perf_counter() - t_first) if t_first else 0.0
+                if workers:
+                    sent = sum(int(w.diagnostics_snapshot()["metrics"]["rows_sent_total"])
+                               for w in workers)
+            finally:
+                if workers:
+                    _stop_fleet(disp, workers)
+            got = {k: np.concatenate(v) for k, v in got.items()}
+            order = np.argsort(got["sample_index"], kind="stable")
+            if sorted(batch) != sorted(projection) or any(
+                    not np.array_equal(got[k][order], want[k]) for k in projection):
+                fail(f"dataplane (b) {arm}: {len(got['sample_index'])} rows, want "
+                     f"{len(want['sample_index'])}: the rows differ from the predicate's "
+                     f"survivors")
+            if devices != {on_card} or not all(math.isfinite(x) for x in losses):
+                fail(f"dataplane (b) {arm}: batches on {sorted(devices)}, losses "
+                     f"{losses[:4]}...")
+            arms[arm] = {"rate": rate, "sent": sent, "batches": len(losses)}
+            del model, step
+        survivors = len(want["sample_index"])
+        if arms["worker"]["sent"] != survivors or arms["client"]["sent"] != rows:
+            fail(f"dataplane (b): rows sent hoisted {arms['worker']['sent']} (want "
+                 f"{survivors}), client {arms['client']['sent']} (want {rows})")
+        t_parts["b"] = time.perf_counter() - t0
+        lines.append(
+            f"dataplane (b): Criteo-shaped store ({rows} rows, {cfg['tab_days']} row groups, "
+            f"42 columns) -> DLRM one epoch, batch {cfg['tab_batch']}, {cfg['workers']} "
+            f"workers x {cfg['tab_workers_count']} threads, credits {cfg['credits']}, "
+            f"{predicate!r} with the DLRM's {len(projection)}-column projection: "
+            f"worker_filter_rows_per_s={arms['worker']['rate']:.1f} "
+            f"client_filter_rows_per_s={arms['client']['rate']:.1f} "
+            f"local_reader_rows_per_s={arms['local']['rate']:.1f} "
+            f"worker_over_client={arms['worker']['rate'] / arms['client']['rate']:.3f} "
+            f"rows_sent hoisted={arms['worker']['sent']} client={arms['client']['sent']} "
+            f"batches hoisted={arms['worker']['batches']} client={arms['client']['batches']} "
+            f"local={arms['local']['batches']}: every arm the same {survivors} rows, "
+            f"column for column")
+
+        # (c) Stage fusion off and on with the transform on the workers, then
+        # the cache placement flipped from post-transform to post-decode.
+        t0 = time.perf_counter()
+        mirrored = collections.Counter(
+            _image_digest(np.ascontiguousarray(i[:, ::-1]), lab) for i, lab in local_rows)
+        passes, handoff = {}, {}
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], tag="c-fusion",
+                                       batch_transform=_mirror_images)
+        try:
+            for fusion in ("off", "fused"):
+                before = _handoff_seconds()
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    ordered=True, transform=_mirror_images,
+                                                    stage_fusion=fusion)
+                passes[fusion] = _plane_image_pass(source, img, device)
+                handoff[fusion] = _handoff_seconds() - before
+        finally:
+            _stop_fleet(disp, workers)
+        stats = []
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], tag="c-cache",
+                                       batch_cache=cache, batch_transform=_mirror_images)
+        try:
+            for placement in ("post-transform", "post-decode"):
+                source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
+                                                    ordered=True, transform=_mirror_images,
+                                                    cache_placement=placement)
+                passes[placement] = _plane_image_pass(source, img, device)
+                stats.append(sum(int(w.cache_stats()["misses"]) for w in workers))
+        finally:
+            _stop_fleet(disp, workers)
+        for name, (digests, losses, devices) in passes.items():
+            if digests != passes["off"][0]:
+                fail(f"dataplane (c): the {name} pass's {len(digests)} digests differ from "
+                     "the unfused pass's, in order")
+            if devices != {on_card} or not all(math.isfinite(x) for x in losses):
+                fail(f"dataplane (c) {name}: batches on {sorted(devices)}, losses "
+                     f"{losses[:4]}...")
+        if collections.Counter(passes["off"][0]) != mirrored:
+            fail("dataplane (c): the transformed images are not the local rows mirrored")
+        if not handoff["off"] > 0 or handoff["fused"] != 0:
+            fail(f"dataplane (c): hand-off seconds unfused {handoff['off']}, fused "
+                 f"{handoff['fused']} (want > 0 and 0)")
+        if stats != [pieces, 2 * pieces]:
+            fail(f"dataplane (c): cache misses after each placement {stats}, want "
+                 f"{[pieces, 2 * pieces]} (the flip refills)")
+        t_parts["c"] = time.perf_counter() - t0
+        lines.append(
+            f"dataplane (c): the image path, worker transform (mirror), ordered, one epoch "
+            f"a pass: stage_fusion off/fused digests identical in order, "
+            f"handoff_s off={handoff['off']:.4f} fused={handoff['fused']:.4f}; "
+            f"cache_placement post-transform -> post-decode: misses {stats[0]} -> "
+            f"{stats[1]} (refilled), digests identical; {len(passes['off'][0])} images a pass "
+            f"on {on_card}")
+
+        # (d) An autotuned run of the image path with the rewrites armed.
+        t0 = time.perf_counter()
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], num_epochs=cfg["tune_epochs"],
+                                       tag="d")
+        try:
+            source = service.ServiceBatchSource(disp.address, credits=cfg["credits"])
+            model, step = _image_trainer(img, device)
+            digests, devices, losses = [], set(), []
+            loader = TorchDataLoader(
+                None, _TunedDigestingSource(source, digests), device=device,
+                device_stage=DeviceStage(normalize=(127.5, 127.5), crop=img["crop"], flip=True),
+                autotune=dict(cfg["tune"]))
+            with _window_classes() as classes:
+                with loader:
+                    for batch in loader:
+                        devices.update(str(t.device) for t in batch.values()
+                                       if torch.is_tensor(t))
+                        losses.append(float(_image_step(step, batch, device)[0]))
+            report = loader.autotune.report()
+            running = loader.autotune.running
+            rewrites = {name: getattr(source, name) for name in
+                        ("stage_fusion", "filter_placement", "cache_placement",
+                         "reader_family")}
+            knobs = sorted(loader.autotune.graph.knobs)
+        finally:
+            _stop_fleet(disp, workers)
+        bad = _epoch_digests_ok(digests, local_digests, per_epoch, cfg["tune_epochs"])
+        if bad or devices != {on_card} or running \
+                or not all(math.isfinite(x) for x in losses):
+            fail(f"dataplane (d): epochs {bad} differ from the local reader's, batches on "
+                 f"{sorted(devices)}, controller running={running}")
+        if not {"stage_fusion", "reader_family"} <= set(knobs):
+            fail(f"dataplane (d): the rewrite knobs are not bound: {knobs}")
+        decisions = [(e["round"], d) for e in report["trail"] for d in e["decisions"]]
+        tagged = [f"r{r} {d['knob']} {d['direction']} {d['from']}->{d['to']} "
+                  f"({d.get('reason', '')})" for r, d in decisions if d.get("rewrite")]
+        t_parts["d"] = time.perf_counter() - t0
+        lines.append(
+            f"dataplane (d): autotune {cfg['tune']} over the image path, "
+            f"{cfg['tune_epochs']} epochs, knobs {knobs}: rounds={report['rounds']} "
+            f"classes: {_classes_text(classes)}; rewrite decisions: "
+            f"{'; '.join(tagged) or 'none'}; all decisions: {_trail_text(report) or 'none'}; "
+            f"rewrites for the next iteration {rewrites}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"dataplane: a flash kernel ran on the data plane's path: {launches}")
+    if live_shm_counts() != shm_before:
+        fail(f"dataplane: shared memory left mapped: {live_shm_counts()} (was {shm_before})")
+    print("\n".join(lines), flush=True)
+    print(f"dataplane: gpu={smi!r} parts_s=" + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items())
+          + f" flash_launches={launches}", flush=True)
+    return {"tcp_images_per_s": plane["here"]["tcp"][0]["images_per_s"],
+            "shm_images_per_s": plane["here"]["shm"][0]["images_per_s"]}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -4977,7 +5589,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 16. dynamic -------------------------------------------
+    # -- 4. image ... 17. dataplane -----------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -4991,7 +5603,9 @@ def main():
                       ("autotune", lambda: autotune_phase(smi)),
                       ("service", lambda: service_phase(smi, out["image"])),
                       ("control", lambda: control_phase(smi)),
-                      ("dynamic", lambda: dynamic_phase(smi, out["image"], out["service"]))):
+                      ("dynamic", lambda: dynamic_phase(smi, out["image"], out["service"])),
+                      ("dataplane", lambda: dataplane_phase(smi, out["image"],
+                                                            out["service"]))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -190,13 +190,16 @@ class EntryBuilder:
         self._spent_s = 0.0  # encode + copy time, the fill histogram's share
 
     def add_batch(self, batch):
-        """Encode ``batch`` and append its frames."""
+        """Encode ``batch`` and append its frames; ``(rows, fmt, frames)``,
+        the frames just encoded, so a worker sends what it cached."""
         from petastorm_tpu_torch.reader_impl.framed_socket import encode_payload
 
         t0 = time.perf_counter()
         fmt, frames = encode_payload(batch)
-        self._append(batch_rows(batch), fmt, frames)
+        rows = batch_rows(batch)
+        self._append(rows, fmt, frames)
         self._spent_s += time.perf_counter() - t0
+        return rows, fmt, frames
 
     def add_frames(self, rows, fmt, frames):
         """Append a batch the caller already encoded (the streaming piece
@@ -219,7 +222,7 @@ class EntryBuilder:
             raise RuntimeError("EntryBuilder.commit() called twice")
         self._committed = True
         t0 = time.perf_counter()
-        entry = CachedEntry(self._meta, b"".join(self._chunks))
+        entry = CachedEntry(self._meta, self._cache._materialize(b"".join(self._chunks)))
         self._chunks = None
         self._cache._publish(self._key, entry)
         CACHE_FILL_SECONDS.observe(self._spent_s + (time.perf_counter() - t0))
@@ -285,6 +288,29 @@ class BatchCache:
         # gauges carry it and cleanup() retracts it.
         self._disk_bytes_acct = 0
         self._disk_entries_acct = 0
+        # The shm transport's frame pool, when armed: entry buffers are
+        # placed in it, so warm serves travel as (offset, len) references.
+        self._frame_allocator = None
+
+    def set_frame_allocator(self, allocate):
+        """Arm (``None``: disarm) an entry-buffer allocator,
+        ``allocate(nbytes) -> writable buffer or None``. The shm transport
+        points it at its frame pool so cached frames live in memory a
+        client on the host can map; ``None`` from the allocator (the pool
+        is full) keeps the entry on the heap, served by copy."""
+        self._frame_allocator = allocate
+
+    def _materialize(self, blob):
+        """One entry's contiguous payload, through the armed allocator
+        (itself when disarmed, empty, or the pool is full)."""
+        allocate = self._frame_allocator
+        if allocate is None or not len(blob):
+            return blob
+        view = allocate(len(blob))
+        if view is None:
+            return blob
+        view[:] = blob
+        return view
 
     @property
     def cache_dir(self):
@@ -500,6 +526,11 @@ class BatchCache:
             os.utime(path)  # the LRU touch
         except OSError:
             pass
+        # Into the frame pool only after validation: a corrupt entry must
+        # not take pool bytes it will never serve from.
+        pooled = self._materialize(payload)
+        if pooled is not payload:
+            entry = CachedEntry(entry.meta, pooled)
         return entry
 
     # -- observability / lifecycle -----------------------------------------

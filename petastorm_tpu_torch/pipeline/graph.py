@@ -318,10 +318,9 @@ def build_loader_graph(loader, bounds=None):
                                description="the reader's transform (inside the pull)"))
     nodes.append(StageNode("collate", "worker", worker_placement,
                            description="rows → fixed-size numpy batch"))
-    # The serialize node's fused-stage series and the packing stage wait
-    # for stage fusion (the graph rewrites, service slice (c2)) and the LLM
-    # stages (f).
+    # The packing stage waits for the LLM stages, service slice (f).
     nodes.append(StageNode("serialize", "worker", worker_placement,
+                           metric=_fused_stage_metric("serialize") if remote else None,
                            description="batch → wire frames (service path only)"))
     nodes.append(StageNode("send", "worker", worker_placement,
                            description="framed socket send (service path only)"))
@@ -329,11 +328,15 @@ def build_loader_graph(loader, bounds=None):
               ("transform", "collate"), ("collate", "serialize"),
               ("serialize", "send")]
     if remote:
-        # The group these stages would run as under stage fusion.
+        # The group these stages run as, one pool task a piece, when stage
+        # fusion is on; collate and serialize read their share of the fused
+        # task from the fused-stage series.
         group = ("decode", "transform", "collate", "serialize")
         for node in nodes:
             if node.name in group:
                 node.fuse_group = group
+                if node.metric is None and node.name == "collate":
+                    node.metric = _fused_stage_metric("collate")
 
     # -- loader side: recv → queue → raw_stage/device_decode → device_put →
     #    consume
@@ -404,9 +407,36 @@ def build_loader_graph(loader, bounds=None):
         knobs.append(Knob("transform_placement", get=lambda: source.transform_placement,
                           set=source.set_transform_placement, kind="choice",
                           choices=("remote", "local"), applies="next-iteration"))
-    # Not bound yet: packing_placement (service slice (f)) and the four
-    # rewrite knobs, stage_fusion / filter_placement / cache_placement /
-    # reader_family, the graph rewrites of service slice (c2).
+    # Not bound yet: packing_placement (service slice (f)).
+    # The graph-rewrite knobs: choice knobs tagged with their rewrite, so the
+    # planner gates them on its trigger economics. Never bound on an fcfs
+    # source, whose streams bypass the engine the rewrites run in (the graph
+    # is built after the source's first call, so its mode is known).
+    rewritable = remote and getattr(source, "_mode", None) != "fcfs"
+    if rewritable and hasattr(source, "set_stage_fusion"):
+        knobs.append(Knob("stage_fusion", get=lambda: source.stage_fusion,
+                          set=source.set_stage_fusion, kind="choice",
+                          choices=("off", "fused"), applies="next-iteration",
+                          rewrite="fuse_worker_stages"))
+    if rewritable and getattr(source, "_predicate", None) is not None \
+            and hasattr(source, "set_filter_placement") and not _has_transform(source):
+        # With a transform the filter is pinned hoisted: nothing to flip.
+        knobs.append(Knob("filter_placement", get=lambda: source.filter_placement,
+                          set=source.set_filter_placement, kind="choice",
+                          choices=("client", "worker"), applies="next-iteration",
+                          rewrite="hoist_filter"))
+    if rewritable and _has_transform(source) and hasattr(source, "set_cache_placement"):
+        knobs.append(Knob("cache_placement", get=lambda: source.cache_placement,
+                          set=source.set_cache_placement, kind="choice",
+                          choices=("post-transform", "post-decode"),
+                          applies="next-iteration", rewrite="cache_placement"))
+    if rewritable and hasattr(source, "set_reader_family"):
+        # get() says "row" for the unset default: the planner needs a
+        # concrete value to revert to.
+        knobs.append(Knob("reader_family", get=lambda: source.reader_family or "row",
+                          set=source.set_reader_family, kind="choice",
+                          choices=("row", "columnar"), applies="next-iteration",
+                          rewrite="row_vs_columnar"))
 
     signals = {
         "rows": lambda: loader._m_rows.value,
@@ -421,10 +451,63 @@ def build_loader_graph(loader, bounds=None):
     if remote:
         signals["recv_stall_s"] = lambda: _source_recv_stall(source)
         signals["credit_wait_s"] = _process_credit_wait
-        # The rewrite-trigger signals (worker decode, hand-off, transform,
-        # cache and filter counters) come with the rewrites they trigger,
-        # service slice (c2).
+        # The rewrites' trigger signals. The worker-side series are this
+        # process's (in-process fleets); a remote fleet's are not visible
+        # here, and a rewrite they trigger then never probes.
+        signals["worker_decode_s"] = _process_worker_decode
+        signals["handoff_s"] = _process_handoff
+        signals["transform_s"] = lambda: _transform_metric()[1]
+        signals["cache_hits"] = lambda: _process_cache_counter("hits")
+        signals["cache_misses"] = lambda: _process_cache_counter("misses")
+        signals["cache_evictions"] = lambda: _process_cache_counter("evictions")
+        signals["filter_rows_in"] = lambda: _client_filter_rows("in")
+        signals["filter_rows_kept"] = lambda: _client_filter_rows("kept")
     return PipelineGraph(nodes, edges, knobs=knobs, signals=signals)
+
+
+def _fused_stage_metric(stage):
+    """A node metric read from the fused task's per-stage seconds
+    (``petastorm_service_worker_fused_stage_seconds_total{stage}``) of the
+    workers in this process; zero while unfused or remote."""
+
+    def measure():
+        from petastorm_tpu_torch.telemetry.metrics import WORKER_FUSED_STAGE_SECONDS
+
+        child = WORKER_FUSED_STAGE_SECONDS.children().get((stage,))
+        return 0, float(child.value) if child is not None else 0.0
+
+    return measure
+
+
+def _process_worker_decode():
+    """Worker decode seconds in this process's registry: the stage work
+    the fusion trigger compares the hand-off with."""
+    from petastorm_tpu_torch.telemetry.metrics import WORKER_DECODE_SECONDS
+
+    return float(sum(child.sum for child in WORKER_DECODE_SECONDS.children().values()))
+
+
+def _process_handoff():
+    """The stream threads' hand-off seconds (collation and serialization of
+    pool outputs) in this process: what stage fusion removes."""
+    from petastorm_tpu_torch.telemetry.metrics import WORKER_HANDOFF_SECONDS
+
+    return float(sum(child.value for child in WORKER_HANDOFF_SECONDS.children().values()))
+
+
+def _process_cache_counter(which):
+    """A batch-cache counter summed over its tiers in this process (the
+    cache-placement rewrite's signals)."""
+    from petastorm_tpu_torch.telemetry.metrics import CACHE_EVICTIONS, CACHE_HITS, CACHE_MISSES
+
+    family = {"hits": CACHE_HITS, "misses": CACHE_MISSES, "evictions": CACHE_EVICTIONS}[which]
+    return float(sum(child.value for child in family.children().values()))
+
+
+def _client_filter_rows(outcome):
+    from petastorm_tpu_torch.telemetry.metrics import CLIENT_FILTER_ROWS
+
+    return float(CLIENT_FILTER_ROWS.labels(outcome).value)
 
 
 def _has_transform(source):

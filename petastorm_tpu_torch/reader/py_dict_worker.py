@@ -29,7 +29,7 @@ from collections import deque
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.reader_impl.delivery_tracker import item_key
+from petastorm_tpu_torch.reader_impl.delivery_tracker import FusedPiecePayload, item_key
 from petastorm_tpu_torch.schema.transform import transform_schema
 from petastorm_tpu_torch.utils import decode_table, drop_partition
 from petastorm_tpu_torch.workers_pool.worker_base import WorkerBase
@@ -163,6 +163,15 @@ class PyDictResultsQueueReader:
         kwargs = {} if timeout is None else {"timeout": timeout}
         while not self._buffer:
             key, rows = pool.get_results(**kwargs)
+            if isinstance(rows, FusedPiecePayload):
+                # A fused pool task already collated and serialized the
+                # whole piece: handed through whole, its delivery (in rows)
+                # recorded now, since nothing of it is buffered here.
+                self.last_item_key = key
+                self._pending_item = None
+                if self.delivery_tracker is not None:
+                    self.delivery_tracker.record(key, rows.rows)
+                return rows
             self._pending_item = (key, len(rows))
             self.last_item_key = key
             self._buffer.extend(schema.make_namedtuples(rows) if ngram is None else

@@ -724,10 +724,18 @@ class Reader:
         self._ventilator.finish()
 
     def set_publish_transform(self, fn):
-        """Stage fusion's pool hook: not ported yet."""
-        raise NotImplementedError(
-            "Reader.set_publish_transform is not ported yet: stage fusion comes with the "
-            "data service's graph rewrites, slice (c2)")
+        """Install ``fn((item_key, payload)) -> (item_key, payload)`` on the
+        pool's publish path, where it runs on the pool's worker thread:
+        how stage fusion collapses collation, transform and serialization
+        into the decode task. True when the pool has the hook (thread and
+        dummy pools); False for a process pool, whose payloads cross a
+        process boundary a closure cannot."""
+        self._require_dynamic()
+        pool = self._workers_pool
+        if not hasattr(pool, "publish_transform"):
+            return False
+        pool.publish_transform = fn
+        return True
 
     def set_item_done_hook(self, hook):
         """Install ``hook(item_kwargs)``, called on the consuming thread as

@@ -1,6 +1,5 @@
 """Delivery tracking for resumable reader iteration (the port's own copy of
-``petastorm_tpu/reader_impl/delivery_tracker.py``, without the service's
-payload types).
+``petastorm_tpu/reader_impl/delivery_tracker.py``).
 
 - Workers tag what they publish with the identity of the ventilated work
   item that produced it (``item_key(piece_index, drop_partition)``: one row
@@ -12,6 +11,14 @@ payload types).
   payload still in a queue at checkpoint time is re-read on resume.
 - :class:`DeliveryTracker` keeps ``{item_key: times_delivered}``; a resumed
   reader ventilates each item ``num_epochs - times_delivered`` more times.
+
+Stage fusion (a graph rewrite of the data service) has a pool task
+collate, transform and serialize a whole piece: the row worker's
+``(item_key, rows)`` pair becomes ``(item_key, FusedPiecePayload)``, a list
+of :class:`FusedBatch`, through the pools' publish hook
+(:func:`apply_publish_transform`). The JAX package wraps payloads in a
+``PiecePayload``; the port keeps the pair and carries the fused frames in
+its second half.
 
 Semantics: **at-least-once at row-group granularity.** Rows of a row group
 that was partly consumed (or decoded and not yet consumed) at checkpoint
@@ -28,6 +35,44 @@ import threading
 def item_key(piece_index, drop_partition):
     """Stable JSON-friendly identity of one ventilated work item."""
     return f"{piece_index}:{drop_partition}"
+
+
+class FusedBatch:
+    """One wire-ready batch a fused pool task produced: its serialized
+    frames and, when the cache placement wants pre-transform bytes, the
+    pre-transform serialization of the same rows."""
+
+    __slots__ = ("rows", "fmt", "frames", "pre_fmt", "pre_frames")
+
+    def __init__(self, rows, fmt, frames, pre_fmt=None, pre_frames=None):
+        self.rows = rows
+        self.fmt = fmt
+        self.frames = frames
+        self.pre_fmt = pre_fmt
+        self.pre_frames = pre_frames
+
+
+class FusedPiecePayload(list):
+    """A whole piece's :class:`FusedBatch` list, collated, transformed and
+    serialized inside the pool task: the second half of a fused
+    ``(item_key, payload)`` pair. The results-queue reader hands it through
+    whole instead of splitting it into rows."""
+
+    __slots__ = ()
+
+    @property
+    def rows(self):
+        return sum(batch.rows for batch in self)
+
+
+def apply_publish_transform(transform, item):
+    """The pools' publish hook: ``transform`` applies to a worker's
+    ``(item_key, payload)`` pair; tables and anything else pass through.
+    One helper, so the thread and dummy pools cannot diverge."""
+    if transform is not None and isinstance(item, tuple) and len(item) == 2 \
+            and isinstance(item[0], str):
+        return transform(item)
+    return item
 
 
 #: Schema-metadata key carrying the work-item tag on ``pa.Table`` payloads.

@@ -19,16 +19,21 @@ then, trainer-side::
 ``--mode dynamic`` rebalances each client's shard across the workers by
 work stealing (a slow worker's unstarted pieces move to a faster or newly
 joined one); workers started with ``--on-piece-error quarantine`` report an
-undecodable piece and serve on.
+undecodable piece and serve on. ``worker --cache mem`` (or ``mem+disk``
+with ``--cache-dir``) keeps decoded batches, so later epochs skip the
+decode; a client on the worker's host is served through a shared-memory
+ring unless either side runs ``--transport tcp`` (a cached worker's warm
+batches then travel as references into its frame pool).
 
 Each process prints one JSON line with its bound address (port 0 picks a
 free port) and serves until SIGINT or SIGTERM. ``--metrics-port`` serves
 the process's metrics registry (:mod:`petastorm_tpu_torch.telemetry.http`).
 ``status --dispatcher host:port`` prints the dispatcher's control-plane
 state as one JSON line (``--table``: one row per worker with its breaker
-state and, under dynamic sharding, its steals in / out and backlog; the
-ownership generation in the header; the brownout, quarantine and journal
-lines). ``--journal-dir``
+state, the transport its streams negotiated and, under dynamic sharding,
+its steals in / out and backlog; the ownership generation in the header;
+the brownout, quarantine and journal lines; with ``--trainer-metrics`` the
+autotuner's knobs and decisions of a trainer's metrics endpoint). ``--journal-dir``
 makes the dispatcher durable: a restart on the same directory replays it.
 
 Fleet tracing: ``trace arm --dispatcher host:port`` arms every process's
@@ -108,7 +113,19 @@ def _build_parser():
                       help="seconds between lease renewals (also re-registers after a "
                            "dispatcher restart); 0 disables")
     work.add_argument("--cache", choices=["off", "mem", "mem+disk"], default="off",
-                      help="the decoded-batch cache on workers (comes with a later slice)")
+                      help="decoded-batch cache: serve repeat-epoch streams from memory "
+                           "(mem), with disk spill and restart persistence (mem+disk), "
+                           "instead of decoding again")
+    work.add_argument("--cache-mem-mb", type=float, default=256.0,
+                      help="memory budget of the cache's memory tier (LRU beyond it)")
+    work.add_argument("--cache-dir", default=None,
+                      help="mem+disk tier directory; a given directory persists across "
+                           "worker restarts, omitted = a private temporary one removed on "
+                           "stop")
+    work.add_argument("--cache-disk-mb", type=float, default=None,
+                      help="disk-tier budget (LRU beyond it); default unlimited")
+    work.add_argument("--fleet-cache", action="store_true", dest="fleet_cache",
+                      help="the fleet cache tier (comes with a later slice)")
     work.add_argument("--standby", action="store_true",
                       help="pooled standby capacity (comes with a later slice)")
     work.add_argument("--on-piece-error", default="fail", choices=["fail", "quarantine"],
@@ -118,8 +135,10 @@ def _build_parser():
     work.add_argument("--corpus", default="",
                       help="corpus of a multi-corpus fleet (comes with a later slice)")
     work.add_argument("--transport", default=None, choices=["auto", "tcp", "shm"],
-                      help="data-plane tier: auto and tcp serve TCP (shm comes with a "
-                           "later slice); omit for $PETASTORM_TRANSPORT")
+                      help="data-plane tier: auto (a client on this host negotiates the "
+                           "shared-memory ring, others ride TCP), tcp (never negotiate), "
+                           "shm (as auto; TCP still serves where shm cannot); omit for "
+                           "$PETASTORM_TRANSPORT")
     work.add_argument("--batch-transform", default=None,
                       help="module:attr of the batch transform ({field: ndarray} -> "
                            "{field: ndarray}) applied before serialization unless the "
@@ -132,9 +151,12 @@ def _build_parser():
     stat = sub.add_parser("status", help="print the dispatcher's control-plane state")
     stat.add_argument("--dispatcher", required=True, help="dispatcher address host:port")
     stat.add_argument("--table", action="store_true",
-                      help="a table of the workers (breaker state; steals and backlog "
-                           "under dynamic sharding) and the brownout, quarantine and "
-                           "journal lines instead of JSON")
+                      help="a table of the workers (transport, breaker state; steals "
+                           "and backlog under dynamic sharding) and the brownout, "
+                           "quarantine and journal lines instead of JSON")
+    stat.add_argument("--trainer-metrics", default=None,
+                      help="host:port of a trainer's metrics endpoint: adds the "
+                           "autotuner's knob and decision lines to --table")
 
     trace = sub.add_parser("trace", help="fleet tracing: arm every process's span "
                                          "collector, collect the merged trace, or disarm")
@@ -171,12 +193,9 @@ def build_service_node(args):
                           journal_compact_every=args.journal_compact_every,
                           journal_fsync=args.journal_fsync, shuffle_seed=args.shuffle_seed,
                           autoscale=True if args.autoscale else None)
+    from petastorm_tpu_torch.cache_impl import CacheConfig
     from petastorm_tpu_torch.service.worker import BatchWorker
 
-    if args.cache != "off":
-        raise NotImplementedError(
-            "worker --cache is not ported yet: the decoded-batch cache on workers comes "
-            "with the fleet, slice (d)")
     return BatchWorker(
         args.dataset_url,
         dispatcher_address=parse_address(args.dispatcher) if args.dispatcher else None,
@@ -185,7 +204,9 @@ def build_service_node(args):
         on_piece_error=args.on_piece_error, corpus=args.corpus,
         heartbeat_interval_s=args.heartbeat_interval or None,
         batch_transform=resolve_batch_transform(args.batch_transform),
-        transport=args.transport,
+        transport=args.transport, fleet_cache=args.fleet_cache,
+        batch_cache=CacheConfig(mode=args.cache, mem_mb=args.cache_mem_mb,
+                                cache_dir=args.cache_dir, disk_mb=args.cache_disk_mb).build(),
         reader_kwargs={"workers_count": args.workers_count,
                        "reader_pool_type": args.reader_pool_type})
 
@@ -214,12 +235,26 @@ def _request(address, header, timeout=10.0):
         return conn.request(header)
 
 
-def render_status(status):
+def _transport_label(tcp_total, shm_total):
+    """The TRANSPORT column: the tier the worker's streams negotiated so
+    far, ``shm`` / ``tcp`` / ``mixed``, or ``--`` before any stream."""
+    if tcp_total is None or shm_total is None or not (tcp_total + shm_total):
+        return "--"
+    if not tcp_total:
+        return "shm"
+    if not shm_total:
+        return "tcp"
+    return "mixed"
+
+
+def render_status(status, worker_diagnostics=None):
     """A ``status`` reply → the ``status --table`` view: one row per worker
-    (alive, lifecycle state, lease, the dynamic mode's steals in/out and
+    (alive, lifecycle state, lease, the transport from its ``diagnostics``
+    in ``worker_diagnostics``, the dynamic mode's steals in/out and
     backlog, breaker), the ownership generation in the header under dynamic
     sharding, and the brownout, breaker, quarantine, degraded and journal
     lines."""
+    worker_diagnostics = worker_diagnostics or {}
     fleet = status.get("fleet") or {}
     breaker_open = fleet.get("breaker_open") or {}
     workers = status.get("workers") or {}
@@ -232,8 +267,14 @@ def render_status(status):
     if dynamic:
         header += f" generation={dynamic.get('generation')}"
     lines = [header,
-             f"{'WORKER':<20} {'ALIVE':>6} {'STATE':>9} {'LEASE_S':>8} {'STEALS':>9} "
-             f"{'BACKLOG':>8} {'BREAKER':>8}"]
+             f"{'WORKER':<20} {'ALIVE':>6} {'STATE':>9} {'LEASE_S':>8} {'TRANSPORT':>9} "
+             f"{'STEALS':>9} {'BACKLOG':>8} {'BREAKER':>8}"]
+
+    def transport_col(wid):
+        metrics = (worker_diagnostics.get(wid) or {}).get("metrics") or {}
+        return _transport_label(metrics.get("transport_streams_tcp_total"),
+                                metrics.get("transport_streams_shm_total"))
+
 
     def steal_cols(wid):
         """``in/out`` piece moves and the pieces booked to the worker;
@@ -248,7 +289,8 @@ def render_status(status):
         lease = w.get("lease_expires_in_s")
         lines.append(f"{wid:<20} {'yes' if w.get('alive') else 'no':>6} "
                      f"{w.get('state', 'serving'):>9} "
-                     f"{'--' if lease is None else f'{lease:.1f}':>8} {steal_cols(wid)} "
+                     f"{'--' if lease is None else f'{lease:.1f}':>8} "
+                     f"{transport_col(wid):>9} {steal_cols(wid)} "
                      f"{'open' if wid in breaker_open else 'ok':>8}")
     brownout = fleet.get("brownout") or {}
     counts = brownout.get("counts") or {}
@@ -270,6 +312,55 @@ def render_status(status):
         lines.append(f"journal: {journal['path']} appended={journal['records_appended']} "
                      f"compactions={journal['compactions']} "
                      f"replays={(status.get('recovery') or {}).get('journal_replays', 0)}")
+    return "\n".join(lines)
+
+
+def collect_autotune_sample(metrics_address, timeout=3.0):
+    """One ``/metrics.json`` poll of a trainer's metrics endpoint, cut to
+    the autotuner's knob values and decision counts; ``None`` when it does
+    not answer."""
+    import urllib.error
+    import urllib.request
+
+    host, port = metrics_address
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics.json",
+                                    timeout=timeout) as response:
+            snapshot = json.loads(response.read().decode("utf-8"))
+    except (urllib.error.URLError, OSError, ValueError):
+        return None
+    knobs = {}
+    for series in snapshot.get("petastorm_autotune_knob_value", {}).get("series", []):
+        labels = series["labels"]
+        knobs[(labels.get("controller", "0"), labels.get("knob", "?"))] = series.get("value")
+    decisions = {}
+    for series in snapshot.get("petastorm_autotune_decisions_total", {}).get("series", []):
+        labels = series["labels"]
+        decisions[(labels.get("knob", "?"), labels.get("direction", "?"))] = \
+            series.get("value", 0.0)
+    return {"knobs": knobs, "decisions": decisions}
+
+
+def render_autotune_status(prev, cur):
+    """The autotuner's lines under the fleet table: the knob values in
+    force and the decisions of this window (the total in parentheses)."""
+    if cur is None:
+        return "autotune: trainer metrics unreachable"
+    if not cur["knobs"]:
+        return "autotune: no autotuned loader registered"
+    controllers = {controller for controller, _ in cur["knobs"]}
+    knobs = " ".join(
+        (f"{name}={value:g}" if len(controllers) == 1 else f"{controller}/{name}={value:g}")
+        for (controller, name), value in sorted(cur["knobs"].items()))
+    moved = []
+    prev_decisions = (prev or {}).get("decisions", {})
+    for (knob, direction), total in sorted(cur["decisions"].items()):
+        delta = total - prev_decisions.get((knob, direction), 0.0)
+        if delta > 0 or total > 0:
+            moved.append(f"{knob}:{direction}={int(delta)}({int(total)})")
+    lines = [f"autotune knobs: {knobs}"]
+    if moved:
+        lines.append("autotune decisions (window(total)): " + " ".join(moved))
     return "\n".join(lines)
 
 
@@ -347,10 +438,18 @@ def main(argv=None, run_seconds=None, stop_event=None):
     default a node serves until SIGINT or SIGTERM."""
     args = _build_parser().parse_args(argv)
     if args.role == "status":
-        reply, _ = _request(parse_address(args.dispatcher), {"type": "status"})
-        print(render_status(reply) if args.table and reply.get("type") == "status"
-              else json.dumps(reply), flush=True)
-        return 0 if reply.get("type") == "status" else 1
+        address = parse_address(args.dispatcher)
+        reply, _ = _request(address, {"type": "status"})
+        if not args.table or reply.get("type") != "status":
+            print(json.dumps(reply), flush=True)
+            return 0 if reply.get("type") == "status" else 1
+        _, workers = _request(address, {"type": "worker_diagnostics"})
+        text = render_status(reply, workers)
+        if args.trainer_metrics is not None:
+            text += "\n" + render_autotune_status(
+                None, collect_autotune_sample(parse_address(args.trainer_metrics)))
+        print(text, flush=True)
+        return 0
     if args.role == "trace":
         return run_trace(parse_address(args.dispatcher), args.action, out=args.out)
     if args.role == "diagnose":

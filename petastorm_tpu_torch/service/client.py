@@ -58,6 +58,13 @@ silent past a threshold fit from the run's own inter-batch gaps
 ``on_piece_error="quarantine"`` a ``piece_failed`` frame completes the
 piece empty and reports it to the dispatcher, which journals it.
 
+Each stream negotiates its transport (a worker on this host serves it
+through a shared-memory ring, unless either side says ``"tcp"``) and
+carries the iteration's graph rewrites: a declared ``ColumnPredicate``
+and projection hoisted below the workers' decode
+(``filter_placement="worker"``; on ``"client"`` they mask each received
+batch here), stage fusion, the cache placement and the reader family.
+
 :meth:`ServiceBatchSource.state_dict` snapshots the epoch, the completed
 pieces and the watermarks (static mode); ``TorchDataLoader.state_dict()``
 delegates here with the batches it has yielded. What this slice does not
@@ -89,11 +96,13 @@ from petastorm_tpu_torch.service.resilience import (
     note_brownout_level,
 )
 from petastorm_tpu_torch.service.seedtree import piece_order
+from petastorm_tpu_torch.service.transport import NegotiatedConnection, resolve_mode
 from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.clockalign import OffsetEstimator
 from petastorm_tpu_torch.telemetry.metrics import (
     CLIENT_BATCHES,
     CLIENT_DEDUP_DROPPED,
+    CLIENT_FILTER_ROWS,
     CLIENT_READY_QUEUE_DEPTH,
     CLIENT_RECOVERY_EVENTS,
     CLIENT_RECV_STALL,
@@ -111,14 +120,6 @@ logger = logging.getLogger(__name__)
 #: ``ServiceBatchSource`` arguments this slice does not take: the value
 #: that asks for nothing, and the slice that ports the feature.
 UNPORTED_SOURCE_ARGS = {
-    "predicate": (None, "the hoisted row filter is a graph rewrite, slice (c2)"),
-    "projection": (None, "hoisted column pruning is a graph rewrite, slice (c2)"),
-    "filter_placement": ("client", "the filter-hoisting rewrite is a graph rewrite, "
-                                   "slice (c2)"),
-    "stage_fusion": ("off", "stage fusion is a graph rewrite, slice (c2)"),
-    "cache_placement": ("post-transform", "the cache-placement rewrite is a graph "
-                                          "rewrite, slice (c2)"),
-    "reader_family": (None, "the row/columnar rewrite is a graph rewrite, slice (c2)"),
     "packing": (None, "worker-side sequence packing comes with the LLM stages, "
                       "slice (f)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
@@ -129,6 +130,28 @@ UNPORTED_SOURCE_ARGS = {
 class ServiceError(RuntimeError):
     """A non-transient service failure: a dispatcher or worker replied
     ``error``, or the service cannot make progress."""
+
+
+def _add_stream_fields(request, stream, conn):
+    """The stream request's optional fields: the transport advertisement,
+    the shuffle seed, the transform placement and the graph rewrites."""
+    advert = conn.advertisement()
+    if advert is not None:
+        request["transport"] = advert
+    if stream.shuffle_seed is not None:
+        request["shuffle_seed"] = int(stream.shuffle_seed)
+    if stream.transform_placement is not None:
+        request["transform_placement"] = stream.transform_placement
+    if stream.predicate is not None:
+        request["predicate"] = dict(stream.predicate)
+    if stream.projection is not None:
+        request["projection"] = list(stream.projection)
+    if stream.fused:
+        request["fused"] = True
+    if stream.cache_stage is not None:
+        request["cache_stage"] = stream.cache_stage
+    if stream.reader_family is not None:
+        request["reader_family"] = stream.reader_family
 
 
 class _WorkerStream:
@@ -143,8 +166,21 @@ class _WorkerStream:
 
     def __init__(self, worker_id, address, pieces, epoch, connect_timeout, credits=None,
                  auto_replenish=False, tagged=False, starts=None, shuffle_seed=None,
-                 transform_placement=None, recv_timeout=None, max_frame_bytes=None):
+                 transform_placement=None, recv_timeout=None, max_frame_bytes=None,
+                 predicate=None, projection=None, fused=False, cache_stage=None,
+                 reader_family=None, transport="auto"):
         self.worker_id = worker_id
+        #: The transport policy: anything but "tcp" advertises shm on the
+        #: request; the worker decides.
+        self.transport = transport
+        #: The graph rewrites, frozen for the iteration: a hoisted row
+        #: filter (wire dict) and projection, stage fusion, the cache stage
+        #: and the reader family. None / False: the unrewritten topology.
+        self.predicate = predicate
+        self.projection = projection
+        self.fused = fused
+        self.cache_stage = cache_stage
+        self.reader_family = reader_family
         self.address = tuple(address)
         self.pieces = list(pieces)
         self.epoch = epoch
@@ -178,10 +214,12 @@ class _WorkerStream:
             # The dial timeout bounds the dial only: gaps between batches
             # have no bound (reader construction, cold reads); keepalive
             # catches a host that died without FIN/RST.
-            self._conn = FramedConnection.connect(
-                self.address, timeout=self._connect_timeout,
-                stream_timeout=self._recv_timeout, keepalive=True,
-                max_frame_bytes=self._max_frame_bytes)
+            self._conn = NegotiatedConnection(
+                FramedConnection.connect(
+                    self.address, timeout=self._connect_timeout,
+                    stream_timeout=self._recv_timeout, keepalive=True,
+                    max_frame_bytes=self._max_frame_bytes),
+                mode=self.transport)
             if self._closed:
                 self._conn.close()
                 self._conn = None
@@ -191,10 +229,7 @@ class _WorkerStream:
             # unstarted in the worker's backlog past it is refused there.
             if self._connect_timeout is not None:
                 attach_deadline(request, time.monotonic() + self._connect_timeout)
-            if self.shuffle_seed is not None:
-                request["shuffle_seed"] = int(self.shuffle_seed)
-            if self.transform_placement is not None:
-                request["transform_placement"] = self.transform_placement
+            _add_stream_fields(request, self, self._conn)
             if self.tagged:
                 request["tagged"] = True
                 if self.starts:
@@ -441,8 +476,15 @@ class _DynamicStream:
 
     def __init__(self, worker_id, address, pairs, epoch, connect_timeout, credits=None,
                  shuffle_seed=None, transform_placement=None, recv_timeout=None,
-                 max_frame_bytes=None):
+                 max_frame_bytes=None, predicate=None, projection=None, fused=False,
+                 cache_stage=None, reader_family=None, transport="auto"):
         self.worker_id = worker_id
+        self.transport = transport  # as _WorkerStream's, and the rewrites below
+        self.predicate = predicate
+        self.projection = projection
+        self.fused = fused
+        self.cache_stage = cache_stage
+        self.reader_family = reader_family
         self.address = tuple(address)
         # [(piece, generation, start)]: start is the client's watermark, so
         # a (re)opened stream repeats no batch.
@@ -465,9 +507,12 @@ class _DynamicStream:
         with self._send_lock:
             if self._conn is not None:
                 return self._conn
-            conn = FramedConnection.connect(
-                self.address, timeout=self._connect_timeout, stream_timeout=self._recv_timeout,
-                keepalive=True, max_frame_bytes=self._max_frame_bytes)
+            conn = NegotiatedConnection(
+                FramedConnection.connect(
+                    self.address, timeout=self._connect_timeout,
+                    stream_timeout=self._recv_timeout, keepalive=True,
+                    max_frame_bytes=self._max_frame_bytes),
+                mode=self.transport)
             if self._closed:
                 conn.close()
                 raise ConnectionClosedError("stream closed")
@@ -475,10 +520,7 @@ class _DynamicStream:
                        "pieces": [list(t) for t in self.pairs], "epoch": self.epoch}
             if self._connect_timeout is not None:
                 attach_deadline(request, time.monotonic() + self._connect_timeout)
-            if self.shuffle_seed is not None:
-                request["shuffle_seed"] = int(self.shuffle_seed)
-            if self.transform_placement is not None:
-                request["transform_placement"] = self.transform_placement
+            _add_stream_fields(request, self, conn)
             if self.credits is not None:
                 request["credits"] = self.credits
             try:
@@ -643,8 +685,31 @@ class ServiceBatchSource:
         iteration.
     :param stream_recv_timeout_s: a hard deadline on each stream ``recv``
         (``None``: none; keepalive bounds a silent host).
-    :param transport: ``"auto"``, ``"tcp"`` or ``None``
-        (``$PETASTORM_TRANSPORT``); both are TCP (``"shm"`` raises).
+    :param transport: ``"auto"`` (a stream to a worker on this host
+        negotiates the shared-memory ring, every other rides TCP),
+        ``"tcp"`` (never negotiate), ``"shm"`` (as ``"auto"``) or ``None``
+        (``$PETASTORM_TRANSPORT``). Delivery (order, watermarks, dedup,
+        fencing) is the same on both tiers.
+    :param predicate: a declared row filter, a
+        :class:`~petastorm_tpu_torch.predicates.ColumnPredicate` or its
+        wire dict; ``projection``: the fields to keep.
+        ``filter_placement`` says where they run: ``"client"`` (each
+        received batch is masked and pruned here, counted in
+        ``petastorm_service_client_filter_rows_total``) or ``"worker"``
+        (hoisted below the workers' decode: dropped rows are never decoded
+        or sent). With a ``transform`` the filter must be hoisted.
+    :param stage_fusion: ``"off"`` or ``"fused"`` (the workers' pool tasks
+        collate, transform and serialize; the bytes are the same).
+    :param cache_placement: ``"post-transform"`` or ``"post-decode"`` (the
+        workers' caches hold the batches before the transform; needs a
+        ``transform``).
+    :param reader_family: ``None`` (each worker's own), ``"row"`` or
+        ``"columnar"`` decode; the bytes are the same.
+
+    The graph rewrites (``filter_placement="worker"``, ``stage_fusion``,
+    ``cache_placement``, ``reader_family``) are frozen per iteration, set
+    for the next one by their setters (the autotuner's bindings), and
+    need static or dynamic sharding.
     :param on_piece_error: ``"fail"`` (a ``piece_failed`` frame raises
         :class:`ServiceError`) or ``"quarantine"`` (the piece completes
         empty and is reported to the dispatcher).
@@ -672,19 +737,13 @@ class ServiceBatchSource:
                  hedging=False, hedge_quantile=0.99, hedge_multiplier=4.0,
                  hedge_min_samples=16, hedge_floor_s=0.25, breaker_threshold=5,
                  breaker_cooldown_s=5.0, retry_budget=10.0):
-        from petastorm_tpu_torch.service.transport import resolve_mode
-
-        given = {"predicate": predicate,
-                 "projection": projection or None, "filter_placement": filter_placement,
-                 "stage_fusion": stage_fusion, "cache_placement": cache_placement,
-                 "reader_family": reader_family, "packing": packing,
-                 "corpus": corpus or "", "job_id": job_id}
+        given = {"packing": packing, "corpus": corpus or "", "job_id": job_id}
         for name, value in given.items():
             default, reason = UNPORTED_SOURCE_ARGS[name]
             if value != default:
                 raise NotImplementedError(
                     f"ServiceBatchSource({name}=...) is not ported yet: {reason}")
-        resolve_mode(transport)  # "auto" and "tcp" are TCP; "shm" raises
+        self._transport = resolve_mode(transport)
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
                              f"{on_piece_error!r}")
@@ -699,6 +758,8 @@ class ServiceBatchSource:
                 "transform_placement='local' needs the transform callable: workers are "
                 "told to skip their batch_transform, so without one here the stage would "
                 "silently not run at all")
+        self._init_rewrites(predicate, projection, filter_placement, stage_fusion,
+                            cache_placement, reader_family, transform)
         self._dispatcher_address = tuple(dispatcher_address)
         self.client_index = client_index
         self.num_clients = num_clients
@@ -790,6 +851,208 @@ class ServiceBatchSource:
         self._batch_events = []  # (production_count, epoch, piece, ordinal)
         self._epoch_starts = [(0, self._epoch, set(self._completed),
                                dict(self._resume_watermarks))]
+
+    def _init_rewrites(self, predicate, projection, filter_placement, stage_fusion,
+                       cache_placement, reader_family, transform):
+        """Check the declared filter, projection and rewrites against each
+        other and keep them (the JAX source's rules and messages)."""
+        from petastorm_tpu_torch.predicates import ColumnPredicate
+
+        self._predicate = None
+        if predicate is not None:
+            self._predicate = (predicate if isinstance(predicate, ColumnPredicate)
+                               else ColumnPredicate.from_wire(predicate))
+        if filter_placement not in ("client", "worker"):
+            raise ValueError("filter_placement must be 'client' or 'worker'")
+        if predicate is None and filter_placement == "worker":
+            raise ValueError("filter_placement='worker' needs predicate=: there is no row "
+                             "filter to hoist")
+        if projection and transform is not None \
+                and (predicate is None or filter_placement != "worker"):
+            # Pruned here, the batch would be pruned after a remote
+            # transform but before a local one: a placement flip would
+            # change the transform's input.
+            raise ValueError(
+                "projection= with transform= requires the hoisted filter topology "
+                "(predicate= with filter_placement='worker'): client-side pruning would "
+                "run after a remote transform but before a local one, so a "
+                "transform_placement flip would change the transform's input")
+        if self._predicate is not None and transform is not None \
+                and filter_placement != "worker":
+            # A client filter would see the batches after the workers'
+            # transform: another survivor set than the hoisted topology's.
+            raise ValueError(
+                "predicate= with transform= requires filter_placement='worker': a "
+                "client-placed filter would see post-transform batches (the worker "
+                "transforms before shipping), diverging from the hoisted topology's "
+                "stored-value semantics")
+        self._projection = sorted(str(f) for f in projection) if projection else None
+        self._filter_placement = filter_placement
+        if stage_fusion not in ("off", "fused"):
+            raise ValueError("stage_fusion must be 'off' or 'fused'")
+        self._stage_fusion = stage_fusion
+        if cache_placement not in ("post-transform", "post-decode"):
+            raise ValueError("cache_placement must be 'post-transform' or 'post-decode'")
+        if cache_placement == "post-decode" and transform is None:
+            raise ValueError("cache_placement='post-decode' is only meaningful with a "
+                             "transform= armed (without one the two placements cache "
+                             "identical bytes)")
+        self._cache_placement = cache_placement
+        if reader_family not in (None, "row", "columnar"):
+            raise ValueError(f"reader_family must be None, 'row', or 'columnar', got "
+                             f"{reader_family!r}")
+        self._reader_family = reader_family
+        # The iteration's frozen copies (set at __call__): every stream of
+        # an iteration, relaunches included, carries the same rewrites.
+        self._iter_predicate = None
+        self._iter_projection = None
+        self._iter_filter_placement = None
+        self._iter_hoisted = False
+        self._iter_fused = False
+        self._iter_cache_stage = None
+        self._iter_reader_family = None
+        # Batches the client filter emptied this iteration: they break the
+        # one-to-one count of received and yielded batches state_dict needs.
+        self._filter_dropped_batches = 0
+
+    # -- graph-rewrite knobs ---------------------------------------------------
+
+    @property
+    def filter_placement(self):
+        """Where the declared row filter runs from the next iteration on:
+        ``"client"`` or ``"worker"``."""
+        return self._filter_placement
+
+    def set_filter_placement(self, placement):
+        """Move the row filter between masking here and the workers'
+        two-phase read, from the next iteration on."""
+        if placement not in ("client", "worker"):
+            raise ValueError("filter_placement must be 'client' or 'worker'")
+        if self._predicate is None:
+            raise ValueError("no predicate armed — construct the source with predicate= "
+                             "to make filter placement meaningful")
+        if placement == "client" and self.transform is not None:
+            raise ValueError(
+                "filter_placement='client' is unavailable with a transform= armed: the "
+                "workers transform before shipping, so the client filter would evaluate "
+                "post-transform values — the filter stays hoisted (worker-placed)")
+        if placement == "worker":
+            self._reject_rewrite_on_fcfs("filter_placement='worker'")
+        self._filter_placement = placement
+
+    @property
+    def stage_fusion(self):
+        """``"off"`` or ``"fused"`` from the next iteration on."""
+        return self._stage_fusion
+
+    def set_stage_fusion(self, mode):
+        """Arm or disarm the workers' stage fusion from the next iteration
+        on; the bytes are the same either way."""
+        if mode not in ("off", "fused"):
+            raise ValueError("stage_fusion must be 'off' or 'fused'")
+        if mode == "fused":
+            self._reject_rewrite_on_fcfs("stage_fusion='fused'")
+        self._stage_fusion = mode
+
+    @property
+    def cache_placement(self):
+        """The workers' cache stage from the next iteration on."""
+        return self._cache_placement
+
+    def set_cache_placement(self, placement):
+        """Move the workers' cache above or below the batch transform from
+        the next iteration on; the two placements' keys differ, so a flip
+        refills."""
+        if placement not in ("post-transform", "post-decode"):
+            raise ValueError("cache_placement must be 'post-transform' or 'post-decode'")
+        if placement == "post-decode" and self.transform is None:
+            raise ValueError("cache_placement='post-decode' needs a transform= armed")
+        if placement == "post-decode":
+            self._reject_rewrite_on_fcfs("cache_placement='post-decode'")
+        self._cache_placement = placement
+
+    @property
+    def reader_family(self):
+        """The family the workers decode this source's streams with from
+        the next iteration on (``None``: each worker's own)."""
+        return self._reader_family
+
+    def set_reader_family(self, family):
+        """Flip the workers between row and columnar decode from the next
+        iteration on (bytes identical; the families' cache keys differ)."""
+        if family not in (None, "row", "columnar"):
+            raise ValueError(f"reader_family must be None, 'row', or 'columnar', got "
+                             f"{family!r}")
+        if family == "columnar":
+            self._reject_rewrite_on_fcfs("reader_family='columnar'")
+        self._reader_family = family
+
+    def _reject_rewrite_on_fcfs(self, what):
+        """A setter refuses a rewrite on a source known to run fcfs: the
+        flip would not probe, it would fail the next iteration."""
+        if self._mode == "fcfs":
+            raise ValueError(
+                f"{what} requires static or dynamic sharding: this source's dispatcher "
+                f"runs fcfs, whose untagged per-split streams bypass the streaming piece "
+                f"engine rewrites run in")
+
+    def _iter_rewrite_kwargs(self):
+        """The frozen iteration's rewrites (and the transport policy) as
+        stream arguments, for every stream the iteration opens."""
+        hoisted = self._iter_hoisted
+        return {
+            "predicate": (self._iter_predicate.to_wire()
+                          if hoisted and self._iter_predicate is not None else None),
+            "projection": self._iter_projection if hoisted else None,
+            "fused": self._iter_fused,
+            "cache_stage": self._iter_cache_stage,
+            "reader_family": self._iter_reader_family,
+            "transport": self._transport,
+        }
+
+    def _apply_filter_local(self, inner):
+        """The declared filter and projection run here (the unrewritten
+        topology): each received batch is masked with the predicate's
+        columnar form and pruned. The rows and their order equal the
+        hoisted run's; the batch boundaries do not. An emptied batch is
+        skipped and counted (see :meth:`state_dict`)."""
+        import numpy as np
+
+        from petastorm_tpu_torch.predicates import evaluate_predicate_mask
+
+        predicate, projection = self._iter_predicate, self._iter_projection
+        m_in, m_kept = CLIENT_FILTER_ROWS.labels("in"), CLIENT_FILTER_ROWS.labels("kept")
+        try:
+            for batch in inner:
+                if predicate is not None and batch:
+                    num_rows = len(next(iter(batch.values())))
+                    mask = evaluate_predicate_mask(predicate, batch, num_rows)
+                    kept = int(np.count_nonzero(mask))
+                    m_in.inc(num_rows)
+                    m_kept.inc(kept)
+                    if kept == 0:
+                        with self._lock:
+                            self._filter_dropped_batches += 1
+                        continue
+                    if kept < num_rows:
+                        batch = {name: column[mask] for name, column in batch.items()}
+                if projection is not None:
+                    batch = {name: column for name, column in batch.items()
+                             if name in projection}
+                yield batch
+        finally:
+            close = getattr(inner, "close", None)
+            if callable(close):
+                close()
+
+    def _hoisted_filter_signature(self, constructed=False):
+        """The hoisted filter's wire form (``None`` unless worker-placed):
+        the iteration in force, or with ``constructed`` the next one."""
+        if constructed:
+            predicate, hoisted = self._predicate, self._filter_placement == "worker"
+        else:
+            predicate, hoisted = self._iter_predicate, self._iter_hoisted
+        return predicate.to_wire() if hoisted and predicate is not None else None
 
     def _recovery_inc(self, event, n=1):
         """Bump a recovery counter in ``diagnostics`` and the registry.
@@ -1017,7 +1280,8 @@ class ServiceBatchSource:
                              tagged=tagged, starts=starts, shuffle_seed=self._shuffle_seed,
                              transform_placement=self._iter_transform_placement,
                              recv_timeout=self._stream_recv_timeout_s,
-                             max_frame_bytes=self._max_frame_bytes)
+                             max_frame_bytes=self._max_frame_bytes,
+                             **self._iter_rewrite_kwargs())
 
     # -- the batch_source contract ----------------------------------------
 
@@ -1046,9 +1310,34 @@ class ServiceBatchSource:
                 "sequence against")
         self._iter_transform_placement = (self._transform_placement
                                           if self.transform is not None else None)
+        # The rewrites freeze the same way: one topology an iteration, on
+        # every stream and on the client filter.
+        hoisted = self._predicate is not None and self._filter_placement == "worker"
+        self._iter_filter_placement = (self._filter_placement
+                                       if self._predicate is not None else None)
+        self._iter_hoisted = hoisted
+        self._iter_predicate = self._predicate
+        self._iter_projection = self._projection
+        self._iter_fused = self._stage_fusion == "fused"
+        self._iter_cache_stage = (self._cache_placement
+                                  if self._cache_placement != "post-transform" else None)
+        self._iter_reader_family = self._reader_family
+        self._filter_dropped_batches = 0
+        rewriting = (hoisted or self._iter_fused or self._iter_cache_stage is not None
+                     or self._iter_reader_family is not None)
+        if rewriting and info["mode"] == "fcfs":
+            raise ValueError(
+                "graph rewrites (filter_placement='worker', stage_fusion, "
+                "cache_placement='post-decode', reader_family) require static or dynamic "
+                "sharding: fcfs serves untagged per-split streams outside the streaming "
+                "piece engine, which is where rewrites run")
         local = self._iter_transform_placement == "local"
+        client_filtered = self._predicate is not None and not hoisted
 
         def wrap(it):
+            # The filter sits below the transform, as on the worker side.
+            if client_filtered or (self._projection is not None and not hoisted):
+                it = self._apply_filter_local(it)
             return self._apply_transform_local(it) if local else it
 
         if info["mode"] == "static":
@@ -1586,7 +1875,8 @@ class ServiceBatchSource:
                               credits=self._credits, shuffle_seed=self._shuffle_seed,
                               transform_placement=self._iter_transform_placement,
                               recv_timeout=self._stream_recv_timeout_s,
-                              max_frame_bytes=self._max_frame_bytes)
+                              max_frame_bytes=self._max_frame_bytes,
+                              **self._iter_rewrite_kwargs())
 
     def _fetch_dynamic_plan(self, epoch):
         """The epoch's initial per-worker deques (pieces stamped with their
@@ -2348,6 +2638,14 @@ class ServiceBatchSource:
                     "state_dict is not supported in fcfs mode: splits are handed out "
                     "first-come-first-served, so a client has no deterministic resumable "
                     "position — use static sharding for resumable training")
+            if yielded_batches is not None and self._filter_dropped_batches:
+                # The client filter dropped whole batches: the consumer's
+                # count no longer indexes this source's production order.
+                raise ValueError(
+                    "state_dict(yielded_batches=...) is not supported while the "
+                    "trainer-local row filter has dropped whole batches this iteration — "
+                    "hoist the filter (filter_placement='worker') for prefetch-exact "
+                    "checkpoints of filtered pipelines")
             count = (self._production_count if yielded_batches is None
                      else min(int(yielded_batches), self._production_count))
             epoch, base, base_marks = self._epoch_starts[0][1:]
@@ -2374,10 +2672,10 @@ class ServiceBatchSource:
                                if n and p not in completed},
                 "shuffle_seed": self._shuffle_seed,
                 "ordered": self._ordered,
-                # The JAX package's keys for worker-side packing and a
-                # hoisted filter, neither of which this slice runs.
+                # Worker-side packing (not run by this package) and the
+                # hoisted filter: each changes what the watermarks number.
                 "packing": None,
-                "filter": None,
+                "filter": self._hoisted_filter_signature(),
             }
 
     def _validate_resume_state(self, state):
@@ -2390,12 +2688,20 @@ class ServiceBatchSource:
                 raise ValueError(f"resume_state mismatch on {key!r}: checkpoint has "
                                  f"{state.get(key)!r}, this client has "
                                  f"{getattr(self, key)!r}")
-        for key in ("packing", "filter"):
-            if state.get(key) is not None:
-                raise ValueError(
-                    f"resume_state was taken under {key}={state.get(key)!r}: its "
-                    "watermarks number batches this source does not produce (worker-side "
-                    "packing and the hoisted filter come with later service slices)")
+        if state.get("packing") is not None:
+            raise ValueError(
+                f"resume_state packing mismatch: checkpoint watermarks number batches under "
+                f"{state.get('packing')!r}, this source runs None — resuming would re-grant "
+                f"at positions in a different batch vocabulary")
+        saved_filter = state.get("filter")
+        current_filter = self._hoisted_filter_signature(constructed=True)
+        if saved_filter != current_filter:
+            raise ValueError(
+                f"resume_state hoisted-filter mismatch: checkpoint watermarks number "
+                f"batches under worker-placed filter {saved_filter!r}, this source runs "
+                f"{current_filter!r} — a hoisted predicate changes each piece's batch "
+                f"vocabulary (pieces collate only survivors), so resuming would re-grant "
+                f"at wrong positions")
 
     @property
     def diagnostics(self):
@@ -2419,6 +2725,13 @@ class ServiceBatchSource:
                 "ready_queue_capacity": ready.maxsize if ready is not None else 0,
                 "credits_window": self._credits,
                 "transform_placement": self._iter_transform_placement,
+                "rewrites": {
+                    "filter_placement": self._iter_filter_placement,
+                    "stage_fusion": "fused" if self._iter_fused else "off",
+                    "cache_placement": self._iter_cache_stage or "post-transform",
+                    "reader_family": self._iter_reader_family,
+                    "filter_dropped_batches": self._filter_dropped_batches,
+                },
                 "epoch_starts": [[count, epoch] for count, epoch, *_ in self._epoch_starts],
                 "per_worker": {
                     wid: {"batches": c["batches"], "stall_s": round(c["stall_s"], 3),

@@ -25,15 +25,22 @@ pieces. ``on_piece_error="quarantine"`` turns a piece whose decode fails
 (or the ``piece.decode`` poison failpoint) into a ``piece_failed`` event and
 rebuilds the pipeline.
 
+Two graph rewrites run here. Stage fusion (``fused=True``) has the pool
+task collate, transform and serialize its piece (the reader's publish
+hook) and the engine route the piece's wire-ready batches whole; the bytes
+equal the unfused path's, since the same collation, transform and
+serializer run. ``cache_stage="post-decode"`` fills the cache with the
+batches before the transform and re-applies the transform on every warm
+serve.
+
 Threading: :meth:`next_event` runs on the stream-serving thread only;
 ``enqueue`` / ``revoke`` / ``finish`` may come from a control thread. A
 piece's completion rides the pool's item-done markers (FIFO with its
 outputs), so its tail is flushed after every one of its outputs was
 consumed.
 
-Stage fusion (``fused=True``, with its ``handoff_note_fn`` signal), the
-``post-decode`` cache placement and worker-side packing (``packer_factory``)
-raise NotImplementedError naming their slice.
+Worker-side packing (``packer_factory``) raises NotImplementedError naming
+its slice.
 """
 
 from __future__ import annotations
@@ -46,8 +53,12 @@ from collections import deque
 import numpy as np
 
 from petastorm_tpu_torch import failpoints
+from petastorm_tpu_torch.reader_impl.delivery_tracker import FusedBatch, FusedPiecePayload
 from petastorm_tpu_torch.reader_impl.framed_socket import encode_payload
-from petastorm_tpu_torch.telemetry.metrics import QUARANTINE_REPORTS
+from petastorm_tpu_torch.telemetry.metrics import (
+    QUARANTINE_REPORTS,
+    WORKER_FUSED_STAGE_SECONDS,
+)
 from petastorm_tpu_torch.workers_pool import EmptyResultError, TimeoutWaitingForResultError
 
 logger = logging.getLogger(__name__)
@@ -58,7 +69,12 @@ logger = logging.getLogger(__name__)
 _QUEUED, _DECODING, _SERVING, _DONE, _REVOKED, _FAILED = (
     "queued", "decoding", "serving", "done", "revoked", "failed")
 
-#: The cache placements of the JAX engine; only the first is ported.
+#: The collator slot of a piece the fused pool task collates.
+_FUSED_PIECE = object()
+
+#: Where the cache sits: after the batch transform (entries hold
+#: transformed bytes, warm serves do no work) or before it (entries hold
+#: the decoded bytes; every warm serve re-applies the transform).
 CACHE_STAGES = ("post-transform", "post-decode")
 
 
@@ -158,6 +174,14 @@ class StreamingPieceEngine:
         fill keeps canonical order.
     :param transform_fn: applied to each cold batch before serialization and
         before the cache fill.
+    :param fused: stage fusion: the pool task collates, transforms and
+        serializes each piece (row family on a thread or dummy pool;
+        otherwise downgraded with a warning, bytes identical).
+    :param cache_stage: ``"post-transform"`` or ``"post-decode"`` (the
+        fill takes the batches before ``transform_fn``, and warm serves
+        re-apply it).
+    :param handoff_note_fn: ``fn(seconds)``: the stream thread's collation
+        and serialization time, flushed once a piece (fusion's trigger).
     :param columnar_collate: re-apply the row family's dense-vs-object rule
         to object columns of each batch (the columnar reader family).
     :param on_piece_error: ``"fail"`` (a decode error raises) or
@@ -165,8 +189,7 @@ class StreamingPieceEngine:
         ``("piece_failed", piece, generation, error)`` and the reader is
         rebuilt; the ``piece.decode`` failpoint is attributed exactly).
 
-    ``packer_factory``, ``fused=True``, ``cache_stage="post-decode"`` and
-    ``handoff_note_fn`` raise NotImplementedError naming their slice.
+    ``packer_factory`` raises NotImplementedError naming its slice.
     """
 
     def __init__(self, reader, batch_size, cache=None, cache_key_fn=None, cache_note_fn=None,
@@ -182,18 +205,14 @@ class StreamingPieceEngine:
             raise NotImplementedError(
                 "StreamingPieceEngine(packer_factory=...) is not ported yet: worker-side "
                 "sequence packing comes with the LLM stages, slice (f)")
-        if handoff_note_fn is not None:
-            raise NotImplementedError(
-                "StreamingPieceEngine(handoff_note_fn=...) is not ported yet: the hand-off "
-                "seconds are stage fusion's trigger signal, a graph rewrite of slice (c2)")
-        if fused:
-            raise NotImplementedError(
-                "StreamingPieceEngine(fused=True) is not ported yet: stage fusion comes "
-                "with the data service's graph rewrites, slice (c2)")
-        if cache_stage != "post-transform":
-            raise NotImplementedError(
-                "StreamingPieceEngine(cache_stage='post-decode') is not ported yet: the "
-                "cache-placement rewrite comes with the graph rewrites, slice (c2)")
+        # Set before a reader instance is installed: installing reads them.
+        self._fused = bool(fused)
+        self._cache_stage = cache_stage
+        self._batch_size = int(batch_size)
+        self._cache = cache
+        self._transform = transform_fn
+        self._handoff = handoff_note_fn
+        self._handoff_pending = 0.0  # stream thread only
         self._reader = None
         self._reader_factory = None
         if callable(reader) and not hasattr(reader, "read_next_tagged"):
@@ -207,13 +226,10 @@ class StreamingPieceEngine:
                     "callable), not a reader instance: the engine must be able to "
                     "rebuild the pipeline after tearing down one a poison piece wedged")
             self._install_reader(reader)
-        self._batch_size = int(batch_size)
         self._columnar_collate = bool(columnar_collate)
-        self._cache = cache
         self._cache_key_fn = cache_key_fn
         self._cache_note_fn = cache_note_fn
         self._permute = permute_fn
-        self._transform = transform_fn
         self._lookahead = max(1, int(lookahead))
         self._on_piece_error = on_piece_error
         self._lock = threading.Lock()
@@ -241,6 +257,14 @@ class StreamingPieceEngine:
         if not getattr(reader, "dynamic", False):
             raise ValueError("StreamingPieceEngine requires a dynamic_ventilation reader")
         reader.set_item_done_hook(self._on_item_done)
+        if self._fused:
+            installed = (not reader.batched_output
+                         and reader.set_publish_transform(self._make_fused_transform(reader)))
+            if not installed:
+                logger.warning("engine: stage fusion requested but this reader cannot fuse "
+                               "(a batched-output family, or a pool without a publish "
+                               "hook); serving unfused, bytes identical")
+                self._fused = False
         self._reader = reader
 
     def _ensure_reader(self):
@@ -253,6 +277,66 @@ class StreamingPieceEngine:
     def reader(self):
         """The owned reader; ``None`` until a piece missed the cache."""
         return self._reader
+
+    @property
+    def fused(self):
+        """Whether stage fusion is in force (it may have been downgraded
+        when the reader was installed)."""
+        return self._fused
+
+    def _make_fused_transform(self, reader):
+        """The fused pool task's tail, run on the pool's worker thread by
+        the publish hook: a piece's decoded rows to wire-ready frames, by
+        the namedtuple conversion, collation, transform and serialization
+        the unfused stream thread runs. Collation and serialization seconds
+        go to ``petastorm_service_worker_fused_stage_seconds_total{stage}``;
+        the transform keeps its own family (the worker passes its timed
+        wrapper)."""
+        schema = reader.schema
+        ngram = getattr(reader, "ngram", None)
+        batch_size = self._batch_size
+        transform = self._transform
+        # Post-decode cache placement with a transform: the cache wants the
+        # bytes before the transform, the wire after it. Serialize both.
+        want_pre = (self._cache is not None and transform is not None
+                    and self._cache_stage == "post-decode")
+        m_collate = WORKER_FUSED_STAGE_SECONDS.labels("collate")
+        m_serialize = WORKER_FUSED_STAGE_SECONDS.labels("serialize")
+
+        def fuse(pair):
+            key, rows = pair
+            t0 = time.perf_counter()
+            if ngram is not None:
+                outputs = [ngram.make_namedtuple(schema, row) for row in rows]
+            else:
+                outputs = schema.make_namedtuples(rows)
+            collator = _PieceCollator(batch_size, False, ngram)
+            batches = []
+            for output in outputs:
+                batches.extend(collator.add(output))
+            batches.extend(collator.flush_all())
+            m_collate.inc(time.perf_counter() - t0)
+            fused, serialize_s = FusedPiecePayload(), 0.0
+            for batch in batches:
+                pre_fmt = pre_frames = None
+                if want_pre:
+                    ts = time.perf_counter()
+                    pre_fmt, pre_frames = encode_payload(batch)
+                    # Copied now: the frames alias the decoded arrays, which
+                    # an in-place transform below would change first.
+                    pre_frames = [bytes(f) for f in pre_frames]
+                    serialize_s += time.perf_counter() - ts
+                if transform is not None:
+                    batch = transform(batch)
+                ts = time.perf_counter()
+                fmt, frames = encode_payload(batch)
+                serialize_s += time.perf_counter() - ts
+                fused.append(FusedBatch(_rows_of(batch), fmt, frames, pre_fmt=pre_fmt,
+                                        pre_frames=pre_frames))
+            m_serialize.inc(serialize_s)
+            return key, fused
+
+        return fuse
 
     # -- queue edits (any thread) -------------------------------------------
 
@@ -459,7 +543,9 @@ class StreamingPieceEngine:
                 self._state[piece] = _DECODING
                 self._inflight.add(piece)
                 self._ordinal[piece] = 0
-                self._collators[piece] = _PieceCollator(
+                # A fused piece is collated by its pool task; the sentinel
+                # keeps the revoke and item-done bookkeeping.
+                self._collators[piece] = _FUSED_PIECE if self._fused else _PieceCollator(
                     self._batch_size, reader.batched_output, getattr(reader, "ngram", None),
                     normalize_object=self._columnar_collate)
                 self._builders[piece] = (self._cache.begin_fill(self._cache_key_fn(piece))
@@ -474,11 +560,21 @@ class StreamingPieceEngine:
         start = self._start.get(piece, 0)
         n = entry.num_batches
         order = self._permute(piece, n) if self._permute is not None else range(n)
+        # Post-decode placement: entries hold the bytes before the
+        # transform, so each warm serve decodes, transforms and re-encodes
+        # (timed into the worker's transform family).
+        serve_transform = self._transform if self._cache_stage == "post-decode" else None
         events, rows = [], 0
         for ordinal, source in enumerate(order):
             if ordinal < start:
                 continue
             cached = entry.batch_at(source)
+            if serve_transform is not None:
+                batch = serve_transform(cached.to_dict())
+                fmt, frames = encode_payload(batch)
+                events.append(("batch", piece, gen, ordinal, _rows_of(batch), fmt, frames, 0.0))
+                rows += _rows_of(batch)
+                continue
             events.append(("batch", piece, gen, ordinal, cached.rows, cached.fmt,
                            cached.frames, 0.0))
             rows += cached.rows
@@ -498,17 +594,78 @@ class StreamingPieceEngine:
         if piece is None:
             raise RuntimeError("streaming engine received an untagged reader output — "
                                "per-piece attribution requires tagged payloads")
+        if isinstance(output, FusedPiecePayload):
+            self._route_fused(output, piece)
+            return
         with self._lock:
             collator = self._collators.get(piece)
             builder = self._builders.get(piece)
             gen = self._gen.get(piece, 0)
-        if collator is None:
-            return  # revoked mid-decode: dropped
-        for batch in collator.add(output):
+        if collator is None or collator is _FUSED_PIECE:
+            return  # revoked mid-decode (or a stray of a fused piece): dropped
+        t0 = time.perf_counter()
+        batches = collator.add(output)
+        self._note_handoff(time.perf_counter() - t0)
+        for batch in batches:
             self._emit_batch(piece, gen, batch, builder)
 
+    def _note_handoff(self, seconds):
+        if self._handoff is not None and seconds > 0:
+            self._handoff_pending += seconds
+
+    def _flush_handoff(self):
+        """The piece's hand-off seconds to the counter: one locked increment
+        a piece, not one an output (which would inflate what it measures)."""
+        if self._handoff is not None and self._handoff_pending > 0:
+            self._handoff(self._handoff_pending)
+            self._handoff_pending = 0.0
+
+    def _route_fused(self, batches, piece):
+        """One fused piece: the pool task made every wire-ready batch, so
+        this fills the cache in canonical order (the pre-transform frames
+        under the post-decode placement) and emits the batches, permuted,
+        from the ``start`` watermark on."""
+        with self._lock:
+            if self._collators.get(piece) is not _FUSED_PIECE:
+                return  # revoked between dispatch and publish
+            builder = self._builders.get(piece)
+            gen = self._gen.get(piece, 0)
+            start = self._start.get(piece, 0)
+        if builder is not None:
+            for fb in batches:
+                if fb.pre_frames is not None:
+                    builder.add_frames(fb.rows, fb.pre_fmt, fb.pre_frames)
+                else:
+                    builder.add_frames(fb.rows, fb.fmt, fb.frames)
+        n = len(batches)
+        order = self._permute(piece, n) if self._permute is not None else range(n)
+        decode_s, self._pull_s = self._pull_s, 0.0
+        events, rows = [], 0
+        for ordinal, source in enumerate(order):
+            if ordinal < start:
+                continue  # below the re-serve watermark
+            fb = batches[source]
+            events.append(("batch", piece, gen, ordinal, fb.rows, fb.fmt, fb.frames,
+                           decode_s if not events else 0.0))
+            rows += fb.rows
+        with self._lock:
+            if self._state.get(piece) == _REVOKED:
+                return
+            self._rows[piece] = self._rows.get(piece, 0) + rows
+            self._rows_emitted += rows
+            self._out.extend(events)
+
     def _emit_batch(self, piece, gen, batch, builder):
+        pre_filled = False
         if self._transform is not None:
+            if builder is not None and self._cache_stage == "post-decode":
+                # Post-decode placement: the fill takes the batch before
+                # the transform runs (add_batch copies, so an in-place
+                # transform cannot reach the entry).
+                t_ser = time.perf_counter()
+                builder.add_batch(batch)
+                self._note_handoff(time.perf_counter() - t_ser)
+                pre_filled = True
             batch = self._transform(batch)
         permuting = self._permute is not None
         with self._lock:
@@ -522,15 +679,21 @@ class StreamingPieceEngine:
         if builder is not None and not revoked:
             # The fill gets every batch (a watermark never publishes a
             # truncated entry); only the emission honors `start`.
-            fmt, frames = encode_payload(batch)
-            rows = _rows_of(batch)
-            builder.add_frames(rows, fmt, frames)
+            t_ser = time.perf_counter()
+            if pre_filled:
+                fmt, frames = encode_payload(batch)
+                rows = _rows_of(batch)
+            else:
+                rows, fmt, frames = builder.add_batch(batch)
+            self._note_handoff(time.perf_counter() - t_ser)
             if ordinal < start:
                 return
         else:
             if revoked or ordinal < start:
                 return  # never sent: skip the serialization
+            t_ser = time.perf_counter()
             fmt, frames = encode_payload(batch)
+            self._note_handoff(time.perf_counter() - t_ser)
             rows = _rows_of(batch)
         with self._lock:
             if self._state.get(piece) == _REVOKED:
@@ -585,14 +748,17 @@ class StreamingPieceEngine:
             gen = self._gen.get(piece, 0)
         if state not in (_DECODING, _SERVING) or collator is None:
             return  # revoked: the partial fill is dropped
-        for tail in collator.flush_all():
-            self._emit_batch(piece, gen, tail, builder)
+        if collator is not _FUSED_PIECE:
+            # A fused piece's task emitted its tail already.
+            for tail in collator.flush_all():
+                self._emit_batch(piece, gen, tail, builder)
+            self._flush_handoff()
         if builder is not None:
             try:
                 builder.commit()
             except Exception:
                 logger.warning("cache fill commit failed for piece %d", piece, exc_info=True)
-        if self._permute is not None:
+        if self._permute is not None and collator is not _FUSED_PIECE:
             self._flush_permuted(piece, gen)
         with self._lock:
             if self._state.get(piece) == _REVOKED:
@@ -617,7 +783,7 @@ class StreamingPieceEngine:
                 "engine_pieces_quarantined": self._quarantined_pieces,
                 "engine_rows_emitted": self._rows_emitted,
                 "engine_finished": self._finished,
-                "engine_fused": False,
+                "engine_fused": self._fused,
             })
         return out
 

@@ -35,6 +35,29 @@ Three serving forms, as in the JAX package:
 With ``on_piece_error="quarantine"`` a tagged or dynamic stream reports an
 undecodable piece with a ``piece_failed`` frame and serves on.
 
+A ``batch_cache`` keeps each piece's serialized batches under a content key
+(:meth:`BatchWorker._piece_cache_key`, the JAX worker's key, so one cache
+directory serves both packages): a warm piece is sent from the cache with
+no read, decode or serialization. Untagged streams then serve piece by
+piece through the engine too (a process pool: one reader a cold piece).
+
+Graph rewrites a stream request may carry (engine paths only): ``fused``
+(stage fusion: the pool task collates, transforms and serializes),
+``predicate`` (a ``ColumnPredicate`` in wire form, applied below decode)
+and ``projection`` (the fields read), ``cache_stage`` (``post-decode``:
+the cache holds the batches before the batch transform) and
+``reader_family`` (``row`` or ``columnar`` decode; a family this worker
+cannot serve falls back to the constructed one, bytes identical, counted
+in ``petastorm_columnar_batches_total``).
+
+Transport: each stream negotiates its tier
+(:mod:`petastorm_tpu_torch.service.transport`): a client on this host that
+advertises shared memory is served through a
+:class:`~petastorm_tpu_torch.service.shm_ring.RingProducer`, every other
+stream over TCP. With a cache and a mode other than ``tcp`` the cache's
+entries live in a :class:`~petastorm_tpu_torch.service.shm_ring.FramePool`,
+so warm batches travel as references into it.
+
 Flow control: a ``credits`` field bounds the batches in flight; the client
 replenishes with ``credit`` messages as it consumes, and a worker out of
 credits waits for them (``credit_wait_s``). A ``diagnostics`` request
@@ -68,8 +91,8 @@ from petastorm_tpu_torch.reader_impl.framed_socket import (
     ProtocolError,
     encode_payload,
     send_framed,
-    send_framed_frames,
 )
+from petastorm_tpu_torch.service.piece_engine import CACHE_STAGES
 from petastorm_tpu_torch.service.resilience import (
     arrival_deadline,
     deadline_exceeded_reply,
@@ -79,10 +102,12 @@ from petastorm_tpu_torch.service.resilience import (
 from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.clockalign import OffsetEstimator
 from petastorm_tpu_torch.telemetry.metrics import (
+    COLUMNAR_BATCHES,
     WORKER_ACTIVE_STREAMS,
     WORKER_BATCHES_SENT,
     WORKER_CREDIT_WAIT,
     WORKER_DECODE_SECONDS,
+    WORKER_HANDOFF_SECONDS,
     WORKER_READERS_CONSTRUCTED,
     WORKER_ROWS_SENT,
     WORKER_STREAMS,
@@ -99,8 +124,6 @@ _COMPLETED_SNAPSHOTS_KEPT = 16
 #: ``BatchWorker`` arguments this slice does not take: the value that asks
 #: for nothing, and the service slice that ports the feature.
 UNPORTED_WORKER_ARGS = {
-    "batch_cache": (None, "the decoded-batch cache on workers comes with the fleet, "
-                          "slice (d)"),
     "fleet_cache": (False, "the fleet cache tier comes with slice (d)"),
     "standby": (False, "standby capacity and the autoscaler come with slice (d)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
@@ -110,10 +133,6 @@ UNPORTED_WORKER_ARGS = {
 #: refused with the slice that serves it.
 _UNPORTED_STREAM_ATTRS = {
     "packing": "worker-side packing comes with slice (f)",
-    "predicate": "the hoisted row filter (a graph rewrite) comes with slice (c2)",
-    "projection": "hoisted column pruning (a graph rewrite) comes with slice (c2)",
-    "fused": "stage fusion (a graph rewrite) comes with slice (c2)",
-    "reader_family": "the row/columnar family rewrite comes with slice (c2)",
 }
 
 
@@ -132,6 +151,34 @@ def _resolve_factory(reader_factory):
         raise ValueError(f"reader_factory must be a callable or one of {_FACTORIES}, "
                          f"got {reader_factory!r}")
     return factories[reader_factory]
+
+
+def _digest_code(digest, code):
+    """Feed a code object's behaviour (bytecode, names, constants, nested
+    code objects) into ``digest``; not ``repr(co_consts)``, whose nested
+    code reprs carry addresses and paths that change every process."""
+    digest.update(code.co_code)
+    digest.update(" ".join(code.co_names).encode())
+    for const in code.co_consts:
+        if hasattr(const, "co_code"):
+            _digest_code(digest, const)
+        else:
+            digest.update(repr(const).encode())
+
+
+def _transform_identity(fn):
+    """The cache key's name for a batch transform: ``module:qualname`` and a
+    digest of its code, so an edited transform misses the disk tier. A
+    closure's captured values are not seen."""
+    identity = f"{getattr(fn, '__module__', '')}:{getattr(fn, '__qualname__', repr(fn))}"
+    code = getattr(fn, "__code__", None)
+    if code is not None:
+        import hashlib
+
+        digest = hashlib.blake2b(digest_size=8)
+        _digest_code(digest, code)
+        identity += f"#{digest.hexdigest()}"
+    return identity
 
 
 class _PieceOutputs:
@@ -174,8 +221,14 @@ class BatchWorker:
         to each batch before it is serialized, unless the stream asks for
         ``transform_placement="local"`` (the client then runs the same
         callable); timed into ``petastorm_service_worker_transform_seconds``.
-    :param transport: ``"auto"``, ``"tcp"`` or ``None``
-        (``$PETASTORM_TRANSPORT``); both serve TCP (``"shm"`` raises).
+    :param batch_cache: a :class:`~petastorm_tpu_torch.cache_impl.BatchCache`
+        or ``None``. Each stream looks its pieces up (and fills them)
+        through the streaming piece engine; a warm piece is sent from the
+        cache's frames. Batch boundaries then align with pieces. The worker
+        owns it: :meth:`stop` calls its ``cleanup()``.
+    :param transport: ``"auto"`` (negotiate shared memory with a client on
+        this host, TCP otherwise), ``"tcp"`` (never negotiate), ``"shm"``
+        (as ``"auto"``) or ``None`` (``$PETASTORM_TRANSPORT``).
     :param metrics_port: the port of this process's metrics endpoint,
         advertised at registration (the CLI serves it).
     :param on_piece_error: ``"fail"`` (a piece whose decode fails errors the
@@ -183,8 +236,8 @@ class BatchWorker:
         with a ``piece_failed`` frame and serves on; the engine rebuilds its
         reader).
 
-    ``batch_cache``, ``fleet_cache``, ``standby`` and a ``corpus`` raise
-    NotImplementedError naming the argument and its slice.
+    ``fleet_cache``, ``standby`` and a ``corpus`` raise NotImplementedError
+    naming the argument and its slice.
     """
 
     #: Seconds between stop-flag checks while a stream waits for credits.
@@ -199,8 +252,7 @@ class BatchWorker:
                  fleet_cache=False):
         from petastorm_tpu_torch.service.transport import resolve_mode
 
-        given = {"batch_cache": batch_cache, "fleet_cache": fleet_cache, "standby": standby,
-                 "corpus": corpus or ""}
+        given = {"fleet_cache": fleet_cache, "standby": standby, "corpus": corpus or ""}
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
                              f"{on_piece_error!r}")
@@ -209,15 +261,21 @@ class BatchWorker:
             if value != default:
                 raise NotImplementedError(f"BatchWorker({name}=...) is not ported yet: "
                                           f"{reason}")
-        resolve_mode(transport)  # "auto" and "tcp" are TCP; "shm" raises
         self.dataset_url = dataset_url
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
         self._dispatcher_address = tuple(dispatcher_address) if dispatcher_address else None
         self._batch_size = batch_size
+        self._batch_cache = batch_cache
         self._batch_transform = batch_transform
         self._on_piece_error = on_piece_error
         self._factory = _resolve_factory(reader_factory)
-        self._factory_name = reader_factory if isinstance(reader_factory, str) else None
+        # The cache key's family tag: the three families collate codec
+        # columns differently, so their entries must not cross.
+        self._factory_name = (reader_factory if isinstance(reader_factory, str)
+                              else getattr(reader_factory, "__qualname__", repr(reader_factory)))
+        self._transport_mode = resolve_mode(transport)
+        self._frame_pool = None  # armed in start() when shm is possible
+        self._transport_streams = {"tcp": 0, "shm": 0}
         self._reader_kwargs = dict(reader_kwargs or {})
         for owned in ("piece_indices", "num_epochs", "shuffle_row_groups",
                       "rowgroup_selector", "cur_shard", "shard_count", "shard_seed"):
@@ -232,10 +290,11 @@ class BatchWorker:
         self._rpc_deadline_s = rpc_deadline_s
         self._max_frame_bytes = max_frame_bytes
         self.num_pieces = None
+        self._piece_signatures = None  # (path, row_group) per piece, for the cache key
         self._lock = threading.Lock()
-        self._active = {}     # stream key -> {"reader", "flow"}
-        self._completed = {}  # stream key -> final diagnostics
-        self._streams_served = 0
+        self._active = {}        # stream key -> {"reader", "flow"}
+        self._completed = {}     # stream key -> final diagnostics
+        self._cache_epochs = {}  # epoch -> {"hits", "misses"} of the streams' lookups
         self._m_batches = WORKER_BATCHES_SENT.labels(self.worker_id)
         self._m_rows = WORKER_ROWS_SENT.labels(self.worker_id)
         self._m_credit_wait = WORKER_CREDIT_WAIT.labels(self.worker_id)
@@ -243,6 +302,11 @@ class BatchWorker:
         self._m_decode = WORKER_DECODE_SECONDS.labels(self.worker_id)
         self._m_readers = WORKER_READERS_CONSTRUCTED.labels(self.worker_id)
         self._m_transform = WORKER_TRANSFORM_SECONDS.labels(self.worker_id)
+        self._m_handoff = WORKER_HANDOFF_SECONDS.labels(self.worker_id)
+        # Batches a columnar request was served columnar, or fell back to
+        # the row path for (interned: one counter increment a batch).
+        self._m_columnar = {path: COLUMNAR_BATCHES.labels(self.worker_id, path)
+                            for path in ("columnar", "row_fallback")}
         self.metrics_port = int(metrics_port) if metrics_port is not None else None
         # NTP-style offset samples around each heartbeat, shipped with the
         # pushed trace rings; True while heartbeat replies arm fleet tracing.
@@ -258,6 +322,20 @@ class BatchWorker:
 
     def start(self):
         self.num_pieces = self._count_pieces()
+        if self._transport_mode != "tcp" and self._batch_cache is not None:
+            # The cache's entries are placed in a shared frame pool, so a
+            # warm piece travels as (offset, len) references; armed before
+            # any fill. A pool that cannot be set up leaves shm streams
+            # serving copies.
+            from petastorm_tpu_torch.service.shm_ring import FramePool, ShmSetupError
+
+            try:
+                self._frame_pool = FramePool()
+            except ShmSetupError as exc:
+                logger.warning("shm frame pool setup failed: warm serves will copy instead "
+                               "of map: %s", exc)
+            else:
+                self._batch_cache.set_frame_allocator(self._frame_pool.allocate)
         self._server.start()
         if self._dispatcher_address is not None:
             try:
@@ -297,6 +375,16 @@ class BatchWorker:
                 reader.stop()
             except Exception:
                 logger.warning("straggler stream reader stop failed", exc_info=True)
+        if self._batch_cache is not None:
+            try:
+                self._batch_cache.cleanup()
+            except Exception:
+                logger.warning("batch cache cleanup failed", exc_info=True)
+        if self._frame_pool is not None:
+            # After the cache's cleanup: entries on pool memory go first.
+            self._batch_cache.set_frame_allocator(None)
+            self._frame_pool.close()
+            self._frame_pool = None
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=drain_timeout_s)
         if self._trace_armed_remote:
@@ -334,14 +422,18 @@ class BatchWorker:
 
     def _count_pieces(self):
         """The dataset's row-group pieces under the planning arguments every
-        stream reader uses: the count the dispatcher's plan is in."""
+        stream reader uses: the count the dispatcher's plan is in. Their
+        ``(path, row_group)`` identities are the cache key's content
+        signature (a re-written dataset under the same URL misses)."""
         from petastorm_tpu_torch.fs_utils import get_filesystem_and_path_or_paths
         from petastorm_tpu_torch.reader.reader import enumerate_row_group_pieces
 
         fs, path = get_filesystem_and_path_or_paths(
             self.dataset_url, storage_options=self._reader_kwargs.get("storage_options"),
             filesystem=self._reader_kwargs.get("filesystem"))
-        return len(enumerate_row_group_pieces(fs, path, self._reader_kwargs.get("filters")))
+        pieces = enumerate_row_group_pieces(fs, path, self._reader_kwargs.get("filters"))
+        self._piece_signatures = [(piece.path, piece.row_group) for piece in pieces]
+        return len(pieces)
 
     def _register(self, re_register=False, retries=None):
         host, port = self.address
@@ -481,9 +573,6 @@ class BatchWorker:
         for attr, reason in _UNPORTED_STREAM_ATTRS.items():
             if header.get(attr):
                 return f"stream attribute {attr!r} is not ported yet: {reason}"
-        if (header.get("cache_stage") or "post-transform") != "post-transform":
-            return ("stream attribute 'cache_stage' is not ported yet: the cache "
-                    "placement rewrite comes with slice (c2)")
         if header.get("transform_placement") == "remote" and self._batch_transform is None:
             return ("stream requested transform_placement='remote' but this worker has no "
                     "batch_transform armed — start it with --batch-transform module:attr "
@@ -491,16 +580,91 @@ class BatchWorker:
                     "with transform_placement='local'")
         return None
 
+    def _stream_rewrites(self, header):
+        """A stream's graph rewrites, parsed and checked: ``(rewrites,
+        columnar_path)``, or ``(error text, None)``. ``columnar_path`` is
+        the label this stream's batches count under in
+        ``petastorm_columnar_batches_total`` (None: no family asked for)."""
+        dynamic, tagged = bool(header.get("dynamic")), bool(header.get("tagged"))
+        fused = bool(header.get("fused"))
+        cache_stage = header.get("cache_stage") or "post-transform"
+        predicate = None
+        if header.get("predicate") is not None:
+            from petastorm_tpu_torch.predicates import ColumnPredicate
+
+            try:
+                predicate = ColumnPredicate.from_wire(header["predicate"])
+            except ValueError as exc:
+                return f"bad stream predicate: {exc}", None
+            if self._reader_kwargs.get("predicate") is not None:
+                return ("stream carries a predicate but this worker was constructed with "
+                        "reader_kwargs['predicate'] — one row filter per stream: drop one "
+                        "of the two"), None
+        projection = ([str(f) for f in header["projection"]]
+                      if header.get("projection") else None)
+        if cache_stage not in CACHE_STAGES:
+            return f"unknown cache_stage {cache_stage!r} (post-transform|post-decode)", None
+        family = header.get("reader_family")
+        if family not in (None, "row", "columnar"):
+            return f"unknown reader_family {family!r} (row|columnar)", None
+        engine = (dynamic or tagged or self._batch_cache is not None) \
+            and self._engine_supported()
+        swap, effective = self._resolve_stream_family(family, engine)
+        columnar_path = None
+        if effective == "columnar":
+            columnar_path = "columnar"
+        elif family == "columnar":
+            columnar_path = "row_fallback"
+            logger.warning("stream requested reader_family='columnar' but this serving path "
+                           "cannot vectorize (constructed family %r); serving the row path, "
+                           "decoded bytes are identical", self._factory_name)
+        rewriting = (fused or predicate is not None or projection is not None
+                     or cache_stage != "post-transform")
+        if rewriting and not engine:
+            return ("stream requested a graph rewrite (fused/predicate/projection/"
+                    "cache_stage) but this serving path cannot apply it: rewrites run "
+                    "inside the streaming piece engine (tagged/dynamic protocols, "
+                    "reader_pool_type='thread') — use static or dynamic sharding"), None
+        return {"fused": fused, "predicate": predicate, "projection": projection,
+                "cache_stage": cache_stage, "family": swap}, columnar_path
+
+    def _resolve_stream_family(self, requested, engine):
+        """``(swap, effective)`` for a stream's requested decode family:
+        ``swap`` is the factory the engine's reader is built with (None:
+        the constructed one serves, or the request cannot be honored),
+        ``effective`` the family that decodes. A swap needs the engine (it
+        builds a reader a stream); a batch-family worker has nothing to
+        vectorize; an NGram or a row-level ``transform_spec`` is per row."""
+        constructed = self._factory_name
+        if requested is None or requested == constructed:
+            return None, constructed
+        if not engine or constructed not in ("row", "columnar"):
+            return None, constructed
+        if requested == "columnar" and (self._reader_kwargs.get("ngram") is not None
+                                        or self._reader_kwargs.get("transform_spec")
+                                        is not None):
+            return None, constructed
+        return requested, requested
+
     def _stream(self, sock, header, conn_reader):
         """Serve one ``stream`` request: batches of the named pieces, then
         ``end``. A reader or collation error becomes an ``error`` message
         (the client raises it); a client hang-up ends the stream. A
         request whose propagated deadline expired before it was read is
-        refused (retryable) before a reader is built."""
+        refused (retryable) before a reader is built. Once the transport is
+        negotiated every frame of the stream goes through ``tx`` (TCP or
+        the shm ring); the client's credits and queue edits stay on TCP."""
+        from petastorm_tpu_torch.service.transport import negotiate_worker_tx
+
         if deadline_expired(arrival_deadline(header)):
             send_framed(sock, deadline_exceeded_reply("worker.stream"))
             return
         refusal = self._refusal(header)
+        rewrites = columnar_path = None
+        if refusal is None:
+            rewrites, columnar_path = self._stream_rewrites(header)
+            if isinstance(rewrites, str):
+                refusal = rewrites
         if refusal is not None:
             send_framed(sock, {"type": "error", "error": refusal})
             return
@@ -528,41 +692,58 @@ class BatchWorker:
         credits = int(credits) if credits is not None else None
         flow = {"credits_window": credits, "credits_left": credits, "batches_sent": 0,
                 "credit_wait_s": 0.0}
+        if columnar_path is not None:
+            flow["columnar_path"] = columnar_path
         stream_key = uuid.uuid4().hex[:8]
         state = {"reader": None, "flow": flow}
         outcome = "aborted"  # until the `end` frame is sent
         with self._lock:
             self._active[stream_key] = state
-            self._streams_served += 1
         self._m_active.inc()
+        epoch = header.get("epoch")
+        tx = None
         try:
+            tx, extra_credits, early_frames = negotiate_worker_tx(
+                sock, conn_reader, header, self._transport_mode, pool=self._frame_pool)
+            if credits is not None and extra_credits:
+                flow["credits_left"] += extra_credits
+            with self._lock:
+                self._transport_streams[tx.transport] += 1
+            common = dict(epoch=epoch, shuffle_seed=shuffle_seed, transform_fn=transform_fn,
+                          rewrites=rewrites)
             if dynamic:
-                rows_sent = self._stream_dynamic(
-                    sock, conn_reader, state, pieces, flow, credits, stream_key,
-                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
-                    transform_fn=transform_fn)
+                rows_sent = self._stream_dynamic(tx, conn_reader, state, pieces, flow, credits,
+                                                 stream_key, early_frames=early_frames,
+                                                 **common)
             elif tagged and self._engine_supported():
-                rows_sent = self._stream_pieces_tagged(
-                    sock, conn_reader, state, pieces, flow, credits, stream_key, starts,
-                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
-                    transform_fn=transform_fn)
+                rows_sent = self._stream_pieces_tagged(tx, conn_reader, state, pieces, flow,
+                                                       credits, stream_key, starts, **common)
             elif tagged:
                 rows_sent = self._stream_pieces_tagged_reader(
-                    sock, conn_reader, state, pieces, flow, credits, stream_key, starts,
-                    epoch=header.get("epoch"), shuffle_seed=shuffle_seed,
-                    transform_fn=transform_fn)
+                    tx, conn_reader, state, pieces, flow, credits, stream_key, starts,
+                    epoch=epoch, shuffle_seed=shuffle_seed, transform_fn=transform_fn)
+            elif self._batch_cache is not None and self._engine_supported():
+                # Untagged and cached: the same engine loop, without tags.
+                rows_sent = self._stream_pieces_tagged(tx, conn_reader, state, pieces, flow,
+                                                       credits, stream_key, {}, tagged=False,
+                                                       **common)
             else:
                 if shuffle_seed is not None:
                     logger.warning(
                         "stream requested shuffle_seed=%s but intra-piece batches will "
                         "serve in canonical order: the stream is untagged, so it serves "
                         "through the plain whole-set reader", shuffle_seed)
-                rows_sent = self._stream_pieces_direct(
-                    sock, conn_reader, state, pieces, flow, credits, stream_key,
-                    transform_fn=transform_fn)
+                if self._batch_cache is not None:
+                    rows_sent = self._stream_pieces_cached(
+                        tx, conn_reader, state, pieces, flow, credits, stream_key,
+                        epoch=epoch, transform_fn=transform_fn)
+                else:
+                    rows_sent = self._stream_pieces_direct(
+                        tx, conn_reader, state, pieces, flow, credits, stream_key,
+                        transform_fn=transform_fn)
             if rows_sent is None:
                 return  # the worker stopped mid-stream
-            send_framed(sock, {"type": "end", "rows": rows_sent, "pieces": pieces})
+            tx.send({"type": "end", "rows": rows_sent, "pieces": pieces})
             outcome = "completed"
         except (ConnectionClosedError, OSError, ProtocolError):
             outcome = "disconnected"
@@ -570,8 +751,19 @@ class BatchWorker:
         except Exception as exc:
             outcome = "error"
             logger.exception("stream %s failed (pieces %s)", stream_key, pieces)
-            send_framed(sock, {"type": "error", "error": str(exc)})
+            # Through tx: after an shm offer the client reads the ring.
+            if tx is not None:
+                tx.send({"type": "error", "error": str(exc)})
+            else:
+                send_framed(sock, {"type": "error", "error": str(exc)})
         finally:
+            if tx is not None:
+                # A ring is the stream's: detach (the consumer drains every
+                # committed record first) and unmap. TCP's close does nothing.
+                try:
+                    tx.close()
+                except Exception:
+                    logger.warning("stream transport close failed", exc_info=True)
             with self._lock:
                 self._active.pop(stream_key, None)
                 reader = state["reader"]
@@ -593,7 +785,7 @@ class BatchWorker:
                              shuffle_row_groups=False, cur_shard=0, shard_count=1,
                              **self._reader_kwargs)
 
-    def _stream_pieces_direct(self, sock, conn_reader, state, pieces, flow, credits,
+    def _stream_pieces_direct(self, tx, conn_reader, state, pieces, flow, credits,
                               stream_key, transform_fn=None):
         """Untagged serving: one reader over the piece set, batches
         collated across piece boundaries. Rows sent, or None when the
@@ -620,10 +812,62 @@ class BatchWorker:
                 batch = transform_fn(batch)
             rows = _batch_rows(batch)
             fmt, frames = encode_payload(batch)
-            if not self._send_stream_batch(sock, conn_reader, flow, credits, bid, rows,
+            if not self._send_stream_batch(tx, conn_reader, flow, credits, bid, rows,
                                            fmt, frames):
                 return None
             rows_sent += rows
+
+    def _stream_pieces_cached(self, tx, conn_reader, state, pieces, flow, credits,
+                              stream_key, epoch=None, transform_fn=None):
+        """Untagged cached serving for a process pool (no engine): a warm
+        piece is sent from the cache's frames, a cold one is read through a
+        reader of its own, each batch encoded once for the send and the
+        fill. A stream stopped mid-piece publishes nothing of it."""
+        from petastorm_tpu_torch.torch_utils.batcher import batch_iterator
+
+        cache, collector, rows_sent = self._batch_cache, tracing.COLLECTOR, 0
+        for piece in pieces:
+            key = self._piece_cache_key(piece, transformed=transform_fn is not None)
+            entry = cache.get(key)
+            self._note_cache_lookup(epoch, hit=entry is not None)
+            if entry is not None:
+                for cached in entry.batches():
+                    bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+                    if not self._send_stream_batch(tx, conn_reader, flow, credits, bid,
+                                                   cached.rows, cached.fmt, cached.frames):
+                        return None
+                    rows_sent += cached.rows
+                continue
+            reader = self._make_stream_reader([piece])
+            with self._lock:
+                state["reader"] = reader
+            builder = cache.begin_fill(key)
+            try:
+                batches = iter(batch_iterator(reader, self._batch_size, last_batch="keep"))
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(batches, None)
+                    t1 = time.perf_counter()
+                    if batch is None:
+                        break
+                    self._m_decode.observe(t1 - t0)
+                    bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
+                    if collector.enabled:
+                        collector.record_span("worker.decode", t0, t1, bid=bid)
+                    if transform_fn is not None:
+                        batch = transform_fn(batch)
+                    rows, fmt, frames = builder.add_batch(batch)
+                    if not self._send_stream_batch(tx, conn_reader, flow, credits, bid, rows,
+                                                   fmt, frames):
+                        return None
+                    rows_sent += rows
+                builder.commit()
+            finally:
+                with self._lock:
+                    state["reader"] = None
+                reader.stop()
+                reader.join()
+        return rows_sent
 
     # -- the streaming piece engine's paths --------------------------------
 
@@ -633,16 +877,29 @@ class BatchWorker:
         return self._reader_kwargs.get("reader_pool_type", "thread") in ("thread", "dummy")
 
     def _make_engine(self, epoch, shuffle_seed=None, transform_fn=None,
-                     allow_quarantine=False):
+                     allow_quarantine=False, rewrites=None):
         """One engine for a whole stream over one lazily built
-        ``dynamic_ventilation=True`` reader. ``shuffle_seed`` arms the
-        serve-time batch permutation ``seedtree.batch_permutation(seed,
-        epoch, piece, n)``: pure, so every re-serve replays the same order
-        against the same watermarks."""
+        ``dynamic_ventilation=True`` reader (a warm stream builds none).
+        ``shuffle_seed`` arms the serve-time batch permutation
+        ``seedtree.batch_permutation(seed, epoch, piece, n)``: pure, so
+        every re-serve replays the same order against the same watermarks.
+        ``rewrites``: the stream's predicate (below decode), projection
+        (the fields read), fusion, cache stage and family swap; each is in
+        the cache key, so entries of two topologies never cross."""
         from petastorm_tpu_torch.service.piece_engine import StreamingPieceEngine
         from petastorm_tpu_torch.service.seedtree import batch_permutation
 
-        factory, reader_kwargs = self._factory, dict(self._reader_kwargs)
+        rewrites = dict(rewrites or {})
+        predicate, projection = rewrites.get("predicate"), rewrites.get("projection")
+        cache_stage = rewrites.get("cache_stage") or "post-transform"
+        family = rewrites.get("family")
+        factory = _resolve_factory(family) if family else self._factory
+        family_name = family or self._factory_name
+        reader_kwargs = dict(self._reader_kwargs)
+        if predicate is not None:
+            reader_kwargs["predicate"] = predicate
+        if projection is not None:
+            reader_kwargs["schema_fields"] = list(projection)
 
         def build_reader():
             self._m_readers.inc()
@@ -657,11 +914,23 @@ class BatchWorker:
             def permute_fn(piece, n):
                 return batch_permutation(seed, epoch_number, piece, n)
 
+        cache = self._batch_cache
+        # Post-decode entries hold the bytes before the transform, so their
+        # key says "untransformed": a placement flip refills.
+        transformed = transform_fn is not None and cache_stage == "post-transform"
         # Quarantine needs a frame that can say "piece_failed": only the
         # tagged and dynamic protocols have one.
         return StreamingPieceEngine(
-            build_reader, self._batch_size, permute_fn=permute_fn, transform_fn=transform_fn,
-            columnar_collate=self._factory_name == "columnar",
+            build_reader, self._batch_size, cache=cache,
+            cache_key_fn=((lambda piece: self._piece_cache_key(
+                piece, transformed=transformed, predicate=predicate, projection=projection,
+                family=family_name)) if cache is not None else None),
+            cache_note_fn=((lambda hit: self._note_cache_lookup(epoch, hit))
+                           if cache is not None else None),
+            permute_fn=permute_fn, transform_fn=transform_fn,
+            fused=bool(rewrites.get("fused")), cache_stage=cache_stage,
+            handoff_note_fn=self._m_handoff.inc,
+            columnar_collate=family_name == "columnar",
             on_piece_error=self._on_piece_error if allow_quarantine else "fail")
 
     def _note_engine_decode(self, collector, decode_s, bid):
@@ -674,15 +943,17 @@ class BatchWorker:
             t_now = time.perf_counter()
             collector.record_span("worker.decode", t_now - decode_s, t_now, bid=bid)
 
-    def _stream_pieces_tagged(self, sock, conn_reader, state, pieces, flow, credits,
+    def _stream_pieces_tagged(self, tx, conn_reader, state, pieces, flow, credits,
                               stream_key, starts, epoch=None, shuffle_seed=None,
-                              transform_fn=None):
+                              transform_fn=None, rewrites=None, tagged=True):
         """Exactly-once static serving through the engine: piece-aligned
         batches tagged with their piece and ordinal, a ``piece_done`` frame
         after each piece (``piece_failed`` in its place under quarantine).
-        The engine skip-scans past each piece's ``starts`` watermark."""
+        The engine skip-scans past each piece's ``starts`` watermark.
+        ``tagged=False``: the untagged cached stream (no tags, no markers)."""
         collector = tracing.COLLECTOR
-        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True)
+        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=tagged,
+                                   rewrites=rewrites)
         with self._lock:
             # Reader-shaped for diagnostics and teardown (stop / join).
             state["reader"] = engine
@@ -702,34 +973,36 @@ class BatchWorker:
                 _, piece, _gen, ordinal, rows, fmt, frames, decode_s = event
                 bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
                 self._note_engine_decode(collector, decode_s, bid)
-                if not self._send_stream_batch(sock, conn_reader, flow, credits, bid, rows,
-                                               fmt, frames,
-                                               extra_header={"piece": piece,
-                                                             "ordinal": ordinal}):
+                if not self._send_stream_batch(
+                        tx, conn_reader, flow, credits, bid, rows, fmt, frames,
+                        extra_header={"piece": piece, "ordinal": ordinal} if tagged else None):
                     return None
                 rows_sent += rows
             elif event[0] == "piece_failed":
                 _, piece, _gen, error = event
-                send_framed(sock, {"type": "piece_failed", "piece": piece, "error": error})
-            else:
+                tx.send({"type": "piece_failed", "piece": piece, "error": error})
+            elif tagged:
                 _, piece, _gen, rows = event
-                send_framed(sock, {"type": "piece_done", "piece": piece, "rows": rows})
+                tx.send({"type": "piece_done", "piece": piece, "rows": rows})
 
-    def _stream_dynamic(self, sock, conn_reader, state, pieces, flow, credits, stream_key,
-                        epoch=None, shuffle_seed=None, transform_fn=None):
+    def _stream_dynamic(self, tx, conn_reader, state, pieces, flow, credits, stream_key,
+                        epoch=None, shuffle_seed=None, transform_fn=None, rewrites=None,
+                        early_frames=()):
         """Dynamic serving: the engine's queue is the worker's deque, edited
         in-band: ``extend`` appends steal grants, ``revoke`` removes unsent
         pieces (acked with the ones removed, which makes the client's
         revoke-then-extend handshake exactly once), ``finish_pieces`` closes
         the queue. Batches carry their piece, generation and ordinal; each
-        finished piece is announced with ``piece_done``."""
+        finished piece is announced with ``piece_done``. ``early_frames``:
+        queue edits that raced the shm ack, replayed first."""
         if not self._engine_supported():
             raise ValueError(
                 "dynamic streams need the streaming piece engine, which requires "
                 "reader_pool_type='thread' (or 'dummy') — this worker runs "
                 f"{self._reader_kwargs.get('reader_pool_type')!r}")
         collector = tracing.COLLECTOR
-        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True)
+        engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True,
+                                   rewrites=rewrites)
         with self._lock:
             state["reader"] = engine
         for piece, gen, start in pieces:
@@ -743,10 +1016,12 @@ class BatchWorker:
                                    start=int(entry[2]) if len(entry) > 2 else 0)
             elif kind == "revoke":
                 removed = engine.revoke(int(p) for p in msg.get("pieces", []))
-                send_framed(sock, {"type": "revoked", "pieces": removed, "req": msg.get("req")})
+                tx.send({"type": "revoked", "pieces": removed, "req": msg.get("req")})
             elif kind == "finish_pieces":
                 engine.finish()
 
+        for msg in early_frames:
+            on_frame(msg)
         rows_sent = 0
         while True:
             if self._server.stopped.is_set():
@@ -767,21 +1042,21 @@ class BatchWorker:
                 bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
                 self._note_engine_decode(collector, decode_s, bid)
                 if not self._send_stream_batch(
-                        sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+                        tx, conn_reader, flow, credits, bid, rows, fmt, frames,
                         extra_header={"piece": piece, "generation": gen, "ordinal": ordinal},
                         on_frame=on_frame):
                     return None
                 rows_sent += rows
             elif event[0] == "piece_failed":
                 _, piece, gen, error = event
-                send_framed(sock, {"type": "piece_failed", "piece": piece, "generation": gen,
-                                   "error": error})
+                tx.send({"type": "piece_failed", "piece": piece, "generation": gen,
+                         "error": error})
             else:
                 _, piece, gen, rows = event
-                send_framed(sock, {"type": "piece_done", "piece": piece, "generation": gen,
-                                   "rows": rows})
+                tx.send({"type": "piece_done", "piece": piece, "generation": gen,
+                         "rows": rows})
 
-    def _stream_pieces_tagged_reader(self, sock, conn_reader, state, pieces, flow, credits,
+    def _stream_pieces_tagged_reader(self, tx, conn_reader, state, pieces, flow, credits,
                                      stream_key, starts, epoch=None, shuffle_seed=None,
                                      transform_fn=None):
         """Tagged serving for a process pool (no per-item completion marks,
@@ -844,16 +1119,16 @@ class BatchWorker:
                     fmt, frames = encode_payload(batch)
                     bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
                     if not self._send_stream_batch(
-                            sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+                            tx, conn_reader, flow, credits, bid, rows, fmt, frames,
                             extra_header={"piece": piece, "ordinal": ordinal}):
                         return None
                     rows_sent += rows
                     piece_rows += rows
-                send_framed(sock, {"type": "piece_done", "piece": piece, "rows": piece_rows})
+                tx.send({"type": "piece_done", "piece": piece, "rows": piece_rows})
             if output is None:
                 return rows_sent
 
-    def _send_stream_batch(self, sock, conn_reader, flow, credits, bid, rows, fmt, frames,
+    def _send_stream_batch(self, tx, conn_reader, flow, credits, bid, rows, fmt, frames,
                            extra_header=None, on_frame=None):
         """Honor stop, drain and wait for credits, pace, send, account.
         False when the worker stopped (the stream ends without ``end``).
@@ -899,42 +1174,107 @@ class BatchWorker:
         header = {"type": "batch", "rows": rows, "bid": bid}
         if extra_header:
             header.update(extra_header)
-        send_framed_frames(sock, header, fmt, frames)
+        tx.send_frames(header, fmt, frames)
         if tracing.COLLECTOR.enabled:
             tracing.COLLECTOR.record_span("worker.send", t_send, time.perf_counter(), bid=bid)
         flow["batches_sent"] += 1
         self._m_batches.inc()
         self._m_rows.inc(rows)
+        columnar_path = flow.get("columnar_path")
+        if columnar_path is not None:
+            self._m_columnar[columnar_path].inc()
         if credits is not None:
             flow["credits_left"] -= 1
         return True
 
+    #: Epochs whose cache lookups are kept for ``cache_stats_by_epoch``.
+    _CACHE_EPOCHS_KEPT = 64
+
+    def _note_cache_lookup(self, epoch, hit):
+        """One cache lookup, bucketed by the epoch of the stream that made
+        it (the per-epoch cold and warm counts)."""
+        if epoch is None:
+            return
+        with self._lock:
+            bucket = self._cache_epochs.setdefault(int(epoch), {"hits": 0, "misses": 0})
+            bucket["hits" if hit else "misses"] += 1
+            while len(self._cache_epochs) > self._CACHE_EPOCHS_KEPT:
+                self._cache_epochs.pop(min(self._cache_epochs))
+
+    def cache_stats_by_epoch(self):
+        """``{epoch: {"hits", "misses"}}`` of recent epochs (empty uncached)."""
+        with self._lock:
+            return {epoch: dict(bucket) for epoch, bucket in self._cache_epochs.items()}
+
+    def cache_stats(self):
+        """The batch cache's stats, or ``None`` without one."""
+        return self._batch_cache.stats() if self._batch_cache is not None else None
+
+    def _piece_cache_key(self, piece, transformed=False, predicate=None, projection=None,
+                         family=None):
+        """The content key of one piece's batches: the JAX worker's key
+        (same dataset, piece identity, batch size, fields, transforms,
+        filter and family give the same string), so one cache directory
+        serves workers of both packages."""
+        from petastorm_tpu_torch.cache_impl import batch_fingerprint, predicate_ingredient
+
+        kwargs = self._reader_kwargs
+        signature = (self._piece_signatures[int(piece)]
+                     if self._piece_signatures is not None
+                     and int(piece) < len(self._piece_signatures) else int(piece))
+        extra = {"filters": kwargs.get("filters"),
+                 "predicate": repr(kwargs.get("predicate")),
+                 "piece_index": int(piece),
+                 "num_pieces": self.num_pieces,
+                 "last_batch": "keep"}
+        if self._batch_transform is not None:
+            # Entries hold transformed bytes only when the stage ran here.
+            extra["batch_transform"] = (_transform_identity(self._batch_transform)
+                                        if transformed else None)
+        if predicate is not None:
+            # A hoisted filter's entries hold only the surviving rows.
+            extra["stream_predicate"] = predicate_ingredient(predicate)
+        fields = kwargs.get("schema_fields")
+        if projection is not None:
+            fields = sorted(projection)
+        return batch_fingerprint(self.dataset_url, [signature], self._batch_size,
+                                 fields=fields, transform=kwargs.get("transform_spec"),
+                                 factory=family or self._factory_name, extra=extra)
+
     def diagnostics_snapshot(self):
         """Each active stream's reader diagnostics merged with its flow
         state (credits window / left, batches sent, seconds waiting for
-        credits), the final snapshots of recently finished streams, and the
-        worker's lifetime counters under ``metrics``."""
+        credits), the final snapshots of recently finished streams, the
+        worker's lifetime counters under ``metrics`` (the streams each
+        transport served, the columnar batches and, with a cache, its hit
+        and miss totals) and the cache's stats under ``cache``."""
         with self._lock:
             active = {key: dict((entry["reader"].diagnostics
                                  if entry["reader"] is not None else {}), **entry["flow"])
                       for key, entry in self._active.items()}
             completed = {key: dict(diag) for key, diag in self._completed.items()}
-            streams_served = self._streams_served
-        return {
-            "worker_id": self.worker_id,
-            "num_pieces": self.num_pieces,
-            "active_streams": active,
-            "completed_streams": completed,
-            "metrics": {
-                "batches_sent_total": self._m_batches.value,
-                "rows_sent_total": self._m_rows.value,
-                "credit_wait_seconds_total": self._m_credit_wait.value,
-                "active_streams": self._m_active.value,
-                "readers_constructed_total": self._m_readers.value,
-                "transport_streams_tcp_total": streams_served,
-                "transport_streams_shm_total": 0,
-            },
+            transport_streams = dict(self._transport_streams)
+        metrics = {
+            "batches_sent_total": self._m_batches.value,
+            "rows_sent_total": self._m_rows.value,
+            "credit_wait_seconds_total": self._m_credit_wait.value,
+            "active_streams": self._m_active.value,
+            "readers_constructed_total": self._m_readers.value,
+            "transport_streams_tcp_total": transport_streams["tcp"],
+            "transport_streams_shm_total": transport_streams["shm"],
+            "columnar_batches_total": self._m_columnar["columnar"].value,
+            "row_fallback_batches_total": self._m_columnar["row_fallback"].value,
         }
+        out = {"worker_id": self.worker_id, "num_pieces": self.num_pieces,
+               "active_streams": active, "completed_streams": completed,
+               "metrics": metrics}
+        if self._batch_cache is not None:
+            stats = self._batch_cache.stats()
+            metrics["cache_hits_total"] = stats["hits"]
+            metrics["cache_misses_total"] = stats["misses"]
+            metrics["cache_permuted_serves_total"] = stats["permuted_serves"]
+            out["cache"] = stats
+        return out
 
 
 def _batch_rows(batch):

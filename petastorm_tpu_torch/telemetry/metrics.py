@@ -7,8 +7,9 @@ so a scrape of either package reads the same vocabulary. The framed
 transport's, the batch worker's, the dispatcher's and the service
 client's families came with the data service's first slice; the
 failpoints', quarantine's, the resilience layer's and fleet tracing's with
-its control plane; those of modules not ported yet (shm transport
-downgrades, the fleet, the packing stage) come with those modules. Naming
+its control plane; the shared-memory tier's, the columnar counter and the
+graph rewrites' with the data plane of one host; those of modules not
+ported yet (the fleet, the packing stage) come with those modules. Naming
 follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
 counters; label values are bounded (stage names, tiers, a recycled
 per-loader id, a per-controller id), never row- or batch-scoped.
@@ -241,6 +242,37 @@ TRANSPORT_SYSCALLS = REGISTRY.counter(
     "toward zero (bench.py shm_transport leg)",
     labels=("transport",))
 
+TRANSPORT_DOWNGRADES = REGISTRY.counter(
+    "petastorm_transport_downgrades_total",
+    "Stream negotiations that advertised the shm tier but completed over "
+    "TCP, by reason (arena_setup = the worker could not create/pre-fault "
+    "the memfd arena — memfd unavailable or shm exhaustion; client_nack "
+    "= the client could not attach the offered arena, e.g. a container "
+    "boundary between colocated-looking peers). The stream itself "
+    "proceeds on TCP with its credit window intact",
+    labels=("reason",))
+
+# -- shared-memory ring tier (service/shm_ring.py) ---------------------------
+
+SHM_FRAMES = REGISTRY.counter(
+    "petastorm_shm_frames_total",
+    "Payload frames delivered through a shared-memory ring, by path "
+    "(mapped = the frame already lived in the shared frame pool — a warm "
+    "cache hit served as offsets, zero copy; copied = frame bytes "
+    "memcpy'd inline into the ring; spilled = the message exceeded the "
+    "ring's capacity and rode the fallback TCP socket behind an in-ring "
+    "ordering marker). mapped / (mapped + copied + spilled) is the warm "
+    "mapped-serve ratio",
+    labels=("path",))
+SHM_ARENAS = REGISTRY.gauge(
+    "petastorm_shm_arenas",
+    "Live shared-memory mappings in this process, by kind (ring = "
+    "per-stream doorbell'd rings, producer and consumer ends each count "
+    "one; pool = worker-global frame pools backing mapped cache serves). "
+    "Nonzero after every stream and worker is closed means a leaked "
+    "arena — the conftest leak guard fails the test",
+    labels=("kind",))
+
 # -- service: batch worker (service/worker.py) -----------------------------
 
 WORKER_BATCHES_SENT = REGISTRY.counter(
@@ -285,6 +317,38 @@ WORKER_TRANSFORM_SECONDS = REGISTRY.histogram(
     "placement-flippable collated-batch transform, applied when the "
     "stream's transform_placement is remote — docs/guides/pipeline.md)",
     labels=("worker",))
+
+COLUMNAR_BATCHES = REGISTRY.counter(
+    "petastorm_columnar_batches_total",
+    "Batches served through the columnar decode path, per worker and path "
+    "(columnar = vectorized per-column codec kernels decoded the batch; "
+    "row_fallback = a stream requested reader_family='columnar' but this "
+    "worker degraded it to the per-row path — bytes identical, speedup "
+    "lost). columnar / (columnar + row_fallback) is the COL%% column of "
+    "`service status --watch`",
+    labels=("worker", "path"))
+
+# -- fused worker stages (stage-fusion rewrite) ------------------------------
+
+WORKER_HANDOFF_SECONDS = REGISTRY.counter(
+    "petastorm_service_worker_handoff_seconds_total",
+    "Seconds the stream-serving thread spent on per-output hand-off work "
+    "(collation of pool outputs into batches + wire serialization) — the "
+    "overhead the stage-fusion rewrite moves into the pool task. High "
+    "relative to decode seconds is the fusion trigger "
+    "(docs/guides/pipeline.md#graph-rewrites); near zero while fused",
+    labels=("worker",))
+WORKER_FUSED_STAGE_SECONDS = REGISTRY.counter(
+    "petastorm_service_worker_fused_stage_seconds_total",
+    "Seconds spent inside the FUSED pool task, attributed per constituent "
+    "stage — stage fusion collapses the stages into one task but their "
+    "costs stay separately attributable here, feeding the same graph "
+    "nodes the unfused stages would. Labels: collate (includes the "
+    "packing wrapper's work when worker-placed packing is fused; the "
+    "petastorm_packing_* families stay the precise packing measurement) "
+    "and serialize; the transform keeps its own worker_transform_seconds "
+    "family",
+    labels=("stage",))
 
 # -- service: dispatcher (service/dispatcher.py) ---------------------------
 
@@ -371,6 +435,18 @@ CLIENT_TRANSFORM_SECONDS = REGISTRY.histogram(
     "transform_placement is local — high values here with low consumer "
     "stall say the trainer host can afford the stage; the autotuner flips "
     "placement back when it cannot)")
+
+# -- client-side row filter (filter-hoisting rewrite baseline) ---------------
+
+CLIENT_FILTER_ROWS = REGISTRY.counter(
+    "petastorm_service_client_filter_rows_total",
+    "Rows entering (outcome=in) and surviving (outcome=kept) the "
+    "trainer-local row filter (ServiceBatchSource(predicate=...) with "
+    "filter_placement='client'). The kept/in ratio is the measured "
+    "selectivity the filter-hoisting rewrite triggers on: a low ratio "
+    "means most decoded bytes are dropped after the fact, and hoisting "
+    "the predicate below the workers' decode stops paying for them",
+    labels=("outcome",))
 
 # -- failpoints and quarantine (failpoints.py, service/*) --------------------
 

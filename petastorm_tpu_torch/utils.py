@@ -1,9 +1,10 @@
 """Column-wise decode of a row group (the port's own copy of
 ``petastorm_tpu/utils.py::decode_table``) and the row-drop partition of a
-table, shared by the reader's workers; the live resize of a bounded queue
-(``resize_bounded_queue``), which the loader's prefetch depths use; and the
+table, shared by the reader's workers; the reference's per-row
+``decode_row``; the live resize of a bounded queue
+(``resize_bounded_queue``), which the loader's prefetch depths use; the
 retry policy (``retry_with_backoff``, ``backoff_delays``) of the GCS listing
-sweep and the data service's control RPCs."""
+sweep and the data service's control RPCs; and ``run_in_subprocess``."""
 
 from __future__ import annotations
 
@@ -55,6 +56,31 @@ def _decode_column(cells, field):
         return ScalarCodec().decode_column(field, cells)
     except Exception as exc:
         raise DecodeFieldError(f"Decoding field {field.name!r} failed: {exc}") from exc
+
+
+def decode_row(row, schema):
+    """One stored row dict → its decoded values (the reference's public
+    per-row decode): a field with a codec through it, a codec-less tensor
+    field as an ndarray of its dtype, a codec-less scalar through
+    ``ScalarCodec``; None stays None, fields not in ``schema`` are left
+    out."""
+    decoded = {}
+    for name, value in row.items():
+        field = schema.fields.get(name)
+        if field is None:
+            continue
+        try:
+            if value is None:
+                decoded[name] = None
+            elif field.codec is not None:
+                decoded[name] = field.codec.decode(field, value)
+            elif field.shape:
+                decoded[name] = np.asarray(value, dtype=np.dtype(field.numpy_dtype))
+            else:
+                decoded[name] = ScalarCodec().decode(field, value)
+        except Exception as exc:
+            raise DecodeFieldError(f"Decoding field {name!r} failed: {exc}") from exc
+    return decoded
 
 
 def drop_partition(table, shuffle_row_drop_partition):
@@ -139,3 +165,14 @@ def backoff_delays(retries, base_delay, max_delay, jitter=0.5, rng=None):
     for attempt in range(retries):
         delay = min(max_delay, base_delay * (2 ** attempt))
         yield delay * (1.0 + jitter * rng.random())
+
+
+def run_in_subprocess(func, *args, **kwargs):
+    """``func(*args, **kwargs)`` run in a fresh ``spawn`` child process, and
+    its result: for work that must not touch this process (a CUDA context,
+    a library that forks). ``func`` and its arguments must pickle
+    (``func`` defined at module level)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(func, args, kwargs)

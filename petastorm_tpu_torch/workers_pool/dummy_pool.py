@@ -39,6 +39,19 @@ class DummyPool:
         #: item's completion marker, which follows the item's payloads in
         #: the results deque: after every one of them was returned.
         self.item_done_hook = None
+        #: ``fn(pair) -> pair`` applied to each published ``(item_key,
+        #: payload)`` pair: the thread pool's publish hook, run inline.
+        self.publish_transform = None
+
+    def _publish(self, item):
+        transform = self.publish_transform
+        if transform is not None:
+            from petastorm_tpu_torch.reader_impl.delivery_tracker import (
+                apply_publish_transform,
+            )
+
+            item = apply_publish_transform(transform, item)
+        self._results.append(item)
 
     @property
     def diagnostics(self):
@@ -57,7 +70,7 @@ class DummyPool:
         }
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
-        self._worker = worker_class(0, self._results.append, worker_setup_args)
+        self._worker = worker_class(0, self._publish, worker_setup_args)
         if ventilator is not None:
             self._ventilator = ventilator
             ventilator.start()

@@ -67,6 +67,11 @@ class ThreadPool:
         #: :meth:`get_results` drains an item's completion marker: after
         #: every payload of the item (marker and payloads share one FIFO).
         self.item_done_hook = None
+        #: ``fn(pair) -> pair``, applied to each published ``(item_key,
+        #: payload)`` pair on the worker thread before it enters the
+        #: results queue: how stage fusion moves collation, transform and
+        #: serialization into the decode task (``Reader.set_publish_transform``).
+        self.publish_transform = None
         self._counter_lock = threading.Lock()
 
     @property
@@ -85,6 +90,15 @@ class ThreadPool:
         }
 
     def _publish_result(self, item):
+        transform = self.publish_transform
+        if transform is not None:
+            from petastorm_tpu_torch.reader_impl.delivery_tracker import (
+                apply_publish_transform,
+            )
+
+            # On the pool thread: that is the point, the fused task pays
+            # for collation and serialization here, in parallel.
+            item = apply_publish_transform(transform, item)
         with self._counter_lock:
             self._results_pending += 1
         POOL_RESULTS_QUEUE_DEPTH.inc()

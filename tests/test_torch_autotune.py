@@ -612,8 +612,8 @@ def test_graph_validation_and_the_service_refusal():
         assert knob.clamp(9) == 4 and knob.clamp(-3) == 1
 
     # A data-service source (constructing it dials nothing) gets the
-    # service half of the graph: its knobs, the remote worker stages and
-    # the two service signals.
+    # service half of the graph: its knobs (the graph rewrites' among them),
+    # the remote worker stages and the service signals.
     from petastorm_tpu_torch.service import ServiceBatchSource
     from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
 
@@ -622,7 +622,8 @@ def test_graph_validation_and_the_service_refusal():
     graph = port_graph.build_loader_graph(TorchDataLoader(None, source, device="cpu"))
     snapshot = graph.snapshot()
     assert snapshot["knobs"] == {"device_prefetch": 2, "credits": 4, "ready_queue_depth": 8,
-                                 "transform_placement": "remote"}
+                                 "transform_placement": "remote", "stage_fusion": "off",
+                                 "cache_placement": "post-transform", "reader_family": "row"}
     assert {"recv_stall_s", "credit_wait_s"} <= set(snapshot["signals"])
     assert {node.name: node.placement for node in graph.nodes.values()
             if node.side == "worker"} == dict.fromkeys(

@@ -39,7 +39,7 @@ from petastorm_tpu import failpoints as jax_fp
 from petastorm_tpu import service as jax_service
 from petastorm_tpu_torch import failpoints as port_fp
 from petastorm_tpu_torch import service as port_service
-from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection, send_framed
+from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
 from petastorm_tpu_torch.service import (
     BatchWorker,
     Dispatcher,
@@ -564,15 +564,16 @@ class PoisonWorker(BatchWorker):
     """A worker whose piece ``POISON`` does not decode: it announces a
     ``piece_failed`` frame in place of the piece's batches."""
 
-    def _stream_pieces_tagged(self, sock, conn_reader, state, pieces, flow, credits,
+    def _stream_pieces_tagged(self, tx, conn_reader, state, pieces, flow, credits,
                               stream_key, starts, **kwargs):
+        # ``tx``: the stream's negotiated transport (TCP or the shm ring).
         if POISON in pieces:
-            send_framed(sock, {"type": "piece_failed", "piece": POISON,
-                               "error": "undecodable row group"})
+            tx.send({"type": "piece_failed", "piece": POISON,
+                     "error": "undecodable row group"})
         healthy = [p for p in pieces if p != POISON]
         if not healthy:
             return 0
-        return super()._stream_pieces_tagged(sock, conn_reader, state, healthy, flow,
+        return super()._stream_pieces_tagged(tx, conn_reader, state, healthy, flow,
                                              credits, stream_key, starts, **kwargs)
 
 

@@ -345,21 +345,37 @@ def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["dispatcher", "--port", "0", "--mode", "dynamic"], None),
     (["dispatcher", "--port", "0", "--autoscale"], r"slice \(d\)"),
-    (["worker", "--dataset-url", "file:///x", "--cache", "mem"], r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--cache", "mem"], None),
     (["worker", "--dataset-url", "file:///x", "--standby"], r"slice \(d\)"),
     (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"], None),
     (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
-    (["worker", "--dataset-url", "file:///x", "--transport", "shm"], r"slice \(e\)"),
-], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "shm"])
+    (["worker", "--dataset-url", "file:///x", "--cache", "mem", "--fleet-cache"],
+     r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--transport", "shm"], None),
+], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "fleet-cache",
+        "shm"])
 def test_cli_refusals_name_their_slice(argv, match):
-    """The flags of later slices are refused by slice; ``--mode dynamic``
-    and ``--on-piece-error quarantine`` (``match`` None) build their node."""
+    """The flags of later slices are refused by slice; ``--mode dynamic``,
+    ``--on-piece-error quarantine``, ``--cache`` and ``--transport shm``
+    (``match`` None) build their node, as the JAX CLI's do."""
+    from petastorm_tpu.service.cli import _build_parser as jax_parser
+    from petastorm_tpu.service.cli import build_service_node as jax_build
     from petastorm_tpu_torch.service.cli import _build_parser, build_service_node, main
 
     if match is None:
         node = build_service_node(_build_parser().parse_args(argv))
         if argv[0] == "dispatcher":
             assert isinstance(node, Dispatcher) and node.mode == "dynamic"
+        elif "--cache" in argv:
+            twin = jax_build(jax_parser().parse_args(argv))
+            try:
+                assert node._batch_cache.stats() == twin._batch_cache.stats()
+            finally:
+                node._batch_cache.cleanup()
+                twin._batch_cache.cleanup()
+        elif "--transport" in argv:
+            twin = jax_build(jax_parser().parse_args(argv))
+            assert node._transport_mode == twin._transport_mode == "shm"
         else:
             assert isinstance(node, BatchWorker) and node._on_piece_error == "quarantine"
         return
@@ -375,35 +391,48 @@ def test_cli_refusals_name_their_slice(argv, match):
 REFUSALS = [
     ("Dispatcher", {"mode": "dynamic"}, None),
     ("Dispatcher", {"autoscale": True}, "(d)"),
-    ("BatchWorker", {"batch_cache": object()}, "(d)"),
+    ("BatchWorker", {"batch_cache": object()}, None),
     ("BatchWorker", {"fleet_cache": True}, "(d)"),
     ("BatchWorker", {"standby": True}, "(d)"),
     ("BatchWorker", {"on_piece_error": "quarantine"}, None),
     ("BatchWorker", {"corpus": "web"}, "(f)"),
-    ("BatchWorker", {"transport": "shm"}, "(e)"),
-    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, "(c2)"),
-    ("ServiceBatchSource", {"projection": ["id"]}, "(c2)"),
-    ("ServiceBatchSource", {"filter_placement": "worker"}, "(c2)"),
-    ("ServiceBatchSource", {"stage_fusion": "fused"}, "(c2)"),
-    ("ServiceBatchSource", {"cache_placement": "post-decode"}, "(c2)"),
-    ("ServiceBatchSource", {"reader_family": "columnar"}, "(c2)"),
+    ("BatchWorker", {"transport": "shm"}, None),
+    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, None),
+    ("ServiceBatchSource", {"projection": ["id"]}, None),
+    ("ServiceBatchSource", {"filter_placement": "worker"}, None),
+    ("ServiceBatchSource", {"stage_fusion": "fused"}, None),
+    ("ServiceBatchSource", {"cache_placement": "post-decode"}, None),
+    ("ServiceBatchSource", {"reader_family": "columnar"}, None),
     ("ServiceBatchSource", {"packing": {"slots": 2}}, "(f)"),
     ("ServiceBatchSource", {"corpus": "web"}, "(f)"),
     ("ServiceBatchSource", {"job_id": "train-a"}, "(d)"),
-    ("ServiceBatchSource", {"transport": "shm"}, "(e)"),
+    ("ServiceBatchSource", {"transport": "shm"}, None),
 ]
+
+#: What a ported argument needs beside it to be valid, as in the JAX source
+#: (a hoisted filter needs a predicate, the post-decode stage a transform).
+_COMPANIONS = {"filter_placement": {"predicate": {"field": "id", "op": "ge", "value": 3}},
+               "cache_placement": {"transform": lambda batch: batch}}
 
 
 @pytest.mark.parametrize("cls,kwargs,slice_name", REFUSALS,
                          ids=[f"{c}-{next(iter(k))}" for c, k, _ in REFUSALS])
 def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
     name, value = next(iter(kwargs.items()))
+    if slice_name is None and cls == "ServiceBatchSource":
+        kwargs = dict(_COMPANIONS.get(name, {}), **kwargs)
     make = {"Dispatcher": lambda: Dispatcher(**kwargs),
             "BatchWorker": lambda: BatchWorker("file:///nowhere", **kwargs),
             "ServiceBatchSource": lambda: ServiceBatchSource(("127.0.0.1", 1), **kwargs)}[cls]
     if slice_name is None:
         node = make()
-        assert getattr(node, "mode" if name == "mode" else f"_{name}") == value
+        if name == "predicate":
+            assert node._predicate.to_wire() == value
+        elif name == "transport":
+            attr = "_transport_mode" if cls == "BatchWorker" else "_transport"
+            assert getattr(node, attr) == value
+        else:
+            assert getattr(node, "mode" if name == "mode" else f"_{name}") == value
         return
     with pytest.raises(NotImplementedError,
                        match=rf"{name}.*slice \({re.escape(slice_name[1:-1])}\)"):
@@ -497,15 +526,13 @@ def test_build_loader_graph_on_a_service_source_equals_jax():
             stage_to_device=False))
         graphs[pinned] = (port, jax)
         port_snap, jax_snap = port.snapshot(), jax.snapshot()
-        # The rewrite knobs and their trigger signals come with slice (c).
-        later = {"stage_fusion", "reader_family", "filter_placement", "cache_placement"}
-        assert port_snap["knobs"] == {k: v for k, v in jax_snap["knobs"].items()
-                                      if k not in later}
-        assert {"recv_stall_s", "credit_wait_s"} <= set(port_snap["signals"]) \
-            <= set(jax_snap["signals"])
-        assert set(jax_snap["signals"]) - set(port_snap["signals"]) == {
-            "worker_decode_s", "handoff_s", "transform_s", "cache_hits", "cache_misses",
-            "cache_evictions", "filter_rows_in", "filter_rows_kept"}
+        # The rewrite knobs and their trigger signals are bound as in JAX.
+        assert port_snap["knobs"] == jax_snap["knobs"]
+        assert {"stage_fusion", "reader_family", "cache_placement"} <= set(port_snap["knobs"])
+        assert set(port_snap["signals"]) == set(jax_snap["signals"])
+        assert {"worker_decode_s", "handoff_s", "transform_s", "cache_hits", "cache_misses",
+                "cache_evictions", "filter_rows_in", "filter_rows_kept"} \
+            <= set(port_snap["signals"])
         assert {n: (s["side"], s["placement"], s.get("fuse_group"))
                 for n, s in port_snap["stages"].items()} == \
             {n: (s["side"], s["placement"], s.get("fuse_group"))

@@ -287,7 +287,6 @@ def test_transport_mode_resolution(monkeypatch):
     assert transport.resolve_mode() == jax_transport.resolve_mode() == "tcp"
     assert transport.resolve_mode("auto") == "auto"
     monkeypatch.setenv("PETASTORM_TRANSPORT", "shm")
-    with pytest.raises(NotImplementedError, match=r"slice \(e\)"):
-        transport.resolve_mode()
+    assert transport.resolve_mode() == jax_transport.resolve_mode() == "shm"
     with pytest.raises(ValueError, match="transport must be one of"):
         transport.resolve_mode("udp")
