@@ -416,6 +416,46 @@ non-zero exit code):
    probed, applied or reverted, with its reason. No flash kernel runs on
    this phase (counted) and no shared memory stays mapped.
 
+18. ``fleet``: the data service's fleet (``FLEET``; see ``fleet_phase``),
+   after phase 17 in the same process. (a) Phase 4's store and CNN (bf16,
+   the device stage) as two jobs registered through ``JobHandle``,
+   ``fleet-a`` (weight 2) and ``fleet-b`` (weight 1), each training its own
+   model for 3 epochs on the card in a thread of its own, through
+   ``Dispatcher(mode="dynamic", shuffle_seed=18)`` and 2
+   ``BatchWorker(fleet_cache=True)`` of 4 decode threads with a 256 MiB
+   memory cache each (credits 8). ``fleet-b`` starts once ``fleet-a``'s cold
+   epoch filled the caches; from then on the second worker's sends are
+   slowed 0.1 s (``slow-peer``), so steals move its pieces to the first
+   worker, and the workers' ids are chosen so that the second worker owns
+   its own pieces on the ring (a stolen one is served from the peer):
+   each job's per-epoch digests the local reader's, the fleet's cold
+   decodes the 12 pieces once for both jobs, remote warm serves above 0,
+   ``fleet-a``'s plans at ``credit_scale`` 1.0 and ``fleet-b``'s at 0.5,
+   ``petastorm_fleet_job_rows_total`` per job the rows delivered, both
+   losses falling; images/s per job after its first epoch and their ratio.
+   (b) The autoscaler over the CLI, processes without the card:
+   ``dispatcher --mode dynamic
+   --autoscale --autoscale-interval 0.25 --journal-dir ...``, ``worker
+   --cache mem --fleet-cache`` and ``worker --cache mem --fleet-cache
+   --standby`` (heartbeats 0.05 s; their batch transform pauses 0.1 s, a
+   heavy augmentation, so one worker's cold epoch keeps a backlog). Streak
+   planner: one job's 2 epochs admit the standby worker; once it ended the
+   idle fleet drains a worker, which ships its memory tier to the survivor
+   (``cache_handoff`` journaled), and retires it; with it stopped, the next
+   job's 2 epochs decode nothing (the survivor's misses unchanged) with the
+   local reader's digests; a dispatcher restarted from the journal reports
+   the same autoscale counts and hand-offs. Model planner: one job's 2
+   epochs journal at least one ``fleet_plan``, kept across a restart. (c)
+   ``ChaosInjector(seed=19)`` with ``worker_kill_action``,
+   ``job_cancel_action`` and ``worker_drain_action`` over one job's 2 epochs
+   on 3 workers (each send slowed 0.1 s), its events from the first batch on:
+   ``delivery_invariants`` 0 lost, duplicates allowed; then
+   ``dispatcher_restart_action`` alone on a journaled dispatcher after 4
+   batches, ``ordered=True``: 0 lost, 0 duplicated and a
+   ``StreamDigest`` equal to a clean run's. No flash kernel runs on this
+   phase (counted) and no job registration stays open. One ``fleet:`` line
+   carries the figures and the card's name and power limit.
+
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
 shape, the shape the training path launches them at; ``backward`` is dQ +
@@ -576,6 +616,20 @@ DATAPLANE = dict(image=IMAGE, workers=2, workers_count=4, credits=8, cache_mb=25
                  tab_workers_count=2, tab_keep_mod=4, tune_epochs=8,
                  tune={"interval_s": 0.25, "hysteresis": 1, "placement_hysteresis": 1,
                        "rewrite_hysteresis": 2, "probe_defer": 0})
+# Phase 18, the fleet: (a) phase 4's store and CNN, two weighted jobs (2:1)
+# for 3 epochs at once on the card through a dynamic fleet of 2 fleet-cache
+# workers (4 decode threads, 256 MiB memory caches, credits 8), the second
+# worker's warm sends slowed 0.1 s; (b) the autoscaler over the CLI (ticks
+# of 0.25 s, journaled), the workers' transform pausing 0.1 s a batch, with
+# the streak planner then the model's, 2 epochs a job; (c) chaos on one job's
+# 2 epochs over 3 workers (each send slowed 0.1 s, the seeded events, kill,
+# drain, cancel, from the first batch on), then a dispatcher restart alone
+# after 4 batches.
+FLEET = dict(image=IMAGE, workers=2, workers_count=4, credits=8, cache_mb=256, seed=18,
+             weights=(2.0, 1.0), a_epochs=3, a_sync_s=30.0, sync_s=0.1, a_slow_s=0.1,
+             heartbeat_s=0.25, b_epochs=2, b_heartbeat_s=0.05, b_lease_s=2.0,
+             b_transform_s=0.1, autoscale_interval_s=0.25, c_epochs=2, c_workers=3,
+             c_delay_s=0.1, c_seed=19, c_interval_s=0.25, c_restart_after=4)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -5372,6 +5426,480 @@ def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
             "shm_images_per_s": plane["here"]["shm"][0]["images_per_s"]}
 
 
+class _FleetTap:
+    """Phase 18's batch source tap: each batch's ids and a ``StreamDigest``
+    of it as the workers sent it (image and label, in delivery order), then
+    the batch on. ``after_epoch`` is set once a whole epoch went through,
+    ``marked`` once ``mark`` rows did."""
+
+    def __init__(self, source, per_epoch, mark=1):
+        from petastorm_tpu_torch.service.chaos import StreamDigest
+
+        self._source, self._per_epoch, self._mark = source, per_epoch, mark
+        self.ids = []
+        self.after_epoch = threading.Event()
+        self.marked = threading.Event()
+        self.stream = StreamDigest()
+
+    def __call__(self):
+        return _FleetTapIterator(self._source(), self)
+
+
+class _FleetTapIterator(_DigestingIterator):
+    def __init__(self, inner, tap):
+        super().__init__(inner, None)
+        self._tap = tap
+
+    def __next__(self):
+        batch = next(self._inner)
+        tap = self._tap
+        tap.ids.extend(int(i) for i in batch["id"])
+        tap.stream.update({"image": batch["image"], "label": batch["label"]})
+        if len(tap.ids) >= tap._mark:
+            tap.marked.set()
+        if len(tap.ids) >= tap._per_epoch:
+            tap.after_epoch.set()
+        return batch
+
+
+@contextlib.contextmanager
+def _chaos_from_mark(tap, injector):
+    """Run ``injector`` from the moment ``tap`` passed its mark (the streams
+    are up) until the block ends."""
+    starter = threading.Thread(target=lambda: tap.marked.wait(300) and injector.start(),
+                               daemon=True)
+    starter.start()
+    try:
+        yield injector
+    finally:
+        tap.marked.set()  # a block that failed early must not leave it waiting
+        starter.join()
+        injector.stop()
+
+
+def _fleet_slow_batch(batch):
+    """Phase 18 (b)'s worker batch transform (``--batch-transform
+    chip_smoke:_fleet_slow_batch``): the identity after a pause, a heavy
+    augmentation's cost, so one worker's cold epoch keeps a backlog."""
+    time.sleep(FLEET["b_transform_s"])
+    return batch
+
+
+def _fleet_job_run(tap, img, device, epochs, local_digests, part):
+    """Phase 4's CNN fed by ``tap`` (:func:`_image_run`: images/s after the
+    first epoch, each epoch's digests the local reader's, every batch on the
+    card); fails unless the loss fell from its first quarter to its last."""
+    run = _image_run(tap, img, device, epochs, local_digests, part, phase="fleet")
+    first, last = run["quarters"] = quarter_means(run["losses"])
+    if not last < first:
+        fail(f"fleet ({part}): the loss did not fall: quarter means {first:.4f} -> "
+             f"{last:.4f}")
+    return run
+
+
+def _fleet_wait(what, predicate, timeout_s, poll_s=0.05):
+    """Poll ``predicate`` until it returns a true value (returned), or fail."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = predicate()
+        if value:
+            return value
+        if time.monotonic() > deadline:
+            fail(f"fleet: timed out after {timeout_s:.0f}s waiting for {what}")
+        time.sleep(poll_s)
+
+
+def _fleet_owner_tag(service, url, img, cfg, prefix):
+    """A worker-id tag for ``_service_fleet`` under which every piece the
+    dynamic plan gives the second worker is owned by it on the ring
+    (:func:`~petastorm_tpu_torch.cache_impl.hash_ring.placement` over the two
+    workers): those entries stay on the worker that decodes them (no
+    write-through copy), so each one stolen to the first worker in a warm
+    epoch is served from its peer."""
+    from petastorm_tpu_torch.cache_impl.hash_ring import placement
+
+    probe = service.BatchWorker(url, batch_size=img["batch"], reader_factory="row",
+                                reader_kwargs={"workers_count": cfg["workers_count"]})
+    probe.num_pieces = probe._count_pieces()
+    keys = [probe._piece_cache_key(p, family="row") for p in range(probe.num_pieces)]
+    for k in range(1 << 14):
+        tag = f"{prefix}{k}"
+        ids = [f"svc-{tag}-{i}" for i in range(2)]
+        owners = placement(keys[1::2], ids)
+        if set(owners.values()) == {ids[1]}:
+            return tag
+    fail("fleet (a): no worker-id tag gives the second worker's pieces to it on the ring")
+
+
+def _fleet_cli_arm(service, url, cfg, img, device, local_digests, tmp, planner):
+    """(b): the dispatcher (``--autoscale``, journaled) and two fleet-cache
+    workers, one ``--standby``, as ``python -m petastorm_tpu_torch.service``
+    processes without the card; jobs train through them here."""
+    from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+
+    disp_args = ["dispatcher", "--port", "0", "--mode", "dynamic", "--num-epochs",
+                 str(cfg["b_epochs"]), "--shuffle-seed", str(cfg["seed"]), "--journal-dir",
+                 os.path.join(tmp, f"journal-{planner}"), "--lease-timeout",
+                 str(cfg["b_lease_s"]), "--autoscale", "--autoscale-interval",
+                 str(cfg["autoscale_interval_s"]), "--autoscale-planner", planner]
+    children = []
+
+    def request(address, header):
+        with FramedConnection.connect(address, timeout=10.0) as conn:
+            return conn.request(header)
+
+    def fleet_status(address):
+        return request(address, {"type": "status"})[0]
+
+    def start(args, key):
+        child = _cli_node(args)
+        children.append(child)
+        ready = json.loads(child.stdout.readline() or "{}")
+        if not ready.get(key):
+            fail(f"fleet (b) {planner}: a {args[0]} process did not start: "
+                 f"{child.stderr.read()[-2000:]}")
+        return child, ready
+
+    def run_job(address, job, part):
+        with service.JobHandle(address, job):
+            tap = _FleetTap(service.ServiceBatchSource(address, job_id=job,
+                                                       credits=cfg["credits"],
+                                                       dynamic_sync_interval_s=cfg["sync_s"]),
+                            img["rows"])
+            return _fleet_job_run(tap, img, device, cfg["b_epochs"], local_digests, part)
+
+    out = {}
+    try:
+        _, ready = start(disp_args, "port")
+        address = ("127.0.0.1", ready["port"])
+        workers = {}
+        # The serving worker registers first: a fleet with no serving worker
+        # admits a standby one at once.
+        for i in range(2):
+            wid = f"fleet-b-{planner}-{i}"
+            workers[wid], _ = start(
+                ["worker", "--dispatcher", f"127.0.0.1:{address[1]}", "--dataset-url", url,
+                 "--reader", "row", "--batch-size", str(img["batch"]), "--workers-count",
+                 str(cfg["workers_count"]), "--worker-id", wid, "--cache", "mem",
+                 "--cache-mem-mb", str(cfg["cache_mb"]), "--fleet-cache",
+                 "--heartbeat-interval", str(cfg["b_heartbeat_s"]), "--batch-transform",
+                 "chip_smoke:_fleet_slow_batch"] + (["--standby"] if i else []), "worker_id")
+        states = fleet_status(address)["fleet"]["workers_by_state"]
+        if states["serving"] != [f"fleet-b-{planner}-0"] \
+                or states["standby"] != [f"fleet-b-{planner}-1"]:
+            fail(f"fleet (b) {planner}: workers by state {states}")
+        out["job1_images_per_s"] = run_job(address, f"fleet-b-{planner}-1",
+                                           f"b {planner} job 1")["images_per_s"]
+        if planner == "model":
+            plans = _fleet_wait("a journaled fleet_plan",
+                                lambda: fleet_status(address)["fleet"]["fleet_plans"], 15.0)
+            out["fleet_plans"] = len(plans)
+            out["last_plan"] = {k: plans[-1].get(k) for k in ("action", "worker_id",
+                                                              "predicted_rows_s",
+                                                              "whatif_error")}
+        else:
+            if fleet_status(address)["fleet"]["autoscale"]["admit"] < 1:
+                fail(f"fleet (b) streak: the standby worker was not admitted under the "
+                     f"job's backlog: {fleet_status(address)['fleet']}")
+
+            def settled():
+                fleet = fleet_status(address)["fleet"]
+                states = fleet["workers_by_state"]
+                if fleet["autoscale"]["retire"] < 1 or len(states["serving"]) != 1 \
+                        or states["draining"] or not states["standby"]:
+                    return None
+                drained = states["standby"][0]
+                handoffs = [h for h in fleet["cache_handoffs"] if h["worker_id"] == drained]
+                return (fleet, drained, handoffs[-1]) if handoffs else None
+
+            # The job ended and the fleet idles: a worker is drained, ships its
+            # memory tier and is retired to standby.
+            fleet, drained, handoff = _fleet_wait(
+                "a drain, its hand-off and a retire", settled, 30.0)
+            if not handoff["entries"] > 0 or handoff["errors"] or handoff["torn"]:
+                fail(f"fleet (b) streak: the hand-off shipped nothing or failed: {handoff}")
+            survivor = fleet["workers_by_state"]["serving"][0]
+            # The retired worker leaves the pool (its process stops and its
+            # lease expires): the next job is the survivor's alone.
+            _stop_children([workers[drained]])
+            _fleet_wait("the stopped worker's lease to expire",
+                        lambda: not fleet_status(address)["workers"][drained]["alive"],
+                        5.0 * cfg["b_lease_s"])
+            before = request(address, {"type": "worker_diagnostics"})[1][survivor]["metrics"]
+            run2 = run_job(address, f"fleet-b-{planner}-2", f"b {planner} job 2")
+            after = request(address, {"type": "worker_diagnostics"})[1][survivor]["metrics"]
+            if after["cache_misses_total"] != before["cache_misses_total"]:
+                fail(f"fleet (b) streak: the job after the hand-off decoded "
+                     f"{after['cache_misses_total'] - before['cache_misses_total']} pieces")
+            out.update(autoscale=fleet["autoscale"], handoff=handoff, survivor=survivor,
+                       job2_images_per_s=run2["images_per_s"],
+                       misses=after["cache_misses_total"],
+                       hits=after["cache_hits_total"] - before["cache_hits_total"])
+        live = fleet_status(address)["fleet"]
+        _stop_children(children[:1])  # SIGTERM: the dispatcher stops and closes its journal
+        _, ready = start(disp_args, "port")
+        again = fleet_status(("127.0.0.1", ready["port"]))["fleet"]
+        if planner == "streak":
+            same = all(again[k] == live[k] for k in ("autoscale", "cache_handoffs",
+                                                      "fleet_plans"))
+        else:  # the model planner may decide between the reading and the stop
+            same = (again["fleet_plans"][:len(live["fleet_plans"])] == live["fleet_plans"]
+                    and all(again["autoscale"][k] >= v for k, v in live["autoscale"].items()))
+        if not same:
+            fail(f"fleet (b) {planner}: the dispatcher restarted from its journal reports "
+                 f"{again}, the live one {live}")
+        out["restart_autoscale"] = again["autoscale"]
+        out["restart_handoffs"] = len(again["cache_handoffs"])
+    finally:
+        _stop_children([c for c in children if c.returncode is None])
+    return out
+
+
+def fleet_phase(smi, image, cfg=None, device="cuda"):
+    """Phase 18 (see the module docstring); fails the run on any check.
+    ``image`` is phase 4's result (its images/s are reported beside the
+    jobs'). ``cfg`` and ``device`` exist for a small dry run on the host;
+    the run on the card uses the defaults."""
+    import torch
+
+    from petastorm_tpu_torch import failpoints, service
+    from petastorm_tpu_torch.cache_impl import BatchCache
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+    from petastorm_tpu_torch.service import chaos
+    from petastorm_tpu_torch.service.fleet import open_job_registrations
+    from petastorm_tpu_torch.telemetry.metrics import FLEET_JOB_ROWS
+
+    cfg = cfg or FLEET
+    device = torch.device(device)
+    img = cfg["image"]
+    per_epoch = img["rows"]
+    pieces = -(-per_epoch // img["rows_per_row_group"])
+    figures, t_parts = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    fa.reset_launch_counts()
+
+    def cache():
+        return BatchCache(mem_budget_bytes=cfg["cache_mb"] << 20)
+
+    try:
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=img["rows"],
+                                  image_shape=img["image_shape"], num_classes=img["classes"],
+                                  rows_per_row_group=img["rows_per_row_group"])
+        with make_reader(url, schema_fields=["id", "image", "label"], num_epochs=1,
+                         shuffle_row_groups=False, workers_count=1) as reader:
+            local = [(int(r.id), _image_digest(r.image, r.label)) for r in reader]
+        local_digests = collections.Counter(d for _, d in local)
+        local_ids = [i for i, _ in local]
+
+        # (a) Two weighted jobs training at once on the card through one
+        # dynamic fleet of two fleet-cache workers.
+        t0 = time.perf_counter()
+        epochs = cfg["a_epochs"]
+        tag = _fleet_owner_tag(service, url, img, cfg, "fleet-a")
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], tag=tag,
+                                       dispatcher=service.Dispatcher(
+                                           mode="dynamic", num_epochs=epochs,
+                                           shuffle_seed=cfg["seed"]).start(),
+                                       batch_cache=cache, fleet_cache=True,
+                                       heartbeat_interval_s=cfg["heartbeat_s"])
+        jobs = {"fleet-a": cfg["weights"][0], "fleet-b": cfg["weights"][1]}
+        runs, errors, scales = {}, [], {job: [] for job in jobs}
+        try:
+            _fleet_wait("every worker's ring to hold both peers",
+                        lambda: all(w.cache_stats()["peers"] == len(workers) for w in workers),
+                        10.0)
+            rows0 = {job: FLEET_JOB_ROWS.labels(job).value for job in jobs}
+
+            class _Source(service.ServiceBatchSource):
+                def _dispatcher_request(self, header, retries=None):
+                    reply = super()._dispatcher_request(header, retries)
+                    if header.get("type") == "dynamic_plan":
+                        scales[self.job_id].append(reply.get("credit_scale"))
+                    return reply
+
+            # In its cold epoch fleet-a syncs only when a worker's deque drains
+            # (each piece is decoded where planned: a steal's revoke of a piece
+            # in decode would decode it twice); later epochs, like fleet-b's,
+            # rebalance each sync.
+            taps = {job: _FleetTap(_Source(disp.address, job_id=job, credits=cfg["credits"],
+                                           dynamic_sync_interval_s=sync), per_epoch)
+                    for job, sync in (("fleet-a", cfg["a_sync_s"]),
+                                      ("fleet-b", cfg["sync_s"]))}
+
+            def train(job):
+                try:
+                    runs[job] = _fleet_job_run(taps[job], img, device, epochs, local_digests,
+                                               f"a {job}")
+                except BaseException as exc:  # fail() in a thread raises SystemExit
+                    errors.append((job, exc))
+                finally:
+                    taps[job].after_epoch.set()
+
+            # From the warm epochs on, the second worker's sends are slowed
+            # (the slow-peer failpoint, keyed to it): steals move its pieces
+            # to the first worker, which serves them from its peer.
+            slow = failpoints.FaultSchedule(
+                cfg["seed"], points=["slow-peer"], delay_s=cfg["a_slow_s"],
+                targets={"slow-peer": workers[1].worker_id},
+                fires={"slow-peer": {i: "delay" for i in range(100_000)}})
+            with service.JobHandle(disp.address, "fleet-a", weight=jobs["fleet-a"]), \
+                    service.JobHandle(disp.address, "fleet-b", weight=jobs["fleet-b"]):
+                first = threading.Thread(target=train, args=("fleet-a",))
+                first.start()
+                # fleet-b starts once fleet-a's cold epoch filled the cache.
+                taps["fleet-a"].after_epoch.wait(timeout=300)
+                taps["fleet-a"]._source._dynamic_sync_interval_s = cfg["sync_s"]
+                with failpoints.armed(slow):
+                    second = threading.Thread(target=train, args=("fleet-b",))
+                    second.start()
+                    first.join()
+                    second.join()
+                stats = [w.cache_stats() for w in workers]
+                by_job = [w.cache_stats_by_job() for w in workers]
+        finally:
+            _stop_fleet(disp, workers)
+        if errors:
+            fail(f"fleet (a): {errors}")
+        cold = sum(s["misses"] for s in stats)
+        remote = sum(s["remote_hits"] for s in stats)
+        if cold != pieces:
+            fail(f"fleet (a): the fleet decoded {cold} pieces for two jobs of {epochs} epochs "
+                 f"over {pieces} pieces (want {pieces}: each once); lookups by job {by_job}")
+        if not remote > 0:
+            fail(f"fleet (a): no remote warm serve between the workers: {stats}")
+        delivered = {job: len(taps[job].ids) for job in jobs}
+        job_rows = {job: FLEET_JOB_ROWS.labels(job).value - rows0[job] for job in jobs}
+        if job_rows != delivered:
+            fail(f"fleet (a): petastorm_fleet_job_rows_total {job_rows}, rows delivered "
+                 f"{delivered}")
+        if not scales["fleet-a"] or set(scales["fleet-a"]) != {1.0} \
+                or 0.5 not in scales["fleet-b"] or not set(scales["fleet-b"]) <= {0.5, 1.0}:
+            fail(f"fleet (a): plan credit scales {scales} (want fleet-a's 1.0, fleet-b's "
+                 "0.5 while fleet-a has a backlog)")
+        rates = {job: runs[job]["images_per_s"] for job in jobs}
+        t_parts["a"] = time.perf_counter() - t0
+        figures.append(
+            f"(a) 2 jobs x {epochs} epochs on {device} (weights {jobs['fleet-a']:g}:"
+            f"{jobs['fleet-b']:g}, dynamic, 2 fleet-cache workers {tag}): images_per_s "
+            f"fleet-a={rates['fleet-a']:.1f} fleet-b={rates['fleet-b']:.1f} "
+            f"ratio={rates['fleet-a'] / rates['fleet-b']:.3f} (phase 4 alone "
+            f"{image['images_per_s']:.1f}); cold decodes {cold} of {pieces} pieces; "
+            f"remote warm serves {remote}; plan credit_scale {scales}; lookups by job "
+            f"{by_job}; job rows {job_rows}; loss quarters "
+            + " ".join(f"{job}={r['quarters'][0]:.4f}->{r['quarters'][1]:.4f}"
+                       for job, r in runs.items()))
+
+        # (b) The autoscaler over the CLI: the streak planner, then the model's.
+        t0 = time.perf_counter()
+        arms = {planner: _fleet_cli_arm(service, url, cfg, img, device, local_digests, tmp,
+                                        planner)
+                for planner in ("streak", "model")}
+        t_parts["b"] = time.perf_counter() - t0
+        streak, model = arms["streak"], arms["model"]
+        figures.append(
+            f"(b) streak: autoscale {streak['autoscale']} (equal after a journal restart, "
+            f"{streak['restart_handoffs']} hand-off(s)), hand-off {streak['handoff']}, the "
+            f"next job's {cfg['b_epochs']} epochs on {streak['survivor']} decoded 0 "
+            f"({streak['hits']} hits), images_per_s job1={streak['job1_images_per_s']:.1f} "
+            f"job2={streak['job2_images_per_s']:.1f}; model: {model['fleet_plans']} "
+            f"fleet_plan(s), last {model['last_plan']}, autoscale after a journal restart "
+            f"{model['restart_autoscale']}, images_per_s {model['job1_images_per_s']:.1f}")
+
+        # (c) Chaos on one job's epochs: a worker killed, a job cancelled, a
+        # worker drained (at least once); then a dispatcher restart alone
+        # (exactly once, and the stream a clean run's).
+        t0 = time.perf_counter()
+        epochs = cfg["c_epochs"]
+        disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                       cfg["workers_count"], workers=cfg["c_workers"],
+                                       tag="fleet-c",
+                                       dispatcher=service.Dispatcher(
+                                           mode="dynamic", num_epochs=epochs,
+                                           shuffle_seed=cfg["seed"]).start(),
+                                       batch_delay_s=cfg["c_delay_s"])
+        try:
+            with service.JobHandle(disp.address, "fleet-c"):
+                tap = _FleetTap(service.ServiceBatchSource(
+                    disp.address, job_id="fleet-c", credits=cfg["credits"],
+                    dynamic_sync_interval_s=cfg["sync_s"]), per_epoch)
+                injector = chaos.ChaosInjector(
+                    [("worker-kill", chaos.worker_kill_action(workers, min_survivors=2)),
+                     ("job-cancel", chaos.job_cancel_action(lambda: disp.address)),
+                     ("worker-drain", chaos.worker_drain_action(lambda: disp, min_serving=1))],
+                    interval_s=cfg["c_interval_s"], initial_delay_s=0.0, seed=cfg["c_seed"])
+                with _chaos_from_mark(tap, injector):
+                    _fleet_job_run(tap, img, device, epochs, local_digests, "c chaos")
+        finally:
+            _stop_fleet(disp, workers)
+        faults = chaos.delivery_invariants(local_ids * epochs, tap.ids, allow_duplicates=True)
+        events = [label for _, label in injector.events]
+        if not faults["ok"] or injector.errors or not events:
+            fail(f"fleet (c) chaos: {faults}, events {events}, errors {injector.errors}")
+        taps = {}
+        for arm in ("clean", "restart"):
+            journal = os.path.join(tmp, f"journal-c-{arm}")
+
+            def factory(host, port, journal=journal):
+                return service.Dispatcher(host=host, port=port, mode="dynamic",
+                                          num_epochs=epochs, shuffle_seed=cfg["seed"],
+                                          journal_dir=journal)
+
+            holder = [factory("127.0.0.1", 0).start()]
+            disp, workers = _service_fleet(service, url, cfg, "row", img["batch"],
+                                           cfg["workers_count"], tag=f"fleet-c-{arm}",
+                                           dispatcher=holder[0],
+                                           batch_delay_s=cfg["c_delay_s"])
+            try:
+                taps[arm] = _FleetTap(service.ServiceBatchSource(
+                    disp.address, credits=cfg["credits"], ordered=True,
+                    dynamic_sync_interval_s=cfg["sync_s"], heartbeat_interval_s=0.25),
+                    per_epoch, mark=cfg["c_restart_after"] * img["batch"])
+                with contextlib.ExitStack() as stack:
+                    if arm == "restart":
+                        restarts = stack.enter_context(_chaos_from_mark(
+                            taps[arm], chaos.ChaosInjector(
+                                [("dispatcher-restart",
+                                  chaos.dispatcher_restart_action(holder, factory))],
+                                initial_delay_s=0.0, max_events=1)))
+                    _fleet_job_run(taps[arm], img, device, epochs, local_digests, f"c {arm}")
+                replays = holder[0].state_snapshot()["recovery"]["journal_replays"]
+            finally:
+                for worker in workers:
+                    worker.stop()
+                holder[0].stop()
+        restart_faults = chaos.delivery_invariants(local_ids * epochs, taps["restart"].ids,
+                                                   allow_duplicates=False)
+        if not restart_faults["ok"] or restarts.errors or len(restarts.events) != 1 \
+                or replays < 1:
+            fail(f"fleet (c) restart: {restart_faults}, events {restarts.events}, errors "
+                 f"{restarts.errors}, journal replays {replays}")
+        digest = taps["restart"].stream.hexdigest()
+        if digest != taps["clean"].stream.hexdigest():
+            fail("fleet (c) restart: the stream digest differs from the clean run's")
+        t_parts["c"] = time.perf_counter() - t0
+        figures.append(
+            f"(c) chaos (seed {cfg['c_seed']}, {cfg['c_workers']} workers, {epochs} epochs) "
+            f"events {events} -> {faults}; a dispatcher restart alone after "
+            f"{cfg['c_restart_after']} batches -> {restart_faults}, journal_replays {replays}, "
+            f"stream digest {digest} equal to the clean run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        fail(f"fleet: a flash kernel ran on the fleet's path: {launches}")
+    if open_job_registrations():
+        fail(f"fleet: job registrations left open: {open_job_registrations()}")
+    print(f"fleet: gpu={smi!r} " + "; ".join(figures) + "; parts_s="
+          + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items())
+          + f" flash_launches={launches}", flush=True)
+    return {"images_per_s": rates}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -5589,7 +6117,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 17. dataplane -----------------------------------------
+    # -- 4. image ... 18. fleet ---------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -5605,7 +6133,8 @@ def main():
                       ("control", lambda: control_phase(smi)),
                       ("dynamic", lambda: dynamic_phase(smi, out["image"], out["service"])),
                       ("dataplane", lambda: dataplane_phase(smi, out["image"],
-                                                            out["service"]))):
+                                                            out["service"])),
+                      ("fleet", lambda: fleet_phase(smi, out["image"]))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

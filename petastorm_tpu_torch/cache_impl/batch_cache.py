@@ -24,8 +24,13 @@ Thread-safe: lookups, fills and evictions share one lock, file I/O runs
 outside it. Entry files are temp-written and renamed, so processes may
 share a directory. Every cache feeds the registry's eleven ``CACHE_*``
 families as the JAX cache does (summed over the caches of the process),
-and :meth:`BatchCache.stats` keeps its own counts. (The JAX cache's
-failpoints and shm frame allocator are not ported.)
+and :meth:`BatchCache.stats` keeps its own counts. The failpoints
+``cache.write`` (``oserror``: the entry's disk write is skipped;
+``partial``: a torn entry is published, which the load detects and
+deletes) and ``cache.read`` (``oserror``: the load is a miss) live here.
+The fleet cache tier (:mod:`~petastorm_tpu_torch.cache_impl.fleet_tier`)
+wraps a cache through :meth:`BatchCache.peek`, :meth:`BatchCache.put_entry`,
+:meth:`BatchCache.hot_entries` and a deferred :meth:`BatchCache.note_miss`.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import time
 import zlib
 from collections import OrderedDict
 
+from petastorm_tpu_torch import failpoints
 from petastorm_tpu_torch.telemetry.metrics import (
     CACHE_BYTES,
     CACHE_CORRUPT,
@@ -323,9 +329,10 @@ class BatchCache:
         then disk (a disk hit is promoted into memory)."""
         return self.get_tiered(key)[0]
 
-    def get_tiered(self, key):
+    def get_tiered(self, key, count_miss=True):
         """``(entry, tier)`` with ``tier`` ``"mem"`` or ``"disk"``, or
-        ``(None, None)`` on a miss (counted)."""
+        ``(None, None)`` on a miss, counted unless ``count_miss=False`` (the
+        fleet tier counts it only once its remote probe missed too)."""
         t0 = time.perf_counter()
         with self._lock:
             entry = self._entries.get(key)
@@ -345,10 +352,15 @@ class BatchCache:
                 self._m_hits_disk.inc()
                 CACHE_SERVE_SECONDS.observe(time.perf_counter() - t0)
                 return entry, "disk"
+        if count_miss:
+            self.note_miss()
+        return None, None
+
+    def note_miss(self):
+        """Count one lookup no tier answered."""
         with self._lock:
             self.misses += 1
         CACHE_MISSES.inc()
-        return None, None
 
     def note_permuted_serve(self, tier):
         """Count one entry served through a serve-time permutation (called
@@ -357,6 +369,13 @@ class BatchCache:
         with self._lock:
             self.permuted_serves += 1
         CACHE_PERMUTED_SERVES.labels(tier or "mem").inc()
+
+    def peek(self, key):
+        """The memory tier's entry for ``key`` or ``None``, without an LRU
+        touch or a hit / miss count (a peer's fetch must not perturb this
+        cache's statistics or eviction order)."""
+        with self._lock:
+            return self._entries.get(key)
 
     def get_batches(self, key):
         """The decoded ``[{field: ndarray}, ...]`` sequence, or ``None``."""
@@ -384,6 +403,29 @@ class BatchCache:
         for batch in batches:
             builder.add_batch(batch)
         return builder.commit()
+
+    def put_entry(self, key, meta, blob):
+        """Adopt an entry framed elsewhere (a peer's remote serve or drain
+        hand-off): ``meta`` is ``[(rows, fmt, [frame_len, ...]), ...]`` and
+        ``blob`` the contiguous payload, placed through the frame allocator
+        like a local fill. Raises ``ValueError`` when the frame lengths do
+        not sum to the payload's: a torn transfer is never published."""
+        meta = [(int(rows), int(fmt), [int(length) for length in lens])
+                for rows, fmt, lens in meta]
+        expected = sum(length for _, _, lens in meta for length in lens)
+        if expected != len(blob):
+            raise ValueError(f"entry payload is {len(blob)} bytes but meta frames sum to "
+                             f"{expected}")
+        entry = CachedEntry(meta, self._materialize(bytes(blob)))
+        self._publish(key, entry)
+        return entry
+
+    def hot_entries(self):
+        """The memory tier as ``[(key, entry), ...]``, most recently used
+        first (what a draining worker ships). Entries are immutable, so the
+        list stays valid while eviction races it."""
+        with self._lock:
+            return [(key, entry) for key, entry in reversed(self._entries.items())]
 
     def _publish(self, key, entry):
         if self._disk:
@@ -432,7 +474,11 @@ class BatchCache:
         except OSError:
             old_size = None
         tmp_path = None
+        fp = failpoints.ACTIVE
         try:
+            # "oserror" raises into the skip below; "partial" publishes a
+            # torn entry, which the load must detect and never serve.
+            partial = fp is not None and fp.fire("cache.write") == "partial"
             # mkstemp inside the guard: an unwritable or vanished directory
             # degrades the cache for this entry, it does not fail the stream.
             fd, tmp_path = tempfile.mkstemp(dir=self._dir, suffix=".tmp")
@@ -440,7 +486,7 @@ class BatchCache:
                 f.write(_MAGIC)
                 f.write(_LEN.pack(len(meta)))
                 f.write(meta)
-                f.write(entry.buf)
+                f.write(entry.buf[:entry.nbytes // 2] if partial else entry.buf)
             os.replace(tmp_path, path)
         except OSError:  # disk full, directory removed, fd exhaustion
             with self._lock:
@@ -484,6 +530,9 @@ class BatchCache:
     def _load_disk(self, key):
         path = self._entry_path(key)
         try:
+            fp = failpoints.ACTIVE
+            if fp is not None:
+                fp.fire("cache.read")  # "oserror": a miss, never a stream error
             with open(path, "rb") as f:
                 blob = f.read()
         except OSError:

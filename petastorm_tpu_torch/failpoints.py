@@ -39,7 +39,9 @@ Failpoint vocabulary (point → actions a schedule may choose):
 The vocabulary is the JAX package's whole, so a schedule's decisions
 match across the packages for any point set. The port's sites are those
 of its ported modules: the journal's three, ``dispatcher.reply``,
-``worker.heartbeat``, ``slow-peer``, ``breaker-trip`` and ``hedge-race``.
+``worker.heartbeat``, ``slow-peer``, ``breaker-trip``, ``hedge-race``, the
+batch cache's ``cache.write`` and ``cache.read``, and the fleet cache
+tier's ``handoff-torn`` and ``cache-peer-gone``.
 
 Arming is process-wide and scoped::
 

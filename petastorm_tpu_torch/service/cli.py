@@ -33,8 +33,17 @@ state as one JSON line (``--table``: one row per worker with its breaker
 state, the transport its streams negotiated and, under dynamic sharding,
 its steals in / out and backlog; the ownership generation in the header;
 the brownout, quarantine and journal lines; with ``--trainer-metrics`` the
-autotuner's knobs and decisions of a trainer's metrics endpoint). ``--journal-dir``
-makes the dispatcher durable: a restart on the same directory replays it.
+autotuner's knobs and decisions of a trainer's metrics endpoint; ``--watch``:
+the fleet view refreshed every ``--interval`` seconds, with per-worker rates,
+the cache tier, worker states, jobs, the last fleet plan and hand-off).
+``--journal-dir`` makes the dispatcher durable: a restart on the same
+directory replays it.
+
+The fleet: ``dispatcher --autoscale [--autoscale-interval s
+--autoscale-planner streak|model]`` arms the autoscaler over the workers
+started with ``--standby``; ``worker --cache mem --fleet-cache`` joins the
+fleet cache tier. Jobs register from the trainer
+(:func:`~petastorm_tpu_torch.service.fleet.register_job`).
 
 Fleet tracing: ``trace arm --dispatcher host:port`` arms every process's
 span collector through the heartbeats, ``trace collect --out f.json``
@@ -52,6 +61,7 @@ import json
 import signal
 import sys
 import threading
+import time
 
 
 def parse_address(value):
@@ -91,7 +101,15 @@ def _build_parser():
     disp.add_argument("--shuffle-seed", type=int, default=None,
                       help="seed-tree deterministic piece order; omit for ascending order")
     disp.add_argument("--autoscale", action="store_true",
-                      help="the fleet autoscaler (comes with a later slice)")
+                      help="arm the fleet autoscaler: admit --standby workers into serving "
+                           "when the backlog piles up, drain and retire them when the fleet "
+                           "idles; every decision journaled")
+    disp.add_argument("--autoscale-interval", type=float, default=1.0,
+                      help="the autoscaler's planning tick, seconds")
+    disp.add_argument("--autoscale-planner", default="streak", choices=["streak", "model"],
+                      help="'streak' (backlog hysteresis streaks) or 'model' (a fitted "
+                           "per-worker throughput model, decisions checked by what-if "
+                           "replay and journaled as fleet_plan records)")
 
     work = sub.add_parser("worker", help="run a batch worker")
     work.add_argument("--dispatcher", default=None,
@@ -125,9 +143,14 @@ def _build_parser():
     work.add_argument("--cache-disk-mb", type=float, default=None,
                       help="disk-tier budget (LRU beyond it); default unlimited")
     work.add_argument("--fleet-cache", action="store_true", dest="fleet_cache",
-                      help="the fleet cache tier (comes with a later slice)")
+                      help="join the fleet cache tier: entries placed on a consistent-hash "
+                           "ring over every --fleet-cache worker, a warm miss fetched from "
+                           "its owner instead of decoded, and a drain ships this worker's "
+                           "memory tier to the peers inheriting its keys (needs --cache)")
     work.add_argument("--standby", action="store_true",
-                      help="pooled standby capacity (comes with a later slice)")
+                      help="register as standby pool capacity: leased and observed but "
+                           "granted nothing until the autoscaler (or "
+                           "Dispatcher.admit_worker) admits it")
     work.add_argument("--on-piece-error", default="fail", choices=["fail", "quarantine"],
                       dest="on_piece_error",
                       help="poison-piece policy: 'quarantine' reports an undecodable "
@@ -154,9 +177,15 @@ def _build_parser():
                       help="a table of the workers (transport, breaker state; steals "
                            "and backlog under dynamic sharding) and the brownout, "
                            "quarantine and journal lines instead of JSON")
+    stat.add_argument("--watch", action="store_true",
+                      help="refresh the fleet view (per-worker rates, cache tier, worker "
+                           "states, jobs, the fleet plan and hand-off lines) until "
+                           "interrupted")
+    stat.add_argument("--interval", type=float, default=2.0,
+                      help="--watch: seconds between polls (the rate window)")
     stat.add_argument("--trainer-metrics", default=None,
                       help="host:port of a trainer's metrics endpoint: adds the "
-                           "autotuner's knob and decision lines to --table")
+                           "autotuner's knob and decision lines to --table and --watch")
 
     trace = sub.add_parser("trace", help="fleet tracing: arm every process's span "
                                          "collector, collect the merged trace, or disarm")
@@ -192,7 +221,9 @@ def build_service_node(args):
                           lease_timeout_s=args.lease_timeout or None,
                           journal_compact_every=args.journal_compact_every,
                           journal_fsync=args.journal_fsync, shuffle_seed=args.shuffle_seed,
-                          autoscale=True if args.autoscale else None)
+                          autoscale=({"interval_s": args.autoscale_interval,
+                                      "planner": args.autoscale_planner}
+                                     if args.autoscale else None))
     from petastorm_tpu_torch.cache_impl import CacheConfig
     from petastorm_tpu_torch.service.worker import BatchWorker
 
@@ -233,6 +264,49 @@ def _request(address, header, timeout=10.0):
 
     with FramedConnection.connect(address, timeout=timeout) as conn:
         return conn.request(header)
+
+
+def collect_fleet_sample(address, timeout=5.0, deadline_s=15.0):
+    """One poll, timestamped: the dispatcher's ``status`` and the
+    ``worker_diagnostics`` fan-out (two straddling an interval give rates).
+    A failed poll is retried, so a watch rides through a restart."""
+    from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
+    from petastorm_tpu_torch.utils import retry_with_backoff
+
+    def poll():
+        with FramedConnection.connect(address, timeout=timeout) as conn:
+            status, _ = conn.request({"type": "status"})
+            _, workers = conn.request({"type": "worker_diagnostics"})
+        return {"t": time.monotonic(), "status": status, "workers": workers or {}}
+
+    return retry_with_backoff(poll, retries=4, base_delay=0.2, retry_on=(OSError,),
+                              deadline_s=deadline_s, description="fleet status poll")
+
+
+def _worker_totals(sample, wid):
+    """The worker's lifetime totals, or ``None`` without a usable snapshot
+    (a rate is never computed against an implicit zero)."""
+    snapshot = sample["workers"].get(wid)
+    if not snapshot or "error" in snapshot:
+        return None
+    metrics = snapshot.get("metrics") or {}
+    return (metrics.get("rows_sent_total", 0.0), metrics.get("batches_sent_total", 0.0),
+            metrics.get("credit_wait_seconds_total", 0.0), metrics.get("active_streams", 0.0),
+            # None without a batch cache: the column shows "--", not 0 %.
+            metrics.get("cache_hits_total"), metrics.get("cache_misses_total"),
+            metrics.get("cache_permuted_serves_total"),
+            metrics.get("transport_streams_tcp_total"),
+            metrics.get("transport_streams_shm_total"),
+            metrics.get("columnar_batches_total"), metrics.get("row_fallback_batches_total"),
+            metrics.get("cache_tier"), metrics.get("cache_entries_mem"))
+
+
+def _cache_label(tier, entries_mem):
+    """The CACHE column: the worker's cache tier and its memory entries
+    (``fleet:12``, ``local:3``), ``--`` without a batch cache."""
+    if tier is None:
+        return "--"
+    return f"{tier}:{int(entries_mem or 0)}"
 
 
 def _transport_label(tcp_total, shm_total):
@@ -313,6 +387,196 @@ def render_status(status, worker_diagnostics=None):
                      f"compactions={journal['compactions']} "
                      f"replays={(status.get('recovery') or {}).get('journal_replays', 0)}")
     return "\n".join(lines)
+
+
+def render_fleet_status(prev, cur):
+    """Two timestamped samples → the ``status --watch`` view (the JAX CLI's
+    lines): the control-plane header, one row a worker of lifetime totals
+    and rates over the window (rows, batches, credit wait, cache hit rate,
+    cache tier, columnar share, permuted serves, steals, backlog, breaker),
+    the fleet total, then the worker states and autoscale counts, the last
+    fleet plan, the last cache hand-off, the brownout, the breakers, a line
+    a job (its rows/s, share, epoch, fencing, clients, backlog, steals,
+    recovery) and the recovery counters. Pure."""
+    status = cur["status"]
+    dt = max(1e-9, cur["t"] - prev["t"])
+    workers_state = status.get("workers", {})
+    alive = sum(1 for w in workers_state.values() if w.get("alive"))
+    dynamic = status.get("dynamic") or {}
+    dyn_workers = dynamic.get("per_worker", {})
+    fleet = status.get("fleet") or {}
+    breaker_open = fleet.get("breaker_open") or {}
+    header = (f"mode={status.get('mode')} fencing_epoch={status.get('fencing_epoch')} "
+              f"workers={alive} alive/{len(workers_state) - alive} dead "
+              f"clients={len(status.get('clients', {}))} window={dt:.1f}s")
+    if dynamic:
+        header += f" generation={dynamic.get('generation')}"
+    lines = [header,
+             f"{'WORKER':<20} {'ROWS/S':>10} {'BATCH/S':>8} {'STREAMS':>8} "
+             f"{'TRANSPORT':>9} {'CREDITWAIT/S':>13} {'ROWS_TOTAL':>12} "
+             f"{'CACHEHIT%':>10} {'CACHE':>10} {'COL%':>6} {'PERM/S':>7} "
+             f"{'STEALS':>9} {'BACKLOG':>8} {'BREAKER':>8}"]
+
+    def breaker_col(wid):
+        return f"{'open' if wid in breaker_open else 'ok':>8}"
+
+    def steal_cols(wid):
+        entry = dyn_workers.get(wid)
+        if entry is None:
+            return f"{'--':>9} {'--':>8}"
+        steals = f"{entry['steals_in']}/{entry['steals_out']}"
+        return f"{steals:>9} {entry['backlog']:>8}"
+
+    fleet_rows = fleet_batches = 0.0
+    for wid in sorted(cur["workers"]):
+        now = _worker_totals(cur, wid)
+        if now is None:
+            lines.append(f"{wid:<20} {'unreachable':>10}")
+            continue
+        (rows1, batches1, wait1, active, hits1, misses1, perm1, tcp1, shm1, col1, colfb1,
+         tier1, entries1) = now
+        transport = _transport_label(tcp1, shm1)
+        cache = _cache_label(tier1, entries1)
+        before = _worker_totals(prev, wid)
+        if before is None:
+            # No baseline: the totals are real, the rates unknowable.
+            lines.append(f"{wid:<20} {'--':>10} {'--':>8} {int(active):>8} {transport:>9} "
+                         f"{'--':>13} {int(rows1):>12} {'--':>10} {cache:>10} {'--':>6} "
+                         f"{'--':>7} {steal_cols(wid)} {breaker_col(wid)}")
+            continue
+        rows0, batches0, wait0, _, hits0, misses0, perm0, _, _, col0, colfb0, _, _ = before
+        rows_rate = max(0.0, rows1 - rows0) / dt
+        batch_rate = max(0.0, batches1 - batches0) / dt
+        wait_rate = max(0.0, wait1 - wait0) / dt
+        fleet_rows += rows_rate
+        fleet_batches += batch_rate
+        hit_pct = "--"
+        if hits1 is not None and misses1 is not None and hits0 is not None \
+                and misses0 is not None:
+            # This window's hit rate (a missing baseline shows "--").
+            hit_delta = max(0.0, hits1 - hits0)
+            lookups = hit_delta + max(0.0, misses1 - misses0)
+            if lookups > 0:
+                hit_pct = f"{100.0 * hit_delta / lookups:.1f}"
+        col_pct = "--"
+        if col1 is not None and colfb1 is not None:
+            col_delta = max(0.0, col1 - (col0 or 0.0))
+            col_total = col_delta + max(0.0, colfb1 - (colfb0 or 0.0))
+            if col_total > 0:
+                col_pct = f"{100.0 * col_delta / col_total:.1f}"
+        perm_rate = "--"
+        if perm1 is not None:
+            perm_rate = f"{max(0.0, perm1 - (perm0 or 0.0)) / dt:.2f}"
+        lines.append(f"{wid:<20} {rows_rate:>10.1f} {batch_rate:>8.2f} {int(active):>8} "
+                     f"{transport:>9} {wait_rate:>13.3f} {int(rows1):>12} {hit_pct:>10} "
+                     f"{cache:>10} {col_pct:>6} {perm_rate:>7} {steal_cols(wid)} "
+                     f"{breaker_col(wid)}")
+    lines.append(f"{'fleet':<20} {fleet_rows:>10.1f} {fleet_batches:>8.2f}")
+    by_state = fleet.get("workers_by_state") or {}
+    if by_state:
+        autoscale = fleet.get("autoscale") or {}
+        line = "states: " + " ".join(f"{state}={len(by_state.get(state) or [])}"
+                                     for state in ("serving", "standby", "draining"))
+        if any(autoscale.values()):
+            line += " autoscale: " + " ".join(f"{k}={v}" for k, v in sorted(autoscale.items())
+                                              if v)
+        if fleet.get("autoscaler_armed"):
+            line += " [autoscaler on]"
+        lines.append(line)
+    plans = fleet.get("fleet_plans") or []
+    if plans:
+        last = plans[-1]
+        parts = [f"fleet-plan: {last.get('action')}", f"worker={last.get('worker_id')}"]
+        if last.get("predicted_rows_s") is not None:
+            parts.append(f"predicted_rows/s={last['predicted_rows_s']:.1f}")
+        if last.get("whatif_error") is not None:
+            parts.append(f"whatif_err={100.0 * last['whatif_error']:.1f}%")
+        lines.append(" ".join(parts))
+    handoffs = fleet.get("cache_handoffs") or []
+    if handoffs:
+        last = handoffs[-1]
+        lines.append(f"cache-handoff: {last.get('worker_id')} shipped "
+                     f"{last.get('entries', 0)} entries ({last.get('bytes', 0)} bytes) to "
+                     f"{len(last.get('peers') or {})} peers, {last.get('errors', 0)} errors"
+                     + (" [TORN]" if last.get("torn") else ""))
+    brownout = fleet.get("brownout") or {}
+    if brownout.get("level") or brownout.get("armed") \
+            or any((brownout.get("counts") or {}).values()):
+        counts = brownout.get("counts") or {}
+        parts = [f"brownout: level={brownout.get('level', 0)}",
+                 f"shed={counts.get('shed', 0)}", f"recover={counts.get('recover', 0)}"]
+        if brownout.get("reason"):
+            parts.append(f"reason={brownout['reason']}")
+        if brownout.get("armed"):
+            parts.append("[armed]")
+        lines.append(" ".join(parts))
+    if breaker_open:
+        lines.append("breaker-open: " + " ".join(sorted(breaker_open)))
+    jobs = status.get("jobs") or {}
+    if len(jobs) > 1 or any(jid != "default" for jid in jobs):
+        prev_jobs, cur_jobs = _job_row_totals(prev), _job_row_totals(cur)
+        for jid, job in sorted(jobs.items()):
+            rate = "--"
+            if jid in cur_jobs and jid in prev_jobs:
+                rate = f"{max(0.0, cur_jobs[jid] - prev_jobs[jid]) / dt:.1f}"
+            parts = [f"job {jid}:", f"rows/s={rate}", f"share={job.get('fair_share', 0.0):g}",
+                     f"epoch={job.get('epoch', 0)}", f"fencing={job.get('fencing_epoch', 0)}",
+                     f"clients={len(job.get('clients') or [])}"]
+            if "backlog" in job:
+                parts.append(f"backlog={job['backlog']}")
+                parts.append(f"steals={job.get('steals_in', 0)}/{job.get('steals_out', 0)}")
+            job_recovery = {k: v for k, v in (job.get("recovery") or {}).items() if v}
+            if job_recovery:
+                parts.append("recovery: " + " ".join(f"{k}={v}"
+                                                     for k, v in sorted(job_recovery.items())))
+            lines.append(" ".join(parts))
+    recovery = {k: v for k, v in (status.get("recovery") or {}).items() if v}
+    if recovery:
+        lines.append("recovery: " + " ".join(f"{k}={v}" for k, v in sorted(recovery.items())))
+    return "\n".join(lines)
+
+
+def _job_row_totals(sample):
+    """Rows per job summed over every reachable worker's ``jobs`` block."""
+    totals = {}
+    for snapshot in sample["workers"].values():
+        if not snapshot or "error" in snapshot:
+            continue
+        for jid, counts in (snapshot.get("jobs") or {}).items():
+            totals[jid] = totals.get(jid, 0) + counts.get("rows", 0)
+    return totals
+
+
+def run_status(address, interval_s=2.0, out=None, max_refreshes=None, stop_event=None,
+               trainer_metrics=None):
+    """``status --watch``: poll, render :func:`render_fleet_status` each
+    ``interval_s`` until interrupted (``max_refreshes`` / ``stop_event``
+    bound it). An unreachable dispatcher is reported and polled again."""
+    out = out if out is not None else sys.stdout
+    prev = collect_fleet_sample(address)
+    prev_tune = (collect_autotune_sample(trainer_metrics)
+                 if trainer_metrics is not None else None)
+    refreshes = 0
+    while not (stop_event is not None and stop_event.is_set()):
+        time.sleep(interval_s)
+        try:
+            cur = collect_fleet_sample(address)
+        except OSError as exc:
+            out.write(f"dispatcher unreachable ({exc}); retrying...\n")
+            out.flush()
+            continue
+        out.write("\x1b[2J\x1b[H")  # clear and home
+        out.write(render_fleet_status(prev, cur) + "\n")
+        if trainer_metrics is not None:
+            cur_tune = collect_autotune_sample(trainer_metrics)
+            out.write(render_autotune_status(prev_tune, cur_tune) + "\n")
+            prev_tune = cur_tune
+        out.flush()
+        prev = cur
+        refreshes += 1
+        if max_refreshes is not None and refreshes >= max_refreshes:
+            break
+    return 0
 
 
 def collect_autotune_sample(metrics_address, timeout=3.0):
@@ -439,6 +703,13 @@ def main(argv=None, run_seconds=None, stop_event=None):
     args = _build_parser().parse_args(argv)
     if args.role == "status":
         address = parse_address(args.dispatcher)
+        if args.watch:
+            try:
+                return run_status(address, interval_s=args.interval,
+                                  trainer_metrics=(parse_address(args.trainer_metrics)
+                                                   if args.trainer_metrics else None))
+            except KeyboardInterrupt:
+                return 0
         reply, _ = _request(address, {"type": "status"})
         if not args.table or reply.get("type") != "status":
             print(json.dumps(reply), flush=True)

@@ -67,9 +67,14 @@ batch here), stage fusion, the cache placement and the reader family.
 
 :meth:`ServiceBatchSource.state_dict` snapshots the epoch, the completed
 pieces and the watermarks (static mode); ``TorchDataLoader.state_dict()``
-delegates here with the batches it has yielded. What this slice does not
-port raises NotImplementedError naming the argument and the service slice
-that brings it (:data:`UNPORTED_SOURCE_ARGS`).
+delegates here with the batches it has yielded.
+
+``job_id=`` makes the source one client of a fleet job (static or dynamic
+sharding): the job rides every control request and stream request, and
+the dispatcher's ``credit_scale`` (the job's fair share) scales the credit
+window of every stream opened after it. Packing and a corpus raise
+NotImplementedError naming the slice that brings them
+(:data:`UNPORTED_SOURCE_ARGS`).
 """
 
 from __future__ import annotations
@@ -123,7 +128,6 @@ UNPORTED_SOURCE_ARGS = {
     "packing": (None, "worker-side sequence packing comes with the LLM stages, "
                       "slice (f)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
-    "job_id": (None, "jobs and their fair shares come with the fleet, slice (d)"),
 }
 
 
@@ -152,6 +156,8 @@ def _add_stream_fields(request, stream, conn):
         request["cache_stage"] = stream.cache_stage
     if stream.reader_family is not None:
         request["reader_family"] = stream.reader_family
+    if stream.job_id is not None:
+        request["job_id"] = stream.job_id
 
 
 class _WorkerStream:
@@ -168,11 +174,13 @@ class _WorkerStream:
                  auto_replenish=False, tagged=False, starts=None, shuffle_seed=None,
                  transform_placement=None, recv_timeout=None, max_frame_bytes=None,
                  predicate=None, projection=None, fused=False, cache_stage=None,
-                 reader_family=None, transport="auto"):
+                 reader_family=None, transport="auto", job_id=None):
         self.worker_id = worker_id
         #: The transport policy: anything but "tcp" advertises shm on the
         #: request; the worker decides.
         self.transport = transport
+        #: The fleet job the worker attributes the stream's rows to.
+        self.job_id = job_id
         #: The graph rewrites, frozen for the iteration: a hoisted row
         #: filter (wire dict) and projection, stage fusion, the cache stage
         #: and the reader family. None / False: the unrewritten topology.
@@ -477,9 +485,10 @@ class _DynamicStream:
     def __init__(self, worker_id, address, pairs, epoch, connect_timeout, credits=None,
                  shuffle_seed=None, transform_placement=None, recv_timeout=None,
                  max_frame_bytes=None, predicate=None, projection=None, fused=False,
-                 cache_stage=None, reader_family=None, transport="auto"):
+                 cache_stage=None, reader_family=None, transport="auto", job_id=None):
         self.worker_id = worker_id
-        self.transport = transport  # as _WorkerStream's, and the rewrites below
+        self.transport = transport  # as _WorkerStream's, and the job and rewrites below
+        self.job_id = job_id
         self.predicate = predicate
         self.projection = projection
         self.fused = fused
@@ -721,6 +730,11 @@ class ServiceBatchSource:
     :param retry_budget: tokens of each peer's (and the dispatcher's)
         retry budget; successes refill half a token.
 
+    :param job_id: the fleet job this source belongs to (static or dynamic
+        sharding; register it with
+        :func:`~petastorm_tpu_torch.service.fleet.register_job` for a weight
+        or a quota). ``None``: the default job.
+
     The arguments of :data:`UNPORTED_SOURCE_ARGS` given anything but their
     default raise NotImplementedError naming the argument and its slice.
     """
@@ -737,7 +751,7 @@ class ServiceBatchSource:
                  hedging=False, hedge_quantile=0.99, hedge_multiplier=4.0,
                  hedge_min_samples=16, hedge_floor_s=0.25, breaker_threshold=5,
                  breaker_cooldown_s=5.0, retry_budget=10.0):
-        given = {"packing": packing, "corpus": corpus or "", "job_id": job_id}
+        given = {"packing": packing, "corpus": corpus or ""}
         for name, value in given.items():
             default, reason = UNPORTED_SOURCE_ARGS[name]
             if value != default:
@@ -770,6 +784,10 @@ class ServiceBatchSource:
         self._backoff_base = backoff_base
         self._backoff_max = backoff_max
         self._credits = credits
+        self.job_id = str(job_id) if job_id is not None else None
+        # The job's fair-share scale of the credit window, from the
+        # dispatcher's replies (1.0: the full window).
+        self._credit_scale = 1.0
         self._ready_queue_depth = ready_queue_depth
         self.transform = transform
         self._transform_placement = transform_placement
@@ -1172,8 +1190,13 @@ class ServiceBatchSource:
         connection failures retry (spending the dispatcher's retry budget),
         an ``error`` reply raises :class:`ServiceError` at once. Each
         attempt ships the remaining ``rpc_deadline_s``."""
+        if self.job_id is not None and "job_id" not in header:
+            header = dict(header, job_id=self.job_id)
         if "trace" not in header:
-            header = dict(header, trace={"peer": self.client_id})
+            ctx = {"peer": self.client_id}
+            if self.job_id is not None:
+                ctx["job_id"] = self.job_id
+            header = dict(header, trace=ctx)
         deadline = (time.monotonic() + self._rpc_deadline_s
                     if self._rpc_deadline_s is not None else None)
 
@@ -1199,6 +1222,10 @@ class ServiceBatchSource:
             with self._lock:
                 self._recovery["fencing_epoch"] = max(self._recovery["fencing_epoch"],
                                                       int(reply["fencing_epoch"]))
+        if "credit_scale" in reply:
+            # For streams opened after this reply (a live stream keeps the
+            # window of its request).
+            self._credit_scale = float(reply["credit_scale"])
         return reply
 
     # -- runtime knobs (the autotuner's bindings) ----------------------------
@@ -1254,6 +1281,14 @@ class ServiceBatchSource:
             raise ValueError("transform_placement='local' needs the transform callable")
         self._transform_placement = placement
 
+    def _effective_credits(self):
+        """The credit window scaled by the job's ``credit_scale``, at least
+        1; the window itself at a scale of 1.0."""
+        credits = self._credits
+        if credits is None or self._credit_scale >= 1.0:
+            return credits
+        return max(1, int(round(credits * self._credit_scale)))
+
     def _derived_ready_depth(self, streams):
         streams = max(1, int(streams))
         if self._credits is not None:
@@ -1276,11 +1311,12 @@ class ServiceBatchSource:
     def _stream(self, wid, address, pieces, epoch, starts, tagged=True,
                 auto_replenish=False):
         return _WorkerStream(wid, address, pieces, epoch, self._connect_timeout,
-                             credits=self._credits, auto_replenish=auto_replenish,
-                             tagged=tagged, starts=starts, shuffle_seed=self._shuffle_seed,
+                             credits=self._effective_credits(),
+                             auto_replenish=auto_replenish, tagged=tagged, starts=starts,
+                             shuffle_seed=self._shuffle_seed,
                              transform_placement=self._iter_transform_placement,
                              recv_timeout=self._stream_recv_timeout_s,
-                             max_frame_bytes=self._max_frame_bytes,
+                             max_frame_bytes=self._max_frame_bytes, job_id=self.job_id,
                              **self._iter_rewrite_kwargs())
 
     # -- the batch_source contract ----------------------------------------
@@ -1308,6 +1344,12 @@ class ServiceBatchSource:
                 "ordered delivery requires static or dynamic sharding: fcfs hands splits "
                 "out first-come-first-served, so no canonical piece order exists to "
                 "sequence against")
+        if self.job_id is not None and info["mode"] == "fcfs":
+            raise ValueError(
+                "job_id requires static or dynamic sharding: fcfs hands splits out of ONE "
+                "shared queue with no per-job assignment, so concurrent jobs would silently "
+                "split — not share — each epoch's data. Run the dispatcher with "
+                "mode='dynamic' (or 'static') for multi-tenant fleets")
         self._iter_transform_placement = (self._transform_placement
                                           if self.transform is not None else None)
         # The rewrites freeze the same way: one topology an iteration, on
@@ -1872,10 +1914,11 @@ class ServiceBatchSource:
 
     def _dynamic_stream(self, wid, address, pairs, epoch):
         return _DynamicStream(wid, address, pairs, epoch, self._connect_timeout,
-                              credits=self._credits, shuffle_seed=self._shuffle_seed,
+                              credits=self._effective_credits(),
+                              shuffle_seed=self._shuffle_seed,
                               transform_placement=self._iter_transform_placement,
                               recv_timeout=self._stream_recv_timeout_s,
-                              max_frame_bytes=self._max_frame_bytes,
+                              max_frame_bytes=self._max_frame_bytes, job_id=self.job_id,
                               **self._iter_rewrite_kwargs())
 
     def _fetch_dynamic_plan(self, epoch):
@@ -2177,8 +2220,8 @@ class ServiceBatchSource:
             book.complete_piece(piece, wid)
             return []
 
-        def start_recovery(sid, stream):
-            wid = stream.worker_id
+        def start_recovery(sid, stream, wid=None):
+            wid = stream.worker_id if stream is not None else wid
             if sid_by_wid.get(wid) == sid:
                 sid_by_wid.pop(wid, None)
             fail_pending_steals_via(wid)
@@ -2315,8 +2358,10 @@ class ServiceBatchSource:
                                                          int(reply.get("fencing_epoch", 0)))
                     for wid2, addr in (reply.get("workers") or {}).items():
                         addresses[wid2] = tuple(addr)
-                    for piece, gen, _start in deferred_grants.pop(wid, []):
-                        note_failed_steal(piece, gen)
+                    # Steals granted to the worker during its recovery are its
+                    # pieces too (the dispatcher journaled them): taken over
+                    # below with a second report, never left on a dead worker.
+                    deferred_grants.pop(wid, None)
                     for wid2, pairs in (reply.get("assignments") or {}).items():
                         fresh_pairs = []
                         with self._lock:
@@ -2331,6 +2376,10 @@ class ServiceBatchSource:
                                     (piece, gen, self._recv_watermarks.get(piece, 0)))
                         if fresh_pairs:
                             grant(wid2, fresh_pairs)
+                    with self._lock:
+                        stranded = bool(outstanding.get(wid))
+                    if stranded:
+                        start_recovery(sid, stream=None, wid=wid)
                 elif kind == "dgone":
                     wid = item
                     recovering.discard(wid)

@@ -7,17 +7,30 @@ Workers register their address and the dataset's row-group count; clients
 ask which pieces to stream from which workers. Every request is one framed
 message with one framed reply (``type`` names the request):
 
-- ``register_worker`` ``{worker_id, host, port, num_pieces[, re_register]}``
-  → ``ok`` (a piece count other than the registered workers' is refused);
+- ``register_worker`` ``{worker_id, host, port, num_pieces[, re_register,
+  standby, cache_fleet]}`` → ``ok`` (a piece count other than the
+  registered workers' is refused; a ``standby`` worker is pool capacity
+  that receives nothing until admitted; a ``cache_fleet`` worker joins the
+  fleet cache tier and the reply seeds its ``cache_peers``);
 - ``worker_heartbeat`` ``{worker_id[, credit_wait_s]}`` → ``ok`` (lease
-  renewed; the reply carries the brownout level, the clock-alignment
+  renewed; the reply carries the worker's lifecycle state, the fleet cache
+  tier's serving ``cache_peers``, the brownout level, the clock-alignment
   beacon ``dispatcher_time_us`` and whether fleet tracing is armed) or
   ``unknown_worker`` (re-register);
-- ``client_heartbeat`` ``{client_id[, epoch, watermarks,
-  ready_saturation]}`` → ``ok`` with the fencing epoch and the recovery
-  counters (a client resyncs when the epoch moved past its own);
+- ``client_heartbeat`` ``{client_id[, job_id, epoch, watermarks,
+  ready_saturation]}`` → ``ok`` with the job's fencing epoch, its
+  ``credit_scale`` and the recovery counters (a client resyncs when the
+  epoch moved past its own);
+- ``register_job`` ``{job_id[, weight, quota]}`` and ``end_job``
+  ``{job_id}`` → ``ok``: the fleet's jobs (:mod:`~petastorm_tpu_torch.
+  service.fleet`), each with its own fencing epoch and a weighted max-min
+  fair share of the serving workers, which scales its streams' credit
+  windows (refused under fcfs, which has no per-job assignment);
+- ``cache_handoff`` ``{worker_id, entries, bytes, peers, errors, torn}``
+  → ``ok``: a drained worker's warm hand-off summary, journaled;
 - ``list_workers`` → ``workers`` (serving workers and the service config);
-- ``get_assignment`` ``{client_id, client_index, num_clients, epoch}``
+- ``get_assignment`` ``{client_id, client_index, num_clients, epoch[,
+  job_id]}``
   (static) → ``assignment``: the client's shard (``pieces[index::n]``)
   round-robined across the serving workers, each share in the epoch's
   seed-tree order of ``shuffle_seed``;
@@ -59,11 +72,17 @@ journal write flips the dispatcher read-only: mutating requests are refused
 (``lease_timeout_s``) expires is marked dead, and a client's
 ``report_failure`` does the same; either bumps the fencing epoch.
 
-Autoscaling, jobs, corpora, mixtures and the fleet cache raise
-NotImplementedError (or an ``error`` reply) naming the service slice that
-brings them; their keys stand in the state at their empty values, so a
-snapshot equals the JAX dispatcher's, and a journal record of theirs is
-refused by name on replay.
+Workers are ``serving``, ``standby`` or ``draining``; ``autoscale=`` arms
+the fleet autoscaler (:class:`~petastorm_tpu_torch.service.fleet.
+AutoscaleController`), and :meth:`Dispatcher.admit_worker`,
+:meth:`Dispatcher.drain_worker` and :meth:`Dispatcher.retire_worker` move a
+worker by hand; every move is journaled. A drained worker's unstarted
+pieces are stolen away to serving peers.
+
+Corpora and mixtures raise NotImplementedError (or an ``error`` reply)
+naming the slice that brings them, the LLM stages (f); their keys stand in
+the state at their empty values, so a snapshot equals the JAX
+dispatcher's, and a journal record of theirs is refused by name on replay.
 """
 
 from __future__ import annotations
@@ -79,6 +98,13 @@ from petastorm_tpu_torch.reader_impl.framed_socket import (
     FramedReader,
     FramedServer,
     send_framed,
+)
+from petastorm_tpu_torch.service.fleet import (
+    DEFAULT_JOB,
+    AutoscaleConfig,
+    AutoscaleController,
+    credit_scales,
+    plan_fair_shares,
 )
 from petastorm_tpu_torch.service.resilience import (
     BrownoutConfig,
@@ -99,7 +125,14 @@ from petastorm_tpu_torch.telemetry.metrics import (
     DISPATCHER_REQUESTS,
     DISPATCHER_STEALS,
     DISPATCHER_WORKERS,
+    FLEET_AUTOSCALE_DECISIONS,
     FLEET_BROWNOUT_LEVEL,
+    FLEET_JOB_BACKLOG,
+    FLEET_JOB_FAIR_SHARE,
+    FLEET_JOB_FENCING_EPOCH,
+    FLEET_JOBS,
+    FLEET_MODEL_DECISIONS,
+    FLEET_WORKERS,
     QUARANTINE_PIECES,
     QUARANTINE_REPORTS,
     TRACE_SHIP_EVENTS,
@@ -108,9 +141,6 @@ from petastorm_tpu_torch.telemetry.metrics import (
 logger = logging.getLogger(__name__)
 
 MODES = ("static", "fcfs", "dynamic")
-
-#: The job every request belongs to (multi-tenant jobs come with slice (d)).
-DEFAULT_JOB = "default"
 
 #: A worker missing heartbeats this long is evicted.
 DEFAULT_LEASE_TIMEOUT_S = 30.0
@@ -121,30 +151,21 @@ PROBE_TIMEOUT_CAP_S = 30.0
 #: Journaled ``stage_profile`` records ``status`` keeps in memory.
 STAGE_PROFILES_KEPT = 8
 
-#: ``Dispatcher`` arguments this slice does not take: the value that asks
-#: for nothing, and the slice that ports the feature.
-UNPORTED_DISPATCHER_ARGS = {
-    "autoscale": (None, "the fleet autoscaler comes with slice (d)"),
-}
+#: Journaled drain hand-off summaries and model-planner decisions kept (in
+#: the snapshot too, so a compaction never loses the audit trail).
+CACHE_HANDOFFS_KEPT = 8
+FLEET_PLANS_KEPT = 32
 
-#: Requests of later slices, answered with an error naming the slice.
+#: Requests of a later slice, answered with an error naming it.
 _UNPORTED_REQUESTS = {
-    "register_job": "jobs come with the fleet, slice (d)",
-    "end_job": "jobs come with the fleet, slice (d)",
     "set_mixture_weights": "mixtures come with the LLM stages, slice (f)",
     "get_mixture": "mixtures come with the LLM stages, slice (f)",
-    "cache_handoff": "the fleet cache tier comes with slice (d)",
 }
 
-#: Journal record ops of later slices: a replay that meets one is refused
+#: Journal record ops of a later slice: a replay that meets one is refused
 #: with the slice that writes it.
 _UNPORTED_RECORD_OPS = {
-    "job_register": "jobs come with the fleet, slice (d)",
-    "job_end": "jobs come with the fleet, slice (d)",
-    "autoscale": "the fleet autoscaler comes with slice (d)",
     "mixture_weights": "mixtures come with the LLM stages, slice (f)",
-    "cache_handoff": "the fleet cache tier comes with slice (d)",
-    "fleet_plan": "the fleet's model planner comes with slice (d)",
 }
 
 #: Dynamic mode: a worker delivering below this fraction of the fleet
@@ -259,8 +280,13 @@ class Dispatcher:
         arguments or a config. It is evaluated on client heartbeats.
     :param breaker_cooldown_s: seconds a breaker-open worker stays out of
         new grants before its heartbeat may close the breaker.
-
-    ``autoscale`` raises NotImplementedError naming its slice.
+    :param autoscale: arm the fleet autoscaler: ``True``, a dict of
+        :class:`~petastorm_tpu_torch.service.fleet.AutoscaleConfig`
+        arguments or a config. Its thread (``fleet-autoscale-controller``)
+        admits standby workers when the backlog piles up and drains and
+        retires them when the fleet idles, journaling each decision.
+        ``None``: the states exist, but only :meth:`admit_worker` and its
+        siblings move a worker.
     """
 
     def __init__(self, host="127.0.0.1", port=0, mode="static", num_epochs=1,
@@ -269,11 +295,6 @@ class Dispatcher:
                  shuffle_seed=None, autoscale=None, brownout=None, breaker_cooldown_s=10.0):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        for name, value in {"autoscale": autoscale or None}.items():
-            default, reason = UNPORTED_DISPATCHER_ARGS[name]
-            if value != default:
-                raise NotImplementedError(f"Dispatcher({name}=...) is not ported yet: "
-                                          f"{reason}")
         if num_epochs is not None and num_epochs <= 0:
             raise ValueError("num_epochs must be a positive integer or None")
         self.mode = mode
@@ -283,12 +304,20 @@ class Dispatcher:
         self.lease_timeout_s = lease_timeout_s or None
         self._max_frame_bytes = max_frame_bytes
         self._lock = threading.Lock()
-        self._workers = {}  # worker_id -> {address, num_pieces, alive, state}
-        self._clients = {}  # client_id -> {epoch, client_index, num_clients}
-        # The default job materializes on a client's first touch, as in the
-        # JAX dispatcher, so the snapshots agree; other jobs are refused.
+        self._workers = {}  # worker_id -> {address, num_pieces, alive, state[, cache_fleet]}
+        self._clients = {}  # client_id -> {epoch, client_index, num_clients[, job_id]}
+        # job_id -> {"weight", "quota", "fencing_offset", "epoch"}. The
+        # default job materializes on a client's first touch and is never
+        # journaled as a registration. A job's fencing epoch is the global
+        # one plus its offset: a fleet-wide event moves every job, a job's
+        # own restart moves only its offset.
         self._jobs = {}
-        self._job_recovery = {}
+        self._job_recovery = {}  # job_id -> its share of the recovery counters
+        # Ending a job raises this floor past its offset, and a later job of
+        # the same name starts there: a stale client of the ended job can
+        # never pass the recreated job's fencing check.
+        self._job_fence_floor = 0
+        self._autoscale_counts = {"admit": 0, "drain": 0, "retire": 0}
         # client_id -> {"epoch", "watermarks": {piece: next ordinal}}, from
         # client heartbeats, journaled at piece granularity.
         self._client_watermarks = {}
@@ -345,9 +374,15 @@ class Dispatcher:
         self._trace_armed = False
         self._trace_buffers = {}  # peer -> {events, dropped, offset_us, min_rtt_us}
         self._stage_profiles = []
+        # The fleet cache tier's drain hand-off summaries and the model
+        # planner's decisions: bounded heads of their journal records.
+        self._cache_handoffs = []
+        self._fleet_plans = []
         #: The dispatcher's metrics endpoint, when the CLI serves one.
         self.metrics_address = None
         self._lease_thread = None
+        self._autoscaler = (AutoscaleController(self, AutoscaleConfig.coerce(autoscale))
+                            if autoscale else None)
         self._server = FramedServer(self._serve_connection, host=host, port=port,
                                     name="service-dispatcher")
 
@@ -361,6 +396,8 @@ class Dispatcher:
             self._lease_thread = threading.Thread(target=self._lease_loop, daemon=True,
                                                   name="service-dispatcher-leases")
             self._lease_thread.start()
+        if self._autoscaler is not None:
+            self._autoscaler.start()
         return self
 
     @property
@@ -369,6 +406,9 @@ class Dispatcher:
         return self._server.address
 
     def stop(self):
+        # The autoscaler journals: it stops before the handlers drain.
+        if self._autoscaler is not None:
+            self._autoscaler.stop()
         self._server.stop()
         # In-flight handlers finish (and journal) before the journal closes.
         self._server.join(timeout=5)
@@ -409,10 +449,10 @@ class Dispatcher:
             "clients": {cid: dict(c) for cid, c in self._clients.items()},
             "jobs": {jid: dict(j) for jid, j in self._jobs.items()},
             "job_recovery": {jid: dict(r) for jid, r in self._job_recovery.items()},
-            "job_fence_floor": 0,
-            "autoscale": {"admit": 0, "drain": 0, "retire": 0},
-            "cache_handoffs": [],
-            "fleet_plans": [],
+            "job_fence_floor": self._job_fence_floor,
+            "autoscale": dict(self._autoscale_counts),
+            "cache_handoffs": [dict(h) for h in self._cache_handoffs],
+            "fleet_plans": [dict(p) for p in self._fleet_plans],
             "client_watermarks": {
                 cid: {"epoch": entry["epoch"],
                       "watermarks": {str(p): n for p, n in entry["watermarks"].items()}}
@@ -481,21 +521,12 @@ class Dispatcher:
                 f"{state.get('shuffle_seed')!r}; this dispatcher runs {self.shuffle_seed!r} — "
                 "restarting with a different seed would silently change the piece order "
                 "mid-run and break the determinism contract")
-        later = {"mixtures": "mixtures come with the LLM stages, slice (f)",
-                 "cache_handoffs": "the fleet cache tier comes with slice (d)",
-                 "fleet_plans": "the fleet's model planner comes with slice (d)"}
-        for key, reason in later.items():
-            if state.get(key):
-                self._refuse_later_slice(f"{key!r} state", reason)
-        if any(jid != DEFAULT_JOB for jid in state.get("jobs") or {}):
-            self._refuse_later_slice("jobs other than the default one",
-                                     "jobs come with the fleet, slice (d)")
+        if state.get("mixtures"):
+            self._refuse_later_slice("'mixtures' state",
+                                     "mixtures come with the LLM stages, slice (f)")
         if any(c for c in state.get("corpus_pieces") or {}):
             self._refuse_later_slice("corpora", "multi-corpus fleets come with the LLM "
                                                 "stages, slice (f)")
-        if any((state.get("autoscale") or {}).values()):
-            self._refuse_later_slice("autoscale decisions",
-                                     "the fleet autoscaler comes with slice (d)")
         self._num_pieces = state.get("num_pieces")
         self._client_watermarks = {
             cid: {"epoch": int(entry.get("epoch", 0)),
@@ -505,12 +536,21 @@ class Dispatcher:
         self._workers = {wid: dict(w) for wid, w in state.get("workers", {}).items()}
         for wid, worker in self._workers.items():
             worker.setdefault("state", "serving")
-            self._check_worker_record(wid, worker.get("state") == "standby",
-                                      worker.get("corpus"), worker.get("cache_fleet"))
+            self._check_worker_corpus(wid, worker.get("corpus"))
         self._clients = {cid: dict(c) for cid, c in state.get("clients", {}).items()}
         self._jobs = {jid: dict(j) for jid, j in (state.get("jobs") or {}).items()}
         self._job_recovery = {jid: dict(r)
                               for jid, r in (state.get("job_recovery") or {}).items()}
+        self._job_fence_floor = int(state.get("job_fence_floor", 0))
+        autoscale = state.get("autoscale") or {}
+        for key in self._autoscale_counts:
+            self._autoscale_counts[key] = int(autoscale.get(key, 0))
+        self._cache_handoffs = []
+        for entry in state.get("cache_handoffs") or ():
+            self._install_cache_handoff_locked(entry)
+        self._fleet_plans = []
+        for entry in state.get("fleet_plans") or ():
+            self._install_fleet_plan_locked(entry)
         self._fcfs_epoch = int(state.get("fcfs_epoch", 0))
         queue = state.get("fcfs_queue")
         self._fcfs_queue = deque(queue) if queue is not None else None
@@ -546,17 +586,11 @@ class Dispatcher:
                 "steals": {wid: {"in": int(counts.get("in", 0)), "out": int(counts.get("out", 0))}
                            for wid, counts in dyn.get("steals", {}).items()}}
 
-    def _check_worker_record(self, worker_id, standby, corpus, cache_fleet):
-        if standby:
-            self._refuse_later_slice(f"standby worker {worker_id!r}",
-                                     "standby capacity comes with slice (d)")
+    def _check_worker_corpus(self, worker_id, corpus):
         if corpus:
             self._refuse_later_slice(f"worker {worker_id!r} of corpus {corpus!r}",
                                      "multi-corpus fleets come with the LLM stages, "
                                      "slice (f)")
-        if cache_fleet:
-            self._refuse_later_slice(f"fleet-cache worker {worker_id!r}",
-                                     "the fleet cache tier comes with slice (d)")
 
     def _apply_record_locked(self, record):
         """Replay one WAL record through the mutations the live handlers
@@ -565,25 +599,32 @@ class Dispatcher:
         if op in _UNPORTED_RECORD_OPS:
             self._refuse_later_slice(f"a {op!r} record", _UNPORTED_RECORD_OPS[op])
         if op == "register_worker":
-            self._check_worker_record(record["worker_id"], record.get("standby"),
-                                      record.get("corpus"), record.get("cache_fleet"))
+            self._check_worker_corpus(record["worker_id"], record.get("corpus"))
             self._install_worker_locked(record["worker_id"],
                                         [record["host"], int(record["port"])],
                                         int(record["num_pieces"]),
                                         re_register=bool(record.get("re_register")),
-                                        metrics_port=record.get("metrics_port"))
+                                        standby=bool(record.get("standby")),
+                                        metrics_port=record.get("metrics_port"),
+                                        cache_fleet=bool(record.get("cache_fleet")))
         elif op == "worker_dead":
             self._mark_worker_dead_locked(record["worker_id"],
                                           record.get("reason", "reported"),
                                           job_id=record.get("job_id"))
         elif op == "client":
-            if record.get("job_id") or record.get("corpus"):
-                self._refuse_later_slice("a client of a job or a corpus",
-                                         "jobs come with the fleet, slice (d), corpora "
+            if record.get("corpus"):
+                self._refuse_later_slice("a client of a corpus", "multi-corpus fleets come "
                                          "with the LLM stages, slice (f)")
             self._install_client_locked(record["client_id"], int(record["epoch"]),
                                         int(record["client_index"]),
-                                        int(record["num_clients"]))
+                                        int(record["num_clients"]), record.get("job_id"))
+        elif op == "job_register":
+            self._install_job_locked(record["job_id"], float(record.get("weight", 1.0)),
+                                     record.get("quota"), restart=bool(record.get("restart")))
+        elif op == "job_end":
+            self._remove_job_locked(record["job_id"])
+        elif op == "autoscale":
+            self._apply_autoscale_locked(record["action"], record["worker_id"])
         elif op == "next_split":
             self._replay_next_split_locked(int(record["piece"]), int(record["epoch"]))
         elif op == "dynamic_plan":
@@ -631,6 +672,10 @@ class Dispatcher:
                                          "coverage_pct": record.get("coverage_pct"),
                                          "source": record.get("source", "diagnose")})
             del self._stage_profiles[:-STAGE_PROFILES_KEPT]
+        elif op == "cache_handoff":
+            self._install_cache_handoff_locked(record)
+        elif op == "fleet_plan":
+            self._install_fleet_plan_locked(record)
         elif op == "replayed":
             self._recovery["journal_replays"] += 1
         else:
@@ -649,6 +694,25 @@ class Dispatcher:
                 self._fcfs_queue.remove(piece)
             except ValueError:
                 pass
+
+    def _install_cache_handoff_locked(self, record):
+        """A drain hand-off summary into the bounded head (live and replay)."""
+        self._cache_handoffs.append({
+            "worker_id": record.get("worker_id"),
+            "entries": int(record.get("entries", 0)),
+            "bytes": int(record.get("bytes", 0)),
+            "peers": {str(p): int(n) for p, n in (record.get("peers") or {}).items()},
+            "errors": int(record.get("errors", 0)),
+            "torn": bool(record.get("torn"))})
+        del self._cache_handoffs[:-CACHE_HANDOFFS_KEPT]
+
+    def _install_fleet_plan_locked(self, record):
+        """A model-planner decision into the bounded head (live and replay):
+        the record less its journal framing (``op``, ``seq``), keys sorted,
+        so a replayed head equals the live one."""
+        self._fleet_plans.append({k: record[k] for k in sorted(record)
+                                  if k not in ("op", "seq")})
+        del self._fleet_plans[:-FLEET_PLANS_KEPT]
 
     def _journal_locked(self, record):
         if self._journal is None or self._degraded is not None:
@@ -907,14 +971,19 @@ class Dispatcher:
         return True
 
     def _install_worker_locked(self, worker_id, address, num_pieces, re_register=False,
-                               metrics_port=None):
+                               standby=False, metrics_port=None, cache_fleet=False):
         known = worker_id in self._workers
+        # A re-registration keeps the state the autoscaler gave the worker;
+        # a new worker starts where its standby flag says.
         prev_state = self._workers[worker_id].get("state") if known else None
         self._num_pieces = num_pieces
         self._workers[worker_id] = {"address": list(address), "num_pieces": num_pieces,
-                                    "alive": True, "state": prev_state or "serving"}
+                                    "alive": True,
+                                    "state": prev_state or ("standby" if standby else "serving")}
         if metrics_port is not None:
             self._workers[worker_id]["metrics_port"] = int(metrics_port)
+        if cache_fleet:
+            self._workers[worker_id]["cache_fleet"] = True
         if known or re_register:
             self._recovery["re_registrations"] += 1
         self._worker_leases[worker_id] = time.monotonic() + (self.lease_timeout_s or 0.0)
@@ -925,25 +994,109 @@ class Dispatcher:
             job_id, {"failures_reported": 0, "stale_fencing_rejections": 0,
                      "fencing_bumps": 0})
 
-    def _install_client_locked(self, client_id, epoch, client_index, num_clients):
+    # -- jobs -----------------------------------------------------------------
+
+    def _install_job_locked(self, job_id, weight=1.0, quota=None, restart=False):
+        """Create a job, or update a live one (live and replay); a restart
+        bumps only that job's fencing offset, so its stale clients resync
+        and no other job's do. True when the job existed."""
+        job = self._jobs.get(job_id)
+        if job is None:
+            self._jobs[job_id] = {"weight": float(weight),
+                                  "quota": float(quota) if quota is not None else None,
+                                  "fencing_offset": self._job_fence_floor, "epoch": 0}
+            return False
+        job["weight"] = float(weight)
+        job["quota"] = float(quota) if quota is not None else None
+        if restart:
+            job["fencing_offset"] += 1
+            self._job_recovery_locked(job_id)["fencing_bumps"] += 1
+        self._mark_dyn_dirty_locked()  # the per-job gauges follow the restart
+        return True
+
+    def _ensure_job_locked(self, job_id):
+        """A job a client names (the default one included) materializes on
+        first touch with weight 1.0 and no quota."""
+        if job_id not in self._jobs:
+            self._install_job_locked(job_id)
+        return self._jobs[job_id]
+
+    def _remove_job_locked(self, job_id):
+        """End a job (live and replay): its clients, their watermarks and
+        dynamic books go, the fence floor passes its offset, and its gauge
+        series are dropped."""
+        job = self._jobs.pop(job_id, None)
+        if job is None:
+            return False
+        self._job_fence_floor = max(self._job_fence_floor, job["fencing_offset"] + 1)
+        self._job_recovery.pop(job_id, None)
+        self._mark_dyn_dirty_locked()
+        for family in (FLEET_JOB_FENCING_EPOCH, FLEET_JOB_FAIR_SHARE, FLEET_JOB_BACKLOG):
+            family.remove(job_id)
+        for cid in [cid for cid, c in self._clients.items()
+                    if c.get("job_id", DEFAULT_JOB) == job_id]:
+            self._clients.pop(cid, None)
+            self._client_heartbeats.pop(cid, None)
+            self._client_watermarks.pop(cid, None)
+            self._dyn.pop(cid, None)
+        return True
+
+    def _job_fencing_locked(self, job_id):
+        """The job's fencing epoch: the global one plus the job's offset."""
+        job = self._jobs.get(job_id)
+        return self._fencing_epoch + (job["fencing_offset"] if job is not None else 0)
+
+    def _client_job_locked(self, client_id, header=None):
+        """A request's job: its ``job_id``, else its client's, else the
+        default."""
+        if header is not None and header.get("job_id"):
+            return str(header["job_id"])
+        client = self._clients.get(client_id)
+        return client.get("job_id", DEFAULT_JOB) if client is not None else DEFAULT_JOB
+
+    def _install_client_locked(self, client_id, epoch, client_index, num_clients,
+                               job_id=None):
         entry = {"epoch": int(epoch), "client_index": int(client_index),
                  "num_clients": int(num_clients)}
+        if job_id is not None and job_id != DEFAULT_JOB:
+            entry["job_id"] = str(job_id)
         if self._clients.get(client_id) != entry:
             self._per_job_memo = None
         self._clients[client_id] = entry
-        job = self._jobs.setdefault(DEFAULT_JOB, {"weight": 1.0, "quota": None,
-                                                  "fencing_offset": 0, "epoch": 0})
+        job = self._ensure_job_locked(job_id or DEFAULT_JOB)
         job["epoch"] = max(job["epoch"], int(epoch))
 
-    def _default_job_share_locked(self):
-        """The default job's max-min fair share of the serving capacity:
-        its demand (the dynamic backlog, else the whole capacity while it
-        has clients) capped at the capacity."""
+    def _job_shares_locked(self):
+        """Each job's weighted max-min fair share of the serving workers
+        (:func:`~petastorm_tpu_torch.service.fleet.plan_fair_shares`). A
+        job's demand is its dynamic backlog, else the whole capacity while
+        it has clients, else nothing (an idle registration shrinks no
+        other job's window)."""
         capacity = float(max(1, len(self._serving_workers())))
-        backlog = (self._dynamic_per_job_locked().get(DEFAULT_JOB, {}).get("backlog", 0)
-                   if self.mode == "dynamic" else 0)
-        demand = float(backlog) if backlog else (capacity if self._clients else 0.0)
-        return round(min(demand, capacity), 4)
+        per_job = self._dynamic_per_job_locked() if self.mode == "dynamic" else {}
+        with_clients = {c.get("job_id", DEFAULT_JOB) for c in self._clients.values()}
+        demands = {}
+        for jid in self._jobs:
+            backlog = per_job.get(jid, {}).get("backlog", 0)
+            demands[jid] = (float(backlog) if backlog
+                            else capacity if jid in with_clients else 0.0)
+        if not demands:
+            return {}
+        return plan_fair_shares(capacity, demands,
+                                weights={jid: j["weight"] for jid, j in self._jobs.items()},
+                                quotas={jid: j["quota"] for jid, j in self._jobs.items()})
+
+    def _credit_scale_locked(self, job_id):
+        """The job's flow-control scale from the fair shares (1.0 for the
+        largest share), with the brownout's shedding of the smaller ones;
+        1.0 at once with one job (no walk of the owner maps)."""
+        if len(self._jobs) <= 1:
+            return 1.0
+        shares = self._job_shares_locked()
+        if len(shares) <= 1:
+            return 1.0
+        return round(credit_scales(shares, brownout_level=self._brownout_level)
+                     .get(job_id, 1.0), 4)
 
     # -- dynamic-mode mutations (live handlers and WAL replay) ---------------
 
@@ -1005,14 +1158,14 @@ class Dispatcher:
         return per_worker
 
     def _dynamic_per_job_locked(self):
-        """The same books keyed by each client's job (every client is the
-        default job's until slice (d)), memoized until the next dynamic
+        """The same books keyed by each client's job (steals stay inside a
+        job: the planner runs per client), memoized until the next dynamic
         mutation. Read-only for callers."""
         if self._per_job_memo is not None:
             return self._per_job_memo
         per_job = {}
-        for state in self._dyn.values():
-            entry = per_job.setdefault(DEFAULT_JOB, {
+        for cid, state in self._dyn.items():
+            entry = per_job.setdefault(self._client_job_locked(cid), {
                 "backlog": 0, "steals_in": 0, "steals_out": 0, "pieces_done": 0,
                 "pieces_total": 0, "active_clients": 0})
             entry["active_clients"] += 1
@@ -1030,17 +1183,19 @@ class Dispatcher:
             "generation": self._generation,
             "per_worker": self._dynamic_per_worker_locked(),
             "per_job": self._dynamic_per_job_locked(),
-            "clients": {cid: {"epoch": state["epoch"], "job_id": DEFAULT_JOB,
+            "clients": {cid: {"epoch": state["epoch"],
+                              "job_id": self._client_job_locked(cid),
                               "pieces_done": len(state["done"]),
                               "pieces_total": len(state["owner"])}
                         for cid, state in self._dyn.items()},
         }
 
     def fleet_signals(self):
-        """The autoscaler's input (the autoscaler comes with slice (d)):
-        worker lifecycle states, the live backlog and the last delivery
-        rates. ``backlog_known`` is False outside dynamic mode, which tracks
-        no per-worker progress: zero backlog there is not an idle fleet."""
+        """The autoscaler's input: worker lifecycle states, the live backlog
+        and the last delivery rates (the steal planner's), and the journaled
+        stage profiles (the model planner's prior). ``backlog_known`` is
+        False outside dynamic mode, which tracks no per-worker progress:
+        zero backlog there is not an idle fleet."""
         with self._lock:
             by_state = {"serving": [], "standby": [], "draining": []}
             for wid, worker in sorted(self._workers.items()):
@@ -1054,6 +1209,86 @@ class Dispatcher:
                     "backlog_known": self.mode == "dynamic",
                     "rates": dict(self._last_rates),
                     "stage_profiles": [dict(p) for p in self._stage_profiles]}
+
+    def _apply_autoscale_locked(self, action, worker_id):
+        """The lifecycle state machine (live and replay): admit a standby or
+        draining worker, drain a serving one, retire a draining one to
+        standby. An invalid move (gone, wrong state, the last serving
+        worker's drain) is a no-op, so a replay converges. True when it
+        applied."""
+        worker = self._workers.get(worker_id)
+        if worker is None or not worker["alive"]:
+            return False
+        state = worker.get("state", "serving")
+        if action == "admit" and state in ("standby", "draining"):
+            worker["state"] = "serving"
+        elif action == "drain" and state == "serving":
+            # A constant floor of one, checked when the move applies: the
+            # autoscaler, chaos and an operator may drain concurrently, and
+            # a replay must apply the same way under any configuration.
+            serving = sum(1 for w in self._workers.values()
+                          if w["alive"] and w.get("state", "serving") == "serving")
+            if serving <= 1:
+                return False
+            worker["state"] = "draining"
+        elif action == "retire" and state == "draining":
+            worker["state"] = "standby"
+        else:
+            return False
+        self._autoscale_counts[action] += 1
+        self._mark_dyn_dirty_locked()
+        self._trace_instant("dispatcher.autoscale", action=action, worker=worker_id)
+        return True
+
+    def apply_autoscale(self, action, worker_id, reason=None):
+        """Apply one lifecycle move, journaled (the autoscaler's and the
+        chaos harness's entry point). An admitted worker takes part from the
+        next plan or steal round; a drained one gets no new grants while its
+        live streams finish, and its unstarted pieces are stolen away."""
+        with self._lock:
+            if self._check_writable_locked() is not None:
+                return False
+            applied = self._apply_autoscale_locked(action, worker_id)
+            if applied:
+                self._journal_locked({"op": "autoscale", "action": action,
+                                      "worker_id": worker_id})
+                FLEET_AUTOSCALE_DECISIONS.labels(action).inc()
+                self._sync_telemetry_locked()
+        if applied:
+            logger.info("autoscale: %s worker %s (%s)", action, worker_id, reason or "operator")
+        return applied
+
+    def record_fleet_plan(self, decision):
+        """Journal one model-planner decision (before its action applies):
+        the model, its prediction and what-if error, kept in ``status``."""
+        record = {"op": "fleet_plan"}
+        for key, value in decision.items():
+            record[str(key)] = value
+        with self._lock:
+            if self._check_writable_locked() is not None:
+                return False
+            self._install_fleet_plan_locked(record)
+            self._journal_locked(record)
+        FLEET_MODEL_DECISIONS.labels(str(decision.get("action", "hold"))).inc()
+        return True
+
+    def cache_handoffs(self):
+        """The journaled warm hand-off summaries, newest last."""
+        with self._lock:
+            return [dict(h) for h in self._cache_handoffs]
+
+    def admit_worker(self, worker_id, reason="manual"):
+        """Move a standby (or draining) worker into serving."""
+        return self.apply_autoscale("admit", worker_id, reason=reason)
+
+    def drain_worker(self, worker_id, reason="manual"):
+        """Stop granting to a serving worker: its live streams finish and its
+        unstarted pieces are stolen away to serving peers."""
+        return self.apply_autoscale("drain", worker_id, reason=reason)
+
+    def retire_worker(self, worker_id, reason="manual"):
+        """Return a drained worker to the standby pool."""
+        return self.apply_autoscale("retire", worker_id, reason=reason)
 
     # -- request handling --------------------------------------------------
 
@@ -1107,11 +1342,7 @@ class Dispatcher:
 
     @staticmethod
     def _scope_refusal(header):
-        """An error reply for a request scoped to a job or a corpus."""
-        job = header.get("job_id")
-        if job and str(job) != DEFAULT_JOB:
-            return {"type": "error", "error": "job_id is not ported yet: jobs come with "
-                                              "the fleet, slice (d)"}
+        """An error reply for a request scoped to a corpus."""
         if header.get("corpus"):
             return {"type": "error", "error": "corpus is not ported yet: multi-corpus "
                                               "fleets come with the LLM stages, slice (f)"}
@@ -1149,6 +1380,20 @@ class Dispatcher:
             DISPATCHER_RECOVERY_EVENTS.labels(event).set(count)
         QUARANTINE_PIECES.set(len(self._quarantined))
         FLEET_BROWNOUT_LEVEL.set(self._brownout_level)
+        for state in ("serving", "standby", "draining"):
+            FLEET_WORKERS.labels(state).set(sum(
+                1 for w in self._workers.values()
+                if w["alive"] and w.get("state", "serving") == state))
+        FLEET_JOBS.set(len(self._jobs))
+        if self._jobs and (self.mode != "dynamic" or self._dyn_dirty):
+            # The per-job books walk every owner map: under dynamic sharding
+            # only after a request that changed them.
+            shares = self._job_shares_locked()
+            per_job = self._dynamic_per_job_locked() if self.mode == "dynamic" else {}
+            for jid in self._jobs:
+                FLEET_JOB_FENCING_EPOCH.labels(jid).set(self._job_fencing_locked(jid))
+                FLEET_JOB_FAIR_SHARE.labels(jid).set(round(shares.get(jid, 0.0), 4))
+                FLEET_JOB_BACKLOG.labels(jid).set(per_job.get(jid, {}).get("backlog", 0))
         if self.mode != "dynamic":
             return
         DISPATCHER_GENERATION.set(self._generation)
@@ -1170,12 +1415,8 @@ class Dispatcher:
         worker_id = header["worker_id"]
         num_pieces = int(header["num_pieces"])
         re_register = bool(header.get("re_register"))
-        if header.get("standby"):
-            return {"type": "error", "error": "standby workers are not ported yet: "
-                                              "standby capacity comes with slice (d)"}
-        if header.get("cache_fleet"):
-            return {"type": "error", "error": "fleet-cache workers are not ported yet: the "
-                                              "fleet cache tier comes with slice (d)"}
+        standby = bool(header.get("standby"))
+        cache_fleet = bool(header.get("cache_fleet"))
         with self._lock:
             blocked = self._check_writable_locked()
             if blocked is not None:
@@ -1188,21 +1429,73 @@ class Dispatcher:
                     "config")}
             metrics_port = header.get("metrics_port")
             self._install_worker_locked(worker_id, [header["host"], int(header["port"])],
-                                        num_pieces, re_register=re_register,
-                                        metrics_port=metrics_port)
+                                        num_pieces, re_register=re_register, standby=standby,
+                                        metrics_port=metrics_port, cache_fleet=cache_fleet)
             record = {"op": "register_worker", "worker_id": worker_id,
                       "host": header["host"], "port": int(header["port"]),
                       "num_pieces": num_pieces, "re_register": re_register,
-                      "standby": False}
+                      "standby": standby}
             if metrics_port is not None:
                 record["metrics_port"] = int(metrics_port)
+            if cache_fleet:
+                record["cache_fleet"] = True
             self._journal_locked(record)
             fencing = self._fencing_epoch
             state = self._workers[worker_id]["state"]
-        logger.info("worker %s %sregistered at %s:%s (%d pieces)", worker_id,
+            # The registrant's placement ring at once: its first heartbeat
+            # is an interval away.
+            cache_peers = self._cache_peers_locked() if cache_fleet else None
+        logger.info("worker %s %sregistered at %s:%s (%d pieces, %s)", worker_id,
                     "re-" if re_register else "", header["host"], header["port"],
-                    num_pieces)
-        return {"type": "ok", "fencing_epoch": fencing, "state": state}
+                    num_pieces, state)
+        reply = {"type": "ok", "fencing_epoch": fencing, "state": state}
+        if cache_peers is not None:
+            reply["cache_peers"] = cache_peers
+        return reply
+
+    def _handle_register_job(self, header):
+        """Register (or restart) a job. Refused under fcfs, whose one shared
+        queue has no per-job assignment."""
+        if self.mode == "fcfs":
+            return {"type": "error", "error": (
+                "register_job requires static or dynamic sharding: fcfs hands splits out of "
+                "ONE shared first-come-first-served queue with no per-job assignment, so "
+                "multiple jobs would silently split (not share) every epoch's data — run "
+                "the dispatcher with mode='dynamic' (recommended: work-stealing + "
+                "autoscaling) or mode='static'")}
+        job_id = str(header["job_id"])
+        weight = float(header.get("weight", 1.0))
+        if weight <= 0:
+            return {"type": "error", "error": f"job weight must be > 0, got {weight}"}
+        quota = header.get("quota")
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            restarted = self._install_job_locked(job_id, weight, quota, restart=True)
+            self._journal_locked({"op": "job_register", "job_id": job_id, "weight": weight,
+                                  "quota": float(quota) if quota is not None else None,
+                                  "restart": True})
+            fencing = self._job_fencing_locked(job_id)
+        logger.info("job %s %s (weight=%g quota=%s)", job_id,
+                    "restarted" if restarted else "registered", weight, quota)
+        return {"type": "ok", "job_id": job_id, "restarted": restarted,
+                "fencing_epoch": fencing}
+
+    def _handle_end_job(self, header):
+        """End a job: its clients, piece books, watermarks and quota go.
+        Ending an unknown job is a no-op."""
+        job_id = str(header["job_id"])
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            removed = self._remove_job_locked(job_id)
+            if removed:
+                self._journal_locked({"op": "job_end", "job_id": job_id})
+        if removed:
+            logger.info("job %s ended: clients, piece books and quota released", job_id)
+        return {"type": "ok", "job_id": job_id, "removed": removed}
 
     def _handle_worker_heartbeat(self, header):
         worker_id = header["worker_id"]
@@ -1219,12 +1512,23 @@ class Dispatcher:
             self._maybe_close_breaker_locked(worker_id)
             return {"type": "ok", "fencing_epoch": self._fencing_epoch,
                     "brownout_level": self._brownout_level,
+                    # The worker's state (its drain edge starts the warm
+                    # hand-off) and the serving cache peers its ring uses.
                     "worker_state": worker.get("state", "serving"),
-                    "cache_peers": [],
+                    "cache_peers": self._cache_peers_locked(),
                     # The clock-alignment beacon: this dispatcher's trace
                     # timebase "now", and whether fleet tracing is armed.
                     "dispatcher_time_us": tracing.COLLECTOR.now_us(),
                     "trace": self._trace_armed}
+
+    def _cache_peers_locked(self):
+        """The fleet cache tier's membership: alive serving workers that
+        registered with the tier, as sorted ``[worker_id, host, port]``
+        (a draining worker leaves the ring at once)."""
+        return [[wid, w["address"][0], int(w["address"][1])]
+                for wid, w in sorted(self._workers.items())
+                if w["alive"] and w.get("cache_fleet")
+                and w.get("state", "serving") == "serving"]
 
     def _handle_client_heartbeat(self, header):
         client_id = header.get("client_id")
@@ -1254,19 +1558,25 @@ class Dispatcher:
                             "epoch": entry["epoch"],
                             "watermarks": {str(p): n
                                            for p, n in entry["watermarks"].items()}})
-            return {"type": "ok", "known": known, "fencing_epoch": self._fencing_epoch,
+            job_id = self._client_job_locked(client_id, header)
+            return {"type": "ok", "known": known,
+                    "fencing_epoch": self._job_fencing_locked(job_id),
                     "recovery": dict(self._recovery),
-                    "brownout_level": self._brownout_level, "credit_scale": 1.0,
+                    "brownout_level": self._brownout_level,
+                    "credit_scale": self._credit_scale_locked(job_id),
                     "dispatcher_time_us": tracing.COLLECTOR.now_us(),
                     "trace": self._trace_armed}
 
-    def _alive_workers(self):
-        return {wid: w for wid, w in self._workers.items() if w["alive"]}
+    def _alive_workers(self, states=("serving", "draining")):
+        """Live workers in ``states``: by default those whose streams may
+        still flow (a standby worker is in no plan until admitted)."""
+        return {wid: w for wid, w in self._workers.items()
+                if w["alive"] and w.get("state", "serving") in states}
 
     def _serving_workers(self):
-        """Workers eligible for new grants: alive and not breaker-open;
-        when every one is breaker-open the exclusion yields."""
-        workers = self._alive_workers()
+        """Workers eligible for new grants: alive, serving and not
+        breaker-open; when every one is breaker-open the exclusion yields."""
+        workers = self._alive_workers(("serving",))
         if self._breaker_open:
             healthy = {wid: w for wid, w in workers.items() if wid not in self._breaker_open}
             if healthy:
@@ -1308,6 +1618,7 @@ class Dispatcher:
             alive = self._serving_workers()
             if not alive:
                 return {"type": "error", "error": "no live workers"}
+            job_id = str(header.get("job_id") or DEFAULT_JOB)
             # Partition the ascending piece list (the same workers serve the
             # same pieces every epoch), then order each share by the epoch's
             # seed-tree keys.
@@ -1318,15 +1629,23 @@ class Dispatcher:
                            for wid, pieces in self._partition(client_pieces,
                                                               sorted(alive)).items()}
             self._install_client_locked(header["client_id"], epoch, client_index,
-                                        num_clients)
+                                        num_clients, job_id)
             self._client_heartbeats[header["client_id"]] = time.monotonic()
-            self._journal_locked({"op": "client", "client_id": header["client_id"],
-                                  "epoch": epoch, "client_index": client_index,
-                                  "num_clients": num_clients})
+            self._journal_locked(self._client_record(header["client_id"], epoch, client_index,
+                                                     num_clients, job_id))
             return {"type": "assignment", "epoch": epoch,
-                    "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
+                    "fencing_epoch": self._job_fencing_locked(job_id),
+                    "credit_scale": self._credit_scale_locked(job_id),
                     "assignments": assignments,
                     "workers": {wid: alive[wid]["address"] for wid in assignments}}
+
+    @staticmethod
+    def _client_record(client_id, epoch, client_index, num_clients, job_id):
+        record = {"op": "client", "client_id": client_id, "epoch": epoch,
+                  "client_index": client_index, "num_clients": num_clients}
+        if job_id != DEFAULT_JOB:
+            record["job_id"] = job_id
+        return record
 
     def _handle_report_failure(self, header):
         worker_id = header["worker_id"]
@@ -1337,19 +1656,26 @@ class Dispatcher:
                 return blocked
             # A quarantined piece must not ride a takeover back into a plan.
             pieces = self._grantable_pieces_locked(int(p) for p in header.get("pieces", []))
-            if token is not None and int(token) < self._fencing_epoch:
-                # The client acts on a plan a later event invalidated: it
+            job_id = self._client_job_locked(header.get("client_id"), header)
+            if token is not None and int(token) < self._job_fencing_locked(job_id):
+                # The client acts on a plan a later event invalidated (its
+                # job's epoch: another job's restart never fences it): it
                 # must re-fetch its assignment instead of taking over.
                 self._recovery["stale_fencing_rejections"] += 1
-                self._job_recovery_locked(DEFAULT_JOB)["stale_fencing_rejections"] += 1
+                self._job_recovery_locked(job_id)["stale_fencing_rejections"] += 1
                 logger.warning("rejecting stale report_failure (token %s) from %s", token,
                                header.get("client_id"))
-                return {"type": "stale_fencing", "fencing_epoch": self._fencing_epoch}
-            if self._mark_worker_dead_locked(worker_id, "reported", job_id=DEFAULT_JOB):
+                return {"type": "stale_fencing",
+                        "fencing_epoch": self._job_fencing_locked(job_id)}
+            if self._mark_worker_dead_locked(worker_id, "reported", job_id=job_id):
+                # The job rides every record, so a replay attributes the
+                # failure to the same job.
                 self._journal_locked({"op": "worker_dead", "worker_id": worker_id,
-                                      "reason": "reported", "job_id": DEFAULT_JOB})
+                                      "reason": "reported", "job_id": job_id})
                 self._bump_fencing_locked("report_failure")
-            alive = self._serving_workers()
+            # A draining worker takes a dead peer's pieces only when nothing
+            # serves.
+            alive = self._serving_workers() or self._alive_workers()
             if not alive:
                 return {"type": "error", "error": (
                     f"worker {worker_id!r} reported dead and no live workers remain — the "
@@ -1439,6 +1765,7 @@ class Dispatcher:
             alive = self._serving_workers()
             if not alive:
                 return {"type": "error", "error": "no live workers"}
+            job_id = str(header.get("job_id") or DEFAULT_JOB)
             # Sticky deques in canonical per-deque order, like static: cache
             # warmth survives shuffled epochs.
             client_pieces = self._grantable_pieces_locked(
@@ -1451,17 +1778,18 @@ class Dispatcher:
             owner = {piece: [wid, generation]
                      for wid, pieces in assignments.items() for piece in pieces}
             self._install_dynamic_plan_locked(client_id, epoch, owner, generation)
-            self._install_client_locked(client_id, epoch, client_index, num_clients)
+            self._install_client_locked(client_id, epoch, client_index, num_clients, job_id)
             self._client_heartbeats[client_id] = time.monotonic()
-            self._journal_locked({"op": "client", "client_id": client_id, "epoch": epoch,
-                                  "client_index": client_index, "num_clients": num_clients})
+            self._journal_locked(self._client_record(client_id, epoch, client_index,
+                                                     num_clients, job_id))
             self._journal_locked({"op": "dynamic_plan", "client_id": client_id,
                                   "epoch": epoch,
                                   "owner": [[piece, wid, gen]
                                             for piece, (wid, gen) in sorted(owner.items())],
                                   "generation": generation})
             return {"type": "plan", "epoch": epoch, "generation": generation,
-                    "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
+                    "fencing_epoch": self._job_fencing_locked(job_id),
+                    "credit_scale": self._credit_scale_locked(job_id),
                     "assignments": {wid: [[piece, generation] for piece in pieces]
                                     for wid, pieces in assignments.items()},
                     "workers": {wid: alive[wid]["address"] for wid in assignments}}
@@ -1489,12 +1817,14 @@ class Dispatcher:
             blocked = self._check_writable_locked()
             if blocked is not None:
                 return blocked
+            job_id = self._client_job_locked(client_id, header)
             self._last_rates.update(rates)
             state = self._dyn.get(client_id)
             if state is None or state["epoch"] != epoch:
                 # No plan for this epoch (restarted without a journal): the
                 # client re-plans while its streams keep flowing.
-                return {"type": "unknown_plan", "fencing_epoch": self._fencing_epoch}
+                return {"type": "unknown_plan",
+                        "fencing_epoch": self._job_fencing_locked(job_id)}
             for piece, kept_wid, kept_gen, failed_gen in failed:
                 # A revert holds only against the assignment the failed steal
                 # made: a report retried past a newer grant is stale.
@@ -1538,8 +1868,9 @@ class Dispatcher:
             moves = []
             draining_ids = sorted(wid for wid in alive if wid not in serving_ids)
             if draining_ids and serving_ids:
-                # A worker out of the serving set (breaker-open) sheds its
-                # whole unstarted backlog to the least-loaded serving peers.
+                # A worker out of the serving set (draining or breaker-open)
+                # sheds its whole unstarted backlog to the least-loaded
+                # serving peers; its started pieces finish where they are.
                 for dwid in draining_ids:
                     for piece in sorted(live_stealable.get(dwid, [])):
                         recv = min(serving_ids, key=lambda w: (pending[w], w))
@@ -1561,7 +1892,8 @@ class Dispatcher:
                             len(moves), "; ".join(f"{p}:{f}->{t}" for p, f, t in moves[:8]))
             referenced = {d["to"] for d in deltas} | {d["from"] for d in deltas}
             return {"type": "deltas", "steals": deltas, "generation": self._generation,
-                    "fencing_epoch": self._fencing_epoch, "credit_scale": 1.0,
+                    "fencing_epoch": self._job_fencing_locked(job_id),
+                    "credit_scale": self._credit_scale_locked(job_id),
                     # A steal target may be a worker the client has no
                     # stream to yet: its address lets the grant open one.
                     "workers": {wid: alive[wid]["address"] for wid in referenced
@@ -1584,7 +1916,9 @@ class Dispatcher:
         from petastorm_tpu_torch.reader_impl.framed_socket import FramedConnection
 
         with self._lock:
-            workers = {wid: tuple(w["address"]) for wid, w in self._alive_workers().items()}
+            # The whole fleet, standby pool included.
+            workers = {wid: tuple(w["address"]) for wid, w in
+                       self._alive_workers(("serving", "draining", "standby")).items()}
 
         def probe(address):
             try:
@@ -1699,10 +2033,37 @@ class Dispatcher:
             kept = len(self._stage_profiles)
         return {"type": "ok", "kept": kept}
 
+    def _handle_cache_handoff(self, header):
+        """A drained worker's warm hand-off summary (entries and bytes
+        shipped, to which peers, errors, torn): journaled and kept for
+        ``status``."""
+        worker_id = header.get("worker_id")
+        if not worker_id:
+            return {"type": "error", "error": "cache_handoff requires a worker_id"}
+        record = {"op": "cache_handoff", "worker_id": str(worker_id),
+                  "entries": int(header.get("entries", 0)),
+                  "bytes": int(header.get("bytes", 0)),
+                  "peers": {str(p): int(n) for p, n in (header.get("peers") or {}).items()},
+                  "errors": int(header.get("errors", 0)),
+                  "torn": bool(header.get("torn"))}
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            self._install_cache_handoff_locked(record)
+            self._journal_locked(record)
+            kept = len(self._cache_handoffs)
+        logger.info("cache hand-off of worker %s journaled: %d entries (%d bytes) to %d "
+                    "peers, %d errors%s", worker_id, record["entries"], record["bytes"],
+                    len(record["peers"]), record["errors"],
+                    " [TORN]" if record["torn"] else "")
+        return {"type": "ok", "kept": kept}
+
     def _handle_status(self, header):
         now = time.monotonic()
         with self._lock:
-            alive = sorted(wid for wid, w in self._workers.items() if w["alive"])
+            shares = self._job_shares_locked()
+            per_job = self._dynamic_per_job_locked() if self.mode == "dynamic" else {}
             return {
                 "type": "status",
                 "mode": self.mode,
@@ -1722,7 +2083,8 @@ class Dispatcher:
                 "workers": {
                     wid: {"address": w["address"], "alive": w["alive"],
                           "state": w.get("state", "serving"),
-                          "metrics_port": w.get("metrics_port"), "cache_fleet": False,
+                          "metrics_port": w.get("metrics_port"),
+                          "cache_fleet": bool(w.get("cache_fleet")),
                           "lease_expires_in_s": (round(self._worker_leases[wid] - now, 3)
                                                  if wid in self._worker_leases else None)}
                     for wid, w in self._workers.items()},
@@ -1733,25 +2095,30 @@ class Dispatcher:
                 "metrics_address": self.metrics_address,
                 "clients": {cid: dict(c) for cid, c in self._clients.items()},
                 "fleet": {
-                    "workers_by_state": {"serving": alive, "standby": [], "draining": []},
-                    "autoscale": {"admit": 0, "drain": 0, "retire": 0},
-                    "autoscaler_armed": False,
+                    "workers_by_state": {
+                        state: sorted(wid for wid, w in self._workers.items()
+                                      if w["alive"] and w.get("state", "serving") == state)
+                        for state in ("serving", "standby", "draining")},
+                    "autoscale": dict(self._autoscale_counts),
+                    "autoscaler_armed": self._autoscaler is not None,
                     "breaker_open": {wid: dict(info)
                                      for wid, info in sorted(self._breaker_open.items())},
                     "brownout": {"level": self._brownout_level,
                                  "counts": dict(self._brownout_counts),
                                  "reason": self._brownout_reason,
                                  "armed": self._brownout is not None},
-                    "cache_peers": [], "cache_handoffs": [], "fleet_plans": []},
+                    "cache_peers": self._cache_peers_locked(),
+                    "cache_handoffs": [dict(h) for h in self._cache_handoffs],
+                    "fleet_plans": [dict(p) for p in self._fleet_plans]},
                 "jobs": {
                     jid: {"weight": job["weight"], "quota": job["quota"],
                           "epoch": job["epoch"],
-                          "fencing_epoch": self._fencing_epoch + job["fencing_offset"],
-                          "fair_share": self._default_job_share_locked(),
-                          "clients": sorted(self._clients),
+                          "fencing_epoch": self._job_fencing_locked(jid),
+                          "fair_share": round(shares.get(jid, 0.0), 4),
+                          "clients": sorted(cid for cid, c in self._clients.items()
+                                            if c.get("job_id", DEFAULT_JOB) == jid),
                           "recovery": dict(self._job_recovery.get(jid, {})),
-                          **(self._dynamic_per_job_locked().get(jid, {})
-                             if self.mode == "dynamic" else {})}
+                          **(per_job.get(jid, {}) if self.mode == "dynamic" else {})}
                     for jid, job in self._jobs.items()},
                 "fcfs_epoch": self._fcfs_epoch,
                 "fcfs_remaining": (len(self._fcfs_queue)

@@ -35,6 +35,18 @@ Three serving forms, as in the JAX package:
 With ``on_piece_error="quarantine"`` a tagged or dynamic stream reports an
 undecodable piece with a ``piece_failed`` frame and serves on.
 
+The fleet: ``standby=True`` registers the worker as pool capacity that
+receives nothing until the dispatcher admits it. ``fleet_cache=True`` wraps
+the batch cache in the fleet cache tier
+(:class:`~petastorm_tpu_torch.cache_impl.fleet_tier.FleetCacheTier`): the
+ring's peers come with the registration and heartbeat replies, the worker
+answers its peers' ``cache_fetch`` and ``cache_put`` requests, and when the
+dispatcher drains it a thread (``cache-peer-handoff-<worker id>``) ships its
+memory tier to the peers that inherit its keys and reports a
+``cache_handoff``. A stream request's ``job_id`` buckets its rows and cache
+lookups per job (``rows_by_job``, ``cache_stats_by_job``,
+``petastorm_fleet_job_rows_total``).
+
 A ``batch_cache`` keeps each piece's serialized batches under a content key
 (:meth:`BatchWorker._piece_cache_key`, the JAX worker's key, so one cache
 directory serves both packages): a warm piece is sent from the cache with
@@ -71,9 +83,9 @@ brownout level sheds optional stages at level 2, and its ``trace`` flag
 arms this process's span collector, whose ring each armed tick pushes to
 the dispatcher (a ``trace`` request pulls it). A stream request whose
 propagated deadline already expired is refused (retryable). The
-``worker.heartbeat`` and ``slow-peer`` failpoints live here. What this
-slice does not port raises NotImplementedError naming the argument and the
-service slice that brings it (:data:`UNPORTED_WORKER_ARGS`).
+``worker.heartbeat`` and ``slow-peer`` failpoints live here. A ``corpus``
+raises NotImplementedError naming the slice that brings it
+(:data:`UNPORTED_WORKER_ARGS`).
 """
 
 from __future__ import annotations
@@ -103,6 +115,8 @@ from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.clockalign import OffsetEstimator
 from petastorm_tpu_torch.telemetry.metrics import (
     COLUMNAR_BATCHES,
+    FLEET_JOB_CACHE_LOOKUPS,
+    FLEET_JOB_ROWS,
     WORKER_ACTIVE_STREAMS,
     WORKER_BATCHES_SENT,
     WORKER_CREDIT_WAIT,
@@ -124,8 +138,6 @@ _COMPLETED_SNAPSHOTS_KEPT = 16
 #: ``BatchWorker`` arguments this slice does not take: the value that asks
 #: for nothing, and the service slice that ports the feature.
 UNPORTED_WORKER_ARGS = {
-    "fleet_cache": (False, "the fleet cache tier comes with slice (d)"),
-    "standby": (False, "standby capacity and the autoscaler come with slice (d)"),
     "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
 }
 
@@ -235,9 +247,16 @@ class BatchWorker:
         stream) or ``"quarantine"`` (a tagged or dynamic stream reports it
         with a ``piece_failed`` frame and serves on; the engine rebuilds its
         reader).
+    :param standby: register as standby pool capacity: leased and observed,
+        granted nothing until the autoscaler (or
+        ``Dispatcher.admit_worker``) admits it.
+    :param fleet_cache: wrap ``batch_cache`` in the fleet cache tier
+        (placement on the peers' consistent-hash ring, remote warm serves,
+        the warm hand-off on a drain). Needs a ``batch_cache`` (ignored
+        without one) and a ``dispatcher_address`` (the ring's membership
+        rides the heartbeats).
 
-    ``fleet_cache``, ``standby`` and a ``corpus`` raise NotImplementedError
-    naming the argument and its slice.
+    A ``corpus`` raises NotImplementedError naming its slice.
     """
 
     #: Seconds between stop-flag checks while a stream waits for credits.
@@ -252,7 +271,7 @@ class BatchWorker:
                  fleet_cache=False):
         from petastorm_tpu_torch.service.transport import resolve_mode
 
-        given = {"fleet_cache": fleet_cache, "standby": standby, "corpus": corpus or ""}
+        given = {"corpus": corpus or ""}
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
                              f"{on_piece_error!r}")
@@ -265,7 +284,19 @@ class BatchWorker:
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
         self._dispatcher_address = tuple(dispatcher_address) if dispatcher_address else None
         self._batch_size = batch_size
+        # The fleet tier stands in for the cache everywhere below (engines,
+        # diagnostics, cleanup).
+        self._fleet_tier = None
+        if fleet_cache and batch_cache is not None:
+            from petastorm_tpu_torch.cache_impl.fleet_tier import FleetCacheTier
+
+            self._fleet_tier = batch_cache = FleetCacheTier(batch_cache, self.worker_id)
         self._batch_cache = batch_cache
+        # The lifecycle state the heartbeats last reported: its serving →
+        # draining edge starts the warm hand-off once per drain.
+        self._fleet_state = None
+        self._handoff_thread = None
+        self._standby = bool(standby)
         self._batch_transform = batch_transform
         self._on_piece_error = on_piece_error
         self._factory = _resolve_factory(reader_factory)
@@ -295,6 +326,9 @@ class BatchWorker:
         self._active = {}        # stream key -> {"reader", "flow"}
         self._completed = {}     # stream key -> final diagnostics
         self._cache_epochs = {}  # epoch -> {"hits", "misses"} of the streams' lookups
+        # Per job (a stream request's job_id), bounded like the epochs.
+        self._jobs_served = {}  # job -> {"rows", "batches"}
+        self._cache_jobs = {}   # job -> {"hits", "misses"}
         self._m_batches = WORKER_BATCHES_SENT.labels(self.worker_id)
         self._m_rows = WORKER_ROWS_SENT.labels(self.worker_id)
         self._m_credit_wait = WORKER_CREDIT_WAIT.labels(self.worker_id)
@@ -387,6 +421,10 @@ class BatchWorker:
             self._frame_pool = None
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=drain_timeout_s)
+        if self._handoff_thread is not None:
+            # The tier's cleanup above closed its pushes: a straggling
+            # hand-off ends on its next failed request.
+            self._handoff_thread.join(timeout=drain_timeout_s)
         if self._trace_armed_remote:
             self._trace_armed_remote = False
             tracing.COLLECTOR.release()
@@ -439,7 +477,8 @@ class BatchWorker:
         host, port = self.address
         payload = {"type": "register_worker", "worker_id": self.worker_id, "host": host,
                    "port": port, "num_pieces": self.num_pieces, "re_register": re_register,
-                   "standby": False, "corpus": "", "cache_fleet": False}
+                   "standby": self._standby, "corpus": "",
+                   "cache_fleet": self._fleet_tier is not None}
         if self.metrics_port is not None:
             payload["metrics_port"] = self.metrics_port
         reply = self._control_rpc(payload, f"worker {self.worker_id} registration",
@@ -447,7 +486,16 @@ class BatchWorker:
         if reply.get("type") != "ok":
             raise RuntimeError(f"dispatcher rejected registration: "
                                f"{reply.get('error', reply)}")
+        if self._fleet_tier is not None and reply.get("cache_peers") is not None:
+            self._update_cache_peers(reply["cache_peers"])
         return reply
+
+    def _update_cache_peers(self, peers):
+        try:
+            self._fleet_tier.update_peers(peers)
+        except (ValueError, TypeError):
+            logger.warning("worker %s: malformed cache_peers from the dispatcher — keeping "
+                           "the previous ring", self.worker_id, exc_info=True)
 
     def _control_rpc(self, header, description, retries=None):
         """One control request / reply under the retry policy (bounded
@@ -496,6 +544,10 @@ class BatchWorker:
                 self._clock.add(tracing.COLLECTOR.ts_us((t0 + t1) / 2.0), float(remote_us),
                                 (t1 - t0) * 1e6)
             self._sync_trace_arming(bool(reply.get("trace")))
+            if self._fleet_tier is not None:
+                if reply.get("cache_peers") is not None:
+                    self._update_cache_peers(reply["cache_peers"])
+                self._sync_fleet_state(reply.get("worker_state"))
             if "brownout_level" in reply:
                 note_brownout_level(reply["brownout_level"])
             if reply.get("type") == "unknown_worker" and not self._heartbeat_stop.is_set():
@@ -505,6 +557,65 @@ class BatchWorker:
                     self._register(re_register=True, retries=0)
                 except (OSError, RuntimeError, ProtocolError):
                     continue
+
+    # -- the fleet cache tier ----------------------------------------------
+
+    def _sync_fleet_state(self, state):
+        """Follow the lifecycle state the dispatcher reports: the serving →
+        draining edge starts the warm hand-off once per drain, on a thread
+        of its own (the heartbeats must keep renewing the lease meanwhile)."""
+        if state is None:
+            return
+        previous, self._fleet_state = self._fleet_state, state
+        if (state == "draining" and previous not in (None, "draining")
+                and (self._handoff_thread is None or not self._handoff_thread.is_alive())):
+            self._handoff_thread = threading.Thread(
+                target=self._run_handoff, daemon=True,
+                name=f"cache-peer-handoff-{self.worker_id}")
+            self._handoff_thread.start()
+
+    def _run_handoff(self):
+        try:
+            summary = self._fleet_tier.handoff()
+        except Exception:
+            logger.warning("worker %s: warm hand-off failed — the inheriting peers will "
+                           "decode", self.worker_id, exc_info=True)
+            return
+        logger.info("worker %s: warm hand-off shipped %d entries (%d bytes) to %d peer(s)%s",
+                    self.worker_id, summary["entries"], summary["bytes"],
+                    len(summary["peers"]), " [torn]" if summary["torn"] else "")
+        try:
+            self._control_rpc({"type": "cache_handoff", "worker_id": self.worker_id,
+                               **{k: summary[k] for k in ("entries", "bytes", "peers",
+                                                          "errors", "torn")}},
+                              f"worker {self.worker_id} hand-off report", retries=0)
+        except (OSError, ProtocolError):
+            logger.warning("worker %s: the hand-off report did not reach the dispatcher (the "
+                           "hand-off itself completed)", self.worker_id, exc_info=True)
+
+    def _handle_cache_fetch(self, sock, header):
+        """A peer asks for a warm entry: its meta and its one contiguous
+        buffer, or a miss."""
+        if self._fleet_tier is None:
+            send_framed(sock, {"type": "error", "error": "fleet cache tier not armed"})
+            return
+        reply, payload = self._fleet_tier.serve_fetch(str(header.get("key")))
+        send_framed(sock, reply, payload)
+
+    def _handle_cache_put(self, sock, header, payload):
+        """A peer ships an entry here (placement or a drain hand-off); a
+        payload that disagrees with its meta is refused, never published."""
+        if self._fleet_tier is None:
+            send_framed(sock, {"type": "error", "error": "fleet cache tier not armed"})
+            return
+        try:
+            entry = self._fleet_tier.adopt(str(header.get("key")), header.get("meta") or [],
+                                           (payload or {}).get("buf", b""),
+                                           origin=str(header.get("origin", "placement")))
+        except (ValueError, KeyError, TypeError) as exc:
+            send_framed(sock, {"type": "error", "error": f"cache_put refused: {exc}"})
+            return
+        send_framed(sock, {"type": "ok", "key": header.get("key"), "rows": entry.rows})
 
     # -- fleet tracing -----------------------------------------------------
 
@@ -552,7 +663,7 @@ class BatchWorker:
     def _serve_connection(self, sock):
         reader = FramedReader(sock, max_frame_bytes=self._max_frame_bytes)
         while not self._server.stopped.is_set():
-            header, _ = reader.recv()
+            header, payload = reader.recv()
             kind = header.get("type")
             if kind == "stream":
                 self._stream(sock, header, reader)
@@ -561,6 +672,10 @@ class BatchWorker:
             elif kind == "diagnostics":
                 send_framed(sock, {"type": "diagnostics", "worker_id": self.worker_id},
                             self.diagnostics_snapshot())
+            elif kind == "cache_fetch":
+                self._handle_cache_fetch(sock, header)
+            elif kind == "cache_put":
+                self._handle_cache_put(sock, header, payload)
             elif kind == "trace":
                 send_framed(sock, self._trace_snapshot())
             elif kind == "ping":
@@ -692,6 +807,11 @@ class BatchWorker:
         credits = int(credits) if credits is not None else None
         flow = {"credits_window": credits, "credits_left": credits, "batches_sent": 0,
                 "credit_wait_s": 0.0}
+        # The request's job buckets this stream's rows and cache lookups
+        # (the finished stream's snapshot keeps it).
+        job = str(header["job_id"]) if header.get("job_id") else None
+        if job is not None:
+            flow["job"] = job
         if columnar_path is not None:
             flow["columnar_path"] = columnar_path
         stream_key = uuid.uuid4().hex[:8]
@@ -710,7 +830,7 @@ class BatchWorker:
             with self._lock:
                 self._transport_streams[tx.transport] += 1
             common = dict(epoch=epoch, shuffle_seed=shuffle_seed, transform_fn=transform_fn,
-                          rewrites=rewrites)
+                          rewrites=rewrites, job=job)
             if dynamic:
                 rows_sent = self._stream_dynamic(tx, conn_reader, state, pieces, flow, credits,
                                                  stream_key, early_frames=early_frames,
@@ -736,7 +856,7 @@ class BatchWorker:
                 if self._batch_cache is not None:
                     rows_sent = self._stream_pieces_cached(
                         tx, conn_reader, state, pieces, flow, credits, stream_key,
-                        epoch=epoch, transform_fn=transform_fn)
+                        epoch=epoch, transform_fn=transform_fn, job=job)
                 else:
                     rows_sent = self._stream_pieces_direct(
                         tx, conn_reader, state, pieces, flow, credits, stream_key,
@@ -771,6 +891,17 @@ class BatchWorker:
                 self._completed[stream_key] = dict(snapshot, **flow)
                 while len(self._completed) > _COMPLETED_SNAPSHOTS_KEPT:
                     self._completed.pop(next(iter(self._completed)))
+                if job is not None and flow.get("job_batches"):
+                    # Folded once a stream (pop and reinsert: an LRU touch,
+                    # so an active job is never the one evicted).
+                    counts = self._jobs_served.pop(job, {"rows": 0, "batches": 0})
+                    counts["rows"] += flow.get("job_rows", 0)
+                    counts["batches"] += flow["job_batches"]
+                    self._jobs_served[job] = counts
+                    while len(self._jobs_served) > self._JOBS_TRACKED_KEPT:
+                        old_job = next(iter(self._jobs_served))
+                        self._jobs_served.pop(old_job)
+                        FLEET_JOB_ROWS.remove(old_job)
             self._m_active.dec()
             WORKER_STREAMS.labels(self.worker_id, outcome).inc()
             if reader is not None:
@@ -818,7 +949,7 @@ class BatchWorker:
             rows_sent += rows
 
     def _stream_pieces_cached(self, tx, conn_reader, state, pieces, flow, credits,
-                              stream_key, epoch=None, transform_fn=None):
+                              stream_key, epoch=None, transform_fn=None, job=None):
         """Untagged cached serving for a process pool (no engine): a warm
         piece is sent from the cache's frames, a cold one is read through a
         reader of its own, each batch encoded once for the send and the
@@ -829,7 +960,7 @@ class BatchWorker:
         for piece in pieces:
             key = self._piece_cache_key(piece, transformed=transform_fn is not None)
             entry = cache.get(key)
-            self._note_cache_lookup(epoch, hit=entry is not None)
+            self._note_cache_lookup(epoch, hit=entry is not None, job=job)
             if entry is not None:
                 for cached in entry.batches():
                     bid = f"{self.worker_id}:{stream_key}:{flow['batches_sent']}"
@@ -877,7 +1008,7 @@ class BatchWorker:
         return self._reader_kwargs.get("reader_pool_type", "thread") in ("thread", "dummy")
 
     def _make_engine(self, epoch, shuffle_seed=None, transform_fn=None,
-                     allow_quarantine=False, rewrites=None):
+                     allow_quarantine=False, rewrites=None, job=None):
         """One engine for a whole stream over one lazily built
         ``dynamic_ventilation=True`` reader (a warm stream builds none).
         ``shuffle_seed`` arms the serve-time batch permutation
@@ -925,7 +1056,7 @@ class BatchWorker:
             cache_key_fn=((lambda piece: self._piece_cache_key(
                 piece, transformed=transformed, predicate=predicate, projection=projection,
                 family=family_name)) if cache is not None else None),
-            cache_note_fn=((lambda hit: self._note_cache_lookup(epoch, hit))
+            cache_note_fn=((lambda hit: self._note_cache_lookup(epoch, hit, job=job))
                            if cache is not None else None),
             permute_fn=permute_fn, transform_fn=transform_fn,
             fused=bool(rewrites.get("fused")), cache_stage=cache_stage,
@@ -945,7 +1076,7 @@ class BatchWorker:
 
     def _stream_pieces_tagged(self, tx, conn_reader, state, pieces, flow, credits,
                               stream_key, starts, epoch=None, shuffle_seed=None,
-                              transform_fn=None, rewrites=None, tagged=True):
+                              transform_fn=None, rewrites=None, tagged=True, job=None):
         """Exactly-once static serving through the engine: piece-aligned
         batches tagged with their piece and ordinal, a ``piece_done`` frame
         after each piece (``piece_failed`` in its place under quarantine).
@@ -953,7 +1084,7 @@ class BatchWorker:
         ``tagged=False``: the untagged cached stream (no tags, no markers)."""
         collector = tracing.COLLECTOR
         engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=tagged,
-                                   rewrites=rewrites)
+                                   rewrites=rewrites, job=job)
         with self._lock:
             # Reader-shaped for diagnostics and teardown (stop / join).
             state["reader"] = engine
@@ -987,7 +1118,7 @@ class BatchWorker:
 
     def _stream_dynamic(self, tx, conn_reader, state, pieces, flow, credits, stream_key,
                         epoch=None, shuffle_seed=None, transform_fn=None, rewrites=None,
-                        early_frames=()):
+                        early_frames=(), job=None):
         """Dynamic serving: the engine's queue is the worker's deque, edited
         in-band: ``extend`` appends steal grants, ``revoke`` removes unsent
         pieces (acked with the ones removed, which makes the client's
@@ -1002,7 +1133,7 @@ class BatchWorker:
                 f"{self._reader_kwargs.get('reader_pool_type')!r}")
         collector = tracing.COLLECTOR
         engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True,
-                                   rewrites=rewrites)
+                                   rewrites=rewrites, job=job)
         with self._lock:
             state["reader"] = engine
         for piece, gen, start in pieces:
@@ -1183,21 +1314,43 @@ class BatchWorker:
         columnar_path = flow.get("columnar_path")
         if columnar_path is not None:
             self._m_columnar[columnar_path].inc()
+        if flow.get("job") is not None:
+            # Accumulated in the flow, folded into the worker's books once at
+            # the stream's end: no worker lock a batch.
+            FLEET_JOB_ROWS.labels(flow["job"]).inc(rows)
+            flow["job_rows"] = flow.get("job_rows", 0) + rows
+            flow["job_batches"] = flow.get("job_batches", 0) + 1
         if credits is not None:
             flow["credits_left"] -= 1
         return True
 
     #: Epochs whose cache lookups are kept for ``cache_stats_by_epoch``.
     _CACHE_EPOCHS_KEPT = 64
+    #: Jobs whose rows and cache lookups are kept (the oldest, with its
+    #: metric series, goes beyond it).
+    _JOBS_TRACKED_KEPT = 64
 
-    def _note_cache_lookup(self, epoch, hit):
+    def _note_cache_lookup(self, epoch, hit, job=None):
         """One cache lookup, bucketed by the epoch of the stream that made
-        it (the per-epoch cold and warm counts)."""
+        it (the per-epoch cold and warm counts) and by its job (how many
+        jobs one decode served)."""
+        key = "hits" if hit else "misses"
+        if job is not None:
+            FLEET_JOB_CACHE_LOOKUPS.labels(job, "hit" if hit else "miss").inc()
+            with self._lock:
+                bucket = self._cache_jobs.pop(job, {"hits": 0, "misses": 0})
+                bucket[key] += 1
+                self._cache_jobs[job] = bucket
+                while len(self._cache_jobs) > self._JOBS_TRACKED_KEPT:
+                    old_job = next(iter(self._cache_jobs))
+                    self._cache_jobs.pop(old_job)
+                    FLEET_JOB_CACHE_LOOKUPS.remove(old_job, "hit")
+                    FLEET_JOB_CACHE_LOOKUPS.remove(old_job, "miss")
         if epoch is None:
             return
         with self._lock:
             bucket = self._cache_epochs.setdefault(int(epoch), {"hits": 0, "misses": 0})
-            bucket["hits" if hit else "misses"] += 1
+            bucket[key] += 1
             while len(self._cache_epochs) > self._CACHE_EPOCHS_KEPT:
                 self._cache_epochs.pop(min(self._cache_epochs))
 
@@ -1205,6 +1358,16 @@ class BatchWorker:
         """``{epoch: {"hits", "misses"}}`` of recent epochs (empty uncached)."""
         with self._lock:
             return {epoch: dict(bucket) for epoch, bucket in self._cache_epochs.items()}
+
+    def cache_stats_by_job(self):
+        """``{job: {"hits", "misses"}}`` of the cache's lookups per job."""
+        with self._lock:
+            return {job: dict(bucket) for job, bucket in self._cache_jobs.items()}
+
+    def rows_by_job(self):
+        """``{job: {"rows", "batches"}}`` served per job (finished streams)."""
+        with self._lock:
+            return {job: dict(counts) for job, counts in self._jobs_served.items()}
 
     def cache_stats(self):
         """The batch cache's stats, or ``None`` without one."""
@@ -1247,12 +1410,16 @@ class BatchWorker:
         credits), the final snapshots of recently finished streams, the
         worker's lifetime counters under ``metrics`` (the streams each
         transport served, the columnar batches and, with a cache, its hit
-        and miss totals) and the cache's stats under ``cache``."""
+        and miss totals, its tier and entries) and the cache's stats under
+        ``cache``; with job-tagged streams, ``jobs`` (rows and batches per job)
+        and ``cache_by_job``."""
         with self._lock:
             active = {key: dict((entry["reader"].diagnostics
                                  if entry["reader"] is not None else {}), **entry["flow"])
                       for key, entry in self._active.items()}
             completed = {key: dict(diag) for key, diag in self._completed.items()}
+            jobs_served = {job: dict(counts) for job, counts in self._jobs_served.items()}
+            cache_jobs = {job: dict(bucket) for job, bucket in self._cache_jobs.items()}
             transport_streams = dict(self._transport_streams)
         metrics = {
             "batches_sent_total": self._m_batches.value,
@@ -1268,11 +1435,22 @@ class BatchWorker:
         out = {"worker_id": self.worker_id, "num_pieces": self.num_pieces,
                "active_streams": active, "completed_streams": completed,
                "metrics": metrics}
+        if jobs_served:
+            out["jobs"] = jobs_served
+        if cache_jobs:
+            out["cache_by_job"] = cache_jobs
         if self._batch_cache is not None:
             stats = self._batch_cache.stats()
             metrics["cache_hits_total"] = stats["hits"]
             metrics["cache_misses_total"] = stats["misses"]
             metrics["cache_permuted_serves_total"] = stats["permuted_serves"]
+            # The CACHE column of status --watch: the tier, its entries and
+            # the warmth that came from peers.
+            metrics["cache_tier"] = stats.get("tier", "local")
+            metrics["cache_entries_mem"] = stats["entries_mem"]
+            metrics["cache_entries_disk"] = stats["entries_disk"]
+            if "remote_hits" in stats:
+                metrics["cache_remote_hits_total"] = stats["remote_hits"]
             out["cache"] = stats
         return out
 

@@ -8,8 +8,9 @@ transport's, the batch worker's, the dispatcher's and the service
 client's families came with the data service's first slice; the
 failpoints', quarantine's, the resilience layer's and fleet tracing's with
 its control plane; the shared-memory tier's, the columnar counter and the
-graph rewrites' with the data plane of one host; those of modules not
-ported yet (the fleet, the packing stage) come with those modules. Naming
+graph rewrites' with the data plane of one host; the fleet's (jobs, the
+autoscaler, the fleet cache tier and its model planner) with the fleet;
+the packing stage's come with it. Naming
 follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
 counters; label values are bounded (stage names, tiers, a recycled
 per-loader id, a per-controller id), never row- or batch-scoped.
@@ -520,6 +521,113 @@ FLEET_BROWNOUT_LEVEL = REGISTRY.gauge(
     "(tracing spans, autotune probes). Entered under sustained overload "
     "(credit-wait + ready-queue-saturation streaks), recovered "
     "symmetrically — every transition is a WAL op")
+
+# -- the fleet: multi-tenant jobs and the autoscaler (service/fleet.py and its
+#    dispatcher / worker wiring) ---------------------------------------------
+
+FLEET_WORKERS = REGISTRY.gauge(
+    "petastorm_fleet_workers",
+    "Live workers by lifecycle state (serving/standby/draining): serving "
+    "workers receive grants, standby workers are pooled capacity awaiting "
+    "autoscaler admission, draining workers finish their granted work and "
+    "retire back to standby",
+    labels=("state",))
+FLEET_JOBS = REGISTRY.gauge(
+    "petastorm_fleet_jobs",
+    "Jobs the dispatcher currently tracks (register_job/end_job plus the "
+    "implicit default job once touched)")
+FLEET_AUTOSCALE_DECISIONS = REGISTRY.counter(
+    "petastorm_fleet_autoscale_decisions_total",
+    "Fleet autoscale decisions applied (and journaled), by action "
+    "(admit/drain/retire)",
+    labels=("action",))
+FLEET_JOB_FENCING_EPOCH = REGISTRY.gauge(
+    "petastorm_fleet_job_fencing_epoch",
+    "Per-job scoped fencing epoch (the fleet-wide base plus the job's "
+    "private offset): fleet-wide events move every job's epoch, a job's "
+    "own restart moves only its own — one job's chaos never fences "
+    "another's streams",
+    labels=("job",))
+FLEET_JOB_FAIR_SHARE = REGISTRY.gauge(
+    "petastorm_fleet_job_fair_share",
+    "Each job's weighted max-min fair share of serving-worker capacity "
+    "(fleet.plan_fair_shares over the jobs' weights/quotas and live "
+    "backlog) — the allocation credit scaling enforces",
+    labels=("job",))
+FLEET_JOB_BACKLOG = REGISTRY.gauge(
+    "petastorm_fleet_job_backlog_pieces",
+    "Dynamic-mode pieces booked to each JOB and not yet done (summed over "
+    "its clients) — the per-tenant view of the dispatcher backlog gauge",
+    labels=("job",))
+FLEET_JOB_ROWS = REGISTRY.counter(
+    "petastorm_fleet_job_rows_total",
+    "Rows streamed to each job's clients (worker-side attribution from "
+    "the stream request's job_id) — two scrapes give per-job delivery "
+    "rates, the fairness measurement",
+    labels=("job",))
+FLEET_JOB_CACHE_LOOKUPS = REGISTRY.counter(
+    "petastorm_fleet_job_cache_lookups_total",
+    "Decoded-batch cache lookups attributed to each job, by outcome "
+    "(hit/miss) — N jobs sharing one cache tier decode once, and this is "
+    "how the sharing is measured (a job whose every lookup hits paid "
+    "zero decode)",
+    labels=("job", "outcome"))
+
+# -- fleet cache tier: consistent-hash peers + warm handoff
+# (cache_impl/fleet_tier.py, cache_impl/hash_ring.py) ------------------------
+
+CACHE_PEER_FETCHES = REGISTRY.counter(
+    "petastorm_cache_peer_fetches_total",
+    "Remote cache-peer fetches attempted by this worker's fleet tier, by "
+    "outcome: hit = the ring owner served the warm entry (promoted into "
+    "the local memory tier, zero re-decode), miss = the owner had no "
+    "entry (a genuine fleet-wide cold key), error = dial/protocol "
+    "failure (fed to the per-peer breaker), breaker_open = the fetch was "
+    "skipped without dialing because the owner's breaker is open — all "
+    "non-hit outcomes degrade to a local fill, never a stream error",
+    labels=("outcome",))
+CACHE_PEER_SERVES = REGISTRY.counter(
+    "petastorm_cache_peer_serves_total",
+    "cache_fetch requests this worker answered FOR its peers, by outcome "
+    "(hit/miss) — the serving-side mirror of the fetches counter; a "
+    "fleet-wide scrape balances the two",
+    labels=("outcome",))
+CACHE_PEER_PUSHES = REGISTRY.counter(
+    "petastorm_cache_peer_pushes_total",
+    "Write-through placement pushes of freshly-filled entries to their "
+    "ring owner, by outcome (sent/error/dropped — dropped = the bounded "
+    "push queue was full; placement is best-effort, the remote-fetch "
+    "path covers the gap)",
+    labels=("outcome",))
+CACHE_PEER_HANDOFF_ENTRIES = REGISTRY.counter(
+    "petastorm_cache_peer_handoff_entries_total",
+    "Warm entries moved by drain handoff, by direction (sent = shipped "
+    "off a draining worker, received = adopted from one) — a drain with "
+    "handoff enabled re-homes its memory tier so the fleet re-decodes "
+    "nothing",
+    labels=("direction",))
+
+# -- model-based fleet planner (service/fleet_model.py) ----------------------
+
+FLEET_MODEL_PREDICTED_ROWS = REGISTRY.gauge(
+    "petastorm_fleet_model_predicted_rows_per_s",
+    "The fitted throughput model's predicted fleet rows/s at the planner-"
+    "chosen serving-worker count (min(n * per_worker_rate, ceiling)) — "
+    "compare with the measured delivery rate to read the model's error "
+    "live")
+FLEET_MODEL_WHATIF_ERROR = REGISTRY.gauge(
+    "petastorm_fleet_model_whatif_error_pct",
+    "Median relative error (percent) of the model's what-if replay over "
+    "the recorded (serving count, rows/s) sample history — decisions are "
+    "gated on this staying under the tolerance, so a persistently high "
+    "value means the planner is holding, not scaling")
+FLEET_MODEL_DECISIONS = REGISTRY.counter(
+    "petastorm_fleet_model_decisions_total",
+    "Decisions the model-based planner issued (and journaled as "
+    "fleet_plan records), by action (admit/drain/retire, plus "
+    "probe-revert drains) — the journaled mirror of the generic "
+    "autoscale decisions counter",
+    labels=("action",))
 
 # -- fleet tracing: trace shipping and clock alignment (telemetry/tracing.py,
 #    telemetry/clockalign.py) -------------------------------------------------

@@ -100,6 +100,29 @@ def test_pool_serializer_and_telemetry_modules_load_neither_jax_nor_torch():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_fleet_worker_side_modules_load_neither_jax_nor_torch():
+    """The fleet's modules a worker host loads (the hash ring, the fleet
+    cache tier, the fleet and its model planner, the chaos harness) load no
+    JAX, nothing of ``petastorm_tpu`` and no torch."""
+    code = textwrap.dedent("""
+        import sys
+        import petastorm_tpu_torch.cache_impl.hash_ring
+        import petastorm_tpu_torch.cache_impl.fleet_tier
+        import petastorm_tpu_torch.service.fleet
+        import petastorm_tpu_torch.service.fleet_model
+        import petastorm_tpu_torch.service.chaos
+        import petastorm_tpu_torch.service.worker
+        import petastorm_tpu_torch.service.dispatcher
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu", "torch"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

@@ -269,32 +269,52 @@ def test_each_package_recovers_the_others_journal(writer, tmp_path):
 
 
 def test_later_slice_journal_records_are_refused_by_name(tmp_path):
-    """Later slices' WAL records are refused by slice on replay; a
-    ``dynamic_plan`` record (ported now) replays into the plan."""
+    """A later slice's WAL record (``mixture_weights``, slice (f)) is
+    refused by slice on replay; the records ported since replay: a
+    ``dynamic_plan`` into the plan, the fleet's ``job_register`` into the
+    job and ``autoscale`` into the worker's state and the counts."""
     from petastorm_tpu_torch.service.journal import Journal
 
-    for op, slice_name in (("dynamic_plan", None), ("job_register", "(d)"),
-                           ("mixture_weights", "(f)"), ("autoscale", "(d)")):
+    records = {
+        "dynamic_plan": ("dynamic", None, {"client_id": "c", "epoch": 0,
+                                           "owner": [[0, "w0", 4], [1, "w1", 4]],
+                                           "generation": 4}),
+        "job_register": ("static", None, {"job_id": "x", "weight": 2.0, "quota": None,
+                                          "restart": True}),
+        "mixture_weights": ("static", "(f)", {"job_id": "x", "seq": 1,
+                                              "weights": {"web": 1.0}}),
+        "autoscale": ("static", None, {"action": "admit", "worker_id": "w0"}),
+    }
+    for op, (mode, slice_name, fields) in records.items():
         path = tmp_path / op
-        mode = "dynamic" if slice_name is None else "static"
         journal = Journal(path)
         journal.snapshot(Dispatcher(mode=mode).state_snapshot())
-        journal.append({"op": op, "job_id": "x", "client_id": "c", "epoch": 0,
-                        "owner": [[0, "w0", 4], [1, "w1", 4]], "generation": 4})
+        if op == "autoscale":
+            journal.append({"op": "register_worker", "worker_id": "w0", "host": "127.0.0.1",
+                            "port": 9, "num_pieces": 4, "re_register": False,
+                            "standby": True})
+        journal.append(dict(fields, op=op))
         journal.close()
-        if slice_name is None:
-            dispatcher = Dispatcher(mode=mode, journal_dir=str(path)).start()
-            try:
-                state = dispatcher.state_snapshot()
-            finally:
-                dispatcher.stop()
+        if slice_name is not None:
+            with pytest.raises(NotImplementedError,
+                               match=rf"{op}.*slice \{slice_name[0]}{slice_name[1]}\)"):
+                Dispatcher(journal_dir=str(path)).start()
+            continue
+        dispatcher = Dispatcher(mode=mode, journal_dir=str(path)).start()
+        try:
+            state = dispatcher.state_snapshot()
+        finally:
+            dispatcher.stop()
+        if op == "dynamic_plan":
             assert state["generation"] == 4
             assert state["dyn"] == {"c": {"epoch": 0, "owner": [[0, "w0", 4], [1, "w1", 4]],
                                           "done": [], "steals": {}}}
-            continue
-        with pytest.raises(NotImplementedError, match=rf"{op}.*slice \{slice_name[0]}"
-                                                      rf"{slice_name[1]}\)"):
-            Dispatcher(journal_dir=str(path)).start()
+        elif op == "job_register":
+            assert state["jobs"] == {"x": {"weight": 2.0, "quota": None, "fencing_offset": 0,
+                                           "epoch": 0}}
+        else:
+            assert state["workers"]["w0"]["state"] == "serving"
+            assert state["autoscale"] == {"admit": 1, "drain": 0, "retire": 0}
 
 
 def test_a_failed_journal_write_flips_both_read_only(tmp_path):

@@ -344,18 +344,18 @@ def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["dispatcher", "--port", "0", "--mode", "dynamic"], None),
-    (["dispatcher", "--port", "0", "--autoscale"], r"slice \(d\)"),
+    (["dispatcher", "--port", "0", "--autoscale"], None),
     (["worker", "--dataset-url", "file:///x", "--cache", "mem"], None),
-    (["worker", "--dataset-url", "file:///x", "--standby"], r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--standby"], None),
     (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"], None),
     (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
-    (["worker", "--dataset-url", "file:///x", "--cache", "mem", "--fleet-cache"],
-     r"slice \(d\)"),
+    (["worker", "--dataset-url", "file:///x", "--cache", "mem", "--fleet-cache"], None),
     (["worker", "--dataset-url", "file:///x", "--transport", "shm"], None),
 ], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "fleet-cache",
         "shm"])
 def test_cli_refusals_name_their_slice(argv, match):
-    """The flags of later slices are refused by slice; ``--mode dynamic``,
+    """The flags of a later slice (``--corpus``) are refused by slice;
+    ``--mode dynamic``, ``--autoscale``, ``--standby``, ``--fleet-cache``,
     ``--on-piece-error quarantine``, ``--cache`` and ``--transport shm``
     (``match`` None) build their node, as the JAX CLI's do."""
     from petastorm_tpu.service.cli import _build_parser as jax_parser
@@ -365,7 +365,21 @@ def test_cli_refusals_name_their_slice(argv, match):
     if match is None:
         node = build_service_node(_build_parser().parse_args(argv))
         if argv[0] == "dispatcher":
-            assert isinstance(node, Dispatcher) and node.mode == "dynamic"
+            assert isinstance(node, Dispatcher)
+            if "--autoscale" in argv:
+                twin = jax_build(jax_parser().parse_args(argv))
+                assert node._autoscaler is not None and twin._autoscaler is not None
+                assert vars(node._autoscaler._config) == vars(twin._autoscaler._config)
+            else:
+                assert node.mode == "dynamic"
+        elif "--fleet-cache" in argv:
+            try:
+                assert node._fleet_tier is not None
+                assert node._batch_cache.stats()["tier"] == "fleet"
+            finally:
+                node._batch_cache.cleanup()
+        elif "--standby" in argv:
+            assert isinstance(node, BatchWorker) and node._standby is True
         elif "--cache" in argv:
             twin = jax_build(jax_parser().parse_args(argv))
             try:
@@ -390,10 +404,10 @@ def test_cli_refusals_name_their_slice(argv, match):
 #: ``None``: an argument this slice ported, which is taken.
 REFUSALS = [
     ("Dispatcher", {"mode": "dynamic"}, None),
-    ("Dispatcher", {"autoscale": True}, "(d)"),
+    ("Dispatcher", {"autoscale": True}, None),
     ("BatchWorker", {"batch_cache": object()}, None),
-    ("BatchWorker", {"fleet_cache": True}, "(d)"),
-    ("BatchWorker", {"standby": True}, "(d)"),
+    ("BatchWorker", {"fleet_cache": True}, None),
+    ("BatchWorker", {"standby": True}, None),
     ("BatchWorker", {"on_piece_error": "quarantine"}, None),
     ("BatchWorker", {"corpus": "web"}, "(f)"),
     ("BatchWorker", {"transport": "shm"}, None),
@@ -405,7 +419,7 @@ REFUSALS = [
     ("ServiceBatchSource", {"reader_family": "columnar"}, None),
     ("ServiceBatchSource", {"packing": {"slots": 2}}, "(f)"),
     ("ServiceBatchSource", {"corpus": "web"}, "(f)"),
-    ("ServiceBatchSource", {"job_id": "train-a"}, "(d)"),
+    ("ServiceBatchSource", {"job_id": "train-a"}, None),
     ("ServiceBatchSource", {"transport": "shm"}, None),
 ]
 
@@ -425,8 +439,21 @@ def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
             "BatchWorker": lambda: BatchWorker("file:///nowhere", **kwargs),
             "ServiceBatchSource": lambda: ServiceBatchSource(("127.0.0.1", 1), **kwargs)}[cls]
     if slice_name is None:
+        if cls == "BatchWorker" and name == "fleet_cache":
+            from petastorm_tpu_torch.cache_impl import BatchCache
+
+            kwargs = dict(kwargs, batch_cache=BatchCache(mem_budget_bytes=1 << 20))
         node = make()
-        if name == "predicate":
+        if name == "autoscale":
+            assert node._autoscaler is not None
+        elif name == "fleet_cache":
+            try:
+                assert node._fleet_tier is node._batch_cache
+            finally:
+                node._batch_cache.cleanup()
+        elif name == "job_id":
+            assert node.job_id == value
+        elif name == "predicate":
             assert node._predicate.to_wire() == value
         elif name == "transport":
             attr = "_transport_mode" if cls == "BatchWorker" else "_transport"
@@ -482,26 +509,33 @@ def test_control_plane_arguments_are_taken(cls, kwargs, tmp_path):
 
 
 def test_later_slice_requests_are_refused_by_name(scalar_store):
-    """Later slices' requests are refused by slice; ``dynamic_plan``, ported
-    now, is refused by a static dispatcher as a dynamic-mode request, and a
-    ``dynamic`` stream is served (piece, generation and ordinal tagged)."""
+    """A later slice's requests (mixtures, a corpus scope: slice (f)) are
+    refused by slice; ``dynamic_plan``, ported since, is refused by a static
+    dispatcher as a dynamic-mode request, the fleet's ``register_job``,
+    ``end_job`` and ``cache_handoff`` are served, and a ``dynamic`` stream
+    is served (piece, generation and ordinal tagged)."""
     with Fleet(scalar_store, workers=1) as fleet:
         replies = {}
-        for kind in ("dynamic_plan", "register_job", "set_mixture_weights",
-                     "end_job", "cache_handoff"):
+        for kind in ("dynamic_plan", "register_job", "set_mixture_weights", "end_job",
+                     "cache_handoff"):
             with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
                 replies[kind] = conn.request({"type": kind, "client_id": "c",
-                                              "client_index": 0, "num_clients": 1})[0]
+                                              "client_index": 0, "num_clients": 1,
+                                              "job_id": "tenant", "worker_id": "w0"})[0]
         with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
-            scoped = conn.request({"type": "list_workers", "job_id": "tenant"})[0]
+            scoped = conn.request({"type": "list_workers", "corpus": "web"})[0]
         with FramedConnection.connect(fleet.workers[0].address, timeout=5) as conn:
             stream = conn.request({"type": "stream", "pieces": [[0, 3]], "epoch": 0,
                                    "dynamic": True})[0]
-    dynamic_plan = replies.pop("dynamic_plan")
-    assert all(r["type"] == "error" and "not ported yet" in r["error"]
-               for r in replies.values())
-    assert dynamic_plan == {"type": "error", "error": "dynamic_plan is a dynamic-mode request"}
-    assert "slice (d)" in scoped["error"]
+    assert replies["set_mixture_weights"]["type"] == "error"
+    assert "not ported yet" in replies["set_mixture_weights"]["error"]
+    assert "slice (f)" in replies["set_mixture_weights"]["error"]
+    assert replies["dynamic_plan"] == {"type": "error",
+                                       "error": "dynamic_plan is a dynamic-mode request"}
+    assert replies["register_job"]["type"] == "ok" and not replies["register_job"]["restarted"]
+    assert replies["end_job"] == {"type": "ok", "job_id": "tenant", "removed": True}
+    assert replies["cache_handoff"] == {"type": "ok", "kept": 1}
+    assert "slice (f)" in scoped["error"]
     assert (stream["type"], stream["piece"], stream["generation"], stream["ordinal"]) == \
         ("batch", 0, 3, 0)
 
