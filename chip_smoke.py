@@ -455,6 +455,39 @@ non-zero exit code):
    ``StreamDigest`` equal to a clean run's. No flash kernel runs on this
    phase (counted) and no job registration stays open. One ``fleet:`` line
    carries the figures and the card's name and power limit.
+19. ``llm``: the data service's LLM stages feeding phase 3's LM at its full
+   configuration (``LLM``; see ``llm_phase``) over the capstone's corpus
+   (512 documents, max_len 48). (a) A static dispatcher (2 epochs, shuffle
+   seed 7) with 2 workers that pack the corpus
+   (``ServiceBatchSource(packing=PackingSpec(slot_len=128, slots=4,
+   sequence_fields=["tokens"], length_field="length"), ordered=True)``)
+   trains the LM through ``TorchDataLoader`` on the card with the flash
+   kernels, their launches counted from 0 over this run: every epoch's
+   unpacked documents are the corpus's, as are those of
+   ``PackedBatchSource(placement="trainer")`` (both epochs) and of
+   ``make_packed_torch_dataloader`` over the store; a second worker-placed
+   run has the same stream digest; the loss falls; every kernel launched.
+   Reported: warm steps/s (from a sync at step 3), real tokens/s,
+   ``input_stall_pct``, each placement's fill (real tokens over slots x
+   slot_len, and the ``petastorm_packing_fill_ratio`` gauge). (b) The
+   worker-placed stream cut after 1, 5 and n - 1 packed batches, rebuilt
+   from ``state_dict`` and continued, is the uninterrupted stream byte for
+   byte; a resume under another spec is refused. (c) The corpus written
+   with seeds 17 and 23 as corpora ``a`` and ``b`` of one journaled
+   dispatcher, one worker each, mixed by ``MixedBatchSource(weights={"a":
+   0.8, "b": 0.2}, seed=29, exhaustion="stop", factories=True)`` with
+   packing into a fresh LM for 2 passes, ``set_mixture_weights({"a": 0.2,
+   "b": 0.8}, effective_epoch=1)`` journaled before pass 2: each pass's
+   draws are the seed tree's, each share within 0.1 of its weight or three
+   binomial standard errors of its pass; a second run from the same seed
+   and log has the same digest; a dispatcher restarted from the journal
+   returns the same log. (d) The loader graph of a packed source declares
+   the ``pack`` stage between ``collate`` and ``serialize`` and binds
+   ``packing_placement``; an autotuned run of 4 epochs started at trainer
+   placement prints its window classes and any ``packing_placement``
+   decision (reported, not claimed). No mixture pass, job registration or
+   shared-memory ring stays open. One ``llm:`` line carries the figures
+   and the card's name and power limit.
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -630,6 +663,19 @@ FLEET = dict(image=IMAGE, workers=2, workers_count=4, credits=8, cache_mb=256, s
              heartbeat_s=0.25, b_epochs=2, b_heartbeat_s=0.05, b_lease_s=2.0,
              b_transform_s=0.1, autoscale_interval_s=0.25, c_epochs=2, c_workers=3,
              c_delay_s=0.1, c_seed=19, c_interval_s=0.25, c_restart_after=4)
+# Phase 19, the LLM stages: phase 3's LM (d_model 64, 4 heads, 2 layers,
+# vocab 64, slot_len 128, 4 slots, f32) over the capstone's corpus (512
+# documents, max_len 48) served by 2 workers (collation batches of 64, 2
+# decode threads) that pack it, 2 epochs; (b) resumes after 1, 5 and n - 1
+# packed batches; (c) the corpus written with seeds 17 and 23 as corpora a
+# and b of one journaled dispatcher, mixed 0.8:0.2 (seed 29), then 0.2:0.8
+# from pass 2; (d) an autotuned run of 4 epochs from trainer placement.
+LLM = dict(docs=512, max_len=48, slot_len=128, slots=4, d_model=64, heads=4, workers=2,
+           batch=64, workers_count=2, epochs=2, seed=7, warm_from=3, cuts=(1, 5, -1),
+           corpus_seeds=(17, 23), mix_seed=29,
+           weights=({"a": 0.8, "b": 0.2}, {"a": 0.2, "b": 0.8}), mix_tol=0.1,
+           tune_epochs=4, tune={"interval_s": 0.1, "hysteresis": 1, "placement_hysteresis": 1,
+                                "probe_defer": 0})
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -5900,6 +5946,408 @@ def fleet_phase(smi, image, cfg=None, device="cuda"):
     return {"images_per_s": rates}
 
 
+class _LlmTap:
+    """Phase 19's batch source tap: every batch as the source yielded it
+    (host arrays), in order; every other attribute is the source's, so the
+    autotuner's graph binds the source's knobs through the tap."""
+
+    def __init__(self, source):
+        self._source = source
+        self.batches = []
+
+    def __call__(self):
+        return _LlmTapIterator(self._source(), self.batches)
+
+    def __getattr__(self, name):
+        return getattr(self._source, name)
+
+
+class _LlmTapIterator:
+    def __init__(self, inner, sink):
+        self._inner, self._sink = inner, sink
+        self.prefetched = getattr(inner, "prefetched", False)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._inner)
+        self._sink.append(dict(batch))
+        return batch
+
+    def close(self):
+        close = getattr(self._inner, "close", None)
+        if callable(close):
+            close()
+
+
+def _llm_sequences(batches):
+    """The sorted multiset of the documents in packed batches."""
+    from petastorm_tpu_torch.torch_utils.packing import unpack
+
+    return sorted(tuple(int(x) for x in seq) for batch in batches
+                  for seq in unpack(batch, "tokens"))
+
+
+def _llm_digest(batches):
+    """One blake2b over every array of every batch, in order."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.blake2b(digest_size=16)
+    for batch in batches:
+        for key in sorted(batch):
+            arr = np.ascontiguousarray(np.asarray(batch[key]))
+            h.update(key.encode())
+            h.update(str(arr.dtype).encode())
+            h.update(str(arr.shape).encode())
+            h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _llm_fill(batches, cfg):
+    """Real tokens over the slots' capacity, over all ``batches``."""
+    from petastorm_tpu_torch.service.packing_stage import packed_token_count
+
+    tokens = sum(packed_token_count(b) for b in batches)
+    return tokens / max(1, len(batches) * cfg["slots"] * cfg["slot_len"])
+
+
+def _llm_model(cfg, device):
+    from petastorm_tpu_torch.models.long_context_lm import init_lm_params, make_lm_train_step
+
+    model = init_lm_params(0, d_model=cfg["d_model"], num_heads=cfg["heads"],
+                           slot_len=cfg["slot_len"], device=device)
+    return make_lm_train_step(model)
+
+
+def _llm_pass(loader, step, tap, device, warm_from):
+    """One pass of ``loader`` through the LM's SGD ``step``: the losses,
+    the warm steps/s and real tokens/s (from a sync before step
+    ``warm_from`` to one after the last step; None for a shorter pass),
+    the devices the batches arrived on and the loader's diagnostics."""
+    import torch
+
+    from petastorm_tpu_torch.service.packing_stage import packed_token_count
+    from petastorm_tpu_torch.torch_utils.packing import PACK_POSITION_KEY, PACK_SEGMENT_KEY
+
+    first = len(tap.batches)
+    losses, devices, t_warm = [], set(), None
+    with loader:
+        for packed in loader:
+            if len(losses) == warm_from:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_warm = time.perf_counter()
+            devices.update(str(t.device) for t in packed.values() if torch.is_tensor(t))
+            losses.append(step(packed["tokens"], packed[PACK_POSITION_KEY],
+                               packed[PACK_SEGMENT_KEY]))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_end = time.perf_counter()
+        diagnostics = loader.diagnostics
+    losses = [float(x) for x in losses]
+    warm = len(losses) - warm_from
+    tokens = sum(packed_token_count(b) for b in tap.batches[first + warm_from:])
+    return {"losses": losses, "devices": devices, "diagnostics": diagnostics,
+            "steps_per_s_warm": warm / (t_end - t_warm) if t_warm and warm > 0 else None,
+            "tokens_per_s_warm": tokens / (t_end - t_warm) if t_warm and warm > 0 else None}
+
+
+def _llm_workers(service, urls, disp, cfg, tag):
+    """One started worker a ``(url, corpus)`` on ``disp``."""
+    workers = []
+    try:
+        for i, (url, corpus) in enumerate(urls):
+            workers.append(service.BatchWorker(
+                url, dispatcher_address=disp.address, batch_size=cfg["batch"],
+                reader_factory="row", corpus=corpus, worker_id=f"llm-{tag}-{i}",
+                reader_kwargs={"workers_count": cfg["workers_count"]}).start())
+    except BaseException:
+        _stop_fleet(disp, workers)
+        raise
+    return workers
+
+
+def llm_phase(smi, cfg=None, device="cuda"):
+    """Phase 19 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a dry run on the host; the run on the
+    card uses the defaults."""
+    import torch
+
+    from petastorm_tpu_torch import service
+    from petastorm_tpu_torch.models.long_context_lm import corpus_rows, generate_corpus
+    from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.pipeline.graph import build_loader_graph
+    from petastorm_tpu_torch.reader.reader import make_columnar_reader
+    from petastorm_tpu_torch.service.fleet import open_job_registrations
+    from petastorm_tpu_torch.service.mixture import open_mixture_passes
+    from petastorm_tpu_torch.service.shm_ring import live_shm_counts
+    from petastorm_tpu_torch.telemetry.metrics import PACKING_FILL_RATIO
+    from petastorm_tpu_torch.torch_utils.loader import TorchDataLoader
+    from petastorm_tpu_torch.torch_utils.packing import make_packed_torch_dataloader
+
+    cfg = cfg or LLM
+    device = torch.device(device)
+    on_card = "cuda:0" if device.type == "cuda" else "cpu"
+    warm_from = cfg["warm_from"]
+    spec = service.PackingSpec(slot_len=cfg["slot_len"], slots=cfg["slots"],
+                               sequence_fields=["tokens"], length_field="length")
+    seed_a, seed_b = cfg["corpus_seeds"]
+    documents = sorted(tuple(int(x) for x in row["tokens"][:row["length"]])
+                       for row in corpus_rows(cfg["docs"], cfg["max_len"], seed_a))
+    figures, t_parts, launches = [], {}, {}
+    shm_before = live_shm_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_llm_")
+    try:
+        url = generate_corpus(f"file://{tmp}/corpus", cfg["docs"], cfg["max_len"], seed=seed_a)
+
+        # (a) Worker-placed packing feeds the LM for 2 epochs; the other
+        # placements' multisets; a second run's digest.
+        t0 = time.perf_counter()
+        disp = service.Dispatcher(mode="static", num_epochs=cfg["epochs"],
+                                  shuffle_seed=cfg["seed"]).start()
+        workers = _llm_workers(service, [(url, "")] * cfg["workers"], disp, cfg, "a")
+        try:
+            tap = _LlmTap(service.ServiceBatchSource(disp.address, packing=spec, ordered=True))
+            loader = TorchDataLoader(None, batch_source=tap, device=device)
+            fa.reset_launch_counts()
+            run = _llm_pass(loader, _llm_model(cfg, device), tap, device, warm_from)
+            launches = dict(fa.LAUNCHES)
+            fill_gauge = {"worker": PACKING_FILL_RATIO.labels("worker").value}
+            full = tap.batches
+            starts = [count for count, _ in tap.diagnostics["epoch_starts"]]
+            again = list(service.ServiceBatchSource(disp.address, packing=spec, ordered=True)())
+            trainer = list(service.PackedBatchSource(
+                service.ServiceBatchSource(disp.address, ordered=True), spec,
+                placement="trainer")())
+            fill_gauge["trainer"] = PACKING_FILL_RATIO.labels("trainer").value
+            with make_columnar_reader(url, num_epochs=1, shuffle_row_groups=False,
+                                      workers_count=1) as reader:
+                local = [{k: v.cpu().numpy() for k, v in batch.items()}
+                         for batch in make_packed_torch_dataloader(
+                             reader, cfg["slot_len"], cfg["slots"], ["tokens"],
+                             length_field="length", device=device)]
+            t_parts["a"] = time.perf_counter() - t0
+
+            # (b) Resume in the middle of a pack: cut after k packed batches,
+            # rebuild the source from its state, continue.
+            t0 = time.perf_counter()
+            n = len(full)
+            cuts = [k if k > 0 else n + k for k in cfg["cuts"]]
+            resumed_ok = {}
+            for k in cuts:
+                source = service.ServiceBatchSource(disp.address, packing=spec, ordered=True)
+                it = source()
+                got = [next(it) for _ in range(k)]
+                state = source.state_dict(yielded_batches=k)
+                it.close()
+                got += list(service.ServiceBatchSource(disp.address, packing=spec,
+                                                       ordered=True, resume_state=state)())
+                resumed_ok[k] = len(got) == n and _llm_digest(got) == _llm_digest(full)
+            other = service.PackingSpec(slot_len=cfg["slot_len"] // 2, slots=cfg["slots"] * 2,
+                                        sequence_fields=["tokens"], length_field="length")
+            try:
+                service.ServiceBatchSource(disp.address, packing=other, ordered=True,
+                                           resume_state=state)
+                refusal = None
+            except ValueError as exc:
+                refusal = str(exc)
+            t_parts["b"] = time.perf_counter() - t0
+        finally:
+            _stop_fleet(disp, workers)
+        # The source records the next epoch's start when an epoch ends.
+        starts = [count for count in starts if count < n]
+        bounds = starts + [n]
+        per_epoch = [_llm_sequences(full[lo:hi]) == documents
+                     for lo, hi in zip(bounds, bounds[1:])]
+        losses = run["losses"]
+        first, last = quarter_means(losses)
+        if len(starts) != cfg["epochs"] or not all(per_epoch):
+            fail(f"llm (a): an epoch's documents differ from the corpus's (epoch starts "
+                 f"{starts} of {n} batches, equal {per_epoch})")
+        if _llm_sequences(trainer) != sorted(documents * cfg["epochs"]) \
+                or _llm_sequences(local) != documents:
+            fail("llm (a): the trainer placement's or make_packed_torch_dataloader's "
+                 "documents differ from the corpus's")
+        if _llm_digest(again) != _llm_digest(full):
+            fail("llm (a): a second worker-placed run's stream digest differs")
+        if run["devices"] != {on_card} or not all(math.isfinite(x) for x in losses) \
+                or not last < first:
+            fail(f"llm (a): batches on {sorted(run['devices'])}, loss quarters "
+                 f"{first:.4f} -> {last:.4f}")
+        if device.type == "cuda" and min(launches.values()) < 1:
+            # (On the host the wrappers run their plain versions: nothing launches.)
+            fail(f"llm (a): a flash kernel was not launched on the LLM path: {launches}")
+        if not all(resumed_ok.values()):
+            fail(f"llm (b): a resume mid-pack is not the uninterrupted stream: {resumed_ok}")
+        if refusal is None or "packing mismatch" not in refusal:
+            fail(f"llm (b): a resume under another spec was not refused: {refusal!r}")
+        fills = {"worker": _llm_fill(full, cfg), "trainer": _llm_fill(trainer, cfg),
+                 "local": _llm_fill(local, cfg)}
+        figures.append(
+            f"(a) LM d_model {cfg['d_model']} x {cfg['heads']} heads, slot_len "
+            f"{cfg['slot_len']} x {cfg['slots']} slots on {on_card}, {cfg['epochs']} epochs "
+            f"of {cfg['docs']} documents from {cfg['workers']} worker-packing workers: "
+            f"{n} steps, steps_per_s_warm={run['steps_per_s_warm']:.2f} (from step "
+            f"{warm_from}), real_tokens_per_s_warm={run['tokens_per_s_warm']:.0f}, "
+            f"input_stall_pct={run['diagnostics'].get('input_stall_pct')}, loss quarters "
+            f"{first:.4f} -> {last:.4f}; fill worker={fills['worker']:.4f} trainer="
+            f"{fills['trainer']:.4f} local={fills['local']:.4f} (petastorm_packing_fill_ratio "
+            f"worker={fill_gauge['worker']} trainer={fill_gauge['trainer']}); batches worker="
+            f"{n} trainer={len(trainer)} local={len(local)}; every epoch's documents the "
+            f"corpus's, trainer and local multisets equal, second run digest equal; "
+            f"flash launches {launches}")
+        figures.append(f"(b) resumes after {cuts} packed batches bit-equal; another spec "
+                       f"refused ({refusal.split(':')[0]})")
+
+        # (c) A mixture of the corpus written with two seeds over one
+        # journaled dispatcher, a weight change journaled before pass 2.
+        t0 = time.perf_counter()
+        url_b = generate_corpus(f"file://{tmp}/corpus_b", cfg["docs"], cfg["max_len"],
+                                seed=seed_b)
+        journal = os.path.join(tmp, "journal-c")
+        w0, w1 = cfg["weights"]
+        disp = service.Dispatcher(mode="static", num_epochs=1, shuffle_seed=cfg["seed"],
+                                  journal_dir=journal).start()
+        workers = _llm_workers(service, [(url, "a"), (url_b, "b")], disp, cfg, "c")
+
+        def mixture(address):
+            def factory(corpus):
+                return lambda: service.ServiceBatchSource(address, corpus=corpus,
+                                                          ordered=True, packing=spec)
+            return service.MixedBatchSource({"a": factory("a"), "b": factory("b")},
+                                            weights=w0, seed=cfg["mix_seed"],
+                                            exhaustion="stop", dispatcher_address=address,
+                                            factories=True)
+
+        try:
+            mix = mixture(disp.address)
+            tap_c = _LlmTap(mix)
+            loader = TorchDataLoader(None, batch_source=tap_c, device=device)
+            step = _llm_model(cfg, device)
+            mix_losses, draws, passes = [], [], []
+            for pass_index in range(2):
+                if pass_index == 1:
+                    reply = service.set_mixture_weights(disp.address, w1, effective_epoch=1)
+                mixed = _llm_pass(loader, step, tap_c, device, warm_from)
+                mix_losses += mixed["losses"]
+                draws.append(dict(mix.diagnostics["mixture"]["draws"]))
+                passes.append(mixed)
+            weights_after = mix.diagnostics["mixture"]["weights"]
+            replay = mixture(disp.address)
+            replayed = list(replay()) + list(replay())
+            log = service.get_mixture_weights(disp.address)["entries"]
+        finally:
+            _stop_fleet(disp, workers)
+        restarted = service.Dispatcher(mode="static", num_epochs=1, shuffle_seed=cfg["seed"],
+                                       journal_dir=journal).start()
+        try:
+            restored = service.get_mixture_weights(restarted.address)["entries"]
+        finally:
+            restarted.stop()
+        shares = [{name: count / max(1, sum(d.values())) for name, count in d.items()}
+                  for d in draws]
+        # A pass of n draws under "stop" serves the seed tree's first n draws:
+        # each share is within cfg["mix_tol"] of its weight, or within three
+        # binomial standard errors of it for a pass too short for that band.
+        tols, seeded = [], []
+        for i, weights in enumerate((w0, w1)):
+            n_draws = sum(draws[i].values())
+            tols.append(max(cfg["mix_tol"], max(3 * math.sqrt(w * (1 - w) / max(1, n_draws))
+                                                for w in weights.values())))
+            sampler = service.MixtureSampler(cfg["mix_seed"], weights, epoch=i)
+            seeded.append(dict(collections.Counter(sampler.draw() for _ in range(n_draws))))
+        off = [abs(shares[i].get(name, 0.0) - weights[name])
+               for i, weights in enumerate((w0, w1)) for name in weights]
+        if any(abs(shares[i].get(name, 0.0) - weights[name]) > tols[i]
+               for i, weights in enumerate((w0, w1)) for name in weights) \
+                or seeded != draws or weights_after != w1 or reply["seq"] != 1:
+            fail(f"llm (c): draws {draws} (shares {shares}, the seed tree's {seeded}) against "
+                 f"weights {w0} then {w1} (tolerances {tols}); weights after pass 2 "
+                 f"{weights_after}")
+        if _llm_digest(replayed) != _llm_digest(tap_c.batches):
+            fail("llm (c): a second run from the same seed and weight log differs")
+        if restored != log or len(log) != 1:
+            fail(f"llm (c): the restarted dispatcher's log {restored} is not {log}")
+        if not all(math.isfinite(x) for x in mix_losses) \
+                or any(p["devices"] != {on_card} for p in passes):
+            fail(f"llm (c): losses {mix_losses}")
+        t_parts["c"] = time.perf_counter() - t0
+        figures.append(
+            f"(c) mixture seed {cfg['mix_seed']} of corpora seeded {seed_a}/{seed_b} with "
+            f"packing, weights {w0} then {w1} from pass 2 (seq {reply['seq']}): draws "
+            f"{draws} (the seed tree's), shares "
+            + " ".join("{" + ", ".join(f"{k}: {v:.3f}" for k, v in s.items()) + "}"
+                       for s in shares)
+            + f" (|share - weight| max {max(off):.3f}, tolerances "
+            + "/".join(f"{t:.3f}" for t in tols)
+            + f"), {len(mix_losses)} LM steps (loss {mix_losses[0]:.4f} -> "
+            f"{mix_losses[-1]:.4f}, steps_per_s_warm "
+            + "/".join(f"{p['steps_per_s_warm']:.2f}" if p["steps_per_s_warm"] else "n/a"
+                       for p in passes)
+            + f"); second run digest equal; journal restart log equal ({len(restored)} entry)")
+
+        # (d) The pack stage and its knob in the loader's graph; an
+        # autotuned run started at trainer placement (reported).
+        t0 = time.perf_counter()
+        disp = service.Dispatcher(mode="static", num_epochs=cfg["tune_epochs"],
+                                  shuffle_seed=cfg["seed"]).start()
+        workers = _llm_workers(service, [(url, "")] * cfg["workers"], disp, cfg, "d")
+        try:
+            declared = build_loader_graph(TorchDataLoader(
+                None, batch_source=service.PackedBatchSource(
+                    service.ServiceBatchSource(disp.address), spec, placement="worker"),
+                device=device))
+            pack = declared.node("pack")
+            knob = declared.knobs.get("packing_placement")
+            edges = [e for e in declared.edges if "pack" in e]
+            packed = service.PackedBatchSource(service.ServiceBatchSource(disp.address), spec,
+                                               placement="trainer")
+            tap_d = _LlmTap(packed)
+            loader = TorchDataLoader(None, batch_source=tap_d, device=device,
+                                     autotune=dict(cfg["tune"]))
+            with _window_classes() as classes:
+                tuned = _llm_pass(loader, _llm_model(cfg, device), tap_d, device, warm_from)
+            report = loader.autotune.report()
+            running = loader.autotune.running
+            knobs = sorted(loader.autotune.graph.knobs)
+            placement_next = packed.packing_placement
+        finally:
+            _stop_fleet(disp, workers)
+        if pack.placement != "worker" or knob is None \
+                or tuple(knob.descriptor()["choices"]) != ("worker", "trainer") \
+                or sorted(edges) != [("collate", "pack"), ("pack", "serialize")]:
+            fail(f"llm (d): the graph declares pack {pack.placement}, knob {knob}, edges "
+                 f"{edges}")
+        if running or "packing_placement" not in knobs \
+                or _llm_sequences(tap_d.batches) != sorted(documents * cfg["tune_epochs"]):
+            fail(f"llm (d): controller running={running}, knobs {knobs}, or the tuned run's "
+                 "documents differ from the corpus's")
+        moves = [f"r{e['round']} {d['knob']} {d['from']}->{d['to']}"
+                 for e in report["trail"] for d in e["decisions"]
+                 if d["knob"] == "packing_placement"]
+        t_parts["d"] = time.perf_counter() - t0
+        figures.append(
+            f"(d) graph: pack at {pack.placement}, edges {edges}, knob choices "
+            f"{knob.descriptor()['choices']}; autotune {cfg['tune']} from trainer placement, "
+            f"{cfg['tune_epochs']} epochs, {len(tuned['losses'])} steps, knobs {knobs}: "
+            f"rounds={report['rounds']} classes: {_classes_text(classes)}; "
+            f"packing_placement decisions: {'; '.join(moves) or 'none'} (next iteration: "
+            f"{placement_next}); all decisions: {_trail_text(report) or 'none'}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if open_mixture_passes() or open_job_registrations():
+        fail(f"llm: mixture passes ({open_mixture_passes()}) or job registrations "
+             f"({open_job_registrations()}) left open")
+    if live_shm_counts() != shm_before:
+        fail(f"llm: shared memory left mapped: {live_shm_counts()} (was {shm_before})")
+    print(f"llm: gpu={smi!r} " + "; ".join(figures) + "; parts_s="
+          + ",".join(f"{k}:{v:.1f}" for k, v in t_parts.items()), flush=True)
+    return {"launches": launches, "steps_per_s_warm": run["steps_per_s_warm"]}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -6117,7 +6565,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 18. fleet ---------------------------------------------
+    # -- 4. image ... 19. llm -----------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -6134,7 +6582,8 @@ def main():
                       ("dynamic", lambda: dynamic_phase(smi, out["image"], out["service"])),
                       ("dataplane", lambda: dataplane_phase(smi, out["image"],
                                                             out["service"])),
-                      ("fleet", lambda: fleet_phase(smi, out["image"]))):
+                      ("fleet", lambda: fleet_phase(smi, out["image"])),
+                      ("llm", lambda: llm_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

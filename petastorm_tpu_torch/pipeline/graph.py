@@ -36,9 +36,9 @@ blocking call, not in ``dispatch_s``.
 Over the data service's batch source the worker-side stages run on the
 remote workers, and the graph binds the source's ``credits``,
 ``ready_queue_depth`` and ``transform_placement`` knobs and reads the
-``recv_stall_s`` and ``credit_wait_s`` signals. The packing placement, the
-four rewrite knobs and their trigger signals come with the service slices
-that port them.
+``recv_stall_s`` and ``credit_wait_s`` signals, the four rewrite knobs
+and their trigger signals, and over a packing source the ``pack`` stage
+between ``collate`` and ``serialize`` with its ``packing_placement`` knob.
 """
 
 from __future__ import annotations
@@ -318,20 +318,34 @@ def build_loader_graph(loader, bounds=None):
                                description="the reader's transform (inside the pull)"))
     nodes.append(StageNode("collate", "worker", worker_placement,
                            description="rows → fixed-size numpy batch"))
-    # The packing stage waits for the LLM stages, service slice (f).
+    packing_spec = _packing_spec(source)
+    if packing_spec is not None:
+        # Sequence packing: N row batches into M packed ones. Worker-side
+        # it runs before serialization (the cache holds packed frames),
+        # trainer-side it packs the received rows; flippable when the
+        # source is a PackedBatchSource.
+        flippable = _packing_flippable(source)
+        nodes.append(StageNode(
+            "pack", "worker", worker_placement if _packing_remote(source) else "trainer",
+            flippable=flippable, metric=_packing_metric,
+            placement_fn=(lambda: worker_placement if _packing_remote(source) else "trainer")
+            if flippable else None,
+            description=(f"sequence packing into [{packing_spec['slots']}, "
+                         f"{packing_spec['slot_len']}] + segment ids")))
     nodes.append(StageNode("serialize", "worker", worker_placement,
                            metric=_fused_stage_metric("serialize") if remote else None,
                            description="batch → wire frames (service path only)"))
     nodes.append(StageNode("send", "worker", worker_placement,
                            description="framed socket send (service path only)"))
-    edges += [("read", "decode"), ("decode", "transform"),
-              ("transform", "collate"), ("collate", "serialize"),
-              ("serialize", "send")]
+    packed = ("pack",) if packing_spec is not None else ()
+    chain = ("read", "decode", "transform", "collate") + packed + ("serialize", "send")
+    edges += list(zip(chain, chain[1:]))
     if remote:
         # The group these stages run as, one pool task a piece, when stage
-        # fusion is on; collate and serialize read their share of the fused
-        # task from the fused-stage series.
-        group = ("decode", "transform", "collate", "serialize")
+        # fusion is on; collate (with the packing wrapper's work when
+        # worker-placed packing is fused) and serialize read their share
+        # of the fused task from the fused-stage series.
+        group = ("decode", "transform", "collate") + packed + ("serialize",)
         for node in nodes:
             if node.name in group:
                 node.fuse_group = group
@@ -407,7 +421,12 @@ def build_loader_graph(loader, bounds=None):
         knobs.append(Knob("transform_placement", get=lambda: source.transform_placement,
                           set=source.set_transform_placement, kind="choice",
                           choices=("remote", "local"), applies="next-iteration"))
-    # Not bound yet: packing_placement (service slice (f)).
+    if _packing_flippable(source):
+        # Packing between the workers (the cache holds packed frames) and
+        # the trainer (the workers serve rows, this host packs).
+        knobs.append(Knob("packing_placement", get=lambda: source.packing_placement,
+                          set=source.set_packing_placement, kind="choice",
+                          choices=("worker", "trainer"), applies="next-iteration"))
     # The graph-rewrite knobs: choice knobs tagged with their rewrite, so the
     # planner gates them on its trigger economics. Never bound on an fcfs
     # source, whose streams bypass the engine the rewrites run in (the graph
@@ -512,6 +531,41 @@ def _client_filter_rows(outcome):
 
 def _has_transform(source):
     return source is not None and getattr(source, "transform", None) is not None
+
+
+def _packing_spec(source):
+    """The packing spec's key dict when the source packs (a
+    PackedBatchSource, or a ServiceBatchSource with ``packing=``), else
+    ``None``."""
+    if source is None:
+        return None
+    spec = getattr(source, "spec", None)
+    if spec is not None and hasattr(spec, "key_dict") and hasattr(source, "packing_placement"):
+        return spec.key_dict()
+    packing = getattr(source, "packing", None)
+    return packing.key_dict() if packing is not None and hasattr(packing, "key_dict") else None
+
+
+def _packing_flippable(source):
+    return (source is not None and hasattr(source, "set_packing_placement")
+            and _packing_spec(source) is not None)
+
+
+def _packing_remote(source):
+    return getattr(source, "packing_placement", "worker") == "worker"
+
+
+def _packing_metric():
+    """Cumulative ``(count, seconds)`` of the packing stage in both
+    placements (the trainer's packer, and the worker series of workers
+    running in this process)."""
+    from petastorm_tpu_torch.telemetry.metrics import PACKING_SECONDS
+
+    count = total = 0
+    for child in PACKING_SECONDS.children().values():
+        count += child.count
+        total += child.sum
+    return count, total
 
 
 def _transform_remote(source):

@@ -1,7 +1,7 @@
 """``python -m petastorm_tpu_torch.service``: run a dispatcher or a batch
 worker (the port's own copy of ``petastorm_tpu/service/cli.py``, its
-``dispatcher``, ``worker``, ``status``, ``trace`` and ``diagnose``
-commands).
+``dispatcher``, ``worker``, ``status``, ``trace``, ``diagnose`` and
+``set-mixture-weights`` commands).
 
 A two-worker service on one machine::
 
@@ -52,6 +52,12 @@ disarm`` stops; ``diagnose --dispatcher host:port [--stall-pct x]`` (or
 ``--trace f.json``) prints the critical-path stall attribution and
 journals its stage profile to the dispatcher. Workers never touch a CUDA
 device; run them with ``CUDA_VISIBLE_DEVICES=""`` beside a trainer.
+
+Multi-corpus fleets: ``worker --corpus web`` registers the worker under a
+corpus (one dataset a corpus, one dispatcher for all), and
+``set-mixture-weights --dispatcher host:port --job j --weights
+web=0.6,code=0.4 [--effective-epoch n]`` journals a weight change that
+every ``MixedBatchSource`` of the job applies at that pass boundary.
 """
 
 from __future__ import annotations
@@ -156,7 +162,10 @@ def _build_parser():
                       help="poison-piece policy: 'quarantine' reports an undecodable "
                            "piece (piece_failed) and serves on; 'fail' errors the stream")
     work.add_argument("--corpus", default="",
-                      help="corpus of a multi-corpus fleet (comes with a later slice)")
+                      help="corpus name for multi-corpus fleets: workers serving different "
+                           "datasets under ONE dispatcher register distinct corpora; "
+                           "clients request per-corpus assignments for deterministic "
+                           "weighted mixing. Default: the single-dataset corpus")
     work.add_argument("--transport", default=None, choices=["auto", "tcp", "shm"],
                       help="data-plane tier: auto (a client on this host negotiates the "
                            "shared-memory ring, others ride TCP), tcp (never negotiate), "
@@ -208,7 +217,34 @@ def _build_parser():
                       help="the full report as JSON instead of the ranked table")
     diag.add_argument("--no-post", action="store_true",
                       help="do not journal the stage profile to the dispatcher")
+
+    mix = sub.add_parser(
+        "set-mixture-weights",
+        help="journal a mixture weight change at the dispatcher: every MixedBatchSource "
+             "of the job applies it at the effective pass boundary, with no fleet or "
+             "trainer restart")
+    mix.add_argument("--dispatcher", required=True, help="dispatcher address host:port")
+    mix.add_argument("--job", default="default", help="the job whose mixture to rebalance")
+    mix.add_argument("--weights", required=True,
+                     help="corpus=weight pairs, comma-separated (e.g. "
+                          "web=0.6,code=0.3,books=0.1)")
+    mix.add_argument("--effective-epoch", type=int, default=None,
+                     help="the mixture pass the change takes effect at (its start "
+                          "boundary); omit to apply at the next pass any source starts — "
+                          "name it when the run must stay reproducible from the log")
     return parser
+
+
+def parse_weights(spec):
+    """``corpus=weight,…`` → ``{corpus: float}`` (the set-mixture-weights
+    payload)."""
+    out = {}
+    for pair in spec.split(","):
+        if "=" not in pair:
+            raise ValueError(f"--weights expects corpus=weight pairs, got {pair!r}")
+        name, _, value = pair.partition("=")
+        out[name.strip()] = float(value)
+    return out
 
 
 def build_service_node(args):
@@ -701,6 +737,15 @@ def main(argv=None, run_seconds=None, stop_event=None):
     ends it early (an embedding test tears the node down with it); by
     default a node serves until SIGINT or SIGTERM."""
     args = _build_parser().parse_args(argv)
+    if args.role == "set-mixture-weights":
+        from petastorm_tpu_torch.service.mixture import set_mixture_weights
+
+        reply = set_mixture_weights(parse_address(args.dispatcher),
+                                    parse_weights(args.weights), job_id=args.job,
+                                    effective_epoch=args.effective_epoch)
+        print(json.dumps({"job_id": reply.get("job_id"), "seq": reply.get("seq"),
+                          "entries": reply.get("entries")}), flush=True)
+        return 0
     if args.role == "status":
         address = parse_address(args.dispatcher)
         if args.watch:

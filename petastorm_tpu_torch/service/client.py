@@ -72,9 +72,15 @@ delegates here with the batches it has yielded.
 ``job_id=`` makes the source one client of a fleet job (static or dynamic
 sharding): the job rides every control request and stream request, and
 the dispatcher's ``credit_scale`` (the job's fair share) scales the credit
-window of every stream opened after it. Packing and a corpus raise
-NotImplementedError naming the slice that brings them
-(:data:`UNPORTED_SOURCE_ARGS`).
+window of every stream opened after it.
+
+``packing=`` (a :class:`~petastorm_tpu_torch.service.packing_stage.
+PackingSpec` or its dict) rides every stream request: the workers pack
+before serialization, and the watermarks, ordinals and resume state count
+packed batches (a resume under another spec is refused). ``corpus=`` scopes
+the source to one corpus of a multi-corpus fleet: it rides every control
+request, so assignments, takeovers and quarantine reports stay within
+that corpus's workers and pieces.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from petastorm_tpu_torch.reader_impl.framed_socket import (
     FramedConnection,
     ProtocolError,
 )
+from petastorm_tpu_torch.service.packing_stage import PackingSpec
 from petastorm_tpu_torch.service.resilience import (
     CircuitBreaker,
     GapTracker,
@@ -122,14 +129,6 @@ from petastorm_tpu_torch.utils import resize_bounded_queue, retry_with_backoff
 
 logger = logging.getLogger(__name__)
 
-#: ``ServiceBatchSource`` arguments this slice does not take: the value
-#: that asks for nothing, and the slice that ports the feature.
-UNPORTED_SOURCE_ARGS = {
-    "packing": (None, "worker-side sequence packing comes with the LLM stages, "
-                      "slice (f)"),
-    "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
-}
-
 
 class ServiceError(RuntimeError):
     """A non-transient service failure: a dispatcher or worker replied
@@ -138,7 +137,8 @@ class ServiceError(RuntimeError):
 
 def _add_stream_fields(request, stream, conn):
     """The stream request's optional fields: the transport advertisement,
-    the shuffle seed, the transform placement and the graph rewrites."""
+    the shuffle seed, the transform placement, the packing spec and the
+    graph rewrites."""
     advert = conn.advertisement()
     if advert is not None:
         request["transport"] = advert
@@ -146,6 +146,8 @@ def _add_stream_fields(request, stream, conn):
         request["shuffle_seed"] = int(stream.shuffle_seed)
     if stream.transform_placement is not None:
         request["transform_placement"] = stream.transform_placement
+    if stream.packing is not None:
+        request["packing"] = dict(stream.packing)
     if stream.predicate is not None:
         request["predicate"] = dict(stream.predicate)
     if stream.projection is not None:
@@ -174,8 +176,11 @@ class _WorkerStream:
                  auto_replenish=False, tagged=False, starts=None, shuffle_seed=None,
                  transform_placement=None, recv_timeout=None, max_frame_bytes=None,
                  predicate=None, projection=None, fused=False, cache_stage=None,
-                 reader_family=None, transport="auto", job_id=None):
+                 reader_family=None, transport="auto", job_id=None, packing=None):
         self.worker_id = worker_id
+        #: The worker-placed packing spec's dict (None: row batches); the
+        #: ordinals and watermarks then count packed batches.
+        self.packing = packing
         #: The transport policy: anything but "tcp" advertises shm on the
         #: request; the worker decides.
         self.transport = transport
@@ -485,9 +490,11 @@ class _DynamicStream:
     def __init__(self, worker_id, address, pairs, epoch, connect_timeout, credits=None,
                  shuffle_seed=None, transform_placement=None, recv_timeout=None,
                  max_frame_bytes=None, predicate=None, projection=None, fused=False,
-                 cache_stage=None, reader_family=None, transport="auto", job_id=None):
+                 cache_stage=None, reader_family=None, transport="auto", job_id=None,
+                 packing=None):
         self.worker_id = worker_id
-        self.transport = transport  # as _WorkerStream's, and the job and rewrites below
+        self.transport = transport  # as _WorkerStream's, and the job, packing and rewrites
+        self.packing = packing
         self.job_id = job_id
         self.predicate = predicate
         self.projection = projection
@@ -735,8 +742,13 @@ class ServiceBatchSource:
         :func:`~petastorm_tpu_torch.service.fleet.register_job` for a weight
         or a quota). ``None``: the default job.
 
-    The arguments of :data:`UNPORTED_SOURCE_ARGS` given anything but their
-    default raise NotImplementedError naming the argument and its slice.
+    :param packing: worker-placed sequence packing (a
+        :class:`~petastorm_tpu_torch.service.packing_stage.PackingSpec` or
+        its dict), static or dynamic sharding only; refused with a
+        ``transform`` or a ``predicate``. Set for the next iteration by
+        :meth:`set_packing` (what ``PackedBatchSource`` flips).
+    :param corpus: the corpus of a multi-corpus fleet this source reads
+        (``""``: the default one); static or dynamic sharding only.
     """
 
     def __init__(self, dispatcher_address, client_index=0, num_clients=1, client_id=None,
@@ -751,12 +763,6 @@ class ServiceBatchSource:
                  hedging=False, hedge_quantile=0.99, hedge_multiplier=4.0,
                  hedge_min_samples=16, hedge_floor_s=0.25, breaker_threshold=5,
                  breaker_cooldown_s=5.0, retry_budget=10.0):
-        given = {"packing": packing, "corpus": corpus or ""}
-        for name, value in given.items():
-            default, reason = UNPORTED_SOURCE_ARGS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"ServiceBatchSource({name}=...) is not ported yet: {reason}")
         self._transport = resolve_mode(transport)
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
@@ -772,8 +778,21 @@ class ServiceBatchSource:
                 "transform_placement='local' needs the transform callable: workers are "
                 "told to skip their batch_transform, so without one here the stage would "
                 "silently not run at all")
+        self.corpus = str(corpus or "")
+        self._packing = PackingSpec.from_dict(packing) if packing is not None else None
+        if self._packing is not None and transform is not None:
+            raise ValueError(
+                "packing= and transform= cannot combine on one source: the batch "
+                "transform is a row-batch stage and packing changes the batch vocabulary "
+                "— apply the transform upstream (transform_spec) instead")
+        self._iter_packing = self._packing
         self._init_rewrites(predicate, projection, filter_placement, stage_fusion,
                             cache_placement, reader_family, transform)
+        if self._predicate is not None and self._packing is not None:
+            raise ValueError(
+                "predicate= and packing= cannot combine on one source: packing changes "
+                "the batch vocabulary (token slots, not rows) — filter upstream (reader "
+                "predicate) or drop one")
         self._dispatcher_address = tuple(dispatcher_address)
         self.client_index = client_index
         self.num_clients = num_clients
@@ -1192,6 +1211,9 @@ class ServiceBatchSource:
         attempt ships the remaining ``rpc_deadline_s``."""
         if self.job_id is not None and "job_id" not in header:
             header = dict(header, job_id=self.job_id)
+        if self.corpus:
+            # Assignments, takeovers and quarantine reports are the corpus's.
+            header = dict(header, corpus=self.corpus)
         if "trace" not in header:
             ctx = {"peer": self.client_id}
             if self.job_id is not None:
@@ -1281,6 +1303,29 @@ class ServiceBatchSource:
             raise ValueError("transform_placement='local' needs the transform callable")
         self._transform_placement = placement
 
+    @property
+    def packing(self):
+        """The worker-placed packing spec in force from the next iteration
+        on (``None``: the workers serve row batches)."""
+        return self._packing
+
+    def set_packing(self, packing):
+        """Arm (or, with ``None``, disarm) worker-placed packing from the
+        next iteration on: what
+        :meth:`~petastorm_tpu_torch.service.packing_stage.PackedBatchSource.set_packing_placement`
+        calls."""
+        if packing is None:
+            self._packing = None
+            return
+        if self.transform is not None:
+            raise ValueError("packing and transform= cannot combine on one source "
+                             "(the transform is a row-batch stage)")
+        self._packing = PackingSpec.from_dict(packing)
+
+    def _iter_packing_dict(self):
+        """The iteration's packing spec in wire form (``None``: rows)."""
+        return self._iter_packing.to_dict() if self._iter_packing is not None else None
+
     def _effective_credits(self):
         """The credit window scaled by the job's ``credit_scale``, at least
         1; the window itself at a scale of 1.0."""
@@ -1317,7 +1362,7 @@ class ServiceBatchSource:
                              transform_placement=self._iter_transform_placement,
                              recv_timeout=self._stream_recv_timeout_s,
                              max_frame_bytes=self._max_frame_bytes, job_id=self.job_id,
-                             **self._iter_rewrite_kwargs())
+                             packing=self._iter_packing_dict(), **self._iter_rewrite_kwargs())
 
     # -- the batch_source contract ----------------------------------------
 
@@ -1350,10 +1395,21 @@ class ServiceBatchSource:
                 "shared queue with no per-job assignment, so concurrent jobs would silently "
                 "split — not share — each epoch's data. Run the dispatcher with "
                 "mode='dynamic' (or 'static') for multi-tenant fleets")
+        if self._packing is not None and info["mode"] == "fcfs":
+            raise ValueError(
+                "packing requires static or dynamic sharding: fcfs serves untagged "
+                "per-split streams outside the streaming engine, which is where "
+                "worker-side packing runs — or pack trainer-side (PackedBatchSource "
+                "placement='trainer')")
+        if self.corpus and info["mode"] == "fcfs":
+            raise ValueError(
+                "corpus= requires static or dynamic sharding: fcfs splits one shared "
+                "default-corpus queue (multi-corpus mixes need per-corpus assignments)")
         self._iter_transform_placement = (self._transform_placement
                                           if self.transform is not None else None)
-        # The rewrites freeze the same way: one topology an iteration, on
-        # every stream and on the client filter.
+        # Packing and the rewrites freeze the same way: one topology an
+        # iteration, on every stream (and cache key) and on the client filter.
+        self._iter_packing = self._packing
         hoisted = self._predicate is not None and self._filter_placement == "worker"
         self._iter_filter_placement = (self._filter_placement
                                        if self._predicate is not None else None)
@@ -1919,7 +1975,7 @@ class ServiceBatchSource:
                               transform_placement=self._iter_transform_placement,
                               recv_timeout=self._stream_recv_timeout_s,
                               max_frame_bytes=self._max_frame_bytes, job_id=self.job_id,
-                              **self._iter_rewrite_kwargs())
+                              packing=self._iter_packing_dict(), **self._iter_rewrite_kwargs())
 
     def _fetch_dynamic_plan(self, epoch):
         """The epoch's initial per-worker deques (pieces stamped with their
@@ -2721,9 +2777,9 @@ class ServiceBatchSource:
                                if n and p not in completed},
                 "shuffle_seed": self._shuffle_seed,
                 "ordered": self._ordered,
-                # Worker-side packing (not run by this package) and the
-                # hoisted filter: each changes what the watermarks number.
-                "packing": None,
+                # Worker-placed packing and the hoisted filter: each changes
+                # what the watermarks number.
+                "packing": self._iter_packing_dict(),
                 "filter": self._hoisted_filter_signature(),
             }
 
@@ -2737,11 +2793,13 @@ class ServiceBatchSource:
                 raise ValueError(f"resume_state mismatch on {key!r}: checkpoint has "
                                  f"{state.get(key)!r}, this client has "
                                  f"{getattr(self, key)!r}")
-        if state.get("packing") is not None:
+        saved_packing = state.get("packing")
+        current_packing = self._packing.to_dict() if self._packing is not None else None
+        if saved_packing != current_packing:
             raise ValueError(
                 f"resume_state packing mismatch: checkpoint watermarks number batches under "
-                f"{state.get('packing')!r}, this source runs None — resuming would re-grant "
-                f"at positions in a different batch vocabulary")
+                f"{saved_packing!r}, this source runs {current_packing!r} — resuming would "
+                f"re-grant at positions in a different batch vocabulary")
         saved_filter = state.get("filter")
         current_filter = self._hoisted_filter_signature(constructed=True)
         if saved_filter != current_filter:

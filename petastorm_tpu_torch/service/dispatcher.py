@@ -79,10 +79,16 @@ AutoscaleController`), and :meth:`Dispatcher.admit_worker`,
 worker by hand; every move is journaled. A drained worker's unstarted
 pieces are stolen away to serving peers.
 
-Corpora and mixtures raise NotImplementedError (or an ``error`` reply)
-naming the slice that brings them, the LLM stages (f); their keys stand in
-the state at their empty values, so a snapshot equals the JAX
-dispatcher's, and a journal record of theirs is refused by name on replay.
+Multi-corpus fleets: a worker registers with a ``corpus`` name, and each
+corpus has its own piece universe (``""`` is the default corpus, the
+single-dataset one). Assignments, fcfs and dynamic grants, takeovers,
+steals and quarantine are scoped to the requesting client's corpus: corpus
+A's piece 3 is not corpus B's. ``set_mixture_weights`` journals an entry
+of a job's mixture weight log (a ``mixture_weights`` record; a retried
+request with the same token answers for the journaled entry) and
+``get_mixture`` returns the log, which
+:class:`~petastorm_tpu_torch.service.mixture.MixedBatchSource` applies at
+pass boundaries.
 """
 
 from __future__ import annotations
@@ -155,18 +161,6 @@ STAGE_PROFILES_KEPT = 8
 #: the snapshot too, so a compaction never loses the audit trail).
 CACHE_HANDOFFS_KEPT = 8
 FLEET_PLANS_KEPT = 32
-
-#: Requests of a later slice, answered with an error naming it.
-_UNPORTED_REQUESTS = {
-    "set_mixture_weights": "mixtures come with the LLM stages, slice (f)",
-    "get_mixture": "mixtures come with the LLM stages, slice (f)",
-}
-
-#: Journal record ops of a later slice: a replay that meets one is refused
-#: with the slice that writes it.
-_UNPORTED_RECORD_OPS = {
-    "mixture_weights": "mixtures come with the LLM stages, slice (f)",
-}
 
 #: Dynamic mode: a worker delivering below this fraction of the fleet
 #: median (while it still holds stealable backlog) is a straggler even
@@ -322,6 +316,12 @@ class Dispatcher:
         # client heartbeats, journaled at piece granularity.
         self._client_watermarks = {}
         self._num_pieces = None
+        # corpus -> its row-group count ("" = the default corpus, mirrored
+        # into _num_pieces, which the fcfs paths read).
+        self._corpus_pieces = {}
+        # job_id -> {"seq", "entries": [{"seq", "weights"[,
+        # "effective_epoch"]}], "last_token"}: the journaled weight logs.
+        self._mixtures = {}
         self._fcfs_queue = None
         self._fcfs_epoch = 0
         # Dynamic mode: per-client ownership of the epoch in flight
@@ -359,8 +359,10 @@ class Dispatcher:
         self._worker_credit_wait = {}  # wid -> last cumulative credit-wait seconds
         self._credit_wait_window = {}  # wid -> its value at the last evaluation
         self._client_ready_saturation = {}  # cid -> last ready-queue fullness
-        # Quarantined pieces: piece -> report info, journaled.
+        # Quarantined pieces: (corpus, piece) -> report info, journaled; and
+        # the default corpus's pieces of it (the fcfs paths' view).
         self._quarantined = {}
+        self._quarantined_default = set()
         # None, or why a failed journal write made this dispatcher read-only.
         self._degraded = None
         self._journal = None
@@ -442,9 +444,10 @@ class Dispatcher:
             "num_epochs": self.num_epochs,
             "shuffle_seed": self.shuffle_seed,
             "num_pieces": self._num_pieces,
-            "corpus_pieces": ({"": self._num_pieces} if self._num_pieces is not None
-                              else {}),
-            "mixtures": {},
+            "corpus_pieces": dict(self._corpus_pieces),
+            "mixtures": {jid: {"seq": m["seq"], "entries": [dict(e) for e in m["entries"]],
+                               "last_token": m.get("last_token")}
+                         for jid, m in self._mixtures.items()},
             "workers": {wid: dict(w) for wid, w in self._workers.items()},
             "clients": {cid: dict(c) for cid, c in self._clients.items()},
             "jobs": {jid: dict(j) for jid, j in self._jobs.items()},
@@ -461,7 +464,10 @@ class Dispatcher:
             "fcfs_queue": list(self._fcfs_queue) if self._fcfs_queue is not None else None,
             "fencing_epoch": self._fencing_epoch,
             "recovery": dict(self._recovery),
-            "quarantined": {str(p): dict(info) for p, info in self._quarantined.items()},
+            # "piece" for the default corpus, else "corpus:piece"; the info
+            # carries the corpus too, which is what a load trusts.
+            "quarantined": {(f"{c}:{p}" if c else str(p)): dict(info)
+                            for (c, p), info in self._quarantined.items()},
             "breaker_open": {wid: dict(info) for wid, info in self._breaker_open.items()},
             "brownout": {"level": self._brownout_level,
                          "counts": dict(self._brownout_counts),
@@ -505,10 +511,6 @@ class Dispatcher:
                        len(self._workers), len(self._clients), len(records),
                        self._fencing_epoch)
 
-    def _refuse_later_slice(self, what, reason):
-        raise NotImplementedError(f"journal at {self.journal_dir!r} holds {what}, which is "
-                                  f"not ported yet: {reason}")
-
     def _install_state_locked(self, state):
         if state.get("mode") != self.mode:
             raise ValueError(
@@ -521,22 +523,24 @@ class Dispatcher:
                 f"{state.get('shuffle_seed')!r}; this dispatcher runs {self.shuffle_seed!r} — "
                 "restarting with a different seed would silently change the piece order "
                 "mid-run and break the determinism contract")
-        if state.get("mixtures"):
-            self._refuse_later_slice("'mixtures' state",
-                                     "mixtures come with the LLM stages, slice (f)")
-        if any(c for c in state.get("corpus_pieces") or {}):
-            self._refuse_later_slice("corpora", "multi-corpus fleets come with the LLM "
-                                                "stages, slice (f)")
         self._num_pieces = state.get("num_pieces")
+        self._corpus_pieces = {str(c): int(n)
+                               for c, n in (state.get("corpus_pieces") or {}).items()}
+        if self._num_pieces is not None:
+            self._corpus_pieces.setdefault("", self._num_pieces)
+        self._mixtures = {
+            str(jid): {"seq": int(m.get("seq", 0)),
+                       "entries": [dict(e) for e in m.get("entries", ())],
+                       "last_token": m.get("last_token")}
+            for jid, m in (state.get("mixtures") or {}).items()}
         self._client_watermarks = {
             cid: {"epoch": int(entry.get("epoch", 0)),
                   "watermarks": {int(p): int(n)
                                  for p, n in (entry.get("watermarks") or {}).items()}}
             for cid, entry in (state.get("client_watermarks") or {}).items()}
         self._workers = {wid: dict(w) for wid, w in state.get("workers", {}).items()}
-        for wid, worker in self._workers.items():
+        for worker in self._workers.values():
             worker.setdefault("state", "serving")
-            self._check_worker_corpus(wid, worker.get("corpus"))
         self._clients = {cid: dict(c) for cid, c in state.get("clients", {}).items()}
         self._jobs = {jid: dict(j) for jid, j in (state.get("jobs") or {}).items()}
         self._job_recovery = {jid: dict(r)
@@ -558,12 +562,10 @@ class Dispatcher:
         recovered = state.get("recovery", {})
         for key in self._recovery:
             self._recovery[key] = int(recovered.get(key, 0))
-        self._quarantined = {}
-        for key, info in (state.get("quarantined") or {}).items():
-            if info.get("corpus"):
-                self._refuse_later_slice("a quarantined piece of a corpus", "multi-corpus "
-                                         "fleets come with the LLM stages, slice (f)")
-            self._quarantined[int(key)] = dict(info)
+        self._quarantined = {
+            (str(info.get("corpus", "") or ""), int(str(key).rsplit(":", 1)[-1])): dict(info)
+            for key, info in (state.get("quarantined") or {}).items()}
+        self._quarantined_default = {p for (c, p) in self._quarantined if not c}
         now = time.monotonic()
         self._breaker_open = {str(wid): dict(info)
                               for wid, info in (state.get("breaker_open") or {}).items()}
@@ -586,25 +588,17 @@ class Dispatcher:
                 "steals": {wid: {"in": int(counts.get("in", 0)), "out": int(counts.get("out", 0))}
                            for wid, counts in dyn.get("steals", {}).items()}}
 
-    def _check_worker_corpus(self, worker_id, corpus):
-        if corpus:
-            self._refuse_later_slice(f"worker {worker_id!r} of corpus {corpus!r}",
-                                     "multi-corpus fleets come with the LLM stages, "
-                                     "slice (f)")
-
     def _apply_record_locked(self, record):
         """Replay one WAL record through the mutations the live handlers
         perform (without journaling: the record is the journal)."""
         op = record.get("op")
-        if op in _UNPORTED_RECORD_OPS:
-            self._refuse_later_slice(f"a {op!r} record", _UNPORTED_RECORD_OPS[op])
         if op == "register_worker":
-            self._check_worker_corpus(record["worker_id"], record.get("corpus"))
             self._install_worker_locked(record["worker_id"],
                                         [record["host"], int(record["port"])],
                                         int(record["num_pieces"]),
                                         re_register=bool(record.get("re_register")),
                                         standby=bool(record.get("standby")),
+                                        corpus=record.get("corpus", ""),
                                         metrics_port=record.get("metrics_port"),
                                         cache_fleet=bool(record.get("cache_fleet")))
         elif op == "worker_dead":
@@ -612,12 +606,10 @@ class Dispatcher:
                                           record.get("reason", "reported"),
                                           job_id=record.get("job_id"))
         elif op == "client":
-            if record.get("corpus"):
-                self._refuse_later_slice("a client of a corpus", "multi-corpus fleets come "
-                                         "with the LLM stages, slice (f)")
             self._install_client_locked(record["client_id"], int(record["epoch"]),
                                         int(record["client_index"]),
-                                        int(record["num_clients"]), record.get("job_id"))
+                                        int(record["num_clients"]), record.get("job_id"),
+                                        corpus=record.get("corpus", ""))
         elif op == "job_register":
             self._install_job_locked(record["job_id"], float(record.get("weight", 1.0)),
                                      record.get("quota"), restart=bool(record.get("restart")))
@@ -648,12 +640,21 @@ class Dispatcher:
                 "watermarks": {int(p): int(n)
                                for p, n in (record.get("watermarks") or {}).items()}}
         elif op == "quarantine":
+            info = {"worker_id": record.get("worker_id"), "client_id": record.get("client_id"),
+                    "error": record.get("error"), "epoch": int(record.get("epoch", 0))}
             if record.get("corpus"):
-                self._refuse_later_slice("a quarantined piece of a corpus", "multi-corpus "
-                                         "fleets come with the LLM stages, slice (f)")
-            self._quarantine_piece_locked(int(record["piece"]), {
-                "worker_id": record.get("worker_id"), "client_id": record.get("client_id"),
-                "error": record.get("error"), "epoch": int(record.get("epoch", 0))})
+                info["corpus"] = record["corpus"]
+            self._quarantine_piece_locked(int(record["piece"]), info)
+        elif op == "mixture_weights":
+            # The journal stamps its own ``seq`` on every record, over the
+            # entry's; the entry's is the job's last one plus one, as the
+            # live handler numbers it. (The JAX dispatcher replays the
+            # journal's seq as the entry's.)
+            mixture = self._mixtures.get(str(record["job_id"]))
+            self._install_mixture_locked(record["job_id"], (mixture["seq"] if mixture else 0) + 1,
+                                         dict(record["weights"]),
+                                         record.get("effective_epoch"),
+                                         token=record.get("token"))
         elif op == "breaker":
             if record.get("state") == "open":
                 self._breaker_open_locked(record["worker_id"], {
@@ -764,24 +765,32 @@ class Dispatcher:
 
     def _quarantine_piece_locked(self, piece, info):
         """One mutation site (live and replay): record the piece and mark it
-        done in every client's dynamic books, so neither the steal planner
-        nor reconciliation grants it again. A duplicate report is a no-op."""
-        if piece in self._quarantined:
+        done in the dynamic books of every client of its corpus, so neither
+        the steal planner nor reconciliation grants it again. A duplicate
+        report is a no-op."""
+        corpus = str(info.get("corpus", "") or "")
+        if (corpus, piece) in self._quarantined:
             return False
-        self._quarantined[piece] = dict(info)
+        self._quarantined[(corpus, piece)] = dict(info)
+        if not corpus:
+            self._quarantined_default.add(piece)
         self._recovery["pieces_quarantined"] += 1
-        for state in self._dyn.values():
+        for cid, state in self._dyn.items():
+            # Piece indices are per dataset: another corpus's piece of the
+            # same index keeps serving.
+            if self._clients.get(cid, {}).get("corpus", "") != corpus:
+                continue
             if piece in state["owner"] and piece not in state["done"]:
                 state["done"].add(piece)
                 self._mark_dyn_dirty_locked()
         return True
 
-    def _grantable_pieces_locked(self, pieces):
-        """``pieces`` less the quarantined ones: the one exclusion rule of
-        every grant (assignment, takeover re-partition, fcfs split)."""
+    def _grantable_pieces_locked(self, pieces, corpus=""):
+        """``pieces`` less the corpus's quarantined ones: the one exclusion
+        rule of every grant (assignment, takeover re-partition, fcfs split)."""
         if not self._quarantined:
             return list(pieces)
-        return [p for p in pieces if p not in self._quarantined]
+        return [p for p in pieces if (corpus, p) not in self._quarantined]
 
     def _handle_report_poison_piece(self, header):
         piece = int(header["piece"])
@@ -793,10 +802,13 @@ class Dispatcher:
                     "client_id": header.get("client_id"),
                     "error": str(header.get("error", ""))[:512],
                     "epoch": int(header.get("epoch", 0))}
+            if header.get("corpus"):
+                info["corpus"] = str(header["corpus"])
             fresh = self._quarantine_piece_locked(piece, info)
             if fresh:
                 self._journal_locked(dict(info, op="quarantine", piece=piece))
-            quarantined = sorted(self._quarantined)
+            corpus = info.get("corpus", "")
+            quarantined = sorted(p for (c, p) in self._quarantined if c == corpus)
         if fresh:
             QUARANTINE_REPORTS.labels("dispatcher").inc()
             logger.warning("piece %d quarantined (worker %s: %s) — excluded from all "
@@ -971,15 +983,22 @@ class Dispatcher:
         return True
 
     def _install_worker_locked(self, worker_id, address, num_pieces, re_register=False,
-                               standby=False, metrics_port=None, cache_fleet=False):
+                               standby=False, corpus="", metrics_port=None, cache_fleet=False):
         known = worker_id in self._workers
         # A re-registration keeps the state the autoscaler gave the worker;
         # a new worker starts where its standby flag says.
         prev_state = self._workers[worker_id].get("state") if known else None
-        self._num_pieces = num_pieces
+        corpus = str(corpus or "")
+        # Each corpus's workers agree on their dataset's piece count; the
+        # default corpus also feeds the single-dataset paths.
+        self._corpus_pieces[corpus] = num_pieces
+        if not corpus:
+            self._num_pieces = num_pieces
         self._workers[worker_id] = {"address": list(address), "num_pieces": num_pieces,
                                     "alive": True,
                                     "state": prev_state or ("standby" if standby else "serving")}
+        if corpus:
+            self._workers[worker_id]["corpus"] = corpus
         if metrics_port is not None:
             self._workers[worker_id]["metrics_port"] = int(metrics_port)
         if cache_fleet:
@@ -1026,6 +1045,7 @@ class Dispatcher:
         dynamic books go, the fence floor passes its offset, and its gauge
         series are dropped."""
         job = self._jobs.pop(job_id, None)
+        self._mixtures.pop(job_id, None)
         if job is None:
             return False
         self._job_fence_floor = max(self._job_fence_floor, job["fencing_offset"] + 1)
@@ -1039,6 +1059,23 @@ class Dispatcher:
             self._client_heartbeats.pop(cid, None)
             self._client_watermarks.pop(cid, None)
             self._dyn.pop(cid, None)
+        return True
+
+    def _install_mixture_locked(self, job_id, seq, weights, effective_epoch, token=None):
+        """One mutation site (live and replay) for a mixture weight-log
+        entry: appended in seq order, a stale seq is a no-op. ``token`` is
+        the request's idempotency id, kept so a retried request whose reply
+        was lost answers for its entry, after a restart too."""
+        mixture = self._mixtures.setdefault(str(job_id),
+                                            {"seq": 0, "entries": [], "last_token": None})
+        if seq <= mixture["seq"]:
+            return False
+        entry = {"seq": int(seq), "weights": {str(n): float(w) for n, w in weights.items()}}
+        if effective_epoch is not None:
+            entry["effective_epoch"] = int(effective_epoch)
+        mixture["entries"].append(entry)
+        mixture["seq"] = int(seq)
+        mixture["last_token"] = token
         return True
 
     def _job_fencing_locked(self, job_id):
@@ -1055,11 +1092,13 @@ class Dispatcher:
         return client.get("job_id", DEFAULT_JOB) if client is not None else DEFAULT_JOB
 
     def _install_client_locked(self, client_id, epoch, client_index, num_clients,
-                               job_id=None):
+                               job_id=None, corpus=""):
         entry = {"epoch": int(epoch), "client_index": int(client_index),
                  "num_clients": int(num_clients)}
         if job_id is not None and job_id != DEFAULT_JOB:
             entry["job_id"] = str(job_id)
+        if corpus:
+            entry["corpus"] = str(corpus)
         if self._clients.get(client_id) != entry:
             self._per_job_memo = None
         self._clients[client_id] = entry
@@ -1316,18 +1355,11 @@ class Dispatcher:
 
     def _handle(self, header):
         kind = header.get("type")
-        if kind in _UNPORTED_REQUESTS:
-            DISPATCHER_REQUESTS.labels(kind).inc()
-            return {"type": "error", "error": f"request {kind!r} is not ported yet: "
-                                              f"{_UNPORTED_REQUESTS[kind]}"}
         handler = getattr(self, f"_handle_{kind}", None)
         if handler is None:
             DISPATCHER_REQUESTS.labels("unknown").inc()
             return {"type": "error", "error": f"unknown request {kind!r}"}
         DISPATCHER_REQUESTS.labels(kind).inc()
-        refusal = self._scope_refusal(header)
-        if refusal is not None:
-            return refusal
         t_rpc = time.perf_counter()
         try:
             # A request whose propagated budget already expired is refused
@@ -1339,14 +1371,6 @@ class Dispatcher:
             self._record_rpc_span(kind, header, t_rpc)
             with self._lock:
                 self._sync_telemetry_locked()
-
-    @staticmethod
-    def _scope_refusal(header):
-        """An error reply for a request scoped to a corpus."""
-        if header.get("corpus"):
-            return {"type": "error", "error": "corpus is not ported yet: multi-corpus "
-                                              "fleets come with the LLM stages, slice (f)"}
-        return None
 
     @staticmethod
     def _record_rpc_span(kind, header, t_start):
@@ -1417,24 +1441,29 @@ class Dispatcher:
         re_register = bool(header.get("re_register"))
         standby = bool(header.get("standby"))
         cache_fleet = bool(header.get("cache_fleet"))
+        corpus = str(header.get("corpus") or "")
         with self._lock:
             blocked = self._check_writable_locked()
             if blocked is not None:
                 return blocked
-            if self._num_pieces is not None and self._num_pieces != num_pieces:
+            known_pieces = self._corpus_pieces.get(corpus)
+            if known_pieces is not None and known_pieces != num_pieces:
                 return {"type": "error", "error": (
                     f"worker {worker_id!r} enumerated {num_pieces} row-group pieces but "
-                    f"corpus 'default''s service plan has {self._num_pieces} — all of a "
-                    "corpus's workers must read the same dataset with the same planning "
-                    "config")}
+                    f"corpus {corpus or 'default'!r}'s service plan has {known_pieces} — "
+                    "all of a corpus's workers must read the same dataset with the same "
+                    "planning config")}
             metrics_port = header.get("metrics_port")
             self._install_worker_locked(worker_id, [header["host"], int(header["port"])],
                                         num_pieces, re_register=re_register, standby=standby,
-                                        metrics_port=metrics_port, cache_fleet=cache_fleet)
+                                        corpus=corpus, metrics_port=metrics_port,
+                                        cache_fleet=cache_fleet)
             record = {"op": "register_worker", "worker_id": worker_id,
                       "host": header["host"], "port": int(header["port"]),
                       "num_pieces": num_pieces, "re_register": re_register,
                       "standby": standby}
+            if corpus:
+                record["corpus"] = corpus
             if metrics_port is not None:
                 record["metrics_port"] = int(metrics_port)
             if cache_fleet:
@@ -1496,6 +1525,67 @@ class Dispatcher:
         if removed:
             logger.info("job %s ended: clients, piece books and quota released", job_id)
         return {"type": "ok", "job_id": job_id, "removed": removed}
+
+    def _handle_set_mixture_weights(self, header):
+        """Journal a mixture weight change for one job: every
+        ``MixedBatchSource`` following the job applies it at the
+        ``effective_epoch`` pass boundary. Fenced by job: a caller holding a
+        stale fencing epoch is told to resync. A retry carrying the last
+        request's ``token`` answers for the journaled entry instead of
+        appending a second one."""
+        from petastorm_tpu_torch.service.mixture import validate_weights
+
+        job_id = str(header.get("job_id") or DEFAULT_JOB)
+        try:
+            weights = validate_weights(header.get("weights"))
+        except ValueError as exc:
+            return {"type": "error", "error": str(exc)}
+        effective_epoch = header.get("effective_epoch")
+        fencing_token = header.get("fencing_epoch")
+        request_token = header.get("token")
+        with self._lock:
+            blocked = self._check_writable_locked()
+            if blocked is not None:
+                return blocked
+            if fencing_token is not None \
+                    and int(fencing_token) < self._job_fencing_locked(job_id):
+                self._recovery["stale_fencing_rejections"] += 1
+                self._job_recovery_locked(job_id)["stale_fencing_rejections"] += 1
+                return {"type": "stale_fencing",
+                        "fencing_epoch": self._job_fencing_locked(job_id)}
+            self._ensure_job_locked(job_id)
+            mixture = self._mixtures.setdefault(job_id,
+                                                {"seq": 0, "entries": [], "last_token": None})
+            if request_token is not None and mixture.get("last_token") == request_token:
+                return {"type": "ok", "job_id": job_id, "seq": mixture["seq"],
+                        "entries": [dict(e) for e in mixture["entries"]],
+                        "fencing_epoch": self._job_fencing_locked(job_id)}
+            seq = mixture["seq"] + 1
+            self._install_mixture_locked(job_id, seq, weights, effective_epoch,
+                                         token=request_token)
+            record = {"op": "mixture_weights", "job_id": job_id, "seq": seq,
+                      "weights": weights}
+            if effective_epoch is not None:
+                record["effective_epoch"] = int(effective_epoch)
+            if request_token is not None:
+                record["token"] = request_token
+            self._journal_locked(record)
+            entries = [dict(e) for e in mixture["entries"]]
+            fencing = self._job_fencing_locked(job_id)
+        logger.info("mixture weights for job %r set to %s (seq %d, effective epoch %s)",
+                    job_id, weights, seq,
+                    effective_epoch if effective_epoch is not None else "next")
+        return {"type": "ok", "job_id": job_id, "seq": seq, "entries": entries,
+                "fencing_epoch": fencing}
+
+    def _handle_get_mixture(self, header):
+        """The job's journaled mixture weight log (read-only)."""
+        job_id = str(header.get("job_id") or DEFAULT_JOB)
+        with self._lock:
+            mixture = self._mixtures.get(job_id, {"seq": 0, "entries": []})
+            return {"type": "mixture", "job_id": job_id, "seq": mixture["seq"],
+                    "entries": [dict(e) for e in mixture["entries"]],
+                    "fencing_epoch": self._job_fencing_locked(job_id)}
 
     def _handle_worker_heartbeat(self, header):
         worker_id = header["worker_id"]
@@ -1573,10 +1663,13 @@ class Dispatcher:
         return {wid: w for wid, w in self._workers.items()
                 if w["alive"] and w.get("state", "serving") in states}
 
-    def _serving_workers(self):
+    def _serving_workers(self, corpus=None):
         """Workers eligible for new grants: alive, serving and not
-        breaker-open; when every one is breaker-open the exclusion yields."""
+        breaker-open; when every one is breaker-open the exclusion yields.
+        ``corpus`` keeps one corpus's workers (``None``: every corpus)."""
         workers = self._alive_workers(("serving",))
+        if corpus is not None:
+            workers = {wid: w for wid, w in workers.items() if w.get("corpus", "") == corpus}
         if self._breaker_open:
             healthy = {wid: w for wid, w in workers.items() if wid not in self._breaker_open}
             if healthy:
@@ -1584,13 +1677,21 @@ class Dispatcher:
         return workers
 
     def _handle_list_workers(self, header):
+        """The serving workers of the request's corpus (``""``: the
+        default one), so an fcfs client opens no stream to a worker of
+        another dataset."""
+        corpus = str(header.get("corpus") or "")
         with self._lock:
             return {"type": "workers",
                     "workers": {wid: w["address"]
-                                for wid, w in self._serving_workers().items()},
+                                for wid, w in self._serving_workers(corpus).items()},
                     "mode": self.mode, "num_epochs": self.num_epochs,
-                    "num_pieces": self._num_pieces, "shuffle_seed": self.shuffle_seed,
-                    "fencing_epoch": self._fencing_epoch}
+                    "num_pieces": self._corpus_pieces.get(corpus),
+                    "shuffle_seed": self.shuffle_seed, "fencing_epoch": self._fencing_epoch}
+
+    @staticmethod
+    def _no_workers_error(what, corpus):
+        return {"type": "error", "error": what + (f" for corpus {corpus!r}" if corpus else "")}
 
     @staticmethod
     def _partition(pieces, worker_ids):
@@ -1609,30 +1710,32 @@ class Dispatcher:
         if not 0 <= client_index < num_clients:
             return {"type": "error", "error": f"client_index {client_index} out of range "
                                               f"[0, {num_clients})"}
+        corpus = str(header.get("corpus") or "")
         with self._lock:
             blocked = self._check_writable_locked()
             if blocked is not None:
                 return blocked
-            if self._num_pieces is None:
-                return {"type": "error", "error": "no workers have registered yet"}
-            alive = self._serving_workers()
+            num_pieces = self._corpus_pieces.get(corpus)
+            if num_pieces is None:
+                return self._no_workers_error("no workers have registered yet", corpus)
+            alive = self._serving_workers(corpus)
             if not alive:
-                return {"type": "error", "error": "no live workers"}
+                return self._no_workers_error("no live workers", corpus)
             job_id = str(header.get("job_id") or DEFAULT_JOB)
             # Partition the ascending piece list (the same workers serve the
             # same pieces every epoch), then order each share by the epoch's
             # seed-tree keys.
             epoch = int(header.get("epoch", 0))
             client_pieces = self._grantable_pieces_locked(
-                list(range(self._num_pieces))[client_index::num_clients])
+                list(range(num_pieces))[client_index::num_clients], corpus=corpus)
             assignments = {wid: piece_order(self.shuffle_seed, epoch, pieces)
                            for wid, pieces in self._partition(client_pieces,
                                                               sorted(alive)).items()}
             self._install_client_locked(header["client_id"], epoch, client_index,
-                                        num_clients, job_id)
+                                        num_clients, job_id, corpus=corpus)
             self._client_heartbeats[header["client_id"]] = time.monotonic()
             self._journal_locked(self._client_record(header["client_id"], epoch, client_index,
-                                                     num_clients, job_id))
+                                                     num_clients, job_id, corpus))
             return {"type": "assignment", "epoch": epoch,
                     "fencing_epoch": self._job_fencing_locked(job_id),
                     "credit_scale": self._credit_scale_locked(job_id),
@@ -1640,22 +1743,26 @@ class Dispatcher:
                     "workers": {wid: alive[wid]["address"] for wid in assignments}}
 
     @staticmethod
-    def _client_record(client_id, epoch, client_index, num_clients, job_id):
+    def _client_record(client_id, epoch, client_index, num_clients, job_id, corpus):
         record = {"op": "client", "client_id": client_id, "epoch": epoch,
                   "client_index": client_index, "num_clients": num_clients}
         if job_id != DEFAULT_JOB:
             record["job_id"] = job_id
+        if corpus:
+            record["corpus"] = corpus
         return record
 
     def _handle_report_failure(self, header):
         worker_id = header["worker_id"]
         token = header.get("fencing_epoch")
+        corpus = str(header.get("corpus") or "")
         with self._lock:
             blocked = self._check_writable_locked()
             if blocked is not None:
                 return blocked
             # A quarantined piece must not ride a takeover back into a plan.
-            pieces = self._grantable_pieces_locked(int(p) for p in header.get("pieces", []))
+            pieces = self._grantable_pieces_locked((int(p) for p in header.get("pieces", [])),
+                                                   corpus=corpus)
             job_id = self._client_job_locked(header.get("client_id"), header)
             if token is not None and int(token) < self._job_fencing_locked(job_id):
                 # The client acts on a plan a later event invalidated (its
@@ -1674,8 +1781,10 @@ class Dispatcher:
                                       "reason": "reported", "job_id": job_id})
                 self._bump_fencing_locked("report_failure")
             # A draining worker takes a dead peer's pieces only when nothing
-            # serves.
-            alive = self._serving_workers() or self._alive_workers()
+            # serves; a dead worker's pieces move only within its corpus.
+            alive = (self._serving_workers(corpus)
+                     or {wid: w for wid, w in self._alive_workers().items()
+                         if w.get("corpus", "") == corpus})
             if not alive:
                 return {"type": "error", "error": (
                     f"worker {worker_id!r} reported dead and no live workers remain — the "
@@ -1719,7 +1828,8 @@ class Dispatcher:
                 return {"type": "error", "error": "no workers have registered yet"}
             if self._fcfs_queue is None:
                 self._fcfs_queue = deque(range(self._num_pieces))
-            if self._quarantined and len(self._quarantined) >= self._num_pieces:
+            quarantined = self._quarantined_default
+            if quarantined and len(quarantined) >= self._num_pieces:
                 # Nothing will ever be grantable again: end the stream
                 # instead of spinning the refill-and-skip loop.
                 return {"type": "end_of_stream", "epochs_completed": self._fcfs_epoch,
@@ -1734,7 +1844,7 @@ class Dispatcher:
                     self._fcfs_epoch += 1
                     self._fcfs_queue.extend(range(self._num_pieces))
                 piece = self._fcfs_queue.popleft()
-                if piece not in self._quarantined:
+                if piece not in quarantined:
                     break  # quarantined splits are skipped
             self._journal_locked({"op": "next_split", "piece": piece,
                                   "epoch": self._fcfs_epoch})
@@ -1756,20 +1866,22 @@ class Dispatcher:
             return {"type": "error", "error": f"client_index {client_index} out of range "
                                               f"[0, {num_clients})"}
         client_id = header["client_id"]
+        corpus = str(header.get("corpus") or "")
         with self._lock:
             blocked = self._check_writable_locked()
             if blocked is not None:
                 return blocked
-            if self._num_pieces is None:
-                return {"type": "error", "error": "no workers have registered yet"}
-            alive = self._serving_workers()
+            num_pieces = self._corpus_pieces.get(corpus)
+            if num_pieces is None:
+                return self._no_workers_error("no workers have registered yet", corpus)
+            alive = self._serving_workers(corpus)
             if not alive:
-                return {"type": "error", "error": "no live workers"}
+                return self._no_workers_error("no live workers", corpus)
             job_id = str(header.get("job_id") or DEFAULT_JOB)
             # Sticky deques in canonical per-deque order, like static: cache
             # warmth survives shuffled epochs.
             client_pieces = self._grantable_pieces_locked(
-                list(range(self._num_pieces))[client_index::num_clients])
+                list(range(num_pieces))[client_index::num_clients], corpus=corpus)
             assignments = {wid: piece_order(self.shuffle_seed, epoch, pieces)
                            for wid, pieces in self._partition(client_pieces,
                                                               sorted(alive)).items()}
@@ -1778,10 +1890,11 @@ class Dispatcher:
             owner = {piece: [wid, generation]
                      for wid, pieces in assignments.items() for piece in pieces}
             self._install_dynamic_plan_locked(client_id, epoch, owner, generation)
-            self._install_client_locked(client_id, epoch, client_index, num_clients, job_id)
+            self._install_client_locked(client_id, epoch, client_index, num_clients, job_id,
+                                        corpus=corpus)
             self._client_heartbeats[client_id] = time.monotonic()
             self._journal_locked(self._client_record(client_id, epoch, client_index,
-                                                     num_clients, job_id))
+                                                     num_clients, job_id, corpus))
             self._journal_locked({"op": "dynamic_plan", "client_id": client_id,
                                   "epoch": epoch,
                                   "owner": [[piece, wid, gen]
@@ -1841,7 +1954,10 @@ class Dispatcher:
                 state["done"].update(fresh_done)
                 self._journal_locked({"op": "dynamic_done", "client_id": client_id,
                                       "pieces": sorted(fresh_done)})
-            alive = self._alive_workers()
+            # A client's steals move pieces only among its corpus's workers.
+            client_corpus = self._clients.get(client_id, {}).get("corpus", "")
+            alive = {wid: w for wid, w in self._alive_workers().items()
+                     if w.get("corpus", "") == client_corpus}
             # Reconcile: a piece the dispatcher places on another worker than
             # the client's view is re-issued as a corrective steal, applied
             # through the same revoke-then-extend handshake.
@@ -1864,7 +1980,7 @@ class Dispatcher:
                 wid: [p for p in pieces
                       if p not in state["done"] and state["owner"].get(p, (None,))[0] == wid]
                 for wid, pieces in stealable.items() if wid in pending}
-            serving_ids = set(self._serving_workers())
+            serving_ids = set(self._serving_workers(client_corpus))
             moves = []
             draining_ids = sorted(wid for wid in alive if wid not in serving_ids)
             if draining_ids and serving_ids:
@@ -2072,8 +2188,8 @@ class Dispatcher:
                 "shuffle_seed": self.shuffle_seed,
                 "fencing_epoch": self._fencing_epoch,
                 "degraded": self._degraded,
-                "quarantined": {str(p): dict(info)
-                                for p, info in sorted(self._quarantined.items())},
+                "quarantined": {(f"{c}:{p}" if c else str(p)): dict(info)
+                                for (c, p), info in sorted(self._quarantined.items())},
                 "client_watermarks": {
                     cid: {"epoch": entry["epoch"],
                           "watermarks": {str(p): n for p, n in entry["watermarks"].items()}}
@@ -2125,6 +2241,10 @@ class Dispatcher:
                                    if self._fcfs_queue is not None else None),
                 "dynamic": (self._dynamic_status_locked() if self.mode == "dynamic"
                             else None),
-                "corpora": {"": self._num_pieces} if self._num_pieces is not None else {},
-                "mixtures": {},
+                # The piece universes and each job's weight-log head.
+                "corpora": dict(self._corpus_pieces),
+                "mixtures": {jid: {"seq": m["seq"],
+                                   "weights": (dict(m["entries"][-1]["weights"])
+                                               if m["entries"] else None)}
+                             for jid, m in self._mixtures.items()},
             }

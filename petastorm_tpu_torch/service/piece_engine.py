@@ -39,8 +39,11 @@ piece's completion rides the pool's item-done markers (FIFO with its
 outputs), so its tail is flushed after every one of its outputs was
 consumed.
 
-Worker-side packing (``packer_factory``) raises NotImplementedError naming
-its slice.
+Worker-side sequence packing (``packer_factory``) packs each cold piece's
+collated rows before serialization and the cache fill, with one fresh
+packer a piece: packed batches stay piece-aligned, the cache holds packed
+frames, and event ordinals, watermarks and warm serves count packed
+batches.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import numpy as np
 from petastorm_tpu_torch import failpoints
 from petastorm_tpu_torch.reader_impl.delivery_tracker import FusedBatch, FusedPiecePayload
 from petastorm_tpu_torch.reader_impl.framed_socket import encode_payload
+from petastorm_tpu_torch.service.packing_stage import PackingCollator
 from petastorm_tpu_torch.telemetry.metrics import (
     QUARANTINE_REPORTS,
     WORKER_FUSED_STAGE_SECONDS,
@@ -189,7 +193,13 @@ class StreamingPieceEngine:
         ``("piece_failed", piece, generation, error)`` and the reader is
         rebuilt; the ``piece.decode`` failpoint is attributed exactly).
 
-    ``packer_factory`` raises NotImplementedError naming its slice.
+    :param packer_factory: a zero-argument callable returning a fresh
+        :class:`~petastorm_tpu_torch.service.packing_stage.StreamPacker`:
+        each cold piece's collated rows are packed before serialization
+        and the cache fill, and the packer is flushed at the piece
+        boundary. Ordinals number packed batches, so the cache entry's
+        frame index is what warm serves and watermark seeks count.
+        Refused together with ``transform_fn``.
     """
 
     def __init__(self, reader, batch_size, cache=None, cache_key_fn=None, cache_note_fn=None,
@@ -201,10 +211,13 @@ class StreamingPieceEngine:
                              f"{on_piece_error!r}")
         if cache_stage not in CACHE_STAGES:
             raise ValueError(f"cache_stage must be one of {CACHE_STAGES}, got {cache_stage!r}")
-        if packer_factory is not None:
-            raise NotImplementedError(
-                "StreamingPieceEngine(packer_factory=...) is not ported yet: worker-side "
-                "sequence packing comes with the LLM stages, slice (f)")
+        if packer_factory is not None and transform_fn is not None:
+            raise ValueError(
+                "packer_factory and transform_fn cannot combine: the "
+                "batch transform is a row-batch stage and packing "
+                "changes the batch vocabulary — apply the transform "
+                "upstream (transform_spec) or run it trainer-side")
+        self._packer_factory = packer_factory
         # Set before a reader instance is installed: installing reads them.
         self._fused = bool(fused)
         self._cache_stage = cache_stage
@@ -296,6 +309,7 @@ class StreamingPieceEngine:
         ngram = getattr(reader, "ngram", None)
         batch_size = self._batch_size
         transform = self._transform
+        packer_factory = self._packer_factory
         # Post-decode cache placement with a transform: the cache wants the
         # bytes before the transform, the wire after it. Serialize both.
         want_pre = (self._cache is not None and transform is not None
@@ -311,6 +325,8 @@ class StreamingPieceEngine:
             else:
                 outputs = schema.make_namedtuples(rows)
             collator = _PieceCollator(batch_size, False, ngram)
+            if packer_factory is not None:
+                collator = PackingCollator(collator, packer_factory())
             batches = []
             for output in outputs:
                 batches.extend(collator.add(output))
@@ -545,9 +561,14 @@ class StreamingPieceEngine:
                 self._ordinal[piece] = 0
                 # A fused piece is collated by its pool task; the sentinel
                 # keeps the revoke and item-done bookkeeping.
-                self._collators[piece] = _FUSED_PIECE if self._fused else _PieceCollator(
+                collator = _FUSED_PIECE if self._fused else _PieceCollator(
                     self._batch_size, reader.batched_output, getattr(reader, "ngram", None),
                     normalize_object=self._columnar_collate)
+                if collator is not _FUSED_PIECE and self._packer_factory is not None:
+                    # One fresh packer a piece: a re-decode of the piece
+                    # replays the same packed stream (the watermarks).
+                    collator = PackingCollator(collator, self._packer_factory())
+                self._collators[piece] = collator
                 self._builders[piece] = (self._cache.begin_fill(self._cache_key_fn(piece))
                                          if self._cache is not None else None)
             reader.submit_piece(piece)

@@ -83,9 +83,14 @@ brownout level sheds optional stages at level 2, and its ``trace`` flag
 arms this process's span collector, whose ring each armed tick pushes to
 the dispatcher (a ``trace`` request pulls it). A stream request whose
 propagated deadline already expired is refused (retryable). The
-``worker.heartbeat`` and ``slow-peer`` failpoints live here. A ``corpus``
-raises NotImplementedError naming the slice that brings it
-(:data:`UNPORTED_WORKER_ARGS`).
+``worker.heartbeat`` and ``slow-peer`` failpoints live here.
+
+A stream's ``packing`` (a :class:`~petastorm_tpu_torch.service.packing_stage.
+PackingSpec` dict) packs its pieces inside the engine before serialization
+and the cache fill (tagged and dynamic streams on the engine only, never
+with a worker-side batch transform). A ``corpus`` names the dataset this
+worker serves in a multi-corpus fleet: it rides the registration, and the
+dispatcher grants it only that corpus's pieces.
 """
 
 from __future__ import annotations
@@ -104,6 +109,7 @@ from petastorm_tpu_torch.reader_impl.framed_socket import (
     encode_payload,
     send_framed,
 )
+from petastorm_tpu_torch.service.packing_stage import PackingSpec, StreamPacker
 from petastorm_tpu_torch.service.piece_engine import CACHE_STAGES
 from petastorm_tpu_torch.service.resilience import (
     arrival_deadline,
@@ -134,18 +140,6 @@ _FACTORIES = ("row", "batch", "columnar")
 
 #: Final diagnostics snapshots kept for the ``diagnostics`` request.
 _COMPLETED_SNAPSHOTS_KEPT = 16
-
-#: ``BatchWorker`` arguments this slice does not take: the value that asks
-#: for nothing, and the service slice that ports the feature.
-UNPORTED_WORKER_ARGS = {
-    "corpus": ("", "multi-corpus fleets come with the LLM stages, slice (f)"),
-}
-
-#: Stream-request attributes of later slices: a stream naming one is
-#: refused with the slice that serves it.
-_UNPORTED_STREAM_ATTRS = {
-    "packing": "worker-side packing comes with slice (f)",
-}
 
 
 def _resolve_factory(reader_factory):
@@ -255,8 +249,8 @@ class BatchWorker:
         the warm hand-off on a drain). Needs a ``batch_cache`` (ignored
         without one) and a ``dispatcher_address`` (the ring's membership
         rides the heartbeats).
-
-    A ``corpus`` raises NotImplementedError naming its slice.
+    :param corpus: the corpus this worker serves in a multi-corpus fleet
+        (``""``: the default, single-dataset corpus).
     """
 
     #: Seconds between stop-flag checks while a stream waits for credits.
@@ -271,16 +265,11 @@ class BatchWorker:
                  fleet_cache=False):
         from petastorm_tpu_torch.service.transport import resolve_mode
 
-        given = {"corpus": corpus or ""}
         if on_piece_error not in ("fail", "quarantine"):
             raise ValueError(f"on_piece_error must be 'fail' or 'quarantine', got "
                              f"{on_piece_error!r}")
-        for name, value in given.items():
-            default, reason = UNPORTED_WORKER_ARGS[name]
-            if value != default:
-                raise NotImplementedError(f"BatchWorker({name}=...) is not ported yet: "
-                                          f"{reason}")
         self.dataset_url = dataset_url
+        self.corpus = str(corpus or "")
         self.worker_id = worker_id or f"worker-{uuid.uuid4().hex[:8]}"
         self._dispatcher_address = tuple(dispatcher_address) if dispatcher_address else None
         self._batch_size = batch_size
@@ -477,7 +466,7 @@ class BatchWorker:
         host, port = self.address
         payload = {"type": "register_worker", "worker_id": self.worker_id, "host": host,
                    "port": port, "num_pieces": self.num_pieces, "re_register": re_register,
-                   "standby": self._standby, "corpus": "",
+                   "standby": self._standby, "corpus": self.corpus,
                    "cache_fleet": self._fleet_tier is not None}
         if self.metrics_port is not None:
             payload["metrics_port"] = self.metrics_port
@@ -685,9 +674,19 @@ class BatchWorker:
 
     def _refusal(self, header):
         """The error text for a stream this worker cannot serve, or None."""
-        for attr, reason in _UNPORTED_STREAM_ATTRS.items():
-            if header.get(attr):
-                return f"stream attribute {attr!r} is not ported yet: {reason}"
+        if header.get("packing") is not None:
+            if not (header.get("dynamic") or header.get("tagged")) \
+                    or not self._engine_supported():
+                return ("stream requested packing but this serving path cannot pack: "
+                        "packing runs inside the streaming piece engine (tagged/dynamic "
+                        "protocols, reader_pool_type='thread') — use static or dynamic "
+                        "sharding, or pack trainer-side (packing_placement='trainer')")
+            if self._batch_transform is not None \
+                    and header.get("transform_placement") != "local":
+                return ("stream requested packing but this worker has a batch_transform "
+                        "armed remote-side: the transform is a row-batch stage and packing "
+                        "changes the batch vocabulary — run the transform trainer-side "
+                        "(transform_placement='local') or drop --batch-transform")
         if header.get("transform_placement") == "remote" and self._batch_transform is None:
             return ("stream requested transform_placement='remote' but this worker has no "
                     "batch_transform armed — start it with --batch-transform module:attr "
@@ -785,6 +784,8 @@ class BatchWorker:
             return
         dynamic = bool(header.get("dynamic"))
         tagged = bool(header.get("tagged"))
+        packing = (PackingSpec.from_dict(header["packing"])
+                   if header.get("packing") is not None else None)
         transform_fn = None
         if self._batch_transform is not None \
                 and header.get("transform_placement") != "local":
@@ -830,7 +831,7 @@ class BatchWorker:
             with self._lock:
                 self._transport_streams[tx.transport] += 1
             common = dict(epoch=epoch, shuffle_seed=shuffle_seed, transform_fn=transform_fn,
-                          rewrites=rewrites, job=job)
+                          rewrites=rewrites, job=job, packing=packing)
             if dynamic:
                 rows_sent = self._stream_dynamic(tx, conn_reader, state, pieces, flow, credits,
                                                  stream_key, early_frames=early_frames,
@@ -1008,7 +1009,7 @@ class BatchWorker:
         return self._reader_kwargs.get("reader_pool_type", "thread") in ("thread", "dummy")
 
     def _make_engine(self, epoch, shuffle_seed=None, transform_fn=None,
-                     allow_quarantine=False, rewrites=None, job=None):
+                     allow_quarantine=False, rewrites=None, job=None, packing=None):
         """One engine for a whole stream over one lazily built
         ``dynamic_ventilation=True`` reader (a warm stream builds none).
         ``shuffle_seed`` arms the serve-time batch permutation
@@ -1016,7 +1017,9 @@ class BatchWorker:
         every re-serve replays the same order against the same watermarks.
         ``rewrites``: the stream's predicate (below decode), projection
         (the fields read), fusion, cache stage and family swap; each is in
-        the cache key, so entries of two topologies never cross."""
+        the cache key, so entries of two topologies never cross. ``packing``
+        (a :class:`PackingSpec`) packs each piece with a fresh worker-placed
+        :class:`StreamPacker`; the spec is in the cache key too."""
         from petastorm_tpu_torch.service.piece_engine import StreamingPieceEngine
         from petastorm_tpu_torch.service.seedtree import batch_permutation
 
@@ -1049,16 +1052,20 @@ class BatchWorker:
         # Post-decode entries hold the bytes before the transform, so their
         # key says "untransformed": a placement flip refills.
         transformed = transform_fn is not None and cache_stage == "post-transform"
+        packer_factory = None
+        if packing is not None:
+            def packer_factory():
+                return StreamPacker(packing, placement="worker")
         # Quarantine needs a frame that can say "piece_failed": only the
         # tagged and dynamic protocols have one.
         return StreamingPieceEngine(
             build_reader, self._batch_size, cache=cache,
             cache_key_fn=((lambda piece: self._piece_cache_key(
-                piece, transformed=transformed, predicate=predicate, projection=projection,
-                family=family_name)) if cache is not None else None),
+                piece, transformed=transformed, packing=packing, predicate=predicate,
+                projection=projection, family=family_name)) if cache is not None else None),
             cache_note_fn=((lambda hit: self._note_cache_lookup(epoch, hit, job=job))
                            if cache is not None else None),
-            permute_fn=permute_fn, transform_fn=transform_fn,
+            permute_fn=permute_fn, transform_fn=transform_fn, packer_factory=packer_factory,
             fused=bool(rewrites.get("fused")), cache_stage=cache_stage,
             handoff_note_fn=self._m_handoff.inc,
             columnar_collate=family_name == "columnar",
@@ -1076,7 +1083,8 @@ class BatchWorker:
 
     def _stream_pieces_tagged(self, tx, conn_reader, state, pieces, flow, credits,
                               stream_key, starts, epoch=None, shuffle_seed=None,
-                              transform_fn=None, rewrites=None, tagged=True, job=None):
+                              transform_fn=None, rewrites=None, tagged=True, job=None,
+                              packing=None):
         """Exactly-once static serving through the engine: piece-aligned
         batches tagged with their piece and ordinal, a ``piece_done`` frame
         after each piece (``piece_failed`` in its place under quarantine).
@@ -1084,7 +1092,7 @@ class BatchWorker:
         ``tagged=False``: the untagged cached stream (no tags, no markers)."""
         collector = tracing.COLLECTOR
         engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=tagged,
-                                   rewrites=rewrites, job=job)
+                                   rewrites=rewrites, job=job, packing=packing)
         with self._lock:
             # Reader-shaped for diagnostics and teardown (stop / join).
             state["reader"] = engine
@@ -1118,7 +1126,7 @@ class BatchWorker:
 
     def _stream_dynamic(self, tx, conn_reader, state, pieces, flow, credits, stream_key,
                         epoch=None, shuffle_seed=None, transform_fn=None, rewrites=None,
-                        early_frames=(), job=None):
+                        early_frames=(), job=None, packing=None):
         """Dynamic serving: the engine's queue is the worker's deque, edited
         in-band: ``extend`` appends steal grants, ``revoke`` removes unsent
         pieces (acked with the ones removed, which makes the client's
@@ -1133,7 +1141,7 @@ class BatchWorker:
                 f"{self._reader_kwargs.get('reader_pool_type')!r}")
         collector = tracing.COLLECTOR
         engine = self._make_engine(epoch, shuffle_seed, transform_fn, allow_quarantine=True,
-                                   rewrites=rewrites, job=job)
+                                   rewrites=rewrites, job=job, packing=packing)
         with self._lock:
             state["reader"] = engine
         for piece, gen, start in pieces:
@@ -1373,8 +1381,8 @@ class BatchWorker:
         """The batch cache's stats, or ``None`` without one."""
         return self._batch_cache.stats() if self._batch_cache is not None else None
 
-    def _piece_cache_key(self, piece, transformed=False, predicate=None, projection=None,
-                         family=None):
+    def _piece_cache_key(self, piece, transformed=False, packing=None, predicate=None,
+                         projection=None, family=None):
         """The content key of one piece's batches: the JAX worker's key
         (same dataset, piece identity, batch size, fields, transforms,
         filter and family give the same string), so one cache directory
@@ -1394,6 +1402,10 @@ class BatchWorker:
             # Entries hold transformed bytes only when the stage ran here.
             extra["batch_transform"] = (_transform_identity(self._batch_transform)
                                         if transformed else None)
+        if packing is not None:
+            # Packed entries hold [slots, slot_len] frames: keyed on the
+            # geometry, they never serve an unpacked stream or another shape.
+            extra["packing"] = packing.key_dict()
         if predicate is not None:
             # A hoisted filter's entries hold only the surviving rows.
             extra["stream_predicate"] = predicate_ingredient(predicate)

@@ -10,7 +10,7 @@ failpoints', quarantine's, the resilience layer's and fleet tracing's with
 its control plane; the shared-memory tier's, the columnar counter and the
 graph rewrites' with the data plane of one host; the fleet's (jobs, the
 autoscaler, the fleet cache tier and its model planner) with the fleet;
-the packing stage's come with it. Naming
+the packing stage's and the mixture sampler's with the LLM stages. Naming
 follows Prometheus: ``petastorm_<layer>_...``, base units, ``_total`` on
 counters; label values are bounded (stage names, tiers, a recycled
 per-loader id, a per-controller id), never row- or batch-scoped.
@@ -628,6 +628,55 @@ FLEET_MODEL_DECISIONS = REGISTRY.counter(
     "probe-revert drains) — the journaled mirror of the generic "
     "autoscale decisions counter",
     labels=("action",))
+
+# -- sequence packing + mixture sampling (service/packing_stage.py,
+#    service/mixture.py) -------------------------------------------------------
+
+PACKING_BATCHES = REGISTRY.counter(
+    "petastorm_packing_batches_total",
+    "Dense [slots, slot_len] batches emitted by the sequence-packing "
+    "stage, by placement (worker = packed pre-serialization inside the "
+    "streaming engine; trainer = packed client-side)",
+    labels=("placement",))
+PACKING_SEQUENCES = REGISTRY.counter(
+    "petastorm_packing_sequences_total",
+    "Variable-length sequences placed by the packing stage, by placement",
+    labels=("placement",))
+PACKING_TOKENS = REGISTRY.counter(
+    "petastorm_packing_tokens_total",
+    "Real (non-padding) tokens placed by the packing stage, by placement",
+    labels=("placement",))
+PACKING_SECONDS = REGISTRY.histogram(
+    "petastorm_packing_seconds",
+    "Per-row packing cost (first-fit placement + copy), by placement",
+    labels=("placement",))
+PACKING_FILL_RATIO = REGISTRY.gauge(
+    "petastorm_packing_fill_ratio",
+    "Real-token fraction of the most recently emitted packed batch's "
+    "slots x slot_len capacity, by placement (1 - fill = padding waste; "
+    "compare against last_batch='pad' in the llm_packing bench leg)",
+    labels=("placement",))
+MIXTURE_DRAWS = REGISTRY.counter(
+    "petastorm_mixture_draws_total",
+    "Mixture-sampler draws that yielded a batch, by corpus (the served "
+    "mix; compare ratios against the configured weights)",
+    labels=("corpus",))
+MIXTURE_EXHAUSTED = REGISTRY.counter(
+    "petastorm_mixture_exhausted_total",
+    "Corpus-exhaustion events observed by the mixture sampler (the "
+    "exhaustion policy — stop/exhaust/reweight — decides what happens "
+    "next), by corpus",
+    labels=("corpus",))
+MIXTURE_WEIGHT = REGISTRY.gauge(
+    "petastorm_mixture_weight",
+    "The mixture weight currently in force per corpus (moves on "
+    "set_mixture_weights reloads and reweight-policy exhaustions)",
+    labels=("corpus",))
+MIXTURE_WEIGHT_RELOADS = REGISTRY.counter(
+    "petastorm_mixture_weight_reloads_total",
+    "Weight-change events applied by mixture samplers in this process "
+    "(journaled set_mixture_weights entries + reweight-policy "
+    "exhaustions)")
 
 # -- fleet tracing: trace shipping and clock alignment (telemetry/tracing.py,
 #    telemetry/clockalign.py) -------------------------------------------------

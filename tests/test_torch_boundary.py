@@ -102,7 +102,8 @@ def test_pool_serializer_and_telemetry_modules_load_neither_jax_nor_torch():
 
 def test_fleet_worker_side_modules_load_neither_jax_nor_torch():
     """The fleet's modules a worker host loads (the hash ring, the fleet
-    cache tier, the fleet and its model planner, the chaos harness) load no
+    cache tier, the fleet and its model planner, the chaos harness) and the
+    LLM stages' (the packing stage, the mixture sampler, the CLI) load no
     JAX, nothing of ``petastorm_tpu`` and no torch."""
     code = textwrap.dedent("""
         import sys
@@ -113,6 +114,10 @@ def test_fleet_worker_side_modules_load_neither_jax_nor_torch():
         import petastorm_tpu_torch.service.chaos
         import petastorm_tpu_torch.service.worker
         import petastorm_tpu_torch.service.dispatcher
+        import petastorm_tpu_torch.service.packing_stage
+        import petastorm_tpu_torch.service.mixture
+        import petastorm_tpu_torch.service.cli
+        import petastorm_tpu_torch.service
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu", "torch"))
         print("LOADED", loaded)

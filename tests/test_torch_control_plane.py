@@ -269,42 +269,42 @@ def test_each_package_recovers_the_others_journal(writer, tmp_path):
 
 
 def test_later_slice_journal_records_are_refused_by_name(tmp_path):
-    """A later slice's WAL record (``mixture_weights``, slice (f)) is
-    refused by slice on replay; the records ported since replay: a
-    ``dynamic_plan`` into the plan, the fleet's ``job_register`` into the
-    job and ``autoscale`` into the worker's state and the counts."""
+    """No WAL record is refused by slice any more: each replays in the port
+    as in the JAX dispatcher (states equal), a ``mixture_weights`` record
+    into the job's mixture weight log, a ``dynamic_plan`` into the plan, the
+    fleet's ``job_register`` into the job and ``autoscale`` into the
+    worker's state and the counts."""
     from petastorm_tpu_torch.service.journal import Journal
 
     records = {
-        "dynamic_plan": ("dynamic", None, {"client_id": "c", "epoch": 0,
-                                           "owner": [[0, "w0", 4], [1, "w1", 4]],
-                                           "generation": 4}),
-        "job_register": ("static", None, {"job_id": "x", "weight": 2.0, "quota": None,
-                                          "restart": True}),
-        "mixture_weights": ("static", "(f)", {"job_id": "x", "seq": 1,
-                                              "weights": {"web": 1.0}}),
-        "autoscale": ("static", None, {"action": "admit", "worker_id": "w0"}),
+        "dynamic_plan": ("dynamic", {"client_id": "c", "epoch": 0,
+                                     "owner": [[0, "w0", 4], [1, "w1", 4]],
+                                     "generation": 4}),
+        "job_register": ("static", {"job_id": "x", "weight": 2.0, "quota": None,
+                                    "restart": True}),
+        "mixture_weights": ("static", {"job_id": "x", "seq": 1, "weights": {"web": 1.0},
+                                       "effective_epoch": 2, "token": "t"}),
+        "autoscale": ("static", {"action": "admit", "worker_id": "w0"}),
     }
-    for op, (mode, slice_name, fields) in records.items():
-        path = tmp_path / op
-        journal = Journal(path)
-        journal.snapshot(Dispatcher(mode=mode).state_snapshot())
-        if op == "autoscale":
-            journal.append({"op": "register_worker", "worker_id": "w0", "host": "127.0.0.1",
-                            "port": 9, "num_pieces": 4, "re_register": False,
-                            "standby": True})
-        journal.append(dict(fields, op=op))
-        journal.close()
-        if slice_name is not None:
-            with pytest.raises(NotImplementedError,
-                               match=rf"{op}.*slice \{slice_name[0]}{slice_name[1]}\)"):
-                Dispatcher(journal_dir=str(path)).start()
-            continue
-        dispatcher = Dispatcher(mode=mode, journal_dir=str(path)).start()
-        try:
-            state = dispatcher.state_snapshot()
-        finally:
-            dispatcher.stop()
+    for op, (mode, fields) in records.items():
+        states = {}
+        for name, package in (("port", port_service), ("jax", jax_service)):
+            path = tmp_path / name / op
+            journal = Journal(path)
+            journal.snapshot(Dispatcher(mode=mode).state_snapshot())
+            if op == "autoscale":
+                journal.append({"op": "register_worker", "worker_id": "w0",
+                                "host": "127.0.0.1", "port": 9, "num_pieces": 4,
+                                "re_register": False, "standby": True})
+            journal.append(dict(fields, op=op))
+            journal.close()
+            dispatcher = package.Dispatcher(mode=mode, journal_dir=str(path)).start()
+            try:
+                states[name] = dispatcher.state_snapshot()
+            finally:
+                dispatcher.stop()
+        state = states["port"]
+        assert state == states["jax"], op
         if op == "dynamic_plan":
             assert state["generation"] == 4
             assert state["dyn"] == {"c": {"epoch": 0, "owner": [[0, "w0", 4], [1, "w1", 4]],
@@ -312,6 +312,11 @@ def test_later_slice_journal_records_are_refused_by_name(tmp_path):
         elif op == "job_register":
             assert state["jobs"] == {"x": {"weight": 2.0, "quota": None, "fencing_offset": 0,
                                            "epoch": 0}}
+        elif op == "mixture_weights":
+            assert state["mixtures"] == {"x": {
+                "seq": 1, "entries": [{"seq": 1, "weights": {"web": 1.0},
+                                       "effective_epoch": 2}],
+                "last_token": "t"}}
         else:
             assert state["workers"]["w0"]["state"] == "serving"
             assert state["autoscale"] == {"admit": 1, "drain": 0, "retire": 0}

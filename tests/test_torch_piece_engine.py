@@ -262,19 +262,26 @@ def test_poison_piece_is_quarantined_as_in_jax(stores):
 
 
 def test_refusals_name_their_slice():
-    """Packing is refused by slice; fusion, the post-decode cache stage and
-    the hand-off hook are taken as the JAX engine takes them."""
+    """No argument is refused by slice any more: ``packer_factory``, fusion,
+    the post-decode cache stage and the hand-off hook are taken as the JAX
+    engine takes them, and packing with a transform is refused with the
+    JAX engine's words."""
     from petastorm_tpu.service.piece_engine import StreamingPieceEngine as JaxEngine
     from petastorm_tpu_torch.service.piece_engine import StreamingPieceEngine
 
-    with pytest.raises(NotImplementedError, match=r"slice \(f\)"):
-        StreamingPieceEngine(lambda: None, 2, packer_factory=object)
     for kwargs in ({"fused": True}, {"cache_stage": "post-decode"},
-                   {"handoff_note_fn": print}):
+                   {"handoff_note_fn": print}, {"packer_factory": object},
+                   {"packer_factory": object, "fused": True}):
         port, jax = StreamingPieceEngine(lambda: None, 2, **kwargs), JaxEngine(lambda: None, 2,
                                                                               **kwargs)
-        assert (port.fused, port._cache_stage, port._handoff) == \
-            (jax.fused, jax._cache_stage, jax._handoff)
+        assert (port.fused, port._cache_stage, port._handoff, port._packer_factory) == \
+            (jax.fused, jax._cache_stage, jax._handoff, jax._packer_factory)
+    messages = []
+    for engine in (StreamingPieceEngine, JaxEngine):
+        with pytest.raises(ValueError, match="cannot combine") as err:
+            engine(lambda: None, 2, packer_factory=object, transform_fn=print)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
     with pytest.raises(ValueError, match="cache_stage"):
         StreamingPieceEngine(lambda: None, 2, cache_stage="pre-decode")
     with pytest.raises(ValueError, match="on_piece_error"):

@@ -12,11 +12,11 @@ graph and the registry, against the JAX package where it has a twin.
 - A worker that stops its heartbeats loses its lease and re-registers
   when they resume.
 - The CLI starts a dispatcher and a worker; the ``status`` command.
-- The refusals of arguments the port does not take yet name their slice;
-  the control plane's arguments (the journal, brownout, breakers, retry
+- Every argument and request of the JAX service is taken; the control
+  plane's arguments (the journal, brownout, breakers, retry
   budgets, hedging, quarantine) are taken.
 - ``build_loader_graph`` over a service source gives the JAX graph's
-  stages, knobs and signals (less those of later slices).
+  stages, knobs and signals.
 - The service's metric families equal the JAX families of the same names,
   and a loopback run moves them as the JAX fleet's run does.
 
@@ -27,7 +27,6 @@ node it starts and bounds its own waits. Everything is compared exactly.
 
 import json
 import os
-import re
 import subprocess
 import sys
 import threading
@@ -342,85 +341,86 @@ def test_cli_runs_a_dispatcher_and_a_worker(scalar_store, capsys):
     assert not any(thread.is_alive() for thread in threads)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["dispatcher", "--port", "0", "--mode", "dynamic"], None),
-    (["dispatcher", "--port", "0", "--autoscale"], None),
-    (["worker", "--dataset-url", "file:///x", "--cache", "mem"], None),
-    (["worker", "--dataset-url", "file:///x", "--standby"], None),
-    (["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"], None),
-    (["worker", "--dataset-url", "file:///x", "--corpus", "web"], r"slice \(f\)"),
-    (["worker", "--dataset-url", "file:///x", "--cache", "mem", "--fleet-cache"], None),
-    (["worker", "--dataset-url", "file:///x", "--transport", "shm"], None),
+@pytest.mark.parametrize("argv", [
+    ["dispatcher", "--port", "0", "--mode", "dynamic"],
+    ["dispatcher", "--port", "0", "--autoscale"],
+    ["worker", "--dataset-url", "file:///x", "--cache", "mem"],
+    ["worker", "--dataset-url", "file:///x", "--standby"],
+    ["worker", "--dataset-url", "file:///x", "--on-piece-error", "quarantine"],
+    ["worker", "--dataset-url", "file:///x", "--corpus", "web"],
+    ["worker", "--dataset-url", "file:///x", "--cache", "mem", "--fleet-cache"],
+    ["worker", "--dataset-url", "file:///x", "--transport", "shm"],
 ], ids=["dynamic", "autoscale", "cache", "standby", "quarantine", "corpus", "fleet-cache",
         "shm"])
-def test_cli_refusals_name_their_slice(argv, match):
-    """The flags of a later slice (``--corpus``) are refused by slice;
-    ``--mode dynamic``, ``--autoscale``, ``--standby``, ``--fleet-cache``,
-    ``--on-piece-error quarantine``, ``--cache`` and ``--transport shm``
-    (``match`` None) build their node, as the JAX CLI's do."""
+def test_cli_refusals_name_their_slice(argv):
+    """No flag is refused by slice any more: ``--mode dynamic``,
+    ``--autoscale``, ``--standby``, ``--fleet-cache``, ``--on-piece-error
+    quarantine``, ``--cache``, ``--transport shm`` and ``--corpus``
+    build their node, as the JAX CLI's do."""
     from petastorm_tpu.service.cli import _build_parser as jax_parser
     from petastorm_tpu.service.cli import build_service_node as jax_build
-    from petastorm_tpu_torch.service.cli import _build_parser, build_service_node, main
+    from petastorm_tpu_torch.service.cli import _build_parser, build_service_node
 
-    if match is None:
-        node = build_service_node(_build_parser().parse_args(argv))
-        if argv[0] == "dispatcher":
-            assert isinstance(node, Dispatcher)
-            if "--autoscale" in argv:
-                twin = jax_build(jax_parser().parse_args(argv))
-                assert node._autoscaler is not None and twin._autoscaler is not None
-                assert vars(node._autoscaler._config) == vars(twin._autoscaler._config)
-            else:
-                assert node.mode == "dynamic"
-        elif "--fleet-cache" in argv:
-            try:
-                assert node._fleet_tier is not None
-                assert node._batch_cache.stats()["tier"] == "fleet"
-            finally:
-                node._batch_cache.cleanup()
-        elif "--standby" in argv:
-            assert isinstance(node, BatchWorker) and node._standby is True
-        elif "--cache" in argv:
+    node = build_service_node(_build_parser().parse_args(argv))
+    if argv[0] == "dispatcher":
+        assert isinstance(node, Dispatcher)
+        if "--autoscale" in argv:
             twin = jax_build(jax_parser().parse_args(argv))
-            try:
-                assert node._batch_cache.stats() == twin._batch_cache.stats()
-            finally:
-                node._batch_cache.cleanup()
-                twin._batch_cache.cleanup()
-        elif "--transport" in argv:
-            twin = jax_build(jax_parser().parse_args(argv))
-            assert node._transport_mode == twin._transport_mode == "shm"
+            assert node._autoscaler is not None and twin._autoscaler is not None
+            assert vars(node._autoscaler._config) == vars(twin._autoscaler._config)
         else:
-            assert isinstance(node, BatchWorker) and node._on_piece_error == "quarantine"
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv, run_seconds=0)
+            assert node.mode == "dynamic"
+    elif "--fleet-cache" in argv:
+        try:
+            assert node._fleet_tier is not None
+            assert node._batch_cache.stats()["tier"] == "fleet"
+        finally:
+            node._batch_cache.cleanup()
+    elif "--standby" in argv:
+        assert isinstance(node, BatchWorker) and node._standby is True
+    elif "--cache" in argv:
+        twin = jax_build(jax_parser().parse_args(argv))
+        try:
+            assert node._batch_cache.stats() == twin._batch_cache.stats()
+        finally:
+            node._batch_cache.cleanup()
+            twin._batch_cache.cleanup()
+    elif "--transport" in argv:
+        twin = jax_build(jax_parser().parse_args(argv))
+        assert node._transport_mode == twin._transport_mode == "shm"
+    elif "--corpus" in argv:
+        twin = jax_build(jax_parser().parse_args(argv))
+        assert node.corpus == twin.corpus == "web"
+    else:
+        assert isinstance(node, BatchWorker) and node._on_piece_error == "quarantine"
 
 
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
 
-#: ``None``: an argument this slice ported, which is taken.
+#: The arguments of the later service slices, each refused by slice once:
+#: every one is taken now.
 REFUSALS = [
-    ("Dispatcher", {"mode": "dynamic"}, None),
-    ("Dispatcher", {"autoscale": True}, None),
-    ("BatchWorker", {"batch_cache": object()}, None),
-    ("BatchWorker", {"fleet_cache": True}, None),
-    ("BatchWorker", {"standby": True}, None),
-    ("BatchWorker", {"on_piece_error": "quarantine"}, None),
-    ("BatchWorker", {"corpus": "web"}, "(f)"),
-    ("BatchWorker", {"transport": "shm"}, None),
-    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}, None),
-    ("ServiceBatchSource", {"projection": ["id"]}, None),
-    ("ServiceBatchSource", {"filter_placement": "worker"}, None),
-    ("ServiceBatchSource", {"stage_fusion": "fused"}, None),
-    ("ServiceBatchSource", {"cache_placement": "post-decode"}, None),
-    ("ServiceBatchSource", {"reader_family": "columnar"}, None),
-    ("ServiceBatchSource", {"packing": {"slots": 2}}, "(f)"),
-    ("ServiceBatchSource", {"corpus": "web"}, "(f)"),
-    ("ServiceBatchSource", {"job_id": "train-a"}, None),
-    ("ServiceBatchSource", {"transport": "shm"}, None),
+    ("Dispatcher", {"mode": "dynamic"}),
+    ("Dispatcher", {"autoscale": True}),
+    ("BatchWorker", {"batch_cache": object()}),
+    ("BatchWorker", {"fleet_cache": True}),
+    ("BatchWorker", {"standby": True}),
+    ("BatchWorker", {"on_piece_error": "quarantine"}),
+    ("BatchWorker", {"corpus": "web"}),
+    ("BatchWorker", {"transport": "shm"}),
+    ("ServiceBatchSource", {"predicate": {"field": "id", "op": "ge", "value": 3}}),
+    ("ServiceBatchSource", {"projection": ["id"]}),
+    ("ServiceBatchSource", {"filter_placement": "worker"}),
+    ("ServiceBatchSource", {"stage_fusion": "fused"}),
+    ("ServiceBatchSource", {"cache_placement": "post-decode"}),
+    ("ServiceBatchSource", {"reader_family": "columnar"}),
+    ("ServiceBatchSource", {"packing": {"slot_len": 16, "slots": 2,
+                                        "sequence_fields": ["id"]}}),
+    ("ServiceBatchSource", {"corpus": "web"}),
+    ("ServiceBatchSource", {"job_id": "train-a"}),
+    ("ServiceBatchSource", {"transport": "shm"}),
 ]
 
 #: What a ported argument needs beside it to be valid, as in the JAX source
@@ -429,41 +429,40 @@ _COMPANIONS = {"filter_placement": {"predicate": {"field": "id", "op": "ge", "va
                "cache_placement": {"transform": lambda batch: batch}}
 
 
-@pytest.mark.parametrize("cls,kwargs,slice_name", REFUSALS,
-                         ids=[f"{c}-{next(iter(k))}" for c, k, _ in REFUSALS])
-def test_unported_arguments_name_their_slice(cls, kwargs, slice_name):
+@pytest.mark.parametrize("cls,kwargs", REFUSALS,
+                         ids=[f"{c}-{next(iter(k))}" for c, k in REFUSALS])
+def test_unported_arguments_name_their_slice(cls, kwargs):
     name, value = next(iter(kwargs.items()))
-    if slice_name is None and cls == "ServiceBatchSource":
+    if cls == "ServiceBatchSource":
         kwargs = dict(_COMPANIONS.get(name, {}), **kwargs)
     make = {"Dispatcher": lambda: Dispatcher(**kwargs),
             "BatchWorker": lambda: BatchWorker("file:///nowhere", **kwargs),
             "ServiceBatchSource": lambda: ServiceBatchSource(("127.0.0.1", 1), **kwargs)}[cls]
-    if slice_name is None:
-        if cls == "BatchWorker" and name == "fleet_cache":
-            from petastorm_tpu_torch.cache_impl import BatchCache
+    if cls == "BatchWorker" and name == "fleet_cache":
+        from petastorm_tpu_torch.cache_impl import BatchCache
 
-            kwargs = dict(kwargs, batch_cache=BatchCache(mem_budget_bytes=1 << 20))
-        node = make()
-        if name == "autoscale":
-            assert node._autoscaler is not None
-        elif name == "fleet_cache":
-            try:
-                assert node._fleet_tier is node._batch_cache
-            finally:
-                node._batch_cache.cleanup()
-        elif name == "job_id":
-            assert node.job_id == value
-        elif name == "predicate":
-            assert node._predicate.to_wire() == value
-        elif name == "transport":
-            attr = "_transport_mode" if cls == "BatchWorker" else "_transport"
-            assert getattr(node, attr) == value
-        else:
-            assert getattr(node, "mode" if name == "mode" else f"_{name}") == value
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name}.*slice \({re.escape(slice_name[1:-1])}\)"):
-        make()
+        kwargs = dict(kwargs, batch_cache=BatchCache(mem_budget_bytes=1 << 20))
+    node = make()
+    if name == "autoscale":
+        assert node._autoscaler is not None
+    elif name == "fleet_cache":
+        try:
+            assert node._fleet_tier is node._batch_cache
+        finally:
+            node._batch_cache.cleanup()
+    elif name == "job_id":
+        assert node.job_id == value
+    elif name == "predicate":
+        assert node._predicate.to_wire() == value
+    elif name == "transport":
+        attr = "_transport_mode" if cls == "BatchWorker" else "_transport"
+        assert getattr(node, attr) == value
+    elif name == "corpus":
+        assert node.corpus == value
+    elif name == "packing":
+        assert node.packing.to_dict() == dict(value, length_field=None)
+    else:
+        assert getattr(node, "mode" if name == "mode" else f"_{name}") == value
 
 
 #: The control plane's arguments, refused before it was ported: each is taken.
@@ -509,33 +508,52 @@ def test_control_plane_arguments_are_taken(cls, kwargs, tmp_path):
 
 
 def test_later_slice_requests_are_refused_by_name(scalar_store):
-    """A later slice's requests (mixtures, a corpus scope: slice (f)) are
-    refused by slice; ``dynamic_plan``, ported since, is refused by a static
-    dispatcher as a dynamic-mode request, the fleet's ``register_job``,
-    ``end_job`` and ``cache_handoff`` are served, and a ``dynamic`` stream
-    is served (piece, generation and ordinal tagged)."""
-    with Fleet(scalar_store, workers=1) as fleet:
-        replies = {}
-        for kind in ("dynamic_plan", "register_job", "set_mixture_weights", "end_job",
-                     "cache_handoff"):
-            with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
-                replies[kind] = conn.request({"type": kind, "client_id": "c",
+    """No request is refused by slice any more: ``set_mixture_weights`` and
+    ``get_mixture`` are served, and a ``list_workers`` scoped to a corpus
+    answers as the JAX dispatcher's does (its own corpus's workers only);
+    ``dynamic_plan`` is refused by a static dispatcher as a dynamic-mode
+    request, the fleet's ``register_job``, ``end_job`` and ``cache_handoff``
+    are served, and a ``dynamic`` stream is served (piece, generation and
+    ordinal tagged). The replies are compared exactly."""
+    replies = {}
+    for name, package in (("port", port_service), ("jax", jax_service)):
+        with Fleet(scalar_store, package=package, workers=1,
+                   prefix=f"late-{name}-") as fleet:
+            got = replies[name] = {}
+            for kind in ("dynamic_plan", "register_job", "set_mixture_weights",
+                         "get_mixture", "end_job", "cache_handoff"):
+                with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
+                    got[kind] = conn.request({"type": kind, "client_id": "c",
                                               "client_index": 0, "num_clients": 1,
-                                              "job_id": "tenant", "worker_id": "w0"})[0]
-        with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
-            scoped = conn.request({"type": "list_workers", "corpus": "web"})[0]
-        with FramedConnection.connect(fleet.workers[0].address, timeout=5) as conn:
-            stream = conn.request({"type": "stream", "pieces": [[0, 3]], "epoch": 0,
-                                   "dynamic": True})[0]
-    assert replies["set_mixture_weights"]["type"] == "error"
-    assert "not ported yet" in replies["set_mixture_weights"]["error"]
-    assert "slice (f)" in replies["set_mixture_weights"]["error"]
-    assert replies["dynamic_plan"] == {"type": "error",
-                                       "error": "dynamic_plan is a dynamic-mode request"}
-    assert replies["register_job"]["type"] == "ok" and not replies["register_job"]["restarted"]
-    assert replies["end_job"] == {"type": "ok", "job_id": "tenant", "removed": True}
-    assert replies["cache_handoff"] == {"type": "ok", "kept": 1}
-    assert "slice (f)" in scoped["error"]
+                                              "job_id": "tenant", "worker_id": "w0",
+                                              "weights": {"web": 0.25, "code": 0.75},
+                                              "effective_epoch": 1, "token": "t1"})[0]
+            for corpus in ("web", ""):
+                with FramedConnection.connect(fleet.dispatcher.address, timeout=5) as conn:
+                    reply = conn.request({"type": "list_workers", "corpus": corpus})[0]
+                got[f"list_workers {corpus!r}"] = dict(reply, workers=sorted(reply["workers"]))
+            if package is port_service:
+                with FramedConnection.connect(fleet.workers[0].address, timeout=5) as conn:
+                    stream = conn.request({"type": "stream", "pieces": [[0, 3]], "epoch": 0,
+                                           "dynamic": True})[0]
+    port, jax = replies["port"], replies["jax"]
+    assert port["list_workers 'web'"] == jax["list_workers 'web'"]
+    assert port["list_workers 'web'"]["workers"] == [] \
+        and port["list_workers 'web'"]["num_pieces"] is None
+    assert port["list_workers ''"]["workers"] == ["late-port-0"]
+    assert jax["list_workers ''"]["workers"] == ["late-jax-0"]
+    for kind in ("dynamic_plan", "register_job", "set_mixture_weights", "get_mixture",
+                 "end_job", "cache_handoff"):
+        assert port[kind] == jax[kind], kind
+    assert port["set_mixture_weights"] == {
+        "type": "ok", "job_id": "tenant", "seq": 1, "fencing_epoch": 0,
+        "entries": [{"seq": 1, "weights": {"web": 0.25, "code": 0.75}, "effective_epoch": 1}]}
+    assert port["get_mixture"]["entries"] == port["set_mixture_weights"]["entries"]
+    assert port["dynamic_plan"] == {"type": "error",
+                                    "error": "dynamic_plan is a dynamic-mode request"}
+    assert port["register_job"]["type"] == "ok" and not port["register_job"]["restarted"]
+    assert port["end_job"] == {"type": "ok", "job_id": "tenant", "removed": True}
+    assert port["cache_handoff"] == {"type": "ok", "kept": 1}
     assert (stream["type"], stream["piece"], stream["generation"], stream["ordinal"]) == \
         ("batch", 0, 3, 0)
 

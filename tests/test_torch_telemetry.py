@@ -166,9 +166,9 @@ def test_port_families_equal_the_jax_families_of_the_same_names():
     port = {name: value for name, value in vars(port_metrics).items()
             if isinstance(value, port_registry.MetricFamily)}
     # 25, the autotuner's five, the data service's 22, its control plane's 12,
-    # dynamic sharding's three, the data plane of one host's seven and the
-    # fleet's 15.
-    assert len(port) == 89
+    # dynamic sharding's three, the data plane of one host's seven, the
+    # fleet's 15 and the LLM stages' nine.
+    assert len(port) == 98
     for name, family in port.items():
         twin = getattr(jax_metrics, name)
         assert (family.name, family.help, family.kind, family.label_names, family.buckets) \
