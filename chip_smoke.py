@@ -488,6 +488,32 @@ non-zero exit code):
    decision (reported, not claimed). No mixture pass, job registration or
    shared-memory ring stays open. One ``llm:`` line carries the figures
    and the card's name and power limit.
+20. ``bench``: the throughput tool and scenario suite
+   (``petastorm_tpu_torch/benchmark/``) and the chaos fuzzer
+   (``service/fuzz.py``), each run its own process, which runs the module
+   or code as ``python -m`` / ``python -c`` would, forked from a server
+   process that imported torch and nothing else (no state from the phases
+   before it, and not seconds of torch import a run; see ``bench_phase``). (a) ``python -m
+   petastorm_tpu_torch.benchmark <store> --torch-loader`` on phase 4's
+   image store (written anew, the same seed): rows/s and
+   ``input_stall_pct`` of ``reader_throughput`` through
+   ``make_torch_dataloader`` onto the card. (b) ``python -m
+   petastorm_tpu_torch.benchmark scenario <name>`` for each of the seven
+   scenarios at the JAX defaults (tabular 40,000 rows x 8 days, ngram
+   2,000 frames, image 1,024 rows of 64x64x3 with ``--device-stage on``
+   on the card, weighted 8,192 rows, converter_mixing, packed 2,048 docs,
+   service 40,000 rows): each one's counts (rows, row groups, windows,
+   batches, draws, docs) and, for the image leg, the H2D bytes per image
+   of uint8 staging. (c) ``scenario service --shuffle-seed 7 --ordered``
+   twice over TCP and once over shm: the three ``stream_digest`` values
+   equal. (d) ``service_loopback_scenario(brownout=True)`` with the same
+   seed through the function (the CLI has no flag for it): every row once,
+   the same digest, and the brownout level it ended at. (e)
+   ``measure_device_stage_scaling(device_counts=(1,))`` on ``cuda:0``.
+   (f) ``fuzz.fuzz([7], check_determinism=True)``: no failure. Each run's
+   last line must parse (JSON; (a)'s is the reference's text line); one
+   ``bench:`` line gives each run's seconds, headline numbers and the
+   length in characters of its last line.
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -676,6 +702,9 @@ LLM = dict(docs=512, max_len=48, slot_len=128, slots=4, d_model=64, heads=4, wor
            weights=({"a": 0.8, "b": 0.2}, {"a": 0.2, "b": 0.8}), mix_tol=0.1,
            tune_epochs=4, tune={"interval_s": 0.1, "hysteresis": 1, "placement_hysteresis": 1,
                                 "probe_defer": 0})
+# Phase 20: the scenarios run at the JAX defaults; (a) times 60 batches of
+# 128 after 10; (c) and (d) share one shuffle seed; (f) fuzzes one seed.
+BENCH_RUNS = dict(warmup=10, measure=60, batch=128, seed=7, fuzz_seed=7, timeout_s=300)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -6348,6 +6377,233 @@ def llm_phase(smi, cfg=None, device="cuda"):
     return {"launches": launches, "steps_per_s_warm": run["steps_per_s_warm"]}
 
 
+def _bench_child(argv, out_path, err_path):
+    """One phase-20 run: ``python argv`` (``["-m", module, *args]`` or
+    ``["-c", code]``) from the checkout's root, its stdout and stderr into
+    files, its exit code the run's."""
+    import runpy
+    import traceback
+
+    os.chdir(REPO)
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        os.dup2(out.fileno(), 1)
+        os.dup2(err.fileno(), 2)
+    code = 0
+    try:
+        if argv[0] == "-m":
+            sys.argv = argv[1:]
+            runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+        else:
+            sys.argv = ["-c"]
+            exec(compile(argv[1], "<string>", "exec"), {"__name__": "__main__"})
+    except SystemExit as exc:
+        code = exc.code if isinstance(exc.code, int) else int(exc.code is not None)
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)  # the run's own threads end with it
+
+
+def _bench_run(ctx, label, argv, timeout_s):
+    """Run ``python argv`` as its own process, forked from ``ctx``'s server;
+    ``(last stdout line, seconds)``, or fail the run on a non-zero exit, no
+    exit in ``timeout_s`` or no output."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_bench_run_")
+    out_path, err_path = os.path.join(out_dir, "out"), os.path.join(out_dir, "err")
+    try:
+        t0 = time.perf_counter()
+        proc = ctx.Process(target=_bench_child, args=(argv, out_path, err_path),
+                           name=f"bench-{label}")
+        proc.start()
+        proc.join(timeout_s)
+        seconds = time.perf_counter() - t0
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            fail(f"bench ({label}): no exit within {timeout_s} s")
+        with open(out_path) as f:
+            stdout = f.read()
+        with open(err_path) as f:
+            stderr = f.read()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    lines = stdout.strip().splitlines()
+    if proc.exitcode != 0 or not lines:
+        fail(f"bench ({label}): exit {proc.exitcode}, stdout {stdout[-400:]!r}, "
+             f"stderr {stderr[-2000:]}")
+    return lines[-1], seconds
+
+
+def _bench_json(label, line):
+    try:
+        return json.loads(line)
+    except ValueError:
+        fail(f"bench ({label}): the last line is not JSON: {line[:300]!r}")
+
+
+def bench_phase(smi, cfg=BENCH_RUNS, device="cuda"):
+    """Phase 20 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a dry run on the host; the run on the
+    card uses the defaults."""
+    import re
+
+    from petastorm_tpu_torch.models import image_classifier as ic
+    from petastorm_tpu_torch.schema.codecs import CompressedImageCodec
+
+    import multiprocessing
+
+    # Every run is its own process, forked from a server that imported torch
+    # and nothing else (no phase's state): on an H100 host importing torch
+    # takes seconds a process, and the phase runs 14 of them.
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
+    t0 = time.perf_counter()
+    warm = ctx.Process(target=os.getpid)
+    warm.start()
+    warm.join()
+    server_s = time.perf_counter() - t0
+    module = ["-m", "petastorm_tpu_torch.benchmark"]
+    runs = []  # (label, seconds, last line's length, headline)
+
+    def record(label, line, seconds, headline):
+        runs.append((label, seconds, len(line), headline))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        # (a) reader_throughput through the loader onto the card.
+        url = f"file://{tmp}/images"
+        ic.generate_image_dataset(url, CompressedImageCodec(IMAGE_CODEC), rows=IMAGE["rows"],
+                                  image_shape=IMAGE["image_shape"],
+                                  num_classes=IMAGE["classes"],
+                                  rows_per_row_group=IMAGE["rows_per_row_group"])
+        line, seconds = _bench_run(ctx, "a", module + [
+            url, "--torch-loader", "--torch-batch-size", str(cfg["batch"]), "-w",
+            str(cfg["warmup"]), "-m", str(cfg["measure"]), "--device", device],
+            cfg["timeout_s"])
+        got = re.fullmatch(r"([\d.]+) rows/sec \((\d+) rows in ([\d.]+)s, "
+                           r"input_stall=([\d.]+)%\)", line)
+        if got is None or int(got.group(2)) != cfg["measure"] * cfg["batch"]:
+            fail(f"bench (a): not {cfg['measure']} batches of {cfg['batch']} rows with a "
+                 f"stall: {line!r}")
+        record("a throughput --torch-loader", line, seconds,
+               f"rows_per_s={got.group(1)} rows={got.group(2)} "
+               f"input_stall_pct={got.group(4)}")
+
+        # (b) the seven scenarios at the JAX defaults.
+        frames, window, per_group = 2_000, 5, 256
+        windows = sum(max(0, min(per_group, frames - start) - window + 1)
+                      for start in range(0, frames, per_group))
+        want = {
+            "tabular": {"rows": 40_000, "full_scan_rowgroups": 8, "pushdown_rowgroups": 1},
+            "ngram": {"frames": frames, "windows": windows},
+            "image": {"rows": 1_024, "loader_batches": 8, "device_stage": "on"},
+            "weighted": {"rows_drawn": 4_096},
+            "converter_mixing": {"batches": 24, "rows_drawn": 24 * 256},
+            "packed": {"docs": 2_048},
+            "service": {"rows": 40_000, "duplicates_dropped": 0},
+        }
+        headline = {
+            "tabular": ("full_scan_rows_per_sec", "pushdown_rows_per_sec",
+                        "rowgroups_pruned_pct"),
+            "ngram": ("windows", "windows_per_sec"),
+            "image": ("row_decode_images_per_sec", "columnar_decode_images_per_sec",
+                      "loader_input_stall_pct", "device_stage_images_per_sec",
+                      "device_stage_input_stall_pct", "dispatch_overlap_pct",
+                      "h2d_bytes_per_image"),
+            "weighted": ("rows_per_sec", "empirical_mix"),
+            "converter_mixing": ("rows_per_sec", "empirical_mix"),
+            "packed": ("tokens_per_sec", "batches", "packed_utilization",
+                       "padded_utilization"),
+            "service": ("service_rows_per_sec", "local_rows_per_sec", "vs_baseline",
+                        "loader_input_stall_pct", "transport"),
+        }
+        for name, expected in want.items():
+            extra = (["--device-stage", "on", "--device", device] if name == "image" else [])
+            line, seconds = _bench_run(ctx, f"b {name}", module + ["scenario", name] + extra,
+                                       cfg["timeout_s"])
+            result = _bench_json(f"b {name}", line)
+            wrong = {k: result.get(k) for k, v in expected.items() if result.get(k) != v}
+            if wrong:
+                fail(f"bench (b) {name}: {wrong} where {expected} was expected")
+            if name == "image":
+                image_bytes = IMAGE["image_shape"][0] * IMAGE["image_shape"][1] * 3
+                h2d = result["h2d_bytes_per_image"]
+                if device == "cuda" and not image_bytes <= h2d < 2 * image_bytes:
+                    fail(f"bench (b) image: {h2d} H2D bytes per image, not uint8 staging")
+            if name == "packed" and not (result["packed_utilization"]
+                                         > result["padded_utilization"]):
+                fail(f"bench (b) packed: packing did not beat padding: {result}")
+            record(f"b {name}", line, seconds,
+                   " ".join(f"{k}={result[k]}" for k in headline[name]))
+
+        # (c) the ordered stream twice over TCP, once over shm.
+        digests = []
+        for i, transport in enumerate(("tcp", "tcp", "shm")):
+            line, seconds = _bench_run(ctx, f"c {transport}", module + [
+                "scenario", "service", "--shuffle-seed", str(cfg["seed"]), "--ordered",
+                "--transport", transport], cfg["timeout_s"])
+            result = _bench_json(f"c {transport}", line)
+            if result["rows"] != 40_000 or result["transport"] != transport:
+                fail(f"bench (c) {transport}: rows {result['rows']}, transport "
+                     f"{result['transport']}")
+            digests.append(result["stream_digest"])
+            record(f"c{i + 1} service ordered {transport}", line, seconds,
+                   f"service_rows_per_sec={result['service_rows_per_sec']} "
+                   f"digest={result['stream_digest']}")
+        if len(set(digests)) != 1:
+            fail(f"bench (c): the ordered digests differ across runs or transports: {digests}")
+
+        # (d) brownout armed, through the function (the CLI's worker count).
+        line, seconds = _bench_run(ctx, "d brownout", ["-c", (
+            "import json; from petastorm_tpu_torch.benchmark.scenarios import "
+            "service_loopback_scenario as run; print(json.dumps(run(workers=3, "
+            f"shuffle_seed={cfg['seed']}, ordered=True, brownout=True)))")],
+            cfg["timeout_s"])
+        result = _bench_json("d brownout", line)
+        level = result["telemetry"]["registry"].get("petastorm_fleet_brownout_level", {})
+        levels = [series["value"] for series in level.get("series", [])]
+        if result["rows"] != 40_000 or result["stream_digest"] != digests[0] \
+                or result["duplicates_dropped"] != 0:
+            fail(f"bench (d): rows {result['rows']}, digest {result['stream_digest']} "
+                 f"against (c)'s {digests[0]}")
+        record("d service brownout", line, seconds,
+               f"service_rows_per_sec={result['service_rows_per_sec']} "
+               f"brownout_level={levels} digest=(c)'s")
+
+        # (e) the device stage's scaling at the card's one device.
+        line, seconds = _bench_run(ctx, "e scaling", ["-c", (
+            "import json; from petastorm_tpu_torch.benchmark.device_scaling import "
+            "measure_device_stage_scaling as m; "
+            f"print(json.dumps(m(device_counts=(1,), device={device!r})))")],
+            cfg["timeout_s"])
+        result = _bench_json("e scaling", line)
+        if result["device_platform"] != device or result["scaling"] != 1.0 \
+                or not result["rows_per_sec"]["1"] > 0:
+            fail(f"bench (e): {result}")
+        record("e device_stage_scaling", line, seconds,
+               f"rows_per_sec={result['rows_per_sec']['1']} decode_kernel_rows_per_sec="
+               f"{result['decode_kernel_rows_per_sec']['1']} "
+               f"platform={result['device_platform']}")
+
+        # (f) one fuzz seed, replayed for determinism.
+        line, seconds = _bench_run(ctx, "f fuzz", ["-c", (
+            "import json; from petastorm_tpu_torch.service.fuzz import fuzz; "
+            f"print(json.dumps(fuzz([{cfg['fuzz_seed']}], check_determinism=True)))")],
+            cfg["timeout_s"])
+        result = _bench_json("f fuzz", line)
+        if result["failures"] or result["runs"] != 2:
+            fail(f"bench (f): {result}")
+        record("f fuzz", line, seconds, f"seeds={result['seeds']} runs={result['runs']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"bench: gpu={smi!r} fork server (imports torch) {server_s:.1f} s; " + "; ".join(
+        f"({label}) {seconds:.1f} s, last line {length} chars: {headline}"
+        for label, seconds, length, headline in runs), flush=True)
+    return {label: {"seconds": seconds, "chars": length} for label, seconds, length, _ in runs}
+
+
 def trainer_cases():
     """Kernel cases at the shapes and dtypes the sequence trainers (phases 5
     and 6) give the kernels, ``(name, case, dlse)``: B=16, H=4, D=8 windows
@@ -6565,7 +6821,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 19. llm -----------------------------------------------
+    # -- 4. image ... 20. bench ---------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -6583,7 +6839,8 @@ def main():
                       ("dataplane", lambda: dataplane_phase(smi, out["image"],
                                                             out["service"])),
                       ("fleet", lambda: fleet_phase(smi, out["image"])),
-                      ("llm", lambda: llm_phase(smi))):
+                      ("llm", lambda: llm_phase(smi)),
+                      ("bench", lambda: bench_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -37,11 +37,13 @@ Failpoint vocabulary (point → actions a schedule may choose):
 ====================== =============================================
 
 The vocabulary is the JAX package's whole, so a schedule's decisions
-match across the packages for any point set. The port's sites are those
-of its ported modules: the journal's three, ``dispatcher.reply``,
-``worker.heartbeat``, ``slow-peer``, ``breaker-trip``, ``hedge-race``, the
-batch cache's ``cache.write`` and ``cache.read``, and the fleet cache
-tier's ``handoff-torn`` and ``cache-peer-gone``.
+match across the packages for any point set, and every point has its JAX
+site: the framed transport's send and receives, the journal's three,
+``dispatcher.reply``, ``worker.heartbeat``, ``slow-peer``,
+``breaker-trip``, ``hedge-race``, the batch cache's ``cache.write`` and
+``cache.read``, ``decode.columnar`` (the columnar payload encode and the
+columnar decode worker), ``packing.state``, the shm ring's three, and the
+fleet cache tier's ``handoff-torn`` and ``cache-peer-gone``.
 
 Arming is process-wide and scoped::
 

@@ -42,6 +42,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from petastorm_tpu_torch.benchmark.scenarios import (  # noqa: F401  (the store's writer)
+    DEFAULT_TABULAR_DAYS,
+    DEFAULT_TABULAR_ROWS,
+    make_tabular_dataset,
+)
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
 from petastorm_tpu_torch.torch_utils.sharding import (
     all_reduce_grads,
@@ -54,42 +59,7 @@ from petastorm_tpu_torch.torch_utils.sharding import (
 NUM_DENSE, NUM_SPARSE = 13, 26
 #: The Criteo example's SGD learning rate (examples/criteo_dlrm/train_dlrm.py:56).
 LEARNING_RATE = 0.05
-DEFAULT_TABULAR_ROWS = 40_000
-DEFAULT_TABULAR_DAYS = 8
 _MLP = ("bottom1", "bottom2", "top1", "top2")
-
-
-def make_tabular_dataset(dataset_url, rows=DEFAULT_TABULAR_ROWS, dense_cols=NUM_DENSE,
-                         sparse_cols=NUM_SPARSE, days=DEFAULT_TABULAR_DAYS):
-    """Write the Criteo-shaped plain-Parquet store of the JAX package's
-    tabular scenario, byte for byte: ``day`` (int32), ``sample_index``
-    (int64, unique per row), ``label`` (int32), ``dense_<i>`` (float32) and
-    ``cat_<i>`` (int64 ids below 10,000) from ``RandomState(7)``, clustered
-    by day with one row group per day in ``part-00000.parquet``, so a
-    ``filters=[("day", "=", k)]`` scan prunes all other row groups by their
-    statistics. Returns the rows written (``rows`` cut to a multiple of
-    ``days``)."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    from petastorm_tpu_torch.fs_utils import FilesystemResolver
-
-    resolver = FilesystemResolver(dataset_url)
-    fs, path = resolver.filesystem(), resolver.get_dataset_path()
-    fs.create_dir(path, recursive=True)
-    rng = np.random.RandomState(7)
-    day = np.repeat(np.arange(days, dtype=np.int32), rows // days)
-    rows = len(day)
-    columns = {"day": day,
-               "sample_index": np.arange(rows, dtype=np.int64),
-               "label": rng.randint(0, 2, rows).astype(np.int32)}
-    for i in range(dense_cols):
-        columns[f"dense_{i}"] = rng.rand(rows).astype(np.float32)
-    for i in range(sparse_cols):
-        columns[f"cat_{i}"] = rng.randint(0, 10_000, rows).astype(np.int64)
-    with fs.open_output_stream(path.rstrip("/") + "/part-00000.parquet") as f:
-        pq.write_table(pa.table(columns), f, row_group_size=rows // days)
-    return rows
 
 
 class DLRM(nn.Module):

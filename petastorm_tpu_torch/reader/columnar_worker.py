@@ -23,8 +23,10 @@ from collections import OrderedDict
 
 import pyarrow as pa
 
+from petastorm_tpu_torch import failpoints as _failpoints
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.reader_impl.delivery_tracker import item_key
+from petastorm_tpu_torch.schema.codecs import DataframeColumnCodec
 from petastorm_tpu_torch.schema.transform import transform_schema
 from petastorm_tpu_torch.telemetry.metrics import COLUMNAR_KERNEL_SECONDS
 from petastorm_tpu_torch.utils import column_cells, drop_partition
@@ -66,8 +68,14 @@ class ColumnarDecodeWorker(WorkerBase):
         else:
             table = piece.read(self._filesystem, columns=columns)
         table = drop_partition(table, shuffle_row_drop_partition)
-        batch = OrderedDict((name, self._decode(name, table, self._read_schema, timed=True))
-                            for name in columns)
+        # The columnar decode boundary: the decode.columnar failpoint's
+        # "fallback" decodes this batch through the codecs' per-row loop,
+        # which the vectorized kernels equal.
+        fp = _failpoints.ACTIVE
+        rowwise = fp is not None and fp.fire("decode.columnar") == "fallback"
+        batch = OrderedDict(
+            (name, self._decode(name, table, self._read_schema, timed=True, rowwise=rowwise))
+            for name in columns)
         if self._transform_spec is None:
             return batch
         if self._transform_spec.func:
@@ -78,12 +86,14 @@ class ColumnarDecodeWorker(WorkerBase):
             raise ValueError(f"TransformSpec output is missing declared fields: {missing}")
         return OrderedDict((c, batch[c]) for c in result_schema.fields)
 
-    def _decode(self, name, table, schema, timed=False):
+    def _decode(self, name, table, schema, timed=False, rowwise=False):
         # Predicate fields may lie outside the requested schema view.
         field = self._read_schema.fields.get(name) or schema.fields.get(name)
         cells = column_cells(table.column(name))
         if field.codec is None:
             return cells
+        if rowwise:
+            return DataframeColumnCodec.decode_column(field.codec, field, cells)
         t0 = time.perf_counter()
         column = field.codec.decode_column(field, cells)
         if timed:

@@ -46,6 +46,7 @@ import sys
 import threading
 import time
 
+from petastorm_tpu_torch import failpoints as _failpoints
 from petastorm_tpu_torch.telemetry.metrics import (
     TRANSPORT_BYTES,
     TRANSPORT_FRAMES,
@@ -240,7 +241,12 @@ def _encode_payload(payload):
     if isinstance(payload, dict):
         frames = _columnar_frames(payload)
         if frames is not None:
-            return PAYLOAD_COLUMNAR, frames
+            # The columnar serialize boundary: the decode.columnar
+            # failpoint's "fallback" sends this batch as a pickle, which
+            # decodes to the same arrays.
+            fp = _failpoints.ACTIVE
+            if fp is None or fp.fire("decode.columnar") != "fallback":
+                return PAYLOAD_COLUMNAR, frames
     return PAYLOAD_PICKLE, _pickle_frames(payload)
 
 
@@ -311,6 +317,19 @@ def send_framed_frames(sock, header, fmt, frames):
     """Send one message whose payload is already encoded as frames (a cache
     entry's slices go out as they are stored)."""
     header_bytes = json.dumps(header).encode("utf-8")
+    fp = _failpoints.ACTIVE
+    if fp is not None and fp.fire("transport.send") == "torn":
+        # A torn frame: half the length prefix reaches the peer, then the
+        # connection dies (a sender crashing mid-write, the only way TCP
+        # tears a frame). Shut down, not just raise: a live socket whose
+        # sender swallows send errors (credit acks) would stay desynced,
+        # a hang no real fault produces.
+        try:
+            sock.sendall(_LEN.pack(len(header_bytes))[:_LEN.size // 2])
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # an already-broken socket: the reset below still lands
+        raise ConnectionResetError("failpoint transport.send: torn frame injected")
     parts = [_LEN.pack(len(header_bytes)), header_bytes, _FMT.pack(fmt),
              _NFRAMES.pack(len(frames))]
     total_bytes = len(header_bytes) + _LEN.size + _FMT.size + _NFRAMES.size
@@ -335,6 +354,9 @@ def recv_framed(sock, max_frame_bytes=None):
     per field (never reads past the message). Raises
     :class:`ConnectionClosedError` when the peer hung up and
     :class:`ProtocolError` for a length past the caps, before allocating."""
+    fp = _failpoints.ACTIVE
+    if fp is not None:
+        fp.fire("transport.recv")
     header_len = _LEN.unpack(_recv_exact(sock, _LEN.size))[0]
     _check_header_len(header_len)
     header = _decode_header(_recv_exact(sock, header_len))
@@ -444,6 +466,9 @@ class FramedReader:
 
     def recv(self):
         """Receive one message as ``(header dict, payload)``."""
+        fp = _failpoints.ACTIVE
+        if fp is not None:
+            fp.fire("transport.recv")
         header_len = _LEN.unpack_from(self._take(_LEN.size))[0]
         _check_header_len(header_len)
         header = _decode_header(self._take(header_len))

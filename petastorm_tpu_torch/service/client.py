@@ -1632,11 +1632,15 @@ class ServiceBatchSource:
 
         def drop_hedge(hsid, outcome, closed=False):
             """Cancel a hedge stream and clear its pair, so the piece may
-            hedge again; ``closed``: its reader already ended."""
+            hedge again; ``closed``: its reader already posted its last
+            event, so there is none to swallow. The stream is closed either
+            way: a broken stream still holds its connection and ring."""
             hedge_sids.discard(hsid)
             if closed:
-                streams.pop(hsid, None)
+                stream = streams.pop(hsid, None)
                 active.discard(hsid)
+                if stream is not None:
+                    stream.close()
             else:
                 retire(hsid)
             for piece, pair in list(hedges.items()):

@@ -128,6 +128,31 @@ def test_fleet_worker_side_modules_load_neither_jax_nor_torch():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_benchmark_and_fuzzer_modules_load_neither_jax_nor_torch():
+    """The throughput tool, its scenarios and CLI, the device sweep and the
+    chaos fuzzer load no JAX, nothing of ``petastorm_tpu`` and no torch on
+    import (a scenario process that stays on the host never loads the CUDA
+    libraries), and the host-only scenarios run without torch."""
+    code = textwrap.dedent("""
+        import sys, tempfile
+        import petastorm_tpu_torch.benchmark
+        import petastorm_tpu_torch.benchmark.cli
+        import petastorm_tpu_torch.benchmark.device_scaling
+        import petastorm_tpu_torch.benchmark.scenarios as scenarios
+        import petastorm_tpu_torch.benchmark.throughput
+        import petastorm_tpu_torch.service.fuzz
+        scenarios.tabular_predicate_scenario(rows=400, days=4, workers=1)
+        scenarios.ngram_window_scenario(frames=20, window=3, workers=1)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "petastorm_tpu", "torch"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
