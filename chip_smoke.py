@@ -10,7 +10,9 @@ non-zero exit code):
 
 1. ``env``: the card's name and power limit, torch / CUDA / nvcc versions,
    whether Triton and CUTLASS headers are present, the pyzmq and
-   cloudpickle versions (the process pool's transport); then the build of the
+   cloudpickle versions (the process pool's transport), the tensorflow and
+   pyspark versions (each ``absent`` where not installed; read from the
+   installed distributions, not imported); then the build of the
    three flash-attention kernels (``petastorm_tpu_torch/ops/csrc``), and of
    the counting builds of the forward (``PTT_FWD_COUNT_TILES``), dQ
    (``PTT_DQ_COUNT_TILES``) and dK/dV (``PTT_DKV_COUNT_TILES``) kernels, all
@@ -392,8 +394,11 @@ non-zero exit code):
    processes of their own (``python -m petastorm_tpu_torch.service worker
    --cache mem``): each epoch's digests the local reader's, every stream
    negotiated on the expected tier (``transport_streams_shm_total`` all of
-   them over shm, 0 over TCP), every warm piece a cache hit, the shm runs'
-   warm frames mapped from the workers' frame pools; images/s, stall and
+   them over shm, 0 over TCP), every piece missed once (cold) and every warm
+   lookup a hit: the hits are the warm pieces' and, where the client
+   re-opened a broken stream on its worker, at most the pieces the new
+   stream named again (counted at the client, reported per run), the shm
+   runs' warm frames mapped from the workers' frame pools; images/s, stall and
    the mean gap between batches across and within an epoch of each run, and
    shm over TCP for each pair. Then, on each transport with
    the workers in this process, one cold epoch and three traced warm ones
@@ -514,6 +519,23 @@ non-zero exit code):
    last line must parse (JSON; (a)'s is the reference's text line); one
    ``bench:`` line gives each run's seconds, headline numbers and the
    length in characters of its last line.
+21. ``adapters``: the remote-store arguments and the TensorFlow adapter
+   (``ADAPTERS``; see ``adapters_phase``). The port's writer puts a store
+   of 2,048 rows (row groups of 128, one ``part`` value a group) into
+   fsspec's ``memory://``; ``build_rowgroup_index(...,
+   storage_options=...)`` indexes ``part``; ``make_reader(...,
+   rowgroup_selector=SingleIndexSelector("by_part", [3, 7, 11]),
+   storage_options=...)`` feeds ``make_torch_dataloader`` to the card.
+   Checked: every batch lands on ``cuda:0``, the rows that reach the card
+   are exactly the three groups' rows, bit for bit, and
+   ``global_step_count(..., filters=[("part", "in", [3, 7, 11])],
+   storage_options=...)`` equals the loader's batch count. Where
+   tensorflow imports (kept off the card), ``make_petastorm_dataset`` over
+   a port reader of the same selection gives the same rows; where it does
+   not, the line says ``tf: not run, tensorflow not installed on this
+   host``. ``hdfs://`` and a Spark session have no server here: the CPU
+   tests hold them. One ``adapters:`` line carries the figures and the
+   card's name and power limit.
 
 Each phase's wall seconds are on the ``phases:`` line. The last three lines
 are the kernels' JSON record (times at the LM's
@@ -705,6 +727,9 @@ LLM = dict(docs=512, max_len=48, slot_len=128, slots=4, d_model=64, heads=4, wor
 # Phase 20: the scenarios run at the JAX defaults; (a) times 60 batches of
 # 128 after 10; (c) and (d) share one shuffle seed; (f) fuzzes one seed.
 BENCH_RUNS = dict(warmup=10, measure=60, batch=128, seed=7, fuzz_seed=7, timeout_s=300)
+# Phase 21: a memory:// store of 16 row groups, three of them selected.
+ADAPTERS = dict(rows=2048, rows_per_row_group=128, width=32, parts=(3, 7, 11), batch=64,
+                seed=21)
 SPIN_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock: spins last at least as asked
 SPIN_SHORT = {}  # label -> timing batches whose spin ended before the last call was queued
 
@@ -5042,18 +5067,39 @@ def _plane_fleet_counts(metrics, by_epoch):
             sum(e.get(0, {}).get("misses", 0) for e in by_epoch))
 
 
-def _plane_check(part, transport, counts, frames, recv_shm, cfg, epochs, pieces):
-    """Fails unless every stream took ``transport``'s tier, every warm piece
-    was a cache hit and the frames went the way of the tier (``frames``
-    and ``recv_shm`` are None for workers in their own processes, whose
-    frame counters live there)."""
+class _StreamRequests:
+    """Counts the pieces that every stream ``source`` opens names, first
+    requests and the re-serves of a broken stream alike: each is one cache
+    lookup on the stream's worker once the stream reaches its engine."""
+
+    def __init__(self, source):
+        self.pieces, self._lock, inner = 0, threading.Lock(), source._stream
+
+        def counted(wid, address, pieces, *args, **kwargs):
+            with self._lock:
+                self.pieces += len(pieces)
+            return inner(wid, address, pieces, *args, **kwargs)
+
+        source._stream = counted
+
+
+def _plane_check(part, transport, counts, frames, recv_shm, cfg, epochs, pieces, requested):
+    """Fails unless every stream took ``transport``'s tier, every piece
+    missed once (its cold epoch) and every warm lookup hit, and the frames
+    went the way of the tier (``frames`` and ``recv_shm`` are None for
+    workers in their own processes, whose frame counters live there).
+    ``requested``: the pieces the client's streams named; beyond one per
+    piece and epoch, a re-opened stream's (its worker looks those up
+    again), so the hits are exactly the warm pieces' when none was."""
     shm, tcp, hits, misses, cold = counts
     if (shm, tcp) != ((shm + tcp, 0) if transport == "shm" else (0, shm + tcp)) \
             or shm + tcp < cfg["workers"] * epochs:
         fail(f"dataplane ({part}) {transport}: streams shm={shm} tcp={tcp}")
-    if (hits, misses) != (pieces * (epochs - 1), pieces) or cold not in (None, pieces):
+    warm, again = pieces * (epochs - 1), requested - pieces * epochs
+    if misses != pieces or not warm <= hits <= warm + again or cold not in (None, pieces):
         fail(f"dataplane ({part}) {transport}: cache hits {hits} misses {misses} (epoch 0 "
-             f"misses {cold}), want {pieces * (epochs - 1)} / {pieces}")
+             f"misses {cold}), want {warm} (+ up to {again} named again by re-opened "
+             f"streams) / {pieces}")
     if (recv_shm > 0) != (transport == "shm"):
         fail(f"dataplane ({part}) {transport}: {recv_shm} messages received over shm")
     if frames is not None and transport == "shm" and not frames["mapped"]:
@@ -5086,6 +5132,7 @@ def _plane_process_run(service, url, cfg, img, device, transport, tag, local_dig
         recv0 = _shm_recv_messages()
         source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
                                             transport=mode)
+        requested = _StreamRequests(source)
         stamps = []
         run = _image_run(source, img, device, epochs, local_digests, f"a {tag}",
                          phase="dataplane", stamps=stamps)
@@ -5100,8 +5147,10 @@ def _plane_process_run(service, url, cfg, img, device, transport, tag, local_dig
     if not all(metrics):
         fail(f"dataplane (a) {tag}: no diagnostics from every worker: {sorted(diagnostics)}")
     counts = _plane_fleet_counts(metrics, ())[:4] + (None,)
-    _plane_check("a", transport, counts, None, recv_shm, cfg, epochs, pieces)
+    _plane_check("a", transport, counts, None, recv_shm, cfg, epochs, pieces,
+                 requested.pieces)
     run.update(streams=counts[0] + counts[1], hits=counts[2],
+               again=requested.pieces - pieces * epochs,
                gaps=_epoch_gaps(stamps, -(-img["rows"] // img["batch"])))
     return run
 
@@ -5203,6 +5252,7 @@ def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
             try:
                 source = service.ServiceBatchSource(disp.address, credits=cfg["credits"],
                                                     transport=mode)
+                requested = _StreamRequests(source)
                 stamps = []
                 run = _image_run(source, img, device, epochs, local_digests,
                                  f"a {transport}", phase="dataplane", stamps=stamps)
@@ -5213,8 +5263,9 @@ def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
             frames = {k: v - frames0[k] for k, v in _shm_frames().items()}
             counts = _plane_fleet_counts(metrics, by_epoch)
             _plane_check("a", transport, counts, frames, _shm_recv_messages() - recv0, cfg,
-                         epochs, pieces)
+                         epochs, pieces, requested.pieces)
             run.update(streams=counts[0] + counts[1], frames=frames, hits=counts[2],
+                       again=requested.pieces - pieces * epochs,
                        gaps=_epoch_gaps(stamps, -(-per_epoch // img["batch"])))
             plane["here"].setdefault(transport, []).append(run)
         for k, transport in enumerate(cfg["a_order"]):
@@ -5253,6 +5304,9 @@ def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
         def gaps(runs):
             return ",".join(f"{r['gaps'][0]:.2f}/{r['gaps'][1]:.2f}" for r in runs)
 
+        def again(runs):
+            return ",".join(str(r["again"]) for r in runs)
+
         shm_run = plane["here"]["shm"][0]
         lines.append(
             f"dataplane (a): phase 14 (a)'s image path ({cfg['workers']} workers x "
@@ -5278,7 +5332,10 @@ def dataplane_phase(smi, image, service_result, cfg=DATAPLANE, device="cuda"):
             f"{shm_run['frames']['copied']:.0f}/{shm_run['frames']['spilled']:.0f} "
             f"phase4_images_per_s={image['images_per_s']:.1f} "
             f"phase14_images_per_s={service_result['images_per_s']:.1f} "
-            f"epoch_digests=local x{epochs} every run")
+            f"epoch_digests=local x{epochs} every run; pieces named again by re-opened "
+            f"streams workers_here tcp={again(plane['here']['tcp'])} "
+            f"shm={again(plane['here']['shm'])} workers_in_processes "
+            f"tcp={again(plane['procs']['tcp'])} shm={again(plane['procs']['shm'])}")
         for transport, (report, wall, late) in traced.items():
             profile = " ".join(f"{name}:{p['count']}x{p['mean_us'] / 1000:.3f}ms"
                                for name, p in sorted(report["stage_profile"].items()))
@@ -6635,6 +6692,122 @@ def trainer_cases():
     return out
 
 
+def _distribution_version(name):
+    """The installed distribution's version, or ``absent``; the package is
+    not imported."""
+    from importlib import metadata
+
+    for dist in (name, f"{name}-cpu", f"{name}-gpu"):
+        try:
+            return metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            continue
+    return "absent"
+
+
+def adapters_phase(smi, cfg=ADAPTERS, device="cuda"):
+    """Phase 21 (see the module docstring); fails the run on any check.
+    ``cfg`` and ``device`` exist for a dry run on the host; the run on the
+    card uses the defaults."""
+    import importlib.util
+    import uuid
+
+    import fsspec
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.etl.metadata import materialize_rows
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    from petastorm_tpu_torch.reader.reader import make_reader
+    from petastorm_tpu_torch.schema.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.schema.unischema import Unischema, UnischemaField
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+    from petastorm_tpu_torch.torch_utils.loader import make_torch_dataloader
+    from petastorm_tpu_torch.torch_utils.sharding import global_step_count
+
+    t_start = time.perf_counter()
+    on_card = "cuda:0" if torch.device(device).type == "cuda" else "cpu"
+    group, parts, batch = cfg["rows_per_row_group"], list(cfg["parts"]), cfg["batch"]
+    schema = Unischema("AdaptersSchema", [
+        UnischemaField("idx", np.int64, (), ScalarCodec(), False),
+        UnischemaField("part", np.int64, (), ScalarCodec(), False),
+        UnischemaField("vec", np.float32, (cfg["width"],), NdarrayCodec(), False)])
+    vecs = np.random.RandomState(cfg["seed"]).rand(cfg["rows"], cfg["width"]).astype(np.float32)
+    memory = fsspec.filesystem("memory")
+    base = f"/chip-smoke-adapters-{uuid.uuid4().hex[:8]}"
+    url, opts = f"memory://{base}/store", {"skip_instance_cache": False}
+    want = sorted(i for i in range(cfg["rows"]) if i // group in parts)
+
+    def selected_reader():
+        return make_reader(url, schema_fields=["idx", "vec"], storage_options=opts,
+                           rowgroup_selector=SingleIndexSelector("by_part", parts),
+                           shuffle_row_groups=False, workers_count=2, num_epochs=1)
+
+    try:
+        t0 = time.perf_counter()
+        materialize_rows(url, schema, ({"idx": i, "part": i // group, "vec": vecs[i]}
+                                       for i in range(cfg["rows"])),
+                         rows_per_row_group=group, storage_options=opts)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = build_rowgroup_index(url, [SingleFieldIndexer("by_part", "part")],
+                                     storage_options=opts)
+        index_s = time.perf_counter() - t0
+        if index["by_part"].get_row_group_indexes(parts[0]) != {parts[0]}:
+            fail(f"adapters: the index maps part {parts[0]} to "
+                 f"{index['by_part'].get_row_group_indexes(parts[0])}")
+        steps = global_step_count(url, batch, 1, filters=[("part", "in", parts)],
+                                  storage_options=opts)
+        t0 = time.perf_counter()
+        got_idx, got_vec, devices = [], [], set()
+        with selected_reader() as reader:
+            for b in make_torch_dataloader(reader, batch, device=device):
+                devices.add(str(b["idx"].device))
+                got_idx.append(b["idx"].cpu())
+                got_vec.append(b["vec"].cpu())
+        loader_s = time.perf_counter() - t0
+        got_idx, got_vec = torch.cat(got_idx).numpy(), torch.cat(got_vec).numpy()
+        if devices != {on_card}:
+            fail(f"adapters: batches arrived on {sorted(devices)}, not {on_card}")
+        if sorted(got_idx.tolist()) != want:
+            fail(f"adapters: the card got {len(got_idx)} rows, not the selector's {len(want)} "
+                 f"(parts {parts})")
+        if not np.array_equal(got_vec, vecs[got_idx]):
+            fail("adapters: the vectors on the card differ from the rows written")
+        if steps != len(want) // batch or len(got_idx) // batch != steps:
+            fail(f"adapters: global_step_count gives {steps}, the loader "
+                 f"{len(got_idx) // batch} batches of {batch}")
+        if importlib.util.find_spec("tensorflow") is None:
+            tf_note = "tf: not run, tensorflow not installed on this host"
+        else:
+            import tensorflow as tf
+
+            from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+
+            tf.config.set_visible_devices([], "GPU")  # the card is the port's
+            t0 = time.perf_counter()
+            with selected_reader() as reader:
+                rows = [(int(r.idx.numpy()), r.vec.numpy())
+                        for r in make_petastorm_dataset(reader)]
+            tf_idx = np.array([i for i, _ in rows])
+            if sorted(tf_idx.tolist()) != want or not np.array_equal(
+                    np.stack([v for _, v in rows]), vecs[tf_idx]):
+                fail("adapters: make_petastorm_dataset gave other rows than the selector's")
+            tf_note = (f"tf: {tf.__version__} make_petastorm_dataset {len(rows)} rows equal "
+                       f"the selector's in {time.perf_counter() - t0:.2f}s")
+    finally:
+        if memory.exists(base):
+            memory.rm(base, recursive=True)
+    print(f"adapters: memory:// store rows={cfg['rows']} groups={cfg['rows'] // group} "
+          f"write_s={write_s:.3f} index_build_s={index_s:.3f}; selector parts={parts} -> "
+          f"{len(got_idx)} rows on {on_card} in {len(got_idx) // batch} batches of {batch} "
+          f"(global_step_count={steps}) loader_s={loader_s:.3f}; {tf_note}; hdfs:// and "
+          f"Spark: held by the CPU tests (no namenode or Spark here); "
+          f"phase_s={time.perf_counter() - t_start:.2f} ({smi})", flush=True)
+    return {"rows": len(got_idx), "steps": steps}
+
+
 def main():
     try:
         import torch
@@ -6683,6 +6856,8 @@ def main():
         cloudpickle_version = cloudpickle.__version__
     except ImportError:
         cloudpickle_version = None
+    tensorflow_version, pyspark_version = (_distribution_version(name)
+                                           for name in ("tensorflow", "pyspark"))
     t0 = time.perf_counter()
     count_dir = tempfile.mkdtemp(prefix="chip_smoke_count_")
     counting = {  # kernel -> (source, switch, entry point)
@@ -6709,6 +6884,7 @@ def main():
     print(f"env: gpu={smi!r} torch={torch.__version__} cuda={torch.version.cuda} "
           f"nvcc={nvcc_version!r} triton={triton_version} cutlass_headers={cutlass} "
           f"pyzmq={pyzmq_version} cloudpickle={cloudpickle_version} "
+          f"tensorflow={tensorflow_version} pyspark={pyspark_version} "
           f"kernels_built_in_s={build_s:.2f}", flush=True)
 
     # -- 2. kernels ----------------------------------------------------------
@@ -6821,7 +6997,7 @@ def main():
           f"logit_parity={result['logit_parity']:.2e} launches={launches}",
           flush=True)
 
-    # -- 4. image ... 20. bench ---------------------------------------------
+    # -- 4. image ... 21. adapters ------------------------------------------
     phase_s["train"] = time.perf_counter() - t_phase
     out = {}
     for name, run in (("image", lambda: image_phase(smi)), ("seq", seq_phase),
@@ -6840,7 +7016,8 @@ def main():
                                                             out["service"])),
                       ("fleet", lambda: fleet_phase(smi, out["image"])),
                       ("llm", lambda: llm_phase(smi)),
-                      ("bench", lambda: bench_phase(smi))):
+                      ("bench", lambda: bench_phase(smi)),
+                      ("adapters", lambda: adapters_phase(smi))):
         t_phase = time.perf_counter()
         out[name] = run()
         phase_s[name] = time.perf_counter() - t_phase

@@ -93,6 +93,9 @@ _LAZY_EXPORTS = {
                                "restore_training_state"),
     "BatchCache": ("petastorm_tpu_torch.cache_impl.batch_cache", "BatchCache"),
     "CacheConfig": ("petastorm_tpu_torch.cache_impl.batch_cache", "CacheConfig"),
+    "Dispatcher": ("petastorm_tpu_torch.service.dispatcher", "Dispatcher"),
+    "BatchWorker": ("petastorm_tpu_torch.service.worker", "BatchWorker"),
+    "ServiceBatchSource": ("petastorm_tpu_torch.service.client", "ServiceBatchSource"),
 }
 
 __all__ = list(_LAZY_EXPORTS) + ["__version__"]

@@ -195,14 +195,16 @@ class EntryBuilder:
         self._committed = False
         self._spent_s = 0.0  # encode + copy time, the fill histogram's share
 
-    def add_batch(self, batch):
+    def add_batch(self, batch, rows=None):
         """Encode ``batch`` and append its frames; ``(rows, fmt, frames)``,
-        the frames just encoded, so a worker sends what it cached."""
+        the frames just encoded, so a worker sends what it cached.
+        ``rows``: the batch's row count when the caller knows it."""
         from petastorm_tpu_torch.reader_impl.framed_socket import encode_payload
 
         t0 = time.perf_counter()
         fmt, frames = encode_payload(batch)
-        rows = batch_rows(batch)
+        if rows is None:
+            rows = batch_rows(batch)
         self._append(rows, fmt, frames)
         self._spent_s += time.perf_counter() - t0
         return rows, fmt, frames

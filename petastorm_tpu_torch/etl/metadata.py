@@ -351,27 +351,7 @@ def read_dataset_metadata(filesystem, dataset_path):
         return dict(pq.read_metadata(f).schema.to_arrow_schema().metadata or {})
 
 
-#: The value of each argument the port does not take yet that asks for
-#: nothing (None for the rest): any other raises in :func:`refuse_unported`.
-_UNPORTED_DEFAULTS = {"hdfs_driver": "libhdfs"}
-
-
-#: Why each refused argument is refused.
-_UNPORTED_REASONS = {
-    "hdfs_driver": "hdfs:// needs libhdfs, which this package does not use",
-    "spark": "this package writes with pyarrow; Spark is not a dependency",
-}
-
-
-def refuse_unported(func, **arguments):
-    """NotImplementedError naming the first argument given a value the port
-    does not take (a Spark session, an ``hdfs_driver``)."""
-    for name, value in arguments.items():
-        if value != _UNPORTED_DEFAULTS.get(name):
-            raise NotImplementedError(
-                f"{func}({name}=...) is not ported: {_UNPORTED_REASONS[name]}")
-
-
+@contextmanager
 def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=None,
                         use_summary_metadata=False, filesystem_factory=None,
                         storage_options=None, filesystem=None):
@@ -380,19 +360,33 @@ def materialize_dataset(spark, dataset_url, schema, row_group_size_mb=None,
     bookkeeping to ``_common_metadata``, after a failed write nothing.
 
     ``spark=None`` is the pyarrow path: write inside the block with
-    :func:`write_rows`. ``row_group_size_mb`` and ``use_summary_metadata``
-    only configure a Spark writer, so here they change nothing (as in the
-    JAX package without Spark). The store's filesystem is
-    ``filesystem_factory()`` when given, else the one ``storage_options`` or
-    ``filesystem`` resolve (:class:`~petastorm_tpu_torch.fs_utils.
-    FilesystemResolver`). A Spark session raises NotImplementedError."""
-    refuse_unported("materialize_dataset", spark=spark)
-    return _materialize(dataset_url, schema, filesystem_factory, storage_options, filesystem)
-
-
-@contextmanager
-def _materialize(dataset_url, schema, filesystem_factory, storage_options, filesystem):
-    yield
+    :func:`write_rows`. With a Spark session, its Hadoop configuration gets
+    ``parquet.block.size`` (``row_group_size_mb``, when given) and
+    ``parquet.summary.metadata.level`` (``ALL`` with
+    ``use_summary_metadata``, else ``NONE``) for the block, and each key is
+    restored, or unset where it had no value, on the way out. The store's
+    filesystem is ``filesystem_factory()`` when given, else the one
+    ``storage_options`` or ``filesystem`` resolve
+    (:class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`)."""
+    restore = None
+    if spark is not None:
+        hadoop_conf = spark.sparkContext._jsc.hadoopConfiguration()
+        restore = {key: hadoop_conf.get(key)
+                   for key in ("parquet.block.size", "parquet.summary.metadata.level")}
+        if row_group_size_mb:
+            hadoop_conf.setInt("parquet.block.size", row_group_size_mb * 1024 * 1024)
+        hadoop_conf.set("parquet.summary.metadata.level",
+                        "ALL" if use_summary_metadata else "NONE")
+    try:
+        yield
+    finally:
+        if restore is not None:
+            hadoop_conf = spark.sparkContext._jsc.hadoopConfiguration()
+            for key, old in restore.items():
+                if old is None:
+                    hadoop_conf.unset(key)
+                else:
+                    hadoop_conf.set(key, old)
     if filesystem_factory is not None:
         fs = filesystem_factory()
         path = FilesystemResolver(dataset_url, filesystem=fs).get_dataset_path()
@@ -547,9 +541,8 @@ def get_schema_from_dataset_url(dataset_url, hdfs_driver="libhdfs",
                                 storage_options=None, filesystem=None):
     """:func:`get_schema` of the dataset at ``dataset_url`` (on the
     filesystem ``storage_options`` or ``filesystem`` select)."""
-    refuse_unported("get_schema_from_dataset_url", hdfs_driver=hdfs_driver)
-    resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
-                                  filesystem=filesystem)
+    resolver = FilesystemResolver(dataset_url, hdfs_driver=hdfs_driver,
+                                  storage_options=storage_options, filesystem=filesystem)
     return get_schema(resolver.filesystem(), resolver.get_dataset_path())
 
 
@@ -576,6 +569,7 @@ class RowGroupPiece:
     path: str
     row_group: int
     num_rows: int | None = None
+    partition_keys: tuple = ()
 
     def read(self, filesystem, columns=None):
         with filesystem.open_input_file(self.path) as f:
@@ -600,11 +594,13 @@ def piece_row_counts(filesystem, pieces):
     return counts
 
 
-def load_row_groups(filesystem, dataset_path):
+def load_row_groups(filesystem, dataset_path, metadata=None):
     """The dataset's row groups in canonical order (sorted file path, then
     row-group index), from the footer's bookkeeping when present, else from
-    a fragment scan."""
-    metadata = read_dataset_metadata(filesystem, dataset_path)
+    a fragment scan. ``metadata``: the ``_common_metadata`` key/value dict
+    when the caller has read it already."""
+    if metadata is None:
+        metadata = read_dataset_metadata(filesystem, dataset_path)
     if ROW_GROUPS_PER_FILE_KEY in metadata:
         counts = json.loads(metadata[ROW_GROUPS_PER_FILE_KEY].decode("utf-8"))
         row_counts = json.loads(

@@ -34,15 +34,14 @@ def generate_petastorm_metadata(dataset_url, unischema_class=None,
     dataset at ``dataset_url``. ``unischema_class``: a Unischema, or the
     ``module.Name`` of one; None reuses the stored schema or infers one.
     ``use_summary_metadata`` changes nothing on the pyarrow path (as in the
-    JAX package). ``storage_options`` and ``filesystem`` select the
-    filesystem; ``hdfs_driver`` raises NotImplementedError naming it."""
-    etl_metadata.refuse_unported("generate_petastorm_metadata", hdfs_driver=hdfs_driver)
+    JAX package). ``hdfs_driver``, ``storage_options`` and ``filesystem``
+    select the filesystem, as for the readers."""
+    resolver = FilesystemResolver(dataset_url, hdfs_driver=hdfs_driver,
+                                  storage_options=storage_options, filesystem=filesystem)
     if unischema_class is not None:
         schema = (_load_unischema_by_name(unischema_class)
                   if isinstance(unischema_class, str) else unischema_class)
     else:
-        resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
-                                      filesystem=filesystem)
         schema, _ = etl_metadata.infer_or_load_unischema(resolver.filesystem(),
                                                          resolver.get_dataset_path())
     with etl_metadata.materialize_dataset(None, dataset_url, schema,

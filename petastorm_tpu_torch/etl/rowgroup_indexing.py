@@ -47,11 +47,14 @@ def load_index_store(payload):
     return _IndexUnpickler(io.BytesIO(payload)).load()
 
 
-def build_rowgroup_index(dataset_url, indexers, workers_count=4):
+def build_rowgroup_index(dataset_url, indexers, hdfs_driver="libhdfs",
+                         storage_options=None, filesystem=None, workers_count=4):
     """Scan every row group of a petastorm dataset, feed the indexers the
     decoded rows of their columns, and store them in the footer. Returns
-    ``{index_name: indexer}``."""
-    resolver = FilesystemResolver(dataset_url)
+    ``{index_name: indexer}``. ``hdfs_driver``, ``storage_options`` and
+    ``filesystem`` select the filesystem, as for the readers."""
+    resolver = FilesystemResolver(dataset_url, hdfs_driver=hdfs_driver,
+                                  storage_options=storage_options, filesystem=filesystem)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     schema = get_schema(fs, path)
     pieces = load_row_groups(fs, path)

@@ -12,9 +12,9 @@ short-circuits resolution. fsspec filesystems are wrapped in
 ``fast_gcs_listing=True`` resolves ``gs://`` through
 :class:`~petastorm_tpu_torch.gcsfs_helpers.gcsfs_fast_list.
 FastListingFilesystem`: one recursive listing sweep serves dataset
-discovery from memory. ``hdfs://`` URLs resolve their HA namenodes
-(:class:`~petastorm_tpu_torch.hdfs.namenode.HdfsNamenodeResolver`) and then
-raise NotImplementedError: the connection needs libhdfs.
+discovery from memory. ``hdfs://`` URLs resolve their HA namenodes and
+connect with failover through ``pyarrow.fs.HadoopFileSystem``
+(:func:`~petastorm_tpu_torch.hdfs.namenode.connect_hdfs`).
 """
 
 from __future__ import annotations
@@ -71,22 +71,10 @@ class FilesystemResolver:
                                  f"{dataset_url!r}: {exc}") from exc
 
     def _resolve_hdfs(self, parsed):
-        """Resolve the URL's namenodes (a nameservice through the Hadoop
-        configuration's HA entries), then refuse: connecting needs libhdfs,
-        which this package does not bind."""
-        from petastorm_tpu_torch.hdfs.namenode import HdfsNamenodeResolver
+        from petastorm_tpu_torch.hdfs.namenode import connect_hdfs
 
-        resolver = HdfsNamenodeResolver(self._hadoop_configuration)
-        if parsed.hostname:
-            namenodes = ([f"{parsed.hostname}:{parsed.port or 8020}"]
-                         if parsed.port or "." in parsed.hostname
-                         else resolver.resolve_hdfs_name_service(parsed.hostname))
-        else:
-            _, namenodes = resolver.resolve_default_hdfs_service()
-        raise NotImplementedError(
-            f"hdfs:// is not ported to petastorm_tpu_torch: {self._dataset_url!r} "
-            f"resolves to namenode(s) {namenodes}, but connecting needs libhdfs "
-            "(pyarrow.fs.HadoopFileSystem), which this package does not use")
+        return connect_hdfs(parsed, user=self._user,
+                            hadoop_configuration=self._hadoop_configuration)
 
     def _resolve_remote(self, parsed):
         url = self._dataset_url

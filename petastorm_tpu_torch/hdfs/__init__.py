@@ -1,2 +1,2 @@
-"""HDFS namenode resolution (the port's own copy of the resolver half of
+"""HDFS namenode resolution and connection (the port's own copy of
 ``petastorm_tpu/hdfs/``)."""

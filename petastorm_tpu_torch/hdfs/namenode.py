@@ -1,12 +1,13 @@
-"""HDFS HA-namenode resolution from the Hadoop client configuration (the
-port's own copy of the resolver half of ``petastorm_tpu/hdfs/namenode.py``).
+"""HDFS HA-namenode resolution and connection with failover (the port's
+own copy of ``petastorm_tpu/hdfs/namenode.py``).
 
 :class:`HdfsNamenodeResolver` parses ``core-site.xml`` / ``hdfs-site.xml``
 found through ``$HADOOP_CONF_DIR``, ``$HADOOP_HOME``, ``$HADOOP_PREFIX`` or
 ``$HADOOP_INSTALL`` and resolves an HA nameservice's logical name to its
-namenodes' ``host:port`` addresses. Connecting to them needs libhdfs, which
-this package does not use: ``FilesystemResolver`` resolves an ``hdfs://``
-URL here and then raises NotImplementedError.
+namenodes' ``host:port`` addresses. :class:`HdfsConnector` connects to them
+through ``pyarrow.fs.HadoopFileSystem`` (pyarrow's libhdfs bridge), trying
+the namenodes in order; :func:`connect_hdfs` does both for an ``hdfs://``
+URL.
 """
 
 from __future__ import annotations
@@ -100,6 +101,62 @@ class HdfsNamenodeResolver:
             raise HdfsConnectError(
                 f"Nameservice {namespec!r} has no resolvable namenode rpc-addresses")
         return namenodes
+
+
+class HdfsConnector:
+    """Connects to HDFS namenodes with failover (pyarrow HadoopFileSystem,
+    looked up at call time)."""
+
+    MAX_NAMENODES = 2
+
+    @classmethod
+    def hdfs_connect_namenode(cls, parsed_url, driver="libhdfs", user=None):
+        """One connection attempt to ``parsed_url.hostname:port``; ``driver``
+        is accepted and unused (pyarrow has the one libhdfs bridge)."""
+        import pyarrow.fs as pafs
+
+        host = parsed_url.hostname or "default"
+        port = parsed_url.port or 8020
+        try:
+            return pafs.HadoopFileSystem(host=host, port=port, user=user)
+        except Exception as exc:
+            raise HdfsConnectError(
+                f"Failed to connect to HDFS namenode {host}:{port}: {exc}") from exc
+
+    @classmethod
+    def connect_to_either_namenode(cls, namenodes, user=None):
+        """Try the first :attr:`MAX_NAMENODES` namenodes in order; raise
+        :class:`MaxFailoversExceeded` with every failure if all fail."""
+        import pyarrow.fs as pafs
+
+        failures = []
+        for address in namenodes[:cls.MAX_NAMENODES]:
+            host, _, port = address.partition(":")
+            try:
+                return pafs.HadoopFileSystem(host=host, port=int(port) if port else 8020,
+                                             user=user)
+            except Exception as exc:  # noqa: BLE001 - collected for the failover error
+                failures.append(exc)
+        raise MaxFailoversExceeded(failures, cls.MAX_NAMENODES, "connect_to_either_namenode")
+
+
+def connect_hdfs(parsed_url, user=None, hadoop_configuration=None):
+    """Resolve and connect an ``hdfs://`` URL: ``(filesystem, path)``. A
+    ``host:port`` or dotted host is one namenode; a bare name is a
+    nameservice, and no host is ``fs.defaultFS``'s, each tried with
+    failover. ``hadoop_configuration`` replaces the files found from the
+    environment."""
+    resolver = HdfsNamenodeResolver(hadoop_configuration)
+    if parsed_url.hostname:
+        if parsed_url.port or "." in parsed_url.hostname:
+            fs = HdfsConnector.hdfs_connect_namenode(parsed_url, user=user)
+        else:
+            namenodes = resolver.resolve_hdfs_name_service(parsed_url.hostname)
+            fs = HdfsConnector.connect_to_either_namenode(namenodes, user=user)
+    else:
+        _, namenodes = resolver.resolve_default_hdfs_service()
+        fs = HdfsConnector.connect_to_either_namenode(namenodes, user=user)
+    return fs, parsed_url.path
 
 
 def _parse_hadoop_xml(path):

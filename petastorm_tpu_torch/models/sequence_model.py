@@ -420,10 +420,10 @@ class SeqModel(nn.Module):
 
 
 def init_seq_params(seed, feature_dim, d_model=64, num_heads=4,
-                    num_classes=10, max_len=512, device="cuda"):
+                    num_classes=10, max_len=512, dtype=torch.float32, device="cuda"):
     """A :class:`SeqModel` with the JAX package's initial distributions
     (weights ~ N(0, 1/fan_in), pos ~ N(0, 0.02^2)), drawn from
-    ``torch.Generator().manual_seed(seed)``."""
+    ``torch.Generator().manual_seed(seed)`` in f32 and cast to ``dtype``."""
     device = resolve_device(device)
     model = SeqModel(feature_dim, d_model, num_heads, num_classes, max_len)
     gen = torch.Generator().manual_seed(seed)
@@ -432,7 +432,7 @@ def init_seq_params(seed, feature_dim, d_model=64, num_heads=4,
             w = getattr(model, name)
             std = 0.02 if name == "pos" else 1.0 / math.sqrt(w.shape[0])
             w.copy_(torch.randn(w.shape, generator=gen) * std)
-    return model.to(device)
+    return model.to(device=device, dtype=dtype)
 
 
 def params_from_jax(numpy_params, num_heads, device="cuda"):

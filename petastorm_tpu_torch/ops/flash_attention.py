@@ -601,6 +601,26 @@ class FlashAttentionFn(torch.autograd.Function):
         return _backward_saved(ctx, do)
 
 
+def _refuse_pallas_options(func, block_q=None, block_k=None, interpret=None,
+                           bwd_impl="flash"):
+    """NotImplementedError naming the first JAX tiling option given a value
+    other than its default: the port's kernels have fixed tiles, and Pallas
+    interpret mode and the reference backward have no counterpart."""
+    reasons = {
+        "block_q": "the CUDA kernels use fixed tile sizes",
+        "block_k": "the CUDA kernels use fixed tile sizes",
+        "interpret": ("Pallas interpret mode has no counterpart; pass "
+                      "device='cpu' for the plain PyTorch versions"),
+        "bwd_impl": "the backward is always the flash kernels ('flash')",
+    }
+    given = {"block_q": block_q, "block_k": block_k, "interpret": interpret,
+             "bwd_impl": None if bwd_impl == "flash" else bwd_impl}
+    for name, value in given.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{func}({name}={value!r}) is not supported: {reasons[name]}")
+
+
 def _prepare(q, k, v, kv_lengths, segment_ids, device):
     """The public functions' shared checks and layout: ``(q_seg, kv_seg,
     kv_lengths)`` as contiguous int32 on q's device (or None)."""
@@ -630,8 +650,8 @@ def _prepare(q, k, v, kv_lengths, segment_ids, device):
     return q_seg, kv_seg, kv_lengths
 
 
-def flash_attention(q, k, v, causal=False, kv_lengths=None, segment_ids=None,
-                    device="cuda"):
+def flash_attention(q, k, v, block_q=None, block_k=None, interpret=None, causal=False,
+                    bwd_impl="flash", kv_lengths=None, segment_ids=None, device="cuda"):
     """Tiled attention over ``[B, T, H, D]`` tensors without a ``[T, T]``
     score matrix in either direction (counterpart of the JAX package's
     ``flash_attention``).
@@ -645,11 +665,16 @@ def flash_attention(q, k, v, causal=False, kv_lengths=None, segment_ids=None,
     :param device: where the inputs must lie — ``"cuda"`` (the default, the
         hand-written kernels) or ``"cpu"`` (the plain PyTorch versions, for
         tests). A mismatch raises; nothing falls back.
+    :param block_q / block_k / interpret / bwd_impl: the JAX signature's
+        Pallas options; only their defaults (``None``, ``None``, ``None``,
+        ``"flash"``) are taken, anything else raises NotImplementedError
+        naming the argument.
 
     K/V may carry fewer heads than Q (``h % h_kv == 0``): each group of
     ``h // h_kv`` query heads reads one K/V head, and dK/dV come back summed
     over the group in f32.
     """
+    _refuse_pallas_options("flash_attention", block_q, block_k, interpret, bwd_impl)
     q_seg, kv_seg, kv_lengths = _prepare(q, k, v, kv_lengths, segment_ids,
                                          device)
     causal_offset = k.shape[1] - q.shape[1]
@@ -682,9 +707,9 @@ class FlashAttentionWithLseFn(torch.autograd.Function):
                                .reshape(b * h, t_q).contiguous())
 
 
-def flash_attention_with_lse(q, k, v, causal=False, causal_shift=0,
-                             kv_lengths=None, segment_ids=None,
-                             device="cuda"):
+def flash_attention_with_lse(q, k, v, block_q=None, block_k=None, interpret=None,
+                             causal=False, causal_shift=0, kv_lengths=None,
+                             segment_ids=None, device="cuda"):
     """Flash attention that also returns the per-row log-sum-exp, the
     statistic that merges partial attention over K/V shards exactly (the
     ring attention's blocks). Counterpart of the JAX package's
@@ -697,6 +722,7 @@ def flash_attention_with_lse(q, k, v, causal=False, causal_shift=0,
     ring's blocks whose key shard sits after the query shard). The other
     arguments are :func:`flash_attention`'s.
     """
+    _refuse_pallas_options("flash_attention_with_lse", block_q, block_k, interpret)
     q_seg, kv_seg, kv_lengths = _prepare(q, k, v, kv_lengths, segment_ids,
                                          device)
     causal_offset = k.shape[1] - q.shape[1] + (causal_shift if causal else 0)

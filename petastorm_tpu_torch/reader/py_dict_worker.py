@@ -116,6 +116,10 @@ class PyDictReaderWorker(WorkerBase):
             row = self._transform_spec.func(dict(row))
         return {name: row[name] for name in self._result_schema.fields if name in row}
 
+    @property
+    def result_schema(self):
+        return self._result_schema
+
 
 def _stored_column_mask(predicate, predicate_view, table):
     """The keep-mask computed on stored columns, or None for the per-row

@@ -32,8 +32,7 @@ per (piece, drop partition), the ventilator's seeded per-epoch shuffle —
 and so are the planning fingerprint ``repr((filters, rowgroup_selector))``
 and the item keys ``item_key(piece_index, drop_partition)``, so the same
 arguments give both packages the same work items in the same order, and a
-state written by either resumes the other. What is not ported raises
-NotImplementedError naming the argument (:data:`UNPORTED_READER_ARGS`).
+state written by either resumes the other.
 :meth:`Reader.resize_workers` resizes a thread pool while it runs.
 """
 
@@ -79,16 +78,6 @@ from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator, DynamicVentilator
 
-#: Arguments of the JAX package's three factories that the port does not
-#: take, with their JAX defaults: the default is accepted (it asks for
-#: nothing), anything else raises NotImplementedError naming the argument.
-UNPORTED_READER_ARGS = {"hdfs_driver": "libhdfs"}
-
-#: Where each argument of :data:`UNPORTED_READER_ARGS` would come from.
-_UNPORTED_REASONS = {
-    "hdfs_driver": "hdfs:// needs libhdfs, which this package does not use",
-}
-
 
 def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                 workers_count=10, results_queue_size=50, shuffle_row_groups=True,
@@ -96,10 +85,10 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                 num_epochs=1, cur_shard=None, shard_count=None, shard_seed=None,
                 cache_type="null", cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
-                transform_spec=None, filters=None, reader_engine=None,
+                hdfs_driver="libhdfs", transform_spec=None, filters=None, reader_engine=None,
                 resume_state=None, zmq_copy_buffers=True, storage_options=None,
                 filesystem=None, fast_gcs_listing=True, piece_indices=None,
-                dynamic_ventilation=False, **unported):
+                dynamic_ventilation=False):
     """Row reader for petastorm-format datasets: yields one namedtuple of
     decoded fields per row (``batched_output=False``).
 
@@ -127,7 +116,10 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     the deprecated ``"reader_v1"``, which changes nothing.
     ``storage_options`` (fsspec keyword arguments), ``filesystem`` (a
     pyarrow or fsspec filesystem) and ``fast_gcs_listing`` select the
-    filesystem (:class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`).
+    filesystem (:class:`~petastorm_tpu_torch.fs_utils.FilesystemResolver`);
+    ``hdfs://`` connects through ``pyarrow.fs.HadoopFileSystem`` with
+    namenode failover, and ``hdfs_driver`` is taken and unused, as in the
+    JAX package.
     ``piece_indices``: an explicit plan, indices into the row-group pieces
     left after ``filters`` and the selector (sorted, deduplicated and
     range-checked, applied before sharding); the data service's workers
@@ -137,7 +129,6 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
     which needs ``shuffle_row_groups=False``, one drop partition and no
     ``resume_state``.
     """
-    _check_unported("make_reader", unported)
     if reader_engine is not None:
         if reader_engine != "reader_v1":
             raise ValueError(f"reader_engine {reader_engine!r} is not supported; the only "
@@ -146,7 +137,7 @@ def make_reader(dataset_url, schema_fields=None, reader_pool_type="thread",
                       "columnar path use make_columnar_reader", DeprecationWarning,
                       stacklevel=2)
     fs, path, stored_schema = _open_dataset(dataset_url, storage_options, filesystem,
-                                            fast_gcs_listing)
+                                            fast_gcs_listing, hdfs_driver)
     return Reader(fs, path, schema=stored_schema,
                   reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
                                          PickleSerializer(), zmq_copy_buffers),
@@ -171,10 +162,11 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
                          shard_count=None, shard_seed=None, cache_type="null",
                          cache_location=None, cache_size_limit=None,
                          cache_row_size_estimate=None, cache_extra_settings=None,
-                         transform_spec=None, filters=None, resume_state=None,
+                         hdfs_driver="libhdfs", transform_spec=None, filters=None,
+                         resume_state=None,
                          zmq_copy_buffers=True, storage_options=None, filesystem=None,
                          fast_gcs_listing=True, piece_indices=None,
-                         dynamic_ventilation=False, **unported):
+                         dynamic_ventilation=False):
     """Columnar reader for petastorm-format datasets: yields namedtuples of
     decoded ``[N, ...]`` column arrays, one per work item
     (``batched_output=True``).
@@ -183,12 +175,11 @@ def make_columnar_reader(dataset_url, schema_fields=None, reader_pool_type="thre
     row-wise and not supported here, and ``transform_spec.func`` takes and
     returns the decoded ``{field: [N, ...]}`` dict.
     """
-    _check_unported("make_columnar_reader", unported)
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_columnar_reader; "
                          "use make_reader")
     fs, path, stored_schema = _open_dataset(dataset_url, storage_options, filesystem,
-                                            fast_gcs_listing)
+                                            fast_gcs_listing, hdfs_driver)
     return Reader(fs, path, schema=stored_schema,
                   reader_pool=_make_pool(reader_pool_type, workers_count, results_queue_size,
                                          PickleSerializer(), zmq_copy_buffers),
@@ -212,10 +203,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                       num_epochs=1, cur_shard=None, shard_count=None, shard_seed=None,
                       cache_type="null", cache_location=None, cache_size_limit=None,
                       cache_row_size_estimate=None, cache_extra_settings=None,
-                      transform_spec=None, filters=None, resume_state=None,
+                      hdfs_driver="libhdfs", transform_spec=None, filters=None,
+                      resume_state=None,
                       zmq_copy_buffers=True, storage_options=None, filesystem=None,
                       fast_gcs_listing=True, piece_indices=None,
-                      dynamic_ventilation=False, **unported):
+                      dynamic_ventilation=False):
     """Batch reader for **plain Parquet** stores (no petastorm metadata
     needed): yields namedtuples of numpy column batches, one per work item
     (``batched_output=True``), under a codec-less schema inferred from the
@@ -231,13 +223,13 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
     Arrow IPC, and a process pool ships the tables as Arrow IPC. The other
     arguments are :func:`make_reader`'s.
     """
-    _check_unported("make_batch_reader", unported)
     if isinstance(schema_fields, NGram):
         raise ValueError("NGram is not supported by make_batch_reader")
     import pyarrow.dataset as pads
 
     fs, path = get_filesystem_and_path_or_paths(
-        dataset_url_or_urls, storage_options=storage_options, filesystem=filesystem,
+        dataset_url_or_urls, hdfs_driver=hdfs_driver, storage_options=storage_options,
+        filesystem=filesystem,
         fast_gcs_listing=fast_gcs_listing)
     if isinstance(path, list) and len(path) == 1:
         path = path[0]
@@ -261,18 +253,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, reader_pool_type=
                   dynamic_ventilation=dynamic_ventilation)
 
 
-def _check_unported(factory, unported):
-    for name, value in unported.items():
-        if name not in UNPORTED_READER_ARGS:
-            raise TypeError(f"{factory}() got an unexpected keyword argument {name!r}")
-        if value != UNPORTED_READER_ARGS[name]:
-            raise NotImplementedError(
-                f"{factory}({name}=...) is not ported yet: {_UNPORTED_REASONS[name]}")
-
-
-def _open_dataset(dataset_url, storage_options=None, filesystem=None, fast_gcs_listing=False):
+def _open_dataset(dataset_url, storage_options=None, filesystem=None, fast_gcs_listing=False,
+                  hdfs_driver="libhdfs"):
     """``(filesystem, path, stored Unischema)`` of a petastorm dataset."""
-    resolver = FilesystemResolver(dataset_url, storage_options=storage_options,
+    resolver = FilesystemResolver(dataset_url, hdfs_driver=hdfs_driver,
+                                  storage_options=storage_options,
                                   filesystem=filesystem, fast_gcs_listing=fast_gcs_listing)
     fs, path = resolver.filesystem(), resolver.get_dataset_path()
     try:
@@ -387,7 +372,7 @@ class Reader:
     """Iterator/context manager over the rows or column batches of a
     dataset, decoded by ``worker_class`` in ``reader_pool``."""
 
-    def __init__(self, filesystem, dataset_path, schema, reader_pool, worker_class,
+    def __init__(self, pyarrow_filesystem, dataset_path, schema, reader_pool, worker_class,
                  results_queue_reader, schema_fields=None, transform_spec=None,
                  shuffle_row_groups=True, shuffle_row_drop_partitions=1, predicate=None,
                  rowgroup_selector=None, num_epochs=1, cur_shard=None, shard_count=None,
@@ -402,7 +387,7 @@ class Reader:
                              f"[0, {shard_count})")
         if num_epochs is not None and num_epochs <= 0:
             raise ValueError("num_epochs must be a positive integer or None")
-        self._filesystem = filesystem
+        self._filesystem = filesystem = pyarrow_filesystem
         self._dataset_path = dataset_path
         self._predicate = predicate
         self.num_epochs = num_epochs
@@ -643,6 +628,9 @@ class Reader:
         except EmptyResultError:
             self.last_row_consumed = True
             raise StopIteration from None
+
+    def next(self):
+        return self.__next__()
 
     def __enter__(self):
         return self

@@ -10,10 +10,42 @@ buffer yields the same order in both.
 from __future__ import annotations
 
 import random
+from abc import ABC, abstractmethod
 from collections import deque
 
 
-class NoopShufflingBuffer:
+class ShufflingBufferBase(ABC):
+    """Items flow :meth:`add_many` → :meth:`retrieve`; :meth:`finish`
+    drains the tail."""
+
+    @abstractmethod
+    def add_many(self, items):
+        ...
+
+    @abstractmethod
+    def retrieve(self):
+        ...
+
+    @abstractmethod
+    def can_add(self):
+        ...
+
+    @abstractmethod
+    def can_retrieve(self):
+        ...
+
+    @property
+    @abstractmethod
+    def size(self):
+        ...
+
+    @abstractmethod
+    def finish(self):
+        """No more items will be added; everything buffered becomes
+        retrievable."""
+
+
+class NoopShufflingBuffer(ShufflingBufferBase):
     """Pass-through FIFO (shuffling off)."""
 
     def __init__(self):
@@ -40,7 +72,7 @@ class NoopShufflingBuffer:
         self._done = True
 
 
-class RandomShufflingBuffer:
+class RandomShufflingBuffer(ShufflingBufferBase):
     """Random-eviction reservoir.
 
     ``shuffling_buffer_capacity``: :meth:`can_add` is False at or above it.

@@ -56,6 +56,13 @@ class DataframeColumnCodec(ABC):
     def arrow_dtype(self):
         """The ``pyarrow.DataType`` of the stored column."""
 
+    def spark_dtype(self):
+        """The Spark SQL type of the stored column (needs pyspark;
+        :func:`~petastorm_tpu_torch.compat.spark_shim.codec_spark_dtype`)."""
+        from petastorm_tpu_torch.compat.spark_shim import codec_spark_dtype
+
+        return codec_spark_dtype(self)
+
     def __eq__(self, other):
         return isinstance(other, self.__class__) and self.__dict__ == other.__dict__
 

@@ -113,6 +113,12 @@ class Unischema:
                                           list(self._fields))
         return self._namedtuple(*map(kwargs.get, self._fields))
 
+    def make_namedtuple_tf(self, *args, **kwargs):
+        """The row namedtuple from positional or keyword values as given
+        (the TensorFlow adapters build it from tensors)."""
+        self.make_namedtuple()
+        return self._namedtuple(*args, **kwargs)
+
     def make_namedtuples(self, row_dicts):
         """:meth:`make_namedtuple` over a list of row dicts."""
         self.make_namedtuple()
@@ -158,6 +164,13 @@ class Unischema:
         return pa.schema([
             pa.field(f.name, _storage_arrow_type(f), nullable=f.nullable)
             for f in self._fields.values()])
+
+    def as_spark_schema(self):
+        """The Spark ``StructType`` of the schema (needs pyspark;
+        :mod:`petastorm_tpu_torch.compat.spark_shim`)."""
+        from petastorm_tpu_torch.compat.spark_shim import unischema_as_spark_schema
+
+        return unischema_as_spark_schema(self)
 
     @classmethod
     def from_arrow_schema(cls, arrow_schema_or_dataset, omit_unsupported_fields=False):
@@ -268,3 +281,11 @@ def encode_row(unischema, row_dict):
         else:
             encoded[name] = ScalarCodec().encode(field, value)
     return encoded
+
+
+def dict_to_spark_row(unischema, row_dict):
+    """A row dict encoded with the codecs as a Spark ``Row`` (needs pyspark;
+    :mod:`petastorm_tpu_torch.compat.spark_shim`)."""
+    from petastorm_tpu_torch.compat.spark_shim import dict_to_spark_row as _impl
+
+    return _impl(unischema, row_dict)

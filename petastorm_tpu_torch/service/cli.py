@@ -583,11 +583,13 @@ def _job_row_totals(sample):
     return totals
 
 
-def run_status(address, interval_s=2.0, out=None, max_refreshes=None, stop_event=None,
-               trainer_metrics=None):
-    """``status --watch``: poll, render :func:`render_fleet_status` each
-    ``interval_s`` until interrupted (``max_refreshes`` / ``stop_event``
-    bound it). An unreachable dispatcher is reported and polled again."""
+def run_status(address, watch=False, interval_s=2.0, out=None, max_refreshes=None,
+               stop_event=None, trainer_metrics=None):
+    """Poll and render :func:`render_fleet_status` once after
+    ``interval_s``, or with ``watch`` each ``interval_s`` until interrupted
+    (``max_refreshes`` / ``stop_event`` bound it). An unreachable
+    dispatcher ends a single render with 1; a watch reports it and polls
+    again."""
     out = out if out is not None else sys.stdout
     prev = collect_fleet_sample(address)
     prev_tune = (collect_autotune_sample(trainer_metrics)
@@ -598,10 +600,14 @@ def run_status(address, interval_s=2.0, out=None, max_refreshes=None, stop_event
         try:
             cur = collect_fleet_sample(address)
         except OSError as exc:
+            if not watch:
+                out.write(f"dispatcher unreachable: {exc}\n")
+                return 1
             out.write(f"dispatcher unreachable ({exc}); retrying...\n")
             out.flush()
             continue
-        out.write("\x1b[2J\x1b[H")  # clear and home
+        if watch:
+            out.write("\x1b[2J\x1b[H")  # clear and home
         out.write(render_fleet_status(prev, cur) + "\n")
         if trainer_metrics is not None:
             cur_tune = collect_autotune_sample(trainer_metrics)
@@ -610,7 +616,7 @@ def run_status(address, interval_s=2.0, out=None, max_refreshes=None, stop_event
         out.flush()
         prev = cur
         refreshes += 1
-        if max_refreshes is not None and refreshes >= max_refreshes:
+        if not watch or (max_refreshes is not None and refreshes >= max_refreshes):
             break
     return 0
 
@@ -750,7 +756,7 @@ def main(argv=None, run_seconds=None, stop_event=None):
         address = parse_address(args.dispatcher)
         if args.watch:
             try:
-                return run_status(address, interval_s=args.interval,
+                return run_status(address, watch=True, interval_s=args.interval,
                                   trainer_metrics=(parse_address(args.trainer_metrics)
                                                    if args.trainer_metrics else None))
             except KeyboardInterrupt:

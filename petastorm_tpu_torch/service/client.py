@@ -135,6 +135,15 @@ class ServiceError(RuntimeError):
     ``error``, or the service cannot make progress."""
 
 
+class DegradedDispatcherError(OSError):
+    """The dispatcher refused a state-mutating request because it is in
+    degraded read-only mode (a journal write failed, e.g. ENOSPC). An
+    ``OSError`` on purpose: the shared retry policy treats it as
+    transient, because every mutating request first attempts recovery (a
+    full snapshot compaction) and the next retry may find a healed
+    dispatcher."""
+
+
 def _add_stream_fields(request, stream, conn):
     """The stream request's optional fields: the transport advertisement,
     the shuffle seed, the transform placement, the packing spec and the
@@ -1230,7 +1239,9 @@ class ServiceBatchSource:
                 reply, _ = conn.request(header)
             if reply.get("type") == "error":
                 if reply.get("retryable"):
-                    raise OSError(reply.get("error", "dispatcher degraded"))
+                    # A degraded dispatcher heals on a later request, so
+                    # this rides the OSError retry path.
+                    raise DegradedDispatcherError(reply.get("error", "dispatcher degraded"))
                 raise ServiceError(reply.get("error", "dispatcher error"))
             return reply
 

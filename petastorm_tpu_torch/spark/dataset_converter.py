@@ -1,5 +1,5 @@
-"""One call from a DataFrame to PyTorch input pipelines (the port's own copy
-of ``petastorm_tpu/spark/dataset_converter.py``).
+"""One call from a DataFrame to PyTorch or TensorFlow input pipelines (the
+port's own copy of ``petastorm_tpu/spark/dataset_converter.py``).
 
 Reference parity: ``petastorm/spark/spark_dataset_converter.py``
 (``make_spark_converter``, ``SparkDatasetConverter`` with
@@ -24,7 +24,9 @@ The loaders:
   :func:`~petastorm_tpu_torch.torch_utils.loader.make_torch_dataloader`
   over ``make_batch_reader`` with ``loader_kwargs`` (``autotune=``,
   ``device_prefetch``, ...);
-- ``make_tf_dataset`` is not ported and raises NotImplementedError.
+- :meth:`DatasetConverter.make_tf_dataset`: a ``tf.data.Dataset`` over
+  ``make_batch_reader`` (:func:`~petastorm_tpu_torch.tf_utils.
+  make_petastorm_dataset`), rebatched to ``batch_size`` when given.
 
 The parent cache directory comes from (in priority order) the explicit
 argument, :func:`set_parent_cache_dir_url`, or ``$PETASTORM_TPU_CACHE_DIR``,
@@ -220,11 +222,19 @@ class DatasetConverter:
 
         return make_batch_reader(self.cache_dir_url, **(reader_kwargs or {}))
 
-    def make_tf_dataset(self, *args, **kwargs):
-        """Not ported: the TensorFlow adapters are not part of the port."""
-        raise NotImplementedError(
-            "make_tf_dataset is not ported to petastorm_tpu_torch (no TensorFlow "
-            "adapters): use make_torch_dataloader or make_torch_device_dataloader")
+    def make_tf_dataset(self, batch_size=None, num_epochs=None, workers_count=None,
+                        shuffle_row_groups=True, **reader_kwargs):
+        """The reference's TensorFlow pipeline: ``make_batch_reader`` over
+        the cache directory → :func:`~petastorm_tpu_torch.tf_utils.
+        make_petastorm_dataset`, unbatched and rebatched to ``batch_size``
+        when given, as a context manager that stops the reader on exit.
+        TensorFlow is the caller's framework here: no ``device``."""
+        reader_kwargs.setdefault("shuffle_row_groups", shuffle_row_groups)
+        if num_epochs is not None:
+            reader_kwargs["num_epochs"] = num_epochs
+        if workers_count is not None:
+            reader_kwargs["workers_count"] = workers_count
+        return _TFDatasetContextManager(self._make_batch_reader(reader_kwargs), batch_size)
 
     def make_torch_dataloader(self, batch_size=32, num_epochs=None,
                               workers_count=None, shuffling_queue_capacity=0,
@@ -297,6 +307,26 @@ class _ClosingContextManager:
 
     def __exit__(self, exc_type, exc_val, exc_tb):
         return self._loader.__exit__(exc_type, exc_val, exc_tb)
+
+
+class _TFDatasetContextManager:
+    """Yields a ``tf.data.Dataset``; stops the reader on exit."""
+
+    def __init__(self, reader, batch_size):
+        self._reader = reader
+        self._batch_size = batch_size
+
+    def __enter__(self):
+        from petastorm_tpu_torch.tf_utils import make_petastorm_dataset
+
+        dataset = make_petastorm_dataset(self._reader)
+        if self._batch_size:
+            dataset = dataset.unbatch().batch(self._batch_size)
+        return dataset
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self._reader.stop()
+        self._reader.join()
 
 
 @atexit.register

@@ -29,13 +29,13 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
     holding a null in one of ``not_null_fields``, into
     ``partitions_count`` files (rows split evenly) of row groups sized by
     ``row_group_size_mb`` or ``rows_per_row_group``. A non-empty target
-    raises ValueError unless ``overwrite_output``. ``storage_options``
-    apply to both stores. A Spark session and ``hdfs_driver`` raise
-    NotImplementedError naming the argument."""
+    raises ValueError unless ``overwrite_output``. ``hdfs_driver`` and
+    ``storage_options`` apply to both stores. ``spark`` is taken for the
+    JAX package's signature and unused: the copy streams through pyarrow."""
     from petastorm_tpu_torch.reader.reader import make_reader
 
-    etl_metadata.refuse_unported("copy_dataset", spark=spark, hdfs_driver=hdfs_driver)
-    target = FilesystemResolver(target_url, storage_options=storage_options)
+    target = FilesystemResolver(target_url, hdfs_driver=hdfs_driver,
+                                storage_options=storage_options)
     if not overwrite_output:
         try:
             if target.filesystem().get_file_info(pafs.FileSelector(target.get_dataset_path())):
@@ -44,7 +44,8 @@ def copy_dataset(spark, source_url, target_url, field_regex=None, not_null_field
         except FileNotFoundError:
             pass
 
-    source = FilesystemResolver(source_url, storage_options=storage_options)
+    source = FilesystemResolver(source_url, hdfs_driver=hdfs_driver,
+                                storage_options=storage_options)
     source_fs, source_path = source.filesystem(), source.get_dataset_path()
     schema = etl_metadata.get_schema(source_fs, source_path)
     if field_regex:

@@ -170,12 +170,12 @@ class DeviceStage:
             x = (x - mean) * inv_std
         return x
 
-    def apply(self, raw, step):
+    def apply(self, raw_device, step):
         """Run the stage over raw ``{field: uint8 tensor}`` batches that lie
         on their device; ``step`` is the batch's production ordinal, which
         seeds its draws. Returns ``{field: output_dtype tensor}``."""
-        return {name: self._augment(raw[name], step, i)
-                for i, name in enumerate(sorted(raw))}
+        return {name: self._augment(raw_device[name], step, i)
+                for i, name in enumerate(sorted(raw_device))}
 
     def describe(self):
         """The stage's configuration as plain data."""

@@ -59,6 +59,10 @@ import warnings
 import torch
 import torch.distributed as dist
 
+# The reader's shard arithmetic, re-exported where the JAX package defines
+# it, so metadata-only step counts agree with what each rank reads.
+from petastorm_tpu_torch.reader.reader import split_pieces_for_shards  # noqa: F401
+
 #: Backends that take host tensors only: CUDA tensors go through pinned
 #: host memory.
 HOST_STAGED_BACKENDS = ("gloo",)
@@ -86,11 +90,14 @@ def _batches_for_rows(rows, batch_size, last_batch):
 
 
 def global_step_count(dataset_url, batch_size, shard_count, last_batch="drop",
-                      num_epochs=1, shard_seed=None, filters=None):
+                      num_epochs=1, shard_seed=None, filters=None, storage_options=None,
+                      filesystem=None, hdfs_driver="libhdfs"):
     """The smallest shard's batch count over ``num_epochs`` epochs, from
     Parquet metadata alone: the same enumeration (``filters`` included) and
     shard arithmetic the reader plans with, then the batcher's
-    ``last_batch`` policy. 0 when a shard is empty."""
+    ``last_batch`` policy. 0 when a shard is empty. ``storage_options``,
+    ``filesystem`` and ``hdfs_driver`` select the filesystem, as for the
+    readers."""
     if num_epochs is None:
         raise ValueError(
             "global_step_count requires a finite num_epochs (an infinite "
@@ -99,12 +106,10 @@ def global_step_count(dataset_url, batch_size, shard_count, last_batch="drop",
         raise ValueError("shard_count must be a positive integer")
     from petastorm_tpu_torch.etl.metadata import piece_row_counts
     from petastorm_tpu_torch.fs_utils import FilesystemResolver
-    from petastorm_tpu_torch.reader.reader import (
-        enumerate_row_group_pieces,
-        split_pieces_for_shards,
-    )
+    from petastorm_tpu_torch.reader.reader import enumerate_row_group_pieces
 
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, hdfs_driver=hdfs_driver,
+                                  storage_options=storage_options, filesystem=filesystem)
     fs = resolver.filesystem()
     pieces = enumerate_row_group_pieces(fs, resolver.get_dataset_path(), filters)
     counts = piece_row_counts(fs, pieces)

@@ -20,14 +20,17 @@ from petastorm_tpu_torch.workers_pool import (
 
 
 class DummyPool:
-    """Processes each ventilated item inside :meth:`ventilate`."""
+    """Processes each ventilated item inside :meth:`ventilate`.
+    ``workers_count`` is only reported in :attr:`diagnostics`, and
+    ``results_queue_size`` is taken and unused (the results deque is
+    unbounded), as in the JAX pool."""
 
-    workers_count = 1
     #: Completion markers carry their item's kwargs (the streaming piece
     #: engine needs the attribution).
     supports_item_done_hook = True
 
-    def __init__(self):
+    def __init__(self, workers_count=1, results_queue_size=None):
+        self.workers_count = workers_count
         self._results = deque()
         self._worker = None
         self._ventilator = None
@@ -62,10 +65,7 @@ class DummyPool:
             "items_ventilated": ventilated,
             "items_processed": completed,
             "items_in_flight": ventilated - completed,
-            # Payloads only: completion markers are control flow.
-            "results_queue_size": sum(
-                1 for r in list(self._results)
-                if not isinstance(r, VentilatedItemProcessedMessage)),
+            "results_queue_size": self.results_qsize(),
             "workers_count": self.workers_count,
         }
 
@@ -122,6 +122,12 @@ class DummyPool:
             if deadline is not None and time.monotonic() > deadline:
                 raise TimeoutWaitingForResultError(f"No results for {timeout}s")
             time.sleep(0.001)
+
+    def results_qsize(self):
+        """Result payloads awaiting :meth:`get_results`; completion markers
+        are control flow and not counted."""
+        return sum(1 for r in list(self._results)
+                   if not isinstance(r, VentilatedItemProcessedMessage))
 
     def stop(self):
         self._stopped = True

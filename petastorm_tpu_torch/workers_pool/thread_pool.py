@@ -43,7 +43,8 @@ class ThreadPool:
     #: them (the streaming piece engine needs it).
     supports_item_done_hook = True
 
-    def __init__(self, workers_count, results_queue_size=50):
+    def __init__(self, workers_count, results_queue_size=50, profiling_enabled=False):
+        # ``profiling_enabled`` is taken and unused, as in the JAX pool.
         self.workers_count = workers_count
         # Bounded, so decode stays at most ``results_queue_size`` work items
         # ahead of the consumer.
@@ -228,6 +229,12 @@ class ThreadPool:
             settled = self._ventilated_items == self._completed_items
         over = self._ventilator is None or self._ventilator.completed()
         return settled and over and self._ventilator_queue.empty()
+
+    def results_qsize(self):
+        """Result payloads awaiting :meth:`get_results`; the completion
+        markers the queue also holds are not counted."""
+        with self._counter_lock:
+            return self._results_pending
 
     def stop(self):
         if self._ventilator is not None:

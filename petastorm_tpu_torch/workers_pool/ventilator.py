@@ -13,11 +13,35 @@ from __future__ import annotations
 
 import random
 import threading
+from abc import ABC, abstractmethod
 
 from petastorm_tpu_torch.telemetry.metrics import VENTILATOR_EPOCHS, VENTILATOR_ITEMS
 
 
-class ConcurrentVentilator:
+class Ventilator(ABC):
+    """Base ventilator: feeds work items to a pool through ``ventilate_fn``."""
+
+    def __init__(self, ventilate_fn):
+        self._ventilate_fn = ventilate_fn
+
+    @abstractmethod
+    def start(self):
+        """Begin ventilation (typically on a background thread)."""
+
+    @abstractmethod
+    def processed_item(self):
+        """Note that one ventilated item finished (advances the window)."""
+
+    @abstractmethod
+    def completed(self):
+        """True when no further items will ever be ventilated."""
+
+    @abstractmethod
+    def stop(self):
+        """Stop ventilation and release the background thread."""
+
+
+class ConcurrentVentilator(Ventilator):
     """Ventilates ``items_to_ventilate`` (kwargs dicts) for ``iterations``
     epochs (``None`` = forever) on a background thread, with at most
     ``max_ventilation_queue_size`` items in flight.
@@ -26,14 +50,16 @@ class ConcurrentVentilator:
     ``items_to_ventilate`` of how many more epochs each item is ventilated
     for; epoch ``e`` (0-based) ventilates the items with
     ``per_item_iterations[i] > e``. Requires finite ``iterations`` equal to
-    ``max(per_item_iterations)``."""
+    ``max(per_item_iterations)``. ``ventilation_interval``: seconds between
+    checks for room while the window is full."""
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
                  randomize_item_order=False, random_seed=None,
-                 max_ventilation_queue_size=None, per_item_iterations=None):
+                 max_ventilation_queue_size=None, ventilation_interval=0.01,
+                 per_item_iterations=None):
+        super().__init__(ventilate_fn)
         if iterations is not None and iterations <= 0:
             raise ValueError(f"iterations must be positive or None, got {iterations}")
-        self._ventilate_fn = ventilate_fn
         self._items_to_ventilate = list(items_to_ventilate)
         if per_item_iterations is not None:
             if iterations is None:
@@ -48,6 +74,7 @@ class ConcurrentVentilator:
         self._random = random.Random(random_seed)
         self._max_in_flight = (max_ventilation_queue_size
                                or len(self._items_to_ventilate) or 1)
+        self._ventilation_interval = ventilation_interval
         self._in_flight = 0
         self._items_ventilated = 0
         self._epochs_completed = 0
@@ -97,7 +124,7 @@ class ConcurrentVentilator:
                     with self._space_available:
                         while (self._in_flight >= self._max_in_flight
                                and not self._stop_requested):
-                            self._space_available.wait(0.01)
+                            self._space_available.wait(self._ventilation_interval)
                         if self._stop_requested:
                             return
                         self._in_flight += 1
@@ -147,7 +174,7 @@ class ConcurrentVentilator:
         self.start()
 
 
-class DynamicVentilator:
+class DynamicVentilator(Ventilator):
     """A ventilator fed one item at a time through :meth:`submit` instead
     of from a planned list: the seam behind ``dynamic_ventilation=True``
     readers, through which the service's streaming piece engine feeds pieces
@@ -158,7 +185,7 @@ class DynamicVentilator:
     dummy pool decodes inside the call)."""
 
     def __init__(self, ventilate_fn):
-        self._ventilate_fn = ventilate_fn
+        super().__init__(ventilate_fn)
         self._lock = threading.Lock()
         self._in_flight = 0
         self._items_ventilated = 0

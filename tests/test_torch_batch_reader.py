@@ -10,9 +10,9 @@ same stores: the Criteo-shaped store both packages write
 - ``filters`` (DNF lists and ``pyarrow.dataset`` expressions) plan the same
   pieces in both packages, and DNF and expression forms agree;
 - ``Unischema.from_arrow_schema`` infers the same fields;
-- ``storage_options``, ``filesystem``, ``fast_gcs_listing`` and
-  ``piece_indices`` give the JAX reader's batches, and the two arguments
-  the port does not take raise NotImplementedError by name;
+- ``storage_options``, ``hdfs_driver``, ``filesystem``,
+  ``fast_gcs_listing``, ``piece_indices`` and ``dynamic_ventilation`` give
+  the JAX reader's batches;
   ``zmq_copy_buffers=False`` through both packages' process pools gives
   the same batches.
 
@@ -219,18 +219,15 @@ def test_from_arrow_schema_of_the_store_matches_jax(store):
     ("filesystem", "local"), ("piece_indices", [5, 0, 2]), ("dynamic_ventilation", True),
 ])
 def test_unported_arguments_raise_by_name(store, name, value):
-    """``hdfs_driver`` is refused by name; the four others give the JAX
-    reader's batches, bit for bit, and ``dynamic_ventilation`` the JAX
-    reader's ``(batch, piece)`` pairs for the same submitted pieces."""
+    """Each argument gives the JAX reader's batches, bit for bit
+    (``hdfs_driver`` is taken and unused by both on a local store), and
+    ``dynamic_ventilation`` the JAX reader's ``(batch, piece)`` pairs for
+    the same submitted pieces."""
     import pyarrow.fs as pafs
 
     from petastorm_tpu import make_batch_reader as jax_make_batch_reader
     from petastorm_tpu_torch.reader.reader import make_batch_reader
 
-    if name == "hdfs_driver":
-        with pytest.raises(NotImplementedError, match=name):
-            make_batch_reader(store, **{name: value})
-        return
     if name == "dynamic_ventilation":
         pairs = {}
         for package, make in (("port", make_batch_reader), ("jax", jax_make_batch_reader)):

@@ -13,7 +13,8 @@ held against ``petastorm_tpu.spark`` on the same seeded tables:
   the JAX converter's torch batches; ``make_torch_device_dataloader`` yields
   the JAX ``make_jax_dataloader``'s batches (compared as numpy), with and
   without ``autotune``;
-- ``make_tf_dataset`` raises NotImplementedError naming it;
+- ``make_tf_dataset`` is held against the JAX converter's in
+  ``tests/test_torch_tf_utils.py``;
 - a ``pa.Table`` converts in a fresh interpreter where pandas cannot be
   imported, and no pandas module is loaded.
 
@@ -241,13 +242,6 @@ def test_device_loader_equals_make_jax_dataloader(parents, autotune):
         assert not tuned.running and "workers_count" in tuned.knob_values()
     port.delete()
     ref.delete()
-
-
-def test_make_tf_dataset_is_not_ported(parents):
-    conv = port_dc.make_spark_converter(_numeric(10))
-    with pytest.raises(NotImplementedError, match="make_tf_dataset"):
-        conv.make_tf_dataset(batch_size=5)
-    conv.delete()
 
 
 def test_arrow_table_conversion_imports_no_pandas(tmp_path):

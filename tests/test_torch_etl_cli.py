@@ -10,9 +10,9 @@
   stored schema;
 - ``copy_dataset``: a field subset, a not-null filter and a re-split into
   files give the JAX tool's store byte for byte; a non-empty target is
-  refused unless overwritten; ``storage_options`` (and ``filesystem`` for
-  the metadata CLI) give the JAX files, and a Spark session and
-  ``hdfs_driver`` raise NotImplementedError naming the argument.
+  refused unless overwritten; ``storage_options``, ``hdfs_driver``, a Spark
+  session (``copy_dataset``) and ``filesystem`` (the metadata CLI) give the
+  JAX files.
 
 Each test writes its own stores under ``tmp_path`` (the factories'
 ``TestSchema`` store, 30 rows in 3 row groups, byte-equal in both
@@ -126,16 +126,13 @@ def test_generate_metadata_regenerates_like_jax(tmp_path, capsys, how):
 
 
 def test_generate_metadata_refusals(tmp_path):
-    """``hdfs_driver`` is refused by name; ``storage_options`` and
-    ``filesystem`` regenerate a deleted ``_common_metadata`` byte for byte
-    as the JAX package does."""
+    """``hdfs_driver``, ``storage_options`` and ``filesystem`` regenerate a
+    deleted ``_common_metadata`` byte for byte as the JAX package does."""
     import pyarrow.fs as pafs
 
-    url = f"file://{tmp_path}/store"
-    with pytest.raises(NotImplementedError, match=r"\(hdfs_driver="):
-        petastorm_generate_metadata.generate_petastorm_metadata(url, hdfs_driver="libhdfs3")
     paths = _stores(tmp_path)
-    for kwargs in ({"storage_options": {"anon": True}}, {"filesystem": pafs.LocalFileSystem()}):
+    for kwargs in ({"hdfs_driver": "libhdfs3"}, {"storage_options": {"anon": True}},
+                   {"filesystem": pafs.LocalFileSystem()}):
         for path in paths.values():
             os.remove(os.path.join(path, "_common_metadata"))
         petastorm_generate_metadata.generate_petastorm_metadata(
@@ -188,21 +185,17 @@ def test_copy_dataset_cli_and_target_refusal(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kwargs,name", [({"spark": object()}, "spark"),
-                                         ({"storage_options": {}}, "storage_options"),
+                                         ({"storage_options": {"anon": True}},
+                                          "storage_options"),
                                          ({"hdfs_driver": "libhdfs3"}, "hdfs_driver")])
 def test_copy_dataset_refusals(tmp_path, kwargs, name):
-    """A Spark session and ``hdfs_driver`` are refused by name;
-    ``storage_options`` copies the JAX tool's store byte for byte."""
+    """A Spark session (taken and unused), ``storage_options`` and
+    ``hdfs_driver`` copy the JAX tool's store byte for byte."""
+    kwargs = dict(kwargs)
     spark = kwargs.pop("spark", None)
-    if name != "storage_options":
-        with pytest.raises(NotImplementedError, match=rf"\({name}="):
-            copy_dataset.copy_dataset(spark, f"file://{tmp_path}/a", f"file://{tmp_path}/b",
-                                      **kwargs)
-        return
     paths = _stores(tmp_path)
-    args = dict(field_regex=["id.*", "decimal"], rows_per_row_group=4,
-                storage_options={"anon": True})
-    copy_dataset.copy_dataset(None, f"file://{paths['port']}", f"file://{tmp_path}/port_copy",
+    args = dict(field_regex=["id.*", "decimal"], rows_per_row_group=4, **kwargs)
+    copy_dataset.copy_dataset(spark, f"file://{paths['port']}", f"file://{tmp_path}/port_copy",
                               **args)
-    jax_copy.copy_dataset(None, f"file://{paths['jax']}", f"file://{tmp_path}/jax_copy", **args)
+    jax_copy.copy_dataset(spark, f"file://{paths['jax']}", f"file://{tmp_path}/jax_copy", **args)
     assert _digests(tmp_path / "port_copy") == _digests(tmp_path / "jax_copy")

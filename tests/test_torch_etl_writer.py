@@ -9,9 +9,9 @@
 - ``encode_workers > 1`` is byte-equal to ``encode_workers=1``.
 - The reference call forms run (no TypeError), a positional 4th argument
   of ``write_rows`` means megabytes in both; ``storage_options``,
-  ``filesystem`` and ``filesystem_factory`` write the JAX writer's files,
-  and a Spark session and ``hdfs_driver`` raise NotImplementedError naming
-  the argument.
+  ``filesystem``, ``filesystem_factory``, ``hdfs_driver`` and a Spark
+  session write the JAX writer's files, and the session sees the JAX
+  writer's Hadoop conf calls.
 - ``get_schema`` in both call forms and ``infer_or_load_unischema``
   (stored and inferred) equal the JAX results field by field; the
   Unischema's equality, hash, repr and ``insert_explicit_nulls`` match.
@@ -33,6 +33,7 @@ from petastorm_tpu.schema import unischema as jax_unischema
 from petastorm_tpu_torch.etl import metadata
 from petastorm_tpu_torch.schema import codecs
 from petastorm_tpu_torch.schema import unischema
+from test_torch_spark_shim import _Session
 
 ROWS = 40
 
@@ -255,7 +256,7 @@ def test_write_rows_without_rows_raises_like_jax(tmp_path):
 def _refusals(module, url, schema):
     """The writer's filesystem arguments, each written through ``module``
     (a package's ``etl.metadata``): ten rows in groups of five, or the
-    schema read back. ``spark`` and ``hdfs_driver`` stay refused."""
+    schema read back; with a Spark session, its Hadoop conf calls."""
     fs = pafs.LocalFileSystem()
     rows = list(_rows(10))
 
@@ -263,8 +264,13 @@ def _refusals(module, url, schema):
         with module.materialize_dataset(kwargs.pop("spark", None), url, schema, **kwargs):
             module.write_rows(url, schema, rows, rows_per_row_group=5, **(write_kwargs or {}))
 
+    def with_session():
+        session = _Session({"parquet.block.size": "134217728"})
+        enter(spark=session, row_group_size_mb=4)
+        return session.calls, session.values
+
     return {
-        "spark": lambda: enter(spark=object()),
+        "spark": with_session,
         "filesystem_factory": lambda: enter(filesystem_factory=pafs.LocalFileSystem),
         "storage_options": lambda: enter(storage_options={"anon": True}),
         "filesystem": lambda: enter(filesystem=fs),
@@ -272,8 +278,8 @@ def _refusals(module, url, schema):
         "write_rows filesystem": lambda: enter({"filesystem": fs}),
         "materialize_rows filesystem": lambda: module.materialize_rows(
             url, schema, rows, rows_per_row_group=5, filesystem=fs),
-        "get_schema_from_dataset_url hdfs_driver": lambda: module.get_schema_from_dataset_url(
-            url, hdfs_driver="libhdfs3"),
+        "get_schema_from_dataset_url hdfs_driver": lambda: (
+            enter(), module.get_schema_from_dataset_url(url, hdfs_driver="libhdfs3"))[1],
         "get_schema_from_dataset_url storage_options": lambda: (
             enter(), module.get_schema_from_dataset_url(url, storage_options={"anon": True}))[1],
     }
@@ -281,15 +287,9 @@ def _refusals(module, url, schema):
 
 @pytest.mark.parametrize("case", list(_refusals(metadata, "", None)))
 def test_unported_arguments_raise_not_implemented_by_name(tmp_path, case):
-    """``spark`` and ``hdfs_driver`` raise NotImplementedError naming them
-    and attach nothing; every other filesystem argument writes the JAX
-    writer's files byte for byte (or reads the same schema back)."""
-    if case in ("spark", "get_schema_from_dataset_url hdfs_driver"):
-        url = f"file://{tmp_path}/refused"
-        with pytest.raises(NotImplementedError, match=rf"\({case.split()[-1]}="):
-            _refusals(metadata, url, _schemas()[0])[case]()
-        assert not os.path.exists(tmp_path / "refused" / "_common_metadata")
-        return
+    """Every filesystem argument, ``hdfs_driver`` and a Spark session write
+    the JAX writer's files byte for byte (or read the same schema back); the
+    session sees the JAX writer's Hadoop conf calls and keeps its values."""
     results = {}
     for package, module, schema in (("port", metadata, _schemas()[0]),
                                     ("jax", jax_metadata, _schemas()[1])):
@@ -298,6 +298,9 @@ def test_unported_arguments_raise_not_implemented_by_name(tmp_path, case):
     assert len(_digests(tmp_path / "port")) == 2  # one data file and _common_metadata
     if case.startswith("get_schema"):
         assert _field_keys(results["port"]) == _field_keys(results["jax"])
+    if case == "spark":
+        assert results["port"] == results["jax"]
+        assert results["port"][1] == {"parquet.block.size": "134217728"}
 
 
 def _field_keys(schema):

@@ -4,8 +4,8 @@
   ``file://``, fsspec's ``memory://`` with ``storage_options``, a caller's
   pyarrow or fsspec ``filesystem``, and the ``s3a`` / ``s3n`` / ``gcs``
   renames (through fake ``s3`` / ``gs`` protocols: nothing leaves the
-  host); ``get_filesystem_and_path_or_paths`` and ``get_dataset_path``;
-  ``hdfs://`` resolves its namenodes, then raises NotImplementedError.
+  host); ``get_filesystem_and_path_or_paths`` and ``get_dataset_path``
+  (``hdfs://`` connections are held in ``tests/test_torch_hdfs.py``).
 - GCS fast listing against a fake ``gs`` protocol: one ``find`` sweep,
   the same directory cache and wrapper answers as the JAX helpers, a
   reader over ``gs://`` through one sweep, and the sweep's retries.
@@ -362,18 +362,6 @@ def test_namenode_resolver_equals_jax(hadoop_conf):
     assert port_namenode.HdfsNamenodeResolver({}).resolve_hdfs_name_service("dns") == ["dns"]
     error = port_namenode.MaxFailoversExceeded([OSError("x")], 2, "connect")
     assert str(error) == str(jax_namenode.MaxFailoversExceeded([OSError("x")], 2, "connect"))
-
-
-@pytest.mark.parametrize("url,namenodes", [
-    ("hdfs://ns1/data/ds", "['host1:8020', 'host2:8020']"),
-    ("hdfs:///data/ds", "['host1:8020', 'host2:8020']"),
-    ("hdfs://nn.example:9000/ds", "['nn.example:9000']")])
-def test_hdfs_urls_resolve_then_refuse_naming_libhdfs(hadoop_conf, url, namenodes):
-    with pytest.raises(NotImplementedError, match="libhdfs") as info:
-        port_fs_utils.FilesystemResolver(url)
-    assert namenodes in str(info.value)
-    with pytest.raises(NotImplementedError, match="libhdfs"):
-        port_reader_mod.make_reader(url)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,9 @@ batch reader, on all three factories:
   limit and LRU eviction hold, ``cleanup`` removes the directory;
 - a ``resume_state`` crosses the packages both ways with a predicate, a
   selector and drop partitions, and the planning fingerprints are equal;
-- ``storage_options``, ``filesystem``, ``fast_gcs_listing`` and
-  ``piece_indices`` give the JAX reader's rows; ``hdfs_driver`` and
-  ``dynamic_ventilation`` raise NotImplementedError naming the argument.
+- ``storage_options``, ``hdfs_driver``, ``filesystem``,
+  ``fast_gcs_listing``, ``piece_indices`` and ``dynamic_ventilation`` give
+  the JAX reader's rows.
 
 Tolerance: none; everything is compared exactly.
 """
@@ -410,12 +410,11 @@ def test_reader_engine_and_results_queue_size(store):
         port_reader_mod.make_reader(store, reader_engine="reader_v2")
 
 
-#: The factories' filesystem and planning arguments: the one still refused
-#: (with the reason named), the five others held against the JAX reader.
+#: The factories' filesystem and planning arguments, each held against the
+#: JAX reader (``hdfs_driver`` is taken and unused by both on a local store).
 UNPORTED = [("storage_options", {"anon": True}), ("hdfs_driver", "libhdfs3"),
             ("fast_gcs_listing", False), ("filesystem", "local"),
             ("piece_indices", [6, 1, 3, 1]), ("dynamic_ventilation", True)]
-REFUSED = {"hdfs_driver": "libhdfs"}
 
 
 def _tagged_outputs(reader, pieces):
@@ -441,10 +440,6 @@ def _tagged_outputs(reader, pieces):
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 @pytest.mark.parametrize("factory", FACTORIES)
 def test_unported_arguments_raise_by_name(store, factory, name, value):
-    if name in REFUSED:
-        with pytest.raises(NotImplementedError, match=rf"{name}=.*{REFUSED[name]}"):
-            getattr(port_reader_mod, factory)(store, **{name: value})
-        return
     if name == "dynamic_ventilation":
         # The dynamic piece feed: the same (output, piece) pairs as the JAX
         # reader's for the same submissions.
