@@ -6989,7 +6989,6 @@ def main():
     print(f"train: steps={len(losses)} losses={[round(x, 4) for x in losses]} "
           f"steps_per_s={result['steps_per_s']:.2f} "
           f"steps_per_s_warm={result['steps_per_s_warm']:.2f} (from step {WARM_FROM_STEP}) "
-          f"step_ms_median_warm={result['step_ms_median_warm']:.3f} "
           f"traced_steps_per_s_warm={traced['steps_per_s_warm']:.2f} "
           f"device_busy_pct_traced={lm_busy} "
           f"input_stall_pct={diag['input_stall_pct']} h2d_bytes={diag['h2d_bytes']} "

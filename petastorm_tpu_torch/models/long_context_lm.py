@@ -22,7 +22,6 @@ and the output head is tied to ``embed`` (``h @ embed.T``), so
 from __future__ import annotations
 
 import math
-import statistics
 import time
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 from torch import nn
 
 from petastorm_tpu_torch.ops.flash_attention import flash_attention, resolve_device
+from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.torch_utils.sharding import reader_options
 from petastorm_tpu_torch.models.sequence_model import attention_reference, ring_attention
 
@@ -192,13 +192,16 @@ def make_lm_train_step(model, learning_rate=1.0, attn_impl="flash",
                        group=None):
     """``step(tokens, positions, segment_ids) -> loss``: one SGD step on
     ``model``'s parameters, updated in place (sequence-parallel attention
-    over ``group`` when one is given)."""
+    over ``group`` when one is given), in the spans ``step.forward``,
+    ``step.backward`` and ``step.update``."""
 
     def step(tokens, positions, segment_ids):
-        model.zero_grad(set_to_none=True)
-        loss = lm_loss(model, tokens, positions, segment_ids, attn_impl, group)
-        loss.backward()
-        with torch.no_grad():
+        with tracing.span("step.forward"):
+            model.zero_grad(set_to_none=True)
+            loss = lm_loss(model, tokens, positions, segment_ids, attn_impl, group)
+        with tracing.span("step.backward"):
+            loss.backward()
+        with tracing.span("step.update"), torch.no_grad():
             for p in model.parameters():
                 p -= learning_rate * p.grad
         return loss.detach()
@@ -219,9 +222,7 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
     ``losses``, ``steps_per_s`` (every step, the clock started before the
     first batch), ``steps_per_s_warm`` (the steps after the first
     ``WARM_FROM_STEP``: the clock starts after a sync there and stops after
-    one at the end; None for shorter runs), ``step_ms_median_warm`` (the
-    median host interval between those steps' starts), the loader's
-    ``diagnostics``,
+    one at the end; None for shorter runs), the loader's ``diagnostics``,
     ``batch_devices`` (where every batch arrived), ``logit_parity`` (max
     |flash − dense| logits on the last batch with the final weights: the
     ring's against the one-process dense oracle's with ``group``),
@@ -273,8 +274,6 @@ def train_lm(dataset_url, slot_len=128, slots=4, steps=12, num_heads=4,
         "losses": losses,
         "steps_per_s": len(losses) / elapsed,
         "steps_per_s_warm": len(starts) / (t_end - starts[0]) if starts else None,
-        "step_ms_median_warm": (1e3 * statistics.median(np.diff(starts))
-                                if len(starts) > 1 else None),
         "diagnostics": diagnostics,
         "batch_devices": sorted(batch_devices),
         "logit_parity": parity,

@@ -48,6 +48,7 @@ from petastorm_tpu_torch.benchmark.scenarios import (  # noqa: F401  (the store'
     make_tabular_dataset,
 )
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
+from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.torch_utils.sharding import (
     all_reduce_grads,
     all_to_all,
@@ -202,11 +203,15 @@ def masked_bce_with_logits(logits, labels, mask):
 def dlrm_gradients(model, dense, sparse_ids, labels, mask, group=None):
     """``(loss, {name: gradient})`` of one batch; under ``group`` each
     gradient is summed over the ranks (one all-reduce of them all,
-    flattened) and divided by their number, the data-parallel mean."""
-    model.zero_grad(set_to_none=True)
-    loss = masked_bce_with_logits(model(dense, sparse_ids), labels, mask)
-    loss.backward()
-    all_reduce_grads(model.parameters(), group)
+    flattened) and divided by their number, the data-parallel mean. The
+    spans ``step.forward`` (``zero_grad`` and the loss) and
+    ``step.backward`` (the backward and the all-reduce)."""
+    with tracing.span("step.forward"):
+        model.zero_grad(set_to_none=True)
+        loss = masked_bce_with_logits(model(dense, sparse_ids), labels, mask)
+    with tracing.span("step.backward"):
+        loss.backward()
+        all_reduce_grads(model.parameters(), group)
     return loss.detach(), {name: p.grad for name, p in model.named_parameters()}
 
 
@@ -214,11 +219,12 @@ def make_dlrm_train_step(model, learning_rate=0.01, group=None):
     """``step(dense, sparse_ids, labels, mask) -> loss``: one SGD step on
     ``model``'s parameters, in place; ``mask`` is the loader's
     ``__pad_mask__`` (all True when unpadded), so padded rows add nothing.
-    Under ``group`` the gradients are the ranks' mean."""
+    Under ``group`` the gradients are the ranks' mean. The update is the
+    span ``step.update``, after :func:`dlrm_gradients`' two."""
 
     def step(dense, sparse_ids, labels, mask):
         loss, grads = dlrm_gradients(model, dense, sparse_ids, labels, mask, group)
-        with torch.no_grad():
+        with tracing.span("step.update"), torch.no_grad():
             for name, p in model.named_parameters():
                 p -= learning_rate * grads[name]
         return loss
@@ -228,9 +234,10 @@ def make_dlrm_train_step(model, learning_rate=0.01, group=None):
 
 def collate_dlrm(batch):
     """A loader batch of the tabular store → ``(dense [B, 13], sparse_ids
-    [B, 26], labels [B])`` on the batch's device."""
-    dense = torch.stack([batch[f"dense_{i}"] for i in range(NUM_DENSE)], dim=1)
-    sparse = torch.stack([batch[f"cat_{i}"] for i in range(NUM_SPARSE)], dim=1)
+    [B, 26], labels [B])`` on the batch's device, in the span ``dlrm.collate``."""
+    with tracing.span("dlrm.collate"):
+        dense = torch.stack([batch[f"dense_{i}"] for i in range(NUM_DENSE)], dim=1)
+        sparse = torch.stack([batch[f"cat_{i}"] for i in range(NUM_SPARSE)], dim=1)
     return dense, sparse, batch["label"]
 
 

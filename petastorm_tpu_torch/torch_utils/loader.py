@@ -49,8 +49,9 @@ is collected), and :meth:`TorchDataLoader.stage_quantiles` estimates each
 stage's per-batch latency quantiles from them; ``trace_path`` writes each
 iteration's per-batch spans as Chrome trace JSON
 (:mod:`petastorm_tpu_torch.telemetry.tracing`, the JAX span names), and
-every stage runs under ``torch.profiler.record_function(
-"petastorm_tpu_torch.loader.<stage>")``. Threads are joined by :meth:`stop`
+every stage is one :func:`~petastorm_tpu_torch.telemetry.tracing.span`,
+which a running ``torch.profiler`` also sees as
+``petastorm_tpu_torch.loader.<stage>``. Threads are joined by :meth:`stop`
 and on ``__exit__``.
 
 :meth:`TorchDataLoader.state_dict` checkpoints the input at what the loader
@@ -133,11 +134,6 @@ def _release_loader_metrics(loader_id):
     for stage in _STAGES:
         LOADER_STAGE_SECONDS.remove(loader_id, stage)
     _LOADER_ID_POOL.append(loader_id)
-
-
-def _profiled(stage):
-    """The stage's ``torch.profiler`` annotation."""
-    return torch.profiler.record_function(f"petastorm_tpu_torch.loader.{stage}")
 
 
 def make_torch_dataloader(reader, batch_size, last_batch="drop", max_batches=None,
@@ -575,7 +571,6 @@ class TorchDataLoader:
 
     def _produce(self):
         target = self._host_queue if self._stage_in_producer else self._queue
-        collector = tracing.COLLECTOR
         try:
             source_iter = (self._reader_batches() if self._source_iter is None
                            else self._source_iter)
@@ -584,16 +579,15 @@ class TorchDataLoader:
                 batches = itertools.islice(batches, self._max_batches)
             while not self._stop.is_set():
                 t0 = time.perf_counter()
-                with _profiled("decode"):
+                with tracing.span("loader.decode") as span:
                     batch = next(batches, _SENTINEL)
-                    if batch is not _SENTINEL:
+                    if batch is _SENTINEL:
+                        span.discard()
+                    else:
                         batch = self._to_host(batch)
-                t1 = time.perf_counter()
-                self._m_stage["decode"].observe(t1 - t0)
+                self._m_stage["decode"].observe(time.perf_counter() - t0)
                 if batch is _SENTINEL:
                     break
-                if collector.enabled:
-                    collector.record_span("loader.decode", t0, t1)
                 t0 = time.perf_counter()
                 self._put(target, batch)
                 batch = None
@@ -773,7 +767,7 @@ class TorchDataLoader:
             if raw:
                 step, self._stage_step = self._stage_step, self._stage_step + 1
                 t0 = time.perf_counter()
-                with _profiled("raw_stage"):
+                with tracing.span("loader.raw_stage"):
                     raw_dev = {name: t.to(self._device, non_blocking=True)
                                for name, t in raw.items()}
                 self._m_stage["raw_stage"].observe(time.perf_counter() - t0)
@@ -782,7 +776,7 @@ class TorchDataLoader:
                     self._h2d_bytes += raw_bytes
                     self._device_stage.h2d_bytes += raw_bytes
                 t0 = time.perf_counter()
-                with _profiled("device_decode"):
+                with tracing.span("loader.device_decode"):
                     out.update(self._device_stage.apply(raw_dev, step))
                 raw_dev = None  # the outputs exist: drop the raw bytes now
                 self._m_stage["device_decode"].observe(time.perf_counter() - t0)
@@ -793,13 +787,13 @@ class TorchDataLoader:
         return out, ready
 
     def _stage_traced(self, host_batch):
-        collector = tracing.COLLECTOR
-        t0 = time.perf_counter()
-        with _profiled("device_put"):
-            staged = self._stage(host_batch)
-        if collector.enabled:
-            collector.record_span("loader.device_put", t0, time.perf_counter())
-        return staged
+        span = tracing.span("loader.device_put")
+        if span.armed:
+            # The batch's tensors, each one copy to the device.
+            tensors = [t for part in host_batch for t in part.values() if torch.is_tensor(t)]
+            span.args.update(copies=len(tensors), bytes=sum(t.nbytes for t in tensors))
+        with span:
+            return self._stage(host_batch)
 
     def _stage_loop(self):
         """The staging thread (``stage_in_producer``): host batches →
@@ -901,14 +895,16 @@ class TorchDataLoader:
             while True:
                 while not done and len(inflight) < self._device_prefetch:
                     t0 = time.perf_counter()
-                    with _profiled("wait"):
+                    with tracing.span("loader.wait") as span:
                         item = (next(direct, _SENTINEL) if direct is not None
                                 else self._queue.get())
+                        if item is _SENTINEL:
+                            span.discard()
                     t1 = time.perf_counter()
                     self._m_stage["wait"].observe(t1 - t0)
                     if direct is not None and item is not _SENTINEL:
                         # The host copies a producer would have made.
-                        with _profiled("decode"):
+                        with tracing.span("loader.decode"):
                             item = self._to_host(item)
                         self._m_stage["decode"].observe(time.perf_counter() - t1)
                     if item is _SENTINEL:
@@ -916,8 +912,6 @@ class TorchDataLoader:
                         if self._producer_error is not None:
                             raise self._producer_error
                         break
-                    if collector.enabled:
-                        collector.record_span("loader.wait", t0, t1)
                     inflight.append(item if self._stage_in_producer
                                     else self._stage_traced(item))
                     item = None
@@ -936,6 +930,8 @@ class TorchDataLoader:
                 t_back = time.perf_counter()
                 batch = None
                 self._m_stage["consumer"].observe(t_back - t_yield)
+                # Not a tracing.span: the caller's own profiler ranges open
+                # and close inside this interval, which no range may span.
                 if collector.enabled:
                     collector.record_span("loader.consumer", t_yield, t_back)
         finally:

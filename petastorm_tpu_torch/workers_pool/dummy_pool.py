@@ -1,6 +1,7 @@
 """Synchronous in-caller-thread pool, for deterministic tests (counterpart
 of ``petastorm_tpu/workers_pool/dummy_pool.py``), with the JAX pool's
-``diagnostics``."""
+``diagnostics``. Each ventilated item's work is one ``reader.decode`` span,
+as in the thread pool, on the ventilating thread."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import time
 import traceback
 from collections import deque
 
+from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.flight import RECORDER
 from petastorm_tpu_torch.workers_pool import (
     EmptyResultError,
@@ -79,7 +81,8 @@ class DummyPool:
         with self._counter_lock:
             self._ventilated_items += 1
         try:
-            self._worker.process(*args, **kwargs)
+            with tracing.span("reader.decode"):
+                self._worker.process(*args, **kwargs)
         except Exception as exc:  # noqa: BLE001 - forwarded to the consumer
             tb = "".join(traceback.format_exception(*sys.exc_info()))
             self._results.append(WorkerException(exc, tb))

@@ -4,7 +4,12 @@ releases the GIL, so threads decode row groups in parallel. Its
 ``diagnostics`` are the JAX pool's live counters, under the same names, and
 it feeds the registry's ``POOL_*`` families as the JAX pool does.
 :meth:`ThreadPool.resize` changes the number of decode threads while the
-pool runs (the autotuner's ``workers_count`` knob)."""
+pool runs (the autotuner's ``workers_count`` knob). Each ventilated item's
+work is one ``reader.decode`` span on its worker's thread, each publish
+into the bounded results queue a ``reader.queue_wait`` span inside it (a
+worker blocked there waits on the consumer), and the consumer's blocking
+in :meth:`ThreadPool.get_results` one ``reader.wait`` span on the
+consumer's (:func:`~petastorm_tpu_torch.telemetry.tracing.span`)."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import threading
 import time
 import traceback
 
+from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.telemetry.flight import RECORDER
 from petastorm_tpu_torch.telemetry.metrics import (
     POOL_ITEMS_PROCESSED,
@@ -103,7 +109,8 @@ class ThreadPool:
         with self._counter_lock:
             self._results_pending += 1
         POOL_RESULTS_QUEUE_DEPTH.inc()
-        self._results_queue.put(item)
+        with tracing.span("reader.queue_wait"):
+            self._results_queue.put(item)
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._threads:
@@ -169,7 +176,8 @@ class ThreadPool:
                 break
             args, kwargs = item
             try:
-                worker.process(*args, **kwargs)
+                with tracing.span("reader.decode"):
+                    worker.process(*args, **kwargs)
             except Exception as exc:  # noqa: BLE001 - forwarded to the consumer
                 tb = "".join(traceback.format_exception(*sys.exc_info()))
                 self._results_queue.put(WorkerException(exc, tb))
@@ -188,6 +196,10 @@ class ThreadPool:
         """The next published payload; raises :class:`EmptyResultError` once
         ventilation is over and everything was consumed, and re-raises
         worker exceptions."""
+        with tracing.span("reader.wait"):
+            return self._next_result(timeout)
+
+    def _next_result(self, timeout):
         deadline = time.monotonic() + timeout
         while True:
             error = getattr(self._ventilator, "error", None)

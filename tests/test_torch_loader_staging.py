@@ -9,7 +9,8 @@ from seeded numpy data (each test writes its own):
 - re-iterating stops and joins both threads;
 - ``host_prefetch`` / ``device_prefetch`` resize the running queues;
 - ``trace_path`` writes Chrome trace JSON with the JAX loader's span
-  names, one wait and one device_put span per batch;
+  names, one wait and one device_put span per batch (its args the batch's
+  copies and their bytes), beside the reader's ``reader.decode`` spans;
 - ``exclude_stall_so_far`` re-bases ``stall_s``; ``diagnostics`` keeps the
   JAX key set; ``autotune`` arms a controller at the first iteration (and
   ``False`` none), stopped with the iteration.
@@ -159,10 +160,19 @@ def test_trace_has_the_jax_span_names(tmp_path, stage_in_producer):
                              trace_path=str(jax_path)) as loader:
         assert len(list(loader)) == 8
     got, want = _span_counts(port_path), _span_counts(jax_path)
+    # The port's reader records into the same collector: one decode span a
+    # row group, but its ventilator starts with the reader and may decode
+    # any number of row groups, all of them too, before the iteration arms
+    # the collector.
+    assert got.pop("reader.decode", 0) <= ROWS // GROUP
     assert set(got) == set(want) == {"loader.decode", "loader.wait", "loader.device_put",
                                      "loader.consumer"}
     assert got == want == {"loader.decode": 8, "loader.wait": 8, "loader.device_put": 8,
                            "loader.consumer": 8}
+    # Each device_put names its copies: id (int64), label (int32), image.
+    puts = [e["args"] for e in json.loads(port_path.read_text())["traceEvents"]
+            if e["ph"] == "B" and e["name"] == "loader.device_put"]
+    assert puts == [{"copies": 3, "bytes": BATCH * (8 + 4 + 10 * 10 * 3)}] * 8
     from petastorm_tpu_torch.telemetry import tracing
 
     assert not tracing.COLLECTOR.enabled  # released at the end of the iteration

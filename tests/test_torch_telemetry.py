@@ -14,6 +14,15 @@ package's, after ``tests/test_telemetry.py``:
   chain;
 - the structured logger's line format;
 - the tracing module's functions over the process collector;
+- ``tracing.span``: into the collector only when armed, on any thread; a
+  profiler range only while a profiler records the calling thread; no
+  torch call with both off; the two sinks on one clock after
+  ``fit_profiler_clock``; the module imports without torch;
+- the program's spans where the work happens: the thread pool's
+  ``reader.decode`` a ventilated item on its worker with its publish's
+  ``reader.queue_wait`` inside, and ``reader.wait`` on the consumer; the
+  LM's and the DLRM's ``step.forward``, ``step.backward`` and
+  ``step.update`` once a step in that order, and ``dlrm.collate``;
 - the loader's ``diagnostics`` derived from its registry series, live,
   rebased by ``exclude_stall_so_far``, ``stage_quantiles``, and the series
   retired when the loader is collected;
@@ -22,13 +31,17 @@ package's, after ``tests/test_telemetry.py``:
   ``VENTILATOR_*`` and ``CACHE_*`` families equal (counts and histogram
   counts, not seconds).
 
-Tolerance: none; everything compared here is exact.
+Tolerance: none, except the clock fit's: after the fit, nine in ten of
+the spans' ends in the two sinks agree to ``FIT_TOLERANCE_US`` and their
+median to a fifth of it.
 """
 
 import gc
 import json
 import logging
 import os
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
@@ -36,6 +49,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from petastorm_tpu.telemetry import registry as jax_registry
 from petastorm_tpu_torch.telemetry import registry as port_registry
@@ -363,6 +377,235 @@ def test_tracing_module_functions(tmp_path):
     assert not COLLECTOR.enabled
     tracing.record_span("loader.decode", 0.0, 1.0)
     assert COLLECTOR.events() == []
+
+
+# -- tracing.span --------------------------------------------------------------
+
+#: How far apart a span's ends may lie in the two sinks after the fit on a
+#: shared CPU: the sinks read their clocks a few microseconds apart, and a
+#: test worker can be descheduled between the two reads.
+FIT_TOLERANCE_US = 100.0
+
+
+@pytest.fixture
+def collector():
+    from petastorm_tpu_torch.telemetry import COLLECTOR
+
+    COLLECTOR.disable()
+    COLLECTOR.clear()
+    try:
+        yield COLLECTOR
+    finally:
+        COLLECTOR.disable()
+        COLLECTOR.clear()
+
+
+def _spans(collector, tid=None):
+    """``(name, tid, args)`` of each recorded span, in begin order."""
+    return [(e["name"], e["tid"], e["args"]) for e in collector.events()
+            if e["ph"] == "B" and (tid is None or e["tid"] == tid)]
+
+
+def _tid():
+    return threading.get_ident() % 1_000_000
+
+
+def _span_on_another_thread(name):
+    from petastorm_tpu_torch.telemetry import tracing
+
+    def record():
+        with tracing.span(name):
+            pass
+
+    thread = threading.Thread(target=record)
+    thread.start()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_span_records_into_the_collector_only_when_armed(collector):
+    from petastorm_tpu_torch.telemetry import tracing
+
+    with tracing.span("off", rows=1) as span:
+        assert not span.armed
+    assert collector.events() == []
+    collector.acquire()
+    with tracing.span("on", rows=2) as span:
+        assert span.armed
+        span.args["bytes"] = 8
+    with tracing.span("dropped") as span:
+        span.discard()
+    _span_on_another_thread("other")
+    collector.release()
+    spans = _spans(collector)
+    assert [(n, a) for n, _, a in spans] == [("on", {"rows": 2, "bytes": 8}), ("other", {})]
+    assert spans[0][1] == _tid() != spans[1][1]
+    begin, end = (e for e in collector.events() if e["name"] == "on")
+    assert begin["ts"] <= end["ts"]
+
+
+def test_span_enters_record_function_only_while_a_profiler_records(collector, monkeypatch):
+    import torch.autograd.profiler as autograd_profiler
+
+    from petastorm_tpu_torch.telemetry import tracing
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler running")
+
+    monkeypatch.setattr(autograd_profiler, "record_function", refuse)
+    with tracing.span("off"):
+        pass
+    collector.acquire()
+    with tracing.span("collector.only"):
+        pass
+    collector.release()
+    monkeypatch.undo()
+    entered = []
+    real = autograd_profiler.record_function
+
+    def spy(name):
+        entered.append((name, _tid()))
+        return real(name)
+
+    monkeypatch.setattr(autograd_profiler, "record_function", spy)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.span("profiled"):
+            pass
+        _span_on_another_thread("elsewhere")
+    assert entered == [("petastorm_tpu_torch.profiled", _tid())]
+    assert "petastorm_tpu_torch.profiled" in {e.key for e in prof.key_averages()}
+    assert [n for n, _, _ in _spans(collector)] == ["collector.only"]
+
+
+def test_spans_in_both_sinks_line_up_after_the_fit(collector, tmp_path):
+    from petastorm_tpu_torch.telemetry import tracing
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing.span("warm_up"):  # the profiler's first range, ~1 ms late
+            pass
+        collector.acquire()
+        for _ in range(20):
+            with tracing.span("loader.wait"):
+                time.sleep(0.001)
+            with tracing.span("step.update"):
+                torch.ones(64).sum()
+        collector.release()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    offset, residuals = tracing.fit_profiler_clock(
+        collector.events(), doc["traceEvents"], _tid(), doc.get("baseTimeNanoseconds", 0))
+    assert len(residuals) == 2 * 2 * 20  # both ends of every span
+    assert {n for _, n, _ in residuals} == {"loader.wait", "step.update"}
+    worst = sorted(abs(r) for _, _, r in residuals)
+    assert worst[len(worst) * 9 // 10] <= FIT_TOLERANCE_US
+    assert worst[len(worst) // 2] <= FIT_TOLERANCE_US / 5
+    # Both clocks read the wall clock at an anchor: they differ by far
+    # less than a second.
+    assert abs(offset) < 1e6
+
+
+def test_tracing_imports_without_torch():
+    code = ("import sys; from petastorm_tpu_torch.telemetry import tracing; "
+            "tracing.COLLECTOR.acquire()\n"
+            "with tracing.span('reader.decode'): pass\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "assert [e['name'] for e in tracing.COLLECTOR.events()] == ['reader.decode'] * 2")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr
+
+
+# -- the program's spans -------------------------------------------------------
+
+class _SleepWorker:
+    """A pool worker that publishes each item back after a short sleep."""
+
+    def __init__(self, worker_id, publish_func, args):
+        self.publish_func = publish_func
+
+    def process(self, item):
+        time.sleep(0.002)
+        self.publish_func(item)
+
+    def shutdown(self):
+        pass
+
+
+def test_thread_pool_records_decode_on_workers_and_wait_on_the_consumer(collector):
+    from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
+
+    pool = ThreadPool(3)
+    collector.acquire()
+    try:
+        pool.start(_SleepWorker)
+        workers = {t.ident % 1_000_000 for t in pool._threads}
+        for i in range(12):
+            pool.ventilate(i)
+        assert sorted(pool.get_results() for _ in range(12)) == list(range(12))
+    finally:
+        pool.stop()
+        pool.join()
+        collector.release()
+    spans = _spans(collector)
+    decode = [tid for name, tid, _ in spans if name == "reader.decode"]
+    queue_wait = [tid for name, tid, _ in spans if name == "reader.queue_wait"]
+    wait = [tid for name, tid, _ in spans if name == "reader.wait"]
+    assert len(decode) == 12 and set(decode) <= workers
+    assert sorted(queue_wait) == sorted(decode)
+    assert wait == [_tid()] * 12
+
+
+def test_dummy_pool_records_one_decode_per_item_on_the_ventilating_thread(collector):
+    from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
+
+    pool = DummyPool()
+    collector.acquire()
+    try:
+        pool.start(_SleepWorker)
+        for i in range(5):
+            pool.ventilate(i)
+        assert [pool.get_results() for _ in range(5)] == list(range(5))
+    finally:
+        pool.stop()
+        pool.join()
+        collector.release()
+    assert _spans(collector) == [("reader.decode", _tid(), {})] * 5
+
+
+def test_lm_step_records_forward_backward_update_once_a_step(collector):
+    from petastorm_tpu_torch.models.long_context_lm import init_lm_params, make_lm_train_step
+
+    model = init_lm_params(0, d_model=16, num_heads=2, num_layers=1, slot_len=8, device="cpu")
+    step = make_lm_train_step(model, learning_rate=0.1, attn_impl="dense")
+    tokens = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(0))
+    positions = torch.arange(8).repeat(2, 1)
+    segments = torch.zeros(2, 8, dtype=torch.int32)
+    collector.acquire()
+    for _ in range(2):
+        step(tokens, positions, segments)
+    collector.release()
+    assert [n for n, _, _ in _spans(collector, _tid())] == \
+        ["step.forward", "step.backward", "step.update"] * 2
+
+
+def test_dlrm_step_records_collate_forward_backward_update_once_a_step(collector):
+    from petastorm_tpu_torch.models.tabular_dlrm import DLRM, collate_dlrm, make_dlrm_train_step
+
+    model = DLRM(vocab_size=32, embed_dim=4, bottom_hidden=8, top_hidden=8,
+                 compute_dtype=torch.float32)
+    step = make_dlrm_train_step(model, 0.05)
+    gen = torch.Generator().manual_seed(0)
+    batch = {f"dense_{i}": torch.rand(6, generator=gen) for i in range(13)}
+    batch.update({f"cat_{i}": torch.randint(0, 32, (6,), generator=gen) for i in range(26)})
+    batch["label"] = torch.randint(0, 2, (6,), generator=gen)
+    collector.acquire()
+    for _ in range(2):
+        dense, sparse, labels = collate_dlrm(batch)
+        step(dense, sparse, labels, torch.ones(6, dtype=torch.bool))
+    collector.release()
+    assert [n for n, _, _ in _spans(collector, _tid())] == \
+        ["dlrm.collate", "step.forward", "step.backward", "step.update"] * 2
 
 
 # -- the loader's registry series ----------------------------------------------
