@@ -50,7 +50,13 @@ non-zero exit code):
    computed and the tiles it loaded (counted) beside the visible pairs, and
    ``torch.nn.functional.scaled_dot_product_attention`` on the same inputs
    as a yardstick (the port never calls it): its forward beside the
-   forward, its backward beside dQ + dK/dV together.
+   forward, its backward beside dQ + dK/dV together. Last, the DLRM's
+   sparse SGD update (``ops/sparse_sgd.py``, ``csrc/sparse_sgd.cu``) at
+   ``SPARSE_SGD``'s shape (the Criteo Terabyte tables, 26 x 1,000,000 x 128
+   f32, and 8,192 x 26 Zipf(1.1) ids; ``sparse_sgd_case``): the tables and
+   the count of touched rows equal the plain version's bit for bit; its
+   device ms and wrapper host ms, the plain version's ms, the bound, and
+   the kernel on the longest run of one row alone.
 3. ``train``: the packed long-context LM at its full configuration (d_model
    64, 4 heads, 2 layers, vocab 64, slot_len 128, 4 slots, f32) for
    ``TRAIN_STEPS`` SGD steps from a generated Parquet corpus: every batch
@@ -133,7 +139,8 @@ non-zero exit code):
    first step's all-reduced gradients equal the mean of the two batches'
    one-process gradients within ``DP_GRAD_REL``; ``agree_max_batches``
    gives the minimum of two unequal counts; each rank's steps/s (transport
-   on one card, not a claim). No flash kernel runs on this path (counted).
+   on one card, not a claim). No flash kernel runs on this path, and
+   (b)'s run launches the sparse SGD kernel once a step (both counted).
 8. ``reader``: the petastorm reader API at the MNIST example's size
    (``READER``; see ``reader_phase``): a row-group index and a selector,
    the example's predicate / drop-partition / local-disk-cache path into
@@ -593,6 +600,13 @@ LOGIT_REL = 1e-4
 # The JAX tabular scenario's store (benchmark/scenarios.py:37-38) and the
 # Criteo example's trainer (examples/criteo_dlrm/train_dlrm.py:40-78).
 TABULAR = dict(rows=40_000, days=8, batch=256, epochs=2, interrupt_after=100)
+# Phase 2's sparse SGD case: the DLRM's table update at the Criteo Terabyte
+# shapes (26 tables of dim 128, each hashed to 1,000,000 rows), batch 8,192,
+# Zipf(1.1) ids over the published cardinalities capped at 40M.
+SPARSE_SGD = dict(rows=1_000_000, dim=128, batch=8192, zipf=1.1, lr=0.01, seed=26)
+CRITEO_CARDINALITIES = (39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+                        2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295,
+                        39664984, 585935, 12972, 108, 36)
 DP = 2  # data-parallel ranks of phase 7, on card 0
 # Phase 8: the MNIST example's path (examples/mnist/generate_petastorm_mnist.py,
 # pytorch_example.py) at the size of MNIST's training split, and the batch
@@ -1132,6 +1146,78 @@ def measure(shape, count_libs):
                      "bound_by": "bytes" if t_bytes > t_ops else "operations",
                      "library_ms": library.get(name)}
     return out, pairs, counts
+
+
+def synced_ms(fn, calls=5):
+    """Median host ms of one ``fn()`` between two synchronises, after one
+    warm-up call: for a function that itself waits on the card, which
+    ``cuda_ms``'s spin cannot time."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def sparse_sgd_case():
+    """The DLRM's sparse table update (``ops/sparse_sgd.py``) at
+    ``SPARSE_SGD``'s shape: the kernel path against the plain version run on
+    the CPU on the named rows, tables and touched counts bit for bit, and
+    every other row unchanged; then the kernel path's device and wrapper
+    host ms (sort and kernel, by ``cuda_ms``), the plain version's on the
+    card (it reads the count of named rows back), the bound (each row
+    gradient and index entry read once, each named row read and written
+    once, at 3.35 TB/s), and the kernel path on the longest run alone."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.ops import sparse_sgd as ss
+
+    cfg = SPARSE_SGD
+    rows, dim, lr = cfg["rows"], cfg["dim"], cfg["lr"]
+    cards = np.array(CRITEO_CARDINALITIES)
+    rng = np.random.RandomState(cfg["seed"])
+    ids = (rng.zipf(cfg["zipf"], (cfg["batch"], cards.size)) - 1) % cards % rows
+    index = (torch.from_numpy(ids).cuda()
+             + torch.arange(cards.size, device="cuda") * rows).reshape(-1)
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    table = torch.empty((cards.size * rows, dim), device="cuda").normal_(0.0, 0.05,
+                                                                         generator=gen)
+    grads = torch.randn((index.numel(), dim), device="cuda", generator=gen)
+    before = table.clone()
+    touched = ss.sparse_sgd_kernel(table, index, grads, lr)
+    # The plain version on the CPU (on the card its index_add_ adds in no
+    # fixed order), on the named rows alone: the rest must be unchanged.
+    named, inverse, counts = torch.unique(index, return_inverse=True, return_counts=True)
+    want = before[named].cpu()
+    want_touched = ss.sparse_sgd_plain(want, inverse.cpu(), grads.cpu(), lr)
+    got = table[named].cpu()
+    before[named] = table[named]
+    if not torch.equal(got, want) or not torch.equal(table, before):
+        fail(f"kernels: sparse_sgd differs from its plain version on "
+             f"{int((got != want).any(1).sum())} named rows and changed "
+             f"{int((table != before).any(1).sum())} others")
+    if not int(touched) == int(want_touched) == named.numel():
+        fail(f"kernels: sparse_sgd touched {int(touched)} rows, its plain version "
+             f"{int(want_touched)}, the index names {named.numel()}")
+    del before
+    ms, host_ms = cuda_ms("sparse_sgd", lambda: ss.sparse_sgd_kernel(table, index, grads, lr),
+                          50)
+    plain_ms = synced_ms(lambda: ss.sparse_sgd_plain(table, index, grads, lr))
+    hot = torch.full((int(counts.max()),), int(named[counts.argmax()]), device="cuda")
+    hot_ms, _ = cuda_ms("sparse_sgd longest run",
+                        lambda: ss.sparse_sgd_kernel(table, hot, grads[:hot.numel()], lr), 50)
+    bound_ms = 1e3 * (index.numel() * (dim * 4 + 8) + 2 * named.numel() * dim * 4) \
+        / HBM_BYTES_PER_S
+    return {"lookups": index.numel(), "rows_named": named.numel(),
+            "longest_run": int(counts.max()), "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "longest_run_ms": hot_ms}
 
 
 def device_busy_pct(trace_path, batch_bytes, first_timed_batch, copies_per_batch=1):
@@ -1920,6 +2006,7 @@ def tabular_phase(smi):
 
     from petastorm_tpu_torch.models import tabular_dlrm as td
     from petastorm_tpu_torch.ops import flash_attention as fa
+    from petastorm_tpu_torch.ops import sparse_sgd as ss
     from petastorm_tpu_torch.reader.reader import make_batch_reader
     from petastorm_tpu_torch.torch_utils.checkpoint import restore_training_state
     from petastorm_tpu_torch.torch_utils.mesh import run_ranks
@@ -1950,8 +2037,10 @@ def tabular_phase(smi):
         # (b) The uninterrupted run, then an identical traced one.
         train = dict(batch_size=cfg["batch"], epochs=cfg["epochs"], device="cuda")
         fa.reset_launch_counts()
+        ss.LAUNCHES["sparse_sgd"] = 0
         base = td.train_dlrm(url, collect_field="sample_index", **train)
         launches = dict(fa.LAUNCHES)
+        sparse_launches = ss.LAUNCHES["sparse_sgd"]
         steps = cfg["epochs"] * rows // cfg["batch"]
         losses = base["losses"]
         first_q, last_q = quarter_means(losses)
@@ -1968,6 +2057,9 @@ def tabular_phase(smi):
                  f"{int((cfg['epochs'] - counts).sum())} short (expected {dropped})")
         if any(launches.values()):
             fail(f"tabular (b): the path launched flash kernels: {launches}")
+        if sparse_launches != base["steps"]:
+            fail(f"tabular (b): {sparse_launches} sparse_sgd launches in {base['steps']} steps "
+                 f"(expected one a step)")
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             traced = td.train_dlrm(url, **train)
@@ -2042,7 +2134,7 @@ def tabular_phase(smi):
           f"peak_mem_mib={base['peak_memory_bytes'] / 2**20:.1f} "
           f"traced_steps_per_s_warm={traced['steps_per_s_warm']:.2f} "
           f"device_busy_pct_traced={busy} dropped_rows={dropped} "
-          f"flash_launches={launches}", flush=True)
+          f"flash_launches={launches} sparse_sgd_launches={sparse_launches}", flush=True)
     print(f"tabular (c): interrupted after {first_steps} steps, resumed for "
           f"{second['steps']} steps; restored parameters bit for bit; "
           f"reread_rows={reread} deficit_rows={deficit} "
@@ -2057,6 +2149,7 @@ def tabular_phase(smi):
           f"agree_max_batches(100, 101)={ranks[0]['agreed']} "
           f"steps_per_s_warm={[round(r['steps_per_s_warm'], 2) for r in ranks]} "
           f"seconds={dp_s:.1f}", flush=True)
+    return {"sparse_sgd_launches": sparse_launches}
 
 
 def loader_phase(smi, image_images_per_s, cfg=IMAGE, device="cuda"):
@@ -6948,6 +7041,15 @@ def main():
             f"sdpa bwd (dq+dk+dv) ms={timing['bwd']['library_ms']:.4f}; "
             f"visible pairs={pairs}; counted on the card: "
             + " ".join(f"{k}={v}" for k, v in counts.items()))
+    sparse = sparse_sgd_case()
+    errs.append(
+        f"| sparse_sgd {len(CRITEO_CARDINALITIES)} x {SPARSE_SGD['rows']} x "
+        f"{SPARSE_SGD['dim']} f32, batch {SPARSE_SGD['batch']}, Zipf({SPARSE_SGD['zipf']}): "
+        f"bit-equal to plain, touched={sparse['rows_named']} of lookups={sparse['lookups']} "
+        f"longest_run={sparse['longest_run']}; ms={sparse['ms']:.4f} "
+        f"host_ms={sparse['host_ms']:.4f} plain_ms={sparse['plain_ms']:.4f} "
+        f"bound_ms={sparse['bound_ms']:.4f} (bytes) "
+        f"longest_run_alone_ms={sparse['longest_run_ms']:.4f}")
     errs.append(f"| timing batches still short of spin: {SPIN_SHORT}")
     print("kernels: " + "; ".join(errs), flush=True)
 
@@ -7034,7 +7136,10 @@ def main():
          "max_abs_err": max_err[name], **timed["lm"][name]}
         for name in ("fwd", "dq", "dkv")],
         "backward": {"name": "flash_dq+flash_dkv", "launches": launches["dq"] + launches["dkv"],
-                     **timed["lm"]["bwd"]}}
+                     **timed["lm"]["bwd"]},
+        "sparse_sgd": {"name": "sparse_sgd", "route": "cuda", "source": source + "sparse_sgd.cu",
+                       "replaces": None, "launches": out["tabular"]["sparse_sgd_launches"],
+                       **sparse}}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

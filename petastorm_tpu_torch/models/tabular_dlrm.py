@@ -14,6 +14,14 @@ checkpoints with the loader's ``state_dict()`` and resumes with
 its row-group shard, the ranks take the same number of steps, and the
 gradients are averaged over the group (data parallel).
 
+Without such a group the SGD step updates only the table rows a batch
+names (``ops/sparse_sgd.py``; on the card ``ops/csrc/sparse_sgd.cu``):
+under plain SGD every other row's gradient is zero and its value stays, so
+the tables end as the dense update leaves them, bit for bit, with no
+table-sized gradient made, zeroed, scaled or added. The JAX step updates
+the tables densely; under a data-parallel group the port does too, and
+all-reduces the dense gradient.
+
 Parameters are float32 and cast to ``compute_dtype`` (bfloat16 by default)
 inside the forward, as the reference does; the logits are float32. Dense
 kernels keep the JAX layout ``[d_in, d_out]`` (``x @ w``).
@@ -48,6 +56,7 @@ from petastorm_tpu_torch.benchmark.scenarios import (  # noqa: F401  (the store'
     make_tabular_dataset,
 )
 from petastorm_tpu_torch.ops.flash_attention import resolve_device
+from petastorm_tpu_torch.ops.sparse_sgd import sparse_sgd
 from petastorm_tpu_torch.telemetry import tracing
 from petastorm_tpu_torch.torch_utils.sharding import (
     all_reduce_grads,
@@ -100,20 +109,44 @@ class DLRM(nn.Module):
                         for part in ("kernel", "bias"))
         return x @ kernel + bias
 
-    def forward(self, dense, sparse_ids):
+    def _ids(self, sparse_ids):
+        """The rank's tables' hashed ids ``[B, S_local]`` (int64)."""
+        local, vocab, _ = self.embeddings.shape
+        return torch.remainder(sparse_ids[:, self._first_table:self._first_table + local],
+                               vocab).long()
+
+    def lookup(self, sparse_ids):
+        """``(index, rows)`` for the sparse update: ``index`` ``[B·S_local]``
+        is each lookup's row in the rank's tables seen as one
+        ``[S_local·vocab, D]`` matrix (``table × vocab + id % vocab``,
+        row-major over ``[B, S_local]``), and ``rows`` ``[B, S_local, D]``
+        the float32 rows it names, gathered without autograd and set to
+        require a gradient: a leaf of their own, for :meth:`forward`'s
+        ``rows``."""
+        local, vocab, dim = self.embeddings.shape
+        ids = self._ids(sparse_ids)
+        index = (ids + torch.arange(local, device=ids.device) * vocab).reshape(-1)
+        with torch.no_grad():
+            rows = self.embeddings.view(-1, dim).index_select(0, index)
+        return index, rows.view(*ids.shape, dim).requires_grad_(True)
+
+    def forward(self, dense, sparse_ids, rows=None):
         """``dense`` float ``[B, num_dense]``, ``sparse_ids`` int
-        ``[B, num_sparse]`` raw ids (hashed ``% vocab_size`` here). With a
-        mesh, ``B`` must divide by the ``"model"`` axis (the exchange splits
-        the batch over it); else ValueError."""
+        ``[B, num_sparse]`` raw ids (hashed ``% vocab_size`` here). ``rows``:
+        the looked-up rows of :meth:`lookup`, in place of looking them up
+        (the same values; the gradient then reaches them, not the tables).
+        With a mesh, ``B`` must divide by the ``"model"`` axis (the exchange
+        splits the batch over it); else ValueError."""
         if self._group is not None and dense.shape[0] % self._model:
             raise ValueError(f"a batch of {dense.shape[0]} rows does not split over the "
                              f"mesh's 'model' axis of {self._model} ranks")
-        emb = self.embeddings.to(self.compute_dtype)
-        local, vocab, _ = emb.shape
-        ids = torch.remainder(sparse_ids[:, self._first_table:self._first_table + local],
-                              vocab).long()                                 # [B, S_local]
-        tables = torch.arange(local, device=ids.device)
-        looked_up = emb[tables, ids]                                        # [B, S_local, D]
+        if rows is None:
+            emb = self.embeddings.to(self.compute_dtype)
+            ids = self._ids(sparse_ids)                                     # [B, S_local]
+            tables = torch.arange(emb.shape[0], device=ids.device)
+            looked_up = emb[tables, ids]                                    # [B, S_local, D]
+        else:
+            looked_up = rows.to(self.compute_dtype)
         if self._group is not None:
             # [B, S/model, D] -> [B/model, S, D], float32 on the wire (bf16
             # values move exactly) since gloo's all-to-all takes no bf16.
@@ -200,35 +233,68 @@ def masked_bce_with_logits(logits, labels, mask):
     return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def dlrm_gradients(model, dense, sparse_ids, labels, mask, group=None):
-    """``(loss, {name: gradient})`` of one batch; under ``group`` each
-    gradient is summed over the ranks (one all-reduce of them all,
-    flattened) and divided by their number, the data-parallel mean. The
-    spans ``step.forward`` (``zero_grad`` and the loss) and
-    ``step.backward`` (the backward and the all-reduce)."""
+def _gradients(model, dense, sparse_ids, labels, mask, group=None, row_leaf=False):
+    """``(loss, index, rows)``: the forward and backward of one batch in
+    the spans ``step.forward`` (``zero_grad``, with ``row_leaf`` the
+    lookup, and the loss) and ``step.backward`` (the backward and, under
+    ``group``, the all-reduce). With ``row_leaf`` the looked-up rows are a
+    leaf of their own (:meth:`DLRM.lookup`): their gradient lands in
+    ``rows.grad`` and the tables get none; else ``index`` and ``rows`` are
+    None and the tables get the dense gradient."""
     with tracing.span("step.forward"):
         model.zero_grad(set_to_none=True)
-        loss = masked_bce_with_logits(model(dense, sparse_ids), labels, mask)
+        index, rows = model.lookup(sparse_ids) if row_leaf else (None, None)
+        loss = masked_bce_with_logits(model(dense, sparse_ids, rows=rows), labels, mask)
     with tracing.span("step.backward"):
         loss.backward()
         all_reduce_grads(model.parameters(), group)
-    return loss.detach(), {name: p.grad for name, p in model.named_parameters()}
+    return loss.detach(), index, rows
+
+
+def dlrm_gradients(model, dense, sparse_ids, labels, mask, group=None):
+    """``(loss, {name: gradient})`` of one batch, the tables' gradient dense
+    (``[S_local, vocab, D]``); under ``group`` each gradient is summed over
+    the ranks (one all-reduce of them all, flattened) and divided by their
+    number, the data-parallel mean. The spans ``step.forward`` (``zero_grad``
+    and the loss) and ``step.backward`` (the backward and the all-reduce)."""
+    loss, _, _ = _gradients(model, dense, sparse_ids, labels, mask, group)
+    return loss, {name: p.grad for name, p in model.named_parameters()}
 
 
 def make_dlrm_train_step(model, learning_rate=0.01, group=None):
     """``step(dense, sparse_ids, labels, mask) -> loss``: one SGD step on
     ``model``'s parameters, in place; ``mask`` is the loader's
     ``__pad_mask__`` (all True when unpadded), so padded rows add nothing.
-    Under ``group`` the gradients are the ranks' mean. The update is the
-    span ``step.update``, after :func:`dlrm_gradients`' two."""
+    The update is the span ``step.update``, after the spans of
+    :func:`dlrm_gradients`.
+
+    Without a data-parallel ``group`` (one process, or a table-parallel
+    model whose only group is its ``"model"`` axis) the tables take the
+    sparse update: the looked-up rows are a leaf of their own, and only the
+    rows the batch names change (:func:`~petastorm_tpu_torch.ops.sparse_sgd.sparse_sgd`,
+    in the span ``dlrm.sparse_update`` with ``lookups``), to the values the
+    dense update gives them; no table-sized gradient is made.
+    ``step.last_touched_rows`` then holds the last step's count of changed
+    rows, a 0-dim tensor on the model's device (reading it waits for the
+    device). Under ``group`` the gradients are the ranks' mean, the tables'
+    dense, as :func:`dlrm_gradients` gives them."""
 
     def step(dense, sparse_ids, labels, mask):
-        loss, grads = dlrm_gradients(model, dense, sparse_ids, labels, mask, group)
+        loss, index, rows = _gradients(model, dense, sparse_ids, labels, mask, group,
+                                       row_leaf=group is None)
         with tracing.span("step.update"), torch.no_grad():
             for name, p in model.named_parameters():
-                p -= learning_rate * grads[name]
+                if index is None or name != "embeddings":
+                    p -= learning_rate * p.grad
+            if index is not None:
+                with tracing.span("dlrm.sparse_update", lookups=index.numel()):
+                    dim = model.embeddings.shape[-1]
+                    step.last_touched_rows = sparse_sgd(
+                        model.embeddings.view(-1, dim), index,
+                        rows.grad.reshape(-1, dim), learning_rate)
         return loss
 
+    step.last_touched_rows = None
     return step
 
 

@@ -20,7 +20,7 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "sparse_sgd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,8 +36,8 @@ def find_nvcc():
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the flash-attention kernels are "
-            "built from ops/csrc at first use")
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+            "ops/csrc at first use")
     return found
 
 
@@ -108,10 +108,13 @@ _ARGTYPES = {
     "ptt_flash_fwd_tile_counts": [_P],
     "ptt_flash_bwd_dq_tile_counts": [_P],
     "ptt_flash_bwd_dkv_tile_counts": [_P],
+    # table, sorted keys, order, grads, touched, N, D, lr, stream
+    "ptt_sparse_sgd": [_P] * 5 + [ctypes.c_longlong, _I, _F, _P],
 }
 _SYMBOL_SOURCE = {"ptt_flash_fwd": "flash_fwd.cu",
                   "ptt_flash_bwd_dq": "flash_bwd_dq.cu",
-                  "ptt_flash_bwd_dkv": "flash_bwd_dkv.cu"}
+                  "ptt_flash_bwd_dkv": "flash_bwd_dkv.cu",
+                  "ptt_sparse_sgd": "sparse_sgd.cu"}
 
 
 def load(lib, symbol):

@@ -21,7 +21,10 @@ CPU tensors) runs every case and writes each rank's results:
   ``tests/test_tabular_dlrm.py::test_sharded_step_matches_unsharded``'s
   inputs and tolerances (bf16: loss 1e-3 relative, parameters rtol / atol
   2e-3) against the JAX step sharded by ``dlrm_partition_specs`` and
-  unsharded and the port's one-process step; in f32 compute, 1e-5;
+  unsharded and the port's one-process step; in f32 compute, 1e-5; and,
+  stepped with no data group (the sparse table update), each rank against
+  the port's one-process step on its data rank's rows, at the same
+  tolerances;
 - each rank's split tensors are ``1/model`` of the whole, in bytes, and a
   table count that does not split raises ValueError, and so does a DLRM
   batch that does not split over ``"model"`` (the exchange splits it).
@@ -127,8 +130,13 @@ def _dlrm(mesh, inputs, compute):
         logits = model(*batch[:2])
     loss = td.make_dlrm_train_step(model, DLRM_LR, group=mesh.group("data"))(*batch)
     state = {k: v.clone() for k, v in model.state_dict().items()}
+    # With no data group the step takes the sparse table update, each data
+    # rank on its own rows.
+    alone = td.shard_dlrm(full, mesh)
+    alone_loss = td.make_dlrm_train_step(alone, DLRM_LR)(*batch)
     return {"logits": logits, "loss": loss, "params": state, "bytes": shard_bytes(state),
-            "full_bytes": shard_bytes(full.state_dict())}
+            "full_bytes": shard_bytes(full.state_dict()), "sparse_loss": alone_loss,
+            "sparse_params": {k: v.clone() for k, v in alone.state_dict().items()}}
 
 
 def _rank_main(rank, out_dir):
@@ -396,6 +404,37 @@ def _port_dlrm(compute):
         logits = model(*batch[:2]).numpy()
     loss = td.make_dlrm_train_step(model, DLRM_LR)(*batch)
     return logits, float(loss), {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_dlrm_rows(compute, d):
+    """The port's one-process step (the sparse table update) on data rank
+    ``d``'s rows: ``(loss, state)``."""
+    from petastorm_tpu_torch.models import tabular_dlrm as td
+
+    inp = _inputs()["dlrm"]
+    rows = slice(d * DLRM_ROWS // 2, (d + 1) * DLRM_ROWS // 2)
+    model = td.params_from_jax(inp["params"], compute_dtype=COMPUTE[compute][0], device="cpu")
+    batch = [torch.from_numpy(inp[k][rows]) for k in ("dense", "ids", "labels", "mask")]
+    loss = td.make_dlrm_train_step(model, DLRM_LR)(*batch)
+    return float(loss), {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("compute", sorted(COMPUTE))
+def test_dlrm_table_parallel_sparse_step(results, compute):
+    """A table-parallel model stepped with no data group takes the sparse
+    update on its table block: each rank ends as the one-process sparse step
+    on its data rank's rows leaves that block."""
+    tol = 1e-5 if compute == "f32" else 2e-3
+    for rank, res in enumerate(results):
+        d, m = _coords(rank)
+        want_loss, want_state = _port_dlrm_rows(compute, d)
+        got = res[f"dlrm_{compute}"]
+        np.testing.assert_allclose(float(got["sparse_loss"]), want_loss, rtol=tol)
+        want = _block(want_state, {"embeddings": 0}, m)
+        for key, value in got["sparse_params"].items():
+            np.testing.assert_allclose(value.numpy(), want[key], rtol=tol, atol=tol,
+                                       err_msg=f"rank {rank} {key}")
 
 
 @pytest.mark.parametrize("compute", sorted(COMPUTE))

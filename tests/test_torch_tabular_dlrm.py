@@ -11,7 +11,10 @@ Tolerances:
 - one SGD step at f32 compute (the JAX step run with ``apply_dlrm`` at
   f32): loss and parameters 1e-5 relative to the largest;
 - the two-rank data-parallel step: gradients 1e-6 relative to the largest
-  against the mean of the one-process gradients of the two batches.
+  against the mean of the one-process gradients of the two batches;
+- the sparse step (no group) against the dense step: equal bit for bit
+  (each named row's contributions summed in the same order, then the same
+  two roundings).
 """
 
 import collections
@@ -147,6 +150,95 @@ def test_pad_mask_zeroes_the_gradient():
     assert abs(float(loss3) - float(loss)) <= 1e-6
 
 
+def _repeated_inputs(cfg, batch=48, seed=3):
+    """Inputs whose ids repeat heavily: 6 distinct raw ids a table, so each
+    named row is named ~8 times a batch, with some rows of each table left
+    unnamed."""
+    x = _inputs(cfg, batch=batch, seed=seed)
+    x["ids"] = np.random.RandomState(seed).randint(0, 6, x["ids"].shape).astype(np.int64) * 5
+    x["mask"][-3:] = False
+    return {k: torch.from_numpy(v) for k, v in x.items()}
+
+
+def _dense_sgd_step(model, x, lr):
+    """The dense path: :func:`dlrm_gradients`, then ``p -= lr * grad`` on every leaf."""
+    loss, grads = td.dlrm_gradients(model, x["dense"], x["ids"], x["labels"], x["mask"])
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p -= lr * grads[name]
+    return loss
+
+
+def test_sparse_step_equals_the_dense_step():
+    """Without a group the step updates only the named table rows, to the
+    dense update's values bit for bit, and leaves the other rows as they
+    were; the MLPs and the losses are the dense path's too."""
+    params, lr = _jax_params(SMALL), 0.05
+    sparse, dense = _port_model(params), _port_model(params)
+    before = sparse.embeddings.detach().clone()
+    step = td.make_dlrm_train_step(sparse, lr)
+    named = set()
+    for seed in range(3):
+        x = _repeated_inputs(SMALL, seed=seed)
+        loss = step(x["dense"], x["ids"], x["labels"], x["mask"])
+        assert torch.equal(loss, _dense_sgd_step(dense, x, lr)), seed
+        index, _ = sparse.lookup(x["ids"])
+        assert int(step.last_touched_rows) == torch.unique(index).numel()
+        named.update(index.tolist())
+    for name, p in sparse.named_parameters():
+        assert torch.equal(p, dict(dense.named_parameters())[name]), name
+    flat, was = sparse.embeddings.detach().view(-1, SMALL["embed_dim"]), before.view(
+        -1, SMALL["embed_dim"])
+    unnamed = sorted(set(range(flat.shape[0])) - named)
+    assert unnamed and torch.equal(flat[unnamed], was[unnamed])
+    assert not torch.equal(flat[sorted(named)], was[sorted(named)])
+
+
+def test_lookup_rows_are_the_forward_s_rows():
+    """``DLRM.lookup``'s flat index names ``table × vocab + id % vocab``, its
+    rows are a leaf, and the forward from them gives the same logits."""
+    model = _port_model(_jax_params(SMALL))
+    x = _inputs(SMALL, batch=16)
+    dense, ids = torch.from_numpy(x["dense"]), torch.from_numpy(x["ids"])
+    index, rows = model.lookup(ids)
+    vocab, dim = SMALL["vocab_size"], SMALL["embed_dim"]
+    want = (torch.remainder(ids, vocab) + torch.arange(SMALL["num_sparse"]) * vocab).reshape(-1)
+    assert torch.equal(index, want)
+    assert rows.is_leaf and rows.requires_grad and rows.shape == (16, SMALL["num_sparse"], dim)
+    assert torch.equal(rows.detach().reshape(-1, dim),
+                       model.embeddings.detach().reshape(-1, dim)[want])
+    with torch.no_grad():
+        assert torch.equal(model(dense, ids, rows=rows), model(dense, ids))
+
+
+def _spans(collector, name):
+    """``(begin ts, end ts, args)`` of each span ``name`` the collector holds."""
+    begins = [e for e in collector.events() if e["name"] == name and e["ph"] == "B"]
+    ends = [e for e in collector.events() if e["name"] == name and e["ph"] == "E"]
+    return [(b["ts"], e["ts"], b["args"]) for b, e in zip(begins, ends)]
+
+
+def test_sparse_update_is_one_span_a_step_inside_the_update():
+    from petastorm_tpu_torch.telemetry import COLLECTOR
+
+    model = _port_model(_jax_params(SMALL))
+    step = td.make_dlrm_train_step(model, 0.05)
+    x = _repeated_inputs(SMALL, batch=24)
+    COLLECTOR.acquire()
+    try:
+        for _ in range(3):
+            step(x["dense"], x["ids"], x["labels"], x["mask"])
+        sparse, update = (_spans(COLLECTOR, name) for name in ("dlrm.sparse_update",
+                                                               "step.update"))
+    finally:
+        COLLECTOR.release()
+        COLLECTOR.clear()
+    assert len(sparse) == len(update) == 3
+    for (t0, t1, args), (u0, u1, _) in zip(sparse, update):
+        assert args == {"lookups": 24 * SMALL["num_sparse"]}
+        assert u0 <= t0 <= t1 <= u1
+
+
 @pytest.fixture(scope="module")
 def store_512(tmp_path_factory):
     url = f"file://{tmp_path_factory.mktemp('criteo')}/criteo"
@@ -204,13 +296,22 @@ def _rank_main(rank, out_dir, url, params):
     _, grads = td.dlrm_gradients(model, *(torch.from_numpy(x[k]) for k in
                                           ("dense", "ids", "labels", "mask")), group=group)
     torch.save({k: v.clone() for k, v in grads.items()}, f"{out_dir}/grads{rank}.pt")
-    trained = td.train_dlrm(url, batch_size=32, epochs=1, device="cpu", group=group,
-                            collect_field="sample_index")
+    from petastorm_tpu_torch.telemetry import COLLECTOR
+
+    COLLECTOR.acquire()
+    try:
+        trained = td.train_dlrm(url, batch_size=32, epochs=1, device="cpu", group=group,
+                                collect_field="sample_index")
+        spans = collections.Counter(e["name"] for e in COLLECTOR.events() if e["ph"] == "B")
+    finally:
+        COLLECTOR.release()
     torch.save(trained["model"].state_dict(), f"{out_dir}/params{rank}.pt")
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump({"steps": trained["steps"],
                    "max_batches": trained["diagnostics"]["max_batches"],
-                   "rows": sorted(trained["collected"].tolist())}, f)
+                   "rows": sorted(trained["collected"].tolist()),
+                   "spans": {name: spans[name] for name in ("step.update",
+                                                            "dlrm.sparse_update")}}, f)
 
 
 @pytest.fixture(scope="module")
@@ -251,3 +352,11 @@ def test_data_parallel_ranks_take_equal_steps_and_end_equal(ranks, store_512):
     assert not set(runs[0]["rows"]) & set(runs[1]["rows"])   # disjoint shards
     first, second = (torch.load(ranks / f"params{r}.pt") for r in range(WORLD))
     assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+def test_data_parallel_steps_keep_the_dense_table_update(ranks):
+    """Under a data-parallel group the step all-reduces the dense table
+    gradient: no ``dlrm.sparse_update`` span in any of its steps."""
+    for rank in range(WORLD):
+        run = json.loads((ranks / f"rank{rank}.json").read_text())
+        assert run["spans"] == {"step.update": run["steps"], "dlrm.sparse_update": 0}

@@ -604,8 +604,11 @@ def test_dlrm_step_records_collate_forward_backward_update_once_a_step(collector
         dense, sparse, labels = collate_dlrm(batch)
         step(dense, sparse, labels, torch.ones(6, dtype=torch.bool))
     collector.release()
+    # Recorded as each span ends: the sparse table update's span (no group)
+    # ends inside step.update's, so it comes first.
     assert [n for n, _, _ in _spans(collector, _tid())] == \
-        ["dlrm.collate", "step.forward", "step.backward", "step.update"] * 2
+        ["dlrm.collate", "step.forward", "step.backward", "dlrm.sparse_update",
+         "step.update"] * 2
 
 
 # -- the loader's registry series ----------------------------------------------
